@@ -6,12 +6,15 @@ frame of a potentials movie. The JAX package `manifold_flow_tpu` is the
 reference this port is held against; the two share module names. This
 package imports neither JAX nor the JAX package.
 
-The solve's hot kernels are hand-written CUDA C++ for sm_90a
-(`csrc/`, wrapped in `kernels.fem`), built with nvcc at the first call that
-gets CUDA tensors; CPU tensors run their plain torch versions.
+The hot kernels of the solve and of the flow stage's analysis are
+hand-written CUDA C++ for sm_90a (`csrc/`, wrapped in `kernels.fem` and
+`kernels.analysis`), built with nvcc at the first call that gets CUDA
+tensors; CPU tensors run their plain torch versions. The S3 flow stage runs
+through `pipeline.stages` and `python -m manifold_flow_tpu_torch.pipeline.cli
+flow`.
 """
 
-from manifold_flow_tpu_torch import fem, geometry, kernels, solve
+from manifold_flow_tpu_torch import fem, geometry, kernels, ops, pipeline, solve, utils
 from manifold_flow_tpu_torch.convert import mesh_from_jax_arrays
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh
 from manifold_flow_tpu_torch.solve.api import compute_velocity_fields
@@ -24,5 +27,8 @@ __all__ = [
     "fem",
     "geometry",
     "kernels",
+    "ops",
+    "pipeline",
     "solve",
+    "utils",
 ]

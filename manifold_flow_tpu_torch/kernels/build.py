@@ -1,7 +1,7 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
 `nvcc` compiles every `csrc/*.cu` for Hopper (`sm_90a`) into a shared
-library with a plain C interface, which `kernels.fem` loads with ctypes. The
+library with a plain C interface, which `kernels._lib` loads with ctypes. The
 library lives in `kernels/_build/` under a name keyed by a hash of the
 sources and the command line, so an edit rebuilds and an unchanged tree
 reuses the last build. Nothing here runs at import.

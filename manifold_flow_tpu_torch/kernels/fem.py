@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels, with their plain torch versions.
+"""Wrappers of the solve's hand-written CUDA kernels (K1-K4), with their
+plain torch versions.
 
 Each wrapper decides by the device of the tensors it is given: CPU tensors
 take the plain version; CUDA tensors launch the kernel (built from
@@ -7,8 +8,9 @@ Every wrapper checks dtype, device, shape and contiguity before either path,
 allocates outputs and scratch with `torch.empty`, launches on the current
 stream, and raises when the C entry point returns a CUDA error.
 
-`LAUNCHES` counts kernel launches by "name<ctype>"; a wrapper adds one where
-it launches its kernel and nowhere else.
+`kernels.LAUNCHES` (see `kernels._lib`, shared with `kernels.analysis`)
+counts kernel launches by "name<ctype>"; a wrapper adds one where it
+launches its kernel and nowhere else.
 
 Shapes below are given at the bench problem (T=97 frames, M=6050 triangles,
 N=3136 vertices, C=6 cells per vertex). Byte counts are the device-memory
@@ -21,98 +23,16 @@ and few launches, not at tiling.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from manifold_flow_tpu_torch.fem import assembly
-from manifold_flow_tpu_torch.kernels import build
-
-_NAMES = ("fem_matvec", "jacobi_blocks", "frame_factors_rhs", "pcg_dot",
-          "pcg_update", "pcg_direction")
-_CTYPES = {torch.float32: ("float", "f32"), torch.float64: ("double", "f64")}
-
-LAUNCHES: dict[str, int] = {f"{name}<{ctype}>": 0 for name in _NAMES
-                            for ctype, _ in _CTYPES.values()}
-
-
-def reset_launches() -> None:
-    """Set every launch count to 0."""
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-
-
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-_ARGTYPES = {
-    "fem_matvec": [_P] * 5 + [_D] + [_P] * 4 + [_I] * 4 + [_P],
-    "jacobi_blocks": [_P] * 3 + [_D] + [_P] * 2 + [_I] * 4 + [_P],
-    "frame_factors_rhs": [_P] * 11 + [_I] * 4 + [_P],
-    "pcg_dot": [_P] * 3 + [_I] * 2 + [_P],
-    "pcg_update": [_P] * 10 + [_I] * 2 + [_P],
-    "pcg_direction": [_P] * 4 + [_I] * 2 + [_P],
-}
-_LIB: ctypes.CDLL | None = None
-
-
-def library() -> ctypes.CDLL:
-    """The kernel library, built and loaded on first use."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build.build()))
-        for name, argtypes in _ARGTYPES.items():
-            for _, suffix in _CTYPES.values():
-                fn = getattr(lib, f"mf_{name}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        lib.mf_error_string.argtypes = [ctypes.c_int]
-        lib.mf_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
-def _on_cuda(*tensors: torch.Tensor | None) -> bool:
-    """False when every tensor is on the CPU, True when all are on one CUDA
-    device; anything else raises."""
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"tensors must share one device; got {sorted(map(str, devices))}")
-    (device,) = devices
-    if device.type == "cpu":
-        return False
-    if device.type == "cuda":
-        return True
-    raise ValueError(f"unsupported device {device}: want cpu or cuda")
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}; got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}; got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
-    if t.dtype not in _CTYPES:
-        raise TypeError(f"{name} must be float32 or float64; got {t.dtype}")
-    return t.dtype
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
-def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    ctype, suffix = _CTYPES[dtype]
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"mf_{name}_{suffix}")(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}<{ctype}> launch failed: CUDA error {err} "
-                           f"({lib.mf_error_string(err).decode()})")
-    LAUNCHES[f"{name}<{ctype}>"] += 1
+from manifold_flow_tpu_torch.kernels._lib import (
+    _check,
+    _float_dtype,
+    _launch,
+    _on_cuda,
+    _ptr,
+)
 
 
 # ------------------------------------------------------------------ plain helpers

@@ -8,18 +8,25 @@ they run without the JAX test configuration:
 
 Tolerances, relative to each output's largest entry: 1e-5 in float32 (the
 kernels contract a*b+c into fused multiply-adds and sum in another order)
-and 1e-12 in float64.
+and 1e-12 in float64. The analysis kernels (K5-K7) round every operation
+separately, in the plain versions' order, so their masks, counts, ids and
+snapped centers must be equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from manifold_flow_tpu_torch import compute_velocity_fields
+from manifold_flow_tpu_torch import compute_velocity_fields, kernels
 from manifold_flow_tpu_torch.fem import assembly
 from manifold_flow_tpu_torch.fem.operator import make_operator
 from manifold_flow_tpu_torch.geometry import synthetic
+from manifold_flow_tpu_torch.kernels import analysis as kan
 from manifold_flow_tpu_torch.kernels import fem as kfem
+from manifold_flow_tpu_torch.ops import recombine
+from manifold_flow_tpu_torch.ops import singularity as sing
+from manifold_flow_tpu_torch.pipeline import stages
+from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve.api import build_rhs
 
 pytestmark = pytest.mark.cuda
@@ -54,10 +61,10 @@ def _assert_close(got, want, dtype):
 
 def _launched(name, dtype, fn):
     ctype = "float" if dtype == torch.float32 else "double"
-    before = kfem.LAUNCHES[f"{name}<{ctype}>"]
+    before = kernels.LAUNCHES[f"{name}<{ctype}>"]
     out = fn()
     torch.cuda.synchronize()
-    assert kfem.LAUNCHES[f"{name}<{ctype}>"] == before + 1
+    assert kernels.LAUNCHES[f"{name}<{ctype}>"] == before + 1
     return out
 
 
@@ -127,10 +134,10 @@ def test_pcg_kernels_match_plain(cuda, dtype):
 @pytest.mark.parametrize("method", ["cg", "refined"])
 def test_solve_on_cuda_matches_cpu(cuda, method):
     mesh, pot, times = _problem(cuda)
-    kfem.reset_launches()
+    kernels.reset_launches()
     got = compute_velocity_fields(mesh, pot, times, method=method, tol=1e-9)
     torch.cuda.synchronize()
-    assert all(kfem.LAUNCHES[f"{k}<double>"] > 0
+    assert all(kernels.LAUNCHES[f"{k}<double>"] > 0
                for k in ("fem_matvec", "frame_factors_rhs", "pcg_dot"))
     want = compute_velocity_fields(mesh.to("cpu"), pot.cpu(), times.cpu(),
                                    method=method, tol=1e-9)
@@ -142,6 +149,119 @@ def test_solve_on_cuda_matches_cpu(cuda, method):
 
 def test_auto_is_refined_on_cuda(cuda):
     mesh, pot, times = _problem(cuda)
-    kfem.reset_launches()
+    kernels.reset_launches()
     compute_velocity_fields(mesh, pot, times, method="auto", tol=1e-9)
-    assert kfem.LAUNCHES["fem_matvec<float>"] > 0
+    assert kernels.LAUNCHES["fem_matvec<float>"] > 0
+
+
+def _flow_problem(device):
+    """A generic (bumpy) surface: on a symmetric one the field's zeros sit on
+    edges and vertices and detections flip on last-ulp differences."""
+    mesh = synthetic.plane_patch(
+        nx=16, ny=16, lx=10.0, ly=10.0, device=device,
+        height=lambda x, y: 0.3 * np.sin(0.9 * x) * np.cos(0.7 * y))
+    pot, times, _ = synthetic.two_source_movie(mesh, n_frames=5)
+    return mesh, pot, times
+
+
+def _assert_same(got, want, dtype):
+    """Integer and bool outputs equal; floats within TOL of the largest
+    finite entry, NaNs (the all-zero frame) in the same places."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if not a.is_floating_point():
+            assert torch.equal(a, b)
+            continue
+        finite = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), finite) and finite.any()
+        scale = max(float(b[finite].abs().max()), 1e-300)
+        assert float((a[finite] - b[finite]).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_analysis_kernels_match_plain(cuda, dtype):
+    mesh, pot, times = _flow_problem(cuda)
+    v_k = compute_velocity_fields(mesh, pot, times, method="cg", tol=1e-10).v_k
+    v_k = torch.cat([v_k, torch.zeros_like(v_k[:1])]).to(dtype)  # + a zero frame
+    basis, points = mesh.basis.to(dtype), mesh.points.to(dtype)
+    got = _launched("recombine_speed", dtype, lambda: kan.recombine_speed(v_k, basis))
+    want = kan.plain_recombine_speed(v_k, basis)
+    _assert_same(got, want, dtype)
+    assert float(got[2][-1]) == 0.0
+
+    args = (points, mesh.triangles, *want, 1e-4)
+    got = _launched("detect_singular", dtype, lambda: kan.detect_singular(*args))
+    want = kan.plain_detect_singular(*args)
+    _assert_same(got, want, dtype)
+    vertex_mask, interior_mask, _, interior_point, counts = want
+    assert int(counts[:-1, 1].min()) > 0 and int(counts[-1].abs().sum()) == 0
+
+    for cap in (8, sing.capacity_for(*counts.amax(dim=0).tolist())):
+        args = (vertex_mask, interior_mask, interior_point, points, cap)
+        got = _launched("compact_detected", dtype, lambda: kan.compact_detected(*args))
+        _assert_same(got, kan.plain_compact_detected(*args), dtype)
+
+
+def test_flow_stage_on_cuda_matches_cpu(cuda):
+    mesh, pot, times = _flow_problem(cuda)
+    cfg = PipelineConfig()
+    cfg.solver.tol = 1e-10
+    cfg.solver.method = "refined"
+    runs = []
+    for m, p, t in ((mesh, pot, times), (mesh.to("cpu"), pot.cpu(), times.cpu())):
+        kernels.reset_launches()
+        vel = stages.velocity_stage(m, p, t, cfg)
+        pts, _, centers = stages.singularity_stage(
+            m, vel.v_world, cfg, speed=vel.speed, v_max=vel.v_max,
+            return_centers=True)
+        runs.append((vel, pts, centers, dict(kernels.LAUNCHES)))
+    (vel, pts, centers, launches), (vel_c, pts_c, centers_c, launches_c) = runs
+    assert all(launches[f"{k}<double>"] > 0 for k in (
+        "recombine_speed", "detect_singular", "compact_detected", "fem_matvec"))
+    assert set(launches_c.values()) == {0}
+    assert vel.converged and vel_c.converged
+    for a, b in ((vel.v_k, vel_c.v_k), (vel.v_world, vel_c.v_world),
+                 (vel.speed, vel_c.speed)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-8 * float(b.abs().max())
+    assert [len(p) for p in pts] == [len(p) for p in pts_c]
+    assert sum(len(p) for p in pts) > 0
+    for a, b, ca, cb in zip(pts, pts_c, centers, centers_c):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-8)
+        np.testing.assert_array_equal(ca, cb)
+
+
+def test_public_ops_on_cuda_raise_or_launch(cuda):
+    """Each public op of the flow stage, given CUDA tensors, launches its
+    counted kernel or raises: none runs a plain version on the card. The
+    counts that size the compaction are K6's own."""
+    mesh, pot, times = _flow_problem(cuda)
+    v_k = compute_velocity_fields(mesh, pot, times, method="cg", tol=1e-10).v_k
+
+    def launched():
+        torch.cuda.synchronize()
+        out = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        kernels.reset_launches()
+        return out
+
+    kernels.reset_launches()
+    v_world = recombine.velocity_to_world(v_k, mesh.basis)
+    assert launched() == {"recombine_speed<double>": 1}
+    v_world, speed, v_max = recombine.velocity_to_world_and_speed(v_k, mesh.basis)
+    assert launched() == {"recombine_speed<double>": 1}
+    with pytest.raises(ValueError, match="velocity_to_world_and_speed"):
+        recombine.world_speed(v_world)
+    with pytest.raises(ValueError, match="velocity_to_world_and_speed"):
+        sing.detect(mesh, v_world)
+    assert launched() == {}
+    field, counts = sing.detect_with_counts(mesh, v_world, speed=speed,
+                                            v_max=v_max)
+    assert launched() == {"detect_singular<double>": 1}
+    assert torch.equal(counts, field.counts.amax(dim=0))
+    assert [int(c) for c in sing.detection_counts(field)] == counts.tolist()
+    cap = sing.compact_capacity(field)
+    assert cap == sing.capacity_for(*counts.tolist()) and launched() == {}
+    rows = sing.compact_all(mesh, field, with_centers=True)
+    assert launched() == {"compact_detected<double>": 1}
+    assert len(rows) == v_k.shape[0] and sum(len(r[2]) for r in rows) > 0
+    sing.compact_detected(mesh, field, capacity=cap)
+    assert launched() == {"compact_detected<double>": 1}

@@ -1,0 +1,269 @@
+"""Recombination, singularity detection, compaction and topology of the
+PyTorch port held against the JAX package, on the CPU.
+
+The mesh is generic (the bumpy patch of tests/test_ops_singularity.py): on a
+symmetric mesh the field's zeros sit exactly on edges and vertices and the
+discrete outputs flip on last-ulp differences. The velocity field is the
+JAX package's cg solve of the two-source movie plus one all-zero frame
+(v_max = 0, where every test is NaN and nothing may be detected); both
+packages get it as the same numpy array.
+
+Tolerances: recombined vectors, speeds and v_max to 1e-12 of the largest
+entry (the same float64 formulas, summed in another order); barycentric
+coordinates and interior points of the detected triangles to 1e-10; masks,
+counts, compacted ids, valid flags and snapped centers equal.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from manifold_flow_tpu.geometry import synthetic as jax_synthetic
+from manifold_flow_tpu.geometry import topology as jax_topology
+from manifold_flow_tpu.ops import recombine as jax_recombine
+from manifold_flow_tpu.ops import singularity as jax_sing
+from manifold_flow_tpu.solve.api import compute_velocity_fields as jax_cvf
+from manifold_flow_tpu_torch import kernels, mesh_from_jax_arrays
+from manifold_flow_tpu_torch.geometry import topology
+from manifold_flow_tpu_torch.kernels import analysis as kan
+from manifold_flow_tpu_torch.ops import recombine
+from manifold_flow_tpu_torch.ops import singularity as sing
+from tests.torch_parity import jax_arrays, rel_err
+
+FLOAT_TOL = 1e-12
+POINT_TOL = 1e-10
+EPS = 1e-4
+
+
+@pytest.fixture(scope="module")
+def problem():
+    jmesh = jax_synthetic.plane_patch(
+        nx=16, ny=16, lx=10.0, ly=10.0,
+        height=lambda x, y: 0.3 * np.sin(0.9 * x) * np.cos(0.7 * y))
+    pot, times, _ = jax_synthetic.two_source_movie(jmesh, n_frames=5)
+    res = jax_cvf(jmesh, jnp.asarray(pot), jnp.asarray(times), method="cg",
+                  tol=1e-12)
+    v_k = np.concatenate([np.asarray(res.v_k),
+                          np.zeros((1, 2 * jmesh.n_vertices))])
+    return jmesh, mesh_from_jax_arrays(jax_arrays(jmesh)), v_k
+
+
+@pytest.fixture(scope="module")
+def fields(problem):
+    jmesh, tmesh, v_k = problem
+    jv = jax_recombine.velocity_to_world(jnp.asarray(v_k), jmesh.basis)
+    jfield, jcounts = jax_sing.detect_with_counts(jmesh, jv, eps=EPS)
+    tv, speed, v_max = recombine.velocity_to_world_and_speed(
+        torch.from_numpy(v_k), tmesh.basis)
+    tfield, tcounts = sing.detect_with_counts(tmesh, tv, eps=EPS, speed=speed,
+                                              v_max=v_max)
+    return jv, jfield, jcounts, tv, speed, tfield, tcounts
+
+
+def test_recombine_matches_jax(problem, fields):
+    jmesh, tmesh, v_k = problem
+    jv, jfield, _, tv, speed, tfield, _ = fields
+    tvk = torch.from_numpy(v_k)
+    assert rel_err(tv.numpy(), np.asarray(jv)) <= FLOAT_TOL
+    assert rel_err(speed.numpy(), np.asarray(jax_recombine.world_speed(jv))) <= FLOAT_TOL
+    assert rel_err(recombine.world_speed(tv).numpy(), speed.numpy()) == 0.0
+    np.testing.assert_allclose(tfield.v_max.numpy()[:-1], np.asarray(jfield.v_max)[:-1],
+                               rtol=FLOAT_TOL, atol=0)
+    assert float(tfield.v_max[-1]) == 0.0 == float(jfield.v_max[-1])
+    batched = recombine.velocity_to_world(tvk[None], tmesh.basis)
+    assert batched.shape == (1, *tv.shape) and torch.equal(batched[0], tv)
+    np.testing.assert_array_equal(recombine.split_components(tvk).numpy(),
+                                  np.asarray(jax_recombine.split_components(v_k)))
+    np.testing.assert_array_equal(recombine.velocity_to_complex(tvk).numpy(),
+                                  np.asarray(jax_recombine.velocity_to_complex(v_k)))
+
+
+def test_detect_matches_jax(fields):
+    _, jfield, jcounts, _, _, tfield, tcounts = fields
+    jmask_v = np.asarray(jfield.vertex_mask)
+    jmask_i = np.asarray(jfield.interior_mask)
+    np.testing.assert_array_equal(tfield.vertex_mask.numpy(), jmask_v)
+    np.testing.assert_array_equal(tfield.interior_mask.numpy(), jmask_i)
+    assert jmask_i[:-1].sum(axis=1).min() > 0, "the field has interior zeros"
+    for got, want in ((tfield.interior_bary, jfield.interior_bary),
+                      (tfield.interior_point, jfield.interior_point)):
+        got, want = got.numpy()[jmask_i], np.asarray(want)[jmask_i]
+        np.testing.assert_allclose(got, want, rtol=POINT_TOL, atol=POINT_TOL)
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
+    assert [int(c) for c in sing.detection_counts(tfield)] == [
+        int(c) for c in jax_sing.detection_counts(jfield)]
+
+
+def test_detect_computes_speed_when_not_given(problem, fields):
+    _, tmesh, _ = problem
+    _, _, _, tv, _, tfield, _ = fields
+    field = sing.detect(tmesh, tv, eps=EPS)
+    for got, want in zip(field, tfield):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError, match="together"):
+        sing.detect(tmesh, tv, speed=recombine.world_speed(tv))
+
+
+def test_speed_from_world_vectors_runs_on_the_cpu_only(problem, fields):
+    """No kernel forms |v| from v_world alone (K5 forms it from the DOFs), so
+    off the CPU `world_speed`, and `detect` without speed and v_max, raise
+    instead of running the plain version there."""
+    _, tmesh, _ = problem
+    tv = fields[3].to("meta")
+    with pytest.raises(ValueError, match="velocity_to_world_and_speed"):
+        recombine.world_speed(tv)
+    with pytest.raises(ValueError, match="velocity_to_world_and_speed"):
+        sing.detect_with_counts(tmesh, tv)
+
+
+def test_counts_come_from_the_detection_kernel(problem, fields):
+    """`detection_counts`, `compact_capacity` and `compact_all` size the
+    compaction from the field's per-frame counts (K6's on CUDA), not by
+    counting the masks again."""
+    _, tmesh, _ = problem
+    tfield, tcounts = fields[5], fields[6]
+    assert tfield.counts.shape == (tfield.vertex_mask.shape[0], 2)
+    np.testing.assert_array_equal(
+        tfield.counts.numpy(),
+        np.stack([tfield.vertex_mask.sum(1), tfield.interior_mask.sum(1)], -1))
+    assert [int(c) for c in sing.detection_counts(tfield)] == tcounts.tolist()
+    bigger = tfield._replace(counts=tfield.counts + 9)
+    assert [int(c) for c in sing.detection_counts(bigger)] == [
+        c + 9 for c in tcounts.tolist()]
+    assert sing.compact_capacity(bigger) == sing.capacity_for(
+        *(c + 9 for c in tcounts.tolist()))
+    rows = sing.compact_all(tmesh, bigger, with_centers=True)
+    want = sing.compact_all(tmesh, tfield, with_centers=True)
+    for got, ref in zip(rows, want):
+        np.testing.assert_array_equal(got[0], ref[0])
+        np.testing.assert_array_equal(got[3], ref[3])
+
+
+def test_zero_frame_detects_nothing(problem, fields):
+    _, tmesh, _ = problem
+    _, _, _, _, _, tfield, _ = fields
+    assert not tfield.vertex_mask[-1].any() and not tfield.interior_mask[-1].any()
+    field, counts = sing.detect_with_counts(
+        tmesh, torch.zeros((2, tmesh.n_vertices, 3), dtype=torch.float64))
+    assert counts.tolist() == [0, 0]
+    assert not field.vertex_mask.any() and not field.interior_mask.any()
+    assert bool(torch.isnan(field.v_max / field.v_max).all())
+
+
+def test_empty_movie_counts_zero(problem):
+    _, tmesh, _ = problem
+    field, counts = sing.detect_with_counts(
+        tmesh, torch.zeros((0, tmesh.n_vertices, 3), dtype=torch.float64))
+    assert counts.tolist() == [0, 0]
+    assert [int(c) for c in sing.detection_counts(field)] == [0, 0]
+    assert sing.compact_capacity(field) == 8
+    assert sing.compact_all(tmesh, field) == []
+
+
+@pytest.mark.parametrize("capacity", [8, None])
+def test_compact_detected_matches_jax(problem, fields, capacity):
+    jmesh, tmesh, _ = problem
+    _, jfield, _, _, _, tfield, _ = fields
+    if capacity is None:
+        capacity = sing.compact_capacity(tfield)
+        assert capacity == jax_sing.compact_capacity(jfield)
+    got = sing.compact_detected(tmesh, tfield, capacity=capacity)
+    want = jax_sing.compact_detected(jmesh, jfield, capacity=capacity)
+    for name in ("vertex_ids", "vertex_valid", "interior_ids", "interior_valid",
+                 "interior_centers"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    np.testing.assert_allclose(got.interior_points.numpy(),
+                               np.asarray(want.interior_points),
+                               rtol=POINT_TOL, atol=POINT_TOL, equal_nan=True)
+
+
+def test_compact_all_and_frame_match_jax(problem, fields):
+    jmesh, tmesh, _ = problem
+    _, jfield, _, _, _, tfield, _ = fields
+    got = sing.compact_all(tmesh, tfield, with_centers=True)
+    want = jax_sing.compact_all(jmesh, jfield, with_centers=True)
+    assert len(got) == len(want) == tfield.vertex_mask.shape[0]
+    for (gp, gk, gi, gc), (wp, wk, wi, wc) in zip(got, want):
+        np.testing.assert_allclose(gp, wp, rtol=POINT_TOL, atol=POINT_TOL)
+        assert gk == wk and [int(i) for i in gi] == [int(i) for i in wi]
+        np.testing.assert_array_equal(gc, wc)
+    for k in (0, len(got) - 1):
+        gp, gk, gi = sing.compact_frame(tmesh, tfield, k)
+        wp, wk, wi = jax_sing.compact_frame(jmesh, jfield, k)
+        np.testing.assert_allclose(gp, wp, rtol=POINT_TOL, atol=POINT_TOL)
+        assert gk == wk and [int(i) for i in gi] == [int(i) for i in wi]
+
+
+def test_closest_vertex_matches_jax(problem):
+    jmesh, tmesh, _ = problem
+    pts = np.asarray(jmesh.points)
+    rng = np.random.default_rng(5)
+    queries = pts[rng.integers(0, len(pts), 40)] + 0.3 * rng.standard_normal((40, 3))
+    queries[:3] = pts[:3]                        # exact hits
+    queries[3] = 0.5 * (pts[0] + pts[1])         # a tie: both at one distance
+    got = topology.closest_vertex(tmesh.points, torch.from_numpy(queries))
+    want = jax_topology.closest_vertex(jnp.asarray(pts), jnp.asarray(queries))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int32 and int(got[3]) == 0
+
+
+def test_edge_queries_match_jax(problem):
+    jmesh, tmesh, _ = problem
+    tris = np.asarray(jmesh.triangles)
+    cells = np.repeat(np.arange(len(tris)), 3)
+    va = tris.reshape(-1)
+    vb = tris[:, [1, 2, 0]].reshape(-1)
+    va = np.concatenate([va, [0]])               # (0, last) is no edge
+    vb = np.concatenate([vb, [jmesh.n_vertices - 1]])
+    cells = np.concatenate([cells, [0]])
+    want = jax.vmap(jax_topology.other_cell_across_edge,
+                    in_axes=(None, None, 0, 0, 0))(
+        jmesh.edges, jmesh.edge_cells, jnp.asarray(cells), jnp.asarray(va),
+        jnp.asarray(vb))
+    got = topology.other_cell_across_edge(
+        tmesh.edges, tmesh.edge_cells, torch.from_numpy(cells),
+        torch.from_numpy(va), torch.from_numpy(vb))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got[-1]) == -1 and (got.numpy() == -1).sum() > 1  # boundary edges
+    want_e = jax.vmap(jax_topology.edge_lookup, in_axes=(None, 0, 0))(
+        jmesh.edges, jnp.asarray(va), jnp.asarray(vb))
+    got_e = topology.edge_lookup(tmesh.edges, torch.from_numpy(va), torch.from_numpy(vb))
+    np.testing.assert_array_equal(got_e.numpy(), np.asarray(want_e))
+
+
+def test_bfs_and_geodesics_match_jax(problem):
+    jmesh, tmesh, _ = problem
+    for source in (0, 37):
+        want = jax_topology.bfs_levels(jmesh.vertex_neighbors, source, 5)
+        got = topology.bfs_levels(tmesh.vertex_neighbors, source, 5)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(
+        topology.geodesic_distance_matrix(tmesh, [0, 37]),
+        jax_topology.geodesic_distance_matrix(jmesh, np.array([0, 37])),
+        rtol=1e-12)
+
+
+def test_analysis_wrappers_check_inputs_and_count_nothing_on_cpu(problem, fields):
+    _, tmesh, v_k = problem
+    _, _, _, tv, speed, tfield, _ = fields
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="shape"):
+        kan.recombine_speed(torch.from_numpy(v_k)[:, :-1].contiguous(), tmesh.basis)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        kan.recombine_speed(torch.from_numpy(v_k).int(), tmesh.basis)
+    with pytest.raises(TypeError, match="torch.int32"):
+        kan.detect_singular(tmesh.points, tmesh.triangles.long(), tv, speed,
+                            tfield.v_max, EPS)
+    with pytest.raises(ValueError, match="capacity"):
+        kan.compact_detected(tfield.vertex_mask, tfield.interior_mask,
+                             tfield.interior_point, tmesh.points, 0)
+    with pytest.raises(ValueError, match="share one device"):
+        kan.recombine_speed(torch.from_numpy(v_k), tmesh.basis.to("meta"))
+    f32 = kan.recombine_speed(torch.from_numpy(v_k).float(), tmesh.basis.float())
+    assert f32[0].dtype == torch.float32
+    assert rel_err(f32[0].numpy(), tv.numpy()) <= 1e-6
+    assert kernels.LAUNCHES == before

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 import manifold_flow_tpu_torch
-from manifold_flow_tpu_torch.kernels import build
+from manifold_flow_tpu_torch import kernels
+from manifold_flow_tpu_torch.kernels import _lib, build
 from manifold_flow_tpu_torch.kernels import fem as kfem
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -18,14 +19,21 @@ PACKAGE = Path(manifold_flow_tpu_torch.__file__).resolve().parent
 
 
 def test_import_pulls_in_no_jax_and_loads_no_kernels():
+    modules = sorted(
+        ".".join(p.relative_to(PACKAGE.parent).with_suffix("").parts)
+        for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
+    assert "manifold_flow_tpu_torch.pipeline.cli" in modules
+    assert "manifold_flow_tpu_torch.kernels.analysis" in modules
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "import manifold_flow_tpu_torch as m\n"
-        "from manifold_flow_tpu_torch.kernels import fem\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'manifold_flow_tpu', 'triton')]\n"
+        "('jax', 'jaxlib', 'manifold_flow_tpu', 'triton', 'yaml', 'pandas')]\n"
         "assert not bad, bad\n"
-        "assert fem._LIB is None\n"
+        "from manifold_flow_tpu_torch.kernels import _lib\n"
+        "assert _lib._LIB is None\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -49,9 +57,10 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
         assert flag in cmd
+    assert "--use_fast_math" not in cmd and "-fmad=false" not in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)
     sources = [Path(a).name for a in cmd if a.endswith(".cu")]
-    assert sources == ["fem_kernels.cu", "pcg_kernels.cu"]
+    assert sources == ["analysis_kernels.cu", "fem_kernels.cu", "pcg_kernels.cu"]
 
 
 def test_library_path_is_keyed_by_sources():
@@ -91,7 +100,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     dinv = torch.randn((t, n, 2, 2), generator=gen, dtype=torch.float64)
     rz = torch.rand(t, generator=gen, dtype=torch.float64)
     pap = torch.tensor([1.0, 0.0, 2.0], dtype=torch.float64)
-    before = dict(kfem.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     z, rz_new, rr = torch.empty_like(x), torch.empty_like(rz), torch.empty_like(rz)
     x0, r0 = x.clone(), r.clone()
     kfem.pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
@@ -105,14 +114,16 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     kfem.pcg_direction(q, z, rz_new, torch.tensor([2.0, 0.0, 1.0], dtype=torch.float64))
     beta = torch.tensor([rz_new[0] / 2.0, 0.0, rz_new[2]], dtype=torch.float64)
     torch.testing.assert_close(q, z + beta[:, None] * p)
-    assert kfem.LAUNCHES == before
-    assert kfem._LIB is None
+    assert kernels.LAUNCHES == before
+    assert _lib._LIB is None
 
 
 def test_reset_launches_zeroes_every_count():
-    kfem.LAUNCHES["pcg_dot<float>"] += 3
-    kfem.reset_launches()
-    assert set(kfem.LAUNCHES.values()) == {0}
-    assert {k.split("<")[0] for k in kfem.LAUNCHES} == {
+    kernels.LAUNCHES["pcg_dot<float>"] += 3
+    kernels.reset_launches()
+    assert set(kernels.LAUNCHES.values()) == {0}
+    assert {k.split("<")[0] for k in kernels.LAUNCHES} == {
         "fem_matvec", "jacobi_blocks", "frame_factors_rhs", "pcg_dot",
-        "pcg_update", "pcg_direction"}
+        "pcg_update", "pcg_direction", "recombine_speed", "detect_singular",
+        "compact_detected"}
+    assert kernels.LAUNCHES is _lib.LAUNCHES
