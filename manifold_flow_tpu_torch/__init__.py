@@ -1,14 +1,16 @@
 """manifold_flow_tpu_torch — the PyTorch/CUDA port of manifold_flow_tpu.
 
 Manifold optical flow on triangulated surfaces, for an NVIDIA H100: P1 finite
-elements on the surface, and a batched matrix-free velocity solve over every
-frame of a potentials movie. The JAX package `manifold_flow_tpu` is the
+elements on the surface, and a batched velocity solve over every frame of a
+potentials movie: matrix-free PCG with block-Jacobi or a two-level
+preconditioner, mixed-precision refinement, windows for long movies, and a
+dense Cholesky direct solve. The JAX package `manifold_flow_tpu` is the
 reference this port is held against; the two share module names. This
 package imports neither JAX nor the JAX package.
 
 The hot kernels of the solve and of the flow stage's analysis are
-hand-written CUDA C++ for sm_90a (`csrc/`, wrapped in `kernels.fem` and
-`kernels.analysis`), built with nvcc at the first call that gets CUDA
+hand-written CUDA C++ for sm_90a (`csrc/`, wrapped in `kernels.fem`,
+`kernels.coarse` and `kernels.analysis`), built with nvcc at the first call that gets CUDA
 tensors; CPU tensors run their plain torch versions. The S3 flow stage runs
 through `pipeline.stages` and `python -m manifold_flow_tpu_torch.pipeline.cli
 flow`.

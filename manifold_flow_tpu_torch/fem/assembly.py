@@ -14,6 +14,8 @@ package. On the solve's main path the per-frame pieces go through the CUDA
 kernels of `kernels.fem` instead (frame factors and RHS, the reduction, the
 block-Jacobi build); only the frame-independent tables (`a2_blocks`,
 `corner_regularization`, `gather_base_table`) are built here on every device.
+The dense blocks and matrices (`a1_blocks`, `scatter_dense`, `dense_a2`)
+serve the direct solver (solve.cholesky) on every device.
 """
 
 from __future__ import annotations
@@ -85,6 +87,35 @@ def rhs_vector(mesh: TriMesh, g: torch.Tensor, dI: torch.Tensor) -> torch.Tensor
     scale = (di_tri + s) * (mesh.areas / 12.0)[:, None]
     f_loc = g * scale[..., None]
     return reduce_local(mesh, f_loc.reshape(f_loc.shape[0], -1, 6))
+
+
+def a1_blocks(mesh: TriMesh, g: torch.Tensor) -> torch.Tensor:
+    """Dense per-frame data blocks (T, M, 6, 6): g_i^a g_j^b (A/12)(1 + delta_ij).
+
+    As in the JAX package, the weights take the mesh's areas as they are, so
+    the blocks come out in the promoted dtype of g and the mesh.
+    """
+    eye = torch.eye(3, dtype=g.dtype, device=g.device)
+    w = (torch.ones_like(eye) + eye) * (mesh.areas[:, None, None] / 12.0)
+    gw = g.to(w.dtype)
+    blocks = torch.einsum("tmia,tmjb,mij->tmiajb", gw, gw, w)
+    return blocks.reshape(g.shape[0], g.shape[1], 6, 6)
+
+
+def scatter_dense(mesh: TriMesh, blocks: torch.Tensor) -> torch.Tensor:
+    """Sum per-triangle blocks (..., M, 6, 6) into dense (..., 2N, 2N)."""
+    dof = local_dof_indices(mesh).long()
+    nd = mesh.n_dof
+    flat_idx = (dof[:, :, None] * nd + dof[:, None, :]).reshape(-1)
+    lead = blocks.shape[:-3]
+    out = blocks.new_zeros((*lead, nd * nd))
+    out.index_add_(-1, flat_idx, blocks.reshape(*lead, -1))
+    return out.reshape(*lead, nd, nd)
+
+
+def dense_a2(mesh: TriMesh) -> torch.Tensor:
+    """Dense (2N, 2N) regularization matrix (the direct solver's)."""
+    return scatter_dense(mesh, a2_blocks(mesh))
 
 
 def corner_regularization(mesh: TriMesh, dtype: torch.dtype) -> torch.Tensor:

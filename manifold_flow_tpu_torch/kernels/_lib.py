@@ -35,6 +35,11 @@ _ARGTYPES = {
     "recombine_speed": [_P] * 5 + [_I] * 2 + [_P],
     "detect_singular": [_P] * 5 + [_D] + [_P] * 5 + [_I] * 3 + [_P],
     "compact_detected": [_P] * 10 + [_I] * 5 + [_P],
+    # coarse_kernels.cu (kernels.coarse)
+    "coarse_assemble": [_P] * 8 + [_D] + [_P] * 2 + [_I] * 5 + [_P],
+    "coarse_restrict": [_P] * 4 + [_I] * 4 + [_P],
+    "coarse_gemv": [_P] * 3 + [_I] * 3 + [_P],
+    "coarse_prolong_dot": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 LAUNCHES: dict[str, int] = {f"{name}<{ctype}>": 0 for name in _ARGTYPES

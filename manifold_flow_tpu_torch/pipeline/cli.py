@@ -10,8 +10,8 @@ GPU and raises when there is none; `cpu` runs their plain torch versions.
 
 It writes e.csv, V_k.csv, wave_velocity_opticalflow.pkl.bz2 and
 singularity_points.pkl, and prints one JSON line. Not ported yet, and
-raising NotImplementedError: --classify (ROADMAP Queue A item 10) and
---method cholesky (item 4b). The other subcommands are item 14.
+raising NotImplementedError: --classify (ROADMAP Queue A item 10). The
+other subcommands are item 14.
 """
 
 from __future__ import annotations
@@ -63,10 +63,6 @@ def cmd_flow(args):
 
     if args.classify:
         raise NotImplementedError(stages.CLASSIFY_NOT_PORTED)
-    if args.method == "cholesky":
-        raise NotImplementedError(
-            "--method cholesky is not ported yet: ROADMAP Queue A item 4b "
-            "(solve/cholesky.py)")
     device = _device(args.device)
     cfg = _load_config(args)
     if args.tol:

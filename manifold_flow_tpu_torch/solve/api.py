@@ -15,15 +15,18 @@ from manifold_flow_tpu_torch.fem import assembly
 from manifold_flow_tpu_torch.fem.operator import block_jacobi_inverse, make_operator
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh
 from manifold_flow_tpu_torch.kernels import fem as kfem
+from manifold_flow_tpu_torch.solve import coarse
 from manifold_flow_tpu_torch.solve.cg import solve_cg
+from manifold_flow_tpu_torch.solve.cholesky import solve_cholesky
 from manifold_flow_tpu_torch.solve.refine import DEFAULT_INNER_TOL, solve_refined
 
 # precond='auto' picks the two-level preconditioner from this many vertices
-# up in the JAX package (a crossover measured on a TPU); the port has only
-# block-Jacobi so far, so 'auto' at this size raises instead.
+# up: the JAX package's crossover (measured on a TPU), kept for parity;
+# chip_smoke.py measures both preconditioners on either side of it.
 TWO_LEVEL_MIN_VERTICES = 6000
-# Movies longer than this many velocity frames are solved in chunks by the
-# JAX package under frame_chunk='auto'; the port does not chunk yet.
+# frame_chunk='auto' solves movies of more than FRAME_CHUNK_AUTO_MIN velocity
+# frames in windows of FRAME_CHUNK_SIZE frames (the JAX package's values).
+FRAME_CHUNK_SIZE = 104
 FRAME_CHUNK_AUTO_MIN = 160
 
 METHODS = ("cg", "refined", "cholesky", "auto")
@@ -35,6 +38,9 @@ class VelocityResult(NamedTuple):
     iterations: int           # CG iterations (inner iterations for 'refined')
     residual: torch.Tensor    # (T-1,) final |f - A x| per frame
     converged: torch.Tensor   # (T-1,) bool per frame
+    coarse_zeroed: int = 0    # coarse matrices whose factorization failed, so
+                              # their inverse was zeroed (two-level only),
+                              # summed over the windows of a chunked solve
 
 
 def build_rhs(mesh: TriMesh, potentials: torch.Tensor, times: torch.Tensor,
@@ -56,6 +62,35 @@ def build_rhs(mesh: TriMesh, potentials: torch.Tensor, times: torch.Tensor,
         mesh.areas.to(dtype), assembly.gather_base_table(mesh))
 
 
+def _chunked_velocity_fields(mesh: TriMesh, potentials: torch.Tensor,
+                             times: torch.Tensor, chunk: int,
+                             kwargs: dict) -> VelocityResult:
+    """A long movie solved as contiguous windows of chunk + 1 potentials,
+    each by the unchunked solve, one after the other on the host (the JAX
+    package sequences the same windows with one lax.map program).
+
+    The last window shifts back to end at the movie's end; its overlap
+    re-solves frames whose first solutions are kept. Frame k comes from
+    window min(k // chunk, n - 1) at offset k - start. Each window runs its
+    own convergence loop, so `iterations` reports the largest count.
+    """
+    t_v = potentials.shape[0] - 1
+    n_chunks = -(-t_v // chunk)
+    parts = []
+    for j in range(n_chunks):
+        start = min(j * chunk, t_v - chunk)
+        res = compute_velocity_fields(
+            mesh, potentials[start: start + chunk + 1],
+            times[start: start + chunk + 1], frame_chunk=None, **kwargs)
+        # The frames k this window supplies, as offsets k - start.
+        keep = slice(j * chunk - start, min((j + 1) * chunk, t_v) - start)
+        parts.append((res.v_k[keep], res.iterations, res.residual[keep],
+                      res.converged[keep], res.coarse_zeroed))
+    v_k, iters, resid, conv, zeroed = zip(*parts)
+    return VelocityResult(torch.cat(v_k), mesh.basis, max(iters),
+                          torch.cat(resid), torch.cat(conv), sum(zeroed))
+
+
 def compute_velocity_fields(
     mesh: TriMesh,
     potentials,
@@ -64,8 +99,11 @@ def compute_velocity_fields(
     method: str = "cg",
     tol: float = 1e-10,
     max_iter: int = 2000,
+    refine_steps: int = 2,
     potentials_next=None,
     precond: str = "auto",
+    coarse_passes: int | None = None,
+    coarse_a1: str = "full",
     inner_tol=DEFAULT_INNER_TOL,
     frame_chunk="auto",
 ) -> VelocityResult:
@@ -76,23 +114,32 @@ def compute_velocity_fields(
       potentials: (T, N) scalar field movie (tensor or array).
       times: (T,) frame times in seconds.
       lambda_: regularization weight (config.yaml:3, default 0.01).
-      method: 'cg' (batched block-Jacobi PCG in the movie's dtype),
-        'refined' (f32 inner PCG with f64 residuals; needs float64 inputs),
-        or 'auto' ('refined' for float64 movies on CUDA, else 'cg').
-        'cholesky' is not ported yet.
-      precond: 'jacobi', or 'auto' (Jacobi below TWO_LEVEL_MIN_VERTICES).
-        'two_level', and 'auto' on larger meshes, are not ported yet.
+      method: 'cg' (batched PCG in the movie's dtype), 'refined' (f32 inner
+        PCG with f64 residuals; needs float64 inputs), 'cholesky' (batched
+        dense Cholesky with refinement, solve.cholesky), or 'auto'
+        ('refined' for float64 movies on CUDA, else 'cg').
+      refine_steps: ('cholesky') refinement steps. The JAX package's
+        `batch_size` is not taken: the port factors one frame at a time.
+      precond: ('cg', 'refined') 'jacobi', 'two_level' (block-Jacobi plus
+        the aggregation coarse correction, solve.coarse), or 'auto':
+        two_level from TWO_LEVEL_MIN_VERTICES vertices up, else jacobi.
+      coarse_passes: aggregation passes of the coarse space; None deepens
+        until it has at most solve.coarse.MAX_COARSE_SIZE aggregates.
+      coarse_a1: the coarse matrices' data term, 'full' (per frame) or
+        'mean' (averaged over frames: one shared matrix).
       inner_tol: ('refined') tolerance of each f32 inner solve; a sequence
         gives per-outer-step tolerances (the last entry repeats).
-      frame_chunk: 'auto' or an int, as in the JAX package; a solve that
-        would be chunked (more than FRAME_CHUNK_AUTO_MIN velocity frames
-        under 'auto', more than `frame_chunk` frames for an int) is not
-        ported yet. None solves the whole movie at once.
+      frame_chunk: 'auto' solves movies of more than FRAME_CHUNK_AUTO_MIN
+        velocity frames in windows of FRAME_CHUNK_SIZE frames; an int >= 1
+        sets the window; None solves the whole movie at once. No window is
+        used when `potentials_next` is given. Frames are independent
+        systems, so each window converges to the same tolerance.
     """
     if method not in METHODS:
         raise ValueError(f"unknown method: {method!r} (want one of {METHODS})")
     if precond not in ("jacobi", "two_level", "auto"):
         raise ValueError(f"unknown precond: {precond!r}")
+    coarse.check_a1_mode(coarse_a1)
     potentials = torch.as_tensor(potentials, device=mesh.device)
     movie_dtype = potentials.dtype
     if not potentials.is_floating_point():
@@ -116,32 +163,6 @@ def compute_velocity_fields(
             raise ValueError(
                 f"potentials_next must match potentials {tuple(potentials.shape)}; "
                 f"got {tuple(potentials_next.shape)}")
-
-    t_v = potentials.shape[0] - 1
-    if frame_chunk == "auto":
-        chunked = t_v > FRAME_CHUNK_AUTO_MIN and potentials_next is None
-    elif frame_chunk is None:
-        chunked = False
-    else:
-        if int(frame_chunk) < 1:
-            raise ValueError(f"frame_chunk must be >= 1; got {frame_chunk!r}")
-        chunked = t_v > int(frame_chunk) and potentials_next is None
-    if chunked:
-        raise NotImplementedError(
-            f"a frame-chunked solve ({t_v} velocity frames, frame_chunk="
-            f"{frame_chunk!r}) is not ported yet: ROADMAP Queue A item 9. "
-            "Pass frame_chunk=None to solve the whole movie at once.")
-    if precond == "two_level" or (precond == "auto"
-                                  and mesh.n_vertices >= TWO_LEVEL_MIN_VERTICES):
-        raise NotImplementedError(
-            f"precond={precond!r} at {mesh.n_vertices} vertices needs the "
-            "two-level preconditioner, which is not ported yet: ROADMAP Queue A "
-            "item 8 (solve/coarse.py, kernels B6/B7). precond='jacobi' runs "
-            "block-Jacobi at any size.")
-    if method == "cholesky":
-        raise NotImplementedError(
-            "method='cholesky' is not ported yet: ROADMAP Queue A item 4b "
-            "(solve/cholesky.py)")
     if method == "auto":
         method = ("refined" if potentials.is_cuda
                   and movie_dtype == torch.float64 else "cg")
@@ -149,13 +170,48 @@ def compute_velocity_fields(
         raise ValueError(
             f"method='refined' needs float64 potentials; got {movie_dtype}")
 
+    t_v = potentials.shape[0] - 1
+    if frame_chunk == "auto":
+        chunk = FRAME_CHUNK_SIZE if t_v > FRAME_CHUNK_AUTO_MIN else None
+    elif frame_chunk is None:
+        chunk = None
+    else:
+        chunk = int(frame_chunk)
+        if chunk < 1:
+            raise ValueError(f"frame_chunk must be >= 1; got {frame_chunk!r}")
+    if chunk is not None and t_v > chunk and potentials_next is None:
+        return _chunked_velocity_fields(mesh, potentials, times, chunk, dict(
+            lambda_=lambda_, method=method, tol=tol, max_iter=max_iter,
+            refine_steps=refine_steps, precond=precond,
+            coarse_passes=coarse_passes, coarse_a1=coarse_a1,
+            inner_tol=inner_tol))
+
+    tables = None
+    if method in ("cg", "refined") and (
+            precond == "two_level" or (precond == "auto"
+                                       and mesh.n_vertices >= TWO_LEVEL_MIN_VERTICES)):
+        tables = coarse.build_tables(mesh, passes=coarse_passes)
+
     g, f = build_rhs(mesh, potentials, times, potentials_next)
     if method == "refined":
         res = solve_refined(mesh, g, f, lambda_=lambda_, tol=tol,
-                            inner_tol=inner_tol, max_iter=max_iter)
-    else:
-        res = solve_cg(make_operator(mesh, g, lambda_), f,
-                       block_jacobi_inverse(mesh, g, lambda_), tol=tol,
-                       max_iter=max_iter)
-    return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
-                          res.converged)
+                            inner_tol=inner_tol, max_iter=max_iter,
+                            coarse_tables=tables, coarse_a1=coarse_a1)
+        return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
+                              res.converged, res.coarse_zeroed)
+    op = make_operator(mesh, g, lambda_)
+    if method == "cg":
+        if tables is None:
+            pre, zeroed = block_jacobi_inverse(mesh, g, lambda_), 0
+        else:
+            pre = coarse.make_two_level(mesh, g, lambda_, tables, a1_mode=coarse_a1)
+            zeroed = int(pre.zeroed.sum())
+        res = solve_cg(op, f, pre, tol=tol, max_iter=max_iter)
+        return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
+                              res.converged, zeroed)
+    x = solve_cholesky(mesh, op, f, refine_steps=refine_steps)
+    r = op.residual(f, x)
+    rn = torch.sqrt(kfem.pcg_dot(r, r))
+    fn = torch.sqrt(kfem.pcg_dot(f, f))
+    target = tol * torch.clamp_min(fn, torch.finfo(f.dtype).tiny)
+    return VelocityResult(x, mesh.basis, 0, rn, rn <= target)

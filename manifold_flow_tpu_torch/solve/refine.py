@@ -11,8 +11,10 @@ the solve iterates
 The H100 has native float64, so the residual is the f64 instance of the
 `fem_matvec` kernel with the subtraction fused in; the JAX package's
 two-float32 (DF) arithmetic, which exists because the TPU has no f64 units,
-has no counterpart here. The temporal warm start (`anchor_stride`) and the
-two-level preconditioner (`coarse_tables`) are not ported yet.
+has no counterpart here. The inner preconditioner is block-Jacobi, or with
+`coarse_tables` the two-level one (solve.coarse), built from the f32
+operator as the JAX package builds it. The temporal warm start
+(`anchor_stride`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from manifold_flow_tpu_torch.fem.operator import (
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh
 from manifold_flow_tpu_torch.kernels import fem as kfem
 from manifold_flow_tpu_torch.solve.cg import solve_cg
+from manifold_flow_tpu_torch.solve.coarse import CoarseTables, make_two_level
 
 # Inner tolerance schedule measured best for the bench problem by the JAX
 # package (tight first step, looser later ones); the last entry repeats.
@@ -62,6 +65,8 @@ class RefineResult(NamedTuple):
     residual: torch.Tensor    # (T,) final |f - A x|
     converged: torch.Tensor   # (T,) bool
     outer_steps: int = 0      # refinement steps executed
+    coarse_zeroed: int = 0    # coarse matrices of the inner two-level
+                              # preconditioner whose inverse was zeroed
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -70,11 +75,20 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
                 tol: float = 1e-8, inner_tol=DEFAULT_INNER_TOL,
-                max_iter: int = 2000, refine_steps: int = 8) -> RefineResult:
+                max_iter: int = 2000, refine_steps: int = 8,
+                coarse_tables: CoarseTables | None = None,
+                coarse_a1: str = "full") -> RefineResult:
     """The refinement iteration given the f64 operator and RHS f (T, 2N)."""
-    # The f32 operator is the f64 one rounded to f32, as in the JAX package.
+    # The f32 operator is the f64 one rounded to f32, as in the JAX package,
+    # and so is the inner preconditioner's.
     op32 = op64.astype(torch.float32)
-    pre32 = block_jacobi_inverse(mesh, op32.g, op32.lambda_)
+    if coarse_tables is not None:
+        pre32 = make_two_level(mesh, op32.g, op32.lambda_, coarse_tables,
+                               a1_mode=coarse_a1)
+        zeroed = int(pre32.zeroed.sum())
+    else:
+        pre32 = block_jacobi_inverse(mesh, op32.g, op32.lambda_)
+        zeroed = 0
     # JAX takes the target from the f32 norm of the DF high part of f; here
     # the f64 norm is cast to f32, which moves the stopping point by at most
     # the last ulp of the target.
@@ -96,13 +110,16 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
         step += 1
     rn = _norm(r)
     return RefineResult(x=x, iterations=total_iters, residual=rn,
-                        converged=rn <= target, outer_steps=step)
+                        converged=rn <= target, outer_steps=step,
+                        coarse_zeroed=zeroed)
 
 
 def solve_refined(mesh: TriMesh, g: torch.Tensor, f: torch.Tensor,
                   lambda_: float = 0.01, tol: float = 1e-8,
                   inner_tol=DEFAULT_INNER_TOL, max_iter: int = 2000,
-                  refine_steps: int = 8) -> RefineResult:
+                  refine_steps: int = 8,
+                  coarse_tables: CoarseTables | None = None,
+                  coarse_a1: str = "full") -> RefineResult:
     """Solve (a1_k + lambda a2) x_k = f_k for all frames to f64 accuracy.
 
     Args:
@@ -116,10 +133,14 @@ def solve_refined(mesh: TriMesh, g: torch.Tensor, f: torch.Tensor,
       max_iter: per-inner-solve iteration cap.
       refine_steps: outer iteration cap; the loop exits as soon as every
         frame passes `tol`.
+      coarse_tables: solve.coarse.build_tables(mesh) for the two-level
+        inner preconditioner; None uses block-Jacobi.
+      coarse_a1: the coarse data term, 'full' or 'mean' (solve.coarse).
     """
     if g.dtype != torch.float64 or f.dtype != torch.float64:
         raise ValueError(
             f"solve_refined needs float64 inputs; got {g.dtype} and {f.dtype}")
     return refine_loop(mesh, make_operator(mesh, g, lambda_), f, tol=tol,
                        inner_tol=inner_tol, max_iter=max_iter,
-                       refine_steps=refine_steps)
+                       refine_steps=refine_steps, coarse_tables=coarse_tables,
+                       coarse_a1=coarse_a1)

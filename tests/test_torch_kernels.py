@@ -8,7 +8,8 @@ they run without the JAX test configuration:
 
 Tolerances, relative to each output's largest entry: 1e-5 in float32 (the
 kernels contract a*b+c into fused multiply-adds and sum in another order)
-and 1e-12 in float64. The analysis kernels (K5-K7) round every operation
+and 1e-12 in float64; the same for K8's coarse matrices, a sum of each
+entry's contributions reordered against the plain version's. The analysis kernels (K5-K7) round every operation
 separately, in the plain versions' order, so their masks, counts, ids and
 snapped centers must be equal.
 """
@@ -22,11 +23,13 @@ from manifold_flow_tpu_torch.fem import assembly
 from manifold_flow_tpu_torch.fem.operator import make_operator
 from manifold_flow_tpu_torch.geometry import synthetic
 from manifold_flow_tpu_torch.kernels import analysis as kan
+from manifold_flow_tpu_torch.kernels import coarse as kco
 from manifold_flow_tpu_torch.kernels import fem as kfem
 from manifold_flow_tpu_torch.ops import recombine
 from manifold_flow_tpu_torch.ops import singularity as sing
 from manifold_flow_tpu_torch.pipeline import stages
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+from manifold_flow_tpu_torch.solve import coarse
 from manifold_flow_tpu_torch.solve.api import build_rhs
 
 pytestmark = pytest.mark.cuda
@@ -131,7 +134,7 @@ def test_pcg_kernels_match_plain(cuda, dtype):
     _assert_close(outs[0], outs[1], dtype)
 
 
-@pytest.mark.parametrize("method", ["cg", "refined"])
+@pytest.mark.parametrize("method", ["cg", "refined", "cholesky"])
 def test_solve_on_cuda_matches_cpu(cuda, method):
     mesh, pot, times = _problem(cuda)
     kernels.reset_launches()
@@ -141,6 +144,55 @@ def test_solve_on_cuda_matches_cpu(cuda, method):
                for k in ("fem_matvec", "frame_factors_rhs", "pcg_dot"))
     want = compute_velocity_fields(mesh.to("cpu"), pot.cpu(), times.cpu(),
                                    method=method, tol=1e-9)
+    assert bool(got.converged.all())
+    assert abs(got.iterations - want.iterations) <= 2
+    err = float((got.v_k.cpu() - want.v_k).abs().max()) / float(want.v_k.abs().max())
+    assert err <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("a1_mode", ["full", "mean"])
+def test_coarse_kernels_match_plain(cuda, dtype, a1_mode):
+    mesh, pot, times = _problem(cuda)
+    g, _ = build_rhs(mesh, pot, times)
+    op = make_operator(mesh, g, 0.01).astype(dtype)
+    tables = coarse.build_tables(mesh, passes=1)
+    r_blk = coarse.prolongation_blocks(mesh, tables, dtype)
+    args = (op.g, op.blocks2, r_blk, mesh.triangles, mesh.areas.to(dtype) / 12.0,
+            op.lambda_, tables.asm_ptr, tables.asm_src, tables.asm_dst,
+            tables.n_coarse, a1_mode == "mean")
+    got = _launched("coarse_assemble", dtype, lambda: kco.coarse_assemble(*args))
+    _assert_close([got], [kco.plain_coarse_assemble(*args)], dtype)
+
+    pre = coarse.make_two_level(mesh, op.g, op.lambda_, tables, a1_mode=a1_mode)
+    gen = torch.Generator().manual_seed(4)
+    r, z = (torch.randn((g.shape[0], mesh.n_dof), generator=gen,
+                        dtype=torch.float64).to(cuda, dtype) for _ in range(2))
+    rc = _launched("coarse_restrict", dtype,
+                   lambda: kco.coarse_restrict(r, pre.r_blk, pre.members))
+    _assert_close([rc], [kco.plain_coarse_restrict(r, pre.r_blk, pre.members)], dtype)
+    yc = _launched("coarse_gemv", dtype, lambda: kco.coarse_gemv(pre.ac_inv, rc))
+    _assert_close([yc], [kco.plain_coarse_gemv(pre.ac_inv, rc)], dtype)
+    outs = []
+    for fn in (kco.coarse_prolong_dot, kco.plain_coarse_prolong_dot):
+        zs, rz = z.clone(), torch.empty(g.shape[0], dtype=dtype, device=cuda)
+        fn(zs, r, yc, pre.r_blk, pre.agg, rz)
+        outs.append((zs, rz))
+    torch.cuda.synchronize()
+    _assert_close(outs[0], outs[1], dtype)
+
+
+@pytest.mark.parametrize("method", ["cg", "refined"])
+def test_two_level_solve_on_cuda_matches_cpu(cuda, method):
+    mesh, pot, times = _problem(cuda)
+    kw = dict(method=method, tol=1e-9, precond="two_level", coarse_passes=1)
+    kernels.reset_launches()
+    got = compute_velocity_fields(mesh, pot, times, **kw)
+    torch.cuda.synchronize()
+    ctype = "double" if method == "cg" else "float"
+    assert all(kernels.LAUNCHES[f"{k}<{ctype}>"] > 0 for k in (
+        "coarse_assemble", "coarse_restrict", "coarse_gemv", "coarse_prolong_dot"))
+    want = compute_velocity_fields(mesh.to("cpu"), pot.cpu(), times.cpu(), **kw)
     assert bool(got.converged.all())
     assert abs(got.iterations - want.iterations) <= 2
     err = float((got.v_k.cpu() - want.v_k).abs().max()) / float(want.v_k.abs().max())
@@ -265,3 +317,14 @@ def test_public_ops_on_cuda_raise_or_launch(cuda):
     assert len(rows) == v_k.shape[0] and sum(len(r[2]) for r in rows) > 0
     sing.compact_detected(mesh, field, capacity=cap)
     assert launched() == {"compact_detected<double>": 1}
+
+    # The two-level preconditioner: K8 builds it, K9-K11 apply it (after
+    # K3's Jacobi term); the inverse is torch.linalg's.
+    g, f = build_rhs(mesh, pot, times)
+    launched()
+    pre = coarse.make_two_level(mesh, g, 0.01, coarse.build_tables(mesh, passes=1))
+    assert launched() == {"jacobi_blocks<double>": 1, "coarse_assemble<double>": 1}
+    z = pre.apply(f)
+    assert launched() == {"pcg_update<double>": 1, "coarse_restrict<double>": 1,
+                          "coarse_gemv<double>": 1, "coarse_prolong_dot<double>": 1}
+    assert bool(torch.isfinite(z).all()) and not bool(pre.zeroed.any())

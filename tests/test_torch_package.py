@@ -24,6 +24,9 @@ def test_import_pulls_in_no_jax_and_loads_no_kernels():
         for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
     assert "manifold_flow_tpu_torch.pipeline.cli" in modules
     assert "manifold_flow_tpu_torch.kernels.analysis" in modules
+    assert "manifold_flow_tpu_torch.kernels.coarse" in modules
+    assert "manifold_flow_tpu_torch.solve.coarse" in modules
+    assert "manifold_flow_tpu_torch.solve.cholesky" in modules
     code = (
         "import importlib, sys\n"
         "import manifold_flow_tpu_torch as m\n"
@@ -60,7 +63,8 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     assert "--use_fast_math" not in cmd and "-fmad=false" not in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)
     sources = [Path(a).name for a in cmd if a.endswith(".cu")]
-    assert sources == ["analysis_kernels.cu", "fem_kernels.cu", "pcg_kernels.cu"]
+    assert sources == ["analysis_kernels.cu", "coarse_kernels.cu", "fem_kernels.cu",
+                       "pcg_kernels.cu"]
 
 
 def test_library_path_is_keyed_by_sources():
@@ -125,5 +129,6 @@ def test_reset_launches_zeroes_every_count():
     assert {k.split("<")[0] for k in kernels.LAUNCHES} == {
         "fem_matvec", "jacobi_blocks", "frame_factors_rhs", "pcg_dot",
         "pcg_update", "pcg_direction", "recombine_speed", "detect_singular",
-        "compact_detected"}
+        "compact_detected", "coarse_assemble", "coarse_restrict", "coarse_gemv",
+        "coarse_prolong_dot"}
     assert kernels.LAUNCHES is _lib.LAUNCHES

@@ -209,8 +209,6 @@ def test_flow_cli_unported_options_raise(tmp_path, monkeypatch):
             "--out-dir", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(base + ["--device", "cpu", "--classify"])
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        cli.main(base + ["--device", "cpu", "--method", "cholesky"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
         cli.main(base)  # --device cuda is the default
@@ -232,3 +230,24 @@ def test_flow_cli_on_npy_movie_counts_no_launch_on_cpu(tmp_path, demo, capsys):
     assert '"frames": 5' in capsys.readouterr().out
     v_k = io.load_indexed_csv(tmp_path / "out" / "V_k.csv")
     assert v_k.shape == (5, 2 * jmesh.n_vertices)
+
+
+def test_flow_cli_cholesky_matches_cg(tmp_path, demo, capsys):
+    jmesh, _, pot, _ = demo
+    io.write_ply(tmp_path / "s.ply", np.asarray(jmesh.points),
+                 np.asarray(jmesh.triangles))
+    np.save(tmp_path / "p.npy", pot)
+    runs = {}
+    for method in ("cholesky", "cg"):
+        rc = cli.main(["flow", "--surface", str(tmp_path / "s.ply"), "--potentials",
+                       str(tmp_path / "p.npy"), "--sfreq", "50", "--device", "cpu",
+                       "--method", method, "--tol", "1e-10",
+                       "--out-dir", str(tmp_path / method)])
+        assert rc == 0
+        runs[method] = capsys.readouterr().out
+        assert '"converged": true' in runs[method]
+    assert '"iterations": 0' in runs["cholesky"]
+    got = io.load_indexed_csv(tmp_path / "cholesky" / "V_k.csv")
+    want = io.load_indexed_csv(tmp_path / "cg" / "V_k.csv")
+    assert got.shape == (5, 2 * jmesh.n_vertices)
+    assert rel_err(got, want) <= VS_JAX

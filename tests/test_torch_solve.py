@@ -12,7 +12,16 @@ Tolerances (measured on this mesh in parentheses):
     for 'cg' at tol 1e-10 (2e-15) and 1e-6 for 'refined' at tol 1e-9
     (3e-13);
   * against the spsolve oracle: normalized RMSE below 1e-7 (8e-11 'cg',
-    7e-10 'refined'), the gate the JAX package's own refined test uses.
+    7e-10 'refined'), the gate the JAX package's own refined test uses;
+  * frame-chunked solves (windows of 4 frames on a 12-frame movie) against
+    JAX's chunked solve: 1e-8 of max|v| for 'cg' at tol 1e-12 (2e-15) and
+    1e-6 for 'refined' at tol 1e-8 (3e-8); against the port's unchunked
+    solve, by the bounds of the JAX package's own chunk test: 1e-8 for
+    'cg' (7e-12) and 1e-5 for 'refined' (4e-9), since each window's f32
+    inner solves take another path;
+  * 'cholesky' (its factor is f64 on an f64 mesh, as JAX's is): 1e-10 of
+    max|v| against JAX (1e-15), RMSE below 1e-7 against spsolve (3e-16),
+    and 1e-8 against 'cg' at tol 1e-12 (7e-12).
 """
 
 import dataclasses
@@ -30,12 +39,12 @@ from manifold_flow_tpu.solve.api import compute_velocity_fields as jax_cvf
 from manifold_flow_tpu.solve.cg import solve_cg as jax_solve_cg
 from manifold_flow_tpu_torch import compute_velocity_fields, mesh_from_jax_arrays
 from manifold_flow_tpu_torch.fem.operator import block_jacobi_inverse, make_operator
-from manifold_flow_tpu_torch.geometry import synthetic as torch_synthetic
+from manifold_flow_tpu_torch.solve import api as solve_api
 from manifold_flow_tpu_torch.solve import refine
 from manifold_flow_tpu_torch.solve.api import build_rhs
 from manifold_flow_tpu_torch.solve.cg import solve_cg
 from tests.oracle import reference_impl as ref
-from tests.torch_parity import LAMBDA, jax_arrays, jmesh, rel_err, wave  # noqa: F401
+from tests.torch_parity import LAMBDA, jax_arrays, jmesh, movie, rel_err, wave  # noqa: F401
 
 ITER_SLACK = 2
 CASES = {"cg": (1e-10, 1e-8), "refined": (1e-9, 1e-6)}  # method: (tol, vs JAX)
@@ -163,20 +172,65 @@ def test_bad_inputs_raise_value_error(port_mesh, wave):  # noqa: F811
             compute_velocity_fields(port_mesh, **kwargs)
 
 
-def test_unported_options_raise_not_implemented(port_mesh, wave):  # noqa: F811
+@pytest.mark.parametrize("method, tol, vs_jax, vs_whole", [
+    ("cg", 1e-12, 1e-8, 1e-8), ("refined", 1e-8, 1e-6, 1e-5)])
+def test_chunked_solve_matches_jax_and_unchunked(jmesh, port_mesh, method,  # noqa: F811
+                                                 tol, vs_jax, vs_whole):
+    pot, times = movie(np.asarray(jmesh.points), n_frames=12)
+    want = jax_cvf(jmesh, jnp.asarray(pot), jnp.asarray(times), method=method,
+                   tol=tol, frame_chunk=4)
+    got = compute_velocity_fields(port_mesh, pot, times, method=method, tol=tol,
+                                  frame_chunk=4)
+    whole = compute_velocity_fields(port_mesh, pot, times, method=method, tol=tol,
+                                    frame_chunk=None)
+    assert got.v_k.shape == whole.v_k.shape == (11, port_mesh.n_dof)
+    assert bool(got.converged.all()) and got.residual.shape == (11,)
+    assert abs(got.iterations - int(want.iterations)) <= ITER_SLACK
+    assert rel_err(got.v_k.numpy(), np.asarray(want.v_k)) <= vs_jax
+    assert rel_err(got.v_k.numpy(), whole.v_k.numpy()) <= vs_whole
+
+
+def test_auto_chunks_long_movies_into_shifted_windows(port_mesh):
+    """162 frames (161 velocity frames > 160) under 'auto': windows of 104
+    starting at 0 and 57, the last shifted back to end at the movie's end;
+    `iterations` is the larger window's count."""
+    assert (solve_api.FRAME_CHUNK_SIZE, solve_api.FRAME_CHUNK_AUTO_MIN) == (104, 160)
+    pot, times = movie(port_mesh.points.numpy(), n_frames=162)
+    kw = dict(method="cg", tol=1e-10)
+    got = compute_velocity_fields(port_mesh, pot, times, **kw)
+    first = compute_velocity_fields(port_mesh, pot[:105], times[:105], **kw)
+    last = compute_velocity_fields(port_mesh, pot[57:], times[57:], **kw)
+    assert torch.equal(got.v_k[:104], first.v_k[:104])
+    assert torch.equal(got.v_k[104:], last.v_k[47:])
+    assert torch.equal(got.converged, torch.cat([first.converged[:104],
+                                                 last.converged[47:]]))
+    assert got.iterations == max(first.iterations, last.iterations)
+    whole = compute_velocity_fields(port_mesh, pot, times, frame_chunk=None, **kw)
+    assert rel_err(got.v_k.numpy(), whole.v_k.numpy()) <= 1e-8
+
+
+def test_no_chunks_with_potentials_next(port_mesh, wave):  # noqa: F811
     pot, times = wave
-    for kwargs, item in [(dict(method="cholesky"), "4b"),
-                         (dict(precond="two_level"), "item 8"),
-                         (dict(frame_chunk=2), "item 9")]:
-        with pytest.raises(NotImplementedError, match=item):
-            compute_velocity_fields(port_mesh, pot, times, **kwargs)
-    long_pot = np.repeat(pot, 30, axis=0)[:162]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        compute_velocity_fields(port_mesh, long_pot, np.arange(162) * 0.01)
-    big = torch_synthetic.plane_patch(nx=78, ny=78)
-    assert big.n_vertices >= 6000
-    with pytest.raises(NotImplementedError, match="item 8"):
-        compute_velocity_fields(big, np.zeros((2, big.n_vertices)), [0.0, 1.0])
+    nxt = pot + 0.01
+    kw = dict(method="cg", tol=1e-10, potentials_next=nxt)
+    got = compute_velocity_fields(port_mesh, pot, times, frame_chunk=2, **kw)
+    want = compute_velocity_fields(port_mesh, pot, times, frame_chunk=None, **kw)
+    assert torch.equal(got.v_k, want.v_k) and got.iterations == want.iterations
+
+
+def test_cholesky_matches_jax_oracle_and_cg(jmesh, port_mesh, wave, oracle):  # noqa: F811
+    pot, times = wave
+    want = jax_cvf(jmesh, jnp.asarray(pot), jnp.asarray(times), method="cholesky",
+                   tol=1e-12)
+    got = compute_velocity_fields(port_mesh, pot, times, method="cholesky",
+                                  tol=1e-12)
+    assert got.iterations == 0 and bool(got.converged.all())
+    assert got.v_k.dtype == torch.float64
+    assert rel_err(got.v_k.numpy(), np.asarray(want.v_k)) <= 1e-10
+    rmse = np.sqrt(np.mean((got.v_k.numpy() - oracle) ** 2)) / np.abs(oracle).max()
+    assert rmse < ORACLE_RMSE
+    cg = compute_velocity_fields(port_mesh, pot, times, method="cg", tol=1e-12)
+    assert rel_err(got.v_k.numpy(), cg.v_k.numpy()) <= 1e-8
 
 
 @pytest.mark.parametrize("spec", [1e-3, (1e-3, 1e-2), [2e-3], np.array([1e-3, 1e-2])])
