@@ -21,7 +21,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      snap) against their plain versions on the refined solve's velocity
      field, in float64 and float32: masks, ids, valid flags, counts and
      centers equal, floats to 1e-12 (f64) / 1e-5 (f32) of their largest
-     entry; kernel and plain times as in phase 3.
+     entry; kernel and plain times as in phase 3. Then K12-K15 on the same
+     field: K12 (classification, both quirk modes) on K6/K7's candidates and
+     K13 (next hops) and K15 (25-ring winding profiles of the detections'
+     distinct centers) in float64 and float32, K14 (walk lengths at 256
+     steps, the packing of the walks of 20 vertices or more) on the float64
+     graph: codes, hops, lengths, packed ids, ring counts and types equal.
   6. flow: the S3 flow stage through the port's command line
      (`pipeline.cli.main(["flow", ...])`, default config: method 'auto',
      which is 'refined' on CUDA for a float64 movie, tol 1e-8, max_iter
@@ -32,6 +37,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      stages run in memory. Prints the singularities per frame, the distance
      of each true source to its nearest detection in grid cells, and the
      flow wall time split into solve, detect + compact and artifact writes.
+  6b. trial: one trial's analysis path through the command line on the
+     same problem: `flow --classify`, then `streamline` and `winding` on the
+     artifacts it wrote (default config), every launch count set to 0 just
+     before: every frame converged, each of K1-K7 and K12-K15 launched, the
+     artifacts reload equal to the same stages run in memory, and walks,
+     class codes and ring counts equal the plain versions' on the same CUDA
+     tensors; then the stages in memory with reference_quirks=True, held to
+     the plain versions too. Prints the streamlines per frame, the share of
+     walks of 20 vertices or more, the longest walk, the label counts, the
+     frames with winding lines and the wall split of the three calls.
   7. s3: S3 end-to-end frames/s as bench.py:235-255 defines it (refined
      solve at tol 1e-6, then recombination, speed map and detection, in
      float64, ending in torch.cuda.synchronize(); best of 3 after a
@@ -41,7 +56,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      versions at the 12.5k-vertex shapes (bench.py:465-474's surface, 12544
      vertices, 98 frames of the two-source movie), float32 and float64,
      tolerances as in phase 3 (K8 reorders each entry's sum); times as in
-     phase 3.
+     phase 3. Then K13-K15 at the same shapes on the 12.5k refined solve's
+     field (float64).
  10. twolevel: the 12.5k problem through compute_velocity_fields(method=
      'refined', tol=1e-6, max_iter=4000, precond='auto'): every frame
      converged, each of K8-K11 launched, RMSE against spsolve over 2 frames
@@ -51,6 +67,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and on the bench surface, and float64 cg with two-level at 12.5k.
  11. flow12k: the flow CLI with the default config on the 12.5k surface as
      PLY and its movie as .npy, checked as in phase 6, with K1-K11 launched.
+ 11b. trial12k: phase 6b at 12.5k vertices x 98 frames.
  12. long: a 392-frame two-source movie on the bench surface, refined at tol
      1e-6 with frame_chunk='auto' (4 windows of 104) and None; both converge
      and meet the RMSE gate against spsolve on 8 frames across the windows'
@@ -59,11 +76,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      spsolve, its largest difference from cg at tol 1e-8, its wall time.
  14. profile: device time per kernel and the device's busy share over one
      S3 chain: the refined solve, recombination, detection and compaction
-     (torch.profiler); then the same over one warm 12.5k refined two-level
-     solve.
+     (torch.profiler); then over one warm analysis chain on the bench
+     problem (detection with classification, streamlines, winding lines, in
+     memory); then over one warm 12.5k refined two-level solve.
+Every kernel check prints its time beside its bound (bytes over 3.35 TB/s or
+operations over 67 / 34 TFLOP/s in float32 / float64, whichever is larger)
+and, where one PyTorch call computes the same function, that call's time.
 Then one JSON line for the kernels (each launch count from the phase that
-drives that kernel: the 12.5k flow CLI first), the card's name and power
-limit, and a last JSON line {"ok": true, "device": {...}}.
+drives that kernel: the 12.5k flow CLI first, then the trial), the card's
+name and power limit, and a last JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -87,6 +108,15 @@ N_SAMPLE = 6          # frames checked against spsolve (as bench.py does)
 RMSE_GATE = 1e-5
 TOL_F32 = 1e-5        # kernel vs plain, relative to the output's max |value|
 TOL_F64 = 1e-12
+# The bound of a kernel: the larger of its bytes over the device memory rate
+# and its operations over the peak rate of their type (H100 SXM, NVIDIA's
+# data sheet: 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
+# the tensor cores). Integer kernels are bound by their bytes.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float": 67e12, "double": 34e12}
+MAX_STEPS = 256       # AnalysisConfig's defaults (pipeline/config.py)
+MIN_LENGTH = 20
+LEVELS = 25
 
 
 def card_line() -> str:
@@ -99,11 +129,16 @@ def card_line() -> str:
 
 def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     """Time per call of fn() in ms: CUDA events around `reps` back-to-back
-    calls, the median over `rounds`, after a warm-up. A call whose host side
+    calls, the median over `rounds`, after a warm-up (calls slower than 5 ms:
+    about 50 ms of calls a round, 3 rounds). A call whose host side
     (Python, ctypes, allocation) outlasts its kernels is timed at the host's
     launch rate; the profile phase gives the kernels' own device time."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    if first > 0.005:  # a slow call (a plain version at 12.5k): fewer of them
+        reps, rounds = max(1, min(reps, int(0.05 / first))), 3
     per_call = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
@@ -167,19 +202,37 @@ def spsolve_reference(mesh, pot, times, n_sample: int) -> np.ndarray:
     return np.stack(sols)
 
 
-class KernelChecks:
-    """Phase 3: each kernel against its plain version at the bench shapes."""
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the distinct tensors among `tensors` (anything else is
+    ignored): each input is read once and each output written once."""
+    seen, total = set(), 0
+    for x in tensors:
+        if isinstance(x, torch.Tensor) and (x.data_ptr(), x.numel()) not in seen:
+            seen.add((x.data_ptr(), x.numel()))
+            total += x.numel() * x.element_size()
+    return total
 
-    def __init__(self):
+
+class KernelChecks:
+    """Each kernel against its plain version, timed beside its bound and,
+    where one PyTorch call computes the same function, that call."""
+
+    def __init__(self, card: str):
+        self.card = card
         self.rows: dict[str, dict] = {}
 
     def compare(self, key: str, source: str, replaces: str, kernel, plain,
-                tol: float, scales=None, timed=None) -> None:
+                tol: float, scales=None, timed=None, inputs=(), ops: float = 0.0,
+                nbytes: int | None = None, library=None, launches_key=None) -> None:
         """Run kernel() and plain() on the same inputs and compare each
         output against its own scale (max |plain|, or `scales`), then time
         both, or the pair of calls `timed` (in-place kernels time without
-        the copies their comparison needs). kernel and plain return a tuple
-        of tensors."""
+        the copies their comparison needs), and `library`, a PyTorch call of
+        the same function, where there is one. kernel and plain return a
+        tuple of tensors. The bound counts the distinct `inputs` and the
+        kernel's outputs (or `nbytes`, where the work depends on the data)
+        and `ops` operations. `launches_key` names the LAUNCHES entry (the
+        key itself by default)."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -188,29 +241,41 @@ class KernelChecks:
         exact = [torch.equal(a, b) for a, b in zip(got, want)
                  if not b.is_floating_point()]
         floats = [(a, b) for a, b in zip(got, want) if b.is_floating_point()]
-        errs = [float((a - b).abs().max()) for a, b in floats]
+        errs = [float((a - b).abs().max()) if a.numel() else 0.0 for a, b in floats]
         if scales is None:
-            scales = [float(b.abs().max()) for _, b in floats]
-        rel = max(e / max(s, 1e-300) for e, s in zip(errs, scales))
-        err = max(errs)
+            scales = [float(b.abs().max()) if b.numel() else 0.0 for _, b in floats]
+        rel = max((e / max(sc, 1e-300) for e, sc in zip(errs, scales)), default=0.0)
+        err = max(errs, default=0.0)
         ok = (rel <= tol and all(exact)
               and all(bool(torch.isfinite(a).all()) for a, _ in floats))
         time_kernel, time_plain = timed or (kernel, plain)
         ms = time_ms(time_kernel)
         plain_ms = time_ms(time_plain)
+        library_ms = time_ms(library) if library is not None else None
+        moved = nbytes if nbytes is not None else tensor_bytes(*inputs, *got)
+        ctype = key.split("<")[1].split(">")[0]
+        t_bytes = moved / HBM_BYTES_S
+        t_ops = ops / PEAK_OPS_S[ctype] if ctype in PEAK_OPS_S else 0.0
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "operations" if t_ops > t_bytes else "bytes"
         equal = f", {len(exact)} discrete outputs equal" if exact else ""
+        lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
         print(f"[kernels] {key}: max_rel_err {rel:.3e} (tol {tol:.0e}){equal} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {moved} B, {ops:.4g} ops) "
+              f"{'ok' if ok else 'FAIL'} on {self.card}", flush=True)
         if not ok:
             raise AssertionError(f"{key} disagrees with its plain version: "
                                  f"relative error {rel:.3e} > {tol:.0e}, "
                                  f"discrete outputs equal: {exact}")
         self.rows[key] = {"source": source, "replaces": replaces,
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms,
+                          "launches_key": launches_key or key}
 
 
-def check_kernels(mesh, pot, times) -> KernelChecks:
+def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
     from manifold_flow_tpu_torch.fem import assembly
     from manifold_flow_tpu_torch.fem.operator import make_operator
     from manifold_flow_tpu_torch.kernels import fem as kfem
@@ -218,8 +283,12 @@ def check_kernels(mesh, pot, times) -> KernelChecks:
 
     fem_cu = "manifold_flow_tpu_torch/csrc/fem_kernels.cu"
     pcg_cu = "manifold_flow_tpu_torch/csrc/pcg_kernels.cu"
-    checks = KernelChecks()
+    checks = KernelChecks(card)
     dev = pot.device
+    # Operations are counted from each kernel's arithmetic per element (an
+    # add, multiply, divide, square root, arccos or deciding comparison is
+    # one): a lower bound, M triangles and N vertices a frame.
+    n_tri, n_vert = mesh.n_triangles, mesh.n_vertices
     gen = torch.Generator().manual_seed(0)
 
     def rand(*shape, dtype):
@@ -231,7 +300,8 @@ def check_kernels(mesh, pot, times) -> KernelChecks:
     checks.compare("frame_factors_rhs<double>", fem_cu,
                    "manifold_flow_tpu/fem/assembly.py:61",
                    lambda: kfem.frame_factors_rhs(*args),
-                   lambda: kfem.plain_frame_factors_rhs(*args), TOL_F64)
+                   lambda: kfem.plain_frame_factors_rhs(*args), TOL_F64,
+                   inputs=args, ops=(pot.shape[0] - 1) * (75 * n_tri + 6 * n_vert))
 
     g64, f64 = build_rhs(mesh, pot, times)
     t, n_dof = f64.shape
@@ -247,7 +317,8 @@ def check_kernels(mesh, pot, times) -> KernelChecks:
             checks.compare(f"fem_matvec<{ctype}>", fem_cu,
                            "manifold_flow_tpu/fem/operator.py:69",
                            lambda: (kfem.fem_matvec(*mv),),
-                           lambda: (kfem.plain_fem_matvec(*mv),), tol)
+                           lambda: (kfem.plain_fem_matvec(*mv),), tol,
+                           inputs=mv, ops=t * 106 * n_tri)
         else:  # the refinement residual f - A x, scaled by max|f| + max|Ax|
             fr = f64.to(dtype)
             ax = kfem.plain_fem_matvec(*mv)
@@ -256,14 +327,16 @@ def check_kernels(mesh, pot, times) -> KernelChecks:
                            "manifold_flow_tpu/fem/df_operator.py:66",
                            lambda: (kfem.fem_matvec(*mv, f=fr),),
                            lambda: (kfem.plain_fem_matvec(*mv, f=fr),), tol,
-                           scales=[scale])
+                           scales=[scale], inputs=(*mv, fr),
+                           ops=t * (106 * n_tri + n_dof))
 
         reg = assembly.corner_regularization(mesh, dtype).contiguous()
         jb = (op.g, reg, mesh.areas.to(dtype), op.lambda_, op.gather_base)
         checks.compare(f"jacobi_blocks<{ctype}>", fem_cu,
                        "manifold_flow_tpu/fem/assembly.py:164",
                        lambda: (kfem.jacobi_blocks(*jb),),
-                       lambda: (kfem.plain_jacobi_blocks(*jb),), tol)
+                       lambda: (kfem.plain_jacobi_blocks(*jb),), tol,
+                       inputs=jb, ops=t * (48 * n_tri + 10 * n_vert))
 
         # PCG vector kernels on one iteration's worth of real state.
         dinv = kfem.plain_jacobi_blocks(*jb)
@@ -272,7 +345,9 @@ def check_kernels(mesh, pot, times) -> KernelChecks:
         checks.compare(f"pcg_dot<{ctype}>", pcg_cu,
                        "manifold_flow_tpu/solve/cg.py:30",
                        lambda: (kfem.pcg_dot(p, ap),),
-                       lambda: (kfem.plain_pcg_dot(p, ap),), tol)
+                       lambda: (kfem.plain_pcg_dot(p, ap),), tol,
+                       inputs=(p, ap), ops=2 * t * n_dof,
+                       library=lambda: torch.linalg.vecdot(p, ap))
         state = [rand(t, n_dof, dtype=dtype) for _ in range(2)]  # x, r
         rz = rand(t, dtype=dtype).abs()
         pap = kfem.plain_pcg_dot(p, ap)
@@ -293,7 +368,8 @@ def check_kernels(mesh, pot, times) -> KernelChecks:
                        lambda: update(kfem.pcg_update),
                        lambda: update(kfem.plain_pcg_update), tol,
                        timed=(update_in_place(kfem.pcg_update, bufs[0]),
-                              update_in_place(kfem.plain_pcg_update, bufs[1])))
+                              update_in_place(kfem.plain_pcg_update, bufs[1])),
+                       inputs=(*state, p, ap, dinv, rz, pap), ops=11 * t * n_dof)
         z = rand(t, n_dof, dtype=dtype)
         rz_new = rand(t, dtype=dtype).abs()
 
@@ -307,7 +383,8 @@ def check_kernels(mesh, pot, times) -> KernelChecks:
                        lambda: direction(kfem.pcg_direction),
                        lambda: direction(kfem.plain_pcg_direction), tol,
                        timed=(lambda: kfem.pcg_direction(qs[0], z, rz_new, rz),
-                              lambda: kfem.plain_pcg_direction(qs[1], z, rz_new, rz)))
+                              lambda: kfem.plain_pcg_direction(qs[1], z, rz_new, rz)),
+                       inputs=(p, z, rz_new, rz), ops=2 * t * n_dof + 2 * t)
     return checks
 
 
@@ -322,25 +399,34 @@ def check_analysis_kernels(checks: KernelChecks, mesh, v_k) -> None:
                               (torch.float32, "float", TOL_F32)):
         vk, basis = v_k.to(dtype), mesh.basis.to(dtype)
         points = mesh.points.to(dtype)
+        t, n_vert, n_tri = vk.shape[0], mesh.n_vertices, mesh.n_triangles
         checks.compare(f"recombine_speed<{ctype}>", cu,
                        "manifold_flow_tpu/ops/recombine.py:20",
                        lambda: kan.recombine_speed(vk, basis),
-                       lambda: kan.plain_recombine_speed(vk, basis), tol)
+                       lambda: kan.plain_recombine_speed(vk, basis), tol,
+                       inputs=(vk, basis), ops=15 * t * n_vert)
         v_world, speed, v_max = kan.plain_recombine_speed(vk, basis)
         det = (points, mesh.triangles, v_world, speed, v_max, 1e-4)
         checks.compare(f"detect_singular<{ctype}>", cu,
                        "manifold_flow_tpu/ops/singularity.py:54",
                        lambda: kan.detect_singular(*det),
-                       lambda: kan.plain_detect_singular(*det), tol)
+                       lambda: kan.plain_detect_singular(*det), tol,
+                       inputs=det, ops=t * (10 * n_vert + 60 * n_tri))
         vmask, imask, _, ipoint, counts = kan.plain_detect_singular(*det)
         cap = capacity_for(*counts.amax(dim=0).tolist())
         print(f"[kernels] {ctype}: per-frame candidates max (vertex, interior)"
               f" {counts.amax(dim=0).tolist()}, capacity {cap}", flush=True)
         comp = (vmask, imask, ipoint, points, cap)
+        # Bytes: the masks, the selected interior points, the vertices the
+        # snap compares them with, the outputs; ops: the snap's distances.
+        out = kan.plain_compact_detected(*comp)
+        moved = (tensor_bytes(vmask, imask, points, *out)
+                 + t * cap * 3 * points.element_size())
         checks.compare(f"compact_detected<{ctype}>", cu,
                        "manifold_flow_tpu/ops/singularity.py:394",
                        lambda: kan.compact_detected(*comp),
-                       lambda: kan.plain_compact_detected(*comp), tol)
+                       lambda: kan.plain_compact_detected(*comp), tol,
+                       nbytes=moved, ops=8 * t * cap * n_vert)
 
 
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
@@ -371,7 +457,8 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
         checks.compare(f"coarse_assemble<{ctype}>", cu,
                        "manifold_flow_tpu/kernels/reduce.py:103",
                        lambda: (kco.coarse_assemble(*asm),),
-                       lambda: (kco.plain_coarse_assemble(*asm),), tol)
+                       lambda: (kco.plain_coarse_assemble(*asm),), tol,
+                       inputs=asm, ops=16 * t * tables.asm_src.shape[0])
         pre = coarse.make_two_level(mesh, op.g, op.lambda_, tables)
         r, z = (torch.randn((t, n_dof), generator=gen, dtype=torch.float64)
                 .to(pot.device, dtype) for _ in range(2))
@@ -379,12 +466,14 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        "manifold_flow_tpu/solve/coarse.py:243",
                        lambda: (kco.coarse_restrict(r, pre.r_blk, pre.members),),
                        lambda: (kco.plain_coarse_restrict(r, pre.r_blk, pre.members),),
-                       tol)
+                       tol, inputs=(r, pre.r_blk, pre.members), ops=8 * t * mesh.n_vertices)
         rc = kco.plain_coarse_restrict(r, pre.r_blk, pre.members)
         checks.compare(f"coarse_gemv<{ctype}>", cu,
                        "manifold_flow_tpu/solve/coarse.py:267",
                        lambda: (kco.coarse_gemv(pre.ac_inv, rc),),
-                       lambda: (kco.plain_coarse_gemv(pre.ac_inv, rc),), tol)
+                       lambda: (kco.plain_coarse_gemv(pre.ac_inv, rc),), tol,
+                       inputs=(pre.ac_inv, rc), ops=2 * pre.ac_inv.numel(),
+                       library=lambda: torch.matmul(pre.ac_inv, rc[..., None]))
         yc = kco.plain_coarse_gemv(pre.ac_inv, rc)
 
         def prolong(fn):
@@ -400,13 +489,350 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        timed=(lambda: kco.coarse_prolong_dot(
                                   bufs[0][0], r, yc, pre.r_blk, pre.agg, bufs[0][1]),
                               lambda: kco.plain_coarse_prolong_dot(
-                                  bufs[1][0], r, yc, pre.r_blk, pre.agg, bufs[1][1])))
+                                  bufs[1][0], r, yc, pre.r_blk, pre.agg, bufs[1][1])),
+                       inputs=(z, r, yc, pre.r_blk, pre.agg),
+                       ops=t * (8 * mesh.n_vertices + 2 * n_dof))
 
 
 FLOW_KERNELS = ("fem_matvec<float>", "fem_matvec<double>", "jacobi_blocks<float>",
                 "frame_factors_rhs<double>", "pcg_dot<float>", "pcg_update<float>",
                 "pcg_direction<float>", "recombine_speed<double>",
                 "detect_singular<double>", "compact_detected<double>")
+TRIAL_KERNELS = FLOW_KERNELS + ("classify_candidates<double>", "next_hop<double>",
+                                "trace_walks<int>", "pack_walks<int>",
+                                "winding_profile<double>")
+
+
+def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
+                        suffix: str = "", classify: bool = True) -> None:
+    """K12-K15 against their plain versions on a real velocity field, in its
+    dtype: K12 on the candidates K6/K7 compact, K13 on the field, K14 on
+    K13's graph (MAX_STEPS, walks of at least MIN_LENGTH packed), K15 on
+    the ring tables (LEVELS rings) of the detections' distinct snapped
+    centers. `suffix` tags the rows of a second size."""
+    from manifold_flow_tpu_torch.geometry.topology import cells_across_edges
+    from manifold_flow_tpu_torch.kernels import analysis as kan
+    from manifold_flow_tpu_torch.kernels import streams as kst
+    from manifold_flow_tpu_torch.kernels import winding as kwi
+    from manifold_flow_tpu_torch.ops import singularity as sing
+    from manifold_flow_tpu_torch.ops import streamline as stream
+    from manifold_flow_tpu_torch.ops import winding as wind
+
+    dtype = v_world.dtype
+    ctype = "double" if dtype == torch.float64 else "float"
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+    esz = v_world.element_size()
+    t, n = v_world.shape[0], v_world.shape[1]
+    width = mesh.vertex_neighbors.shape[1]
+    field, counts = sing.detect_with_counts(mesh, v_world, speed=speed, v_max=v_max)
+    det = sing.compact_detected(mesh, field, capacity=sing.capacity_for(*counts.tolist()))
+    an_cu = "manifold_flow_tpu_torch/csrc/analysis_kernels.cu"
+    st_cu = "manifold_flow_tpu_torch/csrc/stream_kernels.cu"
+    wi_cu = "manifold_flow_tpu_torch/csrc/winding_kernels.cu"
+
+    if classify:
+        args = (mesh.points.to(dtype), mesh.basis.to(dtype), mesh.vertex_neighbors,
+                mesh.triangles, cells_across_edges(mesh), v_world, v_max,
+                det.vertex_ids, det.vertex_valid, det.interior_ids,
+                det.interior_valid, det.interior_points)
+        s_v, s_i = det.vertex_ids.shape[1], det.interior_ids.shape[1]
+        out = kan.plain_classify_candidates(*args)
+        # Bytes: the slots and the 1-ring velocity rows they read, the outputs.
+        moved = (tensor_bytes(*args[6:], *out)
+                 + t * (s_v * width + s_i * 6) * 3 * esz)
+        for quirks in (False, True):
+            checks.compare(f"classify_candidates<{ctype}>" + ("+quirks" if quirks else "")
+                           + suffix, an_cu, "manifold_flow_tpu/ops/singularity.py:279",
+                           lambda: kan.classify_candidates(*args, quirks=quirks),
+                           lambda: kan.plain_classify_candidates(*args, quirks=quirks),
+                           tol, nbytes=moved,
+                           ops=t * (40 * s_v * width + 340 * s_i),
+                           # The main path runs without quirks: the quirks
+                           # variant has a row of its own and no launches.
+                           launches_key=None if quirks else f"classify_candidates<{ctype}>")
+
+    nh = (stream.unit_edges(mesh, dtype), v_world, mesh.vertex_neighbors,
+          mesh.vertex_cell_count, mesh.vertex_cells, mesh.triangles,
+          mesh.points.to(dtype), mesh.basis.to(dtype))
+    checks.compare(f"next_hop<{ctype}>{suffix}", st_cu,
+                   "manifold_flow_tpu/ops/streamline.py:133",
+                   lambda: (kst.next_hop(*nh),), lambda: (kst.plain_next_hop(*nh),),
+                   tol, nbytes=next_hop_bytes(*nh),
+                   ops=5 * t * int((mesh.vertex_neighbors != -1).sum()),
+                   launches_key=f"next_hop<{ctype}>")
+    if dtype == torch.float64:  # K14 reads integers only: one instance
+        hops = kst.next_hop(*nh)
+        checks.compare(f"trace_walks<int>{suffix}", st_cu,
+                       "manifold_flow_tpu/ops/streamline.py:268",
+                       lambda: (kst.trace_walks(hops, MAX_STEPS),),
+                       lambda: (kst.plain_trace_walks(hops, MAX_STEPS),), 0.0,
+                       inputs=(hops,), launches_key="trace_walks<int>")
+        lengths = kst.trace_walks(hops, MAX_STEPS).reshape(-1)
+        seeds = torch.nonzero(lengths >= MIN_LENGTH)[:, 0]
+        lens = lengths[seeds].contiguous()
+        offsets = torch.cumsum(lens, 0, dtype=torch.int64) - lens
+        total = int(lens.sum())
+        bufs = [torch.empty(total, dtype=torch.int32, device=hops.device) for _ in range(2)]
+        pk = (hops, seeds, lens, offsets)
+        checks.compare(f"pack_walks<int>{suffix}", st_cu,
+                       "manifold_flow_tpu/ops/streamline.py:733",
+                       lambda: (kst.pack_walks(*pk, bufs[0]),),
+                       lambda: (kst.plain_pack_walks(*pk, bufs[1]),), 0.0,
+                       inputs=pk, launches_key="pack_walks<int>")
+        print(f"[kernels] walks{suffix}: {lengths.numel()} seeds, "
+              f"{float((lengths >= MIN_LENGTH).float().mean()):.4f} of them >= "
+              f"{MIN_LENGTH} vertices, longest {int(lengths.max())}, {total} packed ids",
+              flush=True)
+
+    ok = torch.cat([det.vertex_valid.flatten(), det.interior_valid.flatten()])
+    ids = torch.cat([det.vertex_ids.flatten(), det.interior_centers.flatten()])
+    uniq = torch.unique(ids[ok])
+    tabs = wind.ring_tables(mesh, uniq, LEVELS, dtype)
+    wp = (v_world, tabs.order, tabs.bounds, tabs.e1, tabs.e2)
+    members = int(tabs.bounds[:, -1].sum())
+    col = torch.arange(tabs.order.shape[1], device=uniq.device)
+    rows = torch.unique(tabs.order[col < tabs.bounds[:, -1:]]).numel()
+    out = kwi.plain_winding_profile(*wp)
+    # Bytes: the ring members' ids (not the padding of shorter centers),
+    # the bounds and bases, the outputs, and v of each distinct member.
+    moved = tensor_bytes(*wp[2:], *out) + members * 4 + t * rows * 3 * esz
+    checks.compare(f"winding_profile<{ctype}>{suffix}", wi_cu,
+                   "manifold_flow_tpu/ops/winding.py:127",
+                   lambda: kwi.winding_profile(*wp), lambda: kwi.plain_winding_profile(*wp),
+                   tol, nbytes=moved, ops=40 * t * members,
+                   launches_key=f"winding_profile<{ctype}>")
+    print(f"[kernels] winding{suffix}: {uniq.numel()} distinct centers, "
+          f"{members} ring members over {LEVELS} rings, {rows} distinct vertices",
+          flush=True)
+
+
+def next_hop_bytes(unit, v_world, neighbors, cell_count, vertex_cells, triangles,
+                   points, basis, quirks: bool = False) -> int:
+    """The bytes K13's function needs on this data, each read once: v_world,
+    the valid 1-ring ids and their unit edges, the boundary rows' ids and
+    next written; and, for the boundary rows that would advance in some
+    frame, their cells and their candidates' cells, then, where the two
+    share one cell only, that triangle, the row's basis and (without
+    quirks) the triangle's corners."""
+    from manifold_flow_tpu_torch.kernels import streams as kst
+    from manifold_flow_tpu_torch.kernels.analysis import _dot3
+
+    esz = v_world.element_size()
+    t, n = v_world.shape[0], v_world.shape[1]
+    mask = neighbors != -1
+    rows = torch.nonzero(cell_count < 6)[:, 0]
+    total = (tensor_bytes(v_world) + t * n * 4 + int(mask.sum()) * (4 + 3 * esz)
+             + rows.numel() * 4)
+    if rows.numel() == 0 or t == 0:
+        return total
+    dots = _dot3(unit[rows][None], v_world[:, rows, None, :])          # (T, B, D)
+    dots = torch.where(mask[rows], dots, torch.full_like(dots, -torch.inf))
+    idx = dots.argmax(dim=-1, keepdim=True)
+    safe = torch.where(mask[rows], neighbors[rows], 0).long()
+    cand = torch.gather(safe.expand(t, -1, -1), -1, idx)[..., 0]
+    adv = torch.gather(dots, -1, idx)[..., 0] > 0
+    row_b, cand_b = rows.expand(t, -1)[adv], cand[adv]
+    count, cell = kst._shared_cells(vertex_cells[row_b].long(),
+                                    vertex_cells[cand_b].long())
+    read = torch.unique(torch.cat([row_b, cand_b]))
+    total += int((vertex_cells[read] != -1).sum()) * 4
+    tested = (count < 2) & (cell != -1)
+    tris = torch.unique(cell[tested])
+    total += tris.numel() * 3 * 4 + torch.unique(row_b[tested]).numel() * 6 * esz
+    if not quirks:
+        total += torch.unique(triangles[tris].long()).numel() * 3 * esz
+    return total
+
+
+def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
+    """The trial's analysis ops on the card against their plain versions on
+    the same CUDA tensors, with cfg's quirks and limits: class codes, next
+    hops, walk lengths, packed walks, ring counts and types must be equal.
+    Returns a summary of the walks and classes."""
+    from manifold_flow_tpu_torch.geometry.topology import cells_across_edges
+    from manifold_flow_tpu_torch.kernels import analysis as kan
+    from manifold_flow_tpu_torch.kernels import streams as kst
+    from manifold_flow_tpu_torch.kernels import winding as kwi
+    from manifold_flow_tpu_torch.ops import singularity as sing
+    from manifold_flow_tpu_torch.ops import streamline as stream
+    from manifold_flow_tpu_torch.ops import winding as wind
+
+    q = cfg.reference_quirks
+    an = cfg.analysis
+    dtype = v_world.dtype
+    field, counts = sing.detect_with_counts(mesh, v_world, eps=cfg.solver.eps,
+                                            speed=speed, v_max=v_max)
+    det = sing.compact_detected(mesh, field, capacity=sing.capacity_for(*counts.tolist()))
+    classes = sing.classify_compacted(mesh, v_world, v_max, det, quirks=q)
+    plain = kan.plain_classify_candidates(
+        mesh.points.to(dtype), mesh.basis.to(dtype), mesh.vertex_neighbors,
+        mesh.triangles, cells_across_edges(mesh), v_world, v_max, det.vertex_ids,
+        det.vertex_valid, det.interior_ids, det.interior_valid, det.interior_points,
+        quirks=q)
+    sl = stream.trace_frames(mesh, v_world, an.max_streamline_steps, q, rows=False)
+    nh = (stream.unit_edges(mesh, dtype), v_world, mesh.vertex_neighbors,
+          mesh.vertex_cell_count, mesh.vertex_cells, mesh.triangles,
+          mesh.points.to(dtype), mesh.basis.to(dtype))
+    plain_hops = kst.plain_next_hop(*nh, quirks=q)
+    plain_len = kst.plain_trace_walks(plain_hops, an.max_streamline_steps)
+    kept, lens, flat = stream._packed_walks(sl, an.min_streamline_length)
+    seeds = torch.as_tensor(kept, device=v_world.device)
+    lens_t = torch.as_tensor(lens, device=v_world.device)
+    plain_flat = kst.plain_pack_walks(
+        plain_hops, seeds, lens_t, torch.cumsum(lens_t, 0, dtype=torch.int64) - lens_t,
+        torch.empty(int(lens.sum()), dtype=torch.int32, device=v_world.device))
+    ok = torch.cat([det.vertex_valid.flatten(), det.interior_valid.flatten()])
+    ids = torch.cat([det.vertex_ids.flatten(), det.interior_centers.flatten()])
+    uniq = torch.unique(ids[ok])
+    tabs = wind.ring_tables(mesh, uniq, an.max_winding_level, dtype)
+    wp = (v_world, tabs.order, tabs.bounds, tabs.e1, tabs.e2)
+    got_w, want_w = kwi.winding_profile(*wp), kwi.plain_winding_profile(*wp)
+    same = {
+        "vertex codes": torch.equal(classes.vertex_codes, plain[0]),
+        "interior codes": torch.equal(classes.interior_codes, plain[2]),
+        "next hops": torch.equal(sl.hops, plain_hops),
+        "walk lengths": torch.equal(sl.lengths, plain_len),
+        "packed walks": np.array_equal(flat, plain_flat.cpu().numpy()),
+        "ring counts": torch.equal(got_w[0], want_w[0]),
+        "ring types": torch.equal(got_w[1], want_w[1]),
+    }
+    if not all(same.values()):
+        raise AssertionError(f"trial ops (quirks={q}) differ from their plain "
+                             f"versions on the card: {same}")
+    names = np.asarray(sing.CLASS_NAMES)
+    codes = torch.cat([classes.vertex_codes[classes.vertex_valid],
+                       classes.interior_codes[classes.interior_valid]]).cpu().numpy()
+    return {"labels": {str(k): int(v) for k, v in
+                       zip(*np.unique(names[codes], return_counts=True))},
+            "kept": float(len(kept)) / sl.lengths.numel(),
+            "longest": int(sl.lengths.max()), "centers": int(uniq.numel())}
+
+
+def run_trial(mesh, pot, card: str, tag: str = "trial") -> dict:
+    """One trial's analysis path through the port's command line: `flow
+    --classify`, then `streamline` and `winding` on its artifacts (default
+    config), every launch count set to 0 just before. Checks that every
+    frame converged, each kernel of TRIAL_KERNELS launched, the artifacts
+    reload equal to the same stages run in memory, and that walks, classes
+    and ring counts equal the plain versions' on the same CUDA tensors, then
+    once more with reference_quirks=True; returns the launch counts."""
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from manifold_flow_tpu_torch.pipeline import cli, stages
+    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    def call(argv):
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        report = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        if rc != 0 or report["device"] != str(mesh.device.type):
+            raise AssertionError(f"{argv[0]} CLI: rc {rc}, report {report}")
+        return report, wall
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trial_") as tmp:
+        tmp = Path(tmp)
+        mio.write_ply(tmp / "surface.ply", mesh.points.cpu().numpy(),
+                      mesh.triangles.cpu().numpy())
+        np.save(tmp / "movie.npy", pot.cpu().numpy())
+        out = tmp / "out"
+        surface = ["--surface", str(tmp / "surface.ply")]
+        field = surface + ["--e", str(out / "e.csv"), "--v-k", str(out / "V_k.csv"),
+                           "--out-dir", str(out)]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", stages.ConvergenceWarning)
+            torch.cuda.synchronize()
+            reset_launches()
+            flow, flow_s = call(["flow", *surface, "--potentials", str(tmp / "movie.npy"),
+                                 "--sfreq", "512", "--classify", "--out-dir", str(out)])
+            lines_r, stream_s = call(["streamline", *field])
+            wind_r, wind_s = call(["winding", *field, "--singularities",
+                                   str(out / "singularity_points.pkl")])
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        if not flow["converged"]:
+            raise AssertionError(f"{tag}: flow did not converge: {flow}")
+        idle = [k for k in TRIAL_KERNELS if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels of the {tag} path never launched: {idle}")
+
+        # The same stages in memory, and their artifacts.
+        cfg = PipelineConfig()
+        fmesh = stages.load_surface(tmp / "surface.ply", device=mesh.device)
+        movie = np.load(tmp / "movie.npy")
+        vel = stages.velocity_stage(fmesh, movie, np.arange(movie.shape[0]) / 512.0, cfg)
+        pts, labels, centers = stages.singularity_stage(
+            fmesh, vel.v_world, cfg, classify=True, return_centers=True,
+            speed=vel.speed, v_max=vel.v_max)
+        lines = stages.streamline_stage(fmesh, vel.v_world, cfg)
+        wl = stages.winding_stage(fmesh, vel.v_world, pts, cfg)
+        wl_trial = stages.winding_stage(fmesh, vel.v_world, pts, cfg, centers=centers)
+        t_v = movie.shape[0] - 1
+        saved_lines = {}
+        for k in range(t_v):
+            saved_lines.update(mio.load_pickle(
+                out / f"t_velocityfields_streamlines_{k}.pkl.bz2"))
+        saved_w = mio.load_pickle(out / "winding_lines.pkl.bz2")
+
+        def rows(w):
+            return {k: [(r[1], r[2]) for r in v] for k, v in w.items()}
+        same = {
+            "classification": mio.load_pickle(
+                out / "singularity_points_classification.pkl") == labels,
+            "streamlines": list(saved_lines) == list(lines) and all(
+                len(saved_lines[k]) == len(v) and all(
+                    np.array_equal(a, b) for a, b in zip(saved_lines[k], v))
+                for k, v in lines.items()),
+            "winding_lines": rows(saved_w) == rows(wl) and all(
+                np.array_equal(a[0], b[0]) for k in wl for a, b in zip(saved_w[k], wl[k])),
+        }
+        if not all(same.values()) or not vel.converged:
+            raise AssertionError(f"{tag} artifacts differ from the in-memory run: {same}")
+    # The CLI re-snaps the points on the host; the trial's stages take the
+    # detection stage's centers: the rows that differ between the two.
+    snap_diff = sum(a != b for k in wl for a, b in zip(rows(wl)[k], rows(wl_trial)[k]))
+
+    summary = hold_to_plain(fmesh, vel.v_world, vel.speed, vel.v_max, cfg)
+    qcfg = PipelineConfig()
+    qcfg.reference_quirks = True
+    quirks = hold_to_plain(fmesh, vel.v_world, vel.speed, vel.v_max, qcfg)
+    qpts, qlabels = stages.singularity_stage(fmesh, vel.v_world, qcfg, classify=True,
+                                             speed=vel.speed, v_max=vel.v_max)
+    qlines = stages.streamline_stage(fmesh, vel.v_world, qcfg)
+    qwl = stages.winding_stage(fmesh, vel.v_world, qpts, qcfg)
+
+    per_frame = np.array([len(v) for v in lines.values()])
+    tf = flow["timings"]
+    ts = lines_r["timings"]
+    print(f"[{tag}] {fmesh.n_vertices} vertices x {movie.shape[0]} frames: flow "
+          f"--classify, streamline, winding through the CLI; all {t_v} frames "
+          f"converged, artifacts reload equal to the in-memory run; launches "
+          + ", ".join(f"{k}={launches[k]}" for k in TRIAL_KERNELS), flush=True)
+    print(f"[{tag}] streamlines per frame min {per_frame.min()} median "
+          f"{float(np.median(per_frame))} max {per_frame.max()}; walks >= "
+          f"{MIN_LENGTH}: {summary['kept']:.4f} of {t_v * fmesh.n_vertices}, longest "
+          f"{summary['longest']}; labels {summary['labels']}; frames with winding "
+          f"lines {len(wl)} ({sum(len(v) for v in wl.values())} rows, "
+          f"{summary['centers']} distinct centers; {snap_diff} rows differ with the "
+          f"detection stage's centers); walks, classes and ring counts equal the "
+          f"plain versions'", flush=True)
+    print(f"[{tag}] quirks on, in memory: labels {quirks['labels']}, "
+          f"{sum(len(v) for v in qlines.values())} streamlines, longest walk "
+          f"{quirks['longest']}, {len(qwl)} frames with winding lines, "
+          f"{sum(len(x) for x in qlabels)} labelled points; equal to the plain "
+          f"versions", flush=True)
+    print(f"[{tag}] wall: flow --classify {flow_s * 1e3:.2f} ms (classify "
+          f"{tf['classify'] * 1e3:.2f} ms of it, K7 + K12 + the rows' copy), "
+          f"streamline {stream_s * 1e3:.2f} ms (load {ts['load'] * 1e3:.2f}, trace "
+          f"{ts['trace'] * 1e3:.2f}, compact {ts['compact'] * 1e3:.2f}, writes "
+          f"{ts['submit'] * 1e3:.2f}), winding {wind_s * 1e3:.2f} ms (load "
+          f"{wind_r['timings']['load'] * 1e3:.2f}, winding "
+          f"{wind_r['timings']['winding'] * 1e3:.2f}); on {card}", flush=True)
+    return launches
+
+
 
 
 def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
@@ -696,6 +1122,60 @@ def s3_end_to_end(mesh, pot, times, card: str) -> None:
           f"frames/s ({best['solve'] * 1e3:.2f} ms); on {card}", flush=True)
 
 
+def profile_analysis(mesh, res, card: str) -> None:
+    """Phase [profile]: device time per kernel and the device's busy share
+    over one warm analysis chain on the bench problem, in memory, default
+    config: detection with classification (K6, K7, K12), streamlines (K13,
+    K14 and the polylines on the host) and winding lines (ring tables, K15)
+    on the detection stage's centers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    v_world, speed, v_max = velocity_to_world_and_speed(res.v_k, mesh.basis)
+    walls = {}
+
+    def chain():
+        t0 = time.perf_counter()
+        pts, _, centers = stages.singularity_stage(
+            mesh, v_world, cfg, classify=True, return_centers=True, speed=speed,
+            v_max=v_max)
+        t1 = time.perf_counter()
+        stages.streamline_stage(mesh, v_world, cfg)
+        t2 = time.perf_counter()
+        stages.winding_stage(mesh, v_world, pts, cfg, centers=centers)
+        torch.cuda.synchronize()
+        walls.update(classify=t1 - t0, streamline=t2 - t1,
+                     winding=time.perf_counter() - t2)
+
+    chain()  # warm: tables cached
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chain()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us > 0:
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+        mine = [e for e in events if any(k in e.key for k in (
+            "classify_", "next_hop", "trace_walks", "pack_walks", "winding_profile"))]
+        print(f"[profile] analysis chain (detect + classify, streamlines, winding "
+              f"lines; in memory): device busy {dev_us / wall_us:.3f} of "
+              f"{wall_us / 1e3:.2f} ms wall (profiled run; stages "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in walls.items())
+              + "); by kernel: " + "; ".join(
+                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                  for e in top) + "; K12-K15: " + "; ".join(
+                  f"{e.key[:40]} {e.self_device_time_total:.1f} us x{e.count}"
+                  for e in mine) + f"; on {card}", flush=True)
+    else:
+        print("[profile] the profiler recorded no device time: not measured",
+              flush=True)
+
+
 def solve(mesh, pot, times, **kwargs):
     from manifold_flow_tpu_torch import compute_velocity_fields
 
@@ -760,7 +1240,7 @@ def main() -> int:
     t_v, n_dof = pot.shape[0] - 1, mesh.n_dof
     print(f"[problem] {mesh.n_vertices} vertices, {mesh.n_triangles} triangles,"
           f" {t_v} velocity frames", flush=True)
-    checks = check_kernels(mesh, pot, times)
+    checks = check_kernels(mesh, pot, times, card)
 
     # 4. the slice: the refined solve through the public API
     v_ref = spsolve_reference(mesh, pot, times, N_SAMPLE)
@@ -782,11 +1262,19 @@ def main() -> int:
     print(f"[slice] refined frames/s {t_v / best:.1f} (best of 3: {best * 1e3:.2f} ms"
           f" per solve) on {card}", flush=True)
 
-    # 5. the analysis kernels against their plain versions
+    # 5. the analysis kernels against their plain versions: K5-K7, then
+    # K12-K15 on the refined solve's field (f64 and f32; K14 on integers)
     check_analysis_kernels(checks, mesh, res.v_k)
+    from manifold_flow_tpu_torch.kernels import analysis as kan
 
-    # 6. the flow stage through the command line
+    for dtype in (torch.float64, torch.float32):
+        check_trial_kernels(checks, mesh, *kan.recombine_speed(
+            res.v_k.to(dtype), mesh.basis.to(dtype)))
+
+    # 6. the flow stage through the command line, then a trial's analysis
+    # path (flow --classify, streamline, winding): the slice's path
     flow_launches = run_flow(mesh, pot, truth, card)
+    trial_launches = run_trial(mesh, pot, card)
 
     # 7. S3 end to end
     s3_end_to_end(mesh, pot, times, card)
@@ -809,6 +1297,9 @@ def main() -> int:
     print(f"[problem] {mesh12.n_vertices} vertices, {mesh12.n_triangles} "
           f"triangles, {pot12.shape[0] - 1} velocity frames", flush=True)
     check_coarse_kernels(checks, mesh12, pot12, times12)
+    res12 = solve(mesh12, pot12, times12, **refined)
+    check_trial_kernels(checks, mesh12, *kan.recombine_speed(res12.v_k, mesh12.basis),
+                        suffix="@12.5k", classify=False)
 
     # 10. the 12.5k refined solve with two-level, and the crossover
     twolevel_launches = run_twolevel(*build_problem_12k(device)[:3], mesh, pot,
@@ -817,6 +1308,7 @@ def main() -> int:
     # 11. the flow stage through the command line at 12.5k: the slice's path
     flow12k_launches = run_flow(mesh12, pot12, truth12, card, tag="flow12k",
                                 kernels=FLOW12K_KERNELS, cell=60.0 / 111.0)
+    trial12k_launches = run_trial(mesh12, pot12, card, tag="trial12k")
 
     # 12. a 392-frame movie, in windows and whole
     run_long(mesh, card)
@@ -855,6 +1347,7 @@ def main() -> int:
     else:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
+    profile_analysis(mesh, res, card)
     solve(mesh12, pot12, times12, **refined)  # warm: tables cached, kernels built
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -873,21 +1366,29 @@ def main() -> int:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
     # Each kernel's launches from the phase that drives it: the 12.5k flow
-    # CLI (the slice's path) first, then the bench flow, the float64 cg
-    # two-level solve, the cg phase and the direct solver. Instances no path
-    # launches (the float32 analysis kernels) are left out.
-    phases = (flow12k_launches, flow_launches, twolevel_launches, launches_cg,
-              cholesky_launches)
-    driven = {k: next((c[k] for c in phases if c[k] > 0), 0) for k in checks.rows}
-    names = {k.split("<")[0] for k, n in driven.items() if n > 0}
+    # CLI first (K1-K11), then the trial (K12-K15; its 12.5k run for the
+    # rows measured at 12.5k), the bench flow, the float64 cg two-level
+    # solve, the cg phase and the direct solver. Instances no path launches
+    # (the float32 analysis kernels) are left out.
+    phases = (flow12k_launches, trial_launches, flow_launches, twolevel_launches,
+              launches_cg, cholesky_launches)
+
+    def launches_of(label, row):
+        order = (trial12k_launches,) + phases if label.endswith("@12.5k") else phases
+        key = row["launches_key"]
+        return next((c[key] for c in order if c.get(key, 0) > 0), 0)
+    driven = {k: launches_of(k, row) for k, row in checks.rows.items()}
+    names = {row["launches_key"].split("<")[0] for k, row in checks.rows.items()
+             if driven[k] > 0}
     every = {k.split("<")[0] for k in LAUNCHES}
-    if names != every:  # K1-K11: K3 is three launches, pcg_dot/update/direction
+    if names != every:  # K1-K15: K3 and K14 are several entry points
         raise AssertionError(f"kernels never launched by any phase: {sorted(every - names)}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": row["source"],
          "replaces": row["replaces"], "launches": driven[k],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-         "plain_ms": row["plain_ms"]}
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         for k, row in checks.rows.items() if driven[k] > 0]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from manifold_flow_tpu_torch.geometry.mesh import ARRAY_FIELDS, TriMesh
+from manifold_flow_tpu_torch.geometry.mesh import ARRAY_FIELDS, TriMesh, resolve_device
 from manifold_flow_tpu_torch.solve.coarse import CoarseTables, tables_from_aggregation
 
 
-def mesh_from_jax_arrays(arrays: dict[str, np.ndarray], device="cpu") -> TriMesh:
-    """The port's TriMesh from a JAX TriMesh's leaves, as numpy arrays.
+def mesh_from_jax_arrays(arrays: dict[str, np.ndarray], device="cuda") -> TriMesh:
+    """The port's TriMesh from a JAX TriMesh's leaves, as numpy arrays, on
+    `device` (the GPU unless the caller passes device="cpu").
 
     `arrays` maps each TriMesh array field name to its value, for example
     ``{name: np.asarray(getattr(jax_mesh, name)) for name in ARRAY_FIELDS}``.
@@ -26,6 +27,7 @@ def mesh_from_jax_arrays(arrays: dict[str, np.ndarray], device="cpu") -> TriMesh
     valid counts may be passed as ``n_valid_vertices`` / ``n_valid_triangles``
     and must then be 0 or the full counts.
     """
+    device = resolve_device(device)
     missing = [name for name in ARRAY_FIELDS if name not in arrays]
     if missing:
         raise ValueError(f"missing TriMesh arrays: {missing}")

@@ -1,6 +1,7 @@
 // Analysis kernels of the S3 flow stage: recombination and speed map (K5),
-// singularity detection with per-frame counts (K6), and stable compaction
-// with the nearest-vertex snap (K7). Layouts follow the JAX package:
+// singularity detection with per-frame counts (K6), stable compaction with
+// the nearest-vertex snap (K7), and the classification of the compacted
+// candidates (K12). Layouts follow the JAX package:
 //   v_k             (T, 2N)     velocity DOFs, dof = vertex + N * alpha
 //   basis           (N, 2, 3)   tangent bases e
 //   v_world         (T, N, 3)   world vectors
@@ -9,31 +10,12 @@
 //   masks           bool (one byte, 0 or 1)
 //
 // Every threshold decision (the vertex test, the 2x2 solve, the inside test,
-// the nearest vertex) is computed with explicitly rounded operations in the
-// JAX expression order: nvcc would otherwise contract a*b+c into fused
-// multiply-adds, move results by an ulp and flip a mask against the plain
-// torch version, which evaluates each operation separately.
+// the nearest vertex, the nearest edge, the class code) is computed with the
+// explicitly rounded operations of common.cuh, in the JAX expression order.
 // The C entry points return the cudaError_t of the launches.
 #include "common.cuh"
 
 namespace mf {
-
-__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float rn_sqrt(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double rn_sqrt(double a) { return __dsqrt_rn(a); }
-
-// (a0 b0 + a1 b1) + a2 b2, each operation rounded on its own.
-template <typename T>
-__device__ __forceinline__ T dot3(const T* a, const T* b) {
-  return rn_add(rn_add(rn_mul(a[0], b[0]), rn_mul(a[1], b[1])), rn_mul(a[2], b[2]));
-}
 
 // Max that keeps a NaN, as torch.amax and jnp.max do.
 template <typename T>
@@ -73,11 +55,6 @@ __device__ __forceinline__ void atomic_max_nonneg(float* addr, float v) {
 __device__ __forceinline__ void atomic_max_nonneg(double* addr, double v) {
   atomicMax(reinterpret_cast<unsigned long long*>(addr),
             static_cast<unsigned long long>(__double_as_longlong(v)));
-}
-
-// Frames run over gridDim.y with a stride, so any frame count launches.
-inline unsigned int frame_blocks(int64_t n_frames) {
-  return static_cast<unsigned int>(n_frames < 65535 ? n_frames : 65535);
 }
 
 // K5: one thread per (frame, vertex) forms v = c1 e1 + c2 e2 and
@@ -280,18 +257,6 @@ __device__ void compact_row(const uint8_t* __restrict__ mask, int64_t n,
   }
 }
 
-// (a, ia) before (b, ib) in torch.argmin's order: NaN first, then the
-// smaller value, ties to the lower index; an index < 0 is "no candidate".
-template <typename T>
-__device__ __forceinline__ bool argmin_before(T a, int ia, T b, int ib) {
-  if (ia < 0) return false;
-  if (ib < 0) return true;
-  const bool a_nan = a != a, b_nan = b != b;
-  if (a_nan) return !b_nan || ia < ib;
-  if (b_nan) return false;
-  return a == b ? ia < ib : a < b;
-}
-
 // K7: one block per frame compacts both masks to their slots, gathers the
 // interior points of the interior slots, and snaps each of those points to
 // its nearest vertex (geometry/topology.py:26): one warp per slot scans the
@@ -422,6 +387,284 @@ int compact_detected(const void* vertex_mask, const void* interior_mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ K12
+// Classification of the compacted candidates (ops/singularity.py:279
+// classify_detected, B9): a finite-difference 2x2 Jacobian per candidate
+// (:115 _jacobian_from_neighbors), then the trace/determinant code (:166).
+// Bound on this card: launch latency. At the bench shapes (97 frames, S = 16
+// slots) a call reads a few hundred kB, mostly 1-ring velocities from L2.
+// Design: one thread per (frame, slot), for vertex and for interior
+// candidates; each neighbour's contribution is added in table order with
+// every operation rounded on its own, as the plain version adds them, so
+// the codes equal its codes and the Jacobians its Jacobians.
+
+// The tangent plane (e1, e2) with n = e1 x e2 and n.n, as project_to_plane
+// (geometry/tangent.py) forms them for every call.
+template <typename T>
+struct Plane {
+  T e1[3], e2[3], n[3], nn;
+};
+
+template <typename T>
+__device__ __forceinline__ void make_plane(const T* e1, const T* e2, Plane<T>& p) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    p.e1[d] = e1[d];
+    p.e2[d] = e2[d];
+  }
+  cross3(p.e1, p.e2, p.n);
+  p.nn = dot3(p.n, p.n);
+}
+
+// v - where(n.n > 0, (v.n) / n.n, 0) n.
+template <typename T>
+__device__ __forceinline__ void project_plane(const T* v, const Plane<T>& p, T* out) {
+  const T s = p.nn > T(0) ? rn_div(dot3(v, p.n), p.nn) : T(0);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) out[d] = rn_sub(v[d], rn_mul(s, p.n[d]));
+}
+
+// J += [[u/d1, u/d2], [w/d1, w/d2]] for one neighbour: (u, w) its projected
+// velocity on (e1, e2), (d1, d2) its projected offset from `origin`, a zero
+// offset contributing 0; a masked neighbour adds zeros.
+template <typename T>
+__device__ __forceinline__ void jacobian_add(const T* origin, const T* nb_point,
+                                             const T* nb_vel, bool mask,
+                                             const Plane<T>& p, T* jac) {
+  T vp[3], diff[3], proj[3];
+  project_plane(nb_vel, p, vp);
+  const T u = rn_div(dot3(vp, p.e1), dot3(p.e1, p.e1));
+  const T w = rn_div(dot3(vp, p.e2), dot3(p.e2, p.e2));
+#pragma unroll
+  for (int d = 0; d < 3; ++d) diff[d] = rn_sub(nb_point[d], origin[d]);
+  project_plane(diff, p, proj);
+  const T d1 = dot3(proj, p.e1);
+  const T d2 = dot3(proj, p.e2);
+  const T i1 = d1 != T(0) ? rn_div(T(1), d1) : T(0);
+  const T i2 = d2 != T(0) ? rn_div(T(1), d2) : T(0);
+  const T c[4] = {rn_mul(u, i1), rn_mul(u, i2), rn_mul(w, i1), rn_mul(w, i2)};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) jac[k] = rn_add(jac[k], mask ? c[k] : T(0));
+}
+
+// NODE 0, FOCUS 1, SADDLE 2, INDETERMINATE 3 (ops/singularity.py:166).
+template <typename T>
+__device__ __forceinline__ int32_t classify_code(const T* j) {
+  const T tr = rn_add(j[0], j[3]);
+  const T det = rn_sub(rn_mul(j[0], j[3]), rn_mul(j[1], j[2]));
+  if (det > T(0)) return rn_mul(tr, tr) > rn_mul(T(4), det) ? 0 : 1;
+  return det < T(0) ? 2 : 3;
+}
+
+template <typename T>
+__device__ __forceinline__ void normalize3(T* v) {
+  const T nrm = rn_sqrt(dot3(v, v));
+#pragma unroll
+  for (int d = 0; d < 3; ++d) v[d] = nrm > T(0) ? rn_div(v[d], nrm) : T(0);
+}
+
+// The tangent basis of a unit normal (geometry/tangent.py tangent_basis).
+template <typename T>
+__device__ __forceinline__ void tangent_basis(const T* n, T* e1, T* e2) {
+  if (n[0] != T(0) || n[1] != T(0)) {
+    e1[0] = -n[1];
+    e1[1] = n[0];
+    e1[2] = T(0);
+  } else {
+    e1[0] = T(0);
+    e1[1] = -n[2];
+    e1[2] = n[1];
+  }
+  normalize3(e1);
+  cross3(n, e1, e2);
+  normalize3(e2);
+}
+
+// |c| / max(|b - a|, 1e-300), c = (q - a) x (b - a): the distance of q from
+// the line through a and b; the three components of c / max(|b - a|, 1e-300)
+// in quirk mode.
+template <typename T>
+__device__ __forceinline__ void edge_cross(const T* q, const T* a, const T* b, T* c,
+                                           T& den) {
+  T qa[3], ab[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    qa[d] = rn_sub(q[d], a[d]);
+    ab[d] = rn_sub(b[d], a[d]);
+  }
+  cross3(qa, ab, c);
+  den = max_nan(rn_sqrt(dot3(ab, ab)), T(1e-300));
+}
+
+// The edge (0: AB, 1: BC, 2: CA) whose neighbour triangle joins the
+// interior point's set (ops/singularity.py:133 _nearest_edge): the argmin of
+// the three distances, or in quirk mode the argmin over all nine
+// |component| values mapped {0: AB, 1: BC, else: CA}.
+template <typename T>
+__device__ __forceinline__ int nearest_edge(const T* q, T (*p)[3], bool quirks) {
+  T best = T(0);
+  int best_i = -1;
+  for (int e = 0; e < 3; ++e) {
+    T c[3], den;
+    edge_cross(q, p[e], p[(e + 1) % 3], c, den);
+    if (quirks) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const T v = fabs(rn_div(c[k], den));
+        if (argmin_before(v, 3 * e + k, best, best_i)) {
+          best = v;
+          best_i = 3 * e + k;
+        }
+      }
+    } else {
+      const T v = rn_div(rn_sqrt(dot3(c, c)), den);
+      if (argmin_before(v, e, best, best_i)) {
+        best = v;
+        best_i = e;
+      }
+    }
+  }
+  if (quirks) return best_i == 0 ? 0 : (best_i == 1 ? 1 : 2);
+  return best_i;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_class(const T* jac, int64_t slot,
+                                            int32_t* __restrict__ codes,
+                                            T* __restrict__ jac_out) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) jac_out[slot * 4 + k] = jac[k];
+  codes[slot] = classify_code(jac);
+}
+
+// Vertex candidates: the 1-ring of the vertex, on the vertex's basis.
+template <typename T>
+__global__ void classify_vertex_kernel(
+    const T* __restrict__ points, const T* __restrict__ basis,
+    const int32_t* __restrict__ neighbors, const T* __restrict__ v_world,
+    const T* __restrict__ v_max, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ valid, int32_t* __restrict__ codes,
+    T* __restrict__ jac_out, int64_t n_frames, int64_t n_vert, int64_t width,
+    int64_t cap) {
+  const int64_t s = global_index();
+  if (s >= cap) return;
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    const int64_t slot = t * cap + s;
+    const int64_t id = ids[slot];
+    const bool ok = valid[slot] != 0;
+    Plane<T> p;
+    make_plane(basis + id * 6, basis + id * 6 + 3, p);
+    const T vmax = v_max[t];
+    T jac[4] = {T(0), T(0), T(0), T(0)};
+    for (int64_t d = 0; d < width; ++d) {
+      const int32_t nb = neighbors[id * width + d];
+      const bool mask = ok && nb != -1;
+      const int64_t src = mask ? nb : 0;
+      T vel[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) vel[k] = rn_div(v_world[(t * n_vert + src) * 3 + k], vmax);
+      jacobian_add(points + id * 3, points + src * 3, vel, mask, p, jac);
+    }
+    store_class(jac, slot, codes, jac_out);
+  }
+}
+
+// Interior candidates: the triangle's corners and those of the triangle
+// across the nearest edge (itself on a boundary edge), each vertex once, on
+// the basis of the flat triangle normal, about the interior point.
+template <typename T>
+__global__ void classify_interior_kernel(
+    const T* __restrict__ points, const int32_t* __restrict__ tris,
+    const int32_t* __restrict__ across, const T* __restrict__ v_world,
+    const T* __restrict__ v_max, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ valid, const T* __restrict__ interior_points,
+    int32_t* __restrict__ codes, T* __restrict__ jac_out, int64_t n_frames,
+    int64_t n_vert, int64_t cap, bool quirks) {
+  const int64_t s = global_index();
+  if (s >= cap) return;
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    const int64_t slot = t * cap + s;
+    const int64_t id = ids[slot];
+    const bool ok = valid[slot] != 0;
+    T p[3][3], q[3];
+    int32_t nb[6];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      nb[c] = tris[id * 3 + c];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) p[c][d] = points[static_cast<int64_t>(nb[c]) * 3 + d];
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) q[d] = interior_points[slot * 3 + d];
+    T u[3], w[3], nrm[3], e1[3], e2[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      u[d] = rn_sub(p[1][d], p[0][d]);
+      w[d] = rn_sub(p[2][d], p[0][d]);
+    }
+    cross3(u, w, nrm);
+    const T nl = rn_sqrt(dot3(nrm, nrm));
+    const T den = nl > T(0) ? nl : T(1);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) nrm[d] = rn_div(nrm[d], den);
+    tangent_basis(nrm, e1, e2);
+    const int edge = nearest_edge(q, p, quirks);
+    int64_t other = across[id * 3 + edge];
+    if (other < 0) other = id;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) nb[3 + c] = tris[other * 3 + c];
+    Plane<T> pl;
+    make_plane(e1, e2, pl);
+    const T vmax = v_max[t];
+    T jac[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      bool first = true;
+#pragma unroll
+      for (int j = 0; j < i; ++j) first = first && nb[j] != nb[i];
+      const int64_t src = nb[i];
+      T vel[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) vel[k] = rn_div(v_world[(t * n_vert + src) * 3 + k], vmax);
+      jacobian_add(q, points + src * 3, vel, first && ok, pl, jac);
+    }
+    store_class(jac, slot, codes, jac_out);
+  }
+}
+
+template <typename T>
+int classify_candidates(const void* points, const void* basis, const void* neighbors,
+                        const void* tris, const void* across, const void* v_world,
+                        const void* v_max, const void* vertex_ids,
+                        const void* vertex_valid, const void* interior_ids,
+                        const void* interior_valid, const void* interior_points,
+                        void* vertex_codes, void* vertex_jac, void* interior_codes,
+                        void* interior_jac, int64_t n_frames, int64_t n_vert,
+                        int64_t width, int64_t cap_v, int64_t cap_i, int64_t quirks,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_frames > 0 && cap_v > 0) {
+    const dim3 grid(blocks_for(cap_v), frame_blocks(n_frames));
+    classify_vertex_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(points), static_cast<const T*>(basis),
+        static_cast<const int32_t*>(neighbors), static_cast<const T*>(v_world),
+        static_cast<const T*>(v_max), static_cast<const int32_t*>(vertex_ids),
+        static_cast<const uint8_t*>(vertex_valid), static_cast<int32_t*>(vertex_codes),
+        static_cast<T*>(vertex_jac), n_frames, n_vert, width, cap_v);
+  }
+  if (n_frames > 0 && cap_i > 0) {
+    const dim3 grid(blocks_for(cap_i), frame_blocks(n_frames));
+    classify_interior_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(points), static_cast<const int32_t*>(tris),
+        static_cast<const int32_t*>(across), static_cast<const T*>(v_world),
+        static_cast<const T*>(v_max), static_cast<const int32_t*>(interior_ids),
+        static_cast<const uint8_t*>(interior_valid),
+        static_cast<const T*>(interior_points), static_cast<int32_t*>(interior_codes),
+        static_cast<T*>(interior_jac), n_frames, n_vert, cap_i, quirks != 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace mf
 
 #define MF_ANALYSIS_ENTRY_POINTS(SUFFIX, T)                                     \
@@ -453,6 +696,21 @@ int compact_detected(const void* vertex_mask, const void* interior_mask,
                                    interior_points, interior_centers,           \
                                    n_frames, n_vert, n_tri, cap_v, cap_i,       \
                                    stream);                                     \
+  }                                                                             \
+  extern "C" int mf_classify_candidates_##SUFFIX(                              \
+      const void* points, const void* basis, const void* neighbors,             \
+      const void* tris, const void* across, const void* v_world,                \
+      const void* v_max, const void* vertex_ids, const void* vertex_valid,      \
+      const void* interior_ids, const void* interior_valid,                     \
+      const void* interior_points, void* vertex_codes, void* vertex_jac,        \
+      void* interior_codes, void* interior_jac, int64_t n_frames,               \
+      int64_t n_vert, int64_t width, int64_t cap_v, int64_t cap_i,              \
+      int64_t quirks, void* stream) {                                           \
+    return mf::classify_candidates<T>(                                          \
+        points, basis, neighbors, tris, across, v_world, v_max, vertex_ids,     \
+        vertex_valid, interior_ids, interior_valid, interior_points,            \
+        vertex_codes, vertex_jac, interior_codes, interior_jac, n_frames,       \
+        n_vert, width, cap_v, cap_i, quirks, stream);                           \
   }
 
 MF_ANALYSIS_ENTRY_POINTS(f32, float)

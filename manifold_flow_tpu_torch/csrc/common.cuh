@@ -49,4 +49,50 @@ __device__ __forceinline__ T block_sum(T v, T* scratch) {
   return total;
 }
 
+// Explicitly rounded arithmetic for every expression that decides something
+// discrete (a mask, an argmax, a class code, a ring count): nvcc would
+// otherwise contract a*b+c into fused multiply-adds, move results by an ulp
+// and flip a decision against the plain torch version, which evaluates each
+// operation separately.
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float rn_sqrt(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double rn_sqrt(double a) { return __dsqrt_rn(a); }
+
+// (a0 b0 + a1 b1) + a2 b2, each operation rounded on its own.
+template <typename T>
+__device__ __forceinline__ T dot3(const T* a, const T* b) {
+  return rn_add(rn_add(rn_mul(a[0], b[0]), rn_mul(a[1], b[1])), rn_mul(a[2], b[2]));
+}
+
+template <typename T>
+__device__ __forceinline__ void cross3(const T* a, const T* b, T* out) {
+  out[0] = rn_sub(rn_mul(a[1], b[2]), rn_mul(a[2], b[1]));
+  out[1] = rn_sub(rn_mul(a[2], b[0]), rn_mul(a[0], b[2]));
+  out[2] = rn_sub(rn_mul(a[0], b[1]), rn_mul(a[1], b[0]));
+}
+
+// (a, ia) before (b, ib) in torch.argmin's order: NaN first, then the
+// smaller value, ties to the lower index; an index < 0 is "no candidate".
+template <typename T>
+__device__ __forceinline__ bool argmin_before(T a, int ia, T b, int ib) {
+  if (ia < 0) return false;
+  if (ib < 0) return true;
+  const bool a_nan = a != a, b_nan = b != b;
+  if (a_nan) return !b_nan || ia < ib;
+  if (b_nan) return false;
+  return a == b ? ia < ib : a < b;
+}
+
+// Frames run over gridDim.y with a stride, so any frame count launches.
+inline unsigned int frame_blocks(int64_t n_frames) {
+  return static_cast<unsigned int>(n_frames < 65535 ? n_frames : 65535);
+}
+
 }  // namespace mf

@@ -1,0 +1,317 @@
+// Streamline kernels of the S6 stage: the per-frame next-hop graph (K13)
+// and the walks over it (K14: walk lengths, and the packing of walks into
+// one flat id buffer). Layouts follow the JAX package:
+//   unit        (N, D, 3)   projected unit edge vectors to the 1-ring
+//                           (frame-independent, built once per mesh)
+//   neighbors   (N, D)      1-ring vertex ids, -1 padded
+//   vertex_cells(N, C)      incident cell ids in ascending order, -1 padded
+//   v_world     (T, N, 3)   world velocity vectors
+//   next        (T, N)      int32 frame-local next vertex; a halting vertex
+//                           points to itself
+// Every decision (the argmax over the 1-ring, dmax > 0, the boundary
+// triangle test) is computed with the explicitly rounded operations of
+// common.cuh, in the JAX expression order, so `next` equals the plain torch
+// version's. The C entry points return the cudaError_t of the launches.
+#include <cmath>
+
+#include "common.cuh"
+
+namespace mf {
+
+// ------------------------------------------------------------------ K13
+// The next hop of every (frame, vertex) (ops/streamline.py:133
+// _next_hop_tables with :242 _hop_graph, B10): the 1-ring neighbour whose
+// projected unit edge vector has the largest dot product with the vertex's
+// velocity (the first on ties, as argmax takes it), kept when that dot is
+// positive and, for a boundary vertex (fewer than 6 incident cells), when
+// the two share at least 2 cells or the velocity points strictly inside
+// their one shared triangle (:98 _boundary_triangle_test).
+// Bound on this card: memory traffic. At the bench shapes (97 frames, 3136
+// vertices, f64) a call reads v_world once (7.3 MB) and the unit table
+// (under 1 MB, from L2 after the first frame) and writes next (1.2 MB):
+// about 2.5 us at 3.35 TB/s. Design: one thread per (frame, vertex); the
+// unit table is computed once per mesh outside the kernel, so a thread does
+// D dot products; only the ~7% boundary rows that would advance run the
+// shared-cell scan and the triangle test.
+
+template <typename T>
+__device__ __forceinline__ T cross2(T ax, T ay, T bx, T by) {
+  return rn_sub(rn_mul(ax, by), rn_mul(ay, bx));
+}
+
+// (u, v) of `rel` on (e1, e2) after projecting it onto their plane
+// (geometry/tangent.py position_diff_on_basis of rel = b - a).
+template <typename T>
+__device__ __forceinline__ void plane_coords(const T* rel, const T* e1, const T* e2,
+                                             const T* n, T nn, T* out) {
+  const T s = nn > T(0) ? rn_div(dot3(rel, n), nn) : T(0);
+  T proj[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) proj[d] = rn_sub(rel[d], rn_mul(s, n[d]));
+  out[0] = dot3(proj, e1);
+  out[1] = dot3(proj, e2);
+}
+
+// The reference's index arithmetic (ops/streamline.py:88 _scalar_posdiff):
+// proj = s - s (n * n) / |n|^2 elementwise for a scalar s.
+template <typename T>
+__device__ __forceinline__ void scalar_posdiff(T s, const T* e1, const T* e2,
+                                               const T* n, T nn, T* out) {
+  T proj[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) proj[d] = rn_sub(s, rn_div(rn_mul(s, rn_mul(n[d], n[d])), nn));
+  out[0] = dot3(proj, e1);
+  out[1] = dot3(proj, e2);
+}
+
+// ops/streamline.py:98 _boundary_triangle_test for vertex `a` moving to
+// `cand` across triangle `cell`.
+template <typename T>
+__device__ bool triangle_test(const T* __restrict__ points, const int32_t* __restrict__ tris,
+                              int32_t a, int32_t cand, int32_t cell, const T* e1,
+                              const T* e2, const T* vel, bool quirks) {
+  const int32_t t0 = tris[3 * static_cast<int64_t>(cell)];
+  const int32_t t1 = tris[3 * static_cast<int64_t>(cell) + 1];
+  const int32_t t2 = tris[3 * static_cast<int64_t>(cell) + 2];
+  const int32_t b = t0 == a ? t1 : (t1 == a ? t0 : t1);
+  const int32_t c = t2 == a ? t0 : t2;
+  T n[3];
+  cross3(e1, e2, n);
+  const T nn = dot3(n, n);
+  T p1[2], p2[2];
+  if (quirks) {
+    scalar_posdiff(static_cast<T>(b - a), e1, e2, n, nn, p1);
+    scalar_posdiff(static_cast<T>(a - c), e1, e2, n, nn, p2);
+  } else {
+    const T* pa = points + 3 * static_cast<int64_t>(a);
+    const T* pb = points + 3 * static_cast<int64_t>(b);
+    const T* pc = points + 3 * static_cast<int64_t>(c);
+    T rb[3], rc[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      rb[d] = rn_sub(pb[d], pa[d]);
+      rc[d] = rn_sub(pc[d], pa[d]);
+    }
+    plane_coords(rb, e1, e2, n, nn, p1);
+    plane_coords(rc, e1, e2, n, nn, p2);
+  }
+  const T orient = cross2(p1[0], p1[1], p2[0], p2[1]);
+  const bool ccw = orient >= T(0);
+  const T bx = ccw ? p1[0] : p2[0], by = ccw ? p1[1] : p2[1];
+  const T cx = ccw ? p2[0] : p1[0], cy = ccw ? p2[1] : p1[1];
+  const T vx = rn_div(dot3(vel, e1), dot3(e1, e1));
+  const T vy = rn_div(dot3(vel, e2), dot3(e2, e2));
+  const bool inside = cross2(bx, by, vx, vy) > T(0) &&
+                      cross2(rn_sub(cx, bx), rn_sub(cy, by), rn_sub(vx, bx), rn_sub(vy, by)) > T(0) &&
+                      cross2(-cx, -cy, rn_sub(vx, cx), rn_sub(vy, cy)) > T(0);
+  return inside && orient != T(0);
+}
+
+template <typename T>
+__global__ void next_hop_kernel(
+    const T* __restrict__ unit, const T* __restrict__ v_world,
+    const int32_t* __restrict__ neighbors, const int32_t* __restrict__ cell_count,
+    const int32_t* __restrict__ vertex_cells, const int32_t* __restrict__ tris,
+    const T* __restrict__ points, const T* __restrict__ basis,
+    int32_t* __restrict__ next, int64_t n_frames, int64_t n_vert, int64_t width,
+    int64_t cells, bool quirks) {
+  const int64_t v = global_index();
+  if (v >= n_vert) return;
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    const T* vel = v_world + (t * n_vert + v) * 3;
+    const T vv[3] = {vel[0], vel[1], vel[2]};
+    // argmax in torch.argmax's order: a NaN is the largest, ties to the
+    // first index; masked entries are -inf, so an all-masked row gives 0.
+    T best = -INFINITY;
+    int64_t best_d = 0;
+    for (int64_t d = 0; d < width; ++d) {
+      const int32_t nb = neighbors[v * width + d];
+      const T val = nb != -1 ? dot3(unit + (v * width + d) * 3, vv) : T(-INFINITY);
+      if (best != best) break;
+      if (val != val || val > best) {
+        best = val;
+        best_d = d;
+      }
+    }
+    const int32_t nb_best = neighbors[v * width + best_d];
+    const int32_t cand = nb_best != -1 ? nb_best : 0;
+    bool advance = best > T(0);
+    if (advance && cell_count[v] < 6) {
+      // Cells shared with the candidate: their count, and the first of the
+      // vertex's own cells (ascending) that the candidate also has.
+      int count = 0;
+      int32_t first = -1;
+      for (int64_t i = 0; i < cells; ++i) {
+        const int32_t ca = vertex_cells[v * cells + i];
+        if (ca == -1) continue;
+        bool match = false;
+        for (int64_t j = 0; j < cells; ++j) {
+          const int32_t cb = vertex_cells[static_cast<int64_t>(cand) * cells + j];
+          match = match || (cb != -1 && cb == ca);
+        }
+        if (match) {
+          if (first < 0) first = ca;
+          ++count;
+        }
+      }
+      advance = count >= 2 ||
+                (first >= 0 && triangle_test(points, tris, static_cast<int32_t>(v), cand,
+                                             first, basis + v * 6, basis + v * 6 + 3, vv,
+                                             quirks));
+    }
+    next[t * n_vert + v] = advance ? cand : static_cast<int32_t>(v);
+  }
+}
+
+template <typename T>
+int next_hop(const void* unit, const void* v_world, const void* neighbors,
+             const void* cell_count, const void* vertex_cells, const void* tris,
+             const void* points, const void* basis, void* next, int64_t n_frames,
+             int64_t n_vert, int64_t width, int64_t cells, int64_t quirks,
+             void* stream) {
+  if (n_frames > 0 && n_vert > 0) {
+    const dim3 grid(blocks_for(n_vert), frame_blocks(n_frames));
+    next_hop_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(unit), static_cast<const T*>(v_world),
+        static_cast<const int32_t*>(neighbors), static_cast<const int32_t*>(cell_count),
+        static_cast<const int32_t*>(vertex_cells), static_cast<const int32_t*>(tris),
+        static_cast<const T*>(points), static_cast<const T*>(basis),
+        static_cast<int32_t*>(next), n_frames, n_vert, width, cells, quirks != 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ K14
+// Walks over the next-hop graph (ops/streamline.py:268 _double_and_detect,
+// :335, :351 and :733 _gather_packed; B11). A walk from seed s is s, f(s),
+// f(f(s)), ...; its length is the first step whose vertex already occurred,
+// capped at max_steps + 1. On a functional graph that step is mu + lambda
+// (the tail and the cycle of the rho-shaped path), which Brent's cycle
+// detection finds with O(1) state: the walk entry keeps no path.
+// Bound on this card: the chain of dependent loads. The bytes are tiny
+// (next is 1.2 MB at the bench shapes and stays in L2; lengths write
+// 1.2 MB), but each step waits for the previous load, so a call takes
+// about as long as the longest walk's ~3 (mu + lambda) L2 round trips.
+// Design: one thread per seed for the lengths; one thread per kept seed
+// for the pack entry, which re-walks its seed and writes the ids at the
+// seed's offset, so only kept walks are ever materialised.
+
+__global__ void trace_walks_kernel(const int32_t* __restrict__ next,
+                                   int32_t* __restrict__ lengths, int64_t n_frames,
+                                   int64_t n_vert, int64_t cap) {
+  const int64_t total = n_frames * n_vert;
+  for (int64_t seed = global_index(); seed < total;
+       seed += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int32_t* f = next + (seed / n_vert) * n_vert;
+    const int32_t s = static_cast<int32_t>(seed % n_vert);
+    // Brent: the hare steps one vertex at a time; the tortoise jumps to the
+    // hare at every power of two. If mu + lambda <= max_steps = cap - 1 the
+    // hare meets it within 3 (mu + lambda) + 1 < 4 cap steps, so a search cut
+    // at 4 cap steps means the walk outlives the cap.
+    int64_t power = 1, lam = 1, steps = 1;
+    int32_t tortoise = s, hare = f[s];
+    bool found = true;
+    while (tortoise != hare) {
+      if (steps >= 4 * cap) {
+        found = false;
+        break;
+      }
+      if (power == lam) {
+        tortoise = hare;
+        power *= 2;
+        lam = 0;
+      }
+      hare = f[hare];
+      ++lam;
+      ++steps;
+    }
+    int64_t len = cap;
+    if (found && lam < cap) {
+      // mu: the first index where the walk and its lambda-shifted copy meet.
+      tortoise = s;
+      hare = s;
+      for (int64_t k = 0; k < lam; ++k) hare = f[hare];
+      int64_t mu = 0;
+      while (tortoise != hare && mu + lam < cap) {
+        tortoise = f[tortoise];
+        hare = f[hare];
+        ++mu;
+      }
+      len = mu + lam < cap ? mu + lam : cap;
+    }
+    lengths[seed] = static_cast<int32_t>(len);
+  }
+}
+
+__global__ void pack_walks_kernel(const int32_t* __restrict__ next,
+                                  const int64_t* __restrict__ seeds,
+                                  const int32_t* __restrict__ lengths,
+                                  const int64_t* __restrict__ offsets,
+                                  int32_t* __restrict__ out, int64_t n_seeds,
+                                  int64_t n_vert) {
+  const int64_t k = global_index();
+  if (k >= n_seeds) return;
+  const int64_t seed = seeds[k];
+  const int32_t* f = next + (seed / n_vert) * n_vert;
+  int32_t x = static_cast<int32_t>(seed % n_vert);
+  int32_t* dst = out + offsets[k];
+  const int32_t len = lengths[k];
+  for (int32_t j = 0; j < len; ++j) {
+    dst[j] = x;
+    x = f[x];
+  }
+}
+
+int trace_walks(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
+                int64_t max_steps, void* stream) {
+  const int64_t total = n_frames * n_vert;
+  if (total > 0) {
+    const int64_t blocks = blocks_for(total) < 65535 * 32 ? blocks_for(total) : 65535 * 32;
+    trace_walks_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
+        n_vert, max_steps + 1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pack_walks(const void* next, const void* seeds, const void* lengths,
+               const void* offsets, void* out, int64_t n_seeds, int64_t n_vert,
+               void* stream) {
+  if (n_seeds > 0) {
+    pack_walks_kernel<<<blocks_for(n_seeds), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(next), static_cast<const int64_t*>(seeds),
+        static_cast<const int32_t*>(lengths), static_cast<const int64_t*>(offsets),
+        static_cast<int32_t*>(out), n_seeds, n_vert);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mf
+
+#define MF_STREAM_ENTRY_POINTS(SUFFIX, T)                                       \
+  extern "C" int mf_next_hop_##SUFFIX(                                          \
+      const void* unit, const void* v_world, const void* neighbors,             \
+      const void* cell_count, const void* vertex_cells, const void* tris,       \
+      const void* points, const void* basis, void* next, int64_t n_frames,      \
+      int64_t n_vert, int64_t width, int64_t cells, int64_t quirks,             \
+      void* stream) {                                                           \
+    return mf::next_hop<T>(unit, v_world, neighbors, cell_count, vertex_cells,  \
+                           tris, points, basis, next, n_frames, n_vert, width,  \
+                           cells, quirks, stream);                              \
+  }
+
+MF_STREAM_ENTRY_POINTS(f32, float)
+MF_STREAM_ENTRY_POINTS(f64, double)
+
+extern "C" int mf_trace_walks_i32(const void* next, void* lengths, int64_t n_frames,
+                                  int64_t n_vert, int64_t max_steps, void* stream) {
+  return mf::trace_walks(next, lengths, n_frames, n_vert, max_steps, stream);
+}
+
+extern "C" int mf_pack_walks_i32(const void* next, const void* seeds,
+                                 const void* lengths, const void* offsets, void* out,
+                                 int64_t n_seeds, int64_t n_vert, void* stream) {
+  return mf::pack_walks(next, seeds, lengths, offsets, out, n_seeds, n_vert, stream);
+}

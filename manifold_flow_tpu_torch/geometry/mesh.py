@@ -179,15 +179,55 @@ def edges_and_boundary(n_vertices: int, triangles: np.ndarray):
     return edges, edge_cells, boundary
 
 
+# Host-built per-mesh tables of the analysis ops (the cell across each edge,
+# the walk rule's unit edges, the boundary rows), keyed by the identities of
+# the mesh tensors each is computed from. An entry pins those tensors, so a
+# recycled id never matches.
+_MESH_CACHE: dict = {}
+_MESH_CACHE_SIZE = 32
+
+
+def mesh_cached(pins: tuple, key: tuple, build):
+    """build(), cached under `key` while the entry pins the mesh tensors
+    `pins`, every tensor build() reads (a FIFO of _MESH_CACHE_SIZE
+    entries)."""
+    key = (*(id(p) for p in pins), *key)
+    entry = _MESH_CACHE.get(key)
+    if entry is not None and all(a is b for a, b in zip(entry[0], pins)):
+        return entry[1]
+    value = build()
+    _MESH_CACHE[key] = (tuple(pins), value)
+    while len(_MESH_CACHE) > _MESH_CACHE_SIZE:
+        _MESH_CACHE.pop(next(iter(_MESH_CACHE)))
+    return value
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device, for the entry points that build meshes.
+
+    They default to "cuda". Without a GPU that raises, naming the way to the
+    CPU, instead of quietly running there.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} needs an NVIDIA GPU and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            "the plain torch versions on the CPU")
+    return device
+
+
 def build_mesh(points, triangles, normals=None, dtype=None,
-               device="cpu") -> TriMesh:
+               device="cuda") -> TriMesh:
     """Construct a TriMesh from raw arrays (runs once per surface).
 
     The geometry is computed on the CPU in the points' dtype (or `dtype`),
-    then every tensor moves to `device`. `normals` defaults to
-    cell-normal-averaged vertex normals (the quantity the reference takes from
+    then every tensor moves to `device` (the GPU unless the caller asks for
+    the CPU; `resolve_device`). `normals` defaults to cell-normal-averaged
+    vertex normals (the quantity the reference takes from
     `surface.point_normals`, utils/compute_optical_flow.py:349).
     """
+    device = resolve_device(device)
     points = np.asarray(points)
     if dtype is not None:
         points = points.astype(dtype)

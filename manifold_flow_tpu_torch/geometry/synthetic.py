@@ -2,7 +2,8 @@
 
 Counterpart of manifold_flow_tpu/geometry/synthetic.py. Surfaces and movies
 are generated with numpy (so both packages see the same numbers); meshes and
-movies are returned as tensors on the requested device.
+movies are returned as tensors on the requested device: the GPU unless the
+caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh
 
 
 def plane_patch(nx: int = 32, ny: int = 32, lx: float = 10.0, ly: float = 10.0,
-                height=None, dtype=np.float64, device="cpu") -> TriMesh:
+                height=None, dtype=np.float64, device="cuda") -> TriMesh:
     """Triangulated rectangular patch, optionally warped by z = height(x, y)."""
     xs = np.linspace(0.0, lx, nx, dtype=dtype)
     ys = np.linspace(0.0, ly, ny, dtype=dtype)
@@ -35,7 +36,7 @@ def plane_patch(nx: int = 32, ny: int = 32, lx: float = 10.0, ly: float = 10.0,
 
 
 def sphere_patch(n_sub: int = 3, radius: float = 5.0, dtype=np.float64,
-                 device="cpu") -> TriMesh:
+                 device="cuda") -> TriMesh:
     """Icosphere: subdivided icosahedron — a closed curved test manifold."""
     phi = (1.0 + np.sqrt(5.0)) / 2.0
     verts = np.array(

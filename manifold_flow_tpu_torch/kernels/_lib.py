@@ -35,15 +35,28 @@ _ARGTYPES = {
     "recombine_speed": [_P] * 5 + [_I] * 2 + [_P],
     "detect_singular": [_P] * 5 + [_D] + [_P] * 5 + [_I] * 3 + [_P],
     "compact_detected": [_P] * 10 + [_I] * 5 + [_P],
+    "classify_candidates": [_P] * 16 + [_I] * 6 + [_P],
     # coarse_kernels.cu (kernels.coarse)
     "coarse_assemble": [_P] * 8 + [_D] + [_P] * 2 + [_I] * 5 + [_P],
     "coarse_restrict": [_P] * 4 + [_I] * 4 + [_P],
     "coarse_gemv": [_P] * 3 + [_I] * 3 + [_P],
     "coarse_prolong_dot": [_P] * 6 + [_I] * 3 + [_P],
+    # stream_kernels.cu (kernels.streams)
+    "next_hop": [_P] * 9 + [_I] * 5 + [_P],
+    # winding_kernels.cu (kernels.winding)
+    "winding_profile": [_P] * 8 + [_I] * 5 + [_P],
 }
+# Entry points that read and write integers only, one int32 instance each
+# (`_i32`, counted as "name<int>").
+_INT_ARGTYPES = {
+    "trace_walks": [_P] * 2 + [_I] * 3 + [_P],
+    "pack_walks": [_P] * 5 + [_I] * 2 + [_P],
+}
+_INT = ("int", "i32")
 
-LAUNCHES: dict[str, int] = {f"{name}<{ctype}>": 0 for name in _ARGTYPES
-                            for ctype, _ in _CTYPES.values()}
+LAUNCHES: dict[str, int] = {
+    **{f"{name}<{ctype}>": 0 for name in _ARGTYPES for ctype, _ in _CTYPES.values()},
+    **{f"{name}<{_INT[0]}>": 0 for name in _INT_ARGTYPES}}
 
 _LIB: ctypes.CDLL | None = None
 
@@ -64,6 +77,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, f"mf_{name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        for name, argtypes in _INT_ARGTYPES.items():
+            fn = getattr(lib, f"mf_{name}_{_INT[1]}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.mf_error_string.argtypes = [ctypes.c_int]
         lib.mf_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -103,8 +120,11 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    ctype, suffix = _CTYPES[dtype]
+def _launch(name: str, dtype: torch.dtype | None, device: torch.device, *args) -> None:
+    """Launch entry point `name` (its `dtype` instance; None for the integer
+    entry points) on the current stream of `device`, raise on a CUDA error,
+    and count the launch."""
+    ctype, suffix = _INT if dtype is None else _CTYPES[dtype]
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -1,5 +1,5 @@
-"""Wrappers of the flow stage's analysis kernels (K5-K7), with their plain
-torch versions.
+"""Wrappers of the flow stage's analysis kernels (K5-K7) and of the
+classification kernel (K12), with their plain torch versions.
 
 As in `kernels.fem`: CPU tensors take the plain version; CUDA tensors launch
 the kernel from `csrc/analysis_kernels.cu` or raise. Nothing falls back.
@@ -233,3 +233,192 @@ def plain_compact_detected(vertex_mask, interior_mask, interior_point, points,
     pts_i = torch.gather(interior_point, 1, idx_i[..., None].expand(-1, -1, 3))
     return (idx_v.to(torch.int32), valid_v, idx_i.to(torch.int32), valid_i,
             pts_i, closest_vertex(points, pts_i))
+
+
+# ------------------------------------------------------------------ K12
+NODE, FOCUS, SADDLE, INDETERMINATE = 0, 1, 2, 3
+
+
+def _project(v: torch.Tensor, n: torch.Tensor, nn: torch.Tensor) -> torch.Tensor:
+    """v - where(n.n > 0, (v.n) / n.n, 0) n (geometry/tangent.py
+    project_to_plane with n = e1 x e2 and nn = n.n), each operation
+    separate."""
+    pos = nn > 0
+    s = torch.where(pos, _dot3(v, n) / torch.where(pos, nn, torch.ones_like(nn)),
+                    torch.zeros_like(nn))
+    return v - s[..., None] * n
+
+
+def _reciprocal_or_zero(d: torch.Tensor) -> torch.Tensor:
+    nz = d != 0
+    return torch.where(nz, torch.ones_like(d) / torch.where(nz, d, torch.ones_like(d)),
+                       torch.zeros_like(d))
+
+
+def _jacobian_from_neighbors(origin, e1, e2, nb_points, nb_vel, nb_mask):
+    """The reference's finite-difference 2x2 Jacobian (ops/singularity.py:115;
+    compute_jacobian_matrix_for_vertex, utils/find_singularity_point.py:
+    355-402): for each neighbor, (u, w) its velocity projected on (e1, e2)
+    and (d1, d2) its projected offset from `origin`, J += [[u/d1, u/d2],
+    [w/d1, w/d2]]; a zero offset contributes 0 (the reference would emit
+    inf). Shapes: origin, e1, e2 (..., 1, 3); nb_points, nb_vel (..., D, 3);
+    nb_mask (..., D). The masked contributions are added in neighbor order,
+    one addition at a time, as K12 adds them."""
+    n = _cross(e1, e2)
+    nn = _dot3(n, n)
+    vp = _project(nb_vel, n, nn)
+    u = _dot3(vp, e1) / _dot3(e1, e1)
+    w = _dot3(vp, e2) / _dot3(e2, e2)
+    proj = _project(nb_points - origin, n, nn)
+    i1 = _reciprocal_or_zero(_dot3(proj, e1))
+    i2 = _reciprocal_or_zero(_dot3(proj, e2))
+    c = torch.stack([u * i1, u * i2, w * i1, w * i2], dim=-1)        # (..., D, 4)
+    c = torch.where(nb_mask[..., None], c, torch.zeros_like(c))
+    jac = torch.zeros_like(c[..., 0, :])
+    for d in range(c.shape[-2]):
+        jac = jac + c[..., d, :]
+    return jac.reshape(*jac.shape[:-1], 2, 2)
+
+
+def classify_jacobian(jac: torch.Tensor) -> torch.Tensor:
+    """Trace/determinant classification of (..., 2, 2) Jacobians -> int32
+    codes NODE / FOCUS / SADDLE / INDETERMINATE (ops/singularity.py:166)."""
+    tr = jac[..., 0, 0] + jac[..., 1, 1]
+    det = jac[..., 0, 0] * jac[..., 1, 1] - jac[..., 0, 1] * jac[..., 1, 0]
+    node_or_focus = torch.where(tr * tr > 4.0 * det, NODE, FOCUS)
+    return torch.where(det > 0, node_or_focus,
+                       torch.where(det < 0, SADDLE, INDETERMINATE)).to(torch.int32)
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    nrm = torch.sqrt(_dot3(v, v))[..., None]
+    ok = nrm > 0
+    return torch.where(ok, v / torch.where(ok, nrm, torch.ones_like(nrm)),
+                       torch.zeros_like(v))
+
+
+def _tangent_basis(n: torch.Tensor):
+    """geometry/tangent.py tangent_basis of unit normals (..., 3), as (e1, e2),
+    each operation separate."""
+    nx, ny, nz = n.unbind(-1)
+    zero = torch.zeros_like(nx)
+    cond = ((nx != 0) | (ny != 0))[..., None]
+    e1 = _normalize(torch.where(cond, torch.stack([-ny, nx, zero], -1),
+                                torch.stack([zero, -nz, ny], -1)))
+    return e1, _normalize(_cross(n, e1))
+
+
+def _nearest_edge(pt, pa, pb, pc, quirks: bool = False) -> torch.Tensor:
+    """Index (0: AB, 1: BC, 2: CA) of the edge whose neighbor triangle joins
+    an interior point's set (ops/singularity.py:133). quirks=False: the argmin
+    of the true point-to-line distances. quirks=True: the reference's
+    find_nearest_edge_and_vertices (utils/find_singularity_point.py:318-351),
+    the argmin over the 9 |component| values of cross(P-A, B-A) / |B-A| and
+    its two siblings, flat index mapped {0: AB, 1: BC, else: CA}."""
+    parts = []
+    for q, a, b in ((pt, pa, pb), (pt, pb, pc), (pt, pc, pa)):
+        ab = b - a
+        c = _cross(q - a, ab)
+        den = torch.clamp_min(torch.sqrt(_dot3(ab, ab)), 1e-300)
+        parts.append((c / den[..., None]).abs() if quirks
+                     else (torch.sqrt(_dot3(c, c)) / den)[..., None])
+    flat = torch.argmin(torch.cat(parts, dim=-1), dim=-1)
+    if not quirks:
+        return flat
+    return torch.where(flat == 0, 0, torch.where(flat == 1, 1, 2))
+
+
+def classify_candidates(points: torch.Tensor, basis: torch.Tensor,
+                        vertex_neighbors: torch.Tensor, triangles: torch.Tensor,
+                        across: torch.Tensor, v_world: torch.Tensor,
+                        v_max: torch.Tensor, vertex_ids: torch.Tensor,
+                        vertex_valid: torch.Tensor, interior_ids: torch.Tensor,
+                        interior_valid: torch.Tensor,
+                        interior_points: torch.Tensor, quirks: bool = False):
+    """K12 `classify_candidates<T>`: the Jacobian and class code of each
+    vertex and interior candidate slot of every frame.
+
+    points (N, 3), basis (N, 2, 3), v_world (T, N, 3), v_max (T,) and
+    interior_points (T, S_i, 3) in one dtype; vertex_neighbors (N, D),
+    triangles and across (M, 3; `topology.cells_across_edges`) int32;
+    vertex_ids (T, S_v) and interior_ids (T, S_i) int32 with their valid
+    flags (bool), as K7 compacts them (either S may be 0). Returns
+    vertex_codes (T, S_v) int32, vertex_jac (T, S_v, 2, 2), interior_codes
+    (T, S_i) int32 and interior_jac (T, S_i, 2, 2); an invalid slot gets a
+    zero Jacobian and INDETERMINATE.
+
+    Replaces ops/singularity.py:279 `classify_detected` with :115, :133 and
+    :166 (B9). Bound by launch latency: at the bench shapes (T=97, S=16) it
+    reads a few hundred kB, the 1-ring velocities mostly from L2. Design:
+    one thread per (frame, slot), a vertex kernel and an interior kernel in
+    one call; every operation is rounded on its own, in this module's
+    plain-version order, so codes equal the plain version's.
+    """
+    dtype = _float_dtype("v_world", v_world)
+    t, n = v_world.shape[0], points.shape[0]
+    m, width = triangles.shape[0], vertex_neighbors.shape[-1]
+    cap_v, cap_i = vertex_ids.shape[-1], interior_ids.shape[-1]
+    _check("points", points, dtype, (n, 3))
+    _check("basis", basis, dtype, (n, 2, 3))
+    _check("vertex_neighbors", vertex_neighbors, torch.int32, (n, width))
+    _check("triangles", triangles, torch.int32, (m, 3))
+    _check("across", across, torch.int32, (m, 3))
+    _check("v_world", v_world, dtype, (t, n, 3))
+    _check("v_max", v_max, dtype, (t,))
+    _check("vertex_ids", vertex_ids, torch.int32, (t, cap_v))
+    _check("vertex_valid", vertex_valid, torch.bool, (t, cap_v))
+    _check("interior_ids", interior_ids, torch.int32, (t, cap_i))
+    _check("interior_valid", interior_valid, torch.bool, (t, cap_i))
+    _check("interior_points", interior_points, dtype, (t, cap_i, 3))
+    tensors = (points, basis, vertex_neighbors, triangles, across, v_world, v_max,
+               vertex_ids, vertex_valid, interior_ids, interior_valid,
+               interior_points)
+    if not _on_cuda(*tensors):
+        return plain_classify_candidates(*tensors, quirks=quirks)
+    device = v_world.device
+    out = (torch.empty((t, cap_v), dtype=torch.int32, device=device),
+           torch.empty((t, cap_v, 2, 2), dtype=dtype, device=device),
+           torch.empty((t, cap_i), dtype=torch.int32, device=device),
+           torch.empty((t, cap_i, 2, 2), dtype=dtype, device=device))
+    _launch("classify_candidates", dtype, device, *(x.data_ptr() for x in tensors),
+            *(o.data_ptr() for o in out), t, n, width, cap_v, cap_i, int(quirks))
+    return out
+
+
+def plain_classify_candidates(points, basis, vertex_neighbors, triangles, across,
+                              v_world, v_max, vertex_ids, vertex_valid,
+                              interior_ids, interior_valid, interior_points,
+                              quirks: bool = False):
+    """Plain torch version of `classify_candidates`
+    (ops/singularity.py:293-352)."""
+    frame = torch.arange(v_world.shape[0], device=v_world.device)[:, None, None]
+    vmax = v_max[:, None, None, None]
+
+    ids = vertex_ids.long()
+    nb = vertex_neighbors[ids]                                      # (T, S, D)
+    mask = (nb != -1) & vertex_valid[..., None]
+    nb = torch.where(mask, nb, torch.zeros_like(nb)).long()
+    e = basis[ids]                                                  # (T, S, 2, 3)
+    jac_v = _jacobian_from_neighbors(
+        points[ids][..., None, :], e[..., None, 0, :], e[..., None, 1, :],
+        points[nb], v_world[frame, nb] / vmax, mask)
+
+    ids = interior_ids.long()
+    tri = triangles[ids].long()                                     # (T, S, 3)
+    p = points[tri]                                                 # (T, S, 3, 3)
+    nrm = _cross(p[..., 1, :] - p[..., 0, :], p[..., 2, :] - p[..., 0, :])
+    nl = torch.sqrt(_dot3(nrm, nrm))[..., None]
+    e1, e2 = _tangent_basis(nrm / torch.where(nl > 0, nl, torch.ones_like(nl)))
+    pt = interior_points
+    edge = _nearest_edge(pt, p[..., 0, :], p[..., 1, :], p[..., 2, :], quirks)
+    other = torch.gather(across[ids].long(), -1, edge[..., None])[..., 0]
+    other = torch.where(other >= 0, other, ids)
+    nb = torch.cat([tri, triangles[other].long()], dim=-1)          # (T, S, 6)
+    first = [torch.ones_like(nb[..., 0], dtype=torch.bool)]
+    for i in range(1, 6):
+        first.append(~(nb[..., i:i + 1] == nb[..., :i]).any(dim=-1))
+    mask = torch.stack(first, dim=-1) & interior_valid[..., None]
+    jac_i = _jacobian_from_neighbors(
+        pt[..., None, :], e1[..., None, :], e2[..., None, :], points[nb],
+        v_world[frame, nb] / vmax, mask)
+    return (classify_jacobian(jac_v), jac_v, classify_jacobian(jac_i), jac_i)

@@ -1,0 +1,279 @@
+"""Wrappers of the streamline kernels (K13 next hops, K14 walks), with their
+plain torch versions.
+
+As in `kernels.analysis`: CPU tensors take the plain version; CUDA tensors
+launch the kernel from `csrc/stream_kernels.cu` or raise. Nothing falls
+back. Each wrapper checks dtype, device, shape and contiguity first,
+allocates its outputs with `torch.empty` (the pack entry writes into a
+buffer the caller gives it), and counts its launches in `LAUNCHES`.
+
+K13's plain version evaluates every sum and product as a separate torch
+operation in the JAX expression order, and the kernel rounds each operation
+on its own in the same order, so the next-hop graphs are equal, not merely
+close. K14 works on integers only. Its plain version materialises each
+walk's first max_steps + 1 vertices and finds the first repeat by sorting
+(vertex, step) keys, as JAX's `_double_and_detect` does; the kernel finds
+the same step by Brent's cycle detection without storing the walk.
+
+Shapes below are given at the bench problem (T=97 frames, N=3136 vertices,
+D the widest 1-ring, C the most cells at a vertex).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from manifold_flow_tpu_torch.geometry.mesh import PAD_INDEX
+from manifold_flow_tpu_torch.kernels._lib import (
+    _check,
+    _float_dtype,
+    _launch,
+    _on_cuda,
+)
+from manifold_flow_tpu_torch.kernels.analysis import _cross, _dot3
+
+# Seeds per chunk of the plain walk-length version: a chunk holds
+# (rows, max_steps + 1) int64 keys, 2^25 of them at most.
+_PLAIN_KEYS = 1 << 25
+
+
+# ------------------------------------------------------------------ K13
+def next_hop(unit: torch.Tensor, v_world: torch.Tensor, neighbors: torch.Tensor,
+             cell_count: torch.Tensor, vertex_cells: torch.Tensor,
+             triangles: torch.Tensor, points: torch.Tensor, basis: torch.Tensor,
+             quirks: bool = False) -> torch.Tensor:
+    """K13 `next_hop<T>`: the next vertex (T, N) int32 of every (frame,
+    vertex) walk step, a halting vertex pointing to itself.
+
+    unit (N, D, 3) are the 1-ring edge vectors projected onto each vertex's
+    tangent plane and normalised (`ops.streamline.unit_edges`); v_world
+    (T, N, 3), points (N, 3) and basis (N, 2, 3) share its dtype;
+    neighbors (N, D), cell_count (N,), vertex_cells (N, C) and triangles
+    (M, 3) are the mesh's int32 tables. `quirks` takes the reference's
+    index arithmetic in the boundary triangle test.
+
+    Replaces ops/streamline.py:133 `_next_hop_tables` and :242 `_hop_graph`
+    (B10). Bound by memory traffic: about 7.3 MB of v_world in f64, under
+    1 MB of tables and 1.2 MB written, about 2.5 us at 3.35 TB/s. Design:
+    one thread per (frame, vertex); the frame-independent unit table is
+    built once per mesh; only boundary rows that would advance run the
+    shared-cell scan and the triangle test.
+    """
+    dtype = _float_dtype("v_world", v_world)
+    t, n = v_world.shape[0], points.shape[0]
+    width, cells, m = neighbors.shape[-1], vertex_cells.shape[-1], triangles.shape[0]
+    _check("unit", unit, dtype, (n, width, 3))
+    _check("v_world", v_world, dtype, (t, n, 3))
+    _check("neighbors", neighbors, torch.int32, (n, width))
+    _check("cell_count", cell_count, torch.int32, (n,))
+    _check("vertex_cells", vertex_cells, torch.int32, (n, cells))
+    _check("triangles", triangles, torch.int32, (m, 3))
+    _check("points", points, dtype, (n, 3))
+    _check("basis", basis, dtype, (n, 2, 3))
+    tensors = (unit, v_world, neighbors, cell_count, vertex_cells, triangles,
+               points, basis)
+    if not _on_cuda(*tensors):
+        return plain_next_hop(*tensors, quirks=quirks)
+    out = torch.empty((t, n), dtype=torch.int32, device=v_world.device)
+    _launch("next_hop", dtype, v_world.device, *(x.data_ptr() for x in tensors),
+            out.data_ptr(), t, n, width, cells, int(quirks))
+    return out
+
+
+def _plane_coords(rel, e1, e2, n, nn):
+    """(u, v) of `rel` on (e1, e2) after projecting it onto their plane
+    (geometry/tangent.py position_diff_on_basis), each operation separate."""
+    pos = nn > 0
+    s = torch.where(pos, _dot3(rel, n) / torch.where(pos, nn, torch.ones_like(nn)),
+                    torch.zeros_like(nn))
+    proj = rel - s[..., None] * n
+    return _dot3(proj, e1), _dot3(proj, e2)
+
+
+def _scalar_posdiff(s, e1, e2, n, nn):
+    """ops/streamline.py:88: the reference passes vertex indices where
+    coordinates belong, so proj = s - s (n * n) / |n|^2 elementwise."""
+    proj = s[..., None] - s[..., None] * (n * n) / nn[..., None]
+    return _dot3(proj, e1), _dot3(proj, e2)
+
+
+def _cross2(ax, ay, bx, by):
+    return ax * by - ay * bx
+
+
+def _boundary_triangle_test(points, triangles, a, cell, e1, e2, vel,
+                            quirks: bool):
+    """ops/streamline.py:98 `_boundary_triangle_test` for vertices `a`
+    moving across triangles `cell` (any matching shapes): the velocity on
+    the tangent basis must point strictly inside the shared triangle, its
+    corners ordered counter-clockwise; a degenerate triangle fails."""
+    tri = triangles[cell.long()].long()
+    t0, t1, t2 = tri.unbind(-1)
+    a = a.long()
+    b = torch.where(t0 == a, t1, torch.where(t1 == a, t0, t1))
+    c = torch.where(t2 == a, t0, t2)
+    n = _cross(e1, e2)
+    nn = _dot3(n, n)
+    if quirks:
+        p1 = _scalar_posdiff((b - a).to(e1.dtype), e1, e2, n, nn)
+        p2 = _scalar_posdiff((a - c).to(e1.dtype), e1, e2, n, nn)
+    else:
+        pa = points[a]
+        p1 = _plane_coords(points[b] - pa, e1, e2, n, nn)
+        p2 = _plane_coords(points[c] - pa, e1, e2, n, nn)
+    orient = _cross2(*p1, *p2)
+    ccw = orient >= 0
+    bx, by = torch.where(ccw, p1[0], p2[0]), torch.where(ccw, p1[1], p2[1])
+    cx, cy = torch.where(ccw, p2[0], p1[0]), torch.where(ccw, p2[1], p1[1])
+    vx = _dot3(vel, e1) / _dot3(e1, e1)
+    vy = _dot3(vel, e2) / _dot3(e2, e2)
+    inside = ((_cross2(bx, by, vx, vy) > 0)
+              & (_cross2(cx - bx, cy - by, vx - bx, vy - by) > 0)
+              & (_cross2(-cx, -cy, vx - cx, vy - cy) > 0))
+    return inside & (orient != 0)
+
+
+def _shared_cells(cells_a, cells_b):
+    """ops/streamline.py:73 over leading axes: the number of `cells_a`
+    entries that `cells_b` also lists, and the first of them (-1 if none)."""
+    eq = ((cells_a[..., :, None] == cells_b[..., None, :])
+          & (cells_a != PAD_INDEX)[..., :, None] & (cells_b != PAD_INDEX)[..., None, :])
+    cells_a = cells_a.expand_as(cells_b)
+    match = eq.any(dim=-1)
+    count = match.sum(dim=-1)
+    first = torch.gather(cells_a, -1, match.to(torch.uint8).argmax(dim=-1, keepdim=True))
+    return count, torch.where(match.any(dim=-1), first[..., 0], PAD_INDEX)
+
+
+def plain_next_hop(unit, v_world, neighbors, cell_count, vertex_cells, triangles,
+                   points, basis, quirks: bool = False):
+    """Plain torch version of `next_hop` (ops/streamline.py:149-185,
+    :249-255)."""
+    t, n = v_world.shape[0], points.shape[0]
+    mask = neighbors != PAD_INDEX
+    safe = torch.where(mask, neighbors, 0).long()
+    dots = _dot3(unit[None], v_world[:, :, None, :])                 # (T, N, D)
+    dots = torch.where(mask, dots, torch.full_like(dots, -torch.inf))
+    idx = dots.argmax(dim=-1, keepdim=True)
+    cand = torch.gather(safe.expand(t, -1, -1), -1, idx)[..., 0]     # (T, N)
+    dmax = torch.gather(dots, -1, idx)[..., 0]
+    ok = (cell_count >= 6).expand(t, n).clone()
+    rows = torch.nonzero(cell_count < 6)[:, 0]                        # (B,)
+    if rows.numel():
+        cand_b = cand[:, rows]                                        # (T, B)
+        count, cell = _shared_cells(vertex_cells[rows].long()[None],
+                                    vertex_cells[cand_b].long())
+        tri_ok = _boundary_triangle_test(
+            points, triangles, rows.expand_as(cand_b), cell.clamp_min(0),
+            basis[rows, 0][None], basis[rows, 1][None], v_world[:, rows], quirks)
+        ok[:, rows] = (count >= 2) | (tri_ok & (cell != PAD_INDEX))
+    vertex = torch.arange(n, device=v_world.device)
+    return torch.where((dmax > 0) & ok, cand, vertex).to(torch.int32)
+
+
+# ------------------------------------------------------------------ K14
+def trace_walks(next_: torch.Tensor, max_steps: int) -> torch.Tensor:
+    """K14 `trace_walks`: the length (T, N) int32 of the walk from every
+    seed over the next-hop graph `next_` (T, N) int32: the first step whose
+    vertex already occurred, capped at max_steps + 1.
+
+    Replaces the length half of ops/streamline.py:268 `_double_and_detect`
+    (with :351 `_trace_batched`, B11). Bound by the chain of dependent
+    loads: the bytes are tiny (next 1.2 MB read from L2, the lengths 1.2 MB
+    written), and a thread's steps wait on each other, about 3 (mu + lambda)
+    of them for a walk of tail mu and cycle lambda. Design: one thread per
+    seed runs Brent's cycle detection on the functional graph (O(1) state,
+    no stored path).
+    """
+    t, n = next_.shape[0], next_.shape[-1]
+    _check("next", next_, torch.int32, (t, n))
+    if int(max_steps) < 0:
+        raise ValueError(f"max_steps must be >= 0; got {max_steps!r}")
+    if not _on_cuda(next_):
+        return plain_trace_walks(next_, max_steps)
+    lengths = torch.empty((t, n), dtype=torch.int32, device=next_.device)
+    _launch("trace_walks", None, next_.device, next_.data_ptr(), lengths.data_ptr(),
+            t, n, int(max_steps))
+    return lengths
+
+
+def _global_hops(next_: torch.Tensor) -> torch.Tensor:
+    """The (T * N,) int64 graph over global ids (frame k's vertex v is
+    k * N + v)."""
+    t, n = next_.shape
+    offs = torch.arange(t, device=next_.device)[:, None] * n
+    return (next_.long() + offs).reshape(-1)
+
+
+def plain_trace_walks(next_, max_steps: int):
+    """Plain torch version of `trace_walks`: each walk's first max_steps + 1
+    vertices, then the first repeat from (vertex, step) keys sorted per
+    walk, as ops/streamline.py:317-330 does."""
+    t, n = next_.shape
+    cap = int(max_steps) + 1
+    f = _global_hops(next_)
+    steps = torch.arange(cap, device=next_.device)
+    out = torch.empty(t * n, dtype=torch.int32, device=next_.device)
+    chunk = max(_PLAIN_KEYS // cap, 1)
+    for lo in range(0, t * n, chunk):
+        x = torch.arange(lo, min(lo + chunk, t * n), device=next_.device)
+        seq = torch.empty((x.numel(), cap), dtype=torch.int64, device=next_.device)
+        for j in range(cap):
+            seq[:, j] = x
+            x = f[x]
+        key = torch.sort(seq * cap + steps, dim=1).values
+        repeat = (key[:, 1:] // cap) == (key[:, :-1] // cap)
+        first = torch.where(repeat, key[:, 1:] % cap, cap)
+        first = torch.cat([first, torch.full((first.shape[0], 1), cap,
+                                             dtype=first.dtype, device=first.device)], dim=1)
+        out[lo:lo + seq.shape[0]] = first.min(dim=1).values.to(torch.int32)
+    return out.reshape(t, n)
+
+
+def pack_walks(next_: torch.Tensor, seeds: torch.Tensor, lengths: torch.Tensor,
+               offsets: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """K14 `pack_walks`: write walk k (from the global seed id seeds[k] =
+    frame * N + vertex, lengths[k] vertices, frame-local ids) into
+    out[offsets[k]:offsets[k] + lengths[k]]; returns `out`.
+
+    next_ (T, N) int32; seeds (K,) and offsets (K,) int64; lengths (K,)
+    int32; out (L,) int32, written only at the walks' positions. Packed
+    walks (offsets an exclusive cumsum of the lengths) are what
+    ops/streamline.py:733 `_gather_packed` produced; rows (offsets
+    seed * (max_steps + 1) into a buffer prefilled with PAD_INDEX) are
+    `trace_frames`' (B11). Bound by the same chain of dependent loads as
+    `trace_walks`, over the kept walks only, plus the ids written. Design:
+    one thread per walk re-walks its seed.
+    """
+    t, n = next_.shape[0], next_.shape[-1]
+    k = seeds.shape[0]
+    _check("next", next_, torch.int32, (t, n))
+    _check("seeds", seeds, torch.int64, (k,))
+    _check("lengths", lengths, torch.int32, (k,))
+    _check("offsets", offsets, torch.int64, (k,))
+    if out.dim() != 1:
+        raise ValueError(f"out must be 1-D; got {tuple(out.shape)}")
+    _check("out", out, torch.int32, (out.shape[0],))
+    if not _on_cuda(next_, seeds, lengths, offsets, out):
+        return plain_pack_walks(next_, seeds, lengths, offsets, out)
+    _launch("pack_walks", None, next_.device, next_.data_ptr(), seeds.data_ptr(),
+            lengths.data_ptr(), offsets.data_ptr(), out.data_ptr(), k, n)
+    return out
+
+
+def plain_pack_walks(next_, seeds, lengths, offsets, out):
+    """Plain torch version of `pack_walks`."""
+    n = next_.shape[-1]
+    width = int(lengths.max()) if lengths.numel() else 0
+    if width == 0:
+        return out
+    f = _global_hops(next_)
+    seq = torch.empty((seeds.numel(), width), dtype=torch.int64, device=out.device)
+    x = seeds
+    for j in range(width):
+        seq[:, j] = x
+        x = f[x]
+    col = torch.arange(width, device=out.device)
+    keep = col < lengths[:, None]
+    out[(offsets[:, None] + col)[keep]] = (seq % n)[keep].to(torch.int32)
+    return out

@@ -1,16 +1,18 @@
-"""Singularity detection on velocity movies: the detection half.
+"""Singularity detection and classification on velocity movies.
 
-Counterpart of manifold_flow_tpu/ops/singularity.py:36-112 and :355-505.
-Every vertex, triangle and frame is tested at once with masks (K6,
-`kernels.analysis.detect_singular`); the masks then compact to a fixed
-capacity per frame with each interior zero snapped to its nearest vertex
-(K7, `kernels.analysis.compact_detected`); `compact_all` / `compact_frame`
-turn the result into the reference's per-frame Python lists on the host.
+Counterpart of manifold_flow_tpu/ops/singularity.py. Every vertex, triangle
+and frame is tested at once with masks (K6, `kernels.analysis.
+detect_singular`); the masks then compact to a fixed capacity per frame with
+each interior zero snapped to its nearest vertex (K7, `kernels.analysis.
+compact_detected`); `compact_all` / `compact_frame` turn the result into the
+reference's per-frame Python lists on the host. Classification computes the
+reference's finite-difference Jacobian at the compacted candidates and its
+node / focus / saddle code (K12, `kernels.analysis.classify_candidates`);
+`vertex_jacobians`, `interior_jacobians` and `classify` run the same kernel
+over every vertex or triangle.
 
-Detection runs in the velocity field's dtype: the mesh points are cast to
-it. Classification (`classify_detected`, `interior_jacobians`,
-`vertex_jacobians`, `classify`; kernel B9) is not ported yet: ROADMAP
-Queue A item 10.
+Everything runs in the velocity field's dtype: the mesh points (and bases)
+are cast to it.
 """
 
 from __future__ import annotations
@@ -21,12 +23,21 @@ import numpy as np
 import torch
 
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh
+from manifold_flow_tpu_torch.geometry.topology import cells_across_edges
 from manifold_flow_tpu_torch.kernels import analysis as kan
+from manifold_flow_tpu_torch.kernels.analysis import (  # noqa: F401 (JAX names)
+    FOCUS,
+    INDETERMINATE,
+    NODE,
+    SADDLE,
+    _nearest_edge,
+    classify_jacobian,
+)
 from manifold_flow_tpu_torch.ops.recombine import world_speed
 
-# Classification codes (classify_critical_point,
-# utils/find_singularity_point.py:463-498).
-NODE, FOCUS, SADDLE, INDETERMINATE = 0, 1, 2, 3
+# Class names by code (classify_critical_point,
+# utils/find_singularity_point.py:463-498; the finer stable/unstable branches
+# there are dead code after the early returns).
 CLASS_NAMES = ("Node", "Focus", "Saddle", "Indeterminate")
 
 
@@ -150,25 +161,113 @@ def compact_capacity(field: SingularityField) -> int:
     return capacity_for(*detection_counts(field))
 
 
-def compact_all(mesh: TriMesh, field: SingularityField,
-                capacity: int | None = None, with_centers: bool = False):
-    """Host-side: every frame's masked arrays -> reference-style lists.
+class DetectedClasses(NamedTuple):
+    """Class codes of the compacted candidates (ops/singularity.py:269), with
+    K12's Jacobians of the same slots."""
 
-    Returns a list over frames of (points (S, 3), kinds (S,) str
-    'vertex'/'interior', ids (S,)), vertices first then interiors, matching
-    the ordering of find_singularity_points_for_all_Vk
-    (utils/find_singularity_point.py:550-556). The masks compact on the
-    device first (`compact_detected`), so only ~capacity rows per frame
-    cross to the host, in one wait.
+    vertex_ids: torch.Tensor           # (T, S) candidate vertex ids (compacted)
+    vertex_valid: torch.Tensor         # (T, S) bool
+    vertex_codes: torch.Tensor         # (T, S) int32 class codes
+    interior_ids: torch.Tensor         # (T, S) candidate triangle ids
+    interior_valid: torch.Tensor       # (T, S) bool
+    interior_codes: torch.Tensor       # (T, S) int32 class codes
+    vertex_jacobians: torch.Tensor     # (T, S, 2, 2)
+    interior_jacobians: torch.Tensor   # (T, S, 2, 2)
 
-    with_centers=True appends a 4th element per frame: the snapped center
-    vertex id per singularity, the winding stage's input.
-    """
+
+def _classify(mesh: TriMesh, v_world: torch.Tensor, v_max: torch.Tensor,
+              vertex_ids, vertex_valid, interior_ids, interior_valid,
+              interior_points, quirks: bool):
+    """K12 on these candidate slots; velocities normalised by v_max."""
+    dtype = v_world.dtype
+    return kan.classify_candidates(
+        mesh.points.to(dtype).contiguous(), mesh.basis.to(dtype).contiguous(),
+        mesh.vertex_neighbors, mesh.triangles, cells_across_edges(mesh),
+        v_world.contiguous(), v_max.to(dtype).contiguous(),
+        vertex_ids.contiguous(), vertex_valid.contiguous(),
+        interior_ids.contiguous(), interior_valid.contiguous(),
+        interior_points.to(dtype).contiguous(), quirks=quirks)
+
+
+def classify_compacted(mesh: TriMesh, v_world: torch.Tensor,
+                       v_max: torch.Tensor, det: CompactDetections,
+                       quirks: bool = False) -> DetectedClasses:
+    """Classify the candidates that `compact_detected` (K7) compacted: their
+    ids arrive in compacted order (ascending per frame), so nothing is
+    sorted again."""
+    vcodes, vjac, icodes, ijac = _classify(
+        mesh, v_world, v_max, det.vertex_ids, det.vertex_valid,
+        det.interior_ids, det.interior_valid, det.interior_points, quirks)
+    return DetectedClasses(det.vertex_ids, det.vertex_valid, vcodes,
+                           det.interior_ids, det.interior_valid, icodes,
+                           vjac, ijac)
+
+
+def classify_detected(mesh: TriMesh, v_world: torch.Tensor,
+                      field: SingularityField, capacity: int = 64,
+                      quirks: bool = False) -> DetectedClasses:
+    """Classify only the detected candidates, at a fixed capacity per frame
+    (ops/singularity.py:279): K7 compacts the masks to `capacity` slots, K12
+    classifies the slots. `quirks` takes the reference's nearest-edge rule
+    for interior candidates (`_nearest_edge`)."""
+    det = compact_detected(mesh, field, capacity=capacity)
+    return classify_compacted(mesh, v_world, field.v_max, det, quirks)
+
+
+def _every(count: int, t: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    ids = torch.arange(count, dtype=torch.int32, device=device)
+    ids = ids.expand(t, count).contiguous()
+    return ids, torch.ones_like(ids, dtype=torch.bool)
+
+
+def _nothing(t: int, v_world: torch.Tensor):
+    ids = torch.zeros((t, 0), dtype=torch.int32, device=v_world.device)
+    return ids, ids.bool(), torch.zeros((t, 0, 3), dtype=v_world.dtype,
+                                        device=v_world.device)
+
+
+def vertex_jacobians(mesh: TriMesh, v_world: torch.Tensor,
+                     v_max: torch.Tensor) -> torch.Tensor:
+    """2x2 Jacobians (T, N, 2, 2) at every vertex (ops/singularity.py:176),
+    velocities normalised by the frame max; K12 over every vertex."""
+    t = v_world.shape[0]
+    ids, ok = _every(mesh.n_vertices, t, v_world.device)
+    return _classify(mesh, v_world, v_max, ids, ok, *_nothing(t, v_world),
+                     False)[1]
+
+
+def interior_jacobians(mesh: TriMesh, v_world: torch.Tensor, v_max: torch.Tensor,
+                       interior_point: torch.Tensor,
+                       quirks: bool = False) -> torch.Tensor:
+    """2x2 Jacobians (T, M, 2, 2) at every triangle's interior point
+    (ops/singularity.py:196): the triangle's corners and those of the
+    triangle across the nearest edge, on the flat triangle's basis; K12 over
+    every triangle."""
+    t = v_world.shape[0]
+    ids, ok = _every(mesh.n_triangles, t, v_world.device)
+    nothing = _nothing(t, v_world)[:2]
+    return _classify(mesh, v_world, v_max, *nothing, ids, ok, interior_point,
+                     quirks)[3]
+
+
+def classify(mesh: TriMesh, v_world: torch.Tensor, field: SingularityField,
+             quirks: bool = False):
+    """Class codes for every vertex (T, N) and interior (T, M) candidate
+    (ops/singularity.py:260), in one K12 call."""
+    t = v_world.shape[0]
+    vid, vok = _every(mesh.n_vertices, t, v_world.device)
+    iid, iok = _every(mesh.n_triangles, t, v_world.device)
+    codes_v, _, codes_i, _ = _classify(mesh, v_world, field.v_max, vid, vok, iid,
+                                       iok, field.interior_point, quirks)
+    return codes_v, codes_i
+
+
+def compacted_rows(mesh: TriMesh, det: CompactDetections,
+                   with_centers: bool = False):
+    """Host-side: compacted detections -> reference-style lists per frame
+    (see compact_all), in one wait for the device."""
     from manifold_flow_tpu_torch.utils.io import to_numpy
 
-    if capacity is None:
-        capacity = compact_capacity(field)
-    det = compact_detected(mesh, field, capacity=capacity)
     vid, vok, iid, iok, ipts, icent, pts = to_numpy(*det, mesh.points)
     out = []
     for k in range(vid.shape[0]):
@@ -183,6 +282,26 @@ def compact_all(mesh: TriMesh, field: SingularityField,
         else:
             out.append((rows, kinds, ids))
     return out
+
+
+def compact_all(mesh: TriMesh, field: SingularityField,
+                capacity: int | None = None, with_centers: bool = False):
+    """Host-side: every frame's masked arrays -> reference-style lists.
+
+    Returns a list over frames of (points (S, 3), kinds (S,) str
+    'vertex'/'interior', ids (S,)), vertices first then interiors, matching
+    the ordering of find_singularity_points_for_all_Vk
+    (utils/find_singularity_point.py:550-556). The masks compact on the
+    device first (`compact_detected`), so only ~capacity rows per frame
+    cross to the host, in one wait.
+
+    with_centers=True appends a 4th element per frame: the snapped center
+    vertex id per singularity, the winding stage's input.
+    """
+    if capacity is None:
+        capacity = compact_capacity(field)
+    return compacted_rows(mesh, compact_detected(mesh, field, capacity=capacity),
+                          with_centers)
 
 
 def compact_frame(mesh: TriMesh, field: SingularityField, frame: int):

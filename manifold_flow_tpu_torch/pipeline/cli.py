@@ -1,17 +1,26 @@
-"""The command line: the `flow` subcommand (S3).
+"""The command line: the `flow` (S3), `streamline` (S6) and `winding` (S7)
+subcommands.
 
 Counterpart of manifold_flow_tpu/pipeline/cli.py, with the same arguments
-for `flow` plus `--device`, the explicit counterpart of the JAX package's
-JAX_PLATFORMS: `cuda` (the default) runs the hand-written kernels on the
-GPU and raises when there is none; `cpu` runs their plain torch versions.
+for these subcommands plus `--device`, the explicit counterpart of the JAX
+package's JAX_PLATFORMS: `cuda` (the default) runs the hand-written kernels
+on the GPU and raises when there is none; `cpu` runs their plain torch
+versions.
 
     python -m manifold_flow_tpu_torch.pipeline.cli flow --surface s.ply \\
-        --potentials p.csv --sfreq 512 --out-dir results/ [--device cpu]
+        --potentials p.csv --sfreq 512 --out-dir results/ [--classify]
+    python -m manifold_flow_tpu_torch.pipeline.cli streamline --surface s.ply \\
+        --e e.csv --v-k V_k.csv [--start 0 --end -1] --out-dir results/
+    python -m manifold_flow_tpu_torch.pipeline.cli winding --surface s.ply \\
+        --e e.csv --v-k V_k.csv --singularities singularity_points.pkl \\
+        --out-dir results/
 
-It writes e.csv, V_k.csv, wave_velocity_opticalflow.pkl.bz2 and
-singularity_points.pkl, and prints one JSON line. Not ported yet, and
-raising NotImplementedError: --classify (ROADMAP Queue A item 10). The
-other subcommands are item 14.
+`flow` writes e.csv, V_k.csv, wave_velocity_opticalflow.pkl.bz2 and
+singularity_points.pkl (and singularity_points_classification.pkl with
+--classify); `streamline` writes t_velocityfields_streamlines_{frame}.pkl.bz2
+per frame; `winding` writes winding_lines.pkl.bz2. Each prints one JSON
+line: its JAX counterpart's keys plus `device` and `timings`. The other
+subcommands are ROADMAP Queue A item 14.
 """
 
 from __future__ import annotations
@@ -57,12 +66,19 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _add_common(sp):
+    sp.add_argument("--config", help="YAML config (accepts the reference's "
+                    "config.yaml layout)")
+    sp.add_argument("--out-dir", default=".", help="artifact directory")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (default: the CUDA kernels; raises without a "
+                         "GPU) or cpu (their plain torch versions)")
+
+
 def cmd_flow(args):
-    """S3: velocity fields + singularity detection."""
+    """S3: velocity fields + singularity detection/classification."""
     from manifold_flow_tpu_torch.pipeline import stages
 
-    if args.classify:
-        raise NotImplementedError(stages.CLASSIFY_NOT_PORTED)
     device = _device(args.device)
     cfg = _load_config(args)
     if args.tol:
@@ -86,8 +102,11 @@ def cmd_flow(args):
         timings=timings)
     t1 = time.perf_counter()
     pts, _ = stages.singularity_stage(
-        mesh, vel.v_world, cfg, save_path=out / "singularity_points.pkl",
-        speed=vel.speed, v_max=vel.v_max)
+        mesh, vel.v_world, cfg, classify=args.classify,
+        save_path=out / "singularity_points.pkl",
+        classification_path=(out / "singularity_points_classification.pkl"
+                             if args.classify else None),
+        speed=vel.speed, v_max=vel.v_max, timings=timings)
     timings["singularity_stage"] = time.perf_counter() - t1
     print(json.dumps({
         "stage": "flow", "device": str(device),
@@ -100,6 +119,59 @@ def cmd_flow(args):
     return 0
 
 
+def _velocity_movie(args, device):
+    """The mesh of --surface and the world velocity movie of --v-k on --e's
+    bases (K5 on the GPU), both on `device`."""
+    from manifold_flow_tpu_torch.ops.recombine import velocity_to_world
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.utils import io
+
+    mesh = stages.load_surface(args.surface, device=device)
+    e = torch.as_tensor(io.load_e_csv(args.e), device=device)
+    v_k = torch.as_tensor(io.load_indexed_csv(args.v_k), device=device)
+    return mesh, velocity_to_world(v_k, e)
+
+
+def cmd_streamline(args):
+    """S6: streamlines of frames [--start, --end) of a V_k movie."""
+    from manifold_flow_tpu_torch.pipeline import stages
+
+    device = _device(args.device)
+    cfg = _load_config(args)
+    t0 = time.perf_counter()
+    mesh, v_world = _velocity_movie(args, device)
+    frames = range(args.start, args.end if args.end >= 0 else v_world.shape[0])
+    fmt = str(Path(args.out_dir) / "t_velocityfields_streamlines_{frame}.pkl.bz2")
+    timings: dict = {"load": time.perf_counter() - t0}
+    lines = stages.streamline_stage(mesh, v_world, cfg, frames=frames,
+                                    save_path_fmt=fmt, timings=timings)
+    print(json.dumps({"stage": "streamline", "device": str(device),
+                      "lines_per_frame": {k: len(v) for k, v in lines.items()},
+                      "timings": timings}))
+    return 0
+
+
+def cmd_winding(args):
+    """S7: winding lines around the singularities of a pickle; the points
+    snap to vertices again on the host."""
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.utils import io
+
+    device = _device(args.device)
+    cfg = _load_config(args)
+    t0 = time.perf_counter()
+    mesh, v_world = _velocity_movie(args, device)
+    sing = io.load_pickle(args.singularities)
+    t1 = time.perf_counter()
+    out = Path(args.out_dir) / "winding_lines.pkl.bz2"
+    lines = stages.winding_stage(mesh, v_world, sing, cfg, save_path=out)
+    timings = {"load": t1 - t0, "winding": time.perf_counter() - t1}
+    print(json.dumps({"stage": "winding", "device": str(device),
+                      "frames_with_lines": len(lines), "out": str(out),
+                      "timings": timings}))
+    return 0
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="manifold_flow_tpu_torch",
@@ -107,9 +179,7 @@ def build_parser():
     sub = p.add_subparsers(dest="command", required=True)
 
     sp = sub.add_parser("flow", help="S3: velocity fields + singularities")
-    sp.add_argument("--config", help="YAML config (accepts the reference's "
-                    "config.yaml layout)")
-    sp.add_argument("--out-dir", default=".", help="artifact directory")
+    _add_common(sp)
     sp.add_argument("--surface", required=True)
     sp.add_argument("--potentials", required=True)
     sp.add_argument("--sfreq", type=float, default=None)
@@ -117,10 +187,24 @@ def build_parser():
                     choices=[None, "cg", "cholesky", "refined"])
     sp.add_argument("--tol", type=float, default=None)
     sp.add_argument("--classify", action="store_true")
-    sp.add_argument("--device", default="cuda",
-                    help="cuda (default: the CUDA kernels; raises without a "
-                         "GPU) or cpu (their plain torch versions)")
     sp.set_defaults(func=cmd_flow)
+
+    sp = sub.add_parser("streamline", help="S6: streamline extraction")
+    _add_common(sp)
+    sp.add_argument("--surface", required=True)
+    sp.add_argument("--e", required=True)
+    sp.add_argument("--v-k", required=True)
+    sp.add_argument("--start", type=int, default=0)
+    sp.add_argument("--end", type=int, default=-1)
+    sp.set_defaults(func=cmd_streamline)
+
+    sp = sub.add_parser("winding", help="S7: winding-line analysis")
+    _add_common(sp)
+    sp.add_argument("--surface", required=True)
+    sp.add_argument("--e", required=True)
+    sp.add_argument("--v-k", required=True)
+    sp.add_argument("--singularities", required=True)
+    sp.set_defaults(func=cmd_winding)
     return p
 
 

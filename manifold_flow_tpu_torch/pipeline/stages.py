@@ -1,14 +1,15 @@
-"""Pipeline stages of S3: the velocity stage and the singularity stage.
+"""Pipeline stages of a trial's device path: S3 (velocity, singularities and
+their classification), S6 (streamlines) and S7 (winding lines).
 
-Counterpart of the S3 part of manifold_flow_tpu/pipeline/stages.py. Each
-stage computes on the mesh's device and writes the reference's artifact
-formats (utils.io). The JAX package's fused flow program, which exists to
-save remote dispatches, and its f64-to-f32 analysis cast, which exists
-because the TPU emulates f64, have no counterpart: on the H100 the solve,
-recombination and detection run eagerly in the movie's dtype.
+Counterpart of manifold_flow_tpu/pipeline/stages.py. Each stage computes on
+the mesh's device and writes the reference's artifact formats (utils.io).
+The JAX package's fused flow program, which exists to save remote
+dispatches, and its f64-to-f32 analysis cast, which exists because the TPU
+emulates f64, have no counterpart: on the H100 every stage runs eagerly in
+the movie's dtype.
 
-The other stages (S0-S2, S4-S7) and `pipeline/batch.py` are not ported yet:
-ROADMAP Queue A item 14 (and items 11-13 for their analysis ops).
+The other stages (S0-S2, S4, S5) and `pipeline/batch.py` are not ported
+yet: ROADMAP Queue A items 13-14.
 """
 
 from __future__ import annotations
@@ -22,22 +23,20 @@ import torch
 
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh
 from manifold_flow_tpu_torch.ops import singularity as sing_ops
+from manifold_flow_tpu_torch.ops import streamline as stream_ops
+from manifold_flow_tpu_torch.ops import winding as wind_ops
 from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve.api import compute_velocity_fields
 from manifold_flow_tpu_torch.utils import io
 
-CLASSIFY_NOT_PORTED = (
-    "singularity classification (classify=True, the CLI's --classify) is not "
-    "ported yet: ROADMAP Queue A item 10 (ops/singularity.py "
-    "classify_detected, kernel B9)")
-
 
 def load_surface(path, cache_dir=None, pad: bool = False,
-                 device="cpu") -> TriMesh:
+                 device="cuda") -> TriMesh:
     """Load a (reference-produced or own) PLY surface into a TriMesh on
-    `device`. The JAX package's geometry cache (`cache_dir`) and shape
-    padding (`pad`) are not ported and raise."""
+    `device` (the GPU unless the caller passes device="cpu"). The JAX
+    package's geometry cache (`cache_dir`) and shape padding (`pad`) are
+    not ported and raise."""
     if cache_dir is not None:
         raise NotImplementedError(
             "load_surface(cache_dir=...) needs the geometry cache "
@@ -170,38 +169,163 @@ def velocity_stage(mesh: TriMesh, potentials, times, config: PipelineConfig,
                          converged=bool(conv.all()), v_max=v_max)
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def singularity_stage(mesh: TriMesh, v_world, config: PipelineConfig,
                       classify: bool = False, save_path=None,
                       classification_path=None, writer=None,
                       return_centers: bool = False,
                       speed: torch.Tensor | None = None,
-                      v_max: torch.Tensor | None = None):
-    """S3 detection: per-frame singularity lists.
+                      v_max: torch.Tensor | None = None,
+                      timings: dict | None = None):
+    """S3 detection and classification: per-frame singularity lists.
 
-    Returns (points_per_frame, None) and saves the reference's pickle format
-    (find_singularity_point.py:760-761). return_centers=True appends a third
-    return: per-frame snapped center vertex ids (computed in the compaction
-    kernel) for the winding stage. `speed` and `v_max` are the velocity
-    stage's (VelocityStage.speed, .v_max): required on CUDA, computed from
-    v_world on the CPU when left out. classify=True (labels, `classification_path`) is not ported yet
-    and raises.
+    Returns (points_per_frame, labels_per_frame) and saves the reference's
+    pickle format (find_singularity_point.py:760-761). With classify=True
+    the labels are the reference's class names ('Node', 'Focus', 'Saddle',
+    'Indeterminate') of each point, in the same order, from the Jacobian of
+    each compacted candidate (K12, `quirks` from config.reference_quirks);
+    `classification_path` writes them (the reference config's
+    singularity_points_classification_path). Without classify the labels
+    are None. return_centers=True appends a third return: per-frame snapped
+    center vertex ids (computed in the compaction kernel) for the winding
+    stage. `speed` and `v_max` are the velocity stage's
+    (VelocityStage.speed, .v_max): required on CUDA, computed from v_world
+    on the CPU when left out. `timings`, when given, receives seconds:
+    'detect' (until the candidate counts reach the host), 'classify' (K7
+    and K12 until the compacted rows reach the host).
 
     The host waits on the device twice: once for the two candidate counts
-    that size the compaction, once for the compacted rows.
+    that size the compaction, once for the compacted rows (and codes).
     """
-    if classify:
-        raise NotImplementedError(CLASSIFY_NOT_PORTED)
+    t0 = time.perf_counter()
+    v_world = torch.as_tensor(v_world, device=mesh.device)
     field, counts = sing_ops.detect_with_counts(
-        mesh, torch.as_tensor(v_world, device=mesh.device),
-        eps=config.solver.eps, speed=speed, v_max=v_max)
+        mesh, v_world, eps=config.solver.eps, speed=speed, v_max=v_max)
     cap = sing_ops.capacity_for(*counts.tolist())
-    compacted = sing_ops.compact_all(mesh, field, capacity=cap,
-                                     with_centers=True)
+    t1 = time.perf_counter()
+    det = sing_ops.compact_detected(mesh, field, capacity=cap)
+    labels_per_frame = None
+    if classify:
+        classes = sing_ops.classify_compacted(mesh, v_world, field.v_max, det,
+                                              quirks=config.reference_quirks)
+        vcodes, icodes = io.to_numpy(classes.vertex_codes, classes.interior_codes)
+        vok, iok = io.to_numpy(det.vertex_valid, det.interior_valid)
+        names = np.asarray(sing_ops.CLASS_NAMES)
+        # Rows list the valid vertex slots, then the valid interior slots,
+        # in slot order (compacted_rows): the labels follow that order.
+        labels_per_frame = [
+            names[np.concatenate([vcodes[k][vok[k]], icodes[k][iok[k]]])].tolist()
+            for k in range(vcodes.shape[0])]
+    compacted = sing_ops.compacted_rows(mesh, det, with_centers=True)
+    if timings is not None:
+        timings["detect"] = t1 - t0
+        timings["classify"] = time.perf_counter() - t1
     points_per_frame = [c[0] for c in compacted]
     centers_per_frame = [c[3] for c in compacted]
     if save_path is not None:
         io.submit_write(writer, io.save_pickle, save_path,
                         [list(p) for p in points_per_frame])
+    if classification_path is not None and classify:
+        io.submit_write(writer, io.save_pickle, classification_path,
+                        labels_per_frame)
     if return_centers:
-        return points_per_frame, None, centers_per_frame
-    return points_per_frame, None
+        return points_per_frame, labels_per_frame, centers_per_frame
+    return points_per_frame, labels_per_frame
+
+
+# ------------------------------------------------------------------- S6 ----
+def streamline_stage(mesh: TriMesh, v_world, config: PipelineConfig,
+                     frames=None, save_path_fmt=None, writer=None,
+                     timings: dict | None = None):
+    """S6: per-frame streamline sets {str(frame): [polyline, ...]}.
+
+    Every requested frame is traced at once (K13 next hops, K14 walk
+    lengths); only the walks of at least min_streamline_length vertices are
+    packed on the device (K14) and cross to the host. Polyline coordinates
+    are float32 unless config.reference_quirks pins the reference's float64
+    bytes. `save_path_fmt` (with a {frame} field) writes one pickle per
+    frame, each queued as soon as that frame's lines exist. `timings`, when
+    given, receives seconds: 'trace' (until the walk lengths are computed),
+    'compact' (packing, the copy to the host, polyline assembly) and
+    'submit' (queueing the writes, or writing them when `writer` is None).
+    """
+    v = torch.as_tensor(v_world, device=mesh.device)
+    all_frames = frames is None
+    frames = list(range(v.shape[0])) if all_frames else list(frames)
+    vsel = v if all_frames else v[torch.as_tensor(frames, dtype=torch.long,
+                                                  device=v.device)]
+    t0 = time.perf_counter()
+    traced = stream_ops.trace_frames(
+        mesh, vsel, max_steps=config.analysis.max_streamline_steps,
+        quirks=config.reference_quirks, rows=False)
+    if timings is not None:
+        _sync(v.device)
+    t1 = time.perf_counter()
+    out = {}
+    submit = 0.0
+
+    def emit(i, lines):
+        nonlocal submit
+        k = frames[i]
+        out[str(k)] = lines
+        if save_path_fmt is not None:
+            ts = time.perf_counter()
+            io.submit_write(writer, io.save_pickle, save_path_fmt.format(frame=k),
+                            {str(k): lines})
+            submit += time.perf_counter() - ts
+
+    stream_ops.compact_frames(
+        mesh, traced, min_length=config.analysis.min_streamline_length,
+        coord_dtype=None if config.reference_quirks else np.float32, emit=emit)
+    if timings is not None:
+        timings["trace"] = t1 - t0
+        timings["compact"] = time.perf_counter() - t1 - submit
+        timings["submit"] = submit
+    return out
+
+
+# ------------------------------------------------------------------- S7 ----
+def winding_stage(mesh: TriMesh, v_world, singularity_points,
+                  config: PipelineConfig, save_path=None, writer=None,
+                  centers=None):
+    """S7: winding-line extents {str(frame): [[coord, ring_count, type], ...]}
+    for the frames with singularities, rows with a zero count left out.
+
+    `centers` optionally carries the detection stage's per-frame snapped
+    center vertex ids (singularity_stage(return_centers=True)); without
+    them the points snap again on the host (the resume-from-pickle path).
+    The JAX stage's `device_mesh` (frames sharded over chips) is ROADMAP
+    Queue A item 15."""
+    v = torch.as_tensor(v_world, device=mesh.device)
+    n_frames = min(len(singularity_points), v.shape[0])
+    caps = [len(singularity_points[t]) for t in range(n_frames)]
+    smax = max(caps, default=0)
+    winding_lines = {}
+    if smax:
+        # The coordinates go into the artifact as the detection stage gave
+        # them; float64 holds them exactly.
+        pts_arr = np.zeros((n_frames, smax, 3), dtype=np.float64)
+        valid = np.zeros((n_frames, smax), dtype=bool)
+        centers_arr = None if centers is None else np.zeros((n_frames, smax), np.int32)
+        for t in range(n_frames):
+            if caps[t]:
+                pts_arr[t, : caps[t]] = np.asarray(singularity_points[t])
+                valid[t, : caps[t]] = True
+                if centers_arr is not None:
+                    centers_arr[t, : caps[t]] = np.asarray(centers[t])
+        res = wind_ops.analyze_singularities_movie(
+            mesh, v[:n_frames], pts_arr, valid,
+            max_level=config.analysis.max_winding_level, centers=centers_arr)
+        counts, types = res.counts.numpy(), res.types.numpy()
+        for t in range(n_frames):
+            if caps[t]:
+                winding_lines[str(t)] = [
+                    [pts_arr[t, i], int(counts[t, i]), int(types[t, i])]
+                    for i in range(caps[t]) if counts[t, i] != 0]
+    if save_path is not None:
+        io.submit_write(writer, io.save_pickle, save_path, winding_lines)
+    return winding_lines

@@ -48,7 +48,7 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 
 @pytest.fixture(scope="module")
 def port_mesh(jmesh):  # noqa: F811
-    return mesh_from_jax_arrays(jax_arrays(jmesh))
+    return mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -220,7 +220,8 @@ def big_mesh():
     """A patch above TWO_LEVEL_MIN_VERTICES whose first aggregation pass
     leaves more than MAX_COARSE_SIZE aggregates."""
     return torch_synthetic.plane_patch(nx=78, ny=78, lx=60.0, ly=60.0,
-                                       height=lambda x, y: 0.5 * np.sin(x / 9.0))
+                                       height=lambda x, y: 0.5 * np.sin(x / 9.0),
+                                       device="cpu")
 
 
 def test_auto_passes_match_jax_restarts(big_mesh):
@@ -256,7 +257,7 @@ def test_auto_takes_two_level_from_the_vertex_threshold(big_mesh, monkeypatch):
     two = compute_velocity_fields(big, pot, times, precond="two_level", **kw)
     assert auto.iterations == two.iterations and torch.equal(auto.v_k, two.v_k)
     assert bool(auto.converged.all())
-    small = torch_synthetic.plane_patch(nx=12, ny=12)
+    small = torch_synthetic.plane_patch(nx=12, ny=12, device="cpu")
     pot, times = torch_synthetic.plane_wave_movie(small, n_frames=3)
     compute_velocity_fields(small, pot, times, **kw)
     assert len(calls) == 2  # the explicit two_level call only

@@ -40,7 +40,7 @@ F32 = 1e-5
 
 @pytest.fixture(scope="module")
 def port_mesh(jmesh):  # noqa: F811
-    return mesh_from_jax_arrays(jax_arrays(jmesh))
+    return mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -17,14 +17,16 @@ from manifold_flow_tpu_torch import mesh_from_jax_arrays
 from manifold_flow_tpu_torch.geometry import synthetic as torch_synthetic
 from manifold_flow_tpu_torch.geometry import tangent as torch_tangent
 from manifold_flow_tpu_torch.geometry.mesh import ARRAY_FIELDS, build_mesh
+from manifold_flow_tpu_torch.pipeline import stages
+from manifold_flow_tpu_torch.utils import io
 from tests.torch_parity import bump, jax_arrays, rel_err
 
 RTOL = 1e-12
 
 MESHES = {
-    "curved_patch": lambda syn: syn.plane_patch(nx=12, ny=12, lx=6.0, ly=6.0,
-                                                height=bump),
-    "sphere": lambda syn: syn.sphere_patch(n_sub=2),
+    "curved_patch": lambda syn, **kw: syn.plane_patch(nx=12, ny=12, lx=6.0, ly=6.0,
+                                                      height=bump, **kw),
+    "sphere": lambda syn, **kw: syn.sphere_patch(n_sub=2, **kw),
 }
 
 
@@ -42,7 +44,7 @@ def _assert_same_mesh(got, want_arrays):
 @pytest.mark.parametrize("kind", sorted(MESHES))
 def test_build_mesh_matches_jax(kind):
     want = jax_arrays(MESHES[kind](jax_synthetic))
-    got = MESHES[kind](torch_synthetic)
+    got = MESHES[kind](torch_synthetic, device="cpu")
     _assert_same_mesh(got, want)
     assert got.n_vertices == want["points"].shape[0]
     assert got.n_dof == 2 * got.n_vertices
@@ -53,7 +55,7 @@ def test_build_mesh_with_given_normals():
     normals = arrays["normals"] * 1.0
     want = jax_arrays(jax_mesh_mod.build_mesh(arrays["points"],
                                               arrays["triangles"], normals))
-    got = build_mesh(arrays["points"], arrays["triangles"], normals)
+    got = build_mesh(arrays["points"], arrays["triangles"], normals, device="cpu")
     _assert_same_mesh(got, want)
 
 
@@ -62,7 +64,7 @@ def test_build_mesh_rejects_bad_triangles():
     for tris in (arrays["triangles"][:, :2], arrays["triangles"] + 1,
                  arrays["triangles"] - 1):
         with pytest.raises(ValueError):
-            build_mesh(arrays["points"], tris)
+            build_mesh(arrays["points"], tris, device="cpu")
 
 
 def test_mesh_from_jax_arrays_is_exact():
@@ -82,11 +84,11 @@ def test_mesh_from_jax_arrays_refuses_padding_and_gaps():
     arrays["n_valid_vertices"] = np.asarray(padded.n_valid_vertices)
     arrays["n_valid_triangles"] = np.asarray(padded.n_valid_triangles)
     with pytest.raises(ValueError, match="padded"):
-        mesh_from_jax_arrays(arrays)
+        mesh_from_jax_arrays(arrays, device="cpu")
     arrays = jax_arrays(jm)
     del arrays["edges"]
     with pytest.raises(ValueError, match="missing"):
-        mesh_from_jax_arrays(arrays)
+        mesh_from_jax_arrays(arrays, device="cpu")
 
 
 def test_tangent_helpers_match_jax():
@@ -114,10 +116,33 @@ def test_tangent_helpers_match_jax():
 
 def test_synthetic_movies_match_jax():
     jm = MESHES["curved_patch"](jax_synthetic)
-    tm = MESHES["curved_patch"](torch_synthetic)
+    tm = MESHES["curved_patch"](torch_synthetic, device="cpu")
     for want, got in zip(jax_synthetic.plane_wave_movie(jm, n_frames=5),
                          torch_synthetic.plane_wave_movie(tm, n_frames=5)):
         np.testing.assert_array_equal(got.numpy(), want)
     for want, got in zip(jax_synthetic.two_source_movie(jm, n_frames=5),
                          torch_synthetic.two_source_movie(tm, n_frames=5)):
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+ENTRY_POINTS = {
+    "build_mesh": lambda arrays, tmp: build_mesh(arrays["points"], arrays["triangles"]),
+    "plane_patch": lambda arrays, tmp: torch_synthetic.plane_patch(nx=4, ny=4),
+    "sphere_patch": lambda arrays, tmp: torch_synthetic.sphere_patch(n_sub=0),
+    "load_surface": lambda arrays, tmp: stages.load_surface(tmp),
+    "mesh_from_jax_arrays": lambda arrays, tmp: mesh_from_jax_arrays(arrays),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, tmp_path,
+                                                              monkeypatch):
+    """The mesh entry points run on the card unless the caller asks for the
+    CPU; without a GPU the default raises, naming device="cpu", and never
+    falls back to the CPU quietly."""
+    arrays = jax_arrays(MESHES["curved_patch"](jax_synthetic))
+    ply = tmp_path / "s.ply"
+    io.write_ply(ply, arrays["points"], arrays["triangles"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[entry](arrays, ply)

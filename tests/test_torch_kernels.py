@@ -9,9 +9,11 @@ they run without the JAX test configuration:
 Tolerances, relative to each output's largest entry: 1e-5 in float32 (the
 kernels contract a*b+c into fused multiply-adds and sum in another order)
 and 1e-12 in float64; the same for K8's coarse matrices, a sum of each
-entry's contributions reordered against the plain version's. The analysis kernels (K5-K7) round every operation
-separately, in the plain versions' order, so their masks, counts, ids and
-snapped centers must be equal.
+entry's contributions reordered against the plain version's. The analysis
+kernels (K5-K7, K12, K13, K15) round every deciding operation separately, in
+the plain versions' order, so their masks, counts, ids, snapped centers,
+class codes, next hops and ring counts must be equal; K14 works on integers
+only, so walk lengths and packed walks are equal.
 """
 
 import numpy as np
@@ -21,12 +23,16 @@ import torch
 from manifold_flow_tpu_torch import compute_velocity_fields, kernels
 from manifold_flow_tpu_torch.fem import assembly
 from manifold_flow_tpu_torch.fem.operator import make_operator
-from manifold_flow_tpu_torch.geometry import synthetic
+from manifold_flow_tpu_torch.geometry import synthetic, topology
 from manifold_flow_tpu_torch.kernels import analysis as kan
 from manifold_flow_tpu_torch.kernels import coarse as kco
 from manifold_flow_tpu_torch.kernels import fem as kfem
+from manifold_flow_tpu_torch.kernels import streams as kst
+from manifold_flow_tpu_torch.kernels import winding as kwi
 from manifold_flow_tpu_torch.ops import recombine
 from manifold_flow_tpu_torch.ops import singularity as sing
+from manifold_flow_tpu_torch.ops import streamline as stream
+from manifold_flow_tpu_torch.ops import winding as wind
 from manifold_flow_tpu_torch.pipeline import stages
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve import coarse
@@ -63,7 +69,9 @@ def _assert_close(got, want, dtype):
 
 
 def _launched(name, dtype, fn):
-    ctype = "float" if dtype == torch.float32 else "double"
+    """fn()'s result, checking that it launched kernel `name` once (its
+    `dtype` instance; None for the integer entry points)."""
+    ctype = {torch.float32: "float", torch.float64: "double", None: "int"}[dtype]
     before = kernels.LAUNCHES[f"{name}<{ctype}>"]
     out = fn()
     torch.cuda.synchronize()
@@ -328,3 +336,133 @@ def test_public_ops_on_cuda_raise_or_launch(cuda):
     assert launched() == {"pcg_update<double>": 1, "coarse_restrict<double>": 1,
                           "coarse_gemv<double>": 1, "coarse_prolong_dot<double>": 1}
     assert bool(torch.isfinite(z).all()) and not bool(pre.zeroed.any())
+
+
+QUIRKS = pytest.mark.parametrize("quirks", [False, True], ids=["quirks_off", "quirks_on"])
+
+
+def _velocity_field(device, dtype):
+    """The flow problem's world velocity field in `dtype`, its speed and
+    v_max (K5's plain version)."""
+    mesh, pot, times = _flow_problem(device)
+    v_k = compute_velocity_fields(mesh, pot, times, method="cg", tol=1e-10).v_k
+    return mesh, *kan.plain_recombine_speed(v_k.to(dtype), mesh.basis.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@QUIRKS
+def test_classify_kernel_matches_plain(cuda, dtype, quirks):
+    mesh, v_world, speed, v_max = _velocity_field(cuda, dtype)
+    field, counts = sing.detect_with_counts(mesh, v_world, speed=speed, v_max=v_max)
+    # 8 slots past the largest count: every frame has invalid slots too.
+    det = sing.compact_detected(mesh, field,
+                                capacity=sing.capacity_for(*counts.tolist()) + 8)
+    assert bool(det.interior_valid.any()) and bool((~det.interior_valid).any())
+    head = (mesh.points.to(dtype), mesh.basis.to(dtype), mesh.vertex_neighbors,
+            mesh.triangles, topology.cells_across_edges(mesh), v_world, v_max)
+    t = v_world.shape[0]
+    every_v = torch.arange(mesh.n_vertices, dtype=torch.int32, device=cuda).expand(t, -1)
+    every_i = torch.arange(mesh.n_triangles, dtype=torch.int32, device=cuda).expand(t, -1)
+    for slots in ((det.vertex_ids, det.vertex_valid, det.interior_ids,
+                   det.interior_valid, det.interior_points),
+                  (every_v.contiguous(), torch.ones_like(every_v, dtype=torch.bool),
+                   every_i.contiguous(), torch.ones_like(every_i, dtype=torch.bool),
+                   field.interior_point)):
+        args = head + slots
+        got = _launched("classify_candidates", dtype,
+                        lambda: kan.classify_candidates(*args, quirks=quirks))
+        want = kan.plain_classify_candidates(*args, quirks=quirks)
+        _assert_same(got, want, dtype)
+    codes = torch.cat([got[0].flatten(), got[2].flatten()])
+    assert len(set(codes.tolist())) >= 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@QUIRKS
+def test_stream_kernels_match_plain(cuda, dtype, quirks):
+    mesh, v_world, _, _ = _velocity_field(cuda, dtype)
+    v_world = torch.cat([v_world, torch.zeros_like(v_world[:1])])  # a halting frame
+    args = (stream.unit_edges(mesh, dtype), v_world, mesh.vertex_neighbors,
+            mesh.vertex_cell_count, mesh.vertex_cells, mesh.triangles,
+            mesh.points.to(dtype), mesh.basis.to(dtype))
+    hops = _launched("next_hop", dtype, lambda: kst.next_hop(*args, quirks=quirks))
+    assert torch.equal(hops, kst.plain_next_hop(*args, quirks=quirks))
+    ids = torch.arange(mesh.n_vertices, device=cuda)
+    assert bool((hops[-1] == ids).all()) and bool((hops[:-1] != ids).any())
+    for max_steps in (3, 64):
+        lengths = _launched("trace_walks", None, lambda: kst.trace_walks(hops, max_steps))
+        assert torch.equal(lengths, kst.plain_trace_walks(hops, max_steps))
+    assert int(lengths.max()) > 4
+
+
+def test_walk_kernels_match_plain_on_random_graphs(cuda):
+    """Random functional graphs: long tails and cycles, walks past the cap."""
+    gen = torch.Generator().manual_seed(3)
+    hops = torch.randint(0, 3000, (3, 3000), generator=gen, dtype=torch.int32)
+    hops[1] = torch.roll(torch.arange(3000, dtype=torch.int32), 1)  # one 3000-cycle
+    hops = hops.to(cuda)
+    for max_steps in (0, 16, 256):
+        lengths = _launched("trace_walks", None, lambda: kst.trace_walks(hops, max_steps))
+        want = kst.plain_trace_walks(hops, max_steps)
+        assert torch.equal(lengths, want)
+    assert bool((lengths[1] == 257).all()) and int(lengths[0].min()) < 257
+    flat = lengths.reshape(-1)
+    for min_length in (1, 40):
+        seeds = torch.nonzero(flat >= min_length)[:, 0]
+        lens = flat[seeds].contiguous()
+        offsets = torch.cumsum(lens, 0, dtype=torch.int64) - lens
+        total = int(lens.sum())
+        outs = [torch.full((total + 5,), -7, dtype=torch.int32, device=cuda)
+                for _ in range(2)]
+        _launched("pack_walks", None,
+                  lambda: kst.pack_walks(hops, seeds, lens, offsets, outs[0]))
+        kst.plain_pack_walks(hops, seeds, lens, offsets, outs[1])
+        assert torch.equal(outs[0], outs[1]) and bool((outs[0][-5:] == -7).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_winding_kernel_matches_plain(cuda, dtype):
+    mesh, v_world, _, _ = _velocity_field(cuda, dtype)
+    centers = torch.tensor([17, 100, 119, 130, 200, 255], device=cuda)
+    tabs = wind.ring_tables(mesh, centers, 8, dtype)
+    args = (v_world, tabs.order, tabs.bounds, tabs.e1, tabs.e2)
+    got = _launched("winding_profile", dtype, lambda: kwi.winding_profile(*args))
+    _assert_same(got, kwi.plain_winding_profile(*args), dtype)
+    assert got[0].shape == (6, v_world.shape[0]) and got[2].shape[-1] == 8
+
+
+def test_analysis_stages_on_cuda_match_cpu(cuda):
+    """flow --classify, streamline and winding stages on the card against
+    the same stages on the CPU: labels, polylines, ring counts equal."""
+    mesh, pot, times = _flow_problem(cuda)
+    cfg = PipelineConfig()
+    cfg.solver.tol = 1e-10
+    cfg.analysis.min_streamline_length = 4
+    v_k = compute_velocity_fields(mesh, pot, times, method="cg", tol=1e-10).v_k
+    runs = []
+    for m in (mesh, mesh.to("cpu")):
+        v_world, speed, v_max = recombine.velocity_to_world_and_speed(
+            v_k.to(m.device), m.basis)
+        kernels.reset_launches()
+        pts, labels, centers = stages.singularity_stage(
+            m, v_world, cfg, classify=True, return_centers=True, speed=speed,
+            v_max=v_max)
+        lines = stages.streamline_stage(m, v_world, cfg)
+        wind_lines = stages.winding_stage(m, v_world, pts, cfg, centers=centers)
+        torch.cuda.synchronize()
+        runs.append((labels, lines, wind_lines, dict(kernels.LAUNCHES)))
+    (labels, lines, wl, launches), (labels_c, lines_c, wl_c, launches_c) = runs
+    for k in ("compact_detected<double>", "classify_candidates<double>",
+              "next_hop<double>", "trace_walks<int>", "pack_walks<int>",
+              "winding_profile<double>"):
+        assert launches[k] == 1, k
+    assert set(launches_c.values()) == {0}
+    assert labels == labels_c and sum(len(x) for x in labels) > 0
+    assert list(lines) == list(lines_c) and sum(len(x) for x in lines.values()) > 0
+    for k in lines:
+        assert len(lines[k]) == len(lines_c[k])
+        for a, b in zip(lines[k], lines_c[k]):
+            np.testing.assert_array_equal(a, b)
+    assert {k: [r[1:] for r in v] for k, v in wl.items()} == {
+        k: [r[1:] for r in v] for k, v in wl_c.items()}
+    assert sum(len(v) for v in wl.values()) > 0

@@ -47,7 +47,7 @@ def problem():
                   tol=1e-12)
     v_k = np.concatenate([np.asarray(res.v_k),
                           np.zeros((1, 2 * jmesh.n_vertices))])
-    return jmesh, mesh_from_jax_arrays(jax_arrays(jmesh)), v_k
+    return jmesh, mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu"), v_k
 
 
 @pytest.fixture(scope="module")
@@ -267,3 +267,123 @@ def test_analysis_wrappers_check_inputs_and_count_nothing_on_cpu(problem, fields
     assert f32[0].dtype == torch.float32
     assert rel_err(f32[0].numpy(), tv.numpy()) <= 1e-6
     assert kernels.LAUNCHES == before
+
+
+# ------------------------------------------------------ classification ----
+# Jacobians are compared on JAX's own velocity field and interior points:
+# the finite differences divide by vertex offsets, so the 1e-12 and 1e-10
+# differences of the two packages' recombination and detection would reach
+# the Jacobians amplified. Codes, ids and valid flags are compared end to
+# end, each package on its own field.
+JAC_TOL = 1e-12
+
+
+def _jax_inputs(fields):
+    """JAX's v_world and detection field as the port's tensors."""
+    jv, jfield, _, _, _, tfield, _ = fields
+    field = sing.SingularityField(*(torch.from_numpy(np.array(x)) for x in jfield),
+                                  counts=tfield.counts)
+    return torch.from_numpy(np.array(jv)), field
+
+
+def test_cells_across_edges_match_other_cell_across_edge(problem):
+    _, tmesh, _ = problem
+    table = topology.cells_across_edges(tmesh)
+    assert table.dtype == torch.int32 and table.shape == (tmesh.n_triangles, 3)
+    tris = tmesh.triangles
+    cells = torch.arange(tmesh.n_triangles).repeat_interleave(3)
+    want = topology.other_cell_across_edge(
+        tmesh.edges, tmesh.edge_cells, cells, tris.reshape(-1),
+        tris[:, [1, 2, 0]].reshape(-1))
+    np.testing.assert_array_equal(table.reshape(-1).numpy(), want.numpy())
+    assert (table == -1).any() and topology.cells_across_edges(tmesh) is table
+
+
+@pytest.mark.parametrize("quirks", [False, True], ids=["quirks_off", "quirks_on"])
+def test_classify_detected_matches_jax(problem, fields, quirks):
+    jmesh, tmesh, _ = problem
+    jv, jfield, _, tv, _, tfield, _ = fields
+    cap = sing.compact_capacity(tfield)
+    got = sing.classify_detected(tmesh, tv, tfield, capacity=cap, quirks=quirks)
+    want = jax_sing.classify_detected(jmesh, jv, jfield, capacity=cap, quirks=quirks)
+    for name in want._fields:
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got.interior_valid.sum() > 0
+    codes = np.concatenate([got.vertex_codes.numpy()[got.vertex_valid.numpy()],
+                            got.interior_codes.numpy()[got.interior_valid.numpy()]])
+    assert len(set(codes.tolist()) - {sing.INDETERMINATE}) >= 2
+    for ok, codes, jac in ((got.vertex_valid, got.vertex_codes, got.vertex_jacobians),
+                           (got.interior_valid, got.interior_codes,
+                            got.interior_jacobians)):
+        assert (codes[~ok] == sing.INDETERMINATE).all() and not jac[~ok].any()
+
+    # The Jacobians of the valid slots, against JAX's full-field ones.
+    v, field = _jax_inputs(fields)
+    same = sing.classify_detected(tmesh, v, field, capacity=cap, quirks=quirks)
+    jjv = np.asarray(jax_sing.vertex_jacobians(jmesh, jv, jfield.v_max))
+    jji = np.asarray(jax_sing.interior_jacobians(
+        jmesh, jv, jfield.v_max, jfield.interior_point, quirks=quirks))
+    frames = np.arange(tv.shape[0])[:, None]
+    for ids, ok, jac, full in ((same.vertex_ids, same.vertex_valid,
+                                same.vertex_jacobians, jjv),
+                               (same.interior_ids, same.interior_valid,
+                                same.interior_jacobians, jji)):
+        ok = ok.numpy()
+        if ok.any():
+            assert rel_err(jac.numpy()[ok], full[frames, ids.numpy()][ok]) <= JAC_TOL
+
+
+@pytest.mark.parametrize("quirks", [False, True], ids=["quirks_off", "quirks_on"])
+def test_full_field_jacobians_and_codes_match_jax(problem, fields, quirks):
+    jmesh, tmesh, _ = problem
+    jv, jfield, _, tv, _, tfield, _ = fields
+    v, field = _jax_inputs(fields)
+    last = slice(0, -1)  # the all-zero frame gives NaN everywhere
+    want_v = np.asarray(jax_sing.vertex_jacobians(jmesh, jv, jfield.v_max))[last]
+    got_v = sing.vertex_jacobians(tmesh, v, field.v_max).numpy()[last]
+    assert rel_err(got_v, want_v) <= JAC_TOL
+    want_i = np.asarray(jax_sing.interior_jacobians(
+        jmesh, jv, jfield.v_max, jfield.interior_point, quirks=quirks))[last]
+    got_i = sing.interior_jacobians(tmesh, v, field.v_max, field.interior_point,
+                                    quirks=quirks).numpy()[last]
+    # Triangles whose zero lies inside them: elsewhere the "interior point"
+    # of the 2x2 solve is far outside and its offsets ill-conditioned.
+    inside = np.asarray(jfield.interior_mask)[last]
+    assert inside.sum() > 10
+    assert rel_err(got_i[inside], want_i[inside]) <= JAC_TOL
+    wv, wi = jax_sing.classify(jmesh, jv, jfield, quirks=quirks)
+    for inputs in ((v, field), (tv, tfield)):
+        cv, ci = sing.classify(tmesh, *inputs, quirks=quirks)
+        np.testing.assert_array_equal(cv.numpy()[last], np.asarray(wv)[last])
+        np.testing.assert_array_equal(ci.numpy()[last][inside],
+                                      np.asarray(wi)[last][inside])
+    e = np.asarray(jmesh.points)[np.asarray(jmesh.triangles)]
+    w = np.random.default_rng(11).dirichlet((1.0, 1.0, 1.0), size=len(e))
+    q = np.einsum("mc,mcd->md", w, e)
+    got = sing._nearest_edge(*(torch.from_numpy(a) for a in (q, e[:, 0], e[:, 1],
+                                                              e[:, 2])), quirks)
+    want = jax_sing._nearest_edge(q, e[:, 0], e[:, 1], e[:, 2], quirks=quirks)
+    # Quirk mode takes the argmin of 9 cross-product components; on this
+    # patch some are zero up to rounding (edges along the grid axes), and
+    # those near-ties are left out: the two packages round them apart.
+    a, b = e[:, [0, 1, 2]], e[:, [1, 2, 0]]
+    c = np.cross(q[:, None] - a, b - a) / np.linalg.norm(b - a, axis=-1)[..., None]
+    d = np.sort(np.abs(c).reshape(len(e), -1) if quirks
+                else np.linalg.norm(c, axis=-1), axis=-1)
+    clear = d[:, 1] - d[:, 0] > 1e-12
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(got.numpy()[clear], np.asarray(want)[clear])
+
+
+def test_classify_without_detections(problem):
+    _, tmesh, _ = problem
+    v = torch.zeros((2, tmesh.n_vertices, 3), dtype=torch.float64)
+    field = sing.detect(tmesh, v)
+    got = sing.classify_detected(tmesh, v, field, capacity=8)
+    assert not got.vertex_valid.any() and not got.interior_valid.any()
+    assert (got.vertex_codes == sing.INDETERMINATE).all()
+    assert (got.interior_codes == sing.INDETERMINATE).all()
+    empty = torch.zeros((0, tmesh.n_vertices, 3), dtype=torch.float64)
+    got = sing.classify_detected(tmesh, empty, sing.detect(tmesh, empty), capacity=8)
+    assert got.vertex_codes.shape == (0, 8) and got.interior_jacobians.shape == (0, 8, 2, 2)

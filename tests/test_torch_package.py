@@ -27,6 +27,10 @@ def test_import_pulls_in_no_jax_and_loads_no_kernels():
     assert "manifold_flow_tpu_torch.kernels.coarse" in modules
     assert "manifold_flow_tpu_torch.solve.coarse" in modules
     assert "manifold_flow_tpu_torch.solve.cholesky" in modules
+    assert "manifold_flow_tpu_torch.kernels.streams" in modules
+    assert "manifold_flow_tpu_torch.kernels.winding" in modules
+    assert "manifold_flow_tpu_torch.ops.streamline" in modules
+    assert "manifold_flow_tpu_torch.ops.winding" in modules
     code = (
         "import importlib, sys\n"
         "import manifold_flow_tpu_torch as m\n"
@@ -45,26 +49,75 @@ def test_import_pulls_in_no_jax_and_loads_no_kernels():
 
 
 def test_no_source_file_imports_jax():
+    """Neither the package nor chip_smoke.py, which the machine with the card
+    runs without JAX, names JAX or the JAX package in an import."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|manifold_flow_tpu)\b",
                          re.MULTILINE)
-    offenders = [str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")
-                 if pattern.search(p.read_text())]
+    files = [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
     assert not offenders
 
 
 def test_nvcc_command_targets_sm90a(tmp_path):
+    """One compile per source (the build runs them in parallel), then one
+    link into the shared library."""
+    srcs = build.sources()
+    assert [s.name for s in srcs] == [
+        "analysis_kernels.cu", "coarse_kernels.cu", "fem_kernels.cu",
+        "pcg_kernels.cu", "stream_kernels.cu", "winding_kernels.cu"]
+    objs = [tmp_path / f"{s.stem}.o" for s in srcs]
     out = tmp_path / "lib.so"
-    cmd = build.nvcc_command("nvcc", out)
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    assert "--use_fast_math" not in cmd and "-fmad=false" not in cmd
-    assert cmd[cmd.index("-o") + 1] == str(out)
-    sources = [Path(a).name for a in cmd if a.endswith(".cu")]
-    assert sources == ["analysis_kernels.cu", "coarse_kernels.cu", "fem_kernels.cu",
-                       "pcg_kernels.cu"]
+    cmds = [build.compile_command("nvcc", s, o) for s, o in zip(srcs, objs)]
+    cmds.append(build.link_command("nvcc", objs, out))
+    for cmd in cmds:
+        assert cmd[0] == "nvcc"
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-fPIC"):
+            assert flag in cmd
+        assert "--use_fast_math" not in cmd and "-fmad=false" not in cmd
+    for cmd, src, obj in zip(cmds, srcs, objs):
+        assert "-c" in cmd and "-shared" not in cmd
+        assert cmd[-1] == str(src) and cmd[cmd.index("-o") + 1] == str(obj)
+    link = cmds[-1]
+    assert "-shared" in link and "-c" not in link
+    assert link[link.index("-o") + 1] == str(out)
+    assert [a for a in link if a.endswith(".o")] == [str(o) for o in objs]
+
+
+FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if "-c" in args:
+    if "bad" in args[-1]:
+        print("error: " + args[-1])
+        sys.exit(2)
+    open(out, "w").write(args[-1])
+else:
+    open(out, "w").write("+".join(open(a).read() for a in args if a.endswith(".o")))
+"""
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("b.cu", "a.cu"):
+        (csrc / name).write_text("// " + name)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    lib = build.build()
+    assert lib == build.library_path() and lib.parent == tmp_path / "_build"
+    assert lib.read_text() == f"{csrc / 'a.cu'}+{csrc / 'b.cu'}"
+    assert list((tmp_path / "_build").iterdir()) == [lib]  # objects cleaned up
+    assert build.build() == lib
+    (csrc / "bad.cu").write_text("// bad")
+    with pytest.raises(RuntimeError, match=r"nvcc failed on bad\.cu \(exit 2\)"):
+        build.build()
+    assert list((tmp_path / "_build").iterdir()) == [lib]
 
 
 def test_library_path_is_keyed_by_sources():
@@ -130,5 +183,6 @@ def test_reset_launches_zeroes_every_count():
         "fem_matvec", "jacobi_blocks", "frame_factors_rhs", "pcg_dot",
         "pcg_update", "pcg_direction", "recombine_speed", "detect_singular",
         "compact_detected", "coarse_assemble", "coarse_restrict", "coarse_gemv",
-        "coarse_prolong_dot"}
+        "coarse_prolong_dot", "classify_candidates", "next_hop", "trace_walks",
+        "pack_walks", "winding_profile"}
     assert kernels.LAUNCHES is _lib.LAUNCHES

@@ -1,16 +1,18 @@
-"""The port's S3 pipeline (config, velocity and singularity stages, the
-`flow` command line, artifact IO) held against the JAX package on the CPU,
-and the port's flow CLI against the golden artifact trees.
+"""The port's pipeline (config; the velocity, singularity, streamline and
+winding stages; the `flow`, `streamline` and `winding` command lines;
+artifact IO) held against the JAX package on the CPU, and the port's CLIs
+against the golden artifact trees.
 
 Tolerances: velocity DOFs, world vectors and speeds to 1e-8 of their largest
 entry at tol 1e-10 (two cg solves that may stop an iteration apart, see
-tests/test_torch_solve.py); singularity points to 1e-8; per-frame counts and
-snapped centers equal. The golden trees are compared through
-tests/golden_utils.compare_artifact, with the tolerances the JAX package's
-own golden test uses.
+tests/test_torch_solve.py); singularity points to 1e-8; per-frame counts,
+snapped centers, class labels, streamlines, ring counts and types equal.
+The golden trees are compared through tests/golden_utils.compare_artifact,
+with the tolerances the JAX package's own golden test uses.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -38,7 +40,7 @@ def demo():
         height=lambda x, y: 0.4 * np.sin(x) * np.cos(y))
     pot, times, _ = jax_synthetic.two_source_movie(
         jmesh, sources=((2.0, 2.0), (6.0, 6.0)), n_frames=6)
-    return jmesh, mesh_from_jax_arrays(jax_arrays(jmesh)), pot, times
+    return jmesh, mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu"), pot, times
 
 
 def _config(cls, **solver):
@@ -142,11 +144,85 @@ def test_singularity_stage_matches_jax(tmp_path, demo):
         np.testing.assert_array_equal(x, y)
 
 
-def test_unported_stage_options_raise(demo, tmp_path):
-    _, tmesh, _, _ = demo
-    with pytest.raises(NotImplementedError, match="item 10"):
-        stages.singularity_stage(tmesh, torch.zeros((1, tmesh.n_vertices, 3)),
-                                 PipelineConfig(), classify=True)
+@pytest.fixture(scope="module")
+def jax_velocity(demo):
+    jmesh, _, pot, times = demo
+    jvel = jax_stages.velocity_stage(jmesh, pot, times, _config(JaxConfig))
+    return jvel, torch.from_numpy(np.array(jvel.v_world))
+
+
+def _quirks_config(cls, quirks):
+    cfg = _config(cls)
+    cfg.reference_quirks = quirks
+    cfg.analysis.min_streamline_length = 3
+    return cfg
+
+
+QUIRKS = pytest.mark.parametrize("quirks", [False, True], ids=["quirks_off", "quirks_on"])
+
+
+@QUIRKS
+def test_singularity_stage_classifies_like_jax(tmp_path, demo, jax_velocity, quirks):
+    jmesh, tmesh, _, _ = demo
+    jvel, v_world = jax_velocity
+    want_pts, want_labels = jax_stages.singularity_stage(
+        jmesh, jvel.v_world, _quirks_config(JaxConfig, quirks), classify=True,
+        classification_path=tmp_path / "want.pkl")
+    timings: dict = {}
+    got_pts, labels = stages.singularity_stage(
+        tmesh, v_world, _quirks_config(PipelineConfig, quirks), classify=True,
+        classification_path=tmp_path / "got.pkl", timings=timings)
+    assert labels == want_labels
+    assert [len(p) for p in got_pts] == [len(x) for x in labels]
+    assert io.load_pickle(tmp_path / "got.pkl") == io.load_pickle(tmp_path / "want.pkl")
+    assert len({name for frame in labels for name in frame}) >= 2
+    assert set(timings) == {"detect", "classify"}
+
+
+@QUIRKS
+def test_streamline_and_winding_stages_match_jax(tmp_path, demo, jax_velocity, quirks):
+    """S6 on a subset of frames, written per frame; S7 on the detection
+    stage's snapped centers (the trial's path) and re-snapped on the host
+    (the resume-from-pickle path)."""
+    jmesh, tmesh, _, _ = demo
+    jvel, v_world = jax_velocity
+    jcfg, cfg = _quirks_config(JaxConfig, quirks), _quirks_config(PipelineConfig, quirks)
+    fmt = str(tmp_path / "s_{frame}.pkl.bz2")
+    want = jax_stages.streamline_stage(jmesh, jvel.v_world, jcfg, frames=[1, 3])
+    timings: dict = {}
+    got = stages.streamline_stage(tmesh, v_world, cfg, frames=[1, 3], save_path_fmt=fmt,
+                                  timings=timings)
+    assert set(timings) == {"trace", "compact", "submit"}
+    assert list(got) == list(want) == ["1", "3"]
+    assert sum(len(lines) for lines in got.values()) > 0
+    for k in got:
+        saved = io.load_pickle(fmt.format(frame=k))[k]
+        assert len(got[k]) == len(want[k]) == len(saved)
+        for a, b, c in zip(got[k], want[k], saved):
+            assert a.dtype == (np.float64 if quirks else np.float32)
+            np.testing.assert_array_equal(a, np.asarray(b))
+            np.testing.assert_array_equal(c, a)
+
+    jpts, _, jcenters = jax_stages.singularity_stage(jmesh, jvel.v_world, jcfg,
+                                                     return_centers=True)
+    pts, _, centers = stages.singularity_stage(tmesh, v_world, cfg, return_centers=True)
+    for trial_centers in (True, False):
+        want = jax_stages.winding_stage(jmesh, jvel.v_world, jpts, jcfg,
+                                        centers=jcenters if trial_centers else None)
+        got = stages.winding_stage(tmesh, v_world, pts, cfg,
+                                   centers=centers if trial_centers else None,
+                                   save_path=tmp_path / "w.pkl.bz2")
+        assert sorted(got) == sorted(want) and sum(len(r) for r in got.values()) > 0
+        for k in want:
+            assert [r[1:] for r in got[k]] == [r[1:] for r in want[k]]
+            for a, b in zip(got[k], want[k]):
+                np.testing.assert_allclose(a[0], b[0], rtol=VS_JAX, atol=VS_JAX)
+        saved = io.load_pickle(tmp_path / "w.pkl.bz2")
+        assert {k: [r[1:] for r in v] for k, v in saved.items()} == {
+            k: [r[1:] for r in v] for k, v in got.items()}
+
+
+def test_unported_stage_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 2"):
         stages.load_surface(tmp_path / "none.ply", pad=True)
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -178,8 +254,9 @@ def test_io_roundtrips_match_jax(tmp_path, demo):
 
 
 # ---------------------------------------------------------------- CLI ----
+GOLDEN_E = f"{G.SUBJECT}/{G.SUBJECT}_e.csv"
 GOLDEN_FLOW = {  # golden artifact name -> the flow CLI's file name
-    f"{G.SUBJECT}/{G.SUBJECT}_e.csv": "e.csv",
+    GOLDEN_E: "e.csv",
     f"{G.SUBJECT}/{G.RUN}/{G.TRIAL}/{G.STEM}-V_k.csv": "V_k.csv",
     f"{G.SUBJECT}/{G.RUN}/{G.TRIAL}/{G.STEM}-singularity_points.pkl":
         "singularity_points.pkl",
@@ -204,11 +281,70 @@ def test_flow_cli_reproduces_golden_artifacts(tmp_path, quirks, capsys):
         G.compare_artifact(name, tmp_path / produced, golden / name)
 
 
+def _golden_inputs(quirks, tmp_path):
+    """The golden tree's trial directory, its surface, and a config file
+    with the tree's quirk mode (the settings the golden trees were made
+    with, tests/golden_utils.py)."""
+    golden = G.mode_dir(quirks)
+    trial = golden / G.SUBJECT / G.RUN / G.TRIAL
+    config = tmp_path / "config.yaml"
+    config.write_text(f"general:\n  reference_quirks: {str(quirks).lower()}\n"
+                      "  tol: 1.0e-10\nanalysis:\n  min_streamline_length: 3\n")
+    surface = golden / G.SUBJECT / f"{G.SUBJECT}_reconstructed_surface.ply"
+    return golden, trial, surface, config
+
+
+@QUIRKS
+def test_flow_cli_classify_matches_jax(tmp_path, quirks, capsys):
+    _, trial, surface, config = _golden_inputs(quirks, tmp_path)
+    movie = trial / f"{G.STEM}-ave-interpolation_data.csv"
+    rc = cli.main(["flow", "--surface", str(surface), "--potentials", str(movie),
+                   "--sfreq", "512", "--config", str(config), "--classify",
+                   "--device", "cpu", "--out-dir", str(tmp_path)])
+    assert rc == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["converged"] and line["device"] == "cpu" and "classify" in line["timings"]
+    jcfg = JaxConfig.from_yaml(config)
+    jmesh = jax_stages.load_surface(surface)
+    pot = io.load_indexed_csv(movie)
+    jvel = jax_stages.velocity_stage(jmesh, pot, np.arange(pot.shape[0]) / 512.0, jcfg)
+    jax_stages.singularity_stage(jmesh, jvel.v_world, jcfg, classify=True,
+                                 classification_path=tmp_path / "want.pkl")
+    got = io.load_pickle(tmp_path / "singularity_points_classification.pkl")
+    assert got == io.load_pickle(tmp_path / "want.pkl")
+    assert [len(x) for x in got] == line["singularities_per_frame"]
+    assert sum(len(x) for x in got) > 0
+
+
+@QUIRKS
+def test_streamline_and_winding_clis_reproduce_golden_artifacts(tmp_path, quirks, capsys):
+    golden, trial, surface, config = _golden_inputs(quirks, tmp_path)
+    out = tmp_path / "out"
+    common = ["--surface", str(surface), "--e", str(golden / GOLDEN_E),
+              "--v-k", str(trial / f"{G.STEM}-V_k.csv"), "--config", str(config),
+              "--device", "cpu", "--out-dir", str(out)]
+    kernels.reset_launches()
+    assert cli.main(["streamline", *common]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["stage"] == "streamline" and line["device"] == "cpu"
+    assert set(line["lines_per_frame"]) == {"0", "1", "2"}
+    assert set(line["timings"]) == {"load", "trace", "compact", "submit"}
+    sing = trial / f"{G.STEM}-singularity_points.pkl"
+    assert cli.main(["winding", *common, "--singularities", str(sing)]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["stage"] == "winding" and line["frames_with_lines"] > 0
+    assert set(line["timings"]) == {"load", "winding"}
+    assert set(kernels.LAUNCHES.values()) == {0}
+    for k in range(3):
+        name = f"t_velocityfields_streamlines_{k}.pkl.bz2"
+        G.compare_artifact(name, out / name, trial / name)
+    name = f"{G.STEM}-winding_lines.pkl.bz2"
+    G.compare_artifact(name, out / "winding_lines.pkl.bz2", trial / name)
+
+
 def test_flow_cli_unported_options_raise(tmp_path, monkeypatch):
     base = ["flow", "--surface", "s.ply", "--potentials", "p.npy",
             "--out-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(base + ["--device", "cpu", "--classify"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
         cli.main(base)  # --device cuda is the default

@@ -53,7 +53,7 @@ ORACLE_RMSE = 1e-7
 
 @pytest.fixture(scope="module")
 def port_mesh(jmesh):  # noqa: F811
-    return mesh_from_jax_arrays(jax_arrays(jmesh))
+    return mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu")
 
 
 @pytest.fixture(scope="module")

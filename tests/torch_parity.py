@@ -35,7 +35,8 @@ def jax_curved_mesh():
 
 
 def torch_curved_mesh():
-    return torch_synthetic.plane_patch(nx=12, ny=12, lx=6.0, ly=6.0, height=bump)
+    return torch_synthetic.plane_patch(nx=12, ny=12, lx=6.0, ly=6.0, height=bump,
+                                       device="cpu")
 
 
 def jax_arrays(mesh) -> dict[str, np.ndarray]:
