@@ -27,6 +27,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      distinct centers) in float64 and float32, K14 (walk lengths at 256
      steps, the packing of the walks of 20 vertices or more) on the float64
      graph: codes, hops, lengths, packed ids, ring counts and types equal.
+     Then K16 (wave speeds, phase and amplitude, on the 98-frame movie and
+     its wrapped phase) and K17 (the system matrix of bench.py:216-217's 64
+     electrodes, the evaluation at every vertex, real and phase) in float64
+     and float32. K16's speeds: inf and NaN at the same places, elsewhere
+     (where |grad| > 1e-8 max|grad|) the relative error times |grad| /
+     max|grad| within the tolerance; K17's evaluation relative to max sum
+     |phi| |w|, its phases as |z| e^(i angle) against the plain interpolant z.
   6. flow: the S3 flow stage through the port's command line
      (`pipeline.cli.main(["flow", ...])`, default config: method 'auto',
      which is 'refined' on CUDA for a float64 movie, tol 1e-8, max_iter
@@ -47,6 +54,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the plain versions too. Prints the streamlines per frame, the share of
      walks of 20 vertices or more, the longest walk, the label counts, the
      frames with winding lines and the wall split of the three calls.
+  6c. fields: the field stages through the command line on the same surface,
+     every launch count set to 0 just before: `interpolate` of the 64
+     electrodes (electrodes.tsv) and their 1229-sample two-source movie at
+     512 Hz (the default window keeps 98 frames), with and without
+     --phases; `wavespeed --method phase` on the interpolated phases and
+     `--method amplitude` on the interpolated movie; `decompose --mode
+     concat` and `--mode complex` on phase 6's V_k.csv; `demo` at its
+     defaults. K16 and K17 must have launched, the artifacts reload equal to
+     the same stages run in memory, sigma equal numpy's LAPACK SVD on the
+     host to 1e-10 of the largest and the rank-K reconstruction to 1e-8 of
+     its largest entry, and the demo converge and match. Prints each call's
+     wall split (load, compute, write).
   7. s3: S3 end-to-end frames/s as bench.py:235-255 defines it (refined
      solve at tol 1e-6, then recombination, speed map and detection, in
      float64, ending in torch.cuda.synchronize(); best of 3 after a
@@ -57,7 +76,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      vertices, 98 frames of the two-source movie), float32 and float64,
      tolerances as in phase 3 (K8 reorders each entry's sum); times as in
      phase 3. Then K13-K15 at the same shapes on the 12.5k refined solve's
-     field (float64).
+     field (float64), and K16-K17 as in phase 5 at 12.5k.
  10. twolevel: the 12.5k problem through compute_velocity_fields(method=
      'refined', tol=1e-6, max_iter=4000, precond='auto'): every frame
      converged, each of K8-K11 launched, RMSE against spsolve over 2 frames
@@ -68,6 +87,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
  11. flow12k: the flow CLI with the default config on the 12.5k surface as
      PLY and its movie as .npy, checked as in phase 6, with K1-K11 launched.
  11b. trial12k: phase 6b at 12.5k vertices x 98 frames.
+ 11c. fields12k: phase 6c at 12.5k vertices, on phase 11's V_k.csv.
  12. long: a 392-frame two-source movie on the bench surface, refined at tol
      1e-6 with frame_chunk='auto' (4 windows of 104) and None; both converge
      and meet the RMSE gate against spsolve on 8 frames across the windows'
@@ -78,13 +98,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
      S3 chain: the refined solve, recombination, detection and compaction
      (torch.profiler); then over one warm analysis chain on the bench
      problem (detection with classification, streamlines, winding lines, in
-     memory); then over one warm 12.5k refined two-level solve.
+     memory); then over one warm field chain on the bench surface
+     (interpolation with and without phases, both wave speeds, both SVDs,
+     in memory); then over one warm 12.5k refined two-level solve.
 Every kernel check prints its time beside its bound (bytes over 3.35 TB/s or
 operations over 67 / 34 TFLOP/s in float32 / float64, whichever is larger)
 and, where one PyTorch call computes the same function, that call's time.
 Then one JSON line for the kernels (each launch count from the phase that
-drives that kernel: the 12.5k flow CLI first, then the trial), the card's
-name and power limit, and a last JSON line {"ok": true, "device": {...}}.
+drives that kernel: the 12.5k flow CLI first, then the trial and the field
+stages), the card's name and power limit, and a last JSON line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -92,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -223,7 +247,8 @@ class KernelChecks:
 
     def compare(self, key: str, source: str, replaces: str, kernel, plain,
                 tol: float, scales=None, timed=None, inputs=(), ops: float = 0.0,
-                nbytes: int | None = None, library=None, launches_key=None) -> None:
+                nbytes: int | None = None, library=None, launches_key=None,
+                measure=None) -> None:
         """Run kernel() and plain() on the same inputs and compare each
         output against its own scale (max |plain|, or `scales`), then time
         both, or the pair of calls `timed` (in-place kernels time without
@@ -232,7 +257,8 @@ class KernelChecks:
         tuple of tensors. The bound counts the distinct `inputs` and the
         kernel's outputs (or `nbytes`, where the work depends on the data)
         and `ops` operations. `launches_key` names the LAUNCHES entry (the
-        key itself by default)."""
+        key itself by default). `measure(got, want)`, where given, replaces
+        the comparison and returns (max abs error, relative error, ok)."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -241,13 +267,16 @@ class KernelChecks:
         exact = [torch.equal(a, b) for a, b in zip(got, want)
                  if not b.is_floating_point()]
         floats = [(a, b) for a, b in zip(got, want) if b.is_floating_point()]
-        errs = [float((a - b).abs().max()) if a.numel() else 0.0 for a, b in floats]
-        if scales is None:
-            scales = [float(b.abs().max()) if b.numel() else 0.0 for _, b in floats]
-        rel = max((e / max(sc, 1e-300) for e, sc in zip(errs, scales)), default=0.0)
-        err = max(errs, default=0.0)
-        ok = (rel <= tol and all(exact)
-              and all(bool(torch.isfinite(a).all()) for a, _ in floats))
+        if measure is not None:
+            err, rel, finite = measure(got, want)
+        else:
+            errs = [float((a - b).abs().max()) if a.numel() else 0.0 for a, b in floats]
+            if scales is None:
+                scales = [float(b.abs().max()) if b.numel() else 0.0 for _, b in floats]
+            rel = max((e / max(sc, 1e-300) for e, sc in zip(errs, scales)), default=0.0)
+            err = max(errs, default=0.0)
+            finite = all(bool(torch.isfinite(a).all()) for a, _ in floats)
+        ok = rel <= tol and all(exact) and finite
         time_kernel, time_plain = timed or (kernel, plain)
         ms = time_ms(time_kernel)
         plain_ms = time_ms(time_plain)
@@ -644,6 +673,124 @@ def next_hop_bytes(unit, v_world, neighbors, cell_count, vertex_cells, triangles
     return total
 
 
+N_ELECTRODES = 64     # bench.py:203's field stages: 64 electrodes, 512 Hz
+SFREQ = 512.0
+# 2.4 s at 512 Hz: the default window [2.009, 2.2) s keeps samples 1028-1125,
+# 98 frames, after the Hilbert transform.
+FIELD_SAMPLES = 1229
+
+
+def electrode_ids(n_vertices: int) -> np.ndarray:
+    """bench.py:216-217's electrodes: 64 vertices drawn by default_rng(0)."""
+    return np.random.default_rng(0).choice(n_vertices, N_ELECTRODES, replace=False)
+
+
+def speed_measure(mag):
+    """K16's comparison for wave speeds: inf and NaN at the same places;
+    elsewhere, where |grad| (mag, the plain version's) is above 1e-8 of its
+    largest value, the relative error scaled by |grad| / max|grad|, since
+    the quotient amplifies the gradient's rounding by the inverse."""
+    top = float(mag.max())
+
+    def measure(got, want):
+        (a,), (b,) = got, want
+        same = (torch.equal(torch.isfinite(a), torch.isfinite(b))
+                and torch.equal(torch.isnan(a), torch.isnan(b)))
+        ok = torch.isfinite(b) & (mag > 1e-8 * top) & (b != 0)
+        if not bool(ok.any()):
+            return float("inf"), float("inf"), False
+        diff = (a - b).abs()[ok]
+        rel = float((diff / b.abs()[ok] * mag[ok] / top).max())
+        return float(diff.max()), rel, same
+    return measure
+
+
+def phase_measure(b, w, w_im):
+    """K17's comparison for phases: the interpolant z = (b w, b w_im) of the
+    plain version against |z| e^(i angle) of the kernel's angle, relative to
+    max (|b| |w| + |b| |w_im|), the sums' rounding scale."""
+    z = torch.complex((b @ w).T, (b @ w_im).T)
+    scale = float(((b.abs() @ w.abs()) + (b.abs() @ w_im.abs())).max())
+
+    def measure(got, want):
+        (a,), _ = got, want
+        err = float((z.abs() * torch.exp(1j * a) - z).abs().max())
+        return err, err / scale, bool(torch.isfinite(a).all())
+    return measure
+
+
+def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> None:
+    """K16 and K17 against their plain versions at the field stages' shapes
+    (bench.py:203-232), in float64 and float32: K16 on the movie (amplitude)
+    and its wrapped phase, 98 frames; K17 with the 64 electrodes of
+    `electrode_ids`, their system matrix and the evaluation at every vertex
+    of weights solved from the electrodes' samples of the movie (real) and
+    of its phase (complex, the angle taken by the kernel)."""
+    from manifold_flow_tpu_torch.kernels import fields as kf
+    from manifold_flow_tpu_torch.ops.interpolate import scipy_default_epsilon
+
+    cu = "manifold_flow_tpu_torch/csrc/field_kernels.cu"
+    sel = torch.as_tensor(electrode_ids(mesh.n_vertices), device=pot.device)
+    for dtype, ctype, tol in ((torch.float64, "double", TOL_F64),
+                              (torch.float32, "float", TOL_F32)):
+        amp = pot.to(dtype).contiguous()
+        phase = torch.atan2(torch.sin(amp), torch.cos(amp))
+        t, n, m = amp.shape[0], mesh.n_vertices, mesh.n_triangles
+        tables = (mesh.triangles, mesh.grad_w.to(dtype).contiguous(), mesh.areas.to(dtype),
+                  mesh.vertex_cells, mesh.basis.to(dtype).contiguous())
+        ops = t * (18 * m + 4 * 3 * m + 60 * n)
+        for output, movie, tag in (("phase_mm_per_ms", phase, ""),
+                                   ("amplitude", amp, "+amplitude")):
+            mag = kf.plain_wave_speed(movie, *tables, 1.0 / SFREQ, "magnitude")
+            args = (movie, *tables, 1.0 / SFREQ, output)
+            checks.compare(f"wave_speed<{ctype}>{tag}{suffix}", cu,
+                           "manifold_flow_tpu/ops/wavespeed.py:72" if not tag
+                           else "manifold_flow_tpu/ops/wavespeed.py:64",
+                           lambda: (kf.wave_speed(*args),),
+                           lambda: (kf.plain_wave_speed(*args),), tol,
+                           inputs=(movie, *tables), ops=ops, measure=speed_measure(mag),
+                           launches_key=f"wave_speed<{ctype}>")
+
+        x = mesh.points.to(dtype).contiguous()
+        c = x[sel].contiguous()
+        eps = scipy_default_epsilon(c).reshape(1)
+        e = c.shape[0]
+        checks.compare(f"rbf_basis<{ctype}>{suffix}", cu,
+                       "manifold_flow_tpu/ops/interpolate.py:93",
+                       lambda: (kf.rbf_basis(c, c, eps, "multiquadric"),),
+                       lambda: (kf.plain_rbf_basis(c, c, eps, "multiquadric"),), tol,
+                       inputs=(c, eps), ops=14 * e * e,
+                       library=lambda: kf.rbf_phi(torch.cdist(
+                           c, c, compute_mode="donot_use_mm_for_euclid_dist"), eps,
+                           "multiquadric"),
+                       launches_key=f"rbf_basis<{ctype}>")
+        lu, piv = torch.linalg.lu_factor(kf.plain_rbf_basis(c, c, eps, "multiquadric"))
+        w = torch.linalg.lu_solve(lu, piv, amp[:, sel].T.contiguous()).contiguous()
+        wr, wi = (torch.linalg.lu_solve(lu, piv, f(phase[:, sel]).T.contiguous()).contiguous()
+                  for f in (torch.cos, torch.sin))
+        b = kf.plain_rbf_basis(x, c, eps, "multiquadric")
+
+        def library(*planes):
+            bl = kf.rbf_phi(torch.cdist(x, c, compute_mode="donot_use_mm_for_euclid_dist"),
+                            eps, "multiquadric")
+            outs = [(bl @ p).T for p in planes]
+            return outs[0] if len(outs) == 1 else torch.atan2(outs[1], outs[0])
+        checks.compare(f"rbf_eval<{ctype}>{suffix}", cu,
+                       "manifold_flow_tpu/ops/interpolate.py:133",
+                       lambda: (kf.rbf_eval(x, c, eps, w, "multiquadric"),),
+                       lambda: (kf.plain_rbf_eval(x, c, eps, w, "multiquadric"),), tol,
+                       scales=[float((b.abs() @ w.abs()).max())],
+                       inputs=(x, c, eps, w), ops=2 * n * e * t + 14 * n * e,
+                       library=lambda: library(w), launches_key=f"rbf_eval<{ctype}>")
+        checks.compare(f"rbf_eval<{ctype}>+phase{suffix}", cu,
+                       "manifold_flow_tpu/ops/interpolate.py:71",
+                       lambda: (kf.rbf_eval(x, c, eps, wr, "multiquadric", wi),),
+                       lambda: (kf.plain_rbf_eval(x, c, eps, wr, "multiquadric", wi),), tol,
+                       inputs=(x, c, eps, wr, wi), ops=4 * n * e * t + 14 * n * e + 20 * n * t,
+                       library=lambda: library(wr, wi), measure=phase_measure(b, wr, wi),
+                       launches_key=f"rbf_eval<{ctype}>")
+
+
 def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
     """The trial's analysis ops on the card against their plain versions on
     the same CUDA tensors, with cfg's quirks and limits: class codes, next
@@ -835,11 +982,172 @@ def run_trial(mesh, pot, card: str, tag: str = "trial") -> dict:
 
 
 
+FIELD_KERNELS = ("wave_speed<double>", "rbf_basis<double>", "rbf_eval<double>")
+
+
+def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields") -> dict:
+    """The field stages through the port's command line, every launch count
+    set to 0 just before: `interpolate` of 64 electrodes' 1229-sample movie
+    (electrodes.tsv, data.npy) with and without --phases, `wavespeed
+    --method phase` on the interpolated phases and `--method amplitude` on
+    the interpolated movie, `decompose --mode concat` and `--mode complex` on
+    the flow CLI's V_k.csv, and `demo` at its defaults. Checks that K16 and
+    K17 launched, the artifacts reload equal to the same stages run in
+    memory, the SVD's sigma against numpy's LAPACK SVD on the host (1e-10 of
+    the largest) and its rank-K reconstruction (1e-8 of its largest entry),
+    and the demo's report; returns the launch counts."""
+    from manifold_flow_tpu_torch.geometry import synthetic
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from manifold_flow_tpu_torch.pipeline import cli, stages
+    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    sel = electrode_ids(mesh.n_vertices)
+    pot, _, _ = synthetic.two_source_movie(
+        mesh, sources=((15.0, 15.0), (45.0, 45.0)), n_frames=FIELD_SAMPLES,
+        speed=24.0, wavelength=24.0, dt=1.0 / SFREQ, dtype=np.float64)
+    data = pot[:, torch.as_tensor(sel, device=pot.device)].cpu().numpy()
+    coords = mesh.points.cpu().numpy()[sel]
+    del pot
+
+    def call(argv):
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        report = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        if rc != 0 or report["device"] != str(mesh.device.type):
+            raise AssertionError(f"{argv[0]} CLI: rc {rc}, report {report}")
+        return report, wall
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
+        tmp = Path(tmp)
+        mio.write_ply(tmp / "surface.ply", mesh.points.cpu().numpy(),
+                      mesh.triangles.cpu().numpy())
+        lines = ["name\tx\ty\tz\tgroup"] + [
+            f"E{i + 1:02d}\t{x!r}\t{y!r}\t{z!r}\tgrid" for i, (x, y, z) in
+            enumerate(coords.tolist())]
+        (tmp / "electrodes.tsv").write_text("\n".join(lines) + "\n")
+        np.save(tmp / "data.npy", data)
+        out = tmp / "out"
+        surface = ["--surface", str(tmp / "surface.ply")]
+        interp = [*surface, "--electrodes", str(tmp / "electrodes.tsv"),
+                  "--data", str(tmp / "data.npy"), "--sfreq", "512"]
+        amp_csv = out / "amp" / "interpolation_data.csv"
+        phase_csv = out / "phase" / "interpolation_phases_data.csv"
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", stages.ConvergenceWarning)
+            torch.cuda.synchronize()
+            reset_launches()
+            runs = {
+                "interpolate": call(["interpolate", *interp, "--out-dir", str(out / "amp")]),
+                "interpolate --phases": call(["interpolate", *interp, "--phases",
+                                              "--out-dir", str(out / "phase")]),
+                "wavespeed phase": call(["wavespeed", *surface, "--movie", str(phase_csv),
+                                         "--sfreq", "512", "--out-dir", str(out / "ws")]),
+                "wavespeed amplitude": call(["wavespeed", *surface, "--movie", str(amp_csv),
+                                             "--sfreq", "512", "--method", "amplitude",
+                                             "--out-dir", str(out / "ws")]),
+                "decompose concat": call(["decompose", "--v-k", str(v_k_csv),
+                                          "--out-dir", str(out / "concat")]),
+                "decompose complex": call(["decompose", "--v-k", str(v_k_csv), "--mode",
+                                           "complex", "--out-dir", str(out / "complex")]),
+                "demo": call(["demo", "--out-dir", str(out / "demo")]),
+            }
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        idle = [k for k in FIELD_KERNELS if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels of the {tag} path never launched: {idle}")
+
+        # The same stages in memory, on the same inputs.
+        cfg = PipelineConfig()
+        fmesh = stages.load_surface(tmp / "surface.ply", device=mesh.device)
+        ecoords = mio.load_grid_electrodes(tmp / "electrodes.tsv")
+        amp = stages.interpolate_stage(fmesh, ecoords, data, cfg, sfreq=SFREQ)
+        phase = stages.interpolate_stage(fmesh, ecoords, data, cfg, sfreq=SFREQ, phases=True)
+        amp_file, phase_file = mio.load_indexed_csv(amp_csv), mio.load_indexed_csv(phase_csv)
+        ws = {method: stages.wavespeed_stage(fmesh, movie, 1.0 / SFREQ, method=method)
+              for method, movie in (("phase", phase_file), ("amplitude", amp_file))}
+        v_k = mio.load_indexed_csv(v_k_csv)
+        modes = {mode: stages.decompose_stage(torch.as_tensor(v_k, device=mesh.device),
+                                              cfg, mode=mode)
+                 for mode in ("concat", "complex")}
+        same = {"interpolation_data.csv": np.array_equal(amp_file, amp.cpu().numpy()),
+                "interpolation_phases_data.csv": np.array_equal(phase_file,
+                                                                phase.cpu().numpy())}
+        for method, speeds in ws.items():
+            same[f"wave_velocity_{method}.pkl.bz2"] = np.array_equal(
+                mio.load_pickle(out / "ws" / f"wave_velocity_{method}.pkl.bz2"),
+                speeds.cpu().numpy(), equal_nan=True)
+        for mode, m in modes.items():
+            with np.load(out / mode / "data_01.npz") as z:
+                same[f"{mode}/data_01.npz"] = (
+                    all(np.array_equal(z[k], x.cpu().numpy())
+                        for k, x in (("U", m.u), ("Sigma", m.sigma), ("VT", m.vt)))
+                    and int(z["point_num"]) == v_k.shape[1] // 2)
+        if not all(same.values()):
+            raise AssertionError(f"{tag} artifacts differ from the in-memory run: {same}")
+
+    # The SVD against numpy's float64 LAPACK SVD on the host.
+    n = v_k.shape[1] // 2
+    svd_err = {}
+    for mode, m in modes.items():
+        movie = v_k if mode == "concat" else v_k[:, :n] + 1j * v_k[:, n:]
+        u_np, s_np, vt_np = np.linalg.svd(movie, full_matrices=False)
+        k = m.sigma.shape[0]
+        sig = float(np.abs(m.sigma.cpu().numpy() - s_np[:k]).max()) / s_np[0]
+        want = (u_np[:, :k] * s_np[:k]) @ vt_np[:k]
+        got = ((m.u * m.sigma.to(m.u.dtype)) @ m.vt).cpu().numpy()
+        rec = float(np.abs(got - want).max()) / float(np.abs(want).max())
+        if not (sig <= 1e-10 and rec <= 1e-8):
+            raise AssertionError(f"{tag} {mode} SVD against numpy: sigma {sig:.3e} "
+                                 f"(gate 1e-10), rank-{k} reconstruction {rec:.3e} (gate 1e-8)")
+        svd_err[mode] = (sig, rec, k)
+    # B15's library calls at this size: the SVDs of decompose, the FFTs of
+    # the Hilbert transform (interpolate --phases).
+    from manifold_flow_tpu_torch.ops.phase import hilbert
+
+    vt = torch.as_tensor(v_k, device=mesh.device)
+    movies = {"concat f64": vt, "complex c128": torch.complex(vt[:, :n], vt[:, n:])}
+    lib = {f"svd {name} {tuple(x.shape)}": time_ms(
+        lambda x=x: torch.linalg.svd(x, full_matrices=False), reps=3, rounds=3)
+        for name, x in movies.items()}
+    dt = torch.as_tensor(data, device=mesh.device)
+    lib[f"hilbert fft+ifft {tuple(data.shape)}"] = time_ms(lambda: hilbert(dt, axis=0))
+    demo = runs["demo"][0]
+    if not (demo["converged"] and demo["matched"] > 0):
+        raise AssertionError(f"demo: {demo}")
+    finite = {method: float(torch.isfinite(s).float().mean()) for method, s in ws.items()}
+    print(f"[{tag}] {fmesh.n_vertices} vertices, {N_ELECTRODES} electrodes x "
+          f"{FIELD_SAMPLES} samples -> {tuple(amp.shape)} interpolated frames: "
+          f"interpolate (+ --phases), wavespeed (phase, amplitude), decompose (concat, "
+          f"complex) on V_k {tuple(v_k.shape)}, demo; artifacts reload equal to the "
+          f"in-memory run; launches " + ", ".join(
+              f"{k}={launches[k]}" for k in FIELD_KERNELS), flush=True)
+    print(f"[{tag}] SVD against numpy LAPACK: " + "; ".join(
+        f"{mode} sigma {s:.3e} of the largest (gate 1e-10), rank-{k} "
+        f"reconstruction {r:.3e} (gate 1e-8)" for mode, (s, r, k) in svd_err.items())
+        + f"; energy % (concat) {runs['decompose concat'][0]['energy_pct']}; finite "
+        f"speeds {finite}; demo: frames {demo['frames']}, matched {demo['matched']}, "
+        f"missed {demo['missed']}, spare {demo['spare']}, err_max {demo['err_max']:.4f}; "
+        f"B15 library ms: " + ", ".join(f"{k} {v:.4f}" for k, v in lib.items()),
+        flush=True)
+    print(f"[{tag}] wall (ms; load, compute, write): " + "; ".join(
+        f"{name} {wall * 1e3:.2f} (" + ", ".join(
+            f"{k} {v * 1e3:.2f}" for k, v in report["timings"].items()) + ")"
+        for name, (report, wall) in runs.items()) + f"; on {card}", flush=True)
+    return launches
+
+
 def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
-             kernels=FLOW_KERNELS, cell: float = 60.0 / 55.0) -> dict:
+             kernels=FLOW_KERNELS, cell: float = 60.0 / 55.0,
+             keep_v_k: Path | None = None) -> dict:
     """The flow stage through the port's command line (phase 6 on the bench
     problem, phase 11 on the 12.5k surface); returns the launch counts of
-    that run. `cell` is the grid spacing the source distances are given in."""
+    that run. `cell` is the grid spacing the source distances are given in;
+    `keep_v_k` receives a copy of the V_k.csv it wrote."""
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.pipeline import cli, stages
     from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -898,6 +1206,8 @@ def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
         if not all(same.values()) or not vel.converged:
             raise AssertionError(f"flow artifacts differ from the in-memory "
                                  f"run: {same}, converged {vel.converged}")
+        if keep_v_k is not None:
+            shutil.copy(out / "V_k.csv", keep_v_k)
 
     per_frame = np.array(report["singularities_per_frame"])
     if per_frame.shape != (t_v,) or not (per_frame == [len(p) for p in pts]).all():
@@ -1176,6 +1486,65 @@ def profile_analysis(mesh, res, card: str) -> None:
               flush=True)
 
 
+def profile_fields(mesh, pot, v_k, card: str) -> None:
+    """Phase [profile]: device time per kernel and the device's busy share
+    over one warm field chain on the bench surface, in memory, default
+    config: interpolate (the LU, K17) of the 64 electrodes' 1229-sample
+    movie and of its Hilbert phases (FFTs), wave speeds of both (K16), and
+    the concat and complex SVDs of the refined solve's v_k."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from manifold_flow_tpu_torch.geometry import synthetic
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    sel = torch.as_tensor(electrode_ids(mesh.n_vertices), device=pot.device)
+    movie = synthetic.two_source_movie(
+        mesh, sources=((15.0, 15.0), (45.0, 45.0)), n_frames=FIELD_SAMPLES,
+        speed=24.0, wavelength=24.0, dt=1.0 / SFREQ, dtype=np.float64)[0][:, sel]
+    coords = mesh.points[sel]
+    walls = {}
+
+    def chain():
+        t0 = time.perf_counter()
+        amp = stages.interpolate_stage(mesh, coords, movie, cfg, sfreq=SFREQ)
+        phase = stages.interpolate_stage(mesh, coords, movie, cfg, sfreq=SFREQ, phases=True)
+        t1 = time.perf_counter()
+        stages.wavespeed_stage(mesh, phase, 1.0 / SFREQ, method="phase")
+        stages.wavespeed_stage(mesh, amp, 1.0 / SFREQ, method="amplitude")
+        t2 = time.perf_counter()
+        for mode in ("concat", "complex"):
+            stages.decompose_stage(v_k, cfg, mode=mode)
+        torch.cuda.synchronize()
+        walls.update(interpolate=t1 - t0, wavespeed=t2 - t1,
+                     decompose=time.perf_counter() - t2)
+
+    chain()  # warm: the FFT plans and the solver libraries loaded
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chain()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us > 0:
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+        mine = [e for e in events if any(k in e.key for k in (
+            "wave_speed", "rbf_basis", "rbf_eval"))]
+        print(f"[profile] field chain (interpolate + --phases, wavespeed phase + "
+              f"amplitude, decompose concat + complex; in memory): device busy "
+              f"{dev_us / wall_us:.3f} of {wall_us / 1e3:.2f} ms wall (profiled run; "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in walls.items())
+              + "); by kernel: " + "; ".join(
+                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                  for e in top) + "; K16-K17: " + "; ".join(
+                  f"{e.key[:40]} {e.self_device_time_total:.1f} us x{e.count}"
+                  for e in mine) + f"; on {card}", flush=True)
+    else:
+        print("[profile] the profiler recorded no device time: not measured",
+              flush=True)
+
+
 def solve(mesh, pot, times, **kwargs):
     from manifold_flow_tpu_torch import compute_velocity_fields
 
@@ -1270,11 +1639,16 @@ def main() -> int:
     for dtype in (torch.float64, torch.float32):
         check_trial_kernels(checks, mesh, *kan.recombine_speed(
             res.v_k.to(dtype), mesh.basis.to(dtype)))
+    # K16-K17, the field stages' kernels, at their shapes (f64 and f32)
+    check_field_kernels(checks, mesh, pot)
 
     # 6. the flow stage through the command line, then a trial's analysis
-    # path (flow --classify, streamline, winding): the slice's path
-    flow_launches = run_flow(mesh, pot, truth, card)
+    # path (flow --classify, streamline, winding), then the field stages
+    # (interpolate, wavespeed, decompose on the flow CLI's V_k.csv, demo)
+    keep = tempfile.TemporaryDirectory(prefix="chip_smoke_v_k_")
+    flow_launches = run_flow(mesh, pot, truth, card, keep_v_k=Path(keep.name) / "V_k.csv")
     trial_launches = run_trial(mesh, pot, card)
+    fields_launches = run_fields(mesh, Path(keep.name) / "V_k.csv", card)
 
     # 7. S3 end to end
     s3_end_to_end(mesh, pot, times, card)
@@ -1300,6 +1674,7 @@ def main() -> int:
     res12 = solve(mesh12, pot12, times12, **refined)
     check_trial_kernels(checks, mesh12, *kan.recombine_speed(res12.v_k, mesh12.basis),
                         suffix="@12.5k", classify=False)
+    check_field_kernels(checks, mesh12, pot12, suffix="@12.5k")
 
     # 10. the 12.5k refined solve with two-level, and the crossover
     twolevel_launches = run_twolevel(*build_problem_12k(device)[:3], mesh, pot,
@@ -1307,8 +1682,12 @@ def main() -> int:
 
     # 11. the flow stage through the command line at 12.5k: the slice's path
     flow12k_launches = run_flow(mesh12, pot12, truth12, card, tag="flow12k",
-                                kernels=FLOW12K_KERNELS, cell=60.0 / 111.0)
+                                kernels=FLOW12K_KERNELS, cell=60.0 / 111.0,
+                                keep_v_k=Path(keep.name) / "V_k12.csv")
     trial12k_launches = run_trial(mesh12, pot12, card, tag="trial12k")
+    fields12k_launches = run_fields(mesh12, Path(keep.name) / "V_k12.csv", card,
+                                    tag="fields12k")
+    keep.cleanup()
 
     # 12. a 392-frame movie, in windows and whole
     run_long(mesh, card)
@@ -1348,6 +1727,7 @@ def main() -> int:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
     profile_analysis(mesh, res, card)
+    profile_fields(mesh, pot, res.v_k, card)
     solve(mesh12, pot12, times12, **refined)  # warm: tables cached, kernels built
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1366,22 +1746,24 @@ def main() -> int:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
     # Each kernel's launches from the phase that drives it: the 12.5k flow
-    # CLI first (K1-K11), then the trial (K12-K15; its 12.5k run for the
-    # rows measured at 12.5k), the bench flow, the float64 cg two-level
-    # solve, the cg phase and the direct solver. Instances no path launches
-    # (the float32 analysis kernels) are left out.
-    phases = (flow12k_launches, trial_launches, flow_launches, twolevel_launches,
-              launches_cg, cholesky_launches)
+    # CLI first (K1-K11), then the trial (K12-K15) and the field stages
+    # (K16-K17; their 12.5k runs for the rows measured at 12.5k), the bench
+    # flow, the float64 cg two-level solve, the cg phase and the direct
+    # solver. Instances no path launches (the float32 analysis and field
+    # kernels) are left out.
+    phases = (flow12k_launches, trial_launches, fields_launches, flow_launches,
+              twolevel_launches, launches_cg, cholesky_launches)
 
     def launches_of(label, row):
-        order = (trial12k_launches,) + phases if label.endswith("@12.5k") else phases
+        order = ((trial12k_launches, fields12k_launches) + phases
+                 if label.endswith("@12.5k") else phases)
         key = row["launches_key"]
         return next((c[key] for c in order if c.get(key, 0) > 0), 0)
     driven = {k: launches_of(k, row) for k, row in checks.rows.items()}
     names = {row["launches_key"].split("<")[0] for k, row in checks.rows.items()
              if driven[k] > 0}
     every = {k.split("<")[0] for k in LAUNCHES}
-    if names != every:  # K1-K15: K3 and K14 are several entry points
+    if names != every:  # K1-K17: K3, K14 and K17 are several entry points
         raise AssertionError(f"kernels never launched by any phase: {sorted(every - names)}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": row["source"],

@@ -8,14 +8,16 @@ dense Cholesky direct solve. The JAX package `manifold_flow_tpu` is the
 reference this port is held against; the two share module names. This
 package imports neither JAX nor the JAX package.
 
-The hot kernels of the solve and of a trial's analysis are hand-written CUDA
-C++ for sm_90a (`csrc/`, wrapped in `kernels.fem`, `kernels.coarse`,
-`kernels.analysis`, `kernels.streams` and `kernels.winding`), built with nvcc
-at the first call that gets CUDA tensors; CPU tensors run their plain torch
-versions. The S3 flow stage (with classification), the S6 streamlines and
-the S7 winding lines run through `pipeline.stages` and `python -m
-manifold_flow_tpu_torch.pipeline.cli flow|streamline|winding`. Entry points
-that build a mesh put it on the GPU unless the caller passes device="cpu".
+The hot kernels of the solve, of a trial's analysis and of the field stages
+are hand-written CUDA C++ for sm_90a (`csrc/`, wrapped in `kernels.fem`,
+`kernels.coarse`, `kernels.analysis`, `kernels.streams`, `kernels.winding`
+and `kernels.fields`), built with nvcc at the first call that gets CUDA
+tensors; CPU tensors run their plain torch versions. The S2 interpolation,
+the S3 flow stage (with classification), the S4 SVD modes, the S5 wave
+speeds, the S6 streamlines and the S7 winding lines run through
+`pipeline.stages` and `python -m manifold_flow_tpu_torch.pipeline.cli
+interpolate|flow|decompose|wavespeed|streamline|winding|demo`. Entry points
+put their work on the GPU unless the caller passes device="cpu".
 """
 
 from manifold_flow_tpu_torch import fem, geometry, kernels, ops, pipeline, solve, utils

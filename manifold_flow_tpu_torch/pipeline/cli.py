@@ -1,5 +1,5 @@
-"""The command line: the `flow` (S3), `streamline` (S6) and `winding` (S7)
-subcommands.
+"""The command line: the `interpolate` (S2), `flow` (S3), `decompose` (S4),
+`wavespeed` (S5), `streamline` (S6), `winding` (S7) and `demo` subcommands.
 
 Counterpart of manifold_flow_tpu/pipeline/cli.py, with the same arguments
 for these subcommands plus `--device`, the explicit counterpart of the JAX
@@ -7,20 +7,34 @@ package's JAX_PLATFORMS: `cuda` (the default) runs the hand-written kernels
 on the GPU and raises when there is none; `cpu` runs their plain torch
 versions.
 
+    python -m manifold_flow_tpu_torch.pipeline.cli interpolate --surface s.ply \\
+        --electrodes electrodes.tsv --data movie.csv --sfreq 512 [--phases] \\
+        --out-dir results/
     python -m manifold_flow_tpu_torch.pipeline.cli flow --surface s.ply \\
         --potentials p.csv --sfreq 512 --out-dir results/ [--classify]
+    python -m manifold_flow_tpu_torch.pipeline.cli decompose --v-k V_k.csv \\
+        [--mode concat|complex] --out-dir results/
+    python -m manifold_flow_tpu_torch.pipeline.cli wavespeed --surface s.ply \\
+        --movie phases.csv --sfreq 512 [--method phase|amplitude] --out-dir results/
     python -m manifold_flow_tpu_torch.pipeline.cli streamline --surface s.ply \\
         --e e.csv --v-k V_k.csv [--start 0 --end -1] --out-dir results/
     python -m manifold_flow_tpu_torch.pipeline.cli winding --surface s.ply \\
         --e e.csv --v-k V_k.csv --singularities singularity_points.pkl \\
         --out-dir results/
+    python -m manifold_flow_tpu_torch.pipeline.cli demo --out-dir /tmp/demo
 
-`flow` writes e.csv, V_k.csv, wave_velocity_opticalflow.pkl.bz2 and
-singularity_points.pkl (and singularity_points_classification.pkl with
---classify); `streamline` writes t_velocityfields_streamlines_{frame}.pkl.bz2
-per frame; `winding` writes winding_lines.pkl.bz2. Each prints one JSON
-line: its JAX counterpart's keys plus `device` and `timings`. The other
-subcommands are ROADMAP Queue A item 14.
+`interpolate` writes interpolation_data.csv (interpolation_phases_data.csv
+with --phases); `flow` writes e.csv, V_k.csv,
+wave_velocity_opticalflow.pkl.bz2 and singularity_points.pkl (and
+singularity_points_classification.pkl with --classify); `decompose` writes
+data_01.npz; `wavespeed` writes wave_velocity_{method}.pkl.bz2; `streamline`
+writes t_velocityfields_streamlines_{frame}.pkl.bz2 per frame; `winding`
+writes winding_lines.pkl.bz2; `demo` runs the flow stage on a synthetic
+two-source movie and scores the detections against the true sources. Each
+prints one JSON line: its JAX counterpart's keys plus `device` and
+`timings`. The rendering options (`decompose --render-modes`/`--pial`,
+`demo --gif`) need viz/fields.py and raise; they, `preprocess`,
+`reconstruct`, `visualize` and `batch` are ROADMAP Queue A item 14.
 """
 
 from __future__ import annotations
@@ -75,6 +89,36 @@ def _add_common(sp):
                          "GPU) or cpu (their plain torch versions)")
 
 
+def _needs_viz(option: str):
+    raise NotImplementedError(
+        f"{option} renders with viz/fields.py, which is not ported yet: "
+        "ROADMAP Queue A item 14")
+
+
+def cmd_interpolate(args):
+    """S2: an electrode movie (or its phases) onto the surface's vertices."""
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.utils import io
+
+    device = _device(args.device)
+    cfg = _load_config(args)
+    t0 = time.perf_counter()
+    mesh = stages.load_surface(args.surface, device=device)
+    coords = io.load_grid_electrodes(args.electrodes, group=args.group,
+                                     exclude=args.exclude)
+    data = _load_movie(args.data)
+    timings: dict = {"load": time.perf_counter() - t0}
+    suffix = "phases_data" if args.phases else "data"
+    out = Path(args.out_dir) / f"interpolation_{suffix}.csv"
+    movie = stages.interpolate_stage(mesh, coords, data, cfg, sfreq=args.sfreq,
+                                     phases=args.phases, save_path=out,
+                                     timings=timings)
+    print(json.dumps({"stage": "interpolate", "device": str(device),
+                      "shape": list(movie.shape), "out": str(out),
+                      "timings": timings}))
+    return 0
+
+
 def cmd_flow(args):
     """S3: velocity fields + singularity detection/classification."""
     from manifold_flow_tpu_torch.pipeline import stages
@@ -116,6 +160,48 @@ def cmd_flow(args):
         "singularities_per_frame": [len(p) for p in pts],
         "timings": timings,
     }))
+    return 0
+
+
+def cmd_decompose(args):
+    """S4: the spatiotemporal SVD of a V_k movie."""
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.utils import io
+
+    if args.render_modes or args.pial:
+        _needs_viz("decompose --render-modes / --pial")
+    device = _device(args.device)
+    cfg = _load_config(args)
+    t0 = time.perf_counter()
+    v_k = torch.as_tensor(io.load_indexed_csv(args.v_k), device=device)
+    timings: dict = {"load": time.perf_counter() - t0}
+    modes = stages.decompose_stage(v_k, cfg, mode=args.mode,
+                                   npz_path=Path(args.out_dir) / "data_01.npz",
+                                   timings=timings)
+    (sigma,) = io.to_numpy(modes.sigma)
+    print(json.dumps({"stage": "decompose", "device": str(device), "mode": args.mode,
+                      "energy_pct": list(np.round(
+                          100 * sigma**2 / (sigma**2).sum(), 3)[:8]),
+                      "rendered_modes": [], "timings": timings}))
+    return 0
+
+
+def cmd_wavespeed(args):
+    """S5: wave speeds of an amplitude or phase movie."""
+    from manifold_flow_tpu_torch.pipeline import stages
+
+    device = _device(args.device)
+    _load_config(args)
+    t0 = time.perf_counter()
+    mesh = stages.load_surface(args.surface, device=device)
+    movie = _load_movie(args.movie)
+    timings: dict = {"load": time.perf_counter() - t0}
+    out = Path(args.out_dir) / f"wave_velocity_{args.method}.pkl.bz2"
+    ws = stages.wavespeed_stage(mesh, movie, dt=1.0 / args.sfreq, method=args.method,
+                                save_path=out, timings=timings)
+    print(json.dumps({"stage": "wavespeed", "device": str(device),
+                      "method": args.method, "shape": list(ws.shape), "out": str(out),
+                      "timings": timings}))
     return 0
 
 
@@ -172,11 +258,69 @@ def cmd_winding(args):
     return 0
 
 
+def cmd_demo(args):
+    """End to end on synthetic data: surface -> two-source movie -> flow ->
+    detection, scored against the true sources."""
+    from manifold_flow_tpu_torch.geometry import synthetic
+    from manifold_flow_tpu_torch.ops import validation
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.utils import io
+
+    if args.gif:
+        _needs_viz("demo --gif")
+    device = _device(args.device)
+    cfg = _load_config(args)
+    cfg.solver.tol = 1e-8
+    t0 = time.perf_counter()
+    mesh = synthetic.plane_patch(
+        nx=args.nx, ny=args.nx, lx=20.0, ly=20.0,
+        height=lambda x, y: 1.5 * np.sin(x / 4.0) * np.cos(y / 5.0), device=device)
+    pot, times, true_pts = synthetic.two_source_movie(
+        mesh, sources=((5.0, 5.0), (15.0, 15.0)), n_frames=args.frames)
+    out = Path(args.out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    points, triangles, truth = io.to_numpy(mesh.points, mesh.triangles, true_pts)
+    io.write_ply(out / "simulated_surface.ply", points, triangles)
+    t1 = time.perf_counter()
+    vel = stages.velocity_stage(mesh, pot, times, cfg, e_path=out / "e.csv",
+                                v_k_path=out / "V_k.csv")
+    t2 = time.perf_counter()
+    pts, _ = stages.singularity_stage(mesh, vel.v_world, cfg,
+                                      save_path=out / "singularity_points.pkl",
+                                      speed=vel.speed, v_max=vel.v_max)
+    t3 = time.perf_counter()
+    report = validation.score_all_frames(
+        mesh, pts, [truth] * len(pts), threshold=cfg.analysis.threshold,
+        turning_point=len(pts) + 1)
+    timings = {"setup": t1 - t0, "flow": t2 - t1, "singularity_stage": t3 - t2,
+               "score": time.perf_counter() - t3}
+    print(json.dumps({
+        "stage": "demo", "device": str(device), "frames": int(vel.v_k.shape[0]),
+        "converged": vel.converged,
+        "matched": report.matched, "missed": report.missed,
+        "spare": report.spare, "err_max": report.err_max,
+        "gif": None, "out_dir": str(out), "timings": timings}))
+    return 0
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="manifold_flow_tpu_torch",
         description="Manifold optical flow on an NVIDIA GPU (PyTorch/CUDA port)")
     sub = p.add_subparsers(dest="command", required=True)
+
+    sp = sub.add_parser("interpolate", help="S2: electrode movie -> vertex movie")
+    _add_common(sp)
+    sp.add_argument("--surface", required=True)
+    sp.add_argument("--electrodes", required=True)
+    sp.add_argument("--data", required=True, help="(T, E) movie .csv/.npy")
+    sp.add_argument("--sfreq", type=float, default=None)
+    sp.add_argument("--phases", action="store_true")
+    sp.add_argument("--exclude", nargs="*", default=None,
+                    help="electrode names to drop (e.g. the stimulated pair, "
+                         "S2_interpolate.py:125-135)")
+    sp.add_argument("--group", default="grid")
+    sp.set_defaults(func=cmd_interpolate)
 
     sp = sub.add_parser("flow", help="S3: velocity fields + singularities")
     _add_common(sp)
@@ -188,6 +332,27 @@ def build_parser():
     sp.add_argument("--tol", type=float, default=None)
     sp.add_argument("--classify", action="store_true")
     sp.set_defaults(func=cmd_flow)
+
+    sp = sub.add_parser("decompose", help="S4: spatiotemporal SVD")
+    _add_common(sp)
+    sp.add_argument("--v-k", required=True)
+    sp.add_argument("--mode", default="concat", choices=["concat", "complex"])
+    sp.add_argument("--render-modes", type=int, default=0,
+                    help="render the leading K spatial modes (needs "
+                         "viz/fields.py: not ported, raises)")
+    sp.add_argument("--surface", default=None)
+    sp.add_argument("--pial", nargs="*", default=None,
+                    help="FreeSurfer pial underlay (needs viz/fields.py: not "
+                         "ported, raises)")
+    sp.set_defaults(func=cmd_decompose)
+
+    sp = sub.add_parser("wavespeed", help="S5: wave speeds from a movie")
+    _add_common(sp)
+    sp.add_argument("--surface", required=True)
+    sp.add_argument("--movie", required=True)
+    sp.add_argument("--sfreq", type=float, required=True)
+    sp.add_argument("--method", default="phase", choices=["phase", "amplitude"])
+    sp.set_defaults(func=cmd_wavespeed)
 
     sp = sub.add_parser("streamline", help="S6: streamline extraction")
     _add_common(sp)
@@ -205,6 +370,15 @@ def build_parser():
     sp.add_argument("--v-k", required=True)
     sp.add_argument("--singularities", required=True)
     sp.set_defaults(func=cmd_winding)
+
+    sp = sub.add_parser("demo", help="synthetic end-to-end run + validation")
+    _add_common(sp)
+    sp.add_argument("--nx", type=int, default=24)
+    sp.add_argument("--frames", type=int, default=12)
+    sp.add_argument("--gif", action="store_true",
+                    help="the true-vs-detected GIF (needs viz/fields.py: not "
+                         "ported, raises)")
+    sp.set_defaults(func=cmd_demo)
     return p
 
 

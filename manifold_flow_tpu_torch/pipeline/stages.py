@@ -1,15 +1,16 @@
-"""Pipeline stages of a trial's device path: S3 (velocity, singularities and
-their classification), S6 (streamlines) and S7 (winding lines).
+"""Pipeline stages of a trial's device path: S2 (RBF interpolation of the
+electrode movie or its phases), S3 (velocity, singularities and their
+classification), S4 (the SVD modes), S5 (wave speeds), S6 (streamlines) and
+S7 (winding lines).
 
 Counterpart of manifold_flow_tpu/pipeline/stages.py. Each stage computes on
-the mesh's device and writes the reference's artifact formats (utils.io).
-The JAX package's fused flow program, which exists to save remote
-dispatches, and its f64-to-f32 analysis cast, which exists because the TPU
-emulates f64, have no counterpart: on the H100 every stage runs eagerly in
-the movie's dtype.
+the mesh's device (S4 on the movie's, the GPU by default) and writes the
+reference's artifact formats (utils.io). The JAX package's fused flow
+program, which exists to save remote dispatches, and its f64-to-f32
+analysis cast, which exists because the TPU emulates f64, have no
+counterpart: on the H100 every stage runs eagerly in the movie's dtype.
 
-The other stages (S0-S2, S4, S5) and `pipeline/batch.py` are not ported
-yet: ROADMAP Queue A items 13-14.
+S0, S1 and `pipeline/batch.py` are not ported yet: ROADMAP Queue A item 14.
 """
 
 from __future__ import annotations
@@ -21,9 +22,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh
+from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh, resolve_device
+from manifold_flow_tpu_torch.ops import interpolate as rbf_ops
+from manifold_flow_tpu_torch.ops import phase as phase_ops
 from manifold_flow_tpu_torch.ops import singularity as sing_ops
 from manifold_flow_tpu_torch.ops import streamline as stream_ops
+from manifold_flow_tpu_torch.ops import svd as svd_ops
+from manifold_flow_tpu_torch.ops import wavespeed as wave_ops
 from manifold_flow_tpu_torch.ops import winding as wind_ops
 from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -48,6 +53,58 @@ def load_surface(path, cache_dir=None, pad: bool = False,
             "shapes)")
     pts, tris = io.read_ply(path)
     return build_mesh(pts, tris, device=device)
+
+
+# ------------------------------------------------------------------- S2 ----
+def interpolate_stage(mesh: TriMesh, electrode_coords, electrode_data,
+                      config: PipelineConfig, sfreq: float | None = None,
+                      phases: bool = False, save_path=None, writer=None,
+                      timings: dict | None = None) -> torch.Tensor:
+    """S2: electrode movie (T, E) -> vertex movie (T, N) on the mesh's
+    device, by RBF interpolation (K17 on CUDA).
+
+    With phases=True follows S2_interpolate_phases: the Hilbert phase of
+    each electrode's signal, e^{i phi} interpolated, the angle of the
+    interpolant. When `sfreq` is given, the movie is windowed to
+    [start_time, end_time) seconds (S2_interpolate.py:19-20, 109-110), at
+    one site, after the Hilbert transform: windowing first would change
+    every frame's analytic signal.
+
+    The Hilbert transform runs along time (axis=0) unless
+    config.reference_quirks, which takes the reference's scipy default
+    axis=-1, across the electrodes (S2_interpolate_phases.py:66).
+    `timings`, when given, receives seconds: 'compute' (until the result is
+    on the host) and 'write' (the CSV, or queueing it).
+    """
+    def window(movie):
+        if sfreq is None:
+            return movie
+        s = int(config.interpolation.start_time * sfreq)
+        e = int(config.interpolation.end_time * sfreq)
+        return movie[s:e]
+
+    t0 = time.perf_counter()
+    coords = torch.as_tensor(electrode_coords, device=mesh.device)
+    data = torch.as_tensor(electrode_data, device=mesh.device)
+    interp = config.interpolation
+    if phases:
+        phi = phase_ops.instantaneous_phase(
+            data, axis=-1 if config.reference_quirks else 0)
+        out = rbf_ops.rbf_interpolate_phases(coords, window(phi), mesh.points,
+                                             smooth=interp.smooth, kind=interp.kind)
+    else:
+        out = rbf_ops.rbf_interpolate(coords, window(data), mesh.points,
+                                      smooth=interp.smooth, kind=interp.kind)
+    if save_path is not None:
+        (host,) = io.to_numpy(out)
+        t1 = time.perf_counter()
+        io.submit_write(writer, io.save_indexed_csv, save_path, host)
+        if timings is not None:
+            timings.update(compute=t1 - t0, write=time.perf_counter() - t1)
+    elif timings is not None:
+        _sync(out.device)
+        timings.update(compute=time.perf_counter() - t0, write=0.0)
+    return out
 
 
 class ConvergenceWarning(UserWarning):
@@ -235,6 +292,71 @@ def singularity_stage(mesh: TriMesh, v_world, config: PipelineConfig,
     if return_centers:
         return points_per_frame, labels_per_frame, centers_per_frame
     return points_per_frame, labels_per_frame
+
+
+# ------------------------------------------------------------------- S4 ----
+def decompose_stage(v_k, config: PipelineConfig, mode: str = "concat",
+                    npz_path=None, writer=None, device="cuda",
+                    timings: dict | None = None) -> svd_ops.SVDModes:
+    """S4: the spatiotemporal SVD of a velocity movie (T, 2N), in complex or
+    concatenated-real form, on v_k's device (a tensor) or on `device` (the
+    GPU unless the caller passes device="cpu"). `npz_path` writes the
+    reference's data_01.npz (U, Sigma, VT, point_num). `timings`, when
+    given, receives seconds: 'compute' (until the modes are on the host)
+    and 'write'."""
+    if mode not in ("complex", "concat"):
+        raise ValueError(f"unknown SVD mode {mode!r}")
+    t0 = time.perf_counter()
+    v = (v_k if isinstance(v_k, torch.Tensor)
+         else torch.as_tensor(v_k, device=resolve_device(device)))
+    decompose = svd_ops.decompose_complex if mode == "complex" else svd_ops.decompose_concat
+    modes = decompose(v, n_modes=config.analysis.n_modes)
+    if npz_path is not None:
+        u, sigma, vt = io.to_numpy(modes.u, modes.sigma, modes.vt)
+        t1 = time.perf_counter()
+        io.submit_write(writer, np.savez, npz_path, U=u, Sigma=sigma, VT=vt,
+                        point_num=v.shape[-1] // 2)
+        if timings is not None:
+            timings.update(compute=t1 - t0, write=time.perf_counter() - t1)
+    elif timings is not None:
+        _sync(v.device)
+        timings.update(compute=time.perf_counter() - t0, write=0.0)
+    return modes
+
+
+# ------------------------------------------------------------------- S5 ----
+def wavespeed_stage(mesh: TriMesh, movie, dt: float, method: str = "phase",
+                    save_path=None, writer=None, device_mesh=None,
+                    timings: dict | None = None) -> torch.Tensor:
+    """S5: wave speeds (T, N) from an amplitude or phase movie (T, N), on
+    the mesh's device (K16 on CUDA): the phase method's |speed| / 1000 (the
+    S5 script's unit conversion, S5:311-313) or the amplitude method's
+    speed. `save_path` writes the reference's pickle of the float array.
+    `timings`, when given, receives seconds: 'compute' (until the speeds
+    are on the host) and 'write'. The JAX stage's `device_mesh` (frames
+    sharded over chips) is ROADMAP Queue A item 15 and raises."""
+    if device_mesh is not None:
+        raise NotImplementedError(
+            "wavespeed_stage(device_mesh=...) shards frames over several GPUs, "
+            "which is not ported yet: ROADMAP Queue A item 15")
+    if method == "phase":
+        speed_of = wave_ops.wave_velocity_phase_mm_per_ms
+    elif method == "amplitude":
+        speed_of = wave_ops.wave_velocity_amplitude
+    else:
+        raise ValueError(f"unknown wavespeed method {method!r}")
+    t0 = time.perf_counter()
+    ws = speed_of(mesh, movie, dt)
+    if save_path is not None:
+        (host,) = io.to_numpy(ws)
+        t1 = time.perf_counter()
+        io.submit_write(writer, io.save_pickle, save_path, host)
+        if timings is not None:
+            timings.update(compute=t1 - t0, write=time.perf_counter() - t1)
+    elif timings is not None:
+        _sync(ws.device)
+        timings.update(compute=time.perf_counter() - t0, write=0.0)
+    return ws
 
 
 # ------------------------------------------------------------------- S6 ----

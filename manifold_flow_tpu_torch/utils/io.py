@@ -9,13 +9,15 @@ without PyVista/VTK (own PLY codec), so artifacts interoperate both ways.
 Writers take host (numpy) data only. `start_host_copy` and `to_numpy` move
 tensors to the host: a stage moves each artifact tensor once and hands
 numpy to the writer, so a writer thread never touches a CUDA tensor.
-`load_grid_electrodes` (pandas), the FreeSurfer readers and the evoked CSVs
-are not ported yet: ROADMAP Queue A item 14.
+The FreeSurfer readers and the evoked CSVs are not ported yet: ROADMAP
+Queue A item 14.
 """
 
 from __future__ import annotations
 
 import bz2
+import csv
+import math
 import pickle
 import struct
 from pathlib import Path
@@ -180,6 +182,50 @@ def save_e_csv(path, e):
 
 def load_e_csv(path):
     return load_indexed_csv(path).reshape(-1, 2, 3)
+
+
+# The strings pandas.read_csv reads as NaN by default: a coordinate spelled
+# so is missing.
+_NA_STRINGS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"})
+
+
+def _missing(value: str) -> bool:
+    return value in _NA_STRINGS or math.isnan(float(value))
+
+
+def load_grid_electrodes(path, group: str = "grid", names=None,
+                         exclude=None, with_names: bool = False):
+    """Electrode coordinates (E, 3) from a BIDS electrodes.tsv.
+
+    Keeps rows whose `group` column matches (S1_reconstruct_surface.py:53-68);
+    rows with a missing coordinate ('n/a' in BIDS, or NaN) are skipped.
+    `names` restricts to an explicit channel list; `exclude` drops channels
+    (the stimulated pair is removed before interpolation,
+    S2_interpolate.py:125-135). The JAX package reads the table with pandas;
+    this reads it with the csv module, with the same row rules.
+    """
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    if group is not None and rows and "group" in rows[0]:
+        rows = [r for r in rows if r["group"] == group]
+    if names is not None:
+        keep = set(map(str, names))
+        rows = [r for r in rows if r["name"] in keep]
+    if exclude is not None:
+        drop = set(map(str, exclude))
+        rows = [r for r in rows if r["name"] not in drop]
+    coords, kept = [], []
+    for row in rows:
+        vals = [row["x"], row["y"], row["z"]]
+        if any(_missing(v) for v in vals):
+            continue
+        coords.append([float(v) for v in vals])
+        kept.append(row["name"])
+    coords = np.asarray(coords, dtype=np.float64)
+    return (coords, kept) if with_names else coords
 
 
 def _atomic_target(path):

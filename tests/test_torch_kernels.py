@@ -27,11 +27,14 @@ from manifold_flow_tpu_torch.geometry import synthetic, topology
 from manifold_flow_tpu_torch.kernels import analysis as kan
 from manifold_flow_tpu_torch.kernels import coarse as kco
 from manifold_flow_tpu_torch.kernels import fem as kfem
+from manifold_flow_tpu_torch.kernels import fields as kfi
 from manifold_flow_tpu_torch.kernels import streams as kst
 from manifold_flow_tpu_torch.kernels import winding as kwi
+from manifold_flow_tpu_torch.ops import interpolate as interp
 from manifold_flow_tpu_torch.ops import recombine
 from manifold_flow_tpu_torch.ops import singularity as sing
 from manifold_flow_tpu_torch.ops import streamline as stream
+from manifold_flow_tpu_torch.ops import wavespeed as wave
 from manifold_flow_tpu_torch.ops import winding as wind
 from manifold_flow_tpu_torch.pipeline import stages
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -466,3 +469,104 @@ def test_analysis_stages_on_cuda_match_cpu(cuda):
     assert {k: [r[1:] for r in v] for k, v in wl.items()} == {
         k: [r[1:] for r in v] for k, v in wl_c.items()}
     assert sum(len(v) for v in wl.values()) > 0
+
+
+def _speed_close(got, want, mag, dtype):
+    """Wave speeds: inf/NaN at the same places; elsewhere, where |grad| is
+    above 1e-8 of its largest value, the relative error scaled by
+    |grad| / max|grad| (the quotient amplifies rounding by its inverse)
+    within TOL."""
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    top = float(mag.abs().max())
+    ok = torch.isfinite(want) & (mag > 1e-8 * top) & (want != 0)
+    err = ((got - want).abs() / want.abs() * mag / top)[ok]
+    assert ok.any() and float(err.max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wave_kernel_matches_plain(cuda, dtype):
+    """K16 in each of its outputs, on a movie with a flat stretch (frames 2-4
+    constant) where the speeds are inf and NaN."""
+    mesh, pot, _ = _problem(cuda)
+    movie = pot.to(dtype).clone()
+    movie[2:5] = 0.0
+    args = (mesh.triangles, mesh.grad_w.to(dtype), mesh.areas.to(dtype),
+            mesh.vertex_cells, mesh.basis.to(dtype))
+    mag = kfi.plain_wave_speed(movie, *args, 1.0 / 512, "magnitude")
+    for output in kfi.WAVE_OUTPUTS:
+        got = _launched("wave_speed", dtype,
+                        lambda: kfi.wave_speed(movie, *args, 1.0 / 512, output))
+        want = kfi.plain_wave_speed(movie, *args, 1.0 / 512, output)
+        if output in ("gradient", "magnitude"):
+            _assert_close([got], [want], dtype)
+        else:
+            _speed_close(got, want, mag, dtype)
+            assert not torch.isfinite(got[3]).any()
+    with pytest.raises(ValueError, match="at least 3 frames"):
+        kfi.wave_speed(movie[:2].contiguous(), *args, 1.0, "amplitude")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", sorted(kfi.RBF_KINDS))
+def test_rbf_kernels_match_plain(cuda, dtype, kind):
+    """K17's system matrix (with a smoothing diagonal) and its evaluation,
+    real and phase, against the plain versions; the evaluation's error is
+    relative to max sum_e |phi| |w|, its rounding scale."""
+    mesh, pot, _ = _problem(cuda)
+    gen = np.random.default_rng(3)
+    sel = torch.as_tensor(gen.choice(mesh.n_vertices, 24, replace=False), device=cuda)
+    x = mesh.points.to(dtype).contiguous()
+    c = x[sel].contiguous()
+    eps = interp.scipy_default_epsilon(c).reshape(1)
+    got = _launched("rbf_basis", dtype, lambda: kfi.rbf_basis(c, c, eps, kind, diag=0.1))
+    _assert_close([got], [kfi.plain_rbf_basis(c, c, eps, kind, diag=0.1)], dtype)
+    w, w_im = (torch.as_tensor(gen.standard_normal((24, 37)), device=cuda).to(dtype)
+               for _ in range(2))
+    scale = float((kfi.plain_rbf_basis(x, c, eps, kind).abs() @ w.abs()).max())
+    got = _launched("rbf_eval", dtype, lambda: kfi.rbf_eval(x, c, eps, w, kind))
+    assert got.shape == (37, mesh.n_vertices)
+    assert float((got - kfi.plain_rbf_eval(x, c, eps, w, kind)).abs().max()) <= TOL[dtype] * scale
+    got = _launched("rbf_eval", dtype, lambda: kfi.rbf_eval(x, c, eps, w, kind, w_im))
+    b = kfi.plain_rbf_basis(x, c, eps, kind)
+    z = torch.complex((b @ w).T, (b @ w_im).T)
+    assert float((z.abs() * torch.exp(1j * got) - z).abs().max()) <= 2 * TOL[dtype] * scale
+
+
+def test_field_stages_on_cuda_match_cpu(cuda):
+    """S2, S4 and S5 on the card against the same stages on the CPU, with
+    K16 and K17 launched on the card and nothing on the CPU."""
+    mesh, pot, _ = _problem(cuda)
+    cfg = PipelineConfig()
+    sel = np.random.default_rng(4).choice(mesh.n_vertices, 30, replace=False)
+    coords = mesh.points.cpu().numpy()[sel]
+    data = np.cos(np.linspace(0.0, 9.0, 40))[:, None] * pot.cpu().numpy()[:1, sel] + 0.1
+    cpu = mesh.to("cpu")
+    movies = [stages.interpolate_stage(cpu, coords, data, cfg, phases=p) for p in (False, True)]
+    mags = [wave.tangential_gradient_magnitude(cpu, x) for x in movies]
+    runs = []
+    for m in (mesh, cpu):
+        kernels.reset_launches()
+        amp = stages.interpolate_stage(m, coords, data, cfg)
+        phases = stages.interpolate_stage(m, coords, data, cfg, phases=True)
+        speeds = [stages.wavespeed_stage(m, x, 1.0 / 512, method=method)
+                  for x, method in zip(movies, ("amplitude", "phase"))]
+        v_k = torch.as_tensor(np.random.default_rng(5).standard_normal(
+            (12, m.n_dof)), device=m.device)
+        modes = [stages.decompose_stage(v_k, cfg, mode=mode) for mode in ("concat", "complex")]
+        if m.device.type == "cuda":
+            torch.cuda.synchronize()
+        runs.append((amp, phases, speeds, modes, dict(kernels.LAUNCHES)))
+    (amp, phases, speeds, modes, launches), (amp_c, phases_c, speeds_c, modes_c, lc) = runs
+    assert launches["rbf_basis<double>"] == 2 and launches["rbf_eval<double>"] == 2
+    assert launches["wave_speed<double>"] == 2 and set(lc.values()) == {0}
+    scale = float(amp_c.abs().max())
+    assert float((amp.cpu() - amp_c).abs().max()) <= 1e-9 * scale
+    assert float(torch.angle(torch.exp(1j * (phases.cpu() - phases_c))).abs().max()) <= 1e-9
+    for a, b, mag in zip(speeds, speeds_c, mags):
+        _speed_close(a.cpu(), b, mag, torch.float64)
+    for a, b in zip(modes, modes_c):
+        torch.testing.assert_close(a.sigma.cpu(), b.sigma, rtol=1e-10, atol=0)
+        recon = [(m.u * m.sigma.to(m.u.dtype)) @ m.vt for m in (a, b)]
+        torch.testing.assert_close(recon[0].cpu(), recon[1], rtol=0, atol=1e-8 * float(
+            recon[1].abs().max()))

@@ -31,6 +31,9 @@ def test_import_pulls_in_no_jax_and_loads_no_kernels():
     assert "manifold_flow_tpu_torch.kernels.winding" in modules
     assert "manifold_flow_tpu_torch.ops.streamline" in modules
     assert "manifold_flow_tpu_torch.ops.winding" in modules
+    assert "manifold_flow_tpu_torch.kernels.fields" in modules
+    for name in ("phase", "wavespeed", "interpolate", "svd", "validation"):
+        assert f"manifold_flow_tpu_torch.ops.{name}" in modules
     code = (
         "import importlib, sys\n"
         "import manifold_flow_tpu_torch as m\n"
@@ -64,7 +67,8 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     srcs = build.sources()
     assert [s.name for s in srcs] == [
         "analysis_kernels.cu", "coarse_kernels.cu", "fem_kernels.cu",
-        "pcg_kernels.cu", "stream_kernels.cu", "winding_kernels.cu"]
+        "field_kernels.cu", "pcg_kernels.cu", "stream_kernels.cu",
+        "winding_kernels.cu"]
     objs = [tmp_path / f"{s.stem}.o" for s in srcs]
     out = tmp_path / "lib.so"
     cmds = [build.compile_command("nvcc", s, o) for s, o in zip(srcs, objs)]
@@ -184,5 +188,5 @@ def test_reset_launches_zeroes_every_count():
         "pcg_update", "pcg_direction", "recombine_speed", "detect_singular",
         "compact_detected", "coarse_assemble", "coarse_restrict", "coarse_gemv",
         "coarse_prolong_dot", "classify_candidates", "next_hop", "trace_walks",
-        "pack_walks", "winding_profile"}
+        "pack_walks", "winding_profile", "wave_speed", "rbf_basis", "rbf_eval"}
     assert kernels.LAUNCHES is _lib.LAUNCHES

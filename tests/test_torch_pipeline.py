@@ -227,6 +227,11 @@ def test_unported_stage_options_raise(tmp_path):
         stages.load_surface(tmp_path / "none.ply", pad=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         stages.load_surface(tmp_path / "none.ply", cache_dir=tmp_path)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        stages.wavespeed_stage(None, np.zeros((3, 4)), 1.0, device_mesh=object())
+    with pytest.raises(ValueError, match="unknown SVD mode"):
+        stages.decompose_stage(np.zeros((3, 4)), PipelineConfig(), mode="real",
+                               device="cpu")
 
 
 # ----------------------------------------------------------------- IO ----
@@ -387,3 +392,165 @@ def test_flow_cli_cholesky_matches_cg(tmp_path, demo, capsys):
     want = io.load_indexed_csv(tmp_path / "cg" / "V_k.csv")
     assert got.shape == (5, 2 * jmesh.n_vertices)
     assert rel_err(got, want) <= VS_JAX
+
+
+# ------------------------------------------------------- field stages ----
+def _electrode_movie(jmesh, n_electrodes=16, n_samples=1229, seed=3):
+    """Electrodes picked among the mesh's vertices and a 512 Hz movie of
+    n_samples at them (T, E): the demo's two-source waves plus seeded noise."""
+    rng = np.random.default_rng(seed)
+    sel = rng.choice(jmesh.n_vertices, n_electrodes, replace=False)
+    pts = np.asarray(jmesh.points)[sel]
+    t = np.arange(n_samples)[:, None] / 512.0
+    r = np.linalg.norm(pts[None] - np.array([2.0, 2.0, 0.0]), axis=-1)
+    movie = np.cos(2 * np.pi * (r - 8.0 * t) / 3.0) + 0.1 * rng.standard_normal(r.shape)
+    return pts, movie
+
+
+@QUIRKS
+@pytest.mark.parametrize("phases", [False, True], ids=["movie", "phases"])
+def test_interpolate_stage_matches_jax(tmp_path, demo, quirks, phases):
+    """S2 with the default window [2.009, 2.2) s at 512 Hz (98 frames, after
+    the Hilbert transform for phases), both Hilbert axes."""
+    jmesh, tmesh, _, _ = demo
+    coords, movie = _electrode_movie(jmesh)
+    jcfg, cfg = _quirks_config(JaxConfig, quirks), _quirks_config(PipelineConfig, quirks)
+    want = jax_stages.interpolate_stage(jmesh, coords, movie, jcfg, sfreq=512.0,
+                                        phases=phases)
+    timings: dict = {}
+    got = stages.interpolate_stage(tmesh, coords, movie, cfg, sfreq=512.0, phases=phases,
+                                   save_path=tmp_path / "i.csv", timings=timings)
+    assert got.shape == want.shape == (98, tmesh.n_vertices)
+    if phases:
+        assert float(np.abs(np.angle(np.exp(1j * (got.numpy() - want)))).max()) <= 1e-9
+    else:
+        assert rel_err(got.numpy(), want) <= 1e-9
+    np.testing.assert_array_equal(io.load_indexed_csv(tmp_path / "i.csv"), got.numpy())
+    assert set(timings) == {"compute", "write"}
+
+
+@pytest.mark.parametrize("method", ["phase", "amplitude"])
+def test_wavespeed_stage_matches_jax(tmp_path, demo, method):
+    jmesh, tmesh, pot, _ = demo
+    movie = np.angle(np.exp(2j * pot)) if method == "phase" else pot
+    want = np.asarray(jax_stages.wavespeed_stage(jmesh, movie, 1.0 / 512, method=method))
+    got = stages.wavespeed_stage(tmesh, movie, 1.0 / 512, method=method,
+                                 save_path=tmp_path / "w.pkl.bz2")
+    assert rel_err(got.numpy(), want) <= 1e-10
+    np.testing.assert_array_equal(io.load_pickle(tmp_path / "w.pkl.bz2"), got.numpy())
+    with pytest.raises(ValueError, match="unknown wavespeed method"):
+        stages.wavespeed_stage(tmesh, movie, 1.0, method="group")
+
+
+@pytest.mark.parametrize("mode", ["concat", "complex"])
+def test_decompose_stage_matches_jax(tmp_path, jax_velocity, mode):
+    """S4 on the demo's velocity movie: sigma, the percentages and the
+    rank-K reconstruction (gauge-invariant for the complex form), and the
+    npz reloading equal to the modes in memory."""
+    jvel, _ = jax_velocity
+    v_k = np.asarray(jvel.v_k)
+    want = jax_stages.decompose_stage(v_k, JaxConfig(), mode=mode)
+    got = stages.decompose_stage(v_k, PipelineConfig(), mode=mode, device="cpu",
+                                 npz_path=tmp_path / "d.npz")
+    assert rel_err(got.sigma.numpy(), np.asarray(want.sigma)) <= 1e-10
+    np.testing.assert_array_equal(got.pct.numpy(), np.asarray(want.pct))
+    rec = (got.u.numpy() * got.sigma.numpy()) @ got.vt.numpy()
+    rec_want = (np.asarray(want.u) * np.asarray(want.sigma)) @ np.asarray(want.vt)
+    assert float(np.abs(rec - rec_want).max()) <= 1e-10 * float(np.abs(rec_want).max())
+    with np.load(tmp_path / "d.npz") as z:
+        assert int(z["point_num"]) == v_k.shape[1] // 2
+        for key, x in (("U", got.u), ("Sigma", got.sigma), ("VT", got.vt)):
+            np.testing.assert_array_equal(z[key], x.numpy())
+
+
+@QUIRKS
+def test_wavespeed_and_decompose_clis_reproduce_golden_artifacts(tmp_path, quirks, capsys):
+    golden, trial, surface, config = _golden_inputs(quirks, tmp_path)
+    out = tmp_path / "out"
+    kernels.reset_launches()
+    for method, movie, name in (
+            ("phase", "ave-interpolation_phases_data.csv", "wave_velocity.pkl.bz2"),
+            ("amplitude", "ave-interpolation_data.csv", "wave_velocity_amplitude.pkl.bz2")):
+        assert cli.main(["wavespeed", "--surface", str(surface), "--movie",
+                         str(trial / f"{G.STEM}-{movie}"), "--sfreq", "512",
+                         "--method", method, "--config", str(config), "--device", "cpu",
+                         "--out-dir", str(out)]) == 0
+        line = json.loads(capsys.readouterr().out)
+        assert line["device"] == "cpu" and line["method"] == method
+        assert set(line["timings"]) == {"load", "compute", "write"}
+        G.compare_artifact(f"{G.STEM}-{name}", out / f"wave_velocity_{method}.pkl.bz2",
+                           trial / f"{G.STEM}-{name}")
+    assert cli.main(["decompose", "--v-k", str(trial / f"{G.STEM}-V_k.csv"),
+                     "--config", str(config), "--device", "cpu",
+                     "--out-dir", str(out)]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["mode"] == "concat" and line["rendered_modes"] == []
+    assert sum(line["energy_pct"]) == pytest.approx(100.0, abs=0.01)
+    G.compare_artifact("data_01.npz", out / "data_01.npz", trial / "data_01.npz")
+    assert set(kernels.LAUNCHES.values()) == {0}
+
+
+def test_interpolate_cli_matches_jax_stage(tmp_path, demo, capsys):
+    """The interpolate CLI on an electrodes.tsv (16 grid rows, one strip row
+    and one with 'n/a' coordinates, both skipped, and one excluded by name)
+    against the JAX stage on the kept electrodes."""
+    jmesh, _, _, _ = demo
+    coords, movie = _electrode_movie(jmesh, n_electrodes=17)
+    rows = ["name\tx\ty\tz\tgroup"] + [
+        f"G{i}\t{x!r}\t{y!r}\t{z!r}\tgrid" for i, (x, y, z) in enumerate(coords.tolist())]
+    rows += ["S0\t1.0\t1.0\t0.0\tstrip", "G99\tn/a\tn/a\tn/a\tgrid"]
+    (tmp_path / "electrodes.tsv").write_text("\n".join(rows) + "\n")
+    np.save(tmp_path / "data.npy", movie[:, 1:])
+    io.write_ply(tmp_path / "s.ply", np.asarray(jmesh.points), np.asarray(jmesh.triangles))
+    assert cli.main(["interpolate", "--surface", str(tmp_path / "s.ply"), "--electrodes",
+                     str(tmp_path / "electrodes.tsv"), "--data", str(tmp_path / "data.npy"),
+                     "--sfreq", "512", "--phases", "--exclude", "G0", "--device", "cpu",
+                     "--out-dir", str(tmp_path / "out")]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["shape"] == [98, jmesh.n_vertices]
+    assert set(line["timings"]) == {"load", "compute", "write"}
+    jmesh_ply = jax_stages.load_surface(tmp_path / "s.ply")
+    want = jax_stages.interpolate_stage(jmesh_ply, coords[1:], movie[:, 1:], JaxConfig(),
+                                        sfreq=512.0, phases=True)
+    got = io.load_indexed_csv(tmp_path / "out" / "interpolation_phases_data.csv")
+    assert float(np.abs(np.angle(np.exp(1j * (got - want)))).max()) <= 1e-9
+
+
+def test_demo_cli_matches_jax(tmp_path, capsys):
+    """demo on the CPU: the JAX demo's frames, convergence and validation
+    scores (the reference's matched / missed / spare quirks included)."""
+    from manifold_flow_tpu.pipeline import cli as jax_cli
+
+    argv = ["demo", "--nx", "10", "--frames", "4"]
+    jax_args = jax_cli.build_parser().parse_args(argv + ["--out-dir", str(tmp_path / "j")])
+    jax_args.func(jax_args)
+    want = json.loads(capsys.readouterr().out)
+    assert cli.main(argv + ["--device", "cpu", "--out-dir", str(tmp_path / "t")]) == 0
+    got = json.loads(capsys.readouterr().out)
+    for key in ("frames", "converged", "matched", "missed", "spare"):
+        assert got[key] == want[key], key
+    assert got["err_max"] == pytest.approx(want["err_max"], rel=1e-12)
+    assert got["device"] == "cpu" and got["gif"] is None and got["matched"] > 0
+    for name in ("simulated_surface.ply", "e.csv", "V_k.csv", "singularity_points.pkl"):
+        assert (tmp_path / "t" / name).exists()
+
+
+def test_field_cli_unported_options_raise(tmp_path, monkeypatch):
+    """The rendering options need viz/fields.py (item 14) and raise before
+    any work; every subcommand defaults to --device cuda."""
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.main(["decompose", "--v-k", "v.csv", "--render-modes", "2", "--device", "cpu",
+                  "--out-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.main(["decompose", "--v-k", "v.csv", "--pial", "lh.pial", "--device", "cpu",
+                  "--out-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cli.main(["demo", "--gif", "--device", "cpu", "--out-dir", str(tmp_path)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["interpolate", "--surface", "s.ply", "--electrodes", "e.tsv",
+                  "--data", "d.npy"],
+                 ["wavespeed", "--surface", "s.ply", "--movie", "m.npy", "--sfreq", "512"],
+                 ["decompose", "--v-k", "v.csv"], ["demo"]):
+        with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+            cli.main(argv + ["--out-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
