@@ -61,7 +61,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      --phases; `wavespeed --method phase` on the interpolated phases and
      `--method amplitude` on the interpolated movie; `decompose --mode
      concat` and `--mode complex` on phase 6's V_k.csv; `demo` at its
-     defaults. K16 and K17 must have launched, the artifacts reload equal to
+     defaults. K16 and K17 must have launched (each variant counted in the
+     call that launches it), the artifacts reload equal to
      the same stages run in memory, sigma equal numpy's LAPACK SVD on the
      host to 1e-10 of the largest and the rank-K reconstruction to 1e-8 of
      its largest entry, and the demo converge and match. Prints each call's
@@ -87,7 +88,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
  11. flow12k: the flow CLI with the default config on the 12.5k surface as
      PLY and its movie as .npy, checked as in phase 6, with K1-K11 launched.
  11b. trial12k: phase 6b at 12.5k vertices x 98 frames.
- 11c. fields12k: phase 6c at 12.5k vertices, on phase 11's V_k.csv.
+ 11c. fields12k: phase 6c at 12.5k vertices, on phase 11's V_k.csv,
+     without `demo` (it builds its own patch, whatever the mesh).
  12. long: a 392-frame two-source movie on the bench surface, refined at tol
      1e-6 with frame_chunk='auto' (4 windows of 104) and None; both converge
      and meet the RMSE gate against spsolve on 8 frames across the windows'
@@ -135,9 +137,13 @@ TOL_F64 = 1e-12
 # The bound of a kernel: the larger of its bytes over the device memory rate
 # and its operations over the peak rate of their type (H100 SXM, NVIDIA's
 # data sheet: 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
-# the tensor cores). Integer kernels are bound by their bytes.
+# the tensor cores). The multiply-adds of a matrix product count at the
+# product rate of their type: 67 TFLOP/s float64 on the tensor cores, and
+# float32's 67 outside them (its tensor-core rate is TF32's, a lower
+# precision). Integer kernels are bound by their bytes.
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float": 67e12, "double": 34e12}
+PEAK_MM_OPS_S = {"float": 67e12, "double": 67e12}
 MAX_STEPS = 256       # AnalysisConfig's defaults (pipeline/config.py)
 MIN_LENGTH = 20
 LEVELS = 25
@@ -247,16 +253,17 @@ class KernelChecks:
 
     def compare(self, key: str, source: str, replaces: str, kernel, plain,
                 tol: float, scales=None, timed=None, inputs=(), ops: float = 0.0,
-                nbytes: int | None = None, library=None, launches_key=None,
-                measure=None) -> None:
+                mm_ops: float = 0.0, nbytes: int | None = None, library=None,
+                launches_key=None, measure=None) -> None:
         """Run kernel() and plain() on the same inputs and compare each
         output against its own scale (max |plain|, or `scales`), then time
         both, or the pair of calls `timed` (in-place kernels time without
         the copies their comparison needs), and `library`, a PyTorch call of
         the same function, where there is one. kernel and plain return a
         tuple of tensors. The bound counts the distinct `inputs` and the
-        kernel's outputs (or `nbytes`, where the work depends on the data)
-        and `ops` operations. `launches_key` names the LAUNCHES entry (the
+        kernel's outputs (or `nbytes`, where the work depends on the data),
+        `ops` operations and `mm_ops`, a matrix product's operations at the
+        product rate. `launches_key` names the LAUNCHES entry (the
         key itself by default). `measure(got, want)`, where given, replaces
         the comparison and returns (max abs error, relative error, ok)."""
         got = kernel()
@@ -284,14 +291,16 @@ class KernelChecks:
         moved = nbytes if nbytes is not None else tensor_bytes(*inputs, *got)
         ctype = key.split("<")[1].split(">")[0]
         t_bytes = moved / HBM_BYTES_S
-        t_ops = ops / PEAK_OPS_S[ctype] if ctype in PEAK_OPS_S else 0.0
+        t_ops = (ops / PEAK_OPS_S[ctype] + mm_ops / PEAK_MM_OPS_S[ctype]
+                 if ctype in PEAK_OPS_S else 0.0)
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "operations" if t_ops > t_bytes else "bytes"
         equal = f", {len(exact)} discrete outputs equal" if exact else ""
         lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
         print(f"[kernels] {key}: max_rel_err {rel:.3e} (tol {tol:.0e}){equal} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} bound "
-              f"{bound_ms:.5f} ms ({bound_by}: {moved} B, {ops:.4g} ops) "
+              f"{bound_ms:.5f} ms ({bound_by}: {moved} B, {ops:.4g} ops, "
+              f"{mm_ops:.4g} product ops) "
               f"{'ok' if ok else 'FAIL'} on {self.card}", flush=True)
         if not ok:
             raise AssertionError(f"{key} disagrees with its plain version: "
@@ -501,7 +510,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        "manifold_flow_tpu/solve/coarse.py:267",
                        lambda: (kco.coarse_gemv(pre.ac_inv, rc),),
                        lambda: (kco.plain_coarse_gemv(pre.ac_inv, rc),), tol,
-                       inputs=(pre.ac_inv, rc), ops=2 * pre.ac_inv.numel(),
+                       inputs=(pre.ac_inv, rc), mm_ops=2 * pre.ac_inv.numel(),
                        library=lambda: torch.matmul(pre.ac_inv, rc[..., None]))
         yc = kco.plain_coarse_gemv(pre.ac_inv, rc)
 
@@ -749,7 +758,7 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                            lambda: (kf.wave_speed(*args),),
                            lambda: (kf.plain_wave_speed(*args),), tol,
                            inputs=(movie, *tables), ops=ops, measure=speed_measure(mag),
-                           launches_key=f"wave_speed<{ctype}>")
+                           launches_key=f"wave_speed<{ctype}>{tag or '+phase'}")
 
         x = mesh.points.to(dtype).contiguous()
         c = x[sel].contiguous()
@@ -757,18 +766,18 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
         e = c.shape[0]
         checks.compare(f"rbf_basis<{ctype}>{suffix}", cu,
                        "manifold_flow_tpu/ops/interpolate.py:93",
-                       lambda: (kf.rbf_basis(c, c, eps, "multiquadric"),),
-                       lambda: (kf.plain_rbf_basis(c, c, eps, "multiquadric"),), tol,
+                       lambda: (kf.rbf_basis(c, eps, "multiquadric"),),
+                       lambda: (kf.plain_rbf_basis(c, eps, "multiquadric"),), tol,
                        inputs=(c, eps), ops=14 * e * e,
                        library=lambda: kf.rbf_phi(torch.cdist(
                            c, c, compute_mode="donot_use_mm_for_euclid_dist"), eps,
                            "multiquadric"),
                        launches_key=f"rbf_basis<{ctype}>")
-        lu, piv = torch.linalg.lu_factor(kf.plain_rbf_basis(c, c, eps, "multiquadric"))
+        lu, piv = torch.linalg.lu_factor(kf.plain_rbf_basis(c, eps, "multiquadric"))
         w = torch.linalg.lu_solve(lu, piv, amp[:, sel].T.contiguous()).contiguous()
         wr, wi = (torch.linalg.lu_solve(lu, piv, f(phase[:, sel]).T.contiguous()).contiguous()
                   for f in (torch.cos, torch.sin))
-        b = kf.plain_rbf_basis(x, c, eps, "multiquadric")
+        b = kf.rbf_phi(kf.pairwise_dist(x, c), eps, "multiquadric")
 
         def library(*planes):
             bl = kf.rbf_phi(torch.cdist(x, c, compute_mode="donot_use_mm_for_euclid_dist"),
@@ -780,15 +789,16 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                        lambda: (kf.rbf_eval(x, c, eps, w, "multiquadric"),),
                        lambda: (kf.plain_rbf_eval(x, c, eps, w, "multiquadric"),), tol,
                        scales=[float((b.abs() @ w.abs()).max())],
-                       inputs=(x, c, eps, w), ops=2 * n * e * t + 14 * n * e,
-                       library=lambda: library(w), launches_key=f"rbf_eval<{ctype}>")
+                       inputs=(x, c, eps, w), ops=14 * n * e, mm_ops=2 * n * e * t,
+                       library=lambda: library(w), launches_key=f"rbf_eval<{ctype}>+real")
         checks.compare(f"rbf_eval<{ctype}>+phase{suffix}", cu,
                        "manifold_flow_tpu/ops/interpolate.py:71",
                        lambda: (kf.rbf_eval(x, c, eps, wr, "multiquadric", wi),),
                        lambda: (kf.plain_rbf_eval(x, c, eps, wr, "multiquadric", wi),), tol,
-                       inputs=(x, c, eps, wr, wi), ops=4 * n * e * t + 14 * n * e + 20 * n * t,
-                       library=lambda: library(wr, wi), measure=phase_measure(b, wr, wi),
-                       launches_key=f"rbf_eval<{ctype}>")
+                       inputs=(x, c, eps, wr, wi), ops=14 * n * e + 20 * n * t,
+                       mm_ops=4 * n * e * t, library=lambda: library(wr, wi),
+                       measure=phase_measure(b, wr, wi),
+                       launches_key=f"rbf_eval<{ctype}>+phase")
 
 
 def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
@@ -985,17 +995,29 @@ def run_trial(mesh, pot, card: str, tag: str = "trial") -> dict:
 FIELD_KERNELS = ("wave_speed<double>", "rbf_basis<double>", "rbf_eval<double>")
 
 
-def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields") -> dict:
+# The variants of K16 and K17 on the field path, each counted in the one
+# CLI call that launches it: (launch count key, CLI call, LAUNCHES entry).
+FIELD_VARIANTS = (
+    ("rbf_eval<double>+real", "interpolate", "rbf_eval<double>"),
+    ("rbf_eval<double>+phase", "interpolate --phases", "rbf_eval<double>"),
+    ("wave_speed<double>+phase", "wavespeed phase", "wave_speed<double>"),
+    ("wave_speed<double>+amplitude", "wavespeed amplitude", "wave_speed<double>"),
+)
+
+
+def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
+               demo: bool = True) -> dict:
     """The field stages through the port's command line, every launch count
     set to 0 just before: `interpolate` of 64 electrodes' 1229-sample movie
     (electrodes.tsv, data.npy) with and without --phases, `wavespeed
     --method phase` on the interpolated phases and `--method amplitude` on
     the interpolated movie, `decompose --mode concat` and `--mode complex` on
-    the flow CLI's V_k.csv, and `demo` at its defaults. Checks that K16 and
-    K17 launched, the artifacts reload equal to the same stages run in
-    memory, the SVD's sigma against numpy's LAPACK SVD on the host (1e-10 of
-    the largest) and its rank-K reconstruction (1e-8 of its largest entry),
-    and the demo's report; returns the launch counts."""
+    the flow CLI's V_k.csv, and, with `demo`, `demo` at its defaults (its
+    own 24 x 24 patch, whatever the mesh). Checks that K16 and K17 launched,
+    the artifacts reload equal to the same stages run in memory, the SVD's
+    sigma against numpy's LAPACK SVD on the host (1e-10 of the largest) and
+    its rank-K reconstruction (1e-8 of its largest entry), and the demo's
+    report; returns the launch counts, with each FIELD_VARIANTS entry's."""
     from manifold_flow_tpu_torch.geometry import synthetic
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.pipeline import cli, stages
@@ -1010,12 +1032,17 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields") -> dict:
     coords = mesh.points.cpu().numpy()[sel]
     del pot
 
-    def call(argv):
+    per_call = {}
+
+    def call(name, argv):
         stdout = io.StringIO()
+        before = dict(LAUNCHES)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
             rc = cli.main(argv)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        per_call[name] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         report = json.loads(stdout.getvalue().strip().splitlines()[-1])
         if rc != 0 or report["device"] != str(mesh.device.type):
             raise AssertionError(f"{argv[0]} CLI: rc {rc}, report {report}")
@@ -1040,24 +1067,27 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields") -> dict:
             warnings.simplefilter("error", stages.ConvergenceWarning)
             torch.cuda.synchronize()
             reset_launches()
-            runs = {
-                "interpolate": call(["interpolate", *interp, "--out-dir", str(out / "amp")]),
-                "interpolate --phases": call(["interpolate", *interp, "--phases",
-                                              "--out-dir", str(out / "phase")]),
-                "wavespeed phase": call(["wavespeed", *surface, "--movie", str(phase_csv),
-                                         "--sfreq", "512", "--out-dir", str(out / "ws")]),
-                "wavespeed amplitude": call(["wavespeed", *surface, "--movie", str(amp_csv),
-                                             "--sfreq", "512", "--method", "amplitude",
-                                             "--out-dir", str(out / "ws")]),
-                "decompose concat": call(["decompose", "--v-k", str(v_k_csv),
-                                          "--out-dir", str(out / "concat")]),
-                "decompose complex": call(["decompose", "--v-k", str(v_k_csv), "--mode",
-                                           "complex", "--out-dir", str(out / "complex")]),
-                "demo": call(["demo", "--out-dir", str(out / "demo")]),
+            argvs = {
+                "interpolate": ["interpolate", *interp, "--out-dir", str(out / "amp")],
+                "interpolate --phases": ["interpolate", *interp, "--phases",
+                                         "--out-dir", str(out / "phase")],
+                "wavespeed phase": ["wavespeed", *surface, "--movie", str(phase_csv),
+                                    "--sfreq", "512", "--out-dir", str(out / "ws")],
+                "wavespeed amplitude": ["wavespeed", *surface, "--movie", str(amp_csv),
+                                        "--sfreq", "512", "--method", "amplitude",
+                                        "--out-dir", str(out / "ws")],
+                "decompose concat": ["decompose", "--v-k", str(v_k_csv),
+                                     "--out-dir", str(out / "concat")],
+                "decompose complex": ["decompose", "--v-k", str(v_k_csv), "--mode",
+                                      "complex", "--out-dir", str(out / "complex")],
             }
-            torch.cuda.synchronize()
+            if demo:
+                argvs["demo"] = ["demo", "--out-dir", str(out / "demo")]
+            runs = {name: call(name, argv) for name, argv in argvs.items()}
             launches = dict(LAUNCHES)
-        idle = [k for k in FIELD_KERNELS if launches[k] == 0]
+        launches.update({key: per_call[name][entry] for key, name, entry in FIELD_VARIANTS})
+        idle = [k for k in FIELD_KERNELS + tuple(v[0] for v in FIELD_VARIANTS)
+                if launches[k] == 0]
         if idle:
             raise AssertionError(f"kernels of the {tag} path never launched: {idle}")
 
@@ -1116,23 +1146,26 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields") -> dict:
         for name, x in movies.items()}
     dt = torch.as_tensor(data, device=mesh.device)
     lib[f"hilbert fft+ifft {tuple(data.shape)}"] = time_ms(lambda: hilbert(dt, axis=0))
-    demo = runs["demo"][0]
-    if not (demo["converged"] and demo["matched"] > 0):
-        raise AssertionError(f"demo: {demo}")
+    shown = runs["demo"][0] if demo else None
+    if shown is not None and not (shown["converged"] and shown["matched"] > 0):
+        raise AssertionError(f"demo: {shown}")
     finite = {method: float(torch.isfinite(s).float().mean()) for method, s in ws.items()}
     print(f"[{tag}] {fmesh.n_vertices} vertices, {N_ELECTRODES} electrodes x "
           f"{FIELD_SAMPLES} samples -> {tuple(amp.shape)} interpolated frames: "
           f"interpolate (+ --phases), wavespeed (phase, amplitude), decompose (concat, "
-          f"complex) on V_k {tuple(v_k.shape)}, demo; artifacts reload equal to the "
-          f"in-memory run; launches " + ", ".join(
-              f"{k}={launches[k]}" for k in FIELD_KERNELS), flush=True)
+          f"complex) on V_k {tuple(v_k.shape)}{', demo' if demo else ''}; artifacts "
+          f"reload equal to the in-memory run; launches " + ", ".join(
+              f"{k}={launches[k]}" for k in FIELD_KERNELS + tuple(
+                  v[0] for v in FIELD_VARIANTS)), flush=True)
     print(f"[{tag}] SVD against numpy LAPACK: " + "; ".join(
         f"{mode} sigma {s:.3e} of the largest (gate 1e-10), rank-{k} "
         f"reconstruction {r:.3e} (gate 1e-8)" for mode, (s, r, k) in svd_err.items())
         + f"; energy % (concat) {runs['decompose concat'][0]['energy_pct']}; finite "
-        f"speeds {finite}; demo: frames {demo['frames']}, matched {demo['matched']}, "
-        f"missed {demo['missed']}, spare {demo['spare']}, err_max {demo['err_max']:.4f}; "
-        f"B15 library ms: " + ", ".join(f"{k} {v:.4f}" for k, v in lib.items()),
+        f"speeds {finite}; " + (
+            f"demo: frames {shown['frames']}, matched {shown['matched']}, missed "
+            f"{shown['missed']}, spare {shown['spare']}, err_max {shown['err_max']:.4f}; "
+            if demo else "") +
+        "B15 library ms: " + ", ".join(f"{k} {v:.4f}" for k, v in lib.items()),
         flush=True)
     print(f"[{tag}] wall (ms; load, compute, write): " + "; ".join(
         f"{name} {wall * 1e3:.2f} (" + ", ".join(
@@ -1686,7 +1719,7 @@ def main() -> int:
                                 keep_v_k=Path(keep.name) / "V_k12.csv")
     trial12k_launches = run_trial(mesh12, pot12, card, tag="trial12k")
     fields12k_launches = run_fields(mesh12, Path(keep.name) / "V_k12.csv", card,
-                                    tag="fields12k")
+                                    tag="fields12k", demo=False)
     keep.cleanup()
 
     # 12. a 392-frame movie, in windows and whole
@@ -1747,7 +1780,8 @@ def main() -> int:
               flush=True)
     # Each kernel's launches from the phase that drives it: the 12.5k flow
     # CLI first (K1-K11), then the trial (K12-K15) and the field stages
-    # (K16-K17; their 12.5k runs for the rows measured at 12.5k), the bench
+    # (K16-K17, each variant's count from the call that launches it; their
+    # 12.5k runs for the rows measured at 12.5k), the bench
     # flow, the float64 cg two-level solve, the cg phase and the direct
     # solver. Instances no path launches (the float32 analysis and field
     # kernels) are left out.

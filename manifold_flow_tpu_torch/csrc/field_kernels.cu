@@ -8,7 +8,7 @@
 //   areas         (M,)        triangle areas
 //   vertex_cells  (N, C)      int32 incident cells, ascending, -1 padded
 //   basis         (N, 2, 3)   tangent bases (e1, e2)
-//   x             (P, 3)      evaluation points; c (E, 3) the electrodes
+//   c             (E, 3)      the electrodes; x (P, 3) the evaluation points
 //   eps           (1,)        the RBF shape parameter, on the device
 //   w, w_im       (E, T)      RBF weights per frame (real, imaginary part)
 // The C entry points return the cudaError_t of the launch.
@@ -174,20 +174,20 @@ __device__ __forceinline__ T pair_distance(const T* a, const T* b) {
   return rn_sqrt(d2 > T(0) ? d2 : T(0));
 }
 
-// Replaces ops/interpolate.py:90 _rbf_solve's two kernel matrices (B14):
-// out[p, e] = phi(|x_p - c_e|) - diag * [p == e], the E x E system matrix
-// A - smooth I (x = c, diag = smooth), or any (P, E) evaluation matrix.
+// Replaces ops/interpolate.py:93 _rbf_solve's system matrix (B14):
+// out[i, j] = phi(|c_i - c_j|) - smooth * [i == j], the E x E matrix
+// A - smooth I of the electrodes c.
 // Bound: bytes of the output at these sizes (E x E is 32 KB at E = 64).
-// Design: one thread per entry, the electrode fastest.
+// Design: one thread per entry, the column fastest.
 template <typename T>
-__global__ void rbf_basis_kernel(const T* __restrict__ x, const T* __restrict__ c,
-                                 const T* __restrict__ eps, T* __restrict__ out,
-                                 int64_t n_points, int64_t n_elec, int kind, double diag) {
-  const int64_t i = global_index();
-  if (i >= n_points * n_elec) return;
-  const int64_t p = i / n_elec, e = i - p * n_elec;
-  const T phi = rbf_phi(pair_distance(x + 3 * p, c + 3 * e), eps[0], kind);
-  out[i] = p == e ? rn_sub(phi, T(diag)) : phi;
+__global__ void rbf_basis_kernel(const T* __restrict__ c, const T* __restrict__ eps,
+                                 T* __restrict__ out, int64_t n_elec, int kind,
+                                 double smooth) {
+  const int64_t k = global_index();
+  if (k >= n_elec * n_elec) return;
+  const int64_t i = k / n_elec, j = k - i * n_elec;
+  const T phi = rbf_phi(pair_distance(c + 3 * i, c + 3 * j), eps[0], kind);
+  out[k] = i == j ? rn_sub(phi, T(smooth)) : phi;
 }
 
 constexpr int kEvalTargets = 128;  // targets (threads) per block
@@ -266,14 +266,14 @@ __global__ void __launch_bounds__(kEvalTargets) rbf_eval_kernel(
 }
 
 template <typename T>
-int rbf_basis(const void* x, const void* c, const void* eps, void* out, int64_t n_points,
-              int64_t n_elec, int64_t kind, double diag, void* stream) {
-  const int64_t total = n_points * n_elec;
+int rbf_basis(const void* c, const void* eps, void* out, int64_t n_elec, int64_t kind,
+              double smooth, void* stream) {
+  const int64_t total = n_elec * n_elec;
   if (total > 0) {
     rbf_basis_kernel<T><<<blocks_for(total), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(c), static_cast<const T*>(eps),
-        static_cast<T*>(out), n_points, n_elec, static_cast<int>(kind), diag);
+        static_cast<const T*>(c), static_cast<const T*>(eps), static_cast<T*>(out),
+        n_elec, static_cast<int>(kind), smooth);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -312,11 +312,10 @@ int rbf_eval(const void* x, const void* c, const void* eps, const void* w,
     return mf::wave_speed<T>(movie, triangles, grad_w, areas, vertex_cells, basis,  \
                              out, n_frames, n_vert, width, dt, output, stream);     \
   }                                                                                 \
-  extern "C" int mf_rbf_basis_##SUFFIX(const void* x, const void* c,                \
-                                       const void* eps, void* out,                  \
-                                       int64_t n_points, int64_t n_elec,            \
-                                       int64_t kind, double diag, void* stream) {   \
-    return mf::rbf_basis<T>(x, c, eps, out, n_points, n_elec, kind, diag, stream);  \
+  extern "C" int mf_rbf_basis_##SUFFIX(const void* c, const void* eps, void* out,    \
+                                       int64_t n_elec, int64_t kind, double smooth, \
+                                       void* stream) {                              \
+    return mf::rbf_basis<T>(c, eps, out, n_elec, kind, smooth, stream);             \
   }                                                                                 \
   extern "C" int mf_rbf_eval_##SUFFIX(const void* x, const void* c, const void* eps, \
                                       const void* w, const void* w_im, void* out,   \

@@ -47,7 +47,7 @@ _ARGTYPES = {
     "winding_profile": [_P] * 8 + [_I] * 5 + [_P],
     # field_kernels.cu (kernels.fields)
     "wave_speed": [_P] * 7 + [_I] * 3 + [_D] + [_I] + [_P],
-    "rbf_basis": [_P] * 4 + [_I] * 3 + [_D] + [_P],
+    "rbf_basis": [_P] * 3 + [_I] * 2 + [_D] + [_P],
     "rbf_eval": [_P] * 6 + [_I] * 4 + [_P],
 }
 # Entry points that read and write integers only, one int32 instance each

@@ -120,27 +120,26 @@ def plain_wave_speed(movie, triangles, grad_w, areas, vertex_cells, basis, dt, o
 def _rbf_args(x, c, eps, kind):
     if kind not in RBF_KINDS:
         raise ValueError(f"unknown RBF kind: {kind!r}")
-    dtype = _float_dtype("x", x)
+    dtype = _float_dtype("c", c)
     _check("x", x, dtype, (x.shape[0], 3))
     _check("c", c, dtype, (c.shape[0], 3))
     _check("eps", eps, dtype, (1,))
     return dtype
 
 
-def rbf_basis(x: torch.Tensor, c: torch.Tensor, eps: torch.Tensor, kind: str,
-              diag: float = 0.0) -> torch.Tensor:
-    """K17 `rbf_basis<T>`: phi(|x_p - c_e| / eps) (P, E) of points x (P, 3)
-    and electrodes c (E, 3), minus `diag` on the entries p == e (the system
-    matrix A - smooth I, ops/interpolate.py:93-94). eps is a one-element
-    tensor on the same device (no host read). Bound by the output's bytes;
-    one thread per entry."""
-    dtype = _rbf_args(x, c, eps, kind)
-    if not _on_cuda(x, c, eps):
-        return plain_rbf_basis(x, c, eps, kind, diag)
-    p, e = x.shape[0], c.shape[0]
-    out = torch.empty((p, e), dtype=dtype, device=x.device)
-    _launch("rbf_basis", dtype, x.device, x.data_ptr(), c.data_ptr(), eps.data_ptr(),
-            out.data_ptr(), p, e, RBF_KINDS[kind], float(diag))
+def rbf_basis(c: torch.Tensor, eps: torch.Tensor, kind: str,
+              smooth: float = 0.0) -> torch.Tensor:
+    """K17 `rbf_basis<T>`: the system matrix phi(|c_i - c_j| / eps) - smooth
+    I (E, E) of the electrodes c (E, 3) (ops/interpolate.py:93-94). eps is a
+    one-element tensor on the same device (no host read). Bound by the
+    output's bytes; one thread per entry."""
+    dtype = _rbf_args(c, c, eps, kind)
+    if not _on_cuda(c, eps):
+        return plain_rbf_basis(c, eps, kind, smooth)
+    e = c.shape[0]
+    out = torch.empty((e, e), dtype=dtype, device=c.device)
+    _launch("rbf_basis", dtype, c.device, c.data_ptr(), eps.data_ptr(), out.data_ptr(),
+            e, RBF_KINDS[kind], float(smooth))
     return out
 
 
@@ -190,17 +189,17 @@ def rbf_phi(r: torch.Tensor, epsilon, kind: str) -> torch.Tensor:
     raise ValueError(f"unknown RBF kind: {kind!r}")
 
 
-def plain_rbf_basis(x, c, eps, kind, diag=0.0):
+def plain_rbf_basis(c, eps, kind, smooth=0.0):
     """Plain torch version of `rbf_basis`."""
-    a = rbf_phi(pairwise_dist(x, c), eps, kind)
-    eye = torch.eye(x.shape[0], c.shape[0], dtype=a.dtype, device=a.device)
-    return a - diag * eye
+    a = rbf_phi(pairwise_dist(c, c), eps, kind)
+    return a - smooth * torch.eye(c.shape[0], dtype=a.dtype, device=a.device)
 
 
 def plain_rbf_eval(x, c, eps, w, kind, w_im=None):
-    """Plain torch version of `rbf_eval`: (b @ w).T, and the angle of the
-    complex interpolant with w_im."""
-    b = plain_rbf_basis(x, c, eps, kind)
+    """Plain torch version of `rbf_eval`: (b @ w).T of the (P, E) matrix b
+    = phi(|x_p - c_e| / eps), and the angle of the complex interpolant with
+    w_im."""
+    b = rbf_phi(pairwise_dist(x, c), eps, kind)
     re = (b @ w).T
     if w_im is None:
         return re

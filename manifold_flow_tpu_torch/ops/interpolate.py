@@ -67,7 +67,7 @@ def _rbf_solve(coords, planes, targets, epsilon, smooth, kind, angle=False):
     if epsilon is None:
         epsilon = scipy_default_epsilon(coords)
     eps = torch.as_tensor(epsilon, dtype=coords.dtype, device=coords.device).reshape(1)
-    a = kf.rbf_basis(coords, coords, eps, kind, diag=smooth)
+    a = kf.rbf_basis(coords, eps, kind, smooth)
     lu, piv = torch.linalg.lu_factor(a)
     t = planes[0].shape[0]
     w = torch.linalg.lu_solve(lu, piv, torch.cat([p.T.to(a.dtype) for p in planes], dim=1))

@@ -519,16 +519,16 @@ def test_rbf_kernels_match_plain(cuda, dtype, kind):
     x = mesh.points.to(dtype).contiguous()
     c = x[sel].contiguous()
     eps = interp.scipy_default_epsilon(c).reshape(1)
-    got = _launched("rbf_basis", dtype, lambda: kfi.rbf_basis(c, c, eps, kind, diag=0.1))
-    _assert_close([got], [kfi.plain_rbf_basis(c, c, eps, kind, diag=0.1)], dtype)
+    got = _launched("rbf_basis", dtype, lambda: kfi.rbf_basis(c, eps, kind, smooth=0.1))
+    _assert_close([got], [kfi.plain_rbf_basis(c, eps, kind, smooth=0.1)], dtype)
     w, w_im = (torch.as_tensor(gen.standard_normal((24, 37)), device=cuda).to(dtype)
                for _ in range(2))
-    scale = float((kfi.plain_rbf_basis(x, c, eps, kind).abs() @ w.abs()).max())
+    b = kfi.rbf_phi(kfi.pairwise_dist(x, c), eps, kind)
+    scale = float((b.abs() @ w.abs()).max())
     got = _launched("rbf_eval", dtype, lambda: kfi.rbf_eval(x, c, eps, w, kind))
     assert got.shape == (37, mesh.n_vertices)
     assert float((got - kfi.plain_rbf_eval(x, c, eps, w, kind)).abs().max()) <= TOL[dtype] * scale
     got = _launched("rbf_eval", dtype, lambda: kfi.rbf_eval(x, c, eps, w, kind, w_im))
-    b = kfi.plain_rbf_basis(x, c, eps, kind)
     z = torch.complex((b @ w).T, (b @ w_im).T)
     assert float((z.abs() * torch.exp(1j * got) - z).abs().max()) <= 2 * TOL[dtype] * scale
 
