@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
   2. build: compiles the CUDA kernels from csrc/ with nvcc.
   3. kernels: each kernel of the solve against its plain torch version on the
      bench problem's shapes, with the tolerance stated; kernel and plain
-     times (CUDA events around 20 back-to-back calls, median of 5 rounds).
+     times (CUDA events around 20 back-to-back calls, median of 5 rounds),
+     and the device time per call of the kernel alone and of the library
+     call (torch.profiler over 20 calls), with bound / device.
   4. slice: the bench problem (3136 vertices, 97 velocity frames, lambda
      0.01) through compute_velocity_fields(method='refined', tol=1e-6);
      every frame must converge, every kernel of the path must have launched,
@@ -76,8 +78,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      versions at the 12.5k-vertex shapes (bench.py:465-474's surface, 12544
      vertices, 98 frames of the two-source movie), float32 and float64,
      tolerances as in phase 3 (K8 reorders each entry's sum); times as in
-     phase 3. Then K13-K15 at the same shapes on the 12.5k refined solve's
-     field (float64), and K16-K17 as in phase 5 at 12.5k.
+     phase 3; K10 also with the L2 cleared before each call, on a random
+     (97, 394, 394) input (a row length of 2 mod 4) and on one matrix shared
+     by every frame (coarse_a1='mean'), and K3's pcg_dot at these shapes. Then K13-K15 at the same
+     shapes on the 12.5k refined solve's field (float64), and K16-K17 as in
+     phase 5 at 12.5k.
  10. twolevel: the 12.5k problem through compute_velocity_fields(method=
      'refined', tol=1e-6, max_iter=4000, precond='auto'): every frame
      converged, each of K8-K11 launched, RMSE against spsolve over 2 frames
@@ -105,10 +110,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      in memory); then over one warm 12.5k refined two-level solve.
 Every kernel check prints its time beside its bound (bytes over 3.35 TB/s or
 operations over 67 / 34 TFLOP/s in float32 / float64, whichever is larger)
-and, where one PyTorch call computes the same function, that call's time.
-Then one JSON line for the kernels (each launch count from the phase that
-drives that kernel: the 12.5k flow CLI first, then the trial and the field
-stages), the card's name and power limit, and a last JSON line
+and, where one PyTorch call computes the same function, that call's time;
+each also as device time per call (device_us, library_device_us), which
+the wrapper times cannot show below ~0.05 ms, where they read the host.
+Then a [redesign] line ranking the kernels for the next redesign (first
+any slower than its library call on the device, then by launches x
+(device_us - bound)), one JSON line for the kernels (each launch count
+from the phase that drives that kernel: the 12.5k flow CLI first, then the
+trial and the field stages), the card's name and power limit, and a last
+JSON line
 {"ok": true, "device": {...}}.
 """
 
@@ -180,6 +190,50 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
+
+
+def own_kernel(name: str) -> bool:
+    """A device event of the package's own kernels (namespace mf), by its
+    demangled or mangled name."""
+    return "mf::" in name or "_ZN2mf" in name
+
+
+def device_us(fn, calls: int = 20, mine=None, before=None) -> float | None:
+    """Device time per call of fn() in µs: torch.profiler's
+    self_device_time_total of the device kernels over `calls` back-to-back
+    calls (after one warm call), divided by `calls`; only those whose name
+    `mine` accepts, where given (a kernel's own time, not its wrapper's
+    allocations). Back to back, inputs that fit the 50 MB L2 stay there;
+    `before()`, where given, runs before each call (`mine` must then leave
+    its kernels out). None where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and (mine is None or mine(e.key)))
+    return total / calls if total > 0 else None
+
+
+def fmt_us(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.2f} us"
+
+
+def bound_of(nbytes: int, ops: float, mm_ops: float, ctype: str = "double") -> tuple:
+    """(bound ms, "bytes" or "operations", bytes, all operations): `nbytes`
+    over the memory rate or `ops` and the product's `mm_ops` over the peak
+    rates of `ctype`, whichever takes longer (bytes alone for integers)."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = (ops / PEAK_OPS_S[ctype] + mm_ops / PEAK_MM_OPS_S[ctype]
+             if ctype in PEAK_OPS_S else 0.0)
+    return (max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            nbytes, ops + mm_ops)
 
 
 def build_problem(device):
@@ -288,19 +342,23 @@ class KernelChecks:
         ms = time_ms(time_kernel)
         plain_ms = time_ms(time_plain)
         library_ms = time_ms(library) if library is not None else None
+        # Device time per call: the kernel's own (the wrapper's allocations
+        # and copies left out), and every kernel the library call launches.
+        dev_us = device_us(time_kernel, mine=own_kernel)
+        lib_dev_us = device_us(library) if library is not None else None
         moved = nbytes if nbytes is not None else tensor_bytes(*inputs, *got)
         ctype = key.split("<")[1].split(">")[0]
-        t_bytes = moved / HBM_BYTES_S
-        t_ops = (ops / PEAK_OPS_S[ctype] + mm_ops / PEAK_MM_OPS_S[ctype]
-                 if ctype in PEAK_OPS_S else 0.0)
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "operations" if t_ops > t_bytes else "bytes"
+        bound_ms, bound_by, _, _ = bound_of(moved, ops, mm_ops, ctype)
+        bound_over_device = bound_ms * 1e3 / dev_us if dev_us else None
         equal = f", {len(exact)} discrete outputs equal" if exact else ""
-        lib = f" library {library_ms:.4f} ms" if library_ms is not None else ""
+        lib = (f" library {library_ms:.4f} ms (device {fmt_us(lib_dev_us)})"
+               if library_ms is not None else "")
+        share = (f"{bound_over_device:.3f}" if bound_over_device is not None
+                 else "not measured")
         print(f"[kernels] {key}: max_rel_err {rel:.3e} (tol {tol:.0e}){equal} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} bound "
-              f"{bound_ms:.5f} ms ({bound_by}: {moved} B, {ops:.4g} ops, "
-              f"{mm_ops:.4g} product ops) "
+              f"kernel {ms:.4f} ms (device {fmt_us(dev_us)}) plain {plain_ms:.4f} "
+              f"ms{lib} bound {bound_ms:.5f} ms ({bound_by}: {moved} B, {ops:.4g} "
+              f"ops, {mm_ops:.4g} product ops) bound/device {share} "
               f"{'ok' if ok else 'FAIL'} on {self.card}", flush=True)
         if not ok:
             raise AssertionError(f"{key} disagrees with its plain version: "
@@ -309,7 +367,9 @@ class KernelChecks:
         self.rows[key] = {"source": source, "replaces": replaces,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms,
+                          "library_ms": library_ms, "device_us": dev_us,
+                          "library_device_us": lib_dev_us,
+                          "bound_over_device": bound_over_device,
                           "launches_key": launches_key or key}
 
 
@@ -472,6 +532,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
     float32 (the refined solve's inner preconditioner) and float64 (cg)."""
     from manifold_flow_tpu_torch.fem.operator import make_operator
     from manifold_flow_tpu_torch.kernels import coarse as kco
+    from manifold_flow_tpu_torch.kernels import fem as kfem
     from manifold_flow_tpu_torch.solve import coarse
     from manifold_flow_tpu_torch.solve.api import build_rhs
 
@@ -485,6 +546,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
           f"members, {tables.asm_dst.shape[0]} non-zero coarse entries, "
           f"{tables.asm_src.shape[0]} triangle-local contributions", flush=True)
     gen = torch.Generator().manual_seed(1)
+    flush = torch.ones(64 << 20, dtype=torch.float32, device=pot.device)  # 256 MiB
     for dtype, ctype, tol in ((torch.float32, "float", TOL_F32),
                               (torch.float64, "double", TOL_F64)):
         op = op64.astype(dtype)
@@ -512,6 +574,46 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        lambda: (kco.plain_coarse_gemv(pre.ac_inv, rc),), tol,
                        inputs=(pre.ac_inv, rc), mm_ops=2 * pre.ac_inv.numel(),
                        library=lambda: torch.matmul(pre.ac_inv, rc[..., None]))
+        # In the solve the other kernels of an iteration evict A_c^-1 from
+        # L2 between two launches of K10, and leave their written lines
+        # dirty there; back to back part of A stays. Timed again with the
+        # L2 cleared by a read (its lines stay clean, so nothing is written
+        # back inside the timed kernels), then filled with dirty lines by a
+        # write (each evicted line is written back inside them).
+        bound_us = checks.rows[f"coarse_gemv<{ctype}>"]["bound_ms"] * 1e3
+        mib = flush.numel() * flush.element_size() >> 20
+
+        def not_flush(name: str) -> bool:  # the library call's kernels only
+            return "reduce_kernel" not in name and "FillFunctor" not in name
+        for how, before in ((f"cleared by a {mib} MiB read", flush.sum),
+                            (f"dirtied by a {mib} MiB write", lambda: flush.fill_(1.0))):
+            us = device_us(lambda: kco.coarse_gemv(pre.ac_inv, rc), mine=own_kernel,
+                           before=before)
+            lib_us = device_us(lambda: torch.matmul(pre.ac_inv, rc[..., None]),
+                               mine=not_flush, before=before)
+            print(f"[kernels] coarse_gemv<{ctype}> with the L2 {how} before each "
+                  f"call: device {fmt_us(us)}, bound/device "
+                  f"{bound_us / us if us else float('nan'):.3f}; matmul {fmt_us(lib_us)}",
+                  flush=True)
+        # One matrix shared by every frame (coarse_a1='mean'), from L2.
+        shared = pre.ac_inv[:1].contiguous()
+        checks.compare(f"coarse_gemv<{ctype}>+shared", cu,
+                       "manifold_flow_tpu/solve/coarse.py:267",
+                       lambda: (kco.coarse_gemv(shared, rc),),
+                       lambda: (kco.plain_coarse_gemv(shared, rc),), tol,
+                       inputs=(shared, rc), mm_ops=2 * t * shared.numel(),
+                       library=lambda: torch.matmul(shared, rc[..., None]))
+        # A row length of 2 mod 4: every other row of the matrix starts
+        # 8 bytes past a 16-byte boundary (random entries).
+        a394 = torch.randn((t, 394, 394), generator=gen, dtype=torch.float64).to(pot.device, dtype)
+        x394 = torch.randn((t, 394), generator=gen, dtype=torch.float64).to(pot.device, dtype)
+        checks.compare(f"coarse_gemv<{ctype}>+394", cu,
+                       "manifold_flow_tpu/solve/coarse.py:267",
+                       lambda: (kco.coarse_gemv(a394, x394),),
+                       lambda: (kco.plain_coarse_gemv(a394, x394),), tol,
+                       inputs=(a394, x394), mm_ops=2 * a394.numel(),
+                       library=lambda: torch.matmul(a394, x394[..., None]))
+        del a394, x394
         yc = kco.plain_coarse_gemv(pre.ac_inv, rc)
 
         def prolong(fn):
@@ -530,6 +632,17 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                                   bufs[1][0], r, yc, pre.r_blk, pre.agg, bufs[1][1])),
                        inputs=(z, r, yc, pre.r_blk, pre.agg),
                        ops=t * (8 * mesh.n_vertices + 2 * n_dof))
+
+        # K3's p.Ap at the 12.5k shapes (97 x 25088), on the operator's Ap.
+        ap = kfem.plain_fem_matvec(z, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
+                                   op.gather_base)
+        checks.compare(f"pcg_dot<{ctype}>@12.5k",
+                       "manifold_flow_tpu_torch/csrc/pcg_kernels.cu",
+                       "manifold_flow_tpu/solve/cg.py:30",
+                       lambda: (kfem.pcg_dot(z, ap),), lambda: (kfem.plain_pcg_dot(z, ap),),
+                       tol, inputs=(z, ap), ops=2 * t * n_dof,
+                       library=lambda: torch.linalg.vecdot(z, ap),
+                       launches_key=f"pcg_dot<{ctype}>")
 
 
 FLOW_KERNELS = ("fem_matvec<float>", "fem_matvec<double>", "jacobi_blocks<float>",
@@ -1005,6 +1118,30 @@ FIELD_VARIANTS = (
 )
 
 
+def svd_bound(x) -> tuple:
+    """B15's thin SVD of an (m, n) movie, m <= n, by its least work: the
+    Gram matrix A A^H and V = A^H U Sigma^-1, m^2 n multiply-adds each, at
+    the product rate (a complex multiply-add is four real ones), and the
+    m x m eigenproblem, ~9 m^3 operations (x4 complex) outside it; bytes:
+    A read once, U, sigma and V^H written once."""
+    m, n = sorted(x.shape)
+    c = 4 if x.is_complex() else 1
+    esz = x.element_size()
+    nbytes = (m * n + m * m + m * n) * esz + m * esz // (2 if x.is_complex() else 1)
+    return bound_of(nbytes, 9 * c * m ** 3, 2 * 2 * c * m * m * n)
+
+
+def hilbert_bound(x) -> tuple:
+    """The Hilbert transform of a real (N, E) movie along axis 0: an FFT and
+    an inverse FFT of each column, 5 N log2 N operations each; bytes: the
+    real input read once, the complex output written once."""
+    import math
+
+    length, cols = x.shape
+    return bound_of(x.numel() * x.element_size() * 3,
+                    2 * 5 * length * math.log2(length) * cols, 0.0)
+
+
 def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
                demo: bool = True) -> dict:
     """The field stages through the port's command line, every launch count
@@ -1141,11 +1278,16 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
 
     vt = torch.as_tensor(v_k, device=mesh.device)
     movies = {"concat f64": vt, "complex c128": torch.complex(vt[:, :n], vt[:, n:])}
-    lib = {f"svd {name} {tuple(x.shape)}": time_ms(
-        lambda x=x: torch.linalg.svd(x, full_matrices=False), reps=3, rounds=3)
-        for name, x in movies.items()}
+    lib = {}
+    for name, x in movies.items():
+        def call(x=x):
+            return torch.linalg.svd(x, full_matrices=False)
+        lib[f"svd {name} {tuple(x.shape)}"] = (time_ms(call, reps=3, rounds=3),
+                                               device_us(call, calls=3), svd_bound(x))
     dt = torch.as_tensor(data, device=mesh.device)
-    lib[f"hilbert fft+ifft {tuple(data.shape)}"] = time_ms(lambda: hilbert(dt, axis=0))
+    lib[f"hilbert fft+ifft {tuple(data.shape)}"] = (
+        time_ms(lambda: hilbert(dt, axis=0)), device_us(lambda: hilbert(dt, axis=0)),
+        hilbert_bound(dt))
     shown = runs["demo"][0] if demo else None
     if shown is not None and not (shown["converged"] and shown["matched"] > 0):
         raise AssertionError(f"demo: {shown}")
@@ -1165,8 +1307,10 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
             f"demo: frames {shown['frames']}, matched {shown['matched']}, missed "
             f"{shown['missed']}, spare {shown['spare']}, err_max {shown['err_max']:.4f}; "
             if demo else "") +
-        "B15 library ms: " + ", ".join(f"{k} {v:.4f}" for k, v in lib.items()),
-        flush=True)
+        "B15 library ms: " + ", ".join(
+            f"{k} {ms:.4f} (device {fmt_us(dev)}, bound {bound[0]:.5f} ms by "
+            f"{bound[1]}: {bound[2]} B, {bound[3]:.4g} ops)"
+            for k, (ms, dev, bound) in lib.items()), flush=True)
     print(f"[{tag}] wall (ms; load, compute, write): " + "; ".join(
         f"{name} {wall * 1e3:.2f} (" + ", ".join(
             f"{k} {v * 1e3:.2f}" for k, v in report["timings"].items()) + ")"
@@ -1277,6 +1421,14 @@ COARSE_KERNELS = ("coarse_assemble", "coarse_restrict", "coarse_gemv",
 FLOW12K_KERNELS = FLOW_KERNELS + tuple(f"{k}<float>" for k in COARSE_KERNELS)
 
 
+def band(iterations: int, expected: int) -> str:
+    """Inner iterations against the count earlier kernel designs gave: a
+    change of summation order may move them by a step or two, not more."""
+    if abs(iterations - expected) > 2:
+        raise AssertionError(f"{iterations} inner iterations, outside {expected} +- 2")
+    return f"inside {expected} +- 2"
+
+
 def best_of(fn, runs: int = 3) -> float:
     """Best host wall time of fn() in seconds over `runs` calls."""
     best = float("inf")
@@ -1313,7 +1465,8 @@ def run_twolevel(mesh12, pot12, times12, mesh, pot, times, card: str) -> dict:
     warm = best_of(lambda: solve(mesh12, pot12, times12, precond="auto", **refined))
     print(f"[twolevel] {mesh12.n_vertices} vertices x {t_v} frames, refined tol "
           f"1e-6, precond 'auto' (two-level from {TWO_LEVEL_MIN_VERTICES}): "
-          f"inner iterations {res.iterations}, all frames converged, RMSE vs "
+          f"inner iterations {res.iterations} ({band(res.iterations, 60)}), all "
+          f"frames converged, RMSE vs "
           f"spsolve (2 frames) {rmse:.3e} (gate {RMSE_GATE:.0e}); coarse space "
           f"{tables.n_coarse} aggregates; frames with a zeroed coarse inverse "
           f"{res.coarse_zeroed}; cold call {cold * 1e3:.2f} ms (aggregation included), "
@@ -1655,7 +1808,8 @@ def main() -> int:
                         "pcg_direction<float>") if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels of the refined path never launched: {idle}")
-    print(f"[slice] refined: inner iterations {res.iterations}, all "
+    print(f"[slice] refined: inner iterations {res.iterations} "
+          f"({band(res.iterations, 84)}), all "
           f"{t_v} frames converged, RMSE vs spsolve ({N_SAMPLE} frames) "
           f"{rmse:.3e} (gate {RMSE_GATE:.0e}); launches "
           + ", ".join(f"{k}={launches[k]}" for k in sorted(launches) if launches[k]),
@@ -1799,12 +1953,27 @@ def main() -> int:
     every = {k.split("<")[0] for k in LAUNCHES}
     if names != every:  # K1-K17: K3, K14 and K17 are several entry points
         raise AssertionError(f"kernels never launched by any phase: {sorted(every - names)}")
+    # The order of the next kernel redesigns: first any kernel slower than
+    # its library call on the device, then by the device time the main path
+    # loses to the bound, launches x (device_us - bound).
+    timed = {k: row for k, row in checks.rows.items()
+             if driven[k] > 0 and row["device_us"] is not None}
+    slower = [k for k, row in timed.items() if row["library_device_us"] is not None
+              and row["device_us"] > row["library_device_us"]]
+    loss = {k: driven[k] * (row["device_us"] - row["bound_ms"] * 1e3)
+            for k, row in timed.items()}
+    print("[redesign] slower than the library call on the device: "
+          + (", ".join(slower) or "none") + "; launches x (device_us - bound_us): "
+          + ", ".join(f"{k} {loss[k]:.1f}" for k in sorted(loss, key=lambda k: -loss[k])),
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": row["source"],
          "replaces": row["replaces"], "launches": driven[k],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+         "device_us": row["device_us"], "library_device_us": row["library_device_us"],
+         "bound_over_device": row["bound_over_device"]}
         for k, row in checks.rows.items() if driven[k] > 0]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

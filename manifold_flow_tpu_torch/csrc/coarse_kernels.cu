@@ -28,8 +28,16 @@
 //   K9  per PCG iteration: reads r (9.7 MB); a warp per (frame, aggregate)
 //       reads its up-to-64 members together (a thread per aggregate would
 //       leave 97 x 196 threads walking them one load at a time).
-//   K10 per PCG iteration: reads A_c^-1 (60 MB, 119 MB in f64), the largest
-//       read of an iteration; a warp per row reads it coalesced, once.
+//   K10 per PCG iteration: reads A_c^-1 (60 MB, 119 MB in f64, both beyond
+//       the 50 MB L2), the largest read of an iteration: 17.9 / 35.8 us at
+//       3.35 TB/s. Its first design ran a warp per row in 4- or 8-byte
+//       loads, one in flight a lane: a 392-value row took 13 warp steps,
+//       the last with 8 of 32 lanes (28 us a launch in f32, in the solve).
+//       In float32 with a matrix per frame (the two-level solve's case)
+//       this design keeps a warp per row but streams it in 16-byte
+//       vectors, a lane's share of the row (up to 16 values) loaded before
+//       its multiply-adds; float64 and a shared matrix keep the first
+//       design. See gemv_kernel.
 //   K11 per PCG iteration: reads z and r and writes z (29 MB); one block
 //       per frame so the dot product closes in the same pass.
 #include "common.cuh"
@@ -162,8 +170,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K10: y[t] = A[t] x[t] for (n, n) matrices, one warp per (frame, row). A
-// frame stride of 0 applies one shared matrix to every frame.
+// K10: y[t] = A[t] x[t] for (n, n) matrices, a warp per (frame, row). A
+// frame stride of 0 applies one shared matrix to every frame (its rows then
+// come from L2).
+//
+// float64, and a shared matrix in either type, run gemv_kernel, one value a
+// lane a step. float32 with a matrix per frame runs gemv_vectors_kernel,
+// which streams the row in 16-byte vectors, each lane loading kGemvVectors
+// of them (16 values, a whole 392-value row per warp) before their
+// multiply-adds. On the card the batch made the other two cases slower:
+// float64 gains no bytes in flight a load, and a shared matrix comes from
+// L2. The fixed-order warp sum closes each row, so repeated calls are
+// bitwise equal. Tried on the card and slower at the 12.5k shapes: a block
+// per (frame, rows) with x staged in shared memory (also with the rows'
+// loads issued before the staging), a TMA ring of row chunks, two rows a
+// warp, x in 16-byte loads where aligned.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
@@ -178,6 +199,65 @@ __global__ void __launch_bounds__(kThreads)
   const T* xt = x + t * n;
   T acc = T(0);
   for (int64_t j = lane; j < n; j += 32) acc += ar[j] * xt[j];
+  acc = warp_sum(acc);
+  if (lane == 0) y[t * n + row] = acc;
+}
+
+constexpr int kGemvVectors = 4;
+
+// One 16-byte vector's worth of values from p, one value a load (x's rows
+// need not share the matrix row's 16-byte phase).
+__device__ __forceinline__ float4 ldg_values(const float* p) {
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// A row starts 16 bytes aligned or not (a frame's matrix starts aligned
+// whenever the tensor does, since n is even, but row r starts at r n
+// elements, 8 bytes past a boundary for odd r when n = 2 mod 4): the values
+// before its first boundary and after its last whole vector go one a lane.
+// A is read once a solve iteration and is larger than L2, so it is loaded
+// evict-first (__ldcs): its lines, not the ones the iteration's other
+// kernels left dirty, make room for the stream, and no write-back falls
+// inside K10. x is read through the read-only cache. The launch bounds
+// ask for one block an SM at least, which lets nvcc keep the whole batch in
+// registers (left to itself it took fewer and the kernel ran slower on the
+// card).
+__global__ void __launch_bounds__(kThreads, 1)
+    gemv_vectors_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                        float* __restrict__ y, int64_t n, int64_t a_stride,
+                        int64_t n_rows) {
+  constexpr int W = kVecWidth<float>;
+  constexpr int U = kGemvVectors;
+  const int64_t warp = global_index() >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_rows) return;  // uniform across the warp
+  const int64_t t = warp / n;
+  const int64_t row = warp % n;
+  const float* ar = a + t * a_stride + row * n;
+  const float* xt = x + t * n;
+  const int64_t head = head_to_16(ar, n);
+  const int64_t n_vec = (n - head) / W;
+  const float4* av = reinterpret_cast<const float4*>(ar + head);
+  const float* xh = xt + head;
+  float part[U] = {};
+  for (int64_t k0 = lane; k0 < n_vec; k0 += 32 * U) {
+    float4 m[U] = {};
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + 32 * u < n_vec) m[u] = __ldcs(av + k0 + 32 * u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t k = k0 + 32 * u;
+      if (k < n_vec) part[u] = dot_acc(m[u], ldg_values(xh + k * W), part[u]);
+    }
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc += part[u];
+  if (lane < head) acc = dot_acc(__ldg(ar + lane), __ldg(xt + lane), acc);
+  const int64_t tail = head + n_vec * W + lane;
+  if (tail < n) acc = dot_acc(__ldg(ar + tail), __ldg(xt + tail), acc);
   acc = warp_sum(acc);
   if (lane == 0) y[t * n + row] = acc;
 }
@@ -263,8 +343,17 @@ int coarse_gemv(const void* a, const void* x, void* y, int64_t n_frames,
                 int64_t n, int64_t a_stride, void* stream) {
   const int64_t n_rows = n_frames * n;
   if (n_rows > 0) {
-    gemv_kernel<T><<<blocks_for(n_rows * 32), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+    const unsigned int blocks = blocks_for(n_rows * 32);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if constexpr (sizeof(T) == 4) {
+      if (a_stride != 0) {
+        gemv_vectors_kernel<<<blocks, kThreads, 0, s>>>(
+            static_cast<const float*>(a), static_cast<const float*>(x),
+            static_cast<float*>(y), n, a_stride, n_rows);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
+    gemv_kernel<T><<<blocks, kThreads, 0, s>>>(
         static_cast<const T*>(a), static_cast<const T*>(x),
         static_cast<T*>(y), n, a_stride, n_rows);
   }

@@ -49,6 +49,50 @@ __device__ __forceinline__ T block_sum(T v, T* scratch) {
   return total;
 }
 
+// 16-byte vectors, the widest load a thread makes: four floats or two
+// doubles. A pointer into a row may not be 16-byte aligned (a row starts at
+// t * n elements, and a tensor may carry a storage offset), so the kernels
+// that stream rows in vectors take the elements before the first 16-byte
+// boundary (`head_to_16`) and after the last whole vector one at a time.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+template <typename T>
+constexpr int kVecWidth = 16 / static_cast<int>(sizeof(T));
+
+// Elements of T from p to the first 16-byte boundary at or after it, at most
+// n (p is aligned to sizeof(T), as every tensor's data is).
+template <typename T>
+__device__ __forceinline__ int64_t head_to_16(const T* p, int64_t n) {
+  const int64_t h = ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / sizeof(T);
+  return h < n ? h : n;
+}
+
+// acc + <a, b> for one element or one 16-byte vector, in component order.
+__device__ __forceinline__ float dot_acc(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+__device__ __forceinline__ double dot_acc(double a, double b, double acc) {
+  return fma(a, b, acc);
+}
+__device__ __forceinline__ float dot_acc(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+__device__ __forceinline__ double dot_acc(double2 a, double2 b, double acc) {
+  acc = fma(a.x, b.x, acc);
+  return fma(a.y, b.y, acc);
+}
+
 // Explicitly rounded arithmetic for every expression that decides something
 // discrete (a mask, an argmax, a class code, a ring count): nvcc would
 // otherwise contract a*b+c into fused multiply-adds, move results by an ulp

@@ -6,23 +6,82 @@
 //   (c) pcg_direction: p = z + beta p
 // Vectors are (T, 2N) with dof = vertex + N * alpha; dinv is (T, N, 2, 2).
 // alpha = rz / pAp and beta = rz_new / rz are formed per frame inside the
-// kernels, with the zero guards of solve/cg.py:93-100. Per-frame sums use one
-// block per frame and the fixed-order block reduction of common.cuh, so no
-// float atomics and no run-to-run drift in the iteration count.
+// kernels, with the zero guards of solve/cg.py:93-100. Per-frame sums close
+// with the fixed-order block reduction of common.cuh, so no float atomics
+// and no run-to-run drift in the iteration count.
+//
+// pcg_dot is bound by reading its two operands once: 4.9 MB in f32 at the
+// bench shapes (97 x 6272), 19.5 MB at the 12.5k shapes (97 x 25088), 1.5
+// and 5.8 us at 3.35 TB/s. Its first design ran one block of 256 threads a
+// frame, each thread with one 4- or 8-byte load pair in flight, and, on the
+// wrapper's clock, lost to torch.linalg.vecdot (the device clock later
+// showed vecdot's two kernels 3-6x slower). This design keeps one block a
+// frame but streams the row in 16-byte vectors, kDotUnroll of them per
+// operand loaded before any multiply-add, four times the bytes in flight a
+// thread. A thread-block cluster of up to 8 blocks a frame, the partials
+// added in rank 0's shared memory, was slower on the card at the bench and
+// 12.5k row lengths (a cluster barrier cost more than the extra blocks
+// gained), so it is not here: it needs a measured workload with longer
+// rows to come back. One launch, no global scratch, no second pass.
 #include "common.cuh"
 
 namespace mf {
 
+constexpr int kDotUnroll = 4;  // vectors a thread loads per operand at once
+
+// part[u] += x[k] y[k] over k in [lo, hi), thread i taking k = lo + i,
+// lo + i + kThreads, ..., kDotUnroll of them loaded before any is used.
+// P is T (scalar elements) or Vec16<T>::type (16-byte vectors).
+template <typename P, typename T>
+__device__ __forceinline__ void dot_slice(const P* __restrict__ x,
+                                          const P* __restrict__ y, int64_t lo,
+                                          int64_t hi, T* part) {
+  for (int64_t k0 = lo + threadIdx.x; k0 < hi; k0 += kThreads * kDotUnroll) {
+    P xs[kDotUnroll] = {};
+    P ys[kDotUnroll] = {};
+#pragma unroll
+    for (int u = 0; u < kDotUnroll; ++u) {
+      const int64_t k = k0 + u * kThreads;
+      if (k < hi) {
+        xs[u] = __ldg(x + k);
+        ys[u] = __ldg(y + k);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDotUnroll; ++u) {
+      if (k0 + u * kThreads < hi) part[u] = dot_acc(xs[u], ys[u], part[u]);
+    }
+  }
+}
+
+// out[t] = <a_t, b_t>, one block per frame. When a_t and b_t sit at the
+// same offset from a 16-byte boundary (always in the solve), the whole
+// vectors go first, then the elements up to the first boundary, then the
+// last few; otherwise the row goes element by element. The order of every
+// sum is fixed by n and that offset, so repeated calls are bitwise equal.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    dot_kernel(const T* __restrict__ a, const T* __restrict__ b,
-               T* __restrict__ out, int64_t n) {
+    dot_kernel(const T* a, const T* b, T* out, int64_t n) {
+  using V = typename Vec16<T>::type;
+  constexpr int W = kVecWidth<T>;
   __shared__ T scratch[kWarps];
   const int64_t t = blockIdx.x;
   const T* at = a + t * n;
   const T* bt = b + t * n;
-  T acc = T(0);
-  for (int64_t j = threadIdx.x; j < n; j += kThreads) acc += at[j] * bt[j];
+  T part[kDotUnroll] = {};
+  const bool paired = ((reinterpret_cast<uintptr_t>(at) ^
+                        reinterpret_cast<uintptr_t>(bt)) & 15) == 0;
+  if (paired) {
+    const int64_t head = head_to_16(at, n);
+    const int64_t n_vec = (n - head) / W;
+    dot_slice(reinterpret_cast<const V*>(at + head),
+              reinterpret_cast<const V*>(bt + head), int64_t(0), n_vec, part);
+    dot_slice(at, bt, int64_t(0), head, part);
+    dot_slice(at, bt, head + n_vec * W, n, part);
+  } else {
+    dot_slice(at, bt, int64_t(0), n, part);
+  }
+  T acc = (part[0] + part[1]) + (part[2] + part[3]);
   acc = block_sum(acc, scratch);
   if (threadIdx.x == 0) out[t] = acc;
 }
@@ -89,8 +148,7 @@ int pcg_dot(const void* a, const void* b, void* out, int64_t n_frames,
   if (n_frames > 0) {
     dot_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<T*>(out), n);
+        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -152,9 +152,13 @@ def coarse_gemv(ac_inv: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
 
     Replaces the coarse solve of solve/coarse.py:267-271 (B7). The largest
     read of a PCG iteration: ac_inv, 59.6 MB in f32 at the 12.5k shapes
-    (119 MB in f64). Design: one warp per (frame, row) reads its row
-    coalesced, once, and closes with the fixed-order warp sum; the shared
-    matrix uses a frame stride of 0.
+    (119 MB in f64). Design: a warp per (frame, row) and a fixed-order
+    warp sum closing each row. In f32 with a matrix per frame the warp
+    streams the row in 16-byte evict-first loads, a lane's whole share (16
+    values) loaded before its multiply-adds, rc through the read-only
+    cache; rows that start off a 16-byte boundary (2Nc = 2 mod 4) are
+    handled in the kernel. In f64, and for the shared matrix (a frame
+    stride of 0), each lane takes one value a step.
     """
     dtype = _float_dtype("rc", rc)
     t, nc2 = rc.shape

@@ -32,9 +32,11 @@ writes t_velocityfields_streamlines_{frame}.pkl.bz2 per frame; `winding`
 writes winding_lines.pkl.bz2; `demo` runs the flow stage on a synthetic
 two-source movie and scores the detections against the true sources. Each
 prints one JSON line: its JAX counterpart's keys plus `device` and
-`timings`. The rendering options (`decompose --render-modes`/`--pial`,
-`demo --gif`) need viz/fields.py and raise; they, `preprocess`,
-`reconstruct`, `visualize` and `batch` are ROADMAP Queue A item 14.
+`timings`. The rendering options (`decompose --render-modes`, with or
+without its `--pial` underlay, and `demo --gif`) need viz/fields.py and
+raise; as in JAX, `--pial` alone is read by nothing and ignored. They,
+`preprocess`, `reconstruct`, `visualize` and `batch` are ROADMAP Queue A
+item 14.
 """
 
 from __future__ import annotations
@@ -168,8 +170,8 @@ def cmd_decompose(args):
     from manifold_flow_tpu_torch.pipeline import stages
     from manifold_flow_tpu_torch.utils import io
 
-    if args.render_modes or args.pial:
-        _needs_viz("decompose --render-modes / --pial")
+    if args.render_modes:  # --pial is an underlay of the rendering only
+        _needs_viz("decompose --render-modes")
     device = _device(args.device)
     cfg = _load_config(args)
     t0 = time.perf_counter()
@@ -342,8 +344,8 @@ def build_parser():
                          "viz/fields.py: not ported, raises)")
     sp.add_argument("--surface", default=None)
     sp.add_argument("--pial", nargs="*", default=None,
-                    help="FreeSurfer pial underlay (needs viz/fields.py: not "
-                         "ported, raises)")
+                    help="FreeSurfer pial underlay of --render-modes "
+                         "(ignored without it)")
     sp.set_defaults(func=cmd_decompose)
 
     sp = sub.add_parser("wavespeed", help="S5: wave speeds from a movie")

@@ -145,6 +145,61 @@ def test_pcg_kernels_match_plain(cuda, dtype):
     _assert_close(outs[0], outs[1], dtype)
 
 
+def _rand(device, dtype, *shape, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=gen, dtype=torch.float64).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 97])
+@pytest.mark.parametrize("n", [1, 3, 5, 40, 6273, 40000, 70001])
+def test_pcg_dot_matches_plain_for_any_row_length(cuda, dtype, t, n):
+    """K3's dot on rows shorter than a vector, with a ragged tail, and
+    longer than the 12.5k solve's (25088); two calls are bitwise equal."""
+    a, b = _rand(cuda, dtype, t, n, seed=6), _rand(cuda, dtype, t, n, seed=7)
+    got = _launched("pcg_dot", dtype, lambda: kfem.pcg_dot(a, b))
+    _assert_close([got], [kfem.plain_pcg_dot(a, b)], dtype)
+    assert torch.equal(kfem.pcg_dot(a, b), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pcg_dot_on_offset_views(cuda, dtype):
+    """Rows off a 16-byte boundary: a view with an odd storage offset
+    against an aligned operand (the element-wise path) and against a view
+    with the same offset (the vector path with a scalar head)."""
+    t, n = 97, 6272
+    buf_a = _rand(cuda, dtype, t * n + 1, seed=8)
+    buf_b = _rand(cuda, dtype, t * n + 1, seed=9)
+    a, b = buf_a[1:].view(t, n), buf_b[1:].view(t, n)
+    aligned = buf_b[:-1].view(t, n)
+    for x, y in ((a, aligned), (a, b), (aligned, a)):
+        got = _launched("pcg_dot", dtype, lambda: kfem.pcg_dot(x, y))
+        _assert_close([got], [kfem.plain_pcg_dot(x, y)], dtype)
+        assert torch.equal(kfem.pcg_dot(x, y), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pcg_dot_of_empty_rows_is_zero(cuda, dtype):
+    a = torch.empty((4, 0), dtype=dtype, device=cuda)
+    got = _launched("pcg_dot", dtype, lambda: kfem.pcg_dot(a, a))
+    assert torch.equal(got, torch.zeros(4, dtype=dtype, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shared", [False, True], ids=["per_frame", "shared"])
+@pytest.mark.parametrize("nc2", [2, 6, 392, 394])
+def test_coarse_gemv_matches_plain_for_any_row_length(cuda, dtype, shared, nc2):
+    """K10 with rows of 2 mod 4 values (every other row off a 16-byte
+    boundary in float32) and of 0 mod 4, one matrix per frame or one shared
+    by every frame (stride 0); two calls are bitwise equal."""
+    t = 97
+    a = _rand(cuda, dtype, 1 if shared else t, nc2, nc2, seed=10)
+    x = _rand(cuda, dtype, t, nc2, seed=11)
+    got = _launched("coarse_gemv", dtype, lambda: kco.coarse_gemv(a, x))
+    _assert_close([got], [kco.plain_coarse_gemv(a, x)], dtype)
+    assert torch.equal(kco.coarse_gemv(a, x), got)
+
+
 @pytest.mark.parametrize("method", ["cg", "refined", "cholesky"])
 def test_solve_on_cuda_matches_cpu(cuda, method):
     mesh, pot, times = _problem(cuda)

@@ -25,7 +25,7 @@ from manifold_flow_tpu.geometry import topology as jax_topology
 from manifold_flow_tpu.ops import recombine as jax_recombine
 from manifold_flow_tpu.ops import singularity as jax_sing
 from manifold_flow_tpu.solve.api import compute_velocity_fields as jax_cvf
-from manifold_flow_tpu_torch import kernels, mesh_from_jax_arrays
+from manifold_flow_tpu_torch import compute_velocity_fields, kernels, mesh_from_jax_arrays
 from manifold_flow_tpu_torch.geometry import topology
 from manifold_flow_tpu_torch.kernels import analysis as kan
 from manifold_flow_tpu_torch.ops import recombine
@@ -387,3 +387,44 @@ def test_classify_without_detections(problem):
     empty = torch.zeros((0, tmesh.n_vertices, 3), dtype=torch.float64)
     got = sing.classify_detected(tmesh, empty, sing.detect(tmesh, empty), capacity=8)
     assert got.vertex_codes.shape == (0, 8) and got.interior_jacobians.shape == (0, 8, 2, 2)
+
+
+def test_far_detections_come_from_the_method_not_the_port():
+    """ROADMAP C11. On the bench problem's surface (bench.py:26-38, 3136
+    vertices) the nearest detection lies up to ~7 grid cells from a true
+    source in velocity frames 50-69 of the 98-frame two-source movie. On
+    frames 63-69 both packages' refined solves (tol 1e-6, lambda 0.01) and
+    detections give the same ids, kinds and snapped centers, points within
+    1e-6 (the solves agree to ~1e-8), and the same distances from each true
+    source to its nearest detection: the far-off detections are the
+    method's, not the port's."""
+    jmesh = jax_synthetic.plane_patch(
+        nx=56, ny=56, lx=60.0, ly=60.0,
+        height=lambda x, y: 6.0 * np.sin(x / 12.0) * np.cos(y / 15.0), dtype=np.float64)
+    pot, times, truth = jax_synthetic.two_source_movie(
+        jmesh, sources=((15.0, 15.0), (45.0, 45.0)), n_frames=98, speed=24.0,
+        wavelength=24.0, dt=1.0 / 512.0, dtype=np.float64)
+    pot, times, truth = np.asarray(pot)[63:71], np.asarray(times)[63:71], np.asarray(truth)
+    kw = dict(lambda_=0.01, method="refined", tol=1e-6, max_iter=4000)
+    jres = jax_cvf(jmesh, jnp.asarray(pot), jnp.asarray(times), **kw)
+    jv = jax_recombine.velocity_to_world(jres.v_k, jmesh.basis)
+    want = jax_sing.compact_all(jmesh, jax_sing.detect(jmesh, jv, eps=EPS), with_centers=True)
+    tmesh = mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu")
+    tres = compute_velocity_fields(tmesh, torch.from_numpy(pot), torch.from_numpy(times), **kw)
+    tv, speed, v_max = recombine.velocity_to_world_and_speed(tres.v_k, tmesh.basis)
+    got = sing.compact_all(tmesh, sing.detect(tmesh, tv, eps=EPS, speed=speed, v_max=v_max),
+                           with_centers=True)
+    assert bool(np.asarray(jres.converged).all()) and bool(tres.converged.all())
+    assert len(got) == len(want) == 7
+    for (gp, gk, gi, gc), (wp, wk, wi, wc) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(gi), np.asarray(wi))
+        np.testing.assert_array_equal(np.asarray(gk), np.asarray(wk))
+        np.testing.assert_array_equal(np.asarray(gc), np.asarray(wc))
+        np.testing.assert_allclose(np.asarray(gp), np.asarray(wp), rtol=0, atol=1e-6)
+
+    def nearest(rows):  # grid cells from each true source to its nearest detection
+        return np.array([[np.linalg.norm(np.asarray(p).reshape(-1, 3) - src, axis=-1).min()
+                          / (60.0 / 55.0) for src in truth] for p, *_ in rows])
+    far = nearest(want)
+    np.testing.assert_allclose(nearest(got), far, rtol=0, atol=1e-6)
+    assert far.max() > 6.5

@@ -542,8 +542,8 @@ def test_field_cli_unported_options_raise(tmp_path, monkeypatch):
         cli.main(["decompose", "--v-k", "v.csv", "--render-modes", "2", "--device", "cpu",
                   "--out-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["decompose", "--v-k", "v.csv", "--pial", "lh.pial", "--device", "cpu",
-                  "--out-dir", str(tmp_path)])
+        cli.main(["decompose", "--v-k", "v.csv", "--render-modes", "2", "--pial", "lh.pial",
+                  "--device", "cpu", "--out-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 14"):
         cli.main(["demo", "--gif", "--device", "cpu", "--out-dir", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -554,3 +554,21 @@ def test_field_cli_unported_options_raise(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
             cli.main(argv + ["--out-dir", str(tmp_path)])
     assert not list(tmp_path.iterdir())
+
+
+def test_decompose_cli_ignores_pial_without_render_modes(tmp_path, capsys):
+    """As in JAX, --pial is read only under --render-modes: without it the
+    call writes the same data_01.npz as the call without --pial (ROADMAP
+    C9)."""
+    _, trial, _, _ = _golden_inputs(False, tmp_path)
+    v_k = str(trial / f"{G.STEM}-V_k.csv")
+    for name, extra in (("plain", []), ("pial", ["--pial", str(tmp_path / "lh.pial")])):
+        assert cli.main(["decompose", "--v-k", v_k, *extra, "--device", "cpu",
+                         "--out-dir", str(tmp_path / name)]) == 0
+        line = json.loads(capsys.readouterr().out)
+        assert line["rendered_modes"] == []
+    with np.load(tmp_path / "plain" / "data_01.npz") as want, \
+            np.load(tmp_path / "pial" / "data_01.npz") as got:
+        assert sorted(got.files) == sorted(want.files)
+        for key in want.files:
+            np.testing.assert_array_equal(got[key], want[key])
