@@ -12,7 +12,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      bench problem's shapes, with the tolerance stated; kernel and plain
      times (CUDA events around 20 back-to-back calls, median of 5 rounds),
      and the device time per call of the kernel alone and of the library
-     call (torch.profiler over 20 calls), with bound / device.
+     call (torch.profiler over 20 calls), with bound / device. K1's library
+     call is torch.sparse.mm on the block-diagonal CSR matrix of every
+     frame's assembled a1_k + lambda a2. [parent] lines hold K1 and K3's
+     update against the parent's designs, built from the same sources (K1
+     in two launches through a (T, M, 6) y_loc, the update with one block a
+     frame): bitwise equality and device times in turns.
   4. slice: the bench problem (3136 vertices, 97 velocity frames, lambda
      0.01) through compute_velocity_fields(method='refined', tol=1e-6);
      every frame must converge, every kernel of the path must have launched,
@@ -80,7 +85,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      tolerances as in phase 3 (K8 reorders each entry's sum); times as in
      phase 3; K10 also with the L2 cleared before each call, on a random
      (97, 394, 394) input (a row length of 2 mod 4) and on one matrix shared
-     by every frame (coarse_a1='mean'), and K3's pcg_dot at these shapes. Then K13-K15 at the same
+     by every frame (coarse_a1='mean'), and K3's pcg_dot, K1 (float32
+     matvec, float64 residual, beside torch.sparse.mm) and K3's update at
+     these shapes. Then K13-K15 at the same
      shapes on the 12.5k refined solve's field (float64), and K16-K17 as in
      phase 5 at 12.5k.
  10. twolevel: the 12.5k problem through compute_velocity_fields(method=
@@ -107,18 +114,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      problem (detection with classification, streamlines, winding lines, in
      memory); then over one warm field chain on the bench surface
      (interpolation with and without phases, both wave speeds, both SVDs,
-     in memory); then over one warm 12.5k refined two-level solve.
+     in memory); then over one warm 12.5k refined two-level solve. From the
+     S3 chain and the 12.5k solve, each kernel's device µs a launch as the
+     solve runs it (solve_device_us: its device kernels' time over its
+     launches in that run), for the rows at those shapes.
 Every kernel check prints its time beside its bound (bytes over 3.35 TB/s or
 operations over 67 / 34 TFLOP/s in float32 / float64, whichever is larger)
 and, where one PyTorch call computes the same function, that call's time;
 each also as device time per call (device_us, library_device_us), which
 the wrapper times cannot show below ~0.05 ms, where they read the host.
-Then a [redesign] line ranking the kernels for the next redesign (first
-any slower than its library call on the device, then by launches x
-(device_us - bound)), one JSON line for the kernels (each launch count
-from the phase that drives that kernel: the 12.5k flow CLI first, then the
-trial and the field stages), the card's name and power limit, and a last
-JSON line
+Then a [redesign] line ranking the kernels for the next redesign: first
+any slower than its library call on the device, then by the default path's
+launches (the flow CLIs, the trials and the field stages, at the row's own
+size first) x (solve_device_us, or device_us where no profiled solve ran
+the kernel, - bound), with the instances that only the float64 cg, the
+Cholesky or the crossover runs launch listed as off the default path; one
+JSON line for the kernels (launches from the default path, else from those
+runs; solve_device_us beside device_us), the card's name and power limit,
+and a last JSON line
 {"ok": true, "device": {...}}.
 """
 
@@ -234,6 +247,55 @@ def bound_of(nbytes: int, ops: float, mm_ops: float, ctype: str = "double") -> t
              if ctype in PEAK_OPS_S else 0.0)
     return (max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes",
             nbytes, ops + mm_ops)
+
+
+# The package's device kernels (namespace mf) by the wrapper that launches
+# them: a wrapper's time in a profiled run is the sum of its kernels' times.
+WRAPPER_OF = {
+    "fem_tile_kernel": "fem_matvec", "jacobi_kernel": "jacobi_blocks",
+    "frame_factors_rhs_kernel": "frame_factors_rhs", "gather_kernel": "frame_factors_rhs",
+    "dot_kernel": "pcg_dot", "update_kernel": "pcg_update",
+    "direction_kernel": "pcg_direction", "coarse_a1_kernel": "coarse_assemble",
+    "coarse_a2_kernel": "coarse_assemble", "restrict_kernel": "coarse_restrict",
+    "gemv_kernel": "coarse_gemv", "gemv_vectors_kernel": "coarse_gemv",
+    "prolong_dot_kernel": "coarse_prolong_dot",
+    "recombine_speed_kernel": "recombine_speed",
+    "detect_vertex_kernel": "detect_singular", "detect_triangle_kernel": "detect_singular",
+    "compact_detected_kernel": "compact_detected"}
+
+
+def solve_device_us(events, launches: dict) -> dict:
+    """Device µs per launch of each of the package's kernels in a profiled
+    run: the self device time of the wrapper's device kernels (named
+    mf::<kernel><type> or, untemplated, by their first argument's type)
+    over the wrapper's launches in that run, by LAUNCHES key."""
+    import re
+
+    total: dict[str, float] = {}
+    for e in events:
+        hit = re.search(r"mf::(\w+?)(?:<(\w+)|\((\w+))", e.key)
+        if hit is None or hit.group(1) not in WRAPPER_OF:
+            continue
+        key = f"{WRAPPER_OF[hit.group(1)]}<{hit.group(2) or hit.group(3)}>"
+        total[key] = total.get(key, 0.0) + e.self_device_time_total
+    return {k: us / launches[k] for k, us in total.items() if launches.get(k, 0) > 0}
+
+
+def assembled_csr(mesh, g, lambda_: float, dtype) -> torch.Tensor:
+    """Every frame's assembled a1_k + lambda a2 (from assembly.a1_blocks and
+    local_dof_indices) as one block-diagonal CSR matrix ((T 2N) x (T 2N)) in
+    `dtype`: K1's function as one torch.sparse.mm."""
+    from manifold_flow_tpu_torch.fem import assembly
+
+    blocks = (assembly.a1_blocks(mesh, g) + lambda_ * assembly.a2_blocks(mesh)).to(dtype)
+    dof = assembly.local_dof_indices(mesh).long()
+    t, n_dof = g.shape[0], mesh.n_dof
+    off = (torch.arange(t, device=g.device) * n_dof)[:, None, None, None]
+    rows = (off + dof[None, :, :, None]).expand(-1, -1, 6, 6).reshape(-1)
+    cols = (off + dof[None, :, None, :]).expand(-1, -1, 6, 6).reshape(-1)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), blocks.reshape(-1),
+                                  (t * n_dof, t * n_dof))
+    return coo.coalesce().to_sparse_csr()
 
 
 def build_problem(device):
@@ -409,24 +471,10 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
     for dtype, ctype, tol in ((torch.float32, "float", TOL_F32),
                               (torch.float64, "double", TOL_F64)):
         op = ops[dtype]
-        x = rand(t, n_dof, dtype=dtype)
-        mv = (x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
-        if dtype == torch.float32:  # the inner-solve matvec
-            checks.compare(f"fem_matvec<{ctype}>", fem_cu,
-                           "manifold_flow_tpu/fem/operator.py:69",
-                           lambda: (kfem.fem_matvec(*mv),),
-                           lambda: (kfem.plain_fem_matvec(*mv),), tol,
-                           inputs=mv, ops=t * 106 * n_tri)
-        else:  # the refinement residual f - A x, scaled by max|f| + max|Ax|
-            fr = f64.to(dtype)
-            ax = kfem.plain_fem_matvec(*mv)
-            scale = float(fr.abs().max()) + float(ax.abs().max())
-            checks.compare(f"fem_matvec<{ctype}>", fem_cu,
-                           "manifold_flow_tpu/fem/df_operator.py:66",
-                           lambda: (kfem.fem_matvec(*mv, f=fr),),
-                           lambda: (kfem.plain_fem_matvec(*mv, f=fr),), tol,
-                           scales=[scale], inputs=(*mv, fr),
-                           ops=t * (106 * n_tri + n_dof))
+        # K1: the inner solve's float32 matvec, the refinement's float64
+        # residual f - A x.
+        check_matvec(checks, mesh, op, g64, rand(t, n_dof, dtype=dtype),
+                     f64.to(dtype) if dtype == torch.float64 else None, tol)
 
         reg = assembly.corner_regularization(mesh, dtype).contiguous()
         jb = (op.g, reg, mesh.areas.to(dtype), op.lambda_, op.gather_base)
@@ -439,35 +487,16 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
         # PCG vector kernels on one iteration's worth of real state.
         dinv = kfem.plain_jacobi_blocks(*jb)
         p = rand(t, n_dof, dtype=dtype)
-        ap = kfem.plain_fem_matvec(p, *mv[1:])
+        mv = (op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
+        ap = kfem.plain_fem_matvec(p, *mv)
         checks.compare(f"pcg_dot<{ctype}>", pcg_cu,
                        "manifold_flow_tpu/solve/cg.py:30",
                        lambda: (kfem.pcg_dot(p, ap),),
                        lambda: (kfem.plain_pcg_dot(p, ap),), tol,
                        inputs=(p, ap), ops=2 * t * n_dof,
                        library=lambda: torch.linalg.vecdot(p, ap))
-        state = [rand(t, n_dof, dtype=dtype) for _ in range(2)]  # x, r
         rz = rand(t, dtype=dtype).abs()
-        pap = kfem.plain_pcg_dot(p, ap)
-
-        def update(fn):
-            x, r = (s.clone() for s in state)
-            z = torch.empty_like(x)
-            rz_new, rr = torch.empty_like(rz), torch.empty_like(rz)
-            fn(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
-            return x, r, z, rz_new, rr
-        bufs = [[s.clone() for s in state] + [torch.empty_like(p)]
-                + [torch.empty_like(rz) for _ in range(2)] for _ in range(2)]
-
-        def update_in_place(fn, b):
-            return lambda: fn(b[0], b[1], b[2], p, ap, dinv, rz, pap, b[3], b[4])
-        checks.compare(f"pcg_update<{ctype}>", pcg_cu,
-                       "manifold_flow_tpu/solve/cg.py:89",
-                       lambda: update(kfem.pcg_update),
-                       lambda: update(kfem.plain_pcg_update), tol,
-                       timed=(update_in_place(kfem.pcg_update, bufs[0]),
-                              update_in_place(kfem.plain_pcg_update, bufs[1])),
-                       inputs=(*state, p, ap, dinv, rz, pap), ops=11 * t * n_dof)
+        check_update(checks, p, ap, dinv, rz, rand, tol)
         z = rand(t, n_dof, dtype=dtype)
         rz_new = rand(t, dtype=dtype).abs()
 
@@ -484,6 +513,165 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
                               lambda: kfem.plain_pcg_direction(qs[1], z, rz_new, rz)),
                        inputs=(p, z, rz_new, rz), ops=2 * t * n_dof + 2 * t)
     return checks
+
+
+FEM_CU = "manifold_flow_tpu_torch/csrc/fem_kernels.cu"
+PCG_CU = "manifold_flow_tpu_torch/csrc/pcg_kernels.cu"
+
+
+def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
+                 suffix: str = "") -> None:
+    """K1 on operator `op` (one problem's shapes): the matvec A x, or the
+    residual f - A x where `f` is given, against its plain version; beside
+    it torch.sparse.mm of the block-diagonal CSR matrix of every frame's
+    assembled a1_k + lambda a2 (from the float64 factors `g64`, built
+    before the timing), which computes A x: K1's library yardstick."""
+    from manifold_flow_tpu_torch.kernels import fem as kfem
+
+    ctype = "float" if x.dtype == torch.float32 else "double"
+    t, n_dof = x.shape
+    mv = (x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
+    a_csr = assembled_csr(mesh, g64, op.lambda_, x.dtype)
+    x_col = x.reshape(-1, 1)
+    ax = kfem.plain_fem_matvec(*mv)
+    lib_err = float((torch.sparse.mm(a_csr, x_col).reshape(t, n_dof) - ax).abs().max())
+    tiles = op.tiles
+    print(f"[kernels] fem_matvec<{ctype}>{suffix}: {tiles.cell_ptr.numel() - 1} tiles "
+          f"of {tiles.size} vertices list {tiles.cells.numel()} cells "
+          f"({tiles.cells.numel() / mesh.n_triangles:.3f} x {mesh.n_triangles}, at "
+          f"most {tiles.max_cells} a tile); torch.sparse.mm on the assembled "
+          f"CSR matrix ({a_csr.values().numel()} non-zeros) differs from the plain "
+          f"matvec by {lib_err / float(ax.abs().max()):.3e} of its largest entry",
+          flush=True)
+    key = f"fem_matvec<{ctype}>"
+    if f is None:
+        checks.compare(key + suffix, FEM_CU, "manifold_flow_tpu/fem/operator.py:69",
+                       lambda: (kfem.fem_matvec(*mv, tiles=op.tiles),),
+                       lambda: (kfem.plain_fem_matvec(*mv),), tol,
+                       inputs=mv, ops=t * 106 * mesh.n_triangles,
+                       library=lambda: torch.sparse.mm(a_csr, x_col), launches_key=key)
+    else:  # scaled by max|f| + max|Ax|
+        scale = float(f.abs().max()) + float(ax.abs().max())
+        checks.compare(key + suffix, FEM_CU, "manifold_flow_tpu/fem/df_operator.py:66",
+                       lambda: (kfem.fem_matvec(*mv, f=f, tiles=op.tiles),),
+                       lambda: (kfem.plain_fem_matvec(*mv, f=f),), tol,
+                       scales=[scale], inputs=(*mv, f),
+                       ops=t * (106 * mesh.n_triangles + n_dof),
+                       library=lambda: torch.sparse.mm(a_csr, x_col), launches_key=key)
+    against_first_matvec(checks, key + suffix, op, x, f)
+    del a_csr
+
+
+def check_update(checks: KernelChecks, p, ap, dinv, rz, rand, tol=TOL_F32,
+                 suffix: str = "") -> None:
+    """K3's update on one iteration's worth of state (random x, r from
+    `rand`; pAp = <p, Ap>) against its plain version; timed in place."""
+    from manifold_flow_tpu_torch.kernels import fem as kfem
+
+    ctype = "float" if p.dtype == torch.float32 else "double"
+    t, n_dof = p.shape
+    state = [rand(t, n_dof, dtype=p.dtype) for _ in range(2)]  # x, r
+    pap = kfem.plain_pcg_dot(p, ap)
+
+    def update(fn):
+        x, r = (s.clone() for s in state)
+        z = torch.empty_like(x)
+        rz_new, rr = torch.empty_like(rz), torch.empty_like(rz)
+        fn(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
+        return x, r, z, rz_new, rr
+    bufs = [[s.clone() for s in state] + [torch.empty_like(p)]
+            + [torch.empty_like(rz) for _ in range(2)] for _ in range(2)]
+
+    def update_in_place(fn, b):
+        return lambda: fn(b[0], b[1], b[2], p, ap, dinv, rz, pap, b[3], b[4])
+    key = f"pcg_update<{ctype}>"
+    checks.compare(key + suffix, PCG_CU, "manifold_flow_tpu/solve/cg.py:89",
+                   lambda: update(kfem.pcg_update),
+                   lambda: update(kfem.plain_pcg_update), tol,
+                   timed=(update_in_place(kfem.pcg_update, bufs[0]),
+                          update_in_place(kfem.plain_pcg_update, bufs[1])),
+                   inputs=(*state, p, ap, dinv, rz, pap), ops=11 * t * n_dof,
+                   launches_key=key)
+    got = update(kfem.pcg_update)
+    if not all(torch.equal(a, b) for a, b in zip(got, update(kfem.pcg_update))):
+        raise AssertionError(f"{key}{suffix}: two calls on the same inputs differ")
+    against_first_update(key + suffix, update, update_in_place, got)
+
+
+def first_design(name: str, dtype):
+    """This build's entry point of the parent's design (K1's two launches
+    through y_loc, K3's update with one block a frame), with its types."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import library
+
+    ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    fn = getattr(library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = {"fem_matvec_two_pass": [ptr] * 5 + [f64] + [ptr] * 4 + [i64] * 4 + [ptr],
+                   "pcg_update_one_block": [ptr] * 10 + [i64] * 2 + [ptr]}[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def against_first_matvec(checks: KernelChecks, label: str, op, x, f=None) -> None:
+    """K1 against the parent's two-launch design on the same inputs: whether
+    the outputs are bitwise equal, and both device times, in turns."""
+    from manifold_flow_tpu_torch.kernels import fem as kfem
+
+    two_pass = first_design("fem_matvec_two_pass", x.dtype)
+    t, n_dof = x.shape
+    m, c = op.dof.shape[0], op.gather_base.shape[1]
+    y_loc = torch.empty((t, m, 6), dtype=x.dtype, device=x.device)
+
+    def first():
+        out = torch.empty_like(x)
+        err = two_pass(x.data_ptr(), op.dof.data_ptr(), op.blocks2.data_ptr(),
+                       op.g.data_ptr(), op.w_scale.data_ptr(), float(op.lambda_),
+                       op.gather_base.data_ptr(), None if f is None else f.data_ptr(),
+                       y_loc.data_ptr(), out.data_ptr(), t, m, n_dof // 2, c, _stream())
+        if err != 0:
+            raise RuntimeError(f"the two-pass K1 failed: CUDA error {err}")
+        return out
+
+    def this():
+        return kfem.fem_matvec(x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
+                               op.gather_base, f=f, tiles=op.tiles)
+    same = torch.equal(this(), first())
+    us = [device_us(fn, mine=own_kernel) for fn in (this, first, first, this)]
+    print(f"[parent] {label}: bitwise equal to the two-launch design: {same}; "
+          f"device {fmt_us(us[0])} / {fmt_us(us[3])} against the two-launch "
+          f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); on {checks.card}", flush=True)
+
+
+def against_first_update(label: str, update, update_in_place, got) -> None:
+    """K3's update against the parent's one-block design on the same inputs:
+    x, r, z bitwise, r.z and r.r to their summation order, device times in
+    turns."""
+    from manifold_flow_tpu_torch.kernels import fem as kfem
+
+    dtype = got[0].dtype
+    one_block = first_design("pcg_update_one_block", dtype)
+
+    def first(x, r, z, p, ap, dinv, rz, pap, rz_new, rr):
+        err = one_block(*(v.data_ptr() for v in (x, r, z, p, ap, dinv, rz, pap, rz_new, rr)),
+                        x.shape[0], x.shape[1] // 2, _stream())
+        if err != 0:
+            raise RuntimeError(f"the one-block update failed: CUDA error {err}")
+    want = update(first)
+    same = [torch.equal(a, b) for a, b in zip(got[:3], want[:3])]
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[3:], want[3:])]
+    bufs = [[v.clone() for v in want] for _ in range(2)]
+    us = [device_us(fn, mine=own_kernel) for fn in (
+        update_in_place(kfem.pcg_update, bufs[0]), update_in_place(first, bufs[1]),
+        update_in_place(first, bufs[1]), update_in_place(kfem.pcg_update, bufs[0]))]
+    print(f"[parent] {label}: x, r, z bitwise equal to the one-block design: {same}; "
+          f"r.z, r.r relative difference {rel[0]:.2e}, {rel[1]:.2e}; device "
+          f"{fmt_us(us[0])} / {fmt_us(us[3])} against the one-block {fmt_us(us[1])} / "
+          f"{fmt_us(us[2])} (in turns)", flush=True)
 
 
 def check_analysis_kernels(checks: KernelChecks, mesh, v_k) -> None:
@@ -530,6 +718,7 @@ def check_analysis_kernels(checks: KernelChecks, mesh, v_k) -> None:
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
     """Phase 9: K8-K11 against their plain versions at the 12.5k shapes, in
     float32 (the refined solve's inner preconditioner) and float64 (cg)."""
+    from manifold_flow_tpu_torch.fem import assembly
     from manifold_flow_tpu_torch.fem.operator import make_operator
     from manifold_flow_tpu_torch.kernels import coarse as kco
     from manifold_flow_tpu_torch.kernels import fem as kfem
@@ -538,7 +727,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
 
     cu = "manifold_flow_tpu_torch/csrc/coarse_kernels.cu"
     tables = coarse.build_tables(mesh)
-    g64, _ = build_rhs(mesh, pot, times)
+    g64, f64 = build_rhs(mesh, pot, times)
     op64 = make_operator(mesh, g64, 0.01)
     t, n_dof = g64.shape[0], mesh.n_dof
     print(f"[kernels] coarse space at {mesh.n_vertices} vertices: "
@@ -643,6 +832,21 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        tol, inputs=(z, ap), ops=2 * t * n_dof,
                        library=lambda: torch.linalg.vecdot(z, ap),
                        launches_key=f"pcg_dot<{ctype}>")
+
+        # K1 (the float32 matvec, the float64 residual) and K3's update at
+        # the 12.5k shapes.
+        check_matvec(checks, mesh, op, g64, r,
+                     f64.to(dtype) if dtype == torch.float64 else None, tol,
+                     suffix="@12.5k")
+        reg = assembly.corner_regularization(mesh, dtype).contiguous()
+        dinv = kfem.plain_jacobi_blocks(op.g, reg, mesh.areas.to(dtype), op.lambda_,
+                                        op.gather_base)
+
+        def rand(*shape, dtype):
+            return torch.randn(*shape, generator=gen, dtype=torch.float64).to(
+                pot.device, dtype)
+        check_update(checks, z, ap, dinv, rand(t, dtype=dtype).abs(), rand, tol,
+                     suffix="@12.5k")
 
 
 FLOW_KERNELS = ("fem_matvec<float>", "fem_matvec<double>", "jacobi_blocks<float>",
@@ -1772,7 +1976,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from manifold_flow_tpu_torch.kernels import LAUNCHES, library
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, library, reset_launches
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1888,6 +2092,8 @@ def main() -> int:
     from manifold_flow_tpu_torch.ops import singularity as sing
     from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
 
+    torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = solve(mesh, pot, times, **refined)
@@ -1898,6 +2104,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # Each kernel's device µs a launch as the S3 chain runs it (the bench
+    # rows) and as the 12.5k solve runs it (the rows at 12.5k shapes).
+    in_solve = {"bench": solve_device_us(events, dict(LAUNCHES))}
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us > 0:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
@@ -1916,11 +2125,13 @@ def main() -> int:
     profile_analysis(mesh, res, card)
     profile_fields(mesh, pot, res.v_k, card)
     solve(mesh12, pot12, times12, **refined)  # warm: tables cached, kernels built
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solve(mesh12, pot12, times12, **refined)
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    in_solve["12.5k"] = solve_device_us(events, dict(LAUNCHES))
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us > 0:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
@@ -1932,22 +2143,35 @@ def main() -> int:
     else:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
-    # Each kernel's launches from the phase that drives it: the 12.5k flow
-    # CLI first (K1-K11), then the trial (K12-K15) and the field stages
-    # (K16-K17, each variant's count from the call that launches it; their
-    # 12.5k runs for the rows measured at 12.5k), the bench
-    # flow, the float64 cg two-level solve, the cg phase and the direct
-    # solver. Instances no path launches (the float32 analysis and field
-    # kernels) are left out.
-    phases = (flow12k_launches, trial_launches, fields_launches, flow_launches,
-              twolevel_launches, launches_cg, cholesky_launches)
+    for label, us in in_solve.items():
+        print(f"[profile] device us a launch in the {label} solve: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(us.items(), key=lambda kv: -kv[1]))
+            + f"; on {card}", flush=True)
 
-    def launches_of(label, row):
-        order = ((trial12k_launches, fields12k_launches) + phases
-                 if label.endswith("@12.5k") else phases)
-        key = row["launches_key"]
-        return next((c[key] for c in order if c.get(key, 0) > 0), 0)
-    driven = {k: launches_of(k, row) for k, row in checks.rows.items()}
+    # Each kernel's launches on the main path, from the phases that run the
+    # default config: the flow CLIs, the trials and the field stages, at the
+    # row's own size first (the 12.5k runs for the rows measured at 12.5k:
+    # those marked so and the coarse kernels'), each field variant counted in
+    # the call that launches it. Instances that only the float64 cg, the
+    # Cholesky or the crossover runs launch are off the default path; every
+    # kernel must have launched in some phase.
+    default_3k = (flow_launches, trial_launches, fields_launches)
+    default_12k = (flow12k_launches, trial12k_launches, fields12k_launches)
+    others = (twolevel_launches, launches_cg, cholesky_launches)
+
+    def at_12k(label: str) -> bool:
+        return label.endswith("@12.5k") or label.startswith("coarse_")
+
+    def first_count(phases, key):
+        return next((c[key] for c in phases if c.get(key, 0) > 0), 0)
+    default = {k: first_count(default_12k + default_3k if at_12k(k)
+                              else default_3k + default_12k, row["launches_key"])
+               for k, row in checks.rows.items()}
+    driven = {k: default[k] or first_count(others, row["launches_key"])
+              for k, row in checks.rows.items()}
+    for k, row in checks.rows.items():
+        row["solve_device_us"] = in_solve["12.5k" if at_12k(k) else "bench"].get(
+            row["launches_key"])
     names = {row["launches_key"].split("<")[0] for k, row in checks.rows.items()
              if driven[k] > 0}
     every = {k.split("<")[0] for k in LAUNCHES}
@@ -1955,24 +2179,31 @@ def main() -> int:
         raise AssertionError(f"kernels never launched by any phase: {sorted(every - names)}")
     # The order of the next kernel redesigns: first any kernel slower than
     # its library call on the device, then by the device time the main path
-    # loses to the bound, launches x (device_us - bound).
+    # loses to the bound, launches x (device us - bound us), the device us
+    # as a profiled solve runs the kernel where one does, else back to back.
     timed = {k: row for k, row in checks.rows.items()
-             if driven[k] > 0 and row["device_us"] is not None}
+             if default[k] > 0 and row["device_us"] is not None}
     slower = [k for k, row in timed.items() if row["library_device_us"] is not None
               and row["device_us"] > row["library_device_us"]]
-    loss = {k: driven[k] * (row["device_us"] - row["bound_ms"] * 1e3)
+    loss = {k: default[k] * ((row["solve_device_us"] or row["device_us"])
+                             - row["bound_ms"] * 1e3)
             for k, row in timed.items()}
+    off_path = [k for k in checks.rows if default[k] == 0 and driven[k] > 0]
     print("[redesign] slower than the library call on the device: "
-          + (", ".join(slower) or "none") + "; launches x (device_us - bound_us): "
-          + ", ".join(f"{k} {loss[k]:.1f}" for k in sorted(loss, key=lambda k: -loss[k])),
-          flush=True)
+          + (", ".join(slower) or "none") + "; default-path launches x (device_us "
+          "- bound_us), in-solve device us where a profiled solve ran the kernel "
+          "(marked *): " + ", ".join(
+              f"{k}{'*' if timed[k]['solve_device_us'] else ''} {loss[k]:.1f}"
+              for k in sorted(loss, key=lambda k: -loss[k]))
+          + "; off the default path: " + (", ".join(off_path) or "none"), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": row["source"],
          "replaces": row["replaces"], "launches": driven[k],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-         "device_us": row["device_us"], "library_device_us": row["library_device_us"],
+         "device_us": row["device_us"], "solve_device_us": row["solve_device_us"],
+         "library_device_us": row["library_device_us"],
          "bound_over_device": row["bound_over_device"]}
         for k, row in checks.rows.items() if driven[k] > 0]}))
     print(card_line())

@@ -75,6 +75,24 @@ __device__ __forceinline__ int64_t head_to_16(const T* p, int64_t n) {
   return h < n ? h : n;
 }
 
+// A 16-byte vector's components into o[0..W), and back.
+__device__ __forceinline__ void unpack(float4 v, float* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void unpack(double2 v, double* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+}
+__device__ __forceinline__ float4 pack(const float* o) {
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ double2 pack(const double* o) {
+  return make_double2(o[0], o[1]);
+}
+
 // acc + <a, b> for one element or one 16-byte vector, in component order.
 __device__ __forceinline__ float dot_acc(float a, float b, float acc) {
   return fmaf(a, b, acc);

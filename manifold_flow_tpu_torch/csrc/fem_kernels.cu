@@ -7,14 +7,179 @@
 //   gather_base    (N, C)       int32 vertex -> cell*6 + slot*2; padded
 //                               entries (vertex_cells < 0) hold 6M and are
 //                               skipped, so nothing past y_loc is read
+//   K1's tiles     cell_ptr (K + 1), cells (L), gather (N, C) int32,
+//                  cell_dof (6, L) int32, tile_blocks2 (21, L)
+//                               (fem/assembly.py vertex_tiles): the cells
+//                               of each tile of consecutive vertices,
+//                               gather_base in tile-local cells (-1
+//                               padded), and the cells' dof and a2 blocks
+//                               (the 21 entries on and above the
+//                               diagonal) local index first, in table
+//                               order
 // The C entry points return the cudaError_t of the launches.
+//
+// K1 is bound by its bytes: g read once (14.1 MB in f32 at the bench
+// shapes, 97 x 6050 triangles; 57.4 MB at 12.5k), x, y and the tables. Its
+// first design wrote the (T, M, 6) local products to device memory in one
+// launch and summed them per vertex in a second: 2 x 14.1 MB more at the
+// bench shapes, 2 x 57.4 MB at 12.5k, where nothing fits in L2. This
+// design makes one launch: a block owns a tile of consecutive vertices for
+// a few frames, computes the local products of every cell incident to the
+// tile (halo cells too: 22% more cells at the bench tiles, 44% at 12.5k)
+// into shared memory, then sums each vertex's entries in gather_base's
+// order. The local product is the same expression as before and the sums
+// run in the same order, so the output is the first design's, bit for
+// bit. A cell's dof and a2 block are read once for all the block's frames
+// and held in registers, from the tile tables' copies, stored local index
+// first in table order so that a warp's lanes (consecutive cells) read
+// consecutive addresses, and only the a2 block's 21 distinct entries.
+// Phase 1 waits on its loads (g from device memory, x and the tables from
+// L2): on the H100 it is latency-bound, so the launch bounds keep three
+// blocks an SM in float32. Tried on the card and slower: dof and the a2
+// rows read in their (M, 6) / (M, 6, 6) layouts (a warp's lanes 24 and 144
+// bytes apart); each frame's g rows and x values staged in shared memory
+// first (the loads then wait behind a barrier); one thread per vertex
+// recomputing its slot's two outputs in each incident cell; 8 frames a
+// block (shared memory then limits the blocks an SM); tiles of 128 or 512
+// vertices with 256 threads.
 #include "common.cuh"
 
 namespace mf {
 
-// K1 phase 1: one thread per (frame, triangle) writes the local product
-// y_loc[t, m, :] = lambda * B2[m] x_loc + g * (A/12) * (s_c + sum_c s_c),
-// s_c = <g_c, x_c> (fem/operator.py:56-67).
+// Index of entry (l, j) of a symmetric 6x6 block among its 21 entries on
+// and above the diagonal, row by row.
+__host__ __device__ constexpr int sym_index(int l, int j) {
+  return l <= j ? l * 6 - l * (l - 1) / 2 + (j - l) : sym_index(j, l);
+}
+
+// b[k] = upper[sym_index(k / 6, k % 6)] for k = K..35, each index fixed at
+// compile time, so both arrays stay in registers.
+template <int K = 0, typename T>
+__device__ __forceinline__ void expand_symmetric(const T* upper, T* b) {
+  if constexpr (K < 36) {
+    constexpr int i = sym_index(K / 6, K % 6);
+    b[K] = upper[i];
+    expand_symmetric<K + 1>(upper, b);
+  }
+}
+
+// K1's local product of one triangle (fem/operator.py:56-67):
+// y[l] = lambda * B2 x_loc + g * (A/12) * (s_c + sum_c s_c), s_c = <g_c, x_c>,
+// term for term the expression of the first design's phase 1.
+template <typename T>
+__device__ __forceinline__ void local_product(const T* xl, const T* gl,
+                                              const T* b, T ws, T lambda,
+                                              T* y) {
+  T s[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s[c] = gl[2 * c] * xl[2 * c] + gl[2 * c + 1] * xl[2 * c + 1];
+  }
+  const T stot = s[0] + s[1] + s[2];
+#pragma unroll
+  for (int l = 0; l < 6; ++l) {
+    T y2 = T(0);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) y2 += b[l * 6 + j] * xl[j];
+    const T w = ws * (s[l >> 1] + stot);
+    y[l] = lambda * y2 + gl[l] * w;
+  }
+}
+
+// K1: block (k, j) owns tile k's vertices for frames j*F .. j*F + F - 1
+// (and every gridDim.y-th group after). Phase 1: one thread per tile cell
+// loads the cell's dof and a2 block once (its 21 distinct entries: a2 is
+// symmetric, exactly, as assembly.a2_blocks computes it), then for each
+// frame gathers x and g and writes the six local outputs to shared memory
+// (y_loc[frame][cell][6]). Phase 2: one thread per tile vertex sums its
+// entries in its gather row's order and writes y, or f - y. Launch bounds
+// of 3 blocks an SM (float32) or 2 (float64) keep enough warps in flight.
+template <typename T, int F>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
+    fem_tile_kernel(const T* __restrict__ x, const int32_t* __restrict__ cell_dof,
+                    const T* __restrict__ tile_blocks2, const T* __restrict__ g,
+                    const T* __restrict__ w_scale, T lambda,
+                    const int32_t* __restrict__ cell_ptr,
+                    const int32_t* __restrict__ cells,
+                    const int32_t* __restrict__ gather,
+                    const T* __restrict__ f, T* __restrict__ out,
+                    int64_t n_frames, int64_t n_tri, int64_t n_vert,
+                    int64_t n_cols, int64_t tile_size, int64_t n_listed) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* y_loc = reinterpret_cast<T*>(smem_raw);
+  const int64_t c0 = cell_ptr[blockIdx.x];
+  const int n_cells = static_cast<int>(cell_ptr[blockIdx.x + 1] - c0);
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * tile_size;
+  const int64_t left = n_vert - v0;
+  const int n_own = static_cast<int>(left < tile_size ? left : tile_size);
+  const int64_t n_dof = 2 * n_vert;
+  const int64_t frame_stride = static_cast<int64_t>(n_cells) * 6;
+  for (int64_t t0 = static_cast<int64_t>(blockIdx.y) * F; t0 < n_frames;
+       t0 += static_cast<int64_t>(gridDim.y) * F) {
+    const int nf = n_frames - t0 < F ? static_cast<int>(n_frames - t0) : F;
+    for (int c = threadIdx.x; c < n_cells; c += kThreads) {
+      const int64_t i = c0 + c;
+      const int64_t m = __ldg(cells + i);
+      int32_t d[6];
+      T upper[21], b[36];
+#pragma unroll
+      for (int l = 0; l < 6; ++l) d[l] = __ldg(cell_dof + l * n_listed + i);
+#pragma unroll
+      for (int k = 0; k < 21; ++k) upper[k] = __ldg(tile_blocks2 + k * n_listed + i);
+      expand_symmetric(upper, b);
+      const T ws = __ldg(w_scale + m);
+#pragma unroll
+      for (int u = 0; u < F; ++u) {
+        if (u < nf) {
+          const int64_t t = t0 + u;
+          const T* xt = x + t * n_dof;
+          const T* gt = g + (t * n_tri + m) * 6;
+          T xl[6], gl[6];
+#pragma unroll
+          for (int l = 0; l < 6; ++l) gl[l] = __ldg(gt + l);
+#pragma unroll
+          for (int l = 0; l < 6; ++l) xl[l] = __ldg(xt + d[l]);
+          local_product(xl, gl, b, ws, lambda, y_loc + u * frame_stride + c * 6);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_own; i += kThreads) {
+      const int64_t v = v0 + i;
+      const int32_t* row = gather + v * n_cols;
+      T a[F], e[F];
+#pragma unroll
+      for (int u = 0; u < F; ++u) a[u] = e[u] = T(0);
+      for (int64_t c = 0; c < n_cols; ++c) {
+        const int32_t k = __ldg(row + c);
+        if (k < 0) continue;  // padded entry
+#pragma unroll
+        for (int u = 0; u < F; ++u) {
+          a[u] += y_loc[u * frame_stride + k];
+          e[u] += y_loc[u * frame_stride + k + 1];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < F; ++u) {
+        if (u < nf) {
+          const int64_t o = (t0 + u) * n_dof + v;
+          if (f != nullptr) {
+            out[o] = f[o] - a[u];
+            out[o + n_vert] = f[o + n_vert] - e[u];
+          } else {
+            out[o] = a[u];
+            out[o + n_vert] = e[u];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next frames' phase 1 overwrites y_loc
+  }
+}
+
+// The first design of K1, phase 1 (kept to hold the new design against it
+// on the card): one thread per (frame, triangle) writes the local product
+// to y_loc (T, M, 6) in device memory.
 template <typename T>
 __global__ void fem_local_kernel(const T* __restrict__ x,
                                  const int32_t* __restrict__ dof,
@@ -52,9 +217,10 @@ __global__ void fem_local_kernel(const T* __restrict__ x,
   }
 }
 
-// K1 phase 2, also the reduction of K4: one thread per (frame, vertex) sums
-// the vertex's incident (cell, slot) entries of y_loc in table order, the
-// order of fem/operator.py:79-84, and writes y (or f - y when f is given).
+// The reduction of K4 (and phase 2 of K1's first design): one thread per
+// (frame, vertex) sums the vertex's incident (cell, slot) entries of y_loc
+// in table order, the order of fem/operator.py:79-84, and writes y (or
+// f - y when f is given).
 template <typename T>
 __global__ void gather_kernel(const T* __restrict__ y_loc,
                               const int32_t* __restrict__ gather_base,
@@ -179,12 +345,66 @@ __global__ void frame_factors_rhs_kernel(
   }
 }
 
+template <typename T, int F>
+cudaError_t launch_fem_tiles(const void* x, const void* cell_dof,
+                             const void* tile_blocks2, const void* g,
+                             const void* w_scale, double lambda,
+                             const void* cell_ptr, const void* cells,
+                             const void* gather, const void* f, void* out,
+                             int64_t n_frames, int64_t n_tri, int64_t n_vert,
+                             int64_t n_cols, int64_t tile_size, int64_t n_tiles,
+                             int64_t max_cells, int64_t n_listed, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(F) * max_cells * 6 * sizeof(T);
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        fem_tile_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(static_cast<unsigned int>(n_tiles),
+                  frame_blocks((n_frames + F - 1) / F));
+  fem_tile_kernel<T, F><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const int32_t*>(cell_dof),
+      static_cast<const T*>(tile_blocks2), static_cast<const T*>(g),
+      static_cast<const T*>(w_scale), static_cast<T>(lambda),
+      static_cast<const int32_t*>(cell_ptr), static_cast<const int32_t*>(cells),
+      static_cast<const int32_t*>(gather), static_cast<const T*>(f),
+      static_cast<T*>(out), n_frames, n_tri, n_vert, n_cols, tile_size, n_listed);
+  return cudaGetLastError();
+}
+
 template <typename T>
-int fem_matvec(const void* x, const void* dof, const void* blocks2,
+int fem_matvec(const void* x, const void* cell_dof, const void* tile_blocks2,
                const void* g, const void* w_scale, double lambda,
-               const void* gather_base, const void* f, void* y_loc, void* out,
-               int64_t n_frames, int64_t n_tri, int64_t n_vert, int64_t n_cols,
-               void* stream) {
+               const void* cell_ptr, const void* cells, const void* gather,
+               const void* f, void* out, int64_t n_frames, int64_t n_tri,
+               int64_t n_vert, int64_t n_cols, int64_t tile_size,
+               int64_t n_tiles, int64_t max_cells, int64_t n_listed,
+               int64_t frames_per_block, void* stream) {
+  if (n_frames <= 0 || n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+#define MF_FEM_TILES(F)                                                        \
+  e = launch_fem_tiles<T, F>(x, cell_dof, tile_blocks2, g, w_scale, lambda,    \
+                             cell_ptr, cells, gather, f, out, n_frames, n_tri, \
+                             n_vert, n_cols, tile_size, n_tiles, max_cells,    \
+                             n_listed, s)
+  switch (frames_per_block) {
+    case 1: MF_FEM_TILES(1); break;
+    case 2: MF_FEM_TILES(2); break;
+    case 4: MF_FEM_TILES(4); break;
+    default: break;
+  }
+#undef MF_FEM_TILES
+  return static_cast<int>(e);
+}
+
+template <typename T>
+int fem_matvec_two_pass(const void* x, const void* dof, const void* blocks2,
+                        const void* g, const void* w_scale, double lambda,
+                        const void* gather_base, const void* f, void* y_loc,
+                        void* out, int64_t n_frames, int64_t n_tri,
+                        int64_t n_vert, int64_t n_cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n_loc = n_frames * n_tri;
   const int64_t n_out = n_frames * n_vert;
@@ -250,13 +470,25 @@ int frame_factors_rhs(const void* pot, const void* nxt, const void* times,
 
 #define MF_FEM_ENTRY_POINTS(SUFFIX, T)                                        \
   extern "C" int mf_fem_matvec_##SUFFIX(                                      \
+      const void* x, const void* cell_dof, const void* tile_blocks2,          \
+      const void* g, const void* w_scale, double lambda, const void* cell_ptr, \
+      const void* cells, const void* gather, const void* f, void* out,        \
+      int64_t n_frames, int64_t n_tri, int64_t n_vert, int64_t n_cols,        \
+      int64_t tile_size, int64_t n_tiles, int64_t max_cells,                  \
+      int64_t n_listed, int64_t frames_per_block, void* stream) {             \
+    return mf::fem_matvec<T>(x, cell_dof, tile_blocks2, g, w_scale, lambda,   \
+                             cell_ptr, cells, gather, f, out, n_frames,       \
+                             n_tri, n_vert, n_cols, tile_size, n_tiles,       \
+                             max_cells, n_listed, frames_per_block, stream);  \
+  }                                                                           \
+  extern "C" int mf_fem_matvec_two_pass_##SUFFIX(                             \
       const void* x, const void* dof, const void* blocks2, const void* g,     \
       const void* w_scale, double lambda, const void* gather_base,            \
       const void* f, void* y_loc, void* out, int64_t n_frames, int64_t n_tri, \
       int64_t n_vert, int64_t n_cols, void* stream) {                         \
-    return mf::fem_matvec<T>(x, dof, blocks2, g, w_scale, lambda,             \
-                             gather_base, f, y_loc, out, n_frames, n_tri,     \
-                             n_vert, n_cols, stream);                         \
+    return mf::fem_matvec_two_pass<T>(x, dof, blocks2, g, w_scale, lambda,    \
+                                      gather_base, f, y_loc, out, n_frames,   \
+                                      n_tri, n_vert, n_cols, stream);         \
   }                                                                           \
   extern "C" int mf_jacobi_blocks_##SUFFIX(                                   \
       const void* g, const void* reg, const void* areas, double lambda,       \

@@ -7,8 +7,9 @@
 // Vectors are (T, 2N) with dof = vertex + N * alpha; dinv is (T, N, 2, 2).
 // alpha = rz / pAp and beta = rz_new / rz are formed per frame inside the
 // kernels, with the zero guards of solve/cg.py:93-100. Per-frame sums close
-// with the fixed-order block reduction of common.cuh, so no float atomics
-// and no run-to-run drift in the iteration count.
+// in a fixed order (common.cuh's block reduction; pcg_update's partials in
+// slice order), so no float atomics and no run-to-run drift in the
+// iteration count.
 //
 // pcg_dot is bound by reading its two operands once: 4.9 MB in f32 at the
 // bench shapes (97 x 6272), 19.5 MB at the 12.5k shapes (97 x 25088), 1.5
@@ -23,11 +24,28 @@
 // 12.5k row lengths (a cluster barrier cost more than the extra blocks
 // gained), so it is not here: it needs a measured workload with longer
 // rows to come back. One launch, no global scratch, no second pass.
+//
+// pcg_update is bound by its bytes: it reads x, r, p, Ap and D^-1 and
+// writes x, r, z, 21.9 MB in f32 at the bench shapes, 87.6 MB at 12.5k
+// (6.5 and 26.2 us). Its first design ran one block of 256 threads a frame
+// (97 blocks on 132 SMs), each thread with a few scalar loads in flight:
+// about 0.8 MB in flight on the card, where 3.35 TB/s needs about 2 MB to
+// cover the memory's latency. This design runs S blocks a frame (S from N:
+// one 16-byte group of vertices a thread), each thread loading every
+// operand of its group (x, r, p, Ap at rows v and v + N, and D^-1) in
+// 16-byte vectors before any arithmetic. Each block writes its partial
+// r.z and r.r to a (T, S) scratch; the last block of a frame to finish,
+// found through an integer ticket per frame, adds the S partials in index
+// order and resets the ticket. No float atomics: repeated calls are bitwise
+// equal. The ticket costs one integer atomic a block; a cluster of the S
+// blocks reducing through distributed shared memory would cost a cluster
+// barrier, which on this card took more than pcg_dot's whole time.
 #include "common.cuh"
 
 namespace mf {
 
-constexpr int kDotUnroll = 4;  // vectors a thread loads per operand at once
+constexpr int kDotUnroll = 4;    // vectors a thread loads per operand at once
+constexpr int kMaxSlices = 128;  // pcg_update's most blocks a frame
 
 // part[u] += x[k] y[k] over k in [lo, hi), thread i taking k = lo + i,
 // lo + i + kThreads, ..., kDotUnroll of them loaded before any is used.
@@ -86,9 +104,11 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[t] = acc;
 }
 
+// pcg_update's first design (kept to hold the new one against it on the
+// card): one block per frame, scalar loads.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    update_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ z,
+    update_one_block_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ z,
                   const T* __restrict__ p, const T* __restrict__ ap,
                   const T* __restrict__ dinv, const T* __restrict__ rz,
                   const T* __restrict__ pap, T* __restrict__ rz_new,
@@ -129,6 +149,186 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// One vertex's step of pcg_update, the first design's expression: x += alpha
+// p, r -= alpha Ap, z = D^-1 r, and its terms of r.z and r.r.
+template <typename T>
+__device__ __forceinline__ void update_vertex(T alpha, T& x1, T& x2, T& r1,
+                                              T& r2, T p1, T p2, T ap1, T ap2,
+                                              const T* d, T& z1, T& z2,
+                                              T& acc_rz, T& acc_rr) {
+  x1 += alpha * p1;
+  x2 += alpha * p2;
+  r1 = r1 - alpha * ap1;
+  r2 = r2 - alpha * ap2;
+  z1 = d[0] * r1 + d[1] * r2;
+  z2 = d[2] * r1 + d[3] * r2;
+  acc_rz += r1 * z1 + r2 * z2;
+  acc_rr += r1 * r1 + r2 * r2;
+}
+
+// pcg_update on vertices [lo, hi) of one frame, one element at a time,
+// thread i taking lo + i, lo + i + kThreads, ...
+template <typename T>
+__device__ __forceinline__ void update_scalar(T alpha, T* xt, T* rt, T* zt,
+                                              const T* pt, const T* apt,
+                                              const T* dt, int64_t n_vert,
+                                              int64_t lo, int64_t hi,
+                                              T& acc_rz, T& acc_rr) {
+  for (int64_t v = lo + threadIdx.x; v < hi; v += kThreads) {
+    const int64_t w = v + n_vert;
+    T x1 = xt[v], x2 = xt[w], r1 = rt[v], r2 = rt[w], z1, z2;
+    T d[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) d[k] = dt[v * 4 + k];
+    update_vertex(alpha, x1, x2, r1, r2, pt[v], pt[w], apt[v], apt[w], d, z1,
+                  z2, acc_rz, acc_rr);
+    xt[v] = x1;
+    xt[w] = x2;
+    rt[v] = r1;
+    rt[w] = r2;
+    zt[v] = z1;
+    zt[w] = z2;
+  }
+}
+
+// Block (s, t) updates slice s of frame t (and of every gridDim.y-th frame
+// after it). When the five vectors' rows sit at one offset from a 16-byte
+// boundary, N * sizeof(T) is a multiple of 16 and D^-1 is aligned (always
+// in the solve), each thread takes groups of W = 16 / sizeof(T) vertices
+// in vectors, the slices cutting the groups evenly; slice 0 also takes the
+// elements before the first boundary and slice S - 1 those after the last
+// group. Otherwise the slices cut the vertices and go one at a time. The
+// order of every sum is fixed by N, S and the offsets.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    update_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ z,
+                  const T* __restrict__ p, const T* __restrict__ ap,
+                  const T* __restrict__ dinv, const T* __restrict__ rz,
+                  const T* __restrict__ pap, T* __restrict__ rz_new,
+                  T* __restrict__ rr, T* __restrict__ part,
+                  unsigned int* __restrict__ ticket, int64_t n_frames,
+                  int64_t n_vert) {
+  using V = typename Vec16<T>::type;
+  constexpr int W = kVecWidth<T>;
+  __shared__ T scratch[kWarps];
+  __shared__ T closing[2 * kMaxSlices];
+  __shared__ bool last;
+  const int n_slices = static_cast<int>(gridDim.x);
+  const int s = static_cast<int>(blockIdx.x);
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    const T pa = pap[t];
+    const T alpha = (pa != T(0)) ? rz[t] / pa : T(0);
+    const int64_t off = t * 2 * n_vert;
+    T* xt = x + off;
+    T* rt = r + off;
+    T* zt = z + off;
+    const T* pt = p + off;
+    const T* apt = ap + off;
+    const T* dt = dinv + t * n_vert * 4;
+    T acc_rz = T(0), acc_rr = T(0);
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(xt) & 15;
+    const bool vec = (reinterpret_cast<uintptr_t>(rt) & 15) == a0 &&
+                     (reinterpret_cast<uintptr_t>(zt) & 15) == a0 &&
+                     (reinterpret_cast<uintptr_t>(pt) & 15) == a0 &&
+                     (reinterpret_cast<uintptr_t>(apt) & 15) == a0 &&
+                     (reinterpret_cast<uintptr_t>(dt) & 15) == 0 &&
+                     ((n_vert * static_cast<int64_t>(sizeof(T))) & 15) == 0;
+    if (vec) {
+      const int64_t head = head_to_16(xt, n_vert);
+      const int64_t n_vec = (n_vert - head) / W;
+      const int64_t per = (n_vec + n_slices - 1) / n_slices;
+      const int64_t g_hi = (s + 1) * per < n_vec ? (s + 1) * per : n_vec;
+      for (int64_t k = s * per + threadIdx.x; k < g_hi; k += kThreads) {
+        const int64_t v = head + k * W;
+        const int64_t w = v + n_vert;
+        V xv[2], rv[2], pv[2], apv[2], dv[4];
+        xv[0] = *reinterpret_cast<const V*>(xt + v);
+        xv[1] = *reinterpret_cast<const V*>(xt + w);
+        rv[0] = *reinterpret_cast<const V*>(rt + v);
+        rv[1] = *reinterpret_cast<const V*>(rt + w);
+        pv[0] = __ldg(reinterpret_cast<const V*>(pt + v));
+        pv[1] = __ldg(reinterpret_cast<const V*>(pt + w));
+        apv[0] = __ldg(reinterpret_cast<const V*>(apt + v));
+        apv[1] = __ldg(reinterpret_cast<const V*>(apt + w));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dv[q] = __ldg(reinterpret_cast<const V*>(dt + v * 4) + q);
+        }
+        T x1[W], x2[W], r1[W], r2[W], p1[W], p2[W], ap1[W], ap2[W], d[4 * W];
+        T z1[W], z2[W];
+        unpack(xv[0], x1);
+        unpack(xv[1], x2);
+        unpack(rv[0], r1);
+        unpack(rv[1], r2);
+        unpack(pv[0], p1);
+        unpack(pv[1], p2);
+        unpack(apv[0], ap1);
+        unpack(apv[1], ap2);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) unpack(dv[q], d + q * W);
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          update_vertex(alpha, x1[j], x2[j], r1[j], r2[j], p1[j], p2[j],
+                        ap1[j], ap2[j], d + 4 * j, z1[j], z2[j], acc_rz,
+                        acc_rr);
+        }
+        *reinterpret_cast<V*>(xt + v) = pack(x1);
+        *reinterpret_cast<V*>(xt + w) = pack(x2);
+        *reinterpret_cast<V*>(rt + v) = pack(r1);
+        *reinterpret_cast<V*>(rt + w) = pack(r2);
+        *reinterpret_cast<V*>(zt + v) = pack(z1);
+        *reinterpret_cast<V*>(zt + w) = pack(z2);
+      }
+      if (s == 0) {
+        update_scalar(alpha, xt, rt, zt, pt, apt, dt, n_vert, int64_t(0), head,
+                      acc_rz, acc_rr);
+      }
+      if (s == n_slices - 1) {
+        update_scalar(alpha, xt, rt, zt, pt, apt, dt, n_vert, head + n_vec * W,
+                      n_vert, acc_rz, acc_rr);
+      }
+    } else {
+      const int64_t per = (n_vert + n_slices - 1) / n_slices;
+      const int64_t hi = (s + 1) * per < n_vert ? (s + 1) * per : n_vert;
+      update_scalar(alpha, xt, rt, zt, pt, apt, dt, n_vert, s * per, hi, acc_rz,
+                    acc_rr);
+    }
+    acc_rz = block_sum(acc_rz, scratch);
+    acc_rr = block_sum(acc_rr, scratch);
+    if (n_slices == 1) {
+      if (threadIdx.x == 0) {
+        rz_new[t] = acc_rz;
+        rr[t] = acc_rr;
+      }
+      continue;
+    }
+    if (threadIdx.x == 0) {
+      part[(t * n_slices + s) * 2] = acc_rz;
+      part[(t * n_slices + s) * 2 + 1] = acc_rr;
+      __threadfence();  // the partials are visible before the ticket moves
+      last = atomicAdd(ticket + t, 1u) == static_cast<unsigned int>(n_slices - 1);
+    }
+    __syncthreads();
+    if (last && threadIdx.x < 32) {
+      __threadfence();
+      const T* pf = part + t * n_slices * 2;
+      for (int k = threadIdx.x; k < 2 * n_slices; k += 32) closing[k] = __ldcg(pf + k);
+      __syncwarp();
+      if (threadIdx.x == 0) {
+        T a = T(0), b = T(0);
+        for (int k = 0; k < n_slices; ++k) {
+          a += closing[2 * k];
+          b += closing[2 * k + 1];
+        }
+        rz_new[t] = a;
+        rr[t] = b;
+        ticket[t] = 0u;  // ready for the next call
+      }
+    }
+    __syncthreads();  // `last` and `closing` serve the next frame
+  }
+}
+
 template <typename T>
 __global__ void direction_kernel(T* __restrict__ p, const T* __restrict__ z,
                                  const T* __restrict__ rz_new,
@@ -156,10 +356,32 @@ int pcg_dot(const void* a, const void* b, void* out, int64_t n_frames,
 template <typename T>
 int pcg_update(void* x, void* r, void* z, const void* p, const void* ap,
                const void* dinv, const void* rz, const void* pap, void* rz_new,
-               void* rr, int64_t n_frames, int64_t n_vert, void* stream) {
+               void* rr, void* part, void* ticket, int64_t n_frames,
+               int64_t n_vert, int64_t n_slices, void* stream) {
   if (n_frames > 0) {
-    update_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+    if (n_slices < 1 || n_slices > kMaxSlices) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid(static_cast<unsigned int>(n_slices), frame_blocks(n_frames));
+    update_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(x), static_cast<T*>(r), static_cast<T*>(z),
+        static_cast<const T*>(p), static_cast<const T*>(ap),
+        static_cast<const T*>(dinv), static_cast<const T*>(rz),
+        static_cast<const T*>(pap), static_cast<T*>(rz_new),
+        static_cast<T*>(rr), static_cast<T*>(part),
+        static_cast<unsigned int*>(ticket), n_frames, n_vert);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int pcg_update_one_block(void* x, void* r, void* z, const void* p,
+                         const void* ap, const void* dinv, const void* rz,
+                         const void* pap, void* rz_new, void* rr,
+                         int64_t n_frames, int64_t n_vert, void* stream) {
+  if (n_frames > 0) {
+    update_one_block_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads,
+                                 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<T*>(x), static_cast<T*>(r), static_cast<T*>(z),
         static_cast<const T*>(p), static_cast<const T*>(ap),
         static_cast<const T*>(dinv), static_cast<const T*>(rz),
@@ -195,9 +417,17 @@ int pcg_direction(void* p, const void* z, const void* rz_new,
   extern "C" int mf_pcg_update_##SUFFIX(                                      \
       void* x, void* r, void* z, const void* p, const void* ap,               \
       const void* dinv, const void* rz, const void* pap, void* rz_new,        \
+      void* rr, void* part, void* ticket, int64_t n_frames, int64_t n_vert,   \
+      int64_t n_slices, void* stream) {                                       \
+    return mf::pcg_update<T>(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, part, \
+                             ticket, n_frames, n_vert, n_slices, stream);     \
+  }                                                                           \
+  extern "C" int mf_pcg_update_one_block_##SUFFIX(                            \
+      void* x, void* r, void* z, const void* p, const void* ap,               \
+      const void* dinv, const void* rz, const void* pap, void* rz_new,        \
       void* rr, int64_t n_frames, int64_t n_vert, void* stream) {             \
-    return mf::pcg_update<T>(x, r, z, p, ap, dinv, rz, pap, rz_new, rr,       \
-                             n_frames, n_vert, stream);                       \
+    return mf::pcg_update_one_block<T>(x, r, z, p, ap, dinv, rz, pap, rz_new, \
+                                       rr, n_frames, n_vert, stream);         \
   }                                                                           \
   extern "C" int mf_pcg_direction_##SUFFIX(                                   \
       void* p, const void* z, const void* rz_new, const void* rz_old,         \

@@ -13,13 +13,17 @@ These functions are the plain versions the tests hold against the JAX
 package. On the solve's main path the per-frame pieces go through the CUDA
 kernels of `kernels.fem` instead (frame factors and RHS, the reduction, the
 block-Jacobi build); only the frame-independent tables (`a2_blocks`,
-`corner_regularization`, `gather_base_table`) are built here on every device.
+`corner_regularization`, `gather_base_table`, K1's `vertex_tiles`) are built
+here on every device.
 The dense blocks and matrices (`a1_blocks`, `scatter_dense`, `dense_a2`)
 serve the direct solver (solve.cholesky) on every device.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh
@@ -62,6 +66,75 @@ def gather_base_table(mesh: TriMesh) -> torch.Tensor:
     pad = mesh.vertex_cells < 0
     base = mesh.vertex_cells * 6 + mesh.vertex_cell_slot * 2
     return torch.where(pad, 6 * mesh.n_triangles, base).to(torch.int32)
+
+
+TILE_VERTICES = 256  # K1's vertices a tile (one block of kernels.fem)
+UPPER = [l * 6 + j for l in range(6) for j in range(l, 6)]  # a 6x6 block's upper triangle
+
+
+class VertexTiles(NamedTuple):
+    """K1's tables: the vertices cut into tiles of `size` consecutive ids.
+
+      size      int          vertices a tile (the last tile may hold fewer)
+      cell_ptr  (K + 1,)     int32  tile k's cells are cells[cell_ptr[k]:cell_ptr[k+1]]
+      cells     (L,)         int32  the cells incident to any vertex of the
+                             tile, halo cells included, ascending in a tile
+      gather    (N, C)       int32  gather_base rewritten to tile-local
+                             cells: local_cell*6 + slot*2, -1 where padded
+      cell_dof  (6, L)       int32  dof[cells], local DOF first
+      blocks2   (21, L)      the a2 blocks of `cells`, their 21 entries on
+                             and above the diagonal (row by row) first, in
+                             the operator's dtype
+      max_cells int          the most cells of any tile
+
+    cell_dof and blocks2 list the tiles' cells in table order with the
+    local index first, so the kernel's threads, one a cell, read
+    consecutive addresses whatever the mesh's triangle order. An a2 block
+    is symmetric, exactly as `a2_blocks` computes it (each factor is a
+    product of one vector with another in one order), so its upper
+    triangle holds every entry.
+    """
+
+    size: int
+    cell_ptr: torch.Tensor
+    cells: torch.Tensor
+    gather: torch.Tensor
+    cell_dof: torch.Tensor
+    blocks2: torch.Tensor
+    max_cells: int
+
+
+def vertex_tiles(gather_base: torch.Tensor, dof: torch.Tensor,
+                 blocks2: torch.Tensor, size: int = TILE_VERTICES) -> VertexTiles:
+    """K1's tile tables (`VertexTiles`) from the vertex table `gather_base`
+    (N, C), the DOF table `dof` (M, 6) and the a2 blocks (M, 6, 6); the
+    index tables are built on the host once per operator and placed on its
+    device.
+
+    Each gather row keeps its column order, so a vertex's sum runs over its
+    cells in the order of `reduce_table`; a padded entry (6M) becomes -1.
+    """
+    n_triangles = dof.shape[0]
+    base = gather_base.cpu().numpy().astype(np.int64)
+    n, c = base.shape
+    valid = (base >= 0) & (base < 6 * n_triangles)
+    tile = np.broadcast_to((np.arange(n) // size)[:, None], (n, c))
+    key = tile * n_triangles + base // 6            # (tile, cell), sorted by tile
+    uniq = np.unique(key[valid])
+    n_tiles = -(-n // size)
+    ptr = np.searchsorted(uniq, np.arange(n_tiles + 1) * n_triangles)
+    local = np.searchsorted(uniq, key) - ptr[tile]
+    gather = np.where(valid, local * 6 + base % 6, -1)
+    dev = gather_base.device
+    cells = torch.from_numpy((uniq % max(n_triangles, 1)).astype(np.int32)).to(dev)
+    return VertexTiles(
+        size=size,
+        cell_ptr=torch.from_numpy(ptr.astype(np.int32)).to(dev),
+        cells=cells,
+        gather=torch.from_numpy(gather.astype(np.int32)).to(dev),
+        cell_dof=dof[cells.long()].t().contiguous(),
+        blocks2=blocks2.reshape(n_triangles, 36)[cells.long()][:, UPPER].t().contiguous(),
+        max_cells=int(np.diff(ptr).max(initial=0)))
 
 
 def reduce_table(y_loc: torch.Tensor, gather_base: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ class FlowOperator:
       w_scale      (M,)         A/12 scale of the a1 contraction
       lambda_      float        regularization weight
       gather_base  (N, C)       int32 vertex -> (cell*6 + slot*2) table
+      tiles        VertexTiles  K1's tables (assembly.vertex_tiles)
     """
 
     dof: torch.Tensor
@@ -42,6 +43,7 @@ class FlowOperator:
     w_scale: torch.Tensor
     lambda_: float
     gather_base: torch.Tensor
+    tiles: assembly.VertexTiles
 
     def astype(self, dtype: torch.dtype) -> "FlowOperator":
         """The operator rounded to `dtype` (lambda_ too, as the JAX refined
@@ -49,7 +51,8 @@ class FlowOperator:
         lam = torch.tensor(self.lambda_, dtype=dtype).item()
         return dataclasses.replace(
             self, blocks2=self.blocks2.to(dtype), g=self.g.to(dtype),
-            w_scale=self.w_scale.to(dtype), lambda_=lam)
+            w_scale=self.w_scale.to(dtype), lambda_=lam,
+            tiles=self.tiles._replace(blocks2=self.tiles.blocks2.to(dtype)))
 
     def local_contributions(self, x: torch.Tensor) -> torch.Tensor:
         """Per-triangle local products y_loc (T, M, 6) of A x (plain torch)."""
@@ -59,12 +62,13 @@ class FlowOperator:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """Apply A to x (T, 2N) -> (T, 2N)."""
         return kfem.fem_matvec(x, self.dof, self.blocks2, self.g, self.w_scale,
-                               self.lambda_, self.gather_base)
+                               self.lambda_, self.gather_base, tiles=self.tiles)
 
     def residual(self, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """f - A x in one pass (the subtraction is fused into the reduction)."""
         return kfem.fem_matvec(x, self.dof, self.blocks2, self.g, self.w_scale,
-                               self.lambda_, self.gather_base, f=f)
+                               self.lambda_, self.gather_base, f=f,
+                               tiles=self.tiles)
 
 
 def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperator:
@@ -73,16 +77,21 @@ def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperato
     The JAX `make_operator` takes the movie and computes g itself; here g
     comes from `kernels.fem.frame_factors_rhs` (or `assembly.frame_factors`),
     which builds it together with the right-hand side. The frame-independent
-    tables are computed in the mesh dtype and cast to g's dtype.
+    tables are computed in the mesh dtype and cast to g's dtype; K1's tile
+    tables come from the vertex table on the host (one copy each way).
     """
     dtype = g.dtype
+    dof = assembly.local_dof_indices(mesh)
+    blocks2 = assembly.a2_blocks(mesh).to(dtype).contiguous()
+    gather_base = assembly.gather_base_table(mesh)
     return FlowOperator(
-        dof=assembly.local_dof_indices(mesh),
-        blocks2=assembly.a2_blocks(mesh).to(dtype).contiguous(),
+        dof=dof,
+        blocks2=blocks2,
         g=g.contiguous(),
         w_scale=(mesh.areas / 12.0).to(dtype),
         lambda_=float(lambda_),
-        gather_base=assembly.gather_base_table(mesh),
+        gather_base=gather_base,
+        tiles=assembly.vertex_tiles(gather_base, dof, blocks2),
     )
 
 

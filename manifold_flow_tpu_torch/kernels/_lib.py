@@ -25,11 +25,11 @@ _CTYPES = {torch.float32: ("float", "f32"), torch.float64: ("double", "f64")}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _ARGTYPES = {
     # fem_kernels.cu, pcg_kernels.cu (kernels.fem)
-    "fem_matvec": [_P] * 5 + [_D] + [_P] * 4 + [_I] * 4 + [_P],
+    "fem_matvec": [_P] * 5 + [_D] + [_P] * 5 + [_I] * 9 + [_P],
     "jacobi_blocks": [_P] * 3 + [_D] + [_P] * 2 + [_I] * 4 + [_P],
     "frame_factors_rhs": [_P] * 11 + [_I] * 4 + [_P],
     "pcg_dot": [_P] * 3 + [_I] * 2 + [_P],
-    "pcg_update": [_P] * 10 + [_I] * 2 + [_P],
+    "pcg_update": [_P] * 12 + [_I] * 3 + [_P],
     "pcg_direction": [_P] * 4 + [_I] * 2 + [_P],
     # analysis_kernels.cu (kernels.analysis)
     "recombine_speed": [_P] * 5 + [_I] * 2 + [_P],

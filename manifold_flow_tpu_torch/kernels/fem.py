@@ -13,12 +13,15 @@ counts kernel launches by "name<ctype>"; a wrapper adds one where it
 launches its kernel and nowhere else.
 
 Shapes below are given at the bench problem (T=97 frames, M=6050 triangles,
-N=3136 vertices, C=6 cells per vertex). Byte counts are the device-memory
-traffic a call needs at those shapes, the bound of every kernel here: each
-does a few flops per byte, far below what the H100 can feed (tens of flops
-per byte). At this size the whole working set (~32 MB in f32) fits in the
-50 MB L2, so the simple designs below aim at coalesced index-order access
-and few launches, not at tiling.
+N=3136 vertices, C=6 cells per vertex) and at 12.5k vertices (M=24642).
+Byte counts are the device-memory traffic a call needs at those shapes, the
+bound of every kernel here: each does a few flops per byte, far below what
+the H100 can feed (tens of flops per byte). The solve's working set (~32 MB
+in f32 at the bench shapes) fits the 50 MB L2, but the 12.5k one does not:
+K1's g alone is 57 MB there. So K1 keeps its local products out of device
+memory (a vertex tile per block, the products in shared memory), and K3's
+update fills the card with several blocks a frame and 16-byte loads, enough
+bytes in flight to stream at the memory's rate.
 """
 
 from __future__ import annotations
@@ -71,26 +74,39 @@ def local_contributions(x, dof, blocks2, g, w_scale, lambda_) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ K1
+# K1's frames a block (dof and the a2 blocks are read once for them): 4 in
+# float32, 2 in float64, 70 KB of local products at the 12.5k tiles.
+FEM_FRAMES = {torch.float32: 4, torch.float64: 2}
+SMEM_BYTES = 227 * 1024  # shared memory a block can have on the H100
+
+
 def fem_matvec(x: torch.Tensor, dof: torch.Tensor, blocks2: torch.Tensor,
                g: torch.Tensor, w_scale: torch.Tensor, lambda_: float,
-               gather_base: torch.Tensor, f: torch.Tensor | None = None
-               ) -> torch.Tensor:
+               gather_base: torch.Tensor, f: torch.Tensor | None = None,
+               tiles: assembly.VertexTiles | None = None) -> torch.Tensor:
     """K1 `fem_matvec<T>`: y = (a1_k + lambda a2) x for all frames, or the
     residual f - y when `f` is given.
 
     x, f (T, 2N); dof (M, 6) int32; blocks2 (M, 6, 6); g (T, M, 3, 2);
-    w_scale (M,) = A/12; gather_base (N, C) int32 (assembly.gather_base_table).
+    w_scale (M,) = A/12; gather_base (N, C) int32 (assembly.gather_base_table);
+    tiles (assembly.vertex_tiles of gather_base), required on CUDA tensors.
 
     Replaces fem/operator.py:56 `local_contributions` + :69 `matvec` (B2) and,
     as the f64 instance with `f`, fem/df_operator.py:45 `DFFlowOperator.matvec`
     + :66 `residual` (B5). Bound by memory traffic: in f32 at the bench shapes
-    a call reads g (14.1 MB), x (2.4 MB, gathered), a2 blocks (0.9 MB) and
-    the tables, writes and reads back y_loc (14.1 MB each way) and writes y
-    (2.4 MB): ~48 MB, twice that in f64. Design: phase 1 is one thread per
-    (frame, triangle), computing all six local outputs from registers; phase
-    2 is one thread per (frame, vertex), summing its (cell, slot) entries in
-    table order — deterministic, no atomics, the JAX package's summation
-    order. Keeping y_loc out of device memory is later work.
+    a call reads g (14.1 MB), x (2.4 MB), the a2 blocks (0.9 MB) and the
+    tables and writes y (2.4 MB), ~20 MB (g 57.4 MB of ~80 MB at 12.5k);
+    twice that in f64. Design: one launch, a block per (tile of `tiles.size`
+    consecutive vertices, FEM_FRAMES frames). Its threads compute the six
+    local outputs of every cell incident to the tile (halo cells again in
+    each tile that touches them) into shared memory, one thread a cell
+    holding the cell's dof and a2 block in registers for all the block's
+    frames, then sum each vertex's entries in gather_base's column order:
+    the JAX package's order, no atomics, and the output of the first design
+    (local products written to and read back from a (T, M, 6) y_loc in
+    device memory, 2 x 14.1 MB more at the bench shapes) bit for bit. The
+    products wait on their loads (latency-bound on the H100); csrc/
+    fem_kernels.cu lists what was tried and lost.
     """
     dtype = _float_dtype("x", x)
     t, n_dof = x.shape
@@ -106,12 +122,26 @@ def fem_matvec(x: torch.Tensor, dof: torch.Tensor, blocks2: torch.Tensor,
     if not _on_cuda(x, dof, blocks2, g, w_scale, gather_base, f):
         return plain_fem_matvec(x, dof, blocks2, g, w_scale, lambda_,
                                 gather_base, f)
-    y_loc = torch.empty((t, m, 6), dtype=dtype, device=x.device)
+    if tiles is None:
+        raise ValueError("fem_matvec on CUDA tensors needs the vertex tiles "
+                         "(fem.assembly.vertex_tiles, FlowOperator.tiles)")
+    n_tiles, n_listed = -(-n // tiles.size), tiles.cells.shape[0]
+    _check("tiles.cell_ptr", tiles.cell_ptr, torch.int32, (n_tiles + 1,))
+    _check("tiles.cells", tiles.cells, torch.int32, (n_listed,))
+    _check("tiles.gather", tiles.gather, torch.int32, (n, c))
+    _check("tiles.cell_dof", tiles.cell_dof, torch.int32, (6, n_listed))
+    _check("tiles.blocks2", tiles.blocks2, dtype, (21, n_listed))
+    _on_cuda(x, tiles.cell_ptr, tiles.cells, tiles.gather, tiles.cell_dof,
+             tiles.blocks2)
+    frames = FEM_FRAMES[dtype]  # fewer where the local products would overflow
+    while frames > 1 and frames * tiles.max_cells * 6 * x.element_size() > SMEM_BYTES:
+        frames //= 2
     out = torch.empty_like(x)
-    _launch("fem_matvec", dtype, x.device, x.data_ptr(), dof.data_ptr(),
-            blocks2.data_ptr(), g.data_ptr(), w_scale.data_ptr(),
-            float(lambda_), gather_base.data_ptr(), _ptr(f), y_loc.data_ptr(),
-            out.data_ptr(), t, m, n, c)
+    _launch("fem_matvec", dtype, x.device, x.data_ptr(), tiles.cell_dof.data_ptr(),
+            tiles.blocks2.data_ptr(), g.data_ptr(), w_scale.data_ptr(),
+            float(lambda_), tiles.cell_ptr.data_ptr(), tiles.cells.data_ptr(),
+            tiles.gather.data_ptr(), _ptr(f), out.data_ptr(), t, m, n, c,
+            tiles.size, n_tiles, tiles.max_cells, n_listed, frames)
     return out
 
 
@@ -257,6 +287,31 @@ def plain_pcg_dot(a, b) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
+UPDATE_MAX_SLICES = 128  # csrc/pcg_kernels.cu kMaxSlices
+_UPDATE_WORKSPACE: dict = {}
+
+
+def update_slices(n_vert: int, dtype: torch.dtype) -> int:
+    """K3 `pcg_update`'s blocks a frame: one 16-byte group of vertices for
+    each of a block's 256 threads (4 at the bench shapes in f32, 13 at 12.5k;
+    7 and 25 in f64), at most UPDATE_MAX_SLICES."""
+    per_block = 16 // (torch.finfo(dtype).bits // 8) * 256
+    return max(1, min(UPDATE_MAX_SLICES, -(-n_vert // per_block)))
+
+
+def _update_workspace(device: torch.device, n_frames: int, n_slices: int):
+    """The (T, S, 2) partials and the (T,) tickets of `pcg_update`, one pair
+    per CUDA stream, kept across calls: the kernel leaves every ticket at 0,
+    and calls on one stream run in order."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ws = _UPDATE_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < 2 * n_frames * n_slices or ws[1].numel() < n_frames:
+        ws = (torch.empty(2 * n_frames * n_slices, dtype=torch.float64, device=device),
+              torch.zeros(n_frames, dtype=torch.int32, device=device))
+        _UPDATE_WORKSPACE[key] = ws
+    return ws
+
+
 def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     """K3(b) `pcg_update<T>`, in place: alpha = rz / pAp (0 where pAp == 0),
     x += alpha p, r -= alpha Ap, z = D^-1 r, then rz_new = r.z and rr = r.r.
@@ -267,10 +322,14 @@ def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
 
     Replaces the update half of the solve/cg.py:89-102 loop body with
     fem/operator.py:132 `apply_block_diag` fused in (B3/B4). Bound by memory
-    traffic, ~22 MB per call in f32 at the bench shapes (reads x, r, p, Ap
-    and D^-1, writes x, r, z). Design: one block per frame, so alpha is
-    formed once per block and the two dot products close with a block
-    reduction in the same pass.
+    traffic, 21.9 MB per call in f32 at the bench shapes and 87.6 MB at
+    12.5k (reads x, r, p, Ap and D^-1, writes x, r, z). Design: a grid of
+    `update_slices(N)` blocks a frame, each thread with every operand of
+    four (f32) or two (f64) vertices in flight as 16-byte vectors; the
+    blocks' partial r.z and r.r close in slice order in the last block of
+    each frame, found by an integer ticket (no float atomics, repeated calls
+    bitwise equal). The first design, one block a frame with scalar loads,
+    kept about 0.8 MB in flight, where the card needs about 2 MB.
     """
     dtype = _float_dtype("x", x)
     t, n_dof = x.shape
@@ -283,10 +342,12 @@ def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     if not _on_cuda(x, r, z, p, ap, dinv, rz, pap, rz_new, rr):
         plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
         return
+    n_slices = update_slices(n, dtype)
+    part, ticket = _update_workspace(x.device, t, n_slices)
     _launch("pcg_update", dtype, x.device, x.data_ptr(), r.data_ptr(),
             z.data_ptr(), p.data_ptr(), ap.data_ptr(), dinv.data_ptr(),
             rz.data_ptr(), pap.data_ptr(), rz_new.data_ptr(), rr.data_ptr(),
-            t, n)
+            part.data_ptr(), ticket.data_ptr(), t, n, n_slices)
 
 
 def plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:

@@ -29,6 +29,7 @@ from manifold_flow_tpu.kernels import df32
 from manifold_flow_tpu.solve.api import build_rhs as jax_build_rhs
 from manifold_flow_tpu_torch import kernels, mesh_from_jax_arrays
 from manifold_flow_tpu_torch.fem import assembly, operator
+from manifold_flow_tpu_torch.geometry import synthetic as torch_synthetic
 from manifold_flow_tpu_torch.kernels import fem as kfem
 from manifold_flow_tpu_torch.solve.api import build_rhs
 from tests.torch_parity import LAMBDA, jax_arrays, jmesh, rel_err, wave  # noqa: F401
@@ -162,3 +163,84 @@ def test_plain_kernels_count_no_launches(systems):
     op.residual(f, f)
     kfem.pcg_dot(f, f)
     assert kernels.LAUNCHES == before
+
+
+def _tile_meshes():
+    """A plane patch (valence up to 6, boundary rows padded) and a sphere
+    patch (valence 5 and 6: padded gather_base entries inside)."""
+    return {"plane": torch_synthetic.plane_patch(nx=23, ny=17, lx=6.0, ly=4.0,
+                                                  device="cpu"),
+            "sphere": torch_synthetic.sphere_patch(n_sub=2, device="cpu")}
+
+
+@pytest.mark.parametrize("size", [7, 64, 256])
+@pytest.mark.parametrize("name", ["plane", "sphere"])
+def test_vertex_tiles_hold_every_gather_entry_once_in_order(name, size):
+    """K1's tables: tiles cover every vertex; each tile lists the cells of
+    its vertices once, ascending; each gather row names, column by column,
+    the same (cell, slot) entry as gather_base, padded where it is."""
+    mesh = _tile_meshes()[name]
+    base = assembly.gather_base_table(mesh)
+    dof, blocks2 = assembly.local_dof_indices(mesh), assembly.a2_blocks(mesh)
+    tiles = assembly.vertex_tiles(base, dof, blocks2, size)
+    n, m = mesh.n_vertices, mesh.n_triangles
+    ptr, cells, gather = (v.numpy() for v in (tiles.cell_ptr, tiles.cells, tiles.gather))
+    # Each listed cell's dof and a2 block, local index first.
+    np.testing.assert_array_equal(tiles.cell_dof.numpy(), dof.numpy()[cells].T)
+    upper = blocks2.numpy().reshape(m, 36)[cells][:, assembly.UPPER].T
+    np.testing.assert_array_equal(tiles.blocks2.numpy(), upper)
+    # The a2 blocks are exactly symmetric: the upper triangle is all of it.
+    np.testing.assert_array_equal(blocks2.numpy(), blocks2.numpy().transpose(0, 2, 1))
+    assert tiles.size == size and len(ptr) == -(-n // size) + 1 and ptr[0] == 0
+    assert tiles.max_cells == int(np.diff(ptr).max())
+    assert gather.shape == tuple(base.shape) and gather.dtype == np.int32
+    padded = base.numpy() == 6 * m
+    assert padded.any()
+    np.testing.assert_array_equal(gather < 0, padded)
+    tile = np.arange(n) // size
+    for k in range(len(ptr) - 1):
+        own = cells[ptr[k]:ptr[k + 1]]
+        assert np.all(np.diff(own) > 0)                      # ascending, once
+        rows = base.numpy()[tile == k]
+        np.testing.assert_array_equal(own, np.unique(rows[rows < 6 * m] // 6))
+    # Rebuilt through the tile tables, the vertex table comes back entry by
+    # entry, in column order.
+    local = np.where(gather < 0, 0, gather)
+    rebuilt = cells[ptr[tile][:, None] + local // 6] * 6 + local % 6
+    np.testing.assert_array_equal(np.where(padded, 6 * m, rebuilt), base.numpy())
+
+
+def test_sphere_tiles_have_padded_rows():
+    mesh = _tile_meshes()["sphere"]
+    tiles = assembly.vertex_tiles(assembly.gather_base_table(mesh),
+                                  assembly.local_dof_indices(mesh), assembly.a2_blocks(mesh))
+    assert (tiles.gather.numpy() < 0).any()
+    assert ((tiles.gather.numpy() < 0).sum(axis=1) == 1).sum() == 12  # valence 5
+
+
+def test_operator_carries_tiles_of_its_table(systems):
+    """make_operator builds K1's tables from its gather_base; astype keeps
+    them; summed through them in table order, the local products reduce as
+    assembly.reduce_table reduces them (the kernel's arithmetic order)."""
+    _, _, _, f, op = systems
+    op32 = op.astype(torch.float32)
+    assert op32.tiles.gather is op.tiles.gather
+    assert op32.tiles.blocks2.dtype == torch.float32
+    assert torch.equal(op32.tiles.blocks2, op.tiles.blocks2.to(torch.float32))
+    want = assembly.vertex_tiles(op.gather_base, op.dof, op.blocks2)
+    for a, b in zip(op.tiles, want):
+        assert a == b if isinstance(a, int) else torch.equal(a, b)
+    y_loc = op.local_contributions(f)                                # (T, M, 6)
+    t, n = f.shape[0], f.shape[1] // 2
+    tiles = op.tiles
+    out = torch.zeros_like(f)
+    for v in range(n):
+        k = v // tiles.size
+        cells = tiles.cells[tiles.cell_ptr[k]:tiles.cell_ptr[k + 1]].long()
+        smem = y_loc[:, cells].reshape(t, -1)                        # tile-local
+        for e in tiles.gather[v].tolist():
+            if e >= 0:
+                out[:, v] += smem[:, e]
+                out[:, v + n] += smem[:, e + 1]
+    want_y = assembly.reduce_table(y_loc, op.gather_base)
+    assert rel_err(out.numpy(), want_y.numpy()) <= MATVEC_F64

@@ -97,9 +97,10 @@ def test_fem_kernels_match_plain(cuda, dtype):
                     dtype=torch.float64).to(cuda, dtype)
     fd = f.to(dtype)
     mv = (x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
-    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv))
+    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, tiles=op.tiles))
     _assert_close([got], [kfem.plain_fem_matvec(*mv)], dtype)
-    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, f=fd))
+    got = _launched("fem_matvec", dtype,
+                    lambda: kfem.fem_matvec(*mv, f=fd, tiles=op.tiles))
     want = kfem.plain_fem_matvec(*mv, f=fd)
     scale = float(fd.abs().max()) + float(kfem.plain_fem_matvec(*mv).abs().max())
     assert float((got - want).abs().max()) / scale <= TOL[dtype]
@@ -108,6 +109,97 @@ def test_fem_kernels_match_plain(cuda, dtype):
           mesh.areas.to(dtype), op.lambda_, base)
     got = _launched("jacobi_blocks", dtype, lambda: kfem.jacobi_blocks(*jb))
     _assert_close([got], [kfem.plain_jacobi_blocks(*jb)], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("size", [64, 256])
+@pytest.mark.parametrize("shape", ["sphere", "plane"])
+def test_fem_matvec_matches_plain_on_any_tiling(cuda, dtype, size, shape):
+    """K1 on a sphere patch (valence 5 and 6, padded table rows) and on a
+    391-vertex plane patch (no multiple of either tile size), 5 frames (no
+    multiple of the frames a block takes), with and without f; two calls
+    are bitwise equal."""
+    if shape == "sphere":
+        mesh = synthetic.sphere_patch(n_sub=2, device=cuda)
+    else:
+        mesh = synthetic.plane_patch(nx=23, ny=17, lx=6.0, ly=4.0, device=cuda)
+    pot = _rand(cuda, torch.float64, 6, mesh.n_vertices, seed=3)
+    times = torch.arange(6, dtype=torch.float64, device=cuda) * 0.01
+    g, f = build_rhs(mesh, pot, times)
+    op = make_operator(mesh, g, 0.01).astype(dtype)
+    tiles = assembly.vertex_tiles(op.gather_base, op.dof, op.blocks2, size)
+    x, fd = _rand(cuda, dtype, *f.shape, seed=4), f.to(dtype)
+    mv = (x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
+    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, tiles=tiles))
+    _assert_close([got], [kfem.plain_fem_matvec(*mv)], dtype)
+    assert torch.equal(kfem.fem_matvec(*mv, tiles=tiles), got)
+    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, f=fd, tiles=tiles))
+    want = kfem.plain_fem_matvec(*mv, f=fd)
+    scale = float(fd.abs().max()) + float(kfem.plain_fem_matvec(*mv).abs().max())
+    assert float((got - want).abs().max()) / scale <= TOL[dtype]
+    assert torch.equal(kfem.fem_matvec(*mv, f=fd, tiles=tiles), got)
+
+
+def test_fem_matvec_on_cuda_needs_tiles(cuda):
+    mesh, pot, times = _problem(cuda)
+    g, f = build_rhs(mesh, pot, times)
+    op = make_operator(mesh, g, 0.01)
+    with pytest.raises(ValueError, match="vertex tiles"):
+        kfem.fem_matvec(f, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
+                        op.gather_base)
+
+
+def _update_pair(x, r, p, ap, dinv, rz, pap):
+    """pcg_update and its plain version on copies of the same state."""
+    outs = []
+    for fn in (kfem.pcg_update, kfem.plain_pcg_update):
+        xs, rs, zs = x.clone(), r.clone(), torch.empty_like(x)
+        rz_new, rr = torch.empty_like(rz), torch.empty_like(rz)
+        fn(xs, rs, zs, p, ap, dinv, rz, pap, rz_new, rr)
+        outs.append((xs, rs, zs, rz_new, rr))
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 97])
+@pytest.mark.parametrize("n", [1, 3, 5, 257, 3136, 12547])
+def test_pcg_update_matches_plain_for_any_row_length(cuda, dtype, t, n):
+    """K3's update with one block a frame (small n), several (3136, 12547),
+    vectors or single elements (n * size a multiple of 16 or not), and
+    frames with pAp = 0 (x and r kept); two calls are bitwise equal."""
+    x, r, p, ap = (_rand(cuda, dtype, t, 2 * n, seed=20 + k) for k in range(4))
+    dinv = _rand(cuda, dtype, t, n, 2, 2, seed=24)
+    rz = _rand(cuda, dtype, t, seed=25).abs()
+    pap = _rand(cuda, dtype, t, seed=26).abs()
+    pap[::3] = 0.0
+    before = kernels.LAUNCHES[f"pcg_update<{'float' if dtype == torch.float32 else 'double'}>"]
+    got, want = _update_pair(x, r, p, ap, dinv, rz, pap)
+    _assert_close(got, want, dtype)
+    torch.testing.assert_close(got[0][::3], x[::3], rtol=0, atol=0)
+    torch.testing.assert_close(got[1][::3], r[::3], rtol=0, atol=0)
+    again, _ = _update_pair(x, r, p, ap, dinv, rz, pap)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ctype = "float" if dtype == torch.float32 else "double"
+    assert kernels.LAUNCHES[f"pcg_update<{ctype}>"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pcg_update_on_offset_views(cuda, dtype):
+    """Rows off a 16-byte boundary (views with an odd storage offset): all
+    five vectors at one offset (vectors with a scalar head and tail) and one
+    of them at another (single elements)."""
+    t, n = 97, 3136
+    bufs = [_rand(cuda, dtype, t * 2 * n + 1, seed=30 + k) for k in range(5)]
+    x, r, p, ap = (b[1:].view(t, 2 * n) for b in bufs[:4])
+    aligned = bufs[4][:-1].view(t, 2 * n)
+    dinv = _rand(cuda, dtype, t, n, 2, 2, seed=35)
+    rz, pap = (_rand(cuda, dtype, t, seed=36 + k).abs() for k in range(2))
+    for q in (ap, aligned):
+        got, want = _update_pair(x, r, p, q, dinv, rz, pap)
+        _assert_close(got, want, dtype)
+        again, _ = _update_pair(x, r, p, q, dinv, rz, pap)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
