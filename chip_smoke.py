@@ -14,10 +14,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and the device time per call of the kernel alone and of the library
      call (torch.profiler over 20 calls), with bound / device. K1's library
      call is torch.sparse.mm on the block-diagonal CSR matrix of every
-     frame's assembled a1_k + lambda a2. [parent] lines hold K1 and K3's
-     update against the parent's designs, built from the same sources (K1
-     in two launches through a (T, M, 6) y_loc, the update with one block a
-     frame): bitwise equality and device times in turns.
+     frame's assembled a1_k + lambda a2.
   4. slice: the bench problem (3136 vertices, 97 velocity frames, lambda
      0.01) through compute_velocity_fields(method='refined', tol=1e-6);
      every frame must converge, every kernel of the path must have launched,
@@ -546,19 +543,18 @@ def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
     key = f"fem_matvec<{ctype}>"
     if f is None:
         checks.compare(key + suffix, FEM_CU, "manifold_flow_tpu/fem/operator.py:69",
-                       lambda: (kfem.fem_matvec(*mv, tiles=op.tiles),),
+                       lambda: (kfem.fem_matvec(*mv, op.tiles),),
                        lambda: (kfem.plain_fem_matvec(*mv),), tol,
                        inputs=mv, ops=t * 106 * mesh.n_triangles,
                        library=lambda: torch.sparse.mm(a_csr, x_col), launches_key=key)
     else:  # scaled by max|f| + max|Ax|
         scale = float(f.abs().max()) + float(ax.abs().max())
         checks.compare(key + suffix, FEM_CU, "manifold_flow_tpu/fem/df_operator.py:66",
-                       lambda: (kfem.fem_matvec(*mv, f=f, tiles=op.tiles),),
+                       lambda: (kfem.fem_matvec(*mv, op.tiles, f=f),),
                        lambda: (kfem.plain_fem_matvec(*mv, f=f),), tol,
                        scales=[scale], inputs=(*mv, f),
                        ops=t * (106 * mesh.n_triangles + n_dof),
                        library=lambda: torch.sparse.mm(a_csr, x_col), launches_key=key)
-    against_first_matvec(checks, key + suffix, op, x, f)
     del a_csr
 
 
@@ -595,83 +591,6 @@ def check_update(checks: KernelChecks, p, ap, dinv, rz, rand, tol=TOL_F32,
     got = update(kfem.pcg_update)
     if not all(torch.equal(a, b) for a, b in zip(got, update(kfem.pcg_update))):
         raise AssertionError(f"{key}{suffix}: two calls on the same inputs differ")
-    against_first_update(key + suffix, update, update_in_place, got)
-
-
-def first_design(name: str, dtype):
-    """This build's entry point of the parent's design (K1's two launches
-    through y_loc, K3's update with one block a frame), with its types."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import library
-
-    ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    fn = getattr(library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
-    fn.argtypes = {"fem_matvec_two_pass": [ptr] * 5 + [f64] + [ptr] * 4 + [i64] * 4 + [ptr],
-                   "pcg_update_one_block": [ptr] * 10 + [i64] * 2 + [ptr]}[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def against_first_matvec(checks: KernelChecks, label: str, op, x, f=None) -> None:
-    """K1 against the parent's two-launch design on the same inputs: whether
-    the outputs are bitwise equal, and both device times, in turns."""
-    from manifold_flow_tpu_torch.kernels import fem as kfem
-
-    two_pass = first_design("fem_matvec_two_pass", x.dtype)
-    t, n_dof = x.shape
-    m, c = op.dof.shape[0], op.gather_base.shape[1]
-    y_loc = torch.empty((t, m, 6), dtype=x.dtype, device=x.device)
-
-    def first():
-        out = torch.empty_like(x)
-        err = two_pass(x.data_ptr(), op.dof.data_ptr(), op.blocks2.data_ptr(),
-                       op.g.data_ptr(), op.w_scale.data_ptr(), float(op.lambda_),
-                       op.gather_base.data_ptr(), None if f is None else f.data_ptr(),
-                       y_loc.data_ptr(), out.data_ptr(), t, m, n_dof // 2, c, _stream())
-        if err != 0:
-            raise RuntimeError(f"the two-pass K1 failed: CUDA error {err}")
-        return out
-
-    def this():
-        return kfem.fem_matvec(x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
-                               op.gather_base, f=f, tiles=op.tiles)
-    same = torch.equal(this(), first())
-    us = [device_us(fn, mine=own_kernel) for fn in (this, first, first, this)]
-    print(f"[parent] {label}: bitwise equal to the two-launch design: {same}; "
-          f"device {fmt_us(us[0])} / {fmt_us(us[3])} against the two-launch "
-          f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); on {checks.card}", flush=True)
-
-
-def against_first_update(label: str, update, update_in_place, got) -> None:
-    """K3's update against the parent's one-block design on the same inputs:
-    x, r, z bitwise, r.z and r.r to their summation order, device times in
-    turns."""
-    from manifold_flow_tpu_torch.kernels import fem as kfem
-
-    dtype = got[0].dtype
-    one_block = first_design("pcg_update_one_block", dtype)
-
-    def first(x, r, z, p, ap, dinv, rz, pap, rz_new, rr):
-        err = one_block(*(v.data_ptr() for v in (x, r, z, p, ap, dinv, rz, pap, rz_new, rr)),
-                        x.shape[0], x.shape[1] // 2, _stream())
-        if err != 0:
-            raise RuntimeError(f"the one-block update failed: CUDA error {err}")
-    want = update(first)
-    same = [torch.equal(a, b) for a, b in zip(got[:3], want[:3])]
-    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[3:], want[3:])]
-    bufs = [[v.clone() for v in want] for _ in range(2)]
-    us = [device_us(fn, mine=own_kernel) for fn in (
-        update_in_place(kfem.pcg_update, bufs[0]), update_in_place(first, bufs[1]),
-        update_in_place(first, bufs[1]), update_in_place(kfem.pcg_update, bufs[0]))]
-    print(f"[parent] {label}: x, r, z bitwise equal to the one-block design: {same}; "
-          f"r.z, r.r relative difference {rel[0]:.2e}, {rel[1]:.2e}; device "
-          f"{fmt_us(us[0])} / {fmt_us(us[3])} against the one-block {fmt_us(us[1])} / "
-          f"{fmt_us(us[2])} (in turns)", flush=True)
 
 
 def check_analysis_kernels(checks: KernelChecks, mesh, v_k) -> None:

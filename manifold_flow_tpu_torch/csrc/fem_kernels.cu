@@ -177,50 +177,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
   }
 }
 
-// The first design of K1, phase 1 (kept to hold the new design against it
-// on the card): one thread per (frame, triangle) writes the local product
-// to y_loc (T, M, 6) in device memory.
-template <typename T>
-__global__ void fem_local_kernel(const T* __restrict__ x,
-                                 const int32_t* __restrict__ dof,
-                                 const T* __restrict__ blocks2,
-                                 const T* __restrict__ g,
-                                 const T* __restrict__ w_scale, T lambda,
-                                 T* __restrict__ y_loc, int64_t n_frames,
-                                 int64_t n_tri, int64_t n_dof) {
-  const int64_t i = global_index();
-  if (i >= n_frames * n_tri) return;
-  const int64_t t = i / n_tri;
-  const int64_t m = i - t * n_tri;
-  const T* xt = x + t * n_dof;
-  T xl[6], gl[6];
-#pragma unroll
-  for (int l = 0; l < 6; ++l) {
-    xl[l] = xt[dof[m * 6 + l]];
-    gl[l] = g[i * 6 + l];
-  }
-  T s[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    s[c] = gl[2 * c] * xl[2 * c] + gl[2 * c + 1] * xl[2 * c + 1];
-  }
-  const T stot = s[0] + s[1] + s[2];
-  const T ws = w_scale[m];
-  const T* b = blocks2 + m * 36;
-#pragma unroll
-  for (int l = 0; l < 6; ++l) {
-    T y2 = T(0);
-#pragma unroll
-    for (int j = 0; j < 6; ++j) y2 += b[l * 6 + j] * xl[j];
-    const T w = ws * (s[l >> 1] + stot);
-    y_loc[i * 6 + l] = lambda * y2 + gl[l] * w;
-  }
-}
-
-// The reduction of K4 (and phase 2 of K1's first design): one thread per
-// (frame, vertex) sums the vertex's incident (cell, slot) entries of y_loc
-// in table order, the order of fem/operator.py:79-84, and writes y (or
-// f - y when f is given).
+// K4's reduction: one thread per (frame, vertex) sums the vertex's incident
+// (cell, slot) entries of the local RHS in table order, the order of
+// fem/operator.py:79-84.
 template <typename T>
 __global__ void gather_kernel(const T* __restrict__ y_loc,
                               const int32_t* __restrict__ gather_base,
@@ -400,31 +359,6 @@ int fem_matvec(const void* x, const void* cell_dof, const void* tile_blocks2,
 }
 
 template <typename T>
-int fem_matvec_two_pass(const void* x, const void* dof, const void* blocks2,
-                        const void* g, const void* w_scale, double lambda,
-                        const void* gather_base, const void* f, void* y_loc,
-                        void* out, int64_t n_frames, int64_t n_tri,
-                        int64_t n_vert, int64_t n_cols, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_loc = n_frames * n_tri;
-  const int64_t n_out = n_frames * n_vert;
-  if (n_loc > 0) {
-    fem_local_kernel<T><<<blocks_for(n_loc), kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const int32_t*>(dof),
-        static_cast<const T*>(blocks2), static_cast<const T*>(g),
-        static_cast<const T*>(w_scale), static_cast<T>(lambda),
-        static_cast<T*>(y_loc), n_frames, n_tri, 2 * n_vert);
-  }
-  if (n_out > 0) {
-    gather_kernel<T><<<blocks_for(n_out), kThreads, 0, s>>>(
-        static_cast<const T*>(y_loc), static_cast<const int32_t*>(gather_base),
-        static_cast<const T*>(f), static_cast<T*>(out), n_frames, n_vert,
-        n_cols, 6 * n_tri);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int jacobi_blocks(const void* g, const void* reg, const void* areas,
                   double lambda, const void* gather_base, void* dinv,
                   int64_t n_frames, int64_t n_tri, int64_t n_vert,
@@ -480,15 +414,6 @@ int frame_factors_rhs(const void* pot, const void* nxt, const void* times,
                              cell_ptr, cells, gather, f, out, n_frames,       \
                              n_tri, n_vert, n_cols, tile_size, n_tiles,       \
                              max_cells, n_listed, frames_per_block, stream);  \
-  }                                                                           \
-  extern "C" int mf_fem_matvec_two_pass_##SUFFIX(                             \
-      const void* x, const void* dof, const void* blocks2, const void* g,     \
-      const void* w_scale, double lambda, const void* gather_base,            \
-      const void* f, void* y_loc, void* out, int64_t n_frames, int64_t n_tri, \
-      int64_t n_vert, int64_t n_cols, void* stream) {                         \
-    return mf::fem_matvec_two_pass<T>(x, dof, blocks2, g, w_scale, lambda,    \
-                                      gather_base, f, y_loc, out, n_frames,   \
-                                      n_tri, n_vert, n_cols, stream);         \
   }                                                                           \
   extern "C" int mf_jacobi_blocks_##SUFFIX(                                   \
       const void* g, const void* reg, const void* areas, double lambda,       \

@@ -104,51 +104,6 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[t] = acc;
 }
 
-// pcg_update's first design (kept to hold the new one against it on the
-// card): one block per frame, scalar loads.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    update_one_block_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ z,
-                  const T* __restrict__ p, const T* __restrict__ ap,
-                  const T* __restrict__ dinv, const T* __restrict__ rz,
-                  const T* __restrict__ pap, T* __restrict__ rz_new,
-                  T* __restrict__ rr, int64_t n_vert) {
-  __shared__ T scratch[kWarps];
-  const int64_t t = blockIdx.x;
-  const T pa = pap[t];
-  const T alpha = (pa != T(0)) ? rz[t] / pa : T(0);
-  const int64_t off = t * 2 * n_vert;
-  T* xt = x + off;
-  T* rt = r + off;
-  T* zt = z + off;
-  const T* pt = p + off;
-  const T* apt = ap + off;
-  const T* dt = dinv + t * n_vert * 4;
-  T acc_rz = T(0), acc_rr = T(0);
-  for (int64_t v = threadIdx.x; v < n_vert; v += kThreads) {
-    const int64_t w = v + n_vert;
-    xt[v] += alpha * pt[v];
-    xt[w] += alpha * pt[w];
-    const T r1 = rt[v] - alpha * apt[v];
-    const T r2 = rt[w] - alpha * apt[w];
-    rt[v] = r1;
-    rt[w] = r2;
-    const T* d = dt + v * 4;
-    const T z1 = d[0] * r1 + d[1] * r2;
-    const T z2 = d[2] * r1 + d[3] * r2;
-    zt[v] = z1;
-    zt[w] = z2;
-    acc_rz += r1 * z1 + r2 * z2;
-    acc_rr += r1 * r1 + r2 * r2;
-  }
-  acc_rz = block_sum(acc_rz, scratch);
-  acc_rr = block_sum(acc_rr, scratch);
-  if (threadIdx.x == 0) {
-    rz_new[t] = acc_rz;
-    rr[t] = acc_rr;
-  }
-}
-
 // One vertex's step of pcg_update, the first design's expression: x += alpha
 // p, r -= alpha Ap, z = D^-1 r, and its terms of r.z and r.r.
 template <typename T>
@@ -375,23 +330,6 @@ int pcg_update(void* x, void* r, void* z, const void* p, const void* ap,
 }
 
 template <typename T>
-int pcg_update_one_block(void* x, void* r, void* z, const void* p,
-                         const void* ap, const void* dinv, const void* rz,
-                         const void* pap, void* rz_new, void* rr,
-                         int64_t n_frames, int64_t n_vert, void* stream) {
-  if (n_frames > 0) {
-    update_one_block_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads,
-                                 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<T*>(x), static_cast<T*>(r), static_cast<T*>(z),
-        static_cast<const T*>(p), static_cast<const T*>(ap),
-        static_cast<const T*>(dinv), static_cast<const T*>(rz),
-        static_cast<const T*>(pap), static_cast<T*>(rz_new),
-        static_cast<T*>(rr), n_vert);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int pcg_direction(void* p, const void* z, const void* rz_new,
                   const void* rz_old, int64_t n_frames, int64_t n_dof,
                   void* stream) {
@@ -421,13 +359,6 @@ int pcg_direction(void* p, const void* z, const void* rz_new,
       int64_t n_slices, void* stream) {                                       \
     return mf::pcg_update<T>(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, part, \
                              ticket, n_frames, n_vert, n_slices, stream);     \
-  }                                                                           \
-  extern "C" int mf_pcg_update_one_block_##SUFFIX(                            \
-      void* x, void* r, void* z, const void* p, const void* ap,               \
-      const void* dinv, const void* rz, const void* pap, void* rz_new,        \
-      void* rr, int64_t n_frames, int64_t n_vert, void* stream) {             \
-    return mf::pcg_update_one_block<T>(x, r, z, p, ap, dinv, rz, pap, rz_new, \
-                                       rr, n_frames, n_vert, stream);         \
   }                                                                           \
   extern "C" int mf_pcg_direction_##SUFFIX(                                   \
       void* p, const void* z, const void* rz_new, const void* rz_old,         \

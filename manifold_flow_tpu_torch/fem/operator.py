@@ -62,13 +62,12 @@ class FlowOperator:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """Apply A to x (T, 2N) -> (T, 2N)."""
         return kfem.fem_matvec(x, self.dof, self.blocks2, self.g, self.w_scale,
-                               self.lambda_, self.gather_base, tiles=self.tiles)
+                               self.lambda_, self.gather_base, self.tiles)
 
     def residual(self, f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """f - A x in one pass (the subtraction is fused into the reduction)."""
         return kfem.fem_matvec(x, self.dof, self.blocks2, self.g, self.w_scale,
-                               self.lambda_, self.gather_base, f=f,
-                               tiles=self.tiles)
+                               self.lambda_, self.gather_base, self.tiles, f=f)
 
 
 def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperator:

@@ -82,14 +82,15 @@ SMEM_BYTES = 227 * 1024  # shared memory a block can have on the H100
 
 def fem_matvec(x: torch.Tensor, dof: torch.Tensor, blocks2: torch.Tensor,
                g: torch.Tensor, w_scale: torch.Tensor, lambda_: float,
-               gather_base: torch.Tensor, f: torch.Tensor | None = None,
-               tiles: assembly.VertexTiles | None = None) -> torch.Tensor:
+               gather_base: torch.Tensor, tiles: assembly.VertexTiles,
+               f: torch.Tensor | None = None) -> torch.Tensor:
     """K1 `fem_matvec<T>`: y = (a1_k + lambda a2) x for all frames, or the
     residual f - y when `f` is given.
 
     x, f (T, 2N); dof (M, 6) int32; blocks2 (M, 6, 6); g (T, M, 3, 2);
     w_scale (M,) = A/12; gather_base (N, C) int32 (assembly.gather_base_table);
-    tiles (assembly.vertex_tiles of gather_base), required on CUDA tensors.
+    tiles (assembly.vertex_tiles of gather_base; the plain version reads
+    gather_base instead).
 
     Replaces fem/operator.py:56 `local_contributions` + :69 `matvec` (B2) and,
     as the f64 instance with `f`, fem/df_operator.py:45 `DFFlowOperator.matvec`
@@ -122,9 +123,6 @@ def fem_matvec(x: torch.Tensor, dof: torch.Tensor, blocks2: torch.Tensor,
     if not _on_cuda(x, dof, blocks2, g, w_scale, gather_base, f):
         return plain_fem_matvec(x, dof, blocks2, g, w_scale, lambda_,
                                 gather_base, f)
-    if tiles is None:
-        raise ValueError("fem_matvec on CUDA tensors needs the vertex tiles "
-                         "(fem.assembly.vertex_tiles, FlowOperator.tiles)")
     n_tiles, n_listed = -(-n // tiles.size), tiles.cells.shape[0]
     _check("tiles.cell_ptr", tiles.cell_ptr, torch.int32, (n_tiles + 1,))
     _check("tiles.cells", tiles.cells, torch.int32, (n_listed,))

@@ -195,7 +195,8 @@ def test_vertex_tiles_hold_every_gather_entry_once_in_order(name, size):
     assert tiles.max_cells == int(np.diff(ptr).max())
     assert gather.shape == tuple(base.shape) and gather.dtype == np.int32
     padded = base.numpy() == 6 * m
-    assert padded.any()
+    if name == "sphere":  # its 12 vertices of valence 5 have one padded entry
+        assert (padded.sum(axis=1) == 1).sum() == 12
     np.testing.assert_array_equal(gather < 0, padded)
     tile = np.arange(n) // size
     for k in range(len(ptr) - 1):
@@ -208,14 +209,6 @@ def test_vertex_tiles_hold_every_gather_entry_once_in_order(name, size):
     local = np.where(gather < 0, 0, gather)
     rebuilt = cells[ptr[tile][:, None] + local // 6] * 6 + local % 6
     np.testing.assert_array_equal(np.where(padded, 6 * m, rebuilt), base.numpy())
-
-
-def test_sphere_tiles_have_padded_rows():
-    mesh = _tile_meshes()["sphere"]
-    tiles = assembly.vertex_tiles(assembly.gather_base_table(mesh),
-                                  assembly.local_dof_indices(mesh), assembly.a2_blocks(mesh))
-    assert (tiles.gather.numpy() < 0).any()
-    assert ((tiles.gather.numpy() < 0).sum(axis=1) == 1).sum() == 12  # valence 5
 
 
 def test_operator_carries_tiles_of_its_table(systems):

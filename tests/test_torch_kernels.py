@@ -97,10 +97,9 @@ def test_fem_kernels_match_plain(cuda, dtype):
                     dtype=torch.float64).to(cuda, dtype)
     fd = f.to(dtype)
     mv = (x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
-    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, tiles=op.tiles))
+    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, op.tiles))
     _assert_close([got], [kfem.plain_fem_matvec(*mv)], dtype)
-    got = _launched("fem_matvec", dtype,
-                    lambda: kfem.fem_matvec(*mv, f=fd, tiles=op.tiles))
+    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, op.tiles, f=fd))
     want = kfem.plain_fem_matvec(*mv, f=fd)
     scale = float(fd.abs().max()) + float(kfem.plain_fem_matvec(*mv).abs().max())
     assert float((got - want).abs().max()) / scale <= TOL[dtype]
@@ -130,23 +129,14 @@ def test_fem_matvec_matches_plain_on_any_tiling(cuda, dtype, size, shape):
     tiles = assembly.vertex_tiles(op.gather_base, op.dof, op.blocks2, size)
     x, fd = _rand(cuda, dtype, *f.shape, seed=4), f.to(dtype)
     mv = (x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
-    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, tiles=tiles))
+    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, tiles))
     _assert_close([got], [kfem.plain_fem_matvec(*mv)], dtype)
-    assert torch.equal(kfem.fem_matvec(*mv, tiles=tiles), got)
-    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, f=fd, tiles=tiles))
+    assert torch.equal(kfem.fem_matvec(*mv, tiles), got)
+    got = _launched("fem_matvec", dtype, lambda: kfem.fem_matvec(*mv, tiles, f=fd))
     want = kfem.plain_fem_matvec(*mv, f=fd)
     scale = float(fd.abs().max()) + float(kfem.plain_fem_matvec(*mv).abs().max())
     assert float((got - want).abs().max()) / scale <= TOL[dtype]
-    assert torch.equal(kfem.fem_matvec(*mv, f=fd, tiles=tiles), got)
-
-
-def test_fem_matvec_on_cuda_needs_tiles(cuda):
-    mesh, pot, times = _problem(cuda)
-    g, f = build_rhs(mesh, pot, times)
-    op = make_operator(mesh, g, 0.01)
-    with pytest.raises(ValueError, match="vertex tiles"):
-        kfem.fem_matvec(f, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
-                        op.gather_base)
+    assert torch.equal(kfem.fem_matvec(*mv, tiles, f=fd), got)
 
 
 def _update_pair(x, r, p, ap, dinv, rz, pap):
