@@ -634,6 +634,142 @@ def check_analysis_kernels(checks: KernelChecks, mesh, v_k) -> None:
                        nbytes=moved, ops=8 * t * cap * n_vert)
 
 
+def restriction_coo(r_blk, members) -> torch.Tensor:
+    """P^T as a coalesced (2Nc, 2N) sparse COO matrix: row 2a + b, column
+    v + N a', value R_v[a', b] for each member v of aggregate a (the pad
+    index N skipped). Its CSR form times K9's function as one
+    torch.sparse.mm; its transpose is P."""
+    n = r_blk.shape[0]
+    nc, k = members.shape
+    agg = torch.arange(nc, device=members.device)[:, None].expand(nc, k)
+    v = members.long()
+    keep = v != n
+    agg, v = agg[keep], v[keep]
+    two = torch.arange(2, device=members.device)
+    rows = (2 * agg[:, None, None] + two[None, None, :]).expand(-1, 2, 2)
+    cols = (v[:, None, None] + n * two[None, :, None]).expand(-1, 2, 2)
+    coo = torch.sparse_coo_tensor(torch.stack([rows.reshape(-1), cols.reshape(-1)]),
+                                  r_blk[v].reshape(-1), (2 * nc, 2 * n))
+    return coo.coalesce()
+
+
+def comparison_entry(name: str, dtype, argtypes):
+    """This build's entry point `name` of a design kept only for the
+    comparison (K9's and K11's first designs, their variants), with its
+    types."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import library
+
+    fn = getattr(library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def against_first_restrict(card: str, r, pre) -> None:
+    """K9 against its first design (a warp per (frame, aggregate)) on the
+    same inputs: rc bitwise and device times in turns; then the new design
+    at F = 1, 2, 4, 8 frames a warp, each bitwise equal too, in turns."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import coarse as kco
+
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    first = comparison_entry("coarse_restrict_first", r.dtype, [p] * 4 + [i] * 4 + [p])
+    variant = comparison_entry("coarse_restrict_variant", r.dtype, [p] * 4 + [i] * 5 + [p])
+    t, n = r.shape[0], r.shape[1] // 2
+    nc, k = pre.members.shape
+
+    def call(fn, *extra):
+        def run():
+            rc = torch.empty((t, 2 * nc), dtype=r.dtype, device=r.device)
+            _launched(fn(r.data_ptr(), pre.r_blk.data_ptr(), pre.members.data_ptr(),
+                         rc.data_ptr(), t, n, nc, k, *extra,
+                         torch.cuda.current_stream().cuda_stream), "coarse_restrict")
+            return rc
+        return run
+
+    def this():
+        return kco.coarse_restrict(r, pre.r_blk, pre.members)
+    want = call(first)()
+    same = torch.equal(this(), want)
+    us = [device_us(fn, mine=own_kernel) for fn in (this, call(first), call(first), this)]
+    frames = (1, 2, 4, 8)
+    equal = [torch.equal(call(variant, f)(), want) for f in frames]
+    sweep = [device_us(call(variant, f), mine=own_kernel) for f in frames + frames[::-1]]
+    ctype = "float" if r.dtype == torch.float32 else "double"
+    print(f"[parent] coarse_restrict<{ctype}>@12.5k: rc bitwise equal to the first "
+          f"design: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against the "
+          f"first design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns); F frames a "
+          f"warp, bitwise equal {equal}: " + ", ".join(
+              f"F={f} {fmt_us(a)} / {fmt_us(b)}"
+              for f, a, b in zip(frames, sweep[:4], sweep[::-1][:4])) + f"; on {card}",
+          flush=True)
+
+
+def against_first_prolong(card: str, z, r, yc, pre) -> None:
+    """K11 against its first design (one block a frame) on the same inputs:
+    z bitwise, rz to its summation order, device times in turns; then yc
+    through the read-only cache against yc staged in shared memory."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import coarse as kco
+    from manifold_flow_tpu_torch.kernels._lib import frame_slices, slice_workspace
+
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    first = comparison_entry("coarse_prolong_dot_first", z.dtype, [p] * 6 + [i] * 3 + [p])
+    variant = comparison_entry("coarse_prolong_dot_variant", z.dtype,
+                               [p] * 8 + [i] * 5 + [p])
+    t, n = z.shape[0], z.shape[1] // 2
+    nc = yc.shape[1] // 2
+    tables = (r.data_ptr(), yc.data_ptr(), pre.r_blk.data_ptr(), pre.agg.data_ptr())
+
+    def run_first(zs, rz):
+        _launched(first(zs.data_ptr(), *tables, rz.data_ptr(), t, n, nc,
+                        torch.cuda.current_stream().cuda_stream), "coarse_prolong_dot")
+
+    def run_variant(stage):
+        def run(zs, rz):
+            stream = torch.cuda.current_stream().cuda_stream
+            s = frame_slices(n, z.dtype)
+            part, ticket = slice_workspace(z.device, stream, t, s)
+            _launched(variant(zs.data_ptr(), *tables, rz.data_ptr(), part.data_ptr(),
+                              ticket.data_ptr(), t, n, nc, s, stage, stream),
+                      "coarse_prolong_dot")
+        return run
+
+    def this(zs, rz):
+        kco.coarse_prolong_dot(zs, r, yc, pre.r_blk, pre.agg, rz)
+
+    def outputs(fn):
+        zs, rz = z.clone(), torch.empty(t, dtype=z.dtype, device=z.device)
+        fn(zs, rz)
+        return zs, rz
+    got, want, staged = outputs(this), outputs(run_first), outputs(run_variant(1))
+    rel = float((got[1] - want[1]).abs().max() / want[1].abs().max())
+    bufs = (z.clone(), torch.empty(t, dtype=z.dtype, device=z.device))
+
+    def in_place(fn):
+        return lambda: fn(*bufs)
+    us = [device_us(in_place(fn), mine=own_kernel)
+          for fn in (this, run_first, run_first, this)]
+    ys = [device_us(in_place(run_variant(s)), mine=own_kernel) for s in (0, 1, 1, 0)]
+    ctype = "float" if z.dtype == torch.float32 else "double"
+    print(f"[parent] coarse_prolong_dot<{ctype}>@12.5k: z bitwise equal to the first "
+          f"design: {torch.equal(got[0], want[0])}; rz relative difference {rel:.2e}; "
+          f"device {fmt_us(us[0])} / {fmt_us(us[3])} against the first design's "
+          f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); yc through the read-only "
+          f"cache {fmt_us(ys[0])} / {fmt_us(ys[3])}, staged in shared memory "
+          f"{fmt_us(ys[1])} / {fmt_us(ys[2])} (outputs bitwise equal: "
+          f"{all(torch.equal(a, b) for a, b in zip(got, staged))}); on {card}", flush=True)
+
+
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
     """Phase 9: K8-K11 against their plain versions at the 12.5k shapes, in
     float32 (the refined solve's inner preconditioner) and float64 (cg)."""
@@ -670,12 +806,26 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
         pre = coarse.make_two_level(mesh, op.g, op.lambda_, tables)
         r, z = (torch.randn((t, n_dof), generator=gen, dtype=torch.float64)
                 .to(pot.device, dtype) for _ in range(2))
+        rc = kco.plain_coarse_restrict(r, pre.r_blk, pre.members)
+        # K9's library yardstick: P^T as a (2Nc, 2N) CSR matrix on r in
+        # column layout, both built before the timing.
+        pt_coo = restriction_coo(pre.r_blk, pre.members)
+        pt_csr, r_col = pt_coo.to_sparse_csr(), r.t().contiguous()
+        lib_err = float((torch.sparse.mm(pt_csr, r_col).t() - rc).abs().max())
+        print(f"[kernels] coarse_restrict<{ctype}>: torch.sparse.mm of P^T "
+              f"({pt_csr.values().numel()} non-zeros) on r in column layout differs "
+              f"from the plain version by {lib_err / float(rc.abs().max()):.3e} of "
+              f"its largest entry", flush=True)
+        if lib_err > tol * float(rc.abs().max()):
+            raise AssertionError(f"coarse_restrict<{ctype}>: torch.sparse.mm of P^T "
+                                 f"does not compute rc")
         checks.compare(f"coarse_restrict<{ctype}>", cu,
                        "manifold_flow_tpu/solve/coarse.py:243",
                        lambda: (kco.coarse_restrict(r, pre.r_blk, pre.members),),
                        lambda: (kco.plain_coarse_restrict(r, pre.r_blk, pre.members),),
-                       tol, inputs=(r, pre.r_blk, pre.members), ops=8 * t * mesh.n_vertices)
-        rc = kco.plain_coarse_restrict(r, pre.r_blk, pre.members)
+                       tol, inputs=(r, pre.r_blk, pre.members), ops=8 * t * mesh.n_vertices,
+                       library=lambda: torch.sparse.mm(pt_csr, r_col))
+        against_first_restrict(checks.card, r, pre)
         checks.compare(f"coarse_gemv<{ctype}>", cu,
                        "manifold_flow_tpu/solve/coarse.py:267",
                        lambda: (kco.coarse_gemv(pre.ac_inv, rc),),
@@ -740,6 +890,33 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                                   bufs[1][0], r, yc, pre.r_blk, pre.agg, bufs[1][1])),
                        inputs=(z, r, yc, pre.r_blk, pre.agg),
                        ops=t * (8 * mesh.n_vertices + 2 * n_dof))
+        if not all(torch.equal(a, b) for a, b in zip(prolong(kco.coarse_prolong_dot),
+                                                     prolong(kco.coarse_prolong_dot))):
+            raise AssertionError(f"coarse_prolong_dot<{ctype}>: two calls on the same "
+                                 f"inputs differ")
+        if not torch.equal(kco.coarse_restrict(r, pre.r_blk, pre.members),
+                           kco.coarse_restrict(r, pre.r_blk, pre.members)):
+            raise AssertionError(f"coarse_restrict<{ctype}>: two calls on the same "
+                                 f"inputs differ")
+        # For the record only (not ranked): no one PyTorch call computes K11;
+        # P as a (2N, 2Nc) CSR matrix in torch.sparse.addmm, then
+        # torch.linalg.vecdot, on column layouts built before the timing.
+        p_csr = pt_coo.t().coalesce().to_sparse_csr()
+        z_col, yc_col = z.t().contiguous(), yc.t().contiguous()
+
+        def two_calls():
+            zn = torch.sparse.addmm(z_col, p_csr, yc_col)
+            return zn, torch.linalg.vecdot(r_col, zn, dim=0)
+        want = prolong(kco.plain_coarse_prolong_dot)
+        zn, rzn = two_calls()
+        rel = max(float((zn.t() - want[0]).abs().max() / want[0].abs().max()),
+                  float((rzn - want[1]).abs().max() / want[1].abs().max()))
+        print(f"[kernels] coarse_prolong_dot<{ctype}>: for the record, "
+              f"torch.sparse.addmm + torch.linalg.vecdot {time_ms(two_calls):.4f} ms "
+              f"(device {fmt_us(device_us(two_calls))}), relative difference "
+              f"{rel:.3e} from the plain version; not ranked", flush=True)
+        del p_csr, pt_csr, pt_coo
+        against_first_prolong(checks.card, z, r, yc, pre)
 
         # K3's p.Ap at the 12.5k shapes (97 x 25088), on the operator's Ap.
         ap = kfem.plain_fem_matvec(z, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
@@ -2054,7 +2231,8 @@ def main() -> int:
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us > 0:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
-        print(f"[profile] 12.5k refined two-level solve (tol 1e-6): device busy "
+        print(f"[profile] 12.5k refined two-level solve (tol 1e-6): device time "
+              f"{dev_us / 1e3:.3f} ms, busy "
               f"{dev_us / wall_us:.3f} of {wall_us / 1e3:.2f} ms wall (profiled "
               f"run); by kernel: " + "; ".join(
                   f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
@@ -2062,6 +2240,14 @@ def main() -> int:
     else:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
+    # K9-K11 as the 12.5k solve runs them, beside their back-to-back times.
+    print("[profile] coarse kernels at 12.5k, device us a launch back to back / in "
+          "the 12.5k solve / bound: " + ", ".join(
+              f"{k} {fmt_us(checks.rows[k]['device_us'])} / "
+              f"{fmt_us(in_solve['12.5k'].get(k))} x{LAUNCHES[k]} / "
+              f"{checks.rows[k]['bound_ms'] * 1e3:.2f} us"
+              for k in (f"{name}<float>" for name in COARSE_KERNELS[1:]))
+          + f"; on {card}", flush=True)
     for label, us in in_solve.items():
         print(f"[profile] device us a launch in the {label} solve: " + ", ".join(
             f"{k} {v:.2f}" for k, v in sorted(us.items(), key=lambda kv: -kv[1]))

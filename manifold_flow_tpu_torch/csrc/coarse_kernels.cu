@@ -25,9 +25,14 @@
 //       the (T, M, 36) contributions (344 MB) out of memory altogether and
 //       forms each one in registers, a warp per (frame, entry) so that the
 //       gathers of 32 contributions are in flight at once.
-//   K9  per PCG iteration: reads r (9.7 MB); a warp per (frame, aggregate)
-//       reads its up-to-64 members together (a thread per aggregate would
-//       leave 97 x 196 threads walking them one load at a time).
+//   K9  per PCG iteration: reads r (9.7 MB, 3.0 us at 3.35 TB/s), gathered
+//       by member. Its first design ran a warp per (frame, aggregate): the
+//       frame-independent members (50 KB) and R_v (200 KB) came again from
+//       L2 for each of the 97 frames (~24 MB), and each lane had one
+//       dependent chain (member id, then r) in flight. This design gives a
+//       warp one aggregate for kRestrictFrames frames: the ids and R_v load
+//       once, then every frame's r loads go out together. See
+//       restrict_kernel.
 //   K10 per PCG iteration: reads A_c^-1 (60 MB, 119 MB in f64, both beyond
 //       the 50 MB L2), the largest read of an iteration: 17.9 / 35.8 us at
 //       3.35 TB/s. Its first design ran a warp per row in 4- or 8-byte
@@ -38,8 +43,12 @@
 //       vectors, a lane's share of the row (up to 16 values) loaded before
 //       its multiply-adds; float64 and a shared matrix keep the first
 //       design. See gemv_kernel.
-//   K11 per PCG iteration: reads z and r and writes z (29 MB); one block
-//       per frame so the dot product closes in the same pass.
+//   K11 per PCG iteration: reads z and r and writes z (29 MB, 8.8 us). Its
+//       first design ran one block a frame (97 blocks on 132 SMs), each
+//       thread walking ~49 vertices with 4-byte loads. This design runs S
+//       blocks a frame with 16-byte loads, as pcg_update does, and closes
+//       r.z through the same slice-order closing (common.cuh
+//       close_slices). See prolong_dot_kernel.
 #include "common.cuh"
 
 namespace mf {
@@ -140,13 +149,112 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K9: rc[t][2a + b] = sum over the members v of aggregate a (the pad index N
-// skipped) of sum_a' R_v[a'][b] r[t][v + N a']; one warp per (frame,
-// aggregate), lane l taking members l, l + 32, ..., then the warp sum.
-template <typename T>
+// skipped) of sum_a' R_v[a'][b] r[t][v + N a']. A warp owns aggregate a for
+// F consecutive frames: lane l takes members l, l + 32, ..., kRestrictMembers
+// of them at a time, loads their ids and R_v once, then issues r[t][v] and
+// r[t][v + N] for all F frames before the multiply-adds (F x 4 loads in
+// flight a lane where one chain stood). Each frame's lane sum adds the
+// members in the same order as a warp per (frame, aggregate) would, then the
+// fixed-order warp sum closes it: rc is bitwise that design's.
+constexpr int kRestrictMembers = 2;  // members a lane holds at once (64 a warp)
+constexpr int kRestrictFrames = 4;   // F, frames a warp serves
+
+// R_v (4 values at r_blk + 4v) into q: one 16-byte load (two in f64) where
+// r_blk is 16-byte aligned, else one value a load.
+__device__ __forceinline__ void load_block(const float* rb, bool aligned, float* q) {
+  if (aligned) {
+    unpack(__ldg(reinterpret_cast<const float4*>(rb)), q);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = __ldg(rb + i);
+  }
+}
+__device__ __forceinline__ void load_block(const double* rb, bool aligned, double* q) {
+  if (aligned) {
+    unpack(__ldg(reinterpret_cast<const double2*>(rb)), q);
+    unpack(__ldg(reinterpret_cast<const double2*>(rb) + 1), q + 2);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = __ldg(rb + i);
+  }
+}
+
+template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
     restrict_kernel(const T* __restrict__ r, const T* __restrict__ r_blk,
                     const int* __restrict__ members, T* __restrict__ rc,
-                    int64_t n_vert, int64_t n_coarse, int64_t k_width) {
+                    int64_t n_frames, int64_t n_vert, int64_t n_coarse,
+                    int64_t k_width) {
+  constexpr int M = kRestrictMembers;
+  const int64_t a = global_index() >> 5;
+  const int lane = threadIdx.x & 31;
+  if (a >= n_coarse) return;  // uniform across the warp
+  const int64_t t0 = static_cast<int64_t>(blockIdx.y) * F;
+  const bool aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
+  const int* ma = members + a * k_width;
+  T acc0[F], acc1[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc0[f] = acc1[f] = T(0);
+  for (int64_t k0 = lane; k0 < k_width; k0 += 32 * M) {
+    int64_t v[M];
+    T q[M][4];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int64_t k = k0 + 32 * m;
+      v[m] = k < k_width ? __ldg(ma + k) : n_vert;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      if (v[m] != n_vert) load_block(r_blk + 4 * v[m], aligned, q[m]);
+    }
+    T x1[F][M] = {}, x2[F][M] = {};
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const T* rt = r + (t0 + f) * 2 * n_vert;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (t0 + f < n_frames && v[m] != n_vert) {
+          x1[f][m] = __ldg(rt + v[m]);
+          x2[f][m] = __ldg(rt + v[m] + n_vert);
+        }
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (v[m] == n_vert) continue;
+        const T* rv = q[m];
+        const T r1 = x1[f][m];
+        const T r2 = x2[f][m];
+        acc0[f] += rv[0] * r1 + rv[2] * r2;
+        acc1[f] += rv[1] * r1 + rv[3] * r2;
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    acc0[f] = warp_sum(acc0[f]);
+    acc1[f] = warp_sum(acc1[f]);
+  }
+  if (lane != 0) return;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if (t0 + f < n_frames) {
+      rc[(t0 + f) * 2 * n_coarse + 2 * a] = acc0[f];
+      rc[(t0 + f) * 2 * n_coarse + 2 * a + 1] = acc1[f];
+    }
+  }
+}
+
+// K9's first design, kept to hold the new one against it on the card: one
+// warp per (frame, aggregate), lane l taking members l, l + 32, ..., then
+// the warp sum.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    restrict_first_kernel(const T* __restrict__ r, const T* __restrict__ r_blk,
+                          const int* __restrict__ members, T* __restrict__ rc,
+                          int64_t n_vert, int64_t n_coarse, int64_t k_width) {
   const int64_t a = global_index() >> 5;
   const int lane = threadIdx.x & 31;
   if (a >= n_coarse) return;  // uniform across the warp
@@ -263,13 +371,159 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // K11: z[t][v + N a] += sum_b R_v[a][b] yc[t][2 agg[v] + b], then
-// rz[t] = <r_t, z_t>; one block per frame.
+// rz[t] = <r_t, z_t>. Block (s, t) takes slice s of frame t (and of every
+// gridDim.y-th frame after it), as pcg_update's blocks do. When z's and r's
+// rows sit at one offset from a 16-byte boundary, N * sizeof(T) is a
+// multiple of 16, r_blk is aligned and agg is aligned at the first group
+// (always in the solve), each thread takes groups of W = 16 / sizeof(T)
+// vertices: z and r at rows v and v + N in 16-byte vectors, R_v in one
+// 16-byte vector a vertex (two in f64), agg as int4 (int2 in f64), all
+// loaded before the arithmetic; slice 0 also takes the elements before the
+// first boundary and slice S - 1 those after the last group. Otherwise the
+// slices cut the vertices and go one at a time. yc is read through the
+// read-only cache (kStage = false) or staged a frame at a time in shared
+// memory (kStage = true). Each vertex's z is the first design's expression
+// (prolong_vertex); the block's r.z closes in slice order (common.cuh
+// close_slices).
 template <typename T>
+__device__ __forceinline__ void prolong_vertex(T& z1, T& z2, T r1, T r2,
+                                               const T* rv, T ya, T yb, T& acc) {
+  z1 = z1 + (rv[0] * ya + rv[1] * yb);
+  z2 = z2 + (rv[2] * ya + rv[3] * yb);
+  acc += r1 * z1 + r2 * z2;
+}
+
+// One group of W aggregate ids from agg + v (16 bytes in f32, 8 in f64).
+__device__ __forceinline__ void load_ids(const int* p, int (&ids)[4]) {
+  const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+  ids[0] = q.x;
+  ids[1] = q.y;
+  ids[2] = q.z;
+  ids[3] = q.w;
+}
+__device__ __forceinline__ void load_ids(const int* p, int (&ids)[2]) {
+  const int2 q = __ldg(reinterpret_cast<const int2*>(p));
+  ids[0] = q.x;
+  ids[1] = q.y;
+}
+
+// yc[k] of the frame: from shared memory where staged, else through the
+// read-only cache.
+template <bool kStage, typename T>
+__device__ __forceinline__ T load_y(const T* ys, int64_t k) {
+  if constexpr (kStage) {
+    return ys[k];
+  } else {
+    return __ldg(ys + k);
+  }
+}
+
+// K11 on vertices [lo, hi) of one frame, one element at a time.
+template <bool kStage, typename T>
+__device__ __forceinline__ void prolong_scalar(T* zt, const T* rt, const T* ys,
+                                               const T* r_blk, const int* agg,
+                                               int64_t n_vert, int64_t lo,
+                                               int64_t hi, T& acc) {
+  for (int64_t v = lo + threadIdx.x; v < hi; v += kThreads) {
+    const int64_t w = v + n_vert;
+    const int64_t i = agg[v];
+    T z1 = zt[v], z2 = zt[w];
+    prolong_vertex(z1, z2, rt[v], rt[w], r_blk + 4 * v, load_y<kStage>(ys, 2 * i),
+                   load_y<kStage>(ys, 2 * i + 1), acc);
+    zt[v] = z1;
+    zt[w] = z2;
+  }
+}
+
+template <typename T, bool kStage>
 __global__ void __launch_bounds__(kThreads)
     prolong_dot_kernel(T* __restrict__ z, const T* __restrict__ r,
                        const T* __restrict__ yc, const T* __restrict__ r_blk,
                        const int* __restrict__ agg, T* __restrict__ rz,
-                       int64_t n_vert, int64_t n_coarse) {
+                       T* __restrict__ part, unsigned int* __restrict__ ticket,
+                       int64_t n_frames, int64_t n_vert, int64_t n_coarse) {
+  using V = typename Vec16<T>::type;
+  constexpr int W = kVecWidth<T>;
+  __shared__ T scratch[kWarps];
+  extern __shared__ __align__(16) unsigned char staged[];
+  const int n_slices = static_cast<int>(gridDim.x);
+  const int s = static_cast<int>(blockIdx.x);
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    const int64_t off = t * 2 * n_vert;
+    T* zt = z + off;
+    const T* rt = r + off;
+    const T* ys = yc + t * 2 * n_coarse;
+    if constexpr (kStage) {
+      T* buf = reinterpret_cast<T*>(staged);
+      for (int64_t i = threadIdx.x; i < 2 * n_coarse; i += kThreads) buf[i] = __ldg(ys + i);
+      __syncthreads();
+      ys = buf;
+    }
+    T acc = T(0);
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(zt) & 15;
+    const int64_t head = head_to_16(zt, n_vert);
+    const bool vec = (reinterpret_cast<uintptr_t>(rt) & 15) == a0 &&
+                     (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(agg + head) & (4 * W - 1)) == 0 &&
+                     ((n_vert * static_cast<int64_t>(sizeof(T))) & 15) == 0;
+    if (vec) {
+      const int64_t n_vec = (n_vert - head) / W;
+      const int64_t per = (n_vec + n_slices - 1) / n_slices;
+      const int64_t g_hi = (s + 1) * per < n_vec ? (s + 1) * per : n_vec;
+      for (int64_t k = s * per + threadIdx.x; k < g_hi; k += kThreads) {
+        const int64_t v = head + k * W;
+        const int64_t w = v + n_vert;
+        V zv[2], rv[2], bv[4];
+        int ids[W];
+        zv[0] = *reinterpret_cast<const V*>(zt + v);
+        zv[1] = *reinterpret_cast<const V*>(zt + w);
+        rv[0] = __ldg(reinterpret_cast<const V*>(rt + v));
+        rv[1] = __ldg(reinterpret_cast<const V*>(rt + w));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          bv[q] = __ldg(reinterpret_cast<const V*>(r_blk + v * 4) + q);
+        }
+        load_ids(agg + v, ids);
+        T z1[W], z2[W], r1[W], r2[W], b[4 * W];
+        unpack(zv[0], z1);
+        unpack(zv[1], z2);
+        unpack(rv[0], r1);
+        unpack(rv[1], r2);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) unpack(bv[q], b + q * W);
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          const int64_t i = ids[j];
+          prolong_vertex(z1[j], z2[j], r1[j], r2[j], b + 4 * j,
+                         load_y<kStage>(ys, 2 * i), load_y<kStage>(ys, 2 * i + 1), acc);
+        }
+        *reinterpret_cast<V*>(zt + v) = pack(z1);
+        *reinterpret_cast<V*>(zt + w) = pack(z2);
+      }
+      if (s == 0) prolong_scalar<kStage>(zt, rt, ys, r_blk, agg, n_vert, int64_t(0), head, acc);
+      if (s == n_slices - 1) {
+        prolong_scalar<kStage>(zt, rt, ys, r_blk, agg, n_vert, head + n_vec * W, n_vert, acc);
+      }
+    } else {
+      const int64_t per = (n_vert + n_slices - 1) / n_slices;
+      const int64_t hi = (s + 1) * per < n_vert ? (s + 1) * per : n_vert;
+      prolong_scalar<kStage>(zt, rt, ys, r_blk, agg, n_vert, s * per, hi, acc);
+    }
+    // block_sum's barriers also keep the staged yc until every thread is done.
+    const T sums[1] = {block_sum(acc, scratch)};
+    T* const outs[1] = {rz};
+    close_slices(sums, outs, part, ticket, t);
+  }
+}
+
+// K11's first design, kept to hold the new one against it on the card: one
+// block per frame.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    prolong_dot_first_kernel(T* __restrict__ z, const T* __restrict__ r,
+                             const T* __restrict__ yc, const T* __restrict__ r_blk,
+                             const int* __restrict__ agg, T* __restrict__ rz,
+                             int64_t n_vert, int64_t n_coarse) {
   __shared__ T scratch[kWarps];
   const int64_t t = blockIdx.x;
   T* zt = z + t * 2 * n_vert;
@@ -321,16 +575,58 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int F>
+int launch_restrict(const void* r, const void* r_blk, const void* members,
+                    void* rc, int64_t n_frames, int64_t n_vert,
+                    int64_t n_coarse, int64_t k_width, void* stream) {
+  const int64_t groups = (n_frames + F - 1) / F;
+  if (groups > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_frames > 0 && n_coarse > 0) {
+    const dim3 grid(blocks_for(n_coarse * 32), static_cast<unsigned int>(groups));
+    restrict_kernel<T, F><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(r), static_cast<const T*>(r_blk),
+        static_cast<const int*>(members), static_cast<T*>(rc), n_frames, n_vert,
+        n_coarse, k_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int coarse_restrict(const void* r, const void* r_blk, const void* members,
                     void* rc, int64_t n_frames, int64_t n_vert,
                     int64_t n_coarse, int64_t k_width, void* stream) {
+  return launch_restrict<T, kRestrictFrames>(r, r_blk, members, rc, n_frames,
+                                             n_vert, n_coarse, k_width, stream);
+}
+
+// K9 with F = `frames` frames a warp (1, 2, 4 or 8), to choose F on the card.
+template <typename T>
+int coarse_restrict_variant(const void* r, const void* r_blk, const void* members,
+                            void* rc, int64_t n_frames, int64_t n_vert,
+                            int64_t n_coarse, int64_t k_width, int64_t frames,
+                            void* stream) {
+  switch (frames) {
+    case 1:
+      return launch_restrict<T, 1>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
+    case 2:
+      return launch_restrict<T, 2>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
+    case 4:
+      return launch_restrict<T, 4>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
+    case 8:
+      return launch_restrict<T, 8>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int coarse_restrict_first(const void* r, const void* r_blk, const void* members,
+                          void* rc, int64_t n_frames, int64_t n_vert,
+                          int64_t n_coarse, int64_t k_width, void* stream) {
   if (n_frames > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
   if (n_frames > 0 && n_coarse > 0) {
-    const dim3 grid(blocks_for(n_coarse * 32),
-                    static_cast<unsigned int>(n_frames));
-    restrict_kernel<T><<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(blocks_for(n_coarse * 32), static_cast<unsigned int>(n_frames));
+    restrict_first_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(r), static_cast<const T*>(r_blk),
         static_cast<const int*>(members), static_cast<T*>(rc), n_vert,
         n_coarse, k_width);
@@ -360,14 +656,60 @@ int coarse_gemv(const void* a, const void* x, void* y, int64_t n_frames,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int coarse_prolong_dot(void* z, const void* r, const void* yc,
-                       const void* r_blk, const void* agg, void* rz,
+template <typename T, bool kStage>
+int launch_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk,
+                       const void* agg, void* rz, void* part, void* ticket,
                        int64_t n_frames, int64_t n_vert, int64_t n_coarse,
-                       void* stream) {
+                       int64_t n_slices, void* stream) {
   if (n_frames > 0) {
-    prolong_dot_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+    const size_t smem = kStage ? 2 * n_coarse * sizeof(T) : 0;
+    if (n_slices < 1 || n_slices > kMaxSlices || smem > 48 * 1024) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid(static_cast<unsigned int>(n_slices), frame_blocks(n_frames));
+    prolong_dot_kernel<T, kStage><<<grid, kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(z), static_cast<const T*>(r), static_cast<const T*>(yc),
+        static_cast<const T*>(r_blk), static_cast<const int*>(agg),
+        static_cast<T*>(rz), static_cast<T*>(part),
+        static_cast<unsigned int*>(ticket), n_frames, n_vert, n_coarse);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk,
+                       const void* agg, void* rz, void* part, void* ticket,
+                       int64_t n_frames, int64_t n_vert, int64_t n_coarse,
+                       int64_t n_slices, void* stream) {
+  return launch_prolong_dot<T, false>(z, r, yc, r_blk, agg, rz, part, ticket,
+                                      n_frames, n_vert, n_coarse, n_slices, stream);
+}
+
+// K11 with yc staged in shared memory (stage != 0) or read through the
+// read-only cache, to choose on the card.
+template <typename T>
+int coarse_prolong_dot_variant(void* z, const void* r, const void* yc,
+                               const void* r_blk, const void* agg, void* rz,
+                               void* part, void* ticket, int64_t n_frames,
+                               int64_t n_vert, int64_t n_coarse, int64_t n_slices,
+                               int64_t stage, void* stream) {
+  if (stage) {
+    return launch_prolong_dot<T, true>(z, r, yc, r_blk, agg, rz, part, ticket,
+                                       n_frames, n_vert, n_coarse, n_slices, stream);
+  }
+  return launch_prolong_dot<T, false>(z, r, yc, r_blk, agg, rz, part, ticket,
+                                      n_frames, n_vert, n_coarse, n_slices, stream);
+}
+
+template <typename T>
+int coarse_prolong_dot_first(void* z, const void* r, const void* yc,
+                             const void* r_blk, const void* agg, void* rz,
+                             int64_t n_frames, int64_t n_vert, int64_t n_coarse,
+                             void* stream) {
+  if (n_frames > 0) {
+    prolong_dot_first_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<T*>(z), static_cast<const T*>(r),
         static_cast<const T*>(yc), static_cast<const T*>(r_blk),
         static_cast<const int*>(agg), static_cast<T*>(rz), n_vert, n_coarse);
@@ -402,10 +744,43 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc,
   }                                                                            \
   extern "C" int mf_coarse_prolong_dot_##SUFFIX(                               \
       void* z, const void* r, const void* yc, const void* r_blk,               \
+      const void* agg, void* rz, void* part, void* ticket, int64_t n_frames,   \
+      int64_t n_vert, int64_t n_coarse, int64_t n_slices, void* stream) {      \
+    return mf::coarse_prolong_dot<T>(z, r, yc, r_blk, agg, rz, part, ticket,   \
+                                     n_frames, n_vert, n_coarse, n_slices,     \
+                                     stream);                                  \
+  }                                                                            \
+  extern "C" int mf_coarse_restrict_variant_##SUFFIX(                          \
+      const void* r, const void* r_blk, const void* members, void* rc,         \
+      int64_t n_frames, int64_t n_vert, int64_t n_coarse, int64_t k_width,     \
+      int64_t frames, void* stream) {                                          \
+    return mf::coarse_restrict_variant<T>(r, r_blk, members, rc, n_frames,     \
+                                          n_vert, n_coarse, k_width, frames,   \
+                                          stream);                             \
+  }                                                                            \
+  extern "C" int mf_coarse_restrict_first_##SUFFIX(                            \
+      const void* r, const void* r_blk, const void* members, void* rc,         \
+      int64_t n_frames, int64_t n_vert, int64_t n_coarse, int64_t k_width,     \
+      void* stream) {                                                          \
+    return mf::coarse_restrict_first<T>(r, r_blk, members, rc, n_frames,       \
+                                        n_vert, n_coarse, k_width, stream);    \
+  }                                                                            \
+  extern "C" int mf_coarse_prolong_dot_variant_##SUFFIX(                       \
+      void* z, const void* r, const void* yc, const void* r_blk,               \
+      const void* agg, void* rz, void* part, void* ticket, int64_t n_frames,   \
+      int64_t n_vert, int64_t n_coarse, int64_t n_slices, int64_t stage,       \
+      void* stream) {                                                          \
+    return mf::coarse_prolong_dot_variant<T>(z, r, yc, r_blk, agg, rz, part,   \
+                                             ticket, n_frames, n_vert,         \
+                                             n_coarse, n_slices, stage,        \
+                                             stream);                          \
+  }                                                                            \
+  extern "C" int mf_coarse_prolong_dot_first_##SUFFIX(                         \
+      void* z, const void* r, const void* yc, const void* r_blk,               \
       const void* agg, void* rz, int64_t n_frames, int64_t n_vert,             \
       int64_t n_coarse, void* stream) {                                        \
-    return mf::coarse_prolong_dot<T>(z, r, yc, r_blk, agg, rz, n_frames,       \
-                                     n_vert, n_coarse, stream);                \
+    return mf::coarse_prolong_dot_first<T>(z, r, yc, r_blk, agg, rz,           \
+                                           n_frames, n_vert, n_coarse, stream);\
   }
 
 MF_COARSE_ENTRY_POINTS(f32, float)

@@ -157,4 +157,62 @@ inline unsigned int frame_blocks(int64_t n_frames) {
   return static_cast<unsigned int>(n_frames < 65535 ? n_frames : 65535);
 }
 
+// The most blocks a frame of the kernels that cut each frame into slices
+// (pcg_update, coarse_prolong_dot); kernels._lib.MAX_SLICES.
+constexpr int kMaxSlices = 128;
+
+// Closes NV per-frame sums that the S = gridDim.x blocks of frame t (block
+// s = blockIdx.x holding slice s) computed in parts: acc is the block's
+// partials, valid in thread 0 (block_sum's result). With one slice thread 0
+// writes out[i][t] = acc[i]. Otherwise each block stores its partials at
+// part[(t S + s) NV + i] and takes the frame's integer ticket; the last block
+// to arrive adds the S partials in slice order, writes out[i][t] and leaves
+// the ticket at 0 for the next launch. No float atomics: the sums repeat bit
+// for bit. Every thread of the block calls it; with S > 1 it ends with a
+// barrier, so its shared memory serves the next frame.
+template <typename T, int NV>
+__device__ __forceinline__ void close_slices(const T (&acc)[NV],
+                                             T* const (&out)[NV],
+                                             T* __restrict__ part,
+                                             unsigned int* __restrict__ ticket,
+                                             int64_t t) {
+  __shared__ T closing[NV * kMaxSlices];
+  __shared__ bool last;
+  const int n_slices = static_cast<int>(gridDim.x);
+  const int s = static_cast<int>(blockIdx.x);
+  if (n_slices == 1) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) out[i][t] = acc[i];
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) part[(t * n_slices + s) * NV + i] = acc[i];
+    __threadfence();  // the partials are visible before the ticket moves
+    last = atomicAdd(ticket + t, 1u) == static_cast<unsigned int>(n_slices - 1);
+  }
+  __syncthreads();
+  if (last && threadIdx.x < 32) {
+    __threadfence();
+    const T* pf = part + t * n_slices * NV;
+    for (int k = threadIdx.x; k < NV * n_slices; k += 32) closing[k] = __ldcg(pf + k);
+    __syncwarp();
+    if (threadIdx.x == 0) {
+      T sum[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) sum[i] = T(0);
+      for (int k = 0; k < n_slices; ++k) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) sum[i] += closing[NV * k + i];
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) out[i][t] = sum[i];
+      ticket[t] = 0u;  // ready for the next launch
+    }
+  }
+  __syncthreads();
+}
+
 }  // namespace mf

@@ -44,8 +44,7 @@
 
 namespace mf {
 
-constexpr int kDotUnroll = 4;    // vectors a thread loads per operand at once
-constexpr int kMaxSlices = 128;  // pcg_update's most blocks a frame
+constexpr int kDotUnroll = 4;  // vectors a thread loads per operand at once
 
 // part[u] += x[k] y[k] over k in [lo, hi), thread i taking k = lo + i,
 // lo + i + kThreads, ..., kDotUnroll of them loaded before any is used.
@@ -153,6 +152,7 @@ __device__ __forceinline__ void update_scalar(T alpha, T* xt, T* rt, T* zt,
 // in vectors, the slices cutting the groups evenly; slice 0 also takes the
 // elements before the first boundary and slice S - 1 those after the last
 // group. Otherwise the slices cut the vertices and go one at a time. The
+// block's r.z and r.r close in slice order (common.cuh close_slices). The
 // order of every sum is fixed by N, S and the offsets.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -166,8 +166,6 @@ __global__ void __launch_bounds__(kThreads)
   using V = typename Vec16<T>::type;
   constexpr int W = kVecWidth<T>;
   __shared__ T scratch[kWarps];
-  __shared__ T closing[2 * kMaxSlices];
-  __shared__ bool last;
   const int n_slices = static_cast<int>(gridDim.x);
   const int s = static_cast<int>(blockIdx.x);
   for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
@@ -248,39 +246,9 @@ __global__ void __launch_bounds__(kThreads)
       update_scalar(alpha, xt, rt, zt, pt, apt, dt, n_vert, s * per, hi, acc_rz,
                     acc_rr);
     }
-    acc_rz = block_sum(acc_rz, scratch);
-    acc_rr = block_sum(acc_rr, scratch);
-    if (n_slices == 1) {
-      if (threadIdx.x == 0) {
-        rz_new[t] = acc_rz;
-        rr[t] = acc_rr;
-      }
-      continue;
-    }
-    if (threadIdx.x == 0) {
-      part[(t * n_slices + s) * 2] = acc_rz;
-      part[(t * n_slices + s) * 2 + 1] = acc_rr;
-      __threadfence();  // the partials are visible before the ticket moves
-      last = atomicAdd(ticket + t, 1u) == static_cast<unsigned int>(n_slices - 1);
-    }
-    __syncthreads();
-    if (last && threadIdx.x < 32) {
-      __threadfence();
-      const T* pf = part + t * n_slices * 2;
-      for (int k = threadIdx.x; k < 2 * n_slices; k += 32) closing[k] = __ldcg(pf + k);
-      __syncwarp();
-      if (threadIdx.x == 0) {
-        T a = T(0), b = T(0);
-        for (int k = 0; k < n_slices; ++k) {
-          a += closing[2 * k];
-          b += closing[2 * k + 1];
-        }
-        rz_new[t] = a;
-        rr[t] = b;
-        ticket[t] = 0u;  // ready for the next call
-      }
-    }
-    __syncthreads();  // `last` and `closing` serve the next frame
+    const T sums[2] = {block_sum(acc_rz, scratch), block_sum(acc_rr, scratch)};
+    T* const outs[2] = {rz_new, rr};
+    close_slices(sums, outs, part, ticket, t);
   }
 }
 

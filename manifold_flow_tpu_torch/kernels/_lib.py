@@ -9,7 +9,10 @@ launches and nowhere else.
 
 The helpers below are what every wrapper does before either path: check
 dtype, shape and contiguity, and decide by the tensors' device (CPU: the
-plain torch version; CUDA: the kernel, or raise).
+plain torch version; CUDA: the kernel, or raise). `frame_slices` and
+`slice_workspace` serve the kernels that cut each frame into slices and
+close their per-frame sums in slice order (K3 `pcg_update`, K11
+`coarse_prolong_dot`; common.cuh `close_slices`).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ _ARGTYPES = {
     "coarse_assemble": [_P] * 8 + [_D] + [_P] * 2 + [_I] * 5 + [_P],
     "coarse_restrict": [_P] * 4 + [_I] * 4 + [_P],
     "coarse_gemv": [_P] * 3 + [_I] * 3 + [_P],
-    "coarse_prolong_dot": [_P] * 6 + [_I] * 3 + [_P],
+    "coarse_prolong_dot": [_P] * 8 + [_I] * 4 + [_P],
     # stream_kernels.cu (kernels.streams)
     "next_hop": [_P] * 9 + [_I] * 5 + [_P],
     # winding_kernels.cu (kernels.winding)
@@ -63,6 +66,9 @@ LAUNCHES: dict[str, int] = {
     **{f"{name}<{_INT[0]}>": 0 for name in _INT_ARGTYPES}}
 
 _LIB: ctypes.CDLL | None = None
+
+MAX_SLICES = 128  # csrc/common.cuh kMaxSlices
+_SLICE_WORKSPACE: dict = {}
 
 
 def reset_launches() -> None:
@@ -89,6 +95,30 @@ def library() -> ctypes.CDLL:
         lib.mf_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def frame_slices(n_vert: int, dtype: torch.dtype) -> int:
+    """Blocks a frame of the sliced kernels: one 16-byte group of vertices
+    for each of a block's 256 threads (4 at the bench shapes in f32, 13 at
+    12.5k; 7 and 25 in f64), at least 1 and at most MAX_SLICES."""
+    per_block = 16 // (torch.finfo(dtype).bits // 8) * 256
+    return max(1, min(MAX_SLICES, -(-n_vert // per_block)))
+
+
+def slice_workspace(device: torch.device, stream: int, n_frames: int,
+                    n_slices: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partials (room for (T, S, 2) values of either float type) and the
+    (T,) int32 tickets through which the sliced kernels close their sums,
+    one pair per (device, stream) shared by those kernels and kept across
+    calls: each kernel leaves every ticket at 0, and launches on one stream
+    run in order. A pair too small for (n_frames, n_slices) is replaced."""
+    key = (device, stream)
+    ws = _SLICE_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < 2 * n_frames * n_slices or ws[1].numel() < n_frames:
+        ws = (torch.empty(2 * n_frames * n_slices, dtype=torch.float64, device=device),
+              torch.zeros(n_frames, dtype=torch.int32, device=device))
+        _SLICE_WORKSPACE[key] = ws
+    return ws
 
 
 def _on_cuda(*tensors: torch.Tensor | None) -> bool:

@@ -16,7 +16,14 @@ from __future__ import annotations
 
 import torch
 
-from manifold_flow_tpu_torch.kernels._lib import _check, _float_dtype, _launch, _on_cuda
+from manifold_flow_tpu_torch.kernels._lib import (
+    _check,
+    _float_dtype,
+    _launch,
+    _on_cuda,
+    frame_slices,
+    slice_workspace,
+)
 
 
 # ------------------------------------------------------------------ K8
@@ -110,10 +117,13 @@ def coarse_restrict(r: torch.Tensor, r_blk: torch.Tensor,
 
     Replaces the restriction of solve/coarse.py:243 `TwoLevelPrecond.apply`
     (:254-266, B7). Bound by reading r, 9.7 MB per call in f32 at the 12.5k
-    shapes, gathered by member. Design: one warp per (frame, aggregate), its
-    lanes striding through the K members, closed by the fixed-order warp
-    sum (deterministic); a thread per aggregate would leave 97 x 196
-    threads walking their members one load at a time.
+    shapes, gathered by member. Design: a warp owns one aggregate for a
+    group of frames (4): its lanes stride through the K members, load each
+    member's id and R_v once for the group, then issue the group's r loads
+    before the multiply-adds; the fixed-order warp sum closes each frame.
+    The first design, a warp per (frame, aggregate), fetched the
+    frame-independent members and R_v again for every frame and had one
+    load chain in flight a lane; rc is bitwise that design's.
     """
     dtype = _float_dtype("r", r)
     t, n_dof = r.shape
@@ -193,8 +203,15 @@ def coarse_prolong_dot(z: torch.Tensor, r: torch.Tensor, yc: torch.Tensor,
     solve/cg.py:98 (B7): after the Jacobi term of K3 `pcg_update`, whose
     r.z misses the coarse term, this forms the two-level z and its r.z in
     one pass. Bound by memory traffic, 29 MB per call in f32 at the 12.5k
-    shapes (reads z, r, writes z). Design: one block per frame, so the dot
-    product closes with the fixed-order block reduction.
+    shapes (reads z, r, writes z). Design: as K3 `pcg_update`, a grid of
+    `frame_slices(N)` blocks a frame, each thread loading z, r, R_v and agg
+    of four (f32) or two (f64) vertices as 16-byte vectors before the
+    arithmetic; the blocks' partial r.z close in slice order in the last
+    block of each frame, found by an integer ticket in `slice_workspace`
+    (no float atomics, repeated calls bitwise equal). z is the first
+    design's expression, so it is bitwise that design's; only r.z's
+    summation order changed. The first design, one block a frame, put 97
+    blocks on 132 SMs with scalar loads.
     """
     dtype = _float_dtype("z", z)
     t, n_dof = z.shape
@@ -209,9 +226,12 @@ def coarse_prolong_dot(z: torch.Tensor, r: torch.Tensor, yc: torch.Tensor,
     if not _on_cuda(z, r, yc, r_blk, agg, rz):
         plain_coarse_prolong_dot(z, r, yc, r_blk, agg, rz)
         return
+    n_slices = frame_slices(n, dtype)
+    part, ticket = slice_workspace(z.device, torch.cuda.current_stream(z.device).cuda_stream,
+                                   t, n_slices)
     _launch("coarse_prolong_dot", dtype, z.device, z.data_ptr(), r.data_ptr(),
             yc.data_ptr(), r_blk.data_ptr(), agg.data_ptr(), rz.data_ptr(),
-            t, n, nc2 // 2)
+            part.data_ptr(), ticket.data_ptr(), t, n, nc2 // 2, n_slices)
 
 
 def plain_coarse_prolong_dot(z, r, yc, r_blk, agg, rz) -> None:

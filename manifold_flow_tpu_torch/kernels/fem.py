@@ -35,6 +35,8 @@ from manifold_flow_tpu_torch.kernels._lib import (
     _launch,
     _on_cuda,
     _ptr,
+    frame_slices,
+    slice_workspace,
 )
 
 
@@ -285,31 +287,6 @@ def plain_pcg_dot(a, b) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
-UPDATE_MAX_SLICES = 128  # csrc/pcg_kernels.cu kMaxSlices
-_UPDATE_WORKSPACE: dict = {}
-
-
-def update_slices(n_vert: int, dtype: torch.dtype) -> int:
-    """K3 `pcg_update`'s blocks a frame: one 16-byte group of vertices for
-    each of a block's 256 threads (4 at the bench shapes in f32, 13 at 12.5k;
-    7 and 25 in f64), at most UPDATE_MAX_SLICES."""
-    per_block = 16 // (torch.finfo(dtype).bits // 8) * 256
-    return max(1, min(UPDATE_MAX_SLICES, -(-n_vert // per_block)))
-
-
-def _update_workspace(device: torch.device, n_frames: int, n_slices: int):
-    """The (T, S, 2) partials and the (T,) tickets of `pcg_update`, one pair
-    per CUDA stream, kept across calls: the kernel leaves every ticket at 0,
-    and calls on one stream run in order."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    ws = _UPDATE_WORKSPACE.get(key)
-    if ws is None or ws[0].numel() < 2 * n_frames * n_slices or ws[1].numel() < n_frames:
-        ws = (torch.empty(2 * n_frames * n_slices, dtype=torch.float64, device=device),
-              torch.zeros(n_frames, dtype=torch.int32, device=device))
-        _UPDATE_WORKSPACE[key] = ws
-    return ws
-
-
 def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     """K3(b) `pcg_update<T>`, in place: alpha = rz / pAp (0 where pAp == 0),
     x += alpha p, r -= alpha Ap, z = D^-1 r, then rz_new = r.z and rr = r.r.
@@ -322,11 +299,11 @@ def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     fem/operator.py:132 `apply_block_diag` fused in (B3/B4). Bound by memory
     traffic, 21.9 MB per call in f32 at the bench shapes and 87.6 MB at
     12.5k (reads x, r, p, Ap and D^-1, writes x, r, z). Design: a grid of
-    `update_slices(N)` blocks a frame, each thread with every operand of
+    `frame_slices(N)` blocks a frame, each thread with every operand of
     four (f32) or two (f64) vertices in flight as 16-byte vectors; the
     blocks' partial r.z and r.r close in slice order in the last block of
-    each frame, found by an integer ticket (no float atomics, repeated calls
-    bitwise equal). The first design, one block a frame with scalar loads,
+    each frame, found by an integer ticket in `slice_workspace` (no float
+    atomics, repeated calls bitwise equal). The first design, one block a frame with scalar loads,
     kept about 0.8 MB in flight, where the card needs about 2 MB.
     """
     dtype = _float_dtype("x", x)
@@ -340,8 +317,9 @@ def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     if not _on_cuda(x, r, z, p, ap, dinv, rz, pap, rz_new, rr):
         plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
         return
-    n_slices = update_slices(n, dtype)
-    part, ticket = _update_workspace(x.device, t, n_slices)
+    n_slices = frame_slices(n, dtype)
+    part, ticket = slice_workspace(x.device, torch.cuda.current_stream(x.device).cuda_stream,
+                                   t, n_slices)
     _launch("pcg_update", dtype, x.device, x.data_ptr(), r.data_ptr(),
             z.data_ptr(), p.data_ptr(), ap.data_ptr(), dinv.data_ptr(),
             rz.data_ptr(), pap.data_ptr(), rz_new.data_ptr(), rr.data_ptr(),

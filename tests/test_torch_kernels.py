@@ -282,6 +282,153 @@ def test_coarse_gemv_matches_plain_for_any_row_length(cuda, dtype, shared, nc2):
     assert torch.equal(kco.coarse_gemv(a, x), got)
 
 
+def _aggregation(device, n, seed):
+    """A random aggregation of n vertices into max(2, n // 64) aggregates
+    of ragged sizes (about 13 to 190 members at 64 on average, so some of
+    more and some of fewer than 32 and K past 64): agg (N,) and members
+    (Nc, K) ascending, padded with the index N."""
+    rng = np.random.default_rng(seed)
+    nc = max(2, n // 64)
+    weights = rng.uniform(0.2, 3.0, nc)
+    agg = rng.choice(nc, size=n, p=weights / weights.sum()).astype(np.int32)
+    counts = np.bincount(agg, minlength=nc)
+    members = np.full((nc, max(int(counts.max()), 1)), n, dtype=np.int32)
+    for a in range(nc):
+        span = np.flatnonzero(agg == a)
+        members[a, : span.size] = span
+    return (torch.from_numpy(agg).to(device), torch.from_numpy(members).to(device))
+
+
+def _restrict_prolong(r, z, yc, r_blk, agg, members):
+    """K9 then K11 and their plain versions on the same inputs: (rc, z, rz)
+    of each, the kernels' first."""
+    outs = []
+    for restrict, prolong in ((kco.coarse_restrict, kco.coarse_prolong_dot),
+                              (kco.plain_coarse_restrict, kco.plain_coarse_prolong_dot)):
+        zs, rz = z.clone(), torch.empty(z.shape[0], dtype=z.dtype, device=z.device)
+        rc = restrict(r, r_blk, members)
+        prolong(zs, r, yc, r_blk, agg, rz)
+        outs.append((rc, zs, rz))
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 97])
+@pytest.mark.parametrize("n", [5, 257, 3136, 12547])
+def test_coarse_restrict_and_prolong_dot_match_plain(cuda, dtype, t, n):
+    """K9 and K11 on ragged random aggregations (pad index N, aggregates of
+    more and fewer than 32 members), with N * size a multiple of 16 or not,
+    one slice a frame or several; each launches once a call and two calls
+    are bitwise equal."""
+    agg, members = _aggregation(cuda, n, seed=40 + n)
+    nc = members.shape[0]
+    r_blk = _rand(cuda, dtype, n, 2, 2, seed=41)
+    r, z = _rand(cuda, dtype, t, 2 * n, seed=42), _rand(cuda, dtype, t, 2 * n, seed=43)
+    yc = _rand(cuda, dtype, t, 2 * nc, seed=44)
+    ctype = "float" if dtype == torch.float32 else "double"
+    before = {k: kernels.LAUNCHES[f"{k}<{ctype}>"]
+              for k in ("coarse_restrict", "coarse_prolong_dot")}
+    got, want = _restrict_prolong(r, z, yc, r_blk, agg, members)
+    assert all(kernels.LAUNCHES[f"{k}<{ctype}>"] == v + 1 for k, v in before.items())
+    _assert_close(got, want, dtype)
+    again, _ = _restrict_prolong(r, z, yc, r_blk, agg, members)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_coarse_restrict_and_prolong_dot_on_offset_views(cuda, dtype):
+    """z and r at an odd storage offset: with agg at an offset that keeps
+    its groups aligned (K11's vectors with a scalar head and tail), with an
+    aligned agg (K11 element by element), and with r_blk off a 16-byte
+    boundary (K9's and K11's scalar loads of R_v)."""
+    t, n = 97, 3136
+    agg, members = _aggregation(cuda, n, seed=50)
+    nc = members.shape[0]
+    bufs = [_rand(cuda, dtype, t * 2 * n + 1, seed=51 + k) for k in range(2)]
+    r, z = (b[1:].view(t, 2 * n) for b in bufs)
+    blk = _rand(cuda, dtype, 4 * n + 1, seed=53)
+    yc = _rand(cuda, dtype, t, 2 * nc, seed=54)
+    agg_buf = torch.empty(n + 1, dtype=torch.int32, device=cuda)
+    agg_buf[1:] = agg
+    for ids, r_blk in ((agg_buf[1:], blk[:-1].view(n, 2, 2)),
+                       (agg, blk[:-1].view(n, 2, 2)),
+                       (agg, blk[1:].view(n, 2, 2))):
+        got, want = _restrict_prolong(r, z, yc, r_blk, ids, members)
+        _assert_close(got, want, dtype)
+        again, _ = _restrict_prolong(r, z, yc, r_blk, ids, members)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [257, 12544])
+def test_coarse_prolong_dot_z_is_the_plain_update_bit_for_bit(cuda, dtype, n):
+    """K11's z is bitwise z + P yc from the plain version. The kernel
+    contracts R_v[a, 0] ya + R_v[a, 1] yb into a fused multiply-add, the
+    plain version rounds each product, so the inputs are chosen on grids
+    where every product and sum is exact: any other entry, index or
+    operand shows as a difference."""
+    t = 97
+    agg, members = _aggregation(cuda, n, seed=60)
+    nc = members.shape[0]
+    rng = np.random.default_rng(61)
+
+    def grid(shape, steps, scale):
+        return torch.from_numpy(rng.integers(-steps, steps + 1, shape) / scale).to(cuda, dtype)
+    r_blk, yc = grid((n, 2, 2), 4, 4.0), grid((t, 2 * nc), 8, 8.0)
+    z, r = grid((t, 2 * n), 64, 16.0), _rand(cuda, dtype, t, 2 * n, seed=62)
+    got, want = _restrict_prolong(r, z, yc, r_blk, agg, members)
+    assert torch.equal(got[1], want[1])
+    _assert_close(got[2:], want[2:], dtype)
+
+
+def _first_design(name, dtype, argtypes):
+    import ctypes
+
+    fn = getattr(kernels.library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [257, 12547])
+def test_coarse_restrict_and_prolong_dot_are_the_first_designs_bit_for_bit(cuda, dtype, n):
+    """K9's rc (at every F frames a warp) and K11's z are bitwise those of
+    the first designs (a warp per (frame, aggregate); one block a frame);
+    K11's rz differs only by its summation order."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    t = 97
+    agg, members = _aggregation(cuda, n, seed=70)
+    nc, k = members.shape
+    r_blk = _rand(cuda, dtype, n, 2, 2, seed=71)
+    r, z = _rand(cuda, dtype, t, 2 * n, seed=72), _rand(cuda, dtype, t, 2 * n, seed=73)
+    yc = _rand(cuda, dtype, t, 2 * nc, seed=74)
+    stream = torch.cuda.current_stream().cuda_stream
+    first = _first_design("coarse_restrict_first", dtype, [p] * 4 + [i] * 4 + [p])
+    variant = _first_design("coarse_restrict_variant", dtype, [p] * 4 + [i] * 5 + [p])
+    got, want = _restrict_prolong(r, z, yc, r_blk, agg, members)
+    rc = torch.empty_like(got[0])
+    args = (r.data_ptr(), r_blk.data_ptr(), members.data_ptr(), rc.data_ptr(), t, n, nc, k)
+    assert first(*args, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], rc)
+    for f in (1, 2, 4, 8):
+        rc.zero_()
+        assert variant(*args, f, stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], rc)
+    first = _first_design("coarse_prolong_dot_first", dtype, [p] * 6 + [i] * 3 + [p])
+    zs, rz = z.clone(), torch.empty(t, dtype=dtype, device=cuda)
+    assert first(zs.data_ptr(), r.data_ptr(), yc.data_ptr(), r_blk.data_ptr(),
+                 agg.data_ptr(), rz.data_ptr(), t, n, nc, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], zs)
+    _assert_close([got[2]], [rz], dtype)
+
+
 @pytest.mark.parametrize("method", ["cg", "refined", "cholesky"])
 def test_solve_on_cuda_matches_cpu(cuda, method):
     mesh, pot, times = _problem(cuda)

@@ -190,3 +190,58 @@ def test_reset_launches_zeroes_every_count():
         "coarse_prolong_dot", "classify_candidates", "next_hop", "trace_walks",
         "pack_walks", "winding_profile", "wave_speed", "rbf_basis", "rbf_eval"}
     assert kernels.LAUNCHES is _lib.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype, n_vert, want", [
+    (torch.float32, 0, 1), (torch.float32, 1, 1), (torch.float32, 1024, 1),
+    (torch.float32, 1025, 2), (torch.float32, 3136, 4), (torch.float32, 12544, 13),
+    (torch.float64, 3136, 7), (torch.float64, 12544, 25),
+    (torch.float32, 10 ** 7, _lib.MAX_SLICES)])
+def test_frame_slices_give_each_thread_one_vector_group(dtype, n_vert, want):
+    """One 16-byte group of vertices (4 in f32, 2 in f64) for each of a
+    block's 256 threads, between 1 and MAX_SLICES blocks a frame."""
+    assert _lib.frame_slices(n_vert, dtype) == want
+
+
+def test_slice_workspace_is_kept_per_stream_and_grows():
+    """The sliced kernels' partials and tickets: one pair per (device,
+    stream), kept while large enough, replaced by a larger one with every
+    ticket at 0."""
+    dev = torch.device("cpu")
+    part, ticket = _lib.slice_workspace(dev, -1, 97, 13)
+    assert part.dtype == torch.float64 and part.numel() == 2 * 97 * 13
+    assert ticket.dtype == torch.int32 and ticket.numel() == 97
+    assert not ticket.any()
+    assert all(a is b for a, b in zip(_lib.slice_workspace(dev, -1, 97, 13), (part, ticket)))
+    assert all(a is b for a, b in zip(_lib.slice_workspace(dev, -1, 5, 4), (part, ticket)))
+    other = _lib.slice_workspace(dev, -2, 5, 4)
+    assert other[0] is not part and other[0].numel() == 2 * 5 * 4
+    grown = _lib.slice_workspace(dev, -1, 98, 13)
+    assert grown[0].numel() == 2 * 98 * 13 and grown[1].numel() == 98
+    assert not grown[1].any()
+    assert _lib.slice_workspace(dev, -1, 97, 13)[0] is grown[0]
+    for key in ((dev, -1), (dev, -2)):
+        del _lib._SLICE_WORKSPACE[key]
+
+
+_C_TYPES = {"int64_t": _lib._I, "double": _lib._D}
+
+
+def _entry_point_params(name: str) -> list:
+    """The ctypes of C entry point mf_<name>_* as csrc/*.cu declares it."""
+    decl = re.compile(r'extern "C" int mf_' + name + r'_(?:##SUFFIX|i32)\((.*?)\)\s*\{',
+                      re.S)
+    found = [m.group(1) for src in build.sources()
+             for m in decl.finditer(src.read_text())]
+    assert len(found) == 1, f"mf_{name}: {len(found)} declarations"
+    params = [p.replace("\\", " ").split() for p in found[0].split(",")]
+    return [_lib._P if "*" in "".join(p) else _C_TYPES[p[-2]] for p in params]
+
+
+@pytest.mark.parametrize("name", sorted({**_lib._ARGTYPES, **_lib._INT_ARGTYPES}))
+def test_registered_argtypes_match_the_c_entry_points(name):
+    """ctypes passes each argument as its registered type: a pointer or an
+    int64 in the wrong place would be cut or misread, so every registered
+    entry point's types (the stream last) follow its C declaration."""
+    argtypes = {**_lib._ARGTYPES, **_lib._INT_ARGTYPES}[name]
+    assert _entry_point_params(name) == argtypes
