@@ -80,7 +80,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      versions at the 12.5k-vertex shapes (bench.py:465-474's surface, 12544
      vertices, 98 frames of the two-source movie), float32 and float64,
      tolerances as in phase 3 (K8 reorders each entry's sum); times as in
-     phase 3; K10 also with the L2 cleared before each call, on a random
+     phase 3, K9 beside torch.sparse.mm of P^T (a (2Nc, 2N) CSR matrix) on r
+     in column layout and K11, for the record and not ranked, beside
+     torch.sparse.addmm of P and torch.linalg.vecdot; two calls of K9 and of
+     K11 bitwise equal; K10 also with the L2 cleared before each call, on a random
      (97, 394, 394) input (a row length of 2 mod 4) and on one matrix shared
      by every frame (coarse_a1='mean'), and K3's pcg_dot, K1 (float32
      matvec, float64 residual, beside torch.sparse.mm) and K3's update at
@@ -114,7 +117,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      in memory); then over one warm 12.5k refined two-level solve. From the
      S3 chain and the 12.5k solve, each kernel's device µs a launch as the
      solve runs it (solve_device_us: its device kernels' time over its
-     launches in that run), for the rows at those shapes.
+     launches in that run), for the rows at those shapes; the 12.5k solve's
+     device time, and K9-K11's in-solve µs beside their back-to-back ones.
 Every kernel check prints its time beside its bound (bytes over 3.35 TB/s or
 operations over 67 / 34 TFLOP/s in float32 / float64, whichever is larger)
 and, where one PyTorch call computes the same function, that call's time;
@@ -653,123 +657,6 @@ def restriction_coo(r_blk, members) -> torch.Tensor:
     return coo.coalesce()
 
 
-def comparison_entry(name: str, dtype, argtypes):
-    """This build's entry point `name` of a design kept only for the
-    comparison (K9's and K11's first designs, their variants), with its
-    types."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import library
-
-    fn = getattr(library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launched(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-
-def against_first_restrict(card: str, r, pre) -> None:
-    """K9 against its first design (a warp per (frame, aggregate)) on the
-    same inputs: rc bitwise and device times in turns; then the new design
-    at F = 1, 2, 4, 8 frames a warp, each bitwise equal too, in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import coarse as kco
-
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    first = comparison_entry("coarse_restrict_first", r.dtype, [p] * 4 + [i] * 4 + [p])
-    variant = comparison_entry("coarse_restrict_variant", r.dtype, [p] * 4 + [i] * 5 + [p])
-    t, n = r.shape[0], r.shape[1] // 2
-    nc, k = pre.members.shape
-
-    def call(fn, *extra):
-        def run():
-            rc = torch.empty((t, 2 * nc), dtype=r.dtype, device=r.device)
-            _launched(fn(r.data_ptr(), pre.r_blk.data_ptr(), pre.members.data_ptr(),
-                         rc.data_ptr(), t, n, nc, k, *extra,
-                         torch.cuda.current_stream().cuda_stream), "coarse_restrict")
-            return rc
-        return run
-
-    def this():
-        return kco.coarse_restrict(r, pre.r_blk, pre.members)
-    want = call(first)()
-    same = torch.equal(this(), want)
-    us = [device_us(fn, mine=own_kernel) for fn in (this, call(first), call(first), this)]
-    frames = (1, 2, 4, 8)
-    equal = [torch.equal(call(variant, f)(), want) for f in frames]
-    sweep = [device_us(call(variant, f), mine=own_kernel) for f in frames + frames[::-1]]
-    ctype = "float" if r.dtype == torch.float32 else "double"
-    print(f"[parent] coarse_restrict<{ctype}>@12.5k: rc bitwise equal to the first "
-          f"design: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against the "
-          f"first design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns); F frames a "
-          f"warp, bitwise equal {equal}: " + ", ".join(
-              f"F={f} {fmt_us(a)} / {fmt_us(b)}"
-              for f, a, b in zip(frames, sweep[:4], sweep[::-1][:4])) + f"; on {card}",
-          flush=True)
-
-
-def against_first_prolong(card: str, z, r, yc, pre) -> None:
-    """K11 against its first design (one block a frame) on the same inputs:
-    z bitwise, rz to its summation order, device times in turns; then yc
-    through the read-only cache against yc staged in shared memory."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import coarse as kco
-    from manifold_flow_tpu_torch.kernels._lib import frame_slices, slice_workspace
-
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    first = comparison_entry("coarse_prolong_dot_first", z.dtype, [p] * 6 + [i] * 3 + [p])
-    variant = comparison_entry("coarse_prolong_dot_variant", z.dtype,
-                               [p] * 8 + [i] * 5 + [p])
-    t, n = z.shape[0], z.shape[1] // 2
-    nc = yc.shape[1] // 2
-    tables = (r.data_ptr(), yc.data_ptr(), pre.r_blk.data_ptr(), pre.agg.data_ptr())
-
-    def run_first(zs, rz):
-        _launched(first(zs.data_ptr(), *tables, rz.data_ptr(), t, n, nc,
-                        torch.cuda.current_stream().cuda_stream), "coarse_prolong_dot")
-
-    def run_variant(stage):
-        def run(zs, rz):
-            stream = torch.cuda.current_stream().cuda_stream
-            s = frame_slices(n, z.dtype)
-            part, ticket = slice_workspace(z.device, stream, t, s)
-            _launched(variant(zs.data_ptr(), *tables, rz.data_ptr(), part.data_ptr(),
-                              ticket.data_ptr(), t, n, nc, s, stage, stream),
-                      "coarse_prolong_dot")
-        return run
-
-    def this(zs, rz):
-        kco.coarse_prolong_dot(zs, r, yc, pre.r_blk, pre.agg, rz)
-
-    def outputs(fn):
-        zs, rz = z.clone(), torch.empty(t, dtype=z.dtype, device=z.device)
-        fn(zs, rz)
-        return zs, rz
-    got, want, staged = outputs(this), outputs(run_first), outputs(run_variant(1))
-    rel = float((got[1] - want[1]).abs().max() / want[1].abs().max())
-    bufs = (z.clone(), torch.empty(t, dtype=z.dtype, device=z.device))
-
-    def in_place(fn):
-        return lambda: fn(*bufs)
-    us = [device_us(in_place(fn), mine=own_kernel)
-          for fn in (this, run_first, run_first, this)]
-    ys = [device_us(in_place(run_variant(s)), mine=own_kernel) for s in (0, 1, 1, 0)]
-    ctype = "float" if z.dtype == torch.float32 else "double"
-    print(f"[parent] coarse_prolong_dot<{ctype}>@12.5k: z bitwise equal to the first "
-          f"design: {torch.equal(got[0], want[0])}; rz relative difference {rel:.2e}; "
-          f"device {fmt_us(us[0])} / {fmt_us(us[3])} against the first design's "
-          f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); yc through the read-only "
-          f"cache {fmt_us(ys[0])} / {fmt_us(ys[3])}, staged in shared memory "
-          f"{fmt_us(ys[1])} / {fmt_us(ys[2])} (outputs bitwise equal: "
-          f"{all(torch.equal(a, b) for a, b in zip(got, staged))}); on {card}", flush=True)
-
-
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
     """Phase 9: K8-K11 against their plain versions at the 12.5k shapes, in
     float32 (the refined solve's inner preconditioner) and float64 (cg)."""
@@ -825,7 +712,6 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        lambda: (kco.plain_coarse_restrict(r, pre.r_blk, pre.members),),
                        tol, inputs=(r, pre.r_blk, pre.members), ops=8 * t * mesh.n_vertices,
                        library=lambda: torch.sparse.mm(pt_csr, r_col))
-        against_first_restrict(checks.card, r, pre)
         checks.compare(f"coarse_gemv<{ctype}>", cu,
                        "manifold_flow_tpu/solve/coarse.py:267",
                        lambda: (kco.coarse_gemv(pre.ac_inv, rc),),
@@ -916,7 +802,6 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
               f"(device {fmt_us(device_us(two_calls))}), relative difference "
               f"{rel:.3e} from the plain version; not ranked", flush=True)
         del p_csr, pt_csr, pt_coo
-        against_first_prolong(checks.card, z, r, yc, pre)
 
         # K3's p.Ap at the 12.5k shapes (97 x 25088), on the operator's Ap.
         ap = kfem.plain_fem_matvec(z, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,

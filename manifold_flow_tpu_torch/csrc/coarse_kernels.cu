@@ -155,9 +155,12 @@ __global__ void __launch_bounds__(kThreads)
 // r[t][v + N] for all F frames before the multiply-adds (F x 4 loads in
 // flight a lane where one chain stood). Each frame's lane sum adds the
 // members in the same order as a warp per (frame, aggregate) would, then the
-// fixed-order warp sum closes it: rc is bitwise that design's.
+// fixed-order warp sum closes it: rc is bitwise that design's. F is 4 in
+// f32 and 2 in f64, the fastest of 1, 2, 4 and 8 on the card at the 12.5k
+// shapes (f32: 5.8, 5.1, 5.0, 5.3-5.6 us; f64: 8.7, 7.3, 7.9, 9.1).
 constexpr int kRestrictMembers = 2;  // members a lane holds at once (64 a warp)
-constexpr int kRestrictFrames = 4;   // F, frames a warp serves
+template <typename T>
+constexpr int kRestrictFrames = 16 / static_cast<int>(sizeof(T));  // F
 
 // R_v (4 values at r_blk + 4v) into q: one 16-byte load (two in f64) where
 // r_blk is 16-byte aligned, else one value a load.
@@ -244,37 +247,6 @@ __global__ void __launch_bounds__(kThreads)
       rc[(t0 + f) * 2 * n_coarse + 2 * a] = acc0[f];
       rc[(t0 + f) * 2 * n_coarse + 2 * a + 1] = acc1[f];
     }
-  }
-}
-
-// K9's first design, kept to hold the new one against it on the card: one
-// warp per (frame, aggregate), lane l taking members l, l + 32, ..., then
-// the warp sum.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    restrict_first_kernel(const T* __restrict__ r, const T* __restrict__ r_blk,
-                          const int* __restrict__ members, T* __restrict__ rc,
-                          int64_t n_vert, int64_t n_coarse, int64_t k_width) {
-  const int64_t a = global_index() >> 5;
-  const int lane = threadIdx.x & 31;
-  if (a >= n_coarse) return;  // uniform across the warp
-  const int64_t t = blockIdx.y;
-  const T* rt = r + t * 2 * n_vert;
-  T acc0 = T(0), acc1 = T(0);
-  for (int64_t k = lane; k < k_width; k += 32) {
-    const int64_t v = members[a * k_width + k];
-    if (v == n_vert) continue;
-    const T* rv = r_blk + 4 * v;
-    const T r1 = rt[v];
-    const T r2 = rt[v + n_vert];
-    acc0 += rv[0] * r1 + rv[2] * r2;
-    acc1 += rv[1] * r1 + rv[3] * r2;
-  }
-  acc0 = warp_sum(acc0);
-  acc1 = warp_sum(acc1);
-  if (lane == 0) {
-    rc[t * 2 * n_coarse + 2 * a] = acc0;
-    rc[t * 2 * n_coarse + 2 * a + 1] = acc1;
   }
 }
 
@@ -381,8 +353,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // loaded before the arithmetic; slice 0 also takes the elements before the
 // first boundary and slice S - 1 those after the last group. Otherwise the
 // slices cut the vertices and go one at a time. yc is read through the
-// read-only cache (kStage = false) or staged a frame at a time in shared
-// memory (kStage = true). Each vertex's z is the first design's expression
+// read-only cache (staging the frame's yc in shared memory first was slower
+// on the card: 15.4 against 11.5 us in f32, 25.8 against 22.1 in f64, at
+// the 12.5k shapes). Each vertex's z is the first design's expression
 // (prolong_vertex); the block's r.z closes in slice order (common.cuh
 // close_slices).
 template <typename T>
@@ -407,19 +380,8 @@ __device__ __forceinline__ void load_ids(const int* p, int (&ids)[2]) {
   ids[1] = q.y;
 }
 
-// yc[k] of the frame: from shared memory where staged, else through the
-// read-only cache.
-template <bool kStage, typename T>
-__device__ __forceinline__ T load_y(const T* ys, int64_t k) {
-  if constexpr (kStage) {
-    return ys[k];
-  } else {
-    return __ldg(ys + k);
-  }
-}
-
 // K11 on vertices [lo, hi) of one frame, one element at a time.
-template <bool kStage, typename T>
+template <typename T>
 __device__ __forceinline__ void prolong_scalar(T* zt, const T* rt, const T* ys,
                                                const T* r_blk, const int* agg,
                                                int64_t n_vert, int64_t lo,
@@ -428,14 +390,14 @@ __device__ __forceinline__ void prolong_scalar(T* zt, const T* rt, const T* ys,
     const int64_t w = v + n_vert;
     const int64_t i = agg[v];
     T z1 = zt[v], z2 = zt[w];
-    prolong_vertex(z1, z2, rt[v], rt[w], r_blk + 4 * v, load_y<kStage>(ys, 2 * i),
-                   load_y<kStage>(ys, 2 * i + 1), acc);
+    prolong_vertex(z1, z2, rt[v], rt[w], r_blk + 4 * v, __ldg(ys + 2 * i),
+                   __ldg(ys + 2 * i + 1), acc);
     zt[v] = z1;
     zt[w] = z2;
   }
 }
 
-template <typename T, bool kStage>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     prolong_dot_kernel(T* __restrict__ z, const T* __restrict__ r,
                        const T* __restrict__ yc, const T* __restrict__ r_blk,
@@ -445,7 +407,6 @@ __global__ void __launch_bounds__(kThreads)
   using V = typename Vec16<T>::type;
   constexpr int W = kVecWidth<T>;
   __shared__ T scratch[kWarps];
-  extern __shared__ __align__(16) unsigned char staged[];
   const int n_slices = static_cast<int>(gridDim.x);
   const int s = static_cast<int>(blockIdx.x);
   for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
@@ -453,12 +414,6 @@ __global__ void __launch_bounds__(kThreads)
     T* zt = z + off;
     const T* rt = r + off;
     const T* ys = yc + t * 2 * n_coarse;
-    if constexpr (kStage) {
-      T* buf = reinterpret_cast<T*>(staged);
-      for (int64_t i = threadIdx.x; i < 2 * n_coarse; i += kThreads) buf[i] = __ldg(ys + i);
-      __syncthreads();
-      ys = buf;
-    }
     T acc = T(0);
     const uintptr_t a0 = reinterpret_cast<uintptr_t>(zt) & 15;
     const int64_t head = head_to_16(zt, n_vert);
@@ -494,56 +449,25 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < W; ++j) {
           const int64_t i = ids[j];
-          prolong_vertex(z1[j], z2[j], r1[j], r2[j], b + 4 * j,
-                         load_y<kStage>(ys, 2 * i), load_y<kStage>(ys, 2 * i + 1), acc);
+          prolong_vertex(z1[j], z2[j], r1[j], r2[j], b + 4 * j, __ldg(ys + 2 * i),
+                         __ldg(ys + 2 * i + 1), acc);
         }
         *reinterpret_cast<V*>(zt + v) = pack(z1);
         *reinterpret_cast<V*>(zt + w) = pack(z2);
       }
-      if (s == 0) prolong_scalar<kStage>(zt, rt, ys, r_blk, agg, n_vert, int64_t(0), head, acc);
+      if (s == 0) prolong_scalar(zt, rt, ys, r_blk, agg, n_vert, int64_t(0), head, acc);
       if (s == n_slices - 1) {
-        prolong_scalar<kStage>(zt, rt, ys, r_blk, agg, n_vert, head + n_vec * W, n_vert, acc);
+        prolong_scalar(zt, rt, ys, r_blk, agg, n_vert, head + n_vec * W, n_vert, acc);
       }
     } else {
       const int64_t per = (n_vert + n_slices - 1) / n_slices;
       const int64_t hi = (s + 1) * per < n_vert ? (s + 1) * per : n_vert;
-      prolong_scalar<kStage>(zt, rt, ys, r_blk, agg, n_vert, s * per, hi, acc);
+      prolong_scalar(zt, rt, ys, r_blk, agg, n_vert, s * per, hi, acc);
     }
-    // block_sum's barriers also keep the staged yc until every thread is done.
     const T sums[1] = {block_sum(acc, scratch)};
     T* const outs[1] = {rz};
     close_slices(sums, outs, part, ticket, t);
   }
-}
-
-// K11's first design, kept to hold the new one against it on the card: one
-// block per frame.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    prolong_dot_first_kernel(T* __restrict__ z, const T* __restrict__ r,
-                             const T* __restrict__ yc, const T* __restrict__ r_blk,
-                             const int* __restrict__ agg, T* __restrict__ rz,
-                             int64_t n_vert, int64_t n_coarse) {
-  __shared__ T scratch[kWarps];
-  const int64_t t = blockIdx.x;
-  T* zt = z + t * 2 * n_vert;
-  const T* rt = r + t * 2 * n_vert;
-  const T* yt = yc + t * 2 * n_coarse;
-  T acc = T(0);
-  for (int64_t v = threadIdx.x; v < n_vert; v += kThreads) {
-    const int64_t w = v + n_vert;
-    const int64_t i = agg[v];
-    const T ya = yt[2 * i];
-    const T yb = yt[2 * i + 1];
-    const T* rv = r_blk + 4 * v;
-    const T z1 = zt[v] + (rv[0] * ya + rv[1] * yb);
-    const T z2 = zt[w] + (rv[2] * ya + rv[3] * yb);
-    zt[v] = z1;
-    zt[w] = z2;
-    acc += rt[v] * z1 + rt[w] * z2;
-  }
-  acc = block_sum(acc, scratch);
-  if (threadIdx.x == 0) rz[t] = acc;
 }
 
 constexpr int64_t kMaxGridY = 65535;
@@ -575,10 +499,11 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int F>
-int launch_restrict(const void* r, const void* r_blk, const void* members,
+template <typename T>
+int coarse_restrict(const void* r, const void* r_blk, const void* members,
                     void* rc, int64_t n_frames, int64_t n_vert,
                     int64_t n_coarse, int64_t k_width, void* stream) {
+  constexpr int F = kRestrictFrames<T>;
   const int64_t groups = (n_frames + F - 1) / F;
   if (groups > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
   if (n_frames > 0 && n_coarse > 0) {
@@ -586,49 +511,6 @@ int launch_restrict(const void* r, const void* r_blk, const void* members,
     restrict_kernel<T, F><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(r), static_cast<const T*>(r_blk),
         static_cast<const int*>(members), static_cast<T*>(rc), n_frames, n_vert,
-        n_coarse, k_width);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int coarse_restrict(const void* r, const void* r_blk, const void* members,
-                    void* rc, int64_t n_frames, int64_t n_vert,
-                    int64_t n_coarse, int64_t k_width, void* stream) {
-  return launch_restrict<T, kRestrictFrames>(r, r_blk, members, rc, n_frames,
-                                             n_vert, n_coarse, k_width, stream);
-}
-
-// K9 with F = `frames` frames a warp (1, 2, 4 or 8), to choose F on the card.
-template <typename T>
-int coarse_restrict_variant(const void* r, const void* r_blk, const void* members,
-                            void* rc, int64_t n_frames, int64_t n_vert,
-                            int64_t n_coarse, int64_t k_width, int64_t frames,
-                            void* stream) {
-  switch (frames) {
-    case 1:
-      return launch_restrict<T, 1>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
-    case 2:
-      return launch_restrict<T, 2>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
-    case 4:
-      return launch_restrict<T, 4>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
-    case 8:
-      return launch_restrict<T, 8>(r, r_blk, members, rc, n_frames, n_vert, n_coarse, k_width, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int coarse_restrict_first(const void* r, const void* r_blk, const void* members,
-                          void* rc, int64_t n_frames, int64_t n_vert,
-                          int64_t n_coarse, int64_t k_width, void* stream) {
-  if (n_frames > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_frames > 0 && n_coarse > 0) {
-    const dim3 grid(blocks_for(n_coarse * 32), static_cast<unsigned int>(n_frames));
-    restrict_first_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(r), static_cast<const T*>(r_blk),
-        static_cast<const int*>(members), static_cast<T*>(rc), n_vert,
         n_coarse, k_width);
   }
   return static_cast<int>(cudaGetLastError());
@@ -656,63 +538,21 @@ int coarse_gemv(const void* a, const void* x, void* y, int64_t n_frames,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kStage>
-int launch_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk,
-                       const void* agg, void* rz, void* part, void* ticket,
-                       int64_t n_frames, int64_t n_vert, int64_t n_coarse,
-                       int64_t n_slices, void* stream) {
-  if (n_frames > 0) {
-    const size_t smem = kStage ? 2 * n_coarse * sizeof(T) : 0;
-    if (n_slices < 1 || n_slices > kMaxSlices || smem > 48 * 1024) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const dim3 grid(static_cast<unsigned int>(n_slices), frame_blocks(n_frames));
-    prolong_dot_kernel<T, kStage><<<grid, kThreads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<T*>(z), static_cast<const T*>(r), static_cast<const T*>(yc),
-        static_cast<const T*>(r_blk), static_cast<const int*>(agg),
-        static_cast<T*>(rz), static_cast<T*>(part),
-        static_cast<unsigned int*>(ticket), n_frames, n_vert, n_coarse);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk,
                        const void* agg, void* rz, void* part, void* ticket,
                        int64_t n_frames, int64_t n_vert, int64_t n_coarse,
                        int64_t n_slices, void* stream) {
-  return launch_prolong_dot<T, false>(z, r, yc, r_blk, agg, rz, part, ticket,
-                                      n_frames, n_vert, n_coarse, n_slices, stream);
-}
-
-// K11 with yc staged in shared memory (stage != 0) or read through the
-// read-only cache, to choose on the card.
-template <typename T>
-int coarse_prolong_dot_variant(void* z, const void* r, const void* yc,
-                               const void* r_blk, const void* agg, void* rz,
-                               void* part, void* ticket, int64_t n_frames,
-                               int64_t n_vert, int64_t n_coarse, int64_t n_slices,
-                               int64_t stage, void* stream) {
-  if (stage) {
-    return launch_prolong_dot<T, true>(z, r, yc, r_blk, agg, rz, part, ticket,
-                                       n_frames, n_vert, n_coarse, n_slices, stream);
-  }
-  return launch_prolong_dot<T, false>(z, r, yc, r_blk, agg, rz, part, ticket,
-                                      n_frames, n_vert, n_coarse, n_slices, stream);
-}
-
-template <typename T>
-int coarse_prolong_dot_first(void* z, const void* r, const void* yc,
-                             const void* r_blk, const void* agg, void* rz,
-                             int64_t n_frames, int64_t n_vert, int64_t n_coarse,
-                             void* stream) {
   if (n_frames > 0) {
-    prolong_dot_first_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<T*>(z), static_cast<const T*>(r),
-        static_cast<const T*>(yc), static_cast<const T*>(r_blk),
-        static_cast<const int*>(agg), static_cast<T*>(rz), n_vert, n_coarse);
+    if (n_slices < 1 || n_slices > kMaxSlices) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid(static_cast<unsigned int>(n_slices), frame_blocks(n_frames));
+    prolong_dot_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(z), static_cast<const T*>(r), static_cast<const T*>(yc),
+        static_cast<const T*>(r_blk), static_cast<const int*>(agg),
+        static_cast<T*>(rz), static_cast<T*>(part),
+        static_cast<unsigned int*>(ticket), n_frames, n_vert, n_coarse);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -749,38 +589,6 @@ int coarse_prolong_dot_first(void* z, const void* r, const void* yc,
     return mf::coarse_prolong_dot<T>(z, r, yc, r_blk, agg, rz, part, ticket,   \
                                      n_frames, n_vert, n_coarse, n_slices,     \
                                      stream);                                  \
-  }                                                                            \
-  extern "C" int mf_coarse_restrict_variant_##SUFFIX(                          \
-      const void* r, const void* r_blk, const void* members, void* rc,         \
-      int64_t n_frames, int64_t n_vert, int64_t n_coarse, int64_t k_width,     \
-      int64_t frames, void* stream) {                                          \
-    return mf::coarse_restrict_variant<T>(r, r_blk, members, rc, n_frames,     \
-                                          n_vert, n_coarse, k_width, frames,   \
-                                          stream);                             \
-  }                                                                            \
-  extern "C" int mf_coarse_restrict_first_##SUFFIX(                            \
-      const void* r, const void* r_blk, const void* members, void* rc,         \
-      int64_t n_frames, int64_t n_vert, int64_t n_coarse, int64_t k_width,     \
-      void* stream) {                                                          \
-    return mf::coarse_restrict_first<T>(r, r_blk, members, rc, n_frames,       \
-                                        n_vert, n_coarse, k_width, stream);    \
-  }                                                                            \
-  extern "C" int mf_coarse_prolong_dot_variant_##SUFFIX(                       \
-      void* z, const void* r, const void* yc, const void* r_blk,               \
-      const void* agg, void* rz, void* part, void* ticket, int64_t n_frames,   \
-      int64_t n_vert, int64_t n_coarse, int64_t n_slices, int64_t stage,       \
-      void* stream) {                                                          \
-    return mf::coarse_prolong_dot_variant<T>(z, r, yc, r_blk, agg, rz, part,   \
-                                             ticket, n_frames, n_vert,         \
-                                             n_coarse, n_slices, stage,        \
-                                             stream);                          \
-  }                                                                            \
-  extern "C" int mf_coarse_prolong_dot_first_##SUFFIX(                         \
-      void* z, const void* r, const void* yc, const void* r_blk,               \
-      const void* agg, void* rz, int64_t n_frames, int64_t n_vert,             \
-      int64_t n_coarse, void* stream) {                                        \
-    return mf::coarse_prolong_dot_first<T>(z, r, yc, r_blk, agg, rz,           \
-                                           n_frames, n_vert, n_coarse, stream);\
   }
 
 MF_COARSE_ENTRY_POINTS(f32, float)

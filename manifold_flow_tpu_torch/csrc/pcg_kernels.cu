@@ -36,7 +36,8 @@
 // 16-byte vectors before any arithmetic. Each block writes its partial
 // r.z and r.r to a (T, S) scratch; the last block of a frame to finish,
 // found through an integer ticket per frame, adds the S partials in index
-// order and resets the ticket. No float atomics: repeated calls are bitwise
+// order and resets the ticket (common.cuh close_slices, which K11
+// coarse_prolong_dot shares). No float atomics: repeated calls are bitwise
 // equal. The ticket costs one integer atomic a block; a cluster of the S
 // blocks reducing through distributed shared memory would cost a cluster
 // barrier, which on this card took more than pcg_dot's whole time.

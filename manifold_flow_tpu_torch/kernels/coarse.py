@@ -118,9 +118,10 @@ def coarse_restrict(r: torch.Tensor, r_blk: torch.Tensor,
     Replaces the restriction of solve/coarse.py:243 `TwoLevelPrecond.apply`
     (:254-266, B7). Bound by reading r, 9.7 MB per call in f32 at the 12.5k
     shapes, gathered by member. Design: a warp owns one aggregate for a
-    group of frames (4): its lanes stride through the K members, load each
-    member's id and R_v once for the group, then issue the group's r loads
-    before the multiply-adds; the fixed-order warp sum closes each frame.
+    group of frames (4 in f32, 2 in f64, the fastest on the card): its
+    lanes stride through the K members, load each member's id and R_v once
+    for the group, then issue the group's r loads before the multiply-adds;
+    the fixed-order warp sum closes each frame.
     The first design, a warp per (frame, aggregate), fetched the
     frame-independent members and R_v again for every frame and had one
     load chain in flight a lane; rc is bitwise that design's.

@@ -303,8 +303,9 @@ def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     four (f32) or two (f64) vertices in flight as 16-byte vectors; the
     blocks' partial r.z and r.r close in slice order in the last block of
     each frame, found by an integer ticket in `slice_workspace` (no float
-    atomics, repeated calls bitwise equal). The first design, one block a frame with scalar loads,
-    kept about 0.8 MB in flight, where the card needs about 2 MB.
+    atomics, repeated calls bitwise equal). The first design, one block a
+    frame with scalar loads, kept about 0.8 MB in flight, where the card
+    needs about 2 MB.
     """
     dtype = _float_dtype("x", x)
     t, n_dof = x.shape

@@ -382,53 +382,6 @@ def test_coarse_prolong_dot_z_is_the_plain_update_bit_for_bit(cuda, dtype, n):
     _assert_close(got[2:], want[2:], dtype)
 
 
-def _first_design(name, dtype, argtypes):
-    import ctypes
-
-    fn = getattr(kernels.library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [257, 12547])
-def test_coarse_restrict_and_prolong_dot_are_the_first_designs_bit_for_bit(cuda, dtype, n):
-    """K9's rc (at every F frames a warp) and K11's z are bitwise those of
-    the first designs (a warp per (frame, aggregate); one block a frame);
-    K11's rz differs only by its summation order."""
-    import ctypes
-
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    t = 97
-    agg, members = _aggregation(cuda, n, seed=70)
-    nc, k = members.shape
-    r_blk = _rand(cuda, dtype, n, 2, 2, seed=71)
-    r, z = _rand(cuda, dtype, t, 2 * n, seed=72), _rand(cuda, dtype, t, 2 * n, seed=73)
-    yc = _rand(cuda, dtype, t, 2 * nc, seed=74)
-    stream = torch.cuda.current_stream().cuda_stream
-    first = _first_design("coarse_restrict_first", dtype, [p] * 4 + [i] * 4 + [p])
-    variant = _first_design("coarse_restrict_variant", dtype, [p] * 4 + [i] * 5 + [p])
-    got, want = _restrict_prolong(r, z, yc, r_blk, agg, members)
-    rc = torch.empty_like(got[0])
-    args = (r.data_ptr(), r_blk.data_ptr(), members.data_ptr(), rc.data_ptr(), t, n, nc, k)
-    assert first(*args, stream) == 0
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], rc)
-    for f in (1, 2, 4, 8):
-        rc.zero_()
-        assert variant(*args, f, stream) == 0
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], rc)
-    first = _first_design("coarse_prolong_dot_first", dtype, [p] * 6 + [i] * 3 + [p])
-    zs, rz = z.clone(), torch.empty(t, dtype=dtype, device=cuda)
-    assert first(zs.data_ptr(), r.data_ptr(), yc.data_ptr(), r_blk.data_ptr(),
-                 agg.data_ptr(), rz.data_ptr(), t, n, nc, stream) == 0
-    torch.cuda.synchronize()
-    assert torch.equal(got[1], zs)
-    _assert_close([got[2]], [rz], dtype)
-
-
 @pytest.mark.parametrize("method", ["cg", "refined", "cholesky"])
 def test_solve_on_cuda_matches_cpu(cuda, method):
     mesh, pot, times = _problem(cuda)
