@@ -257,7 +257,8 @@ WRAPPER_OF = {
     "frame_factors_rhs_kernel": "frame_factors_rhs", "gather_kernel": "frame_factors_rhs",
     "dot_kernel": "pcg_dot", "update_kernel": "pcg_update",
     "direction_kernel": "pcg_direction", "coarse_a1_kernel": "coarse_assemble",
-    "coarse_a2_kernel": "coarse_assemble", "restrict_kernel": "coarse_restrict",
+    "coarse_a2_kernel": "coarse_assemble", "assemble_kernel": "coarse_assemble",
+    "assemble_mean_kernel": "coarse_assemble", "restrict_kernel": "coarse_restrict",
     "gemv_kernel": "coarse_gemv", "gemv_vectors_kernel": "coarse_gemv",
     "prolong_dot_kernel": "coarse_prolong_dot",
     "recombine_speed_kernel": "recombine_speed",
@@ -657,6 +658,161 @@ def restriction_coo(r_blk, members) -> torch.Tensor:
     return coo.coalesce()
 
 
+def comparison_entry(name: str, dtype, argtypes):
+    """This build's entry point `name` of a design kept only for the
+    comparison (K8's and K15's first designs, their variants), with its
+    types."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import library
+
+    fn = getattr(library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def against_first_assemble(card: str, asm) -> None:
+    """K8 against its first design (a warp per (frame, entry)) on the same
+    inputs: out bitwise and device times in turns; then the new design at
+    F = 1, 2, 4, 8 frames a warp, phase 1 its own launch or folded into each
+    warp, each bitwise equal too, in turns; and the output's zeroing."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import coarse as kco
+
+    g, blocks2, r_blk, triangles, w_scale, lam, ptr, src, dst, n_coarse = asm
+    dtype = g.dtype
+    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    first = comparison_entry("coarse_assemble_first", dtype,
+                             [p] * 8 + [d] + [p] * 2 + [i] * 5 + [p])
+    variant = comparison_entry("coarse_assemble_variant", dtype,
+                               [p] * 8 + [d] + [p] * 2 + [i] * 7 + [p])
+    t, m = g.shape[0], g.shape[1]
+    nc2, nnz = 2 * n_coarse, dst.shape[0]
+
+    def call(fn, *extra, mean=False):
+        def run():
+            out = torch.zeros((1 if mean else t, nc2, nc2), dtype=dtype, device=g.device)
+            a2c = torch.empty(nnz, dtype=dtype, device=g.device)
+            _launched(fn(g.data_ptr(), blocks2.data_ptr(), r_blk.data_ptr(),
+                         triangles.data_ptr(), w_scale.data_ptr(), ptr.data_ptr(),
+                         src.data_ptr(), dst.data_ptr(), float(lam), a2c.data_ptr(),
+                         out.data_ptr(), t, m, nnz, nc2, int(mean), *extra,
+                         torch.cuda.current_stream().cuda_stream), "coarse_assemble")
+            return out
+        return run
+
+    def this():
+        return kco.coarse_assemble(*asm)
+    want = call(first)()
+    same = torch.equal(this(), want)
+    same_mean = torch.equal(kco.coarse_assemble(*asm, mean=True), call(first, mean=True)())
+    us = [device_us(fn, mine=own_kernel) for fn in (this, call(first), call(first), this)]
+    zeros_us = device_us(lambda: torch.zeros((t, nc2, nc2), dtype=dtype, device=g.device))
+    frames = (1, 2, 4, 8)
+    cases = [(f, fold) for fold in (0, 1) for f in frames]
+    equal = [torch.equal(call(variant, f, fold)(), want) for f, fold in cases]
+    sweep = [device_us(call(variant, f, fold), mine=own_kernel)
+             for f, fold in cases + cases[::-1]]
+    n = len(cases)
+    ctype = "float" if dtype == torch.float32 else "double"
+    print(f"[parent] coarse_assemble<{ctype}>@12.5k: out bitwise equal to the first "
+          f"design: {same} ('mean': {same_mean}); device {fmt_us(us[0])} / "
+          f"{fmt_us(us[3])} against the first design's {fmt_us(us[1])} / "
+          f"{fmt_us(us[2])} (in turns); the output's zeroing (torch.zeros "
+          f"({t}, {nc2}, {nc2})) {fmt_us(zeros_us)}; F frames a warp, bitwise "
+          f"equal {equal}: " + ", ".join(
+              f"F={f}{' folded' if fold else ''} {fmt_us(a)} / {fmt_us(b)}"
+              for (f, fold), a, b in zip(cases, sweep[:n], sweep[::-1][:n]))
+          + f"; on {card}", flush=True)
+
+
+def pair_tables(order, bounds):
+    """Ring tables whose rings keep their first two members (rings of fewer
+    keep what they have): on such rings the first and the new K15 add the
+    same two angles in the same order, so w must be bitwise equal."""
+    u, levels = bounds.shape[0], bounds.shape[1] - 1
+    first = bounds[:, :-1].long()
+    size = (bounds[:, 1:].long() - first).clamp(max=2)
+    new_bounds = torch.zeros_like(bounds)
+    new_bounds[:, 1:] = torch.cumsum(size, dim=1).to(bounds.dtype)
+    width = max(int(new_bounds[:, -1].max()), 1)
+    col = torch.arange(width, device=order.device)
+    ring = torch.searchsorted(new_bounds[:, 1:].contiguous(),
+                              col.expand(u, -1).contiguous(), right=True).clamp(max=levels - 1)
+    src = torch.gather(first, 1, ring) + col - torch.gather(new_bounds[:, :-1].long(), 1, ring)
+    src = src.clamp(0, order.shape[1] - 1)
+    return torch.gather(order, 1, src).to(torch.int32).contiguous(), new_bounds.contiguous()
+
+
+def against_first_winding(card: str, wp) -> None:
+    """K15 against its first design (one warp per (center, frame)) on the
+    same inputs: counts and types equal and w within TOL on the real rings,
+    w bitwise equal on rings of one member pair; device times in turns; then
+    1, 2, 4 and 8 frames a block, in turns."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import winding as kwi
+
+    v_world, order, bounds, e1, e2 = wp
+    dtype = v_world.dtype
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    first = comparison_entry("winding_profile_first", dtype, [p] * 8 + [i] * 5 + [p])
+    variant = comparison_entry("winding_profile_variant", dtype, [p] * 8 + [i] * 6 + [p])
+
+    def call(fn, order, bounds, *extra):
+        u, width = order.shape
+        levels, t, n = bounds.shape[1] - 1, v_world.shape[0], v_world.shape[1]
+
+        def run():
+            counts = torch.empty((u, t), dtype=torch.int32, device=v_world.device)
+            types = torch.empty_like(counts)
+            w = torch.empty((u, t, levels), dtype=dtype, device=v_world.device)
+            _launched(fn(v_world.data_ptr(), order.data_ptr(), bounds.data_ptr(),
+                         e1.data_ptr(), e2.data_ptr(), counts.data_ptr(),
+                         types.data_ptr(), w.data_ptr(), u, t, n, width, levels, *extra,
+                         torch.cuda.current_stream().cuda_stream), "winding_profile")
+            return counts, types, w
+        return run
+
+    def this():
+        return kwi.winding_profile(*wp)
+    got, want = this(), call(first, order, bounds)()
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+    rel = float((got[2] - want[2]).abs().max() / want[2].abs().max())
+    discrete = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    po, pb = pair_tables(order, bounds)
+    pairs = (v_world, po, pb, e1, e2)
+    pair_same = torch.equal(kwi.winding_profile(*pairs)[2], call(first, po, pb)()[2])
+    plain_same = torch.equal(got[2], kwi.plain_winding_profile(*wp)[2])
+    us = [device_us(fn, mine=own_kernel)
+          for fn in (this, call(first, order, bounds), call(first, order, bounds), this)]
+    frames = (1, 2, 4, 8)
+    same = [all(torch.equal(a, b) for a, b in zip(call(variant, order, bounds, f)(), got))
+            for f in frames]
+    sweep = [device_us(call(variant, order, bounds, f), mine=own_kernel)
+             for f in frames + frames[::-1]]
+    ctype = "float" if dtype == torch.float32 else "double"
+    print(f"[parent] winding_profile<{ctype}>: counts and types equal to the first "
+          f"design's: {discrete}, w relative difference {rel:.2e} (tol {tol:.0e}); "
+          f"on rings of one member pair w bitwise equal: {pair_same}; w bitwise "
+          f"equal to the plain version's (its new order): {plain_same}; device "
+          f"{fmt_us(us[0])} / {fmt_us(us[3])} against the first design's "
+          f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); frames a block, outputs "
+          f"bitwise the default's {same}: " + ", ".join(
+              f"{f} {fmt_us(a)} / {fmt_us(b)}"
+              for f, a, b in zip(frames, sweep[:4], sweep[::-1][:4])) + f"; on {card}",
+          flush=True)
+    if not (discrete and rel <= tol and pair_same):
+        raise AssertionError(f"winding_profile<{ctype}> disagrees with its first design")
+
+
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
     """Phase 9: K8-K11 against their plain versions at the 12.5k shapes, in
     float32 (the refined solve's inner preconditioner) and float64 (cg)."""
@@ -690,6 +846,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        lambda: (kco.coarse_assemble(*asm),),
                        lambda: (kco.plain_coarse_assemble(*asm),), tol,
                        inputs=asm, ops=16 * t * tables.asm_src.shape[0])
+        against_first_assemble(checks.card, asm)
         pre = coarse.make_two_level(mesh, op.g, op.lambda_, tables)
         r, z = (torch.randn((t, n_dof), generator=gen, dtype=torch.float64)
                 .to(pot.device, dtype) for _ in range(2))
@@ -940,6 +1097,7 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
     print(f"[kernels] winding{suffix}: {uniq.numel()} distinct centers, "
           f"{members} ring members over {LEVELS} rings, {rows} distinct vertices",
           flush=True)
+    against_first_winding(checks.card, wp)
 
 
 def next_hop_bytes(unit, v_world, neighbors, cell_count, vertex_cells, triangles,

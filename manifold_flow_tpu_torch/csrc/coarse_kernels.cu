@@ -148,6 +148,166 @@ __global__ void __launch_bounds__(kThreads)
   out[t * nc2sq + dst[e]] = acc + lambda * a2c[e];
 }
 
+// K8, redesigned: one warp per (entry, group of F frames). Lane l takes the
+// entry's contributions l, l + 32, ... and loads the frame-independent part of
+// each once for the group: the decoded (m, c, x, c2, y), the two corners'
+// R_v coefficients and the weight w. It then issues the g pairs g_c and g_c2
+// of all F frames (one 8-byte load each in f32, one 16-byte load in f64,
+// where g is aligned) before the multiply-adds. Each frame's lane sum adds
+// the contributions in the first design's order and expression, and the
+// same fixed-order warp sum closes it: out is bitwise the first design's.
+// With `fold`, each warp also forms the entry's a2 part itself (the first
+// design's phase 1, in its order) instead of reading a2c.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// g_c^0 and g_c^1 of one (frame, triangle, corner): adjacent values, one
+// load where `aligned`.
+template <typename T>
+__device__ __forceinline__ void load_pair(const T* p, bool aligned, T& a, T& b) {
+  if (aligned) {
+    const typename Pair<T>::type q = __ldg(reinterpret_cast<const typename Pair<T>::type*>(p));
+    a = q.x;
+    b = q.y;
+  } else {
+    a = __ldg(p);
+    b = __ldg(p + 1);
+  }
+}
+
+// The frame-independent part of one contribution.
+template <typename T>
+struct Fixed {
+  int64_t m;
+  int c, c2;
+  T rc0, rc2, rd0, rd2, w;
+};
+
+template <typename T>
+__device__ __forceinline__ Fixed<T> load_fixed(const Contribution& q,
+                                               const T* __restrict__ r_blk,
+                                               const int* __restrict__ triangles,
+                                               const T* __restrict__ w_scale) {
+  const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
+  const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
+  const T* rc = r_blk + 4 * vc;
+  const T* rd = r_blk + 4 * vd;
+  return {q.m, q.c, q.c2, __ldg(rc + q.x), __ldg(rc + 2 + q.x), __ldg(rd + q.y),
+          __ldg(rd + 2 + q.y), (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m)};
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(kThreads)
+    assemble_kernel(const T* __restrict__ g, const T* __restrict__ blocks2,
+                    const T* __restrict__ r_blk, const int* __restrict__ triangles,
+                    const T* __restrict__ w_scale, const int* __restrict__ ptr,
+                    const int* __restrict__ src, const int* __restrict__ dst,
+                    const T* __restrict__ a2c, T lambda, T* __restrict__ out,
+                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2sq,
+                    int fold) {
+  const int64_t e = global_index() >> 5;
+  const int lane = threadIdx.x & 31;
+  if (e >= nnz) return;  // uniform across the warp
+  const int64_t t0 = static_cast<int64_t>(blockIdx.y) * F;
+  const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
+  T acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = T(0);
+  T acc2 = T(0);
+  const int k1 = __ldg(ptr + e + 1);
+  for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
+    const Contribution q = decode(__ldg(src + k));
+    const Fixed<T> p = load_fixed(q, r_blk, triangles, w_scale);
+    T ga[F], gb[F], gc[F], gd[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      ga[f] = gb[f] = gc[f] = gd[f] = T(0);
+      if (t0 + f < n_frames) {
+        const T* gm = g + ((t0 + f) * m_tri + p.m) * 6;
+        load_pair(gm + 2 * p.c, aligned, ga[f], gb[f]);
+        load_pair(gm + 2 * p.c2, aligned, gc[f], gd[f]);
+      }
+    }
+    if (fold) {  // the first design's phase 1 term, in its order
+      const T* b = blocks2 + 36 * q.m + (2 * q.c) * 6 + 2 * q.c2;
+      const T rc[4] = {p.rc0, T(0), p.rc2, T(0)};
+      const T rd[4] = {p.rd0, T(0), p.rd2, T(0)};
+      T v = T(0);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          v += rc[2 * a] * __ldg(b + a * 6 + bb) * rd[2 * bb];
+        }
+      }
+      acc2 += v;
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      T s = T(0);
+      s += (ga[f] * p.rc0 + gb[f] * p.rc2) * (gc[f] * p.rd0 + gd[f] * p.rd2);
+      acc[f] += s * p.w;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = warp_sum(acc[f]);
+  T a2 = T(0);
+  if (fold) {
+    a2 = warp_sum(acc2);
+  } else if (lane == 0) {
+    a2 = a2c[e];
+  }
+  if (lane != 0) return;
+  const int64_t d = __ldg(dst + e);
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + d] = acc[f] + lambda * a2;
+  }
+}
+
+// K8 in 'mean' mode: one warp per entry sums every frame of each
+// contribution, as the first design did, with the frame-independent part
+// loaded once and each g pair in one load.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    assemble_mean_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
+                         const int* __restrict__ triangles,
+                         const T* __restrict__ w_scale, const int* __restrict__ ptr,
+                         const int* __restrict__ src, const int* __restrict__ dst,
+                         const T* __restrict__ a2c, T lambda, T* __restrict__ out,
+                         int64_t n_frames, int64_t m_tri, int64_t nnz) {
+  const int64_t e = global_index() >> 5;
+  const int lane = threadIdx.x & 31;
+  if (e >= nnz) return;  // uniform across the warp
+  const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
+  T acc = T(0);
+  const int k1 = __ldg(ptr + e + 1);
+  for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
+    const Fixed<T> p = load_fixed(decode(__ldg(src + k)), r_blk, triangles, w_scale);
+    T s = T(0);
+    for (int64_t f = 0; f < n_frames; ++f) {
+      const T* gm = g + (f * m_tri + p.m) * 6;
+      T ga, gb, gc, gd;
+      load_pair(gm + 2 * p.c, aligned, ga, gb);
+      load_pair(gm + 2 * p.c2, aligned, gc, gd);
+      s += (ga * p.rc0 + gb * p.rc2) * (gc * p.rd0 + gd * p.rd2);
+    }
+    acc += s * p.w;
+  }
+  acc = warp_sum(acc);
+  if (lane != 0) return;
+  acc /= static_cast<T>(n_frames);
+  out[__ldg(dst + e)] = acc + lambda * a2c[e];
+}
+
 // K9: rc[t][2a + b] = sum over the members v of aggregate a (the pad index N
 // skipped) of sum_a' R_v[a'][b] r[t][v + N a']. A warp owns aggregate a for
 // F consecutive frames: lane l takes members l, l + 32, ..., kRestrictMembers
@@ -473,7 +633,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int64_t kMaxGridY = 65535;
 
 template <typename T>
-int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
+int coarse_assemble_first(const void* g, const void* blocks2, const void* r_blk,
                     const void* triangles, const void* w_scale,
                     const void* ptr, const void* src, const void* dst,
                     double lambda, void* a2c, void* out, int64_t n_frames,
@@ -497,6 +657,94 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
         nc2 * nc2, static_cast<int>(mean != 0));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Frames a warp of K8 (F), one constant a type.
+template <typename T>
+constexpr int kAssembleFrames = 4;
+
+template <typename T, int F>
+void launch_assemble(const void* g, const void* blocks2, const void* r_blk,
+                     const void* triangles, const void* w_scale, const void* ptr,
+                     const void* src, const void* dst, T lambda, void* a2c,
+                     void* out, int64_t n_frames, int64_t m_tri, int64_t nnz,
+                     int64_t nc2, bool fold, cudaStream_t s) {
+  const dim3 grid(blocks_for(nnz * 32),
+                  static_cast<unsigned int>((n_frames + F - 1) / F));
+  assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(blocks2),
+      static_cast<const T*>(r_blk), static_cast<const int*>(triangles),
+      static_cast<const T*>(w_scale), static_cast<const int*>(ptr),
+      static_cast<const int*>(src), static_cast<const int*>(dst),
+      static_cast<const T*>(a2c), lambda, static_cast<T*>(out), n_frames, m_tri,
+      nnz, nc2 * nc2, static_cast<int>(fold));
+}
+
+// K8: phase 1 (a2c, frame-independent) unless `fold`, then the frame groups;
+// `frames` is F (1, 2, 4 or 8).
+template <typename T>
+int coarse_assemble_with(const void* g, const void* blocks2, const void* r_blk,
+                         const void* triangles, const void* w_scale,
+                         const void* ptr, const void* src, const void* dst,
+                         double lambda, void* a2c, void* out, int64_t n_frames,
+                         int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
+                         int64_t frames, int64_t fold, void* stream) {
+  if (frames != 1 && frames != 2 && frames != 4 && frames != 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!mean && (n_frames + frames - 1) / frames > kMaxGridY) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nnz > 0 && n_frames > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T lam = static_cast<T>(lambda);
+    if (mean || !fold) {
+      coarse_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+          static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
+          static_cast<const int*>(triangles), static_cast<const int*>(ptr),
+          static_cast<const int*>(src), static_cast<T*>(a2c), nnz);
+    }
+    if (mean) {
+      assemble_mean_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const T*>(r_blk),
+          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+          static_cast<const int*>(ptr), static_cast<const int*>(src),
+          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+          static_cast<T*>(out), n_frames, m_tri, nnz);
+      return static_cast<int>(cudaGetLastError());
+    }
+    const bool f = fold != 0;
+    switch (frames) {
+      case 1:
+        launch_assemble<T, 1>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
+                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
+        break;
+      case 2:
+        launch_assemble<T, 2>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
+                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
+        break;
+      case 4:
+        launch_assemble<T, 4>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
+                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
+        break;
+      default:
+        launch_assemble<T, 8>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
+                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
+                    const void* triangles, const void* w_scale,
+                    const void* ptr, const void* src, const void* dst,
+                    double lambda, void* a2c, void* out, int64_t n_frames,
+                    int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
+                    void* stream) {
+  return coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale, ptr, src,
+                                 dst, lambda, a2c, out, n_frames, m_tri, nnz, nc2,
+                                 mean, kAssembleFrames<T>, 0, stream);
 }
 
 template <typename T>
@@ -569,6 +817,28 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
     return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
                                   src, dst, lambda, a2c, out, n_frames, m_tri, \
                                   nnz, nc2, mean, stream);                     \
+  }                                                                            \
+  extern "C" int mf_coarse_assemble_first_##SUFFIX(                            \
+      const void* g, const void* blocks2, const void* r_blk,                   \
+      const void* triangles, const void* w_scale, const void* ptr,             \
+      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
+      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
+      void* stream) {                                                          \
+    return mf::coarse_assemble_first<T>(g, blocks2, r_blk, triangles, w_scale, \
+                                        ptr, src, dst, lambda, a2c, out,       \
+                                        n_frames, m_tri, nnz, nc2, mean,       \
+                                        stream);                               \
+  }                                                                            \
+  extern "C" int mf_coarse_assemble_variant_##SUFFIX(                          \
+      const void* g, const void* blocks2, const void* r_blk,                   \
+      const void* triangles, const void* w_scale, const void* ptr,             \
+      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
+      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
+      int64_t frames, int64_t fold, void* stream) {                            \
+    return mf::coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale,  \
+                                       ptr, src, dst, lambda, a2c, out,        \
+                                       n_frames, m_tri, nnz, nc2, mean,        \
+                                       frames, fold, stream);                  \
   }                                                                            \
   extern "C" int mf_coarse_restrict_##SUFFIX(                                  \
       const void* r, const void* r_blk, const void* members, void* rc,         \

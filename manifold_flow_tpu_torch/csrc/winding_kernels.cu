@@ -66,7 +66,7 @@ __device__ __forceinline__ T signed_angle(T ax, T ay, T bx, T by) {
 }
 
 template <typename T>
-__global__ void winding_profile_kernel(
+__global__ void winding_profile_first_kernel(
     const T* __restrict__ v_world, const int32_t* __restrict__ order,
     const int32_t* __restrict__ bounds, const T* __restrict__ e1s,
     const T* __restrict__ e2s, int32_t* __restrict__ counts,
@@ -130,13 +130,13 @@ __global__ void winding_profile_kernel(
 }
 
 template <typename T>
-int winding_profile(const void* v_world, const void* order, const void* bounds,
+int winding_profile_first(const void* v_world, const void* order, const void* bounds,
                     const void* e1, const void* e2, void* counts, void* types, void* w,
                     int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,
                     int64_t levels, void* stream) {
   if (n_centers > 0 && n_frames > 0) {
     const dim3 grid(static_cast<unsigned int>(n_centers), frame_blocks(n_frames));
-    winding_profile_kernel<T><<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    winding_profile_first_kernel<T><<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(v_world), static_cast<const int32_t*>(order),
         static_cast<const int32_t*>(bounds), static_cast<const T*>(e1),
         static_cast<const T*>(e2), static_cast<int32_t*>(counts),
@@ -144,6 +144,201 @@ int winding_profile(const void* v_world, const void* order, const void* bounds,
         levels);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Ring sums of one (center, frame), redesigned: the work is spread by member.
+// A block of kThreads takes one center for a group of frames (frames
+// blockIdx.y, blockIdx.y + gridDim.y, ...). The center's ring members are
+// staged in shared memory in chunks of up to `cap` (one chunk, loaded once
+// for every frame of the group, whenever the row fits): their vertex ids and
+// each member's successor in its ring (the next member, the ring's first for
+// its last member, itself for a ring of one). For each frame and chunk:
+//   1. thread i writes member i's unit direction (unit_direction) to shared
+//      memory; a barrier;
+//   2. thread i writes the signed angle from member i to its successor
+//      (signed_angle; 0 for a ring of one member), the successor's direction
+//      from shared memory or, outside the chunk, formed again from v; a
+//      barrier;
+//   3. a warp per ring adds the ring's angles: lane l takes its members l,
+//      l + 32, ... in order (its partial sum kept in shared memory across
+//      chunks); a barrier.
+// Then each ring's warp closes the 32 partials with the fixed-order warp_sum
+// and thread 0 counts the persistent rings. Every direction and angle is the
+// first design's expression, so only the order of each ring's sum changed;
+// the plain version adds in this order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    winding_profile_kernel(const T* __restrict__ v_world,
+                           const int32_t* __restrict__ order,
+                           const int32_t* __restrict__ bounds,
+                           const T* __restrict__ e1s, const T* __restrict__ e2s,
+                           int32_t* __restrict__ counts, int32_t* __restrict__ types,
+                           T* __restrict__ w_out, int64_t n_frames, int64_t n_vert,
+                           int64_t width, int64_t levels, int cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ux = reinterpret_cast<T*>(smem);                         // cap
+  T* uy = ux + cap;                                           // cap
+  T* ang = uy + cap;                                          // cap
+  T* lanesum = ang + cap;                                     // levels * 32
+  T* wsh = lanesum + levels * 32;                             // levels
+  int32_t* ids = reinterpret_cast<int32_t*>(wsh + levels);    // cap
+  int32_t* succ = ids + cap;                                  // cap
+  int32_t* bnd = succ + cap;                                  // levels + 1
+  const int64_t u = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  CenterPlane<T> p;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    p.e1[d] = e1s[u * 3 + d];
+    p.e2[d] = e2s[u * 3 + d];
+  }
+  cross3(p.e1, p.e2, p.n);
+  p.nn = dot3(p.n, p.n);
+  p.e11 = dot3(p.e1, p.e1);
+  p.e22 = dot3(p.e2, p.e2);
+  const int32_t* ord = order + u * width;
+  for (int64_t i = tid; i <= levels; i += kThreads) bnd[i] = bounds[u * (levels + 1) + i];
+  __syncthreads();
+  const int32_t begin = bnd[0];
+  const int32_t total = bnd[levels] - begin;
+  const int32_t n_chunks = (total + cap - 1) / cap;
+  int32_t loaded = -1;
+  const T two_pi = T(2.0 * 3.141592653589793);
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    const T* v = v_world + t * n_vert * 3;
+    T* w = w_out + (u * n_frames + t) * levels;
+    for (int64_t i = tid; i < levels * 32; i += kThreads) lanesum[i] = T(0);
+    __syncthreads();
+    for (int32_t chunk = 0; chunk < n_chunks; ++chunk) {
+      const int32_t c0 = begin + chunk * cap;
+      const int32_t n = total - chunk * cap < cap ? total - chunk * cap : cap;
+      if (chunk != loaded) {  // ids[i] and succ[i] are read by thread i only
+        for (int32_t i = tid; i < n; i += kThreads) {
+          const int32_t j = c0 + i;
+          int lo = 0, hi = static_cast<int>(levels);  // bnd[lo] <= j < bnd[hi]
+          while (hi - lo > 1) {
+            const int mid = (lo + hi) >> 1;
+            if (bnd[mid] <= j) lo = mid;
+            else hi = mid;
+          }
+          ids[i] = ord[j];
+          succ[i] = j + 1 < bnd[lo + 1] ? j + 1 : bnd[lo];
+        }
+        loaded = chunk;
+      }
+      for (int32_t i = tid; i < n; i += kThreads) unit_direction(v, ids[i], p, ux[i], uy[i]);
+      __syncthreads();
+      for (int32_t i = tid; i < n; i += kThreads) {
+        const int32_t k = succ[i];
+        T a = T(0);
+        if (k != c0 + i) {
+          T kx, ky;
+          if (k >= c0 && k < c0 + n) {
+            kx = ux[k - c0];
+            ky = uy[k - c0];
+          } else {
+            unit_direction(v, ord[k], p, kx, ky);
+          }
+          a = signed_angle(ux[i], uy[i], kx, ky);
+        }
+        ang[i] = a;
+      }
+      __syncthreads();
+      for (int64_t r = warp; r < levels; r += kWarps) {
+        const int32_t first = bnd[r];
+        const int32_t lo = first > c0 ? first : c0;
+        const int32_t hi = bnd[r + 1] < c0 + n ? bnd[r + 1] : c0 + n;
+        if (lo >= hi) continue;  // uniform across the warp
+        const int32_t d = lo - first;
+        int32_t j = first + lane + (d > lane ? (d - lane + 31) / 32 * 32 : 0);
+        T acc = lanesum[r * 32 + lane];
+        for (; j < hi; j += 32) acc = rn_add(acc, ang[j - c0]);
+        lanesum[r * 32 + lane] = acc;
+      }
+      __syncthreads();
+    }
+    for (int64_t r = warp; r < levels; r += kWarps) {
+      const T sum = warp_sum(lanesum[r * 32 + lane]);
+      if (lane == 0) {
+        const T wr = rn_div(sum, two_pi);
+        wsh[r] = wr;
+        w[r] = wr;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      // ops/winding.py:173 _count_and_type: ring 1 fixes the type, then the
+      // count runs while |w - type| <= 0.001, from ring 2 on.
+      const T w0 = wsh[0];
+      int32_t typ = 0;
+      if (w0 >= T(0.99) && w0 <= T(1.01)) typ = 1;
+      else if (w0 >= T(-1.01) && w0 <= T(-0.99)) typ = -1;
+      int32_t count = 0;
+      if (typ != 0) {
+        const T target = static_cast<T>(typ);
+        const T lo = rn_sub(target, T(0.001)), hi = rn_add(target, T(0.001));
+        count = 1;
+        for (int64_t r = 1; r < levels && wsh[r] >= lo && wsh[r] <= hi; ++r) ++count;
+      }
+      counts[u * n_frames + t] = count;
+      types[u * n_frames + t] = typ;
+    }
+    __syncthreads();  // wsh and lanesum serve the next frame
+  }
+}
+
+// Members a block stages at once, and frames a block.
+constexpr int kWindingChunk = 2048;
+constexpr int kWindingFrames = 2;
+constexpr int64_t kMaxSharedBytes = 232448;  // a block's limit on the H100
+
+template <typename T>
+int64_t winding_shared_bytes(int64_t cap, int64_t levels) {
+  return (3 * cap + 33 * levels) * static_cast<int64_t>(sizeof(T)) +
+         (2 * cap + levels + 1) * 4;
+}
+
+template <typename T>
+int winding_profile_with(const void* v_world, const void* order, const void* bounds,
+                         const void* e1, const void* e2, void* counts, void* types,
+                         void* w, int64_t n_centers, int64_t n_frames, int64_t n_vert,
+                         int64_t width, int64_t levels, int64_t frames_per_block,
+                         void* stream) {
+  if (n_centers <= 0 || n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  if (frames_per_block < 1 || n_centers > 2147483647) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int64_t cap = width < kWindingChunk ? (width > 0 ? width : 1) : kWindingChunk;
+  while (cap > 32 && winding_shared_bytes<T>(cap, levels) > kMaxSharedBytes) cap /= 2;
+  const int64_t bytes = winding_shared_bytes<T>(cap, levels);
+  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        winding_profile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t groups = (n_frames + frames_per_block - 1) / frames_per_block;
+  const dim3 grid(static_cast<unsigned int>(n_centers), frame_blocks(groups));
+  winding_profile_kernel<T><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(v_world), static_cast<const int32_t*>(order),
+      static_cast<const int32_t*>(bounds), static_cast<const T*>(e1),
+      static_cast<const T*>(e2), static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(types), static_cast<T*>(w), n_frames, n_vert, width,
+      levels, static_cast<int>(cap));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int winding_profile(const void* v_world, const void* order, const void* bounds,
+                    const void* e1, const void* e2, void* counts, void* types, void* w,
+                    int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,
+                    int64_t levels, void* stream) {
+  return winding_profile_with<T>(v_world, order, bounds, e1, e2, counts, types, w,
+                                 n_centers, n_frames, n_vert, width, levels,
+                                 kWindingFrames, stream);
 }
 
 }  // namespace mf
@@ -157,6 +352,24 @@ int winding_profile(const void* v_world, const void* order, const void* bounds,
     return mf::winding_profile<T>(v_world, order, bounds, e1, e2, counts,       \
                                   types, w, n_centers, n_frames, n_vert, width, \
                                   levels, stream);                              \
+  }                                                                             \
+  extern "C" int mf_winding_profile_first_##SUFFIX(                             \
+      const void* v_world, const void* order, const void* bounds,               \
+      const void* e1, const void* e2, void* counts, void* types, void* w,       \
+      int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,       \
+      int64_t levels, void* stream) {                                           \
+    return mf::winding_profile_first<T>(v_world, order, bounds, e1, e2, counts, \
+                                        types, w, n_centers, n_frames, n_vert,  \
+                                        width, levels, stream);                 \
+  }                                                                             \
+  extern "C" int mf_winding_profile_variant_##SUFFIX(                           \
+      const void* v_world, const void* order, const void* bounds,               \
+      const void* e1, const void* e2, void* counts, void* types, void* w,       \
+      int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,       \
+      int64_t levels, int64_t frames_per_block, void* stream) {                 \
+    return mf::winding_profile_with<T>(v_world, order, bounds, e1, e2, counts,  \
+                                       types, w, n_centers, n_frames, n_vert,   \
+                                       width, levels, frames_per_block, stream);\
   }
 
 MF_WINDING_ENTRY_POINTS(f32, float)

@@ -7,9 +7,10 @@ allocates its outputs with `torch.empty`, and counts its launches in
 `LAUNCHES`.
 
 The plain version evaluates every operation separately in the kernel's
-order and adds each ring's angles member by member in sorted order, as
-the kernel does, so counts and types are equal and the winding numbers
-agree to rounding (they are equal where both take the same arccos).
+order and adds each ring's angles in the kernel's order (`ring_sums`: the
+lanes of a warp striding over the ring's members, then warp_sum's fixed
+tree), so counts and types are equal and the winding numbers agree to
+rounding (they are equal where both take the same arccos).
 """
 
 from __future__ import annotations
@@ -41,11 +42,19 @@ def winding_profile(v_world: torch.Tensor, order: torch.Tensor,
 
     Replaces ops/winding.py:127 `_profile_from_tables`, :173
     `_count_and_type` and their :458 `_grid_centers_program` (B12). Bound
-    by arithmetic latency: v_world is read once from device memory (7.3 MB
-    in f64 at the bench shapes, about 2.5 us at 3.35 TB/s) and re-read from
-    L2 per center; each ring member costs an arccos and two divisions.
-    Design: one warp per (center, frame), lane r summing ring r in sorted
-    order, lane 0 counting the persistent rings.
+    by f64 arithmetic: v_world is read once from device memory (7.3 MB in
+    f64 at the bench shapes, about 2.5 us at 3.35 TB/s) and re-read from L2
+    per center; each ring member costs five divisions, a square root and an
+    arccos. Design: a block of 256 threads per (center, group of frames)
+    spreads the work by member. The center's members (up to 2048 at once,
+    in chunks beyond that) and each one's successor in its ring are staged
+    in shared memory once for the group; for each frame thread i forms
+    member i's unit direction, then its signed angle to its successor, and
+    a warp per ring adds the ring's angles, its lanes striding over the
+    members, closed by the fixed-order warp sum; thread 0 counts the
+    persistent rings. The first design, a warp per (center, frame) with
+    lane r walking ring r, left lanes idle and ran as long as the longest
+    ring's serial chain.
     """
     dtype = _float_dtype("v_world", v_world)
     t, n = v_world.shape[0], v_world.shape[1] if v_world.dim() == 3 else -1
@@ -94,10 +103,35 @@ def count_and_type(w: torch.Tensor):
     return count.to(torch.int32), typ
 
 
+def ring_sums(angle: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Each ring's sum (U, T, L) of the per-member angles `angle` (U, T, R),
+    in the kernel's order: lane l of the ring's warp adds the ring's
+    members l, l + 32, ... in turn, then the 32 partial sums close in
+    warp_sum's tree (common.cuh: lane i adds lane i + 16, then i + 8, ...,
+    then lane 0 adds lane 1)."""
+    u, t = angle.shape[0], angle.shape[1]
+    first = bounds[:, :-1].long()
+    size = bounds[:, 1:].long() - first                          # (U, L)
+    levels = size.shape[1]
+    lanes = torch.arange(32, device=angle.device)
+    part = angle.new_zeros((u, t, levels, 32))
+    n_steps = -(-int(size.max()) // 32) if size.numel() else 0
+    for k in range(n_steps):
+        pos = 32 * k + lanes                                      # (32,)
+        valid = (pos < size[..., None])[:, None]                  # (U, 1, L, 32)
+        idx = (first[..., None] + pos).clamp(0, max(angle.shape[-1] - 1, 0))
+        a = torch.gather(angle, 2, idx.reshape(u, 1, -1).expand(-1, t, -1))
+        part = torch.where(valid, part + a.reshape(u, t, levels, 32), part)
+    for off in (16, 8, 4, 2, 1):
+        part = part[..., :off] + part[..., off:2 * off]
+    return part[..., 0]
+
+
 def plain_winding_profile(v_world, order, bounds, e1, e2):
     """Plain torch version of `winding_profile` (ops/winding.py:138-158 and
-    :173-184, each ring's angles added member by member)."""
-    levels = bounds.shape[-1] - 1
+    :173-184): every member's signed angle to its successor in its ring
+    (the ring's first member for its last, none for a ring of one), each
+    ring's angles added in the kernel's order (`ring_sums`)."""
     n_ = _cross(e1, e2)[:, None, None]                         # (U, 1, 1, 3)
     nn = _dot3(n_, n_)
     e1b, e2b = e1[:, None, None], e2[:, None, None]
@@ -111,29 +145,18 @@ def plain_winding_profile(v_world, order, bounds, e1, e2):
     nrm = torch.sqrt(a * a + b * b)
     den = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
     ux, uy = a / den, b / den                                   # (U, T, R)
-    first, end = bounds[:, :-1].long(), bounds[:, 1:].long()    # (U, L)
-    size = end - first
+    u, width = order.shape
     t = v_world.shape[0]
-
-    def member(i):
-        """Unit direction (U, T, L) of sorted member i (clamped into range)."""
-        idx = i.clamp(0, max(order.shape[-1] - 1, 0))[:, None].expand(-1, t, -1)
-        return torch.gather(ux, 2, idx), torch.gather(uy, 2, idx)
-
-    total = torch.zeros((order.shape[0], t, levels), dtype=v_world.dtype,
-                        device=v_world.device)
-    if order.shape[-1]:
-        fx, fy = member(first)
-        px, py = fx, fy
-        for j in range(1, int(size.max()) if size.numel() else 0):
-            cx, cy = member(first + j)
-            ang = _signed_angle(px, py, cx, cy)
-            total = total + torch.where((j < size)[:, None], ang, torch.zeros_like(ang))
-            inside = (j < size)[:, None]
-            px, py = torch.where(inside, cx, px), torch.where(inside, cy, py)
-        closure = _signed_angle(px, py, fx, fy)
-        total = total + torch.where((size >= 2)[:, None], closure,
-                                    torch.zeros_like(closure))
-    w = total / (2.0 * math.pi)
+    # Each member's ring r (first[r] <= j < end[r]) and its successor.
+    j = torch.arange(width, device=order.device).expand(u, -1)
+    end = bounds[:, 1:].long()
+    ring = torch.searchsorted(end.contiguous(), j.contiguous(), right=True)
+    ring = ring.clamp(max=max(end.shape[1] - 1, 0))
+    succ = torch.where(j + 1 < torch.gather(end, 1, ring), j + 1,
+                       torch.gather(bounds[:, :-1].long(), 1, ring))
+    succ = succ.clamp(max=max(width - 1, 0))[:, None].expand(-1, t, -1)
+    ang = _signed_angle(ux, uy, torch.gather(ux, 2, succ), torch.gather(uy, 2, succ))
+    ang = torch.where(succ != j[:, None], ang, torch.zeros_like(ang))
+    w = ring_sums(ang, bounds) / (2.0 * math.pi)
     counts, types = count_and_type(w)
     return counts, types, w

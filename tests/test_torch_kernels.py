@@ -430,6 +430,50 @@ def test_coarse_kernels_match_plain(cuda, dtype, a1_mode):
     _assert_close(outs[0], outs[1], dtype)
 
 
+ENTRY_SIZES = (1, 31, 32, 33)
+
+
+def _ragged_assembly(device, dtype, t, seed):
+    """coarse_assemble's inputs on random tables whose CSR entries list 1,
+    31, 32 and 33 contributions in turn (fewer, as many and more than a
+    warp's lanes), each entry's contributions ascending, the targets
+    distinct random slots of a (24, 24) coarse matrix."""
+    rng = np.random.default_rng(seed)
+    m, n, n_coarse = 40, 30, 12
+    triangles = np.stack([rng.choice(n, 3, replace=False) for _ in range(m)])
+    sizes, left = [], 36 * m
+    while left > 0:
+        sizes.append(min(ENTRY_SIZES[len(sizes) % 4], left))
+        left -= sizes[-1]
+    perm = rng.permutation(36 * m)
+    ptr = np.concatenate([[0], np.cumsum(sizes)])
+    src = np.concatenate([np.sort(perm[a:b]) for a, b in zip(ptr[:-1], ptr[1:])])
+    dst = rng.choice((2 * n_coarse) ** 2, len(sizes), replace=False)
+
+    def arr(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+    return (_rand(device, dtype, t, m, 3, 2, seed=seed + 1),
+            _rand(device, dtype, m, 6, 6, seed=seed + 2),
+            _rand(device, dtype, n, 2, 2, seed=seed + 3), arr(triangles, torch.int32),
+            _rand(device, dtype, m, seed=seed + 4).abs(), 0.01, arr(ptr, torch.int32),
+            arr(src, torch.int32), arr(dst, torch.int32), n_coarse)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 3, 97])
+@pytest.mark.parametrize("mean", [False, True], ids=["full", "mean"])
+def test_coarse_assemble_matches_plain_on_ragged_entries(cuda, dtype, t, mean):
+    """K8 with entries of 1, 31, 32 and 33 contributions, frame counts that
+    are no multiple of its frames a warp, and in 'mean' mode: one launch a
+    call, within TOL of the plain version, two calls bitwise equal."""
+    args = _ragged_assembly(cuda, dtype, t, seed=50 + t)
+    got = _launched("coarse_assemble", dtype,
+                    lambda: kco.coarse_assemble(*args, mean=mean))
+    assert got.shape == (1 if mean else t, 24, 24)
+    _assert_close([got], [kco.plain_coarse_assemble(*args, mean=mean)], dtype)
+    assert torch.equal(kco.coarse_assemble(*args, mean=mean), got)
+
+
 @pytest.mark.parametrize("method", ["cg", "refined"])
 def test_two_level_solve_on_cuda_matches_cpu(cuda, method):
     mesh, pot, times = _problem(cuda)
@@ -669,6 +713,84 @@ def test_winding_kernel_matches_plain(cuda, dtype):
     got = _launched("winding_profile", dtype, lambda: kwi.winding_profile(*args))
     _assert_same(got, kwi.plain_winding_profile(*args), dtype)
     assert got[0].shape == (6, v_world.shape[0]) and got[2].shape[-1] == 8
+
+
+RING_SIZES = (0, 1, 2, 31, 32, 33, 300)
+
+
+def synthetic_rings(device, dtype, levels, seed=0):
+    """Ring tables (order, bounds, e1, e2) of three centers whose rings hold
+    0, 1, 2, 31, 32, 33 and 300 members in turn (more than 2048 members a
+    row at 40 rings), every member its own vertex in shuffled order, and a
+    field v_world (3, N, 3): in frames 0 and 1 the directions turn once
+    anticlockwise along every ring of center 0, once clockwise along those
+    of center 1, at random around center 2, with noise and a normal part;
+    frame 2 is all zero."""
+    rng = np.random.default_rng(seed)
+    rows, bounds = [], []
+    for shift in (5, 3, 6):
+        sizes = [RING_SIZES[(r + shift) % len(RING_SIZES)] for r in range(levels)]
+        bounds.append(np.concatenate([[0], np.cumsum(sizes)]))
+        rows.append(sizes)
+    n = sum(int(b[-1]) for b in bounds) + 5
+    ids = rng.permutation(n)
+    basis = np.linalg.qr(rng.standard_normal((3, 3, 3)))[0]      # (U, 3, 3)
+    v = np.zeros((3, n, 3))
+    width = max(int(b[-1]) for b in bounds)
+    order = np.zeros((3, width), dtype=np.int32)
+    used = 0
+    for c, (sizes, b) in enumerate(zip(rows, bounds)):
+        row = ids[used:used + int(b[-1])]
+        used += int(b[-1])
+        order[c, :len(row)] = row
+        for size, lo in zip(sizes, b[:-1]):
+            j = np.arange(size)
+            for f in range(2):
+                turn = (1.0, -1.0)[c] if c < 2 else None
+                theta = (2 * np.pi * turn * j / max(size, 1)
+                         + 0.15 * rng.standard_normal(size) if turn is not None
+                         else rng.uniform(0, 2 * np.pi, size))
+                mag = 0.5 + rng.uniform(size=size)
+                v[f, row[lo:lo + size]] = (
+                    mag[:, None] * (np.cos(theta)[:, None] * basis[c, 0]
+                                    + np.sin(theta)[:, None] * basis[c, 1])
+                    + rng.uniform(-0.3, 0.3, (size, 1)) * basis[c, 2])
+
+    def arr(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+    return (arr(v, dtype), arr(order, torch.int32), arr(np.stack(bounds), torch.int32),
+            arr(basis[:, 0], dtype), arr(basis[:, 1], dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("levels", [1, 40])
+def test_winding_kernel_on_long_and_empty_rings(cuda, dtype, levels):
+    """K15 on rings of 0 to 300 members (longer than a block's threads), a
+    row staged in chunks at 40 rings, and an all-zero frame: counts and
+    types equal the plain version's, w within TOL, non-finite values in the
+    same places."""
+    args = synthetic_rings(cuda, dtype, levels, seed=60 + levels)
+    got = _launched("winding_profile", dtype, lambda: kwi.winding_profile(*args))
+    want = kwi.plain_winding_profile(*args)
+    _assert_same(got, want, dtype)
+    assert got[2].shape == (3, 3, levels)
+    if levels > 1:
+        assert got[1][:2, 0].tolist() == [1, -1] and got[0][:2, 0].tolist() == [2, 4]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_winding_kernel_on_a_boundary_center(cuda, dtype):
+    """K15 at 40 rings around a corner of the patch (its outer rings empty)
+    and interior centers, with an all-zero frame appended."""
+    mesh, v_world, _, _ = _velocity_field(cuda, dtype)
+    v_world = torch.cat([v_world, torch.zeros_like(v_world[:1])]).contiguous()
+    centers = torch.tensor([0, 100, 135], device=cuda)
+    tabs = wind.ring_tables(mesh, centers, 40, dtype)
+    assert int((tabs.bounds[0, 1:] == tabs.bounds[0, :-1]).sum()) > 0
+    args = (v_world, tabs.order, tabs.bounds, tabs.e1, tabs.e2)
+    got = _launched("winding_profile", dtype, lambda: kwi.winding_profile(*args))
+    _assert_same(got, kwi.plain_winding_profile(*args), dtype)
+    assert torch.equal(kwi.winding_profile(*args)[2], got[2])
 
 
 def test_analysis_stages_on_cuda_match_cpu(cuda):

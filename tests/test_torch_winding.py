@@ -3,9 +3,14 @@ version on the CPU) held against the JAX package.
 
 The mesh is a generic bumpy patch and the movie a seeded set of sources,
 vortices, saddles and spirals with a little noise. Winding numbers agree to
-1e-9 (the port adds each ring's angles member by member, JAX differences
-two prefix sums); ring counts, types and the scale map are equal.
+1e-9 (the port adds each ring's angles in K15's order, a warp's lanes
+striding over the ring and a fixed tree closing their sums; JAX differences
+two prefix sums); ring counts, types and the scale map are equal. On
+synthetic rings of 0 to 300 members the plain version's order is held
+against math.fsum of the same angles.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -18,10 +23,16 @@ from manifold_flow_tpu_torch import kernels, mesh_from_jax_arrays
 from manifold_flow_tpu_torch.geometry.topology import bfs_levels, closest_vertex
 from manifold_flow_tpu_torch.kernels import winding as kwi
 from manifold_flow_tpu_torch.ops import winding as wind
+from tests.test_torch_kernels import RING_SIZES, synthetic_rings
 from tests.torch_parity import jax_arrays
 
 W_TOL = 1e-9
 LEVELS = 6
+# plain_winding_profile against math.fsum of the same angles, relative to
+# max(1, |w|): a ring's sum of up to 300 angles in [-pi, pi] in the kernel's
+# order rounds by at most ~300 ulp of its largest partial sum, and numpy's
+# and torch's arccos may differ by an ulp.
+SUM_TOL = 1e-12
 
 
 @pytest.fixture(scope="module")
@@ -152,3 +163,66 @@ def test_movie_without_singularities(problem):
                             torch.zeros((1, 1), dtype=torch.int32),
                             torch.zeros((1, 3), dtype=torch.float64),
                             torch.zeros((1, 3), dtype=torch.float64))
+
+
+def _fsum_profile(v, order, bounds, e1, e2):
+    """Winding numbers (U, T, L) of the ring tables by math.fsum of each
+    ring's signed angles (member to member, the last to the first), the
+    unit directions as ops/winding.py:138-151 forms them, in numpy."""
+    n = np.cross(e1, e2)
+    out = np.zeros((order.shape[0], v.shape[0], bounds.shape[1] - 1))
+    for c in range(order.shape[0]):
+        vs = v[:, order[c]]                                         # (T, R, 3)
+        nn = n[c] @ n[c]
+        s = (vs @ n[c]) / nn if nn > 0 else np.zeros(vs.shape[:2])
+        proj = vs - s[..., None] * n[c]
+        a = (proj @ e1[c]) / (e1[c] @ e1[c])
+        b = (proj @ e2[c]) / (e2[c] @ e2[c])
+        nrm = np.sqrt(a * a + b * b)
+        den = np.where(nrm > 0, nrm, 1.0)
+        ux, uy = a / den, b / den
+        for r, (lo, hi) in enumerate(zip(bounds[c, :-1], bounds[c, 1:])):
+            if hi - lo < 2:
+                continue
+            j = np.arange(lo, hi)
+            k = np.roll(j, -1)
+            dot = np.clip(ux[:, j] * ux[:, k] + uy[:, j] * uy[:, k], -1.0, 1.0)
+            ang = np.arccos(dot)
+            ang = np.where(ux[:, j] * uy[:, k] - uy[:, j] * ux[:, k] < 0, -ang, ang)
+            out[c, :, r] = [math.fsum(row) / (2.0 * math.pi) for row in ang]
+    return out
+
+
+@pytest.mark.parametrize("levels", [1, 40])
+def test_plain_ring_sums_match_fsum(levels):
+    """Rings of 0, 1, 2, 31, 32, 33 and 300 members (one and more than one
+    chunk of a warp's lanes), at 1 and 40 rings: w within SUM_TOL of fsum,
+    counts and types those of the fsum profile."""
+    args = synthetic_rings("cpu", torch.float64, levels, seed=80 + levels)
+    assert {int(x) for x in (args[2][:, 1:] - args[2][:, :-1]).flatten()} <= set(RING_SIZES)
+    counts, types, w = kwi.plain_winding_profile(*args)
+    want = _fsum_profile(*(a.numpy() for a in args))
+    assert (np.abs(w.numpy() - want) / np.maximum(1.0, np.abs(want))).max() <= SUM_TOL
+    want_counts, want_types = kwi.count_and_type(torch.from_numpy(want))
+    assert torch.equal(counts, want_counts) and torch.equal(types, want_types)
+    assert types[:2, 0].tolist() == [1, -1]
+
+
+def test_ring_sums_follow_the_kernel_order():
+    """ring_sums adds in K15's order, bit for bit: lane l of a ring's warp
+    adds its members l, l + 32, ... in turn, then lane i adds lane i + 16,
+    i + 8, ..., i + 1 (common.cuh warp_sum), read at lane 0."""
+    rng = np.random.default_rng(7)
+    sizes = np.array([[0, 1, 2, 31, 32, 33, 300], [300, 33, 32, 31, 2, 1, 0]])
+    bounds = np.concatenate([np.zeros((2, 1), int), np.cumsum(sizes, 1)], 1)
+    angle = rng.uniform(-np.pi, np.pi, (2, 3, int(bounds[:, -1].max())))
+    got = kwi.ring_sums(torch.from_numpy(angle), torch.from_numpy(bounds).to(torch.int32))
+    for c in range(2):
+        for f in range(3):
+            for r in range(sizes.shape[1]):
+                part = [0.0] * 32
+                for j in range(sizes[c, r]):
+                    part[j % 32] += float(angle[c, f, bounds[c, r] + j])
+                for off in (16, 8, 4, 2, 1):
+                    part = [part[i] + part[i + off] for i in range(off)]
+                assert float(got[c, f, r]) == part[0]
