@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and the device time per call of the kernel alone and of the library
      call (torch.profiler over 20 calls), with bound / device. K1's library
      call is torch.sparse.mm on the block-diagonal CSR matrix of every
-     frame's assembled a1_k + lambda a2.
+     frame's assembled a1_k + lambda a2. K8 at these shapes too (a row
+     with no launches: the default path takes Jacobi below 6000 vertices).
   4. slice: the bench problem (3136 vertices, 97 velocity frames, lambda
      0.01) through compute_velocity_fields(method='refined', tol=1e-6);
      every frame must converge, every kernel of the path must have launched,
@@ -80,7 +81,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      versions at the 12.5k-vertex shapes (bench.py:465-474's surface, 12544
      vertices, 98 frames of the two-source movie), float32 and float64,
      tolerances as in phase 3 (K8 reorders each entry's sum); times as in
-     phase 3, K9 beside torch.sparse.mm of P^T (a (2Nc, 2N) CSR matrix) on r
+     phase 3, K8 beside the device time of zeroing its (97, 392, 392)
+     output (torch.zeros, which its wrapper runs), K9 beside torch.sparse.mm of P^T (a (2Nc, 2N) CSR matrix) on r
      in column layout and K11, for the record and not ranked, beside
      torch.sparse.addmm of P and torch.linalg.vecdot; two calls of K9 and of
      K11 bitwise equal; K10 also with the L2 cleared before each call, on a random
@@ -118,7 +120,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      S3 chain and the 12.5k solve, each kernel's device µs a launch as the
      solve runs it (solve_device_us: its device kernels' time over its
      launches in that run), for the rows at those shapes; the 12.5k solve's
-     device time, and K9-K11's in-solve µs beside their back-to-back ones.
+     device time, and K8-K11's in-solve µs beside their back-to-back ones.
 Every kernel check prints its time beside its bound (bytes over 3.35 TB/s or
 operations over 67 / 34 TFLOP/s in float32 / float64, whichever is larger)
 and, where one PyTorch call computes the same function, that call's time;
@@ -256,9 +258,9 @@ WRAPPER_OF = {
     "fem_tile_kernel": "fem_matvec", "jacobi_kernel": "jacobi_blocks",
     "frame_factors_rhs_kernel": "frame_factors_rhs", "gather_kernel": "frame_factors_rhs",
     "dot_kernel": "pcg_dot", "update_kernel": "pcg_update",
-    "direction_kernel": "pcg_direction", "coarse_a1_kernel": "coarse_assemble",
-    "coarse_a2_kernel": "coarse_assemble", "assemble_kernel": "coarse_assemble",
-    "assemble_mean_kernel": "coarse_assemble", "restrict_kernel": "coarse_restrict",
+    "direction_kernel": "pcg_direction", "coarse_a2_kernel": "coarse_assemble",
+    "assemble_kernel": "coarse_assemble", "assemble_mean_kernel": "coarse_assemble",
+    "restrict_kernel": "coarse_restrict",
     "gemv_kernel": "coarse_gemv", "gemv_vectors_kernel": "coarse_gemv",
     "prolong_dot_kernel": "coarse_prolong_dot",
     "recombine_speed_kernel": "recombine_speed",
@@ -441,6 +443,7 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
     from manifold_flow_tpu_torch.fem import assembly
     from manifold_flow_tpu_torch.fem.operator import make_operator
     from manifold_flow_tpu_torch.kernels import fem as kfem
+    from manifold_flow_tpu_torch.solve import coarse
     from manifold_flow_tpu_torch.solve.api import build_rhs
 
     fem_cu = "manifold_flow_tpu_torch/csrc/fem_kernels.cu"
@@ -468,6 +471,7 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
     g64, f64 = build_rhs(mesh, pot, times)
     t, n_dof = f64.shape
     n = n_dof // 2
+    tables = coarse.build_tables(mesh)
     ops = {torch.float64: make_operator(mesh, g64, 0.01)}
     ops[torch.float32] = ops[torch.float64].astype(torch.float32)
     for dtype, ctype, tol in ((torch.float32, "float", TOL_F32),
@@ -514,6 +518,9 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
                        timed=(lambda: kfem.pcg_direction(qs[0], z, rz_new, rz),
                               lambda: kfem.plain_pcg_direction(qs[1], z, rz_new, rz)),
                        inputs=(p, z, rz_new, rz), ops=2 * t * n_dof + 2 * t)
+        # K8 at these shapes, which the two-level crossover runs (the
+        # default path takes Jacobi below 6000 vertices): no launches.
+        check_assemble(checks, mesh, tables, op, tol, suffix="@3.1k")
     return checks
 
 
@@ -658,159 +665,32 @@ def restriction_coo(r_blk, members) -> torch.Tensor:
     return coo.coalesce()
 
 
-def comparison_entry(name: str, dtype, argtypes):
-    """This build's entry point `name` of a design kept only for the
-    comparison (K8's and K15's first designs, their variants), with its
-    types."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import library
-
-    fn = getattr(library(), f"mf_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launched(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-
-def against_first_assemble(card: str, asm) -> None:
-    """K8 against its first design (a warp per (frame, entry)) on the same
-    inputs: out bitwise and device times in turns; then the new design at
-    F = 1, 2, 4, 8 frames a warp, phase 1 its own launch or folded into each
-    warp, each bitwise equal too, in turns; and the output's zeroing."""
-    import ctypes
-
+def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
+                   suffix: str = "") -> None:
+    """K8 against its plain version on the operator `op` (its dtype), timed
+    beside the device time of zeroing its output (torch.zeros, which the
+    wrapper runs before the launch). A `suffix` row (another size) counts
+    no launches."""
     from manifold_flow_tpu_torch.kernels import coarse as kco
+    from manifold_flow_tpu_torch.solve import coarse
 
-    g, blocks2, r_blk, triangles, w_scale, lam, ptr, src, dst, n_coarse = asm
-    dtype = g.dtype
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    first = comparison_entry("coarse_assemble_first", dtype,
-                             [p] * 8 + [d] + [p] * 2 + [i] * 5 + [p])
-    variant = comparison_entry("coarse_assemble_variant", dtype,
-                               [p] * 8 + [d] + [p] * 2 + [i] * 7 + [p])
-    t, m = g.shape[0], g.shape[1]
-    nc2, nnz = 2 * n_coarse, dst.shape[0]
-
-    def call(fn, *extra, mean=False):
-        def run():
-            out = torch.zeros((1 if mean else t, nc2, nc2), dtype=dtype, device=g.device)
-            a2c = torch.empty(nnz, dtype=dtype, device=g.device)
-            _launched(fn(g.data_ptr(), blocks2.data_ptr(), r_blk.data_ptr(),
-                         triangles.data_ptr(), w_scale.data_ptr(), ptr.data_ptr(),
-                         src.data_ptr(), dst.data_ptr(), float(lam), a2c.data_ptr(),
-                         out.data_ptr(), t, m, nnz, nc2, int(mean), *extra,
-                         torch.cuda.current_stream().cuda_stream), "coarse_assemble")
-            return out
-        return run
-
-    def this():
-        return kco.coarse_assemble(*asm)
-    want = call(first)()
-    same = torch.equal(this(), want)
-    same_mean = torch.equal(kco.coarse_assemble(*asm, mean=True), call(first, mean=True)())
-    us = [device_us(fn, mine=own_kernel) for fn in (this, call(first), call(first), this)]
-    zeros_us = device_us(lambda: torch.zeros((t, nc2, nc2), dtype=dtype, device=g.device))
-    frames = (1, 2, 4, 8)
-    cases = [(f, fold) for fold in (0, 1) for f in frames]
-    equal = [torch.equal(call(variant, f, fold)(), want) for f, fold in cases]
-    sweep = [device_us(call(variant, f, fold), mine=own_kernel)
-             for f, fold in cases + cases[::-1]]
-    n = len(cases)
-    ctype = "float" if dtype == torch.float32 else "double"
-    print(f"[parent] coarse_assemble<{ctype}>@12.5k: out bitwise equal to the first "
-          f"design: {same} ('mean': {same_mean}); device {fmt_us(us[0])} / "
-          f"{fmt_us(us[3])} against the first design's {fmt_us(us[1])} / "
-          f"{fmt_us(us[2])} (in turns); the output's zeroing (torch.zeros "
-          f"({t}, {nc2}, {nc2})) {fmt_us(zeros_us)}; F frames a warp, bitwise "
-          f"equal {equal}: " + ", ".join(
-              f"F={f}{' folded' if fold else ''} {fmt_us(a)} / {fmt_us(b)}"
-              for (f, fold), a, b in zip(cases, sweep[:n], sweep[::-1][:n]))
-          + f"; on {card}", flush=True)
-
-
-def pair_tables(order, bounds):
-    """Ring tables whose rings keep their first two members (rings of fewer
-    keep what they have): on such rings the first and the new K15 add the
-    same two angles in the same order, so w must be bitwise equal."""
-    u, levels = bounds.shape[0], bounds.shape[1] - 1
-    first = bounds[:, :-1].long()
-    size = (bounds[:, 1:].long() - first).clamp(max=2)
-    new_bounds = torch.zeros_like(bounds)
-    new_bounds[:, 1:] = torch.cumsum(size, dim=1).to(bounds.dtype)
-    width = max(int(new_bounds[:, -1].max()), 1)
-    col = torch.arange(width, device=order.device)
-    ring = torch.searchsorted(new_bounds[:, 1:].contiguous(),
-                              col.expand(u, -1).contiguous(), right=True).clamp(max=levels - 1)
-    src = torch.gather(first, 1, ring) + col - torch.gather(new_bounds[:, :-1].long(), 1, ring)
-    src = src.clamp(0, order.shape[1] - 1)
-    return torch.gather(order, 1, src).to(torch.int32).contiguous(), new_bounds.contiguous()
-
-
-def against_first_winding(card: str, wp) -> None:
-    """K15 against its first design (one warp per (center, frame)) on the
-    same inputs: counts and types equal and w within TOL on the real rings,
-    w bitwise equal on rings of one member pair; device times in turns; then
-    1, 2, 4 and 8 frames a block, in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import winding as kwi
-
-    v_world, order, bounds, e1, e2 = wp
-    dtype = v_world.dtype
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    first = comparison_entry("winding_profile_first", dtype, [p] * 8 + [i] * 5 + [p])
-    variant = comparison_entry("winding_profile_variant", dtype, [p] * 8 + [i] * 6 + [p])
-
-    def call(fn, order, bounds, *extra):
-        u, width = order.shape
-        levels, t, n = bounds.shape[1] - 1, v_world.shape[0], v_world.shape[1]
-
-        def run():
-            counts = torch.empty((u, t), dtype=torch.int32, device=v_world.device)
-            types = torch.empty_like(counts)
-            w = torch.empty((u, t, levels), dtype=dtype, device=v_world.device)
-            _launched(fn(v_world.data_ptr(), order.data_ptr(), bounds.data_ptr(),
-                         e1.data_ptr(), e2.data_ptr(), counts.data_ptr(),
-                         types.data_ptr(), w.data_ptr(), u, t, n, width, levels, *extra,
-                         torch.cuda.current_stream().cuda_stream), "winding_profile")
-            return counts, types, w
-        return run
-
-    def this():
-        return kwi.winding_profile(*wp)
-    got, want = this(), call(first, order, bounds)()
-    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
-    rel = float((got[2] - want[2]).abs().max() / want[2].abs().max())
-    discrete = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    po, pb = pair_tables(order, bounds)
-    pairs = (v_world, po, pb, e1, e2)
-    pair_same = torch.equal(kwi.winding_profile(*pairs)[2], call(first, po, pb)()[2])
-    plain_same = torch.equal(got[2], kwi.plain_winding_profile(*wp)[2])
-    us = [device_us(fn, mine=own_kernel)
-          for fn in (this, call(first, order, bounds), call(first, order, bounds), this)]
-    frames = (1, 2, 4, 8)
-    same = [all(torch.equal(a, b) for a, b in zip(call(variant, order, bounds, f)(), got))
-            for f in frames]
-    sweep = [device_us(call(variant, order, bounds, f), mine=own_kernel)
-             for f in frames + frames[::-1]]
-    ctype = "float" if dtype == torch.float32 else "double"
-    print(f"[parent] winding_profile<{ctype}>: counts and types equal to the first "
-          f"design's: {discrete}, w relative difference {rel:.2e} (tol {tol:.0e}); "
-          f"on rings of one member pair w bitwise equal: {pair_same}; w bitwise "
-          f"equal to the plain version's (its new order): {plain_same}; device "
-          f"{fmt_us(us[0])} / {fmt_us(us[3])} against the first design's "
-          f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); frames a block, outputs "
-          f"bitwise the default's {same}: " + ", ".join(
-              f"{f} {fmt_us(a)} / {fmt_us(b)}"
-              for f, a, b in zip(frames, sweep[:4], sweep[::-1][:4])) + f"; on {card}",
-          flush=True)
-    if not (discrete and rel <= tol and pair_same):
-        raise AssertionError(f"winding_profile<{ctype}> disagrees with its first design")
+    dtype = op.g.dtype
+    ctype = "double" if dtype == torch.float64 else "float"
+    key = f"coarse_assemble<{ctype}>{suffix}"
+    r_blk = coarse.prolongation_blocks(mesh, tables, dtype)
+    asm = (op.g, op.blocks2, r_blk, mesh.triangles, mesh.areas.to(dtype) / 12.0,
+           op.lambda_, tables.asm_ptr, tables.asm_src, tables.asm_dst, tables.n_coarse)
+    t, nc2 = op.g.shape[0], 2 * tables.n_coarse
+    checks.compare(key, "manifold_flow_tpu_torch/csrc/coarse_kernels.cu",
+                   "manifold_flow_tpu/kernels/reduce.py:103",
+                   lambda: (kco.coarse_assemble(*asm),),
+                   lambda: (kco.plain_coarse_assemble(*asm),), tol,
+                   inputs=asm, ops=16 * t * tables.asm_src.shape[0])
+    zeros_us = device_us(lambda: torch.zeros((t, nc2, nc2), dtype=dtype,
+                                             device=op.g.device))
+    print(f"[kernels] {key}: zeroing its ({t}, {nc2}, {nc2}) output (torch.zeros) "
+          f"takes {fmt_us(zeros_us)} of device time, the kernel "
+          f"{fmt_us(checks.rows[key]['device_us'])}; on {checks.card}", flush=True)
 
 
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
@@ -837,16 +717,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
     for dtype, ctype, tol in ((torch.float32, "float", TOL_F32),
                               (torch.float64, "double", TOL_F64)):
         op = op64.astype(dtype)
-        r_blk = coarse.prolongation_blocks(mesh, tables, dtype)
-        asm = (op.g, op.blocks2, r_blk, mesh.triangles,
-               mesh.areas.to(dtype) / 12.0, op.lambda_, tables.asm_ptr,
-               tables.asm_src, tables.asm_dst, tables.n_coarse)
-        checks.compare(f"coarse_assemble<{ctype}>", cu,
-                       "manifold_flow_tpu/kernels/reduce.py:103",
-                       lambda: (kco.coarse_assemble(*asm),),
-                       lambda: (kco.plain_coarse_assemble(*asm),), tol,
-                       inputs=asm, ops=16 * t * tables.asm_src.shape[0])
-        against_first_assemble(checks.card, asm)
+        check_assemble(checks, mesh, tables, op, tol)
         pre = coarse.make_two_level(mesh, op.g, op.lambda_, tables)
         r, z = (torch.randn((t, n_dof), generator=gen, dtype=torch.float64)
                 .to(pot.device, dtype) for _ in range(2))
@@ -1097,7 +968,6 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
     print(f"[kernels] winding{suffix}: {uniq.numel()} distinct centers, "
           f"{members} ring members over {LEVELS} rings, {rows} distinct vertices",
           flush=True)
-    against_first_winding(checks.card, wp)
 
 
 def next_hop_bytes(unit, v_world, neighbors, cell_count, vertex_cells, triangles,
@@ -2283,13 +2153,13 @@ def main() -> int:
     else:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
-    # K9-K11 as the 12.5k solve runs them, beside their back-to-back times.
+    # K8-K11 as the 12.5k solve runs them, beside their back-to-back times.
     print("[profile] coarse kernels at 12.5k, device us a launch back to back / in "
           "the 12.5k solve / bound: " + ", ".join(
               f"{k} {fmt_us(checks.rows[k]['device_us'])} / "
               f"{fmt_us(in_solve['12.5k'].get(k))} x{LAUNCHES[k]} / "
               f"{checks.rows[k]['bound_ms'] * 1e3:.2f} us"
-              for k in (f"{name}<float>" for name in COARSE_KERNELS[1:]))
+              for k in (f"{name}<float>" for name in COARSE_KERNELS))
           + f"; on {card}", flush=True)
     for label, us in in_solve.items():
         print(f"[profile] device us a launch in the {label} solve: " + ", ".join(
@@ -2308,7 +2178,8 @@ def main() -> int:
     others = (twolevel_launches, launches_cg, cholesky_launches)
 
     def at_12k(label: str) -> bool:
-        return label.endswith("@12.5k") or label.startswith("coarse_")
+        return label.endswith("@12.5k") or (label.startswith("coarse_")
+                                            and not label.endswith("@3.1k"))
 
     def first_count(phases, key):
         return next((c[key] for c in phases if c.get(key, 0) > 0), 0)

@@ -20,11 +20,18 @@
 // to K = 64 members, 2Nc = 392):
 //   K8  once per solve: ~180 MB of device memory (g 57 MB, the zeroed and
 //       written dense (T, 392, 392) output 2 x 60 MB, the CSR 3.5 MB), but
-//       more of L2: each (frame, entry) gathers g, R and the CSR for its
-//       ~176 contributions, ~57 MB of L2 reads per frame. The design keeps
-//       the (T, M, 36) contributions (344 MB) out of memory altogether and
-//       forms each one in registers, a warp per (frame, entry) so that the
-//       gathers of 32 contributions are in flight at once.
+//       its gathers bound it: every contribution (887k, ~176 an entry) of
+//       every frame reads two g pairs, scattered over the triangles. The
+//       design keeps the (T, M, 36) contributions (344 MB) out of memory
+//       and forms each one in registers. Its first design ran a warp per
+//       (frame, entry): the frame-independent half of each contribution
+//       (the CSR list, the corners, R_v, the area) came again for each of
+//       the 97 frames, one dependent chain in flight a lane (522 us on the
+//       card). This design gives a warp one entry for kAssembleFrames
+//       frames: that half loads once a group, then the group's g pairs go
+//       out together (325 us). A fit of the frames-a-warp sweep puts the g
+//       pairs at ~2.5 us a frame, ~250 of those 325 us. See
+//       assemble_kernel.
 //   K9  per PCG iteration: reads r (9.7 MB, 3.0 us at 3.35 TB/s), gathered
 //       by member. Its first design ran a warp per (frame, aggregate): the
 //       frame-independent members (50 KB) and R_v (200 KB) came again from
@@ -66,18 +73,11 @@ __device__ __forceinline__ Contribution decode(int s) {
   return {s / 36, l >> 1, l & 1, l2 >> 1, l2 & 1};
 }
 
-// (Rg)_c^x = sum_a g_c^a R_c[a][x]: the a1 factor of corner c projected on
-// the coarse basis of its aggregate (solve/coarse.py:318).
-template <typename T>
-__device__ __forceinline__ T coarse_factor(const T* gm, const T* r, int c,
-                                           int x) {
-  return gm[2 * c] * r[x] + gm[2 * c + 1] * r[2 + x];
-}
 
 // K8, phase 1: the frame-independent a2 part of every non-zero coarse entry,
 // a2c[e] = sum over the entry's contributions of
 // sum_{a,b} R_c[a][x] B2[(c,a),(c2,b)] R_c2[b][y] (solve/coarse.py:299-304);
-// one warp per entry, as in phase 2.
+// one warp per entry, its lanes striding through the entry's CSR list.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     coarse_a2_kernel(const T* __restrict__ blocks2, const T* __restrict__ r_blk,
@@ -107,57 +107,7 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) a2c[e] = acc;
 }
 
-// K8, phase 2: out[t][dst[e]] = a1c[t][e] + lambda * a2c[e], with
-// a1c[t][e] the sum over the entry's contributions of
-// w_cc2 (Rg)_c^x (Rg)_c2^y, w = (A/12)(1 + delta_cc2) (solve/coarse.py:318-
-// 330). One warp per (frame, entry): lane l adds the entry's contributions
-// l, l + 32, ... and the fixed-order warp sum closes it; in 'mean' mode one
-// warp per entry sums every frame and divides by their count (one shared
-// matrix).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    coarse_a1_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
-                     const int* __restrict__ triangles,
-                     const T* __restrict__ w_scale, const int* __restrict__ ptr,
-                     const int* __restrict__ src, const int* __restrict__ dst,
-                     const T* __restrict__ a2c, T lambda, T* __restrict__ out,
-                     int64_t n_frames, int64_t m_tri, int64_t nnz,
-                     int64_t nc2sq, int mean) {
-  const int64_t e = global_index() >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= nnz) return;  // uniform across the warp
-  const int64_t t = blockIdx.y;
-  const int64_t f0 = mean ? 0 : t;
-  const int64_t f1 = mean ? n_frames : t + 1;
-  T acc = T(0);
-  for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
-    const Contribution q = decode(src[k]);
-    const T* rc = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c]);
-    const T* rd = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c2]);
-    const T w = (q.c == q.c2 ? T(2) : T(1)) * w_scale[q.m];
-    T s = T(0);
-    for (int64_t f = f0; f < f1; ++f) {
-      const T* gm = g + (f * m_tri + q.m) * 6;
-      s += coarse_factor(gm, rc, q.c, q.x) * coarse_factor(gm, rd, q.c2, q.y);
-    }
-    acc += s * w;
-  }
-  acc = warp_sum(acc);
-  if (lane != 0) return;
-  if (mean) acc /= static_cast<T>(n_frames);
-  out[t * nc2sq + dst[e]] = acc + lambda * a2c[e];
-}
-
-// K8, redesigned: one warp per (entry, group of F frames). Lane l takes the
-// entry's contributions l, l + 32, ... and loads the frame-independent part of
-// each once for the group: the decoded (m, c, x, c2, y), the two corners'
-// R_v coefficients and the weight w. It then issues the g pairs g_c and g_c2
-// of all F frames (one 8-byte load each in f32, one 16-byte load in f64,
-// where g is aligned) before the multiply-adds. Each frame's lane sum adds
-// the contributions in the first design's order and expression, and the
-// same fixed-order warp sum closes it: out is bitwise the first design's.
-// With `fold`, each warp also forms the entry's a2 part itself (the first
-// design's phase 1, in its order) instead of reading a2c.
+// The g pair type: 8 bytes in f32, 16 in f64.
 template <typename T>
 struct Pair;
 template <>
@@ -204,15 +154,27 @@ __device__ __forceinline__ Fixed<T> load_fixed(const Contribution& q,
           __ldg(rd + 2 + q.y), (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m)};
 }
 
+// K8, phase 2: out[t][dst[e]] = a1c[t][e] + lambda * a2c[e], with a1c[t][e]
+// the sum over the entry's contributions of w_cc2 (Rg)_c^x (Rg)_c2^y,
+// w = (A/12)(1 + delta_cc2) (solve/coarse.py:318-330). One warp per (entry,
+// group of kAssembleFrames frames): lane l takes the entry's contributions
+// l, l + 32, ... and loads the frame-independent part of each once for the
+// group (the decoded (m, c, x, c2, y), the two corners' R_v coefficients, w),
+// then issues the g pairs g_c and g_c2 of every frame of the group (one
+// 8-byte load each in f32, one 16-byte load in f64, where g is aligned)
+// before the multiply-adds; (Rg)_c^x = g_c^0 R_c[0][x] + g_c^1 R_c[1][x] is
+// the a1 factor of corner c on its aggregate's coarse basis
+// (solve/coarse.py:318). Each frame's lane sum adds the contributions in
+// CSR order, then the fixed-order warp sum closes it: a warp per (frame,
+// entry), the first design, gave bitwise the same matrices.
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
-    assemble_kernel(const T* __restrict__ g, const T* __restrict__ blocks2,
-                    const T* __restrict__ r_blk, const int* __restrict__ triangles,
+    assemble_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
+                    const int* __restrict__ triangles,
                     const T* __restrict__ w_scale, const int* __restrict__ ptr,
                     const int* __restrict__ src, const int* __restrict__ dst,
                     const T* __restrict__ a2c, T lambda, T* __restrict__ out,
-                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2sq,
-                    int fold) {
+                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2sq) {
   const int64_t e = global_index() >> 5;
   const int lane = threadIdx.x & 31;
   if (e >= nnz) return;  // uniform across the warp
@@ -221,11 +183,9 @@ __global__ void __launch_bounds__(kThreads)
   T acc[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = T(0);
-  T acc2 = T(0);
   const int k1 = __ldg(ptr + e + 1);
   for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
-    const Contribution q = decode(__ldg(src + k));
-    const Fixed<T> p = load_fixed(q, r_blk, triangles, w_scale);
+    const Fixed<T> p = load_fixed(decode(__ldg(src + k)), r_blk, triangles, w_scale);
     T ga[F], gb[F], gc[F], gd[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) {
@@ -236,20 +196,6 @@ __global__ void __launch_bounds__(kThreads)
         load_pair(gm + 2 * p.c2, aligned, gc[f], gd[f]);
       }
     }
-    if (fold) {  // the first design's phase 1 term, in its order
-      const T* b = blocks2 + 36 * q.m + (2 * q.c) * 6 + 2 * q.c2;
-      const T rc[4] = {p.rc0, T(0), p.rc2, T(0)};
-      const T rd[4] = {p.rd0, T(0), p.rd2, T(0)};
-      T v = T(0);
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-#pragma unroll
-        for (int bb = 0; bb < 2; ++bb) {
-          v += rc[2 * a] * __ldg(b + a * 6 + bb) * rd[2 * bb];
-        }
-      }
-      acc2 += v;
-    }
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       T s = T(0);
@@ -259,13 +205,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = warp_sum(acc[f]);
-  T a2 = T(0);
-  if (fold) {
-    a2 = warp_sum(acc2);
-  } else if (lane == 0) {
-    a2 = a2c[e];
-  }
   if (lane != 0) return;
+  const T a2 = a2c[e];
   const int64_t d = __ldg(dst + e);
 #pragma unroll
   for (int f = 0; f < F; ++f) {
@@ -273,9 +214,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K8 in 'mean' mode: one warp per entry sums every frame of each
-// contribution, as the first design did, with the frame-independent part
-// loaded once and each g pair in one load.
+// K8's phase 2 in 'mean' mode (one shared matrix): one warp per entry; each
+// lane sums every frame of its contribution in frame order, the
+// frame-independent part loaded once and each g pair in one load, and the
+// warp's sum is divided by the frame count.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     assemble_mean_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
@@ -632,108 +574,10 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int64_t kMaxGridY = 65535;
 
-template <typename T>
-int coarse_assemble_first(const void* g, const void* blocks2, const void* r_blk,
-                    const void* triangles, const void* w_scale,
-                    const void* ptr, const void* src, const void* dst,
-                    double lambda, void* a2c, void* out, int64_t n_frames,
-                    int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
-                    void* stream) {
-  const int64_t out_frames = mean ? 1 : n_frames;
-  if (out_frames > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
-  if (nnz > 0 && n_frames > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    coarse_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
-        static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
-        static_cast<const int*>(triangles), static_cast<const int*>(ptr),
-        static_cast<const int*>(src), static_cast<T*>(a2c), nnz);
-    const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>(out_frames));
-    coarse_a1_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(r_blk),
-        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-        static_cast<const int*>(ptr), static_cast<const int*>(src),
-        static_cast<const int*>(dst), static_cast<const T*>(a2c),
-        static_cast<T>(lambda), static_cast<T*>(out), n_frames, m_tri, nnz,
-        nc2 * nc2, static_cast<int>(mean != 0));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Frames a warp of K8 (F), one constant a type.
-template <typename T>
+// Frames a warp of K8's phase 2: the fastest of 1, 2, 4 and 8 on the card
+// at the 12.5k shapes in both types (f32: 499, 392, 324, 330 us; f64: 681,
+// 532, 515, 726, each with phase 1's ~30 us).
 constexpr int kAssembleFrames = 4;
-
-template <typename T, int F>
-void launch_assemble(const void* g, const void* blocks2, const void* r_blk,
-                     const void* triangles, const void* w_scale, const void* ptr,
-                     const void* src, const void* dst, T lambda, void* a2c,
-                     void* out, int64_t n_frames, int64_t m_tri, int64_t nnz,
-                     int64_t nc2, bool fold, cudaStream_t s) {
-  const dim3 grid(blocks_for(nnz * 32),
-                  static_cast<unsigned int>((n_frames + F - 1) / F));
-  assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(blocks2),
-      static_cast<const T*>(r_blk), static_cast<const int*>(triangles),
-      static_cast<const T*>(w_scale), static_cast<const int*>(ptr),
-      static_cast<const int*>(src), static_cast<const int*>(dst),
-      static_cast<const T*>(a2c), lambda, static_cast<T*>(out), n_frames, m_tri,
-      nnz, nc2 * nc2, static_cast<int>(fold));
-}
-
-// K8: phase 1 (a2c, frame-independent) unless `fold`, then the frame groups;
-// `frames` is F (1, 2, 4 or 8).
-template <typename T>
-int coarse_assemble_with(const void* g, const void* blocks2, const void* r_blk,
-                         const void* triangles, const void* w_scale,
-                         const void* ptr, const void* src, const void* dst,
-                         double lambda, void* a2c, void* out, int64_t n_frames,
-                         int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
-                         int64_t frames, int64_t fold, void* stream) {
-  if (frames != 1 && frames != 2 && frames != 4 && frames != 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (!mean && (n_frames + frames - 1) / frames > kMaxGridY) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (nnz > 0 && n_frames > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const T lam = static_cast<T>(lambda);
-    if (mean || !fold) {
-      coarse_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
-          static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
-          static_cast<const int*>(triangles), static_cast<const int*>(ptr),
-          static_cast<const int*>(src), static_cast<T*>(a2c), nnz);
-    }
-    if (mean) {
-      assemble_mean_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
-          static_cast<const T*>(g), static_cast<const T*>(r_blk),
-          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-          static_cast<const int*>(ptr), static_cast<const int*>(src),
-          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
-          static_cast<T*>(out), n_frames, m_tri, nnz);
-      return static_cast<int>(cudaGetLastError());
-    }
-    const bool f = fold != 0;
-    switch (frames) {
-      case 1:
-        launch_assemble<T, 1>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
-                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
-        break;
-      case 2:
-        launch_assemble<T, 2>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
-                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
-        break;
-      case 4:
-        launch_assemble<T, 4>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
-                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
-        break;
-      default:
-        launch_assemble<T, 8>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
-                              lam, a2c, out, n_frames, m_tri, nnz, nc2, f, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <typename T>
 int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
@@ -742,9 +586,34 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
                     double lambda, void* a2c, void* out, int64_t n_frames,
                     int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
                     void* stream) {
-  return coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale, ptr, src,
-                                 dst, lambda, a2c, out, n_frames, m_tri, nnz, nc2,
-                                 mean, kAssembleFrames<T>, 0, stream);
+  constexpr int F = kAssembleFrames;
+  const int64_t groups = mean ? 1 : (n_frames + F - 1) / F;
+  if (groups > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  if (nnz > 0 && n_frames > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T lam = static_cast<T>(lambda);
+    coarse_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+        static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
+        static_cast<const int*>(triangles), static_cast<const int*>(ptr),
+        static_cast<const int*>(src), static_cast<T*>(a2c), nnz);
+    if (mean) {
+      assemble_mean_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const T*>(r_blk),
+          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+          static_cast<const int*>(ptr), static_cast<const int*>(src),
+          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+          static_cast<T*>(out), n_frames, m_tri, nnz);
+    } else {
+      const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>(groups));
+      assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const T*>(r_blk),
+          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+          static_cast<const int*>(ptr), static_cast<const int*>(src),
+          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+          static_cast<T*>(out), n_frames, m_tri, nnz, nc2 * nc2);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -817,28 +686,6 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
     return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
                                   src, dst, lambda, a2c, out, n_frames, m_tri, \
                                   nnz, nc2, mean, stream);                     \
-  }                                                                            \
-  extern "C" int mf_coarse_assemble_first_##SUFFIX(                            \
-      const void* g, const void* blocks2, const void* r_blk,                   \
-      const void* triangles, const void* w_scale, const void* ptr,             \
-      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
-      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
-      void* stream) {                                                          \
-    return mf::coarse_assemble_first<T>(g, blocks2, r_blk, triangles, w_scale, \
-                                        ptr, src, dst, lambda, a2c, out,       \
-                                        n_frames, m_tri, nnz, nc2, mean,       \
-                                        stream);                               \
-  }                                                                            \
-  extern "C" int mf_coarse_assemble_variant_##SUFFIX(                          \
-      const void* g, const void* blocks2, const void* r_blk,                   \
-      const void* triangles, const void* w_scale, const void* ptr,             \
-      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
-      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
-      int64_t frames, int64_t fold, void* stream) {                            \
-    return mf::coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale,  \
-                                       ptr, src, dst, lambda, a2c, out,        \
-                                       n_frames, m_tri, nnz, nc2, mean,        \
-                                       frames, fold, stream);                  \
   }                                                                            \
   extern "C" int mf_coarse_restrict_##SUFFIX(                                  \
       const void* r, const void* r_blk, const void* members, void* rc,         \

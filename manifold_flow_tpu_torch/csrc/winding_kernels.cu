@@ -18,17 +18,21 @@ namespace mf {
 // the center's plane and expressed on (e1, e2), normalised; the signed
 // angles (arccos of the clipped dot, the sign of the 2-D cross product)
 // between consecutive members and the closing pair, summed, over 2 pi.
-// Bound on this card: arithmetic latency, not bytes. v_world is read once
-// from device memory (7.3 MB in f64 at the bench shapes, about 2.5 us at
-// 3.35 TB/s) and the members' re-reads, up to U*T*N*24 B, come from the
-// 50 MB L2; each member costs an f64 arccos and two divisions.
-// Design: one warp per (center, frame); lane r sums ring r (and r + 32, ...)
-// member by member in sorted order, so every run adds in the same order and
-// repeats bit for bit, and the plain version adds in that order too (JAX
-// differences two prefix sums instead, which changes the profile by rounding
-// only). Lane 0 then counts the persistent rings. Every decision (the sign
-// of the cross product, the clipping, the ring-count tests) uses explicitly
-// rounded operations, so counts and types equal the plain version's.
+// Bound on this card: f64 arithmetic, not bytes. v_world is read once from
+// device memory (7.3 MB in f64 at the bench shapes, about 2.5 us at 3.35
+// TB/s) and the members' re-reads come from the 50 MB L2; each member costs
+// five correctly rounded divisions, a square root and an arccos, each a
+// sequence of f64 instructions. The first design ran one warp of 32 threads
+// per (center, frame), lane r walking ring r (about 6r members) member by
+// member: lanes 25-31 idle at 25 rings, the warp as long as its longest
+// ring's chain (357 us at the 12.5k shapes on the card). This design spreads
+// the work by member (see winding_profile_kernel: 261 us with 2 frames a
+// block, 254 with 4). Each ring's angles are added in one fixed order, so
+// every run repeats bit for bit and the plain version adds in that order
+// too (JAX differences two prefix sums instead, which changes the profile by
+// rounding only). Every decision (the sign of the cross product, the
+// clipping, the ring-count tests) uses explicitly rounded operations, so
+// counts and types equal the plain version's.
 
 template <typename T>
 struct CenterPlane {
@@ -65,89 +69,8 @@ __device__ __forceinline__ T signed_angle(T ax, T ay, T bx, T by) {
   return cross < T(0) ? -ang : ang;
 }
 
-template <typename T>
-__global__ void winding_profile_first_kernel(
-    const T* __restrict__ v_world, const int32_t* __restrict__ order,
-    const int32_t* __restrict__ bounds, const T* __restrict__ e1s,
-    const T* __restrict__ e2s, int32_t* __restrict__ counts,
-    int32_t* __restrict__ types, T* __restrict__ w_out, int64_t n_frames,
-    int64_t n_vert, int64_t width, int64_t levels) {
-  const int64_t u = blockIdx.x;
-  CenterPlane<T> p;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    p.e1[d] = e1s[u * 3 + d];
-    p.e2[d] = e2s[u * 3 + d];
-  }
-  cross3(p.e1, p.e2, p.n);
-  p.nn = dot3(p.n, p.n);
-  p.e11 = dot3(p.e1, p.e1);
-  p.e22 = dot3(p.e2, p.e2);
-  const int32_t* ord = order + u * width;
-  const int32_t* b = bounds + u * (levels + 1);
-  const T two_pi = T(2.0 * 3.141592653589793);
-  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
-    const T* v = v_world + t * n_vert * 3;
-    T* w = w_out + (u * n_frames + t) * levels;
-    for (int64_t r = threadIdx.x; r < levels; r += blockDim.x) {
-      const int32_t first = b[r], end = b[r + 1];
-      T sum = T(0), closure = T(0);
-      if (end - first >= 1) {
-        T fx, fy;
-        unit_direction(v, ord[first], p, fx, fy);
-        T px = fx, py = fy;
-        for (int32_t i = first + 1; i < end; ++i) {
-          T cx, cy;
-          unit_direction(v, ord[i], p, cx, cy);
-          sum = rn_add(sum, signed_angle(px, py, cx, cy));
-          px = cx;
-          py = cy;
-        }
-        if (end - first >= 2) closure = signed_angle(px, py, fx, fy);
-      }
-      w[r] = rn_div(rn_add(sum, closure), two_pi);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      // ops/winding.py:173 _count_and_type: ring 1 fixes the type, then the
-      // count runs while |w - type| <= 0.001, from ring 2 on.
-      const T w0 = w[0];
-      int32_t typ = 0;
-      if (w0 >= T(0.99) && w0 <= T(1.01)) typ = 1;
-      else if (w0 >= T(-1.01) && w0 <= T(-0.99)) typ = -1;
-      int32_t count = 0;
-      if (typ != 0) {
-        const T target = static_cast<T>(typ);
-        const T lo = rn_sub(target, T(0.001)), hi = rn_add(target, T(0.001));
-        count = 1;
-        for (int64_t r = 1; r < levels && w[r] >= lo && w[r] <= hi; ++r) ++count;
-      }
-      counts[u * n_frames + t] = count;
-      types[u * n_frames + t] = typ;
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-int winding_profile_first(const void* v_world, const void* order, const void* bounds,
-                    const void* e1, const void* e2, void* counts, void* types, void* w,
-                    int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,
-                    int64_t levels, void* stream) {
-  if (n_centers > 0 && n_frames > 0) {
-    const dim3 grid(static_cast<unsigned int>(n_centers), frame_blocks(n_frames));
-    winding_profile_first_kernel<T><<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(v_world), static_cast<const int32_t*>(order),
-        static_cast<const int32_t*>(bounds), static_cast<const T*>(e1),
-        static_cast<const T*>(e2), static_cast<int32_t*>(counts),
-        static_cast<int32_t*>(types), static_cast<T*>(w), n_frames, n_vert, width,
-        levels);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Ring sums of one (center, frame), redesigned: the work is spread by member.
-// A block of kThreads takes one center for a group of frames (frames
+// The winding profiles, the work spread by member. A block of kThreads takes
+// one center for a group of frames (frames
 // blockIdx.y, blockIdx.y + gridDim.y, ...). The center's ring members are
 // staged in shared memory in chunks of up to `cap` (one chunk, loaded once
 // for every frame of the group, whenever the row fits): their vertex ids and
@@ -163,9 +86,8 @@ int winding_profile_first(const void* v_world, const void* order, const void* bo
 //      l + 32, ... in order (its partial sum kept in shared memory across
 //      chunks); a barrier.
 // Then each ring's warp closes the 32 partials with the fixed-order warp_sum
-// and thread 0 counts the persistent rings. Every direction and angle is the
-// first design's expression, so only the order of each ring's sum changed;
-// the plain version adds in this order.
+// and thread 0 counts the persistent rings. Directions and angles are the
+// first design's expressions; only the order of each ring's sum changed.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     winding_profile_kernel(const T* __restrict__ v_world,
@@ -289,9 +211,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Members a block stages at once, and frames a block.
+// Members a block stages at once, and frames a block: 4 was the fastest of
+// 1, 2, 4 and 8 on the card (f64 at the 12.5k shapes: 290, 261, 254, 275 us).
 constexpr int kWindingChunk = 2048;
-constexpr int kWindingFrames = 2;
+constexpr int kWindingFrames = 4;
 constexpr int64_t kMaxSharedBytes = 232448;  // a block's limit on the H100
 
 template <typename T>
@@ -301,15 +224,12 @@ int64_t winding_shared_bytes(int64_t cap, int64_t levels) {
 }
 
 template <typename T>
-int winding_profile_with(const void* v_world, const void* order, const void* bounds,
-                         const void* e1, const void* e2, void* counts, void* types,
-                         void* w, int64_t n_centers, int64_t n_frames, int64_t n_vert,
-                         int64_t width, int64_t levels, int64_t frames_per_block,
-                         void* stream) {
+int winding_profile(const void* v_world, const void* order, const void* bounds,
+                    const void* e1, const void* e2, void* counts, void* types, void* w,
+                    int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,
+                    int64_t levels, void* stream) {
   if (n_centers <= 0 || n_frames <= 0) return static_cast<int>(cudaGetLastError());
-  if (frames_per_block < 1 || n_centers > 2147483647) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n_centers > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
   int64_t cap = width < kWindingChunk ? (width > 0 ? width : 1) : kWindingChunk;
   while (cap > 32 && winding_shared_bytes<T>(cap, levels) > kMaxSharedBytes) cap /= 2;
   const int64_t bytes = winding_shared_bytes<T>(cap, levels);
@@ -320,7 +240,7 @@ int winding_profile_with(const void* v_world, const void* order, const void* bou
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t groups = (n_frames + frames_per_block - 1) / frames_per_block;
+  const int64_t groups = (n_frames + kWindingFrames - 1) / kWindingFrames;
   const dim3 grid(static_cast<unsigned int>(n_centers), frame_blocks(groups));
   winding_profile_kernel<T><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(v_world), static_cast<const int32_t*>(order),
@@ -329,16 +249,6 @@ int winding_profile_with(const void* v_world, const void* order, const void* bou
       static_cast<int32_t*>(types), static_cast<T*>(w), n_frames, n_vert, width,
       levels, static_cast<int>(cap));
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int winding_profile(const void* v_world, const void* order, const void* bounds,
-                    const void* e1, const void* e2, void* counts, void* types, void* w,
-                    int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,
-                    int64_t levels, void* stream) {
-  return winding_profile_with<T>(v_world, order, bounds, e1, e2, counts, types, w,
-                                 n_centers, n_frames, n_vert, width, levels,
-                                 kWindingFrames, stream);
 }
 
 }  // namespace mf
@@ -352,24 +262,6 @@ int winding_profile(const void* v_world, const void* order, const void* bounds,
     return mf::winding_profile<T>(v_world, order, bounds, e1, e2, counts,       \
                                   types, w, n_centers, n_frames, n_vert, width, \
                                   levels, stream);                              \
-  }                                                                             \
-  extern "C" int mf_winding_profile_first_##SUFFIX(                             \
-      const void* v_world, const void* order, const void* bounds,               \
-      const void* e1, const void* e2, void* counts, void* types, void* w,       \
-      int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,       \
-      int64_t levels, void* stream) {                                           \
-    return mf::winding_profile_first<T>(v_world, order, bounds, e1, e2, counts, \
-                                        types, w, n_centers, n_frames, n_vert,  \
-                                        width, levels, stream);                 \
-  }                                                                             \
-  extern "C" int mf_winding_profile_variant_##SUFFIX(                           \
-      const void* v_world, const void* order, const void* bounds,               \
-      const void* e1, const void* e2, void* counts, void* types, void* w,       \
-      int64_t n_centers, int64_t n_frames, int64_t n_vert, int64_t width,       \
-      int64_t levels, int64_t frames_per_block, void* stream) {                 \
-    return mf::winding_profile_with<T>(v_world, order, bounds, e1, e2, counts,  \
-                                       types, w, n_centers, n_frames, n_vert,   \
-                                       width, levels, frames_per_block, stream);\
   }
 
 MF_WINDING_ENTRY_POINTS(f32, float)
