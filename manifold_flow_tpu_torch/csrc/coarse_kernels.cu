@@ -74,19 +74,54 @@ __device__ __forceinline__ Contribution decode(int s) {
 }
 
 
+// R_v (4 values at r_blk + 4v) into q: one 16-byte load (two in f64) where
+// r_blk is 16-byte aligned, else one value a load.
+__device__ __forceinline__ void load_block(const float* rb, bool aligned, float* q) {
+  if (aligned) {
+    unpack(__ldg(reinterpret_cast<const float4*>(rb)), q);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = __ldg(rb + i);
+  }
+}
+__device__ __forceinline__ void load_block(const double* rb, bool aligned, double* q) {
+  if (aligned) {
+    unpack(__ldg(reinterpret_cast<const double2*>(rb)), q);
+    unpack(__ldg(reinterpret_cast<const double2*>(rb) + 1), q + 2);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = __ldg(rb + i);
+  }
+}
+
 // K8, phase 1: the frame-independent a2 part of every non-zero coarse entry,
 // a2c[e] = sum over the entry's contributions of
 // sum_{a,b} R_c[a][x] B2[(c,a),(c2,b)] R_c2[b][y] (solve/coarse.py:299-304);
 // one warp per entry, its lanes striding through the entry's CSR list.
+// It also marks the pairs phase 2 serves with one warp: lead[e] = 1 when
+// entry e + 1 lists as many contributions as e, each one of e's plus one,
+// and all of e's are even (y = 0; e + 1's are then the same (m, c, x, c2)
+// with y = 1). The tables list the entries (row, 2b) and (row, 2b + 1) so.
+// No entry can both lead and follow: a follower's contributions are odd.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     coarse_a2_kernel(const T* __restrict__ blocks2, const T* __restrict__ r_blk,
                      const int* __restrict__ triangles,
                      const int* __restrict__ ptr, const int* __restrict__ src,
-                     T* __restrict__ a2c, int64_t nnz) {
+                     T* __restrict__ a2c, int* __restrict__ lead, int64_t nnz) {
   const int64_t e = global_index() >> 5;
   const int lane = threadIdx.x & 31;
   if (e >= nnz) return;  // uniform across the warp
+  bool pairs = false;
+  if (e + 1 < nnz && ptr[e + 2] - ptr[e + 1] == ptr[e + 1] - ptr[e]) {
+    bool ok = true;
+    for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
+      const int s = src[k];
+      ok = ok && (s & 1) == 0 && src[k + ptr[e + 1] - ptr[e]] == s + 1;
+    }
+    pairs = __all_sync(0xffffffffu, ok);
+  }
+  if (lane == 0) lead[e] = pairs ? 1 : 0;
   T acc = T(0);
   for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
     const Contribution q = decode(src[k]);
@@ -173,44 +208,76 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ triangles,
                     const T* __restrict__ w_scale, const int* __restrict__ ptr,
                     const int* __restrict__ src, const int* __restrict__ dst,
-                    const T* __restrict__ a2c, T lambda, T* __restrict__ out,
-                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2sq) {
+                    const T* __restrict__ a2c, const int* __restrict__ lead,
+                    T lambda, T* __restrict__ out, int64_t n_frames, int64_t m_tri,
+                    int64_t nnz, int64_t nc2sq) {
   const int64_t e = global_index() >> 5;
   const int lane = threadIdx.x & 31;
   if (e >= nnz) return;  // uniform across the warp
+  if (lead != nullptr && e > 0 && __ldg(lead + e - 1)) return;  // its pair's warp
+  const bool pair = lead != nullptr && __ldg(lead + e);
   const int64_t t0 = static_cast<int64_t>(blockIdx.y) * F;
   const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
-  T acc[F];
+  const bool r_aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
+  T acc[F], acc1[F];
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = T(0);
+  for (int f = 0; f < F; ++f) acc[f] = acc1[f] = T(0);
   const int k1 = __ldg(ptr + e + 1);
   for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
-    const Fixed<T> p = load_fixed(decode(__ldg(src + k)), r_blk, triangles, w_scale);
+    const Contribution q = decode(__ldg(src + k));
+    const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
+    const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
+    const T rc0 = __ldg(r_blk + 4 * vc + q.x), rc2 = __ldg(r_blk + 4 * vc + 2 + q.x);
+    T rd[4];  // R_d[0][y], R_d[1][y] at rd[0], rd[2]; with a pair all of R_d
+    if (pair) {
+      load_block(r_blk + 4 * vd, r_aligned, rd);
+    } else {
+      rd[0] = __ldg(r_blk + 4 * vd + q.y);
+      rd[2] = __ldg(r_blk + 4 * vd + 2 + q.y);
+      rd[1] = rd[3] = T(0);
+    }
+    const T w = (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m);
     T ga[F], gb[F], gc[F], gd[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       ga[f] = gb[f] = gc[f] = gd[f] = T(0);
       if (t0 + f < n_frames) {
-        const T* gm = g + ((t0 + f) * m_tri + p.m) * 6;
-        load_pair(gm + 2 * p.c, aligned, ga[f], gb[f]);
-        load_pair(gm + 2 * p.c2, aligned, gc[f], gd[f]);
+        const T* gm = g + ((t0 + f) * m_tri + q.m) * 6;
+        load_pair(gm + 2 * q.c, aligned, ga[f], gb[f]);
+        load_pair(gm + 2 * q.c2, aligned, gc[f], gd[f]);
       }
     }
 #pragma unroll
     for (int f = 0; f < F; ++f) {
+      const T cf = ga[f] * rc0 + gb[f] * rc2;
       T s = T(0);
-      s += (ga[f] * p.rc0 + gb[f] * p.rc2) * (gc[f] * p.rd0 + gd[f] * p.rd2);
-      acc[f] += s * p.w;
+      s += cf * (gc[f] * rd[0] + gd[f] * rd[2]);
+      acc[f] += s * w;
+      if (pair) {
+        T s1 = T(0);
+        s1 += cf * (gc[f] * rd[1] + gd[f] * rd[3]);
+        acc1[f] += s1 * w;
+      }
     }
   }
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = warp_sum(acc[f]);
+  for (int f = 0; f < F; ++f) {
+    acc[f] = warp_sum(acc[f]);
+    if (pair) acc1[f] = warp_sum(acc1[f]);
+  }
   if (lane != 0) return;
   const T a2 = a2c[e];
   const int64_t d = __ldg(dst + e);
 #pragma unroll
   for (int f = 0; f < F; ++f) {
     if (t0 + f < n_frames) out[(t0 + f) * nc2sq + d] = acc[f] + lambda * a2;
+  }
+  if (!pair) return;
+  const T a2n = a2c[e + 1];
+  const int64_t dn = __ldg(dst + e + 1);
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + dn] = acc1[f] + lambda * a2n;
   }
 }
 
@@ -263,26 +330,6 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kRestrictMembers = 2;  // members a lane holds at once (64 a warp)
 template <typename T>
 constexpr int kRestrictFrames = 16 / static_cast<int>(sizeof(T));  // F
-
-// R_v (4 values at r_blk + 4v) into q: one 16-byte load (two in f64) where
-// r_blk is 16-byte aligned, else one value a load.
-__device__ __forceinline__ void load_block(const float* rb, bool aligned, float* q) {
-  if (aligned) {
-    unpack(__ldg(reinterpret_cast<const float4*>(rb)), q);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = __ldg(rb + i);
-  }
-}
-__device__ __forceinline__ void load_block(const double* rb, bool aligned, double* q) {
-  if (aligned) {
-    unpack(__ldg(reinterpret_cast<const double2*>(rb)), q);
-    unpack(__ldg(reinterpret_cast<const double2*>(rb) + 1), q + 2);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = __ldg(rb + i);
-  }
-}
 
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
@@ -579,15 +626,32 @@ constexpr int64_t kMaxGridY = 65535;
 // 532, 515, 726, each with phase 1's ~30 us).
 constexpr int kAssembleFrames = 4;
 
+template <typename T, int F>
+void launch_assemble(const void* g, const void* r_blk, const void* triangles,
+                     const void* w_scale, const void* ptr, const void* src,
+                     const void* dst, const void* a2c, const int* lead, T lambda,
+                     void* out, int64_t n_frames, int64_t m_tri, int64_t nnz,
+                     int64_t nc2, cudaStream_t s) {
+  const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>((n_frames + F - 1) / F));
+  assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(r_blk),
+      static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+      static_cast<const int*>(ptr), static_cast<const int*>(src),
+      static_cast<const int*>(dst), static_cast<const T*>(a2c), lead, lambda,
+      static_cast<T*>(out), n_frames, m_tri, nnz, nc2 * nc2);
+}
+
 template <typename T>
-int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
-                    const void* triangles, const void* w_scale,
-                    const void* ptr, const void* src, const void* dst,
-                    double lambda, void* a2c, void* out, int64_t n_frames,
-                    int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
-                    void* stream) {
-  constexpr int F = kAssembleFrames;
-  const int64_t groups = mean ? 1 : (n_frames + F - 1) / F;
+int coarse_assemble_with(const void* g, const void* blocks2, const void* r_blk,
+                         const void* triangles, const void* w_scale,
+                         const void* ptr, const void* src, const void* dst,
+                         double lambda, void* a2c, void* lead, void* out,
+                         int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,
+                         int64_t mean, int64_t frames, int64_t pairs, void* stream) {
+  if (frames != 1 && frames != 2 && frames != 4 && frames != 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t groups = mean ? 1 : (n_frames + frames - 1) / frames;
   if (groups > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
   if (nnz > 0 && n_frames > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -595,7 +659,8 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
     coarse_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
         static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
         static_cast<const int*>(triangles), static_cast<const int*>(ptr),
-        static_cast<const int*>(src), static_cast<T*>(a2c), nnz);
+        static_cast<const int*>(src), static_cast<T*>(a2c), static_cast<int*>(lead),
+        nnz);
     if (mean) {
       assemble_mean_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
           static_cast<const T*>(g), static_cast<const T*>(r_blk),
@@ -603,17 +668,40 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
           static_cast<const int*>(ptr), static_cast<const int*>(src),
           static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
           static_cast<T*>(out), n_frames, m_tri, nnz);
-    } else {
-      const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>(groups));
-      assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
-          static_cast<const T*>(g), static_cast<const T*>(r_blk),
-          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-          static_cast<const int*>(ptr), static_cast<const int*>(src),
-          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
-          static_cast<T*>(out), n_frames, m_tri, nnz, nc2 * nc2);
+      return static_cast<int>(cudaGetLastError());
+    }
+    const int* ld = pairs ? static_cast<const int*>(lead) : nullptr;
+    switch (frames) {
+      case 1:
+        launch_assemble<T, 1>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
+                              lam, out, n_frames, m_tri, nnz, nc2, s);
+        break;
+      case 2:
+        launch_assemble<T, 2>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
+                              lam, out, n_frames, m_tri, nnz, nc2, s);
+        break;
+      case 4:
+        launch_assemble<T, 4>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
+                              lam, out, n_frames, m_tri, nnz, nc2, s);
+        break;
+      default:
+        launch_assemble<T, 8>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
+                              lam, out, n_frames, m_tri, nnz, nc2, s);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
+                    const void* triangles, const void* w_scale,
+                    const void* ptr, const void* src, const void* dst,
+                    double lambda, void* a2c, void* lead, void* out,
+                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,
+                    int64_t mean, void* stream) {
+  return coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale, ptr, src,
+                                 dst, lambda, a2c, lead, out, n_frames, m_tri, nnz,
+                                 nc2, mean, kAssembleFrames, 1, stream);
 }
 
 template <typename T>
@@ -680,12 +768,23 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
   extern "C" int mf_coarse_assemble_##SUFFIX(                                  \
       const void* g, const void* blocks2, const void* r_blk,                   \
       const void* triangles, const void* w_scale, const void* ptr,             \
-      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
-      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
-      void* stream) {                                                          \
+      const void* src, const void* dst, double lambda, void* a2c, void* lead,  \
+      void* out, int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,    \
+      int64_t mean, void* stream) {                                            \
     return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
-                                  src, dst, lambda, a2c, out, n_frames, m_tri, \
-                                  nnz, nc2, mean, stream);                     \
+                                  src, dst, lambda, a2c, lead, out, n_frames,  \
+                                  m_tri, nnz, nc2, mean, stream);              \
+  }                                                                            \
+  extern "C" int mf_coarse_assemble_variant_##SUFFIX(                          \
+      const void* g, const void* blocks2, const void* r_blk,                   \
+      const void* triangles, const void* w_scale, const void* ptr,             \
+      const void* src, const void* dst, double lambda, void* a2c, void* lead,  \
+      void* out, int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,    \
+      int64_t mean, int64_t frames, int64_t pairs, void* stream) {             \
+    return mf::coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale,  \
+                                       ptr, src, dst, lambda, a2c, lead, out,  \
+                                       n_frames, m_tri, nnz, nc2, mean, frames,\
+                                       pairs, stream);                         \
   }                                                                            \
   extern "C" int mf_coarse_restrict_##SUFFIX(                                  \
       const void* r, const void* r_blk, const void* members, void* rc,         \

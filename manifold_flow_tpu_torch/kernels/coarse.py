@@ -76,11 +76,12 @@ def coarse_assemble(g: torch.Tensor, blocks2: torch.Tensor, r_blk: torch.Tensor,
                                      asm_ptr, asm_src, asm_dst, n_coarse, mean)
     out = torch.zeros((1 if mean else t, nc2, nc2), dtype=dtype, device=g.device)
     a2c = torch.empty(nnz, dtype=dtype, device=g.device)
+    lead = torch.empty(nnz, dtype=torch.int32, device=g.device)
     _launch("coarse_assemble", dtype, g.device, g.data_ptr(), blocks2.data_ptr(),
             r_blk.data_ptr(), triangles.data_ptr(), w_scale.data_ptr(),
             asm_ptr.data_ptr(), asm_src.data_ptr(), asm_dst.data_ptr(),
-            float(lambda_), a2c.data_ptr(), out.data_ptr(), t, m, nnz, nc2,
-            int(bool(mean)))
+            float(lambda_), a2c.data_ptr(), lead.data_ptr(), out.data_ptr(), t, m,
+            nnz, nc2, int(bool(mean)))
     return out
 
 

@@ -435,20 +435,28 @@ ENTRY_SIZES = (1, 31, 32, 33)
 
 def _ragged_assembly(device, dtype, t, seed):
     """coarse_assemble's inputs on random tables whose CSR entries list 1,
-    31, 32 and 33 contributions in turn (fewer, as many and more than a
-    warp's lanes), each entry's contributions ascending, the targets
-    distinct random slots of a (24, 24) coarse matrix."""
+    31, 32 and 33 even contributions in turn (fewer, as many and more than
+    a warp's lanes), each ascending. Every other entry is followed by its
+    y = 1 sibling (the same contributions plus one: a pair that K8 serves
+    with one warp); the other entries' siblings come last, descending, so
+    they pair with nothing. The targets are distinct random slots of a
+    (24, 24) coarse matrix."""
     rng = np.random.default_rng(seed)
     m, n, n_coarse = 40, 30, 12
     triangles = np.stack([rng.choice(n, 3, replace=False) for _ in range(m)])
-    sizes, left = [], 36 * m
-    while left > 0:
-        sizes.append(min(ENTRY_SIZES[len(sizes) % 4], left))
-        left -= sizes[-1]
-    perm = rng.permutation(36 * m)
-    ptr = np.concatenate([[0], np.cumsum(sizes)])
-    src = np.concatenate([np.sort(perm[a:b]) for a, b in zip(ptr[:-1], ptr[1:])])
-    dst = rng.choice((2 * n_coarse) ** 2, len(sizes), replace=False)
+    even = rng.permutation(np.arange(0, 36 * m, 2))
+    lists, apart, k, i = [], [], 0, 0
+    while k < even.size:
+        chunk = np.sort(even[k:k + ENTRY_SIZES[(i // 2) % 4]])
+        k += chunk.size
+        lists.append(chunk)
+        (lists if i % 2 == 0 else apart).append(chunk + 1 if i % 2 == 0
+                                                else chunk[::-1] + 1)
+        i += 1
+    lists += apart
+    ptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+    src = np.concatenate(lists)
+    dst = rng.choice((2 * n_coarse) ** 2, len(lists), replace=False)
 
     def arr(x, dt):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
@@ -463,9 +471,10 @@ def _ragged_assembly(device, dtype, t, seed):
 @pytest.mark.parametrize("t", [1, 3, 97])
 @pytest.mark.parametrize("mean", [False, True], ids=["full", "mean"])
 def test_coarse_assemble_matches_plain_on_ragged_entries(cuda, dtype, t, mean):
-    """K8 with entries of 1, 31, 32 and 33 contributions, frame counts that
-    are no multiple of its frames a warp, and in 'mean' mode: one launch a
-    call, within TOL of the plain version, two calls bitwise equal."""
+    """K8 with entries of 1, 31, 32 and 33 contributions, alone and in y
+    pairs, frame counts that are no multiple of its frames a warp, and in
+    'mean' mode: one launch a call, within TOL of the plain version, two
+    calls bitwise equal."""
     args = _ragged_assembly(cuda, dtype, t, seed=50 + t)
     got = _launched("coarse_assemble", dtype,
                     lambda: kco.coarse_assemble(*args, mean=mean))
