@@ -665,61 +665,6 @@ def restriction_coo(r_blk, members) -> torch.Tensor:
     return coo.coalesce()
 
 
-def against_unpaired_assemble(card: str, asm) -> None:
-    """K8 with y pairs (one warp a pair of sibling entries) against the same
-    kernel with every entry its own warp, on the same inputs: out bitwise,
-    device times in turns; then the paired kernel at F = 1, 2, 4, 8, each
-    bitwise equal too, in turns; and how many entries pair."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import coarse as kco
-    from manifold_flow_tpu_torch.kernels import library
-
-    g, blocks2, r_blk, triangles, w_scale, lam, ptr, src, dst, n_coarse = asm
-    dtype = g.dtype
-    fn = getattr(library(), f"mf_coarse_assemble_variant_{'f32' if dtype == torch.float32 else 'f64'}")
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    fn.argtypes = [p] * 8 + [d] + [p] * 3 + [i] * 7 + [p]
-    fn.restype = ctypes.c_int
-    t, m = g.shape[0], g.shape[1]
-    nc2, nnz = 2 * n_coarse, dst.shape[0]
-    lead = torch.empty(nnz, dtype=torch.int32, device=g.device)
-
-    def call(frames, pairs):
-        def run():
-            out = torch.zeros((t, nc2, nc2), dtype=dtype, device=g.device)
-            a2c = torch.empty(nnz, dtype=dtype, device=g.device)
-            err = fn(g.data_ptr(), blocks2.data_ptr(), r_blk.data_ptr(),
-                     triangles.data_ptr(), w_scale.data_ptr(), ptr.data_ptr(),
-                     src.data_ptr(), dst.data_ptr(), float(lam), a2c.data_ptr(),
-                     lead.data_ptr(), out.data_ptr(), t, m, nnz, nc2, 0, frames, pairs,
-                     torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"coarse_assemble variant failed: CUDA error {err}")
-            return out
-        return run
-
-    def this():
-        return kco.coarse_assemble(*asm)
-    want = call(4, 0)()
-    paired = int(lead.sum())
-    same = torch.equal(this(), want)
-    us = [device_us(fn_, mine=own_kernel) for fn_ in (this, call(4, 0), call(4, 0), this)]
-    frames = (1, 2, 4, 8)
-    equal = [torch.equal(call(f, 1)(), want) for f in frames]
-    sweep = [device_us(call(f, 1), mine=own_kernel) for f in frames + frames[::-1]]
-    ctype = "float" if dtype == torch.float32 else "double"
-    print(f"[pairs] coarse_assemble<{ctype}>@12.5k: {paired} of {nnz} entries lead a y "
-          f"pair; out bitwise equal to the unpaired kernel's: {same}; device "
-          f"{fmt_us(us[0])} / {fmt_us(us[3])} against unpaired {fmt_us(us[1])} / "
-          f"{fmt_us(us[2])} (in turns); paired F frames a warp, bitwise equal {equal}: "
-          + ", ".join(f"F={f} {fmt_us(a)} / {fmt_us(b)}"
-                      for f, a, b in zip(frames, sweep[:4], sweep[::-1][:4]))
-          + f"; on {card}", flush=True)
-    if not (same and all(equal)):
-        raise AssertionError(f"coarse_assemble<{ctype}>: paired and unpaired differ")
-
-
 def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
                    suffix: str = "") -> None:
     """K8 against its plain version on the operator `op` (its dtype), timed
@@ -746,8 +691,6 @@ def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
     print(f"[kernels] {key}: zeroing its ({t}, {nc2}, {nc2}) output (torch.zeros) "
           f"takes {fmt_us(zeros_us)} of device time, the kernel "
           f"{fmt_us(checks.rows[key]['device_us'])}; on {checks.card}", flush=True)
-    if not suffix:
-        against_unpaired_assemble(checks.card, asm)
 
 
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:

@@ -27,11 +27,11 @@
 //       (frame, entry): the frame-independent half of each contribution
 //       (the CSR list, the corners, R_v, the area) came again for each of
 //       the 97 frames, one dependent chain in flight a lane (522 us on the
-//       card). This design gives a warp one entry for kAssembleFrames
-//       frames: that half loads once a group, then the group's g pairs go
-//       out together (325 us). A fit of the frames-a-warp sweep puts the g
-//       pairs at ~2.5 us a frame, ~250 of those 325 us. See
-//       assemble_kernel.
+//       card). This design gives a warp one entry, or a pair of sibling
+//       entries (y = 0 and 1) that share their contributions, for a group
+//       of frames: that half loads once a group and each g pair once for
+//       both entries, then the group's g pairs go out together (246 us).
+//       See assemble_kernel.
 //   K9  per PCG iteration: reads r (9.7 MB, 3.0 us at 3.35 TB/s), gathered
 //       by member. Its first design ran a warp per (frame, aggregate): the
 //       frame-independent members (50 KB) and R_v (200 KB) came again from
@@ -168,7 +168,7 @@ __device__ __forceinline__ void load_pair(const T* p, bool aligned, T& a, T& b) 
   }
 }
 
-// The frame-independent part of one contribution.
+// The frame-independent part of one contribution ('mean' mode).
 template <typename T>
 struct Fixed {
   int64_t m;
@@ -191,17 +191,25 @@ __device__ __forceinline__ Fixed<T> load_fixed(const Contribution& q,
 
 // K8, phase 2: out[t][dst[e]] = a1c[t][e] + lambda * a2c[e], with a1c[t][e]
 // the sum over the entry's contributions of w_cc2 (Rg)_c^x (Rg)_c2^y,
-// w = (A/12)(1 + delta_cc2) (solve/coarse.py:318-330). One warp per (entry,
-// group of kAssembleFrames frames): lane l takes the entry's contributions
-// l, l + 32, ... and loads the frame-independent part of each once for the
-// group (the decoded (m, c, x, c2, y), the two corners' R_v coefficients, w),
-// then issues the g pairs g_c and g_c2 of every frame of the group (one
-// 8-byte load each in f32, one 16-byte load in f64, where g is aligned)
-// before the multiply-adds; (Rg)_c^x = g_c^0 R_c[0][x] + g_c^1 R_c[1][x] is
-// the a1 factor of corner c on its aggregate's coarse basis
-// (solve/coarse.py:318). Each frame's lane sum adds the contributions in
-// CSR order, then the fixed-order warp sum closes it: a warp per (frame,
-// entry), the first design, gave bitwise the same matrices.
+// w = (A/12)(1 + delta_cc2) (solve/coarse.py:318-330), where (Rg)_c^x =
+// g_c^0 R_c[0][x] + g_c^1 R_c[1][x] is the a1 factor of corner c on its
+// aggregate's coarse basis. One warp per (entry, group of F frames), or per
+// pair of entries that phase 1 marked (e and e + 1, the same contributions
+// with y = 0 and 1): lane l takes the list's contributions l, l + 32, ...
+// and loads the frame-independent part of each once for the group (the
+// decoded (m, c, x, c2, y), R_c's two coefficients, R_c2's two, or its whole
+// block for a pair, and w), then the g pairs g_c and g_c2 of every frame of
+// the group (one 8-byte load each in f32, one 16-byte load in f64, where g
+// is aligned) before the multiply-adds; a pair's second entry reuses them
+// with y = 1. Each entry's lane sum adds its contributions in CSR order, in
+// the expression of a warp per (frame, entry), the first design, then the
+// fixed-order warp sum closes it: the matrices are bitwise that design's.
+// F = 16 / sizeof(T): with pairs, 4 was the fastest of 1, 2, 4, 8 in f32
+// (358-364, 263-265, 245-248, 490-494 us at the 12.5k shapes on the card)
+// and 2 in f64 (473-494, 404-410, 435-443, 807-821).
+template <typename T>
+constexpr int kAssembleFrames = 16 / static_cast<int>(sizeof(T));
+
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
     assemble_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
@@ -214,8 +222,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t e = global_index() >> 5;
   const int lane = threadIdx.x & 31;
   if (e >= nnz) return;  // uniform across the warp
-  if (lead != nullptr && e > 0 && __ldg(lead + e - 1)) return;  // its pair's warp
-  const bool pair = lead != nullptr && __ldg(lead + e);
+  if (e > 0 && __ldg(lead + e - 1)) return;  // the pair's first warp serves it
+  const bool pair = __ldg(lead + e);
   const int64_t t0 = static_cast<int64_t>(blockIdx.y) * F;
   const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
   const bool r_aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
@@ -621,37 +629,15 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int64_t kMaxGridY = 65535;
 
-// Frames a warp of K8's phase 2: the fastest of 1, 2, 4 and 8 on the card
-// at the 12.5k shapes in both types (f32: 499, 392, 324, 330 us; f64: 681,
-// 532, 515, 726, each with phase 1's ~30 us).
-constexpr int kAssembleFrames = 4;
-
-template <typename T, int F>
-void launch_assemble(const void* g, const void* r_blk, const void* triangles,
-                     const void* w_scale, const void* ptr, const void* src,
-                     const void* dst, const void* a2c, const int* lead, T lambda,
-                     void* out, int64_t n_frames, int64_t m_tri, int64_t nnz,
-                     int64_t nc2, cudaStream_t s) {
-  const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>((n_frames + F - 1) / F));
-  assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(r_blk),
-      static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-      static_cast<const int*>(ptr), static_cast<const int*>(src),
-      static_cast<const int*>(dst), static_cast<const T*>(a2c), lead, lambda,
-      static_cast<T*>(out), n_frames, m_tri, nnz, nc2 * nc2);
-}
-
 template <typename T>
-int coarse_assemble_with(const void* g, const void* blocks2, const void* r_blk,
-                         const void* triangles, const void* w_scale,
-                         const void* ptr, const void* src, const void* dst,
-                         double lambda, void* a2c, void* lead, void* out,
-                         int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,
-                         int64_t mean, int64_t frames, int64_t pairs, void* stream) {
-  if (frames != 1 && frames != 2 && frames != 4 && frames != 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t groups = mean ? 1 : (n_frames + frames - 1) / frames;
+int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
+                    const void* triangles, const void* w_scale,
+                    const void* ptr, const void* src, const void* dst,
+                    double lambda, void* a2c, void* lead, void* out,
+                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,
+                    int64_t mean, void* stream) {
+  constexpr int F = kAssembleFrames<T>;
+  const int64_t groups = mean ? 1 : (n_frames + F - 1) / F;
   if (groups > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
   if (nnz > 0 && n_frames > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -668,40 +654,18 @@ int coarse_assemble_with(const void* g, const void* blocks2, const void* r_blk,
           static_cast<const int*>(ptr), static_cast<const int*>(src),
           static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
           static_cast<T*>(out), n_frames, m_tri, nnz);
-      return static_cast<int>(cudaGetLastError());
-    }
-    const int* ld = pairs ? static_cast<const int*>(lead) : nullptr;
-    switch (frames) {
-      case 1:
-        launch_assemble<T, 1>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
-                              lam, out, n_frames, m_tri, nnz, nc2, s);
-        break;
-      case 2:
-        launch_assemble<T, 2>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
-                              lam, out, n_frames, m_tri, nnz, nc2, s);
-        break;
-      case 4:
-        launch_assemble<T, 4>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
-                              lam, out, n_frames, m_tri, nnz, nc2, s);
-        break;
-      default:
-        launch_assemble<T, 8>(g, r_blk, triangles, w_scale, ptr, src, dst, a2c, ld,
-                              lam, out, n_frames, m_tri, nnz, nc2, s);
+    } else {
+      const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>(groups));
+      assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const T*>(r_blk),
+          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+          static_cast<const int*>(ptr), static_cast<const int*>(src),
+          static_cast<const int*>(dst), static_cast<const T*>(a2c),
+          static_cast<const int*>(lead), lam, static_cast<T*>(out), n_frames, m_tri,
+          nnz, nc2 * nc2);
     }
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
-                    const void* triangles, const void* w_scale,
-                    const void* ptr, const void* src, const void* dst,
-                    double lambda, void* a2c, void* lead, void* out,
-                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,
-                    int64_t mean, void* stream) {
-  return coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale, ptr, src,
-                                 dst, lambda, a2c, lead, out, n_frames, m_tri, nnz,
-                                 nc2, mean, kAssembleFrames, 1, stream);
 }
 
 template <typename T>
@@ -774,17 +738,6 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
     return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
                                   src, dst, lambda, a2c, lead, out, n_frames,  \
                                   m_tri, nnz, nc2, mean, stream);              \
-  }                                                                            \
-  extern "C" int mf_coarse_assemble_variant_##SUFFIX(                          \
-      const void* g, const void* blocks2, const void* r_blk,                   \
-      const void* triangles, const void* w_scale, const void* ptr,             \
-      const void* src, const void* dst, double lambda, void* a2c, void* lead,  \
-      void* out, int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,    \
-      int64_t mean, int64_t frames, int64_t pairs, void* stream) {             \
-    return mf::coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale,  \
-                                       ptr, src, dst, lambda, a2c, lead, out,  \
-                                       n_frames, m_tri, nnz, nc2, mean, frames,\
-                                       pairs, stream);                         \
   }                                                                            \
   extern "C" int mf_coarse_restrict_##SUFFIX(                                  \
       const void* r, const void* r_blk, const void* members, void* rc,         \

@@ -48,17 +48,21 @@ def coarse_assemble(g: torch.Tensor, blocks2: torch.Tensor, r_blk: torch.Tensor,
     serialises. Bound on the H100 (f32, 12.5k shapes) by its gathers: every
     contribution of every frame reads two g pairs scattered over the
     triangles, beside ~180 MB of device memory (g, the zeroed and written
-    output). Design: the a2 part once per entry (one launch), then one warp
-    per (entry, group of 4 frames): its lanes stride through the entry's
-    CSR list, load each contribution's frame-independent part (indices,
-    R_v, area) once for the group, then the group's g pairs (one 8- or
-    16-byte load each) before the multiply-adds, and the fixed-order warp
-    sum closes each frame. The (T, M, 36) contributions (344 MB) never
-    reach memory and the sum is deterministic. The first design, a warp
-    per (frame, entry), loaded the frame-independent part again for every
-    frame; the matrices are bitwise that design's. `mean` runs one warp per
-    entry over every frame. The output is zeroed (`torch.zeros`) before the
-    launch: the kernel writes the ~3% of entries that are non-zero.
+    output). Design: the a2 part once per entry (one launch, which also
+    marks the pairs of sibling entries (row, 2b) and (row, 2b + 1) that
+    list the same contributions with y = 0 and 1, in a scratch of nnz
+    int32), then one warp per (entry or pair, group of 4 frames in f32, 2
+    in f64): its lanes stride through the CSR list, load each
+    contribution's frame-independent part (indices, R_v, area) once for
+    the group, then the group's g pairs (one 8- or 16-byte load each),
+    used by both entries of a pair, before the multiply-adds; the
+    fixed-order warp sum closes each entry and frame. The (T, M, 36)
+    contributions (344 MB) never reach memory and the sum is
+    deterministic. The first design, a warp per (frame, entry), loaded the
+    frame-independent part again for every frame; the matrices are
+    bitwise that design's. `mean` runs one warp per entry over every
+    frame. The output is zeroed (`torch.zeros`) before the launch: the
+    kernel writes the ~3% of entries that are non-zero.
     """
     dtype = _float_dtype("g", g)
     t, m = g.shape[0], g.shape[1]
