@@ -665,6 +665,56 @@ def restriction_coo(r_blk, members) -> torch.Tensor:
     return coo.coalesce()
 
 
+def against_lead_assemble(card: str, asm) -> None:
+    """K8 pair-only against the previous K8 (pair marks found on the card,
+    lone entries allowed), on the same inputs: out bitwise in full and
+    'mean' mode, device times in turns (this, previous, previous, this)."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import coarse as kco
+    from manifold_flow_tpu_torch.kernels import library
+
+    g, blocks2, r_blk, triangles, w_scale, lam, ptr, src, dst, n_coarse = asm
+    dtype = g.dtype
+    fn = getattr(library(), f"mf_coarse_assemble_lead_{'f32' if dtype == torch.float32 else 'f64'}")
+    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    fn.argtypes = [p] * 8 + [d] + [p] * 3 + [i] * 5 + [p]
+    fn.restype = ctypes.c_int
+    t, m = g.shape[0], g.shape[1]
+    nc2, nnz = 2 * n_coarse, dst.shape[0]
+
+    def lead(mean):
+        def run():
+            out = torch.zeros((1 if mean else t, nc2, nc2), dtype=dtype, device=g.device)
+            a2c = torch.empty(nnz, dtype=dtype, device=g.device)
+            marks = torch.empty(nnz, dtype=torch.int32, device=g.device)
+            err = fn(g.data_ptr(), blocks2.data_ptr(), r_blk.data_ptr(),
+                     triangles.data_ptr(), w_scale.data_ptr(), ptr.data_ptr(),
+                     src.data_ptr(), dst.data_ptr(), float(lam), a2c.data_ptr(),
+                     marks.data_ptr(), out.data_ptr(), t, m, nnz, nc2, int(mean),
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"previous coarse_assemble failed: CUDA error {err}")
+            return out
+        return run
+
+    def this(mean):
+        return lambda: kco.coarse_assemble(*asm, mean=mean)
+    same = [torch.equal(this(mean)(), lead(mean)()) for mean in (False, True)]
+    us = [device_us(fn_, mine=own_kernel)
+          for fn_ in (this(False), lead(False), lead(False), this(False))]
+    mean_us = [device_us(fn_, mine=own_kernel)
+               for fn_ in (this(True), lead(True), lead(True), this(True))]
+    ctype = "float" if dtype == torch.float32 else "double"
+    print(f"[parent] coarse_assemble<{ctype}>@12.5k: pair-only out bitwise equal to the "
+          f"previous kernel's (full, mean): {same}; device {fmt_us(us[0])} / "
+          f"{fmt_us(us[3])} against previous {fmt_us(us[1])} / {fmt_us(us[2])} (in turns); "
+          f"mean {fmt_us(mean_us[0])} / {fmt_us(mean_us[3])} against {fmt_us(mean_us[1])} / "
+          f"{fmt_us(mean_us[2])}; on {card}", flush=True)
+    if not all(same):
+        raise AssertionError(f"coarse_assemble<{ctype}>: pair-only and previous differ")
+
+
 def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
                    suffix: str = "") -> None:
     """K8 against its plain version on the operator `op` (its dtype), timed
@@ -691,6 +741,8 @@ def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
     print(f"[kernels] {key}: zeroing its ({t}, {nc2}, {nc2}) output (torch.zeros) "
           f"takes {fmt_us(zeros_us)} of device time, the kernel "
           f"{fmt_us(checks.rows[key]['device_us'])}; on {checks.card}", flush=True)
+    if not suffix:
+        against_lead_assemble(checks.card, asm)
 
 
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:

@@ -94,52 +94,83 @@ __device__ __forceinline__ void load_block(const double* rb, bool aligned, doubl
   }
 }
 
+// K8 works on pairs of sibling entries. The CSR (solve/coarse.py
+// assembly_csr) lists the entry (row, 2b) at an even index e and its sibling
+// (row, 2b + 1) at e + 1; e's contributions s are all even (y = 0) and e + 1
+// lists s + 1 for each, in the same order (the same triangle and corners,
+// y = 1). assembly_csr checks this on the host. So a warp serves pair p,
+// entries 2p and 2p + 1, from e's list alone.
+//
+// The frame-independent part of contribution s (y = 0) and of its sibling
+// s + 1: the triangle m, the corners c and c2, R_c's column x (R_c[0][x],
+// R_c[1][x]), the whole block R_c2 (R_c2[b][y] at rd[2b + y]) and the weight
+// w = (1 + delta_cc2) A / 12.
+template <typename T>
+struct Fixed {
+  int64_t m;
+  int c, c2;
+  T rc0, rc2, rd[4], w;
+};
+
+template <typename T>
+__device__ __forceinline__ Fixed<T> load_fixed(int s, const T* __restrict__ r_blk,
+                                               bool r_aligned,
+                                               const int* __restrict__ triangles,
+                                               const T* __restrict__ w_scale) {
+  const Contribution q = decode(s);
+  const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
+  const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
+  Fixed<T> p;
+  p.m = q.m;
+  p.c = q.c;
+  p.c2 = q.c2;
+  p.rc0 = __ldg(r_blk + 4 * vc + q.x);
+  p.rc2 = __ldg(r_blk + 4 * vc + 2 + q.x);
+  load_block(r_blk + 4 * vd, r_aligned, p.rd);
+  p.w = (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m);
+  return p;
+}
+
 // K8, phase 1: the frame-independent a2 part of every non-zero coarse entry,
 // a2c[e] = sum over the entry's contributions of
 // sum_{a,b} R_c[a][x] B2[(c,a),(c2,b)] R_c2[b][y] (solve/coarse.py:299-304);
-// one warp per entry, its lanes striding through the entry's CSR list.
-// It also marks the pairs phase 2 serves with one warp: lead[e] = 1 when
-// entry e + 1 lists as many contributions as e, each one of e's plus one,
-// and all of e's are even (y = 0; e + 1's are then the same (m, c, x, c2)
-// with y = 1). The tables list the entries (row, 2b) and (row, 2b + 1) so.
-// No entry can both lead and follow: a follower's contributions are odd.
+// one warp per pair of entries, its lanes striding through the first
+// entry's CSR list, each lane summing both entries' terms.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     coarse_a2_kernel(const T* __restrict__ blocks2, const T* __restrict__ r_blk,
-                     const int* __restrict__ triangles,
+                     const int* __restrict__ triangles, const T* __restrict__ w_scale,
                      const int* __restrict__ ptr, const int* __restrict__ src,
-                     T* __restrict__ a2c, int* __restrict__ lead, int64_t nnz) {
-  const int64_t e = global_index() >> 5;
+                     T* __restrict__ a2c, int64_t n_pairs) {
+  const int64_t e = 2 * (global_index() >> 5);
   const int lane = threadIdx.x & 31;
-  if (e >= nnz) return;  // uniform across the warp
-  bool pairs = false;
-  if (e + 1 < nnz && ptr[e + 2] - ptr[e + 1] == ptr[e + 1] - ptr[e]) {
-    bool ok = true;
-    for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
-      const int s = src[k];
-      ok = ok && (s & 1) == 0 && src[k + ptr[e + 1] - ptr[e]] == s + 1;
-    }
-    pairs = __all_sync(0xffffffffu, ok);
-  }
-  if (lane == 0) lead[e] = pairs ? 1 : 0;
-  T acc = T(0);
-  for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
-    const Contribution q = decode(src[k]);
-    const T* rc = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c]);
-    const T* rd = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c2]);
+  if (e >= 2 * n_pairs) return;  // uniform across the warp
+  const bool r_aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
+  T acc0 = T(0), acc1 = T(0);
+  const int k1 = __ldg(ptr + e + 1);
+  for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
+    const Fixed<T> q = load_fixed(__ldg(src + k), r_blk, r_aligned, triangles, w_scale);
     const T* b = blocks2 + 36 * q.m + (2 * q.c) * 6 + 2 * q.c2;
-    T v = T(0);
+    const T rc[2] = {q.rc0, q.rc2};
+    T v0 = T(0), v1 = T(0);
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
 #pragma unroll
       for (int bb = 0; bb < 2; ++bb) {
-        v += rc[2 * a + q.x] * b[a * 6 + bb] * rd[2 * bb + q.y];
+        const T ab = __ldg(b + a * 6 + bb);
+        v0 += rc[a] * ab * q.rd[2 * bb];
+        v1 += rc[a] * ab * q.rd[2 * bb + 1];
       }
     }
-    acc += v;
+    acc0 += v0;
+    acc1 += v1;
   }
-  acc = warp_sum(acc);
-  if (lane == 0) a2c[e] = acc;
+  acc0 = warp_sum(acc0);
+  acc1 = warp_sum(acc1);
+  if (lane == 0) {
+    a2c[e] = acc0;
+    a2c[e + 1] = acc1;
+  }
 }
 
 // The g pair type: 8 bytes in f32, 16 in f64.
@@ -168,47 +199,36 @@ __device__ __forceinline__ void load_pair(const T* p, bool aligned, T& a, T& b) 
   }
 }
 
-// The frame-independent part of one contribution ('mean' mode).
-template <typename T>
-struct Fixed {
-  int64_t m;
-  int c, c2;
-  T rc0, rc2, rd0, rd2, w;
-};
-
-template <typename T>
-__device__ __forceinline__ Fixed<T> load_fixed(const Contribution& q,
-                                               const T* __restrict__ r_blk,
-                                               const int* __restrict__ triangles,
-                                               const T* __restrict__ w_scale) {
-  const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
-  const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
-  const T* rc = r_blk + 4 * vc;
-  const T* rd = r_blk + 4 * vd;
-  return {q.m, q.c, q.c2, __ldg(rc + q.x), __ldg(rc + 2 + q.x), __ldg(rd + q.y),
-          __ldg(rd + 2 + q.y), (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m)};
-}
-
 // K8, phase 2: out[t][dst[e]] = a1c[t][e] + lambda * a2c[e], with a1c[t][e]
 // the sum over the entry's contributions of w_cc2 (Rg)_c^x (Rg)_c2^y,
 // w = (A/12)(1 + delta_cc2) (solve/coarse.py:318-330), where (Rg)_c^x =
 // g_c^0 R_c[0][x] + g_c^1 R_c[1][x] is the a1 factor of corner c on its
-// aggregate's coarse basis. One warp per (entry, group of F frames), or per
-// pair of entries that phase 1 marked (e and e + 1, the same contributions
-// with y = 0 and 1): lane l takes the list's contributions l, l + 32, ...
-// and loads the frame-independent part of each once for the group (the
-// decoded (m, c, x, c2, y), R_c's two coefficients, R_c2's two, or its whole
-// block for a pair, and w), then the g pairs g_c and g_c2 of every frame of
-// the group (one 8-byte load each in f32, one 16-byte load in f64, where g
-// is aligned) before the multiply-adds; a pair's second entry reuses them
-// with y = 1. Each entry's lane sum adds its contributions in CSR order, in
-// the expression of a warp per (frame, entry), the first design, then the
-// fixed-order warp sum closes it: the matrices are bitwise that design's.
-// F = 16 / sizeof(T): with pairs, 4 was the fastest of 1, 2, 4, 8 in f32
-// (358-364, 263-265, 245-248, 490-494 us at the 12.5k shapes on the card)
-// and 2 in f64 (473-494, 404-410, 435-443, 807-821).
+// aggregate's coarse basis. One warp per (pair of entries, group of F
+// frames): lane l takes the first entry's contributions l, l + 32, ...,
+// loads the frame-independent part of each once for the group (Fixed),
+// then the g pairs g_c and g_c2 of every frame of the group (one 8-byte
+// load each in f32, one 16-byte load in f64, where g is aligned) before the
+// multiply-adds, which serve both entries (y = 0 and 1). Each entry's lane
+// sum adds its contributions in CSR order, in the expression of a warp per
+// (frame, entry), the first design, then the fixed-order warp sum closes
+// it: the matrices are bitwise that design's. F = 16 / sizeof(T): 4 was the
+// fastest of 1, 2, 4, 8 in f32 (358-364, 263-265, 245-248, 490-494 us at
+// the 12.5k shapes on the card) and 2 in f64 (473-494, 404-410, 435-443,
+// 807-821).
 template <typename T>
 constexpr int kAssembleFrames = 16 / static_cast<int>(sizeof(T));
+
+// lambda * a2c[e] + each frame's sum, into the entry's slot of every frame
+// of the group.
+template <typename T, int F>
+__device__ __forceinline__ void write_entry(T* __restrict__ out, const T (&acc)[F],
+                                            T a2, T lambda, int64_t d, int64_t t0,
+                                            int64_t n_frames, int64_t nc2sq) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + d] = acc[f] + lambda * a2;
+  }
+}
 
 template <typename T, int F>
 __global__ void __launch_bounds__(kThreads)
@@ -216,35 +236,20 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ triangles,
                     const T* __restrict__ w_scale, const int* __restrict__ ptr,
                     const int* __restrict__ src, const int* __restrict__ dst,
-                    const T* __restrict__ a2c, const int* __restrict__ lead,
-                    T lambda, T* __restrict__ out, int64_t n_frames, int64_t m_tri,
-                    int64_t nnz, int64_t nc2sq) {
-  const int64_t e = global_index() >> 5;
+                    const T* __restrict__ a2c, T lambda, T* __restrict__ out,
+                    int64_t n_frames, int64_t m_tri, int64_t n_pairs, int64_t nc2sq) {
+  const int64_t e = 2 * (global_index() >> 5);
   const int lane = threadIdx.x & 31;
-  if (e >= nnz) return;  // uniform across the warp
-  if (e > 0 && __ldg(lead + e - 1)) return;  // the pair's first warp serves it
-  const bool pair = __ldg(lead + e);
+  if (e >= 2 * n_pairs) return;  // uniform across the warp
   const int64_t t0 = static_cast<int64_t>(blockIdx.y) * F;
   const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
   const bool r_aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
-  T acc[F], acc1[F];
+  T acc0[F], acc1[F];
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = acc1[f] = T(0);
+  for (int f = 0; f < F; ++f) acc0[f] = acc1[f] = T(0);
   const int k1 = __ldg(ptr + e + 1);
   for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
-    const Contribution q = decode(__ldg(src + k));
-    const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
-    const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
-    const T rc0 = __ldg(r_blk + 4 * vc + q.x), rc2 = __ldg(r_blk + 4 * vc + 2 + q.x);
-    T rd[4];  // R_d[0][y], R_d[1][y] at rd[0], rd[2]; with a pair all of R_d
-    if (pair) {
-      load_block(r_blk + 4 * vd, r_aligned, rd);
-    } else {
-      rd[0] = __ldg(r_blk + 4 * vd + q.y);
-      rd[2] = __ldg(r_blk + 4 * vd + 2 + q.y);
-      rd[1] = rd[3] = T(0);
-    }
-    const T w = (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m);
+    const Fixed<T> q = load_fixed(__ldg(src + k), r_blk, r_aligned, triangles, w_scale);
     T ga[F], gb[F], gc[F], gd[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) {
@@ -257,42 +262,29 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      const T cf = ga[f] * rc0 + gb[f] * rc2;
-      T s = T(0);
-      s += cf * (gc[f] * rd[0] + gd[f] * rd[2]);
-      acc[f] += s * w;
-      if (pair) {
-        T s1 = T(0);
-        s1 += cf * (gc[f] * rd[1] + gd[f] * rd[3]);
-        acc1[f] += s1 * w;
-      }
+      const T cf = ga[f] * q.rc0 + gb[f] * q.rc2;
+      T s0 = T(0), s1 = T(0);
+      s0 += cf * (gc[f] * q.rd[0] + gd[f] * q.rd[2]);
+      s1 += cf * (gc[f] * q.rd[1] + gd[f] * q.rd[3]);
+      acc0[f] += s0 * q.w;
+      acc1[f] += s1 * q.w;
     }
   }
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    acc[f] = warp_sum(acc[f]);
-    if (pair) acc1[f] = warp_sum(acc1[f]);
+    acc0[f] = warp_sum(acc0[f]);
+    acc1[f] = warp_sum(acc1[f]);
   }
   if (lane != 0) return;
-  const T a2 = a2c[e];
-  const int64_t d = __ldg(dst + e);
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + d] = acc[f] + lambda * a2;
-  }
-  if (!pair) return;
-  const T a2n = a2c[e + 1];
-  const int64_t dn = __ldg(dst + e + 1);
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + dn] = acc1[f] + lambda * a2n;
-  }
+  write_entry<T, F>(out, acc0, a2c[e], lambda, __ldg(dst + e), t0, n_frames, nc2sq);
+  write_entry<T, F>(out, acc1, a2c[e + 1], lambda, __ldg(dst + e + 1), t0, n_frames,
+                    nc2sq);
 }
 
-// K8's phase 2 in 'mean' mode (one shared matrix): one warp per entry; each
-// lane sums every frame of its contribution in frame order, the
-// frame-independent part loaded once and each g pair in one load, and the
-// warp's sum is divided by the frame count.
+// K8's phase 2 in 'mean' mode (one shared matrix): one warp per pair of
+// entries; each lane sums every frame of its contribution in frame order for
+// both entries, the frame-independent part loaded once (Fixed) and each g
+// pair in one load, and the warp's sums are divided by the frame count.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     assemble_mean_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
@@ -300,29 +292,36 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ w_scale, const int* __restrict__ ptr,
                          const int* __restrict__ src, const int* __restrict__ dst,
                          const T* __restrict__ a2c, T lambda, T* __restrict__ out,
-                         int64_t n_frames, int64_t m_tri, int64_t nnz) {
-  const int64_t e = global_index() >> 5;
+                         int64_t n_frames, int64_t m_tri, int64_t n_pairs) {
+  const int64_t e = 2 * (global_index() >> 5);
   const int lane = threadIdx.x & 31;
-  if (e >= nnz) return;  // uniform across the warp
+  if (e >= 2 * n_pairs) return;  // uniform across the warp
   const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
-  T acc = T(0);
+  const bool r_aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
+  T acc0 = T(0), acc1 = T(0);
   const int k1 = __ldg(ptr + e + 1);
   for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
-    const Fixed<T> p = load_fixed(decode(__ldg(src + k)), r_blk, triangles, w_scale);
-    T s = T(0);
+    const Fixed<T> q = load_fixed(__ldg(src + k), r_blk, r_aligned, triangles, w_scale);
+    T s0 = T(0), s1 = T(0);
     for (int64_t f = 0; f < n_frames; ++f) {
-      const T* gm = g + (f * m_tri + p.m) * 6;
+      const T* gm = g + (f * m_tri + q.m) * 6;
       T ga, gb, gc, gd;
-      load_pair(gm + 2 * p.c, aligned, ga, gb);
-      load_pair(gm + 2 * p.c2, aligned, gc, gd);
-      s += (ga * p.rc0 + gb * p.rc2) * (gc * p.rd0 + gd * p.rd2);
+      load_pair(gm + 2 * q.c, aligned, ga, gb);
+      load_pair(gm + 2 * q.c2, aligned, gc, gd);
+      const T cf = ga * q.rc0 + gb * q.rc2;
+      s0 += cf * (gc * q.rd[0] + gd * q.rd[2]);
+      s1 += cf * (gc * q.rd[1] + gd * q.rd[3]);
     }
-    acc += s * p.w;
+    acc0 += s0 * q.w;
+    acc1 += s1 * q.w;
   }
-  acc = warp_sum(acc);
+  acc0 = warp_sum(acc0);
+  acc1 = warp_sum(acc1);
   if (lane != 0) return;
-  acc /= static_cast<T>(n_frames);
-  out[__ldg(dst + e)] = acc + lambda * a2c[e];
+  acc0 /= static_cast<T>(n_frames);
+  acc1 /= static_cast<T>(n_frames);
+  out[__ldg(dst + e)] = acc0 + lambda * a2c[e];
+  out[__ldg(dst + e + 1)] = acc1 + lambda * a2c[e + 1];
 }
 
 // K9: rc[t][2a + b] = sum over the members v of aggregate a (the pad index N
@@ -633,6 +632,232 @@ template <typename T>
 int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
                     const void* triangles, const void* w_scale,
                     const void* ptr, const void* src, const void* dst,
+                    double lambda, void* a2c, void* out, int64_t n_frames,
+                    int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
+                    void* stream) {
+  constexpr int F = kAssembleFrames<T>;
+  const int64_t groups = mean ? 1 : (n_frames + F - 1) / F;
+  if (groups > kMaxGridY || nnz % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_pairs = nnz / 2;
+  if (n_pairs > 0 && n_frames > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T lam = static_cast<T>(lambda);
+    const unsigned int blocks = blocks_for(n_pairs * 32);
+    coarse_a2_kernel<T><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
+        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+        static_cast<const int*>(ptr), static_cast<const int*>(src),
+        static_cast<T*>(a2c), n_pairs);
+    if (mean) {
+      assemble_mean_kernel<T><<<blocks, kThreads, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const T*>(r_blk),
+          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+          static_cast<const int*>(ptr), static_cast<const int*>(src),
+          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+          static_cast<T*>(out), n_frames, m_tri, n_pairs);
+    } else {
+      const dim3 grid(blocks, static_cast<unsigned int>(groups));
+      assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
+          static_cast<const T*>(g), static_cast<const T*>(r_blk),
+          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+          static_cast<const int*>(ptr), static_cast<const int*>(src),
+          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+          static_cast<T*>(out), n_frames, m_tri, n_pairs, nc2 * nc2);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The previous K8 (a scratch of pair marks, lone entries allowed), kept to
+// compare the pair-only kernels with it on the card.
+// K8, phase 1: the frame-independent a2 part of every non-zero coarse entry,
+// a2c[e] = sum over the entry's contributions of
+// sum_{a,b} R_c[a][x] B2[(c,a),(c2,b)] R_c2[b][y] (solve/coarse.py:299-304);
+// one warp per entry, its lanes striding through the entry's CSR list.
+// It also marks the pairs phase 2 serves with one warp: lead[e] = 1 when
+// entry e + 1 lists as many contributions as e, each one of e's plus one,
+// and all of e's are even (y = 0; e + 1's are then the same (m, c, x, c2)
+// with y = 1). The tables list the entries (row, 2b) and (row, 2b + 1) so.
+// No entry can both lead and follow: a follower's contributions are odd.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lead_a2_kernel(const T* __restrict__ blocks2, const T* __restrict__ r_blk,
+                     const int* __restrict__ triangles,
+                     const int* __restrict__ ptr, const int* __restrict__ src,
+                     T* __restrict__ a2c, int* __restrict__ lead, int64_t nnz) {
+  const int64_t e = global_index() >> 5;
+  const int lane = threadIdx.x & 31;
+  if (e >= nnz) return;  // uniform across the warp
+  bool pairs = false;
+  if (e + 1 < nnz && ptr[e + 2] - ptr[e + 1] == ptr[e + 1] - ptr[e]) {
+    bool ok = true;
+    for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
+      const int s = src[k];
+      ok = ok && (s & 1) == 0 && src[k + ptr[e + 1] - ptr[e]] == s + 1;
+    }
+    pairs = __all_sync(0xffffffffu, ok);
+  }
+  if (lane == 0) lead[e] = pairs ? 1 : 0;
+  T acc = T(0);
+  for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
+    const Contribution q = decode(src[k]);
+    const T* rc = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c]);
+    const T* rd = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c2]);
+    const T* b = blocks2 + 36 * q.m + (2 * q.c) * 6 + 2 * q.c2;
+    T v = T(0);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb) {
+        v += rc[2 * a + q.x] * b[a * 6 + bb] * rd[2 * bb + q.y];
+      }
+    }
+    acc += v;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) a2c[e] = acc;
+}
+
+// The frame-independent part of one contribution ('mean' mode).
+template <typename T>
+struct LeadFixed {
+  int64_t m;
+  int c, c2;
+  T rc0, rc2, rd0, rd2, w;
+};
+
+template <typename T>
+__device__ __forceinline__ LeadFixed<T> lead_load_fixed(const Contribution& q,
+                                               const T* __restrict__ r_blk,
+                                               const int* __restrict__ triangles,
+                                               const T* __restrict__ w_scale) {
+  const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
+  const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
+  const T* rc = r_blk + 4 * vc;
+  const T* rd = r_blk + 4 * vd;
+  return {q.m, q.c, q.c2, __ldg(rc + q.x), __ldg(rc + 2 + q.x), __ldg(rd + q.y),
+          __ldg(rd + 2 + q.y), (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m)};
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(kThreads)
+    lead_assemble_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
+                    const int* __restrict__ triangles,
+                    const T* __restrict__ w_scale, const int* __restrict__ ptr,
+                    const int* __restrict__ src, const int* __restrict__ dst,
+                    const T* __restrict__ a2c, const int* __restrict__ lead,
+                    T lambda, T* __restrict__ out, int64_t n_frames, int64_t m_tri,
+                    int64_t nnz, int64_t nc2sq) {
+  const int64_t e = global_index() >> 5;
+  const int lane = threadIdx.x & 31;
+  if (e >= nnz) return;  // uniform across the warp
+  if (e > 0 && __ldg(lead + e - 1)) return;  // the pair's first warp serves it
+  const bool pair = __ldg(lead + e);
+  const int64_t t0 = static_cast<int64_t>(blockIdx.y) * F;
+  const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
+  const bool r_aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
+  T acc[F], acc1[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = acc1[f] = T(0);
+  const int k1 = __ldg(ptr + e + 1);
+  for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
+    const Contribution q = decode(__ldg(src + k));
+    const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
+    const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
+    const T rc0 = __ldg(r_blk + 4 * vc + q.x), rc2 = __ldg(r_blk + 4 * vc + 2 + q.x);
+    T rd[4];  // R_d[0][y], R_d[1][y] at rd[0], rd[2]; with a pair all of R_d
+    if (pair) {
+      load_block(r_blk + 4 * vd, r_aligned, rd);
+    } else {
+      rd[0] = __ldg(r_blk + 4 * vd + q.y);
+      rd[2] = __ldg(r_blk + 4 * vd + 2 + q.y);
+      rd[1] = rd[3] = T(0);
+    }
+    const T w = (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m);
+    T ga[F], gb[F], gc[F], gd[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      ga[f] = gb[f] = gc[f] = gd[f] = T(0);
+      if (t0 + f < n_frames) {
+        const T* gm = g + ((t0 + f) * m_tri + q.m) * 6;
+        load_pair(gm + 2 * q.c, aligned, ga[f], gb[f]);
+        load_pair(gm + 2 * q.c2, aligned, gc[f], gd[f]);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const T cf = ga[f] * rc0 + gb[f] * rc2;
+      T s = T(0);
+      s += cf * (gc[f] * rd[0] + gd[f] * rd[2]);
+      acc[f] += s * w;
+      if (pair) {
+        T s1 = T(0);
+        s1 += cf * (gc[f] * rd[1] + gd[f] * rd[3]);
+        acc1[f] += s1 * w;
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    acc[f] = warp_sum(acc[f]);
+    if (pair) acc1[f] = warp_sum(acc1[f]);
+  }
+  if (lane != 0) return;
+  const T a2 = a2c[e];
+  const int64_t d = __ldg(dst + e);
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + d] = acc[f] + lambda * a2;
+  }
+  if (!pair) return;
+  const T a2n = a2c[e + 1];
+  const int64_t dn = __ldg(dst + e + 1);
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + dn] = acc1[f] + lambda * a2n;
+  }
+}
+
+// K8's phase 2 in 'mean' mode (one shared matrix): one warp per entry; each
+// lane sums every frame of its contribution in frame order, the
+// frame-independent part loaded once and each g pair in one load, and the
+// warp's sum is divided by the frame count.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lead_mean_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
+                         const int* __restrict__ triangles,
+                         const T* __restrict__ w_scale, const int* __restrict__ ptr,
+                         const int* __restrict__ src, const int* __restrict__ dst,
+                         const T* __restrict__ a2c, T lambda, T* __restrict__ out,
+                         int64_t n_frames, int64_t m_tri, int64_t nnz) {
+  const int64_t e = global_index() >> 5;
+  const int lane = threadIdx.x & 31;
+  if (e >= nnz) return;  // uniform across the warp
+  const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
+  T acc = T(0);
+  const int k1 = __ldg(ptr + e + 1);
+  for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
+    const LeadFixed<T> p = lead_load_fixed(decode(__ldg(src + k)), r_blk, triangles, w_scale);
+    T s = T(0);
+    for (int64_t f = 0; f < n_frames; ++f) {
+      const T* gm = g + (f * m_tri + p.m) * 6;
+      T ga, gb, gc, gd;
+      load_pair(gm + 2 * p.c, aligned, ga, gb);
+      load_pair(gm + 2 * p.c2, aligned, gc, gd);
+      s += (ga * p.rc0 + gb * p.rc2) * (gc * p.rd0 + gd * p.rd2);
+    }
+    acc += s * p.w;
+  }
+  acc = warp_sum(acc);
+  if (lane != 0) return;
+  acc /= static_cast<T>(n_frames);
+  out[__ldg(dst + e)] = acc + lambda * a2c[e];
+}
+
+template <typename T>
+int coarse_assemble_lead(const void* g, const void* blocks2, const void* r_blk,
+                    const void* triangles, const void* w_scale,
+                    const void* ptr, const void* src, const void* dst,
                     double lambda, void* a2c, void* lead, void* out,
                     int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,
                     int64_t mean, void* stream) {
@@ -642,13 +867,13 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
   if (nnz > 0 && n_frames > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const T lam = static_cast<T>(lambda);
-    coarse_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+    lead_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
         static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
         static_cast<const int*>(triangles), static_cast<const int*>(ptr),
         static_cast<const int*>(src), static_cast<T*>(a2c), static_cast<int*>(lead),
         nnz);
     if (mean) {
-      assemble_mean_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+      lead_mean_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
           static_cast<const T*>(g), static_cast<const T*>(r_blk),
           static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
           static_cast<const int*>(ptr), static_cast<const int*>(src),
@@ -656,7 +881,7 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
           static_cast<T*>(out), n_frames, m_tri, nnz);
     } else {
       const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>(groups));
-      assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
+      lead_assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
           static_cast<const T*>(g), static_cast<const T*>(r_blk),
           static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
           static_cast<const int*>(ptr), static_cast<const int*>(src),
@@ -732,12 +957,23 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
   extern "C" int mf_coarse_assemble_##SUFFIX(                                  \
       const void* g, const void* blocks2, const void* r_blk,                   \
       const void* triangles, const void* w_scale, const void* ptr,             \
+      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
+      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
+      void* stream) {                                                          \
+    return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
+                                  src, dst, lambda, a2c, out, n_frames, m_tri, \
+                                  nnz, nc2, mean, stream);                     \
+  }                                                                            \
+  extern "C" int mf_coarse_assemble_lead_##SUFFIX(                             \
+      const void* g, const void* blocks2, const void* r_blk,                   \
+      const void* triangles, const void* w_scale, const void* ptr,             \
       const void* src, const void* dst, double lambda, void* a2c, void* lead,  \
       void* out, int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,    \
       int64_t mean, void* stream) {                                            \
-    return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
-                                  src, dst, lambda, a2c, lead, out, n_frames,  \
-                                  m_tri, nnz, nc2, mean, stream);              \
+    return mf::coarse_assemble_lead<T>(g, blocks2, r_blk, triangles, w_scale,  \
+                                       ptr, src, dst, lambda, a2c, lead, out,  \
+                                       n_frames, m_tri, nnz, nc2, mean,        \
+                                       stream);                                \
   }                                                                            \
   extern "C" int mf_coarse_restrict_##SUFFIX(                                  \
       const void* r, const void* r_blk, const void* members, void* rc,         \

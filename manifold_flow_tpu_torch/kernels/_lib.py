@@ -40,7 +40,7 @@ _ARGTYPES = {
     "compact_detected": [_P] * 10 + [_I] * 5 + [_P],
     "classify_candidates": [_P] * 16 + [_I] * 6 + [_P],
     # coarse_kernels.cu (kernels.coarse)
-    "coarse_assemble": [_P] * 8 + [_D] + [_P] * 3 + [_I] * 5 + [_P],
+    "coarse_assemble": [_P] * 8 + [_D] + [_P] * 2 + [_I] * 5 + [_P],
     "coarse_restrict": [_P] * 4 + [_I] * 4 + [_P],
     "coarse_gemv": [_P] * 3 + [_I] * 3 + [_P],
     "coarse_prolong_dot": [_P] * 8 + [_I] * 4 + [_P],

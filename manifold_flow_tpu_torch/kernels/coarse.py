@@ -41,28 +41,30 @@ def coarse_assemble(g: torch.Tensor, blocks2: torch.Tensor, r_blk: torch.Tensor,
     indexed s = m*36 + l*6 + l2 over local DOFs l = corner*2 + component;
     the CSR (solve.coarse.assembly_csr) lists, per non-zero coarse entry
     e, its flat target asm_dst[e] = row * 2Nc + col and its contributions
-    asm_src[asm_ptr[e]:asm_ptr[e+1]] in ascending s.
+    asm_src[asm_ptr[e]:asm_ptr[e+1]] in ascending s. The entries come in
+    sibling pairs (row, 2b), (row, 2b + 1) at indices 2p and 2p + 1, the
+    second listing each of the first's (even) contributions plus one
+    (solve.coarse.check_sibling_pairs); the kernel reads the first's list
+    for both.
 
     Replaces solve/coarse.py:281 `coarse_matrices` with kernels/reduce.py:103
     `apply_reduce` (B6), whose scatter-free plan exists because TPU scatter
     serialises. Bound on the H100 (f32, 12.5k shapes) by its gathers: every
     contribution of every frame reads two g pairs scattered over the
     triangles, beside ~180 MB of device memory (g, the zeroed and written
-    output). Design: the a2 part once per entry (one launch, which also
-    marks the pairs of sibling entries (row, 2b) and (row, 2b + 1) that
-    list the same contributions with y = 0 and 1, in a scratch of nnz
-    int32), then one warp per (entry or pair, group of 4 frames in f32, 2
-    in f64): its lanes stride through the CSR list, load each
+    output). Design: one warp per pair of sibling entries, first for the
+    a2 part (one launch), then for each group of 4 frames in f32, 2 in
+    f64: its lanes stride through the pair's CSR list, load each
     contribution's frame-independent part (indices, R_v, area) once for
     the group, then the group's g pairs (one 8- or 16-byte load each),
-    used by both entries of a pair, before the multiply-adds; the
-    fixed-order warp sum closes each entry and frame. The (T, M, 36)
-    contributions (344 MB) never reach memory and the sum is
-    deterministic. The first design, a warp per (frame, entry), loaded the
-    frame-independent part again for every frame; the matrices are
-    bitwise that design's. `mean` runs one warp per entry over every
-    frame. The output is zeroed (`torch.zeros`) before the launch: the
-    kernel writes the ~3% of entries that are non-zero.
+    used by both entries, before the multiply-adds; the fixed-order warp
+    sum closes each entry and frame. The (T, M, 36) contributions (344 MB)
+    never reach memory and the sum is deterministic. The first design, a
+    warp per (frame, entry), loaded the frame-independent part again for
+    every frame and each g pair for each entry; the matrices are bitwise
+    that design's. `mean` runs one warp per pair over every frame. The
+    output is zeroed (`torch.zeros`) before the launch: the kernel writes
+    the ~3% of entries that are non-zero.
     """
     dtype = _float_dtype("g", g)
     t, m = g.shape[0], g.shape[1]
@@ -75,17 +77,18 @@ def coarse_assemble(g: torch.Tensor, blocks2: torch.Tensor, r_blk: torch.Tensor,
     _check("asm_ptr", asm_ptr, torch.int32, (nnz + 1,))
     _check("asm_src", asm_src, torch.int32, (36 * m,))
     _check("asm_dst", asm_dst, torch.int32, (nnz,))
+    if nnz % 2:
+        raise ValueError(f"coarse_assemble: {nnz} coarse entries, not sibling pairs")
     if not _on_cuda(g, blocks2, r_blk, triangles, w_scale, asm_ptr, asm_src, asm_dst):
         return plain_coarse_assemble(g, blocks2, r_blk, triangles, w_scale, lambda_,
                                      asm_ptr, asm_src, asm_dst, n_coarse, mean)
     out = torch.zeros((1 if mean else t, nc2, nc2), dtype=dtype, device=g.device)
     a2c = torch.empty(nnz, dtype=dtype, device=g.device)
-    lead = torch.empty(nnz, dtype=torch.int32, device=g.device)
     _launch("coarse_assemble", dtype, g.device, g.data_ptr(), blocks2.data_ptr(),
             r_blk.data_ptr(), triangles.data_ptr(), w_scale.data_ptr(),
             asm_ptr.data_ptr(), asm_src.data_ptr(), asm_dst.data_ptr(),
-            float(lambda_), a2c.data_ptr(), lead.data_ptr(), out.data_ptr(), t, m,
-            nnz, nc2, int(bool(mean)))
+            float(lambda_), a2c.data_ptr(), out.data_ptr(), t, m, nnz, nc2,
+            int(bool(mean)))
     return out
 
 

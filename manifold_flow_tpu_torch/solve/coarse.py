@@ -154,7 +154,30 @@ def assembly_csr(triangles: np.ndarray, agg: np.ndarray, n_coarse: int):
     src = np.argsort(flat, kind="stable")
     dst, counts = np.unique(flat[src], return_counts=True)
     ptr = np.concatenate([[0], np.cumsum(counts)])
-    return ptr.astype(np.int32), src.astype(np.int32), dst.astype(np.int32)
+    ptr, src, dst = ptr.astype(np.int32), src.astype(np.int32), dst.astype(np.int32)
+    check_sibling_pairs(ptr, src, dst)
+    return ptr, src, dst
+
+
+def check_sibling_pairs(ptr: np.ndarray, src: np.ndarray, dst: np.ndarray) -> None:
+    """Raise ValueError unless K8's CSR lists its entries in sibling pairs.
+
+    Contribution s + 1 is s with its second coarse component y = 1 (l2 odd),
+    so every contribution to entry (row, 2b) has one to (row, 2b + 1), and
+    the entries follow each other in flat order. K8 relies on that layout:
+    entry 2p lists even contributions only, entry 2p + 1 targets the next
+    flat slot and lists each of 2p's plus one, in the same order.
+    """
+    ptr, src, dst = (np.asarray(a, dtype=np.int64) for a in (ptr, src, dst))
+    counts = np.diff(ptr)
+    if dst.size % 2 or ptr.size != dst.size + 1:
+        raise ValueError(f"coarse CSR: {dst.size} entries, not sibling pairs")
+    second = np.repeat(np.arange(dst.size) % 2 == 1, counts)
+    first_src, second_src = src[: ptr[-1]][~second], src[: ptr[-1]][second]
+    if (np.any(counts[0::2] != counts[1::2]) or np.any(dst[1::2] != dst[0::2] + 1)
+            or np.any(first_src % 2) or np.any(second_src != first_src + 1)):
+        raise ValueError("coarse CSR: an entry has no sibling (row, 2b + 1) "
+                         "listing its contributions plus one")
 
 
 def tables_from_aggregation(mesh: TriMesh, agg: np.ndarray,

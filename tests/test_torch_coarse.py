@@ -36,6 +36,7 @@ from manifold_flow_tpu_torch import compute_velocity_fields, mesh_from_jax_array
 from manifold_flow_tpu_torch.convert import coarse_tables_from_jax_arrays
 from manifold_flow_tpu_torch.fem.operator import make_operator
 from manifold_flow_tpu_torch.geometry import synthetic as torch_synthetic
+from manifold_flow_tpu_torch.kernels import coarse as kco
 from manifold_flow_tpu_torch.solve import api, coarse, refine
 from manifold_flow_tpu_torch.solve.api import build_rhs
 from manifold_flow_tpu_torch.solve.cg import solve_cg
@@ -94,6 +95,51 @@ def test_tables_from_jax_check_their_mesh(jmesh, port_mesh):  # noqa: F811
             {"agg": np.asarray(jt.agg), "seeds": np.asarray(jt.seeds),
              "members": np.asarray(jt.members)[:, :-1], "n_coarse": jt.n_coarse},
             port_mesh)
+
+
+def _break_odd_count(ptr, src, dst):
+    return ptr[:-1], src, dst[:-1]
+
+
+def _break_sizes(ptr, src, dst):
+    ptr = ptr.copy()
+    ptr[1] -= 1     # entry 0 gives its last contribution to entry 1
+    return ptr, src, dst
+
+
+def _break_target(ptr, src, dst):
+    dst = dst.copy()
+    dst[1] += 2
+    return ptr, src, dst
+
+
+def _break_parity(ptr, src, dst):
+    src = src.copy()
+    src[ptr[0]:ptr[2]] = src[ptr[1]:ptr[2]].tolist() + src[ptr[0]:ptr[1]].tolist()
+    return ptr, src, dst
+
+
+def _break_order(ptr, src, dst):
+    src = src.copy()
+    lo, hi = ptr[1], ptr[2]
+    src[lo:hi] = src[lo:hi][::-1]
+    return ptr, src, dst
+
+
+@pytest.mark.parametrize("broken", [None, _break_odd_count, _break_sizes,
+                                    _break_target, _break_parity, _break_order])
+def test_assembly_csr_lists_sibling_pairs(tmesh, broken):  # noqa: F811
+    """K8 serves entries 2p and 2p + 1 from 2p's list: the builder's CSR
+    holds that layout, and any table that breaks it is refused."""
+    tables = coarse.build_tables(tmesh, passes=1)
+    ptr, src, dst = (getattr(tables, k).numpy() for k in ("asm_ptr", "asm_src", "asm_dst"))
+    assert np.diff(ptr)[0] > 1 and dst.size % 2 == 0
+    if broken is None:
+        coarse.check_sibling_pairs(ptr, src, dst)
+        assert np.array_equal(src[ptr[1]:ptr[2]], src[ptr[0]:ptr[1]] + 1)
+    else:
+        with pytest.raises(ValueError, match="coarse CSR"):
+            coarse.check_sibling_pairs(*broken(ptr, src, dst))
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -270,3 +316,15 @@ def test_unsupported_coarse_a1_is_rejected(port_mesh, wave, a1):
                        else "unknown coarse_a1"):
         compute_velocity_fields(port_mesh, pot, times, precond="two_level",
                                 coarse_a1=a1)
+
+
+def test_coarse_assemble_refuses_an_odd_entry_count():
+    """K8's wrapper takes the CSR in sibling pairs only: an odd entry count
+    raises before any launch or plain sum."""
+    f64 = torch.float64
+    args = (torch.zeros(1, 1, 3, 2, dtype=f64), torch.zeros(1, 6, 6, dtype=f64),
+            torch.zeros(3, 2, 2, dtype=f64), torch.tensor([[0, 1, 2]], dtype=torch.int32),
+            torch.ones(1, dtype=f64), LAMBDA, torch.tensor([0, 36], dtype=torch.int32),
+            torch.arange(36, dtype=torch.int32), torch.tensor([0], dtype=torch.int32), 1)
+    with pytest.raises(ValueError, match="not sibling pairs"):
+        kco.coarse_assemble(*args)

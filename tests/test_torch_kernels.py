@@ -40,6 +40,7 @@ from manifold_flow_tpu_torch.pipeline import stages
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve import coarse
 from manifold_flow_tpu_torch.solve.api import build_rhs
+from tests.torch_rings import synthetic_rings
 
 pytestmark = pytest.mark.cuda
 
@@ -434,29 +435,26 @@ ENTRY_SIZES = (1, 31, 32, 33)
 
 
 def _ragged_assembly(device, dtype, t, seed):
-    """coarse_assemble's inputs on random tables whose CSR entries list 1,
-    31, 32 and 33 even contributions in turn (fewer, as many and more than
-    a warp's lanes), each ascending. Every other entry is followed by its
-    y = 1 sibling (the same contributions plus one: a pair that K8 serves
-    with one warp); the other entries' siblings come last, descending, so
-    they pair with nothing. The targets are distinct random slots of a
-    (24, 24) coarse matrix."""
+    """coarse_assemble's inputs on random tables in sibling pairs whose first
+    entries list 1, 31, 32 and 33 even contributions in turn (fewer, as many
+    and more than a warp's lanes), each ascending, and whose second entries
+    list the same plus one. The pairs target distinct random slots (2b,
+    2b + 1) of a row of a (24, 24) coarse matrix."""
     rng = np.random.default_rng(seed)
     m, n, n_coarse = 40, 30, 12
     triangles = np.stack([rng.choice(n, 3, replace=False) for _ in range(m)])
     even = rng.permutation(np.arange(0, 36 * m, 2))
-    lists, apart, k, i = [], [], 0, 0
+    lists, k, i = [], 0, 0
     while k < even.size:
-        chunk = np.sort(even[k:k + ENTRY_SIZES[(i // 2) % 4]])
+        chunk = np.sort(even[k:k + ENTRY_SIZES[i % 4]])
         k += chunk.size
-        lists.append(chunk)
-        (lists if i % 2 == 0 else apart).append(chunk + 1 if i % 2 == 0
-                                                else chunk[::-1] + 1)
+        lists += [chunk, chunk + 1]
         i += 1
-    lists += apart
     ptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
     src = np.concatenate(lists)
-    dst = rng.choice((2 * n_coarse) ** 2, len(lists), replace=False)
+    first = 2 * rng.choice((2 * n_coarse) ** 2 // 2, len(lists) // 2, replace=False)
+    dst = np.stack([first, first + 1], axis=1).reshape(-1)
+    coarse.check_sibling_pairs(ptr, src, dst)
 
     def arr(x, dt):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
@@ -471,8 +469,8 @@ def _ragged_assembly(device, dtype, t, seed):
 @pytest.mark.parametrize("t", [1, 3, 97])
 @pytest.mark.parametrize("mean", [False, True], ids=["full", "mean"])
 def test_coarse_assemble_matches_plain_on_ragged_entries(cuda, dtype, t, mean):
-    """K8 with entries of 1, 31, 32 and 33 contributions, alone and in y
-    pairs, frame counts that are no multiple of its frames a warp, and in
+    """K8 with sibling pairs of entries of 1, 31, 32 and 33 contributions,
+    frame counts that are no multiple of its frames a warp, and in
     'mean' mode: one launch a call, within TOL of the plain version, two
     calls bitwise equal."""
     args = _ragged_assembly(cuda, dtype, t, seed=50 + t)
@@ -722,53 +720,6 @@ def test_winding_kernel_matches_plain(cuda, dtype):
     got = _launched("winding_profile", dtype, lambda: kwi.winding_profile(*args))
     _assert_same(got, kwi.plain_winding_profile(*args), dtype)
     assert got[0].shape == (6, v_world.shape[0]) and got[2].shape[-1] == 8
-
-
-RING_SIZES = (0, 1, 2, 31, 32, 33, 300)
-
-
-def synthetic_rings(device, dtype, levels, seed=0):
-    """Ring tables (order, bounds, e1, e2) of three centers whose rings hold
-    0, 1, 2, 31, 32, 33 and 300 members in turn (more than 2048 members a
-    row at 40 rings), every member its own vertex in shuffled order, and a
-    field v_world (3, N, 3): in frames 0 and 1 the directions turn once
-    anticlockwise along every ring of center 0, once clockwise along those
-    of center 1, at random around center 2, with noise and a normal part;
-    frame 2 is all zero."""
-    rng = np.random.default_rng(seed)
-    rows, bounds = [], []
-    for shift in (5, 3, 6):
-        sizes = [RING_SIZES[(r + shift) % len(RING_SIZES)] for r in range(levels)]
-        bounds.append(np.concatenate([[0], np.cumsum(sizes)]))
-        rows.append(sizes)
-    n = sum(int(b[-1]) for b in bounds) + 5
-    ids = rng.permutation(n)
-    basis = np.linalg.qr(rng.standard_normal((3, 3, 3)))[0]      # (U, 3, 3)
-    v = np.zeros((3, n, 3))
-    width = max(int(b[-1]) for b in bounds)
-    order = np.zeros((3, width), dtype=np.int32)
-    used = 0
-    for c, (sizes, b) in enumerate(zip(rows, bounds)):
-        row = ids[used:used + int(b[-1])]
-        used += int(b[-1])
-        order[c, :len(row)] = row
-        for size, lo in zip(sizes, b[:-1]):
-            j = np.arange(size)
-            for f in range(2):
-                turn = (1.0, -1.0)[c] if c < 2 else None
-                theta = (2 * np.pi * turn * j / max(size, 1)
-                         + 0.15 * rng.standard_normal(size) if turn is not None
-                         else rng.uniform(0, 2 * np.pi, size))
-                mag = 0.5 + rng.uniform(size=size)
-                v[f, row[lo:lo + size]] = (
-                    mag[:, None] * (np.cos(theta)[:, None] * basis[c, 0]
-                                    + np.sin(theta)[:, None] * basis[c, 1])
-                    + rng.uniform(-0.3, 0.3, (size, 1)) * basis[c, 2])
-
-    def arr(x, dt):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
-    return (arr(v, dtype), arr(order, torch.int32), arr(np.stack(bounds), torch.int32),
-            arr(basis[:, 0], dtype), arr(basis[:, 1], dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

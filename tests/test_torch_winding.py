@@ -23,8 +23,8 @@ from manifold_flow_tpu_torch import kernels, mesh_from_jax_arrays
 from manifold_flow_tpu_torch.geometry.topology import bfs_levels, closest_vertex
 from manifold_flow_tpu_torch.kernels import winding as kwi
 from manifold_flow_tpu_torch.ops import winding as wind
-from tests.test_torch_kernels import RING_SIZES, synthetic_rings
 from tests.torch_parity import jax_arrays
+from tests.torch_rings import RING_SIZES, synthetic_rings
 
 W_TOL = 1e-9
 LEVELS = 6
