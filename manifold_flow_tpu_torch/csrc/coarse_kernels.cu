@@ -136,8 +136,8 @@ __device__ __forceinline__ Fixed<T> load_fixed(int s, const T* __restrict__ r_bl
 // sum_{a,b} R_c[a][x] B2[(c,a),(c2,b)] R_c2[b][y] (solve/coarse.py:299-304);
 // one warp per pair of entries, its lanes striding through the first
 // entry's CSR list, each lane summing both entries' terms.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int B>
+__global__ void __launch_bounds__(B)
     coarse_a2_kernel(const T* __restrict__ blocks2, const T* __restrict__ r_blk,
                      const int* __restrict__ triangles, const T* __restrict__ w_scale,
                      const int* __restrict__ ptr, const int* __restrict__ src,
@@ -230,8 +230,8 @@ __device__ __forceinline__ void write_entry(T* __restrict__ out, const T (&acc)[
   }
 }
 
-template <typename T, int F>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int F, int B>
+__global__ void __launch_bounds__(B)
     assemble_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
                     const int* __restrict__ triangles,
                     const T* __restrict__ w_scale, const int* __restrict__ ptr,
@@ -285,8 +285,8 @@ __global__ void __launch_bounds__(kThreads)
 // entries; each lane sums every frame of its contribution in frame order for
 // both entries, the frame-independent part loaded once (Fixed) and each g
 // pair in one load, and the warp's sums are divided by the frame count.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int B>
+__global__ void __launch_bounds__(B)
     assemble_mean_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
                          const int* __restrict__ triangles,
                          const T* __restrict__ w_scale, const int* __restrict__ ptr,
@@ -628,6 +628,92 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int64_t kMaxGridY = 65535;
 
+// Threads a block of K8's kernels (one warp a pair of entries).
+constexpr int kAssembleThreads = 256;
+
+template <typename T, int F, int B>
+void launch_pairs(const void* g, const void* blocks2, const void* r_blk,
+                  const void* triangles, const void* w_scale, const void* ptr,
+                  const void* src, const void* dst, T lam, void* a2c, void* out,
+                  int64_t n_frames, int64_t m_tri, int64_t n_pairs, int64_t nc2,
+                  int64_t mean, cudaStream_t s) {
+  const unsigned int blocks = static_cast<unsigned int>((n_pairs * 32 + B - 1) / B);
+  coarse_a2_kernel<T, B><<<blocks, B, 0, s>>>(
+      static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
+      static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+      static_cast<const int*>(ptr), static_cast<const int*>(src),
+      static_cast<T*>(a2c), n_pairs);
+  if (mean) {
+    assemble_mean_kernel<T, B><<<blocks, B, 0, s>>>(
+        static_cast<const T*>(g), static_cast<const T*>(r_blk),
+        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+        static_cast<const int*>(ptr), static_cast<const int*>(src),
+        static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+        static_cast<T*>(out), n_frames, m_tri, n_pairs);
+  } else {
+    const dim3 grid(blocks, static_cast<unsigned int>((n_frames + F - 1) / F));
+    assemble_kernel<T, F, B><<<grid, B, 0, s>>>(
+        static_cast<const T*>(g), static_cast<const T*>(r_blk),
+        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+        static_cast<const int*>(ptr), static_cast<const int*>(src),
+        static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+        static_cast<T*>(out), n_frames, m_tri, n_pairs, nc2 * nc2);
+  }
+}
+
+template <typename T, int F>
+void launch_threads(int64_t threads, const void* g, const void* blocks2,
+                    const void* r_blk, const void* triangles, const void* w_scale,
+                    const void* ptr, const void* src, const void* dst, T lam,
+                    void* a2c, void* out, int64_t n_frames, int64_t m_tri,
+                    int64_t n_pairs, int64_t nc2, int64_t mean, cudaStream_t s) {
+  switch (threads) {
+    case 32:
+      launch_pairs<T, F, 32>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
+                             a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
+      break;
+    case 64:
+      launch_pairs<T, F, 64>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
+                             a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
+      break;
+    case 128:
+      launch_pairs<T, F, 128>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
+                              a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
+      break;
+    default:
+      launch_pairs<T, F, 256>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
+                              a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
+  }
+}
+
+template <typename T>
+int coarse_assemble_with(const void* g, const void* blocks2, const void* r_blk,
+                         const void* triangles, const void* w_scale,
+                         const void* ptr, const void* src, const void* dst,
+                         double lambda, void* a2c, void* out, int64_t n_frames,
+                         int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
+                         int64_t frames, int64_t threads, void* stream) {
+  const bool ok_f = frames == 2 || frames == 4;
+  const bool ok_b = threads == 32 || threads == 64 || threads == 128 || threads == 256;
+  const int64_t groups = mean ? 1 : (n_frames + frames - 1) / frames;
+  if (!ok_f || !ok_b || groups > kMaxGridY || nnz % 2 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t n_pairs = nnz / 2;
+  if (n_pairs > 0 && n_frames > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T lam = static_cast<T>(lambda);
+    if (frames == 2) {
+      launch_threads<T, 2>(threads, g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
+                           lam, a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
+    } else {
+      launch_threads<T, 4>(threads, g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
+                           lam, a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
                     const void* triangles, const void* w_scale,
@@ -635,37 +721,9 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
                     double lambda, void* a2c, void* out, int64_t n_frames,
                     int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
                     void* stream) {
-  constexpr int F = kAssembleFrames<T>;
-  const int64_t groups = mean ? 1 : (n_frames + F - 1) / F;
-  if (groups > kMaxGridY || nnz % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_pairs = nnz / 2;
-  if (n_pairs > 0 && n_frames > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const T lam = static_cast<T>(lambda);
-    const unsigned int blocks = blocks_for(n_pairs * 32);
-    coarse_a2_kernel<T><<<blocks, kThreads, 0, s>>>(
-        static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
-        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-        static_cast<const int*>(ptr), static_cast<const int*>(src),
-        static_cast<T*>(a2c), n_pairs);
-    if (mean) {
-      assemble_mean_kernel<T><<<blocks, kThreads, 0, s>>>(
-          static_cast<const T*>(g), static_cast<const T*>(r_blk),
-          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-          static_cast<const int*>(ptr), static_cast<const int*>(src),
-          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
-          static_cast<T*>(out), n_frames, m_tri, n_pairs);
-    } else {
-      const dim3 grid(blocks, static_cast<unsigned int>(groups));
-      assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
-          static_cast<const T*>(g), static_cast<const T*>(r_blk),
-          static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-          static_cast<const int*>(ptr), static_cast<const int*>(src),
-          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
-          static_cast<T*>(out), n_frames, m_tri, n_pairs, nc2 * nc2);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
+                                 lambda, a2c, out, n_frames, m_tri, nnz, nc2, mean,
+                                 kAssembleFrames<T>, kAssembleThreads, stream);
 }
 
 // The previous K8 (a scratch of pair marks, lone entries allowed), kept to
@@ -963,6 +1021,17 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
     return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
                                   src, dst, lambda, a2c, out, n_frames, m_tri, \
                                   nnz, nc2, mean, stream);                     \
+  }                                                                            \
+  extern "C" int mf_coarse_assemble_variant_##SUFFIX(                          \
+      const void* g, const void* blocks2, const void* r_blk,                   \
+      const void* triangles, const void* w_scale, const void* ptr,             \
+      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
+      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
+      int64_t frames, int64_t threads, void* stream) {                         \
+    return mf::coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale,  \
+                                       ptr, src, dst, lambda, a2c, out,        \
+                                       n_frames, m_tri, nnz, nc2, mean, frames,\
+                                       threads, stream);                       \
   }                                                                            \
   extern "C" int mf_coarse_assemble_lead_##SUFFIX(                             \
       const void* g, const void* blocks2, const void* r_blk,                   \
