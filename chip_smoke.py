@@ -665,106 +665,6 @@ def restriction_coo(r_blk, members) -> torch.Tensor:
     return coo.coalesce()
 
 
-def against_lead_assemble(card: str, asm) -> None:
-    """K8 pair-only against the previous K8 (pair marks found on the card,
-    lone entries allowed), on the same inputs: out bitwise in full and
-    'mean' mode, device times in turns (this, previous, previous, this)."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import coarse as kco
-    from manifold_flow_tpu_torch.kernels import library
-
-    g, blocks2, r_blk, triangles, w_scale, lam, ptr, src, dst, n_coarse = asm
-    dtype = g.dtype
-    fn = getattr(library(), f"mf_coarse_assemble_lead_{'f32' if dtype == torch.float32 else 'f64'}")
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    fn.argtypes = [p] * 8 + [d] + [p] * 3 + [i] * 5 + [p]
-    fn.restype = ctypes.c_int
-    t, m = g.shape[0], g.shape[1]
-    nc2, nnz = 2 * n_coarse, dst.shape[0]
-
-    def lead(mean):
-        def run():
-            out = torch.zeros((1 if mean else t, nc2, nc2), dtype=dtype, device=g.device)
-            a2c = torch.empty(nnz, dtype=dtype, device=g.device)
-            marks = torch.empty(nnz, dtype=torch.int32, device=g.device)
-            err = fn(g.data_ptr(), blocks2.data_ptr(), r_blk.data_ptr(),
-                     triangles.data_ptr(), w_scale.data_ptr(), ptr.data_ptr(),
-                     src.data_ptr(), dst.data_ptr(), float(lam), a2c.data_ptr(),
-                     marks.data_ptr(), out.data_ptr(), t, m, nnz, nc2, int(mean),
-                     torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"previous coarse_assemble failed: CUDA error {err}")
-            return out
-        return run
-
-    def this(mean):
-        return lambda: kco.coarse_assemble(*asm, mean=mean)
-    same = [torch.equal(this(mean)(), lead(mean)()) for mean in (False, True)]
-    us = [device_us(fn_, mine=own_kernel)
-          for fn_ in (this(False), lead(False), lead(False), this(False))]
-    mean_us = [device_us(fn_, mine=own_kernel)
-               for fn_ in (this(True), lead(True), lead(True), this(True))]
-    ctype = "float" if dtype == torch.float32 else "double"
-    print(f"[parent] coarse_assemble<{ctype}>@12.5k: pair-only out bitwise equal to the "
-          f"previous kernel's (full, mean): {same}; device {fmt_us(us[0])} / "
-          f"{fmt_us(us[3])} against previous {fmt_us(us[1])} / {fmt_us(us[2])} (in turns); "
-          f"mean {fmt_us(mean_us[0])} / {fmt_us(mean_us[3])} against {fmt_us(mean_us[1])} / "
-          f"{fmt_us(mean_us[2])}; on {card}", flush=True)
-    if not all(same):
-        raise AssertionError(f"coarse_assemble<{ctype}>: pair-only and previous differ")
-    sweep_assemble(card, asm, lead(False)(), lead(True)())
-
-
-def sweep_assemble(card: str, asm, want, want_mean) -> None:
-    """K8 pair-only at threads a block 32, 64, 128, 256 and frames a warp 2,
-    4 (full) and at each block size ('mean'): out bitwise equal to the
-    previous kernel's (`want`, `want_mean`), device times in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import library
-
-    g, blocks2, r_blk, triangles, w_scale, lam, ptr, src, dst, n_coarse = asm
-    dtype = g.dtype
-    fn = getattr(library(), f"mf_coarse_assemble_variant_{'f32' if dtype == torch.float32 else 'f64'}")
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    fn.argtypes = [p] * 8 + [d] + [p] * 2 + [i] * 7 + [p]
-    fn.restype = ctypes.c_int
-    t, m = g.shape[0], g.shape[1]
-    nc2, nnz = 2 * n_coarse, dst.shape[0]
-
-    def call(frames, threads, mean=False):
-        def run():
-            out = torch.zeros((1 if mean else t, nc2, nc2), dtype=dtype, device=g.device)
-            a2c = torch.empty(nnz, dtype=dtype, device=g.device)
-            err = fn(g.data_ptr(), blocks2.data_ptr(), r_blk.data_ptr(),
-                     triangles.data_ptr(), w_scale.data_ptr(), ptr.data_ptr(),
-                     src.data_ptr(), dst.data_ptr(), float(lam), a2c.data_ptr(),
-                     out.data_ptr(), t, m, nnz, nc2, int(mean), frames, threads,
-                     torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"coarse_assemble variant failed: CUDA error {err}")
-            return out
-        return run
-
-    configs = [(f, b) for f in (2, 4) for b in (32, 64, 128, 256)]
-    equal = all(torch.equal(call(f, b)(), want) for f, b in configs) and all(
-        torch.equal(call(2, b, True)(), want_mean) for b in (32, 64, 128, 256))
-    runs = configs + configs[::-1]
-    us = [device_us(call(f, b), mine=own_kernel) for f, b in runs]
-    full = {c: (a, b) for c, a, b in zip(configs, us[:8], us[::-1][:8])}
-    means = [(b, device_us(call(2, b, True), mine=own_kernel)) for b in (32, 64, 128, 256, 256, 128, 64, 32)]
-    mean_of = {b: [u for bb, u in means if bb == b] for b in (32, 64, 128, 256)}
-    ctype = "float" if dtype == torch.float32 else "double"
-    print(f"[sweep] coarse_assemble<{ctype}>@12.5k pair-only, frames a warp F x threads a "
-          f"block B, bitwise equal to the previous kernel: {equal}; "
-          + ", ".join(f"F={f} B={b} {fmt_us(x)} / {fmt_us(y)}" for (f, b), (x, y) in full.items())
-          + "; mean " + ", ".join(f"B={b} {fmt_us(x)} / {fmt_us(y)}" for b, (x, y) in mean_of.items())
-          + f"; on {card}", flush=True)
-    if not equal:
-        raise AssertionError(f"coarse_assemble<{ctype}>: a variant differs")
-
-
 def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
                    suffix: str = "") -> None:
     """K8 against its plain version on the operator `op` (its dtype), timed
@@ -791,8 +691,6 @@ def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
     print(f"[kernels] {key}: zeroing its ({t}, {nc2}, {nc2}) output (torch.zeros) "
           f"takes {fmt_us(zeros_us)} of device time, the kernel "
           f"{fmt_us(checks.rows[key]['device_us'])}; on {checks.card}", flush=True)
-    if not suffix:
-        against_lead_assemble(checks.card, asm)
 
 
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:

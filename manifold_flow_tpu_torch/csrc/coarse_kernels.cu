@@ -27,11 +27,11 @@
 //       (frame, entry): the frame-independent half of each contribution
 //       (the CSR list, the corners, R_v, the area) came again for each of
 //       the 97 frames, one dependent chain in flight a lane (522 us on the
-//       card). This design gives a warp one entry, or a pair of sibling
-//       entries (y = 0 and 1) that share their contributions, for a group
-//       of frames: that half loads once a group and each g pair once for
-//       both entries, then the group's g pairs go out together (246 us).
-//       See assemble_kernel.
+//       card). This design gives a warp a pair of sibling entries (y = 0
+//       and 1, which list the same contributions) for a group of frames, in
+//       blocks of two warps: that half loads once a group and each g pair
+//       once for both entries, then the group's g pairs go out together
+//       (211 us). See assemble_kernel.
 //   K9  per PCG iteration: reads r (9.7 MB, 3.0 us at 3.35 TB/s), gathered
 //       by member. Its first design ran a warp per (frame, aggregate): the
 //       frame-independent members (50 KB) and R_v (200 KB) came again from
@@ -101,6 +101,18 @@ __device__ __forceinline__ void load_block(const double* rb, bool aligned, doubl
 // y = 1). assembly_csr checks this on the host. So a warp serves pair p,
 // entries 2p and 2p + 1, from e's list alone.
 //
+// Pairs differ in length (a diagonal entry lists several times the
+// contributions of the others), and a block holds its SM's slots until its
+// longest warp ends: small blocks waste fewer. Phases 1 and 2 run 64
+// threads a block, 'mean' 32 (ptxas then gives its frame loop more
+// registers). On the card at the 12.5k shapes, 32, 64, 128 and 256
+// threads: f32 phases 1 + 2 at F = 4 took 213.6-213.8, 210.8-211.1,
+// 220.5-221.2 and 304.0-304.1 us, f64 at F = 2 330.2-330.6, 313.3-313.6,
+// 324.3-327.5 and 446.1-447.2; 'mean' f32 510.6-513.5, 1001.7-1002.3,
+// 995.2-996.6 and 1004.7-1005.2.
+constexpr int kAssembleThreads = 64;
+constexpr int kMeanThreads = 32;
+
 // The frame-independent part of contribution s (y = 0) and of its sibling
 // s + 1: the triangle m, the corners c and c2, R_c's column x (R_c[0][x],
 // R_c[1][x]), the whole block R_c2 (R_c2[b][y] at rd[2b + y]) and the weight
@@ -136,8 +148,8 @@ __device__ __forceinline__ Fixed<T> load_fixed(int s, const T* __restrict__ r_bl
 // sum_{a,b} R_c[a][x] B2[(c,a),(c2,b)] R_c2[b][y] (solve/coarse.py:299-304);
 // one warp per pair of entries, its lanes striding through the first
 // entry's CSR list, each lane summing both entries' terms.
-template <typename T, int B>
-__global__ void __launch_bounds__(B)
+template <typename T>
+__global__ void __launch_bounds__(kAssembleThreads)
     coarse_a2_kernel(const T* __restrict__ blocks2, const T* __restrict__ r_blk,
                      const int* __restrict__ triangles, const T* __restrict__ w_scale,
                      const int* __restrict__ ptr, const int* __restrict__ src,
@@ -213,8 +225,10 @@ __device__ __forceinline__ void load_pair(const T* p, bool aligned, T& a, T& b) 
 // (frame, entry), the first design, then the fixed-order warp sum closes
 // it: the matrices are bitwise that design's. F = 16 / sizeof(T): 4 was the
 // fastest of 1, 2, 4, 8 in f32 (358-364, 263-265, 245-248, 490-494 us at
-// the 12.5k shapes on the card) and 2 in f64 (473-494, 404-410, 435-443,
-// 807-821).
+// the 12.5k shapes on the card, with 256 threads a block and lone entries
+// allowed) and 2 in f64 (473-494, 404-410, 435-443, 807-821); at 64
+// threads a block f32 took 243.4-243.7 us at F = 2 against 210.8-211.1 at
+// 4, f64 313.3-313.6 at 2 against 326.0-332.1 at 4.
 template <typename T>
 constexpr int kAssembleFrames = 16 / static_cast<int>(sizeof(T));
 
@@ -230,8 +244,8 @@ __device__ __forceinline__ void write_entry(T* __restrict__ out, const T (&acc)[
   }
 }
 
-template <typename T, int F, int B>
-__global__ void __launch_bounds__(B)
+template <typename T, int F>
+__global__ void __launch_bounds__(kAssembleThreads)
     assemble_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
                     const int* __restrict__ triangles,
                     const T* __restrict__ w_scale, const int* __restrict__ ptr,
@@ -285,8 +299,8 @@ __global__ void __launch_bounds__(B)
 // entries; each lane sums every frame of its contribution in frame order for
 // both entries, the frame-independent part loaded once (Fixed) and each g
 // pair in one load, and the warp's sums are divided by the frame count.
-template <typename T, int B>
-__global__ void __launch_bounds__(B)
+template <typename T>
+__global__ void __launch_bounds__(kMeanThreads)
     assemble_mean_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
                          const int* __restrict__ triangles,
                          const T* __restrict__ w_scale, const int* __restrict__ ptr,
@@ -628,92 +642,6 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int64_t kMaxGridY = 65535;
 
-// Threads a block of K8's kernels (one warp a pair of entries).
-constexpr int kAssembleThreads = 256;
-
-template <typename T, int F, int B>
-void launch_pairs(const void* g, const void* blocks2, const void* r_blk,
-                  const void* triangles, const void* w_scale, const void* ptr,
-                  const void* src, const void* dst, T lam, void* a2c, void* out,
-                  int64_t n_frames, int64_t m_tri, int64_t n_pairs, int64_t nc2,
-                  int64_t mean, cudaStream_t s) {
-  const unsigned int blocks = static_cast<unsigned int>((n_pairs * 32 + B - 1) / B);
-  coarse_a2_kernel<T, B><<<blocks, B, 0, s>>>(
-      static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
-      static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-      static_cast<const int*>(ptr), static_cast<const int*>(src),
-      static_cast<T*>(a2c), n_pairs);
-  if (mean) {
-    assemble_mean_kernel<T, B><<<blocks, B, 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(r_blk),
-        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-        static_cast<const int*>(ptr), static_cast<const int*>(src),
-        static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
-        static_cast<T*>(out), n_frames, m_tri, n_pairs);
-  } else {
-    const dim3 grid(blocks, static_cast<unsigned int>((n_frames + F - 1) / F));
-    assemble_kernel<T, F, B><<<grid, B, 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(r_blk),
-        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
-        static_cast<const int*>(ptr), static_cast<const int*>(src),
-        static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
-        static_cast<T*>(out), n_frames, m_tri, n_pairs, nc2 * nc2);
-  }
-}
-
-template <typename T, int F>
-void launch_threads(int64_t threads, const void* g, const void* blocks2,
-                    const void* r_blk, const void* triangles, const void* w_scale,
-                    const void* ptr, const void* src, const void* dst, T lam,
-                    void* a2c, void* out, int64_t n_frames, int64_t m_tri,
-                    int64_t n_pairs, int64_t nc2, int64_t mean, cudaStream_t s) {
-  switch (threads) {
-    case 32:
-      launch_pairs<T, F, 32>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
-                             a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
-      break;
-    case 64:
-      launch_pairs<T, F, 64>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
-                             a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
-      break;
-    case 128:
-      launch_pairs<T, F, 128>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
-                              a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
-      break;
-    default:
-      launch_pairs<T, F, 256>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst, lam,
-                              a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
-  }
-}
-
-template <typename T>
-int coarse_assemble_with(const void* g, const void* blocks2, const void* r_blk,
-                         const void* triangles, const void* w_scale,
-                         const void* ptr, const void* src, const void* dst,
-                         double lambda, void* a2c, void* out, int64_t n_frames,
-                         int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
-                         int64_t frames, int64_t threads, void* stream) {
-  const bool ok_f = frames == 2 || frames == 4;
-  const bool ok_b = threads == 32 || threads == 64 || threads == 128 || threads == 256;
-  const int64_t groups = mean ? 1 : (n_frames + frames - 1) / frames;
-  if (!ok_f || !ok_b || groups > kMaxGridY || nnz % 2 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t n_pairs = nnz / 2;
-  if (n_pairs > 0 && n_frames > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const T lam = static_cast<T>(lambda);
-    if (frames == 2) {
-      launch_threads<T, 2>(threads, g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
-                           lam, a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
-    } else {
-      launch_threads<T, 4>(threads, g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
-                           lam, a2c, out, n_frames, m_tri, n_pairs, nc2, mean, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
                     const void* triangles, const void* w_scale,
@@ -721,231 +649,37 @@ int coarse_assemble(const void* g, const void* blocks2, const void* r_blk,
                     double lambda, void* a2c, void* out, int64_t n_frames,
                     int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean,
                     void* stream) {
-  return coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale, ptr, src, dst,
-                                 lambda, a2c, out, n_frames, m_tri, nnz, nc2, mean,
-                                 kAssembleFrames<T>, kAssembleThreads, stream);
-}
-
-// The previous K8 (a scratch of pair marks, lone entries allowed), kept to
-// compare the pair-only kernels with it on the card.
-// K8, phase 1: the frame-independent a2 part of every non-zero coarse entry,
-// a2c[e] = sum over the entry's contributions of
-// sum_{a,b} R_c[a][x] B2[(c,a),(c2,b)] R_c2[b][y] (solve/coarse.py:299-304);
-// one warp per entry, its lanes striding through the entry's CSR list.
-// It also marks the pairs phase 2 serves with one warp: lead[e] = 1 when
-// entry e + 1 lists as many contributions as e, each one of e's plus one,
-// and all of e's are even (y = 0; e + 1's are then the same (m, c, x, c2)
-// with y = 1). The tables list the entries (row, 2b) and (row, 2b + 1) so.
-// No entry can both lead and follow: a follower's contributions are odd.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lead_a2_kernel(const T* __restrict__ blocks2, const T* __restrict__ r_blk,
-                     const int* __restrict__ triangles,
-                     const int* __restrict__ ptr, const int* __restrict__ src,
-                     T* __restrict__ a2c, int* __restrict__ lead, int64_t nnz) {
-  const int64_t e = global_index() >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= nnz) return;  // uniform across the warp
-  bool pairs = false;
-  if (e + 1 < nnz && ptr[e + 2] - ptr[e + 1] == ptr[e + 1] - ptr[e]) {
-    bool ok = true;
-    for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
-      const int s = src[k];
-      ok = ok && (s & 1) == 0 && src[k + ptr[e + 1] - ptr[e]] == s + 1;
-    }
-    pairs = __all_sync(0xffffffffu, ok);
-  }
-  if (lane == 0) lead[e] = pairs ? 1 : 0;
-  T acc = T(0);
-  for (int k = ptr[e] + lane; k < ptr[e + 1]; k += 32) {
-    const Contribution q = decode(src[k]);
-    const T* rc = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c]);
-    const T* rd = r_blk + 4 * static_cast<int64_t>(triangles[3 * q.m + q.c2]);
-    const T* b = blocks2 + 36 * q.m + (2 * q.c) * 6 + 2 * q.c2;
-    T v = T(0);
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-#pragma unroll
-      for (int bb = 0; bb < 2; ++bb) {
-        v += rc[2 * a + q.x] * b[a * 6 + bb] * rd[2 * bb + q.y];
-      }
-    }
-    acc += v;
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) a2c[e] = acc;
-}
-
-// The frame-independent part of one contribution ('mean' mode).
-template <typename T>
-struct LeadFixed {
-  int64_t m;
-  int c, c2;
-  T rc0, rc2, rd0, rd2, w;
-};
-
-template <typename T>
-__device__ __forceinline__ LeadFixed<T> lead_load_fixed(const Contribution& q,
-                                               const T* __restrict__ r_blk,
-                                               const int* __restrict__ triangles,
-                                               const T* __restrict__ w_scale) {
-  const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
-  const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
-  const T* rc = r_blk + 4 * vc;
-  const T* rd = r_blk + 4 * vd;
-  return {q.m, q.c, q.c2, __ldg(rc + q.x), __ldg(rc + 2 + q.x), __ldg(rd + q.y),
-          __ldg(rd + 2 + q.y), (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m)};
-}
-
-template <typename T, int F>
-__global__ void __launch_bounds__(kThreads)
-    lead_assemble_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
-                    const int* __restrict__ triangles,
-                    const T* __restrict__ w_scale, const int* __restrict__ ptr,
-                    const int* __restrict__ src, const int* __restrict__ dst,
-                    const T* __restrict__ a2c, const int* __restrict__ lead,
-                    T lambda, T* __restrict__ out, int64_t n_frames, int64_t m_tri,
-                    int64_t nnz, int64_t nc2sq) {
-  const int64_t e = global_index() >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= nnz) return;  // uniform across the warp
-  if (e > 0 && __ldg(lead + e - 1)) return;  // the pair's first warp serves it
-  const bool pair = __ldg(lead + e);
-  const int64_t t0 = static_cast<int64_t>(blockIdx.y) * F;
-  const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
-  const bool r_aligned = (reinterpret_cast<uintptr_t>(r_blk) & 15) == 0;
-  T acc[F], acc1[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = acc1[f] = T(0);
-  const int k1 = __ldg(ptr + e + 1);
-  for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
-    const Contribution q = decode(__ldg(src + k));
-    const int64_t vc = __ldg(triangles + 3 * q.m + q.c);
-    const int64_t vd = __ldg(triangles + 3 * q.m + q.c2);
-    const T rc0 = __ldg(r_blk + 4 * vc + q.x), rc2 = __ldg(r_blk + 4 * vc + 2 + q.x);
-    T rd[4];  // R_d[0][y], R_d[1][y] at rd[0], rd[2]; with a pair all of R_d
-    if (pair) {
-      load_block(r_blk + 4 * vd, r_aligned, rd);
-    } else {
-      rd[0] = __ldg(r_blk + 4 * vd + q.y);
-      rd[2] = __ldg(r_blk + 4 * vd + 2 + q.y);
-      rd[1] = rd[3] = T(0);
-    }
-    const T w = (q.c == q.c2 ? T(2) : T(1)) * __ldg(w_scale + q.m);
-    T ga[F], gb[F], gc[F], gd[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      ga[f] = gb[f] = gc[f] = gd[f] = T(0);
-      if (t0 + f < n_frames) {
-        const T* gm = g + ((t0 + f) * m_tri + q.m) * 6;
-        load_pair(gm + 2 * q.c, aligned, ga[f], gb[f]);
-        load_pair(gm + 2 * q.c2, aligned, gc[f], gd[f]);
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const T cf = ga[f] * rc0 + gb[f] * rc2;
-      T s = T(0);
-      s += cf * (gc[f] * rd[0] + gd[f] * rd[2]);
-      acc[f] += s * w;
-      if (pair) {
-        T s1 = T(0);
-        s1 += cf * (gc[f] * rd[1] + gd[f] * rd[3]);
-        acc1[f] += s1 * w;
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    acc[f] = warp_sum(acc[f]);
-    if (pair) acc1[f] = warp_sum(acc1[f]);
-  }
-  if (lane != 0) return;
-  const T a2 = a2c[e];
-  const int64_t d = __ldg(dst + e);
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + d] = acc[f] + lambda * a2;
-  }
-  if (!pair) return;
-  const T a2n = a2c[e + 1];
-  const int64_t dn = __ldg(dst + e + 1);
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    if (t0 + f < n_frames) out[(t0 + f) * nc2sq + dn] = acc1[f] + lambda * a2n;
-  }
-}
-
-// K8's phase 2 in 'mean' mode (one shared matrix): one warp per entry; each
-// lane sums every frame of its contribution in frame order, the
-// frame-independent part loaded once and each g pair in one load, and the
-// warp's sum is divided by the frame count.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lead_mean_kernel(const T* __restrict__ g, const T* __restrict__ r_blk,
-                         const int* __restrict__ triangles,
-                         const T* __restrict__ w_scale, const int* __restrict__ ptr,
-                         const int* __restrict__ src, const int* __restrict__ dst,
-                         const T* __restrict__ a2c, T lambda, T* __restrict__ out,
-                         int64_t n_frames, int64_t m_tri, int64_t nnz) {
-  const int64_t e = global_index() >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= nnz) return;  // uniform across the warp
-  const bool aligned = (reinterpret_cast<uintptr_t>(g) & (2 * sizeof(T) - 1)) == 0;
-  T acc = T(0);
-  const int k1 = __ldg(ptr + e + 1);
-  for (int k = __ldg(ptr + e) + lane; k < k1; k += 32) {
-    const LeadFixed<T> p = lead_load_fixed(decode(__ldg(src + k)), r_blk, triangles, w_scale);
-    T s = T(0);
-    for (int64_t f = 0; f < n_frames; ++f) {
-      const T* gm = g + (f * m_tri + p.m) * 6;
-      T ga, gb, gc, gd;
-      load_pair(gm + 2 * p.c, aligned, ga, gb);
-      load_pair(gm + 2 * p.c2, aligned, gc, gd);
-      s += (ga * p.rc0 + gb * p.rc2) * (gc * p.rd0 + gd * p.rd2);
-    }
-    acc += s * p.w;
-  }
-  acc = warp_sum(acc);
-  if (lane != 0) return;
-  acc /= static_cast<T>(n_frames);
-  out[__ldg(dst + e)] = acc + lambda * a2c[e];
-}
-
-template <typename T>
-int coarse_assemble_lead(const void* g, const void* blocks2, const void* r_blk,
-                    const void* triangles, const void* w_scale,
-                    const void* ptr, const void* src, const void* dst,
-                    double lambda, void* a2c, void* lead, void* out,
-                    int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,
-                    int64_t mean, void* stream) {
   constexpr int F = kAssembleFrames<T>;
   const int64_t groups = mean ? 1 : (n_frames + F - 1) / F;
-  if (groups > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
-  if (nnz > 0 && n_frames > 0) {
+  if (groups > kMaxGridY || nnz % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_pairs = nnz / 2;
+  if (n_pairs > 0 && n_frames > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const T lam = static_cast<T>(lambda);
-    lead_a2_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+    const int64_t n_threads = n_pairs * 32;
+    const auto blocks = [n_threads](int per) {
+      return static_cast<unsigned int>((n_threads + per - 1) / per);
+    };
+    coarse_a2_kernel<T><<<blocks(kAssembleThreads), kAssembleThreads, 0, s>>>(
         static_cast<const T*>(blocks2), static_cast<const T*>(r_blk),
-        static_cast<const int*>(triangles), static_cast<const int*>(ptr),
-        static_cast<const int*>(src), static_cast<T*>(a2c), static_cast<int*>(lead),
-        nnz);
+        static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
+        static_cast<const int*>(ptr), static_cast<const int*>(src),
+        static_cast<T*>(a2c), n_pairs);
     if (mean) {
-      lead_mean_kernel<T><<<blocks_for(nnz * 32), kThreads, 0, s>>>(
+      assemble_mean_kernel<T><<<blocks(kMeanThreads), kMeanThreads, 0, s>>>(
           static_cast<const T*>(g), static_cast<const T*>(r_blk),
           static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
           static_cast<const int*>(ptr), static_cast<const int*>(src),
           static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
-          static_cast<T*>(out), n_frames, m_tri, nnz);
+          static_cast<T*>(out), n_frames, m_tri, n_pairs);
     } else {
-      const dim3 grid(blocks_for(nnz * 32), static_cast<unsigned int>(groups));
-      lead_assemble_kernel<T, F><<<grid, kThreads, 0, s>>>(
+      const dim3 grid(blocks(kAssembleThreads), static_cast<unsigned int>(groups));
+      assemble_kernel<T, F><<<grid, kAssembleThreads, 0, s>>>(
           static_cast<const T*>(g), static_cast<const T*>(r_blk),
           static_cast<const int*>(triangles), static_cast<const T*>(w_scale),
           static_cast<const int*>(ptr), static_cast<const int*>(src),
-          static_cast<const int*>(dst), static_cast<const T*>(a2c),
-          static_cast<const int*>(lead), lam, static_cast<T*>(out), n_frames, m_tri,
-          nnz, nc2 * nc2);
+          static_cast<const int*>(dst), static_cast<const T*>(a2c), lam,
+          static_cast<T*>(out), n_frames, m_tri, n_pairs, nc2 * nc2);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -1021,28 +755,6 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
     return mf::coarse_assemble<T>(g, blocks2, r_blk, triangles, w_scale, ptr,  \
                                   src, dst, lambda, a2c, out, n_frames, m_tri, \
                                   nnz, nc2, mean, stream);                     \
-  }                                                                            \
-  extern "C" int mf_coarse_assemble_variant_##SUFFIX(                          \
-      const void* g, const void* blocks2, const void* r_blk,                   \
-      const void* triangles, const void* w_scale, const void* ptr,             \
-      const void* src, const void* dst, double lambda, void* a2c, void* out,   \
-      int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2, int64_t mean, \
-      int64_t frames, int64_t threads, void* stream) {                         \
-    return mf::coarse_assemble_with<T>(g, blocks2, r_blk, triangles, w_scale,  \
-                                       ptr, src, dst, lambda, a2c, out,        \
-                                       n_frames, m_tri, nnz, nc2, mean, frames,\
-                                       threads, stream);                       \
-  }                                                                            \
-  extern "C" int mf_coarse_assemble_lead_##SUFFIX(                             \
-      const void* g, const void* blocks2, const void* r_blk,                   \
-      const void* triangles, const void* w_scale, const void* ptr,             \
-      const void* src, const void* dst, double lambda, void* a2c, void* lead,  \
-      void* out, int64_t n_frames, int64_t m_tri, int64_t nnz, int64_t nc2,    \
-      int64_t mean, void* stream) {                                            \
-    return mf::coarse_assemble_lead<T>(g, blocks2, r_blk, triangles, w_scale,  \
-                                       ptr, src, dst, lambda, a2c, lead, out,  \
-                                       n_frames, m_tri, nnz, nc2, mean,        \
-                                       stream);                                \
   }                                                                            \
   extern "C" int mf_coarse_restrict_##SUFFIX(                                  \
       const void* r, const void* r_blk, const void* members, void* rc,         \

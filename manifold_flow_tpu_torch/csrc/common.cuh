@@ -1,7 +1,7 @@
 // Shared helpers for the package's CUDA kernels (built for sm_90a).
 //
-// Every kernel launches with kThreads threads per block on the caller's
-// stream. Reductions are deterministic: a fixed shuffle tree inside each warp,
+// Kernels launch on the caller's stream with kThreads threads per block (K8's
+// with fewer, coarse_kernels.cu kAssembleThreads). Reductions are deterministic: a fixed shuffle tree inside each warp,
 // then warp 0 sums the per-warp partials in warp order. No float atomics are
 // used anywhere, so results (and PCG iteration counts) repeat run to run.
 #pragma once

@@ -47,24 +47,26 @@ def coarse_assemble(g: torch.Tensor, blocks2: torch.Tensor, r_blk: torch.Tensor,
     (solve.coarse.check_sibling_pairs); the kernel reads the first's list
     for both.
 
-    Replaces solve/coarse.py:281 `coarse_matrices` with kernels/reduce.py:103
-    `apply_reduce` (B6), whose scatter-free plan exists because TPU scatter
-    serialises. Bound on the H100 (f32, 12.5k shapes) by its gathers: every
-    contribution of every frame reads two g pairs scattered over the
-    triangles, beside ~180 MB of device memory (g, the zeroed and written
-    output). Design: one warp per pair of sibling entries, first for the
-    a2 part (one launch), then for each group of 4 frames in f32, 2 in
-    f64: its lanes stride through the pair's CSR list, load each
-    contribution's frame-independent part (indices, R_v, area) once for
-    the group, then the group's g pairs (one 8- or 16-byte load each),
-    used by both entries, before the multiply-adds; the fixed-order warp
-    sum closes each entry and frame. The (T, M, 36) contributions (344 MB)
-    never reach memory and the sum is deterministic. The first design, a
-    warp per (frame, entry), loaded the frame-independent part again for
-    every frame and each g pair for each entry; the matrices are bitwise
-    that design's. `mean` runs one warp per pair over every frame. The
-    output is zeroed (`torch.zeros`) before the launch: the kernel writes
-    the ~3% of entries that are non-zero.
+    Replaces solve/coarse.py:281 `coarse_matrices` with
+    kernels/reduce.py:103 `apply_reduce` (B6), whose scatter-free plan
+    exists because TPU scatter serialises. Bound on the H100 (f32, 12.5k
+    shapes) by its gathers: every contribution of every frame reads two g
+    pairs scattered over the triangles, beside ~180 MB of device memory (g,
+    the zeroed and written output). Design: one warp per pair of sibling
+    entries, in blocks of two warps (pairs differ in length, and a block
+    keeps its SM's slots until its longest pair ends), first for the a2 part
+    (one launch), then for each group of 4 frames in f32, 2 in f64: its
+    lanes stride through the pair's CSR list, load each contribution's
+    frame-independent part (indices, R_v, area) once for the group, then the
+    group's g pairs (one 8- or 16-byte load each), used by both entries,
+    before the multiply-adds; the fixed-order warp sum closes each entry and
+    frame. The (T, M, 36) contributions (344 MB) never reach memory and the
+    sum is deterministic. The first design, a warp per (frame, entry),
+    loaded the frame-independent part again for every frame and each g pair
+    for each entry; the matrices are bitwise that design's. `mean` runs one
+    warp (and block) per pair over every frame. The output is zeroed
+    (`torch.zeros`) before the launch: the kernel writes the ~3% of entries
+    that are non-zero.
     """
     dtype = _float_dtype("g", g)
     t, m = g.shape[0], g.shape[1]
