@@ -129,7 +129,7 @@ def _break_order(ptr, src, dst):
 @pytest.mark.parametrize("broken", [None, _break_odd_count, _break_sizes,
                                     _break_target, _break_parity, _break_order])
 def test_assembly_csr_lists_sibling_pairs(tmesh, broken):  # noqa: F811
-    """K8 serves entries 2p and 2p + 1 from 2p's list: the builder's CSR
+    """K8 serves entries 2p and 2p + 1 from 2p's list: assembly_csr's CSR
     holds that layout, and any table that breaks it is refused."""
     tables = coarse.build_tables(tmesh, passes=1)
     ptr, src, dst = (getattr(tables, k).numpy() for k in ("asm_ptr", "asm_src", "asm_dst"))
