@@ -460,13 +460,7 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
         return torch.randn(*shape, generator=gen, dtype=torch.float64).to(dev, dtype)
 
     # K4 frame factors + RHS (f64, as the refined path runs it).
-    args = (pot, pot, times, mesh.triangles, mesh.grad_w, mesh.basis,
-            mesh.areas, assembly.gather_base_table(mesh))
-    checks.compare("frame_factors_rhs<double>", fem_cu,
-                   "manifold_flow_tpu/fem/assembly.py:61",
-                   lambda: kfem.frame_factors_rhs(*args),
-                   lambda: kfem.plain_frame_factors_rhs(*args), TOL_F64,
-                   inputs=args, ops=(pot.shape[0] - 1) * (75 * n_tri + 6 * n_vert))
+    check_rhs(checks, mesh, pot, times)
 
     g64, f64 = build_rhs(mesh, pot, times)
     t, n_dof = f64.shape
@@ -526,6 +520,175 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
 
 FEM_CU = "manifold_flow_tpu_torch/csrc/fem_kernels.cu"
 PCG_CU = "manifold_flow_tpu_torch/csrc/pcg_kernels.cu"
+
+
+def check_rhs(checks: KernelChecks, mesh, pot, times, suffix: str = "") -> None:
+    """K4 (f64, as the refined path runs it, on the mesh's cached tiles)
+    against its plain version. Its bound counts the bytes the function
+    needs: the movie (one tensor, read once), the mesh tables, g and f
+    written; not the local RHS its first design stored and read back."""
+    from manifold_flow_tpu_torch.fem import assembly
+    from manifold_flow_tpu_torch.kernels import fem as kfem
+
+    args = (pot, pot, times, mesh.triangles, mesh.grad_w, mesh.basis,
+            mesh.areas, assembly.gather_base_table(mesh))
+    tiles = assembly.mesh_cell_tiles(mesh)
+    n_tri, n_vert = mesh.n_triangles, mesh.n_vertices
+    checks.compare("frame_factors_rhs<double>" + suffix, FEM_CU,
+                   "manifold_flow_tpu/fem/assembly.py:61",
+                   lambda: kfem.frame_factors_rhs(*args, tiles),
+                   lambda: kfem.plain_frame_factors_rhs(*args), TOL_F64,
+                   inputs=args, ops=(pot.shape[0] - 1) * (75 * n_tri + 6 * n_vert),
+                   launches_key="frame_factors_rhs<double>")
+    for dtype in (torch.float64, torch.float32):
+        against_first_rhs(checks.card, tuple(
+            a.to(dtype) if a.is_floating_point() else a for a in args), tiles, suffix)
+
+
+def comparison_entry(name: str, suffix: str, argtypes):
+    """This build's entry point `name` of a design kept only for the
+    comparison (K4's and K14's first designs, their variants), with its
+    types; `suffix` is f32, f64 or i32."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import library
+
+    fn = getattr(library(), f"mf_{name}_{suffix}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def against_first_rhs(card: str, args, tiles, suffix: str) -> None:
+    """K4 against its first design (a thread per (frame, triangle) writing g
+    and the local RHS, then a second launch summing it per vertex) on the
+    same inputs: g and f bitwise, device times in turns; then the new design
+    at F = 1, 2, 4 frames a block, each bitwise equal too, in turns."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import fem as kfem
+
+    pot, nxt, times, tris, grad_w, basis, areas, base = args
+    dtype = pot.dtype
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    first = comparison_entry("frame_factors_rhs_first", sfx, [p] * 11 + [i] * 4 + [p])
+    main = comparison_entry("frame_factors_rhs", sfx, [p] * 14 + [i] * 8 + [p])
+    t, n, m, c = pot.shape[0] - 1, pot.shape[1], tris.shape[0], base.shape[1]
+    n_tiles = tiles.cell_ptr.numel() - 1
+
+    def outputs():
+        return (torch.empty((t, m, 3, 2), dtype=dtype, device=pot.device),
+                torch.empty((t, 2 * n), dtype=dtype, device=pot.device))
+
+    def run_first():
+        g, f = outputs()
+        f_loc = torch.empty((t, m, 6), dtype=dtype, device=pot.device)
+        _launched(first(*(x.data_ptr() for x in args), g.data_ptr(), f_loc.data_ptr(),
+                        f.data_ptr(), t, m, n, c,
+                        torch.cuda.current_stream().cuda_stream), "frame_factors_rhs")
+        return g, f
+
+    def run_frames(frames):
+        def run():
+            g, f = outputs()
+            _launched(main(*(x.data_ptr() for x in args), tiles.cell_ptr.data_ptr(),
+                           tiles.cells.data_ptr(), tiles.gather.data_ptr(),
+                           tiles.own_ptr.data_ptr(), tiles.owned.data_ptr(),
+                           g.data_ptr(), f.data_ptr(), t, m, n, c, tiles.size, n_tiles,
+                           tiles.max_cells, frames,
+                           torch.cuda.current_stream().cuda_stream), "frame_factors_rhs")
+            return g, f
+        return run
+
+    def this():
+        return kfem.frame_factors_rhs(*args, tiles)
+    got, want = this(), run_first()
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    us = [device_us(fn, mine=own_kernel) for fn in (this, run_first, run_first, this)]
+    frames = (1, 2, 4)
+    equal = [all(torch.equal(a, b) for a, b in zip(run_frames(fr)(), got))
+             for fr in frames]
+    sweep = [device_us(run_frames(fr), mine=own_kernel) for fr in frames + frames[::-1]]
+    ctype = "float" if dtype == torch.float32 else "double"
+    print(f"[parent] frame_factors_rhs<{ctype}>{suffix}: g, f bitwise equal to the "
+          f"first design's: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against "
+          f"the first design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns); frames a "
+          f"block, bitwise the default's {equal}: " + ", ".join(
+              f"F={fr} {fmt_us(a)} / {fmt_us(b)}"
+              for fr, a, b in zip(frames, sweep[:3], sweep[::-1][:3])) + f"; on {card}",
+          flush=True)
+    if not (all(same) and all(equal)):
+        raise AssertionError(f"frame_factors_rhs<{ctype}>{suffix} differs from its "
+                             f"first design")
+
+
+def against_first_pack(card: str, pk, suffix: str) -> None:
+    """K14's pack entry against its first design (one thread per walk
+    chasing `next` in device memory) on the same packed walks: ids equal,
+    device times in turns; the walks a block and the ids a window swept, in
+    turns; and, on the rows layout of trace_frames (every seed, offsets
+    seed * (MAX_STEPS + 1)), both designs in turns."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import streams as kst
+
+    hops, seeds, lens, offsets = pk
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    first = comparison_entry("pack_walks_first", "i32", [p] * 5 + [i] * 2 + [p])
+    variant = comparison_entry("pack_walks_variant", "i32", [p] * 5 + [i] * 4 + [p])
+    n = hops.shape[1]
+
+    def call(fn, seeds, lens, offsets, size, *extra):
+        def run():
+            out = torch.full((size,), -1, dtype=torch.int32, device=hops.device)
+            _launched(fn(hops.data_ptr(), seeds.data_ptr(), lens.data_ptr(),
+                         offsets.data_ptr(), out.data_ptr(), seeds.numel(), n, *extra,
+                         torch.cuda.current_stream().cuda_stream), "pack_walks")
+            return out
+        return run
+    total = int(lens.sum())
+
+    def this():
+        out = torch.full((total,), -1, dtype=torch.int32, device=hops.device)
+        return kst.pack_walks(hops, seeds, lens, offsets, out)
+    want = call(first, seeds, lens, offsets, total)()
+    same = torch.equal(this(), want)
+    us = [device_us(fn, mine=own_kernel) for fn in
+          (this, call(first, seeds, lens, offsets, total),
+           call(first, seeds, lens, offsets, total), this)]
+    cases = [(256, 4096), (512, 4096), (1024, 4096), (512, 2048), (512, 8192)]
+    equal = [torch.equal(call(variant, seeds, lens, offsets, total, *c)(), want)
+             for c in cases]
+    sweep = [device_us(call(variant, seeds, lens, offsets, total, *c), mine=own_kernel)
+             for c in cases + cases[::-1]]
+    k = len(cases)
+    line = (f"[parent] pack_walks<int>{suffix}: ids equal to the first design's: {same}; "
+            f"device {fmt_us(us[0])} / {fmt_us(us[3])} against the first design's "
+            f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); walks a block and ids a "
+            f"window, equal {equal}: " + ", ".join(
+                f"{a}x{b} {fmt_us(x)} / {fmt_us(y)}"
+                for (a, b), x, y in zip(cases, sweep[:k], sweep[::-1][:k])))
+    if not suffix:  # trace_frames' rows at the bench shapes (313 MB of ids)
+        width = MAX_STEPS + 1
+        every = torch.arange(hops.numel(), device=hops.device)
+        flat = kst.trace_walks(hops, MAX_STEPS).reshape(-1).contiguous()
+        rows = (every, flat, every * width, hops.numel() * width)
+        rows_same = torch.equal(call(variant, *rows, 0, 0)(), call(first, *rows)())
+        rows_us = [device_us(call(fn, *rows, *extra), mine=own_kernel) for fn, extra in
+                   ((variant, (0, 0)), (first, ()), (first, ()), (variant, (0, 0)))]
+        line += (f"; rows layout ({every.numel()} walks), equal {rows_same}: device "
+                 f"{fmt_us(rows_us[0])} / {fmt_us(rows_us[3])} against the first "
+                 f"design's {fmt_us(rows_us[1])} / {fmt_us(rows_us[2])}")
+        same = same and rows_same
+    print(line + f"; on {card}", flush=True)
+    if not (same and all(equal)):
+        raise AssertionError(f"pack_walks<int>{suffix} differs from its first design")
 
 
 def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
@@ -605,33 +768,38 @@ def check_update(checks: KernelChecks, p, ap, dinv, rz, rand, tol=TOL_F32,
         raise AssertionError(f"{key}{suffix}: two calls on the same inputs differ")
 
 
-def check_analysis_kernels(checks: KernelChecks, mesh, v_k) -> None:
+def check_analysis_kernels(checks: KernelChecks, mesh, v_k, suffix: str = "",
+                           dtypes=(torch.float64, torch.float32)) -> None:
     """Phase 5: K5-K7 against their plain versions on a real velocity field
-    (the refined solve's v_k), in float64 and float32."""
+    (the refined solve's v_k), in `dtypes`; `suffix` tags the rows of a
+    second size."""
     from manifold_flow_tpu_torch.kernels import analysis as kan
     from manifold_flow_tpu_torch.ops.singularity import capacity_for
 
     cu = "manifold_flow_tpu_torch/csrc/analysis_kernels.cu"
-    for dtype, ctype, tol in ((torch.float64, "double", TOL_F64),
-                              (torch.float32, "float", TOL_F32)):
+    for dtype in dtypes:
+        ctype, tol = (("double", TOL_F64) if dtype == torch.float64
+                      else ("float", TOL_F32))
         vk, basis = v_k.to(dtype), mesh.basis.to(dtype)
         points = mesh.points.to(dtype)
         t, n_vert, n_tri = vk.shape[0], mesh.n_vertices, mesh.n_triangles
-        checks.compare(f"recombine_speed<{ctype}>", cu,
+        checks.compare(f"recombine_speed<{ctype}>{suffix}", cu,
                        "manifold_flow_tpu/ops/recombine.py:20",
                        lambda: kan.recombine_speed(vk, basis),
                        lambda: kan.plain_recombine_speed(vk, basis), tol,
-                       inputs=(vk, basis), ops=15 * t * n_vert)
+                       inputs=(vk, basis), ops=15 * t * n_vert,
+                       launches_key=f"recombine_speed<{ctype}>")
         v_world, speed, v_max = kan.plain_recombine_speed(vk, basis)
         det = (points, mesh.triangles, v_world, speed, v_max, 1e-4)
-        checks.compare(f"detect_singular<{ctype}>", cu,
+        checks.compare(f"detect_singular<{ctype}>{suffix}", cu,
                        "manifold_flow_tpu/ops/singularity.py:54",
                        lambda: kan.detect_singular(*det),
                        lambda: kan.plain_detect_singular(*det), tol,
-                       inputs=det, ops=t * (10 * n_vert + 60 * n_tri))
+                       inputs=det, ops=t * (10 * n_vert + 60 * n_tri),
+                       launches_key=f"detect_singular<{ctype}>")
         vmask, imask, _, ipoint, counts = kan.plain_detect_singular(*det)
         cap = capacity_for(*counts.amax(dim=0).tolist())
-        print(f"[kernels] {ctype}: per-frame candidates max (vertex, interior)"
+        print(f"[kernels] {ctype}{suffix}: per-frame candidates max (vertex, interior)"
               f" {counts.amax(dim=0).tolist()}, capacity {cap}", flush=True)
         comp = (vmask, imask, ipoint, points, cap)
         # Bytes: the masks, the selected interior points, the vertices the
@@ -639,11 +807,12 @@ def check_analysis_kernels(checks: KernelChecks, mesh, v_k) -> None:
         out = kan.plain_compact_detected(*comp)
         moved = (tensor_bytes(vmask, imask, points, *out)
                  + t * cap * 3 * points.element_size())
-        checks.compare(f"compact_detected<{ctype}>", cu,
+        checks.compare(f"compact_detected<{ctype}>{suffix}", cu,
                        "manifold_flow_tpu/ops/singularity.py:394",
                        lambda: kan.compact_detected(*comp),
                        lambda: kan.plain_compact_detected(*comp), tol,
-                       nbytes=moved, ops=8 * t * cap * n_vert)
+                       nbytes=moved, ops=8 * t * cap * n_vert,
+                       launches_key=f"compact_detected<{ctype}>")
 
 
 def restriction_coo(r_blk, members) -> torch.Tensor:
@@ -705,6 +874,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
 
     cu = "manifold_flow_tpu_torch/csrc/coarse_kernels.cu"
     tables = coarse.build_tables(mesh)
+    check_rhs(checks, mesh, pot, times, suffix="@12.5k")
     g64, f64 = build_rhs(mesh, pot, times)
     op64 = make_operator(mesh, g64, 0.01)
     t, n_dof = g64.shape[0], mesh.n_dof
@@ -718,6 +888,15 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                               (torch.float64, "double", TOL_F64)):
         op = op64.astype(dtype)
         check_assemble(checks, mesh, tables, op, tol)
+        if dtype == torch.float32:  # the refined solve's Jacobi blocks
+            jb = (op.g, assembly.corner_regularization(mesh, dtype).contiguous(),
+                  mesh.areas.to(dtype), op.lambda_, op.gather_base)
+            checks.compare("jacobi_blocks<float>@12.5k", FEM_CU,
+                           "manifold_flow_tpu/fem/assembly.py:164",
+                           lambda: (kfem.jacobi_blocks(*jb),),
+                           lambda: (kfem.plain_jacobi_blocks(*jb),), tol, inputs=jb,
+                           ops=t * (48 * mesh.n_triangles + 10 * mesh.n_vertices),
+                           launches_key="jacobi_blocks<float>")
         pre = coarse.make_two_level(mesh, op.g, op.lambda_, tables)
         r, z = (torch.randn((t, n_dof), generator=gen, dtype=torch.float64)
                 .to(pot.device, dtype) for _ in range(2))
@@ -868,7 +1047,7 @@ TRIAL_KERNELS = FLOW_KERNELS + ("classify_candidates<double>", "next_hop<double>
 
 
 def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
-                        suffix: str = "", classify: bool = True) -> None:
+                        suffix: str = "") -> None:
     """K12-K15 against their plain versions on a real velocity field, in its
     dtype: K12 on the candidates K6/K7 compact, K13 on the field, K14 on
     K13's graph (MAX_STEPS, walks of at least MIN_LENGTH packed), K15 on
@@ -894,26 +1073,25 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
     st_cu = "manifold_flow_tpu_torch/csrc/stream_kernels.cu"
     wi_cu = "manifold_flow_tpu_torch/csrc/winding_kernels.cu"
 
-    if classify:
-        args = (mesh.points.to(dtype), mesh.basis.to(dtype), mesh.vertex_neighbors,
-                mesh.triangles, cells_across_edges(mesh), v_world, v_max,
-                det.vertex_ids, det.vertex_valid, det.interior_ids,
-                det.interior_valid, det.interior_points)
-        s_v, s_i = det.vertex_ids.shape[1], det.interior_ids.shape[1]
-        out = kan.plain_classify_candidates(*args)
-        # Bytes: the slots and the 1-ring velocity rows they read, the outputs.
-        moved = (tensor_bytes(*args[6:], *out)
-                 + t * (s_v * width + s_i * 6) * 3 * esz)
-        for quirks in (False, True):
-            checks.compare(f"classify_candidates<{ctype}>" + ("+quirks" if quirks else "")
-                           + suffix, an_cu, "manifold_flow_tpu/ops/singularity.py:279",
-                           lambda: kan.classify_candidates(*args, quirks=quirks),
-                           lambda: kan.plain_classify_candidates(*args, quirks=quirks),
-                           tol, nbytes=moved,
-                           ops=t * (40 * s_v * width + 340 * s_i),
-                           # The main path runs without quirks: the quirks
-                           # variant has a row of its own and no launches.
-                           launches_key=None if quirks else f"classify_candidates<{ctype}>")
+    args = (mesh.points.to(dtype), mesh.basis.to(dtype), mesh.vertex_neighbors,
+            mesh.triangles, cells_across_edges(mesh), v_world, v_max,
+            det.vertex_ids, det.vertex_valid, det.interior_ids,
+            det.interior_valid, det.interior_points)
+    s_v, s_i = det.vertex_ids.shape[1], det.interior_ids.shape[1]
+    out = kan.plain_classify_candidates(*args)
+    # Bytes: the slots and the 1-ring velocity rows they read, the outputs.
+    moved = (tensor_bytes(*args[6:], *out)
+             + t * (s_v * width + s_i * 6) * 3 * esz)
+    for quirks in (False, True):
+        checks.compare(f"classify_candidates<{ctype}>" + ("+quirks" if quirks else "")
+                       + suffix, an_cu, "manifold_flow_tpu/ops/singularity.py:279",
+                       lambda: kan.classify_candidates(*args, quirks=quirks),
+                       lambda: kan.plain_classify_candidates(*args, quirks=quirks),
+                       tol, nbytes=moved,
+                       ops=t * (40 * s_v * width + 340 * s_i),
+                       # The main path runs without quirks: the quirks
+                       # variant has a row of its own and no launches.
+                       launches_key=None if quirks else f"classify_candidates<{ctype}>")
 
     nh = (stream.unit_edges(mesh, dtype), v_world, mesh.vertex_neighbors,
           mesh.vertex_cell_count, mesh.vertex_cells, mesh.triangles,
@@ -943,6 +1121,7 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
                        lambda: (kst.pack_walks(*pk, bufs[0]),),
                        lambda: (kst.plain_pack_walks(*pk, bufs[1]),), 0.0,
                        inputs=pk, launches_key="pack_walks<int>")
+        against_first_pack(checks.card, pk, suffix)
         print(f"[kernels] walks{suffix}: {lengths.numel()} seeds, "
               f"{float((lengths >= MIN_LENGTH).float().mean()):.4f} of them >= "
               f"{MIN_LENGTH} vertices, longest {int(lengths.max())}, {total} packed ids",
@@ -2072,8 +2251,10 @@ def main() -> int:
           f"triangles, {pot12.shape[0] - 1} velocity frames", flush=True)
     check_coarse_kernels(checks, mesh12, pot12, times12)
     res12 = solve(mesh12, pot12, times12, **refined)
+    check_analysis_kernels(checks, mesh12, res12.v_k, suffix="@12.5k",
+                           dtypes=(torch.float64,))
     check_trial_kernels(checks, mesh12, *kan.recombine_speed(res12.v_k, mesh12.basis),
-                        suffix="@12.5k", classify=False)
+                        suffix="@12.5k")
     check_field_kernels(checks, mesh12, pot12, suffix="@12.5k")
 
     # 10. the 12.5k refined solve with two-level, and the crossover

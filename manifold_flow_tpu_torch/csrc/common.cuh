@@ -124,6 +124,8 @@ __device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, 
 __device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float rn_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double rn_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
 __device__ __forceinline__ float rn_sqrt(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double rn_sqrt(double a) { return __dsqrt_rn(a); }
 

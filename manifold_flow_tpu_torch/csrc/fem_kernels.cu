@@ -16,6 +16,10 @@
 //                               (the 21 entries on and above the
 //                               diagonal) local index first, in table
 //                               order
+//   K4's ownership own_ptr (K + 1), owned (M) int32 (fem/assembly.py
+//                  cell_tiles): each cell is owned by the first tile that
+//                  lists it; tile k's owned cells, as indices into its
+//                  cells, ascending, are owned[own_ptr[k]:own_ptr[k+1]]
 // The C entry points return the cudaError_t of the launches.
 //
 // K1 is bound by its bytes: g read once (14.1 MB in f32 at the bench
@@ -177,38 +181,6 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
   }
 }
 
-// K4's reduction: one thread per (frame, vertex) sums the vertex's incident
-// (cell, slot) entries of the local RHS in table order, the order of
-// fem/operator.py:79-84.
-template <typename T>
-__global__ void gather_kernel(const T* __restrict__ y_loc,
-                              const int32_t* __restrict__ gather_base,
-                              const T* __restrict__ f, T* __restrict__ out,
-                              int64_t n_frames, int64_t n_vert, int64_t n_cols,
-                              int64_t n_local) {
-  const int64_t i = global_index();
-  if (i >= n_frames * n_vert) return;
-  const int64_t t = i / n_vert;
-  const int64_t v = i - t * n_vert;
-  const T* yt = y_loc + t * n_local;
-  const int32_t* row = gather_base + v * n_cols;
-  T a = T(0), b = T(0);
-  for (int64_t c = 0; c < n_cols; ++c) {
-    const int32_t base = row[c];
-    if (base < 0 || base >= n_local) continue;  // padded entry
-    a += yt[base];
-    b += yt[base + 1];
-  }
-  const int64_t o = t * 2 * n_vert + v;
-  if (f != nullptr) {
-    out[o] = f[o] - a;
-    out[o + n_vert] = f[o + n_vert] - b;
-  } else {
-    out[o] = a;
-    out[o + n_vert] = b;
-  }
-}
-
 // K2: one thread per (frame, vertex) sums lambda * reg + g g^T * A/6 over the
 // vertex's incident corners (fem/assembly.py:134-178), then writes the
 // closed-form inverse of the 2x2 block; singular blocks become the identity
@@ -256,13 +228,154 @@ __global__ void jacobi_kernel(const T* __restrict__ g,
   }
 }
 
-// K4: one thread per (frame, triangle) writes the a1 factors
+// K4: the a1 factors g[t, m, c, a] = (sum_k I_t[v_k] grad_w[m, k]) .
+// e_{v_c}^a and the RHS f[t] = sum over each vertex's (cell, slot) entries
+// of the local RHS g * (dI_c + sum dI) * A/12, with dI = (I_next[t + 1] -
+// I[t]) / (times[t + 1] - times[t]) (fem/assembly.py:61-71, 99-106;
+// solve/api.py:83-86).
+// Bound on this card: memory traffic, g written (114.7 MB in f64 at 12.5k
+// vertices, 28.2 MB at the bench shapes), f written and the movie read.
+// The first design wrote g and the local RHS (as large as g) in one launch,
+// one thread per (frame, triangle), and read the local RHS back in a
+// second launch to sum it per vertex. This design makes one launch with K1's
+// tiles: block (k, j) owns tile k's vertices for frames j*F .. j*F + F - 1.
+// Phase 1: one thread per tile cell (halo cells too) loads the cell's
+// corners, grad_w row, corner bases and area once for the block's frames,
+// then for each frame writes the cell's six g values and three corner
+// scales (dI_c + sum dI) * A/12 to shared memory. Phase 2: one thread per
+// tile vertex sums its entries g * scale in its gather row's order, the
+// first design's order, and writes f. Phase 3: the block writes g of the
+// cells it owns (every cell has one owner) from shared memory, consecutive
+// threads on consecutive elements. Each value keeps the first design's
+// expression, with its fused multiply-adds written out as nvcc formed them
+// there, so g and f are that design's bit for bit.
+// a0 b0 + a1 b1 + a2 b2 as nvcc contracted it in the first design: the
+// first product fused into the first sum, the third into the second.
+template <typename T>
+__device__ __forceinline__ T fma3(T a0, T b0, T a1, T b1, T a2, T b2) {
+  return rn_fma(a2, b2, rn_fma(a0, b0, rn_mul(a1, b1)));
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(kThreads, 2)
+    frame_factors_rhs_kernel(
+        const T* __restrict__ pot, const T* __restrict__ nxt,
+        const T* __restrict__ times, const int32_t* __restrict__ tris,
+        const T* __restrict__ grad_w, const T* __restrict__ basis,
+        const T* __restrict__ areas, const int32_t* __restrict__ cell_ptr,
+        const int32_t* __restrict__ cells, const int32_t* __restrict__ gather,
+        const int32_t* __restrict__ own_ptr, const int32_t* __restrict__ owned,
+        T* __restrict__ g, T* __restrict__ f, int64_t n_frames, int64_t n_tri,
+        int64_t n_vert, int64_t n_cols, int64_t tile_size, int64_t max_cells) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* g_s = reinterpret_cast<T*>(smem_raw);   // [F][max_cells][6]
+  T* sc_s = g_s + F * max_cells * 6;         // [F][max_cells][3]
+  const int64_t c0 = cell_ptr[blockIdx.x];
+  const int n_cells = static_cast<int>(cell_ptr[blockIdx.x + 1] - c0);
+  const int64_t o0 = own_ptr[blockIdx.x];
+  const int n_owned = static_cast<int>(own_ptr[blockIdx.x + 1] - o0);
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * tile_size;
+  const int64_t left = n_vert - v0;
+  const int n_own = static_cast<int>(left < tile_size ? left : tile_size);
+  for (int64_t t0 = static_cast<int64_t>(blockIdx.y) * F; t0 < n_frames;
+       t0 += static_cast<int64_t>(gridDim.y) * F) {
+    const int nf = n_frames - t0 < F ? static_cast<int>(n_frames - t0) : F;
+    for (int c = threadIdx.x; c < n_cells; c += kThreads) {
+      const int64_t m = __ldg(cells + c0 + c);
+      int32_t v[3];
+      T gw[9], e[18];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v[k] = __ldg(tris + m * 3 + k);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) gw[k] = __ldg(grad_w + m * 9 + k);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int d = 0; d < 6; ++d) e[k * 6 + d] = __ldg(basis + static_cast<int64_t>(v[k]) * 6 + d);
+      }
+      const T w12 = __ldg(areas + m) / T(12);
+#pragma unroll
+      for (int u = 0; u < F; ++u) {
+        if (u < nf) {
+          const int64_t t = t0 + u;
+          const T* pt = pot + t * n_vert;
+          const T* qt = nxt + (t + 1) * n_vert;
+          const T step = __ldg(times + t + 1) - __ldg(times + t);
+          T val[3], di[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            val[k] = __ldg(pt + v[k]);
+            di[k] = (__ldg(qt + v[k]) - val[k]) / step;
+          }
+          T gm[3];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            gm[d] = fma3(val[0], gw[d], val[1], gw[3 + d], val[2], gw[6 + d]);
+          }
+          const T s = di[0] + di[1] + di[2];
+          T* gc = g_s + (static_cast<int64_t>(u) * max_cells + c) * 6;
+          T* sc = sc_s + (static_cast<int64_t>(u) * max_cells + c) * 3;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            sc[k] = (di[k] + s) * w12;
+#pragma unroll
+            for (int a = 0; a < 2; ++a) {
+              const T* ek = e + k * 6 + a * 3;
+              gc[k * 2 + a] = fma3(gm[0], ek[0], gm[1], ek[1], gm[2], ek[2]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_own; i += kThreads) {
+      const int64_t v = v0 + i;
+      const int32_t* row = gather + v * n_cols;
+      T a[F], b[F];
+#pragma unroll
+      for (int u = 0; u < F; ++u) a[u] = b[u] = T(0);
+      for (int64_t c = 0; c < n_cols; ++c) {
+        const int32_t k = __ldg(row + c);
+        if (k < 0) continue;  // padded entry
+#pragma unroll
+        for (int u = 0; u < F; ++u) {
+          const T* gu = g_s + static_cast<int64_t>(u) * max_cells * 6;
+          const T scale = sc_s[static_cast<int64_t>(u) * max_cells * 3 + (k >> 1)];
+          a[u] += rn_mul(gu[k], scale);  // the first design's rounded local RHS
+          b[u] += rn_mul(gu[k + 1], scale);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < F; ++u) {
+        if (u < nf) {
+          const int64_t o = (t0 + u) * 2 * n_vert + v;
+          f[o] = a[u];
+          f[o + n_vert] = b[u];
+        }
+      }
+    }
+    const int per_frame = n_owned * 6;
+    for (int j = threadIdx.x; j < nf * per_frame; j += kThreads) {
+      const int u = j / per_frame;
+      const int r = j - u * per_frame;
+      const int q = r / 6;
+      const int l = r - q * 6;
+      const int32_t local = __ldg(owned + o0 + q);
+      const int64_t m = __ldg(cells + c0 + local);
+      g[((t0 + u) * n_tri + m) * 6 + l] = g_s[(static_cast<int64_t>(u) * max_cells + local) * 6 + l];
+    }
+    __syncthreads();  // the next frames' phase 1 overwrites the tables
+  }
+}
+
+// K4's first design, kept for the comparison on the card: one thread per
+// (frame, triangle) writes the a1 factors
 // g[t, m, c, a] = (sum_k I_t[v_k] grad_w[m, k]) . e_{v_c}^a and the local RHS
 // f_loc[t, m, c, a] = g * (dI_c + sum dI) * A/12 with
 // dI = (I_next[t + 1] - I[t]) / (times[t + 1] - times[t])
 // (fem/assembly.py:61-71, 99-106; solve/api.py:83-86).
 template <typename T>
-__global__ void frame_factors_rhs_kernel(
+__global__ void frame_factors_rhs_first_kernel(
     const T* __restrict__ pot, const T* __restrict__ nxt,
     const T* __restrict__ times, const int32_t* __restrict__ tris,
     const T* __restrict__ grad_w, const T* __restrict__ basis,
@@ -301,6 +414,38 @@ __global__ void frame_factors_rhs_kernel(
       g[i * 6 + c * 2 + a] = gca;
       f_loc[i * 6 + c * 2 + a] = gca * scale;
     }
+  }
+}
+
+// K4's reduction: one thread per (frame, vertex) sums the vertex's incident
+// (cell, slot) entries of the local RHS in table order, the order of
+// fem/operator.py:79-84.
+template <typename T>
+__global__ void gather_kernel(const T* __restrict__ y_loc,
+                              const int32_t* __restrict__ gather_base,
+                              const T* __restrict__ f, T* __restrict__ out,
+                              int64_t n_frames, int64_t n_vert, int64_t n_cols,
+                              int64_t n_local) {
+  const int64_t i = global_index();
+  if (i >= n_frames * n_vert) return;
+  const int64_t t = i / n_vert;
+  const int64_t v = i - t * n_vert;
+  const T* yt = y_loc + t * n_local;
+  const int32_t* row = gather_base + v * n_cols;
+  T a = T(0), b = T(0);
+  for (int64_t c = 0; c < n_cols; ++c) {
+    const int32_t base = row[c];
+    if (base < 0 || base >= n_local) continue;  // padded entry
+    a += yt[base];
+    b += yt[base + 1];
+  }
+  const int64_t o = t * 2 * n_vert + v;
+  if (f != nullptr) {
+    out[o] = f[o] - a;
+    out[o + n_vert] = f[o + n_vert] - b;
+  } else {
+    out[o] = a;
+    out[o + n_vert] = b;
   }
 }
 
@@ -375,17 +520,72 @@ int jacobi_blocks(const void* g, const void* reg, const void* areas,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int F>
+cudaError_t launch_frame_factors_rhs(
+    const void* pot, const void* nxt, const void* times, const void* tris,
+    const void* grad_w, const void* basis, const void* areas, const void* cell_ptr,
+    const void* cells, const void* gather, const void* own_ptr, const void* owned,
+    void* g, void* f, int64_t n_frames, int64_t n_tri, int64_t n_vert, int64_t n_cols,
+    int64_t tile_size, int64_t n_tiles, int64_t max_cells, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(F) * max_cells * 9 * sizeof(T);
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        frame_factors_rhs_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(static_cast<unsigned int>(n_tiles),
+                  frame_blocks((n_frames + F - 1) / F));
+  frame_factors_rhs_kernel<T, F><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(pot), static_cast<const T*>(nxt),
+      static_cast<const T*>(times), static_cast<const int32_t*>(tris),
+      static_cast<const T*>(grad_w), static_cast<const T*>(basis),
+      static_cast<const T*>(areas), static_cast<const int32_t*>(cell_ptr),
+      static_cast<const int32_t*>(cells), static_cast<const int32_t*>(gather),
+      static_cast<const int32_t*>(own_ptr), static_cast<const int32_t*>(owned),
+      static_cast<T*>(g), static_cast<T*>(f), n_frames, n_tri, n_vert, n_cols,
+      tile_size, max_cells);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int frame_factors_rhs(const void* pot, const void* nxt, const void* times,
                       const void* tris, const void* grad_w, const void* basis,
-                      const void* areas, const void* gather_base, void* g,
-                      void* f_loc, void* f, int64_t n_frames, int64_t n_tri,
-                      int64_t n_vert, int64_t n_cols, void* stream) {
+                      const void* areas, const void* cell_ptr, const void* cells,
+                      const void* gather, const void* own_ptr, const void* owned,
+                      void* g, void* f, int64_t n_frames, int64_t n_tri,
+                      int64_t n_vert, int64_t n_cols, int64_t tile_size,
+                      int64_t n_tiles, int64_t max_cells, int64_t frames_per_block,
+                      void* stream) {
+  if (n_frames <= 0 || n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+#define MF_FRAME_FACTORS(F)                                                        \
+  e = launch_frame_factors_rhs<T, F>(pot, nxt, times, tris, grad_w, basis, areas,  \
+                                     cell_ptr, cells, gather, own_ptr, owned, g, f, \
+                                     n_frames, n_tri, n_vert, n_cols, tile_size,   \
+                                     n_tiles, max_cells, s)
+  switch (frames_per_block) {
+    case 1: MF_FRAME_FACTORS(1); break;
+    case 2: MF_FRAME_FACTORS(2); break;
+    case 4: MF_FRAME_FACTORS(4); break;
+    default: break;
+  }
+#undef MF_FRAME_FACTORS
+  return static_cast<int>(e);
+}
+
+template <typename T>
+int frame_factors_rhs_first(const void* pot, const void* nxt, const void* times,
+                            const void* tris, const void* grad_w, const void* basis,
+                            const void* areas, const void* gather_base, void* g,
+                            void* f_loc, void* f, int64_t n_frames, int64_t n_tri,
+                            int64_t n_vert, int64_t n_cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n_loc = n_frames * n_tri;
   const int64_t n_out = n_frames * n_vert;
   if (n_loc > 0) {
-    frame_factors_rhs_kernel<T><<<blocks_for(n_loc), kThreads, 0, s>>>(
+    frame_factors_rhs_first_kernel<T><<<blocks_for(n_loc), kThreads, 0, s>>>(
         static_cast<const T*>(pot), static_cast<const T*>(nxt),
         static_cast<const T*>(times), static_cast<const int32_t*>(tris),
         static_cast<const T*>(grad_w), static_cast<const T*>(basis),
@@ -425,13 +625,27 @@ int frame_factors_rhs(const void* pot, const void* nxt, const void* times,
   extern "C" int mf_frame_factors_rhs_##SUFFIX(                               \
       const void* pot, const void* nxt, const void* times, const void* tris,  \
       const void* grad_w, const void* basis, const void* areas,               \
+      const void* cell_ptr, const void* cells, const void* gather,            \
+      const void* own_ptr, const void* owned, void* g, void* f,               \
+      int64_t n_frames, int64_t n_tri, int64_t n_vert, int64_t n_cols,        \
+      int64_t tile_size, int64_t n_tiles, int64_t max_cells,                  \
+      int64_t frames_per_block, void* stream) {                               \
+    return mf::frame_factors_rhs<T>(pot, nxt, times, tris, grad_w, basis,    \
+                                    areas, cell_ptr, cells, gather, own_ptr,  \
+                                    owned, g, f, n_frames, n_tri, n_vert,     \
+                                    n_cols, tile_size, n_tiles, max_cells,    \
+                                    frames_per_block, stream);                \
+  }                                                                           \
+  extern "C" int mf_frame_factors_rhs_first_##SUFFIX(                         \
+      const void* pot, const void* nxt, const void* times, const void* tris,  \
+      const void* grad_w, const void* basis, const void* areas,               \
       const void* gather_base, void* g, void* f_loc, void* f,                 \
       int64_t n_frames, int64_t n_tri, int64_t n_vert, int64_t n_cols,        \
       void* stream) {                                                         \
-    return mf::frame_factors_rhs<T>(pot, nxt, times, tris, grad_w, basis,    \
-                                    areas,                                    \
-                                    gather_base, g, f_loc, f, n_frames,       \
-                                    n_tri, n_vert, n_cols, stream);           \
+    return mf::frame_factors_rhs_first<T>(pot, nxt, times, tris, grad_w,     \
+                                          basis, areas, gather_base, g,       \
+                                          f_loc, f, n_frames, n_tri, n_vert,  \
+                                          n_cols, stream);                    \
   }
 
 MF_FEM_ENTRY_POINTS(f32, float)

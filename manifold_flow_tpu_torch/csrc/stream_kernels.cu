@@ -192,9 +192,9 @@ int next_hop(const void* unit, const void* v_world, const void* neighbors,
 // (next is 1.2 MB at the bench shapes and stays in L2; lengths write
 // 1.2 MB), but each step waits for the previous load, so a call takes
 // about as long as the longest walk's ~3 (mu + lambda) L2 round trips.
-// Design: one thread per seed for the lengths; one thread per kept seed
-// for the pack entry, which re-walks its seed and writes the ids at the
-// seed's offset, so only kept walks are ever materialised.
+// Design: one thread per seed for the lengths. The pack entry materialises
+// only the walks it is given, each re-walked from its seed (see
+// pack_walks_kernel below).
 
 __global__ void trace_walks_kernel(const int32_t* __restrict__ next,
                                    int32_t* __restrict__ lengths, int64_t n_frames,
@@ -243,12 +243,114 @@ __global__ void trace_walks_kernel(const int32_t* __restrict__ next,
   }
 }
 
-__global__ void pack_walks_kernel(const int32_t* __restrict__ next,
-                                  const int64_t* __restrict__ seeds,
-                                  const int32_t* __restrict__ lengths,
-                                  const int64_t* __restrict__ offsets,
-                                  int32_t* __restrict__ out, int64_t n_seeds,
-                                  int64_t n_vert) {
+// K14's pack entry (ops/streamline.py:733 _gather_packed; B11): walk k
+// from seed seeds[k] = frame * N + vertex, lengths[k] frame-local ids,
+// written to out[offsets[k] ...]. Bound on this card: the ids written
+// (70.9 MB at 12.5k vertices, more than L2 holds) and the hop table read
+// once. Its first design ran one thread per walk: each thread chased its
+// walk through `next` in device memory, one dependent L2 load a step, and
+// stored its ids one by one, so a warp's store touched up to 32 sectors.
+// This design: a block takes consecutive walks, at most kPackWalks and
+// fewer where more blocks are needed to fill the SMs. For each run of
+// them in one frame (seeds frame-major: one run, two at a frame's edge) it
+// loads that frame's row of `next` into shared memory with 16-byte loads,
+// then its threads chase one walk each through shared memory, 256 walks a
+// round. Where a round's walks lie back to back in `out` (offsets[k + 1] =
+// offsets[k] + lengths[k], the stage's packed walks) the round's span is
+// staged in windows of kPackStage ids, each thread filling its part of the
+// window and keeping its place in its walk across windows (any length),
+// and each window is written with coalesced stores. Elsewhere (trace_frames'
+// rows, offsets seed * (max_steps + 1)) each thread stores its walk where it
+// lies. A frame row that does not fit beside the stage (N above about 54k)
+// is read through __ldg instead. `out` is written at the walks' positions
+// only, whatever the offsets.
+constexpr int kPackThreads = 256;
+constexpr int kPackStage = 4096;    // ids a window (16 KB)
+constexpr int kPackWalks = 1024;    // walks a block at most
+
+template <bool kRowShared>
+__global__ void __launch_bounds__(kPackThreads)
+    pack_walks_kernel(const int32_t* __restrict__ next, const int64_t* __restrict__ seeds,
+                      const int32_t* __restrict__ lengths,
+                      const int64_t* __restrict__ offsets, int32_t* __restrict__ out,
+                      int64_t n_seeds, int64_t n_vert, int64_t per_block, int stage) {
+  extern __shared__ __align__(16) int32_t pack_smem[];
+  int32_t* staged = pack_smem;          // [stage]
+  __shared__ int run_end;
+  const int64_t k_begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t k_stop = k_begin + per_block < n_seeds ? k_begin + per_block : n_seeds;
+  for (int64_t k0 = k_begin; k0 < k_stop;) {
+    // The run [k0, k1) of walks in k0's frame.
+    const int64_t frame = __ldg(seeds + k0) / n_vert;
+    if (threadIdx.x == 0) run_end = static_cast<int>(k_stop - k0);
+    __syncthreads();
+    for (int64_t base = k0; base < k_stop; base += kPackThreads) {
+      const int64_t j = base + threadIdx.x;
+      const bool other = j < k_stop && __ldg(seeds + j) / n_vert != frame;
+      if (other) atomicMin(&run_end, static_cast<int>(j - k0));
+      if (__syncthreads_or(other)) break;
+    }
+    const int64_t k1 = k0 + run_end;
+    const int32_t* f = next + frame * n_vert;
+    // The row starts 0-3 ids into its space, so that its 16-byte groups in
+    // device memory land on 16-byte groups in shared memory.
+    const int64_t head = head_to_16(f, n_vert);
+    int32_t* row = pack_smem + stage + ((4 - head) & 3);  // [n_vert] where kRowShared
+    if (kRowShared) {
+      const int64_t n_vec = (n_vert - head) / 4;
+      for (int64_t i = threadIdx.x; i < head; i += kPackThreads) row[i] = __ldg(f + i);
+      const int4* fv = reinterpret_cast<const int4*>(f + head);
+      int4* rv = reinterpret_cast<int4*>(row + head);
+      for (int64_t i = threadIdx.x; i < n_vec; i += kPackThreads) rv[i] = __ldg(fv + i);
+      for (int64_t i = head + 4 * n_vec + threadIdx.x; i < n_vert; i += kPackThreads) {
+        row[i] = __ldg(f + i);
+      }
+    }
+    __syncthreads();
+    for (int64_t r0 = k0; r0 < k1; r0 += kPackThreads) {
+      const int64_t k = r0 + threadIdx.x;
+      const int64_t last = (r0 + kPackThreads < k1 ? r0 + kPackThreads : k1) - 1;
+      const bool mine = k <= last;
+      int32_t x = mine ? static_cast<int32_t>(__ldg(seeds + k) - frame * n_vert) : 0;
+      const int32_t len = mine ? __ldg(lengths + k) : 0;
+      const int64_t off = mine ? __ldg(offsets + k) : 0;
+      const bool joined = !mine || k == last || __ldg(offsets + k + 1) == off + len;
+      if (__syncthreads_and(joined)) {
+        const int64_t span0 = __ldg(offsets + r0);
+        const int64_t span1 = __ldg(offsets + last) + __ldg(lengths + last);
+        int32_t j = 0;  // the next step of this thread's walk
+        for (int64_t w0 = span0; w0 < span1; w0 += stage) {
+          const int64_t w1 = w0 + stage < span1 ? w0 + stage : span1;
+          for (; j < len && off + j < w1; ++j) {
+            staged[off + j - w0] = x;
+            x = kRowShared ? row[x] : __ldg(f + x);
+          }
+          __syncthreads();
+          for (int64_t p = w0 + threadIdx.x; p < w1; p += kPackThreads) {
+            out[p] = staged[p - w0];
+          }
+          __syncthreads();
+        }
+      } else {
+        int32_t* dst = out + off;
+        for (int32_t j = 0; j < len; ++j) {
+          dst[j] = x;
+          x = kRowShared ? row[x] : __ldg(f + x);
+        }
+      }
+    }
+    __syncthreads();  // the next run overwrites row and run_end
+    k0 = k1;
+  }
+}
+
+// The first design, kept for the comparison on the card.
+__global__ void pack_walks_first_kernel(const int32_t* __restrict__ next,
+                                        const int64_t* __restrict__ seeds,
+                                        const int32_t* __restrict__ lengths,
+                                        const int64_t* __restrict__ offsets,
+                                        int32_t* __restrict__ out, int64_t n_seeds,
+                                        int64_t n_vert) {
   const int64_t k = global_index();
   if (k >= n_seeds) return;
   const int64_t seed = seeds[k];
@@ -275,12 +377,68 @@ int trace_walks(const void* next, void* lengths, int64_t n_frames, int64_t n_ver
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kRowShared>
+cudaError_t launch_pack_walks(const void* next, const void* seeds, const void* lengths,
+                              const void* offsets, void* out, int64_t n_seeds,
+                              int64_t n_vert, int64_t per_block, int stage,
+                              size_t smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        pack_walks_kernel<kRowShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int64_t blocks = (n_seeds + per_block - 1) / per_block;
+  pack_walks_kernel<kRowShared><<<static_cast<unsigned int>(blocks), kPackThreads, smem, s>>>(
+      static_cast<const int32_t*>(next), static_cast<const int64_t*>(seeds),
+      static_cast<const int32_t*>(lengths), static_cast<const int64_t*>(offsets),
+      static_cast<int32_t*>(out), n_seeds, n_vert, per_block, stage);
+  return cudaGetLastError();
+}
+
+// Walks a block: enough blocks for about eight an SM, in whole rounds of
+// kPackThreads walks, at most kPackWalks (a block loads its frame row once
+// for all of them).
+inline int64_t pack_walks_per_block(int64_t n_seeds) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const int64_t target = 8 * static_cast<int64_t>(sms) * kPackThreads;
+  const int64_t rounds = (n_seeds + target - 1) / target;
+  const int64_t per_block = rounds * kPackThreads;
+  return per_block < kPackWalks ? per_block : kPackWalks;
+}
+
 int pack_walks(const void* next, const void* seeds, const void* lengths,
                const void* offsets, void* out, int64_t n_seeds, int64_t n_vert,
-               void* stream) {
+               int64_t per_block, int64_t stage, void* stream) {
+  if (n_seeds <= 0 || n_vert <= 0) return static_cast<int>(cudaGetLastError());
+  if (per_block <= 0) per_block = pack_walks_per_block(n_seeds);
+  stage = stage <= 0 ? kPackStage : (stage + 3) / 4 * 4;  // rows stay 16-byte aligned
+  int device = 0, optin = 48 * 1024;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  const size_t staged = static_cast<size_t>(stage) * sizeof(int32_t);
+  const size_t with_row = staged + static_cast<size_t>(n_vert + 3) * sizeof(int32_t);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 64 bytes of static shared memory (run_end) stay beside the dynamic part.
+  const cudaError_t e =
+      with_row + 64 <= static_cast<size_t>(optin)
+          ? launch_pack_walks<true>(next, seeds, lengths, offsets, out, n_seeds, n_vert,
+                                    per_block, static_cast<int>(stage), with_row, s)
+          : launch_pack_walks<false>(next, seeds, lengths, offsets, out, n_seeds, n_vert,
+                                     per_block, static_cast<int>(stage), staged, s);
+  return static_cast<int>(e);
+}
+
+int pack_walks_first(const void* next, const void* seeds, const void* lengths,
+                     const void* offsets, void* out, int64_t n_seeds, int64_t n_vert,
+                     void* stream) {
   if (n_seeds > 0) {
-    pack_walks_kernel<<<blocks_for(n_seeds), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    pack_walks_first_kernel<<<blocks_for(n_seeds), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(next), static_cast<const int64_t*>(seeds),
         static_cast<const int32_t*>(lengths), static_cast<const int64_t*>(offsets),
         static_cast<int32_t*>(out), n_seeds, n_vert);
@@ -313,5 +471,24 @@ extern "C" int mf_trace_walks_i32(const void* next, void* lengths, int64_t n_fra
 extern "C" int mf_pack_walks_i32(const void* next, const void* seeds,
                                  const void* lengths, const void* offsets, void* out,
                                  int64_t n_seeds, int64_t n_vert, void* stream) {
-  return mf::pack_walks(next, seeds, lengths, offsets, out, n_seeds, n_vert, stream);
+  return mf::pack_walks(next, seeds, lengths, offsets, out, n_seeds, n_vert, 0, 0,
+                        stream);
+}
+
+// For the comparison on the card: the walks a block and the ids a window
+// chosen by the caller, and the first design.
+extern "C" int mf_pack_walks_variant_i32(const void* next, const void* seeds,
+                                         const void* lengths, const void* offsets,
+                                         void* out, int64_t n_seeds, int64_t n_vert,
+                                         int64_t per_block, int64_t stage, void* stream) {
+  return mf::pack_walks(next, seeds, lengths, offsets, out, n_seeds, n_vert, per_block,
+                        stage, stream);
+}
+
+extern "C" int mf_pack_walks_first_i32(const void* next, const void* seeds,
+                                       const void* lengths, const void* offsets,
+                                       void* out, int64_t n_seeds, int64_t n_vert,
+                                       void* stream) {
+  return mf::pack_walks_first(next, seeds, lengths, offsets, out, n_seeds, n_vert,
+                              stream);
 }

@@ -13,8 +13,8 @@ These functions are the plain versions the tests hold against the JAX
 package. On the solve's main path the per-frame pieces go through the CUDA
 kernels of `kernels.fem` instead (frame factors and RHS, the reduction, the
 block-Jacobi build); only the frame-independent tables (`a2_blocks`,
-`corner_regularization`, `gather_base_table`, K1's `vertex_tiles`) are built
-here on every device.
+`corner_regularization`, `gather_base_table`, K1's and K4's `cell_tiles`,
+K1's `vertex_tiles`) are built here on every device.
 The dense blocks and matrices (`a1_blocks`, `scatter_dense`, `dense_a2`)
 serve the direct solver (solve.cholesky) on every device.
 """
@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from manifold_flow_tpu_torch.geometry.mesh import TriMesh
+from manifold_flow_tpu_torch.geometry.mesh import TriMesh, mesh_cached
 
 
 def local_dof_indices(mesh: TriMesh) -> torch.Tensor:
@@ -72,20 +72,88 @@ TILE_VERTICES = 256  # K1's vertices a tile (one block of kernels.fem)
 UPPER = [l * 6 + j for l in range(6) for j in range(l, 6)]  # a 6x6 block's upper triangle
 
 
-class VertexTiles(NamedTuple):
-    """K1's tables: the vertices cut into tiles of `size` consecutive ids.
+class CellTiles(NamedTuple):
+    """The vertices cut into tiles of `size` consecutive ids, and the cells
+    each tile needs: K1's and K4's index tables.
 
-      size      int          vertices a tile (the last tile may hold fewer)
-      cell_ptr  (K + 1,)     int32  tile k's cells are cells[cell_ptr[k]:cell_ptr[k+1]]
-      cells     (L,)         int32  the cells incident to any vertex of the
-                             tile, halo cells included, ascending in a tile
-      gather    (N, C)       int32  gather_base rewritten to tile-local
-                             cells: local_cell*6 + slot*2, -1 where padded
+      size       int          vertices a tile (the last tile may hold fewer)
+      cell_ptr   (K + 1,)     int32  tile k's cells are cells[cell_ptr[k]:cell_ptr[k+1]]
+      cells      (L,)         int32  the cells incident to any vertex of the
+                              tile, halo cells included, ascending in a tile
+      gather     (N, C)       int32  gather_base rewritten to tile-local
+                              cells: local_cell*6 + slot*2, -1 where padded
+      max_cells  int          the most cells of any tile
+      own_ptr    (K + 1,)     int32  tile k owns owned[own_ptr[k]:own_ptr[k+1]]
+      owned      (M,)         int32  each tile's owned cells as indices into
+                              its own cells, ascending: a cell is owned by
+                              the first tile that lists it, so every cell
+                              by exactly one (K4 writes each cell's g once)
+    """
+
+    size: int
+    cell_ptr: torch.Tensor
+    cells: torch.Tensor
+    gather: torch.Tensor
+    max_cells: int
+    own_ptr: torch.Tensor
+    owned: torch.Tensor
+
+
+def cell_tiles(gather_base: torch.Tensor, n_triangles: int,
+               size: int = TILE_VERTICES) -> CellTiles:
+    """`CellTiles` from the vertex table `gather_base` (N, C) of a mesh of
+    `n_triangles` cells, built on the host and placed on gather_base's
+    device.
+
+    Each gather row keeps its column order, so a vertex's sum runs over its
+    cells in the order of `reduce_table`; a padded entry (6M) becomes -1.
+    Raises ValueError when some cell is listed by no tile (a cell no
+    vertex's row names), since no tile would write its g.
+    """
+    base = gather_base.cpu().numpy().astype(np.int64)
+    n, c = base.shape
+    valid = (base >= 0) & (base < 6 * n_triangles)
+    tile = np.broadcast_to((np.arange(n) // size)[:, None], (n, c))
+    key = tile * n_triangles + base // 6            # (tile, cell), sorted by tile
+    uniq = np.unique(key[valid])
+    n_tiles = -(-n // size)
+    ptr = np.searchsorted(uniq, np.arange(n_tiles + 1) * n_triangles)
+    local = np.searchsorted(uniq, key) - ptr[tile]
+    gather = np.where(valid, local * 6 + base % 6, -1)
+    cells = uniq % max(n_triangles, 1)
+    # uniq is sorted by tile, so a cell's first entry is its first tile's.
+    listed, first = np.unique(cells, return_index=True)
+    if listed.size != n_triangles:
+        raise ValueError(f"{n_triangles - listed.size} of {n_triangles} cells are "
+                         "incident to no vertex of gather_base")
+    first = np.sort(first)
+    own_tile = np.searchsorted(ptr, first, side="right") - 1
+    own_ptr = np.searchsorted(own_tile, np.arange(n_tiles + 1))
+    dev = gather_base.device
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32)).to(dev)
+    return CellTiles(
+        size=size, cell_ptr=put(ptr), cells=put(cells), gather=put(gather),
+        max_cells=int(np.diff(ptr).max(initial=0)), own_ptr=put(own_ptr),
+        owned=put(first - ptr[own_tile]))
+
+
+def mesh_cell_tiles(mesh: TriMesh) -> CellTiles:
+    """`cell_tiles` of the mesh's vertex table, cached per mesh: K4 reads it
+    before any operator exists, and the operator's K1 tables share it."""
+    return mesh_cached((mesh.vertex_cells, mesh.vertex_cell_slot), ("cell_tiles",),
+                       lambda: cell_tiles(gather_base_table(mesh), mesh.n_triangles))
+
+
+class VertexTiles(NamedTuple):
+    """K1's tables: `CellTiles`' index tables (size, cell_ptr, cells,
+    gather, max_cells) and the cells' data.
+
       cell_dof  (6, L)       int32  dof[cells], local DOF first
       blocks2   (21, L)      the a2 blocks of `cells`, their 21 entries on
                              and above the diagonal (row by row) first, in
                              the operator's dtype
-      max_cells int          the most cells of any tile
 
     cell_dof and blocks2 list the tiles' cells in table order with the
     local index first, so the kernel's threads, one a cell, read
@@ -105,36 +173,21 @@ class VertexTiles(NamedTuple):
 
 
 def vertex_tiles(gather_base: torch.Tensor, dof: torch.Tensor,
-                 blocks2: torch.Tensor, size: int = TILE_VERTICES) -> VertexTiles:
+                 blocks2: torch.Tensor, size: int = TILE_VERTICES,
+                 index: CellTiles | None = None) -> VertexTiles:
     """K1's tile tables (`VertexTiles`) from the vertex table `gather_base`
     (N, C), the DOF table `dof` (M, 6) and the a2 blocks (M, 6, 6); the
-    index tables are built on the host once per operator and placed on its
-    device.
-
-    Each gather row keeps its column order, so a vertex's sum runs over its
-    cells in the order of `reduce_table`; a padded entry (6M) becomes -1.
-    """
+    index tables are `index` where given (`cell_tiles` of the same table
+    and size), else built on the host."""
     n_triangles = dof.shape[0]
-    base = gather_base.cpu().numpy().astype(np.int64)
-    n, c = base.shape
-    valid = (base >= 0) & (base < 6 * n_triangles)
-    tile = np.broadcast_to((np.arange(n) // size)[:, None], (n, c))
-    key = tile * n_triangles + base // 6            # (tile, cell), sorted by tile
-    uniq = np.unique(key[valid])
-    n_tiles = -(-n // size)
-    ptr = np.searchsorted(uniq, np.arange(n_tiles + 1) * n_triangles)
-    local = np.searchsorted(uniq, key) - ptr[tile]
-    gather = np.where(valid, local * 6 + base % 6, -1)
-    dev = gather_base.device
-    cells = torch.from_numpy((uniq % max(n_triangles, 1)).astype(np.int32)).to(dev)
+    if index is None:
+        index = cell_tiles(gather_base, n_triangles, size)
+    cells = index.cells.long()
     return VertexTiles(
-        size=size,
-        cell_ptr=torch.from_numpy(ptr.astype(np.int32)).to(dev),
-        cells=cells,
-        gather=torch.from_numpy(gather.astype(np.int32)).to(dev),
-        cell_dof=dof[cells.long()].t().contiguous(),
-        blocks2=blocks2.reshape(n_triangles, 36)[cells.long()][:, UPPER].t().contiguous(),
-        max_cells=int(np.diff(ptr).max(initial=0)))
+        size=index.size, cell_ptr=index.cell_ptr, cells=index.cells,
+        gather=index.gather, cell_dof=dof[cells].t().contiguous(),
+        blocks2=blocks2.reshape(n_triangles, 36)[cells][:, UPPER].t().contiguous(),
+        max_cells=index.max_cells)
 
 
 def reduce_table(y_loc: torch.Tensor, gather_base: torch.Tensor) -> torch.Tensor:

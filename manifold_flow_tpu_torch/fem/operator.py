@@ -77,7 +77,8 @@ def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperato
     comes from `kernels.fem.frame_factors_rhs` (or `assembly.frame_factors`),
     which builds it together with the right-hand side. The frame-independent
     tables are computed in the mesh dtype and cast to g's dtype; K1's tile
-    tables come from the vertex table on the host (one copy each way).
+    tables take the mesh's cached index tables (`assembly.mesh_cell_tiles`,
+    built on the host once per mesh) and gather the cells' data from them.
     """
     dtype = g.dtype
     dof = assembly.local_dof_indices(mesh)
@@ -90,7 +91,8 @@ def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperato
         w_scale=(mesh.areas / 12.0).to(dtype),
         lambda_=float(lambda_),
         gather_base=gather_base,
-        tiles=assembly.vertex_tiles(gather_base, dof, blocks2),
+        tiles=assembly.vertex_tiles(gather_base, dof, blocks2,
+                                    index=assembly.mesh_cell_tiles(mesh)),
     )
 
 

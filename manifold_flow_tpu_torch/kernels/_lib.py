@@ -30,7 +30,7 @@ _ARGTYPES = {
     # fem_kernels.cu, pcg_kernels.cu (kernels.fem)
     "fem_matvec": [_P] * 5 + [_D] + [_P] * 5 + [_I] * 9 + [_P],
     "jacobi_blocks": [_P] * 3 + [_D] + [_P] * 2 + [_I] * 4 + [_P],
-    "frame_factors_rhs": [_P] * 11 + [_I] * 4 + [_P],
+    "frame_factors_rhs": [_P] * 14 + [_I] * 8 + [_P],
     "pcg_dot": [_P] * 3 + [_I] * 2 + [_P],
     "pcg_update": [_P] * 12 + [_I] * 3 + [_P],
     "pcg_direction": [_P] * 4 + [_I] * 2 + [_P],

@@ -193,26 +193,42 @@ def plain_jacobi_blocks(g, reg, areas, lambda_, gather_base) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ K4
+# K4's frames a block (a cell's geometry is read once for them): 2 in
+# float64 and 4 in float32, 105 KB of g and scales at the 12.5k tiles.
+RHS_FRAMES = {torch.float32: 4, torch.float64: 2}
+
+
 def frame_factors_rhs(potentials: torch.Tensor, potentials_next: torch.Tensor,
                       times: torch.Tensor, triangles: torch.Tensor,
                       grad_w: torch.Tensor, basis: torch.Tensor,
-                      areas: torch.Tensor, gather_base: torch.Tensor
+                      areas: torch.Tensor, gather_base: torch.Tensor,
+                      tiles: assembly.CellTiles | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4 `frame_factors_rhs<T>`: the a1 factors g (T, M, 3, 2) and the RHS
     f (T, 2N) of frames k = 0..T-1 from a (T+1, N) movie.
 
     g uses potentials[k]; f uses dI = (potentials_next[k+1] - potentials[k])
     / (times[k+1] - times[k]). triangles (M, 3) int32; grad_w (M, 3, 3);
-    basis (N, 2, 3); areas (M,); gather_base (N, C) int32.
+    basis (N, 2, 3); areas (M,); gather_base (N, C) int32; tiles
+    (assembly.cell_tiles of gather_base, built here where not given; the
+    plain version reads gather_base instead).
 
     Replaces fem/assembly.py:61 `frame_factors` + :99 `rhs_vector` and their
     DF twins in fem/df_operator.py:181-235 (B1). Runs once per solve. Bound by
-    memory traffic, ~94 MB in f64 at the bench shapes: it writes g and the
-    local RHS (28.2 MB each), reads the local RHS back in the reduction and
-    writes f (4.9 MB); the movie (2.5 MB, read twice) and geometry are
-    small. Design: one thread per (frame, triangle) writes g and the local
-    RHS, then K1's phase-2 kernel reduces the local RHS to vertices in table
-    order.
+    memory traffic: in f64 it writes g (28.2 MB at the bench shapes, 114.7 MB
+    at 12.5k) and f (4.9 / 19.5 MB) and reads the movie twice (2.5 / 9.8 MB
+    each) and the mesh tables. Design: one launch, a block per (tile of
+    `tiles.size` consecutive vertices, RHS_FRAMES frames), as K1's. Its
+    threads compute every cell incident to the tile (halo cells again in
+    each tile that touches them) into shared memory, one thread a cell
+    holding the cell's geometry in registers for all the block's frames:
+    the six g values and the three corner scales of the local RHS. Then
+    each vertex sums g * scale over its entries in gather_base's column
+    order, and the block writes g of the cells it owns (`tiles.owned`),
+    consecutive threads on consecutive elements. g and f are the first
+    design's bit for bit (one thread per (frame, triangle) writing g and a
+    (T, M, 6) local RHS to device memory, then a second launch summing it
+    per vertex), which the local RHS's round trip no longer costs.
     """
     dtype = _float_dtype("potentials", potentials)
     t1, n = potentials.shape
@@ -231,15 +247,28 @@ def frame_factors_rhs(potentials: torch.Tensor, potentials_next: torch.Tensor,
         return plain_frame_factors_rhs(potentials, potentials_next, times,
                                        triangles, grad_w, basis, areas,
                                        gather_base)
+    if tiles is None:
+        tiles = assembly.cell_tiles(gather_base, m)
+    n_tiles, n_listed = -(-n // tiles.size), tiles.cells.shape[0]
+    _check("tiles.cell_ptr", tiles.cell_ptr, torch.int32, (n_tiles + 1,))
+    _check("tiles.cells", tiles.cells, torch.int32, (n_listed,))
+    _check("tiles.gather", tiles.gather, torch.int32, (n, c))
+    _check("tiles.own_ptr", tiles.own_ptr, torch.int32, (n_tiles + 1,))
+    _check("tiles.owned", tiles.owned, torch.int32, (m,))
+    _on_cuda(potentials, tiles.cell_ptr, tiles.cells, tiles.gather, tiles.own_ptr,
+             tiles.owned)
+    frames = RHS_FRAMES[dtype]  # fewer where the tables would overflow
+    while frames > 1 and frames * tiles.max_cells * 9 * potentials.element_size() > SMEM_BYTES:
+        frames //= 2
     device = potentials.device
     g = torch.empty((t, m, 3, 2), dtype=dtype, device=device)
-    f_loc = torch.empty((t, m, 6), dtype=dtype, device=device)
     f = torch.empty((t, 2 * n), dtype=dtype, device=device)
     _launch("frame_factors_rhs", dtype, device, potentials.data_ptr(),
             potentials_next.data_ptr(), times.data_ptr(), triangles.data_ptr(),
             grad_w.data_ptr(), basis.data_ptr(), areas.data_ptr(),
-            gather_base.data_ptr(), g.data_ptr(), f_loc.data_ptr(),
-            f.data_ptr(), t, m, n, c)
+            tiles.cell_ptr.data_ptr(), tiles.cells.data_ptr(), tiles.gather.data_ptr(),
+            tiles.own_ptr.data_ptr(), tiles.owned.data_ptr(), g.data_ptr(),
+            f.data_ptr(), t, m, n, c, tiles.size, n_tiles, tiles.max_cells, frames)
     return g, f
 
 

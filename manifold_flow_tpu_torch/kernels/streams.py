@@ -241,9 +241,16 @@ def pack_walks(next_: torch.Tensor, seeds: torch.Tensor, lengths: torch.Tensor,
     walks (offsets an exclusive cumsum of the lengths) are what
     ops/streamline.py:733 `_gather_packed` produced; rows (offsets
     seed * (max_steps + 1) into a buffer prefilled with PAD_INDEX) are
-    `trace_frames`' (B11). Bound by the same chain of dependent loads as
-    `trace_walks`, over the kept walks only, plus the ids written. Design:
-    one thread per walk re-walks its seed.
+    `trace_frames`' (B11). Bound by the ids written (70.9 MB at 12.5k
+    vertices, more than L2 holds) and the hop table read. Design: a block
+    takes consecutive walks, loads each of their frames' rows of next_
+    into shared memory (16-byte loads; read from device memory instead
+    where a row passes the 227 KB a block may hold, N above about 54k) and
+    chases one walk a thread there. Walks that lie back to back in `out`
+    are staged in windows of 4096 ids and written with coalesced stores;
+    elsewhere each thread stores its walk where it lies. Any seeds, lengths
+    and offsets; seeds in frame order (the stage's) load each row once a
+    block.
     """
     t, n = next_.shape[0], next_.shape[-1]
     k = seeds.shape[0]

@@ -52,14 +52,16 @@ def build_rhs(mesh: TriMesh, potentials: torch.Tensor, times: torch.Tensor,
     `frame_factors_rhs` kernel builds both in one pass. `potentials_next`
     supports the reference's optional second movie I_k_2 for the time
     derivative (utils/compute_optical_flow.py:174-176); it defaults to
-    `potentials`. The mesh tables are cast to the movie's dtype.
+    `potentials`. The mesh tables are cast to the movie's dtype; the kernel's
+    tiles are the mesh's cached ones, which the operator's K1 shares.
     """
     dtype = potentials.dtype
     nxt = potentials if potentials_next is None else potentials_next
     return kfem.frame_factors_rhs(
         potentials.contiguous(), nxt.contiguous(), times.contiguous(),
         mesh.triangles, mesh.grad_w.to(dtype), mesh.basis.to(dtype),
-        mesh.areas.to(dtype), assembly.gather_base_table(mesh))
+        mesh.areas.to(dtype), assembly.gather_base_table(mesh),
+        assembly.mesh_cell_tiles(mesh))
 
 
 def _chunked_velocity_fields(mesh: TriMesh, potentials: torch.Tensor,

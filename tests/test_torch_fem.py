@@ -237,3 +237,84 @@ def test_operator_carries_tiles_of_its_table(systems):
                 out[:, v + n] += smem[:, e + 1]
     want_y = assembly.reduce_table(y_loc, op.gather_base)
     assert rel_err(out.numpy(), want_y.numpy()) <= MATVEC_F64
+
+
+@pytest.mark.parametrize("size", [7, 64, 256])
+@pytest.mark.parametrize("name", ["plane", "sphere"])
+def test_cell_tiles_own_every_cell_once(name, size):
+    """K4's ownership: every cell is owned by exactly one tile, the first
+    that lists it; a tile's owned cells are among its own, named by their
+    index there, ascending; the index tables are K1's."""
+    mesh = _tile_meshes()[name]
+    base = assembly.gather_base_table(mesh)
+    m = mesh.n_triangles
+    ct = assembly.cell_tiles(base, m, size)
+    k1 = assembly.vertex_tiles(base, assembly.local_dof_indices(mesh),
+                               assembly.a2_blocks(mesh), size)
+    for key in ("size", "cell_ptr", "cells", "gather", "max_cells"):
+        a, b = getattr(ct, key), getattr(k1, key)
+        assert a == b if isinstance(a, int) else torch.equal(a, b)
+    ptr, cells = ct.cell_ptr.numpy(), ct.cells.numpy()
+    own_ptr, owned = ct.own_ptr.numpy(), ct.owned.numpy()
+    assert owned.shape == (m,) and own_ptr[0] == 0 and own_ptr[-1] == m
+    assert len(own_ptr) == len(ptr) and np.all(np.diff(own_ptr) >= 0)
+    owner = np.full(m, -1)
+    for k in range(len(ptr) - 1):
+        local = owned[own_ptr[k]:own_ptr[k + 1]]
+        assert np.all(np.diff(local) > 0)
+        assert np.all((local >= 0) & (local < ptr[k + 1] - ptr[k]))
+        mine = cells[ptr[k] + local]
+        assert np.all(owner[mine] == -1)                     # owned once
+        owner[mine] = k
+    assert np.all(owner >= 0)                                # every cell
+    first = np.full(m, len(ptr))
+    for k in range(len(ptr) - 2, -1, -1):
+        first[cells[ptr[k]:ptr[k + 1]]] = k
+    np.testing.assert_array_equal(owner, first)
+    # The first tile to list a cell is its lowest vertex's.
+    np.testing.assert_array_equal(owner, mesh.triangles.numpy().min(axis=1) // size)
+
+
+def test_cell_tiles_reject_a_cell_no_vertex_names():
+    mesh = _tile_meshes()["plane"]
+    m = mesh.n_triangles
+    base = assembly.gather_base_table(mesh)
+    assembly.cell_tiles(base, m)
+    unnamed = torch.where(base // 6 == 5, 6 * m, base)  # cell 5 padded away
+    with pytest.raises(ValueError, match="1 of .* incident to no vertex"):
+        assembly.cell_tiles(unnamed, m)
+
+
+def test_mesh_cell_tiles_are_cached_and_shared_by_the_operator(port_mesh, systems):
+    """build_rhs's tiles are cached per mesh and the operator's K1 tables
+    take their index tensors."""
+    _, _, _, _, op = systems
+    ct = assembly.mesh_cell_tiles(port_mesh)
+    assert assembly.mesh_cell_tiles(port_mesh) is ct
+    assert op.tiles.cells is ct.cells and op.tiles.gather is ct.gather
+    assert op.tiles.cell_ptr is ct.cell_ptr and op.tiles.max_cells == ct.max_cells
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_ordered_reference_of_k4_matches_plain(port_mesh, wave, dtype):  # noqa: F811
+    """K4's reference in the kernel's order (the cuda tests hold the kernel
+    to it bit for bit) computes the plain version's g and f, to F64 / F32 of
+    the largest entry, and the CPU wrapper, given tiles or not, is the
+    plain version."""
+    from tests.torch_ordered import ordered_frame_factors_rhs
+
+    pot, times = (x.astype(dtype) for x in wave)
+    mesh = port_mesh
+    args = [torch.from_numpy(pot), torch.from_numpy(pot[::-1].copy()),
+            torch.from_numpy(times), mesh.triangles,
+            *(x.to(getattr(torch, dtype)) for x in (mesh.grad_w, mesh.basis, mesh.areas)),
+            assembly.gather_base_table(mesh)]
+    want = kfem.plain_frame_factors_rhs(*args)
+    got = ordered_frame_factors_rhs(*(a.numpy() for a in args))
+    tol = F64 if dtype == "float64" else F32
+    for a, b in zip(got, want):
+        assert a.dtype == np.dtype(dtype)
+        assert rel_err(a, b.numpy()) <= tol
+    with_tiles = kfem.frame_factors_rhs(*args, assembly.mesh_cell_tiles(mesh))
+    for a, b in zip(with_tiles, want):
+        assert torch.equal(a, b)

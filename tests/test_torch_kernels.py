@@ -140,6 +140,37 @@ def test_fem_matvec_matches_plain_on_any_tiling(cuda, dtype, size, shape):
     assert torch.equal(kfem.fem_matvec(*mv, tiles, f=fd), got)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,size", [("bumpy", 256), ("bumpy", 64), ("plane", 256)])
+def test_frame_factors_rhs_is_bitwise_the_ordered_reference(cuda, dtype, shape, size):
+    """K4's g and f equal, bit for bit, the reference that keeps its first
+    design's order (tests/torch_ordered.py): on the bumpy test mesh (one
+    tile of 256 vertices; three of 64, the last ragged) and on a 391-vertex
+    plane patch (two tiles, the last of 135), 5 frames (no multiple of the
+    frames a block takes), with a next movie of its own; one launch a call,
+    two calls bitwise equal."""
+    from tests.torch_ordered import ordered_frame_factors_rhs
+
+    if shape == "bumpy":
+        mesh, pot, times = _problem(cuda)
+    else:
+        mesh = synthetic.plane_patch(nx=23, ny=17, lx=6.0, ly=4.0, device=cuda)
+        pot = _rand(cuda, torch.float64, 6, mesh.n_vertices, seed=7)
+        times = torch.arange(6, dtype=torch.float64, device=cuda) * 0.01
+    base = assembly.gather_base_table(mesh)
+    args = (pot.to(dtype), pot.flip(0).contiguous().to(dtype), times.to(dtype),
+            mesh.triangles, mesh.grad_w.to(dtype), mesh.basis.to(dtype),
+            mesh.areas.to(dtype), base)
+    tiles = assembly.cell_tiles(base, mesh.n_triangles, size)
+    got = _launched("frame_factors_rhs", dtype,
+                    lambda: kfem.frame_factors_rhs(*args, tiles))
+    want = ordered_frame_factors_rhs(*(a.cpu().numpy() for a in args))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), torch.from_numpy(b))
+    again = kfem.frame_factors_rhs(*args, tiles)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 def _update_pair(x, r, p, ap, dinv, rz, pap):
     """pcg_update and its plain version on copies of the same state."""
     outs = []
@@ -686,8 +717,28 @@ def test_stream_kernels_match_plain(cuda, dtype, quirks):
     assert int(lengths.max()) > 4
 
 
+def _pack_pair(hops, seeds, lens, offsets, size, fill=-7):
+    """pack_walks and its plain version into two buffers of `size` ids
+    prefilled with `fill`; the kernel's launch is checked."""
+    outs = [torch.full((size,), fill, dtype=torch.int32, device=hops.device)
+            for _ in range(2)]
+    _launched("pack_walks", None,
+              lambda: kst.pack_walks(hops, seeds, lens, offsets, outs[0]))
+    kst.plain_pack_walks(hops, seeds, lens, offsets, outs[1])
+    torch.cuda.synchronize()
+    return outs
+
+
+def _packed(lens):
+    """Offsets of walks back to back (an exclusive cumsum) and their total."""
+    offsets = torch.cumsum(lens, 0, dtype=torch.int64) - lens
+    return offsets, int(lens.sum())
+
+
 def test_walk_kernels_match_plain_on_random_graphs(cuda):
-    """Random functional graphs: long tails and cycles, walks past the cap."""
+    """Random functional graphs: long tails and cycles, walks past the cap;
+    the kept walks packed back to back and every walk in its row of
+    max_steps + 1 ids, as trace_frames lays them out."""
     gen = torch.Generator().manual_seed(3)
     hops = torch.randint(0, 3000, (3, 3000), generator=gen, dtype=torch.int32)
     hops[1] = torch.roll(torch.arange(3000, dtype=torch.int32), 1)  # one 3000-cycle
@@ -701,14 +752,57 @@ def test_walk_kernels_match_plain_on_random_graphs(cuda):
     for min_length in (1, 40):
         seeds = torch.nonzero(flat >= min_length)[:, 0]
         lens = flat[seeds].contiguous()
-        offsets = torch.cumsum(lens, 0, dtype=torch.int64) - lens
-        total = int(lens.sum())
-        outs = [torch.full((total + 5,), -7, dtype=torch.int32, device=cuda)
-                for _ in range(2)]
-        _launched("pack_walks", None,
-                  lambda: kst.pack_walks(hops, seeds, lens, offsets, outs[0]))
-        kst.plain_pack_walks(hops, seeds, lens, offsets, outs[1])
+        offsets, total = _packed(lens)
+        outs = _pack_pair(hops, seeds, lens, offsets, total + 5)
         assert torch.equal(outs[0], outs[1]) and bool((outs[0][-5:] == -7).all())
+    seeds = torch.arange(flat.numel(), device=cuda)
+    outs = _pack_pair(hops, seeds, flat.contiguous(), seeds * 257, flat.numel() * 257,
+                      fill=-1)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("layout", ["packed", "rows", "shuffled"])
+@pytest.mark.parametrize("n", [3000, 60000])
+def test_pack_walks_matches_plain_on_any_walks(cuda, layout, n):
+    """K14's pack entry on walks of 0 to 9000 ids (more than a block's
+    4096-id window), a frame with no walk (frame 1 of 3), rows of 3000
+    vertices (in shared memory) and of 60000 (past its 227 KB: read from
+    device memory); walks back to back, each in a row of its own with room
+    to spare, or back to back in a shuffled seed order (several runs of
+    one frame in a block). Ids outside the walks stay untouched."""
+    rng = np.random.default_rng(n)
+    hops = rng.integers(0, n, (3, n), dtype=np.int32)
+    hops[0, :n // 2] = np.arange(1, n // 2 + 1)             # a long path
+    hops = torch.from_numpy(hops).to(cuda)
+    seeds = np.concatenate([rng.choice(n, 700, replace=False),
+                            2 * n + rng.choice(n, 700, replace=False)])
+    seeds[:3] = [0, 1, 2]                                    # on the path
+    seeds = np.sort(seeds)
+    lens = rng.integers(0, 300, seeds.size).astype(np.int32)
+    lens[:6] = [9000, 4097, 4096, 0, 1, 5000]
+    if layout == "shuffled":
+        order = rng.permutation(seeds.size)
+        seeds, lens = seeds[order], lens[order]
+    seeds = torch.from_numpy(seeds).to(cuda)
+    lens = torch.from_numpy(lens).to(cuda)
+    if layout == "rows":
+        offsets = torch.arange(seeds.numel(), device=cuda) * 9100 + 3
+        size = seeds.numel() * 9100 + 10
+    else:
+        offsets, size = _packed(lens)
+        size += 3
+    outs = _pack_pair(hops, seeds, lens, offsets, size)
+    assert torch.equal(outs[0], outs[1])
+    assert int((outs[0] != -7).sum()) == int(lens.sum())
+
+
+def test_pack_walks_of_no_seeds_writes_nothing(cuda):
+    hops = torch.zeros((2, 50), dtype=torch.int32, device=cuda)
+    none = torch.zeros(0, dtype=torch.int64, device=cuda)
+    out = torch.full((8,), -7, dtype=torch.int32, device=cuda)
+    kst.pack_walks(hops, none, none.to(torch.int32), none, out)
+    torch.cuda.synchronize()
+    assert bool((out == -7).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
