@@ -597,7 +597,7 @@ def against_first_rhs(card: str, args, tiles, suffix: str) -> None:
     def run_frames(frames):
         def run():
             g, f = outputs()
-            _launched(main(*(x.data_ptr() for x in args), tiles.cell_ptr.data_ptr(),
+            _launched(main(*(x.data_ptr() for x in args[:7]), tiles.cell_ptr.data_ptr(),
                            tiles.cells.data_ptr(), tiles.gather.data_ptr(),
                            tiles.own_ptr.data_ptr(), tiles.owned.data_ptr(),
                            g.data_ptr(), f.data_ptr(), t, m, n, c, tiles.size, n_tiles,
