@@ -256,7 +256,7 @@ def bound_of(nbytes: int, ops: float, mm_ops: float, ctype: str = "double") -> t
 # them: a wrapper's time in a profiled run is the sum of its kernels' times.
 WRAPPER_OF = {
     "fem_tile_kernel": "fem_matvec", "jacobi_kernel": "jacobi_blocks",
-    "frame_factors_rhs_kernel": "frame_factors_rhs", "gather_kernel": "frame_factors_rhs",
+    "frame_factors_rhs_kernel": "frame_factors_rhs",
     "dot_kernel": "pcg_dot", "update_kernel": "pcg_update",
     "direction_kernel": "pcg_direction", "coarse_a2_kernel": "coarse_assemble",
     "assemble_kernel": "coarse_assemble", "assemble_mean_kernel": "coarse_assemble",
@@ -540,155 +540,6 @@ def check_rhs(checks: KernelChecks, mesh, pot, times, suffix: str = "") -> None:
                    lambda: kfem.plain_frame_factors_rhs(*args), TOL_F64,
                    inputs=args, ops=(pot.shape[0] - 1) * (75 * n_tri + 6 * n_vert),
                    launches_key="frame_factors_rhs<double>")
-    for dtype in (torch.float64, torch.float32):
-        against_first_rhs(checks.card, tuple(
-            a.to(dtype) if a.is_floating_point() else a for a in args), tiles, suffix)
-
-
-def comparison_entry(name: str, suffix: str, argtypes):
-    """This build's entry point `name` of a design kept only for the
-    comparison (K4's and K14's first designs, their variants), with its
-    types; `suffix` is f32, f64 or i32."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import library
-
-    fn = getattr(library(), f"mf_{name}_{suffix}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launched(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-
-def against_first_rhs(card: str, args, tiles, suffix: str) -> None:
-    """K4 against its first design (a thread per (frame, triangle) writing g
-    and the local RHS, then a second launch summing it per vertex) on the
-    same inputs: g and f bitwise, device times in turns; then the new design
-    at F = 1, 2, 4 frames a block, each bitwise equal too, in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import fem as kfem
-
-    pot, nxt, times, tris, grad_w, basis, areas, base = args
-    dtype = pot.dtype
-    sfx = "f32" if dtype == torch.float32 else "f64"
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    first = comparison_entry("frame_factors_rhs_first", sfx, [p] * 11 + [i] * 4 + [p])
-    main = comparison_entry("frame_factors_rhs", sfx, [p] * 14 + [i] * 8 + [p])
-    t, n, m, c = pot.shape[0] - 1, pot.shape[1], tris.shape[0], base.shape[1]
-    n_tiles = tiles.cell_ptr.numel() - 1
-
-    def outputs():
-        return (torch.empty((t, m, 3, 2), dtype=dtype, device=pot.device),
-                torch.empty((t, 2 * n), dtype=dtype, device=pot.device))
-
-    def run_first():
-        g, f = outputs()
-        f_loc = torch.empty((t, m, 6), dtype=dtype, device=pot.device)
-        _launched(first(*(x.data_ptr() for x in args), g.data_ptr(), f_loc.data_ptr(),
-                        f.data_ptr(), t, m, n, c,
-                        torch.cuda.current_stream().cuda_stream), "frame_factors_rhs")
-        return g, f
-
-    def run_frames(frames):
-        def run():
-            g, f = outputs()
-            _launched(main(*(x.data_ptr() for x in args[:7]), tiles.cell_ptr.data_ptr(),
-                           tiles.cells.data_ptr(), tiles.gather.data_ptr(),
-                           tiles.own_ptr.data_ptr(), tiles.owned.data_ptr(),
-                           g.data_ptr(), f.data_ptr(), t, m, n, c, tiles.size, n_tiles,
-                           tiles.max_cells, frames,
-                           torch.cuda.current_stream().cuda_stream), "frame_factors_rhs")
-            return g, f
-        return run
-
-    def this():
-        return kfem.frame_factors_rhs(*args, tiles)
-    got, want = this(), run_first()
-    same = [torch.equal(a, b) for a, b in zip(got, want)]
-    us = [device_us(fn, mine=own_kernel) for fn in (this, run_first, run_first, this)]
-    frames = (1, 2, 4)
-    equal = [all(torch.equal(a, b) for a, b in zip(run_frames(fr)(), got))
-             for fr in frames]
-    sweep = [device_us(run_frames(fr), mine=own_kernel) for fr in frames + frames[::-1]]
-    ctype = "float" if dtype == torch.float32 else "double"
-    print(f"[parent] frame_factors_rhs<{ctype}>{suffix}: g, f bitwise equal to the "
-          f"first design's: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against "
-          f"the first design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns); frames a "
-          f"block, bitwise the default's {equal}: " + ", ".join(
-              f"F={fr} {fmt_us(a)} / {fmt_us(b)}"
-              for fr, a, b in zip(frames, sweep[:3], sweep[::-1][:3])) + f"; on {card}",
-          flush=True)
-    if not (all(same) and all(equal)):
-        raise AssertionError(f"frame_factors_rhs<{ctype}>{suffix} differs from its "
-                             f"first design")
-
-
-def against_first_pack(card: str, pk, suffix: str) -> None:
-    """K14's pack entry against its first design (one thread per walk
-    chasing `next` in device memory) on the same packed walks: ids equal,
-    device times in turns; the walks a block and the ids a window swept, in
-    turns; and, on the rows layout of trace_frames (every seed, offsets
-    seed * (MAX_STEPS + 1)), both designs in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import streams as kst
-
-    hops, seeds, lens, offsets = pk
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    first = comparison_entry("pack_walks_first", "i32", [p] * 5 + [i] * 2 + [p])
-    variant = comparison_entry("pack_walks_variant", "i32", [p] * 5 + [i] * 4 + [p])
-    n = hops.shape[1]
-
-    def call(fn, seeds, lens, offsets, size, *extra):
-        def run():
-            out = torch.full((size,), -1, dtype=torch.int32, device=hops.device)
-            _launched(fn(hops.data_ptr(), seeds.data_ptr(), lens.data_ptr(),
-                         offsets.data_ptr(), out.data_ptr(), seeds.numel(), n, *extra,
-                         torch.cuda.current_stream().cuda_stream), "pack_walks")
-            return out
-        return run
-    total = int(lens.sum())
-
-    def this():
-        out = torch.full((total,), -1, dtype=torch.int32, device=hops.device)
-        return kst.pack_walks(hops, seeds, lens, offsets, out)
-    want = call(first, seeds, lens, offsets, total)()
-    same = torch.equal(this(), want)
-    us = [device_us(fn, mine=own_kernel) for fn in
-          (this, call(first, seeds, lens, offsets, total),
-           call(first, seeds, lens, offsets, total), this)]
-    cases = [(256, 4096), (512, 4096), (1024, 4096), (512, 2048), (512, 8192)]
-    equal = [torch.equal(call(variant, seeds, lens, offsets, total, *c)(), want)
-             for c in cases]
-    sweep = [device_us(call(variant, seeds, lens, offsets, total, *c), mine=own_kernel)
-             for c in cases + cases[::-1]]
-    k = len(cases)
-    line = (f"[parent] pack_walks<int>{suffix}: ids equal to the first design's: {same}; "
-            f"device {fmt_us(us[0])} / {fmt_us(us[3])} against the first design's "
-            f"{fmt_us(us[1])} / {fmt_us(us[2])} (in turns); walks a block and ids a "
-            f"window, equal {equal}: " + ", ".join(
-                f"{a}x{b} {fmt_us(x)} / {fmt_us(y)}"
-                for (a, b), x, y in zip(cases, sweep[:k], sweep[::-1][:k])))
-    if not suffix:  # trace_frames' rows at the bench shapes (313 MB of ids)
-        width = MAX_STEPS + 1
-        every = torch.arange(hops.numel(), device=hops.device)
-        flat = kst.trace_walks(hops, MAX_STEPS).reshape(-1).contiguous()
-        rows = (every, flat, every * width, hops.numel() * width)
-        rows_same = torch.equal(call(variant, *rows, 0, 0)(), call(first, *rows)())
-        rows_us = [device_us(call(fn, *rows, *extra), mine=own_kernel) for fn, extra in
-                   ((variant, (0, 0)), (first, ()), (first, ()), (variant, (0, 0)))]
-        line += (f"; rows layout ({every.numel()} walks), equal {rows_same}: device "
-                 f"{fmt_us(rows_us[0])} / {fmt_us(rows_us[3])} against the first "
-                 f"design's {fmt_us(rows_us[1])} / {fmt_us(rows_us[2])}")
-        same = same and rows_same
-    print(line + f"; on {card}", flush=True)
-    if not (same and all(equal)):
-        raise AssertionError(f"pack_walks<int>{suffix} differs from its first design")
 
 
 def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
@@ -1121,7 +972,6 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
                        lambda: (kst.pack_walks(*pk, bufs[0]),),
                        lambda: (kst.plain_pack_walks(*pk, bufs[1]),), 0.0,
                        inputs=pk, launches_key="pack_walks<int>")
-        against_first_pack(checks.card, pk, suffix)
         print(f"[kernels] walks{suffix}: {lengths.numel()} seeds, "
               f"{float((lengths >= MIN_LENGTH).float().mean()):.4f} of them >= "
               f"{MIN_LENGTH} vertices, longest {int(lengths.max())}, {total} packed ids",

@@ -368,87 +368,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// K4's first design, kept for the comparison on the card: one thread per
-// (frame, triangle) writes the a1 factors
-// g[t, m, c, a] = (sum_k I_t[v_k] grad_w[m, k]) . e_{v_c}^a and the local RHS
-// f_loc[t, m, c, a] = g * (dI_c + sum dI) * A/12 with
-// dI = (I_next[t + 1] - I[t]) / (times[t + 1] - times[t])
-// (fem/assembly.py:61-71, 99-106; solve/api.py:83-86).
-template <typename T>
-__global__ void frame_factors_rhs_first_kernel(
-    const T* __restrict__ pot, const T* __restrict__ nxt,
-    const T* __restrict__ times, const int32_t* __restrict__ tris,
-    const T* __restrict__ grad_w, const T* __restrict__ basis,
-    const T* __restrict__ areas, T* __restrict__ g, T* __restrict__ f_loc,
-    int64_t n_frames, int64_t n_tri, int64_t n_vert) {
-  const int64_t i = global_index();
-  if (i >= n_frames * n_tri) return;
-  const int64_t t = i / n_tri;
-  const int64_t m = i - t * n_tri;
-  const T* pt = pot + t * n_vert;
-  const T* qt = nxt + (t + 1) * n_vert;
-  const T step = times[t + 1] - times[t];
-  int32_t v[3];
-  T val[3], di[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    v[c] = tris[m * 3 + c];
-    val[c] = pt[v[c]];
-    di[c] = (qt[v[c]] - val[c]) / step;
-  }
-  const T* gw = grad_w + m * 9;
-  T gm[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    gm[d] = val[0] * gw[d] + val[1] * gw[3 + d] + val[2] * gw[6 + d];
-  }
-  const T s = di[0] + di[1] + di[2];
-  const T w12 = areas[m] / T(12);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const T scale = (di[c] + s) * w12;
-    const T* e = basis + static_cast<int64_t>(v[c]) * 6;
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const T gca = gm[0] * e[a * 3] + gm[1] * e[a * 3 + 1] + gm[2] * e[a * 3 + 2];
-      g[i * 6 + c * 2 + a] = gca;
-      f_loc[i * 6 + c * 2 + a] = gca * scale;
-    }
-  }
-}
-
-// K4's reduction: one thread per (frame, vertex) sums the vertex's incident
-// (cell, slot) entries of the local RHS in table order, the order of
-// fem/operator.py:79-84.
-template <typename T>
-__global__ void gather_kernel(const T* __restrict__ y_loc,
-                              const int32_t* __restrict__ gather_base,
-                              const T* __restrict__ f, T* __restrict__ out,
-                              int64_t n_frames, int64_t n_vert, int64_t n_cols,
-                              int64_t n_local) {
-  const int64_t i = global_index();
-  if (i >= n_frames * n_vert) return;
-  const int64_t t = i / n_vert;
-  const int64_t v = i - t * n_vert;
-  const T* yt = y_loc + t * n_local;
-  const int32_t* row = gather_base + v * n_cols;
-  T a = T(0), b = T(0);
-  for (int64_t c = 0; c < n_cols; ++c) {
-    const int32_t base = row[c];
-    if (base < 0 || base >= n_local) continue;  // padded entry
-    a += yt[base];
-    b += yt[base + 1];
-  }
-  const int64_t o = t * 2 * n_vert + v;
-  if (f != nullptr) {
-    out[o] = f[o] - a;
-    out[o + n_vert] = f[o + n_vert] - b;
-  } else {
-    out[o] = a;
-    out[o + n_vert] = b;
-  }
-}
-
 template <typename T, int F>
 cudaError_t launch_fem_tiles(const void* x, const void* cell_dof,
                              const void* tile_blocks2, const void* g,
@@ -575,31 +494,6 @@ int frame_factors_rhs(const void* pot, const void* nxt, const void* times,
   return static_cast<int>(e);
 }
 
-template <typename T>
-int frame_factors_rhs_first(const void* pot, const void* nxt, const void* times,
-                            const void* tris, const void* grad_w, const void* basis,
-                            const void* areas, const void* gather_base, void* g,
-                            void* f_loc, void* f, int64_t n_frames, int64_t n_tri,
-                            int64_t n_vert, int64_t n_cols, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_loc = n_frames * n_tri;
-  const int64_t n_out = n_frames * n_vert;
-  if (n_loc > 0) {
-    frame_factors_rhs_first_kernel<T><<<blocks_for(n_loc), kThreads, 0, s>>>(
-        static_cast<const T*>(pot), static_cast<const T*>(nxt),
-        static_cast<const T*>(times), static_cast<const int32_t*>(tris),
-        static_cast<const T*>(grad_w), static_cast<const T*>(basis),
-        static_cast<const T*>(areas), static_cast<T*>(g),
-        static_cast<T*>(f_loc), n_frames, n_tri, n_vert);
-  }
-  if (n_out > 0) {
-    gather_kernel<T><<<blocks_for(n_out), kThreads, 0, s>>>(
-        static_cast<const T*>(f_loc), static_cast<const int32_t*>(gather_base),
-        nullptr, static_cast<T*>(f), n_frames, n_vert, n_cols, 6 * n_tri);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace mf
 
 #define MF_FEM_ENTRY_POINTS(SUFFIX, T)                                        \
@@ -635,17 +529,6 @@ int frame_factors_rhs_first(const void* pot, const void* nxt, const void* times,
                                     owned, g, f, n_frames, n_tri, n_vert,     \
                                     n_cols, tile_size, n_tiles, max_cells,    \
                                     frames_per_block, stream);                \
-  }                                                                           \
-  extern "C" int mf_frame_factors_rhs_first_##SUFFIX(                         \
-      const void* pot, const void* nxt, const void* times, const void* tris,  \
-      const void* grad_w, const void* basis, const void* areas,               \
-      const void* gather_base, void* g, void* f_loc, void* f,                 \
-      int64_t n_frames, int64_t n_tri, int64_t n_vert, int64_t n_cols,        \
-      void* stream) {                                                         \
-    return mf::frame_factors_rhs_first<T>(pot, nxt, times, tris, grad_w,     \
-                                          basis, areas, gather_base, g,       \
-                                          f_loc, f, n_frames, n_tri, n_vert,  \
-                                          n_cols, stream);                    \
   }
 
 MF_FEM_ENTRY_POINTS(f32, float)

@@ -261,11 +261,11 @@ __global__ void trace_walks_kernel(const int32_t* __restrict__ next,
 // window and keeping its place in its walk across windows (any length),
 // and each window is written with coalesced stores. Elsewhere (trace_frames'
 // rows, offsets seed * (max_steps + 1)) each thread stores its walk where it
-// lies. A frame row that does not fit beside the stage (N above about 54k)
+// lies. A frame row that does not fit beside the window (N above about 54k)
 // is read through __ldg instead. `out` is written at the walks' positions
 // only, whatever the offsets.
 constexpr int kPackThreads = 256;
-constexpr int kPackStage = 4096;    // ids a window (16 KB)
+constexpr int kPackStage = 4096;    // ids a window (16 KB; a multiple of 4, so rows stay aligned)
 constexpr int kPackWalks = 1024;    // walks a block at most
 
 template <bool kRowShared>
@@ -273,9 +273,9 @@ __global__ void __launch_bounds__(kPackThreads)
     pack_walks_kernel(const int32_t* __restrict__ next, const int64_t* __restrict__ seeds,
                       const int32_t* __restrict__ lengths,
                       const int64_t* __restrict__ offsets, int32_t* __restrict__ out,
-                      int64_t n_seeds, int64_t n_vert, int64_t per_block, int stage) {
+                      int64_t n_seeds, int64_t n_vert, int64_t per_block) {
   extern __shared__ __align__(16) int32_t pack_smem[];
-  int32_t* staged = pack_smem;          // [stage]
+  int32_t* staged = pack_smem;          // [kPackStage]
   __shared__ int run_end;
   const int64_t k_begin = static_cast<int64_t>(blockIdx.x) * per_block;
   const int64_t k_stop = k_begin + per_block < n_seeds ? k_begin + per_block : n_seeds;
@@ -295,7 +295,7 @@ __global__ void __launch_bounds__(kPackThreads)
     // The row starts 0-3 ids into its space, so that its 16-byte groups in
     // device memory land on 16-byte groups in shared memory.
     const int64_t head = head_to_16(f, n_vert);
-    int32_t* row = pack_smem + stage + ((4 - head) & 3);  // [n_vert] where kRowShared
+    int32_t* row = pack_smem + kPackStage + ((4 - head) & 3);  // [n_vert] where kRowShared
     if (kRowShared) {
       const int64_t n_vec = (n_vert - head) / 4;
       for (int64_t i = threadIdx.x; i < head; i += kPackThreads) row[i] = __ldg(f + i);
@@ -319,8 +319,8 @@ __global__ void __launch_bounds__(kPackThreads)
         const int64_t span0 = __ldg(offsets + r0);
         const int64_t span1 = __ldg(offsets + last) + __ldg(lengths + last);
         int32_t j = 0;  // the next step of this thread's walk
-        for (int64_t w0 = span0; w0 < span1; w0 += stage) {
-          const int64_t w1 = w0 + stage < span1 ? w0 + stage : span1;
+        for (int64_t w0 = span0; w0 < span1; w0 += kPackStage) {
+          const int64_t w1 = w0 + kPackStage < span1 ? w0 + kPackStage : span1;
           for (; j < len && off + j < w1; ++j) {
             staged[off + j - w0] = x;
             x = kRowShared ? row[x] : __ldg(f + x);
@@ -344,26 +344,6 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
-// The first design, kept for the comparison on the card.
-__global__ void pack_walks_first_kernel(const int32_t* __restrict__ next,
-                                        const int64_t* __restrict__ seeds,
-                                        const int32_t* __restrict__ lengths,
-                                        const int64_t* __restrict__ offsets,
-                                        int32_t* __restrict__ out, int64_t n_seeds,
-                                        int64_t n_vert) {
-  const int64_t k = global_index();
-  if (k >= n_seeds) return;
-  const int64_t seed = seeds[k];
-  const int32_t* f = next + (seed / n_vert) * n_vert;
-  int32_t x = static_cast<int32_t>(seed % n_vert);
-  int32_t* dst = out + offsets[k];
-  const int32_t len = lengths[k];
-  for (int32_t j = 0; j < len; ++j) {
-    dst[j] = x;
-    x = f[x];
-  }
-}
-
 int trace_walks(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
                 int64_t max_steps, void* stream) {
   const int64_t total = n_frames * n_vert;
@@ -380,8 +360,8 @@ int trace_walks(const void* next, void* lengths, int64_t n_frames, int64_t n_ver
 template <bool kRowShared>
 cudaError_t launch_pack_walks(const void* next, const void* seeds, const void* lengths,
                               const void* offsets, void* out, int64_t n_seeds,
-                              int64_t n_vert, int64_t per_block, int stage,
-                              size_t smem, cudaStream_t s) {
+                              int64_t n_vert, int64_t per_block, size_t smem,
+                              cudaStream_t s) {
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t e = cudaFuncSetAttribute(
         pack_walks_kernel<kRowShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -392,13 +372,15 @@ cudaError_t launch_pack_walks(const void* next, const void* seeds, const void* l
   pack_walks_kernel<kRowShared><<<static_cast<unsigned int>(blocks), kPackThreads, smem, s>>>(
       static_cast<const int32_t*>(next), static_cast<const int64_t*>(seeds),
       static_cast<const int32_t*>(lengths), static_cast<const int64_t*>(offsets),
-      static_cast<int32_t*>(out), n_seeds, n_vert, per_block, stage);
+      static_cast<int32_t*>(out), n_seeds, n_vert, per_block);
   return cudaGetLastError();
 }
 
 // Walks a block: enough blocks for about eight an SM, in whole rounds of
 // kPackThreads walks, at most kPackWalks (a block loads its frame row once
-// for all of them).
+// for all of them): 256 at the bench shapes, 512 at 12.5k vertices, each
+// the fastest of 256, 512 and 1024 there on the H100 (windows of 2048 and
+// 8192 ids were slower at 12.5k).
 inline int64_t pack_walks_per_block(int64_t n_seeds) {
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) == cudaSuccess) {
@@ -412,38 +394,24 @@ inline int64_t pack_walks_per_block(int64_t n_seeds) {
 
 int pack_walks(const void* next, const void* seeds, const void* lengths,
                const void* offsets, void* out, int64_t n_seeds, int64_t n_vert,
-               int64_t per_block, int64_t stage, void* stream) {
+               void* stream) {
   if (n_seeds <= 0 || n_vert <= 0) return static_cast<int>(cudaGetLastError());
-  if (per_block <= 0) per_block = pack_walks_per_block(n_seeds);
-  stage = stage <= 0 ? kPackStage : (stage + 3) / 4 * 4;  // rows stay 16-byte aligned
+  const int64_t per_block = pack_walks_per_block(n_seeds);
   int device = 0, optin = 48 * 1024;
   if (cudaGetDevice(&device) == cudaSuccess) {
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
-  const size_t staged = static_cast<size_t>(stage) * sizeof(int32_t);
+  const size_t staged = static_cast<size_t>(kPackStage) * sizeof(int32_t);
   const size_t with_row = staged + static_cast<size_t>(n_vert + 3) * sizeof(int32_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 64 bytes of static shared memory (run_end) stay beside the dynamic part.
   const cudaError_t e =
       with_row + 64 <= static_cast<size_t>(optin)
           ? launch_pack_walks<true>(next, seeds, lengths, offsets, out, n_seeds, n_vert,
-                                    per_block, static_cast<int>(stage), with_row, s)
+                                    per_block, with_row, s)
           : launch_pack_walks<false>(next, seeds, lengths, offsets, out, n_seeds, n_vert,
-                                     per_block, static_cast<int>(stage), staged, s);
+                                     per_block, staged, s);
   return static_cast<int>(e);
-}
-
-int pack_walks_first(const void* next, const void* seeds, const void* lengths,
-                     const void* offsets, void* out, int64_t n_seeds, int64_t n_vert,
-                     void* stream) {
-  if (n_seeds > 0) {
-    pack_walks_first_kernel<<<blocks_for(n_seeds), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(next), static_cast<const int64_t*>(seeds),
-        static_cast<const int32_t*>(lengths), static_cast<const int64_t*>(offsets),
-        static_cast<int32_t*>(out), n_seeds, n_vert);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mf
@@ -471,24 +439,5 @@ extern "C" int mf_trace_walks_i32(const void* next, void* lengths, int64_t n_fra
 extern "C" int mf_pack_walks_i32(const void* next, const void* seeds,
                                  const void* lengths, const void* offsets, void* out,
                                  int64_t n_seeds, int64_t n_vert, void* stream) {
-  return mf::pack_walks(next, seeds, lengths, offsets, out, n_seeds, n_vert, 0, 0,
-                        stream);
-}
-
-// For the comparison on the card: the walks a block and the ids a window
-// chosen by the caller, and the first design.
-extern "C" int mf_pack_walks_variant_i32(const void* next, const void* seeds,
-                                         const void* lengths, const void* offsets,
-                                         void* out, int64_t n_seeds, int64_t n_vert,
-                                         int64_t per_block, int64_t stage, void* stream) {
-  return mf::pack_walks(next, seeds, lengths, offsets, out, n_seeds, n_vert, per_block,
-                        stage, stream);
-}
-
-extern "C" int mf_pack_walks_first_i32(const void* next, const void* seeds,
-                                       const void* lengths, const void* offsets,
-                                       void* out, int64_t n_seeds, int64_t n_vert,
-                                       void* stream) {
-  return mf::pack_walks_first(next, seeds, lengths, offsets, out, n_seeds, n_vert,
-                              stream);
+  return mf::pack_walks(next, seeds, lengths, offsets, out, n_seeds, n_vert, stream);
 }

@@ -193,9 +193,10 @@ def plain_jacobi_blocks(g, reg, areas, lambda_, gather_base) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ K4
-# K4's frames a block (a cell's geometry is read once for them): 2 in
-# float64 and 4 in float32, 105 KB of g and scales at the 12.5k tiles.
-RHS_FRAMES = {torch.float32: 4, torch.float64: 2}
+# K4's frames a block (a cell's geometry is read once for them): 2, the
+# fastest of 1, 2 and 4 on the H100 in both types; 105 KB of g and scales
+# in float64 at the 12.5k tiles, two blocks an SM.
+RHS_FRAMES = {torch.float32: 2, torch.float64: 2}
 
 
 def frame_factors_rhs(potentials: torch.Tensor, potentials_next: torch.Tensor,
