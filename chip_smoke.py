@@ -89,9 +89,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (97, 394, 394) input (a row length of 2 mod 4) and on one matrix shared
      by every frame (coarse_a1='mean'), and K3's pcg_dot, K1 (float32
      matvec, float64 residual, beside torch.sparse.mm) and K3's update at
-     these shapes. Then K13-K15 at the same
-     shapes on the 12.5k refined solve's field (float64), and K16-K17 as in
-     phase 5 at 12.5k.
+     these shapes, with K4 (float64, its bound the movie, the mesh tables,
+     g and f; not the local RHS its first design stored) and K2 (float32)
+     there. Then K5-K7 and K12-K15 at the same shapes on the 12.5k refined
+     solve's field (float64), and K16-K17 as in phase 5 at 12.5k.
  10. twolevel: the 12.5k problem through compute_velocity_fields(method=
      'refined', tol=1e-6, max_iter=4000, precond='auto'): every frame
      converged, each of K8-K11 launched, RMSE against spsolve over 2 frames
@@ -268,20 +269,46 @@ WRAPPER_OF = {
     "compact_detected_kernel": "compact_detected"}
 
 
-def solve_device_us(events, launches: dict) -> dict:
-    """Device µs per launch of each of the package's kernels in a profiled
-    run: the self device time of the wrapper's device kernels (named
-    mf::<kernel><type> or, untemplated, by their first argument's type)
-    over the wrapper's launches in that run, by LAUNCHES key."""
+MANGLED_TYPES = {"f": "float", "d": "double", "i": "int"}
+
+
+def kernel_of(key: str) -> tuple | None:
+    """(kernel, ctype) of a device event of the package's kernels, named
+    mf::<kernel><type> or, untemplated, by its first argument's type; or
+    by its mangled name (_ZN2mf<len><kernel>I<type>... or E<pointer to
+    type>...), which the profiler gives at times. None for other events."""
     import re
 
+    hit = re.search(r"mf::(\w+?)(?:<(\w+)|\((\w+))", key)
+    if hit is not None:
+        return hit.group(1), hit.group(2) or hit.group(3)
+    hit = re.search(r"_ZN2mf(\d+)", key)
+    if hit is None:
+        return None
+    name = key[hit.end():hit.end() + int(hit.group(1))]
+    code = re.match(r"(?:I|EP?K?)(\w)", key[hit.end() + len(name):])
+    return (name, MANGLED_TYPES.get(code.group(1))) if code else None
+
+
+def solve_device_us(events, launches: dict) -> dict:
+    """Device µs per launch of each of the package's kernels in a profiled
+    run: the self device time of the wrapper's device kernels (`kernel_of`)
+    over the wrapper's launches in that run, by LAUNCHES key. Prints the
+    kernels that launched with no device event found."""
     total: dict[str, float] = {}
     for e in events:
-        hit = re.search(r"mf::(\w+?)(?:<(\w+)|\((\w+))", e.key)
-        if hit is None or hit.group(1) not in WRAPPER_OF:
+        hit = kernel_of(e.key)
+        if hit is None or hit[0] not in WRAPPER_OF:
             continue
-        key = f"{WRAPPER_OF[hit.group(1)]}<{hit.group(2) or hit.group(3)}>"
+        key = f"{WRAPPER_OF[hit[0]]}<{hit[1]}>"
         total[key] = total.get(key, 0.0) + e.self_device_time_total
+    lost = sorted(k for k, n in launches.items() if n > 0 and k not in total)
+    if lost:
+        print("[profile] launched with no device event found (not measured): "
+              + ", ".join(f"{k} x{launches[k]}" for k in lost) + "; unmatched device "
+              "events: " + "; ".join(f"{e.key[:70]!r} x{e.count}" for e in events
+                                     if kernel_of(e.key) is None and "mf" in e.key),
+              flush=True)
     return {k: us / launches[k] for k, us in total.items() if launches.get(k, 0) > 0}
 
 

@@ -248,7 +248,9 @@ __global__ void jacobi_kernel(const T* __restrict__ g,
 // cells it owns (every cell has one owner) from shared memory, consecutive
 // threads on consecutive elements. Each value keeps the first design's
 // expression, with its fused multiply-adds written out as nvcc formed them
-// there, so g and f are that design's bit for bit.
+// there, so g and f are that design's bit for bit. F = 2 in both types:
+// on the H100 F = 1 (the geometry read again each frame) and F = 4 (one
+// block an SM) were slower.
 // a0 b0 + a1 b1 + a2 b2 as nvcc contracted it in the first design: the
 // first product fused into the first sum, the third into the second.
 template <typename T>
@@ -487,7 +489,6 @@ int frame_factors_rhs(const void* pot, const void* nxt, const void* times,
   switch (frames_per_block) {
     case 1: MF_FRAME_FACTORS(1); break;
     case 2: MF_FRAME_FACTORS(2); break;
-    case 4: MF_FRAME_FACTORS(4); break;
     default: break;
   }
 #undef MF_FRAME_FACTORS

@@ -196,7 +196,7 @@ def plain_jacobi_blocks(g, reg, areas, lambda_, gather_base) -> torch.Tensor:
 # K4's frames a block (a cell's geometry is read once for them): 2, the
 # fastest of 1, 2 and 4 on the H100 in both types; 105 KB of g and scales
 # in float64 at the 12.5k tiles, two blocks an SM.
-RHS_FRAMES = {torch.float32: 2, torch.float64: 2}
+RHS_FRAMES = 2
 
 
 def frame_factors_rhs(potentials: torch.Tensor, potentials_next: torch.Tensor,
@@ -258,7 +258,7 @@ def frame_factors_rhs(potentials: torch.Tensor, potentials_next: torch.Tensor,
     _check("tiles.owned", tiles.owned, torch.int32, (m,))
     _on_cuda(potentials, tiles.cell_ptr, tiles.cells, tiles.gather, tiles.own_ptr,
              tiles.owned)
-    frames = RHS_FRAMES[dtype]  # fewer where the tables would overflow
+    frames = RHS_FRAMES  # 1 where the tables would overflow
     while frames > 1 and frames * tiles.max_cells * 9 * potentials.element_size() > SMEM_BYTES:
         frames //= 2
     device = potentials.device
