@@ -217,8 +217,9 @@ def frame_factors_rhs(potentials: torch.Tensor, potentials_next: torch.Tensor,
     Replaces fem/assembly.py:61 `frame_factors` + :99 `rhs_vector` and their
     DF twins in fem/df_operator.py:181-235 (B1). Runs once per solve. Bound by
     memory traffic: in f64 it writes g (28.2 MB at the bench shapes, 114.7 MB
-    at 12.5k) and f (4.9 / 19.5 MB) and reads the movie twice (2.5 / 9.8 MB
-    each) and the mesh tables. Design: one launch, a block per (tile of
+    at 12.5k) and f (4.9 / 19.5 MB) and reads the movie (2.5 / 9.8 MB; twice
+    where potentials_next is another) and the mesh tables. Design: one
+    launch, a block per (tile of
     `tiles.size` consecutive vertices, RHS_FRAMES frames), as K1's. Its
     threads compute every cell incident to the tile (halo cells again in
     each tile that touches them) into shared memory, one thread a cell
@@ -226,10 +227,10 @@ def frame_factors_rhs(potentials: torch.Tensor, potentials_next: torch.Tensor,
     the six g values and the three corner scales of the local RHS. Then
     each vertex sums g * scale over its entries in gather_base's column
     order, and the block writes g of the cells it owns (`tiles.owned`),
-    consecutive threads on consecutive elements. g and f are the first
-    design's bit for bit (one thread per (frame, triangle) writing g and a
-    (T, M, 6) local RHS to device memory, then a second launch summing it
-    per vertex), which the local RHS's round trip no longer costs.
+    consecutive threads on consecutive elements. g and f are, bit for bit,
+    those of the first design, which wrote g and a (T, M, 6) local RHS to
+    device memory, one thread per (frame, triangle), and summed the local
+    RHS per vertex in a second launch.
     """
     dtype = _float_dtype("potentials", potentials)
     t1, n = potentials.shape
