@@ -222,20 +222,25 @@ def device_us(fn, calls: int = 20, mine=None, before=None) -> float | None:
     `mine` accepts, where given (a kernel's own time, not its wrapper's
     allocations). Back to back, inputs that fit the 50 MB L2 stay there;
     `before()`, where given, runs before each call (`mine` must then leave
-    its kernels out). None where the profiler recorded no device time."""
+    its kernels out). The profiler at times records no device event in a
+    window: one more window is taken then, and None is returned where that
+    records none either."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and (mine is None or mine(e.key)))
-    return total / calls if total > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA" and (mine is None or mine(e.key)))
+        if total > 0:
+            return total / calls
+    return None
 
 
 def fmt_us(x: float | None) -> str:
@@ -2258,10 +2263,11 @@ def main() -> int:
     # its library call on the device, then by the device time the main path
     # loses to the bound, launches x (device us - bound us), the device us
     # as a profiled solve runs the kernel where one does, else back to back.
-    timed = {k: row for k, row in checks.rows.items()
-             if default[k] > 0 and row["device_us"] is not None}
-    slower = [k for k, row in timed.items() if row["library_device_us"] is not None
-              and row["device_us"] > row["library_device_us"]]
+    timed = {k: row for k, row in checks.rows.items() if default[k] > 0 and (
+        row["solve_device_us"] or row["device_us"]) is not None}
+    slower = [k for k, row in timed.items() if None not in (
+        row["device_us"], row["library_device_us"])
+        and row["device_us"] > row["library_device_us"]]
     loss = {k: default[k] * ((row["solve_device_us"] or row["device_us"])
                              - row["bound_ms"] * 1e3)
             for k, row in timed.items()}
