@@ -2005,14 +2005,6 @@ def profile_fields(mesh, pot, v_k, card: str) -> None:
               flush=True)
 
 
-def lead_in(device) -> None:
-    """One small kernel, finished, at the start of a profiled window: the
-    profiler at times loses the first kernels of a window, and a solve's
-    first kernel is K4 (lost in most profiled solves without this)."""
-    torch.ones(1024, device=device).sum()
-    torch.cuda.synchronize()
-
-
 def solve(mesh, pot, times, **kwargs):
     from manifold_flow_tpu_torch import compute_velocity_fields
 
@@ -2175,7 +2167,6 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lead_in(device)
         t0 = time.perf_counter()
         res = solve(mesh, pot, times, **refined)
         v_world, speed, v_max = velocity_to_world_and_speed(res.v_k, mesh.basis)
@@ -2208,7 +2199,6 @@ def main() -> int:
     solve(mesh12, pot12, times12, **refined)  # warm: tables cached, kernels built
     reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lead_in(device)
         t0 = time.perf_counter()
         solve(mesh12, pot12, times12, **refined)
         wall_us = (time.perf_counter() - t0) * 1e6
