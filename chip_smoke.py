@@ -271,7 +271,9 @@ WRAPPER_OF = {
     "prolong_dot_kernel": "coarse_prolong_dot",
     "recombine_speed_kernel": "recombine_speed",
     "detect_vertex_kernel": "detect_singular", "detect_triangle_kernel": "detect_singular",
-    "compact_detected_kernel": "compact_detected"}
+    "compact_detected_masks_kernel": "compact_detected",
+    "compact_detected_snap_kernel": "compact_detected",
+    "compact_detected_merge_kernel": "compact_detected"}
 
 
 MANGLED_TYPES = {"f": "float", "d": "double", "i": "int"}
@@ -572,6 +574,169 @@ def check_rhs(checks: KernelChecks, mesh, pot, times, suffix: str = "") -> None:
                    lambda: kfem.plain_frame_factors_rhs(*args), TOL_F64,
                    inputs=args, ops=(pot.shape[0] - 1) * (75 * n_tri + 6 * n_vert),
                    launches_key="frame_factors_rhs<double>")
+    # The float32 instance: no path launches it (the solves assemble in
+    # float64); its row gives it a bound beside its time.
+    pot32 = pot.to(torch.float32)
+    args32 = (pot32, pot32, times.to(torch.float32), mesh.triangles,
+              mesh.grad_w.to(torch.float32), mesh.basis.to(torch.float32),
+              mesh.areas.to(torch.float32), args[-1])
+    checks.compare("frame_factors_rhs<float>" + suffix, FEM_CU,
+                   "manifold_flow_tpu/fem/assembly.py:61",
+                   lambda: kfem.frame_factors_rhs(*args32, tiles),
+                   lambda: kfem.plain_frame_factors_rhs(*args32), TOL_F32,
+                   inputs=args32, ops=(pot.shape[0] - 1) * (75 * n_tri + 6 * n_vert),
+                   launches_key="frame_factors_rhs<float>")
+
+
+def comparison_entry(name: str, suffix: str, argtypes):
+    """This build's entry point `name` of a design kept only for the
+    comparison (K7's and K14's first designs, their variants), with its
+    types; `suffix` is f32, f64 or i32."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import library
+
+    fn = getattr(library(), f"mf_{name}_{suffix}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b equal bit for bit (floats by their bits, NaNs included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+        return torch.equal(a.view(ints), b.view(ints))
+    return torch.equal(a, b)
+
+
+def against_first_compact(card: str, comp, suffix: str, sweep: bool) -> None:
+    """K7 against its first design (a block a frame, a warp a slot scanning
+    every vertex) on the same inputs: every output bit for bit, device
+    times in turns; where `sweep`, the new design with G slots a snap block
+    and the vertices cut into V parts, each bit for bit too, in turns."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import analysis as kan
+
+    vmask, imask, ipoint, points, cap = comp
+    dtype = points.dtype
+    sfx, ctype = ("f32", "float") if dtype == torch.float32 else ("f64", "double")
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    first = comparison_entry("compact_detected_first", sfx, [p] * 10 + [i] * 5 + [p])
+    variant = comparison_entry("compact_detected_variant", sfx,
+                               [p] * 10 + [i] * 7 + [p] * 3)
+    t, n, m = vmask.shape[0], vmask.shape[1], imask.shape[1]
+    cap_v, cap_i = min(cap, n), min(cap, m)
+    dev = points.device
+
+    def outputs():
+        return (torch.empty((t, cap_v), dtype=torch.int32, device=dev),
+                torch.empty((t, cap_v), dtype=torch.bool, device=dev),
+                torch.empty((t, cap_i), dtype=torch.int32, device=dev),
+                torch.empty((t, cap_i), dtype=torch.bool, device=dev),
+                torch.empty((t, cap_i, 3), dtype=dtype, device=dev),
+                torch.empty((t, cap_i), dtype=torch.int32, device=dev))
+    heads = (vmask.data_ptr(), imask.data_ptr(), ipoint.data_ptr(), points.data_ptr())
+
+    def run_first():
+        out = outputs()
+        _launched(first(*heads, *(o.data_ptr() for o in out), t, n, m, cap_v, cap_i,
+                        torch.cuda.current_stream().cuda_stream), "compact_detected")
+        return out
+
+    def run_shape(group, splits):
+        part_d2 = torch.empty((t, cap_i, splits), dtype=dtype, device=dev)
+        part_i = torch.empty((t, cap_i, splits), dtype=torch.int32, device=dev)
+
+        def run():
+            out = outputs()
+            _launched(variant(*heads, *(o.data_ptr() for o in out), t, n, m, cap_v,
+                              cap_i, group, splits, part_d2.data_ptr(),
+                              part_i.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream),
+                      "compact_detected")
+            return out
+        return run
+
+    def this():
+        return kan.compact_detected(*comp)
+    got = this()
+    same = [same_bits(a, b) for a, b in zip(got, run_first())]
+    us = [device_us(fn, mine=own_kernel) for fn in (this, run_first, run_first, this)]
+    line = (f"[parent] compact_detected<{ctype}>{suffix}: outputs bitwise the first "
+            f"design's: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against the "
+            f"first design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns)")
+    equal = []
+    if sweep:
+        shapes = [(g, v) for g in (4, 8, 16) for v in (1, 2, 4)]
+        equal = [all(same_bits(a, b) for a, b in zip(run_shape(*sh)(), got))
+                 for sh in shapes]
+        times = [device_us(run_shape(*sh), mine=own_kernel)
+                 for sh in shapes + shapes[::-1]]
+        k = len(shapes)
+        line += (f"; G slots a snap block x V vertex parts, bitwise the default's "
+                 f"{equal}: " + ", ".join(
+                     f"G={g} V={v} {fmt_us(a)} / {fmt_us(b)}"
+                     for (g, v), a, b in zip(shapes, times[:k], times[::-1][:k])))
+    print(line + f"; on {card}", flush=True)
+    if not (all(same) and all(equal)):
+        raise AssertionError(f"compact_detected<{ctype}>{suffix} differs from its "
+                             f"first design")
+
+
+def against_first_trace(card: str, hops, suffix: str) -> None:
+    """K14's length entry against its first design (one thread a seed
+    chasing `next` in device memory) on the same graph: lengths equal,
+    device times in turns; then threads a block x seeds a block swept, each
+    equal too, in turns."""
+    import ctypes
+
+    from manifold_flow_tpu_torch.kernels import streams as kst
+
+    p, i = ctypes.c_void_p, ctypes.c_int64
+    first = comparison_entry("trace_walks_first", "i32", [p] * 2 + [i] * 3 + [p])
+    variant = comparison_entry("trace_walks_variant", "i32", [p] * 2 + [i] * 5 + [p])
+    t, n = hops.shape
+
+    def call(fn, *extra):
+        def run():
+            out = torch.empty((t, n), dtype=torch.int32, device=hops.device)
+            _launched(fn(hops.data_ptr(), out.data_ptr(), t, n, MAX_STEPS, *extra,
+                         torch.cuda.current_stream().cuda_stream), "trace_walks")
+            return out
+        return run
+
+    def this():
+        return kst.trace_walks(hops, MAX_STEPS)
+    got = this()
+    same = torch.equal(got, call(first)())
+    us = [device_us(fn, mine=own_kernel) for fn in (this, call(first), call(first), this)]
+    shapes = [(256, 256), (256, 512), (256, 1024), (256, 2048), (512, 512),
+              (512, 1024), (512, 2048), (1024, 1024), (1024, 2048)]
+    equal = [torch.equal(call(variant, *sh)(), got) for sh in shapes]
+    times = [device_us(call(variant, *sh), mine=own_kernel)
+             for sh in shapes + shapes[::-1]]
+    k = len(shapes)
+    sms = torch.cuda.get_device_properties(hops.device).multi_processor_count
+    rounds = min(-(-t * n // (8 * sms * 256)), -(-n // 256))
+    print(f"[parent] trace_walks<int>{suffix}: lengths equal to the first design's: "
+          f"{same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against the first "
+          f"design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns; the default "
+          f"256 threads x {rounds * 256} seeds a block); threads x seeds a block, "
+          f"equal {equal}: " + ", ".join(
+              f"{a}x{b} {fmt_us(x)} / {fmt_us(y)}"
+              for (a, b), x, y in zip(shapes, times[:k], times[::-1][:k]))
+          + f"; on {card}", flush=True)
+    if not (same and all(equal)):
+        raise AssertionError(f"trace_walks<int>{suffix} differs from its first design")
 
 
 def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
@@ -696,6 +861,8 @@ def check_analysis_kernels(checks: KernelChecks, mesh, v_k, suffix: str = "",
                        lambda: kan.plain_compact_detected(*comp), tol,
                        nbytes=moved, ops=8 * t * cap * n_vert,
                        launches_key=f"compact_detected<{ctype}>")
+        against_first_compact(checks.card, comp, suffix,
+                              sweep=dtype == torch.float64)
 
 
 def restriction_coo(r_blk, members) -> torch.Tensor:
@@ -992,6 +1159,7 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
                        lambda: (kst.trace_walks(hops, MAX_STEPS),),
                        lambda: (kst.plain_trace_walks(hops, MAX_STEPS),), 0.0,
                        inputs=(hops,), launches_key="trace_walks<int>")
+        against_first_trace(checks.card, hops, suffix)
         lengths = kst.trace_walks(hops, MAX_STEPS).reshape(-1)
         seeds = torch.nonzero(lengths >= MIN_LENGTH)[:, 0]
         lens = lengths[seeds].contiguous()
@@ -2279,6 +2447,9 @@ def main() -> int:
               f"{k}{'*' if timed[k]['solve_device_us'] else ''} {loss[k]:.1f}"
               for k in sorted(loss, key=lambda k: -loss[k]))
           + "; off the default path: " + (", ".join(off_path) or "none"), flush=True)
+    print("[kernels] rows of instances no phase launches (0 launches, left out of the "
+          "JSON line): " + (", ".join(k for k in checks.rows if driven[k] == 0)
+                            or "none"), flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": row["source"],
          "replaces": row["replaces"], "launches": driven[k],

@@ -200,15 +200,270 @@ __global__ void detect_triangle_kernel(
   }
 }
 
+// ------------------------------------------------------------------ K7
+// Compaction of both detection masks and the nearest-vertex snap of the
+// interior slots (ops/singularity.py:394 compact_detected with
+// geometry/topology.py:26 closest_vertex, B8), two launches behind one
+// entry point. Bound on this card: the snap's float64 arithmetic. A call
+// computes T S N distances d^2 = (dx^2 + dy^2) + dz^2, 8 operations each,
+// every one rounded on its own in the plain version's order (no fused
+// multiply-add, or the centers would move), and compares each with the
+// running minimum: at 12.5k vertices (T = 97 frames, S = 16 slots) 19.5 M
+// distances. Issued one by one, those operations run at half the 34
+// TFLOP/s that counts a fused multiply-add as two: about 9.2 us of
+// arithmetic, against 4.58 us from the bound's formula. The masks (3.6 MB
+// at 12.5k) are read once.
+// The first design ran one block of 256 threads a frame (97 blocks on 132
+// SMs): its compaction ranked 256 mask bytes a round with two barriers and
+// a serial loop over the warps' totals, and one warp a slot then scanned
+// all N vertices in strided 8-byte loads from device memory.
+// This design:
+//  * compaction, a block per (mask, frame): each thread takes a contiguous
+//    run of the row and counts its set bytes from 16-byte loads; one
+//    block-wide scan of those counts gives each thread the first masked and
+//    unmasked slots of its run, and only threads whose slots fall under the
+//    capacity walk their run again, writing ids, valid flags and, for the
+//    interior mask, each slot's point;
+//  * snap, a block per (frame, group of G slots): the block stages tiles of
+//    `points` in shared memory with coalesced loads, so that one read of a
+//    vertex serves the G slots; each thread keeps, in registers, the
+//    minimum (d^2, index) of its vertices for every slot of the group; the
+//    block merges them with warp shuffles, then across warps in shared
+//    memory, in argmin_before's order, a total order, so any merge tree
+//    gives torch.argmin's answer (ties to the lower index, a NaN first).
+
+constexpr int kSnapTile = 1024;  // vertices a tile staged in shared memory (24 KB in f64)
+constexpr int kSnapSlots = 4;    // slots a snap block serves (G)
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// Exclusive prefix sum of v over the block's kThreads threads; the block's
+// total goes to *total. scratch: kWarps ints of shared memory, free again on
+// return.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* scratch, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? scratch[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < kWarps) scratch[lane] = w;
+  }
+  __syncthreads();
+  const int before = (warp > 0 ? scratch[warp - 1] : 0) + x - v;
+  *total = scratch[kWarps - 1];
+  __syncthreads();
+  return before;
+}
+
+// Set (non-zero) bytes among the 16 of v.
+__device__ __forceinline__ int set_bytes(uint4 v) {
+  return __popc(__vsetne4(v.x, 0u)) + __popc(__vsetne4(v.y, 0u)) +
+         __popc(__vsetne4(v.z, 0u)) + __popc(__vsetne4(v.w, 0u));
+}
+
 // The first `cap` ids of a stable argsort of ~mask[0..n) into ids/valid:
 // the masked ids ascending, then the lowest unmasked ids ascending
-// (ops/singularity.py:413-418). Block-wide: a first pass counts the masked
-// entries; the second ranks each entry by warp ballot plus the per-warp
-// totals in shared memory. cap <= n, so every slot is written.
-__device__ void compact_row(const uint8_t* __restrict__ mask, int64_t n,
-                           int64_t cap, int32_t* __restrict__ ids,
-                           uint8_t* __restrict__ valid, int* warp_masked,
-                           int* warp_unmasked) {
+// (ops/singularity.py:413-418), also where more than `cap` ids are masked.
+// Where `src` is given, slot k's point (src[3 id .. 3 id + 3)) goes to
+// pts[3 k ..]. Every thread of the block calls it.
+template <typename T>
+__device__ void compact_row(const uint8_t* __restrict__ mask, int64_t n, int64_t cap,
+                            int32_t* __restrict__ ids, uint8_t* __restrict__ valid,
+                            const T* __restrict__ src, T* __restrict__ pts, int* scratch) {
+  // Thread i's run [lo, hi) of the row: whole 16-byte groups from the first
+  // 16-byte boundary; thread 0 also takes the bytes before it, the last
+  // thread those after the last whole group.
+  const int64_t head = head_to_16(mask, n);
+  const int64_t n_vec = (n - head) / 16;
+  const int64_t per = (n_vec + kThreads - 1) / kThreads;
+  const int64_t i = threadIdx.x;
+  const int64_t k0 = min64(i * per, n_vec), k1 = min64(k0 + per, n_vec);
+  const int64_t lo = i == 0 ? 0 : head + 16 * k0;
+  const int64_t hi = i == kThreads - 1 ? n : head + 16 * k1;
+  const uint4* vec = reinterpret_cast<const uint4*>(mask + head);
+  int c = 0;
+  for (int64_t j = lo; j < head + 16 * k0; ++j) c += mask[j] != 0;
+#pragma unroll 4
+  for (int64_t k = k0; k < k1; ++k) c += set_bytes(__ldg(vec + k));
+  for (int64_t j = head + 16 * k1; j < hi; ++j) c += mask[j] != 0;
+  int n_masked;
+  const int before = block_exclusive_scan(c, scratch, &n_masked);
+  int64_t slot_m = before;                    // the run's next masked slot
+  int64_t slot_u = n_masked + (lo - before);  // and its next unmasked one
+  for (int64_t j = lo; j < hi && (slot_m < cap || slot_u < cap); ++j) {
+    const bool f = mask[j] != 0;
+    const int64_t slot = f ? slot_m++ : slot_u++;
+    if (slot < cap) {
+      ids[slot] = static_cast<int32_t>(j);
+      valid[slot] = f;
+      if (src != nullptr) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) pts[slot * 3 + d] = src[j * 3 + d];
+      }
+    }
+  }
+}
+
+// K7, compaction: block (0, t) compacts frame t's vertex mask, block (1, t)
+// its interior mask with the slots' points.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) compact_detected_masks_kernel(
+    const uint8_t* __restrict__ vertex_mask, const uint8_t* __restrict__ interior_mask,
+    const T* __restrict__ interior_point, int32_t* __restrict__ vertex_ids,
+    uint8_t* __restrict__ vertex_valid, int32_t* __restrict__ interior_ids,
+    uint8_t* __restrict__ interior_valid, T* __restrict__ interior_points,
+    int64_t n_frames, int64_t n_vert, int64_t n_tri, int64_t cap_v, int64_t cap_i) {
+  __shared__ int scratch[kWarps];
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    if (blockIdx.x == 0) {
+      compact_row<T>(vertex_mask + t * n_vert, n_vert, cap_v, vertex_ids + t * cap_v,
+                     vertex_valid + t * cap_v, nullptr, nullptr, scratch);
+    } else {
+      compact_row<T>(interior_mask + t * n_tri, n_tri, cap_i, interior_ids + t * cap_i,
+                     interior_valid + t * cap_i, interior_point + t * n_tri * 3,
+                     interior_points + t * cap_i * 3, scratch);
+    }
+  }
+}
+
+// K7, snap: block (g + groups * split, t) finds, for the G slots g G ..
+// g G + G - 1 of frame t, the nearest vertex among those of `split` (the
+// vertices cut into `splits` consecutive parts). With one part it writes
+// the center; otherwise the part's (d^2, index) minimum, which
+// compact_detected_merge_kernel closes. queries: (T, cap, 3), the compacted points.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
+    const T* __restrict__ points, const T* __restrict__ queries,
+    int32_t* __restrict__ centers, T* __restrict__ part_d2, int32_t* __restrict__ part_i,
+    int64_t n_frames, int64_t n_vert, int64_t cap, int64_t splits) {
+  __shared__ T tile[3 * kSnapTile];
+  __shared__ T red_d2[kWarps][G];
+  __shared__ int red_i[kWarps][G];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t groups = (cap + G - 1) / G;
+  const int64_t group = blockIdx.x % groups, split = blockIdx.x / groups;
+  const int64_t chunk = (n_vert + splits - 1) / splits;
+  const int64_t v_lo = min64(split * chunk, n_vert), v_hi = min64(v_lo + chunk, n_vert);
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    T q[G][3];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int64_t s = group * G + g;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) q[g][d] = s < cap ? queries[(t * cap + s) * 3 + d] : T(0);
+    }
+    // This thread's minimum for each slot over its vertices, taken in
+    // ascending order: the first vertex, then any with a smaller d^2 or a
+    // NaN, until a NaN is held (ties keep the lower index).
+    T best[G];
+    int best_i[G];
+    bool nan_held[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      best[g] = T(0);
+      best_i[g] = -1;
+      nan_held[g] = false;
+    }
+    for (int64_t base = v_lo; base < v_hi; base += kSnapTile) {
+      const int cnt = static_cast<int>(min64(kSnapTile, v_hi - base));
+      const T* src = points + base * 3;
+      for (int j = threadIdx.x; j < 3 * cnt; j += kThreads) tile[j] = __ldg(src + j);
+      __syncthreads();
+      for (int j = threadIdx.x; j < cnt; j += kThreads) {
+        const T px = tile[3 * j], py = tile[3 * j + 1], pz = tile[3 * j + 2];
+        const int v = static_cast<int>(base + j);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const T dx = rn_sub(q[g][0], px), dy = rn_sub(q[g][1], py), dz = rn_sub(q[g][2], pz);
+          const T d2 = rn_add(rn_add(rn_mul(dx, dx), rn_mul(dy, dy)), rn_mul(dz, dz));
+          if (best_i[g] < 0 || (!nan_held[g] && !(d2 >= best[g]))) {
+            best[g] = d2;
+            best_i[g] = v;
+            nan_held[g] = d2 != d2;
+          }
+        }
+      }
+      __syncthreads();  // the tile is consumed
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const T other = __shfl_down_sync(0xffffffffu, best[g], o);
+        const int other_i = __shfl_down_sync(0xffffffffu, best_i[g], o);
+        if (argmin_before(other, other_i, best[g], best_i[g])) {
+          best[g] = other;
+          best_i[g] = other_i;
+        }
+      }
+      if (lane == 0) {
+        red_d2[warp][g] = best[g];
+        red_i[warp][g] = best_i[g];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < G) {
+      const int g = threadIdx.x;
+      T b = red_d2[0][g];
+      int bi = red_i[0][g];
+      for (int w = 1; w < kWarps; ++w) {
+        if (argmin_before(red_d2[w][g], red_i[w][g], b, bi)) {
+          b = red_d2[w][g];
+          bi = red_i[w][g];
+        }
+      }
+      const int64_t s = group * G + g;
+      if (s < cap) {
+        if (splits == 1) {
+          centers[t * cap + s] = bi;
+        } else {
+          part_d2[(t * cap + s) * splits + split] = b;
+          part_i[(t * cap + s) * splits + split] = bi;
+        }
+      }
+    }
+    __syncthreads();  // red_* are rewritten for the next frame
+  }
+}
+
+// K7, closing a snap cut into parts: one thread a (frame, slot) merges its
+// parts' minima in argmin_before's order.
+template <typename T>
+__global__ void compact_detected_merge_kernel(const T* __restrict__ part_d2,
+                                  const int32_t* __restrict__ part_i,
+                                  int32_t* __restrict__ centers, int64_t n_slots,
+                                  int64_t splits) {
+  const int64_t k = global_index();
+  if (k >= n_slots) return;
+  T b = part_d2[k * splits];
+  int bi = part_i[k * splits];
+  for (int64_t s = 1; s < splits; ++s) {
+    if (argmin_before(part_d2[k * splits + s], part_i[k * splits + s], b, bi)) {
+      b = part_d2[k * splits + s];
+      bi = part_i[k * splits + s];
+    }
+  }
+  centers[k] = bi;
+}
+
+// The first design of K7, kept for chip_smoke.py's [parent] lines only.
+__device__ void compact_row_first(const uint8_t* __restrict__ mask, int64_t n,
+                                  int64_t cap, int32_t* __restrict__ ids,
+                                  uint8_t* __restrict__ valid, int* warp_masked,
+                                  int* warp_unmasked) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned int lower = (1u << lane) - 1u;
@@ -257,12 +512,8 @@ __device__ void compact_row(const uint8_t* __restrict__ mask, int64_t n,
   }
 }
 
-// K7: one block per frame compacts both masks to their slots, gathers the
-// interior points of the interior slots, and snaps each of those points to
-// its nearest vertex (geometry/topology.py:26): one warp per slot scans the
-// N vertices for the (d^2, index) minimum, d^2 = sum((q - p)^2).
 template <typename T>
-__global__ void compact_detected_kernel(
+__global__ void compact_detected_first_kernel(
     const uint8_t* __restrict__ vertex_mask,
     const uint8_t* __restrict__ interior_mask,
     const T* __restrict__ interior_point, const T* __restrict__ points,
@@ -273,10 +524,10 @@ __global__ void compact_detected_kernel(
   __shared__ int warp_masked[kWarps];
   __shared__ int warp_unmasked[kWarps];
   const int64_t t = blockIdx.x;
-  compact_row(vertex_mask + t * n_vert, n_vert, cap_v, vertex_ids + t * cap_v,
+  compact_row_first(vertex_mask + t * n_vert, n_vert, cap_v, vertex_ids + t * cap_v,
               vertex_valid + t * cap_v, warp_masked, warp_unmasked);
   int32_t* ids = interior_ids + t * cap_i;
-  compact_row(interior_mask + t * n_tri, n_tri, cap_i, ids,
+  compact_row_first(interior_mask + t * n_tri, n_tri, cap_i, ids,
               interior_valid + t * cap_i, warp_masked, warp_unmasked);
   __syncthreads();
   T* pts = interior_points + t * cap_i * 3;
@@ -365,6 +616,59 @@ int detect_singular(const void* points, const void* tris, const void* v_world,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int G>
+void launch_snap(const void* points, const void* queries, void* centers, void* part_d2,
+                 void* part_i, int64_t n_frames, int64_t n_vert, int64_t cap,
+                 int64_t splits, cudaStream_t s) {
+  const int64_t groups = (cap + G - 1) / G;
+  const dim3 grid(static_cast<unsigned int>(groups * splits), frame_blocks(n_frames));
+  compact_detected_snap_kernel<T, G><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(points), static_cast<const T*>(queries),
+      static_cast<int32_t*>(centers), static_cast<T*>(part_d2),
+      static_cast<int32_t*>(part_i), n_frames, n_vert, cap, splits);
+}
+
+// K7 with G slots a snap block and the vertices cut into `splits` parts
+// (part_d2, part_i: (T, cap_i, splits) scratch where splits > 1).
+template <typename T>
+int compact_detected_shaped(const void* vertex_mask, const void* interior_mask,
+                            const void* interior_point, const void* points,
+                            void* vertex_ids, void* vertex_valid, void* interior_ids,
+                            void* interior_valid, void* interior_points,
+                            void* interior_centers, int64_t n_frames, int64_t n_vert,
+                            int64_t n_tri, int64_t cap_v, int64_t cap_i, int64_t group,
+                            int64_t splits, void* part_d2, void* part_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  if (splits < 1 || (group != 4 && group != 8 && group != 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  compact_detected_masks_kernel<T><<<dim3(2, frame_blocks(n_frames)), kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(vertex_mask), static_cast<const uint8_t*>(interior_mask),
+      static_cast<const T*>(interior_point), static_cast<int32_t*>(vertex_ids),
+      static_cast<uint8_t*>(vertex_valid), static_cast<int32_t*>(interior_ids),
+      static_cast<uint8_t*>(interior_valid), static_cast<T*>(interior_points), n_frames,
+      n_vert, n_tri, cap_v, cap_i);
+  if (cap_i > 0) {
+    if (group == 4) {
+      launch_snap<T, 4>(points, interior_points, interior_centers, part_d2, part_i,
+                        n_frames, n_vert, cap_i, splits, s);
+    } else if (group == 8) {
+      launch_snap<T, 8>(points, interior_points, interior_centers, part_d2, part_i,
+                        n_frames, n_vert, cap_i, splits, s);
+    } else {
+      launch_snap<T, 16>(points, interior_points, interior_centers, part_d2, part_i,
+                         n_frames, n_vert, cap_i, splits, s);
+    }
+    if (splits > 1) {
+      compact_detected_merge_kernel<T><<<blocks_for(n_frames * cap_i), kThreads, 0, s>>>(
+          static_cast<const T*>(part_d2), static_cast<const int32_t*>(part_i),
+          static_cast<int32_t*>(interior_centers), n_frames * cap_i, splits);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int compact_detected(const void* vertex_mask, const void* interior_mask,
                      const void* interior_point, const void* points,
@@ -373,9 +677,23 @@ int compact_detected(const void* vertex_mask, const void* interior_mask,
                      void* interior_centers, int64_t n_frames, int64_t n_vert,
                      int64_t n_tri, int64_t cap_v, int64_t cap_i,
                      void* stream) {
+  return compact_detected_shaped<T>(vertex_mask, interior_mask, interior_point, points,
+                                    vertex_ids, vertex_valid, interior_ids, interior_valid,
+                                    interior_points, interior_centers, n_frames, n_vert,
+                                    n_tri, cap_v, cap_i, kSnapSlots, 1, nullptr, nullptr,
+                                    stream);
+}
+
+template <typename T>
+int compact_detected_first(const void* vertex_mask, const void* interior_mask,
+                           const void* interior_point, const void* points,
+                           void* vertex_ids, void* vertex_valid, void* interior_ids,
+                           void* interior_valid, void* interior_points,
+                           void* interior_centers, int64_t n_frames, int64_t n_vert,
+                           int64_t n_tri, int64_t cap_v, int64_t cap_i, void* stream) {
   if (n_frames > 0) {
-    compact_detected_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads,
-                                 0, static_cast<cudaStream_t>(stream)>>>(
+    compact_detected_first_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads,
+                                       0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(vertex_mask),
         static_cast<const uint8_t*>(interior_mask),
         static_cast<const T*>(interior_point), static_cast<const T*>(points),
@@ -696,6 +1014,32 @@ int classify_candidates(const void* points, const void* basis, const void* neigh
                                    interior_points, interior_centers,           \
                                    n_frames, n_vert, n_tri, cap_v, cap_i,       \
                                    stream);                                     \
+  }                                                                             \
+  extern "C" int mf_compact_detected_first_##SUFFIX(                            \
+      const void* vertex_mask, const void* interior_mask,                       \
+      const void* interior_point, const void* points, void* vertex_ids,         \
+      void* vertex_valid, void* interior_ids, void* interior_valid,             \
+      void* interior_points, void* interior_centers, int64_t n_frames,          \
+      int64_t n_vert, int64_t n_tri, int64_t cap_v, int64_t cap_i,              \
+      void* stream) {                                                           \
+    return mf::compact_detected_first<T>(                                       \
+        vertex_mask, interior_mask, interior_point, points, vertex_ids,         \
+        vertex_valid, interior_ids, interior_valid, interior_points,            \
+        interior_centers, n_frames, n_vert, n_tri, cap_v, cap_i, stream);       \
+  }                                                                             \
+  extern "C" int mf_compact_detected_variant_##SUFFIX(                          \
+      const void* vertex_mask, const void* interior_mask,                       \
+      const void* interior_point, const void* points, void* vertex_ids,         \
+      void* vertex_valid, void* interior_ids, void* interior_valid,             \
+      void* interior_points, void* interior_centers, int64_t n_frames,          \
+      int64_t n_vert, int64_t n_tri, int64_t cap_v, int64_t cap_i,              \
+      int64_t group, int64_t splits, void* part_d2, void* part_i,               \
+      void* stream) {                                                           \
+    return mf::compact_detected_shaped<T>(                                      \
+        vertex_mask, interior_mask, interior_point, points, vertex_ids,         \
+        vertex_valid, interior_ids, interior_valid, interior_points,            \
+        interior_centers, n_frames, n_vert, n_tri, cap_v, cap_i, group,         \
+        splits, part_d2, part_i, stream);                                       \
   }                                                                             \
   extern "C" int mf_classify_candidates_##SUFFIX(                              \
       const void* points, const void* basis, const void* neighbors,             \

@@ -188,26 +188,105 @@ int next_hop(const void* unit, const void* v_world, const void* neighbors,
 // capped at max_steps + 1. On a functional graph that step is mu + lambda
 // (the tail and the cycle of the rho-shaped path), which Brent's cycle
 // detection finds with O(1) state: the walk entry keeps no path.
-// Bound on this card: the chain of dependent loads. The bytes are tiny
-// (next is 1.2 MB at the bench shapes and stays in L2; lengths write
-// 1.2 MB), but each step waits for the previous load, so a call takes
-// about as long as the longest walk's ~3 (mu + lambda) L2 round trips.
-// Design: one thread per seed for the lengths. The pack entry materialises
-// only the walks it is given, each re-walked from its seed (see
-// pack_walks_kernel below).
+//
+// The length entry. Bound on this card: the chain of dependent loads. The
+// bytes are few (next is 4.9 MB at 12.5k vertices x 97 frames, the lengths
+// as much), but each step of a walk waits for the previous load, and a
+// warp lasts as long as its longest walk. The first design ran one thread
+// a seed chasing `next` in device memory: one L2 round trip a step. This
+// design: a block takes a run of consecutive seeds of one frame, loads the
+// frame's row of `next` into shared memory with 16-byte loads (shifted 0-3
+// ids so that they land aligned) and runs each walk's search there, so a
+// step waits on shared memory's latency; a row too large for shared memory
+// (N above about 58k) is read through __ldg instead. The search runs in
+// rounds: the tortoise waits at step p - 1 while the hare takes up to p
+// steps, p = 1, 2, 4, ...; a walk with mu + lambda < cap is found by the
+// first round with p >= max(mu + 1, lambda), so the search stops after the
+// round with p >= min(cap - 1, N) (walk_limit) instead of counting steps.
 
+// The walk length from seed s, capped at cap, over the frame's hops: `row`
+// in shared memory where kRowShared, else `f` in device memory.
+template <bool kRowShared>
+__device__ __forceinline__ int32_t walk_length(const int32_t* row,
+                                               const int32_t* __restrict__ f, int32_t s,
+                                               int64_t cap, int limit) {
+  auto hop = [&](int32_t x) { return kRowShared ? row[x] : __ldg(f + x); };
+  int32_t tortoise = s, hare = hop(s);
+  int power = 1, lam = 1;
+  while (tortoise != hare) {
+    if (lam == power) {
+      if (power >= limit) return static_cast<int32_t>(cap);  // mu + lambda >= cap
+      tortoise = hare;
+      power <<= 1;
+      lam = 0;
+    }
+    hare = hop(hare);
+    ++lam;
+  }
+  if (lam >= cap) return static_cast<int32_t>(cap);
+  // mu: the first index where the walk and its lambda-shifted copy meet.
+  tortoise = s;
+  hare = s;
+  for (int k = 0; k < lam; ++k) hare = hop(hare);
+  int64_t len = lam;
+  while (tortoise != hare && len < cap) {
+    tortoise = hop(tortoise);
+    hare = hop(hare);
+    ++len;
+  }
+  return static_cast<int32_t>(len);
+}
+
+// The last round of the search: the smallest power of two at or above
+// min(cap - 1, n_vert), at least 1 (a walk repeats within N steps).
+inline int walk_limit(int64_t cap, int64_t n_vert) {
+  const int64_t need = cap - 1 < n_vert ? cap - 1 : n_vert;
+  int limit = 1;
+  while (limit < need) limit <<= 1;
+  return limit;
+}
+
+template <bool kRowShared>
 __global__ void trace_walks_kernel(const int32_t* __restrict__ next,
                                    int32_t* __restrict__ lengths, int64_t n_frames,
-                                   int64_t n_vert, int64_t cap) {
+                                   int64_t n_vert, int64_t cap, int limit,
+                                   int64_t per_block) {
+  extern __shared__ __align__(16) int32_t walk_smem[];
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t s1 = s0 + per_block < n_vert ? s0 + per_block : n_vert;
+  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
+    const int32_t* f = next + t * n_vert;
+    const int64_t head = head_to_16(f, n_vert);
+    int32_t* row = walk_smem + ((4 - head) & 3);  // [n_vert] where kRowShared
+    if (kRowShared) {
+      const int64_t n_vec = (n_vert - head) / 4;
+      for (int64_t i = threadIdx.x; i < head; i += blockDim.x) row[i] = __ldg(f + i);
+      const int4* fv = reinterpret_cast<const int4*>(f + head);
+      int4* rv = reinterpret_cast<int4*>(row + head);
+      for (int64_t i = threadIdx.x; i < n_vec; i += blockDim.x) rv[i] = __ldg(fv + i);
+      for (int64_t i = head + 4 * n_vec + threadIdx.x; i < n_vert; i += blockDim.x) {
+        row[i] = __ldg(f + i);
+      }
+      __syncthreads();
+    }
+    for (int64_t s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
+      lengths[t * n_vert + s] =
+          walk_length<kRowShared>(row, f, static_cast<int32_t>(s), cap, limit);
+    }
+    if (kRowShared) __syncthreads();  // the next frame overwrites the row
+  }
+}
+
+// The first design of the length entry, kept for chip_smoke.py's [parent]
+// lines only: one thread per seed chasing `next` in device memory.
+__global__ void trace_walks_first_kernel(const int32_t* __restrict__ next,
+                                         int32_t* __restrict__ lengths, int64_t n_frames,
+                                         int64_t n_vert, int64_t cap) {
   const int64_t total = n_frames * n_vert;
   for (int64_t seed = global_index(); seed < total;
        seed += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int32_t* f = next + (seed / n_vert) * n_vert;
     const int32_t s = static_cast<int32_t>(seed % n_vert);
-    // Brent: the hare steps one vertex at a time; the tortoise jumps to the
-    // hare at every power of two. If mu + lambda <= max_steps = cap - 1 the
-    // hare meets it within 3 (mu + lambda) + 1 < 4 cap steps, so a search cut
-    // at 4 cap steps means the walk outlives the cap.
     int64_t power = 1, lam = 1, steps = 1;
     int32_t tortoise = s, hare = f[s];
     bool found = true;
@@ -227,7 +306,6 @@ __global__ void trace_walks_kernel(const int32_t* __restrict__ next,
     }
     int64_t len = cap;
     if (found && lam < cap) {
-      // mu: the first index where the walk and its lambda-shifted copy meet.
       tortoise = s;
       hare = s;
       for (int64_t k = 0; k < lam; ++k) hare = f[hare];
@@ -344,13 +422,69 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
+constexpr int kWalkThreads = 256;
+
+// Seeds a block of the length entry: enough blocks for about eight an SM
+// over the whole call, in whole rounds of kWalkThreads seeds, at most a
+// frame's row (each block loads its frame's row once for all its seeds).
+inline int64_t trace_walks_per_block(int64_t n_frames, int64_t n_vert) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const int64_t target = 8 * static_cast<int64_t>(sms) * kWalkThreads;
+  const int64_t rounds = (n_frames * n_vert + target - 1) / target;
+  const int64_t row = (n_vert + kWalkThreads - 1) / kWalkThreads;
+  return (rounds < row ? rounds : row) * kWalkThreads;
+}
+
+// The length entry with `threads` threads a block and `per_block` seeds a
+// block (a multiple of `threads`).
+int trace_walks_shaped(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
+                       int64_t max_steps, int64_t threads, int64_t per_block,
+                       void* stream) {
+  if (n_frames <= 0 || n_vert <= 0) return static_cast<int>(cudaGetLastError());
+  const int64_t cap = max_steps + 1;
+  const int limit = walk_limit(cap, n_vert);
+  int device = 0, optin = 48 * 1024;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  const size_t with_row = static_cast<size_t>(n_vert + 3) * sizeof(int32_t);
+  const dim3 grid(static_cast<unsigned int>((n_vert + per_block - 1) / per_block),
+                  frame_blocks(n_frames));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (with_row <= static_cast<size_t>(optin)) {
+    if (with_row > 48 * 1024) {  // above 48 KB only after opting in
+      const cudaError_t e = cudaFuncSetAttribute(
+          trace_walks_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(with_row));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    trace_walks_kernel<true><<<grid, static_cast<unsigned int>(threads), with_row, s>>>(
+        static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
+        n_vert, cap, limit, per_block);
+  } else {
+    trace_walks_kernel<false><<<grid, static_cast<unsigned int>(threads), 0, s>>>(
+        static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
+        n_vert, cap, limit, per_block);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int trace_walks(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
                 int64_t max_steps, void* stream) {
+  return trace_walks_shaped(next, lengths, n_frames, n_vert, max_steps, kWalkThreads,
+                            trace_walks_per_block(n_frames, n_vert), stream);
+}
+
+int trace_walks_first(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
+                      int64_t max_steps, void* stream) {
   const int64_t total = n_frames * n_vert;
   if (total > 0) {
     const int64_t blocks = blocks_for(total) < 65535 * 32 ? blocks_for(total) : 65535 * 32;
-    trace_walks_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    trace_walks_first_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
         n_vert, max_steps + 1);
   }
@@ -434,6 +568,20 @@ MF_STREAM_ENTRY_POINTS(f64, double)
 extern "C" int mf_trace_walks_i32(const void* next, void* lengths, int64_t n_frames,
                                   int64_t n_vert, int64_t max_steps, void* stream) {
   return mf::trace_walks(next, lengths, n_frames, n_vert, max_steps, stream);
+}
+
+extern "C" int mf_trace_walks_first_i32(const void* next, void* lengths,
+                                        int64_t n_frames, int64_t n_vert,
+                                        int64_t max_steps, void* stream) {
+  return mf::trace_walks_first(next, lengths, n_frames, n_vert, max_steps, stream);
+}
+
+extern "C" int mf_trace_walks_variant_i32(const void* next, void* lengths,
+                                          int64_t n_frames, int64_t n_vert,
+                                          int64_t max_steps, int64_t threads,
+                                          int64_t per_block, void* stream) {
+  return mf::trace_walks_shaped(next, lengths, n_frames, n_vert, max_steps, threads,
+                                per_block, stream);
 }
 
 extern "C" int mf_pack_walks_i32(const void* next, const void* seeds,

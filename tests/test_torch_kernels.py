@@ -41,6 +41,7 @@ from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve import coarse
 from manifold_flow_tpu_torch.solve.api import build_rhs
 from tests.torch_rings import synthetic_rings
+from tests.torch_walks import around_the_cap
 
 pytestmark = pytest.mark.cuda
 
@@ -582,6 +583,112 @@ def test_analysis_kernels_match_plain(cuda, dtype):
         args = (vertex_mask, interior_mask, interior_point, points, cap)
         got = _launched("compact_detected", dtype, lambda: kan.compact_detected(*args))
         _assert_same(got, kan.plain_compact_detected(*args), dtype)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit: floats by their bits (NaNs included)."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+        return torch.equal(a.view(ints), b.view(ints))
+    return torch.equal(a, b)
+
+
+# K7 inputs built to break it: (frames, grid columns x rows of the flat
+# vertex grid, triangles M, capacity, share of masked vertices, share of
+# masked triangles, what the queries are).
+COMPACT_CASES = {
+    "ties": (4, (40, 30), 2400, 16, 0.01, 0.01, "ties"),
+    "nan_frame": (3, (40, 30), 2400, 16, 0.01, 0.01, "nan"),
+    "no_detections": (3, (40, 30), 2400, 16, 0.0, 0.0, "random"),
+    "capacity_1": (3, (40, 30), 2400, 1, 0.01, 0.01, "ties"),
+    "truncated": (3, (40, 30), 2400, 8, 0.2, 0.2, "random"),
+    "capacity_n": (2, (20, 15), 700, 300, 0.3, 0.3, "ties"),
+    "n_ragged": (3, (61, 49), 5000, 16, 0.01, 0.01, "random"),
+    "n_60000": (2, (300, 200), 60013, 16, 0.001, 0.001, "ties"),
+    "t_1": (1, (40, 30), 2400, 16, 0.01, 0.01, "ties"),
+    "t_300": (300, (20, 15), 551, 16, 0.02, 0.02, "ties"),
+}
+
+
+def _compact_inputs(device, dtype, case):
+    """K7's inputs for COMPACT_CASES[case]: vertices on a flat unit grid
+    (exact coordinates), random masks, and interior points at edge
+    midpoints and cell centers (two or four vertices at one distance), at
+    random places, or NaN in every point of the last frame (a frame with
+    v_max = 0)."""
+    t, (nx, ny), m, cap, p_v, p_i, queries = COMPACT_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    gx, gy = np.meshgrid(np.arange(nx, dtype=np.float64), np.arange(ny, dtype=np.float64))
+    points = np.stack([gx.ravel(), gy.ravel(), np.zeros(nx * ny)], axis=-1)
+    vmask = rng.random((t, nx * ny)) < p_v
+    imask = rng.random((t, m)) < p_i
+    if queries == "random":
+        ipoint = rng.uniform(-1.0, [nx, ny, 1.0], (t, m, 3))
+    else:
+        ipoint = np.stack([rng.integers(0, nx - 1, (t, m)).astype(np.float64),
+                           rng.integers(0, ny - 1, (t, m)).astype(np.float64),
+                           np.zeros((t, m))], axis=-1)
+        ipoint[..., 0] += 0.5                                   # an edge midpoint
+        ipoint[..., 1] += 0.5 * (rng.random((t, m)) < 0.5)      # or a cell center
+    if queries == "nan":
+        ipoint[-1] = np.nan
+        imask[-1] = vmask[-1] = False
+    as_t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
+    return (as_t(vmask, torch.bool), as_t(imask, torch.bool), as_t(ipoint, dtype),
+            as_t(points, dtype), cap)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_detected_matches_plain_on_edge_cases(cuda, dtype, case):
+    """K7 (compaction, then the snap in groups of slots over tiles of
+    vertices) against its plain version: ids, valid flags, points and
+    centers equal, bit for bit; ties go to the lower index and NaN queries
+    to vertex 0, as torch.argmin gives them."""
+    args = _compact_inputs(cuda, dtype, case)
+    got = _launched("compact_detected", dtype, lambda: kan.compact_detected(*args))
+    want = kan.plain_compact_detected(*args)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    vmask, imask, _, points, cap = args
+    assert got[0].shape == (vmask.shape[0], min(cap, vmask.shape[1]))
+    if COMPACT_CASES[case][-1] == "ties":  # the lowest of the nearest vertices
+        nx = COMPACT_CASES[case][1][0]
+        corner = got[4].floor().long()
+        assert torch.equal(got[5].long(), corner[..., 1] * nx + corner[..., 0])
+    if case == "nan_frame":
+        assert bool((got[5][-1] == 0).all()) and bool(got[4][-1].isnan().all())
+    if case == "truncated":
+        assert bool(got[1].all()) and bool(got[3].all())
+    if case == "no_detections":
+        assert not bool(got[1].any()) and not bool(got[3].any())
+        assert torch.equal(got[2][0].long(), torch.arange(cap, device=cuda))
+
+
+@pytest.mark.parametrize("max_steps", [16, 64, 256])
+def test_trace_walks_around_the_cap(cuda, max_steps):
+    """Walks with mu + lambda of cap - 1, cap and cap + 1 (cap =
+    max_steps + 1): the lengths equal the plain version's."""
+    cap = max_steps + 1
+    hops = torch.from_numpy(around_the_cap(max_steps, seed=max_steps)).to(cuda)
+    lengths = _launched("trace_walks", None, lambda: kst.trace_walks(hops, max_steps))
+    assert torch.equal(lengths, kst.plain_trace_walks(hops, max_steps))
+    assert {cap - 1, cap} <= set(lengths.flatten().tolist())
+
+
+def test_trace_walks_past_shared_memory(cuda):
+    """A row of 60000 vertices, past the shared memory a block may hold:
+    the walks read it from device memory."""
+    rng = np.random.default_rng(11)
+    n = 60000
+    hops = rng.integers(0, n, (2, n), dtype=np.int32)
+    hops[0, :n // 2] = np.arange(1, n // 2 + 1)             # a long path
+    hops[1] = np.roll(np.arange(n, dtype=np.int32), 1)       # one 60000-cycle
+    hops = torch.from_numpy(hops).to(cuda)
+    for max_steps in (16, 256):
+        lengths = _launched("trace_walks", None, lambda: kst.trace_walks(hops, max_steps))
+        assert torch.equal(lengths, kst.plain_trace_walks(hops, max_steps))
+    assert bool((lengths[1] == 257).all()) and int(lengths[0].min()) < 257
 
 
 def test_flow_stage_on_cuda_matches_cpu(cuda):

@@ -181,6 +181,52 @@ def test_compact_detected_matches_jax(problem, fields, capacity):
                                rtol=POINT_TOL, atol=POINT_TOL, equal_nan=True)
 
 
+@pytest.mark.parametrize("case", ["ties", "nan_queries", "truncated"])
+def test_compact_detected_edge_cases_match_jax(case):
+    """Compaction and snap against the JAX package on a flat unit grid:
+    interior points at edge midpoints and cell centers, two or four
+    vertices at one distance (the lowest index wins); a last frame of NaN
+    points with nothing detected, as a frame with v_max = 0 gives (every
+    center is vertex 0); more detections than the capacity (the first
+    `capacity` ids)."""
+    nx, ny, t = 9, 7, 4
+    jmesh = jax_synthetic.plane_patch(nx=nx, ny=ny, lx=nx - 1.0, ly=ny - 1.0)
+    tmesh = mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu")
+    n, m = tmesh.n_vertices, tmesh.n_triangles
+    rng = np.random.default_rng(sum(map(ord, case)))
+    share = 0.4 if case == "truncated" else 0.05
+    vmask, imask = rng.random((t, n)) < share, rng.random((t, m)) < share
+    corner = np.stack([rng.integers(0, nx - 1, (t, m)), rng.integers(0, ny - 1, (t, m))],
+                      axis=-1)
+    ipoint = np.concatenate([corner + [0.5, 0.0], np.zeros((t, m, 1))], axis=-1)
+    ipoint[..., 1] += 0.5 * (rng.random((t, m)) < 0.5)
+    if case == "nan_queries":
+        ipoint[-1] = np.nan
+        vmask[-1] = imask[-1] = False
+    capacity = 4 if case == "truncated" else 16
+    bary, v_max = np.zeros((t, m, 2)), np.ones(t)
+    jfield = jax_sing.SingularityField(*(jnp.asarray(a) for a in (
+        vmask, imask, bary, ipoint, v_max)))
+    counts = np.stack([vmask.sum(1), imask.sum(1)], axis=-1).astype(np.int32)
+    tfield = sing.SingularityField(*(torch.from_numpy(a) for a in (
+        vmask, imask, bary, ipoint, v_max, counts)))
+    got = sing.compact_detected(tmesh, tfield, capacity=capacity)
+    want = jax_sing.compact_detected(jmesh, jfield, capacity=capacity)
+    for name in ("vertex_ids", "vertex_valid", "interior_ids", "interior_valid",
+                 "interior_centers", "interior_points"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    pts, centers = got.interior_points.numpy(), got.interior_centers.numpy()
+    finite = np.isfinite(pts[..., 0])
+    low = np.floor(pts[finite]).astype(np.int64)   # plane_patch: id = ix * ny + iy
+    np.testing.assert_array_equal(centers[finite], low[:, 0] * ny + low[:, 1])
+    if case == "nan_queries":
+        assert not finite[-1].any() and (centers[-1] == 0).all()
+    if case == "truncated":
+        assert got.vertex_valid.all() and got.interior_valid.all()
+
+
 def test_compact_all_and_frame_match_jax(problem, fields):
     jmesh, tmesh, _ = problem
     _, jfield, _, _, _, tfield, _ = fields

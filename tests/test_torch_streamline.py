@@ -8,6 +8,7 @@ next-hop graph, the walks row by row, their lengths and the compacted
 polylines must be equal, in both quirk modes.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,7 +17,9 @@ from manifold_flow_tpu.geometry import synthetic as jax_synthetic
 from manifold_flow_tpu.ops import streamline as jax_stream
 from manifold_flow_tpu_torch import kernels, mesh_from_jax_arrays
 from manifold_flow_tpu_torch.ops import streamline as stream
+from manifold_flow_tpu_torch.kernels import streams as kst
 from tests.torch_parity import jax_arrays
+from tests.torch_walks import around_the_cap
 
 QUIRKS = pytest.mark.parametrize("quirks", [False, True], ids=["quirks_off", "quirks_on"])
 MAX_STEPS = 64
@@ -94,6 +97,21 @@ def test_walks_cut_at_max_steps_match_jax(problem):
     np.testing.assert_array_equal(got.vertices.numpy(), np.asarray(want.vertices))
     assert (got.lengths.numpy() == 4).any()
 
+
+@pytest.mark.parametrize("max_steps", [16, 64, 100])
+def test_walk_lengths_around_the_cap_match_jax(max_steps):
+    """Walks whose mu + lambda is cap - 1, cap or cap + 1 (cap = max_steps +
+    1): the port's lengths (the plain version on the CPU) equal those of
+    the JAX package's _double_and_detect, the length half of
+    _trace_batched (its pairwise test up to 72 steps, its sort beyond)."""
+    hops = around_the_cap(max_steps, seed=max_steps)
+    t, n = hops.shape
+    f = (hops + np.arange(t, dtype=np.int32)[:, None] * n).ravel()
+    _, want, _ = jax_stream._double_and_detect(
+        jnp.asarray(f), jnp.arange(t * n, dtype=jnp.int32), max_steps)
+    got = kst.trace_walks(torch.from_numpy(hops), max_steps)
+    np.testing.assert_array_equal(got.numpy().ravel(), np.asarray(want))
+    assert {max_steps, max_steps + 1} <= set(got.flatten().tolist())
 
 @QUIRKS
 def test_compact_frames_matches_jax(problem, quirks):
