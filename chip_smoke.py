@@ -631,8 +631,7 @@ def against_first_compact(card: str, comp, suffix: str, sweep: bool) -> None:
     sfx, ctype = ("f32", "float") if dtype == torch.float32 else ("f64", "double")
     p, i = ctypes.c_void_p, ctypes.c_int64
     first = comparison_entry("compact_detected_first", sfx, [p] * 10 + [i] * 5 + [p])
-    variant = comparison_entry("compact_detected_variant", sfx,
-                               [p] * 10 + [i] * 7 + [p] * 3)
+    variant = comparison_entry("compact_detected_variant", sfx, [p] * 10 + [i] * 7 + [p])
     t, n, m = vmask.shape[0], vmask.shape[1], imask.shape[1]
     cap_v, cap_i = min(cap, n), min(cap, m)
     dev = points.device
@@ -652,15 +651,11 @@ def against_first_compact(card: str, comp, suffix: str, sweep: bool) -> None:
                         torch.cuda.current_stream().cuda_stream), "compact_detected")
         return out
 
-    def run_shape(group, splits):
-        part_d2 = torch.empty((t, cap_i, splits), dtype=dtype, device=dev)
-        part_i = torch.empty((t, cap_i, splits), dtype=torch.int32, device=dev)
-
+    def run_shape(group, ahead):
         def run():
             out = outputs()
             _launched(variant(*heads, *(o.data_ptr() for o in out), t, n, m, cap_v,
-                              cap_i, group, splits, part_d2.data_ptr(),
-                              part_i.data_ptr(),
+                              cap_i, group, ahead,
                               torch.cuda.current_stream().cuda_stream),
                       "compact_detected")
             return out
@@ -671,21 +666,24 @@ def against_first_compact(card: str, comp, suffix: str, sweep: bool) -> None:
     got = this()
     same = [same_bits(a, b) for a, b in zip(got, run_first())]
     us = [device_us(fn, mine=own_kernel) for fn in (this, run_first, run_first, this)]
+    masks = device_us(this, mine=lambda k: own_kernel(k) and "masks" in k)
     line = (f"[parent] compact_detected<{ctype}>{suffix}: outputs bitwise the first "
-            f"design's: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against the "
-            f"first design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns)")
+            f"design's: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} (the "
+            f"compaction {fmt_us(masks)}) against the first design's {fmt_us(us[1])} "
+            f"/ {fmt_us(us[2])} (in turns)")
     equal = []
     if sweep:
-        shapes = [(g, v) for g in (4, 8, 16) for v in (1, 2, 4)]
+        shapes = [(g, u) for g in (2, 4, 8) for u in (1, 2, 4)]
         equal = [all(same_bits(a, b) for a, b in zip(run_shape(*sh)(), got))
                  for sh in shapes]
         times = [device_us(run_shape(*sh), mine=own_kernel)
                  for sh in shapes + shapes[::-1]]
         k = len(shapes)
-        line += (f"; G slots a snap block x V vertex parts, bitwise the default's "
+        line += (f"; G slots a snap block x U vertices loaded ahead, "
+                 f"bitwise the default's "
                  f"{equal}: " + ", ".join(
-                     f"G={g} V={v} {fmt_us(a)} / {fmt_us(b)}"
-                     for (g, v), a, b in zip(shapes, times[:k], times[::-1][:k])))
+                     f"G={g} U={u} {fmt_us(a)} / {fmt_us(b)}"
+                     for (g, u), a, b in zip(shapes, times[:k], times[::-1][:k])))
     print(line + f"; on {card}", flush=True)
     if not (all(same) and all(equal)):
         raise AssertionError(f"compact_detected<{ctype}>{suffix} differs from its "
@@ -719,18 +717,18 @@ def against_first_trace(card: str, hops, suffix: str) -> None:
     got = this()
     same = torch.equal(got, call(first)())
     us = [device_us(fn, mine=own_kernel) for fn in (this, call(first), call(first), this)]
-    shapes = [(256, 256), (256, 512), (256, 1024), (256, 2048), (512, 512),
-              (512, 1024), (512, 2048), (1024, 1024), (1024, 2048)]
+    shapes = [(256, 256), (256, 512), (512, 512), (512, 1024), (512, 1536),
+              (512, 2048), (1024, 1024), (1024, 2048), (1024, 3072)]
     equal = [torch.equal(call(variant, *sh)(), got) for sh in shapes]
     times = [device_us(call(variant, *sh), mine=own_kernel)
              for sh in shapes + shapes[::-1]]
     k = len(shapes)
     sms = torch.cuda.get_device_properties(hops.device).multi_processor_count
-    rounds = min(-(-t * n // (8 * sms * 256)), -(-n // 256))
+    rounds = min(-(-t * n // (12 * sms * 512)), -(-n // 512))
     print(f"[parent] trace_walks<int>{suffix}: lengths equal to the first design's: "
           f"{same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against the first "
           f"design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns; the default "
-          f"256 threads x {rounds * 256} seeds a block); threads x seeds a block, "
+          f"512 threads x {rounds * 512} seeds a block); threads x seeds a block, "
           f"equal {equal}: " + ", ".join(
               f"{a}x{b} {fmt_us(x)} / {fmt_us(y)}"
               for (a, b), x, y in zip(shapes, times[:k], times[::-1][:k]))

@@ -221,19 +221,22 @@ __global__ void detect_triangle_kernel(
 //  * compaction, a block per (mask, frame): each thread takes a contiguous
 //    run of the row and counts its set bytes from 16-byte loads; one
 //    block-wide scan of those counts gives each thread the first masked and
-//    unmasked slots of its run, and only threads whose slots fall under the
-//    capacity walk their run again, writing ids, valid flags and, for the
-//    interior mask, each slot's point;
-//  * snap, a block per (frame, group of G slots): the block stages tiles of
-//    `points` in shared memory with coalesced loads, so that one read of a
-//    vertex serves the G slots; each thread keeps, in registers, the
-//    minimum (d^2, index) of its vertices for every slot of the group; the
-//    block merges them with warp shuffles, then across warps in shared
-//    memory, in argmin_before's order, a total order, so any merge tree
-//    gives torch.argmin's answer (ties to the lower index, a NaN first).
+//    unmasked slots of its run; only threads with a slot under the capacity
+//    go over their run again, placing a 16-byte group's ids from its bit
+//    mask of set bytes; then one thread a slot copies the interior slots'
+//    points;
+//  * snap, a block per (frame, group of kSnapSlots slots): its threads take
+//    the vertices in turn, each loading its next vertex while the current
+//    one's distances run, and keep the minimum (d^2, index) of each slot in
+//    registers; the block merges them with warp shuffles, then across warps
+//    in shared memory, in argmin_before's order, a total order, so any
+//    merge tree gives torch.argmin's answer (ties to the lower index, a NaN
+//    first). Swept on the H100 at both mesh sizes: 4 slots a block beat 2
+//    and 8, loading 1 vertex ahead beat 2 and 4, and staging tiles of the
+//    vertices in shared memory was slower.
 
-constexpr int kSnapTile = 1024;  // vertices a tile staged in shared memory (24 KB in f64)
-constexpr int kSnapSlots = 4;    // slots a snap block serves (G)
+constexpr int kSnapSlots = 4;  // slots a snap block serves (G)
+constexpr int kSnapAhead = 1;  // vertices a thread loads ahead of its distances (U)
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -273,6 +276,12 @@ __device__ __forceinline__ int set_bytes(uint4 v) {
          __popc(__vsetne4(v.z, 0u)) + __popc(__vsetne4(v.w, 0u));
 }
 
+// Bit b set for each non-zero byte b of w (4 bits).
+__device__ __forceinline__ unsigned int byte_bits(unsigned int w) {
+  const unsigned int b = __vsetne4(w, 0u);  // 1 in each non-zero byte
+  return (b & 1u) | (b >> 7 & 2u) | (b >> 14 & 4u) | (b >> 21 & 8u);
+}
+
 // The first `cap` ids of a stable argsort of ~mask[0..n) into ids/valid:
 // the masked ids ascending, then the lowest unmasked ids ascending
 // (ops/singularity.py:413-418), also where more than `cap` ids are masked.
@@ -302,16 +311,40 @@ __device__ void compact_row(const uint8_t* __restrict__ mask, int64_t n, int64_t
   const int before = block_exclusive_scan(c, scratch, &n_masked);
   int64_t slot_m = before;                    // the run's next masked slot
   int64_t slot_u = n_masked + (lo - before);  // and its next unmasked one
-  for (int64_t j = lo; j < hi && (slot_m < cap || slot_u < cap); ++j) {
-    const bool f = mask[j] != 0;
+  const int64_t m_end = before + c < cap ? before + c : cap;
+  // Only runs with a masked id, or an unmasked one, under the capacity write.
+  auto room = [&] { return slot_m < m_end || slot_u < cap; };
+  auto place = [&](int64_t j, bool f) {
     const int64_t slot = f ? slot_m++ : slot_u++;
     if (slot < cap) {
       ids[slot] = static_cast<int32_t>(j);
       valid[slot] = f;
-      if (src != nullptr) {
+    }
+  };
+  for (int64_t j = lo; j < head + 16 * k0 && room(); ++j) place(j, mask[j] != 0);
+  for (int64_t k = k0; k < k1 && room(); ++k) {
+    // The group's set bytes as 16 bits; its masked ids, then its unmasked
+    // ones, go to their slots lowest first while slots are left.
+    const uint4 w = __ldg(vec + k);
+    const unsigned int set = byte_bits(w.x) | byte_bits(w.y) << 4 | byte_bits(w.z) << 8 |
+                             byte_bits(w.w) << 12;
+    const int64_t j0 = head + 16 * k;
+    for (unsigned int m = set; m != 0 && slot_m < m_end; m &= m - 1) {
+      ids[slot_m] = static_cast<int32_t>(j0 + __ffs(m) - 1);
+      valid[slot_m++] = 1;
+    }
+    for (unsigned int m = ~set & 0xffffu; m != 0 && slot_u < cap; m &= m - 1) {
+      ids[slot_u] = static_cast<int32_t>(j0 + __ffs(m) - 1);
+      valid[slot_u++] = 0;
+    }
+  }
+  for (int64_t j = head + 16 * k1; j < hi && room(); ++j) place(j, mask[j] != 0);
+  if (src != nullptr) {  // each slot's point, one thread a slot
+    __syncthreads();     // the ids are written
+    for (int64_t k = threadIdx.x; k < cap; k += kThreads) {
+      const int64_t j = ids[k];
 #pragma unroll
-        for (int d = 0; d < 3; ++d) pts[slot * 3 + d] = src[j * 3 + d];
-      }
+      for (int d = 0; d < 3; ++d) pts[k * 3 + d] = src[j * 3 + d];
     }
   }
 }
@@ -338,36 +371,49 @@ __global__ void __launch_bounds__(kThreads) compact_detected_masks_kernel(
   }
 }
 
-// K7, snap: block (g + groups * split, t) finds, for the G slots g G ..
-// g G + G - 1 of frame t, the nearest vertex among those of `split` (the
-// vertices cut into `splits` consecutive parts). With one part it writes
-// the center; otherwise the part's (d^2, index) minimum, which
-// compact_detected_merge_kernel closes. queries: (T, cap, 3), the compacted points.
+// One vertex (px, py, pz) of index v against a thread's G queries: each
+// slot keeps the first vertex, then any with a smaller d^2 or a NaN, until
+// it holds a NaN (ties keep the lower index, the vertices coming in
+// ascending order).
 template <typename T, int G>
+__device__ __forceinline__ void snap_update(const T (&q)[G][3], T (&best)[G],
+                                            int (&best_i)[G], bool (&nan_held)[G],
+                                            T px, T py, T pz, int v) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const T dx = rn_sub(q[g][0], px), dy = rn_sub(q[g][1], py), dz = rn_sub(q[g][2], pz);
+    const T d2 = rn_add(rn_add(rn_mul(dx, dx), rn_mul(dy, dy)), rn_mul(dz, dz));
+    if (best_i[g] < 0 || (!nan_held[g] && !(d2 >= best[g]))) {
+      best[g] = d2;
+      best_i[g] = v;
+      nan_held[g] = d2 != d2;
+    }
+  }
+}
+
+// K7, snap: block (g, t) finds, for the G slots g G .. g G + G - 1 of frame
+// t, the nearest vertex. Its threads take the vertices in turn, U at a
+// time, loading the next U points while the current ones' distances run;
+// each keeps its minimum per slot in registers, and the block merges them
+// with warp shuffles, then across warps in shared memory, in
+// argmin_before's order. queries: (T, cap, 3), the compacted points.
+template <typename T, int G, int U>
 __global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
     const T* __restrict__ points, const T* __restrict__ queries,
-    int32_t* __restrict__ centers, T* __restrict__ part_d2, int32_t* __restrict__ part_i,
-    int64_t n_frames, int64_t n_vert, int64_t cap, int64_t splits) {
-  __shared__ T tile[3 * kSnapTile];
+    int32_t* __restrict__ centers, int64_t n_frames, int64_t n_vert, int64_t cap) {
   __shared__ T red_d2[kWarps][G];
   __shared__ int red_i[kWarps][G];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t groups = (cap + G - 1) / G;
-  const int64_t group = blockIdx.x % groups, split = blockIdx.x / groups;
-  const int64_t chunk = (n_vert + splits - 1) / splits;
-  const int64_t v_lo = min64(split * chunk, n_vert), v_hi = min64(v_lo + chunk, n_vert);
+  const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * G;
   for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
     T q[G][3];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const int64_t s = group * G + g;
+      const int64_t s = slot0 + g;
 #pragma unroll
       for (int d = 0; d < 3; ++d) q[g][d] = s < cap ? queries[(t * cap + s) * 3 + d] : T(0);
     }
-    // This thread's minimum for each slot over its vertices, taken in
-    // ascending order: the first vertex, then any with a smaller d^2 or a
-    // NaN, until a NaN is held (ties keep the lower index).
     T best[G];
     int best_i[G];
     bool nan_held[G];
@@ -377,26 +423,33 @@ __global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
       best_i[g] = -1;
       nan_held[g] = false;
     }
-    for (int64_t base = v_lo; base < v_hi; base += kSnapTile) {
-      const int cnt = static_cast<int>(min64(kSnapTile, v_hi - base));
-      const T* src = points + base * 3;
-      for (int j = threadIdx.x; j < 3 * cnt; j += kThreads) tile[j] = __ldg(src + j);
-      __syncthreads();
-      for (int j = threadIdx.x; j < cnt; j += kThreads) {
-        const T px = tile[3 * j], py = tile[3 * j + 1], pz = tile[3 * j + 2];
-        const int v = static_cast<int>(base + j);
+    // This thread's vertices threadIdx.x + k kThreads, ascending.
+    T next[U][3];
+    auto load = [&](int64_t base) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const T dx = rn_sub(q[g][0], px), dy = rn_sub(q[g][1], py), dz = rn_sub(q[g][2], pz);
-          const T d2 = rn_add(rn_add(rn_mul(dx, dx), rn_mul(dy, dy)), rn_mul(dz, dz));
-          if (best_i[g] < 0 || (!nan_held[g] && !(d2 >= best[g]))) {
-            best[g] = d2;
-            best_i[g] = v;
-            nan_held[g] = d2 != d2;
-          }
+      for (int u = 0; u < U; ++u) {
+        const int64_t v = base + u * kThreads;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) next[u][d] = v < n_vert ? __ldg(points + 3 * v + d) : T(0);
+      }
+    };
+    load(threadIdx.x);
+    for (int64_t base = threadIdx.x; base < n_vert; base += U * kThreads) {
+      T p[U][3];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) p[u][d] = next[u][d];
+      }
+      load(base + U * kThreads);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t v = base + u * kThreads;
+        if (v < n_vert) {
+          snap_update(q, best, best_i, nan_held, p[u][0], p[u][1], p[u][2],
+                      static_cast<int>(v));
         }
       }
-      __syncthreads();  // the tile is consumed
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -415,7 +468,7 @@ __global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
       }
     }
     __syncthreads();
-    if (threadIdx.x < G) {
+    if (threadIdx.x < G && slot0 + threadIdx.x < cap) {
       const int g = threadIdx.x;
       T b = red_d2[0][g];
       int bi = red_i[0][g];
@@ -425,38 +478,10 @@ __global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
           bi = red_i[w][g];
         }
       }
-      const int64_t s = group * G + g;
-      if (s < cap) {
-        if (splits == 1) {
-          centers[t * cap + s] = bi;
-        } else {
-          part_d2[(t * cap + s) * splits + split] = b;
-          part_i[(t * cap + s) * splits + split] = bi;
-        }
-      }
+      centers[t * cap + slot0 + g] = bi;
     }
     __syncthreads();  // red_* are rewritten for the next frame
   }
-}
-
-// K7, closing a snap cut into parts: one thread a (frame, slot) merges its
-// parts' minima in argmin_before's order.
-template <typename T>
-__global__ void compact_detected_merge_kernel(const T* __restrict__ part_d2,
-                                  const int32_t* __restrict__ part_i,
-                                  int32_t* __restrict__ centers, int64_t n_slots,
-                                  int64_t splits) {
-  const int64_t k = global_index();
-  if (k >= n_slots) return;
-  T b = part_d2[k * splits];
-  int bi = part_i[k * splits];
-  for (int64_t s = 1; s < splits; ++s) {
-    if (argmin_before(part_d2[k * splits + s], part_i[k * splits + s], b, bi)) {
-      b = part_d2[k * splits + s];
-      bi = part_i[k * splits + s];
-    }
-  }
-  centers[k] = bi;
 }
 
 // The first design of K7, kept for chip_smoke.py's [parent] lines only.
@@ -616,20 +641,17 @@ int detect_singular(const void* points, const void* tris, const void* v_world,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G>
-void launch_snap(const void* points, const void* queries, void* centers, void* part_d2,
-                 void* part_i, int64_t n_frames, int64_t n_vert, int64_t cap,
-                 int64_t splits, cudaStream_t s) {
-  const int64_t groups = (cap + G - 1) / G;
-  const dim3 grid(static_cast<unsigned int>(groups * splits), frame_blocks(n_frames));
-  compact_detected_snap_kernel<T, G><<<grid, kThreads, 0, s>>>(
+template <typename T, int G, int U>
+void launch_snap(const void* points, const void* queries, void* centers, int64_t n_frames,
+                 int64_t n_vert, int64_t cap, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned int>((cap + G - 1) / G), frame_blocks(n_frames));
+  compact_detected_snap_kernel<T, G, U><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(points), static_cast<const T*>(queries),
-      static_cast<int32_t*>(centers), static_cast<T*>(part_d2),
-      static_cast<int32_t*>(part_i), n_frames, n_vert, cap, splits);
+      static_cast<int32_t*>(centers), n_frames, n_vert, cap);
 }
 
-// K7 with G slots a snap block and the vertices cut into `splits` parts
-// (part_d2, part_i: (T, cap_i, splits) scratch where splits > 1).
+// K7 with G slots a snap block and its threads loading `ahead` vertices
+// ahead (G in {2, 4, 8}, ahead in {1, 2, 4}).
 template <typename T>
 int compact_detected_shaped(const void* vertex_mask, const void* interior_mask,
                             const void* interior_point, const void* points,
@@ -637,12 +659,12 @@ int compact_detected_shaped(const void* vertex_mask, const void* interior_mask,
                             void* interior_valid, void* interior_points,
                             void* interior_centers, int64_t n_frames, int64_t n_vert,
                             int64_t n_tri, int64_t cap_v, int64_t cap_i, int64_t group,
-                            int64_t splits, void* part_d2, void* part_i, void* stream) {
+                            int64_t ahead, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
-  if (splits < 1 || (group != 4 && group != 8 && group != 16)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool g_ok = group == 2 || group == 4 || group == 8;
+  const bool u_ok = ahead == 1 || ahead == 2 || ahead == 4;
+  if (!g_ok || !u_ok) return static_cast<int>(cudaErrorInvalidValue);
   compact_detected_masks_kernel<T><<<dim3(2, frame_blocks(n_frames)), kThreads, 0, s>>>(
       static_cast<const uint8_t*>(vertex_mask), static_cast<const uint8_t*>(interior_mask),
       static_cast<const T*>(interior_point), static_cast<int32_t*>(vertex_ids),
@@ -650,21 +672,14 @@ int compact_detected_shaped(const void* vertex_mask, const void* interior_mask,
       static_cast<uint8_t*>(interior_valid), static_cast<T*>(interior_points), n_frames,
       n_vert, n_tri, cap_v, cap_i);
   if (cap_i > 0) {
-    if (group == 4) {
-      launch_snap<T, 4>(points, interior_points, interior_centers, part_d2, part_i,
-                        n_frames, n_vert, cap_i, splits, s);
-    } else if (group == 8) {
-      launch_snap<T, 8>(points, interior_points, interior_centers, part_d2, part_i,
-                        n_frames, n_vert, cap_i, splits, s);
-    } else {
-      launch_snap<T, 16>(points, interior_points, interior_centers, part_d2, part_i,
-                         n_frames, n_vert, cap_i, splits, s);
-    }
-    if (splits > 1) {
-      compact_detected_merge_kernel<T><<<blocks_for(n_frames * cap_i), kThreads, 0, s>>>(
-          static_cast<const T*>(part_d2), static_cast<const int32_t*>(part_i),
-          static_cast<int32_t*>(interior_centers), n_frames * cap_i, splits);
-    }
+#define MF_SNAP(G, U)                                                                    \
+  if (group == G && ahead == U)                                                          \
+    launch_snap<T, G, U>(points, interior_points, interior_centers, n_frames, n_vert,    \
+                         cap_i, s);
+    MF_SNAP(2, 1) MF_SNAP(2, 2) MF_SNAP(2, 4)
+    MF_SNAP(4, 1) MF_SNAP(4, 2) MF_SNAP(4, 4)
+    MF_SNAP(8, 1) MF_SNAP(8, 2) MF_SNAP(8, 4)
+#undef MF_SNAP
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -680,8 +695,7 @@ int compact_detected(const void* vertex_mask, const void* interior_mask,
   return compact_detected_shaped<T>(vertex_mask, interior_mask, interior_point, points,
                                     vertex_ids, vertex_valid, interior_ids, interior_valid,
                                     interior_points, interior_centers, n_frames, n_vert,
-                                    n_tri, cap_v, cap_i, kSnapSlots, 1, nullptr, nullptr,
-                                    stream);
+                                    n_tri, cap_v, cap_i, kSnapSlots, kSnapAhead, stream);
 }
 
 template <typename T>
@@ -1033,13 +1047,12 @@ int classify_candidates(const void* points, const void* basis, const void* neigh
       void* vertex_valid, void* interior_ids, void* interior_valid,             \
       void* interior_points, void* interior_centers, int64_t n_frames,          \
       int64_t n_vert, int64_t n_tri, int64_t cap_v, int64_t cap_i,              \
-      int64_t group, int64_t splits, void* part_d2, void* part_i,               \
-      void* stream) {                                                           \
+      int64_t group, int64_t ahead, void* stream) {                             \
     return mf::compact_detected_shaped<T>(                                      \
         vertex_mask, interior_mask, interior_point, points, vertex_ids,         \
         vertex_valid, interior_ids, interior_valid, interior_points,            \
         interior_centers, n_frames, n_vert, n_tri, cap_v, cap_i, group,         \
-        splits, part_d2, part_i, stream);                                       \
+        ahead, stream);                                                         \
   }                                                                             \
   extern "C" int mf_classify_candidates_##SUFFIX(                              \
       const void* points, const void* basis, const void* neighbors,             \

@@ -203,19 +203,23 @@ int next_hop(const void* unit, const void* v_world, const void* neighbors,
 // steps, p = 1, 2, 4, ...; a walk with mu + lambda < cap is found by the
 // first round with p >= max(mu + 1, lambda), so the search stops after the
 // round with p >= min(cap - 1, N) (walk_limit) instead of counting steps.
+// The mu pass starts from the previous round's tortoise where it lay before
+// the cycle, and walks one pointer only where the cycle is a fixed point.
+// Blocks of kWalkThreads threads; seeds a block from the SM count
+// (trace_walks_per_block), the fastest of the shapes swept on the H100.
 
-// The walk length from seed s, capped at cap, over the frame's hops: `row`
-// in shared memory where kRowShared, else `f` in device memory.
-template <bool kRowShared>
-__device__ __forceinline__ int32_t walk_length(const int32_t* row,
-                                               const int32_t* __restrict__ f, int32_t s,
-                                               int64_t cap, int limit) {
-  auto hop = [&](int32_t x) { return kRowShared ? row[x] : __ldg(f + x); };
-  int32_t tortoise = s, hare = hop(s);
+// The length of the walk from `s`, capped at cap, over `hop`, which maps a
+// vertex's handle to its successor's (an id, or a byte offset into shared
+// memory: equal handles are equal vertices).
+template <class Hop>
+__device__ __forceinline__ int32_t walk_length(Hop hop, int32_t s, int64_t cap,
+                                               int limit) {
+  int32_t tortoise = s, hare = hop(s), prev = s;
   int power = 1, lam = 1;
   while (tortoise != hare) {
     if (lam == power) {
       if (power >= limit) return static_cast<int32_t>(cap);  // mu + lambda >= cap
+      prev = tortoise;
       tortoise = hare;
       power <<= 1;
       lam = 0;
@@ -224,14 +228,26 @@ __device__ __forceinline__ int32_t walk_length(const int32_t* row,
     ++lam;
   }
   if (lam >= cap) return static_cast<int32_t>(cap);
-  // mu: the first index where the walk and its lambda-shifted copy meet.
-  tortoise = s;
-  hare = s;
-  for (int k = 0; k < lam; ++k) hare = hop(hare);
-  int64_t len = lam;
-  while (tortoise != hare && len < cap) {
-    tortoise = hop(tortoise);
-    hare = hop(hare);
+  // mu + lambda: the first index i with x_i = x_{i + lambda}, searched from
+  // the previous round's tortoise x_{power/2 - 1} where that round failed
+  // with lambda <= power/2 (so its tortoise lay before the cycle), else
+  // from the seed.
+  const bool late = power >= 2 && 2 * lam <= power;
+  int32_t a = late ? prev : s;
+  int64_t len = (late ? power / 2 - 1 : 0) + lam;
+  if (len >= cap) return static_cast<int32_t>(cap);
+  if (lam == 1) {  // the cycle is the fixed point `tortoise`: mu is where a meets it
+    while (a != tortoise && len < cap) {
+      a = hop(a);
+      ++len;
+    }
+    return static_cast<int32_t>(len);
+  }
+  int32_t b = a;
+  for (int k = 0; k < lam; ++k) b = hop(b);
+  while (a != b && len < cap) {
+    a = hop(a);
+    b = hop(b);
     ++len;
   }
   return static_cast<int32_t>(len);
@@ -257,23 +273,44 @@ __global__ void trace_walks_kernel(const int32_t* __restrict__ next,
   for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
     const int32_t* f = next + t * n_vert;
     const int64_t head = head_to_16(f, n_vert);
-    int32_t* row = walk_smem + ((4 - head) & 3);  // [n_vert] where kRowShared
-    if (kRowShared) {
+    // Where kRowShared, the row starts 0-3 ids into shared memory so that its
+    // 16-byte groups land aligned, and holds each successor as the byte
+    // offset of its own entry: a step is one shared-memory load.
+    const int shift = static_cast<int>((4 - head) & 3);
+    int32_t* row = walk_smem + shift;
+    if constexpr (kRowShared) {
       const int64_t n_vec = (n_vert - head) / 4;
-      for (int64_t i = threadIdx.x; i < head; i += blockDim.x) row[i] = __ldg(f + i);
+      for (int64_t i = threadIdx.x; i < head; i += blockDim.x) {
+        row[i] = 4 * (__ldg(f + i) + shift);
+      }
       const int4* fv = reinterpret_cast<const int4*>(f + head);
       int4* rv = reinterpret_cast<int4*>(row + head);
-      for (int64_t i = threadIdx.x; i < n_vec; i += blockDim.x) rv[i] = __ldg(fv + i);
+      for (int64_t i = threadIdx.x; i < n_vec; i += blockDim.x) {
+        const int4 q = __ldg(fv + i);
+        rv[i] = make_int4(4 * (q.x + shift), 4 * (q.y + shift), 4 * (q.z + shift),
+                          4 * (q.w + shift));
+      }
       for (int64_t i = head + 4 * n_vec + threadIdx.x; i < n_vert; i += blockDim.x) {
-        row[i] = __ldg(f + i);
+        row[i] = 4 * (__ldg(f + i) + shift);
       }
       __syncthreads();
     }
     for (int64_t s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
-      lengths[t * n_vert + s] =
-          walk_length<kRowShared>(row, f, static_cast<int32_t>(s), cap, limit);
+      const int32_t v = static_cast<int32_t>(s);
+      int32_t len;
+      if constexpr (kRowShared) {
+        len = walk_length(
+            [](int32_t x) {
+              return *reinterpret_cast<const int32_t*>(
+                  reinterpret_cast<const char*>(walk_smem) + x);
+            },
+            4 * (v + shift), cap, limit);
+      } else {
+        len = walk_length([f](int32_t x) { return __ldg(f + x); }, v, cap, limit);
+      }
+      lengths[t * n_vert + s] = len;
     }
-    if (kRowShared) __syncthreads();  // the next frame overwrites the row
+    if constexpr (kRowShared) __syncthreads();  // the next frame overwrites the row
   }
 }
 
@@ -422,9 +459,9 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
-constexpr int kWalkThreads = 256;
+constexpr int kWalkThreads = 512;
 
-// Seeds a block of the length entry: enough blocks for about eight an SM
+// Seeds a block of the length entry: enough blocks for about twelve an SM
 // over the whole call, in whole rounds of kWalkThreads seeds, at most a
 // frame's row (each block loads its frame's row once for all its seeds).
 inline int64_t trace_walks_per_block(int64_t n_frames, int64_t n_vert) {
@@ -432,7 +469,7 @@ inline int64_t trace_walks_per_block(int64_t n_frames, int64_t n_vert) {
   if (cudaGetDevice(&device) == cudaSuccess) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  const int64_t target = 8 * static_cast<int64_t>(sms) * kWalkThreads;
+  const int64_t target = 12 * static_cast<int64_t>(sms) * kWalkThreads;
   const int64_t rounds = (n_frames * n_vert + target - 1) / target;
   const int64_t row = (n_vert + kWalkThreads - 1) / kWalkThreads;
   return (rounds < row ? rounds : row) * kWalkThreads;
@@ -450,25 +487,26 @@ int trace_walks_shaped(const void* next, void* lengths, int64_t n_frames, int64_
   if (cudaGetDevice(&device) == cudaSuccess) {
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
-  const size_t with_row = static_cast<size_t>(n_vert + 3) * sizeof(int32_t);
   const dim3 grid(static_cast<unsigned int>((n_vert + per_block - 1) / per_block),
                   frame_blocks(n_frames));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (with_row <= static_cast<size_t>(optin)) {
-    if (with_row > 48 * 1024) {  // above 48 KB only after opting in
-      const cudaError_t e = cudaFuncSetAttribute(
-          trace_walks_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(with_row));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    trace_walks_kernel<true><<<grid, static_cast<unsigned int>(threads), with_row, s>>>(
+  const unsigned int block = static_cast<unsigned int>(threads);
+  const size_t with_row = static_cast<size_t>(n_vert + 3) * sizeof(int32_t);
+  if (with_row > static_cast<size_t>(optin)) {
+    trace_walks_kernel<false><<<grid, block, 0, s>>>(
         static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
         n_vert, cap, limit, per_block);
-  } else {
-    trace_walks_kernel<false><<<grid, static_cast<unsigned int>(threads), 0, s>>>(
-        static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
-        n_vert, cap, limit, per_block);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (with_row > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        trace_walks_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(with_row));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  trace_walks_kernel<true><<<grid, block, with_row, s>>>(
+      static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames, n_vert,
+      cap, limit, per_block);
   return static_cast<int>(cudaGetLastError());
 }
 

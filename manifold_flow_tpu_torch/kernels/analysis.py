@@ -13,9 +13,10 @@ same inputs the two agree bit for bit in the threshold decisions: masks,
 counts, compacted ids and snapped centers are equal, not merely close.
 
 Shapes below are given at the bench problem (T=97 frames, N=3136 vertices,
-M=6050 triangles, S the compaction capacity, a multiple of 8). Every kernel
-here is bound by memory traffic at a few flops per byte, far below what the
-H100 can feed; the whole working set fits in the 50 MB L2.
+M=6050 triangles, S the compaction capacity, a multiple of 8), unless they
+say otherwise. K5, K6 and K12 are bound by memory traffic at a few flops per
+byte, far below what the H100 can feed, K7 by its snap's float64
+arithmetic; the whole working set fits in the 50 MB L2.
 """
 
 from __future__ import annotations
@@ -185,13 +186,22 @@ def compact_detected(vertex_mask: torch.Tensor, interior_mask: torch.Tensor,
 
     Replaces ops/singularity.py:394 `compact_detected` and the snap of
     geometry/topology.py:26 `closest_vertex` (B8). Bound by the snap's
-    reads: S_i slots times N vertices per frame, 24 bytes each in f64,
-    mostly from L2 (1.2 MB per frame, 117 MB per call at S=16); the
-    compaction reads the masks (0.9 MB) twice. Design: one block per frame;
-    a block-wide prefix scan of each mask (warp ballot, then per-warp totals
-    in shared memory) places each id in its slot; one warp per slot scans
-    the vertices for the (d^2, index) minimum, ties to the lower index as
-    argmin does.
+    float64 arithmetic: T S_i N distances (dx^2 + dy^2) + dz^2, each of
+    their 8 operations rounded on its own (no fused multiply-add, or the
+    centers would move) and one comparison; 19.5 M distances at 12.5k
+    vertices and S = 16, about 9.2 us at the rate of separate f64
+    operations (the bound's 4.58 us counts 34 TFLOP/s, a fused
+    multiply-add as two). Design: two launches on the caller's stream,
+    counted as one. The compaction runs a block per (mask, frame): each
+    thread counts the set bytes of a contiguous run of the row from
+    16-byte loads, one block-wide scan places every run's ids, and only
+    runs whose slots fall under S write ids, flags and the interior slots'
+    points. The snap runs a block per (frame, 4 slots): tiles of 1024
+    vertices staged in shared memory with coalesced loads, each thread's
+    (d^2, index) minimum for each slot in registers, merged with warp
+    shuffles and then across warps in argmin's order (ties to the lower
+    index, a NaN first). The first design ran a block per frame, and one
+    warp per slot scanned the vertices in device memory.
     """
     dtype = _float_dtype("interior_point", interior_point)
     t, n = vertex_mask.shape[0], points.shape[0]

@@ -179,11 +179,16 @@ def trace_walks(next_: torch.Tensor, max_steps: int) -> torch.Tensor:
 
     Replaces the length half of ops/streamline.py:268 `_double_and_detect`
     (with :351 `_trace_batched`, B11). Bound by the chain of dependent
-    loads: the bytes are tiny (next 1.2 MB read from L2, the lengths 1.2 MB
-    written), and a thread's steps wait on each other, about 3 (mu + lambda)
-    of them for a walk of tail mu and cycle lambda. Design: one thread per
-    seed runs Brent's cycle detection on the functional graph (O(1) state,
-    no stored path).
+    loads: the bytes are few (next 4.9 MB at 12.5k vertices x 97 frames,
+    the lengths as much), but a walk's steps wait on each other, and a
+    warp lasts as long as its longest walk. Design: a block takes a run of
+    one frame's seeds, loads the frame's row of next_ into shared memory
+    (16-byte loads; read from device memory instead where a row passes the
+    227 KB a block may hold, N above about 58k) and runs Brent's cycle
+    detection for each seed there (O(1) state, no stored path), in rounds
+    that stop once a round as long as min(cap - 1, N) found no repeat.
+    The first design ran one thread per seed on next_ in device memory,
+    an L2 round trip a step.
     """
     t, n = next_.shape[0], next_.shape[-1]
     _check("next", next_, torch.int32, (t, n))
