@@ -26,7 +26,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      snap) against their plain versions on the refined solve's velocity
      field, in float64 and float32: masks, ids, valid flags, counts and
      centers equal, floats to 1e-12 (f64) / 1e-5 (f32) of their largest
-     entry; kernel and plain times as in phase 3. Then K12-K15 on the same
+     entry; kernel and plain times as in phase 3, and the device time of
+     K7's first launch (its compaction; the second is the snap). Then
+     K12-K15 on the same
      field: K12 (classification, both quirk modes) on K6/K7's candidates and
      K13 (next hops) and K15 (25-ring winding profiles of the detections'
      distinct centers) in float64 and float32, K14 (walk lengths at 256
@@ -90,8 +92,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      by every frame (coarse_a1='mean'), and K3's pcg_dot, K1 (float32
      matvec, float64 residual, beside torch.sparse.mm) and K3's update at
      these shapes, with K4 (float64, its bound the movie, the mesh tables,
-     g and f; not the local RHS its first design stored) and K2 (float32)
-     there. Then K5-K7 and K12-K15 at the same shapes on the 12.5k refined
+     g and f; not the local RHS its first design stored; and float32, which
+     no path launches, as at the bench shapes) and K2 (float32) there. Then K5-K7 and K12-K15 at the same shapes on the 12.5k refined
      solve's field (float64), and K16-K17 as in phase 5 at 12.5k.
  10. twolevel: the 12.5k problem through compute_velocity_fields(method=
      'refined', tol=1e-6, max_iter=4000, precond='auto'): every frame
@@ -135,7 +137,8 @@ the kernel, - bound), with the instances that only the float64 cg, the
 Cholesky or the crossover runs launch listed as off the default path; one
 JSON line for the kernels (launches from the default path, else from those
 runs; solve_device_us beside device_us), the card's name and power limit,
-and a last JSON line
+a [kernels] line naming the rows that no phase launches (K4's float32
+instance among them; they stay out of the JSON line), and a last JSON line
 {"ok": true, "device": {...}}.
 """
 
@@ -588,155 +591,6 @@ def check_rhs(checks: KernelChecks, mesh, pot, times, suffix: str = "") -> None:
                    launches_key="frame_factors_rhs<float>")
 
 
-def comparison_entry(name: str, suffix: str, argtypes):
-    """This build's entry point `name` of a design kept only for the
-    comparison (K7's and K14's first designs, their variants), with its
-    types; `suffix` is f32, f64 or i32."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import library
-
-    fn = getattr(library(), f"mf_{name}_{suffix}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launched(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """a and b equal bit for bit (floats by their bits, NaNs included)."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    if a.is_floating_point():
-        ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
-        return torch.equal(a.view(ints), b.view(ints))
-    return torch.equal(a, b)
-
-
-def against_first_compact(card: str, comp, suffix: str, sweep: bool) -> None:
-    """K7 against its first design (a block a frame, a warp a slot scanning
-    every vertex) on the same inputs: every output bit for bit, device
-    times in turns; where `sweep`, the new design with G slots a snap block
-    and the vertices cut into V parts, each bit for bit too, in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import analysis as kan
-
-    vmask, imask, ipoint, points, cap = comp
-    dtype = points.dtype
-    sfx, ctype = ("f32", "float") if dtype == torch.float32 else ("f64", "double")
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    first = comparison_entry("compact_detected_first", sfx, [p] * 10 + [i] * 5 + [p])
-    variant = comparison_entry("compact_detected_variant", sfx, [p] * 10 + [i] * 7 + [p])
-    t, n, m = vmask.shape[0], vmask.shape[1], imask.shape[1]
-    cap_v, cap_i = min(cap, n), min(cap, m)
-    dev = points.device
-
-    def outputs():
-        return (torch.empty((t, cap_v), dtype=torch.int32, device=dev),
-                torch.empty((t, cap_v), dtype=torch.bool, device=dev),
-                torch.empty((t, cap_i), dtype=torch.int32, device=dev),
-                torch.empty((t, cap_i), dtype=torch.bool, device=dev),
-                torch.empty((t, cap_i, 3), dtype=dtype, device=dev),
-                torch.empty((t, cap_i), dtype=torch.int32, device=dev))
-    heads = (vmask.data_ptr(), imask.data_ptr(), ipoint.data_ptr(), points.data_ptr())
-
-    def run_first():
-        out = outputs()
-        _launched(first(*heads, *(o.data_ptr() for o in out), t, n, m, cap_v, cap_i,
-                        torch.cuda.current_stream().cuda_stream), "compact_detected")
-        return out
-
-    def run_shape(group, ahead):
-        def run():
-            out = outputs()
-            _launched(variant(*heads, *(o.data_ptr() for o in out), t, n, m, cap_v,
-                              cap_i, group, ahead,
-                              torch.cuda.current_stream().cuda_stream),
-                      "compact_detected")
-            return out
-        return run
-
-    def this():
-        return kan.compact_detected(*comp)
-    got = this()
-    same = [same_bits(a, b) for a, b in zip(got, run_first())]
-    us = [device_us(fn, mine=own_kernel) for fn in (this, run_first, run_first, this)]
-    masks = device_us(this, mine=lambda k: own_kernel(k) and "masks" in k)
-    line = (f"[parent] compact_detected<{ctype}>{suffix}: outputs bitwise the first "
-            f"design's: {same}; device {fmt_us(us[0])} / {fmt_us(us[3])} (the "
-            f"compaction {fmt_us(masks)}) against the first design's {fmt_us(us[1])} "
-            f"/ {fmt_us(us[2])} (in turns)")
-    equal = []
-    if sweep:
-        shapes = [(g, u) for g in (2, 4, 8) for u in (1, 2, 4)]
-        equal = [all(same_bits(a, b) for a, b in zip(run_shape(*sh)(), got))
-                 for sh in shapes]
-        times = [device_us(run_shape(*sh), mine=own_kernel)
-                 for sh in shapes + shapes[::-1]]
-        k = len(shapes)
-        line += (f"; G slots a snap block x U vertices loaded ahead, "
-                 f"bitwise the default's "
-                 f"{equal}: " + ", ".join(
-                     f"G={g} U={u} {fmt_us(a)} / {fmt_us(b)}"
-                     for (g, u), a, b in zip(shapes, times[:k], times[::-1][:k])))
-    print(line + f"; on {card}", flush=True)
-    if not (all(same) and all(equal)):
-        raise AssertionError(f"compact_detected<{ctype}>{suffix} differs from its "
-                             f"first design")
-
-
-def against_first_trace(card: str, hops, suffix: str) -> None:
-    """K14's length entry against its first design (one thread a seed
-    chasing `next` in device memory) on the same graph: lengths equal,
-    device times in turns; then threads a block x seeds a block swept, each
-    equal too, in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import streams as kst
-
-    p, i = ctypes.c_void_p, ctypes.c_int64
-    first = comparison_entry("trace_walks_first", "i32", [p] * 2 + [i] * 3 + [p])
-    variant = comparison_entry("trace_walks_variant", "i32", [p] * 2 + [i] * 5 + [p])
-    t, n = hops.shape
-
-    def call(fn, *extra):
-        def run():
-            out = torch.empty((t, n), dtype=torch.int32, device=hops.device)
-            _launched(fn(hops.data_ptr(), out.data_ptr(), t, n, MAX_STEPS, *extra,
-                         torch.cuda.current_stream().cuda_stream), "trace_walks")
-            return out
-        return run
-
-    def this():
-        return kst.trace_walks(hops, MAX_STEPS)
-    got = this()
-    same = torch.equal(got, call(first)())
-    us = [device_us(fn, mine=own_kernel) for fn in (this, call(first), call(first), this)]
-    shapes = [(256, 256), (256, 512), (512, 512), (512, 1024), (512, 1536),
-              (512, 2048), (1024, 1024), (1024, 2048), (1024, 3072)]
-    equal = [torch.equal(call(variant, *sh)(), got) for sh in shapes]
-    times = [device_us(call(variant, *sh), mine=own_kernel)
-             for sh in shapes + shapes[::-1]]
-    k = len(shapes)
-    sms = torch.cuda.get_device_properties(hops.device).multi_processor_count
-    rounds = min(-(-t * n // (12 * sms * 512)), -(-n // 512))
-    print(f"[parent] trace_walks<int>{suffix}: lengths equal to the first design's: "
-          f"{same}; device {fmt_us(us[0])} / {fmt_us(us[3])} against the first "
-          f"design's {fmt_us(us[1])} / {fmt_us(us[2])} (in turns; the default "
-          f"512 threads x {rounds * 512} seeds a block); threads x seeds a block, "
-          f"equal {equal}: " + ", ".join(
-              f"{a}x{b} {fmt_us(x)} / {fmt_us(y)}"
-              for (a, b), x, y in zip(shapes, times[:k], times[::-1][:k]))
-          + f"; on {card}", flush=True)
-    if not (same and all(equal)):
-        raise AssertionError(f"trace_walks<int>{suffix} differs from its first design")
-
-
 def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
                  suffix: str = "") -> None:
     """K1 on operator `op` (one problem's shapes): the matvec A x, or the
@@ -859,8 +713,11 @@ def check_analysis_kernels(checks: KernelChecks, mesh, v_k, suffix: str = "",
                        lambda: kan.plain_compact_detected(*comp), tol,
                        nbytes=moved, ops=8 * t * cap * n_vert,
                        launches_key=f"compact_detected<{ctype}>")
-        against_first_compact(checks.card, comp, suffix,
-                              sweep=dtype == torch.float64)
+        # K7 is two launches: the compaction's share of its device time.
+        masks = device_us(lambda: kan.compact_detected(*comp),
+                          mine=lambda k: own_kernel(k) and "masks" in k)
+        print(f"[kernels] compact_detected<{ctype}>{suffix}: the compaction launch "
+              f"{fmt_us(masks)} of its device time; on {checks.card}", flush=True)
 
 
 def restriction_coo(r_blk, members) -> torch.Tensor:
@@ -1157,7 +1014,6 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
                        lambda: (kst.trace_walks(hops, MAX_STEPS),),
                        lambda: (kst.plain_trace_walks(hops, MAX_STEPS),), 0.0,
                        inputs=(hops,), launches_key="trace_walks<int>")
-        against_first_trace(checks.card, hops, suffix)
         lengths = kst.trace_walks(hops, MAX_STEPS).reshape(-1)
         seeds = torch.nonzero(lengths >= MIN_LENGTH)[:, 0]
         lens = lengths[seeds].contiguous()

@@ -236,7 +236,6 @@ __global__ void detect_triangle_kernel(
 //    vertices in shared memory was slower.
 
 constexpr int kSnapSlots = 4;  // slots a snap block serves (G)
-constexpr int kSnapAhead = 1;  // vertices a thread loads ahead of its distances (U)
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -392,12 +391,12 @@ __device__ __forceinline__ void snap_update(const T (&q)[G][3], T (&best)[G],
 }
 
 // K7, snap: block (g, t) finds, for the G slots g G .. g G + G - 1 of frame
-// t, the nearest vertex. Its threads take the vertices in turn, U at a
-// time, loading the next U points while the current ones' distances run;
-// each keeps its minimum per slot in registers, and the block merges them
-// with warp shuffles, then across warps in shared memory, in
-// argmin_before's order. queries: (T, cap, 3), the compacted points.
-template <typename T, int G, int U>
+// t, the nearest vertex. Its threads take the vertices in turn, loading the
+// next one's point while the current one's distances run; each keeps its
+// minimum per slot in registers, and the block merges them with warp
+// shuffles, then across warps in shared memory, in argmin_before's order.
+// queries: (T, cap, 3), the compacted points.
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
     const T* __restrict__ points, const T* __restrict__ queries,
     int32_t* __restrict__ centers, int64_t n_frames, int64_t n_vert, int64_t cap) {
@@ -424,32 +423,22 @@ __global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
       nan_held[g] = false;
     }
     // This thread's vertices threadIdx.x + k kThreads, ascending.
-    T next[U][3];
-    auto load = [&](int64_t base) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int64_t v = base + u * kThreads;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) next[u][d] = v < n_vert ? __ldg(points + 3 * v + d) : T(0);
+    int64_t v = threadIdx.x;
+    T nx = T(0), ny = T(0), nz = T(0);
+    if (v < n_vert) {
+      nx = __ldg(points + 3 * v);
+      ny = __ldg(points + 3 * v + 1);
+      nz = __ldg(points + 3 * v + 2);
+    }
+    for (; v < n_vert; v += kThreads) {
+      const T px = nx, py = ny, pz = nz;
+      const int64_t w = v + kThreads;
+      if (w < n_vert) {
+        nx = __ldg(points + 3 * w);
+        ny = __ldg(points + 3 * w + 1);
+        nz = __ldg(points + 3 * w + 2);
       }
-    };
-    load(threadIdx.x);
-    for (int64_t base = threadIdx.x; base < n_vert; base += U * kThreads) {
-      T p[U][3];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) p[u][d] = next[u][d];
-      }
-      load(base + U * kThreads);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int64_t v = base + u * kThreads;
-        if (v < n_vert) {
-          snap_update(q, best, best_i, nan_held, p[u][0], p[u][1], p[u][2],
-                      static_cast<int>(v));
-        }
-      }
+      snap_update(q, best, best_i, nan_held, px, py, pz, static_cast<int>(v));
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -481,115 +470,6 @@ __global__ void __launch_bounds__(kThreads) compact_detected_snap_kernel(
       centers[t * cap + slot0 + g] = bi;
     }
     __syncthreads();  // red_* are rewritten for the next frame
-  }
-}
-
-// The first design of K7, kept for chip_smoke.py's [parent] lines only.
-__device__ void compact_row_first(const uint8_t* __restrict__ mask, int64_t n,
-                                  int64_t cap, int32_t* __restrict__ ids,
-                                  uint8_t* __restrict__ valid, int* warp_masked,
-                                  int* warp_unmasked) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned int lower = (1u << lane) - 1u;
-  int64_t n_masked = 0;
-  for (int64_t base = 0; base < n; base += kThreads) {
-    const int64_t i = base + threadIdx.x;
-    n_masked += __syncthreads_count(i < n && mask[i] != 0);
-  }
-  int64_t seen_masked = 0, seen_unmasked = 0;
-  for (int64_t base = 0; base < n; base += kThreads) {
-    const int64_t i = base + threadIdx.x;
-    const bool in = i < n;
-    const bool f = in && mask[i] != 0;
-    const unsigned int bal_m = __ballot_sync(0xffffffffu, f);
-    const unsigned int bal_u = __ballot_sync(0xffffffffu, in && !f);
-    if (lane == 0) {
-      warp_masked[warp] = __popc(bal_m);
-      warp_unmasked[warp] = __popc(bal_u);
-    }
-    __syncthreads();
-    int64_t off_m = 0, off_u = 0, tot_m = 0, tot_u = 0;
-    for (int k = 0; k < kWarps; ++k) {
-      if (k < warp) {
-        off_m += warp_masked[k];
-        off_u += warp_unmasked[k];
-      }
-      tot_m += warp_masked[k];
-      tot_u += warp_unmasked[k];
-    }
-    __syncthreads();  // the counts are rewritten in the next round
-    if (f) {
-      const int64_t slot = seen_masked + off_m + __popc(bal_m & lower);
-      if (slot < cap) {
-        ids[slot] = static_cast<int32_t>(i);
-        valid[slot] = 1;
-      }
-    } else if (in) {
-      const int64_t slot = n_masked + seen_unmasked + off_u + __popc(bal_u & lower);
-      if (slot < cap) {
-        ids[slot] = static_cast<int32_t>(i);
-        valid[slot] = 0;
-      }
-    }
-    seen_masked += tot_m;
-    seen_unmasked += tot_u;
-  }
-}
-
-template <typename T>
-__global__ void compact_detected_first_kernel(
-    const uint8_t* __restrict__ vertex_mask,
-    const uint8_t* __restrict__ interior_mask,
-    const T* __restrict__ interior_point, const T* __restrict__ points,
-    int32_t* __restrict__ vertex_ids, uint8_t* __restrict__ vertex_valid,
-    int32_t* __restrict__ interior_ids, uint8_t* __restrict__ interior_valid,
-    T* __restrict__ interior_points, int32_t* __restrict__ interior_centers,
-    int64_t n_vert, int64_t n_tri, int64_t cap_v, int64_t cap_i) {
-  __shared__ int warp_masked[kWarps];
-  __shared__ int warp_unmasked[kWarps];
-  const int64_t t = blockIdx.x;
-  compact_row_first(vertex_mask + t * n_vert, n_vert, cap_v, vertex_ids + t * cap_v,
-              vertex_valid + t * cap_v, warp_masked, warp_unmasked);
-  int32_t* ids = interior_ids + t * cap_i;
-  compact_row_first(interior_mask + t * n_tri, n_tri, cap_i, ids,
-              interior_valid + t * cap_i, warp_masked, warp_unmasked);
-  __syncthreads();
-  T* pts = interior_points + t * cap_i * 3;
-  for (int64_t s = threadIdx.x; s < cap_i; s += blockDim.x) {
-    const int64_t src = (t * n_tri + ids[s]) * 3;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) pts[s * 3 + d] = interior_point[src + d];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int64_t s = warp; s < cap_i; s += kWarps) {
-    T q[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) q[d] = pts[s * 3 + d];
-    T best = T(0);
-    int best_i = -1;
-    for (int64_t v = lane; v < n_vert; v += 32) {
-      T diff[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) diff[d] = rn_sub(q[d], points[v * 3 + d]);
-      const T d2 = dot3(diff, diff);
-      if (argmin_before(d2, static_cast<int>(v), best, best_i)) {
-        best = d2;
-        best_i = static_cast<int>(v);
-      }
-    }
-#pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      const T other = __shfl_down_sync(0xffffffffu, best, offset);
-      const int other_i = __shfl_down_sync(0xffffffffu, best_i, offset);
-      if (argmin_before(other, other_i, best, best_i)) {
-        best = other;
-        best_i = other_i;
-      }
-    }
-    if (lane == 0) interior_centers[t * cap_i + s] = best_i;
   }
 }
 
@@ -641,49 +521,6 @@ int detect_singular(const void* points, const void* tris, const void* v_world,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G, int U>
-void launch_snap(const void* points, const void* queries, void* centers, int64_t n_frames,
-                 int64_t n_vert, int64_t cap, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned int>((cap + G - 1) / G), frame_blocks(n_frames));
-  compact_detected_snap_kernel<T, G, U><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(points), static_cast<const T*>(queries),
-      static_cast<int32_t*>(centers), n_frames, n_vert, cap);
-}
-
-// K7 with G slots a snap block and its threads loading `ahead` vertices
-// ahead (G in {2, 4, 8}, ahead in {1, 2, 4}).
-template <typename T>
-int compact_detected_shaped(const void* vertex_mask, const void* interior_mask,
-                            const void* interior_point, const void* points,
-                            void* vertex_ids, void* vertex_valid, void* interior_ids,
-                            void* interior_valid, void* interior_points,
-                            void* interior_centers, int64_t n_frames, int64_t n_vert,
-                            int64_t n_tri, int64_t cap_v, int64_t cap_i, int64_t group,
-                            int64_t ahead, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
-  const bool g_ok = group == 2 || group == 4 || group == 8;
-  const bool u_ok = ahead == 1 || ahead == 2 || ahead == 4;
-  if (!g_ok || !u_ok) return static_cast<int>(cudaErrorInvalidValue);
-  compact_detected_masks_kernel<T><<<dim3(2, frame_blocks(n_frames)), kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(vertex_mask), static_cast<const uint8_t*>(interior_mask),
-      static_cast<const T*>(interior_point), static_cast<int32_t*>(vertex_ids),
-      static_cast<uint8_t*>(vertex_valid), static_cast<int32_t*>(interior_ids),
-      static_cast<uint8_t*>(interior_valid), static_cast<T*>(interior_points), n_frames,
-      n_vert, n_tri, cap_v, cap_i);
-  if (cap_i > 0) {
-#define MF_SNAP(G, U)                                                                    \
-  if (group == G && ahead == U)                                                          \
-    launch_snap<T, G, U>(points, interior_points, interior_centers, n_frames, n_vert,    \
-                         cap_i, s);
-    MF_SNAP(2, 1) MF_SNAP(2, 2) MF_SNAP(2, 4)
-    MF_SNAP(4, 1) MF_SNAP(4, 2) MF_SNAP(4, 4)
-    MF_SNAP(8, 1) MF_SNAP(8, 2) MF_SNAP(8, 4)
-#undef MF_SNAP
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int compact_detected(const void* vertex_mask, const void* interior_mask,
                      const void* interior_point, const void* points,
@@ -692,29 +529,20 @@ int compact_detected(const void* vertex_mask, const void* interior_mask,
                      void* interior_centers, int64_t n_frames, int64_t n_vert,
                      int64_t n_tri, int64_t cap_v, int64_t cap_i,
                      void* stream) {
-  return compact_detected_shaped<T>(vertex_mask, interior_mask, interior_point, points,
-                                    vertex_ids, vertex_valid, interior_ids, interior_valid,
-                                    interior_points, interior_centers, n_frames, n_vert,
-                                    n_tri, cap_v, cap_i, kSnapSlots, kSnapAhead, stream);
-}
-
-template <typename T>
-int compact_detected_first(const void* vertex_mask, const void* interior_mask,
-                           const void* interior_point, const void* points,
-                           void* vertex_ids, void* vertex_valid, void* interior_ids,
-                           void* interior_valid, void* interior_points,
-                           void* interior_centers, int64_t n_frames, int64_t n_vert,
-                           int64_t n_tri, int64_t cap_v, int64_t cap_i, void* stream) {
-  if (n_frames > 0) {
-    compact_detected_first_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads,
-                                       0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(vertex_mask),
-        static_cast<const uint8_t*>(interior_mask),
-        static_cast<const T*>(interior_point), static_cast<const T*>(points),
-        static_cast<int32_t*>(vertex_ids), static_cast<uint8_t*>(vertex_valid),
-        static_cast<int32_t*>(interior_ids),
-        static_cast<uint8_t*>(interior_valid), static_cast<T*>(interior_points),
-        static_cast<int32_t*>(interior_centers), n_vert, n_tri, cap_v, cap_i);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  compact_detected_masks_kernel<T><<<dim3(2, frame_blocks(n_frames)), kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(vertex_mask), static_cast<const uint8_t*>(interior_mask),
+      static_cast<const T*>(interior_point), static_cast<int32_t*>(vertex_ids),
+      static_cast<uint8_t*>(vertex_valid), static_cast<int32_t*>(interior_ids),
+      static_cast<uint8_t*>(interior_valid), static_cast<T*>(interior_points), n_frames,
+      n_vert, n_tri, cap_v, cap_i);
+  if (cap_i > 0) {
+    const dim3 grid(static_cast<unsigned int>((cap_i + kSnapSlots - 1) / kSnapSlots),
+                    frame_blocks(n_frames));
+    compact_detected_snap_kernel<T, kSnapSlots><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(points), static_cast<const T*>(interior_points),
+        static_cast<int32_t*>(interior_centers), n_frames, n_vert, cap_i);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1028,31 +856,6 @@ int classify_candidates(const void* points, const void* basis, const void* neigh
                                    interior_points, interior_centers,           \
                                    n_frames, n_vert, n_tri, cap_v, cap_i,       \
                                    stream);                                     \
-  }                                                                             \
-  extern "C" int mf_compact_detected_first_##SUFFIX(                            \
-      const void* vertex_mask, const void* interior_mask,                       \
-      const void* interior_point, const void* points, void* vertex_ids,         \
-      void* vertex_valid, void* interior_ids, void* interior_valid,             \
-      void* interior_points, void* interior_centers, int64_t n_frames,          \
-      int64_t n_vert, int64_t n_tri, int64_t cap_v, int64_t cap_i,              \
-      void* stream) {                                                           \
-    return mf::compact_detected_first<T>(                                       \
-        vertex_mask, interior_mask, interior_point, points, vertex_ids,         \
-        vertex_valid, interior_ids, interior_valid, interior_points,            \
-        interior_centers, n_frames, n_vert, n_tri, cap_v, cap_i, stream);       \
-  }                                                                             \
-  extern "C" int mf_compact_detected_variant_##SUFFIX(                          \
-      const void* vertex_mask, const void* interior_mask,                       \
-      const void* interior_point, const void* points, void* vertex_ids,         \
-      void* vertex_valid, void* interior_ids, void* interior_valid,             \
-      void* interior_points, void* interior_centers, int64_t n_frames,          \
-      int64_t n_vert, int64_t n_tri, int64_t cap_v, int64_t cap_i,              \
-      int64_t group, int64_t ahead, void* stream) {                             \
-    return mf::compact_detected_shaped<T>(                                      \
-        vertex_mask, interior_mask, interior_point, points, vertex_ids,         \
-        vertex_valid, interior_ids, interior_valid, interior_points,            \
-        interior_centers, n_frames, n_vert, n_tri, cap_v, cap_i, group,         \
-        ahead, stream);                                                         \
   }                                                                             \
   extern "C" int mf_classify_candidates_##SUFFIX(                              \
       const void* points, const void* basis, const void* neighbors,             \

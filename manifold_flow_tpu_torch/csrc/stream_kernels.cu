@@ -314,50 +314,6 @@ __global__ void trace_walks_kernel(const int32_t* __restrict__ next,
   }
 }
 
-// The first design of the length entry, kept for chip_smoke.py's [parent]
-// lines only: one thread per seed chasing `next` in device memory.
-__global__ void trace_walks_first_kernel(const int32_t* __restrict__ next,
-                                         int32_t* __restrict__ lengths, int64_t n_frames,
-                                         int64_t n_vert, int64_t cap) {
-  const int64_t total = n_frames * n_vert;
-  for (int64_t seed = global_index(); seed < total;
-       seed += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int32_t* f = next + (seed / n_vert) * n_vert;
-    const int32_t s = static_cast<int32_t>(seed % n_vert);
-    int64_t power = 1, lam = 1, steps = 1;
-    int32_t tortoise = s, hare = f[s];
-    bool found = true;
-    while (tortoise != hare) {
-      if (steps >= 4 * cap) {
-        found = false;
-        break;
-      }
-      if (power == lam) {
-        tortoise = hare;
-        power *= 2;
-        lam = 0;
-      }
-      hare = f[hare];
-      ++lam;
-      ++steps;
-    }
-    int64_t len = cap;
-    if (found && lam < cap) {
-      tortoise = s;
-      hare = s;
-      for (int64_t k = 0; k < lam; ++k) hare = f[hare];
-      int64_t mu = 0;
-      while (tortoise != hare && mu + lam < cap) {
-        tortoise = f[tortoise];
-        hare = f[hare];
-        ++mu;
-      }
-      len = mu + lam < cap ? mu + lam : cap;
-    }
-    lengths[seed] = static_cast<int32_t>(len);
-  }
-}
-
 // K14's pack entry (ops/streamline.py:733 _gather_packed; B11): walk k
 // from seed seeds[k] = frame * N + vertex, lengths[k] frame-local ids,
 // written to out[offsets[k] ...]. Bound on this card: the ids written
@@ -475,14 +431,12 @@ inline int64_t trace_walks_per_block(int64_t n_frames, int64_t n_vert) {
   return (rounds < row ? rounds : row) * kWalkThreads;
 }
 
-// The length entry with `threads` threads a block and `per_block` seeds a
-// block (a multiple of `threads`).
-int trace_walks_shaped(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
-                       int64_t max_steps, int64_t threads, int64_t per_block,
-                       void* stream) {
+int trace_walks(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
+                int64_t max_steps, void* stream) {
   if (n_frames <= 0 || n_vert <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t cap = max_steps + 1;
   const int limit = walk_limit(cap, n_vert);
+  const int64_t per_block = trace_walks_per_block(n_frames, n_vert);
   int device = 0, optin = 48 * 1024;
   if (cudaGetDevice(&device) == cudaSuccess) {
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -490,10 +444,9 @@ int trace_walks_shaped(const void* next, void* lengths, int64_t n_frames, int64_
   const dim3 grid(static_cast<unsigned int>((n_vert + per_block - 1) / per_block),
                   frame_blocks(n_frames));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int block = static_cast<unsigned int>(threads);
   const size_t with_row = static_cast<size_t>(n_vert + 3) * sizeof(int32_t);
   if (with_row > static_cast<size_t>(optin)) {
-    trace_walks_kernel<false><<<grid, block, 0, s>>>(
+    trace_walks_kernel<false><<<grid, kWalkThreads, 0, s>>>(
         static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
         n_vert, cap, limit, per_block);
     return static_cast<int>(cudaGetLastError());
@@ -504,28 +457,9 @@ int trace_walks_shaped(const void* next, void* lengths, int64_t n_frames, int64_
         static_cast<int>(with_row));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_walks_kernel<true><<<grid, block, with_row, s>>>(
+  trace_walks_kernel<true><<<grid, kWalkThreads, with_row, s>>>(
       static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames, n_vert,
       cap, limit, per_block);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int trace_walks(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
-                int64_t max_steps, void* stream) {
-  return trace_walks_shaped(next, lengths, n_frames, n_vert, max_steps, kWalkThreads,
-                            trace_walks_per_block(n_frames, n_vert), stream);
-}
-
-int trace_walks_first(const void* next, void* lengths, int64_t n_frames, int64_t n_vert,
-                      int64_t max_steps, void* stream) {
-  const int64_t total = n_frames * n_vert;
-  if (total > 0) {
-    const int64_t blocks = blocks_for(total) < 65535 * 32 ? blocks_for(total) : 65535 * 32;
-    trace_walks_first_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(next), static_cast<int32_t*>(lengths), n_frames,
-        n_vert, max_steps + 1);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -606,20 +540,6 @@ MF_STREAM_ENTRY_POINTS(f64, double)
 extern "C" int mf_trace_walks_i32(const void* next, void* lengths, int64_t n_frames,
                                   int64_t n_vert, int64_t max_steps, void* stream) {
   return mf::trace_walks(next, lengths, n_frames, n_vert, max_steps, stream);
-}
-
-extern "C" int mf_trace_walks_first_i32(const void* next, void* lengths,
-                                        int64_t n_frames, int64_t n_vert,
-                                        int64_t max_steps, void* stream) {
-  return mf::trace_walks_first(next, lengths, n_frames, n_vert, max_steps, stream);
-}
-
-extern "C" int mf_trace_walks_variant_i32(const void* next, void* lengths,
-                                          int64_t n_frames, int64_t n_vert,
-                                          int64_t max_steps, int64_t threads,
-                                          int64_t per_block, void* stream) {
-  return mf::trace_walks_shaped(next, lengths, n_frames, n_vert, max_steps, threads,
-                                per_block, stream);
 }
 
 extern "C" int mf_pack_walks_i32(const void* next, const void* seeds,

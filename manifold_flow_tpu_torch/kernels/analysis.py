@@ -195,13 +195,15 @@ def compact_detected(vertex_mask: torch.Tensor, interior_mask: torch.Tensor,
     counted as one. The compaction runs a block per (mask, frame): each
     thread counts the set bytes of a contiguous run of the row from
     16-byte loads, one block-wide scan places every run's ids, and only
-    runs whose slots fall under S write ids, flags and the interior slots'
-    points. The snap runs a block per (frame, 4 slots): tiles of 1024
-    vertices staged in shared memory with coalesced loads, each thread's
-    (d^2, index) minimum for each slot in registers, merged with warp
-    shuffles and then across warps in argmin's order (ties to the lower
-    index, a NaN first). The first design ran a block per frame, and one
-    warp per slot scanned the vertices in device memory.
+    runs with a slot under S write ids and flags, from each 16-byte
+    group's bit mask of set bytes; one thread a slot then copies the
+    interior slots' points. The snap runs a block per (frame, 4 slots):
+    its threads take the vertices in turn, each loading its next vertex
+    while the current one's distances run, keep each slot's (d^2, index)
+    minimum in registers, and merge them with warp shuffles, then across
+    warps, in argmin's order (ties to the lower index, a NaN first). The
+    first design ran a block per frame, and one warp per slot scanned the
+    vertices in device memory.
     """
     dtype = _float_dtype("interior_point", interior_point)
     t, n = vertex_mask.shape[0], points.shape[0]
