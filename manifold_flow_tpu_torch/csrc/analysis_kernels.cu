@@ -269,16 +269,16 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* scratch, int* to
   return before;
 }
 
-// Set (non-zero) bytes among the 16 of v.
-__device__ __forceinline__ int set_bytes(uint4 v) {
-  return __popc(__vsetne4(v.x, 0u)) + __popc(__vsetne4(v.y, 0u)) +
-         __popc(__vsetne4(v.z, 0u)) + __popc(__vsetne4(v.w, 0u));
-}
-
-// Bit b set for each non-zero byte b of w (4 bits).
-__device__ __forceinline__ unsigned int byte_bits(unsigned int w) {
-  const unsigned int b = __vsetne4(w, 0u);  // 1 in each non-zero byte
-  return (b & 1u) | (b >> 7 & 2u) | (b >> 14 & 4u) | (b >> 21 & 8u);
+// Bit b set for each non-zero byte b of the 16 of w.
+__device__ __forceinline__ unsigned int set_bits(uint4 w) {
+  unsigned int bits = 0;
+  const unsigned int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned int b = __vsetne4(words[k], 0u);  // 1 in each non-zero byte
+    bits |= ((b & 1u) | (b >> 7 & 2u) | (b >> 14 & 4u) | (b >> 21 & 8u)) << (4 * k);
+  }
+  return bits;
 }
 
 // The first `cap` ids of a stable argsort of ~mask[0..n) into ids/valid:
@@ -304,7 +304,7 @@ __device__ void compact_row(const uint8_t* __restrict__ mask, int64_t n, int64_t
   int c = 0;
   for (int64_t j = lo; j < head + 16 * k0; ++j) c += mask[j] != 0;
 #pragma unroll 4
-  for (int64_t k = k0; k < k1; ++k) c += set_bytes(__ldg(vec + k));
+  for (int64_t k = k0; k < k1; ++k) c += __popc(set_bits(__ldg(vec + k)));
   for (int64_t j = head + 16 * k1; j < hi; ++j) c += mask[j] != 0;
   int n_masked;
   const int before = block_exclusive_scan(c, scratch, &n_masked);
@@ -324,9 +324,7 @@ __device__ void compact_row(const uint8_t* __restrict__ mask, int64_t n, int64_t
   for (int64_t k = k0; k < k1 && room(); ++k) {
     // The group's set bytes as 16 bits; its masked ids, then its unmasked
     // ones, go to their slots lowest first while slots are left.
-    const uint4 w = __ldg(vec + k);
-    const unsigned int set = byte_bits(w.x) | byte_bits(w.y) << 4 | byte_bits(w.z) << 8 |
-                             byte_bits(w.w) << 12;
+    const unsigned int set = set_bits(__ldg(vec + k));
     const int64_t j0 = head + 16 * k;
     for (unsigned int m = set; m != 0 && slot_m < m_end; m &= m - 1) {
       ids[slot_m] = static_cast<int32_t>(j0 + __ffs(m) - 1);
