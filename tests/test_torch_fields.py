@@ -134,6 +134,26 @@ def test_wave_speeds_match_jax(meshes, method):
     assert np.isnan(got[4]).all() and np.isinf(got[3]).any()
 
 
+@pytest.mark.parametrize("n_frames", [3, 17], ids=["end_stencils", "group_cut_short"])
+@pytest.mark.parametrize("method", ["wave_velocity_amplitude", "wave_velocity_phase"])
+def test_wave_speeds_at_frame_group_edges_match_jax(meshes, method, n_frames):
+    """Movies whose length puts the K16 frame groups' edges where its
+    one-sided stencils are (3 frames: every frame an end or beside one) and
+    cuts the last group short (17 frames), with frame 1 flat (inf and NaN
+    where |grad| = 0, as in JAX)."""
+    jmesh, tmesh = meshes
+    x = _movie(tmesh.n_vertices, n_frames=n_frames, seed=n_frames)
+    if "phase" in method:
+        x = np.angle(np.exp(3j * x))
+    x[1] = 0.0
+    got = getattr(wavespeed, method)(tmesh, torch.from_numpy(x), DT).numpy()
+    want = np.asarray(getattr(jax_wave, method)(jmesh, jnp.asarray(x), DT))
+    mag = np.asarray(jax_wave.tangential_gradient_magnitude(jmesh, jnp.asarray(x)))
+    assert got.shape == (n_frames, tmesh.n_vertices)
+    _speeds_close(got, want, mag)
+    assert not np.isfinite(got[1]).any()
+
+
 def test_short_movies_raise_where_jax_clamps(meshes):
     """np.gradient(edge_order=2), which the reference calls (S5:24), raises
     on fewer than 3 frames, and the phase differences need 2: the port
@@ -214,6 +234,39 @@ def test_rbf_interpolate_phases_and_complex_match_jax(meshes):
     want = np.asarray(jax_interp.rbf_interpolate(jnp.asarray(coords), jnp.asarray(z),
                                                  jmesh.points))
     assert got.dtype == np.complex128 and rel_err(got, want) <= 1e-9
+
+
+@pytest.mark.parametrize("n_frames", [1, 17], ids=["one_frame", "frames_17"])
+@pytest.mark.parametrize("n_elec", [5, 65], ids=["e5", "e65"])
+def test_rbf_interpolate_at_tile_edges_matches_jax(meshes, n_elec, n_frames):
+    """Electrode counts on both sides of K17's 64-electrode chunk and frame
+    counts that leave its 8-frame tiles part empty, on the 144 vertices
+    (not a whole number of its 64-target blocks)."""
+    jmesh, tmesh = meshes
+    coords, sel = _electrodes(jmesh, n_elec, 10 + n_elec)
+    values = _movie(jmesh.n_vertices, n_frames=n_frames, seed=n_frames)[:, sel]
+    got = interpolate.rbf_interpolate(torch.from_numpy(coords), torch.from_numpy(values),
+                                      tmesh.points, smooth=0.01).numpy()
+    want = np.asarray(jax_interp.rbf_interpolate(
+        jnp.asarray(coords), jnp.asarray(values), jmesh.points, smooth=0.01))
+    assert got.shape == (n_frames, jmesh.n_vertices) and rel_err(got, want) <= 1e-9
+
+
+@pytest.mark.parametrize("n_frames", [1, 17], ids=["one_frame", "frames_17"])
+@pytest.mark.parametrize("n_elec", [5, 65], ids=["e5", "e65"])
+def test_rbf_interpolate_phases_at_tile_edges_matches_jax(meshes, n_elec, n_frames):
+    """rbf_interpolate_phases at the shapes of the test above: the angle
+    of the complex interpolant, within 1e-9 rad of JAX's."""
+    jmesh, tmesh = meshes
+    coords, sel = _electrodes(jmesh, n_elec, 20 + n_elec)
+    phi = np.angle(np.exp(2j * _movie(jmesh.n_vertices, n_frames=n_frames,
+                                      seed=n_frames)[:, sel]))
+    got = interpolate.rbf_interpolate_phases(
+        torch.from_numpy(coords), torch.from_numpy(phi), tmesh.points, smooth=0.01).numpy()
+    want = np.asarray(jax_interp.rbf_interpolate_phases(
+        jnp.asarray(coords), jnp.asarray(phi), jmesh.points, smooth=0.01))
+    assert got.shape == (n_frames, jmesh.n_vertices)
+    assert float(np.abs(np.angle(np.exp(1j * (got - want)))).max()) <= 1e-9
 
 
 # ------------------------------------------------------------- SVD -----

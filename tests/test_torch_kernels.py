@@ -1053,6 +1053,62 @@ def test_rbf_kernels_match_plain(cuda, dtype, kind):
     assert float((z.abs() * torch.exp(1j * got) - z).abs().max()) <= 2 * TOL[dtype] * scale
 
 
+@pytest.mark.parametrize("n_frames", [1, 17, 98])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wave_kernel_at_frame_group_edges(cuda, dtype, n_frames):
+    """K16 against its plain version where its frame groups have edges: one
+    frame, a last group cut short, the default path's 98 frames; every
+    output the frame count allows, with frame 1 flat where there is one (inf
+    and NaN masks equal)."""
+    mesh, _, _ = _problem(cuda)
+    gen = np.random.default_rng(n_frames)
+    movie = torch.as_tensor(gen.standard_normal((n_frames, mesh.n_vertices)),
+                            device=cuda).to(dtype)
+    if n_frames > 1:
+        movie[1] = 0.0
+    args = (mesh.triangles, mesh.grad_w.to(dtype), mesh.areas.to(dtype),
+            mesh.vertex_cells, mesh.basis.to(dtype))
+    mag = kfi.plain_wave_speed(movie, *args, 1.0 / 512, "magnitude")
+    for output in kfi.WAVE_OUTPUTS:
+        if n_frames < kfi._MIN_FRAMES.get(output, 0):
+            continue
+        got = _launched("wave_speed", dtype,
+                        lambda: kfi.wave_speed(movie, *args, 1.0 / 512, output))
+        want = kfi.plain_wave_speed(movie, *args, 1.0 / 512, output)
+        if output in ("gradient", "magnitude"):
+            _assert_close([got], [want], dtype)
+        else:
+            _speed_close(got, want, mag, dtype)
+            assert not torch.isfinite(got[1]).any()
+
+
+@pytest.mark.parametrize("n_frames", [1, 17, 98])
+@pytest.mark.parametrize("n_elec", [5, 70])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rbf_eval_at_tile_edges(cuda, dtype, n_elec, n_frames):
+    """K17's evaluation, real and phase, where its tiles have edges: 141
+    targets (no whole number of 8-target warps), 5 and 70 electrodes (part
+    of one 64-electrode chunk, one and a part), 1, 17 and 98 frames; the
+    error relative to max sum_e |phi| |w|, as above."""
+    mesh, _, _ = _problem(cuda)
+    gen = np.random.default_rng(n_elec + n_frames)
+    x = mesh.points[:141].to(dtype).contiguous()
+    c = torch.as_tensor(gen.uniform(0.0, 6.0, (n_elec, 3)), device=cuda).to(dtype)
+    eps = interp.scipy_default_epsilon(c).reshape(1)
+    w, w_im = (torch.as_tensor(gen.standard_normal((n_elec, n_frames)), device=cuda).to(dtype)
+               for _ in range(2))
+    b = kfi.rbf_phi(kfi.pairwise_dist(x, c), eps, "multiquadric")
+    scale = float((b.abs() @ w.abs()).max())
+    got = _launched("rbf_eval", dtype, lambda: kfi.rbf_eval(x, c, eps, w, "multiquadric"))
+    assert got.shape == (n_frames, 141)
+    want = kfi.plain_rbf_eval(x, c, eps, w, "multiquadric")
+    assert float((got - want).abs().max()) <= TOL[dtype] * scale
+    got = _launched("rbf_eval", dtype,
+                    lambda: kfi.rbf_eval(x, c, eps, w, "multiquadric", w_im))
+    z = torch.complex((b @ w).T, (b @ w_im).T)
+    assert float((z.abs() * torch.exp(1j * got) - z).abs().max()) <= 2 * TOL[dtype] * scale
+
+
 def test_field_stages_on_cuda_match_cpu(cuda):
     """S2, S4 and S5 on the card against the same stages on the CPU, with
     K16 and K17 launched on the card and nothing on the CPU."""
