@@ -134,7 +134,10 @@ any slower than its library call on the device, then by the default path's
 launches (the flow CLIs, the trials and the field stages, at the row's own
 size first) x (solve_device_us, or device_us where no profiled solve ran
 the kernel, - bound), with the instances that only the float64 cg, the
-Cholesky or the crossover runs launch listed as off the default path; one
+Cholesky or the crossover runs launch listed as off the default path, then
+the same loss summed over each kernel's default-path instances (field
+variants and both sizes) by its entry point's name, with its launches'
+bound time over their device time (its share of the bound); one
 JSON line for the kernels (launches from the default path, else from those
 runs; solve_device_us beside device_us), the card's name and power limit,
 a [kernels] line naming the rows that no phase launches (K4's float32
@@ -1208,224 +1211,6 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                        mm_ops=4 * n * e * t, library=lambda: library(wr, wi),
                        measure=phase_measure(b, wr, wi),
                        launches_key=f"rbf_eval<{ctype}>+phase")
-
-
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """a and b equal bit for bit (floats by their bits, NaNs included)."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
-    return torch.equal(a.view(ints), b.view(ints)) if ints else torch.equal(a, b)
-
-
-def build_parent_fields(parent: Path):
-    """The parent tree's csrc/field_kernels.cu (K16 and K17's first designs)
-    compiled alone into a library with this build's flags, loaded with
-    ctypes, with its wave_speed and rbf_eval entry points typed."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import build
-
-    csrc = parent / "manifold_flow_tpu_torch" / "csrc"
-    out = Path(tempfile.mkdtemp(prefix="parent_fields_")) / "libparent_fields.so"
-    run = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(csrc),
-                          "-o", str(out), str(csrc / "field_kernels.cu")],
-                         capture_output=True, text=True)
-    if run.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the parent's field kernels:\n{run.stderr}")
-    lib = ctypes.CDLL(str(out))
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    for sfx in ("f32", "f64"):
-        for name, argtypes in (("wave_speed", [p] * 7 + [i] * 3 + [d] + [i] + [p]),
-                               ("rbf_eval", [p] * 6 + [i] * 4 + [p])):
-            fn = getattr(lib, f"mf_{name}_{sfx}")
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
-
-
-def ptxas_report() -> None:
-    """ptxas' registers, spills and shared memory of this tree's
-    field_kernels.cu, written to chiprun_out/ptxas_fields.txt; the K16 and
-    K17 evaluation lines printed."""
-    from manifold_flow_tpu_torch.kernels import build
-
-    src = build.CSRC_DIR / "field_kernels.cu"
-    with tempfile.TemporaryDirectory() as tmp:
-        run = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-                              "-I", str(build.CSRC_DIR), "-c", "-o",
-                              str(Path(tmp) / "f.o"), str(src)],
-                             capture_output=True, text=True)
-    text = run.stdout + run.stderr
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "ptxas_fields.txt").write_text(text)
-    lines = text.splitlines()
-    for k, line in enumerate(lines):
-        if "Compiling entry function" in line and ("rbf_eval" in line or "wave_speed" in line):
-            rest = " | ".join(x.strip() for x in lines[k + 1:k + 4]
-                              if "ptxas" in x and "Compiling" not in x)
-            print(f"[ptxas] {line.split('entry function')[1].strip()[:90]}: {rest}",
-                  flush=True)
-
-
-def against_parent_fields(parent_lib, mesh, pot, card: str, suffix: str) -> None:
-    """K16 and K17 against their first designs (the parent's build) on the
-    default path's inputs, in float64 and float32: K16 bitwise in each of
-    its outputs, K17 within its gates against the plain version; device
-    times in turns (this, first, first, this); then each kernel's launch
-    shapes swept, each checked the same way, times in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import fields as kf
-    from manifold_flow_tpu_torch.kernels import library
-    from manifold_flow_tpu_torch.ops.interpolate import scipy_default_epsilon
-
-    lib = library()
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    for sfx in ("f32", "f64"):
-        fn = getattr(lib, f"mf_wave_speed_shape_{sfx}")
-        fn.argtypes, fn.restype = [p] * 7 + [i] * 3 + [d] + [i] * 3 + [p], ctypes.c_int
-        fn = getattr(lib, f"mf_rbf_eval_shape_{sfx}")
-        fn.argtypes, fn.restype = [p] * 6 + [i] * 6 + [p], ctypes.c_int
-    sel = torch.as_tensor(electrode_ids(mesh.n_vertices), device=pot.device)
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def launched(err, what):
-        if err != 0:
-            raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-    def turns(this, first):
-        us = [device_us(fn, mine=own_kernel) for fn in (this, first, first, this)]
-        return f"{fmt_us(us[0])} / {fmt_us(us[3])} (first design {fmt_us(us[1])} / {fmt_us(us[2])})"
-
-    def sweep_times(fns):
-        times = [device_us(fn, mine=own_kernel) for fn in fns + fns[::-1]]
-        k = len(fns)
-        return list(zip(times[:k], times[::-1][:k]))
-
-    for dtype, ctype, sfx, tol in ((torch.float64, "double", "f64", TOL_F64),
-                                   (torch.float32, "float", "f32", TOL_F32)):
-        amp = pot.to(dtype).contiguous()
-        phase = torch.atan2(torch.sin(amp), torch.cos(amp))
-        t, n = amp.shape
-        tables = (mesh.triangles, mesh.grad_w.to(dtype).contiguous(), mesh.areas.to(dtype),
-                  mesh.vertex_cells, mesh.basis.to(dtype).contiguous())
-        width = mesh.vertex_cells.shape[1]
-
-        def wave_call(entry, movie, output, *extra):
-            def run():
-                out = torch.empty((t, n, 3) if output == "gradient" else (t, n),
-                                  dtype=dtype, device=movie.device)
-                launched(entry(movie.data_ptr(), *(x.data_ptr() for x in tables),
-                               out.data_ptr(), t, n, width, 1.0 / SFREQ,
-                               kf.WAVE_OUTPUTS[output], *extra, stream()), "wave_speed")
-                return out
-            return run
-        first_wave = getattr(parent_lib, f"mf_wave_speed_{sfx}")
-        shape_wave = getattr(lib, f"mf_wave_speed_shape_{sfx}")
-        for movie, tag, timed_output in ((phase, "phase", "phase_mm_per_ms"),
-                                         (amp, "amplitude", "amplitude")):
-            same = {o: same_bits(kf.wave_speed(movie, *tables, 1.0 / SFREQ, o),
-                                 wave_call(first_wave, movie, o)())
-                    for o in kf.WAVE_OUTPUTS}
-            line = (f"[parent] wave_speed<{ctype}> {tag} movie{suffix}: bitwise the first "
-                    f"design's in each output {same}; {timed_output} device "
-                    + turns(lambda: kf.wave_speed(movie, *tables, 1.0 / SFREQ, timed_output),
-                            wave_call(first_wave, movie, timed_output)))
-            if dtype == torch.float64:
-                shapes = [(2, 1), (2, 6), (2, 8), (4, 1), (4, 4), (4, 5), (4, 6), (8, 3), (8, 4)]
-                want = kf.wave_speed(movie, *tables, 1.0 / SFREQ, timed_output)
-                fns = [wave_call(shape_wave, movie, timed_output, *sh) for sh in shapes]
-                equal = all(same_bits(fn(), want) for fn in fns)
-                line += (f"; F frames a thread x at least B blocks of 128 threads an SM "
-                         f"(registers capped to fit), bitwise {equal}: " + ", ".join(
-                             f"F={f} B={bl} {fmt_us(a)} / {fmt_us(b)}"
-                             for (f, bl), (a, b) in zip(shapes, sweep_times(fns))))
-                same["sweep"] = equal
-            print(line + f"; on {card}", flush=True)
-            if not all(same.values()):
-                raise AssertionError(f"wave_speed<{ctype}>{suffix} differs from its first design")
-
-        x = mesh.points.to(dtype).contiguous()
-        c = x[sel].contiguous()
-        eps = scipy_default_epsilon(c).reshape(1)
-        e = c.shape[0]
-        lu, piv = torch.linalg.lu_factor(kf.plain_rbf_basis(c, eps, "multiquadric"))
-        w = torch.linalg.lu_solve(lu, piv, amp[:, sel].T.contiguous()).contiguous()
-        wr, wi = (torch.linalg.lu_solve(lu, piv, f(phase[:, sel]).T.contiguous()).contiguous()
-                  for f in (torch.cos, torch.sin))
-        b = kf.rbf_phi(kf.pairwise_dist(x, c), eps, "multiquadric")
-        first_eval = getattr(parent_lib, f"mf_rbf_eval_{sfx}")
-        shape_eval = getattr(lib, f"mf_rbf_eval_shape_{sfx}")
-
-        def eval_call(entry, wre, wim, *extra):
-            def run():
-                out = torch.empty((t, n), dtype=dtype, device=x.device)
-                launched(entry(x.data_ptr(), c.data_ptr(), eps.data_ptr(), wre.data_ptr(),
-                               None if wim is None else wim.data_ptr(), out.data_ptr(), n, e,
-                               t, kf.RBF_KINDS["multiquadric"], *extra, stream()), "rbf_eval")
-                return out
-            return run
-        for tag, wre, wim in (("real", w, None), ("phase", wr, wi)):
-            if wim is None:
-                scale = float((b.abs() @ w.abs()).max())
-                plain = kf.plain_rbf_eval(x, c, eps, w, "multiquadric")
-
-                def error(got):
-                    return float((got - plain).abs().max()) / scale
-            else:
-                measure = phase_measure(b, wr, wi)
-
-                def error(got):
-                    return measure((got,), None)[1]
-
-            def this():
-                return kf.rbf_eval(x, c, eps, wre, "multiquadric", wim)
-            errs = [error(this()), error(eval_call(first_eval, wre, wim)())]
-            line = (f"[parent] rbf_eval<{ctype}> {tag}{suffix}: error / max sum |phi||w| "
-                    f"{errs[0]:.3e} (first design {errs[1]:.3e}, tol {tol:.0e}); device "
-                    + turns(this, eval_call(first_eval, wre, wim)))
-            ok = errs[0] <= tol
-            if dtype == torch.float64:
-                shapes = [(wp, sp) for wp in (2, 4, 8) for sp in (1, 2, 3, 4)]
-                fns = [eval_call(shape_eval, wre, wim, *sh) for sh in shapes]
-                sweep_errs = [error(fn()) for fn in fns]
-                line += (f"; warps a block (8 targets each) x frame groups, largest "
-                         f"error {max(sweep_errs):.1e}: " + ", ".join(
-                             f"{wp}x{sp} {fmt_us(a)} / {fmt_us(bt)}"
-                             for (wp, sp), (a, bt) in zip(shapes, sweep_times(fns))))
-                ok = ok and max(sweep_errs) <= tol
-            print(line + f"; on {card}", flush=True)
-            if not ok:
-                raise AssertionError(f"rbf_eval<{ctype}> {tag}{suffix} misses its gate")
-
-
-def turns_main(parent: Path) -> int:
-    """`chip_smoke.py --turns PARENT`: K16 and K17 against their first
-    designs from the tree PARENT (a `git archive` of the parent commit),
-    at the bench and 12.5k shapes, then the launch-shape sweeps."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from manifold_flow_tpu_torch.kernels import library
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    t0 = time.perf_counter()
-    library()
-    parent_lib = build_parent_fields(parent)
-    print(f"[build] this tree and the parent's field kernels in "
-          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
-    ptxas_report()
-    for builder, suffix in ((build_problem, ""), (build_problem_12k, "@12.5k")):
-        mesh, pot = builder(device)[:2]
-        against_parent_fields(parent_lib, mesh, pot, card, suffix)
-    print(card_line())
-    return 0
 
 
 def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
@@ -2553,6 +2338,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--turns":
-        sys.exit(turns_main(Path(sys.argv[2])))
     sys.exit(main())

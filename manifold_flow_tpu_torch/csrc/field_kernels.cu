@@ -114,8 +114,8 @@ __device__ __forceinline__ void load_cell(int64_t m, CellTables<T>& ct,
 // operations in its order, so every output is the same bits; the basis'
 // normal, |n|^2 and the |e|^2 are formed once a group. No intermediate
 // (T, M, 3) or (T, N, 3) reaches memory.
-template <typename T, int F, int kMinBlocks>
-__global__ void __launch_bounds__(kWaveThreads, kMinBlocks) wave_speed_kernel(
+template <typename T>
+__global__ void __launch_bounds__(kWaveThreads, kWaveMinBlocks) wave_speed_kernel(
     const T* __restrict__ movie, const int32_t* __restrict__ triangles,
     const T* __restrict__ grad_w, const T* __restrict__ areas,
     const int32_t* __restrict__ vertex_cells, const T* __restrict__ basis,
@@ -125,6 +125,7 @@ __global__ void __launch_bounds__(kWaveThreads, kMinBlocks) wave_speed_kernel(
   if (v >= n_vert) return;
   const int32_t* row = vertex_cells + v * width;
   const T* mv = movie + v;
+  constexpr int F = kWaveFrames;
   const int64_t n_groups = (n_frames + F - 1) / F;
   for (int64_t group = blockIdx.y; group < n_groups; group += gridDim.y) {
     const int64_t t0 = group * F;
@@ -197,17 +198,16 @@ __global__ void __launch_bounds__(kWaveThreads, kMinBlocks) wave_speed_kernel(
   }
 }
 
-template <typename T, int F, int kMinBlocks>
-int launch_wave_speed(const void* movie, const void* triangles, const void* grad_w,
-                      const void* areas, const void* vertex_cells, const void* basis,
-                      void* out, int64_t n_frames, int64_t n_vert, int64_t width,
-                      double dt, int64_t output, void* stream) {
+template <typename T>
+int wave_speed(const void* movie, const void* triangles, const void* grad_w,
+               const void* areas, const void* vertex_cells, const void* basis, void* out,
+               int64_t n_frames, int64_t n_vert, int64_t width, double dt, int64_t output,
+               void* stream) {
   if (n_frames <= 0 || n_vert <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t n_groups = (n_frames + F - 1) / F;
+  const int64_t n_groups = (n_frames + kWaveFrames - 1) / kWaveFrames;
   const dim3 grid(static_cast<unsigned int>((n_vert + kWaveThreads - 1) / kWaveThreads),
                   static_cast<unsigned int>(n_groups < 65535 ? n_groups : 65535));
-  wave_speed_kernel<T, F, kMinBlocks><<<grid, kWaveThreads, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
+  wave_speed_kernel<T><<<grid, kWaveThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(movie), static_cast<const int32_t*>(triangles),
       static_cast<const T*>(grad_w), static_cast<const T*>(areas),
       static_cast<const int32_t*>(vertex_cells), static_cast<const T*>(basis),
@@ -225,43 +225,6 @@ inline int sm_count() {
     if (sms <= 0) sms = 1;
   }
   return sms;
-}
-
-// K16 with F frames a thread (2 or 4) and at least `min_blocks` blocks an
-// SM (1, 4 or 6: the registers a thread capped to fit them).
-template <typename T>
-int wave_speed_shape(const void* movie, const void* triangles, const void* grad_w,
-                     const void* areas, const void* vertex_cells, const void* basis,
-                     void* out, int64_t n_frames, int64_t n_vert, int64_t width,
-                     double dt, int64_t output, int64_t frames, int64_t min_blocks,
-                     void* stream) {
-#define MF_WAVE(F, B)                                                                  \
-  if (frames == F && min_blocks == B) {                                                \
-    return launch_wave_speed<T, F, B>(movie, triangles, grad_w, areas, vertex_cells,   \
-                                      basis, out, n_frames, n_vert, width, dt, output, \
-                                      stream);                                         \
-  }
-  MF_WAVE(2, 1)
-  MF_WAVE(2, 6)
-  MF_WAVE(2, 8)
-  MF_WAVE(4, 1)
-  MF_WAVE(4, 4)
-  MF_WAVE(4, 5)
-  MF_WAVE(4, 6)
-  MF_WAVE(8, 3)
-  MF_WAVE(8, 4)
-#undef MF_WAVE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T>
-int wave_speed(const void* movie, const void* triangles, const void* grad_w,
-               const void* areas, const void* vertex_cells, const void* basis, void* out,
-               int64_t n_frames, int64_t n_vert, int64_t width, double dt, int64_t output,
-               void* stream) {
-  return launch_wave_speed<T, kWaveFrames, kWaveMinBlocks>(
-      movie, triangles, grad_w, areas, vertex_cells, basis, out, n_frames, n_vert, width,
-      dt, output, stream);
 }
 
 // ops/interpolate.py:34 _kernel of a distance r (kernels/fields.py
@@ -305,10 +268,22 @@ __global__ void rbf_basis_kernel(const T* __restrict__ c, const T* __restrict__ 
 
 // K17's evaluation tiles. A warp owns 8 targets (the n side of the
 // product) and every frame of its block (the m side, R a tile); the
-// electrodes are the k side, kEvalElec a chunk, K a step.
+// electrodes are the k side, kEvalElec a chunk, K a step. float64 takes
+// m16n8k8 MMAs (R = 16, K = 8); float32 the m8n8k4 layout on the CUDA
+// cores (R = 8, K = 4). Four warps a block (the launch-shape sweep of
+// chip_smoke.py on the H100).
 constexpr int kEvalElec = 64;
 constexpr int kEvalPhi = kEvalElec / 4;  // phi values a lane keeps: electrodes 4s + q
-constexpr int kEvalWarps = 8;            // warps a block at most: 64 targets
+constexpr int kEvalWarps = 4;            // 32 targets a block
+
+template <typename T>
+__host__ __device__ constexpr int eval_rows() {
+  return sizeof(T) == 8 ? 16 : 8;
+}
+template <typename T>
+__host__ __device__ constexpr int eval_depth() {
+  return sizeof(T) == 8 ? 8 : 4;
+}
 
 // A W row of a block's frames in shared memory: R MT frames and 4 of
 // padding, so that the fragment loads of a half-warp (4 electrodes x 4
@@ -426,20 +401,21 @@ __device__ __forceinline__ void eval_step(T (&acc)[MT][R / 4], T (&acc_im)[MT][R
 // padded electrodes and frames add nothing. Each lane's accumulator pairs
 // lie along p; the epilogue takes atan2 for phases and stores t < T, p < P
 // in the JAX layout (T, P).
-template <typename T, bool kPhase, int R, int K, int MT>
+template <typename T, bool kPhase, int MT>
 __global__ void __launch_bounds__(32 * kEvalWarps) rbf_eval_kernel(
     const T* __restrict__ x, const T* __restrict__ c, const T* __restrict__ eps,
     const T* __restrict__ w, const T* __restrict__ w_im, T* __restrict__ out,
     int64_t n_points, int64_t n_elec, int64_t n_frames, int64_t frames_per_block,
     int kind) {
   extern __shared__ __align__(16) unsigned char eval_smem[];
+  constexpr int R = eval_rows<T>(), K = eval_depth<T>();
   constexpr int kStride = eval_stride<R, MT>();
   T* ws = reinterpret_cast<T*>(eval_smem);
   T* ws_im = ws + kEvalElec * kStride;
   T* cs = ws + (kPhase ? 2 : 1) * kEvalElec * kStride;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int64_t p_warp = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 4) + 8 * warp;
+  const int64_t p_warp = static_cast<int64_t>(blockIdx.x) * (8 * kEvalWarps) + 8 * warp;
   const int64_t p_phi = p_warp + g;  // the target of this lane's phi
   const int64_t t0 = static_cast<int64_t>(blockIdx.y) * frames_per_block;
   const int nt = static_cast<int>(n_frames - t0 < frames_per_block ? n_frames - t0
@@ -507,83 +483,55 @@ __global__ void __launch_bounds__(32 * kEvalWarps) rbf_eval_kernel(
   }
 }
 
-template <typename T, bool kPhase, int R, int K, int MT>
+template <typename T, bool kPhase, int MT>
 int launch_rbf_eval(const void* x, const void* c, const void* eps, const void* w,
                     const void* w_im, void* out, int64_t n_points, int64_t n_elec,
-                    int64_t n_frames, int64_t kind, int warps, int64_t frames_per_block,
+                    int64_t n_frames, int64_t kind, int64_t frames_per_block,
                     cudaStream_t stream) {
-  auto kernel = rbf_eval_kernel<T, kPhase, R, K, MT>;
-  constexpr size_t smem = eval_smem_bytes<T, kPhase, R, MT>();
+  auto kernel = rbf_eval_kernel<T, kPhase, MT>;
+  constexpr size_t smem = eval_smem_bytes<T, kPhase, eval_rows<T>(), MT>();
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t targets = 8 * warps;
-  const dim3 grid(static_cast<unsigned int>((n_points + targets - 1) / targets),
+  const dim3 grid(static_cast<unsigned int>((n_points + 8 * kEvalWarps - 1) /
+                                            (8 * kEvalWarps)),
                   static_cast<unsigned int>((n_frames + frames_per_block - 1) /
                                             frames_per_block));
-  kernel<<<grid, 32 * warps, smem, stream>>>(
+  kernel<<<grid, 32 * kEvalWarps, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(c), static_cast<const T*>(eps),
       static_cast<const T*>(w), static_cast<const T*>(w_im), static_cast<T*>(out),
       n_points, n_elec, n_frames, frames_per_block, static_cast<int>(kind));
   return static_cast<int>(cudaGetLastError());
 }
 
-// K17's evaluation in R x 8 x K products, `warps` warps a block (1 to
-// kEvalWarps, 8 targets each) and the frames cut into `split` groups of
-// whole R-frame tiles (more where a group would pass 104 frames, 112 for R
-// = 16); a group's tiles are held in MT1 < MT2 < MT3 accumulator tiles.
-template <typename T, bool kPhase, int R, int K, int MT1, int MT2, int MT3>
-int rbf_eval_tiles(const void* x, const void* c, const void* eps, const void* w,
-                   const void* w_im, void* out, int64_t n_points, int64_t n_elec,
-                   int64_t n_frames, int64_t kind, int warps, int64_t split,
-                   cudaStream_t s) {
+// The frames cut into the number of groups (at most 4) nearest to 3
+// blocks an SM, 6 for phases, whose two W planes and accumulators let
+// fewer blocks share an SM (the launch-shape sweep of chip_smoke.py); each
+// group whole R-frame tiles, at most 104 frames (112 for R = 16), held in
+// the smallest of three accumulator sizes that fits.
+template <typename T, bool kPhase>
+int rbf_eval_frames(const void* x, const void* c, const void* eps, const void* w,
+                    const void* w_im, void* out, int64_t n_points, int64_t n_elec,
+                    int64_t n_frames, int64_t kind, cudaStream_t s) {
+  constexpr int R = eval_rows<T>();
+  constexpr int kSmall = R == 16 ? 2 : 4, kMid = R == 16 ? 4 : 7, kMax = R == 16 ? 7 : 13;
+  const int64_t blocks = (n_points + 8 * kEvalWarps - 1) / (8 * kEvalWarps);
+  const int64_t want = (kPhase ? 6 : 3) * static_cast<int64_t>(sm_count());
+  int64_t split = (want + blocks / 2) / blocks;
+  split = split < 1 ? 1 : (split > 4 ? 4 : split);
   const int64_t tiles = (n_frames + R - 1) / R;
   int64_t per = (tiles + split - 1) / split;
-  if (per > MT3) per = MT3;
-  if (per <= MT1) {
-    return launch_rbf_eval<T, kPhase, R, K, MT1>(x, c, eps, w, w_im, out, n_points,
-                                                 n_elec, n_frames, kind, warps, R * per, s);
+  per = per > kMax ? kMax : per;
+  if (per <= kSmall) {
+    return launch_rbf_eval<T, kPhase, kSmall>(x, c, eps, w, w_im, out, n_points, n_elec,
+                                              n_frames, kind, R * per, s);
   }
-  if (per <= MT2) {
-    return launch_rbf_eval<T, kPhase, R, K, MT2>(x, c, eps, w, w_im, out, n_points,
-                                                 n_elec, n_frames, kind, warps, R * per, s);
+  if (per <= kMid) {
+    return launch_rbf_eval<T, kPhase, kMid>(x, c, eps, w, w_im, out, n_points, n_elec,
+                                            n_frames, kind, R * per, s);
   }
-  return launch_rbf_eval<T, kPhase, R, K, MT3>(x, c, eps, w, w_im, out, n_points, n_elec,
-                                               n_frames, kind, warps, R * per, s);
-}
-
-// float64 in m16n8k8 products; float32 on the CUDA cores in the m8n8k4
-// layout.
-template <typename T, bool kPhase>
-int rbf_eval_shape(const void* x, const void* c, const void* eps, const void* w,
-                   const void* w_im, void* out, int64_t n_points, int64_t n_elec,
-                   int64_t n_frames, int64_t kind, int64_t warps, int64_t split,
-                   void* stream) {
-  if (warps < 1 || warps > kEvalWarps || split < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_points <= 0 || n_frames <= 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int wp = static_cast<int>(warps);
-  if constexpr (sizeof(T) == 8) {
-    return rbf_eval_tiles<T, kPhase, 16, 8, 2, 4, 7>(x, c, eps, w, w_im, out, n_points,
-                                                     n_elec, n_frames, kind, wp, split, s);
-  } else {
-    return rbf_eval_tiles<T, kPhase, 8, 4, 4, 7, 13>(x, c, eps, w, w_im, out, n_points,
-                                                     n_elec, n_frames, kind, wp, split, s);
-  }
-}
-
-template <typename T>
-int rbf_eval_variant(const void* x, const void* c, const void* eps, const void* w,
-                     const void* w_im, void* out, int64_t n_points, int64_t n_elec,
-                     int64_t n_frames, int64_t kind, int64_t warps, int64_t split,
-                     void* stream) {
-  return w_im != nullptr
-      ? rbf_eval_shape<T, true>(x, c, eps, w, w_im, out, n_points, n_elec, n_frames,
-                                kind, warps, split, stream)
-      : rbf_eval_shape<T, false>(x, c, eps, w, nullptr, out, n_points, n_elec, n_frames,
-                                 kind, warps, split, stream);
+  return launch_rbf_eval<T, kPhase, kMax>(x, c, eps, w, w_im, out, n_points, n_elec,
+                                          n_frames, kind, R * per, s);
 }
 
 template <typename T>
@@ -603,16 +551,13 @@ template <typename T>
 int rbf_eval(const void* x, const void* c, const void* eps, const void* w,
              const void* w_im, void* out, int64_t n_points, int64_t n_elec,
              int64_t n_frames, int64_t kind, void* stream) {
-  // Four warps a block, and the frames cut into the number of groups (at
-  // most 4) nearest to 3 blocks an SM, 6 for phases, whose two W planes
-  // and accumulators fit fewer blocks an SM (the launch-shape sweep of
-  // chip_smoke.py).
-  const int64_t blocks = (n_points + 31) / 32;
-  const int64_t want = (w_im != nullptr ? 6 : 3) * static_cast<int64_t>(sm_count());
-  int64_t split = blocks > 0 ? (want + blocks / 2) / blocks : 1;
-  split = split < 1 ? 1 : (split > 4 ? 4 : split);
-  return rbf_eval_variant<T>(x, c, eps, w, w_im, out, n_points, n_elec, n_frames, kind, 4,
-                             split, stream);
+  if (n_points <= 0 || n_frames <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  return w_im != nullptr
+      ? rbf_eval_frames<T, true>(x, c, eps, w, w_im, out, n_points, n_elec, n_frames,
+                                 kind, s)
+      : rbf_eval_frames<T, false>(x, c, eps, w, nullptr, out, n_points, n_elec, n_frames,
+                                  kind, s);
 }
 
 }  // namespace mf
@@ -637,22 +582,6 @@ int rbf_eval(const void* x, const void* c, const void* eps, const void* w,
                                       int64_t n_frames, int64_t kind, void* stream) { \
     return mf::rbf_eval<T>(x, c, eps, w, w_im, out, n_points, n_elec, n_frames,     \
                            kind, stream);                                           \
-  }                                                                                 \
-  extern "C" int mf_wave_speed_shape_##SUFFIX(                                      \
-      const void* movie, const void* triangles, const void* grad_w,                 \
-      const void* areas, const void* vertex_cells, const void* basis, void* out,    \
-      int64_t n_frames, int64_t n_vert, int64_t width, double dt, int64_t output,   \
-      int64_t frames, int64_t min_blocks, void* stream) {                           \
-    return mf::wave_speed_shape<T>(movie, triangles, grad_w, areas, vertex_cells,   \
-                                   basis, out, n_frames, n_vert, width, dt, output, \
-                                   frames, min_blocks, stream);                     \
-  }                                                                                 \
-  extern "C" int mf_rbf_eval_shape_##SUFFIX(                                        \
-      const void* x, const void* c, const void* eps, const void* w,                 \
-      const void* w_im, void* out, int64_t n_points, int64_t n_elec,                \
-      int64_t n_frames, int64_t kind, int64_t warps, int64_t split, void* stream) { \
-    return mf::rbf_eval_variant<T>(x, c, eps, w, w_im, out, n_points, n_elec,       \
-                                   n_frames, kind, warps, split, stream);           \
   }
 
 MF_FIELD_ENTRY_POINTS(f32, float)

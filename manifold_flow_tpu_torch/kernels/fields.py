@@ -11,8 +11,10 @@ time: the gradient as its einsum and gather (ops/wavespeed.py:27-48), the
 tangent plane through `geometry.tangent`, the time derivatives of
 `ops.phase`, the distances in `_pairwise_dist`'s difference form (never
 `torch.cdist`'s matrix form, which rounds otherwise) and the evaluation as
-`b @ w`. The kernels sum in another order (K17 with fused multiply-adds),
-so the two agree to rounding.
+`b @ w`. K17 sums in another order (float64 in the tensor cores' products,
+float32 in fused multiply-adds), so the two agree to rounding; K16's
+outputs are the plain version's to rounding too, and the same bits as
+its first design's.
 """
 
 from __future__ import annotations
@@ -55,8 +57,10 @@ def wave_speed(movie: torch.Tensor, triangles: torch.Tensor, grad_w: torch.Tenso
     int32, grad_w (M, 3, 3), areas (M,) and basis (N, 2, 3) in the movie's
     dtype. Replaces ops/wavespeed.py:28, :52, :64, :72 and ops/phase.py:66,
     :78 (B13). Bound by bytes: the movie once, the output once and the mesh
-    tables; the cell re-reads come from L2. Design: one thread per (frame,
-    vertex), the vertex fastest."""
+    tables; in fact by the latency of its dependent loads. Design: one
+    thread per (vertex, 4 consecutive frames), the vertex fastest, each
+    cell's tables read once for the 4 frames; 128 threads a block, the
+    registers capped for 5 blocks an SM."""
     if output not in WAVE_OUTPUTS:
         raise ValueError(f"unknown output {output!r}; want one of {sorted(WAVE_OUTPUTS)}")
     dtype = _float_dtype("movie", movie)
@@ -149,8 +153,10 @@ def rbf_eval(x: torch.Tensor, c: torch.Tensor, eps: torch.Tensor, w: torch.Tenso
     / eps) w[e, t] (T, P) of weights w (E, T), without the (P, E) matrix; with
     w_im (E, T), the angle atan2(sum phi w_im, sum phi w) of the complex
     interpolant (ops/interpolate.py:69-71). Bound by its P E T multiply-adds;
-    one block per 128 targets and 16 frames, the electrodes and weights in
-    shared memory."""
+    a block of 32 targets and a group of frames computes phi once a (target,
+    electrode) into registers and forms the product on the float64 tensor
+    cores (m16n8k8; float32 in FMAs, never TF32), the weights brought into
+    shared memory by cp.async."""
     dtype = _rbf_args(x, c, eps, kind)
     e, t = c.shape[0], w.shape[-1]
     _check("w", w, dtype, (e, t))
