@@ -67,7 +67,7 @@ __device__ __forceinline__ T time_derivative(const T* __restrict__ mv, int64_t t
 
 // K16's launch shape (the sweep of chip_smoke.py on the H100): F frames a
 // thread (its sums: 3F + 1 values), threads a block, and blocks an SM the
-// registers are capped for. Latency, not issue, bounds the kernel, so more
+// registers are capped for. Latency, not throughput, bounds the kernel, so more
 // resident warps gain more than the spills to L1 that the cap causes cost.
 constexpr int kWaveFrames = 4;
 constexpr int kWaveThreads = 128;
