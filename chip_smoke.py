@@ -1213,111 +1213,6 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                        launches_key=f"rbf_eval<{ctype}>+phase")
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """a and b equal bit for bit (floats by their bits, NaNs included)."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
-    return torch.equal(a.view(ints), b.view(ints)) if ints else torch.equal(a, b)
-
-
-def build_parent_fields(parent: Path):
-    """The parent tree's csrc/field_kernels.cu (K16's first design)
-    compiled alone into a library with this build's flags, loaded with
-    ctypes, its wave_speed entry points typed."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import build
-
-    csrc = parent / "manifold_flow_tpu_torch" / "csrc"
-    out = Path(tempfile.mkdtemp(prefix="parent_fields_")) / "libparent_fields.so"
-    run = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(csrc),
-                          "-o", str(out), str(csrc / "field_kernels.cu")],
-                         capture_output=True, text=True)
-    if run.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the parent's field kernels:\n{run.stderr}")
-    lib = ctypes.CDLL(str(out))
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    for sfx in ("f32", "f64"):
-        fn = getattr(lib, f"mf_wave_speed_{sfx}")
-        fn.argtypes, fn.restype = [p] * 7 + [i] * 3 + [d] + [i] + [p], ctypes.c_int
-    return lib
-
-
-def against_parent_wave(parent_lib, mesh, pot, card: str, suffix: str) -> None:
-    """K16 (this design), K16 with its corner values staged in a shared
-    frame window, and K16's first design (the parent's build) on the
-    default path's inputs, f64 and f32: every output of each bitwise the
-    first design's, device times in turns."""
-    import ctypes
-
-    from manifold_flow_tpu_torch.kernels import fields as kf
-    from manifold_flow_tpu_torch.kernels import library
-
-    lib = library()
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    for dtype, ctype, sfx in ((torch.float64, "double", "f64"), (torch.float32, "float", "f32")):
-        window = getattr(lib, f"mf_wave_speed_window_{sfx}")
-        window.argtypes, window.restype = [p] * 7 + [i] * 3 + [d] + [i] + [p], ctypes.c_int
-        first = getattr(parent_lib, f"mf_wave_speed_{sfx}")
-        amp = pot.to(dtype).contiguous()
-        phase = torch.atan2(torch.sin(amp), torch.cos(amp))
-        t, n = amp.shape
-        tables = (mesh.triangles, mesh.grad_w.to(dtype).contiguous(), mesh.areas.to(dtype),
-                  mesh.vertex_cells, mesh.basis.to(dtype).contiguous())
-        width = mesh.vertex_cells.shape[1]
-
-        def call(entry, movie, output):
-            def run():
-                out = torch.empty((t, n, 3) if output == "gradient" else (t, n),
-                                  dtype=dtype, device=movie.device)
-                err = entry(movie.data_ptr(), *(x.data_ptr() for x in tables), out.data_ptr(),
-                            t, n, width, 1.0 / SFREQ, kf.WAVE_OUTPUTS[output],
-                            torch.cuda.current_stream().cuda_stream)
-                if err != 0:
-                    raise RuntimeError(f"wave_speed failed: CUDA error {err}")
-                return out
-            return run
-        for movie, tag, timed in ((phase, "phase", "phase_mm_per_ms"),
-                                  (amp, "amplitude", "amplitude")):
-            same = all(same_bits(kf.wave_speed(movie, *tables, 1.0 / SFREQ, o),
-                                 call(first, movie, o)())
-                       and same_bits(call(window, movie, o)(), call(first, movie, o)())
-                       for o in kf.WAVE_OUTPUTS)
-
-            def this():
-                return kf.wave_speed(movie, *tables, 1.0 / SFREQ, timed)
-            fns = (this, call(window, movie, timed), call(first, movie, timed))
-            us = [device_us(fn, mine=own_kernel) for fn in fns + fns[::-1]]
-            print(f"[parent] wave_speed<{ctype}> {tag} movie{suffix}: every output of both "
-                  f"bitwise the first design's: {same}; device {fmt_us(us[0])} / "
-                  f"{fmt_us(us[5])}, frame window {fmt_us(us[1])} / {fmt_us(us[4])}, first "
-                  f"design {fmt_us(us[2])} / {fmt_us(us[3])} (in turns); on {card}", flush=True)
-            if not same:
-                raise AssertionError(f"wave_speed<{ctype}>{suffix} differs from its first design")
-
-
-def turns_main(parent: Path) -> int:
-    """`chip_smoke.py --turns PARENT`: K16 against its first design from the
-    tree PARENT at the bench and 12.5k shapes."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from manifold_flow_tpu_torch.kernels import library
-
-    card = card_line()
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    library()
-    parent_lib = build_parent_fields(parent)
-    for builder, suffix in ((build_problem, ""), (build_problem_12k, "@12.5k")):
-        mesh, pot = builder(device)[:2]
-        against_parent_wave(parent_lib, mesh, pot, card, suffix)
-    print(card_line())
-    return 0
-
-
 def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
     """The trial's analysis ops on the card against their plain versions on
     the same CUDA tensors, with cfg's quirks and limits: class codes, next
@@ -2443,6 +2338,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--turns":
-        sys.exit(turns_main(Path(sys.argv[2])))
     sys.exit(main())

@@ -198,182 +198,6 @@ __global__ void __launch_bounds__(kWaveThreads, kWaveMinBlocks) wave_speed_kerne
   }
 }
 
-// Vertices of a K16 block's frame window in shared memory.
-constexpr int kWaveWindow = 512;
-
-// K16 with the block's corner values staged: a first pass keeps each
-// thread's cell ids and corner ids in shared memory and finds the block's
-// smallest and largest corner id; each group then copies the F frames'
-// values of that id window (at most kWaveWindow vertices) into shared
-// memory, coalesced, and the corner gathers read them there (ids past the
-// window from global memory). Same operations, same order: the same bits.
-template <typename T>
-__global__ void __launch_bounds__(kWaveThreads, kWaveMinBlocks) wave_speed_window_kernel(
-    const T* __restrict__ movie, const int32_t* __restrict__ triangles,
-    const T* __restrict__ grad_w, const T* __restrict__ areas,
-    const int32_t* __restrict__ vertex_cells, const T* __restrict__ basis,
-    T* __restrict__ out, int64_t n_frames, int64_t n_vert, int64_t width,
-    double dt, int output) {
-  constexpr int F = kWaveFrames;
-  __shared__ T win[F][kWaveWindow];
-  __shared__ int bounds[2];
-  extern __shared__ int32_t slot_s[];  // [width][4][kWaveThreads]: cell, 3 corners
-  const int tid = threadIdx.x;
-  const int64_t v = static_cast<int64_t>(blockIdx.x) * kWaveThreads + tid;
-  const bool active = v < n_vert;
-  const int32_t* row = vertex_cells + v * width;
-  int lo = 0x7fffffff, hi = -1;
-  for (int64_t s = 0; s < width; ++s) {
-    int32_t* slot = slot_s + s * 4 * kWaveThreads + tid;
-    const int32_t m = active ? row[s] : -1;
-    slot[0] = m;
-    if (m >= 0) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int32_t c = triangles[3 * static_cast<int64_t>(m) + k];
-        slot[(k + 1) * kWaveThreads] = c;
-        lo = c < lo ? c : lo;
-        hi = c > hi ? c : hi;
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int l = __shfl_xor_sync(0xffffffffu, lo, off);
-    const int h = __shfl_xor_sync(0xffffffffu, hi, off);
-    lo = l < lo ? l : lo;
-    hi = h > hi ? h : hi;
-  }
-  if (tid == 0) {
-    bounds[0] = 0x7fffffff;
-    bounds[1] = -1;
-  }
-  __syncthreads();
-  if ((tid & 31) == 0) {
-    atomicMin(bounds, lo);
-    atomicMax(bounds + 1, hi);
-  }
-  __syncthreads();
-  const int64_t first = bounds[0];
-  const int n_win = bounds[1] < bounds[0] ? 0
-                    : (bounds[1] - bounds[0] + 1 < kWaveWindow ? bounds[1] - bounds[0] + 1
-                                                                : kWaveWindow);
-  const T* mv = movie + v;
-  const int64_t n_groups = (n_frames + F - 1) / F;
-  for (int64_t group = blockIdx.y; group < n_groups; group += gridDim.y) {
-    const int64_t t0 = group * F;
-    const int64_t nf = n_frames - t0 < F ? n_frames - t0 : F;
-    const T* frames = movie + t0 * n_vert;
-    __syncthreads();  // the last group's window is read
-    for (int k = tid; k < F * n_win; k += kWaveThreads) {
-      const int f = k / n_win, i = k - f * n_win;
-      if (f < nf) win[f][i] = frames[f * n_vert + first + i];
-    }
-    __syncthreads();
-    if (!active) continue;
-    T num[F][3];
-#pragma unroll
-    for (int f = 0; f < F; ++f) num[f][0] = num[f][1] = num[f][2] = T(0);
-    T den = T(0);
-    for (int64_t s = 0; s < width; ++s) {
-      const int32_t* slot = slot_s + s * 4 * kWaveThreads + tid;
-      const int32_t m = slot[0];
-      if (m < 0) continue;
-      const int32_t c[3] = {slot[kWaveThreads], slot[2 * kWaveThreads],
-                            slot[3 * kWaveThreads]};
-      T gw[9];
-#pragma unroll
-      for (int j = 0; j < 9; ++j) gw[j] = grad_w[9 * static_cast<int64_t>(m) + j];
-      const T a = areas[m];
-      int64_t w[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) w[k] = c[k] - first;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        if (f < nf) {
-          const T* frame = frames + f * n_vert;
-          T x[3];
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            if (w[k] >= 0 && w[k] < n_win) {
-              x[k] = win[f][w[k]];
-            } else {
-              x[k] = frame[c[k]];
-            }
-          }
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const T g = rn_add(rn_add(rn_mul(x[0], gw[d]), rn_mul(x[1], gw[3 + d])),
-                               rn_mul(x[2], gw[6 + d]));
-            num[f][d] = rn_add(num[f][d], rn_mul(g, a));
-          }
-        }
-      }
-      den = rn_add(den, a);
-    }
-    const T scale = den > T(0) ? den : T(1);
-    const T* e = basis + 6 * v;
-    const T e1[3] = {e[0], e[1], e[2]}, e2[3] = {e[3], e[4], e[5]};
-    T n[3];
-    cross3(e1, e2, n);
-    const T nn = dot3(n, n);
-    const T n_scale = nn > T(0) ? nn : T(1);
-    const T e11 = dot3(e1, e1), e22 = dot3(e2, e2);
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      if (f < nf) {
-        const int64_t t = t0 + f;
-        T g[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) g[d] = rn_div(num[f][d], scale);
-        if (output == kGradient) {
-#pragma unroll
-          for (int d = 0; d < 3; ++d) out[3 * (t * n_vert + v) + d] = g[d];
-          continue;
-        }
-        const T vn = rn_div(dot3(g, n), n_scale);
-        const T along = nn > T(0) ? vn : T(0);
-        T p[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) p[d] = rn_sub(g[d], rn_mul(along, n[d]));
-        const T ca = rn_div(dot3(p, e1), e11);
-        const T cb = rn_div(dot3(p, e2), e22);
-        const T mag = rn_sqrt(rn_add(rn_mul(ca, ca), rn_mul(cb, cb)));
-        if (output == kMagnitude) {
-          out[t * n_vert + v] = mag;
-          continue;
-        }
-        T speed = rn_div(time_derivative(mv, t, n_frames, n_vert, dt, output), mag);
-        if (output == kPhaseMmPerMs) speed = rn_div(fabs(speed), T(1000));
-        out[t * n_vert + v] = speed;
-      }
-    }
-  }
-}
-
-template <typename T>
-int wave_speed_window(const void* movie, const void* triangles, const void* grad_w,
-                      const void* areas, const void* vertex_cells, const void* basis,
-                      void* out, int64_t n_frames, int64_t n_vert, int64_t width,
-                      double dt, int64_t output, void* stream) {
-  if (n_frames <= 0 || n_vert <= 0) return static_cast<int>(cudaGetLastError());
-  auto kernel = wave_speed_window_kernel<T>;
-  const size_t smem = static_cast<size_t>(width > 0 ? width : 1) * 4 * kWaveThreads *
-                      sizeof(int32_t);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_groups = (n_frames + kWaveFrames - 1) / kWaveFrames;
-  const dim3 grid(static_cast<unsigned int>((n_vert + kWaveThreads - 1) / kWaveThreads),
-                  static_cast<unsigned int>(n_groups < 65535 ? n_groups : 65535));
-  kernel<<<grid, kWaveThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(movie), static_cast<const int32_t*>(triangles),
-      static_cast<const T*>(grad_w), static_cast<const T*>(areas),
-      static_cast<const int32_t*>(vertex_cells), static_cast<const T*>(basis),
-      static_cast<T*>(out), n_frames, n_vert, width, dt, static_cast<int>(output));
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int wave_speed(const void* movie, const void* triangles, const void* grad_w,
                const void* areas, const void* vertex_cells, const void* basis, void* out,
@@ -746,15 +570,6 @@ int rbf_eval(const void* x, const void* c, const void* eps, const void* w,
       void* stream) {                                                               \
     return mf::wave_speed<T>(movie, triangles, grad_w, areas, vertex_cells, basis,  \
                              out, n_frames, n_vert, width, dt, output, stream);     \
-  }                                                                                 \
-  extern "C" int mf_wave_speed_window_##SUFFIX(                                     \
-      const void* movie, const void* triangles, const void* grad_w,                 \
-      const void* areas, const void* vertex_cells, const void* basis, void* out,    \
-      int64_t n_frames, int64_t n_vert, int64_t width, double dt, int64_t output,   \
-      void* stream) {                                                               \
-    return mf::wave_speed_window<T>(movie, triangles, grad_w, areas, vertex_cells,  \
-                                    basis, out, n_frames, n_vert, width, dt,        \
-                                    output, stream);                                \
   }                                                                                 \
   extern "C" int mf_rbf_basis_##SUFFIX(const void* c, const void* eps, void* out,    \
                                        int64_t n_elec, int64_t kind, double smooth, \
