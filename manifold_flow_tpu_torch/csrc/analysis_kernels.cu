@@ -89,114 +89,249 @@ __global__ void recombine_speed_kernel(const T* __restrict__ v_k,
   }
 }
 
-// K6, vertex half: vertex_mask = (speed / v_max) <= eps (divide, then
-// compare, as ops/singularity.py:74 does), and the frame's count of singular
-// vertices into counts[t, 0] (integer atomics: exact in any order).
+// ------------------------------------------------------------------ K6
+// Singularity detection with per-frame counts (ops/singularity.py:54
+// detect, :356 detection_counts, :371 detect_with_counts; B8): the vertex
+// test vertex_mask = (speed / v_max) <= eps (divide, then compare, as
+// ops/singularity.py:74 does) and the triangle-interior zeros of
+// ops/singularity.py:80-111: the three normalised corner velocities are
+// projected onto the triangle's plane, the 2x2 normal equations of
+// [VA-VC, VB-VC] [lam, mu]^T = -VC solved, and a triangle accepted when
+// solvable & inside & ~touches_singular, its corners' vertex test
+// re-derived from speed and v_max so no second pass is needed. A frame with
+// v_max = 0 gives 0/0 = NaN everywhere: every comparison is false and
+// nothing is detected, as in JAX. A degenerate triangle (|n| = 0) keeps its
+// zero normal, as the plain version's division by 1 does.
+//
+// Bound on this card: memory traffic, most of it writes. At 12.5k vertices
+// x 97 frames in f64 a call writes 99 MB (the interior points 57 MB, the
+// barycentric pairs 38 MB, the masks 3.6 MB) and reads 39 MB (v_world and
+// the speeds): 41 us at 3.35 TB/s. Beside the bytes run 34.8 M correctly
+// rounded f64 divisions (14 a frame and triangle, one a frame and vertex),
+// each a chain of dependent operations with a call to a slow path.
+//
+// Design: one launch of kDetectThreads-thread blocks. The first tri_blocks
+// along x take runs of consecutive triangles, the rest runs of vertices;
+// along y the frames go in groups of kDetectFrames consecutive frames. A
+// triangle thread loads its corner ids and corners and forms the unit
+// normal (a square root, three divisions) once for its group; each frame
+// then gathers the 12 corner values (all loaded before the first
+// division), divides them by v_max, solves, and stores the mask byte, the
+// (lam, mu) pair as one vector store and the point's three values. Each
+// thread keeps its hits as bits; after the group, each warp's popcount of a
+// frame's bits goes to a shared counter and one thread per frame adds the
+// block's count to counts[t] with an integer atomic (exact in any order).
+// The registers are capped for kDetectMinBlocks blocks an SM. Every output
+// element keeps the first design's explicitly rounded operations in their
+// order, so the outputs are bit for bit those of one thread a
+// (frame, element).
+constexpr int kDetectThreads = 128;
+constexpr int kDetectFrames = 4;
+constexpr int kDetectMinBlocks = 6;
+
 template <typename T>
-__global__ void detect_vertex_kernel(const T* __restrict__ speed,
-                                     const T* __restrict__ v_max, T eps,
-                                     uint8_t* __restrict__ vertex_mask,
-                                     int32_t* __restrict__ counts,
-                                     int64_t n_frames, int64_t n_vert) {
-  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
-    bool hit = false;
-    if (v < n_vert) {
-      hit = rn_div(speed[t * n_vert + v], v_max[t]) <= eps;
-      vertex_mask[t * n_vert + v] = hit;
-    }
-    const int n_hit = __syncthreads_count(hit);
-    if (threadIdx.x == 0 && n_hit > 0) atomicAdd(counts + 2 * t, n_hit);
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// A frame's v_max and the speeds and world vectors of a triangle's corners.
+template <typename T>
+struct FrameCorners {
+  T vmax, sp[3], vw[3][3];
+};
+
+template <typename T>
+__device__ __forceinline__ FrameCorners<T> load_corners(const T* __restrict__ v_world,
+                                                        const T* __restrict__ speed,
+                                                        const T* __restrict__ v_max,
+                                                        const int32_t (&idx)[3], int64_t t,
+                                                        int64_t n_vert) {
+  FrameCorners<T> fc;
+  fc.vmax = v_max[t];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int64_t o = t * n_vert + idx[c];
+    fc.sp[c] = speed[o];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) fc.vw[c][d] = v_world[o * 3 + d];
   }
+  return fc;
 }
 
-// K6, triangle half (ops/singularity.py:80-111): one thread per (frame,
-// triangle) projects the three normalised corner velocities onto the
-// triangle's plane, solves the 2x2 normal equations of
-// [VA-VC, VB-VC] [lam, mu]^T = -VC, and accepts solvable & inside &
-// ~touches_singular, re-deriving the corners' vertex test from speed and
-// v_max so no second pass is needed. A frame with v_max = 0 gives 0/0 = NaN
-// everywhere: every comparison is false and nothing is detected, as in JAX.
+// One (frame, triangle)'s outputs.
 template <typename T>
-__global__ void detect_triangle_kernel(
+struct TriangleHit {
+  T lam, mu, pt[3];
+  bool hit;
+};
+
+// The interior test of one (frame, triangle) (ops/singularity.py:80-111),
+// every operation rounded on its own in the first design's order.
+template <typename T>
+__device__ __forceinline__ TriangleHit<T> triangle_hit(const FrameCorners<T>& fc,
+                                                       const T (&nrm)[3], const T (&p)[3][3],
+                                                       T eps) {
+  T vp[3][3];
+  bool touches = false;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    touches = touches || (rn_div(fc.sp[c], fc.vmax) <= eps);
+    T vn[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) vn[d] = rn_div(fc.vw[c][d], fc.vmax);
+    const T s = dot3(vn, nrm);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) vp[c][d] = rn_sub(vn[d], rn_mul(s, nrm[d]));
+  }
+  T c1[3], c2[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    c1[d] = rn_sub(vp[0][d], vp[2][d]);
+    c2[d] = rn_sub(vp[1][d], vp[2][d]);
+  }
+  const T a11 = dot3(c1, c1);
+  const T a12 = dot3(c1, c2);
+  const T a22 = dot3(c2, c2);
+  const T b1 = -dot3(c1, vp[2]);
+  const T b2 = -dot3(c2, vp[2]);
+  const T det = rn_sub(rn_mul(a11, a22), rn_mul(a12, a12));
+  const bool solvable = det > T(0) || det < T(0);  // |det| > 0
+  const T safe = solvable ? det : T(1);
+  TriangleHit<T> out;
+  out.lam = rn_div(rn_sub(rn_mul(b1, a22), rn_mul(b2, a12)), safe);
+  out.mu = rn_div(rn_sub(rn_mul(a11, b2), rn_mul(a12, b1)), safe);
+  const bool inside = out.lam >= T(0) && out.mu >= T(0) && rn_add(out.lam, out.mu) <= T(1);
+  out.hit = solvable && inside && !touches;
+  const T w3 = rn_sub(rn_sub(T(1), out.lam), out.mu);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    out.pt[d] = rn_add(rn_add(rn_mul(out.lam, p[0][d]), rn_mul(out.mu, p[1][d])),
+                       rn_mul(w3, p[2][d]));
+  }
+  return out;
+}
+
+// A triangle's corner ids, corners and unit normal (ops/singularity.py:
+// 84-88), the same for every frame.
+template <typename T>
+__device__ __forceinline__ void triangle_geometry(const T* __restrict__ points,
+                                                  const int32_t* __restrict__ tris,
+                                                  int64_t m, int32_t (&idx)[3],
+                                                  T (&p)[3][3], T (&nrm)[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    idx[c] = tris[m * 3 + c];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[c][d] = points[static_cast<int64_t>(idx[c]) * 3 + d];
+  }
+  T u[3], w[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    u[d] = rn_sub(p[1][d], p[0][d]);
+    w[d] = rn_sub(p[2][d], p[0][d]);
+  }
+  nrm[0] = rn_sub(rn_mul(u[1], w[2]), rn_mul(u[2], w[1]));
+  nrm[1] = rn_sub(rn_mul(u[2], w[0]), rn_mul(u[0], w[2]));
+  nrm[2] = rn_sub(rn_mul(u[0], w[1]), rn_mul(u[1], w[0]));
+  const T nn = rn_sqrt(dot3(nrm, nrm));
+  const T den = nn > T(0) ? nn : T(1);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) nrm[d] = rn_div(nrm[d], den);
+}
+
+// Adds the block's hits of frames t0 .. t0 + F - 1 (bit f of each thread's
+// `hits`) to counts[2 t + which]: each warp's popcount into a shared
+// counter, then one integer atomic a frame. Every thread of the block calls
+// it; it leaves the counters at 0 for the next group.
+template <int F>
+__device__ __forceinline__ void add_frame_hits(unsigned int hits, int* block_hits,
+                                               int32_t* __restrict__ counts, int64_t t0,
+                                               int64_t n_frames, int which) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int c = __popc(__ballot_sync(0xffffffffu, (hits >> f) & 1u));
+    if ((threadIdx.x & 31) == 0 && c > 0) atomicAdd(block_hits + f, c);
+  }
+  __syncthreads();
+  if (threadIdx.x < F) {
+    const int c = block_hits[threadIdx.x];
+    if (c > 0 && t0 + threadIdx.x < n_frames) {
+      atomicAdd(counts + 2 * (t0 + threadIdx.x) + which, c);
+    }
+    block_hits[threadIdx.x] = 0;
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDetectThreads, kDetectMinBlocks) detect_singular_kernel(
     const T* __restrict__ points, const int32_t* __restrict__ tris,
     const T* __restrict__ v_world, const T* __restrict__ speed,
-    const T* __restrict__ v_max, T eps, uint8_t* __restrict__ interior_mask,
-    T* __restrict__ bary, T* __restrict__ point, int32_t* __restrict__ counts,
-    int64_t n_frames, int64_t n_vert, int64_t n_tri) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    const T* __restrict__ v_max, T eps, uint8_t* __restrict__ vertex_mask,
+    uint8_t* __restrict__ interior_mask, T* __restrict__ bary, T* __restrict__ point,
+    int32_t* __restrict__ counts, int64_t n_frames, int64_t n_vert, int64_t n_tri,
+    int64_t tri_blocks) {
+  constexpr int F = kDetectFrames;
+  __shared__ int block_hits[F];
+  if (threadIdx.x < F) block_hits[threadIdx.x] = 0;
+  __syncthreads();
+  const int64_t n_groups = (n_frames + F - 1) / F;
+  if (static_cast<int64_t>(blockIdx.x) >= tri_blocks) {
+    // The vertex test.
+    const int64_t v =
+        (static_cast<int64_t>(blockIdx.x) - tri_blocks) * kDetectThreads + threadIdx.x;
+    for (int64_t g = blockIdx.y; g < n_groups; g += gridDim.y) {
+      const int64_t t0 = g * F;
+      unsigned int hits = 0u;
+      if (v < n_vert) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const int64_t t = t0 + f;
+          if (t < n_frames) {
+            const bool hit = rn_div(speed[t * n_vert + v], v_max[t]) <= eps;
+            vertex_mask[t * n_vert + v] = hit;
+            hits |= static_cast<unsigned int>(hit) << f;
+          }
+        }
+      }
+      add_frame_hits<F>(hits, block_hits, counts, t0, n_frames, 0);
+    }
+    return;
+  }
+  // The triangle test: the corners and unit normal once for all frames.
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * kDetectThreads + threadIdx.x;
   const bool active = m < n_tri;
   int32_t idx[3] = {0, 0, 0};
   T p[3][3], nrm[3];
-  if (active) {
+  if (active) triangle_geometry(points, tris, m, idx, p, nrm);
+  for (int64_t g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    const int64_t t0 = g * F;
+    unsigned int hits = 0u;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      idx[c] = tris[m * 3 + c];
+    for (int f = 0; f < F; ++f) {
+      const int64_t t = t0 + f;
+      if (t >= n_frames) break;  // the same for the whole block
+      if (active) {
+        const TriangleHit<T> out =
+            triangle_hit(load_corners(v_world, speed, v_max, idx, t, n_vert), nrm, p, eps);
+        const int64_t i = t * n_tri + m;
+        interior_mask[i] = out.hit;
+        typename Pair<T>::type pair;
+        pair.x = out.lam;
+        pair.y = out.mu;
+        reinterpret_cast<typename Pair<T>::type*>(bary)[i] = pair;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) p[c][d] = points[static_cast<int64_t>(idx[c]) * 3 + d];
-    }
-    T u[3], w[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      u[d] = rn_sub(p[1][d], p[0][d]);
-      w[d] = rn_sub(p[2][d], p[0][d]);
-    }
-    nrm[0] = rn_sub(rn_mul(u[1], w[2]), rn_mul(u[2], w[1]));
-    nrm[1] = rn_sub(rn_mul(u[2], w[0]), rn_mul(u[0], w[2]));
-    nrm[2] = rn_sub(rn_mul(u[0], w[1]), rn_mul(u[1], w[0]));
-    const T nn = rn_sqrt(dot3(nrm, nrm));
-    const T den = nn > T(0) ? nn : T(1);
-#pragma unroll
-    for (int d = 0; d < 3; ++d) nrm[d] = rn_div(nrm[d], den);
-  }
-  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
-    bool hit = false;
-    if (active) {
-      const T vmax = v_max[t];
-      T vp[3][3];
-      bool touches = false;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int64_t o = t * n_vert + idx[c];
-        touches = touches || (rn_div(speed[o], vmax) <= eps);
-        T vn[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) vn[d] = rn_div(v_world[o * 3 + d], vmax);
-        const T s = dot3(vn, nrm);
-#pragma unroll
-        for (int d = 0; d < 3; ++d) vp[c][d] = rn_sub(vn[d], rn_mul(s, nrm[d]));
-      }
-      T c1[3], c2[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        c1[d] = rn_sub(vp[0][d], vp[2][d]);
-        c2[d] = rn_sub(vp[1][d], vp[2][d]);
-      }
-      const T a11 = dot3(c1, c1);
-      const T a12 = dot3(c1, c2);
-      const T a22 = dot3(c2, c2);
-      const T b1 = -dot3(c1, vp[2]);
-      const T b2 = -dot3(c2, vp[2]);
-      const T det = rn_sub(rn_mul(a11, a22), rn_mul(a12, a12));
-      const bool solvable = det > T(0) || det < T(0);  // |det| > 0
-      const T safe = solvable ? det : T(1);
-      const T lam = rn_div(rn_sub(rn_mul(b1, a22), rn_mul(b2, a12)), safe);
-      const T mu = rn_div(rn_sub(rn_mul(a11, b2), rn_mul(a12, b1)), safe);
-      const bool inside = lam >= T(0) && mu >= T(0) && rn_add(lam, mu) <= T(1);
-      hit = solvable && inside && !touches;
-      const int64_t i = t * n_tri + m;
-      interior_mask[i] = hit;
-      bary[i * 2] = lam;
-      bary[i * 2 + 1] = mu;
-      const T w3 = rn_sub(rn_sub(T(1), lam), mu);
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        point[i * 3 + d] = rn_add(rn_add(rn_mul(lam, p[0][d]), rn_mul(mu, p[1][d])),
-                                  rn_mul(w3, p[2][d]));
+        for (int d = 0; d < 3; ++d) point[i * 3 + d] = out.pt[d];
+        hits |= static_cast<unsigned int>(out.hit) << f;
       }
     }
-    const int n_hit = __syncthreads_count(hit);
-    if (threadIdx.x == 0 && n_hit > 0) atomicAdd(counts + 2 * t + 1, n_hit);
+    add_frame_hits<F>(hits, block_hits, counts, t0, n_frames, 1);
   }
 }
 
@@ -495,27 +630,25 @@ int detect_singular(const void* points, const void* tris, const void* v_world,
                     void* vertex_mask, void* interior_mask, void* bary,
                     void* point, void* counts, int64_t n_frames,
                     int64_t n_vert, int64_t n_tri, void* stream) {
+  if (reinterpret_cast<uintptr_t>(bary) % sizeof(typename Pair<T>::type) != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the pair stores
+  }
+  if (n_frames <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_frames > 0) {
-    cudaMemsetAsync(counts, 0, n_frames * 2 * sizeof(int32_t), s);
-  }
-  if (n_frames > 0 && n_vert > 0) {
-    const dim3 grid(blocks_for(n_vert), frame_blocks(n_frames));
-    detect_vertex_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(speed), static_cast<const T*>(v_max),
-        static_cast<T>(eps), static_cast<uint8_t*>(vertex_mask),
-        static_cast<int32_t*>(counts), n_frames, n_vert);
-  }
-  if (n_frames > 0 && n_tri > 0) {
-    const dim3 grid(blocks_for(n_tri), frame_blocks(n_frames));
-    detect_triangle_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(points), static_cast<const int32_t*>(tris),
-        static_cast<const T*>(v_world), static_cast<const T*>(speed),
-        static_cast<const T*>(v_max), static_cast<T>(eps),
-        static_cast<uint8_t*>(interior_mask), static_cast<T*>(bary),
-        static_cast<T*>(point), static_cast<int32_t*>(counts), n_frames,
-        n_vert, n_tri);
-  }
+  cudaMemsetAsync(counts, 0, n_frames * 2 * sizeof(int32_t), s);
+  if (n_vert + n_tri <= 0) return static_cast<int>(cudaGetLastError());
+  const int64_t tri_blocks = (n_tri + kDetectThreads - 1) / kDetectThreads;
+  const int64_t vert_blocks = (n_vert + kDetectThreads - 1) / kDetectThreads;
+  const int64_t groups = (n_frames + kDetectFrames - 1) / kDetectFrames;
+  const dim3 grid(static_cast<unsigned int>(tri_blocks + vert_blocks),
+                  static_cast<unsigned int>(groups < 65535 ? groups : 65535));
+  detect_singular_kernel<T><<<grid, kDetectThreads, 0, s>>>(
+      static_cast<const T*>(points), static_cast<const int32_t*>(tris),
+      static_cast<const T*>(v_world), static_cast<const T*>(speed),
+      static_cast<const T*>(v_max), static_cast<T>(eps),
+      static_cast<uint8_t*>(vertex_mask), static_cast<uint8_t*>(interior_mask),
+      static_cast<T*>(bary), static_cast<T*>(point), static_cast<int32_t*>(counts), n_frames,
+      n_vert, n_tri, tri_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 

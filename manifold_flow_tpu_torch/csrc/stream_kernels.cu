@@ -4,12 +4,16 @@
 //   unit        (N, D, 3)   projected unit edge vectors to the 1-ring
 //                           (frame-independent, built once per mesh)
 //   neighbors   (N, D)      1-ring vertex ids, -1 padded
-//   vertex_cells(N, C)      incident cell ids in ascending order, -1 padded
+//   rules       (N, D)      int32 hop rule of each 1-ring slot (built once
+//                           per mesh): kHopAdvance, -1, or the row of
+//                           `corners` of the one triangle it shares
+//   corners     (K, 4)      (bx, by, cx, cy) of each such triangle on the
+//                           vertex's tangent basis (built once per mesh)
 //   v_world     (T, N, 3)   world velocity vectors
 //   next        (T, N)      int32 frame-local next vertex; a halting vertex
 //                           points to itself
 // Every decision (the argmax over the 1-ring, dmax > 0, the boundary
-// triangle test) is computed with the explicitly rounded operations of
+// triangle test's per-frame half) is computed with the explicitly rounded operations of
 // common.cuh, in the JAX expression order, so `next` equals the plain torch
 // version's. The C entry points return the cudaError_t of the launches.
 #include <cmath>
@@ -26,159 +30,169 @@ namespace mf {
 // positive and, for a boundary vertex (fewer than 6 incident cells), when
 // the two share at least 2 cells or the velocity points strictly inside
 // their one shared triangle (:98 _boundary_triangle_test).
-// Bound on this card: memory traffic. At the bench shapes (97 frames, 3136
-// vertices, f64) a call reads v_world once (7.3 MB) and the unit table
-// (under 1 MB, from L2 after the first frame) and writes next (1.2 MB):
-// about 2.5 us at 3.35 TB/s. Design: one thread per (frame, vertex); the
-// unit table is computed once per mesh outside the kernel, so a thread does
-// D dot products; only the ~7% boundary rows that would advance run the
-// shared-cell scan and the triangle test.
+//
+// Bound on this card: memory traffic. At 12.5k vertices x 97 frames in f64
+// a call reads v_world once (29.2 MB) and the 1-ring tables once (2.4 MB)
+// and writes next (4.9 MB): 10.8 us at 3.35 TB/s.
+//
+// Design: one thread per (vertex, F consecutive frames). All that does not
+// depend on the frame is done once per mesh outside the kernel
+// (kernels.streams.hop_tables): the unit edges, and for each 1-ring slot
+// its hop rule (kHopAdvance where the vertex is interior or shares 2 cells
+// with that neighbour, -1 where it shares none or their triangle is
+// degenerate, else a row of `corners`): the shared-cell scan and the
+// triangle's corners on the vertex's tangent basis, counter-clockwise. A
+// thread loads its vertex's 1-ring ids, rules and unit edges into registers
+// once (the first kHopSlots slots; a wider 1-ring reads the rest each
+// frame), then for each of its frames reads its 3 velocity components
+// (coalesced across the warp), takes the D dot products and the argmax,
+// and where the chosen slot's rule names a row, takes the velocity on the
+// tangent basis and its three orientation tests against that row's
+// corners; it writes next coalesced. F is 8 where that still gives every
+// SM 4 blocks, else 4; the registers are capped for 5 blocks of 128
+// threads an SM. What holds it back now: the per-frame dot products and
+// compares of every slot (about 24 us at 12.5k with the boundary test left
+// out), then the boundary lanes, which their warps wait for.
+constexpr int kHopThreads = 128;
+constexpr int kHopMinBlocks = 5;
+constexpr int kHopSlots = 6;      // 1-ring slots held in registers
+constexpr int32_t kHopAdvance = -2;
 
 template <typename T>
 __device__ __forceinline__ T cross2(T ax, T ay, T bx, T by) {
   return rn_sub(rn_mul(ax, by), rn_mul(ay, bx));
 }
 
-// (u, v) of `rel` on (e1, e2) after projecting it onto their plane
-// (geometry/tangent.py position_diff_on_basis of rel = b - a).
+// The per-frame half of ops/streamline.py:98 _boundary_triangle_test: the
+// velocity `vel` on the tangent basis e = (e1, e2) points strictly inside
+// the triangle whose other corners are (bx, by) and (cx, cy) = `corner`
+// (counter-clockwise, the vertex at the origin).
 template <typename T>
-__device__ __forceinline__ void plane_coords(const T* rel, const T* e1, const T* e2,
-                                             const T* n, T nn, T* out) {
-  const T s = nn > T(0) ? rn_div(dot3(rel, n), nn) : T(0);
-  T proj[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) proj[d] = rn_sub(rel[d], rn_mul(s, n[d]));
-  out[0] = dot3(proj, e1);
-  out[1] = dot3(proj, e2);
+__device__ __forceinline__ bool points_inside(const T* __restrict__ corner,
+                                              const T* __restrict__ e, const T* vel) {
+  const T bx = corner[0], by = corner[1], cx = corner[2], cy = corner[3];
+  const T vx = rn_div(dot3(vel, e), dot3(e, e));
+  const T vy = rn_div(dot3(vel, e + 3), dot3(e + 3, e + 3));
+  return cross2(bx, by, vx, vy) > T(0) &&
+         cross2(rn_sub(cx, bx), rn_sub(cy, by), rn_sub(vx, bx), rn_sub(vy, by)) > T(0) &&
+         cross2(-cx, -cy, rn_sub(vx, cx), rn_sub(vy, cy)) > T(0);
 }
 
-// The reference's index arithmetic (ops/streamline.py:88 _scalar_posdiff):
-// proj = s - s (n * n) / |n|^2 elementwise for a scalar s.
-template <typename T>
-__device__ __forceinline__ void scalar_posdiff(T s, const T* e1, const T* e2,
-                                               const T* n, T nn, T* out) {
-  T proj[3];
+// Slot d's value of a register array `a` of SLOTS entries, d < SLOTS
+// (a select over the unrolled slots keeps `a` in registers).
+template <int SLOTS, typename V>
+__device__ __forceinline__ V slot_of(const V (&a)[SLOTS], int d) {
+  V out = a[0];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) proj[d] = rn_sub(s, rn_div(rn_mul(s, rn_mul(n[d], n[d])), nn));
-  out[0] = dot3(proj, e1);
-  out[1] = dot3(proj, e2);
+  for (int k = 1; k < SLOTS; ++k) out = d == k ? a[k] : out;
+  return out;
 }
 
-// ops/streamline.py:98 _boundary_triangle_test for vertex `a` moving to
-// `cand` across triangle `cell`.
-template <typename T>
-__device__ bool triangle_test(const T* __restrict__ points, const int32_t* __restrict__ tris,
-                              int32_t a, int32_t cand, int32_t cell, const T* e1,
-                              const T* e2, const T* vel, bool quirks) {
-  const int32_t t0 = tris[3 * static_cast<int64_t>(cell)];
-  const int32_t t1 = tris[3 * static_cast<int64_t>(cell) + 1];
-  const int32_t t2 = tris[3 * static_cast<int64_t>(cell) + 2];
-  const int32_t b = t0 == a ? t1 : (t1 == a ? t0 : t1);
-  const int32_t c = t2 == a ? t0 : t2;
-  T n[3];
-  cross3(e1, e2, n);
-  const T nn = dot3(n, n);
-  T p1[2], p2[2];
-  if (quirks) {
-    scalar_posdiff(static_cast<T>(b - a), e1, e2, n, nn, p1);
-    scalar_posdiff(static_cast<T>(a - c), e1, e2, n, nn, p2);
-  } else {
-    const T* pa = points + 3 * static_cast<int64_t>(a);
-    const T* pb = points + 3 * static_cast<int64_t>(b);
-    const T* pc = points + 3 * static_cast<int64_t>(c);
-    T rb[3], rc[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      rb[d] = rn_sub(pb[d], pa[d]);
-      rc[d] = rn_sub(pc[d], pa[d]);
-    }
-    plane_coords(rb, e1, e2, n, nn, p1);
-    plane_coords(rc, e1, e2, n, nn, p2);
-  }
-  const T orient = cross2(p1[0], p1[1], p2[0], p2[1]);
-  const bool ccw = orient >= T(0);
-  const T bx = ccw ? p1[0] : p2[0], by = ccw ? p1[1] : p2[1];
-  const T cx = ccw ? p2[0] : p1[0], cy = ccw ? p2[1] : p1[1];
-  const T vx = rn_div(dot3(vel, e1), dot3(e1, e1));
-  const T vy = rn_div(dot3(vel, e2), dot3(e2, e2));
-  const bool inside = cross2(bx, by, vx, vy) > T(0) &&
-                      cross2(rn_sub(cx, bx), rn_sub(cy, by), rn_sub(vx, bx), rn_sub(vy, by)) > T(0) &&
-                      cross2(-cx, -cy, rn_sub(vx, cx), rn_sub(vy, cy)) > T(0);
-  return inside && orient != T(0);
-}
-
-template <typename T>
-__global__ void next_hop_kernel(
+template <typename T, int F, int SLOTS>
+__global__ void __launch_bounds__(kHopThreads, kHopMinBlocks) next_hop_kernel(
     const T* __restrict__ unit, const T* __restrict__ v_world,
-    const int32_t* __restrict__ neighbors, const int32_t* __restrict__ cell_count,
-    const int32_t* __restrict__ vertex_cells, const int32_t* __restrict__ tris,
-    const T* __restrict__ points, const T* __restrict__ basis,
-    int32_t* __restrict__ next, int64_t n_frames, int64_t n_vert, int64_t width,
-    int64_t cells, bool quirks) {
-  const int64_t v = global_index();
+    const int32_t* __restrict__ neighbors, const int32_t* __restrict__ rules,
+    const T* __restrict__ corners, const T* __restrict__ basis, int32_t* __restrict__ next,
+    int64_t n_frames, int64_t n_vert, int64_t width) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kHopThreads + threadIdx.x;
   if (v >= n_vert) return;
-  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
-    const T* vel = v_world + (t * n_vert + v) * 3;
-    const T vv[3] = {vel[0], vel[1], vel[2]};
-    // argmax in torch.argmax's order: a NaN is the largest, ties to the
-    // first index; masked entries are -inf, so an all-masked row gives 0.
-    T best = -INFINITY;
-    int64_t best_d = 0;
-    for (int64_t d = 0; d < width; ++d) {
-      const int32_t nb = neighbors[v * width + d];
-      const T val = nb != -1 ? dot3(unit + (v * width + d) * 3, vv) : T(-INFINITY);
-      if (best != best) break;
-      if (val != val || val > best) {
-        best = val;
-        best_d = d;
-      }
-    }
-    const int32_t nb_best = neighbors[v * width + best_d];
-    const int32_t cand = nb_best != -1 ? nb_best : 0;
-    bool advance = best > T(0);
-    if (advance && cell_count[v] < 6) {
-      // Cells shared with the candidate: their count, and the first of the
-      // vertex's own cells (ascending) that the candidate also has.
-      int count = 0;
-      int32_t first = -1;
-      for (int64_t i = 0; i < cells; ++i) {
-        const int32_t ca = vertex_cells[v * cells + i];
-        if (ca == -1) continue;
-        bool match = false;
-        for (int64_t j = 0; j < cells; ++j) {
-          const int32_t cb = vertex_cells[static_cast<int64_t>(cand) * cells + j];
-          match = match || (cb != -1 && cb == ca);
-        }
-        if (match) {
-          if (first < 0) first = ca;
-          ++count;
+  const int64_t row = v * width;
+  int32_t nb[SLOTS], rule[SLOTS];
+  T u[SLOTS][3];
+#pragma unroll
+  for (int d = 0; d < SLOTS; ++d) {
+    const bool in_row = d < width;
+    nb[d] = in_row ? neighbors[row + d] : -1;
+    rule[d] = in_row ? rules[row + d] : -1;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) u[d][k] = in_row ? unit[(row + d) * 3 + k] : T(0);
+  }
+  const int64_t n_groups = (n_frames + F - 1) / F;
+  for (int64_t g = blockIdx.y; g < n_groups; g += gridDim.y) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int64_t t = g * F + f;
+      if (t >= n_frames) break;
+      const T* vel = v_world + (t * n_vert + v) * 3;
+      const T vv[3] = {vel[0], vel[1], vel[2]};
+      // argmax in torch.argmax's order: a NaN is the largest (nothing
+      // replaces it), ties to the first index; padded slots are -inf, so
+      // an all-padded row gives 0.
+      T best = -INFINITY;
+      int best_d = 0;
+#pragma unroll
+      for (int d = 0; d < SLOTS; ++d) {
+        if (d < width) {
+          const T val = nb[d] != -1 ? dot3(u[d], vv) : T(-INFINITY);
+          if (best == best && !(val <= best)) {  // val NaN or above best
+            best = val;
+            best_d = d;
+          }
         }
       }
-      advance = count >= 2 ||
-                (first >= 0 && triangle_test(points, tris, static_cast<int32_t>(v), cand,
-                                             first, basis + v * 6, basis + v * 6 + 3, vv,
-                                             quirks));
+      for (int64_t d = SLOTS; d < width; ++d) {  // a 1-ring wider than SLOTS
+        const int32_t id = neighbors[row + d];
+        const T val = id != -1 ? dot3(unit + (row + d) * 3, vv) : T(-INFINITY);
+        if (best == best && !(val <= best)) {
+          best = val;
+          best_d = static_cast<int>(d);
+        }
+      }
+      const bool in_regs = best_d < SLOTS;
+      const int32_t nb_best = in_regs ? slot_of<SLOTS>(nb, best_d) : neighbors[row + best_d];
+      const int32_t cand = nb_best != -1 ? nb_best : 0;
+      bool advance = best > T(0);
+      if (advance) {
+        const int32_t r = in_regs ? slot_of<SLOTS>(rule, best_d) : rules[row + best_d];
+        if (r != kHopAdvance) {
+          advance = r >= 0 && points_inside(corners + 4 * static_cast<int64_t>(r),
+                                            basis + v * 6, vv);
+        }
+      }
+      next[t * n_vert + v] = advance ? cand : static_cast<int32_t>(v);
     }
-    next[t * n_vert + v] = advance ? cand : static_cast<int32_t>(v);
   }
 }
 
+template <typename T, int F>
+cudaError_t launch_next_hop(const void* unit, const void* v_world, const void* neighbors,
+                            const void* rules, const void* corners, const void* basis,
+                            void* next, int64_t n_frames, int64_t n_vert, int64_t width,
+                            cudaStream_t s) {
+  const int64_t groups = (n_frames + F - 1) / F;
+  const dim3 grid(static_cast<unsigned int>((n_vert + kHopThreads - 1) / kHopThreads),
+                  static_cast<unsigned int>(groups < 65535 ? groups : 65535));
+  // A 1-ring of up to kHopSlots slots in registers, else twice that.
+  auto kernel = width <= kHopSlots ? next_hop_kernel<T, F, kHopSlots>
+                                   : next_hop_kernel<T, F, 2 * kHopSlots>;
+  kernel<<<grid, kHopThreads, 0, s>>>(
+      static_cast<const T*>(unit), static_cast<const T*>(v_world),
+      static_cast<const int32_t*>(neighbors), static_cast<const int32_t*>(rules),
+      static_cast<const T*>(corners), static_cast<const T*>(basis),
+      static_cast<int32_t*>(next), n_frames, n_vert, width);
+  return cudaGetLastError();
+}
+
+// F = 8 frames a thread where that still gives every SM 4 blocks or more,
+// else 4 (more blocks for a small mesh).
 template <typename T>
 int next_hop(const void* unit, const void* v_world, const void* neighbors,
-             const void* cell_count, const void* vertex_cells, const void* tris,
-             const void* points, const void* basis, void* next, int64_t n_frames,
-             int64_t n_vert, int64_t width, int64_t cells, int64_t quirks,
-             void* stream) {
-  if (n_frames > 0 && n_vert > 0) {
-    const dim3 grid(blocks_for(n_vert), frame_blocks(n_frames));
-    next_hop_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(unit), static_cast<const T*>(v_world),
-        static_cast<const int32_t*>(neighbors), static_cast<const int32_t*>(cell_count),
-        static_cast<const int32_t*>(vertex_cells), static_cast<const int32_t*>(tris),
-        static_cast<const T*>(points), static_cast<const T*>(basis),
-        static_cast<int32_t*>(next), n_frames, n_vert, width, cells, quirks != 0);
+             const void* rules, const void* corners, const void* basis, void* next,
+             int64_t n_frames, int64_t n_vert, int64_t width, void* stream) {
+  if (n_frames <= 0 || n_vert <= 0) return static_cast<int>(cudaGetLastError());
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t blocks8 = (n_vert + kHopThreads - 1) / kHopThreads * ((n_frames + 7) / 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      blocks8 >= 4 * static_cast<int64_t>(sms)
+          ? launch_next_hop<T, 8>(unit, v_world, neighbors, rules, corners, basis, next,
+                                  n_frames, n_vert, width, s)
+          : launch_next_hop<T, 4>(unit, v_world, neighbors, rules, corners, basis, next,
+                                  n_frames, n_vert, width, s);
+  return static_cast<int>(e);
 }
 
 // ------------------------------------------------------------------ K14
@@ -525,13 +539,10 @@ int pack_walks(const void* next, const void* seeds, const void* lengths,
 #define MF_STREAM_ENTRY_POINTS(SUFFIX, T)                                       \
   extern "C" int mf_next_hop_##SUFFIX(                                          \
       const void* unit, const void* v_world, const void* neighbors,             \
-      const void* cell_count, const void* vertex_cells, const void* tris,       \
-      const void* points, const void* basis, void* next, int64_t n_frames,      \
-      int64_t n_vert, int64_t width, int64_t cells, int64_t quirks,             \
-      void* stream) {                                                           \
-    return mf::next_hop<T>(unit, v_world, neighbors, cell_count, vertex_cells,  \
-                           tris, points, basis, next, n_frames, n_vert, width,  \
-                           cells, quirks, stream);                              \
+      const void* rules, const void* corners, const void* basis, void* next,    \
+      int64_t n_frames, int64_t n_vert, int64_t width, void* stream) {          \
+    return mf::next_hop<T>(unit, v_world, neighbors, rules, corners, basis,     \
+                           next, n_frames, n_vert, width, stream);              \
   }
 
 MF_STREAM_ENTRY_POINTS(f32, float)

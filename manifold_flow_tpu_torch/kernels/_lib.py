@@ -45,7 +45,7 @@ _ARGTYPES = {
     "coarse_gemv": [_P] * 3 + [_I] * 3 + [_P],
     "coarse_prolong_dot": [_P] * 8 + [_I] * 4 + [_P],
     # stream_kernels.cu (kernels.streams)
-    "next_hop": [_P] * 9 + [_I] * 5 + [_P],
+    "next_hop": [_P] * 7 + [_I] * 3 + [_P],
     # winding_kernels.cu (kernels.winding)
     "winding_profile": [_P] * 8 + [_I] * 5 + [_P],
     # field_kernels.cu (kernels.fields)

@@ -38,46 +38,91 @@ _PLAIN_KEYS = 1 << 25
 
 
 # ------------------------------------------------------------------ K13
+# The hop rule of a 1-ring slot whose vertex may advance with no triangle
+# test (csrc/stream_kernels.cu kHopAdvance).
+HOP_ADVANCE = -2
+
+
 def next_hop(unit: torch.Tensor, v_world: torch.Tensor, neighbors: torch.Tensor,
-             cell_count: torch.Tensor, vertex_cells: torch.Tensor,
-             triangles: torch.Tensor, points: torch.Tensor, basis: torch.Tensor,
-             quirks: bool = False) -> torch.Tensor:
+             rules: torch.Tensor, corners: torch.Tensor, basis: torch.Tensor
+             ) -> torch.Tensor:
     """K13 `next_hop<T>`: the next vertex (T, N) int32 of every (frame,
     vertex) walk step, a halting vertex pointing to itself.
 
     unit (N, D, 3) are the 1-ring edge vectors projected onto each vertex's
     tangent plane and normalised (`ops.streamline.unit_edges`); v_world
-    (T, N, 3), points (N, 3) and basis (N, 2, 3) share its dtype;
-    neighbors (N, D), cell_count (N,), vertex_cells (N, C) and triangles
-    (M, 3) are the mesh's int32 tables. `quirks` takes the reference's
-    index arithmetic in the boundary triangle test.
+    (T, N, 3), corners (K, 4) and basis (N, 2, 3) share its dtype;
+    neighbors (N, D) and rules (N, D) are int32. rules and corners are
+    `hop_tables`' (whose `quirks` they carry).
 
     Replaces ops/streamline.py:133 `_next_hop_tables` and :242 `_hop_graph`
-    (B10). Bound by memory traffic: about 7.3 MB of v_world in f64, under
-    1 MB of tables and 1.2 MB written, about 2.5 us at 3.35 TB/s. Design:
-    one thread per (frame, vertex); the frame-independent unit table is
-    built once per mesh; only boundary rows that would advance run the
-    shared-cell scan and the triangle test.
+    (B10). Bound by memory traffic: at 12.5k vertices x 97 frames in f64 it
+    reads v_world once (29.2 MB) and the 1-ring tables (2.4 MB) and writes
+    next (4.9 MB), 10.8 us at 3.35 TB/s. Design: everything that does not
+    depend on the frame is done once per mesh (`hop_tables`): the shared-
+    cell scan of each boundary slot and its triangle's corners on the
+    tangent basis. One thread per (vertex, 4 consecutive frames) loads the
+    vertex's 1-ring ids, rules and unit edges into registers once, then per
+    frame reads its velocity, takes the dot products and their argmax, and
+    only where the chosen slot's rule names a row of `corners` takes the
+    velocity on the tangent basis (two divisions) and three orientation
+    tests. What holds it back now is in PERF.md.
     """
     dtype = _float_dtype("v_world", v_world)
-    t, n = v_world.shape[0], points.shape[0]
-    width, cells, m = neighbors.shape[-1], vertex_cells.shape[-1], triangles.shape[0]
+    t, n, width = v_world.shape[0], neighbors.shape[0], neighbors.shape[-1]
     _check("unit", unit, dtype, (n, width, 3))
     _check("v_world", v_world, dtype, (t, n, 3))
     _check("neighbors", neighbors, torch.int32, (n, width))
-    _check("cell_count", cell_count, torch.int32, (n,))
-    _check("vertex_cells", vertex_cells, torch.int32, (n, cells))
-    _check("triangles", triangles, torch.int32, (m, 3))
-    _check("points", points, dtype, (n, 3))
+    _check("rules", rules, torch.int32, (n, width))
+    _check("corners", corners, dtype, (corners.shape[0], 4))
     _check("basis", basis, dtype, (n, 2, 3))
-    tensors = (unit, v_world, neighbors, cell_count, vertex_cells, triangles,
-               points, basis)
+    tensors = (unit, v_world, neighbors, rules, corners, basis)
     if not _on_cuda(*tensors):
-        return plain_next_hop(*tensors, quirks=quirks)
+        return plain_next_hop(*tensors)
     out = torch.empty((t, n), dtype=torch.int32, device=v_world.device)
     _launch("next_hop", dtype, v_world.device, *(x.data_ptr() for x in tensors),
-            out.data_ptr(), t, n, width, cells, int(quirks))
+            out.data_ptr(), t, n, width)
     return out
+
+
+def hop_tables(points: torch.Tensor, triangles: torch.Tensor, basis: torch.Tensor,
+               neighbors: torch.Tensor, cell_count: torch.Tensor,
+               vertex_cells: torch.Tensor, quirks: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frame-independent half of the walk rule's boundary test, for
+    `next_hop`: the hop rule (N, D) int32 of each 1-ring slot and the
+    corners (K, 4) of the triangles it names, in points' dtype, on the
+    tables' device.
+
+    A slot's rule is HOP_ADVANCE where the vertex is interior (6 cells or
+    more) or shares at least 2 cells with the slot's neighbour; -1 where it
+    shares none, the slot is padded, or their one shared triangle is
+    degenerate on the tangent basis (orient = 0, where the test fails for
+    every velocity); else a row k of `corners`: (bx, by, cx, cy), the
+    triangle's other two corners on the vertex's tangent basis,
+    counter-clockwise (ops/streamline.py:98-130, `quirks` taking the
+    reference's index arithmetic). ops/streamline.py:166-177 compute it
+    every frame.
+    """
+    rules = torch.full(neighbors.shape, HOP_ADVANCE, dtype=torch.int32,
+                       device=neighbors.device)
+    rows = torch.nonzero(cell_count < 6)[:, 0]
+    if rows.numel() == 0:
+        return rules, torch.zeros((0, 4), dtype=points.dtype, device=points.device)
+    nb = neighbors[rows]
+    safe = torch.where(nb != PAD_INDEX, nb, 0).long()
+    count, first = _shared_cells(vertex_cells[rows].long()[:, None, :],
+                                 vertex_cells[safe].long())
+    tested = (count == 1) & (nb != PAD_INDEX)
+    b_row, b_slot = torch.nonzero(tested, as_tuple=True)
+    a = rows[b_row]
+    *corner, solid = _triangle_corners(points, triangles, a, first[b_row, b_slot],
+                                       basis[a, 0], basis[a, 1], quirks)
+    rule = torch.where(count >= 2, HOP_ADVANCE, PAD_INDEX)
+    rule[b_row, b_slot] = torch.where(solid, torch.arange(a.numel(), device=a.device),
+                                      PAD_INDEX)
+    rules[rows] = torch.where(nb != PAD_INDEX, rule, PAD_INDEX).to(torch.int32)
+    return rules, torch.stack(corner, dim=-1).contiguous()
 
 
 def _plane_coords(rel, e1, e2, n, nn):
@@ -101,12 +146,13 @@ def _cross2(ax, ay, bx, by):
     return ax * by - ay * bx
 
 
-def _boundary_triangle_test(points, triangles, a, cell, e1, e2, vel,
-                            quirks: bool):
-    """ops/streamline.py:98 `_boundary_triangle_test` for vertices `a`
-    moving across triangles `cell` (any matching shapes): the velocity on
-    the tangent basis must point strictly inside the shared triangle, its
-    corners ordered counter-clockwise; a degenerate triangle fails."""
+def _triangle_corners(points, triangles, a, cell, e1, e2, quirks: bool):
+    """The frame-independent half of ops/streamline.py:98
+    `_boundary_triangle_test` for vertices `a` moving across triangles
+    `cell` (any matching shapes): the triangle's other two corners (bx, by)
+    and (cx, cy) on the tangent basis, counter-clockwise, and whether the
+    triangle is not degenerate there (orient != 0; the test fails on a
+    degenerate one)."""
     tri = triangles[cell.long()].long()
     t0, t1, t2 = tri.unbind(-1)
     a = a.long()
@@ -123,14 +169,19 @@ def _boundary_triangle_test(points, triangles, a, cell, e1, e2, vel,
         p2 = _plane_coords(points[c] - pa, e1, e2, n, nn)
     orient = _cross2(*p1, *p2)
     ccw = orient >= 0
-    bx, by = torch.where(ccw, p1[0], p2[0]), torch.where(ccw, p1[1], p2[1])
-    cx, cy = torch.where(ccw, p2[0], p1[0]), torch.where(ccw, p2[1], p1[1])
+    return (torch.where(ccw, p1[0], p2[0]), torch.where(ccw, p1[1], p2[1]),
+            torch.where(ccw, p2[0], p1[0]), torch.where(ccw, p2[1], p1[1]), orient != 0)
+
+
+def _points_inside(corner, e1, e2, vel):
+    """The per-frame half of the boundary test: the velocity on the tangent
+    basis points strictly inside the triangle of `corner` (..., 4)."""
+    bx, by, cx, cy = corner.unbind(-1)
     vx = _dot3(vel, e1) / _dot3(e1, e1)
     vy = _dot3(vel, e2) / _dot3(e2, e2)
-    inside = ((_cross2(bx, by, vx, vy) > 0)
-              & (_cross2(cx - bx, cy - by, vx - bx, vy - by) > 0)
-              & (_cross2(-cx, -cy, vx - cx, vy - cy) > 0))
-    return inside & (orient != 0)
+    return ((_cross2(bx, by, vx, vy) > 0)
+            & (_cross2(cx - bx, cy - by, vx - bx, vy - by) > 0)
+            & (_cross2(-cx, -cy, vx - cx, vy - cy) > 0))
 
 
 def _shared_cells(cells_a, cells_b):
@@ -145,11 +196,10 @@ def _shared_cells(cells_a, cells_b):
     return count, torch.where(match.any(dim=-1), first[..., 0], PAD_INDEX)
 
 
-def plain_next_hop(unit, v_world, neighbors, cell_count, vertex_cells, triangles,
-                   points, basis, quirks: bool = False):
+def plain_next_hop(unit, v_world, neighbors, rules, corners, basis):
     """Plain torch version of `next_hop` (ops/streamline.py:149-185,
     :249-255)."""
-    t, n = v_world.shape[0], points.shape[0]
+    t, n = v_world.shape[0], neighbors.shape[0]
     mask = neighbors != PAD_INDEX
     safe = torch.where(mask, neighbors, 0).long()
     dots = _dot3(unit[None], v_world[:, :, None, :])                 # (T, N, D)
@@ -157,16 +207,12 @@ def plain_next_hop(unit, v_world, neighbors, cell_count, vertex_cells, triangles
     idx = dots.argmax(dim=-1, keepdim=True)
     cand = torch.gather(safe.expand(t, -1, -1), -1, idx)[..., 0]     # (T, N)
     dmax = torch.gather(dots, -1, idx)[..., 0]
-    ok = (cell_count >= 6).expand(t, n).clone()
-    rows = torch.nonzero(cell_count < 6)[:, 0]                        # (B,)
-    if rows.numel():
-        cand_b = cand[:, rows]                                        # (T, B)
-        count, cell = _shared_cells(vertex_cells[rows].long()[None],
-                                    vertex_cells[cand_b].long())
-        tri_ok = _boundary_triangle_test(
-            points, triangles, rows.expand_as(cand_b), cell.clamp_min(0),
-            basis[rows, 0][None], basis[rows, 1][None], v_world[:, rows], quirks)
-        ok[:, rows] = (count >= 2) | (tri_ok & (cell != PAD_INDEX))
+    rule = torch.gather(rules.expand(t, -1, -1), -1, idx)[..., 0]
+    ok = rule == HOP_ADVANCE
+    frame, row = torch.nonzero(rule >= 0, as_tuple=True)
+    if row.numel():
+        ok[frame, row] = _points_inside(corners[rule[frame, row].long()], basis[row, 0],
+                                        basis[row, 1], v_world[frame, row])
     vertex = torch.arange(n, device=v_world.device)
     return torch.where((dmax > 0) & ok, cand, vertex).to(torch.int32)
 

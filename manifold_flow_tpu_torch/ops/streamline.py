@@ -80,16 +80,31 @@ def boundary_indices(mesh: TriMesh) -> torch.Tensor:
                        .to(torch.int32))
 
 
+def hop_tables(mesh: TriMesh, dtype: torch.dtype, quirks: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The walk rule's frame-independent boundary tables on the mesh's
+    device (`kernels.streams.hop_tables`: each 1-ring slot's hop rule and
+    the corners of the triangles the rules name, in `dtype`); they depend
+    on the mesh only, so they are computed once per mesh, on the host."""
+    def build():
+        rules, corners = kst.hop_tables(
+            mesh.points.cpu().to(dtype), mesh.triangles.cpu(), mesh.basis.cpu().to(dtype),
+            mesh.vertex_neighbors.cpu(), mesh.vertex_cell_count.cpu(),
+            mesh.vertex_cells.cpu(), quirks)
+        return rules.to(mesh.device), corners.to(mesh.device)
+    return mesh_cached((mesh.points, mesh.triangles, mesh.basis, mesh.vertex_neighbors,
+                        mesh.vertex_cell_count, mesh.vertex_cells),
+                       ("hop_tables", dtype, bool(quirks)), build)
+
+
 def next_hops(mesh: TriMesh, v_world: torch.Tensor, quirks: bool = False
               ) -> torch.Tensor:
     """The next-hop graph (T, N) int32 of every frame of v_world (T, N, 3):
     K13, in v_world's dtype."""
     dtype = v_world.dtype
-    return kst.next_hop(
-        unit_edges(mesh, dtype), v_world.contiguous(), mesh.vertex_neighbors,
-        mesh.vertex_cell_count, mesh.vertex_cells, mesh.triangles,
-        mesh.points.to(dtype).contiguous(), mesh.basis.to(dtype).contiguous(),
-        quirks=quirks)
+    return kst.next_hop(unit_edges(mesh, dtype), v_world.contiguous(),
+                        mesh.vertex_neighbors, *hop_tables(mesh, dtype, quirks),
+                        mesh.basis.to(dtype).contiguous())
 
 
 def _next_hop_tables(mesh: TriMesh, vel: torch.Tensor, quirks: bool = False):

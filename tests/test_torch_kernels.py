@@ -585,6 +585,129 @@ def test_analysis_kernels_match_plain(cuda, dtype):
         _assert_same(got, kan.plain_compact_detected(*args), dtype)
 
 
+def _cycled(v_world, n_frames):
+    """n_frames world velocity frames cycled from v_world, each scaled by its
+    own factor, the last one all zero (v_max = 0) where n_frames > 1; with
+    their speeds and v_max."""
+    k = torch.arange(n_frames, device=v_world.device)
+    out = v_world[k % v_world.shape[0]] * (1.0 + 0.25 * k).to(v_world.dtype)[:, None, None]
+    if n_frames > 1:
+        out[-1] = 0.0
+    speed = kan.plain_speed(out)
+    return out.contiguous(), speed, speed.amax(dim=-1)
+
+
+# K6 takes 4 frames a thread, K13 4 or 8: frame counts at and around both.
+GROUP_EDGES = [1, 3, 4, 5, 7, 8, 9, 98]
+
+
+@pytest.mark.parametrize("n_frames", GROUP_EDGES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_detect_singular_at_frame_group_edges(cuda, dtype, n_frames):
+    """K6 against its plain version where its frame groups have edges, on
+    452 triangles (no whole number of 128-thread blocks), two of them
+    degenerate (|n| = 0), and a last all-zero frame: every output bit for
+    bit the plain version's, which rounds each operation on its own too."""
+    mesh, v_world, _, _ = _velocity_field(cuda, dtype)
+    v, speed, v_max = _cycled(v_world, n_frames)
+    tris = torch.cat([mesh.triangles, torch.tensor([[0, 0, 1], [5, 6, 5]], dtype=torch.int32,
+                                                   device=cuda)])
+    args = (mesh.points.to(dtype), tris, v, speed, v_max, 1e-4)
+    got = _launched("detect_singular", dtype, lambda: kan.detect_singular(*args))
+    want = kan.plain_detect_singular(*args)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    assert int(got[4][0, 1]) > 0
+    if n_frames > 1:
+        assert got[4][-1].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_detect_singular_over_every_exponent(cuda, dtype):
+    """K6 on velocities that span the dtype's exponents (each vertex scaled
+    by 2^k, k random over most of the range, some components exactly 0),
+    frames with tiny and huge v_max: every output bit for bit the plain
+    version's, so every quotient is the correctly rounded one whichever
+    way the kernel forms it."""
+    mesh, v_world, _, _ = _velocity_field(cuda, dtype)
+    gen = np.random.default_rng(7)
+    top = 120 if dtype == torch.float32 else 1000
+    t, n = 12, mesh.n_vertices
+    base = v_world[np.arange(t) % v_world.shape[0]].clone()
+    vert_exp = gen.integers(-top, top // 2, size=(t, n, 1))
+    frame_exp = gen.integers(-top // 2, top // 2, size=(t, 1, 1))
+    scale = torch.as_tensor(np.exp2((vert_exp + frame_exp).astype(np.float64)),
+                            device=cuda).to(dtype)
+    v = base * scale
+    v[torch.as_tensor(gen.random((t, n, 3)) < 0.05, device=cuda)] = 0.0
+    v[3] = base[3]  # one frame as solved
+    v = v.contiguous()
+    speed = kan.plain_speed(v)
+    args = (mesh.points.to(dtype), mesh.triangles, v, speed, speed.amax(dim=-1), 1e-4)
+    got = _launched("detect_singular", dtype, lambda: kan.detect_singular(*args))
+    want = kan.plain_detect_singular(*args)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    assert int(got[4][3, 1]) > 0
+
+
+def _fan(device, spokes):
+    """A fan of `spokes` triangles around vertex 0 (a 1-ring of `spokes`
+    neighbours; every rim vertex a boundary vertex of 3 neighbours), on a
+    bumped cone."""
+    from manifold_flow_tpu_torch.geometry.mesh import build_mesh
+
+    ang = 2.0 * np.pi * np.arange(spokes) / spokes
+    rim = np.stack([np.cos(ang), 0.8 * np.sin(ang), 0.3 + 0.1 * np.cos(3.0 * ang)], axis=-1)
+    points = np.concatenate([np.zeros((1, 3)), rim])
+    k = np.arange(spokes)
+    tris = np.stack([np.zeros(spokes, dtype=np.int64), 1 + k, 1 + (k + 1) % spokes], axis=-1)
+    return build_mesh(points, tris, dtype=np.float64, device=device)
+
+
+@pytest.mark.parametrize("n_frames", GROUP_EDGES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_next_hop_at_frame_group_edges(cuda, dtype, n_frames):
+    """K13 against its plain version where its frame groups have edges, in
+    both quirk modes, on a patch with padded 1-rings and boundary slots
+    that share one cell (tested) and two (advance), a velocity row of NaNs
+    (argmax takes the NaN: no hop) and a last all-zero frame."""
+    mesh, v_world, _, _ = _velocity_field(cuda, dtype)
+    v, _, _ = _cycled(v_world, n_frames)
+    v[0, 7, 1] = float("nan")
+    unit = stream.unit_edges(mesh, dtype)
+    assert bool((mesh.vertex_neighbors == -1).any())
+    for quirks in (False, True):
+        rules, corners = stream.hop_tables(mesh, dtype, quirks)
+        boundary = mesh.vertex_cell_count < 6
+        assert bool((rules[boundary] >= 0).any()) and bool(
+            (rules[boundary] == kst.HOP_ADVANCE).any())
+        args = (unit, v, mesh.vertex_neighbors, rules, corners, mesh.basis.to(dtype))
+        hops = _launched("next_hop", dtype, lambda: kst.next_hop(*args))
+        assert torch.equal(hops, kst.plain_next_hop(*args))
+        assert int(hops[0, 7]) == 7
+        ids = torch.arange(mesh.n_vertices, device=cuda)
+        assert bool((hops[0] != ids).any())
+        if n_frames > 1:
+            assert bool((hops[-1] == ids).all())
+
+
+@pytest.mark.parametrize("spokes", [8, 14])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_next_hop_on_wide_one_rings(cuda, dtype, spokes):
+    """K13 where the 1-ring is wider than the slots held in registers (8
+    and 14 neighbours at the fan's hub): next equal to the plain version's
+    over 9 random frames, in both quirk modes."""
+    mesh = _fan(cuda, spokes)
+    assert mesh.vertex_neighbors.shape[1] == spokes
+    gen = np.random.default_rng(spokes)
+    v = torch.as_tensor(gen.standard_normal((9, mesh.n_vertices, 3)), device=cuda).to(dtype)
+    for quirks in (False, True):
+        args = (stream.unit_edges(mesh, dtype), v, mesh.vertex_neighbors,
+                *stream.hop_tables(mesh, dtype, quirks), mesh.basis.to(dtype))
+        hops = _launched("next_hop", dtype, lambda: kst.next_hop(*args))
+        assert torch.equal(hops, kst.plain_next_hop(*args))
+        assert bool((hops[:, 0] != 0).any())
+
+
 def _same_bits(a, b):
     """Equal bit for bit: floats by their bits (NaNs included)."""
     assert a.dtype == b.dtype and a.shape == b.shape
@@ -812,10 +935,9 @@ def test_stream_kernels_match_plain(cuda, dtype, quirks):
     mesh, v_world, _, _ = _velocity_field(cuda, dtype)
     v_world = torch.cat([v_world, torch.zeros_like(v_world[:1])])  # a halting frame
     args = (stream.unit_edges(mesh, dtype), v_world, mesh.vertex_neighbors,
-            mesh.vertex_cell_count, mesh.vertex_cells, mesh.triangles,
-            mesh.points.to(dtype), mesh.basis.to(dtype))
-    hops = _launched("next_hop", dtype, lambda: kst.next_hop(*args, quirks=quirks))
-    assert torch.equal(hops, kst.plain_next_hop(*args, quirks=quirks))
+            *stream.hop_tables(mesh, dtype, quirks), mesh.basis.to(dtype))
+    hops = _launched("next_hop", dtype, lambda: kst.next_hop(*args))
+    assert torch.equal(hops, kst.plain_next_hop(*args))
     ids = torch.arange(mesh.n_vertices, device=cuda)
     assert bool((hops[-1] == ids).all()) and bool((hops[:-1] != ids).any())
     for max_steps in (3, 64):

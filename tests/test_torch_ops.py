@@ -96,6 +96,49 @@ def test_detect_matches_jax(fields):
         int(c) for c in jax_sing.detection_counts(jfield)]
 
 
+def _frames(v_k, n_frames):
+    """n_frames velocity frames cycled from the solve's (v_k without its
+    zero frame), each scaled by its own factor, the last one all zero
+    (v_max = 0) where n_frames > 1."""
+    solved = v_k[:-1]
+    scale = 1.0 + 0.25 * np.arange(n_frames)
+    out = solved[np.arange(n_frames) % len(solved)] * scale[:, None]
+    if n_frames > 1:
+        out[-1] = 0.0
+    return out
+
+
+@pytest.mark.parametrize("n_frames", [1, 3, 5, 17])
+def test_detect_matches_jax_at_frame_group_edges(problem, n_frames):
+    """detect and detect_with_counts against JAX where the detection
+    kernel's groups of frames have edges (one frame, groups cut short, 17
+    frames): masks and counts equal, the detected triangles' barycentric
+    pairs and points within POINT_TOL, nothing detected in the zero frame."""
+    jmesh, tmesh, v_k = problem
+    vk = _frames(v_k, n_frames)
+    jv = jax_recombine.velocity_to_world(jnp.asarray(vk), jmesh.basis)
+    jfield, jcounts = jax_sing.detect_with_counts(jmesh, jv, eps=EPS)
+    tv, speed, v_max = recombine.velocity_to_world_and_speed(torch.from_numpy(vk),
+                                                             tmesh.basis)
+    tfield, tcounts = sing.detect_with_counts(tmesh, tv, eps=EPS, speed=speed, v_max=v_max)
+    alone = sing.detect(tmesh, tv, eps=EPS, speed=speed, v_max=v_max)
+    jmask_i = np.asarray(jfield.interior_mask)
+    for field in (tfield, alone):
+        np.testing.assert_array_equal(field.vertex_mask.numpy(), np.asarray(jfield.vertex_mask))
+        np.testing.assert_array_equal(field.interior_mask.numpy(), jmask_i)
+        for got, want in ((field.interior_bary, jfield.interior_bary),
+                          (field.interior_point, jfield.interior_point)):
+            np.testing.assert_allclose(got.numpy()[jmask_i], np.asarray(want)[jmask_i],
+                                       rtol=POINT_TOL, atol=POINT_TOL)
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
+    np.testing.assert_array_equal(
+        tfield.counts.numpy(),
+        np.stack([np.asarray(jfield.vertex_mask).sum(1), jmask_i.sum(1)], -1))
+    assert jmask_i[0].any(), "the first frame has interior zeros"
+    if n_frames > 1:
+        assert tfield.counts[-1].tolist() == [0, 0]
+
+
 def test_detect_computes_speed_when_not_given(problem, fields):
     _, tmesh, _ = problem
     _, _, _, tv, _, tfield, _ = fields

@@ -65,6 +65,64 @@ def test_next_hops_match_jax(problem, quirks):
     assert moved.any() and not moved.all()
 
 
+@pytest.mark.parametrize("n_frames", [1, 3, 5, 17])
+@QUIRKS
+def test_next_hops_match_jax_at_frame_group_edges(problem, quirks, n_frames):
+    """next_hops against JAX's _hop_graph where the next-hop kernel's groups
+    of frames have edges (one frame, groups cut short, 17 frames), the
+    movie's frames cycled with their own scales and a last all-zero frame
+    where n_frames > 1: `next` equal, frame by frame."""
+    jmesh, tmesh, v = problem
+    moving = v[:-1]
+    frames = moving[np.arange(n_frames) % len(moving)] * (
+        1.0 + 0.5 * np.arange(n_frames))[:, None, None]
+    if n_frames > 1:
+        frames[-1] = 0.0
+    got = stream.next_hops(tmesh, torch.from_numpy(frames), quirks=quirks).numpy()
+    n = tmesh.n_vertices
+    graph = np.asarray(jax_stream._hop_graph(jmesh, jnp.asarray(frames), quirks))
+    want = graph.reshape(n_frames, n) - (np.arange(n_frames) * n)[:, None]
+    np.testing.assert_array_equal(got, want)
+    if n_frames > 1:
+        assert (got[-1] == np.arange(n)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@QUIRKS
+def test_hop_tables_hold_the_shared_cells_and_are_cached(problem, quirks, dtype):
+    """The per-mesh hop rules equal the shared-cell scan of every
+    (vertex, 1-ring slot): advance where the vertex is interior or shares 2
+    cells, halt where it shares none (or the slot is padded), else the row
+    of that one triangle's corners, which are the frame-independent half of
+    the boundary test; the tables are built once per mesh, dtype and quirk
+    mode."""
+    _, tmesh, _ = problem
+    rules, corners = stream.hop_tables(tmesh, dtype, quirks)
+    assert stream.hop_tables(tmesh, dtype, quirks)[0] is rules
+    assert stream.hop_tables(tmesh, dtype, not quirks)[0] is not rules
+    assert rules.dtype == torch.int32 and corners.dtype == dtype
+    nb, cells = tmesh.vertex_neighbors, tmesh.vertex_cells.long()
+    safe = torch.where(nb != -1, nb, 0).long()
+    count, first = kst._shared_cells(cells[:, None, :], cells[safe])
+    interior = (tmesh.vertex_cell_count >= 6)[:, None].expand_as(nb)
+    advance = (interior | (count >= 2)) & (nb != -1)
+    np.testing.assert_array_equal((rules == kst.HOP_ADVANCE).numpy(), advance.numpy())
+    one = ~interior & (count == 1) & (nb != -1)
+    assert bool(one.any()) and bool((~interior & (count >= 2)).any())
+    v, slot = torch.nonzero(one, as_tuple=True)
+    basis = tmesh.basis.to(dtype)
+    *want, solid = kst._triangle_corners(tmesh.points.to(dtype), tmesh.triangles, v,
+                                         first[v, slot], basis[v, 0], basis[v, 1], quirks)
+    # A triangle degenerate on the tangent basis fails every test: halt.
+    tested = torch.zeros_like(one)
+    tested[v, slot] = solid
+    np.testing.assert_array_equal((rules >= 0).numpy(), tested.numpy())
+    np.testing.assert_array_equal((rules == -1).numpy(), (~advance & ~tested).numpy())
+    np.testing.assert_array_equal(corners[rules[v, slot][solid].long()].numpy(),
+                                  torch.stack(want, -1)[solid].numpy())
+    assert bool(solid.any())
+
+
 @QUIRKS
 def test_trace_frames_matches_jax(problem, quirks):
     jmesh, tmesh, v = problem
