@@ -1210,206 +1210,6 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                        launches_key=f"rbf_eval<{ctype}>+phase")
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """a and b equal bit for bit (floats by their bits, NaNs included)."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
-    return torch.equal(a.view(ints), b.view(ints)) if ints else torch.equal(a, b)
-
-
-def build_parent_analysis(parent: Path):
-    """The parent tree's analysis_kernels.cu and stream_kernels.cu (K6's
-    and K13's first designs), each compiled alone into a library with this
-    build's flags (in parallel), loaded with ctypes, their detect_singular
-    and next_hop entry points typed."""
-    import ctypes
-    from concurrent.futures import ThreadPoolExecutor
-
-    from manifold_flow_tpu_torch.kernels import build
-
-    csrc = parent / "manifold_flow_tpu_torch" / "csrc"
-    tmp = Path(tempfile.mkdtemp(prefix="parent_analysis_"))
-
-    def compile_one(stem):
-        out = tmp / f"libparent_{stem}.so"
-        run = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(csrc),
-                              "-o", str(out), str(csrc / f"{stem}.cu")],
-                             capture_output=True, text=True)
-        if run.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the parent's {stem}.cu:\n{run.stderr}")
-        return ctypes.CDLL(str(out))
-    with ThreadPoolExecutor(2) as pool:
-        an, st = pool.map(compile_one, ("analysis_kernels", "stream_kernels"))
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    for sfx in ("f32", "f64"):
-        fn = getattr(an, f"mf_detect_singular_{sfx}")
-        fn.argtypes, fn.restype = [p] * 5 + [d] + [p] * 5 + [i] * 3 + [p], ctypes.c_int
-        fn = getattr(st, f"mf_next_hop_{sfx}")
-        fn.argtypes, fn.restype = [p] * 9 + [i] * 5 + [p], ctypes.c_int
-    return an, st
-
-
-def ptxas_report() -> None:
-    """ptxas' registers, spills and shared memory of this tree's
-    analysis_kernels.cu and stream_kernels.cu, written to
-    chiprun_out/ptxas_<stem>.txt; the K6 and K13 lines printed."""
-    from manifold_flow_tpu_torch.kernels import build
-
-    for stem in ("analysis_kernels", "stream_kernels"):
-        src = build.CSRC_DIR / f"{stem}.cu"
-        with tempfile.TemporaryDirectory() as tmp:
-            run = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-                                  "-I", str(build.CSRC_DIR), "-c", "-o",
-                                  str(Path(tmp) / "f.o"), str(src)],
-                                 capture_output=True, text=True)
-        text = run.stdout + run.stderr
-        (ROOT / "chiprun_out").mkdir(exist_ok=True)
-        (ROOT / "chiprun_out" / f"ptxas_{stem}.txt").write_text(text)
-        lines = text.splitlines()
-        for k, line in enumerate(lines):
-            if "Compiling entry function" in line and (
-                    "detect_singular" in line or "next_hop" in line):
-                rest = " | ".join(x.strip() for x in lines[k + 1:k + 4]
-                                  if "ptxas" in x and "Compiling" not in x)
-                print(f"[ptxas] {line.split('entry function')[1].strip()[:100]}: {rest}",
-                      flush=True)
-
-
-def against_parent_analysis(parent_libs, mesh, v_world, speed, v_max, card: str,
-                            suffix: str) -> None:
-    """K6 and K13 against their first designs (the parent's build) on the
-    default path's inputs, in float64 and float32, with a zero frame added
-    for the bitwise checks: every output bit for bit the first design's,
-    and the discrete ones the plain version's; device times in turns
-    (this, first, first, this)."""
-    from manifold_flow_tpu_torch.kernels import analysis as kan
-    from manifold_flow_tpu_torch.kernels import streams as kst
-    from manifold_flow_tpu_torch.ops import streamline as stream
-
-    an_lib, st_lib = parent_libs
-
-    def stream_ptr():
-        return torch.cuda.current_stream().cuda_stream
-
-    def launched(err, what):
-        if err != 0:
-            raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-    def turns(this, first):
-        us = [device_us(fn, mine=own_kernel) for fn in (this, first, first, this)]
-        return (f"{fmt_us(us[0])} / {fmt_us(us[3])} (first design {fmt_us(us[1])} / "
-                f"{fmt_us(us[2])})")
-
-    for dtype, ctype, sfx in ((torch.float64, "double", "f64"), (torch.float32, "float", "f32")):
-        vw, sp, vm = (x.to(dtype).contiguous() for x in (v_world, speed, v_max))
-        zw, zs, zm = (torch.cat([x, torch.zeros_like(x[:1])]) for x in (vw, sp, vm))
-        points = mesh.points.to(dtype).contiguous()
-        n, m = mesh.n_vertices, mesh.n_triangles
-
-        def det_call(entry, w, s_, vmx):
-            def run():
-                t = w.shape[0]
-                outs = (torch.empty((t, n), dtype=torch.bool, device=w.device),
-                        torch.empty((t, m), dtype=torch.bool, device=w.device),
-                        torch.empty((t, m, 2), dtype=dtype, device=w.device),
-                        torch.empty((t, m, 3), dtype=dtype, device=w.device),
-                        torch.empty((t, 2), dtype=torch.int32, device=w.device))
-                launched(entry(points.data_ptr(), mesh.triangles.data_ptr(), w.data_ptr(),
-                               s_.data_ptr(), vmx.data_ptr(), 1e-4,
-                               *(o.data_ptr() for o in outs), t, n, m, stream_ptr()),
-                         "detect_singular (first design)")
-                return outs
-            return run
-        first_det = getattr(an_lib, f"mf_detect_singular_{sfx}")
-        got = kan.detect_singular(points, mesh.triangles, zw, zs, zm, 1e-4)
-        want = det_call(first_det, zw, zs, zm)()
-        plain = kan.plain_detect_singular(points, mesh.triangles, zw, zs, zm, 1e-4)
-        same = [same_bits(a, b) for a, b in zip(got, want)]
-        same_plain = [torch.equal(got[k], plain[k]) for k in (0, 1, 4)]
-        bits_plain = [same_bits(got[k], plain[k]) for k in (2, 3)]
-        line = (f"[parent] detect_singular<{ctype}>{suffix} (+ a zero frame): bitwise the "
-                f"first design's in each output {same}, masks and counts the plain "
-                f"version's {same_plain}, bary and point bitwise the plain version's "
-                f"{bits_plain}, zero frame detects "
-                f"{got[4][-1].tolist()}; device " + turns(
-                    lambda: kan.detect_singular(points, mesh.triangles, vw, sp, vm, 1e-4),
-                    det_call(first_det, vw, sp, vm)))
-        ok = all(same) and all(same_plain) and got[4][-1].tolist() == [0, 0]
-        print(line + f"; on {card}", flush=True)
-        if not ok:
-            raise AssertionError(f"detect_singular<{ctype}>{suffix} differs from its first "
-                                 "design or its plain version")
-
-        unit = stream.unit_edges(mesh, dtype)
-        pts, basis = points, mesh.basis.to(dtype).contiguous()
-        width, cells = mesh.vertex_neighbors.shape[1], mesh.vertex_cells.shape[1]
-        first_hop = getattr(st_lib, f"mf_next_hop_{sfx}")
-
-        def first_call(w, quirks):
-            def run():
-                out = torch.empty((w.shape[0], n), dtype=torch.int32, device=w.device)
-                launched(first_hop(unit.data_ptr(), w.data_ptr(),
-                                   mesh.vertex_neighbors.data_ptr(),
-                                   mesh.vertex_cell_count.data_ptr(),
-                                   mesh.vertex_cells.data_ptr(), mesh.triangles.data_ptr(),
-                                   pts.data_ptr(), basis.data_ptr(), out.data_ptr(),
-                                   w.shape[0], n, width, cells, int(quirks), stream_ptr()),
-                         "next_hop (first design)")
-                return out
-            return run
-
-        same = {}
-        for quirks in (False, True):
-            tables = stream.hop_tables(mesh, dtype, quirks)
-            tensors = (unit, zw, mesh.vertex_neighbors, *tables, basis)
-            got = kst.next_hop(*tensors)
-            same[f"quirks={quirks}"] = (torch.equal(got, first_call(zw, quirks)())
-                                        and torch.equal(got, kst.plain_next_hop(*tensors)))
-        tables = stream.hop_tables(mesh, dtype)
-        tested = int((tables[0] >= 0).any(dim=1).sum())
-        line = (f"[parent] next_hop<{ctype}>{suffix} (+ a zero frame): next equal to the "
-                f"first design's and the plain version's {same}, {tested} rows with a "
-                f"tested slot, {tables[1].shape[0]} corner rows; device " + turns(
-                    lambda: kst.next_hop(unit, vw, mesh.vertex_neighbors, *tables, basis),
-                    first_call(vw, False)))
-        ok = all(same.values())
-        print(line + f"; on {card}", flush=True)
-        if not ok:
-            raise AssertionError(f"next_hop<{ctype}>{suffix} differs from its first design "
-                                 "or its plain version")
-
-
-def turns_main(parent: Path) -> int:
-    """`chip_smoke.py --turns PARENT`: K6 and K13 against their first
-    designs from the tree PARENT (a `git archive` of the parent commit),
-    at the bench and 12.5k shapes on the refined solve's field."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from manifold_flow_tpu_torch.kernels import analysis as kan
-    from manifold_flow_tpu_torch.kernels import library
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    t0 = time.perf_counter()
-    library()
-    parent_libs = build_parent_analysis(parent)
-    print(f"[build] this tree and the parent's analysis and stream kernels in "
-          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
-    ptxas_report()
-    for builder, suffix in ((build_problem, ""), (build_problem_12k, "@12.5k")):
-        mesh, pot, times = builder(device)[:3]
-        res = solve(mesh, pot, times, method="refined", tol=1e-6, max_iter=4000)
-        v_world, speed, v_max = kan.recombine_speed(res.v_k, mesh.basis)
-        against_parent_analysis(parent_libs, mesh, v_world, speed, v_max, card, suffix)
-    print(card_line())
-    return 0
-
-
 def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
     """The trial's analysis ops on the card against their plain versions on
     the same CUDA tensors, with cfg's quirks and limits: class codes, next
@@ -2534,6 +2334,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--turns":
-        sys.exit(turns_main(Path(sys.argv[2])))
     sys.exit(main())
