@@ -124,7 +124,12 @@ __global__ void recombine_speed_kernel(const T* __restrict__ v_k,
 // The registers are capped for kDetectMinBlocks blocks an SM. Every output
 // element keeps the first design's explicitly rounded operations in their
 // order, so the outputs are bit for bit those of one thread a
-// (frame, element).
+// (frame, element). What holds it back on an H100: the divisions' chains
+// (at 12.5k vertices, about 18 of its 75 us go when they become
+// products), then the corner gathers (12) and the stores (7). A quotient
+// through a reciprocal shared by the frame is as exact where no operand
+// nears the ends of the exponent range, but checking that costs as much
+// as it saves.
 constexpr int kDetectThreads = 128;
 constexpr int kDetectFrames = 4;
 constexpr int kDetectMinBlocks = 6;

@@ -12,10 +12,11 @@
 //   v_world     (T, N, 3)   world velocity vectors
 //   next        (T, N)      int32 frame-local next vertex; a halting vertex
 //                           points to itself
-// Every decision (the argmax over the 1-ring, dmax > 0, the boundary
-// triangle test's per-frame half) is computed with the explicitly rounded operations of
-// common.cuh, in the JAX expression order, so `next` equals the plain torch
-// version's. The C entry points return the cudaError_t of the launches.
+// Every decision (the argmax over the 1-ring, dmax > 0, the per-frame half
+// of the boundary triangle test) is computed with the explicitly rounded
+// operations of common.cuh, in the JAX expression order, so `next` equals
+// the plain torch version's. The C entry points return the cudaError_t of
+// the launches.
 #include <cmath>
 
 #include "common.cuh"
@@ -50,9 +51,10 @@ namespace mf {
 // tangent basis and its three orientation tests against that row's
 // corners; it writes next coalesced. F is 8 where that still gives every
 // SM 4 blocks, else 4; the registers are capped for 5 blocks of 128
-// threads an SM. What holds it back now: the per-frame dot products and
-// compares of every slot (about 24 us at 12.5k with the boundary test left
-// out), then the boundary lanes, which their warps wait for.
+// threads an SM. What holds it back on an H100: the per-frame dot products
+// and compares of every slot (about 24 us at 12.5k vertices with the
+// boundary test left out), then the boundary lanes, which their warps wait
+// for.
 constexpr int kHopThreads = 128;
 constexpr int kHopMinBlocks = 5;
 constexpr int kHopSlots = 6;      // 1-ring slots held in registers
