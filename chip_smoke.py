@@ -27,7 +27,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      field, in float64 and float32: masks, ids, valid flags, counts and
      centers equal, floats to 1e-12 (f64) / 1e-5 (f32) of their largest
      entry; kernel and plain times as in phase 3, and the device time of
-     K7's first launch (its compaction; the second is the snap). Then
+     K7's first launch (its compaction; the second is the snap), and K6's
+     correctly rounded quotients with their separately rounded f64 floor
+     beside its bound. Then
      K12-K15 on the same
      field: K12 (classification, both quirk modes) on K6/K7's candidates and
      K13 (next hops) and K15 (25-ring winding profiles of the detections'

@@ -61,12 +61,15 @@ def next_hop(unit: torch.Tensor, v_world: torch.Tensor, neighbors: torch.Tensor,
     next (4.9 MB), 10.8 us at 3.35 TB/s. Design: everything that does not
     depend on the frame is done once per mesh (`hop_tables`): the shared-
     cell scan of each boundary slot and its triangle's corners on the
-    tangent basis. One thread per (vertex, 4 consecutive frames) loads the
-    vertex's 1-ring ids, rules and unit edges into registers once, then per
-    frame reads its velocity, takes the dot products and their argmax, and
+    tangent basis. One thread per (vertex, 4 or 8 consecutive frames)
+    loads the vertex's 1-ring ids, rules and unit edges into registers
+    once, then per frame reads its velocity, takes the dot products and
+    their argmax, and
     only where the chosen slot's rule names a row of `corners` takes the
     velocity on the tangent basis (two divisions) and three orientation
-    tests. What holds it back now is in PERF.md.
+    tests. What holds it back now: the per-frame dot products and argmax
+    of every slot, then the warps that wait for a boundary lane's test
+    (PERF.md).
     """
     dtype = _float_dtype("v_world", v_world)
     t, n, width = v_world.shape[0], neighbors.shape[0], neighbors.shape[-1]
