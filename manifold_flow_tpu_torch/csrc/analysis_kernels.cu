@@ -114,8 +114,8 @@ __global__ void recombine_speed_kernel(const T* __restrict__ v_k,
 // along x take runs of consecutive triangles, the rest runs of vertices;
 // along y the frames go in groups of kDetectFrames consecutive frames. A
 // triangle thread loads its corner ids and corners and forms the unit
-// normal (a square root, three divisions) once for its group; each frame
-// then gathers the 12 corner values (all loaded before the first
+// normal (a square root, three divisions) once for all its frames; each
+// frame then gathers the 12 corner values (all loaded before the first
 // division), divides them by v_max, solves, and stores the mask byte, the
 // (lam, mu) pair as one vector store and the point's three values. Each
 // thread keeps its hits as bits; after the group, each warp's popcount of a
