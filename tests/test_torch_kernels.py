@@ -690,6 +690,27 @@ def test_next_hop_at_frame_group_edges(cuda, dtype, n_frames):
             assert bool((hops[-1] == ids).all())
 
 
+@pytest.mark.parametrize("n_frames", [7, 8, 9, 17])
+def test_next_hop_at_frame_group_edges_of_eight(cuda, n_frames):
+    """K13 where it takes 8 frames a thread: on a 260 x 260 patch (67600
+    vertices, 529 blocks of 128 for each group of 8 frames, 4 an SM on a
+    132-SM card) around the edges of its groups of 8, random velocities
+    with a last all-zero frame, both quirk modes: next equal to the plain
+    version's."""
+    mesh = synthetic.plane_patch(
+        nx=260, ny=260, lx=60.0, ly=60.0, device=cuda,
+        height=lambda x, y: 6.0 * np.sin(x / 12.0) * np.cos(y / 15.0))
+    gen = np.random.default_rng(n_frames)
+    v = torch.as_tensor(gen.standard_normal((n_frames, mesh.n_vertices, 3)), device=cuda)
+    v[-1] = 0.0
+    for quirks in (False, True):
+        args = (stream.unit_edges(mesh, torch.float64), v, mesh.vertex_neighbors,
+                *stream.hop_tables(mesh, torch.float64, quirks), mesh.basis)
+        hops = _launched("next_hop", torch.float64, lambda: kst.next_hop(*args))
+        assert torch.equal(hops, kst.plain_next_hop(*args))
+        assert bool((hops[-1] == torch.arange(mesh.n_vertices, device=cuda)).all())
+
+
 @pytest.mark.parametrize("spokes", [8, 14])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_next_hop_on_wide_one_rings(cuda, dtype, spokes):
