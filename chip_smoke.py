@@ -35,8 +35,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      K13 (next hops) and K15 (25-ring winding profiles of the detections'
      distinct centers) in float64 and float32, K14 (walk lengths at 256
      steps, the packing of the walks of 20 vertices or more) on the float64
-     graph: codes, hops, lengths, packed ids, ring counts and types equal.
-     Then K16 (wave speeds, phase and amplitude, on the 98-frame movie and
+     graph: codes, hops, lengths, packed ids, ring counts and types equal;
+     K13's plain version, which reads the per-mesh hop tables as the kernel
+     does, also equal to a reference on the raw mesh tables
+     (mesh_next_hop). Then K16 (wave speeds, phase and amplitude, on the 98-frame movie and
      its wrapped phase) and K17 (the system matrix of bench.py:216-217's 64
      electrodes, the evaluation at every vertex, real and phase) in float64
      and float32. K16's speeds: inf and NaN at the same places, elsewhere
@@ -59,8 +61,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      before: every frame converged, each of K1-K7 and K12-K15 launched, the
      artifacts reload equal to the same stages run in memory, and walks,
      class codes and ring counts equal the plain versions' on the same CUDA
-     tensors; then the stages in memory with reference_quirks=True, held to
-     the plain versions too. Prints the streamlines per frame, the share of
+     tensors, and the next hops to mesh_next_hop as well; then the stages in
+     memory with reference_quirks=True, held to the plain versions and
+     mesh_next_hop too. Prints the streamlines per frame, the share of
      walks of 20 vertices or more, the longest walk, the label counts, the
      frames with winding lines and the wall split of the three calls.
   6c. fields: the field stages through the command line on the same surface,
@@ -1024,6 +1027,9 @@ def check_trial_kernels(checks: KernelChecks, mesh, v_world, speed, v_max,
                    tol, nbytes=next_hop_bytes(*nh),
                    ops=5 * t * int((mesh.vertex_neighbors != -1).sum()),
                    launches_key=f"next_hop<{ctype}>")
+    if not torch.equal(kst.plain_next_hop(*nh), mesh_next_hop(mesh, v_world, False)):
+        raise AssertionError(f"next_hop<{ctype}>{suffix}: the plain version on the hop "
+                             "tables differs from the reference on the mesh tables")
     if dtype == torch.float64:  # K14 reads integers only: one instance
         hops = kst.next_hop(*nh)
         checks.compare(f"trace_walks<int>{suffix}", st_cu,
@@ -1091,6 +1097,76 @@ def next_hop_bytes(unit, v_world, neighbors, rules, corners, basis) -> int:
     tested = adv & (rule >= 0)
     return (total + torch.unique(rule[tested]).numel() * 4 * esz
             + torch.unique(torch.nonzero(tested)[:, 1]).numel() * 6 * esz)
+
+
+def mesh_next_hop(mesh, v_world, quirks: bool) -> torch.Tensor:
+    """A check-only reference of K13's function that works from the raw
+    mesh tables (1-ring ids, cell counts, vertex cells, triangles, points,
+    basis) and not from the per-mesh hop tables that the kernel and its
+    plain version share: each boundary vertex's shared-cell scan against
+    its candidate, the shared triangle's corners on the tangent basis (the
+    reference's index arithmetic with `quirks`) and its degenerate test are
+    formed here for every frame, as ops/streamline.py:149-185 does. Each
+    operation is rounded on its own in that order, so `next` is equal."""
+    from manifold_flow_tpu_torch.kernels.analysis import _cross, _dot3
+    from manifold_flow_tpu_torch.ops import streamline as stream
+
+    def cross2(ax, ay, bx, by):
+        return ax * by - ay * bx
+
+    dtype = v_world.dtype
+    t, n = v_world.shape[0], mesh.n_vertices
+    nb = mesh.vertex_neighbors
+    dots = _dot3(stream.unit_edges(mesh, dtype)[None], v_world[:, :, None, :])
+    dots = torch.where(nb != -1, dots, torch.full_like(dots, -torch.inf))
+    idx = dots.argmax(dim=-1, keepdim=True)
+    cand = torch.gather(torch.where(nb != -1, nb, 0).long().expand(t, -1, -1), -1, idx)[..., 0]
+    dmax = torch.gather(dots, -1, idx)[..., 0]
+    ok = (mesh.vertex_cell_count >= 6).expand(t, n).clone()
+    rows = torch.nonzero(mesh.vertex_cell_count < 6)[:, 0]
+    if rows.numel():
+        a = rows.expand(t, -1)                                        # (T, B)
+        cells_a = mesh.vertex_cells[rows].long()[None, :, :, None]
+        cells_b = mesh.vertex_cells[cand[:, rows]].long()[..., None, :]
+        match = ((cells_a == cells_b) & (cells_a != -1) & (cells_b != -1)).any(dim=-1)
+        count = match.sum(dim=-1)
+        first = torch.gather(cells_a[..., 0].expand_as(match), -1,
+                             match.to(torch.uint8).argmax(dim=-1, keepdim=True))[..., 0]
+        t0, t1, t2 = mesh.triangles[first].long().unbind(-1)
+        b = torch.where(t0 == a, t1, torch.where(t1 == a, t0, t1))
+        c = torch.where(t2 == a, t0, t2)
+        basis = mesh.basis.to(dtype)
+        e1, e2 = basis[rows, 0][None], basis[rows, 1][None]
+        nrm = _cross(e1, e2)
+        nn = _dot3(nrm, nrm)
+        pts = mesh.points.to(dtype)
+
+        def on_basis(rel):
+            if quirks:  # vertex indices where coordinates belong
+                proj = rel[..., None] - rel[..., None] * (nrm * nrm) / nn[..., None]
+            else:
+                pos = nn > 0
+                sc = torch.where(pos, _dot3(rel, nrm) / torch.where(pos, nn, torch.ones_like(nn)),
+                                 torch.zeros_like(nn))
+                proj = rel - sc[..., None] * nrm
+            return _dot3(proj, e1), _dot3(proj, e2)
+
+        if quirks:
+            p1, p2 = on_basis((b - a).to(dtype)), on_basis((a - c).to(dtype))
+        else:
+            p1, p2 = on_basis(pts[b] - pts[a]), on_basis(pts[c] - pts[a])
+        orient = cross2(*p1, *p2)
+        ccw = orient >= 0
+        bx, by = torch.where(ccw, p1[0], p2[0]), torch.where(ccw, p1[1], p2[1])
+        cx, cy = torch.where(ccw, p2[0], p1[0]), torch.where(ccw, p2[1], p1[1])
+        vel = v_world[:, rows]
+        vx, vy = _dot3(vel, e1) / _dot3(e1, e1), _dot3(vel, e2) / _dot3(e2, e2)
+        inside = ((cross2(bx, by, vx, vy) > 0)
+                  & (cross2(cx - bx, cy - by, vx - bx, vy - by) > 0)
+                  & (cross2(-cx, -cy, vx - cx, vy - cy) > 0) & (orient != 0))
+        ok[:, rows] = (count >= 2) | (inside & match.any(dim=-1))
+    vertex = torch.arange(n, device=v_world.device)
+    return torch.where((dmax > 0) & ok, cand, vertex).to(torch.int32)
 
 
 N_ELECTRODES = 64     # bench.py:203's field stages: 64 electrodes, 512 Hz
@@ -1258,6 +1334,7 @@ def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
         "vertex codes": torch.equal(classes.vertex_codes, plain[0]),
         "interior codes": torch.equal(classes.interior_codes, plain[2]),
         "next hops": torch.equal(sl.hops, plain_hops),
+        "next hops, mesh tables": torch.equal(plain_hops, mesh_next_hop(mesh, v_world, q)),
         "walk lengths": torch.equal(sl.lengths, plain_len),
         "packed walks": np.array_equal(flat, plain_flat.cpu().numpy()),
         "ring counts": torch.equal(got_w[0], want_w[0]),

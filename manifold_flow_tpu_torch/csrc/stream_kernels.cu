@@ -90,7 +90,7 @@ __device__ __forceinline__ V slot_of(const V (&a)[SLOTS], int d) {
   return out;
 }
 
-template <typename T, int F, int SLOTS>
+template <typename T, int F>
 __global__ void __launch_bounds__(kHopThreads, kHopMinBlocks) next_hop_kernel(
     const T* __restrict__ unit, const T* __restrict__ v_world,
     const int32_t* __restrict__ neighbors, const int32_t* __restrict__ rules,
@@ -99,10 +99,10 @@ __global__ void __launch_bounds__(kHopThreads, kHopMinBlocks) next_hop_kernel(
   const int64_t v = static_cast<int64_t>(blockIdx.x) * kHopThreads + threadIdx.x;
   if (v >= n_vert) return;
   const int64_t row = v * width;
-  int32_t nb[SLOTS], rule[SLOTS];
-  T u[SLOTS][3];
+  int32_t nb[kHopSlots], rule[kHopSlots];
+  T u[kHopSlots][3];
 #pragma unroll
-  for (int d = 0; d < SLOTS; ++d) {
+  for (int d = 0; d < kHopSlots; ++d) {
     const bool in_row = d < width;
     nb[d] = in_row ? neighbors[row + d] : -1;
     rule[d] = in_row ? rules[row + d] : -1;
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(kHopThreads, kHopMinBlocks) next_hop_kernel(
       T best = -INFINITY;
       int best_d = 0;
 #pragma unroll
-      for (int d = 0; d < SLOTS; ++d) {
+      for (int d = 0; d < kHopSlots; ++d) {
         if (d < width) {
           const T val = nb[d] != -1 ? dot3(u[d], vv) : T(-INFINITY);
           if (best == best && !(val <= best)) {  // val NaN or above best
@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(kHopThreads, kHopMinBlocks) next_hop_kernel(
           }
         }
       }
-      for (int64_t d = SLOTS; d < width; ++d) {  // a 1-ring wider than SLOTS
+      for (int64_t d = kHopSlots; d < width; ++d) {  // a 1-ring wider than kHopSlots
         const int32_t id = neighbors[row + d];
         const T val = id != -1 ? dot3(unit + (row + d) * 3, vv) : T(-INFINITY);
         if (best == best && !(val <= best)) {
@@ -140,12 +140,12 @@ __global__ void __launch_bounds__(kHopThreads, kHopMinBlocks) next_hop_kernel(
           best_d = static_cast<int>(d);
         }
       }
-      const bool in_regs = best_d < SLOTS;
-      const int32_t nb_best = in_regs ? slot_of<SLOTS>(nb, best_d) : neighbors[row + best_d];
+      const bool in_regs = best_d < kHopSlots;
+      const int32_t nb_best = in_regs ? slot_of(nb, best_d) : neighbors[row + best_d];
       const int32_t cand = nb_best != -1 ? nb_best : 0;
       bool advance = best > T(0);
       if (advance) {
-        const int32_t r = in_regs ? slot_of<SLOTS>(rule, best_d) : rules[row + best_d];
+        const int32_t r = in_regs ? slot_of(rule, best_d) : rules[row + best_d];
         if (r != kHopAdvance) {
           advance = r >= 0 && points_inside(corners + 4 * static_cast<int64_t>(r),
                                             basis + v * 6, vv);
@@ -164,10 +164,7 @@ cudaError_t launch_next_hop(const void* unit, const void* v_world, const void* n
   const int64_t groups = (n_frames + F - 1) / F;
   const dim3 grid(static_cast<unsigned int>((n_vert + kHopThreads - 1) / kHopThreads),
                   static_cast<unsigned int>(groups < 65535 ? groups : 65535));
-  // A 1-ring of up to kHopSlots slots in registers, else twice that.
-  auto kernel = width <= kHopSlots ? next_hop_kernel<T, F, kHopSlots>
-                                   : next_hop_kernel<T, F, 2 * kHopSlots>;
-  kernel<<<grid, kHopThreads, 0, s>>>(
+  next_hop_kernel<T, F><<<grid, kHopThreads, 0, s>>>(
       static_cast<const T*>(unit), static_cast<const T*>(v_world),
       static_cast<const int32_t*>(neighbors), static_cast<const int32_t*>(rules),
       static_cast<const T*>(corners), static_cast<const T*>(basis),

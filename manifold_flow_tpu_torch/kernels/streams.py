@@ -107,8 +107,8 @@ def hop_tables(points: torch.Tensor, triangles: torch.Tensor, basis: torch.Tenso
     reference's index arithmetic). ops/streamline.py:166-177 compute it
     every frame.
     """
-    rules = torch.full(neighbors.shape, HOP_ADVANCE, dtype=torch.int32,
-                       device=neighbors.device)
+    padded = neighbors == PAD_INDEX
+    rules = torch.where(padded, PAD_INDEX, HOP_ADVANCE).to(torch.int32)
     rows = torch.nonzero(cell_count < 6)[:, 0]
     if rows.numel() == 0:
         return rules, torch.zeros((0, 4), dtype=points.dtype, device=points.device)
@@ -124,7 +124,7 @@ def hop_tables(points: torch.Tensor, triangles: torch.Tensor, basis: torch.Tenso
     rule = torch.where(count >= 2, HOP_ADVANCE, PAD_INDEX)
     rule[b_row, b_slot] = torch.where(solid, torch.arange(a.numel(), device=a.device),
                                       PAD_INDEX)
-    rules[rows] = torch.where(nb != PAD_INDEX, rule, PAD_INDEX).to(torch.int32)
+    rules[rows] = torch.where(padded[rows], PAD_INDEX, rule).to(torch.int32)
     return rules, torch.stack(corner, dim=-1).contiguous()
 
 

@@ -16,6 +16,7 @@ import torch
 from manifold_flow_tpu.geometry import synthetic as jax_synthetic
 from manifold_flow_tpu.ops import streamline as jax_stream
 from manifold_flow_tpu_torch import kernels, mesh_from_jax_arrays
+from manifold_flow_tpu_torch.geometry.mesh import build_mesh
 from manifold_flow_tpu_torch.ops import streamline as stream
 from manifold_flow_tpu_torch.kernels import streams as kst
 from tests.torch_parity import jax_arrays
@@ -101,6 +102,49 @@ def test_hop_tables_hold_the_shared_cells_and_are_cached(problem, quirks, dtype)
     assert stream.hop_tables(tmesh, dtype, quirks)[0] is rules
     assert stream.hop_tables(tmesh, dtype, not quirks)[0] is not rules
     assert rules.dtype == torch.int32 and corners.dtype == dtype
+    solid = _hold_hop_tables(tmesh, dtype, quirks, rules, corners)
+    assert bool(solid.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@QUIRKS
+def test_hop_tables_halt_the_padded_slots_of_interior_rows(quirks, dtype):
+    """On a mesh whose 1-rings differ in width (two fans, of 6 and of 8
+    triangles), the hop rules of an interior vertex with fewer neighbours
+    than the table is wide halt in its padded slots and advance elsewhere;
+    every rule still equals the shared-cell scan."""
+    tmesh = _two_fans()
+    rules, corners = stream.hop_tables(tmesh, dtype, quirks)
+    nb = tmesh.vertex_neighbors
+    assert nb.shape[1] == 8
+    hub = 0  # the 6-triangle fan's hub: interior, 2 padded slots
+    assert int(tmesh.vertex_cell_count[hub]) == 6
+    np.testing.assert_array_equal(rules[hub].numpy(), [kst.HOP_ADVANCE] * 6 + [-1] * 2)
+    _hold_hop_tables(tmesh, dtype, quirks, rules, corners)
+
+
+def _two_fans():
+    """Two disjoint fans on bumped cones, of 6 and of 8 triangles around
+    their hubs (vertices 0 and 7): interior hubs of 6 and 8 neighbours, rim
+    vertices on the boundary with 3."""
+    points, tris = [], []
+    for spokes, shift in ((6, 0.0), (8, 3.0)):
+        ang = 2.0 * np.pi * np.arange(spokes) / spokes
+        rim = np.stack([shift + np.cos(ang), 0.8 * np.sin(ang),
+                        0.3 + 0.1 * np.cos(3.0 * ang)], axis=-1)
+        hub = sum(len(p) for p in points)
+        points.append(np.concatenate([[[shift, 0.0, 0.0]], rim]))
+        k = np.arange(spokes)
+        tris.append(hub + np.stack([np.zeros(spokes, dtype=np.int64), 1 + k,
+                                    1 + (k + 1) % spokes], axis=-1))
+    return build_mesh(np.concatenate(points), np.concatenate(tris),
+                      dtype=np.float64, device="cpu")
+
+
+def _hold_hop_tables(tmesh, dtype, quirks, rules, corners):
+    """Hold the hop rules and corners of `tmesh` to the shared-cell scan of
+    every (vertex, 1-ring slot) and to the corners of each one shared
+    triangle; returns which tested slots' triangles are not degenerate."""
     nb, cells = tmesh.vertex_neighbors, tmesh.vertex_cells.long()
     safe = torch.where(nb != -1, nb, 0).long()
     count, first = kst._shared_cells(cells[:, None, :], cells[safe])
@@ -120,7 +164,7 @@ def test_hop_tables_hold_the_shared_cells_and_are_cached(problem, quirks, dtype)
     np.testing.assert_array_equal((rules == -1).numpy(), (~advance & ~tested).numpy())
     np.testing.assert_array_equal(corners[rules[v, slot][solid].long()].numpy(),
                                   torch.stack(want, -1)[solid].numpy())
-    assert bool(solid.any())
+    return solid
 
 
 @QUIRKS
