@@ -687,12 +687,23 @@ int compact_detected(const void* vertex_mask, const void* interior_mask,
 // Classification of the compacted candidates (ops/singularity.py:279
 // classify_detected, B9): a finite-difference 2x2 Jacobian per candidate
 // (:115 _jacobian_from_neighbors), then the trace/determinant code (:166).
-// Bound on this card: launch latency. At the bench shapes (97 frames, S = 16
-// slots) a call reads a few hundred kB, mostly 1-ring velocities from L2.
-// Design: one thread per (frame, slot), for vertex and for interior
-// candidates; each neighbour's contribution is added in table order with
-// every operation rounded on its own, as the plain version adds them, so
-// the codes equal its codes and the Jacobians its Jacobians.
+// Bound on this card: latency. At the bench shapes (97 frames, S = 16
+// slots of each kind) a call reads a few hundred kB, mostly 1-ring
+// velocities from L2, but each neighbour's term is a chain of about nine
+// correctly rounded f64 divisions, and an interior slot first forms its
+// triangle's normal, a tangent basis and the nearest edge. The first
+// design ran one thread per (frame, slot) in two launches (vertex slots,
+// then interior slots), each thread adding its neighbours one after the
+// other, with 16 of each 256-thread block's lanes at work. Here one launch
+// runs vertex blocks, then interior blocks; a group of kClassifyLanes lanes
+// takes a (frame, slot), one neighbour a lane (a wider 1-ring takes more
+// rounds), and every lane of the group adds the lanes' terms to the
+// Jacobian through shuffles in table order. An interior group forms the
+// plane and the basis in every lane and measures one edge a lane (lane %
+// 3), then takes the argmin in the first design's order from the lanes'
+// values. Every operation is rounded on its own, in the plain version's
+// order, and a masked neighbour adds +0 as before, so the codes and the
+// Jacobians are the plain version's and the first design's bit for bit.
 
 // The tangent plane (e1, e2) with n = e1 x e2 and n.n, as project_to_plane
 // (geometry/tangent.py) forms them for every call.
@@ -720,13 +731,13 @@ __device__ __forceinline__ void project_plane(const T* v, const Plane<T>& p, T* 
   for (int d = 0; d < 3; ++d) out[d] = rn_sub(v[d], rn_mul(s, p.n[d]));
 }
 
-// J += [[u/d1, u/d2], [w/d1, w/d2]] for one neighbour: (u, w) its projected
+// One neighbour's term [[u/d1, u/d2], [w/d1, w/d2]]: (u, w) its projected
 // velocity on (e1, e2), (d1, d2) its projected offset from `origin`, a zero
-// offset contributing 0; a masked neighbour adds zeros.
+// offset contributing 0; a masked neighbour's term is +0.
 template <typename T>
-__device__ __forceinline__ void jacobian_add(const T* origin, const T* nb_point,
-                                             const T* nb_vel, bool mask,
-                                             const Plane<T>& p, T* jac) {
+__device__ __forceinline__ void jacobian_term(const T* origin, const T* nb_point,
+                                              const T* nb_vel, bool mask,
+                                              const Plane<T>& p, T* term) {
   T vp[3], diff[3], proj[3];
   project_plane(nb_vel, p, vp);
   const T u = rn_div(dot3(vp, p.e1), dot3(p.e1, p.e1));
@@ -738,9 +749,26 @@ __device__ __forceinline__ void jacobian_add(const T* origin, const T* nb_point,
   const T d2 = dot3(proj, p.e2);
   const T i1 = d1 != T(0) ? rn_div(T(1), d1) : T(0);
   const T i2 = d2 != T(0) ? rn_div(T(1), d2) : T(0);
-  const T c[4] = {rn_mul(u, i1), rn_mul(u, i2), rn_mul(w, i1), rn_mul(w, i2)};
+  term[0] = mask ? rn_mul(u, i1) : T(0);
+  term[1] = mask ? rn_mul(u, i2) : T(0);
+  term[2] = mask ? rn_mul(w, i1) : T(0);
+  term[3] = mask ? rn_mul(w, i2) : T(0);
+}
+
+constexpr int kClassifyLanes = 8;     // lanes a (frame, slot)
+constexpr int kClassifyThreads = 128;  // 16 slots a block; 32-256 ran alike
+
+// The group's terms of lanes 0..n-1 added to jac in lane order, the same
+// sums in every lane of the group (`group`: its lanes' bits in the warp).
+template <typename T>
+__device__ __forceinline__ void add_terms(const T* term, int n, unsigned int group,
+                                          T* jac) {
+  for (int k = 0; k < n; ++k) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) jac[k] = rn_add(jac[k], mask ? c[k] : T(0));
+    for (int q = 0; q < 4; ++q) {
+      jac[q] = rn_add(jac[q], __shfl_sync(group, term[q], k, kClassifyLanes));
+    }
+  }
 }
 
 // NODE 0, FOCUS 1, SADDLE 2, INDETERMINATE 3 (ops/singularity.py:166).
@@ -795,28 +823,41 @@ __device__ __forceinline__ void edge_cross(const T* q, const T* a, const T* b, T
 // The edge (0: AB, 1: BC, 2: CA) whose neighbour triangle joins the
 // interior point's set (ops/singularity.py:133 _nearest_edge): the argmin of
 // the three distances, or in quirk mode the argmin over all nine
-// |component| values mapped {0: AB, 1: BC, else: CA}.
+// |component| values mapped {0: AB, 1: BC, else: CA}. Lane e (mod 3) of the
+// group measures edge e; every lane then takes the argmin over the values
+// of lanes 0-2 in the order (edge, component).
 template <typename T>
-__device__ __forceinline__ int nearest_edge(const T* q, T (*p)[3], bool quirks) {
+__device__ __forceinline__ int nearest_edge(const T* q, T (*p)[3], bool quirks, int lane,
+                                            unsigned int group) {
+  const int e = lane % 3;
+  T a[3], b[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    a[d] = e == 0 ? p[0][d] : (e == 1 ? p[1][d] : p[2][d]);
+    b[d] = e == 0 ? p[1][d] : (e == 1 ? p[2][d] : p[0][d]);
+  }
+  T c[3], den, v[3] = {T(0), T(0), T(0)};
+  edge_cross(q, a, b, c, den);
+  if (quirks) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] = fabs(rn_div(c[k], den));
+  } else {
+    v[0] = rn_div(rn_sqrt(dot3(c, c)), den);
+  }
   T best = T(0);
   int best_i = -1;
-  for (int e = 0; e < 3; ++e) {
-    T c[3], den;
-    edge_cross(q, p[e], p[(e + 1) % 3], c, den);
-    if (quirks) {
+  const int per_edge = quirks ? 3 : 1;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const T v = fabs(rn_div(c[k], den));
-        if (argmin_before(v, 3 * e + k, best, best_i)) {
-          best = v;
-          best_i = 3 * e + k;
+  for (int src = 0; src < 3; ++src) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k < per_edge) {
+        const T x = __shfl_sync(group, v[k], src, kClassifyLanes);
+        const int i = per_edge * src + k;
+        if (argmin_before(x, i, best, best_i)) {
+          best = x;
+          best_i = i;
         }
-      }
-    } else {
-      const T v = rn_div(rn_sqrt(dot3(c, c)), den);
-      if (argmin_before(v, e, best, best_i)) {
-        best = v;
-        best_i = e;
       }
     }
   }
@@ -828,103 +869,141 @@ template <typename T>
 __device__ __forceinline__ void store_class(const T* jac, int64_t slot,
                                             int32_t* __restrict__ codes,
                                             T* __restrict__ jac_out) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) jac_out[slot * 4 + k] = jac[k];
+  store4(jac_out + slot * 4, jac);
   codes[slot] = classify_code(jac);
 }
 
-// Vertex candidates: the 1-ring of the vertex, on the vertex's basis.
+// Vertex slot `item` (frame * cap + slot): the 1-ring of the vertex, on the
+// vertex's basis, neighbour d in lane d % kClassifyLanes.
 template <typename T>
-__global__ void classify_vertex_kernel(
-    const T* __restrict__ points, const T* __restrict__ basis,
-    const int32_t* __restrict__ neighbors, const T* __restrict__ v_world,
-    const T* __restrict__ v_max, const int32_t* __restrict__ ids,
-    const uint8_t* __restrict__ valid, int32_t* __restrict__ codes,
-    T* __restrict__ jac_out, int64_t n_frames, int64_t n_vert, int64_t width,
-    int64_t cap) {
-  const int64_t s = global_index();
-  if (s >= cap) return;
-  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
-    const int64_t slot = t * cap + s;
-    const int64_t id = ids[slot];
-    const bool ok = valid[slot] != 0;
-    Plane<T> p;
-    make_plane(basis + id * 6, basis + id * 6 + 3, p);
-    const T vmax = v_max[t];
-    T jac[4] = {T(0), T(0), T(0), T(0)};
-    for (int64_t d = 0; d < width; ++d) {
+__device__ __forceinline__ void classify_vertex_slot(
+    int64_t item, int lane, unsigned int group, const T* __restrict__ points,
+    const T* __restrict__ basis, const int32_t* __restrict__ neighbors,
+    const T* __restrict__ v_world, const T* __restrict__ v_max,
+    const int32_t* __restrict__ ids, const uint8_t* __restrict__ valid,
+    int32_t* __restrict__ codes, T* __restrict__ jac_out, int64_t n_vert,
+    int64_t width, int64_t cap) {
+  const int64_t t = item / cap;
+  const int64_t id = ids[item];
+  const bool ok = valid[item] != 0;
+  Plane<T> p;
+  make_plane(basis + id * 6, basis + id * 6 + 3, p);
+  const T vmax = v_max[t];
+  T jac[4] = {T(0), T(0), T(0), T(0)};
+  for (int64_t d0 = 0; d0 < width; d0 += kClassifyLanes) {
+    const int64_t d = d0 + lane;
+    T term[4] = {T(0), T(0), T(0), T(0)};
+    if (d < width) {
       const int32_t nb = neighbors[id * width + d];
       const bool mask = ok && nb != -1;
       const int64_t src = mask ? nb : 0;
       T vel[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) vel[k] = rn_div(v_world[(t * n_vert + src) * 3 + k], vmax);
-      jacobian_add(points + id * 3, points + src * 3, vel, mask, p, jac);
+      jacobian_term(points + id * 3, points + src * 3, vel, mask, p, term);
     }
-    store_class(jac, slot, codes, jac_out);
+    const int64_t left = width - d0;
+    add_terms(term, left < kClassifyLanes ? static_cast<int>(left) : kClassifyLanes,
+              group, jac);
   }
+  if (lane == 0) store_class(jac, item, codes, jac_out);
 }
 
-// Interior candidates: the triangle's corners and those of the triangle
-// across the nearest edge (itself on a boundary edge), each vertex once, on
-// the basis of the flat triangle normal, about the interior point.
+// Interior slot `item`: the triangle's corners (lanes 0-2) and those of the
+// triangle across the nearest edge (lanes 3-5; itself on a boundary edge),
+// each vertex once, on the basis of the flat triangle normal, about the
+// interior point.
 template <typename T>
-__global__ void classify_interior_kernel(
-    const T* __restrict__ points, const int32_t* __restrict__ tris,
+__device__ __forceinline__ void classify_interior_slot(
+    int64_t item, int lane, unsigned int group, const T* __restrict__ points,
+    const int32_t* __restrict__ tris, const int32_t* __restrict__ across,
+    const T* __restrict__ v_world, const T* __restrict__ v_max,
+    const int32_t* __restrict__ ids, const uint8_t* __restrict__ valid,
+    const T* __restrict__ interior_points, int32_t* __restrict__ codes,
+    T* __restrict__ jac_out, int64_t n_vert, int64_t cap, bool quirks) {
+  const int64_t t = item / cap;
+  const int64_t id = ids[item];
+  const bool ok = valid[item] != 0;
+  T p[3][3], q[3];
+  int32_t nb[6];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    nb[c] = tris[id * 3 + c];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[c][d] = points[static_cast<int64_t>(nb[c]) * 3 + d];
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) q[d] = interior_points[item * 3 + d];
+  T u[3], w[3], nrm[3], e1[3], e2[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    u[d] = rn_sub(p[1][d], p[0][d]);
+    w[d] = rn_sub(p[2][d], p[0][d]);
+  }
+  cross3(u, w, nrm);
+  const T nl = rn_sqrt(dot3(nrm, nrm));
+  const T den = nl > T(0) ? nl : T(1);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) nrm[d] = rn_div(nrm[d], den);
+  tangent_basis(nrm, e1, e2);
+  const int edge = nearest_edge(q, p, quirks, lane, group);
+  int64_t other = across[id * 3 + edge];
+  if (other < 0) other = id;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) nb[3 + c] = tris[other * 3 + c];
+  Plane<T> pl;
+  make_plane(e1, e2, pl);
+  const T vmax = v_max[t];
+  T term[4] = {T(0), T(0), T(0), T(0)};
+  if (lane < 6) {
+    int32_t mine = nb[0];
+#pragma unroll
+    for (int j = 1; j < 6; ++j) mine = lane == j ? nb[j] : mine;
+    bool first = true;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) first = first && !(j < lane && nb[j] == mine);
+    const int64_t src = mine;
+    T vel[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) vel[k] = rn_div(v_world[(t * n_vert + src) * 3 + k], vmax);
+    jacobian_term(q, points + src * 3, vel, first && ok, pl, term);
+  }
+  T jac[4] = {T(0), T(0), T(0), T(0)};
+  add_terms(term, 6, group, jac);
+  if (lane == 0) store_class(jac, item, codes, jac_out);
+}
+
+// One launch: the first vertex_blocks blocks take the vertex slots, the
+// rest the interior slots, kClassifyThreads / kClassifyLanes slots a block.
+template <typename T>
+__global__ void __launch_bounds__(kClassifyThreads) classify_candidates_kernel(
+    const T* __restrict__ points, const T* __restrict__ basis,
+    const int32_t* __restrict__ neighbors, const int32_t* __restrict__ tris,
     const int32_t* __restrict__ across, const T* __restrict__ v_world,
-    const T* __restrict__ v_max, const int32_t* __restrict__ ids,
-    const uint8_t* __restrict__ valid, const T* __restrict__ interior_points,
-    int32_t* __restrict__ codes, T* __restrict__ jac_out, int64_t n_frames,
-    int64_t n_vert, int64_t cap, bool quirks) {
-  const int64_t s = global_index();
-  if (s >= cap) return;
-  for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
-    const int64_t slot = t * cap + s;
-    const int64_t id = ids[slot];
-    const bool ok = valid[slot] != 0;
-    T p[3][3], q[3];
-    int32_t nb[6];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      nb[c] = tris[id * 3 + c];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) p[c][d] = points[static_cast<int64_t>(nb[c]) * 3 + d];
-    }
-#pragma unroll
-    for (int d = 0; d < 3; ++d) q[d] = interior_points[slot * 3 + d];
-    T u[3], w[3], nrm[3], e1[3], e2[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      u[d] = rn_sub(p[1][d], p[0][d]);
-      w[d] = rn_sub(p[2][d], p[0][d]);
-    }
-    cross3(u, w, nrm);
-    const T nl = rn_sqrt(dot3(nrm, nrm));
-    const T den = nl > T(0) ? nl : T(1);
-#pragma unroll
-    for (int d = 0; d < 3; ++d) nrm[d] = rn_div(nrm[d], den);
-    tangent_basis(nrm, e1, e2);
-    const int edge = nearest_edge(q, p, quirks);
-    int64_t other = across[id * 3 + edge];
-    if (other < 0) other = id;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) nb[3 + c] = tris[other * 3 + c];
-    Plane<T> pl;
-    make_plane(e1, e2, pl);
-    const T vmax = v_max[t];
-    T jac[4] = {T(0), T(0), T(0), T(0)};
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      bool first = true;
-#pragma unroll
-      for (int j = 0; j < i; ++j) first = first && nb[j] != nb[i];
-      const int64_t src = nb[i];
-      T vel[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) vel[k] = rn_div(v_world[(t * n_vert + src) * 3 + k], vmax);
-      jacobian_add(q, points + src * 3, vel, first && ok, pl, jac);
-    }
-    store_class(jac, slot, codes, jac_out);
+    const T* __restrict__ v_max, const int32_t* __restrict__ vertex_ids,
+    const uint8_t* __restrict__ vertex_valid, const int32_t* __restrict__ interior_ids,
+    const uint8_t* __restrict__ interior_valid, const T* __restrict__ interior_points,
+    int32_t* __restrict__ vertex_codes, T* __restrict__ vertex_jac,
+    int32_t* __restrict__ interior_codes, T* __restrict__ interior_jac,
+    int64_t n_frames, int64_t n_vert, int64_t width, int64_t cap_v, int64_t cap_i,
+    bool quirks, int64_t vertex_blocks) {
+  constexpr int kGroups = kClassifyThreads / kClassifyLanes;
+  const int lane = threadIdx.x % kClassifyLanes;
+  const unsigned int group = 0xffu << (threadIdx.x & 24);
+  const int64_t slot = threadIdx.x / kClassifyLanes;
+  const int64_t b = blockIdx.x;
+  if (b < vertex_blocks) {
+    const int64_t item = b * kGroups + slot;
+    if (item >= n_frames * cap_v) return;  // the group's lanes leave together
+    classify_vertex_slot(item, lane, group, points, basis, neighbors, v_world, v_max,
+                         vertex_ids, vertex_valid, vertex_codes, vertex_jac, n_vert,
+                         width, cap_v);
+  } else {
+    const int64_t item = (b - vertex_blocks) * kGroups + slot;
+    if (item >= n_frames * cap_i) return;
+    classify_interior_slot(item, lane, group, points, tris, across, v_world, v_max,
+                           interior_ids, interior_valid, interior_points,
+                           interior_codes, interior_jac, n_vert, cap_i, quirks);
   }
 }
 
@@ -938,25 +1017,23 @@ int classify_candidates(const void* points, const void* basis, const void* neigh
                         void* interior_jac, int64_t n_frames, int64_t n_vert,
                         int64_t width, int64_t cap_v, int64_t cap_i, int64_t quirks,
                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_frames > 0 && cap_v > 0) {
-    const dim3 grid(blocks_for(cap_v), frame_blocks(n_frames));
-    classify_vertex_kernel<T><<<grid, kThreads, 0, s>>>(
+  constexpr int kGroups = kClassifyThreads / kClassifyLanes;
+  const int64_t vertex_blocks =
+      n_frames > 0 ? (n_frames * cap_v + kGroups - 1) / kGroups : 0;
+  const int64_t interior_blocks =
+      n_frames > 0 ? (n_frames * cap_i + kGroups - 1) / kGroups : 0;
+  if (vertex_blocks + interior_blocks > 0) {
+    classify_candidates_kernel<T><<<static_cast<unsigned int>(vertex_blocks + interior_blocks),
+                                    kClassifyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(points), static_cast<const T*>(basis),
-        static_cast<const int32_t*>(neighbors), static_cast<const T*>(v_world),
-        static_cast<const T*>(v_max), static_cast<const int32_t*>(vertex_ids),
-        static_cast<const uint8_t*>(vertex_valid), static_cast<int32_t*>(vertex_codes),
-        static_cast<T*>(vertex_jac), n_frames, n_vert, width, cap_v);
-  }
-  if (n_frames > 0 && cap_i > 0) {
-    const dim3 grid(blocks_for(cap_i), frame_blocks(n_frames));
-    classify_interior_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(points), static_cast<const int32_t*>(tris),
+        static_cast<const int32_t*>(neighbors), static_cast<const int32_t*>(tris),
         static_cast<const int32_t*>(across), static_cast<const T*>(v_world),
-        static_cast<const T*>(v_max), static_cast<const int32_t*>(interior_ids),
-        static_cast<const uint8_t*>(interior_valid),
-        static_cast<const T*>(interior_points), static_cast<int32_t*>(interior_codes),
-        static_cast<T*>(interior_jac), n_frames, n_vert, cap_i, quirks != 0);
+        static_cast<const T*>(v_max), static_cast<const int32_t*>(vertex_ids),
+        static_cast<const uint8_t*>(vertex_valid), static_cast<const int32_t*>(interior_ids),
+        static_cast<const uint8_t*>(interior_valid), static_cast<const T*>(interior_points),
+        static_cast<int32_t*>(vertex_codes), static_cast<T*>(vertex_jac),
+        static_cast<int32_t*>(interior_codes), static_cast<T*>(interior_jac), n_frames,
+        n_vert, width, cap_v, cap_i, quirks != 0, vertex_blocks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -93,6 +93,16 @@ __device__ __forceinline__ double2 pack(const double* o) {
   return make_double2(o[0], o[1]);
 }
 
+// o[0..4) to p, which is 16-byte aligned (a row of 4 values in a tensor the
+// wrapper allocated): one float4, or two double2.
+__device__ __forceinline__ void store4(float* p, const float* o) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double* o) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(o[0], o[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(o[2], o[3]);
+}
+
 // acc + <a, b> for one element or one 16-byte vector, in component order.
 __device__ __forceinline__ float dot_acc(float a, float b, float acc) {
   return fmaf(a, b, acc);

@@ -181,50 +181,92 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2)
   }
 }
 
-// K2: one thread per (frame, vertex) sums lambda * reg + g g^T * A/6 over the
-// vertex's incident corners (fem/assembly.py:134-178), then writes the
-// closed-form inverse of the 2x2 block; singular blocks become the identity
-// (fem/operator.py:119-129).
+// K2: the inverted 2x2 diagonal blocks of A = a1_k + lambda a2
+// (fem/assembly.py:134-178, fem/operator.py:119-129). A (frame, vertex)
+// block sums lambda * reg + g g^T * A/6 over the vertex's incident corners
+// in gather_base's order, then takes the closed-form inverse; a singular
+// block becomes the identity.
+//
+// Bound by its bytes: g (14.1 MB in float32 at the bench shapes, 57.4 MB
+// at 12.5k, past the 50 MB L2) read once through the vertex table, and the
+// blocks written once. The first design gave each thread one (frame,
+// vertex) and redid the frame-independent work for each of the 97 frames:
+// the table entry, its corner and cell, the area's quotient by 6, the four
+// reg entries and their products with lambda. Here a thread takes a vertex
+// and kJacobiFrames consecutive frames: it forms each table entry's
+// corner, A/6 and lambda * reg once for them, issues their g loads before
+// their sums, and writes each block as one 16-byte store in float32 (two
+// in float64). Every value is the first design's expression with the
+// contraction nvcc gave it there (its SASS), written out:
+// d += fma(g_a g_b, A/6, lambda * reg), det = fma(d3, d0, -(d2 d1)), and
+// four quotients by det, so the blocks are the first design's bit for
+// bit. On the H100, 4 frames in 128-thread blocks beat 1, 2 and 8 frames,
+// blocks of 64 and 256, capped registers (spills), two entries at a time
+// and pair loads of g and reg.
+constexpr int kJacobiThreads = 128;
+constexpr int kJacobiFrames = 4;
+
 template <typename T>
-__global__ void jacobi_kernel(const T* __restrict__ g,
-                              const T* __restrict__ reg,
-                              const T* __restrict__ areas, T lambda,
-                              const int32_t* __restrict__ gather_base,
-                              T* __restrict__ dinv, int64_t n_frames,
-                              int64_t n_tri, int64_t n_vert, int64_t n_cols) {
-  const int64_t i = global_index();
-  if (i >= n_frames * n_vert) return;
-  const int64_t t = i / n_vert;
-  const int64_t v = i - t * n_vert;
-  const int64_t n_local = 6 * n_tri;
+__global__ void __launch_bounds__(kJacobiThreads) jacobi_kernel(
+    const T* __restrict__ g, const T* __restrict__ reg, const T* __restrict__ areas,
+    T lambda, const int32_t* __restrict__ gather_base, T* __restrict__ dinv,
+    int64_t n_frames, int64_t n_tri, int64_t n_vert, int64_t n_cols) {
+  constexpr int F = kJacobiFrames;
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kJacobiThreads + threadIdx.x;
+  if (v >= n_vert) return;
+  const int64_t n_local = 6 * n_tri;  // a frame of g; padded entries hold it
   const int32_t* row = gather_base + v * n_cols;
-  const T* gt = g + t * n_tri * 6;
-  T d0 = T(0), d1 = T(0), d2 = T(0), d3 = T(0);
-  for (int64_t c = 0; c < n_cols; ++c) {
-    const int32_t base = row[c];
-    if (base < 0 || base >= n_local) continue;  // padded entry
-    const int64_t corner = base >> 1;  // cell * 3 + slot
-    const T a6 = areas[corner / 3] / T(6);
-    const T g0 = gt[corner * 2];
-    const T g1 = gt[corner * 2 + 1];
-    const T* rc = reg + corner * 4;
-    d0 += lambda * rc[0] + (g0 * g0) * a6;
-    d1 += lambda * rc[1] + (g0 * g1) * a6;
-    d2 += lambda * rc[2] + (g1 * g0) * a6;
-    d3 += lambda * rc[3] + (g1 * g1) * a6;
-  }
-  const T det = d0 * d3 - d1 * d2;
-  T* o = dinv + i * 4;
-  if (det > T(0) || det < T(0)) {
-    o[0] = d3 / det;
-    o[1] = -d1 / det;
-    o[2] = -d2 / det;
-    o[3] = d0 / det;
-  } else {
-    o[0] = T(1);
-    o[1] = T(0);
-    o[2] = T(0);
-    o[3] = T(1);
+  for (int64_t t0 = static_cast<int64_t>(blockIdx.y) * F; t0 < n_frames;
+       t0 += static_cast<int64_t>(gridDim.y) * F) {
+    const int64_t left = n_frames - t0;
+    const int nf = left < F ? static_cast<int>(left) : F;
+    const T* gt = g + t0 * n_local;
+    T d[F][4];
+#pragma unroll
+    for (int f = 0; f < F; ++f) d[f][0] = d[f][1] = d[f][2] = d[f][3] = T(0);
+    for (int64_t c = 0; c < n_cols; ++c) {
+      const int32_t base = row[c];
+      if (base < 0 || base >= n_local) continue;  // padded entry
+      const int32_t corner = base >> 1;            // cell * 3 + slot
+      const T a6 = areas[corner / 3] / T(6);
+      const T* rc = reg + static_cast<int64_t>(corner) * 4;
+      T lr[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) lr[k] = rn_mul(lambda, rc[k]);
+      T g0[F], g1[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        if (f < nf) {
+          const T* gc = gt + f * n_local + 2 * static_cast<int64_t>(corner);
+          g0[f] = gc[0];
+          g1[f] = gc[1];
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        if (f < nf) {
+          const T p01 = rn_mul(g0[f], g1[f]);
+          d[f][0] = rn_add(d[f][0], rn_fma(rn_mul(g0[f], g0[f]), a6, lr[0]));
+          d[f][1] = rn_add(d[f][1], rn_fma(p01, a6, lr[1]));
+          d[f][2] = rn_add(d[f][2], rn_fma(p01, a6, lr[2]));
+          d[f][3] = rn_add(d[f][3], rn_fma(rn_mul(g1[f], g1[f]), a6, lr[3]));
+        }
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      if (f < nf) {
+        const T det = rn_fma(d[f][3], d[f][0], -rn_mul(d[f][2], d[f][1]));
+        T o[4] = {T(1), T(0), T(0), T(1)};
+        if (det > T(0) || det < T(0)) {
+          o[0] = rn_div(d[f][3], det);
+          o[1] = rn_div(-d[f][1], det);
+          o[2] = rn_div(-d[f][2], det);
+          o[3] = rn_div(d[f][0], det);
+        }
+        store4(dinv + ((t0 + f) * n_vert + v) * 4, o);
+      }
+    }
   }
 }
 
@@ -425,18 +467,16 @@ int fem_matvec(const void* x, const void* cell_dof, const void* tile_blocks2,
 }
 
 template <typename T>
-int jacobi_blocks(const void* g, const void* reg, const void* areas,
-                  double lambda, const void* gather_base, void* dinv,
-                  int64_t n_frames, int64_t n_tri, int64_t n_vert,
-                  int64_t n_cols, void* stream) {
-  const int64_t n = n_frames * n_vert;
-  if (n > 0) {
-    jacobi_kernel<T><<<blocks_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(g), static_cast<const T*>(reg),
-        static_cast<const T*>(areas), static_cast<T>(lambda),
-        static_cast<const int32_t*>(gather_base), static_cast<T*>(dinv),
-        n_frames, n_tri, n_vert, n_cols);
+int jacobi_blocks(const void* g, const void* reg, const void* areas, double lambda,
+                  const void* gather_base, void* dinv, int64_t n_frames, int64_t n_tri,
+                  int64_t n_vert, int64_t n_cols, void* stream) {
+  if (n_frames > 0 && n_vert > 0) {
+    const dim3 grid(static_cast<unsigned int>((n_vert + kJacobiThreads - 1) / kJacobiThreads),
+                    frame_blocks((n_frames + kJacobiFrames - 1) / kJacobiFrames));
+    jacobi_kernel<T><<<grid, kJacobiThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(g), static_cast<const T*>(reg), static_cast<const T*>(areas),
+        static_cast<T>(lambda), static_cast<const int32_t*>(gather_base),
+        static_cast<T*>(dinv), n_frames, n_tri, n_vert, n_cols);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,12 +15,12 @@ import dataclasses
 import torch
 
 from manifold_flow_tpu_torch.fem import assembly
-from manifold_flow_tpu_torch.geometry.mesh import TriMesh
+from manifold_flow_tpu_torch.geometry.mesh import TriMesh, mesh_cached
 from manifold_flow_tpu_torch.kernels import fem as kfem
 # The 2x2 block helpers live beside the kernels whose plain versions use them.
 from manifold_flow_tpu_torch.kernels.fem import apply_block_diag, invert_2x2_blocks
 
-__all__ = ["FlowOperator", "make_operator", "block_jacobi_inverse",
+__all__ = ["FlowOperator", "make_operator", "block_jacobi_inverse", "jacobi_inputs",
            "invert_2x2_blocks", "apply_block_diag"]
 
 
@@ -96,11 +96,21 @@ def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperato
     )
 
 
+def jacobi_inputs(mesh: TriMesh, dtype: torch.dtype) -> tuple:
+    """The `jacobi_blocks` kernel's per-mesh inputs in `dtype`: reg (M, 3, 2,
+    2) (`assembly.corner_regularization`), areas (M,) and gather_base (N, C)
+    int32, built once per mesh and dtype (`mesh_cached`, pinned on the mesh
+    tensors they are computed from)."""
+    return mesh_cached(
+        (mesh.triangles, mesh.basis, mesh.grad_w, mesh.areas, mesh.vertex_cells,
+         mesh.vertex_cell_slot), ("jacobi_inputs", dtype),
+        lambda: (assembly.corner_regularization(mesh, dtype).contiguous(),
+                 mesh.areas.to(dtype).contiguous(), assembly.gather_base_table(mesh)))
+
+
 def block_jacobi_inverse(mesh: TriMesh, g: torch.Tensor,
                          lambda_: float) -> torch.Tensor:
     """Inverted per-vertex 2x2 diagonal blocks (T, N, 2, 2) of A, in g's dtype
     (the `jacobi_blocks` kernel on CUDA tensors)."""
-    return kfem.jacobi_blocks(g.contiguous(),
-                              assembly.corner_regularization(mesh, g.dtype).contiguous(),
-                              mesh.areas.to(g.dtype), lambda_,
-                              assembly.gather_base_table(mesh))
+    reg, areas, gather_base = jacobi_inputs(mesh, g.dtype)
+    return kfem.jacobi_blocks(g.contiguous(), reg, areas, lambda_, gather_base)

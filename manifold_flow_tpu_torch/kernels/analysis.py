@@ -14,9 +14,10 @@ counts, compacted ids and snapped centers are equal, not merely close.
 
 Shapes below are given at the bench problem (T=97 frames, N=3136 vertices,
 M=6050 triangles, S the compaction capacity, a multiple of 8), unless they
-say otherwise. K5, K6 and K12 are bound by memory traffic at a few flops per
+say otherwise. K5 and K6 are bound by memory traffic at a few flops per
 byte, far below what the H100 can feed, K7 by its snap's float64
-arithmetic; the whole working set fits in the 50 MB L2.
+arithmetic, K12 by the latency of its chains of divisions; the whole
+working set fits in the 50 MB L2.
 """
 
 from __future__ import annotations
@@ -365,11 +366,15 @@ def classify_candidates(points: torch.Tensor, basis: torch.Tensor,
     zero Jacobian and INDETERMINATE.
 
     Replaces ops/singularity.py:279 `classify_detected` with :115, :133 and
-    :166 (B9). Bound by launch latency: at the bench shapes (T=97, S=16) it
-    reads a few hundred kB, the 1-ring velocities mostly from L2. Design:
-    one thread per (frame, slot), a vertex kernel and an interior kernel in
-    one call; every operation is rounded on its own, in this module's
-    plain-version order, so codes equal the plain version's.
+    :166 (B9). Bound by latency: at the bench shapes (T=97, S=16) it reads
+    a few hundred kB, the 1-ring velocities mostly from L2, but each
+    neighbour's term is a chain of about nine correctly rounded divisions.
+    Design: one launch, vertex blocks then interior blocks; 8 lanes a
+    (frame, slot), one neighbour a lane, the lanes' terms added in table
+    order through shuffles; an interior slot's lanes measure one edge each
+    for the nearest edge. Every operation is rounded on its own, in this
+    module's plain-version order, so codes and Jacobians equal the plain
+    version's bit for bit.
     """
     dtype = _float_dtype("v_world", v_world)
     t, n = v_world.shape[0], points.shape[0]

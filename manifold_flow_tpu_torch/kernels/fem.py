@@ -166,9 +166,12 @@ def jacobi_blocks(g: torch.Tensor, reg: torch.Tensor, areas: torch.Tensor,
     and fem/operator.py:113 `block_jacobi_inverse` + :119 `invert_2x2_blocks`
     (B3). Bound by memory traffic, ~19 MB in f32 at the bench shapes: g
     (14.1 MB, read through the vertex table), reg (0.3 MB) and the inverse
-    blocks (4.9 MB). Design: one thread per (frame, vertex) sums its incident
-    corners in table order and writes the closed-form inverse, so the
-    (T, M, 3, 2, 2) per-corner contributions are never stored.
+    blocks (4.9 MB); 78 MB at 12.5k, where g alone (57.4 MB) exceeds the
+    50 MB L2. Design: a thread takes a vertex and 4 consecutive frames,
+    reads each incident corner's table entry, A/6 and reg once for them,
+    sums the corners in table order and writes each closed-form inverse as
+    one 16-byte store (two in f64), so the (T, M, 3, 2, 2) per-corner
+    contributions are never stored.
     """
     dtype = _float_dtype("g", g)
     t, m = g.shape[0], g.shape[1]

@@ -112,6 +112,49 @@ def test_jacobi_blocks_match_jax(jmesh, port_mesh, systems, dtype):  # noqa: F81
     assert rel_err(got_inv.numpy(), want_inv) <= tol
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_jacobi_blocks_of_singular_frames_match_jax(jmesh, port_mesh, systems, dtype):  # noqa: F811
+    """The plain jacobi_blocks at lambda = 0 with a constant frame appended (its
+    a1 factors g are zero): every block of that frame is singular and both
+    packages give the identity; the other frames' blocks, g g^T A/6 alone,
+    agree with JAX's to the file's tolerance."""
+    jop = systems[0]
+    g = np.asarray(jop.g).astype(dtype)
+    g = np.concatenate([g, np.zeros_like(g[:1])])
+    want = np.asarray(jax_operator.block_jacobi_inverse(jmesh, jnp.asarray(g),
+                                                        np.asarray(0.0, dtype=dtype)))
+    reg, areas, base = operator.jacobi_inputs(port_mesh, getattr(torch, dtype))
+    got = kfem.jacobi_blocks(torch.from_numpy(g), reg, areas, 0.0, base)
+    assert got.dtype == getattr(torch, dtype)
+    eye = np.broadcast_to(np.eye(2, dtype=dtype), want[-1].shape)
+    np.testing.assert_array_equal(want[-1], eye)
+    np.testing.assert_array_equal(got[-1].numpy(), eye)
+    assert rel_err(got[:-1].numpy(), want[:-1]) <= (F64 if dtype == "float64" else F32)
+
+
+def test_jacobi_inputs_are_cached_per_mesh_and_dtype(port_mesh):
+    """block_jacobi_inverse's per-mesh inputs are built once per mesh and
+    dtype: a second call returns the same tensors, another dtype or a mesh
+    with moved points gets its own, each equal to a fresh build."""
+    from manifold_flow_tpu_torch.geometry.mesh import build_mesh
+
+    moved = build_mesh(port_mesh.points.numpy() * 1.5, port_mesh.triangles.numpy(),
+                       device="cpu")
+    built = {}
+    for mesh in (port_mesh, moved):
+        for dtype in (torch.float64, torch.float32):
+            first = operator.jacobi_inputs(mesh, dtype)
+            assert all(a is b for a, b in zip(operator.jacobi_inputs(mesh, dtype), first))
+            want = (assembly.corner_regularization(mesh, dtype), mesh.areas.to(dtype),
+                    assembly.gather_base_table(mesh))
+            for a, b in zip(first, want):
+                assert a.dtype == b.dtype and torch.equal(a, b) and a.is_contiguous()
+            built[id(mesh), dtype] = first
+    assert len({id(x[0]) for x in built.values()}) == 4
+    assert not torch.equal(built[id(moved), torch.float64][0],
+                           built[id(port_mesh), torch.float64][0])
+
+
 def test_invert_2x2_singular_blocks_become_identity():
     d = torch.tensor([[[2.0, 1.0], [1.0, 3.0]], [[1.0, 2.0], [2.0, 4.0]],
                       [[0.0, 0.0], [0.0, 0.0]]], dtype=torch.float64)

@@ -22,7 +22,7 @@ import torch
 
 from manifold_flow_tpu_torch import compute_velocity_fields, kernels
 from manifold_flow_tpu_torch.fem import assembly
-from manifold_flow_tpu_torch.fem.operator import make_operator
+from manifold_flow_tpu_torch.fem.operator import jacobi_inputs, make_operator
 from manifold_flow_tpu_torch.geometry import synthetic, topology
 from manifold_flow_tpu_torch.kernels import analysis as kan
 from manifold_flow_tpu_torch.kernels import coarse as kco
@@ -139,6 +139,36 @@ def test_fem_matvec_matches_plain_on_any_tiling(cuda, dtype, size, shape):
     scale = float(fd.abs().max()) + float(kfem.plain_fem_matvec(*mv).abs().max())
     assert float((got - want).abs().max()) / scale <= TOL[dtype]
     assert torch.equal(kfem.fem_matvec(*mv, tiles, f=fd), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_frames", [1, 5])
+@pytest.mark.parametrize("lam", [0.0, 0.01])
+def test_jacobi_blocks_on_a_sphere_patch(cuda, dtype, n_frames, lam):
+    """K2 on a sphere patch (valence 5 and 6, padded table rows) at 1 and 5
+    frames (no multiple of the frames a thread takes), lambda 0 and 0.01;
+    of 5 frames the last has zero a1 factors (every block lambda reg: at
+    lambda 0 singular, so the identity). Within TOL of the plain version;
+    two calls, and a call on g one element into its storage, bitwise
+    equal."""
+    mesh = synthetic.sphere_patch(n_sub=2, device=cuda)
+    assert bool((mesh.vertex_cells < 0).any())
+    pot = _rand(cuda, torch.float64, n_frames + 1, mesh.n_vertices, seed=6)
+    times = torch.arange(n_frames + 1, dtype=torch.float64, device=cuda) * 0.01
+    g = build_rhs(mesh, pot, times)[0].to(dtype)
+    if n_frames > 1:
+        g[-1] = 0.0
+    reg, areas, base = jacobi_inputs(mesh, dtype)
+    jb = (g.contiguous(), reg, areas, lam, base)
+    got = _launched("jacobi_blocks", dtype, lambda: kfem.jacobi_blocks(*jb))
+    _assert_close([got], [kfem.plain_jacobi_blocks(*jb)], dtype)
+    assert _same_bits(kfem.jacobi_blocks(*jb), got)
+    # g one element into its storage (off a 16-byte boundary): the same bits.
+    odd = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)[1:].view_as(g)
+    odd.copy_(g)
+    assert _same_bits(kfem.jacobi_blocks(odd, *jb[1:]), got)
+    if n_frames > 1 and lam == 0.0:
+        assert bool((got[-1] == torch.eye(2, dtype=dtype, device=cuda)).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -948,6 +978,62 @@ def test_classify_kernel_matches_plain(cuda, dtype, quirks):
         _assert_same(got, want, dtype)
     codes = torch.cat([got[0].flatten(), got[2].flatten()])
     assert len(set(codes.tolist())) >= 3
+
+
+def _fan_slots(mesh, case, n_frames, seed):
+    """K12's candidate slots on `mesh` for each frame: every vertex and every
+    triangle (an interior point at random barycentric weights inside it),
+    in random order with random valid flags, the caps 1 and 3 slots past
+    the mesh's counts (no multiple of the slots a block takes). Cases:
+    "full", "no_vertex" (S_v = 0), "no_interior" (S_i = 0), "invalid"
+    (every slot invalid)."""
+    gen = np.random.default_rng(seed)
+    n, m = mesh.n_vertices, mesh.n_triangles
+    vid = np.stack([gen.permutation(np.resize(np.arange(n), n + 1)) for _ in range(n_frames)])
+    iid = np.stack([gen.permutation(np.resize(np.arange(m), m + 3)) for _ in range(n_frames)])
+    w = gen.dirichlet((1.0, 1.0, 1.0), size=iid.shape)
+    corners = mesh.points.cpu().numpy()[mesh.triangles.cpu().numpy()[iid]]
+    ipt = np.einsum("tsc,tscd->tsd", w, corners)
+    vok, iok = gen.random(vid.shape) < 0.8, gen.random(iid.shape) < 0.8
+    if case == "invalid":
+        vok[:], iok[:] = False, False
+    if case == "no_vertex":
+        vid, vok = vid[:, :0], vok[:, :0]
+    if case == "no_interior":
+        iid, iok, ipt = iid[:, :0], iok[:, :0], ipt[:, :0]
+    dev = mesh.points.device
+    return (torch.as_tensor(vid, dtype=torch.int32, device=dev).contiguous(),
+            torch.as_tensor(vok, device=dev).contiguous(),
+            torch.as_tensor(iid, dtype=torch.int32, device=dev).contiguous(),
+            torch.as_tensor(iok, device=dev).contiguous(),
+            torch.as_tensor(ipt, device=dev).contiguous())
+
+
+@pytest.mark.parametrize("case", ["full", "no_vertex", "no_interior", "invalid"])
+@pytest.mark.parametrize("spokes", [8, 14])
+@pytest.mark.parametrize("dtype", DTYPES)
+@QUIRKS
+def test_classify_kernel_on_fans(cuda, dtype, quirks, spokes, case):
+    """K12 on the fans of 8 and 14 spokes (the hub's 1-ring is one or two
+    rounds of a slot's lanes; rim triangles have boundary edges), 9 random
+    frames, every vertex and triangle as a slot: codes and Jacobians bitwise
+    the plain version's."""
+    mesh = _fan(cuda, spokes)
+    gen = np.random.default_rng(spokes)
+    v = torch.as_tensor(gen.standard_normal((9, mesh.n_vertices, 3)), device=cuda).to(dtype)
+    v_max = kan.plain_speed(v).amax(dim=-1).contiguous()
+    slots = _fan_slots(mesh, case, 9, seed=spokes)
+    args = (mesh.points.to(dtype), mesh.basis.to(dtype), mesh.vertex_neighbors,
+            mesh.triangles, topology.cells_across_edges(mesh), v, v_max, *slots[:4],
+            slots[4].to(dtype).contiguous())
+    got = _launched("classify_candidates", dtype,
+                    lambda: kan.classify_candidates(*args, quirks=quirks))
+    want = kan.plain_classify_candidates(*args, quirks=quirks)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    if case == "invalid":
+        assert bool((got[0] == sing.INDETERMINATE).all() and (got[2] == sing.INDETERMINATE).all())
+    elif case == "full":
+        assert len(set(torch.cat([got[0].flatten(), got[2].flatten()]).tolist())) >= 3
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

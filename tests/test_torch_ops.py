@@ -465,6 +465,67 @@ def test_full_field_jacobians_and_codes_match_jax(problem, fields, quirks):
     np.testing.assert_array_equal(got.numpy()[clear], np.asarray(want)[clear])
 
 
+def _wheel(spokes: int = 14):
+    """A hub of `spokes` neighbours inside two rings (the outer one twice as
+    fine), on a bumped cone: the hub's 1-ring is wider than 8."""
+    ang1 = 2.0 * np.pi * np.arange(spokes) / spokes
+    ang2 = 2.0 * np.pi * (np.arange(2 * spokes) + 0.5) / (2 * spokes)
+    ring = [np.stack([r * np.cos(a), 0.8 * r * np.sin(a),
+                      0.3 * r + 0.1 * np.cos(3.0 * a)], axis=-1)
+            for r, a in ((1.0, ang1), (2.1, ang2))]
+    points = np.concatenate([np.zeros((1, 3)), *ring])
+    k = np.arange(spokes)
+    r1 = 1 + k
+    r1n = 1 + (k + 1) % spokes
+    r2 = 1 + spokes + 2 * k
+    r2n = 1 + spokes + (2 * k + 1)
+    r2nn = 1 + spokes + (2 * k + 2) % (2 * spokes)
+    tris = np.concatenate([
+        np.stack([np.zeros(spokes, dtype=np.int64), r1, r1n], axis=-1),
+        np.stack([r1, r2, r2n], axis=-1), np.stack([r1, r2n, r1n], axis=-1),
+        np.stack([r1n, r2n, r2nn], axis=-1)])
+    return points, tris
+
+
+@pytest.mark.parametrize("quirks", [False, True], ids=["quirks_off", "quirks_on"])
+def test_classify_detected_on_wide_one_rings_matches_jax(quirks):
+    """The plain classification (K12's plain version) against JAX's
+    classify_detected on a mesh whose hub has 14 neighbours: random seeded
+    velocities, the hub's set to zero in every other frame (a vertex
+    candidate with the 14-neighbour ring); slots, codes and valid flags
+    equal, and the valid slots' Jacobians within 1e-12 of JAX's full-field
+    ones (the same float64 formulas, summed in another order)."""
+    from manifold_flow_tpu.geometry.mesh import build_mesh as jax_build_mesh
+
+    points, tris = _wheel()
+    jmesh = jax_build_mesh(points, tris, dtype=np.float64)
+    tmesh = mesh_from_jax_arrays(jax_arrays(jmesh), device="cpu")
+    assert tmesh.vertex_neighbors.shape[1] == 14
+    v = np.random.default_rng(14).standard_normal((8, tmesh.n_vertices, 3))
+    v[::2, 0] = 0.0
+    jv = jnp.asarray(v)
+    jfield, _ = jax_sing.detect_with_counts(jmesh, jv, eps=EPS)
+    tv = torch.from_numpy(v)
+    tfield, _ = sing.detect_with_counts(tmesh, tv, eps=EPS)
+    cap = sing.compact_capacity(tfield)
+    got = sing.classify_detected(tmesh, tv, tfield, capacity=cap, quirks=quirks)
+    want = jax_sing.classify_detected(jmesh, jv, jfield, capacity=cap, quirks=quirks)
+    for name in want._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    hub = (got.vertex_ids == 0) & got.vertex_valid
+    assert int(hub.sum()) == 4 and int(got.interior_valid.sum()) > 0
+    jjv = np.asarray(jax_sing.vertex_jacobians(jmesh, jv, jfield.v_max))
+    jji = np.asarray(jax_sing.interior_jacobians(
+        jmesh, jv, jfield.v_max, jfield.interior_point, quirks=quirks))
+    frames = np.arange(v.shape[0])[:, None]
+    for ids, ok, jac, full in ((got.vertex_ids, got.vertex_valid, got.vertex_jacobians, jjv),
+                               (got.interior_ids, got.interior_valid,
+                                got.interior_jacobians, jji)):
+        ok = ok.numpy()
+        assert rel_err(jac.numpy()[ok], full[frames, ids.numpy()][ok]) <= JAC_TOL
+
+
 def test_classify_without_detections(problem):
     _, tmesh, _ = problem
     v = torch.zeros((2, tmesh.n_vertices, 3), dtype=torch.float64)
