@@ -94,7 +94,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
      torch.sparse.addmm of P and torch.linalg.vecdot; two calls of K9 and of
      K11 bitwise equal; K10 also with the L2 cleared before each call, on a random
      (97, 394, 394) input (a row length of 2 mod 4) and on one matrix shared
-     by every frame (coarse_a1='mean'), and K3's pcg_dot, K1 (float32
+     by every frame (coarse_a1='mean'), and K3's pcg_dot and direction, K1 (float32
      matvec, float64 residual, beside torch.sparse.mm) and K3's update at
      these shapes, with K4 (float64, its bound the movie, the mesh tables,
      g and f; not the local RHS its first design stored; and float32, which
@@ -1306,300 +1306,6 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                        launches_key=f"rbf_eval<{ctype}>+phase")
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """a and b equal bit for bit (floats by their bits, NaNs included)."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
-    return torch.equal(a.view(ints), b.view(ints)) if ints else torch.equal(a, b)
-
-
-def build_parent(parent: Path):
-    """The parent tree's fem_kernels.cu and analysis_kernels.cu (K2's and
-    K12's first designs), each compiled alone into a library with this
-    build's flags (in parallel), loaded with ctypes, their jacobi_blocks and
-    classify_candidates entry points typed; the SASS of K2's first design
-    written to chiprun_out/sass_parent_jacobi.txt."""
-    import ctypes
-    from concurrent.futures import ThreadPoolExecutor
-
-    from manifold_flow_tpu_torch.kernels import build
-
-    csrc = parent / "manifold_flow_tpu_torch" / "csrc"
-    tmp = Path(tempfile.mkdtemp(prefix="parent_kernels_"))
-
-    def compile_one(stem):
-        out = tmp / f"libparent_{stem}.so"
-        run = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(csrc),
-                              "-o", str(out), str(csrc / f"{stem}.cu")],
-                             capture_output=True, text=True)
-        if run.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the parent's {stem}.cu:\n{run.stderr}")
-        return out
-    with ThreadPoolExecutor(2) as pool:
-        fem_so, an_so = pool.map(compile_one, ("fem_kernels", "analysis_kernels"))
-    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    for so, name in ((fem_so, "parent_fem"), (build.library_path(), "this")):
-        run = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
-                             text=True)
-        text = run.stdout + run.stderr
-        keep, on = [], False
-        for line in text.splitlines():
-            if "Function :" in line:
-                on = "jacobi" in line
-            if on:
-                keep.append(line)
-        (ROOT / "chiprun_out" / f"sass_{name}_jacobi.txt").write_text("\n".join(keep))
-        ffma = [x.strip() for x in keep if "FFMA" in x or "DFMA" in x]
-        print(f"[sass] {name} jacobi: {len(keep)} lines, {len(ffma)} FMA lines; first "
-              f"{' | '.join(ffma[:12])}", flush=True)
-    fem, an = ctypes.CDLL(str(fem_so)), ctypes.CDLL(str(an_so))
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    for sfx in ("f32", "f64"):
-        fn = getattr(fem, f"mf_jacobi_blocks_{sfx}")
-        fn.argtypes, fn.restype = [p] * 3 + [d] + [p] * 2 + [i] * 4 + [p], ctypes.c_int
-        fn = getattr(an, f"mf_classify_candidates_{sfx}")
-        fn.argtypes, fn.restype = [p] * 16 + [i] * 6 + [p], ctypes.c_int
-    return fem, an
-
-
-def ptxas_report() -> None:
-    """ptxas' registers, spills and shared memory of this tree's
-    fem_kernels.cu and analysis_kernels.cu, written to
-    chiprun_out/ptxas_<stem>.txt; the K2 and K12 lines printed."""
-    from manifold_flow_tpu_torch.kernels import build
-
-    for stem in ("fem_kernels", "analysis_kernels"):
-        src = build.CSRC_DIR / f"{stem}.cu"
-        with tempfile.TemporaryDirectory() as tmp:
-            run = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-                                  "-I", str(build.CSRC_DIR), "-c", "-o",
-                                  str(Path(tmp) / "f.o"), str(src)],
-                                 capture_output=True, text=True)
-        text = run.stdout + run.stderr
-        (ROOT / "chiprun_out").mkdir(exist_ok=True)
-        (ROOT / "chiprun_out" / f"ptxas_{stem}.txt").write_text(text)
-        lines = text.splitlines()
-        for k, line in enumerate(lines):
-            if "Compiling entry function" in line and (
-                    "jacobi" in line or "classify" in line):
-                rest = " | ".join(x.strip() for x in lines[k + 1:k + 4]
-                                  if "ptxas" in x and "Compiling" not in x)
-                print(f"[ptxas] {line.split('entry function')[1].strip()[:90]}: {rest}",
-                      flush=True)
-
-
-def against_parent(libs, mesh, res, card: str, suffix: str, flush) -> None:
-    """K2 and K12 against their first designs (the parent's build): every
-    output bit for bit, K2 with a zero frame (and lambda 0, where that
-    frame's blocks are singular), K12 in both quirk modes with invalid
-    slots and with S_v = 0 or S_i = 0, and against the plain version;
-    device times in turns (this, first,
-    first, this), K2 also with the L2 cleared before each call and in a
-    profiled refined solve."""
-    from manifold_flow_tpu_torch.fem.operator import jacobi_inputs
-    from manifold_flow_tpu_torch.geometry.topology import cells_across_edges
-    from manifold_flow_tpu_torch.kernels import analysis as kan
-    from manifold_flow_tpu_torch.kernels import fem as kfem
-    from manifold_flow_tpu_torch.ops import singularity as sing
-
-    fem_lib, an_lib = libs
-
-    def stream_ptr():
-        return torch.cuda.current_stream().cuda_stream
-
-    def launched(err, what):
-        if err != 0:
-            raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-    def turns(mine, first, before=None):
-        us = [device_us(fn, mine=own_kernel, before=before) for fn in (mine, first, first, mine)]
-        return (f"{fmt_us(us[0])} / {fmt_us(us[3])} (first design {fmt_us(us[1])} / "
-                f"{fmt_us(us[2])})")
-
-    def jacobi_entry(entry):
-        def call(g, reg, areas, lam, base):
-            t, m = g.shape[0], g.shape[1]
-            n, c = base.shape
-            out = torch.empty((t, n, 2, 2), dtype=g.dtype, device=g.device)
-            launched(entry(g.data_ptr(), reg.data_ptr(), areas.data_ptr(), float(lam),
-                           base.data_ptr(), out.data_ptr(), t, m, n, c,
-                           stream_ptr()), "jacobi_blocks")
-            return out
-        return call
-
-    v_k = res.v_k
-    for dtype, ctype, sfx in ((torch.float32, "float", "f32"), (torch.float64, "double", "f64")):
-        g = K2_INPUTS[suffix].to(dtype).contiguous()
-        reg, areas, base = jacobi_inputs(mesh, dtype)
-        zg = torch.cat([g, torch.zeros_like(g[:1])]).contiguous()
-        first = jacobi_entry(getattr(fem_lib, f"mf_jacobi_blocks_{sfx}"))
-        same = {}
-        for lam in (0.01, 0.0):
-            want = first(zg, reg, areas, lam, base)
-            got = kfem.jacobi_blocks(zg, reg, areas, lam, base)
-            same[f"lambda={lam}"] = same_bits(got, want) and same_bits(
-                kfem.jacobi_blocks(zg, reg, areas, lam, base), got)
-            # g one element into its storage (off a 16-byte boundary).
-            odd = torch.empty(zg.numel() + 1, dtype=dtype, device=zg.device)[1:].view_as(zg)
-            odd.copy_(zg)
-            same[f"lambda={lam} unaligned"] = same_bits(
-                kfem.jacobi_blocks(odd, reg, areas, lam, base), want)
-            plain = kfem.plain_jacobi_blocks(zg, reg, areas, lam, base)
-            err = float((got - plain).abs().max() / plain.abs().max())
-            eye = torch.eye(2, dtype=dtype, device=g.device)
-            singular = bool((got[-1] == eye).all()) if lam == 0.0 else None
-            print(f"[parent] jacobi_blocks<{ctype}>{suffix} lambda {lam} (+ a zero frame): "
-                  f"relative error against the plain version {err:.3e}, zero frame "
-                  f"identity {singular}", flush=True)
-        bad = [k for k, ok in same.items() if not ok]
-        print(f"[parent] jacobi_blocks<{ctype}>{suffix}: bitwise the first design's in "
-              f"{len(same) - len(bad)} of {len(same)} cases; differ: {bad or 'none'}; device "
-              + turns(lambda: kfem.jacobi_blocks(g, reg, areas, 0.01, base),
-                      lambda: first(g, reg, areas, 0.01, base))
-              + "; L2 cleared before each call: "
-              + turns(lambda: kfem.jacobi_blocks(g, reg, areas, 0.01, base),
-                      lambda: first(g, reg, areas, 0.01, base), before=flush.sum)
-              + f"; on {card}", flush=True)
-        if bad:
-            raise AssertionError(f"jacobi_blocks<{ctype}>{suffix} differs from its first "
-                                 f"design: {bad}")
-
-    # K12 on the refined solve's field.
-    for dtype, ctype, sfx in ((torch.float64, "double", "f64"), (torch.float32, "float", "f32")):
-        v_world, speed, v_max = kan.recombine_speed(v_k.to(dtype), mesh.basis.to(dtype))
-        field, counts = sing.detect_with_counts(mesh, v_world, speed=speed, v_max=v_max)
-        cap = sing.capacity_for(*counts.tolist())
-        head = (mesh.points.to(dtype).contiguous(), mesh.basis.to(dtype).contiguous(),
-                mesh.vertex_neighbors, mesh.triangles, cells_across_edges(mesh), v_world,
-                v_max)
-        first_fn = getattr(an_lib, f"mf_classify_candidates_{sfx}")
-
-        def entry_call(entry, slots, quirks):
-            def call():
-                t = v_world.shape[0]
-                cv, ci = slots[0].shape[1], slots[2].shape[1]
-                out = (torch.empty((t, cv), dtype=torch.int32, device=v_world.device),
-                       torch.empty((t, cv, 2, 2), dtype=dtype, device=v_world.device),
-                       torch.empty((t, ci), dtype=torch.int32, device=v_world.device),
-                       torch.empty((t, ci, 2, 2), dtype=dtype, device=v_world.device))
-                launched(entry(*(x.data_ptr() for x in head + slots),
-                               *(o.data_ptr() for o in out), t, mesh.n_vertices,
-                               mesh.vertex_neighbors.shape[1], cv, ci, int(quirks),
-                               stream_ptr()), "classify_candidates")
-                return out
-            return call
-
-        def slot_sets(det):
-            full = (det.vertex_ids, det.vertex_valid, det.interior_ids, det.interior_valid,
-                    det.interior_points)
-            no_v = (det.vertex_ids[:, :0].contiguous(), det.vertex_valid[:, :0].contiguous(),
-                    *full[2:])
-            no_i = (*full[:2], det.interior_ids[:, :0].contiguous(),
-                    det.interior_valid[:, :0].contiguous(),
-                    det.interior_points[:, :0].contiguous())
-            return {"full": full, "S_v=0": no_v, "S_i=0": no_i}
-        same = {}
-        for extra in (0, 8, 3):  # 3: a cap no multiple of a block's slots
-            det = sing.compact_detected(mesh, field, capacity=cap + extra)
-            for name, slots in slot_sets(det).items():
-                slots = tuple(x.contiguous() for x in slots)
-                for quirks in (False, True):
-                    got = kan.classify_candidates(*head, *slots, quirks=quirks)
-                    want = entry_call(first_fn, slots, quirks)()
-                    plain = kan.plain_classify_candidates(*head, *slots, quirks=quirks)
-                    key = f"cap+{extra} {name} quirks={quirks}"
-                    same[key] = (all(same_bits(a, b) for a, b in zip(got, want))
-                                 and all(same_bits(a, b) for a, b in zip(got, plain)))
-        bad = [k for k, ok in same.items() if not ok]
-        det = sing.compact_detected(mesh, field, capacity=cap)
-        slots = tuple(x.contiguous() for x in slot_sets(det)["full"])
-        invalid = int((~det.vertex_valid).sum() + (~det.interior_valid).sum())
-        print(f"[parent] classify_candidates<{ctype}>{suffix} (cap {cap}, {invalid} invalid "
-              f"slots): bitwise the first design's and the plain version's in "
-              f"{len(same) - len(bad)} of {len(same)} cases; differ: {bad or 'none'}; device "
-              + turns(lambda: kan.classify_candidates(*head, *slots),
-                      entry_call(first_fn, slots, False))
-              + f"; on {card}", flush=True)
-        if bad:
-            raise AssertionError(f"classify_candidates<{ctype}>{suffix} differs from its "
-                                 f"first design or its plain version: {bad}")
-
-
-K2_INPUTS: dict = {}
-
-
-def in_solve_turns(libs, mesh, pot, times, card: str, suffix: str) -> None:
-    """K2's device µs a launch in a profiled refined solve, this design and
-    the first in turns (the wrapper swapped for the parent's entry point)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from manifold_flow_tpu_torch.kernels import fem as kfem
-
-    fem_lib = libs[0]
-    mine = kfem.jacobi_blocks
-
-    def first(g, reg, areas, lam, base):
-        t, m = g.shape[0], g.shape[1]
-        n, c = base.shape
-        out = torch.empty((t, n, 2, 2), dtype=g.dtype, device=g.device)
-        sfx = "f32" if g.dtype == torch.float32 else "f64"
-        err = getattr(fem_lib, f"mf_jacobi_blocks_{sfx}")(
-            g.data_ptr(), reg.data_ptr(), areas.data_ptr(), float(lam), base.data_ptr(),
-            out.data_ptr(), t, m, n, c, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"jacobi_blocks (first design) failed: CUDA error {err}")
-        return out
-    refined = dict(method="refined", tol=1e-6, max_iter=4000)
-    out = []
-    try:
-        for fn in (mine, first, first, mine):
-            kfem.jacobi_blocks = fn
-            solve(mesh, pot, times, **refined)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                solve(mesh, pot, times, **refined)
-            us = [e.self_device_time_total / e.count for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and "jacobi_kernel" in e.key]
-            out.append(fmt_us(us[0]) if us else "not measured")
-    finally:
-        kfem.jacobi_blocks = mine
-    print(f"[parent] jacobi_blocks<float>{suffix} in the refined solve: {out[0]} / {out[3]} "
-          f"(first design {out[1]} / {out[2]}); on {card}", flush=True)
-
-
-def turns_main(parent: Path) -> int:
-    """`chip_smoke.py --turns PARENT`: K2 and K12 against their first
-    designs from the tree PARENT (a `git archive` of the parent commit),
-    at the bench and 12.5k shapes."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from manifold_flow_tpu_torch.kernels import library
-    from manifold_flow_tpu_torch.solve.api import build_rhs
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    t0 = time.perf_counter()
-    library()
-    libs = build_parent(parent)
-    print(f"[build] this tree and the parent's fem and analysis kernels in "
-          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
-    ptxas_report()
-    flush = torch.ones(64 << 20, dtype=torch.float32, device=device)  # 256 MiB
-    for builder, suffix in ((build_problem, ""), (build_problem_12k, "@12.5k")):
-        mesh, pot, times = builder(device)[:3]
-        K2_INPUTS[suffix] = build_rhs(mesh, pot, times)[0]
-        res = solve(mesh, pot, times, method="refined", tol=1e-6, max_iter=4000)
-        against_parent(libs, mesh, res, card, suffix, flush)
-        in_solve_turns(libs, mesh, pot, times, card, suffix)
-    print(card_line())
-    return 0
-
-
 def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
     """The trial's analysis ops on the card against their plain versions on
     the same CUDA tensors, with cfg's quirks and limits: class codes, next
@@ -2725,6 +2431,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--turns":
-        sys.exit(turns_main(Path(sys.argv[2])))
     sys.exit(main())
