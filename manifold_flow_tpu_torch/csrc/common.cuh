@@ -96,11 +96,11 @@ __device__ __forceinline__ double2 pack(const double* o) {
 // o[0..4) to p, which is 16-byte aligned (a row of 4 values in a tensor the
 // wrapper allocated): one float4, or two double2.
 __device__ __forceinline__ void store4(float* p, const float* o) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<float4*>(p) = pack(o);
 }
 __device__ __forceinline__ void store4(double* p, const double* o) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(o[0], o[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(o[2], o[3]);
+  reinterpret_cast<double2*>(p)[0] = pack(o);
+  reinterpret_cast<double2*>(p)[1] = pack(o + 2);
 }
 
 // acc + <a, b> for one element or one 16-byte vector, in component order.
