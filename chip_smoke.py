@@ -39,12 +39,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      K13's plain version, which reads the per-mesh hop tables as the kernel
      does, also equal to a reference on the raw mesh tables
      (mesh_next_hop). Then K16 (wave speeds, phase and amplitude, on the 98-frame movie and
-     its wrapped phase) and K17 (the system matrix of bench.py:216-217's 64
-     electrodes, the evaluation at every vertex, real and phase) in float64
-     and float32. K16's speeds: inf and NaN at the same places, elsewhere
-     (where |grad| > 1e-8 max|grad|) the relative error times |grad| /
-     max|grad| within the tolerance; K17's evaluation relative to max sum
-     |phi| |w|, its phases as |z| e^(i angle) against the plain interpolant z.
+     its wrapped phase) and K17 (the fit of bench.py:216-217's 64
+     electrodes' 98 frames, real (R = 98) and phase (cos and sin, R = 196),
+     beside torch.linalg.solve; the evaluation at every vertex, real and
+     phase) in float64 and float32. K16's speeds: inf and NaN at the same
+     places, elsewhere (where |grad| > 1e-8 max|grad|) the relative error
+     times |grad| / max|grad| within the tolerance; K17's fit: its backward
+     error max|A W - B| / max(|A| |W|) within 1e-13 / 1e-5, the interpolant
+     of its weights at every vertex within the evaluation's tolerance of the
+     plain weights', relative to max sum |phi| |w|, and an equal info word
+     (cond(A), max|dW| / max|W| and the pivot rows that differ from
+     lu_factor's printed); K17's evaluation relative to max sum |phi| |w|,
+     its phases as |z| e^(i angle) against the plain interpolant z.
   6. flow: the S3 flow stage through the port's command line
      (`pipeline.cli.main(["flow", ...])`, default config: method 'auto',
      which is 'refined' on CUDA for a float64 movie, tol 1e-8, max_iter
@@ -74,7 +80,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      `--method amplitude` on the interpolated movie; `decompose --mode
      concat` and `--mode complex` on phase 6's V_k.csv; `demo` at its
      defaults. K16 and K17 must have launched (each variant counted in the
-     call that launches it), the artifacts reload equal to
+     call that launches it; K17's fit once in each `interpolate` call),
+     the artifacts reload equal to
      the same stages run in memory, sigma equal numpy's LAPACK SVD on the
      host to 1e-10 of the largest and the rank-K reconstruction to 1e-8 of
      its largest entry, and the demo converge and match. Prints each call's
@@ -124,7 +131,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      problem (detection with classification, streamlines, winding lines, in
      memory); then over one warm field chain on the bench surface
      (interpolation with and without phases, both wave speeds, both SVDs,
-     in memory); then over one warm 12.5k refined two-level solve. From the
+     in memory; no LU library kernel may run in it); then over one warm
+     12.5k refined two-level solve. From the
      S3 chain and the 12.5k solve, each kernel's device µs a launch as the
      solve runs it (solve_device_us: its device kernels' time over its
      launches in that run), for the rows at those shapes; the 12.5k solve's
@@ -1269,19 +1277,12 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
         c = x[sel].contiguous()
         eps = scipy_default_epsilon(c).reshape(1)
         e = c.shape[0]
-        checks.compare(f"rbf_basis<{ctype}>{suffix}", cu,
-                       "manifold_flow_tpu/ops/interpolate.py:93",
-                       lambda: (kf.rbf_basis(c, eps, "multiquadric"),),
-                       lambda: (kf.plain_rbf_basis(c, eps, "multiquadric"),), tol,
-                       inputs=(c, eps), ops=14 * e * e,
-                       library=lambda: kf.rbf_phi(torch.cdist(
-                           c, c, compute_mode="donot_use_mm_for_euclid_dist"), eps,
-                           "multiquadric"),
-                       launches_key=f"rbf_basis<{ctype}>")
-        lu, piv = torch.linalg.lu_factor(kf.plain_rbf_basis(c, eps, "multiquadric"))
-        w = torch.linalg.lu_solve(lu, piv, amp[:, sel].T.contiguous()).contiguous()
-        wr, wi = (torch.linalg.lu_solve(lu, piv, f(phase[:, sel]).T.contiguous()).contiguous()
-                  for f in (torch.cos, torch.sin))
+        real = (amp[:, sel].contiguous(),)
+        unit = (torch.cos(phase[:, sel]).contiguous(), torch.sin(phase[:, sel]).contiguous())
+        for planes, tag in ((real, ""), (unit, "+phase")):
+            check_fit(checks, cu, x, c, eps, planes, tag, suffix)
+        (w,), _ = kf.plain_rbf_fit(c, eps, real, "multiquadric")
+        (wr, wi), _ = kf.plain_rbf_fit(c, eps, unit, "multiquadric")
         b = kf.rbf_phi(kf.pairwise_dist(x, c), eps, "multiquadric")
 
         def library(*planes):
@@ -1304,6 +1305,77 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                        mm_ops=4 * n * e * t, library=lambda: library(wr, wi),
                        measure=phase_measure(b, wr, wi),
                        launches_key=f"rbf_eval<{ctype}>+phase")
+
+
+# K17 rbf_fit's gate: the relative backward error max|A W - B| / max(|A| |W|)
+# of its weights (LU with partial pivoting is backward stable; the weights
+# themselves differ from the library's by up to cond(A) times the rounding).
+TOL_FIT = {"double": 1e-13, "float": 1e-5}
+
+
+def fit_measure(x, c, eps, planes, ctype: str, label: str, kind: str = "multiquadric"):
+    """K17 rbf_fit's comparison with plain_rbf_fit on the same tensors: its
+    backward error (the reported relative error, within TOL_FIT), the
+    interpolant of its weights at every vertex x against the plain
+    weights', relative to max sum_e |phi| |w| (within the rbf_eval
+    tolerance), and an equal info word; prints cond(A), max|dW| / max|W|
+    and the pivot rows that differ from lu_factor's."""
+    from manifold_flow_tpu_torch.kernels import fields as kf
+
+    tol = TOL_F64 if ctype == "double" else TOL_F32
+    a = kf.plain_rbf_basis(c, eps, kind)
+    b = kf.rbf_phi(kf.pairwise_dist(x, c), eps, kind)
+
+    def backward(w):
+        res = max(float((a @ wi - p.T).abs().max()) for wi, p in zip(w, planes))
+        return res / max(float((a.abs() @ wi.abs()).max()) for wi in w)
+
+    def measure(got, want):
+        (w, info), (wp, info_p) = got, want
+        piv, piv_p = (torch.empty(c.shape[0], dtype=torch.int32, device=c.device)
+                      for _ in range(2))
+        kf.rbf_fit(c, eps, planes, kind, pivots=piv)
+        kf.plain_rbf_fit(c, eps, planes, kind, pivots=piv_p)
+        bw, bw_plain = backward(w), backward(wp)
+        scale = max(float((b.abs() @ wi.abs()).max()) for wi in wp)
+        interp = max(float((b @ wi - b @ wj).abs().max()) for wi, wj in zip(w, wp)) / scale
+        dw = float((w - wp).abs().max())
+        same_info = int(info[0]) == int(info_p[0])
+        finite = bool(torch.isfinite(w).all())
+        print(f"[kernels] {label}: backward error {bw:.3e} (plain {bw_plain:.3e}; gate "
+              f"{TOL_FIT[ctype]:.0e}), interpolant at {x.shape[0]} vertices {interp:.3e} of "
+              f"max sum|phi||w| (gate {tol:.0e}), info {int(info[0])} / {int(info_p[0])}, "
+              f"cond(A) {float(torch.linalg.cond(a)):.3e}, max|dW|/max|W| "
+              f"{dw / float(wp.abs().max()):.3e}, pivot rows differing from lu_factor's "
+              f"{int((piv != piv_p).sum())} of {c.shape[0]}; chain {c.shape[0]} pivot steps "
+              f"(the forward substitution in them) + {c.shape[0]} back-substitution steps",
+              flush=True)
+        return dw, bw, bw <= TOL_FIT[ctype] and interp <= tol and same_info and finite
+    return measure
+
+
+def check_fit(checks: KernelChecks, cu: str, x, c, eps, planes, tag: str,
+              suffix: str) -> None:
+    """K17 rbf_fit (one plane, or the two of the phases) against
+    plain_rbf_fit, beside torch.linalg.solve of the same system (the
+    library call). Its bound: 2/3 E^3 + 2 E^2 R operations (R = planes T)
+    or the bytes of c, the planes and W."""
+    from manifold_flow_tpu_torch.kernels import fields as kf
+
+    ctype = "double" if c.dtype == torch.float64 else "float"
+    e, r = c.shape[0], len(planes) * planes[0].shape[0]
+    rhs = torch.cat([p.T for p in planes], dim=1)
+    key = f"rbf_fit<{ctype}>{tag}{suffix}"
+    checks.compare(key, cu, "manifold_flow_tpu/ops/interpolate.py:90",
+                   lambda: kf.rbf_fit(c, eps, planes, "multiquadric"),
+                   lambda: kf.plain_rbf_fit(c, eps, planes, "multiquadric"),
+                   TOL_FIT[ctype], ops=2.0 / 3.0 * e ** 3 + 2.0 * e * e * r,
+                   nbytes=tensor_bytes(c, *planes) + e * r * c.element_size(),
+                   library=lambda: torch.linalg.solve(kf.rbf_phi(torch.cdist(
+                       c, c, compute_mode="donot_use_mm_for_euclid_dist"), eps,
+                       "multiquadric"), rhs),
+                   measure=fit_measure(x, c, eps, planes, ctype, key),
+                   launches_key=f"rbf_fit<{ctype}>{tag or '+real'}")
 
 
 def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
@@ -1497,12 +1569,14 @@ def run_trial(mesh, pot, card: str, tag: str = "trial") -> dict:
 
 
 
-FIELD_KERNELS = ("wave_speed<double>", "rbf_basis<double>", "rbf_eval<double>")
+FIELD_KERNELS = ("wave_speed<double>", "rbf_fit<double>", "rbf_eval<double>")
 
 
 # The variants of K16 and K17 on the field path, each counted in the one
 # CLI call that launches it: (launch count key, CLI call, LAUNCHES entry).
 FIELD_VARIANTS = (
+    ("rbf_fit<double>+real", "interpolate", "rbf_fit<double>"),
+    ("rbf_fit<double>+phase", "interpolate --phases", "rbf_fit<double>"),
     ("rbf_eval<double>+real", "interpolate", "rbf_eval<double>"),
     ("rbf_eval<double>+phase", "interpolate --phases", "rbf_eval<double>"),
     ("wave_speed<double>+phase", "wavespeed phase", "wave_speed<double>"),
@@ -1619,6 +1693,10 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
                 if launches[k] == 0]
         if idle:
             raise AssertionError(f"kernels of the {tag} path never launched: {idle}")
+        fits = {name: per_call[name]["rbf_fit<double>"]
+                for name in ("interpolate", "interpolate --phases")}
+        if set(fits.values()) != {1}:
+            raise AssertionError(f"{tag}: rbf_fit<double> must launch once a call: {fits}")
 
         # The same stages in memory, on the same inputs.
         cfg = PipelineConfig()
@@ -2067,9 +2145,10 @@ def profile_analysis(mesh, res, card: str) -> None:
 def profile_fields(mesh, pot, v_k, card: str) -> None:
     """Phase [profile]: device time per kernel and the device's busy share
     over one warm field chain on the bench surface, in memory, default
-    config: interpolate (the LU, K17) of the 64 electrodes' 1229-sample
-    movie and of its Hilbert phases (FFTs), wave speeds of both (K16), and
-    the concat and complex SVDs of the refined solve's v_k."""
+    config: interpolate (K17's fit and evaluation) of the 64 electrodes'
+    1229-sample movie and of its Hilbert phases (FFTs), wave speeds of both
+    (K16), and the concat and complex SVDs of the refined solve's v_k. No
+    LU library kernel (getrf, getrs) may run in it."""
     from torch.profiler import ProfilerActivity, profile
 
     from manifold_flow_tpu_torch.geometry import synthetic
@@ -2108,7 +2187,10 @@ def profile_fields(mesh, pot, v_k, card: str) -> None:
     if dev_us > 0:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
         mine = [e for e in events if any(k in e.key for k in (
-            "wave_speed", "rbf_basis", "rbf_eval"))]
+            "wave_speed", "rbf_fit", "rbf_eval"))]
+        lu = [e.key for e in events if "getrf" in e.key or "getrs" in e.key]
+        if lu:
+            raise AssertionError(f"the field chain ran LU library kernels: {lu}")
         print(f"[profile] field chain (interpolate + --phases, wavespeed phase + "
               f"amplitude, decompose concat + complex; in memory): device busy "
               f"{dev_us / wall_us:.3f} of {wall_us / 1e3:.2f} ms wall (profiled run; "

@@ -1,6 +1,6 @@
 // Kernels of the field stages: K16, the wave speeds of S5 (with the spatial
-// gradients they divide by), and K17, the RBF interpolation of S2 (its
-// system matrix and its evaluation at the surface's vertices).
+// gradients they divide by), and K17, the RBF interpolation of S2 (its fit,
+// the weights of every frame, and its evaluation at the surface's vertices).
 // Layouts follow the JAX package (TriMesh tables, ops/interpolate.py):
 //   movie         (T, N)      amplitude or phase movie
 //   triangles     (M, 3)      int32 corner vertex ids
@@ -10,8 +10,12 @@
 //   basis         (N, 2, 3)   tangent bases (e1, e2)
 //   c             (E, 3)      the electrodes; x (P, 3) the evaluation points
 //   eps           (1,)        the RBF shape parameter, on the device
-//   w, w_im       (E, T)      RBF weights per frame (real, imaginary part)
+//   b0, b1        (T, E)      the values to fit, one plane or two (cos, sin)
+//   w, w_im       (E, T)      RBF weights per frame (real, imaginary part);
+//                             the fit writes the planes' (planes, E, T)
 // The C entry points return the cudaError_t of the launch.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace mf {
@@ -250,20 +254,358 @@ __device__ __forceinline__ T pair_distance(const T* a, const T* b) {
   return rn_sqrt(d2 > T(0) ? d2 : T(0));
 }
 
-// Replaces ops/interpolate.py:93 _rbf_solve's system matrix (B14):
-// out[i, j] = phi(|c_i - c_j|) - smooth * [i == j], the E x E matrix
-// A - smooth I of the electrodes c.
-// Bound: bytes of the output at these sizes (E x E is 32 KB at E = 64).
-// Design: one thread per entry, the column fastest.
+// K17's fit (rbf_fit_kernel): 256 threads a block, each block at most
+// kFitCols right-hand sides (kFitCols / 8 a warp in the back substitution);
+// the factorization in panels of kFitPanel columns.
+constexpr int kFitThreads = 256;
+constexpr int kFitWarps = kFitThreads / 32;
+constexpr int kFitLanes = 4;                        // lanes a row in the update
+constexpr int kFitGroups = kFitThreads / kFitLanes;
+constexpr int kFitCols = 32;
+constexpr int kFitColsWarp = kFitCols / kFitWarps;
+constexpr int kFitPanel = 8;
+
+// The row stride (elements) of the augmented matrix [A | B] of `width`
+// columns: the least >= width that is 4 mod 16 (float64) or 4 mod 32
+// (float32), so the 8 rows x 4 consecutive columns a warp updates fall in
+// distinct banks.
 template <typename T>
-__global__ void rbf_basis_kernel(const T* __restrict__ c, const T* __restrict__ eps,
-                                 T* __restrict__ out, int64_t n_elec, int kind,
-                                 double smooth) {
-  const int64_t k = global_index();
-  if (k >= n_elec * n_elec) return;
-  const int64_t i = k / n_elec, j = k - i * n_elec;
-  const T phi = rbf_phi(pair_distance(c + 3 * i, c + 3 * j), eps[0], kind);
-  out[k] = i == j ? rn_sub(phi, T(smooth)) : phi;
+__host__ __device__ constexpr int64_t fit_ld(int64_t width) {
+  constexpr int64_t m = sizeof(T) == 8 ? 16 : 32;
+  return 4 + (width - 4 + m - 1) / m * m;
+}
+
+// A block's working set: the augmented matrix, the electrodes, then each
+// row's position in the pivoted order and the row of each position.
+template <typename T>
+__host__ __device__ constexpr int64_t fit_matrix_bytes(int64_t n_elec, int64_t ld) {
+  return (n_elec * (ld + 3) * static_cast<int64_t>(sizeof(T)) + 15) / 16 * 16;
+}
+template <typename T>
+__host__ __device__ constexpr int64_t fit_bytes(int64_t n_elec, int64_t ld) {
+  return fit_matrix_bytes<T>(n_elec, ld) + (8 * n_elec + 15) / 16 * 16;
+}
+
+// LAPACK's sfmin (dlamch('S')): below it dgetf2 divides by the pivot
+// instead of scaling by its reciprocal.
+template <typename T>
+__device__ __forceinline__ T fit_sfmin() {
+  return sizeof(T) == 8 ? T(2.2250738585072014e-308) : T(1.17549435e-38f);
+}
+
+// |x| as an unsigned integer of the same order (IEEE bits of a non-negative
+// value), the pivot search's key.
+__device__ __forceinline__ unsigned long long fit_key(double x) {
+  return static_cast<unsigned long long>(__double_as_longlong(fabs(x)));
+}
+__device__ __forceinline__ unsigned long long fit_key(float x) {
+  return __float_as_uint(fabsf(x));
+}
+
+// A pivot candidate: its key, its position in the pivoted order, its row in
+// storage and its value; none is (0, ~0, ~0, 0).
+template <typename T>
+struct FitCand {
+  unsigned long long key;
+  unsigned int pos, row;
+  T value;
+};
+
+// LAPACK's idamax rule: the largest |a|, the first position among equals.
+template <typename T>
+__device__ __forceinline__ void fit_consider(FitCand<T>& best, T value, unsigned int pos,
+                                             unsigned int row) {
+  const unsigned long long key = fit_key(value);
+  if (key > best.key || (key == best.key && pos < best.pos)) best = {key, pos, row, value};
+}
+
+// The same rule over the lanes of a warp: the lane that holds the winner
+// (every lane gets it). Three reductions (the key's halves, then the
+// position among the largest), then a vote.
+template <typename T>
+__device__ __forceinline__ int fit_warp_best(const FitCand<T>& c) {
+  const unsigned int hi = static_cast<unsigned int>(c.key >> 32);
+  const unsigned int lo = static_cast<unsigned int>(c.key);
+  const unsigned int mhi = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned int mlo = __reduce_max_sync(0xffffffffu, hi == mhi ? lo : 0u);
+  const bool top = hi == mhi && lo == mlo;
+  const unsigned int mpos = __reduce_min_sync(0xffffffffu, top ? c.pos : ~0u);
+  return __ffs(__ballot_sync(0xffffffffu, top && c.pos == mpos)) - 1;
+}
+
+// Replaces ops/interpolate.py:90-133 _rbf_solve's fit (B14): the system
+// A = phi(|c_i - c_j|) - smooth I (bitwise the first design's matrix: the
+// same rbf_phi and pair_distance), P A = L U with partial pivoting as
+// LAPACK's dgetf2 (the first position of the largest |a_ik|, the column
+// below scaled by the pivot's reciprocal), and W = A^-1 B for the
+// right-hand sides B: the columns t of each plane (T, E), read as they lie;
+// W written (planes, E, T), the layout rbf_eval reads. info is the first
+// zero pivot, 1-based, or 0 (written by block 0, with the pivots, 1-based,
+// where piv is given).
+// Bound on this card: 2/3 E^3 + 2 E^2 R f64 operations or the bytes of c,
+// B and W, whichever is larger (a few ns at E = 64); in fact the dependent
+// chain of E pivot steps and E back-substitution steps (the forward
+// substitution rides in the factorization), each some hundred cycles of
+// warp reductions, shuffles and shared-memory round trips.
+// Design: one block for each group of at most kFitCols right-hand sides;
+// every block builds [A | B] (its own columns of B) in shared memory (in
+// its slice of `work` where that does not fit) and factors it alone, so no
+// grid-wide sync or second launch is needed. The factorization runs in
+// panels of kFitPanel columns. Warp 0 factors a panel alone, with no block
+// barrier inside: each step reduces the lanes' candidates with the idamax
+// rule (each lane has formed its candidate's reciprocal meanwhile), takes
+// the winner's row, reciprocal and value by shuffles, and each lane scales
+// its rows' entries and updates the panel's columns to the right in
+// registers, forming its candidate for the next column as it goes; rows
+// stay in place and their pivoted positions are tracked. Then the block
+// solves the panel's rows of U right of it (each column's chain in order)
+// and applies the panel's rank-1 updates to the rows below, each element's
+// updates in pivot order as dgetf2 makes them, B's columns too (the
+// forward substitution with unit L): three barriers a panel. The back
+// substitution with U is a warp's for its columns, 32 rows at a time in
+// registers, the quotient passed by a shuffle (y / d as y r, corrected by
+// one fused multiply-add, r = 1/d formed once a row), then the rows above.
+// Every sum has a fixed order, so calls repeat bit for bit. Offsets are
+// 32-bit in shared memory, 64-bit in the workspace.
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
+    const T* __restrict__ c, const T* __restrict__ eps, const T* __restrict__ b0,
+    const T* __restrict__ b1, T* __restrict__ w, int32_t* __restrict__ info_out,
+    int32_t* __restrict__ piv_out, unsigned char* __restrict__ work, int64_t n_elec,
+    int64_t n_frames, int64_t n_rhs, int64_t cols, int64_t ld_, int64_t stride, int kind,
+    double smooth) {
+  using I = typename std::conditional<kShared, int, int64_t>::type;
+  extern __shared__ __align__(16) unsigned char fit_smem[];
+  unsigned char* base;
+  if constexpr (kShared) {
+    base = fit_smem;
+  } else {
+    base = work + static_cast<int64_t>(blockIdx.x) * stride;
+  }
+  const I E = static_cast<I>(n_elec), ld = static_cast<I>(ld_);
+  T* a = reinterpret_cast<T*>(base);
+  T* cs = a + E * ld;
+  int32_t* pos = reinterpret_cast<int32_t*>(base + fit_matrix_bytes<T>(n_elec, ld_));
+  int32_t* prow = pos + E;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * cols;
+  const I nc = static_cast<I>(n_rhs - q0 < cols ? n_rhs - q0 : cols);
+  const I width = E + nc;
+  const T e_shape = eps[0];
+
+  // [A | B] (A's upper triangle computed, mirrored: pair_distance is
+  // symmetric bit for bit) and the identity order.
+  for (I k = tid; k < 3 * E; k += kFitThreads) cs[k] = c[k];
+  for (I k = tid; k < E; k += kFitThreads) pos[k] = static_cast<int32_t>(k);
+  for (I col = warp; col < nc; col += kFitWarps) {
+    const int64_t q = q0 + col;
+    const bool second = q >= n_frames;
+    const T* plane = (second ? b1 : b0) + (q - (second ? n_frames : 0)) * n_elec;
+    for (I r = lane; r < E; r += 32) a[r * ld + E + col] = plane[r];
+  }
+  __syncthreads();
+  for (I i = warp; i < E; i += kFitWarps) {
+    for (I j = i + lane; j < E; j += 32) {
+      const T phi = rbf_phi(pair_distance(cs + 3 * i, cs + 3 * j), e_shape, kind);
+      a[i * ld + j] = i == j ? rn_sub(phi, T(smooth)) : phi;
+      if (j != i) a[j * ld + i] = phi;
+    }
+  }
+  __syncthreads();
+
+  int32_t info = 0;
+  const int g = tid / kFitLanes, l = tid % kFitLanes;
+  const FitCand<T> none = {0ull, ~0u, ~0u, T(0)};
+  for (I p0 = 0; p0 < E; p0 += kFitPanel) {
+    const I p1 = p0 + kFitPanel < E ? p0 + kFitPanel : E;
+    const int nb = static_cast<int>(p1 - p0);
+    if (warp == 0) {
+      // The panel's first column's candidates, then dgetf2's steps.
+      FitCand<T> best = none;
+      for (I r = lane; r < E; r += 32) {
+        const int32_t p = pos[r];
+        if (p >= p0) {
+          fit_consider(best, a[r * ld + p0], static_cast<unsigned int>(p),
+                       static_cast<unsigned int>(r));
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kFitPanel; ++kk) {
+        if (kk < nb) {
+          const I k = p0 + kk;
+          const T mine = best.value;
+          const T my_rinv = fabs(mine) >= fit_sfmin<T>() ? rn_div(T(1), mine) : T(1);
+          const int src = fit_warp_best(best);
+          const I lp = static_cast<I>(__shfl_sync(0xffffffffu, best.pos, src));
+          const I pr = static_cast<I>(__shfl_sync(0xffffffffu, best.row, src));
+          const T piv = __shfl_sync(0xffffffffu, mine, src);
+          const T rinv = __shfl_sync(0xffffffffu, my_rinv, src);
+          const bool zero = piv == T(0);
+          const bool recip = fabs(piv) >= fit_sfmin<T>();
+          if (zero && info == 0) info = static_cast<int32_t>(k + 1);
+          if (lane == 0) {
+            prow[k] = static_cast<int32_t>(pr);
+            if (piv_out != nullptr && blockIdx.x == 0) piv_out[k] = static_cast<int32_t>(lp + 1);
+          }
+          const T* pivot_row = a + pr * ld + p0;
+          T u[kFitPanel];
+#pragma unroll
+          for (int jj = kk + 1; jj < kFitPanel; ++jj) u[jj] = jj < nb ? pivot_row[jj] : T(0);
+          best = none;
+          for (I r = lane; r < E; r += 32) {
+            const int32_t p = pos[r];
+            const int32_t np = r == pr ? static_cast<int32_t>(k)
+                                       : (p == k ? static_cast<int32_t>(lp) : p);
+            if (np != p) pos[r] = np;
+            if (np <= k) continue;  // the pivot row, or a row of U already
+            T* row = a + r * ld + p0;
+            T v[kFitPanel];
+#pragma unroll
+            for (int jj = kk; jj < kFitPanel; ++jj) v[jj] = jj < nb ? row[jj] : T(0);
+            const T lr = zero ? v[kk] : (recip ? rn_mul(v[kk], rinv) : rn_div(v[kk], piv));
+            row[kk] = lr;
+#pragma unroll
+            for (int jj = kk + 1; jj < kFitPanel; ++jj) {
+              if (jj < nb) {
+                v[jj] = rn_fma(-lr, u[jj], v[jj]);
+                row[jj] = v[jj];
+              }
+            }
+            if (kk + 1 < nb) {
+              fit_consider(best, v[kk + 1], static_cast<unsigned int>(np),
+                           static_cast<unsigned int>(r));
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+    __syncthreads();
+    // The panel's rows of U right of it (B's columns too): each column's
+    // chain in pivot order, in registers.
+    T* urow[kFitPanel];
+#pragma unroll
+    for (int m = 0; m < kFitPanel; ++m) urow[m] = a + (m < nb ? prow[p0 + m] : 0) * ld;
+    for (I j = p1 + tid; j < width; j += kFitThreads) {
+      T u[kFitPanel];
+#pragma unroll
+      for (int m = 0; m < kFitPanel; ++m) u[m] = m < nb ? urow[m][j] : T(0);
+#pragma unroll
+      for (int kk = 1; kk < kFitPanel; ++kk) {
+        if (kk < nb) {
+#pragma unroll
+          for (int m = 0; m < kk; ++m) u[kk] = rn_fma(-urow[kk][p0 + m], u[m], u[kk]);
+        }
+      }
+#pragma unroll
+      for (int m = 1; m < kFitPanel; ++m) {
+        if (m < nb) urow[m][j] = u[m];
+      }
+    }
+    __syncthreads();
+    // The rows below the panel: the panel's rank-1 updates in pivot order,
+    // a row to kFitLanes lanes (columns j = l mod 4, four at a time), its
+    // multipliers in registers.
+    for (I r = g; r < E; r += kFitGroups) {
+      if (pos[r] < p1) continue;
+      T* row = a + r * ld;
+      T lr[kFitPanel];
+#pragma unroll
+      for (int m = 0; m < kFitPanel; ++m) lr[m] = m < nb ? row[p0 + m] : T(0);
+      I j = p1 + l;
+      for (; j + 3 * kFitLanes < width; j += 4 * kFitLanes) {
+        T acc[4], uu[4][kFitPanel];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[q] = row[j + q * kFitLanes];
+#pragma unroll
+          for (int m = 0; m < kFitPanel; ++m) uu[q][m] = m < nb ? urow[m][j + q * kFitLanes] : T(0);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int m = 0; m < kFitPanel; ++m) {
+            if (m < nb) acc[q] = rn_fma(-lr[m], uu[q][m], acc[q]);
+          }
+          row[j + q * kFitLanes] = acc[q];
+        }
+      }
+      for (; j < width; j += kFitLanes) {
+        T acc = row[j];
+#pragma unroll
+        for (int m = 0; m < kFitPanel; ++m) {
+          if (m < nb) acc = rn_fma(-lr[m], urow[m][j], acc);
+        }
+        row[j] = acc;
+      }
+    }
+    __syncthreads();
+  }
+  if (blockIdx.x == 0 && tid == 0) info_out[0] = info;
+
+  // U x = y for the warp's columns, 32 rows at a time from the bottom: lane
+  // i's row in registers, x_k from lane k by a shuffle; then the rows above
+  // take the block's x in descending k (dtrsm's order).
+  const I per_warp = static_cast<I>(cols / kFitWarps);
+  const I c0 = warp * per_warp;
+  for (I hi = E; hi > 0; hi -= 32) {
+    const I lo = hi > 32 ? hi - 32 : 0;
+    const I i = lo + lane;
+    const bool in = i < hi;
+    const T* ri = a + (in ? prow[i] : 0) * ld;
+    T y[kFitColsWarp], x[kFitColsWarp];
+#pragma unroll
+    for (int cc = 0; cc < kFitColsWarp; ++cc) {
+      y[cc] = in && cc < per_warp && c0 + cc < nc ? ri[E + c0 + cc] : T(0);
+      x[cc] = T(0);
+    }
+    const T d = in ? ri[i] : T(1);
+    const T rd = rn_div(T(1), d);
+    for (I k = hi - 1; k >= lo; --k) {
+      const int src = static_cast<int>(k - lo);
+      const bool below = in && i < k;
+      const T u = below ? ri[k] : T(0);
+#pragma unroll
+      for (int cc = 0; cc < kFitColsWarp; ++cc) {
+        const T q = rn_mul(y[cc], rd);
+        const T xk = __shfl_sync(0xffffffffu, rn_fma(rn_fma(-q, d, y[cc]), rd, q), src);
+        if (lane == src) x[cc] = xk;
+        if (below) y[cc] = rn_fma(-xk, u, y[cc]);
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < kFitColsWarp; ++cc) {
+      const I col = c0 + cc;
+      if (in && cc < per_warp && col < nc) {
+        const int64_t q = q0 + col;
+        const bool second = q >= n_frames;
+        w[((second ? n_elec : 0) + i) * n_frames + q - (second ? n_frames : 0)] = x[cc];
+      }
+    }
+    for (I r0 = 0; r0 < lo; r0 += 32) {
+      const I r = r0 + lane;
+      const bool mine = r < lo;
+      T* rr = a + (mine ? prow[r] : 0) * ld;
+      T acc[kFitColsWarp];
+#pragma unroll
+      for (int cc = 0; cc < kFitColsWarp; ++cc) {
+        acc[cc] = mine && cc < per_warp && c0 + cc < nc ? rr[E + c0 + cc] : T(0);
+      }
+      for (I k = hi - 1; k >= lo; --k) {
+        const T u = mine ? rr[k] : T(0);
+#pragma unroll
+        for (int cc = 0; cc < kFitColsWarp; ++cc) {
+          acc[cc] = rn_fma(-__shfl_sync(0xffffffffu, x[cc], static_cast<int>(k - lo)), u,
+                           acc[cc]);
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < kFitColsWarp; ++cc) {
+        if (mine && cc < per_warp && c0 + cc < nc) rr[E + c0 + cc] = acc[cc];
+      }
+    }
+    __syncwarp();
+  }
 }
 
 // K17's evaluation tiles. A warp owns 8 targets (the n side of the
@@ -534,16 +876,80 @@ int rbf_eval_frames(const void* x, const void* c, const void* eps, const void* w
                                           n_frames, kind, R * per, s);
 }
 
-template <typename T>
-int rbf_basis(const void* c, const void* eps, void* out, int64_t n_elec, int64_t kind,
-              double smooth, void* stream) {
-  const int64_t total = n_elec * n_elec;
-  if (total > 0) {
-    rbf_basis_kernel<T><<<blocks_for(total), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(c), static_cast<const T*>(eps), static_cast<T*>(out),
-        n_elec, static_cast<int>(kind), smooth);
+// The opt-in shared memory of a block on the current device, read once.
+inline int64_t smem_optin() {
+  static int optin = 0;
+  if (optin == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (optin <= 0) optin = 48 * 1024;
   }
+  return optin;
+}
+
+// K17's fit for E electrodes and R right-hand sides: kFitCols columns a
+// block (16 or 8 for R <= 16 or 8, or where 32 do not fit), in shared
+// memory where the block's working set fits (to about E = 155 in float64),
+// else in a slice of the workspace a block (L2-resident at these sizes).
+struct FitLayout {
+  int64_t cols, ld, stride, blocks;
+  bool shared;
+};
+
+template <typename T>
+FitLayout fit_layout(int64_t n_elec, int64_t n_rhs) {
+  const int64_t want = n_rhs <= 8 ? 8 : (n_rhs <= 16 ? 16 : kFitCols);
+  const int64_t room = smem_optin();
+  FitLayout f{};
+  for (int64_t cols = want; cols >= 8 && !f.shared; cols /= 2) {
+    f.cols = cols;
+    f.ld = fit_ld<T>(n_elec + cols);
+    f.stride = fit_bytes<T>(n_elec, f.ld);
+    f.shared = f.stride <= room;
+  }
+  if (!f.shared) {
+    f.cols = want;
+    f.ld = fit_ld<T>(n_elec + want);
+    f.stride = fit_bytes<T>(n_elec, f.ld);
+  }
+  f.blocks = n_rhs > 0 ? (n_rhs + f.cols - 1) / f.cols : 1;
+  return f;
+}
+
+template <typename T>
+int64_t rbf_fit_workspace(int64_t n_elec, int64_t n_frames, int64_t n_planes) {
+  if (n_elec <= 0) return 0;
+  const FitLayout f = fit_layout<T>(n_elec, n_planes * n_frames);
+  return f.shared ? 0 : f.blocks * f.stride;
+}
+
+template <typename T>
+int rbf_fit(const void* c, const void* eps, const void* b0, const void* b1, void* w,
+            void* info, void* piv, void* work, int64_t n_elec, int64_t n_frames,
+            int64_t kind, double smooth, void* stream) {
+  if (n_elec <= 0) return static_cast<int>(cudaGetLastError());
+  const int64_t n_rhs = (b1 != nullptr ? 2 : 1) * n_frames;
+  const FitLayout f = fit_layout<T>(n_elec, n_rhs);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto args = [&](auto kernel, size_t smem) {
+    kernel<<<static_cast<unsigned int>(f.blocks), kFitThreads, smem, s>>>(
+        static_cast<const T*>(c), static_cast<const T*>(eps), static_cast<const T*>(b0),
+        static_cast<const T*>(b1), static_cast<T*>(w), static_cast<int32_t*>(info),
+        static_cast<int32_t*>(piv), static_cast<unsigned char*>(work), n_elec, n_frames,
+        n_rhs, f.cols, f.ld, f.stride, static_cast<int>(kind), smooth);
+  };
+  if (!f.shared) {
+    args(rbf_fit_kernel<T, false>, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (f.stride > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        rbf_fit_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(f.stride));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  args(rbf_fit_kernel<T, true>, static_cast<size_t>(f.stride));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -571,10 +977,16 @@ int rbf_eval(const void* x, const void* c, const void* eps, const void* w,
     return mf::wave_speed<T>(movie, triangles, grad_w, areas, vertex_cells, basis,  \
                              out, n_frames, n_vert, width, dt, output, stream);     \
   }                                                                                 \
-  extern "C" int mf_rbf_basis_##SUFFIX(const void* c, const void* eps, void* out,    \
-                                       int64_t n_elec, int64_t kind, double smooth, \
-                                       void* stream) {                              \
-    return mf::rbf_basis<T>(c, eps, out, n_elec, kind, smooth, stream);             \
+  extern "C" int64_t mf_rbf_fit_workspace_##SUFFIX(int64_t n_elec, int64_t n_frames,   \
+                                                 int64_t n_planes) {                \
+    return mf::rbf_fit_workspace<T>(n_elec, n_frames, n_planes);                    \
+  }                                                                                 \
+  extern "C" int mf_rbf_fit_##SUFFIX(const void* c, const void* eps, const void* b0,   \
+                                     const void* b1, void* w, void* info, void* piv, \
+                                     void* work, int64_t n_elec, int64_t n_frames,  \
+                                     int64_t kind, double smooth, void* stream) {   \
+    return mf::rbf_fit<T>(c, eps, b0, b1, w, info, piv, work, n_elec, n_frames, kind, \
+                          smooth, stream);                                          \
   }                                                                                 \
   extern "C" int mf_rbf_eval_##SUFFIX(const void* x, const void* c, const void* eps, \
                                       const void* w, const void* w_im, void* out,   \

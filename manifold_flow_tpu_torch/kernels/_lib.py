@@ -2,7 +2,8 @@
 
 `library()` builds `csrc/*.cu` (through `kernels.build`) and loads the result
 with ctypes at first use; every C entry point is registered here with its
-argument types, in float32 (`_f32`) and float64 (`_f64`) instances.
+argument types, in float32 (`_f32`) and float64 (`_f64`) instances, and so
+are the entry points that size a kernel's workspace (`_workspace`).
 `LAUNCHES` counts kernel launches by "name<ctype>" across all wrapper
 modules, so one counted run sees every kernel; `_launch` adds one where it
 launches and nowhere else.
@@ -50,7 +51,7 @@ _ARGTYPES = {
     "winding_profile": [_P] * 8 + [_I] * 5 + [_P],
     # field_kernels.cu (kernels.fields)
     "wave_speed": [_P] * 7 + [_I] * 3 + [_D] + [_I] + [_P],
-    "rbf_basis": [_P] * 3 + [_I] * 2 + [_D] + [_P],
+    "rbf_fit": [_P] * 8 + [_I] * 3 + [_D] + [_P],
     "rbf_eval": [_P] * 6 + [_I] * 4 + [_P],
 }
 # Entry points that read and write integers only, one int32 instance each
@@ -60,6 +61,9 @@ _INT_ARGTYPES = {
     "pack_walks": [_P] * 5 + [_I] * 2 + [_P],
 }
 _INT = ("int", "i32")
+# Entry points that size a kernel's workspace in bytes (no launch), one a
+# float type each: mf_<name>_workspace_<suffix>.
+_WORKSPACE_ARGTYPES = {"rbf_fit": [_I] * 3}
 
 LAUNCHES: dict[str, int] = {
     **{f"{name}<{ctype}>": 0 for name in _ARGTYPES for ctype, _ in _CTYPES.values()},
@@ -91,6 +95,11 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"mf_{name}_{_INT[1]}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _WORKSPACE_ARGTYPES.items():
+            for _, suffix in _CTYPES.values():
+                fn = getattr(lib, f"mf_{name}_workspace_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int64
         lib.mf_error_string.argtypes = [ctypes.c_int]
         lib.mf_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -152,6 +161,17 @@ def _float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
+
+
+def _workspace(name: str, dtype: torch.dtype, device: torch.device,
+               *args) -> torch.Tensor | None:
+    """The scratch kernel `name` (its `dtype` instance) needs for `args`, as
+    its entry point mf_<name>_workspace sizes it on `device`: a uint8
+    tensor, or None where it needs none."""
+    fn = getattr(library(), f"mf_{name}_workspace_{_CTYPES[dtype][1]}")
+    with torch.cuda.device(device):
+        nbytes = fn(*args)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes > 0 else None
 
 
 def _launch(name: str, dtype: torch.dtype | None, device: torch.device, *args) -> None:

@@ -10,11 +10,14 @@ The plain versions compose the JAX package's operations one torch call at a
 time: the gradient as its einsum and gather (ops/wavespeed.py:27-48), the
 tangent plane through `geometry.tangent`, the time derivatives of
 `ops.phase`, the distances in `_pairwise_dist`'s difference form (never
-`torch.cdist`'s matrix form, which rounds otherwise) and the evaluation as
-`b @ w`. K17 sums in another order (float64 in the tensor cores' products,
-float32 in fused multiply-adds), so the two agree to rounding; K16's
-outputs are the plain version's to rounding too, and the same bits as
-its first design's.
+`torch.cdist`'s matrix form, which rounds otherwise), the fit as
+`torch.linalg.lu_factor_ex` and `lu_solve`, and the evaluation as `b @ w`.
+K17's fit pivots as LAPACK's dgetf2 does and sums in its own fixed order,
+so its weights agree with the library's to the system's conditioning and
+its backward error to rounding; its evaluation sums in another order
+(float64 in the tensor cores' products, float32 in fused multiply-adds), so
+the two agree to rounding; K16's outputs are the plain version's to
+rounding too, and the same bits as its first design's.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from manifold_flow_tpu_torch.kernels._lib import (
     _launch,
     _on_cuda,
     _ptr,
+    _workspace,
 )
 from manifold_flow_tpu_torch.ops.phase import (
     temporal_gradient_amplitude,
@@ -131,20 +135,56 @@ def _rbf_args(x, c, eps, kind):
     return dtype
 
 
-def rbf_basis(c: torch.Tensor, eps: torch.Tensor, kind: str,
-              smooth: float = 0.0) -> torch.Tensor:
-    """K17 `rbf_basis<T>`: the system matrix phi(|c_i - c_j| / eps) - smooth
-    I (E, E) of the electrodes c (E, 3) (ops/interpolate.py:93-94). eps is a
-    one-element tensor on the same device (no host read). Bound by the
-    output's bytes; one thread per entry."""
+def rbf_fit(c: torch.Tensor, eps: torch.Tensor, planes, kind: str,
+            smooth: float = 0.0,
+            pivots: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K17 `rbf_fit<T>`: the RBF weights W (planes, E, T) of one or two
+    planes of values (T, E) sampled at the electrodes c (E, 3), and an int32
+    info word (1,): the first zero pivot, 1-based as LAPACK numbers it, or 0
+    (else W holds no solution). Each W[i] is the contiguous (E, T) that
+    `rbf_eval` takes. eps is a one-element tensor on the same device (no
+    host read); `pivots`, where given, an int32 (E,) tensor that receives
+    LAPACK's 1-based row interchanges.
+
+    Replaces ops/interpolate.py:90-133 _rbf_solve's fit (B14): the system
+    A = phi(|c_i - c_j| / eps) - smooth I, its LU factorization with partial
+    pivoting (LAPACK dgetf2's: the first row of the largest |a_ik|, the
+    column scaled by the pivot's reciprocal) and the solve of every frame of
+    every plane, in one launch. Bound: the larger of 2/3 E^3 + 2 E^2 R
+    operations (R = planes T) and the bytes of c, the planes and W; in fact
+    its dependent chain of E pivot steps and E back-substitution steps.
+    Design: a block for each group of at most 32 right-hand sides builds
+    [A | B] in shared memory (in a workspace slice a block past about E =
+    155 in float64) and factors it alone in panels of 8 columns: warp 0
+    factors a panel with warp reductions and shuffles, no block barrier
+    inside; the block then solves the panel's rows of U and applies its
+    rank-1 updates below, B's columns too (the forward substitution), each
+    element's updates in dgetf2's order; then a warp substitutes back
+    through U for its 4 columns, 32 rows at a time in registers. No host
+    sync: the caller reads info."""
     dtype = _rbf_args(c, c, eps, kind)
-    if not _on_cuda(c, eps):
-        return plain_rbf_basis(c, eps, kind, smooth)
-    e = c.shape[0]
-    out = torch.empty((e, e), dtype=dtype, device=c.device)
-    _launch("rbf_basis", dtype, c.device, c.data_ptr(), eps.data_ptr(), out.data_ptr(),
-            e, RBF_KINDS[kind], float(smooth))
-    return out
+    planes = tuple(planes)
+    if len(planes) not in (1, 2):
+        raise ValueError(f"rbf_fit takes one or two planes of values; got {len(planes)}")
+    if planes[0].dim() != 2:
+        raise ValueError(f"each plane must be (T, E); got {tuple(planes[0].shape)}")
+    e, t = c.shape[0], planes[0].shape[0]
+    for i, plane in enumerate(planes):
+        _check(f"planes[{i}]", plane, dtype, (t, e))
+    if pivots is not None:
+        _check("pivots", pivots, torch.int32, (e,))
+    if not _on_cuda(c, eps, *planes, pivots):
+        return plain_rbf_fit(c, eps, planes, kind, smooth, pivots)
+    device = c.device
+    w = torch.empty((len(planes), e, t), dtype=dtype, device=device)
+    if e == 0:
+        return w, torch.zeros(1, dtype=torch.int32, device=device)
+    info = torch.empty(1, dtype=torch.int32, device=device)
+    work = _workspace("rbf_fit", dtype, device, e, t, len(planes))
+    _launch("rbf_fit", dtype, device, c.data_ptr(), eps.data_ptr(), planes[0].data_ptr(),
+            _ptr(planes[1] if len(planes) == 2 else None), w.data_ptr(), info.data_ptr(),
+            _ptr(pivots), _ptr(work), e, t, RBF_KINDS[kind], float(smooth))
+    return w, info
 
 
 def rbf_eval(x: torch.Tensor, c: torch.Tensor, eps: torch.Tensor, w: torch.Tensor,
@@ -196,9 +236,22 @@ def rbf_phi(r: torch.Tensor, epsilon, kind: str) -> torch.Tensor:
 
 
 def plain_rbf_basis(c, eps, kind, smooth=0.0):
-    """Plain torch version of `rbf_basis`."""
+    """The system matrix phi(|c_i - c_j| / eps) - smooth I (E, E)
+    (ops/interpolate.py:93-94)."""
     a = rbf_phi(pairwise_dist(c, c), eps, kind)
     return a - smooth * torch.eye(c.shape[0], dtype=a.dtype, device=a.device)
+
+
+def plain_rbf_fit(c, eps, planes, kind, smooth=0.0, pivots=None):
+    """Plain torch version of `rbf_fit`: the system of `plain_rbf_basis`,
+    `torch.linalg.lu_factor_ex` and `lu_solve` of the planes stacked as
+    columns (E, planes T)."""
+    e, t = c.shape[0], planes[0].shape[0]
+    lu, piv, info = torch.linalg.lu_factor_ex(plain_rbf_basis(c, eps, kind, smooth))
+    w = torch.linalg.lu_solve(lu, piv, torch.cat([p.T for p in planes], dim=1))
+    if pivots is not None:
+        pivots.copy_(piv)
+    return w.reshape(e, len(planes), t).transpose(0, 1).contiguous(), info.reshape(1)
 
 
 def plain_rbf_eval(x, c, eps, w, kind, w_im=None):

@@ -8,13 +8,21 @@ every frame is one right-hand side. scipy's defaults: the multiquadric
 kernel sqrt((r/eps)^2 + 1), eps = (prod(nonzero bbox edges)/n)^(1/dim),
 smooth = 0.
 
-On CUDA tensors the system matrix and the evaluation at the targets are
-K17 (`kernels.fields`); the LU factorization and the multi-RHS solve are
-`torch.linalg.lu_factor` / `lu_solve` in the coordinates' dtype (float64
-on the pipeline's path), as the JAX package's are
-`jax.scipy.linalg.lu_factor` on every backend. The JAX package's float32
-factor with three refinement steps exists because a float64 LU does not
-compile on the TPU, and is not ported.
+On CUDA tensors the fit (the system, its LU factorization with partial
+pivoting and the solve of every frame of every plane) is one launch of K17
+`rbf_fit`, and the evaluation at the targets K17 `rbf_eval`
+(`kernels.fields`), in the coordinates' dtype (float64 on the pipeline's
+path); on CPU tensors the fit is `torch.linalg.lu_factor_ex` / `lu_solve`,
+as the JAX package's is `jax.scipy.linalg.lu_factor` on every backend. The
+JAX package's float32 factor with three refinement steps exists because a
+float64 LU does not compile on the TPU, and is not ported.
+
+A zero pivot (two electrodes at one place with smooth = 0, or a singular
+kernel matrix) raises ValueError on both devices, naming the pivot. This
+differs from the JAX package on purpose, which returns whatever its
+factorization gives there (non-finite or meaningless values) without an
+error (ROADMAP Queue C). The info word is read once, after the evaluation
+is queued: the fit's only host sync.
 """
 
 from __future__ import annotations
@@ -61,18 +69,22 @@ def rbf_interpolate_phases(coords: torch.Tensor, phi: torch.Tensor,
 
 def _rbf_solve(coords, planes, targets, epsilon, smooth, kind, angle=False):
     """The interpolant (T, P) at targets of each real plane (T, E) of values,
-    with one LU of the system for all planes; with angle=True the two planes
-    are a complex value's parts and the one result is its angle."""
+    with one fit for all planes; with angle=True the two planes are a
+    complex value's parts and the one result is its angle."""
     coords = coords.contiguous()
     if epsilon is None:
         epsilon = scipy_default_epsilon(coords)
     eps = torch.as_tensor(epsilon, dtype=coords.dtype, device=coords.device).reshape(1)
-    a = kf.rbf_basis(coords, eps, kind, smooth)
-    lu, piv = torch.linalg.lu_factor(a)
-    t = planes[0].shape[0]
-    w = torch.linalg.lu_solve(lu, piv, torch.cat([p.T.to(a.dtype) for p in planes], dim=1))
-    weights = [w[:, i * t:(i + 1) * t].contiguous() for i in range(len(planes))]
+    w, info = kf.rbf_fit(coords, eps, [p.to(coords.dtype).contiguous() for p in planes],
+                         kind, smooth)
     x = targets.to(coords.dtype).contiguous()
     if angle:
-        return (kf.rbf_eval(x, coords, eps, weights[0], kind, weights[1]),)
-    return tuple(kf.rbf_eval(x, coords, eps, wi, kind) for wi in weights)
+        out = (kf.rbf_eval(x, coords, eps, w[0], kind, w[1]),)
+    else:
+        out = tuple(kf.rbf_eval(x, coords, eps, wi, kind) for wi in w)
+    first = int(info[0])
+    if first:
+        raise ValueError(f"the RBF system of {coords.shape[0]} electrodes is singular: "
+                         f"pivot {first} is zero (two electrodes coincide, or the "
+                         f"{kind} kernel matrix is singular)")
+    return out

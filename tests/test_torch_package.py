@@ -188,7 +188,7 @@ def test_reset_launches_zeroes_every_count():
         "pcg_update", "pcg_direction", "recombine_speed", "detect_singular",
         "compact_detected", "coarse_assemble", "coarse_restrict", "coarse_gemv",
         "coarse_prolong_dot", "classify_candidates", "next_hop", "trace_walks",
-        "pack_walks", "winding_profile", "wave_speed", "rbf_basis", "rbf_eval"}
+        "pack_walks", "winding_profile", "wave_speed", "rbf_fit", "rbf_eval"}
     assert kernels.LAUNCHES is _lib.LAUNCHES
 
 
