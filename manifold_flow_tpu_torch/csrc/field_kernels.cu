@@ -255,7 +255,7 @@ __device__ __forceinline__ T pair_distance(const T* a, const T* b) {
 }
 
 // K17's fit (rbf_fit_kernel): 256 threads a block, each block at most
-// kFitCols right-hand sides (kFitCols / 8 a warp in the back substitution);
+// kFitCols right-hand sides (kFitColsWarp a warp in the back substitution);
 // the factorization in panels of kFitPanel columns.
 constexpr int kFitThreads = 256;
 constexpr int kFitWarps = kFitThreads / 32;
@@ -372,8 +372,7 @@ __global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
     const T* __restrict__ c, const T* __restrict__ eps, const T* __restrict__ b0,
     const T* __restrict__ b1, T* __restrict__ w, int32_t* __restrict__ info_out,
     int32_t* __restrict__ piv_out, unsigned char* __restrict__ work, int64_t n_elec,
-    int64_t n_frames, int64_t n_rhs, int64_t cols, int64_t ld_, int64_t stride, int kind,
-    double smooth) {
+    int64_t n_frames, int64_t n_rhs, int64_t ld_, int64_t stride, int kind, double smooth) {
   using I = typename std::conditional<kShared, int, int64_t>::type;
   extern __shared__ __align__(16) unsigned char fit_smem[];
   unsigned char* base;
@@ -388,8 +387,8 @@ __global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
   int32_t* pos = reinterpret_cast<int32_t*>(base + fit_matrix_bytes<T>(n_elec, ld_));
   int32_t* prow = pos + E;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * cols;
-  const I nc = static_cast<I>(n_rhs - q0 < cols ? n_rhs - q0 : cols);
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kFitCols;
+  const I nc = static_cast<I>(n_rhs - q0 < kFitCols ? n_rhs - q0 : kFitCols);
   const I width = E + nc;
   const T e_shape = eps[0];
 
@@ -545,9 +544,10 @@ __global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
 
   // U x = y for the warp's columns, 32 rows at a time from the bottom: lane
   // i's row in registers, x_k from lane k by a shuffle; then the rows above
-  // take the block's x in descending k (dtrsm's order).
-  const I per_warp = static_cast<I>(cols / kFitWarps);
-  const I c0 = warp * per_warp;
+  // take the block's x in descending k (dtrsm's order). A warp with no
+  // column left has nothing to do.
+  const I c0 = warp * kFitColsWarp;
+  if (c0 >= nc) return;
   for (I hi = E; hi > 0; hi -= 32) {
     const I lo = hi > 32 ? hi - 32 : 0;
     const I i = lo + lane;
@@ -556,7 +556,7 @@ __global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
     T y[kFitColsWarp], x[kFitColsWarp];
 #pragma unroll
     for (int cc = 0; cc < kFitColsWarp; ++cc) {
-      y[cc] = in && cc < per_warp && c0 + cc < nc ? ri[E + c0 + cc] : T(0);
+      y[cc] = in && c0 + cc < nc ? ri[E + c0 + cc] : T(0);
       x[cc] = T(0);
     }
     const T d = in ? ri[i] : T(1);
@@ -576,7 +576,7 @@ __global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
 #pragma unroll
     for (int cc = 0; cc < kFitColsWarp; ++cc) {
       const I col = c0 + cc;
-      if (in && cc < per_warp && col < nc) {
+      if (in && col < nc) {
         const int64_t q = q0 + col;
         const bool second = q >= n_frames;
         w[((second ? n_elec : 0) + i) * n_frames + q - (second ? n_frames : 0)] = x[cc];
@@ -589,7 +589,7 @@ __global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
       T acc[kFitColsWarp];
 #pragma unroll
       for (int cc = 0; cc < kFitColsWarp; ++cc) {
-        acc[cc] = mine && cc < per_warp && c0 + cc < nc ? rr[E + c0 + cc] : T(0);
+        acc[cc] = mine && c0 + cc < nc ? rr[E + c0 + cc] : T(0);
       }
       for (I k = hi - 1; k >= lo; --k) {
         const T u = mine ? rr[k] : T(0);
@@ -601,7 +601,7 @@ __global__ void __launch_bounds__(kFitThreads) rbf_fit_kernel(
       }
 #pragma unroll
       for (int cc = 0; cc < kFitColsWarp; ++cc) {
-        if (mine && cc < per_warp && c0 + cc < nc) rr[E + c0 + cc] = acc[cc];
+        if (mine && c0 + cc < nc) rr[E + c0 + cc] = acc[cc];
       }
     }
     __syncwarp();
@@ -889,31 +889,21 @@ inline int64_t smem_optin() {
 }
 
 // K17's fit for E electrodes and R right-hand sides: kFitCols columns a
-// block (16 or 8 for R <= 16 or 8, or where 32 do not fit), in shared
-// memory where the block's working set fits (to about E = 155 in float64),
-// else in a slice of the workspace a block (L2-resident at these sizes).
+// block, in shared memory where the block's working set fits (to E = 148
+// in float64, 219 in float32, on the H100), else in a slice of the
+// workspace a block (L2-resident at these sizes).
 struct FitLayout {
-  int64_t cols, ld, stride, blocks;
+  int64_t ld, stride, blocks;
   bool shared;
 };
 
 template <typename T>
 FitLayout fit_layout(int64_t n_elec, int64_t n_rhs) {
-  const int64_t want = n_rhs <= 8 ? 8 : (n_rhs <= 16 ? 16 : kFitCols);
-  const int64_t room = smem_optin();
   FitLayout f{};
-  for (int64_t cols = want; cols >= 8 && !f.shared; cols /= 2) {
-    f.cols = cols;
-    f.ld = fit_ld<T>(n_elec + cols);
-    f.stride = fit_bytes<T>(n_elec, f.ld);
-    f.shared = f.stride <= room;
-  }
-  if (!f.shared) {
-    f.cols = want;
-    f.ld = fit_ld<T>(n_elec + want);
-    f.stride = fit_bytes<T>(n_elec, f.ld);
-  }
-  f.blocks = n_rhs > 0 ? (n_rhs + f.cols - 1) / f.cols : 1;
+  f.ld = fit_ld<T>(n_elec + kFitCols);
+  f.stride = fit_bytes<T>(n_elec, f.ld);
+  f.shared = f.stride <= smem_optin();
+  f.blocks = n_rhs > 0 ? (n_rhs + kFitCols - 1) / kFitCols : 1;
   return f;
 }
 
@@ -937,7 +927,7 @@ int rbf_fit(const void* c, const void* eps, const void* b0, const void* b1, void
         static_cast<const T*>(c), static_cast<const T*>(eps), static_cast<const T*>(b0),
         static_cast<const T*>(b1), static_cast<T*>(w), static_cast<int32_t*>(info),
         static_cast<int32_t*>(piv), static_cast<unsigned char*>(work), n_elec, n_frames,
-        n_rhs, f.cols, f.ld, f.stride, static_cast<int>(kind), smooth);
+        n_rhs, f.ld, f.stride, static_cast<int>(kind), smooth);
   };
   if (!f.shared) {
     args(rbf_fit_kernel<T, false>, 0);

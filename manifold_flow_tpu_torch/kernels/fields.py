@@ -154,12 +154,12 @@ def rbf_fit(c: torch.Tensor, eps: torch.Tensor, planes, kind: str,
     operations (R = planes T) and the bytes of c, the planes and W; in fact
     its dependent chain of E pivot steps and E back-substitution steps.
     Design: a block for each group of at most 32 right-hand sides builds
-    [A | B] in shared memory (in a workspace slice a block past about E =
-    155 in float64) and factors it alone in panels of 8 columns: warp 0
-    factors a panel with warp reductions and shuffles, no block barrier
-    inside; the block then solves the panel's rows of U and applies its
-    rank-1 updates below, B's columns too (the forward substitution), each
-    element's updates in dgetf2's order; then a warp substitutes back
+    [A | B] in shared memory (in a workspace slice a block past E = 148 in
+    float64, 219 in float32) and factors it alone in panels of 8 columns:
+    warp 0 factors a panel with warp reductions and shuffles, no block
+    barrier inside; the block then solves the panel's rows of U and applies
+    its rank-1 updates below, B's columns too (the forward substitution),
+    each element's updates in dgetf2's order; then a warp substitutes back
     through U for its 4 columns, 32 rows at a time in registers. No host
     sync: the caller reads info."""
     dtype = _rbf_args(c, c, eps, kind)

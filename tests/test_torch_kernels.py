@@ -1267,46 +1267,52 @@ def _fit_backward_error(a, w, planes):
     return res / max(max(float((a.abs() @ wi.abs()).max()) for wi in w), 1e-300)
 
 
-@pytest.mark.parametrize("n_elec", [1, 24, 64, 129, 200])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind", sorted(kfi.RBF_KINDS))
-def test_rbf_kernels_match_plain(cuda, kind, dtype, n_elec):
-    """K17's fit (a smoothing diagonal; one plane of 1 or 37 frames, and two
-    planes of 98, R = 1, 37, 196) against its plain version: its backward
-    error within FIT_TOL, the interpolant of its weights at the mesh's
-    vertices against the plain weights' within TOL of max sum_e |phi| |w|,
-    the same info word, two calls bitwise equal (E = 200 in float64 runs in
-    the workspace, past shared memory). Then K17's evaluation, real and
-    phase, of the plain weights against its plain version, the error
-    relative to max sum_e |phi| |w|, its rounding scale."""
-    mesh, _, _ = _problem(cuda)
-    gen = np.random.default_rng(n_elec)
+def test_rbf_kernels_match_plain(cuda, dtype, kind):
+    """K17's fit (a smoothing diagonal; E = 1, 24, 64, 129, 200, 230 random
+    electrodes, each with one plane of 1 or 37 frames and two planes of 98,
+    R = 1, 37, 196) against its plain version: its backward error within
+    FIT_TOL, the interpolant of its weights at the mesh's vertices against
+    the plain weights' within TOL of max sum_e |phi| |w|, the same info
+    word, two calls bitwise equal (E = 200 in float64 and E = 230 in both
+    dtypes run in the workspace, past shared memory). Then K17's evaluation, real and phase,
+    against its plain version; its error is relative to max sum_e |phi| |w|,
+    its rounding scale."""
+    mesh, pot, _ = _problem(cuda)
     x = mesh.points.to(dtype).contiguous()
-    c = torch.as_tensor(gen.uniform(0.0, 6.0, (n_elec, 3)), device=cuda).to(dtype)
+    for n_elec in (1, 24, 64, 129, 200, 230):
+        gen = np.random.default_rng(n_elec)
+        c = torch.as_tensor(gen.uniform(0.0, 6.0, (n_elec, 3)), device=cuda).to(dtype)
+        eps = interp.scipy_default_epsilon(c).reshape(1)
+        a = kfi.plain_rbf_basis(c, eps, kind, smooth=0.1)
+        b = kfi.rbf_phi(kfi.pairwise_dist(x, c), eps, kind)
+        for n_planes, n_frames in ((1, 1), (1, 37), (2, 98)):
+            planes = tuple(torch.as_tensor(gen.standard_normal((n_frames, n_elec)),
+                                           device=cuda).to(dtype) for _ in range(n_planes))
+            w, info = _launched("rbf_fit", dtype,
+                                lambda: kfi.rbf_fit(c, eps, planes, kind, smooth=0.1))
+            again, _ = kfi.rbf_fit(c, eps, planes, kind, smooth=0.1)
+            want, info_p = kfi.plain_rbf_fit(c, eps, planes, kind, smooth=0.1)
+            assert w.shape == (n_planes, n_elec, n_frames) and torch.equal(w, again)
+            assert int(info[0]) == int(info_p[0]) == 0 and torch.isfinite(w).all()
+            assert _fit_backward_error(a, w, planes) <= FIT_TOL[dtype]
+            scale = max(float((b.abs() @ wi.abs()).max()) for wi in want)
+            for wi, wj in zip(w, want):
+                assert float((b @ wi - b @ wj).abs().max()) <= TOL[dtype] * scale
+    gen = np.random.default_rng(3)
+    sel = torch.as_tensor(gen.choice(mesh.n_vertices, 24, replace=False), device=cuda)
+    c = x[sel].contiguous()
     eps = interp.scipy_default_epsilon(c).reshape(1)
-    a = kfi.plain_rbf_basis(c, eps, kind, smooth=0.1)
+    w, w_im = (torch.as_tensor(gen.standard_normal((24, 37)), device=cuda).to(dtype)
+               for _ in range(2))
     b = kfi.rbf_phi(kfi.pairwise_dist(x, c), eps, kind)
-    for n_planes, n_frames in ((1, 1), (1, 37), (2, 98)):
-        planes = tuple(torch.as_tensor(gen.standard_normal((n_frames, n_elec)),
-                                       device=cuda).to(dtype) for _ in range(n_planes))
-        w, info = _launched("rbf_fit", dtype,
-                            lambda: kfi.rbf_fit(c, eps, planes, kind, smooth=0.1))
-        again, _ = kfi.rbf_fit(c, eps, planes, kind, smooth=0.1)
-        want, info_p = kfi.plain_rbf_fit(c, eps, planes, kind, smooth=0.1)
-        assert w.shape == (n_planes, n_elec, n_frames) and torch.equal(w, again)
-        assert int(info[0]) == int(info_p[0]) == 0 and torch.isfinite(w).all()
-        assert _fit_backward_error(a, w, planes) <= FIT_TOL[dtype]
-        scale = max(float((b.abs() @ wi.abs()).max()) for wi in want)
-        for wi, wj in zip(w, want):
-            assert float((b @ wi - b @ wj).abs().max()) <= TOL[dtype] * scale
-    w, w_im = want
     scale = float((b.abs() @ w.abs()).max())
     got = _launched("rbf_eval", dtype, lambda: kfi.rbf_eval(x, c, eps, w, kind))
-    assert got.shape == (98, mesh.n_vertices)
+    assert got.shape == (37, mesh.n_vertices)
     assert float((got - kfi.plain_rbf_eval(x, c, eps, w, kind)).abs().max()) <= TOL[dtype] * scale
     got = _launched("rbf_eval", dtype, lambda: kfi.rbf_eval(x, c, eps, w, kind, w_im))
     z = torch.complex((b @ w).T, (b @ w_im).T)
-    scale = float(((b.abs() @ w.abs()) + (b.abs() @ w_im.abs())).max())
     assert float((z.abs() * torch.exp(1j * got) - z).abs().max()) <= 2 * TOL[dtype] * scale
 
 
