@@ -86,6 +86,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
      host to 1e-10 of the largest and the rank-K reconstruction to 1e-8 of
      its largest entry, and the demo converge and match. Prints each call's
      wall split (load, compute, write).
+  6d. batch: a results tree in the reference layout, in a temporary
+     directory: sub-01 holds the bench surface (phase 6b's PLY) with two
+     trials of its 98-frame movie (the first with phase 6c's interpolated
+     phases movie) and a third holding phase 6c's evoked movie of 64
+     electrodes as an evoked CSV beside electrodes.tsv and channels.tsv;
+     sub-02 holds the surface the `reconstruct` CLI makes from those 64
+     electrodes, with one trial of the two-source movie on it (and its
+     Hilbert phases). pipeline.batch.run_batch(stages=('interpolate',) +
+     ALL_STAGES) runs in this process, every launch count set to 0 just
+     before: no trial error, every stage done (but the second trial's
+     wavespeed: it has no phases movie), K1-K7 and K13-K17 launched. The
+     first trial's artifacts (e, V_k, speed, singularities, streamlines,
+     data_01.npz, phase wave speeds) reload equal to phase 6b/6c's CLI
+     artifacts for the same inputs, bitwise or within 1e-12 of the largest
+     value (the script says which); its amplitude wave speeds equal the
+     stage in memory, its winding lines the stage in memory on the detection
+     stage's centers (the CLI snaps the saved points again on the host: the
+     rows that differ are counted); the third trial's interpolated movies
+     and wave speeds equal phase 6c's. A second run_batch skips every stage
+     and launches nothing. Prints each trial's per-stage split and the
+     drain beside the sum of the same stages' CLI walls from phases 6, 6b
+     and 6c. Then one warm run_trial of sub-02 under torch.profiler: its
+     launches and device us a launch (the '@recon' rows' launches and
+     in-trial times), and no host-to-device copy the size of a velocity
+     field ((T, 2N) or (T, N, 3)).
+  6e. reconstructed: on sub-02's surface, K1 (float32 matvec, float64
+     residual, beside torch.sparse.mm) and K13 (float64, also held to
+     mesh_next_hop) against their plain versions, as phases 3 and 5 do
+     ('@recon' rows); prints the vertices in more than 6 cells. Then the
+     `batch` CLI in a fresh process on the 6d tree with --overwrite and
+     every stage: exit 0, no error in its report; prints its wall, which
+     holds the process's first cuFFT / cuSOLVER use.
   7. s3: S3 end-to-end frames/s as bench.py:235-255 defines it (refined
      solve at tol 1e-6, then recombination, speed map and detection, in
      float64, ending in torch.cuda.synchronize(); best of 3 after a
@@ -119,6 +151,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
  11b. trial12k: phase 6b at 12.5k vertices x 98 frames.
  11c. fields12k: phase 6c at 12.5k vertices, on phase 11's V_k.csv,
      without `demo` (it builds its own patch, whatever the mesh).
+ 11d. batch12k: one trial of phase 11b's movie and 11c's phases movie on
+     the 12.5k surface through run_batch(ALL_STAGES), checked as in 6d,
+     with K8-K11 launched too (no interpolate stage, so no K17); its split
+     beside phases 11, 11b and 11c's CLI walls.
  12. long: a 392-frame two-source movie on the bench surface, refined at tol
      1e-6 with frame_chunk='auto' (4 windows of 104) and None; both converge
      and meet the RMSE gate against spsolve on 8 frames across the windows'
@@ -193,6 +229,17 @@ PEAK_MM_OPS_S = {"float": 67e12, "double": 67e12}
 MAX_STEPS = 256       # AnalysisConfig's defaults (pipeline/config.py)
 MIN_LENGTH = 20
 LEVELS = 25
+# Each CLI call's wall, by phase tag (flow, trial, fields and their 12.5k
+# runs), for the batch phases' comparison.
+CLI_WALLS: dict[str, dict[str, float]] = {}
+
+
+def scratch_dir(prefix: str, workdir: Path | None):
+    """A temporary directory, or `workdir` (created) kept for a later phase."""
+    if workdir is None:
+        return tempfile.TemporaryDirectory(prefix=prefix)
+    workdir.mkdir(parents=True, exist_ok=True)
+    return contextlib.nullcontext(str(workdir))
 
 
 def card_line() -> str:
@@ -293,7 +340,11 @@ WRAPPER_OF = {
     "classify_candidates_kernel": "classify_candidates",
     "compact_detected_masks_kernel": "compact_detected",
     "compact_detected_snap_kernel": "compact_detected",
-    "compact_detected_merge_kernel": "compact_detected"}
+    "compact_detected_merge_kernel": "compact_detected",
+    "next_hop_kernel": "next_hop", "trace_walks_kernel": "trace_walks",
+    "pack_walks_kernel": "pack_walks", "winding_profile_kernel": "winding_profile",
+    "wave_speed_kernel": "wave_speed", "rbf_fit_kernel": "rbf_fit",
+    "rbf_eval_kernel": "rbf_eval"}
 
 
 MANGLED_TYPES = {"f": "float", "d": "double", "i": "int"}
@@ -327,7 +378,9 @@ def solve_device_us(events, launches: dict) -> dict:
         hit = kernel_of(e.key)
         if hit is None or hit[0] not in WRAPPER_OF:
             continue
-        key = f"{WRAPPER_OF[hit[0]]}<{hit[1]}>"
+        # K14's kernels read integers; their template argument is a layout.
+        ctype = "int" if hit[0] in ("trace_walks_kernel", "pack_walks_kernel") else hit[1]
+        key = f"{WRAPPER_OF[hit[0]]}<{ctype}>"
         total[key] = total.get(key, 0.0) + e.self_device_time_total
     lost = sorted(k for k, n in launches.items() if n > 0 and k not in total)
     if lost:
@@ -1442,14 +1495,16 @@ def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
             "longest": int(sl.lengths.max()), "centers": int(uniq.numel())}
 
 
-def run_trial(mesh, pot, card: str, tag: str = "trial") -> dict:
+def run_trial(mesh, pot, card: str, tag: str = "trial", workdir: Path | None = None) -> dict:
     """One trial's analysis path through the port's command line: `flow
     --classify`, then `streamline` and `winding` on its artifacts (default
     config), every launch count set to 0 just before. Checks that every
     frame converged, each kernel of TRIAL_KERNELS launched, the artifacts
     reload equal to the same stages run in memory, and that walks, classes
     and ring counts equal the plain versions' on the same CUDA tensors, then
-    once more with reference_quirks=True; returns the launch counts."""
+    once more with reference_quirks=True; returns the launch counts. The
+    calls' walls go to CLI_WALLS[tag]; with `workdir` its inputs (surface.ply,
+    movie.npy) and artifacts (out/) stay there for the batch phases."""
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.pipeline import cli, stages
     from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -1466,7 +1521,7 @@ def run_trial(mesh, pot, card: str, tag: str = "trial") -> dict:
             raise AssertionError(f"{argv[0]} CLI: rc {rc}, report {report}")
         return report, wall
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trial_") as tmp:
+    with scratch_dir("chip_smoke_trial_", workdir) as tmp:
         tmp = Path(tmp)
         mio.write_ply(tmp / "surface.ply", mesh.points.cpu().numpy(),
                       mesh.triangles.cpu().numpy())
@@ -1486,6 +1541,8 @@ def run_trial(mesh, pot, card: str, tag: str = "trial") -> dict:
                                    str(out / "singularity_points.pkl")])
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
+        CLI_WALLS[tag] = {"flow --classify": flow_s, "streamline": stream_s,
+                          "winding": wind_s}
         if not flow["converged"]:
             raise AssertionError(f"{tag}: flow did not converge: {flow}")
         idle = [k for k in TRIAL_KERNELS if launches[k] == 0]
@@ -1609,7 +1666,7 @@ def hilbert_bound(x) -> tuple:
 
 
 def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
-               demo: bool = True) -> dict:
+               demo: bool = True, workdir: Path | None = None) -> dict:
     """The field stages through the port's command line, every launch count
     set to 0 just before: `interpolate` of 64 electrodes' 1229-sample movie
     (electrodes.tsv, data.npy) with and without --phases, `wavespeed
@@ -1620,7 +1677,9 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
     the artifacts reload equal to the same stages run in memory, the SVD's
     sigma against numpy's LAPACK SVD on the host (1e-10 of the largest) and
     its rank-K reconstruction (1e-8 of its largest entry), and the demo's
-    report; returns the launch counts, with each FIELD_VARIANTS entry's."""
+    report; returns the launch counts, with each FIELD_VARIANTS entry's.
+    The calls' walls go to CLI_WALLS[tag]; with `workdir` the inputs
+    (surface.ply, electrodes.tsv, data.npy) and artifacts (out/) stay there."""
     from manifold_flow_tpu_torch.geometry import synthetic
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.pipeline import cli, stages
@@ -1651,7 +1710,7 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
             raise AssertionError(f"{argv[0]} CLI: rc {rc}, report {report}")
         return report, wall
 
-    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as tmp:
+    with scratch_dir(f"chip_smoke_{tag}_", workdir) as tmp:
         tmp = Path(tmp)
         mio.write_ply(tmp / "surface.ply", mesh.points.cpu().numpy(),
                       mesh.triangles.cpu().numpy())
@@ -1688,6 +1747,7 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
                 argvs["demo"] = ["demo", "--out-dir", str(out / "demo")]
             runs = {name: call(name, argv) for name, argv in argvs.items()}
             launches = dict(LAUNCHES)
+        CLI_WALLS[tag] = {name: wall for name, (_, wall) in runs.items()}
         launches.update({key: per_call[name][entry] for key, name, entry in FIELD_VARIANTS})
         idle = [k for k in FIELD_KERNELS + tuple(v[0] for v in FIELD_VARIANTS)
                 if launches[k] == 0]
@@ -1818,6 +1878,7 @@ def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
                 rc = cli.main(argv)
             wall = time.perf_counter() - t0
             launches = dict(LAUNCHES)
+        CLI_WALLS[tag] = {"flow": wall}
         report = json.loads(stdout.getvalue().strip().splitlines()[-1])
         if (rc != 0 or not report["converged"]
                 or not report["device"].startswith(mesh.device.type)):
@@ -2240,6 +2301,486 @@ def check_solution(name, res, v_ref, t_v, n_dof) -> float:
     return rmse
 
 
+# -------------------------------------------------------- pipeline.batch ----
+BATCH_KERNELS = FLOW_KERNELS + ("next_hop<double>", "trace_walks<int>", "pack_walks<int>",
+                                "winding_profile<double>", "wave_speed<double>")
+# Each batch stage beside the CLI call (phase tag, call) that does its work:
+# phase 6's flow, 6b's streamline and winding, 6c's decompose and wave speeds.
+CLI_OF_STAGE = {"flow": ("flow", "flow"), "streamline": ("trial", "streamline"),
+                "decompose": ("fields", "decompose concat"),
+                "wavespeed": ("fields", "wavespeed phase"),
+                "winding": ("trial", "winding"),
+                "wavespeed_amplitude": ("fields", "wavespeed amplitude")}
+# Floats of a batch artifact against the CLI's for the same inputs: equal,
+# or within this of the largest |value| (NaN and inf at the same places).
+BATCH_TOL = 1e-12
+
+
+def same_floats(got, want) -> str | None:
+    """'bitwise', 'within tol', or None when `got` differs from `want`."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return None
+    if np.array_equal(got, want, equal_nan=True):
+        return "bitwise"
+    fin = np.isfinite(want)
+    if not np.array_equal(fin, np.isfinite(got)) or not np.array_equal(
+            got[~fin], want[~fin], equal_nan=True):
+        return None
+    scale = float(np.abs(want[fin]).max()) if fin.any() else 0.0
+    err = float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+    return "within tol" if err <= BATCH_TOL * max(scale, 1e-300) else None
+
+
+def compare_artifacts(pairs) -> dict:
+    """{label: 'bitwise' | 'within tol' | None} for (label, kind, got, want)
+    artifact paths: discrete parts (frame, line and row counts, ring counts
+    and types) must be equal, floats as same_floats."""
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    def lists(a, b):
+        if len(a) != len(b):
+            return None
+        results = [same_floats(x, y) for x, y in zip(a, b)]
+        return None if None in results else (
+            "bitwise" if all(r == "bitwise" for r in results) else "within tol")
+
+    out = {}
+    for label, kind, got, want in pairs:
+        if kind == "csv":
+            out[label] = same_floats(mio.load_indexed_csv(got), mio.load_indexed_csv(want))
+        elif kind == "array":
+            out[label] = same_floats(mio.load_pickle(got), mio.load_pickle(want))
+        elif kind == "points":
+            out[label] = lists([np.asarray(p) for p in mio.load_pickle(got)],
+                               [np.asarray(p) for p in mio.load_pickle(want)])
+        elif kind == "lines":
+            a, b = mio.load_pickle(got), mio.load_pickle(want)
+            out[label] = lists(a[next(iter(a))], b[next(iter(b))]) if list(a) == list(b) else None
+        elif kind == "winding":
+            a = got if isinstance(got, dict) else mio.load_pickle(got)
+            b = want if isinstance(want, dict) else mio.load_pickle(want)
+            rows = {k: [(r[1], r[2]) for r in v] for k, v in a.items()}
+            if rows != {k: [(r[1], r[2]) for r in v] for k, v in b.items()}:
+                out[label] = None
+            else:
+                out[label] = lists([r[0] for k in a for r in a[k]],
+                                   [r[0] for k in b for r in b[k]])
+        elif kind == "npz":
+            with np.load(got) as za, np.load(want) as zb:
+                parts = [same_floats(za[k], zb[k]) for k in ("U", "Sigma", "VT")]
+                same_n = int(za["point_num"]) == int(zb["point_num"])
+            out[label] = None if None in parts or not same_n else (
+                "bitwise" if all(r == "bitwise" for r in parts) else "within tol")
+        else:
+            raise ValueError(kind)
+    return out
+
+
+def make_results_tree(root: Path, subject: str, surface: Path, trials: dict) -> None:
+    """<root>/<subject>/ in the reference layout: the surface as
+    {subject}_reconstructed_surface.ply, SamplingFrequency 512 in a sidecar,
+    and for each trial name its movie (and phases movie, where given) as
+    sub-NN_run-001-<trial>-ave-interpolation_(phases_)data.csv."""
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    subj = root / subject
+    subj.mkdir(parents=True, exist_ok=True)
+    if surface is not None:
+        shutil.copy(surface, subj / f"{subject}_reconstructed_surface.ply")
+    (subj / f"{subject}_ieeg.json").write_text(json.dumps({"SamplingFrequency": 512}))
+    for trial, (movie, phases) in trials.items():
+        tdir = subj / "run-001" / trial
+        tdir.mkdir(parents=True)
+        stem = f"{subject}_run-001-{trial}-ave"
+        mio.save_indexed_csv(tdir / f"{stem}-interpolation_data.csv", movie)
+        if isinstance(phases, Path):
+            shutil.copy(phases, tdir / f"{stem}-interpolation_phases_data.csv")
+        elif phases is not None:
+            mio.save_indexed_csv(tdir / f"{stem}-interpolation_phases_data.csv", phases)
+
+
+def trial_pairs(tdir: Path, prefix: str, subject_dir: Path, cli_trial: Path,
+                cli_fields: Path, t_v: int) -> list:
+    """The (label, kind, batch path, CLI path) pairs of one trial fed the
+    CLI runs' movie (6b's, or 11b's) and 6c's (11c's) phases movie."""
+    out = cli_trial / "out"
+    pairs = [("e.csv", "csv", subject_dir / f"{subject_dir.name}_e.csv", out / "e.csv"),
+             ("V_k.csv", "csv", tdir / f"{prefix}-V_k.csv", out / "V_k.csv"),
+             ("wave_velocity_opticalflow", "array",
+              tdir / f"{prefix}-wave_velocity_opticalflow.pkl.bz2",
+              out / "wave_velocity_opticalflow.pkl.bz2"),
+             ("singularity_points", "points", tdir / f"{prefix}-singularity_points.pkl",
+              out / "singularity_points.pkl"),
+             ("data_01.npz", "npz", tdir / "data_01.npz",
+              cli_fields / "out" / "concat" / "data_01.npz"),
+             ("wave_velocity (phase)", "array", tdir / f"{prefix}-wave_velocity.pkl.bz2",
+              cli_fields / "out" / "ws" / "wave_velocity_phase.pkl.bz2")]
+    pairs += [(f"streamlines_{k}", "lines",
+               tdir / f"t_velocityfields_streamlines_{k}.pkl.bz2",
+               out / f"t_velocityfields_streamlines_{k}.pkl.bz2") for k in range(t_v)]
+    return pairs
+
+
+def summarize(results: dict) -> str:
+    bad = sorted(k for k, v in results.items() if v is None)
+    if bad:
+        raise AssertionError(f"batch artifacts differ from the CLI's: {bad}")
+    loose = sorted(k for k, v in results.items() if v != "bitwise")
+    return (f"{len(results)} artifacts equal, "
+            + (f"bitwise but {loose} (within {BATCH_TOL:.0e})" if loose else "all bitwise"))
+
+
+def winding_with_centers(surface: Path, movie_csv: Path, device):
+    """The winding lines the batch's trial path makes: the detection stage's
+    snapped centers, in memory (the CLI snaps the saved points again on the
+    host, so rows can differ where a point lies between vertices)."""
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    cfg = PipelineConfig()
+    fmesh = stages.load_surface(surface, device=device)
+    movie = mio.load_indexed_csv(movie_csv)
+    vel = stages.velocity_stage(fmesh, movie, np.arange(movie.shape[0]) / 512.0, cfg)
+    pts, _, centers = stages.singularity_stage(fmesh, vel.v_world, cfg, return_centers=True,
+                                               speed=vel.speed, v_max=vel.v_max)
+    return stages.winding_stage(fmesh, vel.v_world, pts, cfg, centers=centers)
+
+
+def split_line(name: str, timings: dict, stage_set, cli_tags: dict | None) -> str:
+    """A trial's per-stage walls (ms), and beside them, for a trial fed the
+    CLI runs' inputs, the CLI calls that do the same work (`cli_tags`)."""
+    done = [s for s in stage_set if s in timings]
+    line = (f"{name}: " + ", ".join(f"{s} {timings[s] * 1e3:.2f}" for s in done)
+            + f" = {sum(timings[s] for s in done) * 1e3:.2f} ms")
+    if cli_tags is not None:
+        cli = {s: CLI_WALLS[cli_tags[CLI_OF_STAGE[s][0]]][CLI_OF_STAGE[s][1]] for s in done}
+        line += ("; the CLI calls of the same stages at the same shapes " + ", ".join(
+            f"{s} {cli[s] * 1e3:.2f}" for s in done)
+            + f" = {sum(cli.values()) * 1e3:.2f} ms")
+    return line + "; detail: " + "; ".join(
+        f"{k} (" + ", ".join(f"{d} {v * 1e3:.2f}" for d, v in timings[k].items()) + ")"
+        for k in timings if k.endswith("_detail"))
+
+
+def no_velocity_uploads(trace: Path, t_v: int, n: int) -> tuple[int, int]:
+    """From a torch.profiler chrome trace: (host-to-device copies, those the
+    size of a velocity field, (T, 2N) or (T, N, 3) in float32 or float64)."""
+    events = json.loads(trace.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    h2d = [e for e in events if "HtoD" in str(e.get("name", ""))
+           and "memcpy" in str(e.get("cat", "")).lower()]
+    sizes = {t_v * 2 * n * esz for esz in (4, 8)} | {t_v * n * 3 * esz for esz in (4, 8)}
+    return len(h2d), sum(int(e.get("args", {}).get("bytes", -1)) in sizes for e in h2d)
+
+
+def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> dict:
+    """Phases 6d, 6e and the fresh-process `batch` CLI: a two-subject
+    results tree through pipeline.batch.run_batch in this process, checked
+    against phase 6b/6c's CLI artifacts, resumed, one warm trial profiled,
+    then K1 and K13 on the reconstructed surface; returns the reconstructed
+    trial's launches and in-trial device us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from manifold_flow_tpu_torch.ops import phase as phase_ops
+    from manifold_flow_tpu_torch.pipeline import batch, cli, stages
+    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    device = mesh.device
+    cli_trial, cli_fields = keep / "trial", keep / "fields"
+    t_v = pot.shape[0] - 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_batch_") as tmp:
+        root = Path(tmp) / "results"
+        movie = np.load(cli_trial / "movie.npy")
+        phases_csv = cli_fields / "out" / "phase" / "interpolation_phases_data.csv"
+        make_results_tree(root, "sub-01", cli_trial / "surface.ply",
+                          {"T1": (movie, phases_csv), "T2": (movie, None)})
+        # The third trial: phase 6c's evoked movie of 64 electrodes, its
+        # electrodes.tsv and a channels.tsv selecting all of them.
+        sub1 = root / "sub-01"
+        names = [r["name"] for r in mio.read_tsv(cli_fields / "electrodes.tsv")]
+        shutil.copy(cli_fields / "electrodes.tsv", sub1 / "sub-01_electrodes.tsv")
+        (sub1 / "sub-01_run-001_channels.tsv").write_text("\n".join(
+            ["name\ttype\tstatus\tstatus_description\tgroup"]
+            + [f"{n}\tECOG\tgood\tincluded\tgrid" for n in names]) + "\n")
+        t3 = sub1 / "run-001" / "S1-S2"
+        t3.mkdir(parents=True)
+        mio.save_evoked_csv(t3 / "sub-01_run-001-S1-S2-ave.csv",
+                            np.load(cli_fields / "data.npy"), names)
+        # sub-02: the surface the reconstruct CLI makes from the same 64
+        # electrodes, with one trial of the two-source movie on it.
+        sub2 = root / "sub-02"
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(["reconstruct", "--electrodes", str(cli_fields / "electrodes.tsv"),
+                           "--out-dir", str(sub2)])
+        recon_s = time.perf_counter() - t0
+        recon = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        if rc != 0 or recon["device"] != "cuda":
+            raise AssertionError(f"reconstruct CLI: rc {rc}, report {recon}")
+        mesh2 = stages.load_surface(sub2 / "reconstructed_surface.ply", device=device)
+        from manifold_flow_tpu_torch.geometry import synthetic
+
+        pot2, times2, _ = synthetic.two_source_movie(
+            mesh2, sources=((15.0, 15.0), (45.0, 45.0)), n_frames=98, speed=24.0,
+            wavelength=24.0, dt=1.0 / 512.0, dtype=np.float64)
+        phi2 = phase_ops.instantaneous_phase(pot2, axis=0)
+        make_results_tree(root, "sub-02", None,
+                          {"T1": (pot2.cpu().numpy(), phi2.cpu().numpy())})
+
+        cfg = PipelineConfig()
+        stage_set = ("interpolate",) + batch.ALL_STAGES
+        mesh_cache: dict = {}
+        timings: dict = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", stages.ConvergenceWarning)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            report = batch.run_batch(root, cfg, stages=stage_set, mesh_cache=mesh_cache,
+                                     timings=timings)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+        keys = ["sub-01/run-001/S1-S2", "sub-01/run-001/T1", "sub-01/run-001/T2",
+                "sub-02/run-001/T1"]
+        want_status = {k: {s: "done" for s in batch.ALL_STAGES} for k in keys}
+        want_status["sub-01/run-001/T2"]["wavespeed"] = "skipped"  # no phases movie
+        if (report["errors"] or report["trials"] != want_status
+                or report["interpolation"]["sub-01/run-001/S1-S2"]["status"] != "done"):
+            raise AssertionError(f"batch: {report}")
+        idle = [k for k in BATCH_KERNELS + ("rbf_fit<double>", "rbf_eval<double>")
+                if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels of the batch path never launched: {idle}")
+
+        # The 3.1k trial against phase 6b/6c's CLI artifacts for the same
+        # inputs; the interpolated trial against 6c's.
+        tdir = sub1 / "run-001" / "T1"
+        pre = "sub-01_run-001-T1"
+        pairs = trial_pairs(tdir, pre, sub1, cli_trial, cli_fields, t_v)
+        t3pre = "sub-01_run-001-S1-S2"
+        pairs += [("S1-S2 interpolation_data.csv", "csv",
+                   t3 / f"{t3pre}-ave-interpolation_data.csv",
+                   cli_fields / "out" / "amp" / "interpolation_data.csv"),
+                  ("S1-S2 interpolation_phases_data.csv", "csv",
+                   t3 / f"{t3pre}-ave-interpolation_phases_data.csv", phases_csv),
+                  ("S1-S2 wave_velocity (phase)", "array",
+                   t3 / f"{t3pre}-wave_velocity.pkl.bz2",
+                   cli_fields / "out" / "ws" / "wave_velocity_phase.pkl.bz2"),
+                  ("S1-S2 wave_velocity_amplitude", "array",
+                   t3 / f"{t3pre}-wave_velocity_amplitude.pkl.bz2",
+                   cli_fields / "out" / "ws" / "wave_velocity_amplitude.pkl.bz2")]
+        results = compare_artifacts(pairs)
+        fmesh = mesh_cache[sub1 / "sub-01_reconstructed_surface.ply"]
+        amp = stages.wavespeed_stage(fmesh, movie, 1.0 / SFREQ, method="amplitude")
+        results["wave_velocity_amplitude"] = same_floats(
+            mio.load_pickle(tdir / f"{pre}-wave_velocity_amplitude.pkl.bz2"),
+            amp.cpu().numpy())
+        expected = winding_with_centers(cli_trial / "surface.ply",
+                                        tdir / f"{pre}-ave-interpolation_data.csv", device)
+        results["winding_lines"] = compare_artifacts(
+            [("w", "winding", tdir / f"{pre}-winding_lines.pkl.bz2", expected)])["w"]
+        cli_w = mio.load_pickle(cli_trial / "out" / "winding_lines.pkl.bz2")
+        snap_diff = sum(a[1:] != b[1:] for k in expected
+                        for a, b in zip(expected[k], cli_w.get(k, [])))
+        verdict = summarize(results)
+
+        # A second sweep: every stage skipped, no kernel launched.
+        torch.cuda.synchronize()
+        reset_launches()
+        again = batch.run_batch(root, cfg, stages=stage_set, mesh_cache=mesh_cache)
+        relaunched = {k: v for k, v in LAUNCHES.items() if v}
+        statuses = {v for t in again["trials"].values() for v in t.values()} | {
+            t["status"] for t in again["interpolation"].values()}
+        if again["errors"] or statuses != {"skipped"} or relaunched:
+            raise AssertionError(f"batch resume: statuses {statuses}, errors "
+                                 f"{again['errors']}, launches {relaunched}")
+
+        # One warm trial (the reconstructed surface's) under the profiler:
+        # its launches and device us a launch, and no host-to-device copy of
+        # a velocity field between its stages.
+        (trial2,) = [t for t in batch.discover_trials(root) if t.subject == "sub-02"]
+        torch.cuda.synchronize()
+        reset_launches()
+        trial_timings: dict = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            batch.run_trial(trial2, cfg, stages=batch.ALL_STAGES, overwrite=True,
+                            mesh_cache=mesh_cache, timings=trial_timings)
+            torch.cuda.synchronize()
+            trial_wall = time.perf_counter() - t0
+        recon_launches = dict(LAUNCHES)
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        recon_us = solve_device_us(events, recon_launches)
+        busy = sum(e.self_device_time_total for e in events) / (trial_wall * 1e6)
+        trace = Path(tmp) / "trial_trace.json"
+        prof.export_chrome_trace(str(trace))
+        n_h2d, n_velocity = no_velocity_uploads(trace, t_v, mesh2.n_vertices)
+        if n_velocity:
+            raise AssertionError(f"batch trial: {n_velocity} host-to-device copies the "
+                                 "size of a velocity field")
+
+        # 6e: K1 and K13 on the reconstructed surface.
+        v_k2 = torch.as_tensor(mio.load_indexed_csv(
+            sub2 / "run-001" / "T1" / "sub-02_run-001-T1-V_k.csv"),
+            device=device).contiguous()
+        check_reconstructed(checks, mesh2, pot2, times2, v_k2)
+
+        # The batch CLI in a fresh process on the same tree, every stage
+        # again: the process's first cuFFT / cuSOLVER use is in its wall.
+        argv = [sys.executable, "-m", "manifold_flow_tpu_torch.pipeline.cli", "batch",
+                "--root", str(root), "--stages", *stage_set, "--overwrite"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        fresh = json.loads(lines[-1]) if lines else {}
+        if proc.returncode != 0 or fresh.get("errors") != {} or fresh.get("trials") != want_status:
+            raise AssertionError(f"batch CLI in a fresh process: rc {proc.returncode}, "
+                                 f"report {fresh}, stderr {proc.stderr[-2000:]}")
+
+    tags = {"flow": "flow", "trial": "trial", "fields": "fields"}
+    print(f"[batch] run_batch(stages=('interpolate',) + ALL_STAGES) over 2 subjects, 4 "
+          f"trials ({fmesh.n_vertices} and {mesh2.n_vertices} vertices x 98 frames; "
+          f"reconstruct CLI {recon['n_vertices']} vertices, {recon['n_triangles']} "
+          f"triangles in {recon_s * 1e3:.2f} ms): no errors, every stage done but T2's "
+          f"wavespeed (no phases movie: skipped, as in JAX); launches " + ", ".join(
+              f"{k}={launches[k]}" for k in BATCH_KERNELS + (
+                  "rbf_fit<double>", "rbf_eval<double>")), flush=True)
+    print(f"[batch] artifacts against phase 6b/6c's CLI for the same inputs: {verdict}; "
+          f"winding lines equal the in-memory stage with the detection stage's centers "
+          f"({snap_diff} rows differ from the CLI's, which snaps the saved points again "
+          f"on the host); a second run_batch skipped every stage with 0 launches",
+          flush=True)
+    print(f"[batch] wall {wall * 1e3:.2f} ms for the sweep, drain "
+          f"{timings['drain'] * 1e3:.2f} ms at its end; interpolate (S1-S2, both "
+          f"movies) {timings['interpolate']['sub-01/run-001/S1-S2'] * 1e3:.2f} ms beside "
+          f"the CLI's interpolate + --phases "
+          f"{(CLI_WALLS['fields']['interpolate'] + CLI_WALLS['fields']['interpolate --phases']) * 1e3:.2f} ms",
+          flush=True)
+    for key in keys:  # T1 and T2 run on phase 6b/6c's inputs
+        print("[batch] " + split_line(key, timings[key], batch.ALL_STAGES,
+                                      tags if key.startswith("sub-01/run-001/T") else None),
+              flush=True)
+    print(f"[batch] warm run_trial of sub-02 (reconstructed, {mesh2.n_vertices} vertices) "
+          f"under the profiler: {trial_wall * 1e3:.2f} ms, device busy {busy:.3f}; "
+          f"{n_h2d} host-to-device copies, {n_velocity} of a velocity field's size "
+          f"({t_v} x {2 * mesh2.n_vertices} or {t_v} x {mesh2.n_vertices} x 3); launches "
+          + ", ".join(f"{k}={v}" for k, v in sorted(recon_launches.items()) if v)
+          + "; device us a launch: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(recon_us.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    print(f"[batch] the batch CLI in a fresh process (--overwrite, every stage): "
+          f"{fresh_s * 1e3:.2f} ms wall, rc 0, no errors; on {card}", flush=True)
+    return {"launches": recon_launches, "device_us": recon_us}
+
+
+def check_reconstructed(checks: KernelChecks, mesh, pot, times, v_k) -> None:
+    """6e: K1 (float32 matvec, float64 residual, beside torch.sparse.mm) and
+    K13 (float64) against their plain versions on the reconstructed
+    surface, whose 1-rings are wider than the bench patches' (rows
+    '@recon')."""
+    from manifold_flow_tpu_torch.fem.operator import make_operator
+    from manifold_flow_tpu_torch.kernels import analysis as kan
+    from manifold_flow_tpu_torch.kernels import streams as kst
+    from manifold_flow_tpu_torch.ops import streamline as stream
+    from manifold_flow_tpu_torch.solve.api import build_rhs
+
+    gen = torch.Generator().manual_seed(0)
+    g64, f64 = build_rhs(mesh, pot, times)
+    t, n_dof = f64.shape
+    op = make_operator(mesh, g64, 0.01)
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        x = torch.randn(t, n_dof, generator=gen, dtype=torch.float64).to(pot.device, dtype)
+        check_matvec(checks, mesh, op.astype(dtype) if dtype == torch.float32 else op,
+                     g64, x, f64 if dtype == torch.float64 else None, tol,
+                     suffix="@recon")
+    v_world, _, _ = kan.recombine_speed(v_k, mesh.basis)
+    nh = (stream.unit_edges(mesh, torch.float64), v_world, mesh.vertex_neighbors,
+          *stream.hop_tables(mesh, torch.float64), mesh.basis)
+    checks.compare("next_hop<double>@recon", "manifold_flow_tpu_torch/csrc/stream_kernels.cu",
+                   "manifold_flow_tpu/ops/streamline.py:133",
+                   lambda: (kst.next_hop(*nh),), lambda: (kst.plain_next_hop(*nh),),
+                   TOL_F64, nbytes=next_hop_bytes(*nh),
+                   ops=5 * t * int((mesh.vertex_neighbors != -1).sum()),
+                   launches_key="next_hop<double>")
+    if not torch.equal(kst.plain_next_hop(*nh), mesh_next_hop(mesh, v_world, False)):
+        raise AssertionError("next_hop<double>@recon: the plain version on the hop tables "
+                             "differs from the reference on the mesh tables")
+    cells = mesh.vertex_cell_count
+    print(f"[reconstructed] {mesh.n_vertices} vertices, {mesh.n_triangles} triangles: "
+          f"{int((cells > 6).sum())} vertices in more than 6 cells (at most "
+          f"{int(cells.max())}), 1-rings up to {int(mesh.vertex_degree.max())} wide, "
+          f"{int(mesh.boundary_vertex.sum())} on the boundary", flush=True)
+
+
+def run_batch12k(mesh, pot, card: str, keep: Path) -> dict:
+    """Phase 11d: one 12.5k trial through run_batch (ALL_STAGES), its movie
+    and phases those of phase 11b/11c, checked as in 6d (K8-K11 launched
+    too); returns the launch counts."""
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from manifold_flow_tpu_torch.pipeline import batch, stages
+    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    cli_trial, cli_fields = keep / "trial12k", keep / "fields12k"
+    t_v = pot.shape[0] - 1
+    kernels = BATCH_KERNELS + tuple(f"{k}<float>" for k in COARSE_KERNELS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_batch12k_") as tmp:
+        root = Path(tmp) / "results"
+        movie = np.load(cli_trial / "movie.npy")
+        phases_csv = cli_fields / "out" / "phase" / "interpolation_phases_data.csv"
+        make_results_tree(root, "sub-01", cli_trial / "surface.ply",
+                          {"T1": (movie, phases_csv)})
+        timings: dict = {}
+        mesh_cache: dict = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", stages.ConvergenceWarning)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            report = batch.run_batch(root, PipelineConfig(), stages=batch.ALL_STAGES,
+                                     mesh_cache=mesh_cache, timings=timings)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+        key = "sub-01/run-001/T1"
+        if report["errors"] or report["trials"] != {key: {s: "done" for s in batch.ALL_STAGES}}:
+            raise AssertionError(f"batch12k: {report}")
+        idle = [k for k in kernels if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels of the batch12k path never launched: {idle}")
+        sub1 = root / "sub-01"
+        tdir = sub1 / "run-001" / "T1"
+        pre = "sub-01_run-001-T1"
+        results = compare_artifacts(trial_pairs(tdir, pre, sub1, cli_trial, cli_fields, t_v))
+        fmesh = mesh_cache[sub1 / "sub-01_reconstructed_surface.ply"]
+        amp = stages.wavespeed_stage(fmesh, movie, 1.0 / SFREQ, method="amplitude")
+        results["wave_velocity_amplitude"] = same_floats(
+            mio.load_pickle(tdir / f"{pre}-wave_velocity_amplitude.pkl.bz2"),
+            amp.cpu().numpy())
+        expected = winding_with_centers(cli_trial / "surface.ply",
+                                        tdir / f"{pre}-ave-interpolation_data.csv",
+                                        fmesh.device)
+        results["winding_lines"] = compare_artifacts(
+            [("w", "winding", tdir / f"{pre}-winding_lines.pkl.bz2", expected)])["w"]
+        verdict = summarize(results)
+    tags = {"flow": "flow12k", "trial": "trial12k", "fields": "fields12k"}
+    print(f"[batch12k] run_batch(ALL_STAGES), one trial on {fmesh.n_vertices} vertices "
+          f"x 98 frames: no errors, every stage done; launches " + ", ".join(
+              f"{k}={launches[k]}" for k in kernels)
+          + f"; artifacts against phase 11b/11c's CLI: {verdict}", flush=True)
+    print(f"[batch12k] wall {wall * 1e3:.2f} ms, drain {timings['drain'] * 1e3:.2f} ms; "
+          + split_line(key, timings[key], batch.ALL_STAGES, tags) + f"; on {card}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2307,9 +2848,13 @@ def main() -> int:
     # path (flow --classify, streamline, winding), then the field stages
     # (interpolate, wavespeed, decompose on the flow CLI's V_k.csv, demo)
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_v_k_")
-    flow_launches = run_flow(mesh, pot, truth, card, keep_v_k=Path(keep.name) / "V_k.csv")
-    trial_launches = run_trial(mesh, pot, card)
-    fields_launches = run_fields(mesh, Path(keep.name) / "V_k.csv", card)
+    kept = Path(keep.name)
+    flow_launches = run_flow(mesh, pot, truth, card, keep_v_k=kept / "V_k.csv")
+    trial_launches = run_trial(mesh, pot, card, workdir=kept / "trial")
+    fields_launches = run_fields(mesh, kept / "V_k.csv", card, workdir=kept / "fields")
+    # 6d-6e: the same inputs through pipeline.batch in this process, a
+    # reconstructed surface beside them, and the batch CLI in a fresh one
+    recon = run_batch_phase(checks, mesh, pot, card, kept)
 
     # 7. S3 end to end
     s3_end_to_end(mesh, pot, times, card)
@@ -2346,10 +2891,13 @@ def main() -> int:
     # 11. the flow stage through the command line at 12.5k: the slice's path
     flow12k_launches = run_flow(mesh12, pot12, truth12, card, tag="flow12k",
                                 kernels=FLOW12K_KERNELS, cell=60.0 / 111.0,
-                                keep_v_k=Path(keep.name) / "V_k12.csv")
-    trial12k_launches = run_trial(mesh12, pot12, card, tag="trial12k")
-    fields12k_launches = run_fields(mesh12, Path(keep.name) / "V_k12.csv", card,
-                                    tag="fields12k", demo=False)
+                                keep_v_k=kept / "V_k12.csv")
+    trial12k_launches = run_trial(mesh12, pot12, card, tag="trial12k",
+                                  workdir=kept / "trial12k")
+    fields12k_launches = run_fields(mesh12, kept / "V_k12.csv", card,
+                                    tag="fields12k", demo=False, workdir=kept / "fields12k")
+    # 11d: one 12.5k trial through pipeline.batch
+    run_batch12k(mesh12, pot12, card, kept)
     keep.cleanup()
 
     # 12. a 392-frame movie, in windows and whole
@@ -2446,14 +2994,21 @@ def main() -> int:
 
     def first_count(phases, key):
         return next((c[key] for c in phases if c.get(key, 0) > 0), 0)
-    default = {k: first_count(default_12k + default_3k if at_12k(k)
-                              else default_3k + default_12k, row["launches_key"])
+
+    def phases_of(label: str):
+        # The reconstructed surface's rows: its trial in the batch phase.
+        if label.endswith("@recon"):
+            return (recon["launches"],)
+        return default_12k + default_3k if at_12k(label) else default_3k + default_12k
+    in_solve["recon"] = recon["device_us"]
+    default = {k: first_count(phases_of(k), row["launches_key"])
                for k, row in checks.rows.items()}
     driven = {k: default[k] or first_count(others, row["launches_key"])
               for k, row in checks.rows.items()}
     for k, row in checks.rows.items():
-        row["solve_device_us"] = in_solve["12.5k" if at_12k(k) else "bench"].get(
-            row["launches_key"])
+        row["solve_device_us"] = in_solve[
+            "recon" if k.endswith("@recon") else "12.5k" if at_12k(k) else "bench"].get(
+                row["launches_key"])
     names = {row["launches_key"].split("<")[0] for k, row in checks.rows.items()
              if driven[k] > 0}
     every = {k.split("<")[0] for k in LAUNCHES}

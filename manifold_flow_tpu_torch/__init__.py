@@ -12,12 +12,16 @@ The hot kernels of the solve, of a trial's analysis and of the field stages
 are hand-written CUDA C++ for sm_90a (`csrc/`, wrapped in `kernels.fem`,
 `kernels.coarse`, `kernels.analysis`, `kernels.streams`, `kernels.winding`
 and `kernels.fields`), built with nvcc at the first call that gets CUDA
-tensors; CPU tensors run their plain torch versions. The S2 interpolation,
+tensors; CPU tensors run their plain torch versions. The S0 preprocessing
+(MNE-Python needed), the S1 surface reconstruction, the S2 interpolation,
 the S3 flow stage (with classification), the S4 SVD modes, the S5 wave
 speeds, the S6 streamlines and the S7 winding lines run through
-`pipeline.stages` and `python -m manifold_flow_tpu_torch.pipeline.cli
-interpolate|flow|decompose|wavespeed|streamline|winding|demo`. Entry points
-put their work on the GPU unless the caller passes device="cpu".
+`pipeline.stages`, a whole results tree through `pipeline.batch` (with the
+geometry cache of `utils.cache`), and `python -m
+manifold_flow_tpu_torch.pipeline.cli
+preprocess|reconstruct|interpolate|flow|decompose|wavespeed|streamline|winding|batch|demo`.
+Entry points put their work on the GPU unless the caller passes
+device="cpu".
 """
 
 from manifold_flow_tpu_torch import fem, geometry, kernels, ops, pipeline, solve, utils

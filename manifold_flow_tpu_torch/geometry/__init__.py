@@ -1,7 +1,8 @@
 """Geometry layer: mesh container, tangent bases, FEM quantities, synthetic
-surfaces. Counterpart of manifold_flow_tpu.geometry."""
+surfaces and the S1 surface reconstruction. Counterpart of
+manifold_flow_tpu.geometry."""
 
-from manifold_flow_tpu_torch.geometry import synthetic
+from manifold_flow_tpu_torch.geometry import reconstruct, synthetic
 from manifold_flow_tpu_torch.geometry.fem_quantities import (
     hat_gradients,
     mass_integrals,
@@ -17,7 +18,8 @@ from manifold_flow_tpu_torch.geometry.tangent import (
 )
 
 __all__ = [
-    "TriMesh", "build_mesh", "synthetic", "tangent_basis", "project_to_plane",
+    "TriMesh", "build_mesh", "reconstruct", "synthetic", "tangent_basis",
+    "project_to_plane",
     "express_on_basis", "position_diff_on_basis", "hat_gradients",
     "triangle_areas", "vertex_normals_from_cells", "mass_integrals",
 ]

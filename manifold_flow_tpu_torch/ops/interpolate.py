@@ -11,11 +11,15 @@ smooth = 0.
 On CUDA tensors the fit (the system, its LU factorization with partial
 pivoting and the solve of every frame of every plane) is one launch of K17
 `rbf_fit`, and the evaluation at the targets K17 `rbf_eval`
-(`kernels.fields`), in the coordinates' dtype (float64 on the pipeline's
-path); on CPU tensors the fit is `torch.linalg.lu_factor_ex` / `lu_solve`,
-as the JAX package's is `jax.scipy.linalg.lu_factor` on every backend. The
-JAX package's float32 factor with three refinement steps exists because a
-float64 LU does not compile on the TPU, and is not ported.
+(`kernels.fields`); on CPU tensors the fit is `torch.linalg.lu_factor_ex` /
+`lu_solve`, as the JAX package's is `jax.scipy.linalg.lu_factor` on every
+backend. The dtypes follow the JAX package's: the system is solved in the
+coordinates' dtype, the weights are rounded to the values' (real) dtype,
+and the evaluation runs in the promoted dtype of targets, coordinates and
+values, or for complex values in their real dtype (all float64 on the
+pipeline's path). The JAX package's float32 factor with three refinement
+steps exists because a float64 LU does not compile on the TPU, and is not
+ported.
 
 A zero pivot (two electrodes at one place with smooth = 0, or a singular
 kernel matrix) raises ValueError on both devices, naming the pivot. This
@@ -47,12 +51,18 @@ def rbf_interpolate(coords: torch.Tensor, values: torch.Tensor, targets: torch.T
                     kind: str = "multiquadric") -> torch.Tensor:
     """Interpolate values (T, E) sampled at coords (E, 3) onto targets
     (P, 3): (T, P). Complex values (the phases pipeline interpolates
-    e^{i phi}) solve the real system once for both parts."""
+    e^{i phi}) solve the real system once for both parts and come back in
+    the values' complex dtype; real values come back in the promoted dtype
+    of targets, coords and values, as in the JAX package."""
     if torch.is_complex(values):
+        rdt = values.real.dtype
         re, im = _rbf_solve(coords, (values.real, values.imag), targets, epsilon,
-                            smooth, kind)
+                            smooth, kind, rdt, rdt)
         return torch.complex(re, im)
-    (out,) = _rbf_solve(coords, (values,), targets, epsilon, smooth, kind)
+    out_dtype = torch.promote_types(torch.promote_types(targets.dtype, coords.dtype),
+                                    values.dtype)
+    (out,) = _rbf_solve(coords, (values,), targets, epsilon, smooth, kind,
+                        values.dtype, out_dtype)
     return out
 
 
@@ -61,27 +71,34 @@ def rbf_interpolate_phases(coords: torch.Tensor, phi: torch.Tensor,
                            kind: str = "multiquadric") -> torch.Tensor:
     """Phase interpolation (S2_interpolate_phases.py:52-56, 177-182): the
     unit-circle values e^{i phi} of phi (T, E) interpolated as complex, and
-    the angle (T, P) of the interpolant, taken by K17 as it evaluates."""
+    the angle (T, P) of the interpolant in phi's dtype, taken by K17 as it
+    evaluates."""
     (out,) = _rbf_solve(coords, (torch.cos(phi), torch.sin(phi)), targets, epsilon,
-                        smooth, kind, angle=True)
+                        smooth, kind, phi.dtype, phi.dtype, angle=True)
     return out
 
 
-def _rbf_solve(coords, planes, targets, epsilon, smooth, kind, angle=False):
+def _rbf_solve(coords, planes, targets, epsilon, smooth, kind, weight_dtype,
+               eval_dtype, angle=False):
     """The interpolant (T, P) at targets of each real plane (T, E) of values,
-    with one fit for all planes; with angle=True the two planes are a
-    complex value's parts and the one result is its angle."""
+    with one fit for all planes in the coordinates' dtype, its weights
+    rounded to `weight_dtype` and evaluated in `eval_dtype`; with angle=True
+    the two planes are a complex value's parts and the one result is its
+    angle."""
     coords = coords.contiguous()
     if epsilon is None:
         epsilon = scipy_default_epsilon(coords)
     eps = torch.as_tensor(epsilon, dtype=coords.dtype, device=coords.device).reshape(1)
     w, info = kf.rbf_fit(coords, eps, [p.to(coords.dtype).contiguous() for p in planes],
                          kind, smooth)
-    x = targets.to(coords.dtype).contiguous()
+    w = [wi.to(weight_dtype).to(eval_dtype).contiguous() for wi in w]
+    x = targets.to(eval_dtype).contiguous()
+    c = coords.to(eval_dtype).contiguous()
+    eps_eval = eps.to(eval_dtype)
     if angle:
-        out = (kf.rbf_eval(x, coords, eps, w[0], kind, w[1]),)
+        out = (kf.rbf_eval(x, c, eps_eval, w[0], kind, w[1]),)
     else:
-        out = tuple(kf.rbf_eval(x, coords, eps, wi, kind) for wi in w)
+        out = tuple(kf.rbf_eval(x, c, eps_eval, wi, kind) for wi in w)
     first = int(info[0])
     if first:
         raise ValueError(f"the RBF system of {coords.shape[0]} electrodes is singular: "

@@ -1,8 +1,9 @@
-"""Pipeline: typed configuration (pipeline.config), the S3 velocity and
-singularity stages (pipeline.stages) and the `flow` command line
-(pipeline.cli). Counterpart of manifold_flow_tpu.pipeline; the other stages,
-`pipeline/batch.py` and the other subcommands are ROADMAP Queue A item 14."""
+"""Pipeline: typed configuration (pipeline.config), the stages S0-S7
+(pipeline.stages, with S0's BIDS parsing in pipeline.preprocess), batch
+runs over a results tree (pipeline.batch) and the command line
+(pipeline.cli). Counterpart of manifold_flow_tpu.pipeline; the rendering
+options (viz) are ROADMAP Queue A4 and multi-GPU runs A6."""
 
-from manifold_flow_tpu_torch.pipeline import config, stages
+from manifold_flow_tpu_torch.pipeline import batch, config, preprocess, stages
 
-__all__ = ["config", "stages"]
+__all__ = ["batch", "config", "preprocess", "stages"]

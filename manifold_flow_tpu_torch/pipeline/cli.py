@@ -1,5 +1,6 @@
-"""The command line: the `interpolate` (S2), `flow` (S3), `decompose` (S4),
-`wavespeed` (S5), `streamline` (S6), `winding` (S7) and `demo` subcommands.
+"""The command line: the `preprocess` (S0), `reconstruct` (S1),
+`interpolate` (S2), `flow` (S3), `decompose` (S4), `wavespeed` (S5),
+`streamline` (S6), `winding` (S7), `batch` and `demo` subcommands.
 
 Counterpart of manifold_flow_tpu/pipeline/cli.py, with the same arguments
 for these subcommands plus `--device`, the explicit counterpart of the JAX
@@ -7,6 +8,10 @@ package's JAX_PLATFORMS: `cuda` (the default) runs the hand-written kernels
 on the GPU and raises when there is none; `cpu` runs their plain torch
 versions.
 
+    python -m manifold_flow_tpu_torch.pipeline.cli preprocess \\
+        --subject-dir bids/sub-01 --out-dir results/ [--runs 021448]
+    python -m manifold_flow_tpu_torch.pipeline.cli reconstruct \\
+        --electrodes sub-01_electrodes.tsv --out-dir results/sub-01
     python -m manifold_flow_tpu_torch.pipeline.cli interpolate --surface s.ply \\
         --electrodes electrodes.tsv --data movie.csv --sfreq 512 [--phases] \\
         --out-dir results/
@@ -21,22 +26,29 @@ versions.
     python -m manifold_flow_tpu_torch.pipeline.cli winding --surface s.ply \\
         --e e.csv --v-k V_k.csv --singularities singularity_points.pkl \\
         --out-dir results/
+    python -m manifold_flow_tpu_torch.pipeline.cli batch --root results/ \\
+        [--stages interpolate flow streamline decompose wavespeed winding]
     python -m manifold_flow_tpu_torch.pipeline.cli demo --out-dir /tmp/demo
 
-`interpolate` writes interpolation_data.csv (interpolation_phases_data.csv
-with --phases); `flow` writes e.csv, V_k.csv,
-wave_velocity_opticalflow.pkl.bz2 and singularity_points.pkl (and
-singularity_points_classification.pkl with --classify); `decompose` writes
-data_01.npz; `wavespeed` writes wave_velocity_{method}.pkl.bz2; `streamline`
-writes t_velocityfields_streamlines_{frame}.pkl.bz2 per frame; `winding`
-writes winding_lines.pkl.bz2; `demo` runs the flow stage on a synthetic
-two-source movie and scores the detections against the true sources. Each
-prints one JSON line: its JAX counterpart's keys plus `device` and
-`timings`. The rendering options (`decompose --render-modes`, with or
-without its `--pial` underlay, and `demo --gif`) need viz/fields.py and
-raise; as in JAX, `--pial` alone is read by nothing and ignored. They,
-`preprocess`, `reconstruct`, `visualize` and `batch` are ROADMAP Queue A
-item 14.
+`preprocess` needs MNE-Python and raises ImportError naming it without;
+`reconstruct` writes reconstructed_surface.ply; `interpolate` writes
+interpolation_data.csv (interpolation_phases_data.csv with --phases);
+`flow` writes e.csv, V_k.csv, wave_velocity_opticalflow.pkl.bz2 and
+singularity_points.pkl (and singularity_points_classification.pkl with
+--classify); `decompose` writes data_01.npz; `wavespeed` writes
+wave_velocity_{method}.pkl.bz2; `streamline` writes
+t_velocityfields_streamlines_{frame}.pkl.bz2 per frame; `winding` writes
+winding_lines.pkl.bz2; `batch` runs the stages over every trial of a
+results tree in one process (pipeline.batch) and returns 1 when a trial
+failed; `demo` runs the flow stage on a synthetic two-source movie and
+scores the detections against the true sources. Each prints one JSON line:
+its JAX counterpart's keys plus `device` (and `timings`). The rendering
+options (`decompose --render-modes`, with or without its `--pial` underlay,
+and `demo --gif`) need viz/fields.py, ROADMAP Queue A4, and raise, and the
+`visualize` subcommand waits for it; as in JAX, `--pial` alone is read by
+nothing and ignored. `batch
+--frame-shards` and `--distributed` run on several GPUs, ROADMAP Queue A6,
+and raise.
 """
 
 from __future__ import annotations
@@ -94,7 +106,39 @@ def _add_common(sp):
 def _needs_viz(option: str):
     raise NotImplementedError(
         f"{option} renders with viz/fields.py, which is not ported yet: "
-        "ROADMAP Queue A item 14")
+        "ROADMAP Queue A4")
+
+
+def cmd_preprocess(args):
+    """S0: BIDS iEEG -> epochs and per-site evokeds (needs MNE-Python)."""
+    from manifold_flow_tpu_torch.pipeline import preprocess
+
+    device = _device(args.device)
+    cfg = _load_config(args)
+    done = preprocess.process_subject(args.subject_dir, args.out_dir,
+                                      cfg.preprocess, runs=args.runs)
+    print(json.dumps({"stage": "preprocess", "device": str(device),
+                      "runs_done": done}))
+    return 0
+
+
+def cmd_reconstruct(args):
+    """S1: the grid electrodes of an electrodes.tsv -> a surface PLY."""
+    from manifold_flow_tpu_torch.pipeline import stages
+    from manifold_flow_tpu_torch.utils import io
+
+    device = _device(args.device)
+    cfg = _load_config(args)
+    t0 = time.perf_counter()
+    coords = io.load_grid_electrodes(args.electrodes, group=args.group)
+    out = Path(args.out_dir) / "reconstructed_surface.ply"
+    res = stages.reconstruct_stage(coords, cfg, save_path=out, device=device)
+    print(json.dumps({"stage": "reconstruct", "device": str(device),
+                      "n_vertices": int(res.mesh.n_vertices),
+                      "n_triangles": int(res.mesh.n_triangles),
+                      "surface": str(out),
+                      "timings": {"reconstruct": time.perf_counter() - t0}}))
+    return 0
 
 
 def cmd_interpolate(args):
@@ -305,11 +349,49 @@ def cmd_demo(args):
     return 0
 
 
+def cmd_batch(args):
+    """Batch runs over a subjects/runs/trials results tree (the
+    reference's argv-sharded Slurm loops, S2:79-102, S5:264-300,
+    S7:205-261), with resume by artifact presence and host sharding;
+    returns 1 when any trial failed."""
+    from manifold_flow_tpu_torch.pipeline import batch
+
+    if args.frame_shards:
+        raise NotImplementedError(
+            f"batch --frame-shards shards a trial over several GPUs, which "
+            f"{batch.MULTI_DEVICE}")
+    if args.distributed:
+        raise NotImplementedError(
+            f"batch --distributed derives the shard from a process group, which "
+            f"{batch.MULTI_DEVICE}")
+    device = _device(args.device)
+    cfg = _load_config(args)
+    report = batch.run_batch(
+        args.root, cfg, stages=tuple(args.stages),
+        subjects=args.subjects or None, sfreq=args.sfreq,
+        overwrite=args.overwrite, num_shards=args.num_shards,
+        shard_index=args.shard_index, cache_dir=args.cache_dir, device=device)
+    print(json.dumps({"stage": "batch", "device": str(device), **report}))
+    return 1 if report["errors"] else 0
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="manifold_flow_tpu_torch",
         description="Manifold optical flow on an NVIDIA GPU (PyTorch/CUDA port)")
     sub = p.add_subparsers(dest="command", required=True)
+
+    sp = sub.add_parser("preprocess", help="S0: BIDS iEEG -> epochs/evokeds")
+    _add_common(sp)
+    sp.add_argument("--subject-dir", required=True)
+    sp.add_argument("--runs", nargs="*", default=None)
+    sp.set_defaults(func=cmd_preprocess)
+
+    sp = sub.add_parser("reconstruct", help="S1: electrodes.tsv -> surface.ply")
+    _add_common(sp)
+    sp.add_argument("--electrodes", required=True)
+    sp.add_argument("--group", default="grid")
+    sp.set_defaults(func=cmd_reconstruct)
 
     sp = sub.add_parser("interpolate", help="S2: electrode movie -> vertex movie")
     _add_common(sp)
@@ -372,6 +454,36 @@ def build_parser():
     sp.add_argument("--v-k", required=True)
     sp.add_argument("--singularities", required=True)
     sp.set_defaults(func=cmd_winding)
+
+    sp = sub.add_parser("batch",
+                        help="walk a results tree; run the stages of every "
+                             "trial with resume and host sharding")
+    _add_common(sp)
+    sp.add_argument("--root", required=True,
+                    help="results tree root: <root>/<subject>/run-*/<trial>/")
+    sp.add_argument("--stages", nargs="*",
+                    default=["flow", "streamline", "decompose", "wavespeed",
+                             "winding"],
+                    choices=["interpolate", "flow", "decompose", "wavespeed",
+                             "streamline", "winding", "wavespeed_amplitude"],
+                    help="'interpolate' adds the S2 sweep: evokeds + TSVs "
+                         "-> interpolated movies (stim pair auto-excluded)")
+    sp.add_argument("--subjects", nargs="*", default=None)
+    sp.add_argument("--sfreq", type=float, default=None,
+                    help="overrides the BIDS sidecar SamplingFrequency")
+    sp.add_argument("--overwrite", action="store_true",
+                    help="re-run stages whose artifacts already exist")
+    sp.add_argument("--num-shards", type=int, default=None)
+    sp.add_argument("--shard-index", type=int, default=None)
+    sp.add_argument("--distributed", action="store_true",
+                    help="derive the shard from a process group (several "
+                         "hosts: not ported, raises)")
+    sp.add_argument("--cache-dir", default=None,
+                    help="geometry cache directory")
+    sp.add_argument("--frame-shards", type=int, default=None,
+                    help="shard each trial's frames over this many GPUs "
+                         "(not ported, raises)")
+    sp.set_defaults(func=cmd_batch)
 
     sp = sub.add_parser("demo", help="synthetic end-to-end run + validation")
     _add_common(sp)

@@ -1,16 +1,14 @@
-"""Pipeline stages of a trial's device path: S2 (RBF interpolation of the
-electrode movie or its phases), S3 (velocity, singularities and their
-classification), S4 (the SVD modes), S5 (wave speeds), S6 (streamlines) and
-S7 (winding lines).
+"""Pipeline stages: S0 (preprocessing, host only), S1 (the surface from
+the electrodes, on the host), S2 (RBF interpolation of the electrode movie
+or its phases), S3 (velocity, singularities and their classification), S4
+(the SVD modes), S5 (wave speeds), S6 (streamlines) and S7 (winding lines).
 
-Counterpart of manifold_flow_tpu/pipeline/stages.py. Each stage computes on
-the mesh's device (S4 on the movie's, the GPU by default) and writes the
-reference's artifact formats (utils.io). The JAX package's fused flow
-program, which exists to save remote dispatches, and its f64-to-f32
+Counterpart of manifold_flow_tpu/pipeline/stages.py. Each device stage
+computes on the mesh's device (S4 on the movie's, the GPU by default) and
+writes the reference's artifact formats (utils.io). The JAX package's fused
+flow program, which exists to save remote dispatches, and its f64-to-f32
 analysis cast, which exists because the TPU emulates f64, have no
 counterpart: on the H100 every stage runs eagerly in the movie's dtype.
-
-S0, S1 and `pipeline/batch.py` are not ported yet: ROADMAP Queue A item 14.
 """
 
 from __future__ import annotations
@@ -22,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from manifold_flow_tpu_torch.geometry import reconstruct
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh, resolve_device
 from manifold_flow_tpu_torch.ops import interpolate as rbf_ops
 from manifold_flow_tpu_torch.ops import phase as phase_ops
@@ -36,22 +35,68 @@ from manifold_flow_tpu_torch.solve.api import compute_velocity_fields
 from manifold_flow_tpu_torch.utils import io
 
 
+# ------------------------------------------------------------------- S0 ----
+def preprocess_subject(subject_dir, results_dir, config: PipelineConfig):
+    """S0: BrainVision -> filtered, re-referenced epochs + per-site evokeds.
+
+    Requires MNE-Python (host-side, runs once per subject):
+    pipeline.preprocess raises ImportError naming it otherwise. As
+    process_subject (S0_preprocess.py:133-172): band-pass
+    low_freq..high_freq, notch at the recording's PowerLineFrequency,
+    ECOG/good/included channel pick, average reference, epochs on
+    electrical_stimulation events with baseline correction,
+    per-stimulation-site evoked averages.
+    """
+    from manifold_flow_tpu_torch.pipeline import preprocess
+
+    return preprocess.process_subject(subject_dir, results_dir, config.preprocess)
+
+
+# ------------------------------------------------------------------- S1 ----
+class ReconstructionResult(NamedTuple):
+    mesh: TriMesh            # on the device the caller asked for
+    points: np.ndarray       # (N, 3) float64
+    triangles: np.ndarray    # (M, 3) int32
+
+
+def reconstruct_stage(electrode_coords, config: PipelineConfig, save_path=None,
+                      device="cuda") -> ReconstructionResult:
+    """S1: electrode point cloud -> smoothed, subdivided triangle surface,
+    built on the host (geometry.reconstruct) and returned as a mesh on
+    `device` (the GPU unless the caller passes device="cpu"); `save_path`
+    writes it as PLY."""
+    device = resolve_device(device)
+    pts, tris = reconstruct.reconstruct_surface(
+        electrode_coords,
+        smooth_iters=config.reconstruction.smooth_iters,
+        subdivisions=config.reconstruction.subdivisions,
+    )
+    if save_path is not None:
+        io.ensure_dir(save_path)
+        io.write_ply(save_path, pts, tris)
+    return ReconstructionResult(build_mesh(pts, tris, device=device), pts, tris)
+
+
 def load_surface(path, cache_dir=None, pad: bool = False,
                  device="cuda") -> TriMesh:
     """Load a (reference-produced or own) PLY surface into a TriMesh on
-    `device` (the GPU unless the caller passes device="cpu"). The JAX
-    package's geometry cache (`cache_dir`) and shape padding (`pad`) are
-    not ported and raise."""
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "load_surface(cache_dir=...) needs the geometry cache "
-            "(utils/cache.py), which is not ported yet: ROADMAP Queue A item 14")
+    `device` (the GPU unless the caller passes device="cpu").
+
+    `cache_dir` enables the geometry cache keyed by the mesh's content
+    (utils.cache), the realised version of the reference's commented-out
+    processed_surface_path (config.yaml:18,27). The JAX package's shape
+    padding (`pad`) raises: it exists so that XLA compiles one program for
+    surfaces of different sizes, which eager CUDA launches do not need."""
     if pad:
         raise NotImplementedError(
-            "load_surface(pad=True) needs pad_mesh, which is not ported yet: "
-            "ROADMAP Queue A item 2 (port it only if CUDA graphs need static "
-            "shapes)")
+            "load_surface(pad=True) needs pad_mesh, which is not ported: it "
+            "exists to stop XLA from recompiling per surface (ROADMAP Queue A3: "
+            "port it only if CUDA graphs need static shapes)")
     pts, tris = io.read_ply(path)
+    if cache_dir is not None:
+        from manifold_flow_tpu_torch.utils.cache import build_mesh_cached
+
+        return build_mesh_cached(pts, tris, cache_dir=cache_dir, device=device)
     return build_mesh(pts, tris, device=device)
 
 
@@ -334,11 +379,11 @@ def wavespeed_stage(mesh: TriMesh, movie, dt: float, method: str = "phase",
     speed. `save_path` writes the reference's pickle of the float array.
     `timings`, when given, receives seconds: 'compute' (until the speeds
     are on the host) and 'write'. The JAX stage's `device_mesh` (frames
-    sharded over chips) is ROADMAP Queue A item 15 and raises."""
+    sharded over chips) is ROADMAP Queue A6 and raises."""
     if device_mesh is not None:
         raise NotImplementedError(
             "wavespeed_stage(device_mesh=...) shards frames over several GPUs, "
-            "which is not ported yet: ROADMAP Queue A item 15")
+            "which is not ported yet: ROADMAP Queue A6")
     if method == "phase":
         speed_of = wave_ops.wave_velocity_phase_mm_per_ms
     elif method == "amplitude":
@@ -421,7 +466,7 @@ def winding_stage(mesh: TriMesh, v_world, singularity_points,
     center vertex ids (singularity_stage(return_centers=True)); without
     them the points snap again on the host (the resume-from-pickle path).
     The JAX stage's `device_mesh` (frames sharded over chips) is ROADMAP
-    Queue A item 15."""
+    Queue A6."""
     v = torch.as_tensor(v_world, device=mesh.device)
     n_frames = min(len(singularity_points), v.shape[0])
     caps = [len(singularity_points[t]) for t in range(n_frames)]

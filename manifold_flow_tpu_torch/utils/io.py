@@ -9,8 +9,6 @@ without PyVista/VTK (own PLY codec), so artifacts interoperate both ways.
 Writers take host (numpy) data only. `start_host_copy` and `to_numpy` move
 tensors to the host: a stage moves each artifact tensor once and hands
 numpy to the writer, so a writer thread never touches a CUDA tensor.
-The FreeSurfer readers and the evoked CSVs are not ported yet: ROADMAP
-Queue A item 14.
 """
 
 from __future__ import annotations
@@ -175,6 +173,39 @@ def load_indexed_csv(path):
     return data[:, 1:]
 
 
+def save_evoked_csv(path, data, ch_names):
+    """Portable per-site evoked movie: (T, C) data with CHANNEL NAMES as the
+    header (plus the usual integer index column).
+
+    The reference stores evokeds as MNE `.fif` (S0_preprocess.py:119-130;
+    read back by S2_interpolate.py:106-147), which needs MNE to read. The
+    preprocessing stage writes this CSV beside the .fif so the batch
+    interpolation stage works without MNE; the format is the indexed CSV
+    with names instead of 0..C-1 in the header."""
+    data = np.asarray(data)
+    ch_names = list(map(str, ch_names))
+    if data.shape[1] != len(ch_names):
+        raise ValueError(
+            f"evoked data has {data.shape[1]} columns but {len(ch_names)} "
+            "channel names")
+    header = "," + ",".join(ch_names)
+    rows = np.concatenate(
+        [np.arange(data.shape[0])[:, None], data], axis=1)
+    fmt = ["%d"] + ["%.18g"] * data.shape[1]
+    np.savetxt(path, rows, delimiter=",", header=header, comments="",
+               fmt=fmt)
+
+
+def load_evoked_csv(path):
+    """Read a portable evoked CSV -> (data (T, C) float64, ch_names)."""
+    with open(path, "r", encoding="utf-8") as f:
+        names = f.readline().strip().split(",")[1:]
+    data = np.loadtxt(path, delimiter=",", skiprows=1)
+    if data.ndim == 1:
+        data = data[None]
+    return data[:, 1:], names
+
+
 def save_e_csv(path, e):
     """(N, 2, 3) tangent bases -> the reference's (N, 6) e.csv layout."""
     save_indexed_csv(path, np.asarray(e).reshape(len(e), -1))
@@ -192,8 +223,20 @@ _NA_STRINGS = frozenset({
     "nan", "null"})
 
 
+def is_na(value: str) -> bool:
+    """A table cell that pandas.read_csv reads as NaN by default."""
+    return value in _NA_STRINGS
+
+
 def _missing(value: str) -> bool:
-    return value in _NA_STRINGS or math.isnan(float(value))
+    return is_na(value) or math.isnan(float(value))
+
+
+def read_tsv(path) -> list[dict]:
+    """The rows of a BIDS .tsv table as dicts of strings keyed by its
+    header (the JAX package reads these tables with pandas)."""
+    with open(path, newline="", encoding="utf-8") as f:
+        return list(csv.DictReader(f, delimiter="\t"))
 
 
 def load_grid_electrodes(path, group: str = "grid", names=None,
@@ -207,8 +250,7 @@ def load_grid_electrodes(path, group: str = "grid", names=None,
     S2_interpolate.py:125-135). The JAX package reads the table with pandas;
     this reads it with the csv module, with the same row rules.
     """
-    with open(path, newline="") as f:
-        rows = list(csv.DictReader(f, delimiter="\t"))
+    rows = read_tsv(path)
     if group is not None and rows and "group" in rows[0]:
         rows = [r for r in rows if r["group"] == group]
     if names is not None:
@@ -226,6 +268,49 @@ def load_grid_electrodes(path, group: str = "grid", names=None,
         kept.append(row["name"])
     coords = np.asarray(coords, dtype=np.float64)
     return (coords, kept) if with_names else coords
+
+
+# ------------------------------------------------- FreeSurfer surfaces ----
+_FS_TRIANGLE_MAGIC = 0xFFFFFE  # 3-byte magic of binary triangle surfaces
+
+
+def read_freesurfer_surface(path):
+    """Read a FreeSurfer binary triangle surface (lh.pial / rh.pial).
+
+    MNE-free equivalent of the `mne.read_surface` calls in the reference's
+    pial-underlay plot (S4_...ConcatMatrices .py:147-158): 3-byte magic
+    0xFFFFFE, a creation comment terminated by '\\n\\n', then big-endian
+    int32 vertex/face counts, float32 xyz coordinates, and int32 triangle
+    indices. Returns (verts (V, 3) float64, faces (F, 3) int64) like MNE.
+    """
+    raw = Path(path).read_bytes()
+    magic = int.from_bytes(raw[:3], "big")
+    if magic != _FS_TRIANGLE_MAGIC:
+        raise ValueError(
+            f"{path}: not a FreeSurfer binary triangle surface "
+            f"(magic 0x{magic:06X}, want 0x{_FS_TRIANGLE_MAGIC:06X})")
+    end = raw.index(b"\n\n", 3) + 2
+    n_vert, n_face = struct.unpack(">ii", raw[end:end + 8])
+    off = end + 8
+    verts = np.frombuffer(raw, dtype=">f4", count=3 * n_vert, offset=off)
+    off += 12 * n_vert
+    faces = np.frombuffer(raw, dtype=">i4", count=3 * n_face, offset=off)
+    return (verts.reshape(n_vert, 3).astype(np.float64),
+            faces.reshape(n_face, 3).astype(np.int64))
+
+
+def write_freesurfer_surface(path, verts, faces, comment: str = "created"):
+    """Write the FreeSurfer binary triangle format `read_freesurfer_surface`
+    reads (and that mne.read_surface and FreeSurfer itself accept)."""
+    verts = np.asarray(verts, dtype=np.float64)
+    faces = np.asarray(faces, dtype=np.int64)
+    with open(path, "wb") as f:
+        f.write(_FS_TRIANGLE_MAGIC.to_bytes(3, "big"))
+        f.write(comment.encode() + b"\n\n")
+        f.write(struct.pack(">ii", verts.shape[0], faces.shape[0]))
+        f.write(verts.astype(">f4").tobytes())
+        f.write(faces.astype(">i4").tobytes())
+    return path
 
 
 def _atomic_target(path):

@@ -236,6 +236,39 @@ def test_rbf_interpolate_phases_and_complex_match_jax(meshes):
     assert got.dtype == np.complex128 and rel_err(got, want) <= 1e-9
 
 
+# (coordinates, values, JAX's result dtype, tolerance): the interpolant to
+# 1e-9 of its largest value where both packages compute in float64, and to
+# 1e-4 where the fit or the evaluation is float32 (float32 rounding times
+# the system's conditioning: 6e-6 to 9e-6 on these inputs).
+MIXED_DTYPES = [
+    (np.float64, np.complex64, np.complex64, 1e-4),
+    (np.float32, np.float64, np.float64, 1e-4),
+    (np.float64, np.float32, np.float64, 1e-9),
+    (np.float32, np.complex128, np.complex128, 1e-4),
+]
+
+
+@pytest.mark.parametrize("coord_dtype, value_dtype, want_dtype, tol", MIXED_DTYPES,
+                         ids=["f64_c64", "f32_f64", "f64_f32", "f32_c128"])
+def test_rbf_interpolate_mixed_dtypes_match_jax(meshes, coord_dtype, value_dtype,
+                                                want_dtype, tol):
+    """The result takes JAX's dtype: the system is solved in the
+    coordinates' dtype, complex values are evaluated in their real dtype,
+    real values in the promoted dtype of targets, coordinates and values."""
+    jmesh, tmesh = meshes
+    coords, sel = _electrodes(jmesh, 12, 4)
+    movie = _movie(jmesh.n_vertices, n_frames=5)[:, sel]
+    values = (np.exp(1j * movie) if np.issubdtype(value_dtype, np.complexfloating)
+              else movie).astype(value_dtype)
+    coords = coords.astype(coord_dtype)
+    got = interpolate.rbf_interpolate(torch.from_numpy(coords), torch.from_numpy(values),
+                                      tmesh.points, smooth=0.01).numpy()
+    want = np.asarray(jax_interp.rbf_interpolate(
+        jnp.asarray(coords), jnp.asarray(values), jmesh.points, smooth=0.01))
+    assert got.dtype == want.dtype == want_dtype
+    assert rel_err(got, want) <= tol
+
+
 @pytest.mark.parametrize("n_frames", [1, 17], ids=["one_frame", "frames_17"])
 @pytest.mark.parametrize("n_elec", [5, 65], ids=["e5", "e65"])
 def test_rbf_interpolate_at_tile_edges_matches_jax(meshes, n_elec, n_frames):

@@ -223,11 +223,9 @@ def test_streamline_and_winding_stages_match_jax(tmp_path, demo, jax_velocity, q
 
 
 def test_unported_stage_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="A3"):
         stages.load_surface(tmp_path / "none.ply", pad=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        stages.load_surface(tmp_path / "none.ply", cache_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="A6"):
         stages.wavespeed_stage(None, np.zeros((3, 4)), 1.0, device_mesh=object())
     with pytest.raises(ValueError, match="unknown SVD mode"):
         stages.decompose_stage(np.zeros((3, 4)), PipelineConfig(), mode="real",
@@ -536,15 +534,15 @@ def test_demo_cli_matches_jax(tmp_path, capsys):
 
 
 def test_field_cli_unported_options_raise(tmp_path, monkeypatch):
-    """The rendering options need viz/fields.py (item 14) and raise before
-    any work; every subcommand defaults to --device cuda."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """The rendering options need viz/fields.py (A4) and raise before any
+    work; every subcommand defaults to --device cuda."""
+    with pytest.raises(NotImplementedError, match="A4"):
         cli.main(["decompose", "--v-k", "v.csv", "--render-modes", "2", "--device", "cpu",
                   "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="A4"):
         cli.main(["decompose", "--v-k", "v.csv", "--render-modes", "2", "--pial", "lh.pial",
                   "--device", "cpu", "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="A4"):
         cli.main(["demo", "--gif", "--device", "cpu", "--out-dir", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["interpolate", "--surface", "s.ply", "--electrodes", "e.tsv",
