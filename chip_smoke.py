@@ -123,6 +123,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
      float64, ending in torch.cuda.synchronize(); best of 3 after a
      warm-up), beside the solve alone, timed in turns.
   8. cg: the same problem with method='cg' in float64 at tol=1e-8.
+  8b. anchor: the refined bench solve with anchor_stride 2 and 4 beside 1
+     (the temporal warm start): every frame converged, RMSE under the gate;
+     inner iterations (the anchors' included) and frames/s through
+     utils.profiling.frames_per_second. profiling: utils.profiling.trace
+     around one refined solve writes a Chrome trace whose host ranges name
+     fem_matvec.
   9. kernels: K8-K11 (the two-level preconditioner) against their plain
      versions at the 12.5k-vertex shapes (bench.py:465-474's surface, 12544
      vertices, 98 frames of the two-source movie), float32 and float64,
@@ -146,6 +152,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      was zeroed, the cold call (aggregation included) and the warm best of
      3. Then the crossover: refined with two-level and with Jacobi at 12.5k
      and on the bench surface, and float64 cg with two-level at 12.5k.
+ 10b. precise: K3's pcg_dot and pcg_update (bench and 12.5k shapes) and K11
+     (12.5k) in their float32 instances with float64 sums (<float,double>)
+     against their precise plain versions, timed as in phase 3 (pcg_dot
+     beside torch.linalg.vecdot on the operands cast to float64); then
+     float32 cg solves (tol 1e-5) of the bench problem (Jacobi) and of the
+     12.5k one (two-level) with precise_dots=True, each beside the same
+     solve without it, every launch count set to 0 just before each: every
+     frame converged, each precise instance launched and no float instance
+     of the three in the precise solves; iterations and RMSE against
+     spsolve printed, with the precise instances' device us a launch in a
+     profiled precise solve. Then the default refined bench solve again:
+     its launches must be [slice]'s (REFINED_LAUNCHES), no precise instance.
  11. flow12k: the flow CLI with the default config on the 12.5k surface as
      PLY and its movie as .npy, checked as in phase 6, with K1-K11 launched.
  11b. trial12k: phase 6b at 12.5k vertices x 98 frames.
@@ -155,6 +173,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the 12.5k surface through run_batch(ALL_STAGES), checked as in 6d,
      with K8-K11 launched too (no interpolate stage, so no K17); its split
      beside phases 11, 11b and 11c's CLI walls.
+ 11e. viz: whether matplotlib imports on this host. If it does: `visualize`
+     of frame 48 of phase 6's V_k.csv (K5 launched once) and `demo --gif` at
+     its defaults (a GIF of its 11 velocity frames); if not, `visualize`
+     must raise an ImportError naming matplotlib.
  12. long: a 392-frame two-source movie on the bench surface, refined at tol
      1e-6 with frame_chunk='auto' (4 windows of 104) and None; both converge
      and meet the RMSE gate against spsolve on 8 frames across the windows'
@@ -352,20 +374,35 @@ MANGLED_TYPES = {"f": "float", "d": "double", "i": "int"}
 
 def kernel_of(key: str) -> tuple | None:
     """(kernel, ctype) of a device event of the package's kernels, named
-    mf::<kernel><type> or, untemplated, by its first argument's type; or
-    by its mangled name (_ZN2mf<len><kernel>I<type>... or E<pointer to
-    type>...), which the profiler gives at times. None for other events."""
+    mf::<kernel><types> or, untemplated, by its first argument's type; or
+    by its mangled name (_ZN2mf<len><kernel>I<types>... or E<pointer to
+    type>...), which the profiler gives at times. None for other events.
+    The ctype is the kernel's float type, or "float,double" where its
+    template arguments are the two types of a precise instance (K3's
+    <float, double>, whose sums are double); integer arguments (a frame
+    count) are no type."""
     import re
 
-    hit = re.search(r"mf::(\w+?)(?:<(\w+)|\((\w+))", key)
+    def ctype_of(types: list) -> str | None:
+        types = [t for t in types if t in ("float", "double", "int")]
+        if not types:
+            return None
+        return types[0] if len(set(types)) == 1 else ",".join(types)
+
+    hit = re.search(r"mf::(\w+?)(?:<([\w, ]+)>|\((\w+))", key)
     if hit is not None:
-        return hit.group(1), hit.group(2) or hit.group(3)
+        if hit.group(2) is not None:
+            return hit.group(1), ctype_of([t.strip() for t in hit.group(2).split(",")])
+        return hit.group(1), hit.group(3)
     hit = re.search(r"_ZN2mf(\d+)", key)
     if hit is None:
         return None
     name = key[hit.end():hit.end() + int(hit.group(1))]
-    code = re.match(r"(?:I|EP?K?)(\w)", key[hit.end() + len(name):])
-    return (name, MANGLED_TYPES.get(code.group(1))) if code else None
+    rest = key[hit.end() + len(name):]
+    code = re.match(r"I([fdi]+)", rest) or re.match(r"EP?K?(\w)", rest)
+    if code is None:
+        return None
+    return name, ctype_of([MANGLED_TYPES[c] for c in code.group(1)])
 
 
 def solve_device_us(events, launches: dict) -> dict:
@@ -409,32 +446,33 @@ def assembled_csr(mesh, g, lambda_: float, dtype) -> torch.Tensor:
     return coo.coalesce().to_sparse_csr()
 
 
-def build_problem(device):
-    """bench.py's problem (bench.py:26-38), built with the port on `device`:
-    (mesh, potentials (98, N), times (98,), true sources (2, 3))."""
+def build_problem(device, dtype=np.float64):
+    """bench.py's problem (bench.py:26-38), built with the port on `device`
+    in `dtype`: (mesh, potentials (98, N), times (98,), true sources (2, 3))."""
     from manifold_flow_tpu_torch.geometry import synthetic
 
     mesh = synthetic.plane_patch(
         nx=56, ny=56, lx=60.0, ly=60.0,
         height=lambda x, y: 6.0 * np.sin(x / 12.0) * np.cos(y / 15.0),
-        dtype=np.float64, device=device)
+        dtype=dtype, device=device)
     return mesh, *synthetic.two_source_movie(
         mesh, sources=((15.0, 15.0), (45.0, 45.0)), n_frames=98,
-        speed=24.0, wavelength=24.0, dt=1.0 / 512.0, dtype=np.float64)
+        speed=24.0, wavelength=24.0, dt=1.0 / 512.0, dtype=dtype)
 
 
-def build_problem_12k(device):
+def build_problem_12k(device, dtype=np.float64):
     """bench.py:465-474's large surface (112x112 over 60x60, 12544 vertices)
-    with bench.py:535-538's 98-frame two-source movie, on `device`."""
+    with bench.py:535-538's 98-frame two-source movie, on `device` in
+    `dtype`."""
     from manifold_flow_tpu_torch.geometry import synthetic
 
     mesh = synthetic.plane_patch(
         nx=112, ny=112, lx=60.0, ly=60.0,
         height=lambda x, y: 6.0 * np.sin(x / 12.0) * np.cos(y / 15.0),
-        dtype=np.float64, device=device)
+        dtype=dtype, device=device)
     return mesh, *synthetic.two_source_movie(
         mesh, sources=((15.0, 15.0), (45.0, 45.0)), n_frames=98,
-        speed=24.0, wavelength=24.0, dt=1.0 / 512.0, dtype=np.float64)
+        speed=24.0, wavelength=24.0, dt=1.0 / 512.0, dtype=dtype)
 
 
 def spsolve_reference(mesh, pot, times, n_sample: int) -> np.ndarray:
@@ -520,7 +558,9 @@ class KernelChecks:
         dev_us = device_us(time_kernel, mine=own_kernel)
         lib_dev_us = device_us(library) if library is not None else None
         moved = nbytes if nbytes is not None else tensor_bytes(*inputs, *got)
-        ctype = key.split("<")[1].split(">")[0]
+        # The accumulator's type rates the operations: "float,double" sums
+        # in double.
+        ctype = key.split("<")[1].split(">")[0].split(",")[-1]
         bound_ms, bound_by, _, _ = bound_of(moved, ops, mm_ops, ctype)
         bound_over_device = bound_ms * 1e3 / dev_us if dev_us else None
         equal = f", {len(exact)} discrete outputs equal" if exact else ""
@@ -704,12 +744,13 @@ def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
 
 
 def check_update(checks: KernelChecks, p, ap, dinv, rz, rand, tol=TOL_F32,
-                 suffix: str = "") -> None:
+                 suffix: str = "", precise: bool = False) -> None:
     """K3's update on one iteration's worth of state (random x, r from
-    `rand`; pAp = <p, Ap>) against its plain version; timed in place."""
+    `rand`; pAp = <p, Ap>) against its plain version; timed in place.
+    `precise`: the float32 instance with float64 sums, `<float,double>`."""
     from manifold_flow_tpu_torch.kernels import fem as kfem
 
-    ctype = "float" if p.dtype == torch.float32 else "double"
+    ctype = "float,double" if precise else "float" if p.dtype == torch.float32 else "double"
     t, n_dof = p.shape
     state = [rand(t, n_dof, dtype=p.dtype) for _ in range(2)]  # x, r
     pap = kfem.plain_pcg_dot(p, ap)
@@ -718,13 +759,13 @@ def check_update(checks: KernelChecks, p, ap, dinv, rz, rand, tol=TOL_F32,
         x, r = (s.clone() for s in state)
         z = torch.empty_like(x)
         rz_new, rr = torch.empty_like(rz), torch.empty_like(rz)
-        fn(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
+        fn(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, precise)
         return x, r, z, rz_new, rr
     bufs = [[s.clone() for s in state] + [torch.empty_like(p)]
             + [torch.empty_like(rz) for _ in range(2)] for _ in range(2)]
 
     def update_in_place(fn, b):
-        return lambda: fn(b[0], b[1], b[2], p, ap, dinv, rz, pap, b[3], b[4])
+        return lambda: fn(b[0], b[1], b[2], p, ap, dinv, rz, pap, b[3], b[4], precise)
     key = f"pcg_update<{ctype}>"
     checks.compare(key + suffix, PCG_CU, "manifold_flow_tpu/solve/cg.py:89",
                    lambda: update(kfem.pcg_update),
@@ -2301,6 +2342,263 @@ def check_solution(name, res, v_ref, t_v, n_dof) -> float:
     return rmse
 
 
+# ------------------------------------------------------ the solve's options ----
+# The default refined bench solve's launches (84 inner iterations); the
+# solve's options must leave them as they are.
+REFINED_LAUNCHES = {
+    "fem_matvec<double>": 3, "fem_matvec<float>": 84, "frame_factors_rhs<double>": 1,
+    "jacobi_blocks<float>": 1, "pcg_direction<float>": 84, "pcg_dot<double>": 6,
+    "pcg_dot<float>": 87, "pcg_update<float>": 87}
+PRECISE_KERNELS = ("pcg_dot<float,double>", "pcg_update<float,double>")
+COARSE_CU = "manifold_flow_tpu_torch/csrc/coarse_kernels.cu"
+
+
+def check_precise_kernels(checks: KernelChecks, mesh, pot, times, suffix: str = "") -> None:
+    """K3's dot and update and (at 12.5k) K11 in their float32 instances
+    with float64 sums against their precise plain versions, on one
+    iteration's worth of float32 state of the problem (p, its A p, the
+    Jacobi blocks; r, P A_c^-1 P^T r): the same bytes as the float rows, so
+    the same bounds. The dot's library call is torch.linalg.vecdot on the
+    operands cast to float64, the casts included."""
+    from manifold_flow_tpu_torch.fem import assembly
+    from manifold_flow_tpu_torch.fem.operator import make_operator
+    from manifold_flow_tpu_torch.kernels import coarse as kco
+    from manifold_flow_tpu_torch.kernels import fem as kfem
+    from manifold_flow_tpu_torch.solve import coarse
+    from manifold_flow_tpu_torch.solve.api import build_rhs
+
+    f32 = torch.float32
+    g64, _ = build_rhs(mesh, pot, times)
+    op = make_operator(mesh, g64, 0.01).astype(f32)
+    t, n_dof = g64.shape[0], mesh.n_dof
+    gen = torch.Generator().manual_seed(3)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64).to(pot.device, dtype)
+    p = rand(t, n_dof, dtype=f32)
+    ap = kfem.plain_fem_matvec(p, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
+                               op.gather_base)
+    key = "pcg_dot<float,double>"
+    checks.compare(key + suffix, PCG_CU, "manifold_flow_tpu/solve/cg.py:30",
+                   lambda: (kfem.pcg_dot(p, ap, precise=True),),
+                   lambda: (kfem.plain_pcg_dot(p, ap, precise=True),), TOL_F32,
+                   inputs=(p, ap), ops=2 * t * n_dof,
+                   library=lambda: torch.linalg.vecdot(p.double(), ap.double()).float(),
+                   launches_key=key)
+    if not torch.equal(kfem.pcg_dot(p, ap, precise=True), kfem.pcg_dot(p, ap, precise=True)):
+        raise AssertionError(f"{key}{suffix}: two calls on the same inputs differ")
+    reg = assembly.corner_regularization(mesh, f32).contiguous()
+    dinv = kfem.plain_jacobi_blocks(op.g, reg, mesh.areas.to(f32), op.lambda_, op.gather_base)
+    check_update(checks, p, ap, dinv, rand(t, dtype=f32).abs(), rand, suffix=suffix,
+                 precise=True)
+    if not suffix:
+        return
+    pre = coarse.make_two_level(mesh, op.g, op.lambda_, coarse.build_tables(mesh))
+    r, z = rand(t, n_dof, dtype=f32), rand(t, n_dof, dtype=f32)
+    yc = kco.plain_coarse_gemv(pre.ac_inv, kco.plain_coarse_restrict(r, pre.r_blk, pre.members))
+
+    def prolong(fn):
+        zs, rz = z.clone(), torch.empty(t, dtype=f32, device=z.device)
+        fn(zs, r, yc, pre.r_blk, pre.agg, rz, True)
+        return zs, rz
+    bufs = [(z.clone(), torch.empty(t, dtype=f32, device=z.device)) for _ in range(2)]
+    key = "coarse_prolong_dot<float,double>"
+    checks.compare(key + suffix, COARSE_CU, "manifold_flow_tpu/solve/coarse.py:272",
+                   lambda: prolong(kco.coarse_prolong_dot),
+                   lambda: prolong(kco.plain_coarse_prolong_dot), TOL_F32,
+                   timed=(lambda: kco.coarse_prolong_dot(
+                              bufs[0][0], r, yc, pre.r_blk, pre.agg, bufs[0][1], True),
+                          lambda: kco.plain_coarse_prolong_dot(
+                              bufs[1][0], r, yc, pre.r_blk, pre.agg, bufs[1][1], True)),
+                   inputs=(z, r, yc, pre.r_blk, pre.agg),
+                   ops=t * (8 * mesh.n_vertices + 2 * n_dof), launches_key=key)
+    got = prolong(kco.coarse_prolong_dot)
+    if not all(torch.equal(a, b) for a, b in zip(got, prolong(kco.coarse_prolong_dot))):
+        raise AssertionError(f"{key}{suffix}: two calls on the same inputs differ")
+
+
+def rmse_of(v: torch.Tensor, v_ref: np.ndarray) -> float:
+    """RMSE of v's first frames against the spsolve reference, over its
+    largest entry."""
+    n = v_ref.shape[0]
+    return float(np.sqrt(np.mean((v[:n].double().cpu().numpy() - v_ref) ** 2))
+                 / max(float(np.abs(v_ref).max()), 1e-30))
+
+
+def run_precise(problems: dict, refined: tuple, slice_launches: dict,
+                card: str) -> tuple[dict, dict]:
+    """[precise]: float32 cg solves of the bench problem (Jacobi) and of the
+    12.5k problem (two-level, precond 'auto') with precise_dots=True, each
+    beside the same solve without it, every launch count set to 0 just
+    before each; one more precise solve of each under torch.profiler; then
+    the default refined bench solve `refined` again, whose launches must be
+    [slice]'s and REFINED_LAUNCHES. Returns the precise solves' launches and
+    the precise instances' device us a launch in them, by size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    launches_of, us_of = {}, {}
+    kw = dict(method="cg", tol=1e-5, max_iter=4000)
+    for tag, (mesh, pot, times, v_ref) in problems.items():
+        res_p, launches_p = counted_solve(mesh, pot, times, precise_dots=True, **kw)
+        res_d, launches_d = counted_solve(mesh, pot, times, **kw)
+        want = PRECISE_KERNELS + (("coarse_prolong_dot<float,double>",)
+                                  if tag == "12.5k" else ())
+        idle = [k for k in want if launches_p[k] == 0]
+        leaked = {k: launches_p[k] for k in ("pcg_dot<float>", "pcg_update<float>",
+                                             "coarse_prolong_dot<float>") if launches_p[k]}
+        stray = {k: n for k, n in launches_d.items() if "," in k and n}
+        if idle or leaked or stray:
+            raise AssertionError(f"[precise] {tag}: precise instances idle {idle}, float "
+                                 f"instances in the precise solve {leaked}, precise "
+                                 f"instances in the default one {stray}")
+        for name, res in (("precise", res_p), ("default", res_d)):
+            if res.v_k.dtype != torch.float32 or not bool(res.converged.all()):
+                raise AssertionError(f"[precise] {tag} {name}: {res.v_k.dtype}, "
+                                     f"{int((~res.converged).sum())} frames unconverged")
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            solve(mesh, pot, times, precise_dots=True, **kw)
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        us = {k: v for k, v in solve_device_us(events, dict(LAUNCHES)).items() if "," in k}
+        print(f"[precise] {tag} ({mesh.n_vertices} vertices, float32 cg tol 1e-5, "
+              f"precond {'two-level' if tag == '12.5k' else 'Jacobi'}): precise_dots "
+              f"iterations {res_p.iterations}, RMSE vs spsolve ({v_ref.shape[0]} frames) "
+              f"{rmse_of(res_p.v_k, v_ref):.3e}; without {res_d.iterations}, "
+              f"{rmse_of(res_d.v_k, v_ref):.3e}; max |dv| between them "
+              f"{float((res_p.v_k - res_d.v_k).abs().max() / res_d.v_k.abs().max()):.3e} "
+              f"of max|v|; precise launches " + ", ".join(
+                  f"{k}={n}" for k, n in sorted(launches_p.items()) if n)
+              + "; device us a launch in the profiled precise solve: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(us.items())) + f"; on {card}", flush=True)
+        launches_of[tag], us_of[tag] = launches_p, us
+    res, launches = counted_solve(*refined, method="refined", tol=1e-6, max_iter=4000)
+    ran = {k: n for k, n in launches.items() if n}
+    if launches != slice_launches or ran != REFINED_LAUNCHES:
+        raise AssertionError(f"[precise] the default refined solve's launches moved: {ran}, "
+                             f"want {REFINED_LAUNCHES}")
+    print(f"[precise] the default refined bench solve after them: {res.iterations} inner "
+          f"iterations, launches as in [slice] and no precise instance: " + ", ".join(
+              f"{k}={n}" for k, n in sorted(ran.items())), flush=True)
+    return launches_of, us_of
+
+
+def run_anchor(mesh, pot, times, v_ref, card: str) -> None:
+    """[anchor]: the refined bench solve with anchor_stride 2 and 4 beside
+    stride 1: every frame converged, RMSE under the gate, inner iterations
+    (the anchors' included) and frames/s through utils.profiling."""
+    from manifold_flow_tpu_torch.utils import profiling
+
+    t_v, n_dof = pot.shape[0] - 1, mesh.n_dof
+    parts = []
+    for stride in (1, 2, 4):
+        kw = dict(method="refined", tol=1e-6, max_iter=4000, anchor_stride=stride)
+        res, launches = counted_solve(mesh, pot, times, **kw)
+        rmse = check_solution(f"anchor_stride={stride}", res, v_ref, t_v, n_dof)
+        fps = profiling.frames_per_second(t_v, lambda: solve(mesh, pot, times, **kw))
+        parts.append(f"stride {stride}: inner iterations {res.iterations} (84 at stride "
+                     f"1), RMSE {rmse:.3e}, {fps:.1f} frames/s, K1 <float> launches "
+                     f"{launches['fem_matvec<float>']}, <double> "
+                     f"{launches['fem_matvec<double>']}")
+    print(f"[anchor] refined tol 1e-6 on the bench problem, every frame converged, "
+          f"RMSE gate {RMSE_GATE:.0e}, frames/s best of 3 after a warm-up "
+          f"(utils.profiling.frames_per_second): " + "; ".join(parts)
+          + f"; on {card}", flush=True)
+
+
+def run_profiling(mesh, pot, times, card: str) -> None:
+    """[profiling]: utils.profiling.trace around one refined bench solve
+    writes a Chrome trace naming the K1 wrapper's launches."""
+    from manifold_flow_tpu_torch.utils import profiling
+
+    solve(mesh, pot, times, method="refined", tol=1e-6, max_iter=4000)  # warm
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp) as prof:
+            solve(mesh, pot, times, method="refined", tol=1e-6, max_iter=4000)
+        wall = time.perf_counter() - t0
+        (path,) = Path(tmp).iterdir()
+        text = path.read_text()
+        ranges = sum(1 for e in json.loads(text)["traceEvents"]
+                     if str(e.get("name", "")).startswith("fem_matvec<"))
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and own_kernel(e.key))
+        if "fem_matvec" not in text or ranges == 0:
+            raise AssertionError(f"[profiling] the trace {path.name} names no fem_matvec")
+        print(f"[profiling] utils.profiling.trace around one refined solve: {path.name}, "
+              f"{len(text) >> 10} KiB, {ranges} fem_matvec host ranges, the package's "
+              f"kernels' device time {dev / 1e3:.3f} ms, {wall * 1e3:.2f} ms wall with "
+              f"the trace's export; "
+              f"on {card}", flush=True)
+
+
+def run_viz(mesh, kept: Path, card: str) -> None:
+    """[viz]: the renderers on the card's host, if matplotlib is installed
+    there: `visualize` of a frame of the bench flow CLI's V_k.csv (`kept`)
+    on its surface and bases (K5 recombines it on the card) and `demo
+    --gif` at its defaults; without matplotlib, `visualize` must raise an
+    ImportError naming it."""
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from manifold_flow_tpu_torch.pipeline import cli
+    from manifold_flow_tpu_torch.utils import io as mio
+
+    mio.write_ply(kept / "surface.ply", *mio.to_numpy(mesh.points, mesh.triangles))
+    mio.save_e_csv(kept / "e.csv", mesh.basis.cpu().numpy())
+
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    argv = ["visualize", "--surface", str(kept / "surface.ply"), "--e", str(kept / "e.csv"),
+            "--v-k", str(kept / "V_k.csv"), "--frame", "48", "--out-dir", str(kept / "viz")]
+    if not has_mpl:
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(argv)
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise
+            print(f"[viz] matplotlib does not import on this host: visualize raises "
+                  f"ImportError({str(e)!r}); nothing rendered (a missing host library)",
+                  flush=True)
+            return
+        raise AssertionError("[viz] visualize ran without matplotlib")
+    from PIL import Image
+
+    torch.cuda.synchronize()
+    reset_launches()
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    k5 = LAUNCHES["recombine_speed<double>"]
+    line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    png = Path(line["png"])
+    with Image.open(png) as im:
+        size = im.size
+    if rc != 0 or k5 != 1 or png.stat().st_size == 0:
+        raise AssertionError(f"[viz] visualize: rc {rc}, K5 launches {k5}, {png}")
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["demo", "--gif", "--out-dir", str(kept / "demo_gif")])
+    demo_wall = time.perf_counter() - t0
+    line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    with Image.open(line["gif"]) as im:
+        n_frames, gif_size = im.n_frames, im.size
+    if rc != 0 or not line["converged"] or n_frames != line["frames"]:
+        raise AssertionError(f"[viz] demo --gif: rc {rc}, {line}, {n_frames} GIF frames")
+    print(f"[viz] matplotlib {matplotlib.__version__} on this host: visualize frame 48 of "
+          f"the bench flow CLI's V_k.csv, K5 launched {k5}x, {png.name} {size[0]}x{size[1]} "
+          f"px in {wall * 1e3:.2f} ms; demo --gif (24x24, 12 frames): {n_frames} GIF frames "
+          f"{gif_size[0]}x{gif_size[1]} px, matched {line['matched']}, "
+          f"{demo_wall * 1e3:.2f} ms (gif {line['timings']['gif'] * 1e3:.2f}); on {card}",
+          flush=True)
+
+
 # -------------------------------------------------------- pipeline.batch ----
 BATCH_KERNELS = FLOW_KERNELS + ("next_hop<double>", "trace_walks<int>", "pack_walks<int>",
                                 "winding_profile<double>", "wave_speed<double>")
@@ -2816,6 +3114,7 @@ def main() -> int:
     v_ref = spsolve_reference(mesh, pot, times, N_SAMPLE)
     refined = dict(method="refined", tol=1e-6, max_iter=4000)
     res, launches = counted_solve(mesh, pot, times, **refined)
+    slice_launches = launches
     rmse = check_solution("refined", res, v_ref, t_v, n_dof)
     idle = [k for k in ("fem_matvec<float>", "fem_matvec<double>",
                         "jacobi_blocks<float>", "frame_factors_rhs<double>",
@@ -2872,6 +3171,10 @@ def main() -> int:
     print(f"[cg] float64 cg: iterations {res_cg.iterations}, all frames converged,"
           f" RMSE vs spsolve {rmse_cg:.3e}", flush=True)
 
+    # 8b. the refined solve's temporal warm start, and a trace of one solve
+    run_anchor(mesh, pot, times, v_ref, card)
+    run_profiling(mesh, pot, times, card)
+
     # 9. the two-level kernels at the 12.5k shapes
     mesh12, pot12, times12, truth12 = build_problem_12k(device)
     print(f"[problem] {mesh12.n_vertices} vertices, {mesh12.n_triangles} "
@@ -2888,6 +3191,16 @@ def main() -> int:
     twolevel_launches = run_twolevel(*build_problem_12k(device)[:3], mesh, pot,
                                      times, card)
 
+    # 10b. precise_dots: K3's and K11's float32 instances with float64 sums,
+    # then float32 cg solves through them at both sizes
+    check_precise_kernels(checks, mesh, pot, times)
+    check_precise_kernels(checks, mesh12, pot12, times12, suffix="@12.5k")
+    precise_launches, precise_us = run_precise(
+        {"3.1k": (*build_problem(device, np.float32)[:3], v_ref),
+         "12.5k": (*build_problem_12k(device, np.float32)[:3],
+                   spsolve_reference(mesh12, pot12, times12, 2))},
+        (mesh, pot, times), slice_launches, card)
+
     # 11. the flow stage through the command line at 12.5k: the slice's path
     flow12k_launches = run_flow(mesh12, pot12, truth12, card, tag="flow12k",
                                 kernels=FLOW12K_KERNELS, cell=60.0 / 111.0,
@@ -2898,6 +3211,8 @@ def main() -> int:
                                     tag="fields12k", demo=False, workdir=kept / "fields12k")
     # 11d: one 12.5k trial through pipeline.batch
     run_batch12k(mesh12, pot12, card, kept)
+    # 11e: the renderers on the bench flow CLI's V_k.csv, and demo --gif
+    run_viz(mesh, kept, card)
     keep.cleanup()
 
     # 12. a 392-frame movie, in windows and whole
@@ -3001,9 +3316,15 @@ def main() -> int:
             return (recon["launches"],)
         return default_12k + default_3k if at_12k(label) else default_3k + default_12k
     in_solve["recon"] = recon["device_us"]
+    in_solve["bench"].update(precise_us["3.1k"])
+    in_solve["12.5k"].update(precise_us["12.5k"])
+
+    def others_of(label: str):  # the precise solves of the row's own size first
+        sizes = ("12.5k", "3.1k") if at_12k(label) else ("3.1k", "12.5k")
+        return tuple(precise_launches[size] for size in sizes) + others
     default = {k: first_count(phases_of(k), row["launches_key"])
                for k, row in checks.rows.items()}
-    driven = {k: default[k] or first_count(others, row["launches_key"])
+    driven = {k: default[k] or first_count(others_of(k), row["launches_key"])
               for k, row in checks.rows.items()}
     for k, row in checks.rows.items():
         row["solve_device_us"] = in_solve[

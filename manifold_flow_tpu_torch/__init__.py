@@ -19,12 +19,14 @@ speeds, the S6 streamlines and the S7 winding lines run through
 `pipeline.stages`, a whole results tree through `pipeline.batch` (with the
 geometry cache of `utils.cache`), and `python -m
 manifold_flow_tpu_torch.pipeline.cli
-preprocess|reconstruct|interpolate|flow|decompose|wavespeed|streamline|winding|batch|demo`.
+preprocess|reconstruct|interpolate|flow|decompose|wavespeed|streamline|winding|visualize|batch|demo`.
+`viz` renders fields, modes and streamlines with matplotlib (imported when
+a plot is drawn), `utils.profiling` times and traces.
 Entry points put their work on the GPU unless the caller passes
 device="cpu".
 """
 
-from manifold_flow_tpu_torch import fem, geometry, kernels, ops, pipeline, solve, utils
+from manifold_flow_tpu_torch import fem, geometry, kernels, ops, pipeline, solve, utils, viz
 from manifold_flow_tpu_torch.convert import mesh_from_jax_arrays
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh
 from manifold_flow_tpu_torch.solve.api import compute_velocity_fields
@@ -41,4 +43,5 @@ __all__ = [
     "pipeline",
     "solve",
     "utils",
+    "viz",
 ]

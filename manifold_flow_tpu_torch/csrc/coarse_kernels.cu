@@ -527,13 +527,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 // on the card: 15.4 against 11.5 us in f32, 25.8 against 22.1 in f64, at
 // the 12.5k shapes). Each vertex's z is the first design's expression
 // (prolong_vertex); the block's r.z closes in slice order (common.cuh
-// close_slices).
-template <typename T>
+// close_slices). r.z is summed in the accumulator type A: A = T, or double
+// for float vectors in the precise instance (f32acc64, solve_cg's
+// precise_dots), whose partials stay double until the frame's sum is
+// written; z is the same in both.
+template <typename T, typename A>
 __device__ __forceinline__ void prolong_vertex(T& z1, T& z2, T r1, T r2,
-                                               const T* rv, T ya, T yb, T& acc) {
+                                               const T* rv, T ya, T yb, A& acc) {
   z1 = z1 + (rv[0] * ya + rv[1] * yb);
   z2 = z2 + (rv[2] * ya + rv[3] * yb);
-  acc += r1 * z1 + r2 * z2;
+  acc += static_cast<A>(r1) * static_cast<A>(z1) + static_cast<A>(r2) * static_cast<A>(z2);
 }
 
 // One group of W aggregate ids from agg + v (16 bytes in f32, 8 in f64).
@@ -551,11 +554,11 @@ __device__ __forceinline__ void load_ids(const int* p, int (&ids)[2]) {
 }
 
 // K11 on vertices [lo, hi) of one frame, one element at a time.
-template <typename T>
+template <typename T, typename A>
 __device__ __forceinline__ void prolong_scalar(T* zt, const T* rt, const T* ys,
                                                const T* r_blk, const int* agg,
                                                int64_t n_vert, int64_t lo,
-                                               int64_t hi, T& acc) {
+                                               int64_t hi, A& acc) {
   for (int64_t v = lo + threadIdx.x; v < hi; v += kThreads) {
     const int64_t w = v + n_vert;
     const int64_t i = agg[v];
@@ -567,16 +570,16 @@ __device__ __forceinline__ void prolong_scalar(T* zt, const T* rt, const T* ys,
   }
 }
 
-template <typename T>
+template <typename T, typename A>
 __global__ void __launch_bounds__(kThreads)
     prolong_dot_kernel(T* __restrict__ z, const T* __restrict__ r,
                        const T* __restrict__ yc, const T* __restrict__ r_blk,
                        const int* __restrict__ agg, T* __restrict__ rz,
-                       T* __restrict__ part, unsigned int* __restrict__ ticket,
+                       A* __restrict__ part, unsigned int* __restrict__ ticket,
                        int64_t n_frames, int64_t n_vert, int64_t n_coarse) {
   using V = typename Vec16<T>::type;
   constexpr int W = kVecWidth<T>;
-  __shared__ T scratch[kWarps];
+  __shared__ A scratch[kWarps];
   const int n_slices = static_cast<int>(gridDim.x);
   const int s = static_cast<int>(blockIdx.x);
   for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
@@ -584,7 +587,7 @@ __global__ void __launch_bounds__(kThreads)
     T* zt = z + off;
     const T* rt = r + off;
     const T* ys = yc + t * 2 * n_coarse;
-    T acc = T(0);
+    A acc = A(0);
     const uintptr_t a0 = reinterpret_cast<uintptr_t>(zt) & 15;
     const int64_t head = head_to_16(zt, n_vert);
     const bool vec = (reinterpret_cast<uintptr_t>(rt) & 15) == a0 &&
@@ -634,7 +637,7 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t hi = (s + 1) * per < n_vert ? (s + 1) * per : n_vert;
       prolong_scalar(zt, rt, ys, r_blk, agg, n_vert, s * per, hi, acc);
     }
-    const T sums[1] = {block_sum(acc, scratch)};
+    const A sums[1] = {block_sum(acc, scratch)};
     T* const outs[1] = {rz};
     close_slices(sums, outs, part, ticket, t);
   }
@@ -724,7 +727,7 @@ int coarse_gemv(const void* a, const void* x, void* y, int64_t n_frames,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename A>
 int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk,
                        const void* agg, void* rz, void* part, void* ticket,
                        int64_t n_frames, int64_t n_vert, int64_t n_coarse,
@@ -734,10 +737,10 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const dim3 grid(static_cast<unsigned int>(n_slices), frame_blocks(n_frames));
-    prolong_dot_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    prolong_dot_kernel<T, A><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<T*>(z), static_cast<const T*>(r), static_cast<const T*>(yc),
         static_cast<const T*>(r_blk), static_cast<const int*>(agg),
-        static_cast<T*>(rz), static_cast<T*>(part),
+        static_cast<T*>(rz), static_cast<A*>(part),
         static_cast<unsigned int*>(ticket), n_frames, n_vert, n_coarse);
   }
   return static_cast<int>(cudaGetLastError());
@@ -767,15 +770,22 @@ int coarse_prolong_dot(void* z, const void* r, const void* yc, const void* r_blk
                                          void* y, int64_t n_frames, int64_t n, \
                                          int64_t a_stride, void* stream) {     \
     return mf::coarse_gemv<T>(a, x, y, n_frames, n, a_stride, stream);         \
-  }                                                                            \
+  }
+
+// K11 in three instances: float and double (A = T), and float with a double
+// r.z (f32acc64, solve_cg's precise_dots).
+#define MF_PROLONG_DOT_ENTRY_POINT(SUFFIX, T, A)                               \
   extern "C" int mf_coarse_prolong_dot_##SUFFIX(                               \
       void* z, const void* r, const void* yc, const void* r_blk,               \
       const void* agg, void* rz, void* part, void* ticket, int64_t n_frames,   \
       int64_t n_vert, int64_t n_coarse, int64_t n_slices, void* stream) {      \
-    return mf::coarse_prolong_dot<T>(z, r, yc, r_blk, agg, rz, part, ticket,   \
-                                     n_frames, n_vert, n_coarse, n_slices,     \
-                                     stream);                                  \
+    return mf::coarse_prolong_dot<T, A>(z, r, yc, r_blk, agg, rz, part,        \
+                                        ticket, n_frames, n_vert, n_coarse,    \
+                                        n_slices, stream);                     \
   }
 
 MF_COARSE_ENTRY_POINTS(f32, float)
 MF_COARSE_ENTRY_POINTS(f64, double)
+MF_PROLONG_DOT_ENTRY_POINT(f32, float, float)
+MF_PROLONG_DOT_ENTRY_POINT(f64, double, double)
+MF_PROLONG_DOT_ENTRY_POINT(f32acc64, float, double)

@@ -120,6 +120,18 @@ __device__ __forceinline__ double dot_acc(double2 a, double2 b, double acc) {
   acc = fma(a.x, b.x, acc);
   return fma(a.y, b.y, acc);
 }
+// The same in a float64 accumulator from float operands (the precise
+// instances of K3 and K11): a product of two floats is exact in double, so
+// the fused multiply-add rounds only where the separate add would.
+__device__ __forceinline__ double dot_acc(float a, float b, double acc) {
+  return fma(static_cast<double>(a), static_cast<double>(b), acc);
+}
+__device__ __forceinline__ double dot_acc(float4 a, float4 b, double acc) {
+  acc = dot_acc(a.x, b.x, acc);
+  acc = dot_acc(a.y, b.y, acc);
+  acc = dot_acc(a.z, b.z, acc);
+  return dot_acc(a.w, b.w, acc);
+}
 
 // Explicitly rounded arithmetic for every expression that decides something
 // discrete (a mask, an argmax, a class code, a ring count): nvcc would
@@ -180,22 +192,24 @@ constexpr int kMaxSlices = 128;
 // part[(t S + s) NV + i] and takes the frame's integer ticket; the last block
 // to arrive adds the S partials in slice order, writes out[i][t] and leaves
 // the ticket at 0 for the next launch. No float atomics: the sums repeat bit
-// for bit. Every thread of the block calls it; with S > 1 it ends with a
-// barrier, so its shared memory serves the next frame.
-template <typename T, int NV>
-__device__ __forceinline__ void close_slices(const T (&acc)[NV],
-                                             T* const (&out)[NV],
-                                             T* __restrict__ part,
+// for bit. The partials and the closing sum are of the accumulator type A;
+// the write to out (of type O) is the only rounding where O is narrower.
+// Every thread of the block calls it; with S > 1 it ends with a barrier, so
+// its shared memory serves the next frame.
+template <typename A, typename O, int NV>
+__device__ __forceinline__ void close_slices(const A (&acc)[NV],
+                                             O* const (&out)[NV],
+                                             A* __restrict__ part,
                                              unsigned int* __restrict__ ticket,
                                              int64_t t) {
-  __shared__ T closing[NV * kMaxSlices];
+  __shared__ A closing[NV * kMaxSlices];
   __shared__ bool last;
   const int n_slices = static_cast<int>(gridDim.x);
   const int s = static_cast<int>(blockIdx.x);
   if (n_slices == 1) {
     if (threadIdx.x == 0) {
 #pragma unroll
-      for (int i = 0; i < NV; ++i) out[i][t] = acc[i];
+      for (int i = 0; i < NV; ++i) out[i][t] = static_cast<O>(acc[i]);
     }
     return;
   }
@@ -208,19 +222,19 @@ __device__ __forceinline__ void close_slices(const T (&acc)[NV],
   __syncthreads();
   if (last && threadIdx.x < 32) {
     __threadfence();
-    const T* pf = part + t * n_slices * NV;
+    const A* pf = part + t * n_slices * NV;
     for (int k = threadIdx.x; k < NV * n_slices; k += 32) closing[k] = __ldcg(pf + k);
     __syncwarp();
     if (threadIdx.x == 0) {
-      T sum[NV];
+      A sum[NV];
 #pragma unroll
-      for (int i = 0; i < NV; ++i) sum[i] = T(0);
+      for (int i = 0; i < NV; ++i) sum[i] = A(0);
       for (int k = 0; k < n_slices; ++k) {
 #pragma unroll
         for (int i = 0; i < NV; ++i) sum[i] += closing[NV * k + i];
       }
 #pragma unroll
-      for (int i = 0; i < NV; ++i) out[i][t] = sum[i];
+      for (int i = 0; i < NV; ++i) out[i][t] = static_cast<O>(sum[i]);
       ticket[t] = 0u;  // ready for the next launch
     }
   }

@@ -41,6 +41,16 @@
 // equal. The ticket costs one integer atomic a block; a cluster of the S
 // blocks reducing through distributed shared memory would cost a cluster
 // barrier, which on this card took more than pcg_dot's whole time.
+//
+// pcg_dot and pcg_update take the type A of their per-frame sums as a
+// second template argument: A = T is the solve's default instance, and
+// <float, double> the precise one of solve_cg(precise_dots=True)
+// (solve/cg.py:30-47 `_dot`): every product of the float operands is formed
+// and summed in double, the partials of pcg_update's slices are double, and
+// the frame's sum is rounded to float once, where it is written. The
+// operands, their loads and the launch shapes are those of the float
+// instance, so it moves the same bytes; its reductions' shared scratch
+// doubles (64 bytes a block for block_sum, 2 KB for close_slices).
 #include "common.cuh"
 
 namespace mf {
@@ -49,11 +59,12 @@ constexpr int kDotUnroll = 4;  // vectors a thread loads per operand at once
 
 // part[u] += x[k] y[k] over k in [lo, hi), thread i taking k = lo + i,
 // lo + i + kThreads, ..., kDotUnroll of them loaded before any is used.
-// P is T (scalar elements) or Vec16<T>::type (16-byte vectors).
-template <typename P, typename T>
+// P is T (scalar elements) or Vec16<T>::type (16-byte vectors); A is the
+// accumulator type.
+template <typename P, typename A>
 __device__ __forceinline__ void dot_slice(const P* __restrict__ x,
                                           const P* __restrict__ y, int64_t lo,
-                                          int64_t hi, T* part) {
+                                          int64_t hi, A* part) {
   for (int64_t k0 = lo + threadIdx.x; k0 < hi; k0 += kThreads * kDotUnroll) {
     P xs[kDotUnroll] = {};
     P ys[kDotUnroll] = {};
@@ -77,16 +88,16 @@ __device__ __forceinline__ void dot_slice(const P* __restrict__ x,
 // vectors go first, then the elements up to the first boundary, then the
 // last few; otherwise the row goes element by element. The order of every
 // sum is fixed by n and that offset, so repeated calls are bitwise equal.
-template <typename T>
+template <typename T, typename A>
 __global__ void __launch_bounds__(kThreads)
     dot_kernel(const T* a, const T* b, T* out, int64_t n) {
   using V = typename Vec16<T>::type;
   constexpr int W = kVecWidth<T>;
-  __shared__ T scratch[kWarps];
+  __shared__ A scratch[kWarps];
   const int64_t t = blockIdx.x;
   const T* at = a + t * n;
   const T* bt = b + t * n;
-  T part[kDotUnroll] = {};
+  A part[kDotUnroll] = {};
   const bool paired = ((reinterpret_cast<uintptr_t>(at) ^
                         reinterpret_cast<uintptr_t>(bt)) & 15) == 0;
   if (paired) {
@@ -99,36 +110,38 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     dot_slice(at, bt, int64_t(0), n, part);
   }
-  T acc = (part[0] + part[1]) + (part[2] + part[3]);
+  A acc = (part[0] + part[1]) + (part[2] + part[3]);
   acc = block_sum(acc, scratch);
-  if (threadIdx.x == 0) out[t] = acc;
+  if (threadIdx.x == 0) out[t] = static_cast<T>(acc);
 }
 
 // One vertex's step of pcg_update, the first design's expression: x += alpha
-// p, r -= alpha Ap, z = D^-1 r, and its terms of r.z and r.r.
-template <typename T>
+// p, r -= alpha Ap, z = D^-1 r, and its terms of r.z and r.r, formed in the
+// accumulator type A (the cast is nothing where A = T).
+template <typename T, typename A>
 __device__ __forceinline__ void update_vertex(T alpha, T& x1, T& x2, T& r1,
                                               T& r2, T p1, T p2, T ap1, T ap2,
                                               const T* d, T& z1, T& z2,
-                                              T& acc_rz, T& acc_rr) {
+                                              A& acc_rz, A& acc_rr) {
   x1 += alpha * p1;
   x2 += alpha * p2;
   r1 = r1 - alpha * ap1;
   r2 = r2 - alpha * ap2;
   z1 = d[0] * r1 + d[1] * r2;
   z2 = d[2] * r1 + d[3] * r2;
-  acc_rz += r1 * z1 + r2 * z2;
-  acc_rr += r1 * r1 + r2 * r2;
+  const A a1 = static_cast<A>(r1), a2 = static_cast<A>(r2);
+  acc_rz += a1 * static_cast<A>(z1) + a2 * static_cast<A>(z2);
+  acc_rr += a1 * a1 + a2 * a2;
 }
 
 // pcg_update on vertices [lo, hi) of one frame, one element at a time,
 // thread i taking lo + i, lo + i + kThreads, ...
-template <typename T>
+template <typename T, typename A>
 __device__ __forceinline__ void update_scalar(T alpha, T* xt, T* rt, T* zt,
                                               const T* pt, const T* apt,
                                               const T* dt, int64_t n_vert,
                                               int64_t lo, int64_t hi,
-                                              T& acc_rz, T& acc_rr) {
+                                              A& acc_rz, A& acc_rr) {
   for (int64_t v = lo + threadIdx.x; v < hi; v += kThreads) {
     const int64_t w = v + n_vert;
     T x1 = xt[v], x2 = xt[w], r1 = rt[v], r2 = rt[w], z1, z2;
@@ -155,18 +168,18 @@ __device__ __forceinline__ void update_scalar(T alpha, T* xt, T* rt, T* zt,
 // group. Otherwise the slices cut the vertices and go one at a time. The
 // block's r.z and r.r close in slice order (common.cuh close_slices). The
 // order of every sum is fixed by N, S and the offsets.
-template <typename T>
+template <typename T, typename A>
 __global__ void __launch_bounds__(kThreads)
     update_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ z,
                   const T* __restrict__ p, const T* __restrict__ ap,
                   const T* __restrict__ dinv, const T* __restrict__ rz,
                   const T* __restrict__ pap, T* __restrict__ rz_new,
-                  T* __restrict__ rr, T* __restrict__ part,
+                  T* __restrict__ rr, A* __restrict__ part,
                   unsigned int* __restrict__ ticket, int64_t n_frames,
                   int64_t n_vert) {
   using V = typename Vec16<T>::type;
   constexpr int W = kVecWidth<T>;
-  __shared__ T scratch[kWarps];
+  __shared__ A scratch[kWarps];
   const int n_slices = static_cast<int>(gridDim.x);
   const int s = static_cast<int>(blockIdx.x);
   for (int64_t t = blockIdx.y; t < n_frames; t += gridDim.y) {
@@ -179,7 +192,7 @@ __global__ void __launch_bounds__(kThreads)
     const T* pt = p + off;
     const T* apt = ap + off;
     const T* dt = dinv + t * n_vert * 4;
-    T acc_rz = T(0), acc_rr = T(0);
+    A acc_rz = A(0), acc_rr = A(0);
     const uintptr_t a0 = reinterpret_cast<uintptr_t>(xt) & 15;
     const bool vec = (reinterpret_cast<uintptr_t>(rt) & 15) == a0 &&
                      (reinterpret_cast<uintptr_t>(zt) & 15) == a0 &&
@@ -247,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
       update_scalar(alpha, xt, rt, zt, pt, apt, dt, n_vert, s * per, hi, acc_rz,
                     acc_rr);
     }
-    const T sums[2] = {block_sum(acc_rz, scratch), block_sum(acc_rr, scratch)};
+    const A sums[2] = {block_sum(acc_rz, scratch), block_sum(acc_rr, scratch)};
     T* const outs[2] = {rz_new, rr};
     close_slices(sums, outs, part, ticket, t);
   }
@@ -266,18 +279,18 @@ __global__ void direction_kernel(T* __restrict__ p, const T* __restrict__ z,
   p[i] = z[i] + beta * p[i];
 }
 
-template <typename T>
+template <typename T, typename A>
 int pcg_dot(const void* a, const void* b, void* out, int64_t n_frames,
             int64_t n, void* stream) {
   if (n_frames > 0) {
-    dot_kernel<T><<<static_cast<unsigned int>(n_frames), kThreads, 0,
+    dot_kernel<T, A><<<static_cast<unsigned int>(n_frames), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename A>
 int pcg_update(void* x, void* r, void* z, const void* p, const void* ap,
                const void* dinv, const void* rz, const void* pap, void* rz_new,
                void* rr, void* part, void* ticket, int64_t n_frames,
@@ -287,12 +300,12 @@ int pcg_update(void* x, void* r, void* z, const void* p, const void* ap,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const dim3 grid(static_cast<unsigned int>(n_slices), frame_blocks(n_frames));
-    update_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    update_kernel<T, A><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<T*>(x), static_cast<T*>(r), static_cast<T*>(z),
         static_cast<const T*>(p), static_cast<const T*>(ap),
         static_cast<const T*>(dinv), static_cast<const T*>(rz),
         static_cast<const T*>(pap), static_cast<T*>(rz_new),
-        static_cast<T*>(rr), static_cast<T*>(part),
+        static_cast<T*>(rr), static_cast<A*>(part),
         static_cast<unsigned int*>(ticket), n_frames, n_vert);
   }
   return static_cast<int>(cudaGetLastError());
@@ -315,20 +328,26 @@ int pcg_direction(void* p, const void* z, const void* rz_new,
 
 }  // namespace mf
 
-#define MF_PCG_ENTRY_POINTS(SUFFIX, T)                                        \
+// The dot and the update in three instances: float and double (A = T), and
+// float with double sums (f32acc64, solve_cg's precise_dots); the direction,
+// which sums nothing, in the first two.
+#define MF_PCG_SUM_ENTRY_POINTS(SUFFIX, T, A)                                 \
   extern "C" int mf_pcg_dot_##SUFFIX(const void* a, const void* b, void* out, \
                                      int64_t n_frames, int64_t n,             \
                                      void* stream) {                          \
-    return mf::pcg_dot<T>(a, b, out, n_frames, n, stream);                    \
+    return mf::pcg_dot<T, A>(a, b, out, n_frames, n, stream);                 \
   }                                                                           \
   extern "C" int mf_pcg_update_##SUFFIX(                                      \
       void* x, void* r, void* z, const void* p, const void* ap,               \
       const void* dinv, const void* rz, const void* pap, void* rz_new,        \
       void* rr, void* part, void* ticket, int64_t n_frames, int64_t n_vert,   \
       int64_t n_slices, void* stream) {                                       \
-    return mf::pcg_update<T>(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, part, \
-                             ticket, n_frames, n_vert, n_slices, stream);     \
-  }                                                                           \
+    return mf::pcg_update<T, A>(x, r, z, p, ap, dinv, rz, pap, rz_new, rr,    \
+                                part, ticket, n_frames, n_vert, n_slices,     \
+                                stream);                                      \
+  }
+
+#define MF_PCG_DIRECTION_ENTRY_POINT(SUFFIX, T)                               \
   extern "C" int mf_pcg_direction_##SUFFIX(                                   \
       void* p, const void* z, const void* rz_new, const void* rz_old,         \
       int64_t n_frames, int64_t n_dof, void* stream) {                        \
@@ -336,5 +355,8 @@ int pcg_direction(void* p, const void* z, const void* rz_new,
                                 stream);                                      \
   }
 
-MF_PCG_ENTRY_POINTS(f32, float)
-MF_PCG_ENTRY_POINTS(f64, double)
+MF_PCG_SUM_ENTRY_POINTS(f32, float, float)
+MF_PCG_SUM_ENTRY_POINTS(f64, double, double)
+MF_PCG_SUM_ENTRY_POINTS(f32acc64, float, double)
+MF_PCG_DIRECTION_ENTRY_POINT(f32, float)
+MF_PCG_DIRECTION_ENTRY_POINT(f64, double)

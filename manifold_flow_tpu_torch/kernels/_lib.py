@@ -2,11 +2,13 @@
 
 `library()` builds `csrc/*.cu` (through `kernels.build`) and loads the result
 with ctypes at first use; every C entry point is registered here with its
-argument types, in float32 (`_f32`) and float64 (`_f64`) instances, and so
-are the entry points that size a kernel's workspace (`_workspace`).
-`LAUNCHES` counts kernel launches by "name<ctype>" across all wrapper
-modules, so one counted run sees every kernel; `_launch` adds one where it
-launches and nowhere else.
+argument types, in float32 (`_f32`) and float64 (`_f64`) instances, K3's
+dot and update and K11 also in a float32 instance that sums in float64
+(`_f32acc64`, solve_cg's precise_dots), and so are the entry points that
+size a kernel's workspace (`_workspace`). `LAUNCHES` counts kernel launches
+by "name<ctype>" ("name<float,double>" for the precise instances) across all
+wrapper modules, so one counted run sees every kernel; `_launch` adds one
+where it launches and nowhere else.
 
 The helpers below are what every wrapper does before either path: check
 dtype, shape and contiguity, and decide by the tensors' device (CPU: the
@@ -18,6 +20,7 @@ close their per-frame sums in slice order (K3 `pcg_update`, K11
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -61,18 +64,41 @@ _INT_ARGTYPES = {
     "pack_walks": [_P] * 5 + [_I] * 2 + [_P],
 }
 _INT = ("int", "i32")
+# Float32 entry points with float64 per-frame sums (`_f32acc64`, counted as
+# "name<float,double>"): the precise instances of solve_cg(precise_dots=True).
+_PRECISE_NAMES = ("pcg_dot", "pcg_update", "coarse_prolong_dot")
+_PRECISE = ("float,double", "f32acc64")
 # Entry points that size a kernel's workspace in bytes (no launch), one a
 # float type each: mf_<name>_workspace_<suffix>.
 _WORKSPACE_ARGTYPES = {"rbf_fit": [_I] * 3}
 
 LAUNCHES: dict[str, int] = {
     **{f"{name}<{ctype}>": 0 for name in _ARGTYPES for ctype, _ in _CTYPES.values()},
+    **{f"{name}<{_PRECISE[0]}>": 0 for name in _PRECISE_NAMES},
     **{f"{name}<{_INT[0]}>": 0 for name in _INT_ARGTYPES}}
 
 _LIB: ctypes.CDLL | None = None
 
+# Inside `named_launches()` (utils.profiling.trace) each launch sits in a
+# host range named after its LAUNCHES key, so a trace names the wrapper.
+# Off elsewhere: the profiler shows such a range on the device timeline too,
+# where other profiles' device-time sums would count its kernel twice.
+_NAMED_LAUNCHES = False
+
 MAX_SLICES = 128  # csrc/common.cuh kMaxSlices
 _SLICE_WORKSPACE: dict = {}
+
+
+@contextlib.contextmanager
+def named_launches():
+    """Put each launch inside the block in a host range named after its
+    LAUNCHES key (for a profiler's trace)."""
+    global _NAMED_LAUNCHES
+    before, _NAMED_LAUNCHES = _NAMED_LAUNCHES, True
+    try:
+        yield
+    finally:
+        _NAMED_LAUNCHES = before
 
 
 def reset_launches() -> None:
@@ -91,6 +117,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, f"mf_{name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        for name in _PRECISE_NAMES:
+            fn = getattr(lib, f"mf_{name}_{_PRECISE[1]}")
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
         for name, argtypes in _INT_ARGTYPES.items():
             fn = getattr(lib, f"mf_{name}_{_INT[1]}")
             fn.argtypes = argtypes
@@ -116,7 +146,8 @@ def frame_slices(n_vert: int, dtype: torch.dtype) -> int:
 
 def slice_workspace(device: torch.device, stream: int, n_frames: int,
                     n_slices: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The partials (room for (T, S, 2) values of either float type) and the
+    """The partials (room for (T, S, 2) values of either float type, so for
+    the float64 partials of the precise instances too) and the
     (T,) int32 tickets through which the sliced kernels close their sums,
     one pair per (device, stream) shared by those kernels and kept across
     calls: each kernel leaves every ticket at 0, and launches on one stream
@@ -174,16 +205,24 @@ def _workspace(name: str, dtype: torch.dtype, device: torch.device,
     return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes > 0 else None
 
 
-def _launch(name: str, dtype: torch.dtype | None, device: torch.device, *args) -> None:
+def _launch(name: str, dtype: torch.dtype | None, device: torch.device, *args,
+            precise: bool = False) -> None:
     """Launch entry point `name` (its `dtype` instance; None for the integer
-    entry points) on the current stream of `device`, raise on a CUDA error,
-    and count the launch."""
-    ctype, suffix = _INT if dtype is None else _CTYPES[dtype]
+    entry points; with `precise`, the float32 instance that sums in float64)
+    on the current stream of `device`, raise on a CUDA error, and count the
+    launch."""
+    if precise and (name not in _PRECISE_NAMES or dtype != torch.float32):
+        raise ValueError(f"{name} has no float64-accumulating {dtype} instance")
+    ctype, suffix = (_PRECISE if precise else _INT if dtype is None
+                     else _CTYPES[dtype])
+    key = f"{name}<{ctype}>"
     lib = library()
-    with torch.cuda.device(device):
+    rng = (torch.autograd.profiler.record_function(key) if _NAMED_LAUNCHES
+           else contextlib.nullcontext())
+    with rng, torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, f"mf_{name}_{suffix}")(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name}<{ctype}> launch failed: CUDA error {err} "
+        raise RuntimeError(f"{key} launch failed: CUDA error {err} "
                            f"({lib.mf_error_string(err).decode()})")
-    LAUNCHES[f"{name}<{ctype}>"] += 1
+    LAUNCHES[key] += 1

@@ -24,6 +24,7 @@ from manifold_flow_tpu_torch.kernels._lib import (
     frame_slices,
     slice_workspace,
 )
+from manifold_flow_tpu_torch.kernels.fem import precise_sum
 
 
 # ------------------------------------------------------------------ K8
@@ -211,9 +212,12 @@ def plain_coarse_gemv(ac_inv, rc) -> torch.Tensor:
 # ------------------------------------------------------------------ K11
 def coarse_prolong_dot(z: torch.Tensor, r: torch.Tensor, yc: torch.Tensor,
                        r_blk: torch.Tensor, agg: torch.Tensor,
-                       rz: torch.Tensor) -> None:
+                       rz: torch.Tensor, precise: bool = False) -> None:
     """K11 `coarse_prolong_dot<T>`, in place: z += P yc, then rz = <r, z>
     per frame, with (P yc)[t, v + N a] = sum_b R_v[a, b] yc[t, 2 agg[v] + b].
+    `precise` (float32; nothing changes in float64) sums r.z in float64,
+    the slices' partials too, and rounds it once: the
+    `coarse_prolong_dot<float,double>` instance; z is the same either way.
 
     z, r (T, 2N); yc (T, 2Nc); r_blk (N, 2, 2); agg (N,) int32; rz (T,).
 
@@ -241,18 +245,20 @@ def coarse_prolong_dot(z: torch.Tensor, r: torch.Tensor, yc: torch.Tensor,
     _check("r_blk", r_blk, dtype, (n, 2, 2))
     _check("agg", agg, torch.int32, (n,))
     _check("rz", rz, dtype, (t,))
+    precise = precise and dtype == torch.float32
     if not _on_cuda(z, r, yc, r_blk, agg, rz):
-        plain_coarse_prolong_dot(z, r, yc, r_blk, agg, rz)
+        plain_coarse_prolong_dot(z, r, yc, r_blk, agg, rz, precise)
         return
     n_slices = frame_slices(n, dtype)
     part, ticket = slice_workspace(z.device, torch.cuda.current_stream(z.device).cuda_stream,
                                    t, n_slices)
     _launch("coarse_prolong_dot", dtype, z.device, z.data_ptr(), r.data_ptr(),
             yc.data_ptr(), r_blk.data_ptr(), agg.data_ptr(), rz.data_ptr(),
-            part.data_ptr(), ticket.data_ptr(), t, n, nc2 // 2, n_slices)
+            part.data_ptr(), ticket.data_ptr(), t, n, nc2 // 2, n_slices,
+            precise=precise)
 
 
-def plain_coarse_prolong_dot(z, r, yc, r_blk, agg, rz) -> None:
+def plain_coarse_prolong_dot(z, r, yc, r_blk, agg, rz, precise: bool = False) -> None:
     """Plain torch version of `coarse_prolong_dot`."""
     t = yc.shape[0]
     ycr = yc.reshape(t, -1, 2)
@@ -261,4 +267,4 @@ def plain_coarse_prolong_dot(z, r, yc, r_blk, agg, rz) -> None:
     z1 = r_blk[:, 0, 0] * ya + r_blk[:, 0, 1] * yb
     z2 = r_blk[:, 1, 0] * ya + r_blk[:, 1, 1] * yb
     z.add_(torch.cat([z1, z2], dim=-1))
-    rz.copy_(torch.sum(r * z, dim=-1))
+    rz.copy_(precise_sum(r, z) if precise else torch.sum(r * z, dim=-1))

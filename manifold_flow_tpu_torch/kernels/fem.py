@@ -292,8 +292,13 @@ def plain_frame_factors_rhs(potentials, potentials_next, times, triangles,
 
 
 # ------------------------------------------------------------------ K3
-def pcg_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def pcg_dot(a: torch.Tensor, b: torch.Tensor, precise: bool = False) -> torch.Tensor:
     """K3(a) `pcg_dot<T>`: per-frame dot products (T,) of (T, n) tensors.
+
+    `precise` (float32 operands; nothing changes in float64) forms every
+    product and the sum in float64 and rounds the frame's sum to float32
+    once: the `pcg_dot<float,double>` instance, solve/cg.py:30's
+    `precise=True`. It reads the same bytes as `pcg_dot<float>`.
 
     Replaces solve/cg.py:30 `_dot` (B4): p.Ap each iteration, and the norms
     of the solve. Bound by reading both operands, 4.9 MB per call in f32 at
@@ -308,22 +313,32 @@ def pcg_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"a must be (T, n); got {tuple(a.shape)}")
     _check("a", a, dtype, a.shape)
     _check("b", b, dtype, a.shape)
+    precise = precise and dtype == torch.float32
     if not _on_cuda(a, b):
-        return plain_pcg_dot(a, b)
+        return plain_pcg_dot(a, b, precise)
     out = torch.empty(a.shape[0], dtype=dtype, device=a.device)
     _launch("pcg_dot", dtype, a.device, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), a.shape[0], a.shape[1])
+            out.data_ptr(), a.shape[0], a.shape[1], precise=precise)
     return out
 
 
-def plain_pcg_dot(a, b) -> torch.Tensor:
+def precise_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) over the last axis, formed in float64 and rounded to a's
+    dtype once (the plain versions' `precise` dots)."""
+    return torch.sum(a.double() * b.double(), dim=-1).to(a.dtype)
+
+
+def plain_pcg_dot(a, b, precise: bool = False) -> torch.Tensor:
     """Plain torch version of `pcg_dot`."""
-    return torch.sum(a * b, dim=-1)
+    return precise_sum(a, b) if precise else torch.sum(a * b, dim=-1)
 
 
-def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
+def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, precise: bool = False) -> None:
     """K3(b) `pcg_update<T>`, in place: alpha = rz / pAp (0 where pAp == 0),
     x += alpha p, r -= alpha Ap, z = D^-1 r, then rz_new = r.z and rr = r.r.
+    `precise` (float32; nothing changes in float64) sums r.z and r.r in
+    float64, the slices' partials too, and rounds each once: the
+    `pcg_update<float,double>` instance. x, r and z are the same either way.
 
     x, r, z, p, ap (T, 2N); dinv (T, N, 2, 2); rz, pap, rz_new, rr (T,).
     x, r, z, rz_new and rr are overwritten (the port updates the PCG state in
@@ -349,8 +364,9 @@ def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     _check("dinv", dinv, dtype, (t, n, 2, 2))
     for name, v in (("rz", rz), ("pap", pap), ("rz_new", rz_new), ("rr", rr)):
         _check(name, v, dtype, (t,))
+    precise = precise and dtype == torch.float32
     if not _on_cuda(x, r, z, p, ap, dinv, rz, pap, rz_new, rr):
-        plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
+        plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, precise)
         return
     n_slices = frame_slices(n, dtype)
     part, ticket = slice_workspace(x.device, torch.cuda.current_stream(x.device).cuda_stream,
@@ -358,10 +374,11 @@ def pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     _launch("pcg_update", dtype, x.device, x.data_ptr(), r.data_ptr(),
             z.data_ptr(), p.data_ptr(), ap.data_ptr(), dinv.data_ptr(),
             rz.data_ptr(), pap.data_ptr(), rz_new.data_ptr(), rr.data_ptr(),
-            part.data_ptr(), ticket.data_ptr(), t, n, n_slices)
+            part.data_ptr(), ticket.data_ptr(), t, n, n_slices, precise=precise)
 
 
-def plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
+def plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr,
+                     precise: bool = False) -> None:
     """Plain torch version of `pcg_update`."""
     nonzero = pap != 0
     alpha = torch.where(nonzero, rz / torch.where(nonzero, pap, torch.ones_like(pap)),
@@ -369,8 +386,9 @@ def plain_pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr) -> None:
     x.add_(alpha[:, None] * p)
     r.sub_(alpha[:, None] * ap)
     z.copy_(apply_block_diag(dinv, r))
-    rz_new.copy_(torch.sum(r * z, dim=-1))
-    rr.copy_(torch.sum(r * r, dim=-1))
+    dot = precise_sum if precise else (lambda a, b: torch.sum(a * b, dim=-1))
+    rz_new.copy_(dot(r, z))
+    rr.copy_(dot(r, r))
 
 
 def pcg_direction(p, z, rz_new, rz_old) -> None:

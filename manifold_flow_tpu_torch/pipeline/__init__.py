@@ -1,8 +1,8 @@
 """Pipeline: typed configuration (pipeline.config), the stages S0-S7
 (pipeline.stages, with S0's BIDS parsing in pipeline.preprocess), batch
 runs over a results tree (pipeline.batch) and the command line
-(pipeline.cli). Counterpart of manifold_flow_tpu.pipeline; the rendering
-options (viz) are ROADMAP Queue A4 and multi-GPU runs A6."""
+(pipeline.cli), whose rendering options draw through viz. Counterpart of
+manifold_flow_tpu.pipeline; multi-GPU runs are ROADMAP Queue A6."""
 
 from manifold_flow_tpu_torch.pipeline import batch, config, preprocess, stages
 

@@ -1,6 +1,7 @@
 """The command line: the `preprocess` (S0), `reconstruct` (S1),
 `interpolate` (S2), `flow` (S3), `decompose` (S4), `wavespeed` (S5),
-`streamline` (S6), `winding` (S7), `batch` and `demo` subcommands.
+`streamline` (S6), `winding` (S7), `visualize`, `batch` and `demo`
+subcommands.
 
 Counterpart of manifold_flow_tpu/pipeline/cli.py, with the same arguments
 for these subcommands plus `--device`, the explicit counterpart of the JAX
@@ -18,7 +19,8 @@ versions.
     python -m manifold_flow_tpu_torch.pipeline.cli flow --surface s.ply \\
         --potentials p.csv --sfreq 512 --out-dir results/ [--classify]
     python -m manifold_flow_tpu_torch.pipeline.cli decompose --v-k V_k.csv \\
-        [--mode concat|complex] --out-dir results/
+        [--mode concat|complex] [--render-modes 4 --surface s.ply \\
+        [--pial lh.pial rh.pial]] --out-dir results/
     python -m manifold_flow_tpu_torch.pipeline.cli wavespeed --surface s.ply \\
         --movie phases.csv --sfreq 512 [--method phase|amplitude] --out-dir results/
     python -m manifold_flow_tpu_torch.pipeline.cli streamline --surface s.ply \\
@@ -26,29 +28,34 @@ versions.
     python -m manifold_flow_tpu_torch.pipeline.cli winding --surface s.ply \\
         --e e.csv --v-k V_k.csv --singularities singularity_points.pkl \\
         --out-dir results/
+    python -m manifold_flow_tpu_torch.pipeline.cli visualize --surface s.ply \\
+        --e e.csv --v-k V_k.csv [--frame 0 | --gif [--sfreq 512]] \\
+        [--scalars movie.csv] [--singularities singularity_points.pkl] \\
+        --out-dir results/
     python -m manifold_flow_tpu_torch.pipeline.cli batch --root results/ \\
         [--stages interpolate flow streamline decompose wavespeed winding]
-    python -m manifold_flow_tpu_torch.pipeline.cli demo --out-dir /tmp/demo
+    python -m manifold_flow_tpu_torch.pipeline.cli demo --out-dir /tmp/demo [--gif]
 
 `preprocess` needs MNE-Python and raises ImportError naming it without;
 `reconstruct` writes reconstructed_surface.ply; `interpolate` writes
 interpolation_data.csv (interpolation_phases_data.csv with --phases);
 `flow` writes e.csv, V_k.csv, wave_velocity_opticalflow.pkl.bz2 and
 singularity_points.pkl (and singularity_points_classification.pkl with
---classify); `decompose` writes data_01.npz; `wavespeed` writes
-wave_velocity_{method}.pkl.bz2; `streamline` writes
+--classify); `decompose` writes data_01.npz (and spatial_mode_{k}.png for
+the leading modes with --render-modes, over a --pial underlay where given;
+as in JAX, `--pial` alone is read by nothing and ignored); `wavespeed`
+writes wave_velocity_{method}.pkl.bz2; `streamline` writes
 t_velocityfields_streamlines_{frame}.pkl.bz2 per frame; `winding` writes
-winding_lines.pkl.bz2; `batch` runs the stages over every trial of a
-results tree in one process (pipeline.batch) and returns 1 when a trial
-failed; `demo` runs the flow stage on a synthetic two-source movie and
-scores the detections against the true sources. Each prints one JSON line:
-its JAX counterpart's keys plus `device` (and `timings`). The rendering
-options (`decompose --render-modes`, with or without its `--pial` underlay,
-and `demo --gif`) need viz/fields.py, ROADMAP Queue A4, and raise, and the
-`visualize` subcommand waits for it; as in JAX, `--pial` alone is read by
-nothing and ignored. `batch
---frame-shards` and `--distributed` run on several GPUs, ROADMAP Queue A6,
-and raise.
+winding_lines.pkl.bz2; `visualize` writes velocity_frame_{frame}.png, or
+with --gif velocity_fields.gif (true_vs_detected.gif with
+--true-singularities), recombining V_k on the device; `batch` runs the
+stages over every trial of a results tree in one process (pipeline.batch)
+and returns 1 when a trial failed; `demo` runs the flow stage on a
+synthetic two-source movie and scores the detections against the true
+sources (and with --gif animates them, true_vs_detected.gif). Each prints
+one JSON line: its JAX counterpart's keys plus `device` (and `timings`).
+The renderings need matplotlib (viz.fields). `batch --frame-shards` and
+`--distributed` run on several GPUs, ROADMAP Queue A6, and raise.
 """
 
 from __future__ import annotations
@@ -101,12 +108,6 @@ def _add_common(sp):
     sp.add_argument("--device", default="cuda",
                     help="cuda (default: the CUDA kernels; raises without a "
                          "GPU) or cpu (their plain torch versions)")
-
-
-def _needs_viz(option: str):
-    raise NotImplementedError(
-        f"{option} renders with viz/fields.py, which is not ported yet: "
-        "ROADMAP Queue A4")
 
 
 def cmd_preprocess(args):
@@ -214,8 +215,6 @@ def cmd_decompose(args):
     from manifold_flow_tpu_torch.pipeline import stages
     from manifold_flow_tpu_torch.utils import io
 
-    if args.render_modes:  # --pial is an underlay of the rendering only
-        _needs_viz("decompose --render-modes")
     device = _device(args.device)
     cfg = _load_config(args)
     t0 = time.perf_counter()
@@ -225,10 +224,27 @@ def cmd_decompose(args):
                                    npz_path=Path(args.out_dir) / "data_01.npz",
                                    timings=timings)
     (sigma,) = io.to_numpy(modes.sigma)
+    rendered = []
+    if args.render_modes:  # --pial is an underlay of the rendering only
+        import matplotlib.pyplot as plt
+
+        from manifold_flow_tpu_torch.viz import fields
+
+        if not args.surface:
+            raise SystemExit("--render-modes requires --surface")
+        t0 = time.perf_counter()
+        mesh = stages.load_surface(args.surface, device=device)
+        underlay = fields.load_pial_surfaces(*args.pial) if args.pial else None
+        fmt = str(Path(args.out_dir) / "spatial_mode_{mode}.png")
+        figs = fields.plot_spatial_modes(mesh, modes, n_modes=args.render_modes,
+                                         underlay=underlay, save_path_fmt=fmt)
+        rendered = [fmt.format(mode=i + 1) for i in range(len(figs))]
+        plt.close("all")
+        timings["render"] = time.perf_counter() - t0
     print(json.dumps({"stage": "decompose", "device": str(device), "mode": args.mode,
                       "energy_pct": list(np.round(
                           100 * sigma**2 / (sigma**2).sum(), 3)[:8]),
-                      "rendered_modes": [], "timings": timings}))
+                      "rendered_modes": rendered, "timings": timings}))
     return 0
 
 
@@ -304,6 +320,63 @@ def cmd_winding(args):
     return 0
 
 
+def cmd_visualize(args):
+    """Glyph plot of one frame, or a GIF of every frame, from the flow
+    stage's artifacts: V_k and e go to the device, K5 recombines them there,
+    and the world vectors reach the host once."""
+    from manifold_flow_tpu_torch.utils import io
+    from manifold_flow_tpu_torch.viz import fields
+
+    device = _device(args.device)
+    _load_config(args)
+    t0 = time.perf_counter()
+    mesh, v_world = _velocity_movie(args, device)
+    scalars = _load_movie(args.scalars) if args.scalars else None
+    sing = io.load_pickle(args.singularities) if args.singularities else None
+    true_sing = (io.load_pickle(args.true_singularities)
+                 if args.true_singularities else None)
+    underlay = fields.load_pial_surfaces(*args.pial) if args.pial else None
+    hm = fields.host_mesh(mesh)
+    (v_world,) = io.to_numpy(v_world)
+    timings = {"load": time.perf_counter() - t0}
+    out = Path(args.out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    t1 = time.perf_counter()
+    if args.gif:
+        name = ("true_vs_detected.gif" if true_sing is not None
+                else "velocity_fields.gif")
+        path = out / name
+        times = (np.arange(v_world.shape[0]) / args.sfreq
+                 if args.sfreq else None)
+        fields.animate_velocity_fields(
+            hm, v_world, path, scalars=scalars,
+            singularities_per_frame=sing,
+            true_singularities_per_frame=true_sing, times=times,
+            scaling=args.scaling, stride=args.stride, underlay=underlay)
+        timings["render"] = time.perf_counter() - t1
+        print(json.dumps({"stage": "visualize", "device": str(device), "gif": str(path),
+                          "frames": int(v_world.shape[0]), "timings": timings}))
+    else:
+        import matplotlib.pyplot as plt
+
+        k = args.frame
+        path = out / f"velocity_frame_{k}.png"
+        fig = fields.plot_velocity_frame(
+            hm, v_world[k],
+            scalars=scalars[k] if scalars is not None else None,
+            singularities=np.asarray(sing[k]) if sing else None,
+            true_singularities=(np.asarray(true_sing[k])
+                                if true_sing else None),
+            scaling=args.scaling, stride=args.stride,
+            title=f"frame {k}", underlay=underlay)
+        fig.savefig(path, dpi=120)
+        plt.close(fig)
+        timings["render"] = time.perf_counter() - t1
+        print(json.dumps({"stage": "visualize", "device": str(device), "png": str(path),
+                          "frame": k, "timings": timings}))
+    return 0
+
+
 def cmd_demo(args):
     """End to end on synthetic data: surface -> two-source movie -> flow ->
     detection, scored against the true sources."""
@@ -312,8 +385,6 @@ def cmd_demo(args):
     from manifold_flow_tpu_torch.pipeline import stages
     from manifold_flow_tpu_torch.utils import io
 
-    if args.gif:
-        _needs_viz("demo --gif")
     device = _device(args.device)
     cfg = _load_config(args)
     cfg.solver.tol = 1e-8
@@ -340,12 +411,28 @@ def cmd_demo(args):
         turning_point=len(pts) + 1)
     timings = {"setup": t1 - t0, "flow": t2 - t1, "singularity_stage": t3 - t2,
                "score": time.perf_counter() - t3}
+    gif_path = None
+    if args.gif:
+        # The reference's simulated-data visual validation: detected (red)
+        # vs true (blue) singularities animated over the velocity movie
+        # (draw_optical_flow_field.py:258-319).
+        from manifold_flow_tpu_torch.viz import fields
+
+        t4 = time.perf_counter()
+        gif_path = out / "true_vs_detected.gif"
+        fields.animate_velocity_fields(
+            mesh, vel.v_world, gif_path, scalars=pot[:-1],
+            singularities_per_frame=[np.asarray(p) for p in pts],
+            true_singularities_per_frame=[truth] * len(pts),
+            times=times[:-1], stride=4, dpi=60)
+        timings["gif"] = time.perf_counter() - t4
     print(json.dumps({
         "stage": "demo", "device": str(device), "frames": int(vel.v_k.shape[0]),
         "converged": vel.converged,
         "matched": report.matched, "missed": report.missed,
         "spare": report.spare, "err_max": report.err_max,
-        "gif": None, "out_dir": str(out), "timings": timings}))
+        "gif": str(gif_path) if gif_path else None, "out_dir": str(out),
+        "timings": timings}))
     return 0
 
 
@@ -422,12 +509,14 @@ def build_parser():
     sp.add_argument("--v-k", required=True)
     sp.add_argument("--mode", default="concat", choices=["concat", "complex"])
     sp.add_argument("--render-modes", type=int, default=0,
-                    help="render the leading K spatial modes (needs "
-                         "viz/fields.py: not ported, raises)")
+                    help="render the leading K spatial modes as glyph PNGs "
+                         "(extract_modes, S4_...ComplexMatrices .py:145-162); "
+                         "requires --surface")
     sp.add_argument("--surface", default=None)
     sp.add_argument("--pial", nargs="*", default=None,
-                    help="FreeSurfer pial underlay of --render-modes "
-                         "(ignored without it)")
+                    help="FreeSurfer pial surface(s) for the translucent "
+                         "context underlay of --render-modes (S4_..."
+                         "ConcatMatrices .py:147-158; ignored without it)")
     sp.set_defaults(func=cmd_decompose)
 
     sp = sub.add_parser("wavespeed", help="S5: wave speeds from a movie")
@@ -454,6 +543,28 @@ def build_parser():
     sp.add_argument("--v-k", required=True)
     sp.add_argument("--singularities", required=True)
     sp.set_defaults(func=cmd_winding)
+
+    sp = sub.add_parser("visualize", help="glyph plot / GIF from V_k artifacts")
+    _add_common(sp)
+    sp.add_argument("--surface", required=True)
+    sp.add_argument("--e", required=True)
+    sp.add_argument("--v-k", required=True)
+    sp.add_argument("--scalars", default=None,
+                    help="(T, N) potentials/phases movie for the colormap")
+    sp.add_argument("--singularities", default=None,
+                    help="singularity_points.pkl to overlay (red)")
+    sp.add_argument("--true-singularities", default=None,
+                    help="ground-truth points pkl for the true-vs-detected "
+                         "overlay/GIF (draw_optical_flow_field.py:258-319)")
+    sp.add_argument("--pial", nargs="*", default=None,
+                    help="FreeSurfer pial surface(s) underlay")
+    sp.add_argument("--frame", type=int, default=0)
+    sp.add_argument("--gif", action="store_true")
+    sp.add_argument("--sfreq", type=float, default=None,
+                    help="adds time-stamped GIF titles")
+    sp.add_argument("--scaling", default="scaled", choices=["raw", "scaled"])
+    sp.add_argument("--stride", type=int, default=1)
+    sp.set_defaults(func=cmd_visualize)
 
     sp = sub.add_parser("batch",
                         help="walk a results tree; run the stages of every "
@@ -490,8 +601,7 @@ def build_parser():
     sp.add_argument("--nx", type=int, default=24)
     sp.add_argument("--frames", type=int, default=12)
     sp.add_argument("--gif", action="store_true",
-                    help="the true-vs-detected GIF (needs viz/fields.py: not "
-                         "ported, raises)")
+                    help="also render the true-vs-detected validation GIF")
     sp.set_defaults(func=cmd_demo)
     return p
 

@@ -18,7 +18,11 @@ from manifold_flow_tpu_torch.kernels import fem as kfem
 from manifold_flow_tpu_torch.solve import coarse
 from manifold_flow_tpu_torch.solve.cg import solve_cg
 from manifold_flow_tpu_torch.solve.cholesky import solve_cholesky
-from manifold_flow_tpu_torch.solve.refine import DEFAULT_INNER_TOL, solve_refined
+from manifold_flow_tpu_torch.solve.refine import (
+    DEFAULT_INNER_TOL,
+    check_anchor_stride,
+    solve_refined,
+)
 
 # precond='auto' picks the two-level preconditioner from this many vertices
 # up: the JAX package's crossover (measured on a TPU), kept for parity;
@@ -101,12 +105,14 @@ def compute_velocity_fields(
     method: str = "cg",
     tol: float = 1e-10,
     max_iter: int = 2000,
+    precise_dots: bool = False,
     refine_steps: int = 2,
     potentials_next=None,
     precond: str = "auto",
     coarse_passes: int | None = None,
     coarse_a1: str = "full",
     inner_tol=DEFAULT_INNER_TOL,
+    anchor_stride: int = 1,
     frame_chunk="auto",
 ) -> VelocityResult:
     """Solve (a1_k + lambda a2) V_k = f_k for every frame k.
@@ -120,6 +126,9 @@ def compute_velocity_fields(
         PCG with f64 residuals; needs float64 inputs), 'cholesky' (batched
         dense Cholesky with refinement, solve.cholesky), or 'auto'
         ('refined' for float64 movies on CUDA, else 'cg').
+      precise_dots: ('cg') form every per-frame dot of a float32 solve in
+        float64 and round it to float32 once (solve.cg.solve_cg); nothing
+        changes in float64. 'refined' and 'cholesky' ignore it, as in JAX.
       refine_steps: ('cholesky') refinement steps. The JAX package's
         `batch_size` is not taken: the port factors one frame at a time.
       precond: ('cg', 'refined') 'jacobi', 'two_level' (block-Jacobi plus
@@ -131,6 +140,11 @@ def compute_velocity_fields(
         'mean' (averaged over frames: one shared matrix).
       inner_tol: ('refined') tolerance of each f32 inner solve; a sequence
         gives per-outer-step tolerances (the last entry repeats).
+      anchor_stride: ('refined') the temporal warm start: with s > 1, every
+        s-th frame and the last are refined first and the whole movie
+        starts from their interpolant (solve.refine.solve_refined); 1
+        starts from zero. A stride below 1 or a non-integer raises
+        ValueError, where the JAX package treats it as 1.
       frame_chunk: 'auto' solves movies of more than FRAME_CHUNK_AUTO_MIN
         velocity frames in windows of FRAME_CHUNK_SIZE frames; an int >= 1
         sets the window; None solves the whole movie at once. No window is
@@ -142,6 +156,7 @@ def compute_velocity_fields(
     if precond not in ("jacobi", "two_level", "auto"):
         raise ValueError(f"unknown precond: {precond!r}")
     coarse.check_a1_mode(coarse_a1)
+    anchor_stride = check_anchor_stride(anchor_stride)
     potentials = torch.as_tensor(potentials, device=mesh.device)
     movie_dtype = potentials.dtype
     if not potentials.is_floating_point():
@@ -184,9 +199,9 @@ def compute_velocity_fields(
     if chunk is not None and t_v > chunk and potentials_next is None:
         return _chunked_velocity_fields(mesh, potentials, times, chunk, dict(
             lambda_=lambda_, method=method, tol=tol, max_iter=max_iter,
-            refine_steps=refine_steps, precond=precond,
+            precise_dots=precise_dots, refine_steps=refine_steps, precond=precond,
             coarse_passes=coarse_passes, coarse_a1=coarse_a1,
-            inner_tol=inner_tol))
+            inner_tol=inner_tol, anchor_stride=anchor_stride))
 
     tables = None
     if method in ("cg", "refined") and (
@@ -198,7 +213,8 @@ def compute_velocity_fields(
     if method == "refined":
         res = solve_refined(mesh, g, f, lambda_=lambda_, tol=tol,
                             inner_tol=inner_tol, max_iter=max_iter,
-                            coarse_tables=tables, coarse_a1=coarse_a1)
+                            coarse_tables=tables, coarse_a1=coarse_a1,
+                            anchor_stride=anchor_stride)
         return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
                               res.converged, res.coarse_zeroed)
     op = make_operator(mesh, g, lambda_)
@@ -208,7 +224,7 @@ def compute_velocity_fields(
         else:
             pre = coarse.make_two_level(mesh, g, lambda_, tables, a1_mode=coarse_a1)
             zeroed = int(pre.zeroed.sum())
-        res = solve_cg(op, f, pre, tol=tol, max_iter=max_iter)
+        res = solve_cg(op, f, pre, tol=tol, max_iter=max_iter, precise_dots=precise_dots)
         return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
                               res.converged, zeroed)
     x = solve_cholesky(mesh, op, f, refine_steps=refine_steps)

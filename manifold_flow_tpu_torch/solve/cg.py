@@ -14,6 +14,13 @@ two-level `solve.coarse.TwoLevelPrecond`: then `pcg_update`'s z = D^-1 r
 and its r.z miss the coarse term, and `TwoLevelPrecond.correct` (K9-K11)
 adds P A_c^-1 P^T r to z and overwrites r.z, before the direction update
 and for the first z, in the order of the JAX loop (solve/cg.py:71-98).
+
+`precise_dots` forms every per-frame dot of a float32 solve in float64 and
+rounds it to float32 once, as the JAX `_dot(..., precise=True)` does: |f|,
+the loop's |r|, p.Ap, r.z and the final |r|. The dots are then the float64-
+accumulating instances of the same kernels (`pcg_dot<float,double>`,
+`pcg_update<float,double>`, `coarse_prolong_dot<float,double>`); in float64
+the option changes nothing.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ class CGResult(NamedTuple):
 
 def solve_cg(operator: FlowOperator, f: torch.Tensor,
              precond: torch.Tensor | TwoLevelPrecond, tol: float = 1e-10,
-             max_iter: int = 2000) -> CGResult:
+             max_iter: int = 2000, precise_dots: bool = False) -> CGResult:
     """Solve A_k x_k = f_k for all frames k with PCG.
 
     Args:
@@ -47,11 +54,12 @@ def solve_cg(operator: FlowOperator, f: torch.Tensor,
         (solve.coarse.make_two_level) in f's dtype.
       tol: relative tolerance on |r| / |f| per frame.
       max_iter: iteration cap.
+      precise_dots: float64 sums for every per-frame dot of a float32 solve.
     """
     f = f.contiguous()
     two_level = isinstance(precond, TwoLevelPrecond)
     dinv = precond.diag if two_level else precond
-    fnorm = torch.sqrt(kfem.pcg_dot(f, f))
+    fnorm = torch.sqrt(kfem.pcg_dot(f, f, precise_dots))
     target = tol * torch.clamp_min(fnorm, torch.finfo(f.dtype).tiny)
 
     x = torch.zeros_like(f)
@@ -63,18 +71,18 @@ def solve_cg(operator: FlowOperator, f: torch.Tensor,
     rz, rz_new, rr = torch.empty_like(zero), torch.empty_like(zero), torch.empty_like(zero)
     # With pAp = 0 the update leaves x and r alone and only forms
     # z0 = D^-1 r0 with r0.z0 and r0.r0: the JAX loop's initial state.
-    kfem.pcg_update(x, r, z, p, ap, dinv, zero, zero, rz, rr)
+    kfem.pcg_update(x, r, z, p, ap, dinv, zero, zero, rz, rr, precise_dots)
     if two_level:
-        precond.correct(r, z, rz)
+        precond.correct(r, z, rz, precise_dots)
     p.copy_(z)
 
     it = 0
     while it < max_iter and bool(torch.any(torch.sqrt(rr) > target)):
         ap = operator.matvec(p)
-        pap = kfem.pcg_dot(p, ap)
-        kfem.pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
+        pap = kfem.pcg_dot(p, ap, precise_dots)
+        kfem.pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, precise_dots)
         if two_level:
-            precond.correct(r, z, rz_new)
+            precond.correct(r, z, rz_new, precise_dots)
         kfem.pcg_direction(p, z, rz_new, rz)
         rz, rz_new = rz_new, rz
         it += 1

@@ -262,12 +262,14 @@ class TwoLevelPrecond:
     n_coarse: int
     zeroed: torch.Tensor
 
-    def correct(self, r: torch.Tensor, z: torch.Tensor, rz: torch.Tensor) -> None:
+    def correct(self, r: torch.Tensor, z: torch.Tensor, rz: torch.Tensor,
+                precise: bool = False) -> None:
         """Add the coarse correction P A_c^{-1} P^T r to z (T, 2N) in place
-        and write rz = <r, z> per frame: K9, K10, then K11."""
+        and write rz = <r, z> per frame: K9, K10, then K11 (summing r.z in
+        float64 with `precise`, as solve_cg's precise_dots asks)."""
         rc = kcoarse.coarse_restrict(r, self.r_blk, self.members)
         yc = kcoarse.coarse_gemv(self.ac_inv, rc)
-        kcoarse.coarse_prolong_dot(z, r, yc, self.r_blk, self.agg, rz)
+        kcoarse.coarse_prolong_dot(z, r, yc, self.r_blk, self.agg, rz, precise)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """Apply M^{-1} to residuals r (T, 2N) -> (T, 2N).

@@ -13,12 +13,18 @@ The H100 has native float64, so the residual is the f64 instance of the
 two-float32 (DF) arithmetic, which exists because the TPU has no f64 units,
 has no counterpart here. The inner preconditioner is block-Jacobi, or with
 `coarse_tables` the two-level one (solve.coarse), built from the f32
-operator as the JAX package builds it. The temporal warm start
-(`anchor_stride`) is not ported yet.
+operator as the JAX package builds it.
+
+The temporal warm start (`anchor_stride` s > 1) first refines every s-th
+frame and the last one (the anchors) to a relaxed tolerance, interpolates
+their solutions piecewise-linearly over the frame index and starts the
+whole movie's refinement from there: the same kernels (K1-K4, and K8-K11
+under two-level) on the anchor frames, then on all of them.
 """
 
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -77,8 +83,10 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
                 tol: float = 1e-8, inner_tol=DEFAULT_INNER_TOL,
                 max_iter: int = 2000, refine_steps: int = 8,
                 coarse_tables: CoarseTables | None = None,
-                coarse_a1: str = "full") -> RefineResult:
-    """The refinement iteration given the f64 operator and RHS f (T, 2N)."""
+                coarse_a1: str = "full",
+                x0: torch.Tensor | None = None) -> RefineResult:
+    """The refinement iteration given the f64 operator and RHS f (T, 2N),
+    from x0 (T, 2N) float64 (the temporal warm start) or from zero."""
     # The f32 operator is the f64 one rounded to f32, as in the JAX package,
     # and so is the inner preconditioner's.
     op32 = op64.astype(torch.float32)
@@ -96,8 +104,10 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
     target = (tol * torch.clamp_min(_norm(f), tiny)).to(torch.float32).double()
     sched = as_inner_schedule(inner_tol)
 
-    x = torch.zeros_like(f)
-    r = f
+    if x0 is None:
+        x, r = torch.zeros_like(f), f
+    else:
+        x, r = x0, op64.residual(f, x0)
     total_iters = 0
     step = 0
     while step < refine_steps and bool(torch.any(_norm(r) > target)):
@@ -114,12 +124,46 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
                         coarse_zeroed=zeroed)
 
 
+def check_anchor_stride(anchor_stride) -> int:
+    """`anchor_stride` as an int >= 1; anything else raises ValueError
+    (the JAX package takes a stride below 2 as "no warm start" whatever it
+    is)."""
+    if (isinstance(anchor_stride, bool) or not isinstance(anchor_stride, numbers.Integral)
+            or anchor_stride < 1):
+        raise ValueError(f"anchor_stride must be an integer >= 1; got {anchor_stride!r}")
+    return int(anchor_stride)
+
+
+def anchor_frames(n_sys: int, stride: int) -> torch.Tensor:
+    """The anchor frames 0, s, 2s, ... and the last frame n_sys - 1 (int64),
+    as min(arange(0, n_sys + s - 1, s), n_sys - 1)."""
+    return torch.clamp_max(torch.arange(0, n_sys + stride - 1, stride), n_sys - 1)
+
+
+def interpolate_anchors(xa: torch.Tensor, n_sys: int, stride: int) -> torch.Tensor:
+    """(T, 2N) piecewise-linear interpolation over the frame index of the
+    anchor solutions xa (A, 2N). The last anchor sits at frame n_sys - 1,
+    not at i0 * s: the final segment's weight is rescaled so that the
+    interpolant is exact at both of its ends (JAX refine.py:173-178)."""
+    last = xa.shape[0] - 1
+    k = torch.arange(n_sys, device=xa.device)
+    pos = k.double() / stride
+    i0 = torch.clamp(torch.floor(pos).long(), 0, last)
+    i1 = torch.clamp_max(i0 + 1, last)
+    w = (pos - i0).to(xa.dtype)
+    past = i1 * stride > n_sys - 1
+    seg_len = torch.where(past, torch.clamp_min((n_sys - 1) - i0 * stride, 1),
+                          torch.full_like(i0, stride))
+    w = torch.where(past, ((k - i0 * stride).double() / seg_len).to(xa.dtype), w)[:, None]
+    return (1.0 - w) * xa[i0] + w * xa[i1]
+
+
 def solve_refined(mesh: TriMesh, g: torch.Tensor, f: torch.Tensor,
                   lambda_: float = 0.01, tol: float = 1e-8,
                   inner_tol=DEFAULT_INNER_TOL, max_iter: int = 2000,
                   refine_steps: int = 8,
                   coarse_tables: CoarseTables | None = None,
-                  coarse_a1: str = "full") -> RefineResult:
+                  coarse_a1: str = "full", anchor_stride: int = 1) -> RefineResult:
     """Solve (a1_k + lambda a2) x_k = f_k for all frames to f64 accuracy.
 
     Args:
@@ -136,11 +180,28 @@ def solve_refined(mesh: TriMesh, g: torch.Tensor, f: torch.Tensor,
       coarse_tables: solve.coarse.build_tables(mesh) for the two-level
         inner preconditioner; None uses block-Jacobi.
       coarse_a1: the coarse data term, 'full' or 'mean' (solve.coarse).
+      anchor_stride: the temporal warm start. With s > 1 and more than s
+        frames, the anchor frames (`anchor_frames`) are refined first, on
+        their own operator and preconditioner, to max(tol, 1e-4) (they need
+        only the accuracy of the interpolation they seed); the whole movie
+        then starts from their piecewise-linear interpolant. `iterations`
+        counts both solves' inner iterations, `coarse_zeroed` both
+        preconditioners' zeroed matrices. 1 (the default) starts from zero.
     """
     if g.dtype != torch.float64 or f.dtype != torch.float64:
         raise ValueError(
             f"solve_refined needs float64 inputs; got {g.dtype} and {f.dtype}")
-    return refine_loop(mesh, make_operator(mesh, g, lambda_), f, tol=tol,
-                       inner_tol=inner_tol, max_iter=max_iter,
-                       refine_steps=refine_steps, coarse_tables=coarse_tables,
-                       coarse_a1=coarse_a1)
+    stride = check_anchor_stride(anchor_stride)
+    kwargs = dict(inner_tol=inner_tol, max_iter=max_iter, refine_steps=refine_steps,
+                  coarse_tables=coarse_tables, coarse_a1=coarse_a1)
+    n_sys = f.shape[0]
+    x0, anchor_iters, anchor_zeroed = None, 0, 0
+    if stride > 1 and n_sys > stride:
+        anchors = anchor_frames(n_sys, stride).to(f.device)
+        res_a = refine_loop(mesh, make_operator(mesh, g[anchors].contiguous(), lambda_),
+                            f[anchors].contiguous(), tol=max(tol, 1e-4), **kwargs)
+        x0 = interpolate_anchors(res_a.x, n_sys, stride)
+        anchor_iters, anchor_zeroed = res_a.iterations, res_a.coarse_zeroed
+    res = refine_loop(mesh, make_operator(mesh, g, lambda_), f, tol=tol, x0=x0, **kwargs)
+    return res._replace(iterations=res.iterations + anchor_iters,
+                        coarse_zeroed=res.coarse_zeroed + anchor_zeroed)

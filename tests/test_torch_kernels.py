@@ -461,6 +461,114 @@ def test_solve_on_cuda_matches_cpu(cuda, method):
     assert err <= 1e-6
 
 
+def _within_one_ulp(got, want):
+    """float32 sums of the precise instances: at most one float32 ulp from
+    `want`, the plain float64 sum of the same float32 operands (both are
+    float64 sums, in other orders, rounded once)."""
+    assert got.dtype == want.dtype == torch.float32
+    ulp = torch.from_numpy(np.spacing(want.abs().cpu().numpy())).to(want.device)
+    assert bool(((got - want).abs() <= ulp).all())
+
+
+PRECISE = ("pcg_dot", "pcg_update", "coarse_prolong_dot")
+
+
+@pytest.mark.parametrize("t", [1, 97])
+@pytest.mark.parametrize("n", [1, 5, 257, 3136, 12547])
+def test_precise_instances_match_plain(cuda, t, n):
+    """K3's dot and update and K11 in their float32 instances with float64
+    sums (`<float,double>`) against the precise plain versions: each call
+    launches its own instance once and no float instance; every output
+    within the float32 tolerance of the plain version's, x, r and z bitwise
+    those of the float instance (only the sums change), each sum within one
+    float32 ulp of the float64 sum of the kernel's own float32 operands
+    (the kernel contracts z = D^-1 r into fused multiply-adds, so its z
+    differs from the plain version's in the last bit, and r.z, a sum with
+    cancellation, by more), and two calls bitwise equal."""
+    def counts():
+        return {key: kernels.LAUNCHES[key] for key in (
+            f"{k}<{c}>" for k in PRECISE for c in ("float", "float,double"))}
+    f32 = torch.float32
+    a, b = _rand(cuda, f32, t, 2 * n, seed=60), _rand(cuda, f32, t, 2 * n, seed=61)
+    before = counts()
+    got = kfem.pcg_dot(a, b, precise=True)
+    _within_one_ulp(got, kfem.plain_pcg_dot(a, b, precise=True))
+    assert torch.equal(kfem.pcg_dot(a, b, precise=True), got)
+
+    x, r, p, ap = (_rand(cuda, f32, t, 2 * n, seed=62 + k) for k in range(4))
+    dinv = _rand(cuda, f32, t, n, 2, 2, seed=66)
+    rz, pap = (_rand(cuda, f32, t, seed=67 + k).abs() for k in range(2))
+    pap[::3] = 0.0
+    outs = []
+    for fn, precise in ((kfem.pcg_update, True), (kfem.plain_pcg_update, True),
+                        (kfem.pcg_update, True), (kfem.pcg_update, False)):
+        xs, rs, zs = x.clone(), r.clone(), torch.empty_like(x)
+        rz_new, rr = torch.empty_like(rz), torch.empty_like(rz)
+        fn(xs, rs, zs, p, ap, dinv, rz, pap, rz_new, rr, precise)
+        outs.append((xs, rs, zs, rz_new, rr))
+    torch.cuda.synchronize()
+    kernel, plain, again, single = outs
+    _assert_close(kernel, plain, f32)
+    _within_one_ulp(kernel[3], kfem.plain_pcg_dot(kernel[1], kernel[2], precise=True))
+    _within_one_ulp(kernel[4], kfem.plain_pcg_dot(kernel[1], kernel[1], precise=True))
+    assert all(torch.equal(u, v) for u, v in zip(kernel, again))
+    assert all(torch.equal(u, v) for u, v in zip(kernel[:3], single[:3]))
+
+    agg, members = _aggregation(cuda, n, seed=70 + n)
+    r_blk = _rand(cuda, f32, n, 2, 2, seed=71)
+    yc = _rand(cuda, f32, t, 2 * members.shape[0], seed=72)
+    outs = []
+    for fn, precise in ((kco.coarse_prolong_dot, True), (kco.plain_coarse_prolong_dot, True),
+                        (kco.coarse_prolong_dot, True), (kco.coarse_prolong_dot, False)):
+        zs, rzs = b.clone(), torch.empty(t, dtype=f32, device=cuda)
+        fn(zs, a, yc, r_blk, agg, rzs, precise)
+        outs.append((zs, rzs))
+    torch.cuda.synchronize()
+    kernel, plain, again, single = outs
+    _assert_close(kernel, plain, f32)
+    _within_one_ulp(kernel[1], kfem.plain_pcg_dot(a, kernel[0], precise=True))
+    assert all(torch.equal(u, v) for u, v in zip(kernel, again))
+    assert torch.equal(kernel[0], single[0])
+    after = counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "pcg_dot<float>": 0, "pcg_dot<float,double>": 2,
+        "pcg_update<float>": 1, "pcg_update<float,double>": 2,
+        "coarse_prolong_dot<float>": 1, "coarse_prolong_dot<float,double>": 2}
+
+
+def test_precise_flag_is_the_double_instance_in_float64(cuda):
+    """precise=True on float64 tensors launches the float64 instances, as
+    JAX's precise dot is the plain one in float64."""
+    a, b = _rand(cuda, torch.float64, 4, 100, seed=80), _rand(cuda, torch.float64, 4, 100, seed=81)
+    got = _launched("pcg_dot", torch.float64, lambda: kfem.pcg_dot(a, b, precise=True))
+    assert torch.equal(got, kfem.pcg_dot(a, b))
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "two_level"])
+def test_precise_cg_solve_on_cuda_matches_cpu(cuda, precond):
+    """A float32 cg solve with precise_dots on the card: only the precise
+    instances of K3's dot and update (and of K11 under two-level) launch,
+    and the result agrees with the CPU's plain versions."""
+    _, pot, times = _problem(cuda)
+    mesh32 = synthetic.plane_patch(
+        nx=12, ny=12, lx=6.0, ly=6.0, device=cuda, dtype=np.float32,
+        height=lambda x, y: 0.8 * np.exp(-((x - 3.0) ** 2 + (y - 3.0) ** 2) / 4.0))
+    kw = dict(method="cg", tol=1e-5, precond=precond, precise_dots=True)
+    kernels.reset_launches()
+    got = compute_velocity_fields(mesh32, pot.float(), times.float(), **kw)
+    torch.cuda.synchronize()
+    launched = dict(kernels.LAUNCHES)
+    assert launched["pcg_dot<float,double>"] > 0 and launched["pcg_update<float,double>"] > 0
+    assert launched["pcg_dot<float>"] == launched["pcg_update<float>"] == 0
+    assert (launched["coarse_prolong_dot<float,double>"] > 0) == (precond == "two_level")
+    assert launched["coarse_prolong_dot<float>"] == 0
+    want = compute_velocity_fields(mesh32.to("cpu"), pot.float().cpu(), times.float().cpu(), **kw)
+    assert bool(got.converged.all())
+    assert abs(got.iterations - want.iterations) <= 2
+    err = float((got.v_k.cpu() - want.v_k).abs().max()) / float(want.v_k.abs().max())
+    assert err <= 1e-3
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("a1_mode", ["full", "mean"])
 def test_coarse_kernels_match_plain(cuda, dtype, a1_mode):

@@ -34,13 +34,17 @@ def test_import_pulls_in_no_jax_and_loads_no_kernels():
     assert "manifold_flow_tpu_torch.kernels.fields" in modules
     for name in ("phase", "wavespeed", "interpolate", "svd", "validation"):
         assert f"manifold_flow_tpu_torch.ops.{name}" in modules
+    assert "manifold_flow_tpu_torch.viz.fields" in modules
+    assert "manifold_flow_tpu_torch.utils.profiling" in modules
     code = (
         "import importlib, sys\n"
         "import manifold_flow_tpu_torch as m\n"
+        "import manifold_flow_tpu_torch.viz\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'manifold_flow_tpu', 'triton', 'yaml', 'pandas')]\n"
+        "('jax', 'jaxlib', 'manifold_flow_tpu', 'triton', 'yaml', 'pandas', "
+        "'matplotlib', 'pyvista', 'mne')]\n"
         "assert not bad, bad\n"
         "from manifold_flow_tpu_torch.kernels import _lib\n"
         "assert _lib._LIB is None\n"

@@ -533,25 +533,46 @@ def test_demo_cli_matches_jax(tmp_path, capsys):
         assert (tmp_path / "t" / name).exists()
 
 
-def test_field_cli_unported_options_raise(tmp_path, monkeypatch):
-    """The rendering options need viz/fields.py (A4) and raise before any
-    work; every subcommand defaults to --device cuda."""
-    with pytest.raises(NotImplementedError, match="A4"):
-        cli.main(["decompose", "--v-k", "v.csv", "--render-modes", "2", "--device", "cpu",
-                  "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A4"):
-        cli.main(["decompose", "--v-k", "v.csv", "--render-modes", "2", "--pial", "lh.pial",
-                  "--device", "cpu", "--out-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A4"):
-        cli.main(["demo", "--gif", "--device", "cpu", "--out-dir", str(tmp_path)])
+def test_field_cli_unported_options_raise(tmp_path, monkeypatch, capsys):
+    """The rendering options, which raised until viz/fields.py was ported,
+    now render: decompose --render-modes with and without a --pial
+    underlay, and demo --gif (tests/test_torch_viz.py holds them against
+    JAX). Every subcommand defaults to --device cuda and raises without a
+    GPU before any work, visualize too."""
+    from manifold_flow_tpu_torch.geometry import synthetic
+
+    mesh = synthetic.plane_patch(nx=6, ny=6, lx=3.0, ly=3.0, device="cpu")
+    art = tmp_path / "art"
+    art.mkdir()
+    io.write_ply(art / "s.ply", mesh.points.numpy(), mesh.triangles.numpy())
+    io.save_indexed_csv(art / "V_k.csv", np.random.default_rng(0).normal(
+        size=(4, mesh.n_dof)))
+    io.write_freesurfer_surface(art / "lh.pial", mesh.points.numpy() * 2.0,
+                                mesh.triangles.numpy())
+    for pial in ([], ["--pial", str(art / "lh.pial")]):
+        out = tmp_path / f"modes{len(pial)}"
+        assert cli.main(["decompose", "--v-k", str(art / "V_k.csv"), "--render-modes", "2",
+                         "--surface", str(art / "s.ply"), *pial, "--device", "cpu",
+                         "--out-dir", str(out)]) == 0
+        line = json.loads(capsys.readouterr().out)
+        assert line["rendered_modes"] == [str(out / f"spatial_mode_{i}.png") for i in (1, 2)]
+        assert all((out / f"spatial_mode_{i}.png").stat().st_size > 0 for i in (1, 2))
+    assert cli.main(["demo", "--nx", "6", "--frames", "3", "--gif", "--device", "cpu",
+                     "--out-dir", str(tmp_path / "demo")]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["gif"] == str(tmp_path / "demo" / "true_vs_detected.gif")
+    assert (tmp_path / "demo" / "true_vs_detected.gif").stat().st_size > 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    empty = tmp_path / "none"
+    empty.mkdir()
     for argv in (["interpolate", "--surface", "s.ply", "--electrodes", "e.tsv",
                   "--data", "d.npy"],
                  ["wavespeed", "--surface", "s.ply", "--movie", "m.npy", "--sfreq", "512"],
-                 ["decompose", "--v-k", "v.csv"], ["demo"]):
+                 ["decompose", "--v-k", "v.csv"], ["demo"],
+                 ["visualize", "--surface", "s.ply", "--e", "e.csv", "--v-k", "v.csv"]):
         with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
-            cli.main(argv + ["--out-dir", str(tmp_path)])
-    assert not list(tmp_path.iterdir())
+            cli.main(argv + ["--out-dir", str(empty)])
+    assert not list(empty.iterdir())
 
 
 def test_decompose_cli_ignores_pial_without_render_modes(tmp_path, capsys):
