@@ -21,12 +21,24 @@ geometry cache of `utils.cache`), and `python -m
 manifold_flow_tpu_torch.pipeline.cli
 preprocess|reconstruct|interpolate|flow|decompose|wavespeed|streamline|winding|visualize|batch|demo`.
 `viz` renders fields, modes and streamlines with matplotlib (imported when
-a plot is drawn), `utils.profiling` times and traces.
+a plot is drawn), `utils.profiling` times and traces. `parallel` spreads
+the solve and the analysis over a ('frames', 'mesh') grid of
+torch.distributed ranks (frame blocks, and halo-exchanged vertex blocks).
 Entry points put their work on the GPU unless the caller passes
 device="cpu".
 """
 
-from manifold_flow_tpu_torch import fem, geometry, kernels, ops, pipeline, solve, utils, viz
+from manifold_flow_tpu_torch import (
+    fem,
+    geometry,
+    kernels,
+    ops,
+    parallel,
+    pipeline,
+    solve,
+    utils,
+    viz,
+)
 from manifold_flow_tpu_torch.convert import mesh_from_jax_arrays
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh, build_mesh
 from manifold_flow_tpu_torch.solve.api import compute_velocity_fields
@@ -40,6 +52,7 @@ __all__ = [
     "geometry",
     "kernels",
     "ops",
+    "parallel",
     "pipeline",
     "solve",
     "utils",

@@ -37,8 +37,15 @@ movie is parsed while this one computes.
 
 Not ported: the JAX package's shape padding (`pad_meshes`), which exists so
 that XLA compiles one program for every surface, and its float32 analysis
-cast, which exists because the TPU emulates float64. `distributed=True`
-and `device_mesh` (several GPUs or hosts) are ROADMAP Queue A6 and raise.
+cast, which exists because the TPU emulates float64.
+
+Several ranks (torch.distributed, one process each; parallel.multihost):
+`distributed=True` splits the trials over the ranks (shard = rank, count =
+world size), each rank a single-device sweep; a `device_mesh`
+(parallel.make_device_mesh) runs every trial on all of its ranks, the frame
+axis of the solve, detection, wave speeds and winding sharded over them,
+and rank 0 writes the artifacts. The two do not combine: in one process
+per rank, a rank cannot both own a trial alone and share every trial.
 """
 
 from __future__ import annotations
@@ -72,7 +79,9 @@ DEVICE_STAGES = ("flow", "streamline", "decompose", "wavespeed", "winding")
 # reference but is never wired into its main; it is opt-in here too.
 ALL_STAGES = DEVICE_STAGES + ("wavespeed_amplitude",)
 
-MULTI_DEVICE = "is not ported yet: ROADMAP Queue A6"
+MESH_AND_DISTRIBUTED = (
+    "distributed=True (--distributed) splits the trials over the ranks, a "
+    "device_mesh (--frame-shards) runs every trial on all of them: pass one")
 
 
 class TrialRef(NamedTuple):
@@ -432,6 +441,29 @@ def stage_done(trial: TrialRef, stage: str, config=None) -> bool:
     return all(a.exists() for a in stage_artifacts(trial, stage, config))
 
 
+def _step(device_mesh, fn, /, *args, **kwargs):
+    """fn(*args, **kwargs). Under a device mesh every rank then learns
+    whether any rank raised in it (parallel.multihost.agree), and all raise
+    together, so that a rank that alone fails (rank 0's writes, a read)
+    does not leave the others waiting in the next stage's collectives. A
+    step is rank-local work, or a stage (its collectives, then rank 0's
+    writes), never local work and then collectives: an exception inside
+    a stage's collectives on one rank (out of memory in the middle of a
+    solve) leaves the others waiting there until the process group's
+    timeout."""
+    if device_mesh is None:
+        return fn(*args, **kwargs)
+    from manifold_flow_tpu_torch.parallel import multihost
+
+    error = value = None
+    try:
+        value = fn(*args, **kwargs)
+    except Exception as e:  # raised on every rank by agree
+        error = e
+    multihost.agree(error)
+    return value
+
+
 def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
               sfreq: float | None = None, overwrite: bool = False,
               mesh_cache: dict | None = None, cache_dir=None,
@@ -468,19 +500,34 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
 
     `config.pad_meshes` is not read: the JAX package pads surfaces to
     shared shapes so that XLA compiles one program for a cohort, and eager
-    CUDA launches need no such thing. `device_mesh` (a multi-GPU trial) is
-    ROADMAP Queue A6 and raises."""
-    if device_mesh is not None:
-        raise NotImplementedError(f"run_trial(device_mesh=...) {MULTI_DEVICE}")
+    CUDA launches need no such thing.
+
+    `device_mesh` (parallel.make_device_mesh) runs the trial on every rank
+    of the mesh, each calling run_trial with the same arguments: the solve,
+    detection, wave speeds and winding shard their frame axis; streamlines
+    and the SVD run on every rank. Rank 0 alone writes; every rank returns
+    the same statuses, since the ranks agree on the stages to run (read
+    before a barrier that no rank passes until all have read), and an
+    exception that one rank raises, every rank raises (a RankError naming
+    that rank; see `_step`)."""
     result = {}
     todo = [s for s in stages if overwrite or not stage_done(trial, s, config)]
+    if device_mesh is not None:
+        from manifold_flow_tpu_torch.parallel import multihost
+
+        multihost.sync_hosts()
+    # The sharded stages decide who writes; the others are told.
+    writes = S.writes_artifacts(device_mesh)
+
+    def step(fn, /, *args, **kwargs):
+        return _step(device_mesh, fn, *args, **kwargs)
     for s in stages:
         if s not in todo:
             result[s] = "skipped"
     if not todo:
         return result
 
-    mesh = _mesh_for(trial.surface_path, mesh_cache, cache_dir, device)
+    mesh = step(_mesh_for, trial.surface_path, mesh_cache, cache_dir, device)
     d = trial.trial_dir
     names = artifact_names(trial_prefix(trial))
 
@@ -526,6 +573,10 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
         f = get_sfreq()
         return np.arange(n) / f if f else np.arange(n, dtype=np.float64)
 
+    def movie_and_times():
+        m = get_movie()
+        return m, get_times(m.shape[0])
+
     def get_velocity():
         """v_world (T-1, N, 3) on the mesh's device: the flow stage's of this
         run, or recombined (once) from the V_k.csv of a previous run."""
@@ -565,38 +616,43 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
             t0 = time.perf_counter()
             if s == "flow":
                 detail: dict = {}
-                m = get_movie()
+                m, tm = step(movie_and_times)
                 detail["movie_load"] = time.perf_counter() - t0
                 # S3:46 writes e per subject, {subfolder}_e.csv, one file
                 # shared by every trial of the subject: only a trial that
                 # finds it missing (or an overwrite sweep) writes it; writes
                 # are atomic (utils.io).
                 e_path = trial.surface_path.parent / f"{trial.subject}_e.csv"
-                vel = S.velocity_stage(
-                    mesh, m, get_times(m.shape[0]), config,
+                vel = step(
+                    S.velocity_stage, mesh, m, tm, config,
                     e_path=e_path if overwrite or not e_path.exists() else None,
                     v_k_path=d / names["v_k"], speed_path=d / names["speed"],
-                    writer=writer, timings=detail)
+                    writer=writer, timings=detail, device_mesh=device_mesh)
                 t_det = time.perf_counter()
-                sing_pts, _, sing_centers = S.singularity_stage(
-                    mesh, get_velocity(), config,
+                v_world = step(get_velocity)
+                sing_pts, _, sing_centers = step(
+                    S.singularity_stage, mesh, v_world, config,
                     save_path=d / names["singularity"], writer=writer,
-                    return_centers=True, speed=vel.speed, v_max=vel.v_max)
+                    return_centers=True, speed=vel.speed, v_max=vel.v_max,
+                    device_mesh=device_mesh)
                 detail["detect"] = time.perf_counter() - t_det
                 if timings is not None:
                     timings["flow_detail"] = detail
             elif s == "decompose":
-                if vel is not None:
-                    v_k = vel.v_k
-                elif (d / names["v_k"]).exists():
-                    v_k = torch.as_tensor(io.load_indexed_csv(d / names["v_k"]),
-                                          device=mesh.device)
-                else:
-                    raise RuntimeError(f"{trial.key}: decompose needs {names['v_k']}")
                 ddetail: dict = {}
-                S.decompose_stage(v_k, config, mode="concat",
-                                  npz_path=d / names["decompose"], writer=writer,
-                                  timings=ddetail)
+
+                def decompose():  # no collective: one step
+                    if vel is not None:
+                        v_k = vel.v_k
+                    elif (d / names["v_k"]).exists():
+                        v_k = torch.as_tensor(io.load_indexed_csv(d / names["v_k"]),
+                                              device=mesh.device)
+                    else:
+                        raise RuntimeError(f"{trial.key}: decompose needs {names['v_k']}")
+                    S.decompose_stage(v_k, config, mode="concat",
+                                      npz_path=d / names["decompose"] if writes else None,
+                                      writer=writer, timings=ddetail)
+                step(decompose)
                 if timings is not None:
                     timings["decompose_detail"] = ddetail
             elif s in ("wavespeed", "wavespeed_amplitude"):
@@ -604,26 +660,27 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
                     if trial.phases_path is None:
                         result[s] = "skipped"
                         continue
-                    m = (phases_future.result() if phases_future is not None
-                         else io.load_indexed_csv(trial.phases_path))
+                    m = step(lambda: phases_future.result() if phases_future is not None
+                             else io.load_indexed_csv(trial.phases_path))
                     method = "phase"
                 else:
-                    m = get_movie()
+                    m = step(get_movie)
                     method = "amplitude"
                 f = get_sfreq()
                 wdetail: dict = {}
-                S.wavespeed_stage(mesh, m, dt=1.0 / f if f else 1.0, method=method,
-                                  save_path=d / names[s], writer=writer,
-                                  timings=wdetail)
+                step(S.wavespeed_stage, mesh, m, dt=1.0 / f if f else 1.0, method=method,
+                     save_path=d / names[s], writer=writer,
+                     device_mesh=device_mesh, timings=wdetail)
                 if timings is not None:
                     timings[f"{s}_detail"] = wdetail
             elif s == "streamline":
                 # Per-frame files, the reference's layout (S6:258-262): one
                 # dict {frame: lines} per frame.
                 sdetail: dict = {}
-                S.streamline_stage(mesh, get_velocity(), config,
-                                   save_path_fmt=str(d / names["streamline_fmt"]),
-                                   writer=writer, timings=sdetail)
+                step(lambda: S.streamline_stage(  # no collective: one step
+                    mesh, get_velocity(), config,
+                    save_path_fmt=str(d / names["streamline_fmt"]) if writes else None,
+                    writer=writer, timings=sdetail))
                 if timings is not None:
                     timings["streamline_detail"] = sdetail
             elif s == "winding":
@@ -631,11 +688,12 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
                 # over in memory (the pickle may still be queued on the
                 # writer); a resumed run reads the previous run's artifact
                 # and snaps again on the host.
-                pts = ([list(p) for p in sing_pts] if sing_pts is not None
-                       else io.load_pickle(d / names["singularity"]))
-                S.winding_stage(mesh, get_velocity(), pts, config,
-                                save_path=d / names["winding"], writer=writer,
-                                centers=sing_centers)
+                pts, v_world = step(lambda: (
+                    [list(p) for p in sing_pts] if sing_pts is not None
+                    else io.load_pickle(d / names["singularity"]), get_velocity()))
+                step(S.winding_stage, mesh, v_world, pts, config,
+                     save_path=d / names["winding"], writer=writer,
+                     centers=sing_centers, device_mesh=device_mesh)
             else:
                 raise ValueError(f"unknown batch stage {s!r}")
             result[s] = "done"
@@ -645,7 +703,7 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
             logger.info("batch: %s %s done in %.2fs", trial.key, s, wall)
         if own_writer:
             t0 = time.perf_counter()
-            writer.wait()
+            step(writer.wait)
             if timings is not None:
                 timings["drain"] = time.perf_counter() - t0
     return result
@@ -671,13 +729,23 @@ def run_batch(root, config, stages: Sequence[str] = DEVICE_STAGES,
     the mesh's tensors, so a caller sweeping repeatedly should pass one
     dict. `timings`, when given, receives each trial's run_trial timings
     under its key, 'interpolate' ({key: seconds}) and 'drain' (the final
-    wait on the sweep's writer). `distributed=True` and `device_mesh` are
-    ROADMAP Queue A6 and raise.
+    wait on the sweep's writer).
+
+    `distributed=True` joins the process group (parallel.multihost.
+    initialize: torchrun's environment, or a group already up; ValueError
+    naming torchrun without one) and takes the shard from the rank and the
+    world size, over explicit num_shards / shard_index, as JAX does.
+    `device_mesh` runs every trial of the shard on all of the mesh's ranks
+    (run_trial); the 'interpolate' sweep then runs on rank 0 alone, and the
+    other ranks wait for it. The two together raise ValueError.
     """
+    from manifold_flow_tpu_torch.parallel import multihost
+
+    if distributed and device_mesh is not None:
+        raise ValueError(MESH_AND_DISTRIBUTED)
     if distributed:
-        raise NotImplementedError(f"run_batch(distributed=True) {MULTI_DEVICE}")
-    if device_mesh is not None:
-        raise NotImplementedError(f"run_batch(device_mesh=...) {MULTI_DEVICE}")
+        multihost.initialize()
+        num_shards, shard_index = multihost.world_size(), multihost.rank()
     device = resolve_device(device)
     num_shards = num_shards or 1
     shard_index = shard_index or 0
@@ -695,7 +763,8 @@ def run_batch(root, config, stages: Sequence[str] = DEVICE_STAGES,
         report["interpolation"] = {}
         interp_s = {}
         for i, task in enumerate(tasks):
-            if i % num_shards != shard_index:
+            if i % num_shards != shard_index or (device_mesh is not None
+                                                 and not multihost.is_primary()):
                 continue
             t0 = time.perf_counter()
             try:
@@ -710,6 +779,8 @@ def run_batch(root, config, stages: Sequence[str] = DEVICE_STAGES,
             interp_s[task.key] = time.perf_counter() - t0
         if timings is not None:
             timings["interpolate"] = interp_s
+        if device_mesh is not None:
+            multihost.sync_hosts()  # the movies are on disk for every rank
         stages = tuple(s for s in stages if s != "interpolate")
 
     trials = discover_trials(root, subjects=subjects)
@@ -753,7 +824,7 @@ def run_batch(root, config, stages: Sequence[str] = DEVICE_STAGES,
                     trial, config, stages=stages, sfreq=sfreq, overwrite=overwrite,
                     mesh_cache=mesh_cache, cache_dir=cache_dir,
                     timings=trial_timings, movie_data=fut, writer=shared_writer,
-                    device=device)
+                    device_mesh=device_mesh, device=device)
             except Exception as e:  # per-trial isolation: record + continue
                 logger.exception("batch: trial %s failed", trial.key)
                 report["errors"][trial.key] = f"{type(e).__name__}: {e}"
@@ -761,7 +832,7 @@ def run_batch(root, config, stages: Sequence[str] = DEVICE_STAGES,
                 timings[trial.key] = trial_timings
         t0 = time.perf_counter()
         try:
-            shared_writer.wait()
+            _step(device_mesh, shared_writer.wait)
         except Exception as e:
             logger.exception("batch: artifact write failed during drain")
             report["errors"]["artifact-writer"] = f"{type(e).__name__}: {e}"

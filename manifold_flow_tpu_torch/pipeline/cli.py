@@ -54,8 +54,11 @@ and returns 1 when a trial failed; `demo` runs the flow stage on a
 synthetic two-source movie and scores the detections against the true
 sources (and with --gif animates them, true_vs_detected.gif). Each prints
 one JSON line: its JAX counterpart's keys plus `device` (and `timings`).
-The renderings need matplotlib (viz.fields). `batch --frame-shards` and
-`--distributed` run on several GPUs, ROADMAP Queue A6, and raise.
+The renderings need matplotlib (viz.fields). Under torchrun, `batch
+--frame-shards N` runs every trial on N ranks, their frames sharded
+(parallel), and `batch --distributed` splits the trials over the ranks; the
+two together raise, and so does either without a process group of a
+fitting size.
 """
 
 from __future__ import annotations
@@ -443,21 +446,22 @@ def cmd_batch(args):
     returns 1 when any trial failed."""
     from manifold_flow_tpu_torch.pipeline import batch
 
-    if args.frame_shards:
-        raise NotImplementedError(
-            f"batch --frame-shards shards a trial over several GPUs, which "
-            f"{batch.MULTI_DEVICE}")
-    if args.distributed:
-        raise NotImplementedError(
-            f"batch --distributed derives the shard from a process group, which "
-            f"{batch.MULTI_DEVICE}")
     device = _device(args.device)
     cfg = _load_config(args)
+    device_mesh = None
+    if args.frame_shards:
+        if args.distributed:
+            raise ValueError(batch.MESH_AND_DISTRIBUTED)
+        from manifold_flow_tpu_torch.parallel import make_device_mesh, multihost
+
+        multihost.initialize()
+        device_mesh = make_device_mesh(args.frame_shards, 1, device=device)
     report = batch.run_batch(
         args.root, cfg, stages=tuple(args.stages),
         subjects=args.subjects or None, sfreq=args.sfreq,
         overwrite=args.overwrite, num_shards=args.num_shards,
-        shard_index=args.shard_index, cache_dir=args.cache_dir, device=device)
+        shard_index=args.shard_index, distributed=args.distributed,
+        cache_dir=args.cache_dir, device_mesh=device_mesh, device=device)
     print(json.dumps({"stage": "batch", "device": str(device), **report}))
     return 1 if report["errors"] else 0
 
@@ -587,13 +591,16 @@ def build_parser():
     sp.add_argument("--num-shards", type=int, default=None)
     sp.add_argument("--shard-index", type=int, default=None)
     sp.add_argument("--distributed", action="store_true",
-                    help="derive the shard from a process group (several "
-                         "hosts: not ported, raises)")
+                    help="derive the shard from the process group's rank "
+                         "and size (launch under torchrun)")
     sp.add_argument("--cache-dir", default=None,
                     help="geometry cache directory")
     sp.add_argument("--frame-shards", type=int, default=None,
-                    help="shard each trial's frames over this many GPUs "
-                         "(not ported, raises)")
+                    help="run each trial on this many ranks (launch under "
+                         "torchrun with as many processes), the frame axis of "
+                         "the solve and analysis stages sharded over them "
+                         "(parallel); streamlines and the SVD run on every "
+                         "rank, rank 0 writes")
     sp.set_defaults(func=cmd_batch)
 
     sp = sub.add_parser("demo", help="synthetic end-to-end run + validation")

@@ -9,6 +9,12 @@ writes the reference's artifact formats (utils.io). The JAX package's fused
 flow program, which exists to save remote dispatches, and its f64-to-f32
 analysis cast, which exists because the TPU emulates f64, have no
 counterpart: on the H100 every stage runs eagerly in the movie's dtype.
+
+The velocity, singularity, wave-speed and winding stages take a
+`device_mesh` (parallel.make_device_mesh), as in JAX: every rank of the
+mesh calls the stage with the same inputs, the frame axis (and with a mesh
+axis the solve's vertex blocks) is sharded over the ranks, every rank gets
+the whole result, and rank 0 alone writes the artifacts.
 """
 
 from __future__ import annotations
@@ -33,6 +39,18 @@ from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve.api import compute_velocity_fields
 from manifold_flow_tpu_torch.utils import io
+
+
+def writes_artifacts(device_mesh) -> bool:
+    """Whether this process writes a stage's artifacts: always on one
+    device, rank 0 alone under a device mesh. The stages that take a
+    `device_mesh` ask it themselves; a caller that runs the others on
+    every rank (pipeline.batch.run_trial) asks it for them."""
+    if device_mesh is None:
+        return True
+    from manifold_flow_tpu_torch.parallel import multihost
+
+    return multihost.is_primary()
 
 
 # ------------------------------------------------------------------- S0 ----
@@ -181,7 +199,7 @@ def _unconverged_detail(res, conv: np.ndarray) -> tuple[int, str]:
 
 def velocity_stage(mesh: TriMesh, potentials, times, config: PipelineConfig,
                    e_path=None, v_k_path=None, speed_path=None, writer=None,
-                   timings: dict | None = None) -> VelocityStage:
+                   timings: dict | None = None, device_mesh=None) -> VelocityStage:
     """S3 core: velocity fields + recombination + speed map (+ artifacts).
 
     Non-convergence is loud: any frame still above `tol` at `max_iter` is
@@ -198,7 +216,13 @@ def velocity_stage(mesh: TriMesh, potentials, times, config: PipelineConfig,
     'solve_wait' (until the converged flags reach the host, which also
     waits for those copies), 'artifact_submits' (queueing the writes, or
     writing them when `writer` is None).
+
+    `device_mesh` solves on every rank of the mesh
+    (parallel.sharded_compute_velocity_fields: 'refined' stays refined,
+    every other method is 'cg', as in JAX); rank 0 writes.
     """
+    if not writes_artifacts(device_mesh):
+        e_path = v_k_path = speed_path = None
     potentials = torch.as_tensor(potentials, device=mesh.device)
     is_f64 = potentials.dtype == torch.float64
     method = config.solver.method
@@ -206,10 +230,19 @@ def velocity_stage(mesh: TriMesh, potentials, times, config: PipelineConfig,
         method = "refined" if mesh.device.type == "cuda" and is_f64 else "cg"
 
     def run(method):
-        res = compute_velocity_fields(
-            mesh, potentials, times, lambda_=config.solver.lambda_,
-            method=method, tol=config.solver.tol,
-            inner_tol=config.solver.inner_tol, max_iter=config.solver.max_iter)
+        if device_mesh is not None:
+            from manifold_flow_tpu_torch.parallel import sharded_compute_velocity_fields
+
+            res = sharded_compute_velocity_fields(
+                mesh, potentials, times, device_mesh, lambda_=config.solver.lambda_,
+                tol=config.solver.tol, max_iter=config.solver.max_iter,
+                inner_tol=config.solver.inner_tol,
+                method="refined" if method == "refined" else "cg")
+        else:
+            res = compute_velocity_fields(
+                mesh, potentials, times, lambda_=config.solver.lambda_,
+                method=method, tol=config.solver.tol,
+                inner_tol=config.solver.inner_tol, max_iter=config.solver.max_iter)
         return (res, *velocity_to_world_and_speed(res.v_k, mesh.basis))
 
     def start_artifacts(res, speed):
@@ -282,7 +315,7 @@ def singularity_stage(mesh: TriMesh, v_world, config: PipelineConfig,
                       return_centers: bool = False,
                       speed: torch.Tensor | None = None,
                       v_max: torch.Tensor | None = None,
-                      timings: dict | None = None):
+                      timings: dict | None = None, device_mesh=None):
     """S3 detection and classification: per-frame singularity lists.
 
     Returns (points_per_frame, labels_per_frame) and saves the reference's
@@ -302,11 +335,21 @@ def singularity_stage(mesh: TriMesh, v_world, config: PipelineConfig,
 
     The host waits on the device twice: once for the two candidate counts
     that size the compaction, once for the compacted rows (and codes).
+    `device_mesh` shards the detection's frames (parallel); the compaction
+    and classification run on every rank, rank 0 writes.
     """
+    if not writes_artifacts(device_mesh):
+        save_path = classification_path = None
     t0 = time.perf_counter()
     v_world = torch.as_tensor(v_world, device=mesh.device)
-    field, counts = sing_ops.detect_with_counts(
-        mesh, v_world, eps=config.solver.eps, speed=speed, v_max=v_max)
+    if device_mesh is not None:
+        from manifold_flow_tpu_torch.parallel import sharded_detect_with_counts
+
+        field, counts = sharded_detect_with_counts(
+            mesh, v_world, device_mesh, eps=config.solver.eps, speed=speed, v_max=v_max)
+    else:
+        field, counts = sing_ops.detect_with_counts(
+            mesh, v_world, eps=config.solver.eps, speed=speed, v_max=v_max)
     cap = sing_ops.capacity_for(*counts.tolist())
     t1 = time.perf_counter()
     det = sing_ops.compact_detected(mesh, field, capacity=cap)
@@ -378,13 +421,18 @@ def wavespeed_stage(mesh: TriMesh, movie, dt: float, method: str = "phase",
     S5 script's unit conversion, S5:311-313) or the amplitude method's
     speed. `save_path` writes the reference's pickle of the float array.
     `timings`, when given, receives seconds: 'compute' (until the speeds
-    are on the host) and 'write'. The JAX stage's `device_mesh` (frames
-    sharded over chips) is ROADMAP Queue A6 and raises."""
+    are on the host) and 'write'. `device_mesh` shards the frames
+    (parallel.sharded_wave_velocity); rank 0 writes."""
+    if not writes_artifacts(device_mesh):
+        save_path = None
     if device_mesh is not None:
-        raise NotImplementedError(
-            "wavespeed_stage(device_mesh=...) shards frames over several GPUs, "
-            "which is not ported yet: ROADMAP Queue A6")
-    if method == "phase":
+        if method not in ("phase", "amplitude"):
+            raise ValueError(f"unknown wavespeed method {method!r}")
+        from manifold_flow_tpu_torch.parallel import sharded_wave_velocity
+
+        def speed_of(mesh, movie, dt):
+            return sharded_wave_velocity(mesh, movie, dt, device_mesh, method=method)
+    elif method == "phase":
         speed_of = wave_ops.wave_velocity_phase_mm_per_ms
     elif method == "amplitude":
         speed_of = wave_ops.wave_velocity_amplitude
@@ -458,15 +506,17 @@ def streamline_stage(mesh: TriMesh, v_world, config: PipelineConfig,
 # ------------------------------------------------------------------- S7 ----
 def winding_stage(mesh: TriMesh, v_world, singularity_points,
                   config: PipelineConfig, save_path=None, writer=None,
-                  centers=None):
+                  centers=None, device_mesh=None):
     """S7: winding-line extents {str(frame): [[coord, ring_count, type], ...]}
     for the frames with singularities, rows with a zero count left out.
 
     `centers` optionally carries the detection stage's per-frame snapped
     center vertex ids (singularity_stage(return_centers=True)); without
     them the points snap again on the host (the resume-from-pickle path).
-    The JAX stage's `device_mesh` (frames sharded over chips) is ROADMAP
-    Queue A6."""
+    `device_mesh` shards the profiles' frames (parallel.
+    sharded_winding_movie); rank 0 writes."""
+    if not writes_artifacts(device_mesh):
+        save_path = None
     v = torch.as_tensor(v_world, device=mesh.device)
     n_frames = min(len(singularity_points), v.shape[0])
     caps = [len(singularity_points[t]) for t in range(n_frames)]
@@ -484,9 +534,16 @@ def winding_stage(mesh: TriMesh, v_world, singularity_points,
                 valid[t, : caps[t]] = True
                 if centers_arr is not None:
                     centers_arr[t, : caps[t]] = np.asarray(centers[t])
-        res = wind_ops.analyze_singularities_movie(
-            mesh, v[:n_frames], pts_arr, valid,
-            max_level=config.analysis.max_winding_level, centers=centers_arr)
+        if device_mesh is not None:
+            from manifold_flow_tpu_torch.parallel import sharded_winding_movie
+
+            res = sharded_winding_movie(
+                mesh, v[:n_frames], pts_arr, valid, device_mesh,
+                max_level=config.analysis.max_winding_level, centers=centers_arr)
+        else:
+            res = wind_ops.analyze_singularities_movie(
+                mesh, v[:n_frames], pts_arr, valid,
+                max_level=config.analysis.max_winding_level, centers=centers_arr)
         counts, types = res.counts.numpy(), res.types.numpy()
         for t in range(n_frames):
             if caps[t]:

@@ -68,6 +68,45 @@ def build_rhs(mesh: TriMesh, potentials: torch.Tensor, times: torch.Tensor,
         assembly.mesh_cell_tiles(mesh))
 
 
+def resolve_precond(mesh: TriMesh, precond: str) -> str:
+    """'jacobi' or 'two_level': `precond` with 'auto' resolved (two_level
+    from TWO_LEVEL_MIN_VERTICES vertices up); ValueError for another name."""
+    if precond not in ("jacobi", "two_level", "auto"):
+        raise ValueError(f"unknown precond: {precond!r}")
+    if precond == "auto":
+        return "two_level" if mesh.n_vertices >= TWO_LEVEL_MIN_VERTICES else "jacobi"
+    return precond
+
+
+def check_movie(mesh: TriMesh, potentials, times, method: str = "cg"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The movie (T, N) and its times (T,) on the mesh's device, in the
+    dtype that geometry and movie combine in (promoted, as in JAX); raises
+    ValueError for a movie that is not floating point, shapes that do not
+    match the mesh or each other, fewer than 2 frames, or a movie that is
+    not float64 for method='refined'."""
+    potentials = torch.as_tensor(potentials, device=mesh.device)
+    movie_dtype = potentials.dtype
+    if not potentials.is_floating_point():
+        raise ValueError(f"potentials must be floating point; got {movie_dtype}")
+    dtype = torch.promote_types(movie_dtype, mesh.dtype)
+    potentials = potentials.to(dtype)
+    times = torch.as_tensor(times, device=mesh.device).to(dtype)
+    if potentials.ndim != 2 or potentials.shape[1] != mesh.n_vertices:
+        raise ValueError(
+            f"potentials must be (T, N={mesh.n_vertices}); got {tuple(potentials.shape)}")
+    if times.shape != (potentials.shape[0],):
+        raise ValueError(
+            f"times must be ({potentials.shape[0]},) to match the movie; "
+            f"got {tuple(times.shape)}")
+    if potentials.shape[0] < 2:
+        raise ValueError("need at least 2 frames to form a velocity field")
+    if method == "refined" and movie_dtype != torch.float64:
+        raise ValueError(
+            f"method='refined' needs float64 potentials; got {movie_dtype}")
+    return potentials, times
+
+
 def _chunked_velocity_fields(mesh: TriMesh, potentials: torch.Tensor,
                              times: torch.Tensor, chunk: int,
                              kwargs: dict) -> VelocityResult:
@@ -153,39 +192,20 @@ def compute_velocity_fields(
     """
     if method not in METHODS:
         raise ValueError(f"unknown method: {method!r} (want one of {METHODS})")
-    if precond not in ("jacobi", "two_level", "auto"):
-        raise ValueError(f"unknown precond: {precond!r}")
+    use_two_level = resolve_precond(mesh, precond) == "two_level"
     coarse.check_a1_mode(coarse_a1)
     anchor_stride = check_anchor_stride(anchor_stride)
-    potentials = torch.as_tensor(potentials, device=mesh.device)
-    movie_dtype = potentials.dtype
-    if not potentials.is_floating_point():
-        raise ValueError(f"potentials must be floating point; got {movie_dtype}")
-    # Geometry and movie combine in the promoted dtype, as in JAX.
-    dtype = torch.promote_types(movie_dtype, mesh.dtype)
-    potentials = potentials.to(dtype)
-    times = torch.as_tensor(times, device=mesh.device).to(dtype)
-    if potentials.ndim != 2 or potentials.shape[1] != mesh.n_vertices:
-        raise ValueError(
-            f"potentials must be (T, N={mesh.n_vertices}); got {tuple(potentials.shape)}")
-    if times.shape != (potentials.shape[0],):
-        raise ValueError(
-            f"times must be ({potentials.shape[0]},) to match the movie; "
-            f"got {tuple(times.shape)}")
-    if potentials.shape[0] < 2:
-        raise ValueError("need at least 2 frames to form a velocity field")
+    if method == "auto":
+        method = ("refined" if mesh.device.type == "cuda"
+                  and torch.as_tensor(potentials).dtype == torch.float64 else "cg")
+    potentials, times = check_movie(mesh, potentials, times, method)
     if potentials_next is not None:
-        potentials_next = torch.as_tensor(potentials_next, device=mesh.device).to(dtype)
+        potentials_next = torch.as_tensor(potentials_next, device=mesh.device).to(
+            potentials.dtype)
         if potentials_next.shape != potentials.shape:
             raise ValueError(
                 f"potentials_next must match potentials {tuple(potentials.shape)}; "
                 f"got {tuple(potentials_next.shape)}")
-    if method == "auto":
-        method = ("refined" if potentials.is_cuda
-                  and movie_dtype == torch.float64 else "cg")
-    if method == "refined" and movie_dtype != torch.float64:
-        raise ValueError(
-            f"method='refined' needs float64 potentials; got {movie_dtype}")
 
     t_v = potentials.shape[0] - 1
     if frame_chunk == "auto":
@@ -204,9 +224,7 @@ def compute_velocity_fields(
             inner_tol=inner_tol, anchor_stride=anchor_stride))
 
     tables = None
-    if method in ("cg", "refined") and (
-            precond == "two_level" or (precond == "auto"
-                                       and mesh.n_vertices >= TWO_LEVEL_MIN_VERTICES)):
+    if method in ("cg", "refined") and use_two_level:
         tables = coarse.build_tables(mesh, passes=coarse_passes)
 
     g, f = build_rhs(mesh, potentials, times, potentials_next)

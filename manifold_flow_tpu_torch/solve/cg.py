@@ -21,6 +21,15 @@ the loop's |r|, p.Ap, r.z and the final |r|. The dots are then the float64-
 accumulating instances of the same kernels (`pcg_dot<float,double>`,
 `pcg_update<float,double>`, `coarse_prolong_dot<float,double>`); in float64
 the option changes nothing.
+
+`comm` (a `parallel.comm.AxisComm`) solves one mesh shard's rows of a
+vertex-partitioned system (parallel.halo), as the JAX `psum_axis` does: the
+kernels form this shard's partial dots, which are all-reduced over the axis
+before they are used (|f|^2; p.Ap before `pcg_update`; its r.z and r.r
+before `pcg_direction` and the convergence test; under two-level, the
+restriction and K11's r.z, in `TwoLevelPrecond.correct`). Every rank of the
+axis then holds the same scalars and runs the same iterations. With
+comm=None nothing changes: the same launches, iterations and results.
 """
 
 from __future__ import annotations
@@ -34,6 +43,16 @@ from manifold_flow_tpu_torch.kernels import fem as kfem
 from manifold_flow_tpu_torch.solve.coarse import TwoLevelPrecond
 
 
+def _reduce_update(comm, two_level: bool, rz: torch.Tensor, rr: torch.Tensor) -> None:
+    """All-reduce pcg_update's partial r.r, and its r.z unless the two-level
+    correction overwrites it."""
+    if comm is not None:
+        if two_level:
+            comm.all_reduce_(rr)
+        else:
+            comm.all_reduce_(rz, rr)
+
+
 class CGResult(NamedTuple):
     x: torch.Tensor          # (T, 2N) solution
     iterations: int          # iterations executed
@@ -43,7 +62,8 @@ class CGResult(NamedTuple):
 
 def solve_cg(operator: FlowOperator, f: torch.Tensor,
              precond: torch.Tensor | TwoLevelPrecond, tol: float = 1e-10,
-             max_iter: int = 2000, precise_dots: bool = False) -> CGResult:
+             max_iter: int = 2000, precise_dots: bool = False,
+             comm=None) -> CGResult:
     """Solve A_k x_k = f_k for all frames k with PCG.
 
     Args:
@@ -55,11 +75,16 @@ def solve_cg(operator: FlowOperator, f: torch.Tensor,
       tol: relative tolerance on |r| / |f| per frame.
       max_iter: iteration cap.
       precise_dots: float64 sums for every per-frame dot of a float32 solve.
+      comm: the mesh axis's parallel.comm.AxisComm when f holds one shard's
+        rows (operator.matvec then exchanges the halo); None on one device.
     """
     f = f.contiguous()
     two_level = isinstance(precond, TwoLevelPrecond)
     dinv = precond.diag if two_level else precond
-    fnorm = torch.sqrt(kfem.pcg_dot(f, f, precise_dots))
+    ff = kfem.pcg_dot(f, f, precise_dots)
+    if comm is not None:
+        comm.all_reduce_(ff)
+    fnorm = torch.sqrt(ff)
     target = tol * torch.clamp_min(fnorm, torch.finfo(f.dtype).tiny)
 
     x = torch.zeros_like(f)
@@ -72,17 +97,21 @@ def solve_cg(operator: FlowOperator, f: torch.Tensor,
     # With pAp = 0 the update leaves x and r alone and only forms
     # z0 = D^-1 r0 with r0.z0 and r0.r0: the JAX loop's initial state.
     kfem.pcg_update(x, r, z, p, ap, dinv, zero, zero, rz, rr, precise_dots)
+    _reduce_update(comm, two_level, rz, rr)
     if two_level:
-        precond.correct(r, z, rz, precise_dots)
+        precond.correct(r, z, rz, precise_dots, comm=comm)
     p.copy_(z)
 
     it = 0
     while it < max_iter and bool(torch.any(torch.sqrt(rr) > target)):
         ap = operator.matvec(p)
         pap = kfem.pcg_dot(p, ap, precise_dots)
+        if comm is not None:
+            comm.all_reduce_(pap)
         kfem.pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr, precise_dots)
+        _reduce_update(comm, two_level, rz_new, rr)
         if two_level:
-            precond.correct(r, z, rz_new, precise_dots)
+            precond.correct(r, z, rz_new, precise_dots, comm=comm)
         kfem.pcg_direction(p, z, rz_new, rz)
         rz, rz_new = rz_new, rz
         it += 1

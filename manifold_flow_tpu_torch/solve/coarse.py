@@ -263,13 +263,22 @@ class TwoLevelPrecond:
     zeroed: torch.Tensor
 
     def correct(self, r: torch.Tensor, z: torch.Tensor, rz: torch.Tensor,
-                precise: bool = False) -> None:
+                precise: bool = False, comm=None) -> None:
         """Add the coarse correction P A_c^{-1} P^T r to z (T, 2N) in place
         and write rz = <r, z> per frame: K9, K10, then K11 (summing r.z in
-        float64 with `precise`, as solve_cg's precise_dots asks)."""
+        float64 with `precise`, as solve_cg's precise_dots asks).
+
+        With `comm` (parallel.comm.AxisComm) the rows are one mesh shard's
+        (parallel.halo): K9's partial restriction is all-reduced over the
+        axis before K10, and K11's partial r.z after it (the JAX
+        `HaloTwoLevel.apply`'s psum)."""
         rc = kcoarse.coarse_restrict(r, self.r_blk, self.members)
+        if comm is not None:
+            comm.all_reduce_(rc)
         yc = kcoarse.coarse_gemv(self.ac_inv, rc)
         kcoarse.coarse_prolong_dot(z, r, yc, self.r_blk, self.agg, rz, precise)
+        if comm is not None:
+            comm.all_reduce_(rz)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """Apply M^{-1} to residuals r (T, 2N) -> (T, 2N).
@@ -325,29 +334,41 @@ def coarse_matrices(mesh: TriMesh, g: torch.Tensor, lambda_: float,
         g.contiguous(), assembly.a2_blocks(mesh).to(dtype).contiguous(), r_blk,
         mesh.triangles, mesh.areas.to(dtype) / 12.0, lambda_, tables.asm_ptr,
         tables.asm_src, tables.asm_dst, tables.n_coarse, mean=a1_mode == "mean")
+    return add_ridge(ac), r_blk
+
+
+def add_ridge(ac: torch.Tensor) -> torch.Tensor:
+    """ac plus 1e-6 of each frame's largest |diagonal entry| on its diagonal."""
     scale = torch.amax(torch.abs(torch.diagonal(ac, dim1=-2, dim2=-1)), dim=-1)
-    eye = torch.eye(ac.shape[-1], dtype=dtype, device=ac.device)
-    return ac + (1e-6 * scale)[:, None, None] * eye, r_blk
+    eye = torch.eye(ac.shape[-1], dtype=ac.dtype, device=ac.device)
+    return ac + (1e-6 * scale)[:, None, None] * eye
 
 
-def make_two_level(mesh: TriMesh, g: torch.Tensor, lambda_: float,
-                   tables: CoarseTables, a1_mode: str = "full") -> TwoLevelPrecond:
-    """Build the two-level preconditioner for the operator defined by g.
-
-    The coarse inverse is explicit, so the iteration only multiplies:
-    Cholesky, a triangular solve against I, then Linv^T Linv. A frame whose
-    factorization fails (`cholesky_ex` info, or NaN in the factor's inverse,
-    the JAX package's test) gets a zero inverse: its correction is 0 and
-    PCG runs on the Jacobi term alone, as in JAX.
-    """
-    diag = block_jacobi_inverse(mesh, g, lambda_)
-    ac, r_blk = coarse_matrices(mesh, g, lambda_, tables, a1_mode=a1_mode)
+def invert_coarse(ac: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(explicit inverses (T, 2Nc, 2Nc), zeroed (T,) bool) of the coarse
+    matrices: Cholesky, a triangular solve against I, then Linv^T Linv. A
+    frame whose factorization fails (`cholesky_ex` info, or NaN in the
+    factor's inverse, the JAX package's test) gets a zero inverse."""
     chol, info = torch.linalg.cholesky_ex(ac)
     eye = torch.eye(ac.shape[-1], dtype=ac.dtype, device=ac.device).expand_as(ac)
     linv = torch.linalg.solve_triangular(chol, eye, upper=False)
     ac_inv = torch.matmul(linv.mT, linv)
     zeroed = (info != 0) | torch.isnan(linv).any(dim=-1).any(dim=-1)
     ac_inv = torch.where(zeroed[:, None, None], torch.zeros_like(ac_inv), ac_inv)
+    return ac_inv, zeroed
+
+
+def make_two_level(mesh: TriMesh, g: torch.Tensor, lambda_: float,
+                   tables: CoarseTables, a1_mode: str = "full") -> TwoLevelPrecond:
+    """Build the two-level preconditioner for the operator defined by g.
+
+    The coarse inverse is explicit (`invert_coarse`), so the iteration only
+    multiplies. A frame whose factorization fails gets a zero inverse: its
+    correction is 0 and PCG runs on the Jacobi term alone, as in JAX.
+    """
+    diag = block_jacobi_inverse(mesh, g, lambda_)
+    ac, r_blk = coarse_matrices(mesh, g, lambda_, tables, a1_mode=a1_mode)
+    ac_inv, zeroed = invert_coarse(ac)
     return TwoLevelPrecond(diag=diag, r_blk=r_blk.contiguous(), agg=tables.agg,
                            members=tables.members, ac_inv=ac_inv.contiguous(),
                            n_coarse=tables.n_coarse, zeroed=zeroed)

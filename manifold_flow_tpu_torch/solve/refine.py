@@ -75,8 +75,12 @@ class RefineResult(NamedTuple):
                               # preconditioner whose inverse was zeroed
 
 
-def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(kfem.pcg_dot(v, v))
+def _norm(v: torch.Tensor, comm=None) -> torch.Tensor:
+    """Per-frame |v|, over every shard's rows with `comm`."""
+    vv = kfem.pcg_dot(v, v)
+    if comm is not None:
+        comm.all_reduce_(vv)
+    return torch.sqrt(vv)
 
 
 def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
@@ -84,13 +88,22 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
                 max_iter: int = 2000, refine_steps: int = 8,
                 coarse_tables: CoarseTables | None = None,
                 coarse_a1: str = "full",
-                x0: torch.Tensor | None = None) -> RefineResult:
+                x0: torch.Tensor | None = None, comm=None,
+                precond_fn=None) -> RefineResult:
     """The refinement iteration given the f64 operator and RHS f (T, 2N),
-    from x0 (T, 2N) float64 (the temporal warm start) or from zero."""
+    from x0 (T, 2N) float64 (the temporal warm start) or from zero.
+
+    `comm` and `precond_fn` serve one mesh shard's rows (parallel.halo):
+    `comm` (parallel.comm.AxisComm) all-reduces the norms and the inner
+    PCG's dots, and op64 exchanges its halo in `residual`;
+    `precond_fn(op32)` returns the inner preconditioner and its count of
+    zeroed coarse matrices in place of the one built here from `mesh`."""
     # The f32 operator is the f64 one rounded to f32, as in the JAX package,
     # and so is the inner preconditioner's.
     op32 = op64.astype(torch.float32)
-    if coarse_tables is not None:
+    if precond_fn is not None:
+        pre32, zeroed = precond_fn(op32)
+    elif coarse_tables is not None:
         pre32 = make_two_level(mesh, op32.g, op32.lambda_, coarse_tables,
                                a1_mode=coarse_a1)
         zeroed = int(pre32.zeroed.sum())
@@ -101,7 +114,7 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
     # the f64 norm is cast to f32, which moves the stopping point by at most
     # the last ulp of the target.
     tiny = torch.finfo(torch.float32).tiny
-    target = (tol * torch.clamp_min(_norm(f), tiny)).to(torch.float32).double()
+    target = (tol * torch.clamp_min(_norm(f, comm), tiny)).to(torch.float32).double()
     sched = as_inner_schedule(inner_tol)
 
     if x0 is None:
@@ -110,15 +123,15 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
         x, r = x0, op64.residual(f, x0)
     total_iters = 0
     step = 0
-    while step < refine_steps and bool(torch.any(_norm(r) > target)):
+    while step < refine_steps and bool(torch.any(_norm(r, comm) > target)):
         step_tol = sched[min(step, len(sched) - 1)]
         inner = solve_cg(op32, r.to(torch.float32), pre32, tol=step_tol,
-                         max_iter=max_iter)
+                         max_iter=max_iter, comm=comm)
         x = x + inner.x.double()
         r = op64.residual(f, x)
         total_iters += inner.iterations
         step += 1
-    rn = _norm(r)
+    rn = _norm(r, comm)
     return RefineResult(x=x, iterations=total_iters, residual=rn,
                         converged=rn <= target, outer_steps=step,
                         coarse_zeroed=zeroed)

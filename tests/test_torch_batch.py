@@ -485,20 +485,6 @@ def test_winding_in_memory_handoff_matches_disk(tmp_path):
             assert ra[1:] == rb[1:]
 
 
-def test_multi_device_options_raise_naming_a6(tree, tmp_path, capsys):
-    trial = batch.discover_trials(tree)[0]
-    with pytest.raises(NotImplementedError, match="A6"):
-        batch.run_trial(trial, PipelineConfig(), device_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        batch.run_batch(tree, PipelineConfig(), distributed=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        batch.run_batch(tree, PipelineConfig(), device_mesh=object(), device="cpu")
-    for extra in (["--frame-shards", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="A6"):
-            cli.main(["batch", "--root", str(tree), "--device", "cpu", *extra])
-    assert not outputs(tree)
-
-
 # ---------------------------------------------------------------- golden ----
 @pytest.mark.parametrize("quirks", [False, True], ids=["quirks_off", "quirks_on"])
 def test_run_trial_reproduces_golden_tree(tmp_path, quirks):

@@ -225,8 +225,6 @@ def test_streamline_and_winding_stages_match_jax(tmp_path, demo, jax_velocity, q
 def test_unported_stage_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A3"):
         stages.load_surface(tmp_path / "none.ply", pad=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        stages.wavespeed_stage(None, np.zeros((3, 4)), 1.0, device_mesh=object())
     with pytest.raises(ValueError, match="unknown SVD mode"):
         stages.decompose_stage(np.zeros((3, 4)), PipelineConfig(), mode="real",
                                device="cpu")
