@@ -344,6 +344,33 @@ def clear_l2() -> None:
     _L2_FLUSH[0].sum()
 
 
+def device_events(prof) -> list:
+    """The device's own events of a closed profile (`key_averages()`): its
+    kernels, copies and sets. The host ranges that the profiler also draws
+    on the device timeline (the schedule's "ProfilerStep#", the package's
+    utils.profiling spans, named launches) are no device work and are left
+    out."""
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep")
+            and not getattr(e, "is_user_annotation", False)]
+
+
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler (CPU and CUDA) over the block, after one traced
+    warm-up step that is dropped (a small device operation and a wait): the
+    device tracing loses events while it starts, such as a solve's first
+    kernel, K4 (ROADMAP E2)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+
+
 def device_us(fn, calls: int = 20, mine=None, before=None, label: str = "",
               retakes: int = DEVICE_US_RETAKES) -> float | None:
     """Device time per call of fn() in µs: torch.profiler's
@@ -364,9 +391,7 @@ def device_us(fn, calls: int = 20, mine=None, before=None, label: str = "",
     other kernel a multiple of `calls`, the same in two windows. A window
     that falls short is retaken, at most `retakes` times beyond the first
     two, each retake printed. The reading is the mean of two whole windows
-    that agree; None (not measured, printed) where there are no two. The
-    step's own range, which the profiler also draws on the device timeline
-    ("ProfilerStep#"), is no kernel and is left out."""
+    that agree; None (not measured, printed) where there are no two."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from manifold_flow_tpu_torch.kernels import LAUNCHES
@@ -388,9 +413,7 @@ def device_us(fn, calls: int = 20, mine=None, before=None, label: str = "",
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        kept = [e for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep")
-                and (mine is None or mine(e.key))]
+        kept = [e for e in device_events(prof) if mine is None or mine(e.key)]
         counts: dict[str, int] = {}
         for e in kept:
             counts[e.key] = counts.get(e.key, 0) + e.count
@@ -2010,7 +2033,8 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
             for k, (ms, dev, bound) in lib.items()), flush=True)
     print(f"[{tag}] wall (ms; load, compute, write): " + "; ".join(
         f"{name} {wall * 1e3:.2f} (" + ", ".join(
-            f"{k} {v * 1e3:.2f}" for k, v in report["timings"].items()) + ")"
+            f"{k} {v * 1e3:.2f}" for k, v in report["timings"].items()
+            if isinstance(v, float)) + ")"
         for name, (report, wall) in runs.items()) + f"; on {card}", flush=True)
     return launches
 
@@ -2322,8 +2346,6 @@ def profile_analysis(mesh, res, card: str) -> None:
     config: detection with classification (K6, K7, K12), streamlines (K13,
     K14 and the polylines on the host) and winding lines (ring tables, K15)
     on the detection stage's centers."""
-    from torch.profiler import ProfilerActivity, profile
-
     from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
     from manifold_flow_tpu_torch.pipeline import stages
     from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -2346,11 +2368,11 @@ def profile_analysis(mesh, res, card: str) -> None:
                      winding=time.perf_counter() - t2)
 
     chain()  # warm: tables cached
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         chain()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = device_events(prof)
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us > 0:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
@@ -2377,8 +2399,6 @@ def profile_fields(mesh, pot, v_k, card: str) -> None:
     1229-sample movie and of its Hilbert phases (FFTs), wave speeds of both
     (K16), and the concat and complex SVDs of the refined solve's v_k. No
     LU library kernel (getrf, getrs) may run in it."""
-    from torch.profiler import ProfilerActivity, profile
-
     from manifold_flow_tpu_torch.geometry import synthetic
     from manifold_flow_tpu_torch.pipeline import stages
     from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -2406,11 +2426,11 @@ def profile_fields(mesh, pot, v_k, card: str) -> None:
                      decompose=time.perf_counter() - t2)
 
     chain()  # warm: the FFT plans and the solver libraries loaded
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         chain()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = device_events(prof)
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us > 0:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
@@ -2560,8 +2580,6 @@ def run_precise(problems: dict, refined: tuple, slice_launches: dict,
     the default refined bench solve `refined` again, whose launches must be
     [slice]'s and REFINED_LAUNCHES. Returns the precise solves' launches and
     the precise instances' device us a launch in them, by size."""
-    from torch.profiler import ProfilerActivity, profile
-
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
 
     launches_of, us_of = {}, {}
@@ -2584,9 +2602,9 @@ def run_precise(problems: dict, refined: tuple, slice_launches: dict,
                 raise AssertionError(f"[precise] {tag} {name}: {res.v_k.dtype}, "
                                      f"{int((~res.converged).sum())} frames unconverged")
         reset_launches()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             solve(mesh, pot, times, precise_dots=True, **kw)
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        events = device_events(prof)
         us = {k: v for k, v in solve_device_us(events, dict(LAUNCHES)).items() if "," in k}
         print(f"[precise] {tag} ({mesh.n_vertices} vertices, float32 cg tol 1e-5, "
               f"precond {'two-level' if tag == '12.5k' else 'Jacobi'}): precise_dots "
@@ -2648,8 +2666,8 @@ def run_profiling(mesh, pot, times, card: str) -> None:
         text = path.read_text()
         ranges = sum(1 for e in json.loads(text)["traceEvents"]
                      if str(e.get("name", "")).startswith("fem_matvec<"))
-        dev = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and own_kernel(e.key))
+        dev = sum(e.self_device_time_total for e in device_events(prof)
+                  if own_kernel(e.key))
         if "fem_matvec" not in text or ranges == 0:
             raise AssertionError(f"[profiling] the trace {path.name} names no fem_matvec")
         print(f"[profiling] utils.profiling.trace around one refined solve: {path.name}, "
@@ -2883,8 +2901,10 @@ def split_line(name: str, timings: dict, stage_set, cli_tags: dict | None) -> st
         line += ("; the CLI calls of the same stages at the same shapes " + ", ".join(
             f"{s} {cli[s] * 1e3:.2f}" for s in done)
             + f" = {sum(cli.values()) * 1e3:.2f} ms")
+    # A detail dict holds seconds, and a stage's span record under 'trace'.
     return line + "; detail: " + "; ".join(
-        f"{k} (" + ", ".join(f"{d} {v * 1e3:.2f}" for d, v in timings[k].items()) + ")"
+        f"{k} (" + ", ".join(f"{d} {v * 1e3:.2f}" for d, v in timings[k].items()
+                             if isinstance(v, float)) + ")"
         for k in timings if k.endswith("_detail"))
 
 
@@ -2905,8 +2925,6 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
     against phase 6b/6c's CLI artifacts, resumed, one warm trial profiled,
     then K1 and K13 on the reconstructed surface; returns the reconstructed
     trial's launches and in-trial device us."""
-    from torch.profiler import ProfilerActivity, profile
-
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.ops import phase as phase_ops
     from manifold_flow_tpu_torch.pipeline import batch, cli, stages
@@ -3032,14 +3050,14 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
         torch.cuda.synchronize()
         reset_launches()
         trial_timings: dict = {}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             t0 = time.perf_counter()
             batch.run_trial(trial2, cfg, stages=batch.ALL_STAGES, overwrite=True,
                             mesh_cache=mesh_cache, timings=trial_timings)
             torch.cuda.synchronize()
             trial_wall = time.perf_counter() - t0
         recon_launches = dict(LAUNCHES)
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        events = device_events(prof)
         recon_us = solve_device_us(events, recon_launches)
         busy = sum(e.self_device_time_total for e in events) / (trial_wall * 1e6)
         trace = Path(tmp) / "trial_trace.json"
@@ -3696,14 +3714,12 @@ def main() -> int:
     cholesky_launches = run_cholesky(mesh, pot, times, v_ref, res_cg.v_k, card)
 
     # 14. where the time goes in one S3 chain, and in the 12.5k two-level solve
-    from torch.profiler import ProfilerActivity, profile
-
     from manifold_flow_tpu_torch.ops import singularity as sing
     from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
 
     torch.cuda.synchronize()
     reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         res = solve(mesh, pot, times, **refined)
         v_world, speed, v_max = velocity_to_world_and_speed(res.v_k, mesh.basis)
@@ -3712,7 +3728,7 @@ def main() -> int:
         sing.compact_detected(mesh, field, sing.capacity_for(*counts.tolist()))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = device_events(prof)
     # Each kernel's device µs a launch as the S3 chain runs it (the bench
     # rows) and as the 12.5k solve runs it (the rows at 12.5k shapes).
     in_solve = {"bench": solve_device_us(events, dict(LAUNCHES))}
@@ -3735,11 +3751,11 @@ def main() -> int:
     profile_fields(mesh, pot, res.v_k, card)
     solve(mesh12, pot12, times12, **refined)  # warm: tables cached, kernels built
     reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         solve(mesh12, pot12, times12, **refined)
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = device_events(prof)
     in_solve["12.5k"] = solve_device_us(events, dict(LAUNCHES))
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us > 0:

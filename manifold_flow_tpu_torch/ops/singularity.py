@@ -34,6 +34,7 @@ from manifold_flow_tpu_torch.kernels.analysis import (  # noqa: F401 (JAX names)
     classify_jacobian,
 )
 from manifold_flow_tpu_torch.ops.recombine import world_speed
+from manifold_flow_tpu_torch.utils import profiling
 
 # Class names by code (classify_critical_point,
 # utils/find_singularity_point.py:463-498; the finer stable/unstable branches
@@ -265,10 +266,11 @@ def classify(mesh: TriMesh, v_world: torch.Tensor, field: SingularityField,
 def compacted_rows(mesh: TriMesh, det: CompactDetections,
                    with_centers: bool = False):
     """Host-side: compacted detections -> reference-style lists per frame
-    (see compact_all), in one wait for the device."""
+    (see compact_all), in one wait for the device (`sync.analysis.rows`)."""
     from manifold_flow_tpu_torch.utils.io import to_numpy
 
-    vid, vok, iid, iok, ipts, icent, pts = to_numpy(*det, mesh.points)
+    with profiling.wait("sync.analysis.rows"):
+        vid, vok, iid, iok, ipts, icent, pts = to_numpy(*det, mesh.points)
     out = []
     for k in range(vid.shape[0]):
         vsel = vid[k][vok[k]]

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from manifold_flow_tpu_torch.ops.recombine import velocity_to_complex
+from manifold_flow_tpu_torch.utils import profiling
 
 
 class SVDModes(NamedTuple):
@@ -59,7 +60,8 @@ def fix_signs(u: torch.Tensor, vt: torch.Tensor, n_modes: int):
 
 
 def _decompose(movie: torch.Tensor, n_modes: int | None) -> SVDModes:
-    u, s, vt = torch.linalg.svd(movie, full_matrices=False)
+    with profiling.span("svd.library"):
+        u, s, vt = torch.linalg.svd(movie, full_matrices=False)
     k = s.shape[0] if n_modes is None else n_modes
     u, vt = fix_signs(u, vt, k)
     pct, pct2 = mode_percentages(s)

@@ -483,10 +483,12 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
 
     `timings`, when given, receives wall seconds per executed stage, a
     'flow_detail' sub-breakdown (movie load, solve dispatch and wait,
-    artifact copy starts and submits, detection), 'streamline_detail'
-    (trace, compact, submit), 'decompose_detail' and 'wavespeed_detail' /
-    'wavespeed_amplitude_detail' (compute, write), and, when the trial
-    drains its own writer, 'drain'.
+    artifact copy starts and submits, detection, and 'trace', the velocity
+    stage's utils.profiling record: a dict of spans and counts, not
+    seconds), 'streamline_detail' (trace, compact, submit: seconds),
+    'decompose_detail' (compute, write, and the decompose stage's 'trace'
+    record) and 'wavespeed_detail' / 'wavespeed_amplitude_detail' (compute,
+    write), and, when the trial drains its own writer, 'drain'.
 
     `movie_data` optionally supplies the trial's potentials movie already
     parsed (a (T, N) array or a concurrent Future of one): run_batch parses

@@ -15,10 +15,15 @@ The velocity, singularity, wave-speed and winding stages take a
 mesh calls the stage with the same inputs, the frame axis (and with a mesh
 axis the solve's vertex blocks) is sharded over the ranks, every rank gets
 the whole result, and rank 0 alone writes the artifacts.
+
+The velocity, singularity and decompose stages run under a
+utils.profiling.record() scope when given `timings`, and leave its summary
+(spans and counts by name) in timings['trace'].
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from typing import NamedTuple
@@ -38,7 +43,7 @@ from manifold_flow_tpu_torch.ops import winding as wind_ops
 from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve.api import compute_velocity_fields
-from manifold_flow_tpu_torch.utils import io
+from manifold_flow_tpu_torch.utils import io, profiling
 
 
 def writes_artifacts(device_mesh) -> bool:
@@ -187,6 +192,19 @@ class VelocityStage(NamedTuple):
     v_max: torch.Tensor             # (T-1,) per-frame max speed
 
 
+@contextlib.contextmanager
+def _recorded(timings: dict | None):
+    """Run the block under a utils.profiling.record() scope when `timings`
+    is given, and add the scope's summary to timings['trace'] (a caller may
+    hand one dict to several stages: their records add up)."""
+    if timings is None:
+        yield
+        return
+    with profiling.record() as rec:
+        yield
+    timings["trace"] = profiling.merge(timings.get("trace"), rec.summary())
+
+
 def _unconverged_detail(res, conv: np.ndarray) -> tuple[int, str]:
     bad = np.where(~conv)[0]
     resid = res.residual.cpu().numpy()[bad]
@@ -215,93 +233,105 @@ def velocity_stage(mesh: TriMesh, potentials, times, config: PipelineConfig,
     'artifact_starts' (starting the artifacts' device-to-host copies),
     'solve_wait' (until the converged flags reach the host, which also
     waits for those copies), 'artifact_submits' (queueing the writes, or
-    writing them when `writer` is None).
+    writing them when `writer` is None), and 'trace', the stage's
+    utils.profiling record: the solve's spans and counts (solve.api,
+    solve.refine, solve.cg), `velocity.recombine` (K5), the
+    `sync.velocity.flags` reads of the converged flags and, with no
+    `e_path`, the `sync.velocity.basis` read of the bases.
 
     `device_mesh` solves on every rank of the mesh
     (parallel.sharded_compute_velocity_fields: 'refined' stays refined,
     every other method is 'cg', as in JAX); rank 0 writes.
     """
-    if not writes_artifacts(device_mesh):
-        e_path = v_k_path = speed_path = None
-    potentials = torch.as_tensor(potentials, device=mesh.device)
-    is_f64 = potentials.dtype == torch.float64
-    method = config.solver.method
-    if method == "auto":
-        method = "refined" if mesh.device.type == "cuda" and is_f64 else "cg"
+    with _recorded(timings):
+        if not writes_artifacts(device_mesh):
+            e_path = v_k_path = speed_path = None
+        potentials = torch.as_tensor(potentials, device=mesh.device)
+        is_f64 = potentials.dtype == torch.float64
+        method = config.solver.method
+        if method == "auto":
+            method = "refined" if mesh.device.type == "cuda" and is_f64 else "cg"
 
-    def run(method):
-        if device_mesh is not None:
-            from manifold_flow_tpu_torch.parallel import sharded_compute_velocity_fields
+        def run(method):
+            if device_mesh is not None:
+                from manifold_flow_tpu_torch.parallel import sharded_compute_velocity_fields
 
-            res = sharded_compute_velocity_fields(
-                mesh, potentials, times, device_mesh, lambda_=config.solver.lambda_,
-                tol=config.solver.tol, max_iter=config.solver.max_iter,
-                inner_tol=config.solver.inner_tol,
-                method="refined" if method == "refined" else "cg")
-        else:
-            res = compute_velocity_fields(
-                mesh, potentials, times, lambda_=config.solver.lambda_,
-                method=method, tol=config.solver.tol,
-                inner_tol=config.solver.inner_tol, max_iter=config.solver.max_iter)
-        return (res, *velocity_to_world_and_speed(res.v_k, mesh.basis))
+                res = sharded_compute_velocity_fields(
+                    mesh, potentials, times, device_mesh, lambda_=config.solver.lambda_,
+                    tol=config.solver.tol, max_iter=config.solver.max_iter,
+                    inner_tol=config.solver.inner_tol,
+                    method="refined" if method == "refined" else "cg")
+            else:
+                res = compute_velocity_fields(
+                    mesh, potentials, times, lambda_=config.solver.lambda_,
+                    method=method, tol=config.solver.tol,
+                    inner_tol=config.solver.inner_tol, max_iter=config.solver.max_iter)
+            with profiling.span("velocity.recombine"):
+                return (res, *velocity_to_world_and_speed(res.v_k, mesh.basis))
 
-    def start_artifacts(res, speed):
-        """Start the device-to-host copy of each artifact tensor, once."""
-        arts = {}
-        if e_path is not None:
-            arts["e"] = mesh.basis
-        if v_k_path is not None:
-            arts["v_k"] = res.v_k
-        if speed_path is not None:
-            arts["speed"] = speed
-        return dict(zip(arts, io.start_host_copy(*arts.values())))
+        def start_artifacts(res, speed):
+            """Start the device-to-host copy of each artifact tensor, once."""
+            arts = {}
+            if e_path is not None:
+                arts["e"] = mesh.basis
+            if v_k_path is not None:
+                arts["v_k"] = res.v_k
+            if speed_path is not None:
+                arts["speed"] = speed
+            return dict(zip(arts, io.start_host_copy(*arts.values())))
 
-    t0 = time.perf_counter()
-    res, v_world, speed, v_max = run(method)
-    tp = time.perf_counter()
-    arts = start_artifacts(res, speed)
-    t1 = time.perf_counter()
-    # A blocking read on the stream the copies were queued on: once the
-    # flags are here, the artifact copies are complete too.
-    conv = res.converged.cpu().numpy()
-    t2 = time.perf_counter()
-    if timings is not None:
-        timings["dispatch"] = tp - t0
-        timings["artifact_starts"] = t1 - tp
-        timings["solve_wait"] = t2 - t1
-    if not conv.all():
-        n_bad, detail = _unconverged_detail(res, conv)
-        can_escalate = (config.solver.escalate
-                        and method not in ("refined", "cholesky") and is_f64)
-        if can_escalate:
-            warnings.warn(
-                f"velocity solve failed tol={config.solver.tol} on "
-                f"{n_bad} frame(s) [{detail}]; escalating to the refined "
-                "solver", ConvergenceWarning, stacklevel=2)
-            res, v_world, speed, v_max = run("refined")
-            arts = start_artifacts(res, speed)  # supersedes the 1st pass
+        t0 = time.perf_counter()
+        res, v_world, speed, v_max = run(method)
+        tp = time.perf_counter()
+        arts = start_artifacts(res, speed)
+        t1 = time.perf_counter()
+        # A blocking read on the stream the copies were queued on: once the
+        # flags are here, the artifact copies are complete too.
+        with profiling.wait("sync.velocity.flags"):
             conv = res.converged.cpu().numpy()
+        t2 = time.perf_counter()
+        if timings is not None:
+            timings["dispatch"] = tp - t0
+            timings["artifact_starts"] = t1 - tp
+            timings["solve_wait"] = t2 - t1
         if not conv.all():
             n_bad, detail = _unconverged_detail(res, conv)
-            warnings.warn(
-                f"velocity solve NOT converged to tol={config.solver.tol} on "
-                f"{n_bad} frame(s) [{detail}]; downstream singularity/"
-                "streamline/winding artifacts may be unreliable — raise "
-                "max_iter or loosen tol", ConvergenceWarning, stacklevel=2)
-    t3 = time.perf_counter()
-    host = {name: t.numpy() for name, t in arts.items()}
-    if e_path is not None:
-        io.submit_write(writer, io.save_e_csv, e_path, host["e"])
-    if v_k_path is not None:
-        io.submit_write(writer, io.save_indexed_csv, v_k_path, host["v_k"])
-    if speed_path is not None:
-        io.submit_write(writer, io.save_pickle, speed_path, host["speed"])
-    if timings is not None:
-        timings["artifact_submits"] = time.perf_counter() - t3
-    e = host["e"] if "e" in host else io.to_numpy(mesh.basis)[0]
-    return VelocityStage(v_k=res.v_k, e=e, v_world=v_world, speed=speed,
-                         iterations=int(res.iterations),
-                         converged=bool(conv.all()), v_max=v_max)
+            can_escalate = (config.solver.escalate
+                            and method not in ("refined", "cholesky") and is_f64)
+            if can_escalate:
+                warnings.warn(
+                    f"velocity solve failed tol={config.solver.tol} on "
+                    f"{n_bad} frame(s) [{detail}]; escalating to the refined "
+                    "solver", ConvergenceWarning, stacklevel=2)
+                res, v_world, speed, v_max = run("refined")
+                arts = start_artifacts(res, speed)  # supersedes the 1st pass
+                with profiling.wait("sync.velocity.flags"):
+                    conv = res.converged.cpu().numpy()
+            if not conv.all():
+                n_bad, detail = _unconverged_detail(res, conv)
+                warnings.warn(
+                    f"velocity solve NOT converged to tol={config.solver.tol} on "
+                    f"{n_bad} frame(s) [{detail}]; downstream singularity/"
+                    "streamline/winding artifacts may be unreliable — raise "
+                    "max_iter or loosen tol", ConvergenceWarning, stacklevel=2)
+        t3 = time.perf_counter()
+        host = {name: t.numpy() for name, t in arts.items()}
+        if e_path is not None:
+            io.submit_write(writer, io.save_e_csv, e_path, host["e"])
+        if v_k_path is not None:
+            io.submit_write(writer, io.save_indexed_csv, v_k_path, host["v_k"])
+        if speed_path is not None:
+            io.submit_write(writer, io.save_pickle, speed_path, host["speed"])
+        if timings is not None:
+            timings["artifact_submits"] = time.perf_counter() - t3
+        if "e" in host:
+            e = host["e"]
+        else:
+            with profiling.wait("sync.velocity.basis"):
+                e = io.to_numpy(mesh.basis)[0]
+        return VelocityStage(v_k=res.v_k, e=e, v_world=v_world, speed=speed,
+                             iterations=int(res.iterations),
+                             converged=bool(conv.all()), v_max=v_max)
 
 
 def _sync(device: torch.device) -> None:
@@ -331,55 +361,72 @@ def singularity_stage(mesh: TriMesh, v_world, config: PipelineConfig,
     (VelocityStage.speed, .v_max): required on CUDA, computed from v_world
     on the CPU when left out. `timings`, when given, receives seconds:
     'detect' (until the candidate counts reach the host), 'classify' (K7
-    and K12 until the compacted rows reach the host).
+    and K12 until the compacted rows reach the host), and 'trace', the
+    stage's utils.profiling record: spans `analysis.detect` (K6),
+    `analysis.compact` (K7), `analysis.classify` (K12), `analysis.labels`
+    (the labels, built on the host) and `analysis.rows` (compacted_rows),
+    and a wait for each read of the device.
 
-    The host waits on the device twice: once for the two candidate counts
-    that size the compaction, once for the compacted rows (and codes).
+    The host waits on the device twice without classify: once for the two
+    candidate counts that size the compaction (`sync.analysis.counts`),
+    once for the compacted rows (`sync.analysis.rows`); classify adds two
+    reads of the codes and valid flags (`sync.analysis.codes`).
     `device_mesh` shards the detection's frames (parallel); the compaction
     and classification run on every rank, rank 0 writes.
     """
-    if not writes_artifacts(device_mesh):
-        save_path = classification_path = None
-    t0 = time.perf_counter()
-    v_world = torch.as_tensor(v_world, device=mesh.device)
-    if device_mesh is not None:
-        from manifold_flow_tpu_torch.parallel import sharded_detect_with_counts
+    with _recorded(timings):
+        if not writes_artifacts(device_mesh):
+            save_path = classification_path = None
+        t0 = time.perf_counter()
+        v_world = torch.as_tensor(v_world, device=mesh.device)
+        with profiling.span("analysis.detect"):
+            if device_mesh is not None:
+                from manifold_flow_tpu_torch.parallel import sharded_detect_with_counts
 
-        field, counts = sharded_detect_with_counts(
-            mesh, v_world, device_mesh, eps=config.solver.eps, speed=speed, v_max=v_max)
-    else:
-        field, counts = sing_ops.detect_with_counts(
-            mesh, v_world, eps=config.solver.eps, speed=speed, v_max=v_max)
-    cap = sing_ops.capacity_for(*counts.tolist())
-    t1 = time.perf_counter()
-    det = sing_ops.compact_detected(mesh, field, capacity=cap)
-    labels_per_frame = None
-    if classify:
-        classes = sing_ops.classify_compacted(mesh, v_world, field.v_max, det,
-                                              quirks=config.reference_quirks)
-        vcodes, icodes = io.to_numpy(classes.vertex_codes, classes.interior_codes)
-        vok, iok = io.to_numpy(det.vertex_valid, det.interior_valid)
-        names = np.asarray(sing_ops.CLASS_NAMES)
-        # Rows list the valid vertex slots, then the valid interior slots,
-        # in slot order (compacted_rows): the labels follow that order.
-        labels_per_frame = [
-            names[np.concatenate([vcodes[k][vok[k]], icodes[k][iok[k]]])].tolist()
-            for k in range(vcodes.shape[0])]
-    compacted = sing_ops.compacted_rows(mesh, det, with_centers=True)
-    if timings is not None:
-        timings["detect"] = t1 - t0
-        timings["classify"] = time.perf_counter() - t1
-    points_per_frame = [c[0] for c in compacted]
-    centers_per_frame = [c[3] for c in compacted]
-    if save_path is not None:
-        io.submit_write(writer, io.save_pickle, save_path,
-                        [list(p) for p in points_per_frame])
-    if classification_path is not None and classify:
-        io.submit_write(writer, io.save_pickle, classification_path,
-                        labels_per_frame)
-    if return_centers:
-        return points_per_frame, labels_per_frame, centers_per_frame
-    return points_per_frame, labels_per_frame
+                field, counts = sharded_detect_with_counts(
+                    mesh, v_world, device_mesh, eps=config.solver.eps, speed=speed,
+                    v_max=v_max)
+            else:
+                field, counts = sing_ops.detect_with_counts(
+                    mesh, v_world, eps=config.solver.eps, speed=speed, v_max=v_max)
+        with profiling.wait("sync.analysis.counts"):
+            cap = sing_ops.capacity_for(*counts.tolist())
+        t1 = time.perf_counter()
+        with profiling.span("analysis.compact"):
+            det = sing_ops.compact_detected(mesh, field, capacity=cap)
+        labels_per_frame = None
+        if classify:
+            with profiling.span("analysis.classify"):
+                classes = sing_ops.classify_compacted(mesh, v_world, field.v_max, det,
+                                                      quirks=config.reference_quirks)
+            with profiling.wait("sync.analysis.codes"):
+                vcodes, icodes = io.to_numpy(classes.vertex_codes, classes.interior_codes)
+            with profiling.wait("sync.analysis.codes"):
+                vok, iok = io.to_numpy(det.vertex_valid, det.interior_valid)
+            with profiling.span("analysis.labels"):
+                names = np.asarray(sing_ops.CLASS_NAMES)
+                # Rows list the valid vertex slots, then the valid interior
+                # slots, in slot order (compacted_rows): the labels follow
+                # that order.
+                labels_per_frame = [
+                    names[np.concatenate([vcodes[k][vok[k]], icodes[k][iok[k]]])].tolist()
+                    for k in range(vcodes.shape[0])]
+        with profiling.span("analysis.rows"):
+            compacted = sing_ops.compacted_rows(mesh, det, with_centers=True)
+        if timings is not None:
+            timings["detect"] = t1 - t0
+            timings["classify"] = time.perf_counter() - t1
+        points_per_frame = [c[0] for c in compacted]
+        centers_per_frame = [c[3] for c in compacted]
+        if save_path is not None:
+            io.submit_write(writer, io.save_pickle, save_path,
+                            [list(p) for p in points_per_frame])
+        if classification_path is not None and classify:
+            io.submit_write(writer, io.save_pickle, classification_path,
+                            labels_per_frame)
+        if return_centers:
+            return points_per_frame, labels_per_frame, centers_per_frame
+        return points_per_frame, labels_per_frame
 
 
 # ------------------------------------------------------------------- S4 ----
@@ -391,25 +438,27 @@ def decompose_stage(v_k, config: PipelineConfig, mode: str = "concat",
     GPU unless the caller passes device="cpu"). `npz_path` writes the
     reference's data_01.npz (U, Sigma, VT, point_num). `timings`, when
     given, receives seconds: 'compute' (until the modes are on the host)
-    and 'write'."""
-    if mode not in ("complex", "concat"):
-        raise ValueError(f"unknown SVD mode {mode!r}")
-    t0 = time.perf_counter()
-    v = (v_k if isinstance(v_k, torch.Tensor)
-         else torch.as_tensor(v_k, device=resolve_device(device)))
-    decompose = svd_ops.decompose_complex if mode == "complex" else svd_ops.decompose_concat
-    modes = decompose(v, n_modes=config.analysis.n_modes)
-    if npz_path is not None:
-        u, sigma, vt = io.to_numpy(modes.u, modes.sigma, modes.vt)
-        t1 = time.perf_counter()
-        io.submit_write(writer, np.savez, npz_path, U=u, Sigma=sigma, VT=vt,
-                        point_num=v.shape[-1] // 2)
-        if timings is not None:
-            timings.update(compute=t1 - t0, write=time.perf_counter() - t1)
-    elif timings is not None:
-        _sync(v.device)
-        timings.update(compute=time.perf_counter() - t0, write=0.0)
-    return modes
+    and 'write', and 'trace', the stage's utils.profiling record (the
+    `svd.library` span of the SVD call)."""
+    with _recorded(timings):
+        if mode not in ("complex", "concat"):
+            raise ValueError(f"unknown SVD mode {mode!r}")
+        t0 = time.perf_counter()
+        v = (v_k if isinstance(v_k, torch.Tensor)
+             else torch.as_tensor(v_k, device=resolve_device(device)))
+        decompose = svd_ops.decompose_complex if mode == "complex" else svd_ops.decompose_concat
+        modes = decompose(v, n_modes=config.analysis.n_modes)
+        if npz_path is not None:
+            u, sigma, vt = io.to_numpy(modes.u, modes.sigma, modes.vt)
+            t1 = time.perf_counter()
+            io.submit_write(writer, np.savez, npz_path, U=u, Sigma=sigma, VT=vt,
+                            point_num=v.shape[-1] // 2)
+            if timings is not None:
+                timings.update(compute=t1 - t0, write=time.perf_counter() - t1)
+        elif timings is not None:
+            _sync(v.device)
+            timings.update(compute=time.perf_counter() - t0, write=0.0)
+        return modes
 
 
 # ------------------------------------------------------------------- S5 ----

@@ -3,6 +3,12 @@
 Counterpart of manifold_flow_tpu/solve/api.py: one call solves every frame
 of a potentials movie and returns the velocity DOFs in the reference's
 layout (T-1, 2N) (dof = vertex + N * alpha).
+
+Spans (utils.profiling): each window of frames is a `solve.window` (a
+movie solved whole is one window), with `solve.setup` spans around its
+right-hand side, operators and preconditioner, whose count of zeroed coarse
+matrices is a `sync.solve.zeroed` read; solve.refine and solve.cg add
+theirs inside; `solve.concat` joins the windows' results.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from manifold_flow_tpu_torch.solve.refine import (
     check_anchor_stride,
     solve_refined,
 )
+from manifold_flow_tpu_torch.utils import profiling
 
 # precond='auto' picks the two-level preconditioner from this many vertices
 # up: the JAX package's crossover (measured on a TPU), kept for parity;
@@ -132,8 +139,9 @@ def _chunked_velocity_fields(mesh: TriMesh, potentials: torch.Tensor,
         parts.append((res.v_k[keep], res.iterations, res.residual[keep],
                       res.converged[keep], res.coarse_zeroed))
     v_k, iters, resid, conv, zeroed = zip(*parts)
-    return VelocityResult(torch.cat(v_k), mesh.basis, max(iters),
-                          torch.cat(resid), torch.cat(conv), sum(zeroed))
+    with profiling.span("solve.concat"):
+        return VelocityResult(torch.cat(v_k), mesh.basis, max(iters),
+                              torch.cat(resid), torch.cat(conv), sum(zeroed))
 
 
 def compute_velocity_fields(
@@ -223,31 +231,37 @@ def compute_velocity_fields(
             coarse_passes=coarse_passes, coarse_a1=coarse_a1,
             inner_tol=inner_tol, anchor_stride=anchor_stride))
 
-    tables = None
-    if method in ("cg", "refined") and use_two_level:
-        tables = coarse.build_tables(mesh, passes=coarse_passes)
-
-    g, f = build_rhs(mesh, potentials, times, potentials_next)
-    if method == "refined":
-        res = solve_refined(mesh, g, f, lambda_=lambda_, tol=tol,
-                            inner_tol=inner_tol, max_iter=max_iter,
-                            coarse_tables=tables, coarse_a1=coarse_a1,
-                            anchor_stride=anchor_stride)
-        return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
-                              res.converged, res.coarse_zeroed)
-    op = make_operator(mesh, g, lambda_)
-    if method == "cg":
-        if tables is None:
-            pre, zeroed = block_jacobi_inverse(mesh, g, lambda_), 0
-        else:
-            pre = coarse.make_two_level(mesh, g, lambda_, tables, a1_mode=coarse_a1)
-            zeroed = int(pre.zeroed.sum())
-        res = solve_cg(op, f, pre, tol=tol, max_iter=max_iter, precise_dots=precise_dots)
-        return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
-                              res.converged, zeroed)
-    x = solve_cholesky(mesh, op, f, refine_steps=refine_steps)
-    r = op.residual(f, x)
-    rn = torch.sqrt(kfem.pcg_dot(r, r))
-    fn = torch.sqrt(kfem.pcg_dot(f, f))
-    target = tol * torch.clamp_min(fn, torch.finfo(f.dtype).tiny)
-    return VelocityResult(x, mesh.basis, 0, rn, rn <= target)
+    with profiling.span("solve.window"):
+        with profiling.span("solve.setup"):
+            tables = None
+            if method in ("cg", "refined") and use_two_level:
+                tables = coarse.build_tables(mesh, passes=coarse_passes)
+            g, f = build_rhs(mesh, potentials, times, potentials_next)
+        if method == "refined":
+            res = solve_refined(mesh, g, f, lambda_=lambda_, tol=tol,
+                                inner_tol=inner_tol, max_iter=max_iter,
+                                coarse_tables=tables, coarse_a1=coarse_a1,
+                                anchor_stride=anchor_stride)
+            return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
+                                  res.converged, res.coarse_zeroed)
+        if method == "cg":
+            with profiling.span("solve.setup"):
+                op = make_operator(mesh, g, lambda_)
+                if tables is None:
+                    pre, zeroed = block_jacobi_inverse(mesh, g, lambda_), 0
+                else:
+                    pre = coarse.make_two_level(mesh, g, lambda_, tables,
+                                                a1_mode=coarse_a1)
+                    with profiling.wait("sync.solve.zeroed"):
+                        zeroed = int(pre.zeroed.sum())
+            res = solve_cg(op, f, pre, tol=tol, max_iter=max_iter,
+                           precise_dots=precise_dots)
+            return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
+                                  res.converged, zeroed)
+        op = make_operator(mesh, g, lambda_)
+        x = solve_cholesky(mesh, op, f, refine_steps=refine_steps)
+        r = op.residual(f, x)
+        rn = torch.sqrt(kfem.pcg_dot(r, r))
+        fn = torch.sqrt(kfem.pcg_dot(f, f))
+        target = tol * torch.clamp_min(fn, torch.finfo(f.dtype).tiny)
+        return VelocityResult(x, mesh.basis, 0, rn, rn <= target)

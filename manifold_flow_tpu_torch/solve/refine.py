@@ -20,6 +20,12 @@ frame and the last one (the anchors) to a relaxed tolerance, interpolates
 their solutions piecewise-linearly over the frame index and starts the
 whole movie's refinement from there: the same kernels (K1-K4, and K8-K11
 under two-level) on the anchor frames, then on all of them.
+
+Spans (utils.profiling): `solve.setup` (the f32 operator and the inner
+preconditioner, with its `sync.solve.zeroed` read), each outer step's
+`solve.refine_step` around the inner `solve.cg` and the f64
+`solve.residual`; each outer loop test is a `sync.solve.refine` wait, and
+`solve.outer_steps` counts the steps.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from manifold_flow_tpu_torch.fem.operator import (
 )
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh
 from manifold_flow_tpu_torch.kernels import fem as kfem
-from manifold_flow_tpu_torch.solve.cg import solve_cg
+from manifold_flow_tpu_torch.solve.cg import any_above, solve_cg
 from manifold_flow_tpu_torch.solve.coarse import CoarseTables, make_two_level
+from manifold_flow_tpu_torch.utils import profiling
 
 # Inner tolerance schedule measured best for the bench problem by the JAX
 # package (tight first step, looser later ones); the last entry repeats.
@@ -100,16 +107,18 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
     zeroed coarse matrices in place of the one built here from `mesh`."""
     # The f32 operator is the f64 one rounded to f32, as in the JAX package,
     # and so is the inner preconditioner's.
-    op32 = op64.astype(torch.float32)
-    if precond_fn is not None:
-        pre32, zeroed = precond_fn(op32)
-    elif coarse_tables is not None:
-        pre32 = make_two_level(mesh, op32.g, op32.lambda_, coarse_tables,
-                               a1_mode=coarse_a1)
-        zeroed = int(pre32.zeroed.sum())
-    else:
-        pre32 = block_jacobi_inverse(mesh, op32.g, op32.lambda_)
-        zeroed = 0
+    with profiling.span("solve.setup"):
+        op32 = op64.astype(torch.float32)
+        if precond_fn is not None:
+            pre32, zeroed = precond_fn(op32)
+        elif coarse_tables is not None:
+            pre32 = make_two_level(mesh, op32.g, op32.lambda_, coarse_tables,
+                                   a1_mode=coarse_a1)
+            with profiling.wait("sync.solve.zeroed"):
+                zeroed = int(pre32.zeroed.sum())
+        else:
+            pre32 = block_jacobi_inverse(mesh, op32.g, op32.lambda_)
+            zeroed = 0
     # JAX takes the target from the f32 norm of the DF high part of f; here
     # the f64 norm is cast to f32, which moves the stopping point by at most
     # the last ulp of the target.
@@ -120,17 +129,21 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
     if x0 is None:
         x, r = torch.zeros_like(f), f
     else:
-        x, r = x0, op64.residual(f, x0)
+        with profiling.span("solve.residual"):
+            x, r = x0, op64.residual(f, x0)
     total_iters = 0
     step = 0
-    while step < refine_steps and bool(torch.any(_norm(r, comm) > target)):
-        step_tol = sched[min(step, len(sched) - 1)]
-        inner = solve_cg(op32, r.to(torch.float32), pre32, tol=step_tol,
-                         max_iter=max_iter, comm=comm)
-        x = x + inner.x.double()
-        r = op64.residual(f, x)
+    while step < refine_steps and any_above(_norm(r, comm), target, "sync.solve.refine"):
+        with profiling.span("solve.refine_step"):
+            step_tol = sched[min(step, len(sched) - 1)]
+            inner = solve_cg(op32, r.to(torch.float32), pre32, tol=step_tol,
+                             max_iter=max_iter, comm=comm)
+            x = x + inner.x.double()
+            with profiling.span("solve.residual"):
+                r = op64.residual(f, x)
         total_iters += inner.iterations
         step += 1
+    profiling.count("solve.outer_steps", step)
     rn = _norm(r, comm)
     return RefineResult(x=x, iterations=total_iters, residual=rn,
                         converged=rn <= target, outer_steps=step,

@@ -175,9 +175,11 @@ def test_run_batch_timings(swept):
     for s in batch.ALL_STAGES:
         assert first[s] >= 0.0, s
     assert set(first["flow_detail"]) == {"movie_load", "dispatch", "artifact_starts",
-                                         "solve_wait", "artifact_submits", "detect"}
+                                         "solve_wait", "artifact_submits", "detect",
+                                         "trace"}
     assert set(first["streamline_detail"]) == {"trace", "compact", "submit"}
-    for key in ("decompose_detail", "wavespeed_detail", "wavespeed_amplitude_detail"):
+    assert set(first["decompose_detail"]) == {"compute", "write", "trace"}
+    for key in ("wavespeed_detail", "wavespeed_amplitude_detail"):
         assert set(first[key]) == {"compute", "write"}, key
     assert "wavespeed" not in timings[KEYS[1]] and "drain" not in first
 

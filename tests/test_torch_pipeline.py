@@ -90,7 +90,8 @@ def test_velocity_stage_matches_jax(tmp_path, demo):
     np.testing.assert_array_equal(got.e, np.asarray(want.e))
     assert torch.equal(got.v_max, got.speed.amax(dim=-1))
     assert set(timings) == {"dispatch", "artifact_starts", "solve_wait",
-                            "artifact_submits"}
+                            "artifact_submits", "trace"}
+    assert timings["trace"]["counts"]["solve.inner_iters"] >= got.iterations
     # The artifacts reload to the in-memory results, exactly.
     np.testing.assert_array_equal(io.load_e_csv(tmp_path / "e.csv"), got.e)
     np.testing.assert_array_equal(io.load_indexed_csv(tmp_path / "V_k.csv"),
@@ -176,7 +177,10 @@ def test_singularity_stage_classifies_like_jax(tmp_path, demo, jax_velocity, qui
     assert [len(p) for p in got_pts] == [len(x) for x in labels]
     assert io.load_pickle(tmp_path / "got.pkl") == io.load_pickle(tmp_path / "want.pkl")
     assert len({name for frame in labels for name in frame}) >= 2
-    assert set(timings) == {"detect", "classify"}
+    assert set(timings) == {"detect", "classify", "trace"}
+    assert timings["trace"]["counts"] == {"sync.analysis.counts": 1,
+                                          "sync.analysis.codes": 2,
+                                          "sync.analysis.rows": 1}
 
 
 @QUIRKS
