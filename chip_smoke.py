@@ -163,7 +163,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      of the three in the precise solves; iterations and RMSE against
      spsolve printed, with the precise instances' device us a launch in a
      profiled precise solve. Then the default refined bench solve again:
-     its launches must be [slice]'s (REFINED_LAUNCHES), no precise instance.
+     its launches must be REFINED_LAUNCHES (with one more of each
+     REFINED_ITERATION kernel a frozen iteration), no precise instance.
  11. flow12k: the flow CLI with the default config on the 12.5k surface as
      PLY and its movie as .npy, checked as in phase 6, with K1-K11 launched.
  11b. trial12k: phase 6b at 12.5k vertices x 98 frames.
@@ -487,7 +488,8 @@ WRAPPER_OF = {
     "fem_tile_kernel": "fem_matvec", "jacobi_kernel": "jacobi_blocks",
     "frame_factors_rhs_kernel": "frame_factors_rhs",
     "dot_kernel": "pcg_dot", "update_kernel": "pcg_update",
-    "direction_kernel": "pcg_direction", "coarse_a2_kernel": "coarse_assemble",
+    "direction_kernel": "pcg_direction", "gate_kernel": "pcg_gate",
+    "coarse_a2_kernel": "coarse_assemble",
     "assemble_kernel": "coarse_assemble", "assemble_mean_kernel": "coarse_assemble",
     "restrict_kernel": "coarse_restrict",
     "gemv_kernel": "coarse_gemv", "gemv_vectors_kernel": "coarse_gemv",
@@ -808,6 +810,24 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
                        timed=(lambda: kfem.pcg_direction(qs[0], z, rz_new, rz),
                               lambda: kfem.plain_pcg_direction(qs[1], z, rz_new, rz)),
                        inputs=(p, z, rz_new, rz), ops=2 * t * n_dof + 2 * t)
+        # K3's gate on |r|^2 about its targets, half the frames above.
+        target = rand(t, dtype=dtype).abs() + 0.5
+        rr = (target * (0.75 + 0.5 * (torch.arange(t, device=dev) % 2))) ** 2
+        ctl0 = torch.tensor([0, 0, 1 << 40], device=dev)
+
+        def gate(fn):
+            ctl, out = ctl0.clone(), torch.empty_like(rz)
+            fn(rr, target, ctl, rz_new, out)
+            return ctl, out
+        gates = [(ctl0.clone(), torch.empty_like(rz)) for _ in range(2)]
+        checks.compare(f"pcg_gate<{ctype}>", pcg_cu,
+                       "manifold_flow_tpu/solve/cg.py:84-87",
+                       lambda: gate(kfem.pcg_gate), lambda: gate(kfem.plain_pcg_gate), tol,
+                       timed=(lambda: kfem.pcg_gate(rr, target, gates[0][0], rz_new,
+                                                    gates[0][1]),
+                              lambda: kfem.plain_pcg_gate(rr, target, gates[1][0], rz_new,
+                                                          gates[1][1])),
+                       inputs=(rr, target, ctl0, rz_new), ops=2 * t)
         # K8 at these shapes, which the two-level crossover runs (the
         # default path takes Jacobi below 6000 vertices): no launches.
         check_assemble(checks, mesh, tables, op, tol, suffix="@3.1k")
@@ -1234,7 +1254,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
 
 FLOW_KERNELS = ("fem_matvec<float>", "fem_matvec<double>", "jacobi_blocks<float>",
                 "frame_factors_rhs<double>", "pcg_dot<float>", "pcg_update<float>",
-                "pcg_direction<float>", "recombine_speed<double>",
+                "pcg_direction<float>", "pcg_gate<float>", "recombine_speed<double>",
                 "detect_singular<double>", "compact_detected<double>")
 TRIAL_KERNELS = FLOW_KERNELS + ("classify_candidates<double>", "next_hop<double>",
                                 "trace_walks<int>", "pack_walks<int>",
@@ -2489,12 +2509,18 @@ def check_solution(name, res, v_ref, t_v, n_dof) -> float:
 
 
 # ------------------------------------------------------ the solve's options ----
-# The default refined bench solve's launches (84 inner iterations); the
-# solve's options must leave them as they are.
+# The default refined bench solve's launches (84 inner iterations), with no
+# graph captured and no frozen iteration; the solve's options must leave
+# them as they are. Each frozen iteration (solve.cg) adds one launch of
+# every kernel of REFINED_ITERATION, and a capture its uncaptured start
+# (REFINED_START) and iteration.
 REFINED_LAUNCHES = {
     "fem_matvec<double>": 3, "fem_matvec<float>": 84, "frame_factors_rhs<double>": 1,
     "jacobi_blocks<float>": 1, "pcg_direction<float>": 84, "pcg_dot<double>": 6,
-    "pcg_dot<float>": 87, "pcg_update<float>": 87}
+    "pcg_dot<float>": 87, "pcg_gate<float>": 87, "pcg_update<float>": 87}
+REFINED_ITERATION = ("fem_matvec<float>", "pcg_dot<float>", "pcg_update<float>",
+                     "pcg_direction<float>", "pcg_gate<float>")
+REFINED_START = ("pcg_dot<float>", "pcg_update<float>", "pcg_gate<float>")
 PRECISE_KERNELS = ("pcg_dot<float,double>", "pcg_update<float,double>")
 COARSE_CU = "manifold_flow_tpu_torch/csrc/coarse_kernels.cu"
 
@@ -2571,16 +2597,18 @@ def rmse_of(v: torch.Tensor, v_ref: np.ndarray) -> float:
                  / max(float(np.abs(v_ref).max()), 1e-30))
 
 
-def run_precise(problems: dict, refined: tuple, slice_launches: dict,
-                card: str) -> tuple[dict, dict]:
+def run_precise(problems: dict, refined: tuple, card: str) -> tuple[dict, dict]:
     """[precise]: float32 cg solves of the bench problem (Jacobi) and of the
     12.5k problem (two-level, precond 'auto') with precise_dots=True, each
     beside the same solve without it, every launch count set to 0 just
     before each; one more precise solve of each under torch.profiler; then
     the default refined bench solve `refined` again, whose launches must be
-    [slice]'s and REFINED_LAUNCHES. Returns the precise solves' launches and
-    the precise instances' device us a launch in them, by size."""
+    REFINED_LAUNCHES with those of its frozen iterations and of a capture
+    (its plan may have been evicted since [slice]). Returns the precise solves' launches and the precise
+    instances' device us a launch in them, by size."""
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from manifold_flow_tpu_torch.solve import cg
+    from manifold_flow_tpu_torch.utils import profiling
 
     launches_of, us_of = {}, {}
     kw = dict(method="cg", tol=1e-5, max_iter=4000)
@@ -2617,13 +2645,20 @@ def run_precise(problems: dict, refined: tuple, slice_launches: dict,
               + "; device us a launch in the profiled precise solve: " + ", ".join(
                   f"{k} {v:.2f}" for k, v in sorted(us.items())) + f"; on {card}", flush=True)
         launches_of[tag], us_of[tag] = launches_p, us
-    res, launches = counted_solve(*refined, method="refined", tol=1e-6, max_iter=4000)
+    with profiling.record() as rec:
+        res, launches = counted_solve(*refined, method="refined", tol=1e-6, max_iter=4000)
+    counts = rec.summary()["counts"]
+    frozen = counts.get("solve.frozen_iters", 0)
+    warm = counts.get("solve.graph_captures", 0) // (1 + len(cg.GRAPH_LENGTHS))
     ran = {k: n for k, n in launches.items() if n}
-    if launches != slice_launches or ran != REFINED_LAUNCHES:
+    want = {k: n + (frozen + warm) * (k in REFINED_ITERATION) + warm * (k in REFINED_START)
+            for k, n in REFINED_LAUNCHES.items()}
+    if ran != want:
         raise AssertionError(f"[precise] the default refined solve's launches moved: {ran}, "
-                             f"want {REFINED_LAUNCHES}")
+                             f"want {want} ({frozen} frozen iterations, {warm} captures)")
     print(f"[precise] the default refined bench solve after them: {res.iterations} inner "
-          f"iterations, launches as in [slice] and no precise instance: " + ", ".join(
+          f"iterations, {frozen} frozen, {warm} captures, launches as REFINED_LAUNCHES with "
+          f"those and no precise instance: " + ", ".join(
               f"{k}={n}" for k, n in sorted(ran.items())), flush=True)
     return launches_of, us_of
 
@@ -3603,7 +3638,6 @@ def main() -> int:
     v_ref = spsolve_reference(mesh, pot, times, N_SAMPLE)
     refined = dict(method="refined", tol=1e-6, max_iter=4000)
     res, launches = counted_solve(mesh, pot, times, **refined)
-    slice_launches = launches
     rmse = check_solution("refined", res, v_ref, t_v, n_dof)
     idle = [k for k in ("fem_matvec<float>", "fem_matvec<double>",
                         "jacobi_blocks<float>", "frame_factors_rhs<double>",
@@ -3688,7 +3722,7 @@ def main() -> int:
     precise_launches, precise_us = run_precise(
         {"3.1k": (*build_problem(device, np.float32)[:3], v_ref),
          "12.5k": (*build_problem_12k(device, np.float32)[:3], v_ref12)},
-        (mesh, pot, times), slice_launches, card)
+        (mesh, pot, times), card)
 
     # 11. the flow stage through the command line at 12.5k: the slice's path
     flow12k_launches = run_flow(mesh12, pot12, truth12, card, tag="flow12k",

@@ -4,6 +4,7 @@
 //   (b) pcg_update:    x += alpha p, r -= alpha Ap, z = D^-1 r (2x2 blocks,
 //                      fem/operator.py:132-143), rz_new = <r, z>, rr = <r, r>
 //   (c) pcg_direction: p = z + beta p
+//   (d) pcg_gate:      the loop's convergence test on the device
 // Vectors are (T, 2N) with dof = vertex + N * alpha; dinv is (T, N, 2, 2).
 // alpha = rz / pAp and beta = rz_new / rz are formed per frame inside the
 // kernels, with the zero guards of solve/cg.py:93-100. Per-frame sums close
@@ -41,6 +42,16 @@
 // equal. The ticket costs one integer atomic a block; a cluster of the S
 // blocks reducing through distributed shared memory would cost a cluster
 // barrier, which on this card took more than pcg_dot's whole time.
+//
+// pcg_gate closes each iteration of solve/cg.py's loop in place of a host
+// test: active = count < max_iter and some frame's sqrt(rr) > target, in
+// T and with the operations of the JAX loop's test; count += active, and
+// rz = active ? rz_new : 0. With rz = 0 the next pcg_update takes alpha = 0
+// and leaves x, r and rr as they are, so the iterations a captured graph
+// runs past convergence (or past max_iter) change no result. The control
+// words ctl = (count, active, max_iter) are int64 on the device, read by
+// the host once a replay. One block of kThreads threads; it reads and
+// writes a few values a frame, so its time is a launch's.
 //
 // pcg_dot and pcg_update take the type A of their per-frame sums as a
 // second template argument: A = T is the solve's default instance, and
@@ -279,6 +290,29 @@ __global__ void direction_kernel(T* __restrict__ p, const T* __restrict__ z,
   p[i] = z[i] + beta * p[i];
 }
 
+// ctl = (count, active, max_iter). Every thread reads count before the
+// barrier of __syncthreads_or; thread 0 writes it after.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gate_kernel(const T* __restrict__ rr, const T* __restrict__ target,
+                long long* __restrict__ ctl, const T* __restrict__ rz_new,
+                T* __restrict__ rz, int64_t n_frames) {
+  const long long count = ctl[0];
+  const long long limit = ctl[2];
+  int above = 0;
+  for (int64_t t = threadIdx.x; t < n_frames; t += kThreads) {
+    above |= sqrt(rr[t]) > target[t];
+  }
+  const bool active = (__syncthreads_or(above) != 0) && count < limit;
+  for (int64_t t = threadIdx.x; t < n_frames; t += kThreads) {
+    rz[t] = active ? rz_new[t] : T(0);
+  }
+  if (threadIdx.x == 0) {
+    ctl[0] = count + (active ? 1 : 0);
+    ctl[1] = active ? 1 : 0;
+  }
+}
+
 template <typename T, typename A>
 int pcg_dot(const void* a, const void* b, void* out, int64_t n_frames,
             int64_t n, void* stream) {
@@ -326,11 +360,21 @@ int pcg_direction(void* p, const void* z, const void* rz_new,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int pcg_gate(const void* rr, const void* target, void* ctl, const void* rz_new,
+             void* rz, int64_t n_frames, void* stream) {
+  gate_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(rr), static_cast<const T*>(target),
+      static_cast<long long*>(ctl), static_cast<const T*>(rz_new),
+      static_cast<T*>(rz), n_frames);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace mf
 
 // The dot and the update in three instances: float and double (A = T), and
-// float with double sums (f32acc64, solve_cg's precise_dots); the direction,
-// which sums nothing, in the first two.
+// float with double sums (f32acc64, solve_cg's precise_dots); the direction
+// and the gate, which sum nothing, in the first two.
 #define MF_PCG_SUM_ENTRY_POINTS(SUFFIX, T, A)                                 \
   extern "C" int mf_pcg_dot_##SUFFIX(const void* a, const void* b, void* out, \
                                      int64_t n_frames, int64_t n,             \
@@ -355,8 +399,18 @@ int pcg_direction(void* p, const void* z, const void* rz_new,
                                 stream);                                      \
   }
 
+#define MF_PCG_GATE_ENTRY_POINT(SUFFIX, T)                                    \
+  extern "C" int mf_pcg_gate_##SUFFIX(const void* rr, const void* target,     \
+                                      void* ctl, const void* rz_new,          \
+                                      void* rz, int64_t n_frames,             \
+                                      void* stream) {                         \
+    return mf::pcg_gate<T>(rr, target, ctl, rz_new, rz, n_frames, stream);   \
+  }
+
 MF_PCG_SUM_ENTRY_POINTS(f32, float, float)
 MF_PCG_SUM_ENTRY_POINTS(f64, double, double)
 MF_PCG_SUM_ENTRY_POINTS(f32acc64, float, double)
 MF_PCG_DIRECTION_ENTRY_POINT(f32, float)
 MF_PCG_DIRECTION_ENTRY_POINT(f64, double)
+MF_PCG_GATE_ENTRY_POINT(f32, float)
+MF_PCG_GATE_ENTRY_POINT(f64, double)

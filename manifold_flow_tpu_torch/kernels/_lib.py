@@ -8,7 +8,8 @@ dot and update and K11 also in a float32 instance that sums in float64
 size a kernel's workspace (`_workspace`). `LAUNCHES` counts kernel launches
 by "name<ctype>" ("name<float,double>" for the precise instances) across all
 wrapper modules, so one counted run sees every kernel; `_launch` adds one
-where it launches and nowhere else.
+where it launches, and a replay of a CUDA graph (solve.cg) the launches the
+graph holds.
 
 The helpers below are what every wrapper does before either path: check
 dtype, shape and contiguity, and decide by the tensors' device (CPU: the
@@ -38,6 +39,7 @@ _ARGTYPES = {
     "pcg_dot": [_P] * 3 + [_I] * 2 + [_P],
     "pcg_update": [_P] * 12 + [_I] * 3 + [_P],
     "pcg_direction": [_P] * 4 + [_I] * 2 + [_P],
+    "pcg_gate": [_P] * 5 + [_I] + [_P],
     # analysis_kernels.cu (kernels.analysis)
     "recombine_speed": [_P] * 5 + [_I] * 2 + [_P],
     "detect_singular": [_P] * 5 + [_D] + [_P] * 5 + [_I] * 3 + [_P],
@@ -159,6 +161,15 @@ def slice_workspace(device: torch.device, stream: int, n_frames: int,
               torch.zeros(n_frames, dtype=torch.int32, device=device))
         _SLICE_WORKSPACE[key] = ws
     return ws
+
+
+def take_slice_workspace(device: torch.device,
+                         stream: int) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """Take the (device, stream) pair out of the shared ones (None where
+    there is none): CUDA graphs captured on that stream hold its pointers,
+    so the caller keeps it, and no later launch on a stream of the same
+    handle (torch hands streams out from a pool) may replace or share it."""
+    return _SLICE_WORKSPACE.pop((device, stream), None)
 
 
 def _on_cuda(*tensors: torch.Tensor | None) -> bool:

@@ -418,3 +418,40 @@ def plain_pcg_direction(p, z, rz_new, rz_old) -> None:
     beta = torch.where(nonzero, rz_new / torch.where(nonzero, rz_old, torch.ones_like(rz_old)),
                        torch.zeros_like(rz_old))
     p.copy_(z + beta[:, None] * p)
+
+
+def pcg_gate(rr, target, ctl, rz_new, rz) -> None:
+    """K3(d) `pcg_gate<T>`, in place: the PCG loop's convergence test on
+    the device, at the end of each iteration (solve/cg.py).
+
+    active = ctl[0] < ctl[2] and any(sqrt(rr) > target), in rr's dtype and
+    with the operations of the JAX loop's `cond` (solve/cg.py:84-87), which
+    the port's loop once tested on the host each iteration; then ctl[0] += active, ctl[1] = active and rz =
+    rz_new where active, else 0: the next `pcg_update` then takes alpha = 0
+    and leaves x, r and rr as they are. rr, target, rz_new, rz (T,); ctl
+    (3,) int64 = (count, active, max_iter).
+
+    Bound by its launch: it reads 2T values and writes T + 2. Design: one
+    block, an OR over the frames through the block's barrier
+    (`__syncthreads_or`), which also orders every thread's read of the
+    count before thread 0 writes it.
+    """
+    dtype = _float_dtype("rr", rr)
+    t = rr.shape[0]
+    for name, v in (("rr", rr), ("target", target), ("rz_new", rz_new), ("rz", rz)):
+        _check(name, v, dtype, (t,))
+    _check("ctl", ctl, torch.int64, (3,))
+    if not _on_cuda(rr, target, ctl, rz_new, rz):
+        plain_pcg_gate(rr, target, ctl, rz_new, rz)
+        return
+    _launch("pcg_gate", dtype, rr.device, rr.data_ptr(), target.data_ptr(),
+            ctl.data_ptr(), rz_new.data_ptr(), rz.data_ptr(), t)
+
+
+def plain_pcg_gate(rr, target, ctl, rz_new, rz) -> None:
+    """Plain torch version of `pcg_gate`."""
+    active = (ctl[0] < ctl[2]) & torch.any(torch.sqrt(rr) > target)
+    rz.copy_(torch.where(active, rz_new, torch.zeros_like(rz_new)))
+    ctl[0] += active.long()
+    ctl[1] = active.long()
+

@@ -21,11 +21,19 @@ their solutions piecewise-linearly over the frame index and starts the
 whole movie's refinement from there: the same kernels (K1-K4, and K8-K11
 under two-level) on the anchor frames, then on all of them.
 
+The inner solves are the gated loop of one `solve.cg.PreparedCG` a call,
+on op32 and pre32: on CUDA, replays of CUDA graphs captured at the key's
+first window, with one convergence read a segment. The op32 and pre32
+tensors are copied into the graphs' once a call, at the first outer step;
+the segments of step i start from the iteration count of step i in the
+previous call of the same shapes. The mesh axis (`comm`) and CPU tensors
+run the same gated loop uncaptured.
+
 Spans (utils.profiling): `solve.setup` (the f32 operator and the inner
 preconditioner, with its `sync.solve.zeroed` read), each outer step's
-`solve.refine_step` around the inner `solve.cg` and the f64
-`solve.residual`; each outer loop test is a `sync.solve.refine` wait, and
-`solve.outer_steps` counts the steps.
+`solve.refine_step` around the inner `solve.cg` (its `sync.solve.cg` reads
+and counts, solve.cg) and the f64 `solve.residual`; each outer loop test is
+a `sync.solve.refine` wait, and `solve.outer_steps` counts the steps.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from manifold_flow_tpu_torch.fem.operator import (
 )
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh
 from manifold_flow_tpu_torch.kernels import fem as kfem
-from manifold_flow_tpu_torch.solve.cg import any_above, solve_cg
+from manifold_flow_tpu_torch.solve.cg import PreparedCG, any_above
 from manifold_flow_tpu_torch.solve.coarse import CoarseTables, make_two_level
 from manifold_flow_tpu_torch.utils import profiling
 
@@ -119,6 +127,7 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
         else:
             pre32 = block_jacobi_inverse(mesh, op32.g, op32.lambda_)
             zeroed = 0
+        inner_cg = PreparedCG(op32, pre32, comm=comm)
     # JAX takes the target from the f32 norm of the DF high part of f; here
     # the f64 norm is cast to f32, which moves the stopping point by at most
     # the last ulp of the target.
@@ -136,8 +145,7 @@ def refine_loop(mesh: TriMesh, op64: FlowOperator, f: torch.Tensor,
     while step < refine_steps and any_above(_norm(r, comm), target, "sync.solve.refine"):
         with profiling.span("solve.refine_step"):
             step_tol = sched[min(step, len(sched) - 1)]
-            inner = solve_cg(op32, r.to(torch.float32), pre32, tol=step_tol,
-                             max_iter=max_iter, comm=comm)
+            inner = inner_cg.solve(r.to(torch.float32), tol=step_tol, max_iter=max_iter)
             x = x + inner.x.double()
             with profiling.span("solve.residual"):
                 r = op64.residual(f, x)

@@ -25,7 +25,8 @@ semantics, and the port's own spans and counts:
     its `kernels.LAUNCHES` key ("fem_matvec<float>", ...), the device
     kernel under it (the profiler draws the range on the device timeline
     too: a sum of device times over all its events counts the kernel
-    twice).
+    twice); the PCG loop's kernels replayed from CUDA graphs (solve.cg)
+    sit under the replay's `cudaGraphLaunch` instead.
   * `frames_per_second(n_frames, fn, *args)`: best-of-k frames/s of a call
     after one warm-up call, each call waited for on the devices of the CUDA
     tensors it returns.

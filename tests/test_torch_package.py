@@ -179,6 +179,9 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     kfem.pcg_direction(q, z, rz_new, torch.tensor([2.0, 0.0, 1.0], dtype=torch.float64))
     beta = torch.tensor([rz_new[0] / 2.0, 0.0, rz_new[2]], dtype=torch.float64)
     torch.testing.assert_close(q, z + beta[:, None] * p)
+    ctl, gated = torch.tensor([0, 0, 5]), torch.empty_like(rz)
+    kfem.pcg_gate(rr, torch.sqrt(rr) / 2, ctl, rz_new, gated)
+    assert ctl.tolist() == [1, 1, 5] and torch.equal(gated, rz_new)
     assert kernels.LAUNCHES == before
     assert _lib._LIB is None
 
@@ -189,7 +192,7 @@ def test_reset_launches_zeroes_every_count():
     assert set(kernels.LAUNCHES.values()) == {0}
     assert {k.split("<")[0] for k in kernels.LAUNCHES} == {
         "fem_matvec", "jacobi_blocks", "frame_factors_rhs", "pcg_dot",
-        "pcg_update", "pcg_direction", "recombine_speed", "detect_singular",
+        "pcg_update", "pcg_direction", "pcg_gate", "recombine_speed", "detect_singular",
         "compact_detected", "coarse_assemble", "coarse_restrict", "coarse_gemv",
         "coarse_prolong_dot", "classify_candidates", "next_hop", "trace_walks",
         "pack_walks", "winding_profile", "wave_speed", "rbf_fit", "rbf_eval"}

@@ -8,6 +8,7 @@ This file imports no JAX; its `cuda` case runs on a machine with a GPU as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py
 """
 
+import collections
 import json
 
 import numpy as np
@@ -17,7 +18,7 @@ import torch
 from manifold_flow_tpu_torch.geometry import synthetic
 from manifold_flow_tpu_torch.pipeline import stages
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
-from manifold_flow_tpu_torch.solve import api
+from manifold_flow_tpu_torch.solve import api, cg
 from manifold_flow_tpu_torch.utils import profiling
 
 # A 9-frame movie (8 velocity frames) in two windows of 4.
@@ -66,6 +67,44 @@ def _window_iterations(mesh, pot, times, method, precond):
     return iters
 
 
+def _spy_calls(monkeypatch) -> list:
+    """Record (window, iterations) of every inner solve the solve makes,
+    from empty plans (solve.cg's counts by key): the window is the
+    solve.cg.PreparedCG, one a refine_loop call or a solve_cg call."""
+    monkeypatch.setattr(cg, "_PLANS", collections.OrderedDict())
+    calls = []
+    solve = cg.PreparedCG.solve
+
+    def spy(self, *args, **kwargs):
+        res = solve(self, *args, **kwargs)
+        calls.append((self, res.iterations))
+        return res
+    monkeypatch.setattr(cg.PreparedCG, "solve", spy)
+    return calls
+
+
+def _reads(calls) -> tuple[int, int]:
+    """(reads, iterations run) of solve_cg's loop over `calls`, one key:
+    each solve's segments (`cg._segment`) from the count of the same solve
+    in the previous window, until a segment reaches the solve's iterations;
+    one read a segment."""
+    history, current, window = [], [], None
+    reads = run = 0
+    for prepared, n in calls:
+        if prepared is not window:
+            history, current, window = current or history, [], prepared
+        expected = history[len(current)] if len(current) < len(history) else None
+        done = 0
+        while True:
+            done += cg._segment(expected, done)
+            reads += 1
+            if done >= n:
+                break
+        run += done
+        current.append(n)
+    return reads, run
+
+
 @pytest.mark.parametrize("method,precond", [("refined", "jacobi"),
                                             ("refined", "two_level"),
                                             ("cg", "two_level")])
@@ -74,8 +113,10 @@ def test_velocity_stage_record_sums_the_windows(problem, two_windows, monkeypatc
     mesh, pot, times = problem
     if precond == "two_level":
         monkeypatch.setattr(api, "TWO_LEVEL_MIN_VERTICES", 0)
+    spied = _spy_calls(monkeypatch)
     with profiling.record() as rec:
         vel = stages.velocity_stage(mesh, pot, times, _config(method))
+    calls = list(spied)
     assert vel.converged
     summary = rec.summary()
     spans, counts = summary["spans"], summary["counts"]
@@ -83,7 +124,13 @@ def test_velocity_stage_record_sums_the_windows(problem, two_windows, monkeypatc
     assert inner == sum(_window_iterations(mesh, pot, times, method, precond))
     assert inner >= vel.iterations
     assert spans["solve.window"]["count"] == 2
-    assert counts["sync.solve.cg"] == inner + spans["solve.cg"]["count"]
+    # One read a segment of gated iterations: the count the policy gives
+    # for these calls, each of its segments run whole.
+    assert len(calls) == spans["solve.cg"]["count"]
+    assert inner == sum(n for _, n in calls)
+    reads, run = _reads(calls)
+    assert counts["sync.solve.cg"] == reads
+    assert counts["solve.frozen_iters"] == run - inner
     assert spans["sync.solve.cg"]["count"] == counts["sync.solve.cg"]
     assert counts.get("sync.solve.zeroed", 0) == (2 if precond == "two_level" else 0)
     if method == "refined":
