@@ -37,6 +37,7 @@ from manifold_flow_tpu_torch.ops.phase import (
     temporal_gradient_amplitude,
     temporal_gradient_phase,
 )
+from manifold_flow_tpu_torch.utils import profiling
 
 # What `wave_speed` returns (the codes of csrc/field_kernels.cu WaveOutput).
 WAVE_OUTPUTS = {"gradient": 0, "magnitude": 1, "amplitude": 2, "phase": 3,
@@ -161,7 +162,8 @@ def rbf_fit(c: torch.Tensor, eps: torch.Tensor, planes, kind: str,
     its rank-1 updates below, B's columns too (the forward substitution),
     each element's updates in dgetf2's order; then a warp substitutes back
     through U for its 4 columns, 32 rows at a time in registers. No host
-    sync: the caller reads info."""
+    sync: the caller reads info. A launch that works in the workspace adds
+    1 to the utils.profiling count `s2.fit_workspace`."""
     dtype = _rbf_args(c, c, eps, kind)
     planes = tuple(planes)
     if len(planes) not in (1, 2):
@@ -181,6 +183,8 @@ def rbf_fit(c: torch.Tensor, eps: torch.Tensor, planes, kind: str,
         return w, torch.zeros(1, dtype=torch.int32, device=device)
     info = torch.empty(1, dtype=torch.int32, device=device)
     work = _workspace("rbf_fit", dtype, device, e, t, len(planes))
+    if work is not None:
+        profiling.count("s2.fit_workspace")
     _launch("rbf_fit", dtype, device, c.data_ptr(), eps.data_ptr(), planes[0].data_ptr(),
             _ptr(planes[1] if len(planes) == 2 else None), w.data_ptr(), info.data_ptr(),
             _ptr(pivots), _ptr(work), e, t, RBF_KINDS[kind], float(smooth))

@@ -27,6 +27,9 @@ differs from the JAX package on purpose, which returns whatever its
 factorization gives there (non-finite or meaningless values) without an
 error (ROADMAP Queue C). The info word is read once, after the evaluation
 is queued: the fit's only host sync.
+
+The fit runs in a utils.profiling span `s2.fit`, the evaluation in one
+`s2.eval`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from manifold_flow_tpu_torch.kernels import fields as kf
+from manifold_flow_tpu_torch.utils import profiling
 
 
 def scipy_default_epsilon(coords: torch.Tensor) -> torch.Tensor:
@@ -89,16 +93,18 @@ def _rbf_solve(coords, planes, targets, epsilon, smooth, kind, weight_dtype,
     if epsilon is None:
         epsilon = scipy_default_epsilon(coords)
     eps = torch.as_tensor(epsilon, dtype=coords.dtype, device=coords.device).reshape(1)
-    w, info = kf.rbf_fit(coords, eps, [p.to(coords.dtype).contiguous() for p in planes],
-                         kind, smooth)
+    with profiling.span("s2.fit"):
+        w, info = kf.rbf_fit(coords, eps,
+                             [p.to(coords.dtype).contiguous() for p in planes], kind, smooth)
     w = [wi.to(weight_dtype).to(eval_dtype).contiguous() for wi in w]
     x = targets.to(eval_dtype).contiguous()
     c = coords.to(eval_dtype).contiguous()
     eps_eval = eps.to(eval_dtype)
-    if angle:
-        out = (kf.rbf_eval(x, c, eps_eval, w[0], kind, w[1]),)
-    else:
-        out = tuple(kf.rbf_eval(x, c, eps_eval, wi, kind) for wi in w)
+    with profiling.span("s2.eval"):
+        if angle:
+            out = (kf.rbf_eval(x, c, eps_eval, w[0], kind, w[1]),)
+        else:
+            out = tuple(kf.rbf_eval(x, c, eps_eval, wi, kind) for wi in w)
     first = int(info[0])
     if first:
         raise ValueError(f"the RBF system of {coords.shape[0]} electrodes is singular: "

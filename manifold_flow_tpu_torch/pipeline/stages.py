@@ -16,7 +16,7 @@ mesh calls the stage with the same inputs, the frame axis (and with a mesh
 axis the solve's vertex blocks) is sharded over the ranks, every rank gets
 the whole result, and rank 0 alone writes the artifacts.
 
-The velocity, singularity and decompose stages run under a
+The interpolate, velocity, singularity and decompose stages run under a
 utils.profiling.record() scope when given `timings`, and leave its summary
 (spans and counts by name) in timings['trace'].
 """
@@ -142,7 +142,9 @@ def interpolate_stage(mesh: TriMesh, electrode_coords, electrode_data,
     config.reference_quirks, which takes the reference's scipy default
     axis=-1, across the electrodes (S2_interpolate_phases.py:66).
     `timings`, when given, receives seconds: 'compute' (until the result is
-    on the host) and 'write' (the CSV, or queueing it).
+    on the host) and 'write' (the CSV, or queueing it), and 'trace', the
+    stage's utils.profiling record (spans `s2.hilbert`, `s2.fit`, `s2.eval`
+    and the count `s2.fit_workspace`).
     """
     def window(movie):
         if sfreq is None:
@@ -151,28 +153,30 @@ def interpolate_stage(mesh: TriMesh, electrode_coords, electrode_data,
         e = int(config.interpolation.end_time * sfreq)
         return movie[s:e]
 
-    t0 = time.perf_counter()
-    coords = torch.as_tensor(electrode_coords, device=mesh.device)
-    data = torch.as_tensor(electrode_data, device=mesh.device)
-    interp = config.interpolation
-    if phases:
-        phi = phase_ops.instantaneous_phase(
-            data, axis=-1 if config.reference_quirks else 0)
-        out = rbf_ops.rbf_interpolate_phases(coords, window(phi), mesh.points,
-                                             smooth=interp.smooth, kind=interp.kind)
-    else:
-        out = rbf_ops.rbf_interpolate(coords, window(data), mesh.points,
-                                      smooth=interp.smooth, kind=interp.kind)
-    if save_path is not None:
-        (host,) = io.to_numpy(out)
-        t1 = time.perf_counter()
-        io.submit_write(writer, io.save_indexed_csv, save_path, host)
-        if timings is not None:
-            timings.update(compute=t1 - t0, write=time.perf_counter() - t1)
-    elif timings is not None:
-        _sync(out.device)
-        timings.update(compute=time.perf_counter() - t0, write=0.0)
-    return out
+    with _recorded(timings):
+        t0 = time.perf_counter()
+        coords = torch.as_tensor(electrode_coords, device=mesh.device)
+        data = torch.as_tensor(electrode_data, device=mesh.device)
+        interp = config.interpolation
+        if phases:
+            with profiling.span("s2.hilbert"):
+                phi = phase_ops.instantaneous_phase(
+                    data, axis=-1 if config.reference_quirks else 0)
+            out = rbf_ops.rbf_interpolate_phases(coords, window(phi), mesh.points,
+                                                 smooth=interp.smooth, kind=interp.kind)
+        else:
+            out = rbf_ops.rbf_interpolate(coords, window(data), mesh.points,
+                                          smooth=interp.smooth, kind=interp.kind)
+        if save_path is not None:
+            (host,) = io.to_numpy(out)
+            t1 = time.perf_counter()
+            io.submit_write(writer, io.save_indexed_csv, save_path, host)
+            if timings is not None:
+                timings.update(compute=t1 - t0, write=time.perf_counter() - t1)
+        elif timings is not None:
+            _sync(out.device)
+            timings.update(compute=time.perf_counter() - t0, write=0.0)
+        return out
 
 
 class ConvergenceWarning(UserWarning):

@@ -426,7 +426,7 @@ def test_interpolate_stage_matches_jax(tmp_path, demo, quirks, phases):
     else:
         assert rel_err(got.numpy(), want) <= 1e-9
     np.testing.assert_array_equal(io.load_indexed_csv(tmp_path / "i.csv"), got.numpy())
-    assert set(timings) == {"compute", "write"}
+    assert set(timings) == {"compute", "write", "trace"}
 
 
 @pytest.mark.parametrize("method", ["phase", "amplitude"])
@@ -508,7 +508,7 @@ def test_interpolate_cli_matches_jax_stage(tmp_path, demo, capsys):
                      "--out-dir", str(tmp_path / "out")]) == 0
     line = json.loads(capsys.readouterr().out)
     assert line["shape"] == [98, jmesh.n_vertices]
-    assert set(line["timings"]) == {"load", "compute", "write"}
+    assert set(line["timings"]) == {"load", "compute", "write", "trace"}
     jmesh_ply = jax_stages.load_surface(tmp_path / "s.ply")
     want = jax_stages.interpolate_stage(jmesh_ply, coords[1:], movie[:, 1:], JaxConfig(),
                                         sfreq=512.0, phases=True)

@@ -293,3 +293,49 @@ def test_trace_drops_its_warm_up_step_and_keeps_the_first_events(device, tmp_pat
         assert "frame_factors_rhs<double>" in names
         assert any("frame_factors_rhs" in e["name"] for e in events
                    if e.get("cat") == "kernel")
+
+
+def _electrodes(mesh, n=16, n_samples=300, seed=5):
+    rng = np.random.default_rng(seed)
+    coords = mesh.points.numpy()[rng.choice(mesh.n_vertices, n, replace=False)]
+    t = np.arange(n_samples)[:, None] / 128.0
+    movie = np.cos(2 * np.pi * (8.0 * t - coords[None, :, 0] / 4.0))
+    return coords, movie + 0.1 * rng.standard_normal(movie.shape)
+
+
+@pytest.mark.parametrize("phases", [False, True], ids=["amplitude", "phases"])
+def test_interpolate_stage_records_its_spans(problem, phases):
+    """S2 given `timings` leaves its record: one `s2.fit` and one `s2.eval`,
+    and for phases one `s2.hilbert`; on CPU tensors the fit takes no
+    workspace, so `s2.fit_workspace` is not counted."""
+    mesh = problem[0]
+    coords, movie = _electrodes(mesh)
+    timings: dict = {}
+    stages.interpolate_stage(mesh, coords, movie, PipelineConfig(), sfreq=128.0,
+                             phases=phases, timings=timings)
+    rec = timings["trace"]
+    want = {"s2.fit", "s2.eval"} | ({"s2.hilbert"} if phases else set())
+    assert set(rec["spans"]) == want
+    assert all(rec["spans"][name]["count"] == 1 for name in want)
+    assert "s2.fit_workspace" not in rec["counts"]
+
+
+def test_interpolate_spans_lie_on_the_profiler_timeline(problem, tmp_path):
+    """Under a profiler the S2 spans are host ranges inside the traced step,
+    in their order: the Hilbert transform, the fit, the evaluation."""
+    mesh = problem[0]
+    coords, movie = _electrodes(mesh)
+    with profiling.trace(str(tmp_path)):
+        stages.interpolate_stage(mesh, coords, movie, PipelineConfig(), sfreq=128.0,
+                                 phases=True)
+    events = _events(tmp_path)
+    (step,) = [e for e in events if e["name"] == "ProfilerStep#1"]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("s2."):
+            assert e["name"] not in ranges, e["name"]
+            ranges[e["name"]] = e
+    assert set(ranges) == {"s2.hilbert", "s2.fit", "s2.eval"}
+    assert all(_within(e, step) for e in ranges.values())
+    hilbert, fit, ev = ranges["s2.hilbert"], ranges["s2.fit"], ranges["s2.eval"]
+    assert hilbert["ts"] + hilbert["dur"] <= fit["ts"] and fit["ts"] + fit["dur"] <= ev["ts"]
