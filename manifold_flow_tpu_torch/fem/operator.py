@@ -19,6 +19,7 @@ from manifold_flow_tpu_torch.geometry.mesh import TriMesh, mesh_cached
 from manifold_flow_tpu_torch.kernels import fem as kfem
 # The 2x2 block helpers live beside the kernels whose plain versions use them.
 from manifold_flow_tpu_torch.kernels.fem import apply_block_diag, invert_2x2_blocks
+from manifold_flow_tpu_torch.utils import profiling
 
 __all__ = ["FlowOperator", "make_operator", "block_jacobi_inverse", "jacobi_inputs",
            "invert_2x2_blocks", "apply_block_diag"]
@@ -79,11 +80,19 @@ def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperato
     tables are computed in the mesh dtype and cast to g's dtype; K1's tile
     tables take the mesh's cached index tables (`assembly.mesh_cell_tiles`,
     built on the host once per mesh) and gather the cells' data from them.
+
+    Counts (utils.profiling) `solve.tile_cells`, the cells K1's tiles list,
+    and `solve.cells`, the mesh's: their ratio is the tiles' listing factor
+    (geometry.order), read from the tables' sizes alone.
     """
     dtype = g.dtype
     dof = assembly.local_dof_indices(mesh)
     blocks2 = assembly.a2_blocks(mesh).to(dtype).contiguous()
     gather_base = assembly.gather_base_table(mesh)
+    tiles = assembly.vertex_tiles(gather_base, dof, blocks2,
+                                  index=assembly.mesh_cell_tiles(mesh))
+    profiling.count("solve.tile_cells", tiles.cells.numel())
+    profiling.count("solve.cells", mesh.n_triangles)
     return FlowOperator(
         dof=dof,
         blocks2=blocks2,
@@ -91,8 +100,7 @@ def make_operator(mesh: TriMesh, g: torch.Tensor, lambda_: float) -> FlowOperato
         w_scale=(mesh.areas / 12.0).to(dtype),
         lambda_=float(lambda_),
         gather_base=gather_base,
-        tiles=assembly.vertex_tiles(gather_base, dof, blocks2,
-                                    index=assembly.mesh_cell_tiles(mesh)),
+        tiles=tiles,
     )
 
 

@@ -4,6 +4,14 @@ Counterpart of manifold_flow_tpu/solve/api.py: one call solves every frame
 of a potentials movie and returns the velocity DOFs in the reference's
 layout (T-1, 2N) (dof = vertex + N * alpha).
 
+The solve runs on the mesh renumbered for K1's tiles
+(`geometry.order.local_mesh`: tiles of consecutive ids are then spatial
+patches, which list 1.1x the cells instead of 2.3x on S1's surfaces), under
+the same preconditioner: the two-level tables are the mesh's own
+aggregation, relabelled (`solve.coarse.relabelled_tables`). Each window's
+columns enter in the new order and its velocity leaves in the mesh's,
+inside the window's span; `e` is the mesh's own bases.
+
 Spans (utils.profiling): each window of frames is a `solve.window` (a
 movie solved whole is one window), with `solve.setup` spans around its
 right-hand side, operators and preconditioner, whose count of zeroed coarse
@@ -19,6 +27,7 @@ import torch
 
 from manifold_flow_tpu_torch.fem import assembly
 from manifold_flow_tpu_torch.fem.operator import block_jacobi_inverse, make_operator
+from manifold_flow_tpu_torch.geometry import order
 from manifold_flow_tpu_torch.geometry.mesh import TriMesh
 from manifold_flow_tpu_torch.kernels import fem as kfem
 from manifold_flow_tpu_torch.solve import coarse
@@ -114,11 +123,11 @@ def check_movie(mesh: TriMesh, potentials, times, method: str = "cg"
     return potentials, times
 
 
-def _chunked_velocity_fields(mesh: TriMesh, potentials: torch.Tensor,
-                             times: torch.Tensor, chunk: int,
-                             kwargs: dict) -> VelocityResult:
+def _chunked_velocity_fields(mesh: TriMesh, local: order.LocalMesh,
+                             potentials: torch.Tensor, times: torch.Tensor,
+                             chunk: int, kwargs: dict) -> VelocityResult:
     """A long movie solved as contiguous windows of chunk + 1 potentials,
-    each by the unchunked solve, one after the other on the host (the JAX
+    each by `_solve_window`, one after the other on the host (the JAX
     package sequences the same windows with one lax.map program).
 
     The last window shifts back to end at the movie's end; its overlap
@@ -131,9 +140,8 @@ def _chunked_velocity_fields(mesh: TriMesh, potentials: torch.Tensor,
     parts = []
     for j in range(n_chunks):
         start = min(j * chunk, t_v - chunk)
-        res = compute_velocity_fields(
-            mesh, potentials[start: start + chunk + 1],
-            times[start: start + chunk + 1], frame_chunk=None, **kwargs)
+        res = _solve_window(mesh, local, potentials[start: start + chunk + 1],
+                            times[start: start + chunk + 1], None, **kwargs)
         # The frames k this window supplies, as offsets k - start.
         keep = slice(j * chunk - start, min((j + 1) * chunk, t_v) - start)
         parts.append((res.v_k[keep], res.iterations, res.residual[keep],
@@ -142,6 +150,56 @@ def _chunked_velocity_fields(mesh: TriMesh, potentials: torch.Tensor,
     with profiling.span("solve.concat"):
         return VelocityResult(torch.cat(v_k), mesh.basis, max(iters),
                               torch.cat(resid), torch.cat(conv), sum(zeroed))
+
+
+def _solve_window(mesh: TriMesh, local: order.LocalMesh, potentials: torch.Tensor,
+                  times: torch.Tensor, potentials_next: torch.Tensor | None, tables,
+                  lambda_: float, method: str, tol: float, max_iter: int,
+                  precise_dots: bool, refine_steps: int, coarse_a1: str, inner_tol,
+                  anchor_stride: int) -> VelocityResult:
+    """One window of frames solved whole on `local.mesh`, the mesh renumbered
+    for K1's tiles, with the coarse `tables` of the two-level preconditioner
+    (None: block-Jacobi). The window's columns enter in the new order and
+    its velocity leaves in the mesh's inside its `solve.window` span, so
+    that every device operation of the solve lies in one."""
+    with profiling.span("solve.window"):
+        solve_mesh = local.mesh
+        potentials = potentials[:, local.vertices]
+        if potentials_next is not None:
+            potentials_next = potentials_next[:, local.vertices]
+        with profiling.span("solve.setup"):
+            g, f = build_rhs(solve_mesh, potentials, times, potentials_next)
+        if method == "refined":
+            res = solve_refined(solve_mesh, g, f, lambda_=lambda_, tol=tol,
+                                inner_tol=inner_tol, max_iter=max_iter,
+                                coarse_tables=tables, coarse_a1=coarse_a1,
+                                anchor_stride=anchor_stride)
+            x, iterations, zeroed = res.x, res.iterations, res.coarse_zeroed
+            rn, converged = res.residual, res.converged
+        elif method == "cg":
+            with profiling.span("solve.setup"):
+                op = make_operator(solve_mesh, g, lambda_)
+                if tables is None:
+                    pre, zeroed = block_jacobi_inverse(solve_mesh, g, lambda_), 0
+                else:
+                    pre = coarse.make_two_level(solve_mesh, g, lambda_, tables,
+                                                a1_mode=coarse_a1)
+                    with profiling.wait("sync.solve.zeroed"):
+                        zeroed = int(pre.zeroed.sum())
+            res = solve_cg(op, f, pre, tol=tol, max_iter=max_iter,
+                           precise_dots=precise_dots)
+            x, iterations = res.x, res.iterations
+            rn, converged = res.residual, res.converged
+        else:
+            op = make_operator(solve_mesh, g, lambda_)
+            x = solve_cholesky(solve_mesh, op, f, refine_steps=refine_steps)
+            r = op.residual(f, x)
+            rn = torch.sqrt(kfem.pcg_dot(r, r))
+            fn = torch.sqrt(kfem.pcg_dot(f, f))
+            target = tol * torch.clamp_min(fn, torch.finfo(f.dtype).tiny)
+            iterations, converged, zeroed = 0, rn <= target, 0
+        return VelocityResult(x[:, local.dofs], mesh.basis, iterations, rn, converged,
+                              zeroed)
 
 
 def compute_velocity_fields(
@@ -162,7 +220,8 @@ def compute_velocity_fields(
     anchor_stride: int = 1,
     frame_chunk="auto",
 ) -> VelocityResult:
-    """Solve (a1_k + lambda a2) V_k = f_k for every frame k.
+    """Solve (a1_k + lambda a2) V_k = f_k for every frame k, on the mesh
+    renumbered for K1's tiles; the result is in the mesh's vertex order.
 
     Args:
       mesh: TriMesh; the solve runs on its device.
@@ -224,44 +283,19 @@ def compute_velocity_fields(
         chunk = int(frame_chunk)
         if chunk < 1:
             raise ValueError(f"frame_chunk must be >= 1; got {frame_chunk!r}")
-    if chunk is not None and t_v > chunk and potentials_next is None:
-        return _chunked_velocity_fields(mesh, potentials, times, chunk, dict(
-            lambda_=lambda_, method=method, tol=tol, max_iter=max_iter,
-            precise_dots=precise_dots, refine_steps=refine_steps, precond=precond,
-            coarse_passes=coarse_passes, coarse_a1=coarse_a1,
-            inner_tol=inner_tol, anchor_stride=anchor_stride))
 
-    with profiling.span("solve.window"):
-        with profiling.span("solve.setup"):
-            tables = None
-            if method in ("cg", "refined") and use_two_level:
-                tables = coarse.build_tables(mesh, passes=coarse_passes)
-            g, f = build_rhs(mesh, potentials, times, potentials_next)
-        if method == "refined":
-            res = solve_refined(mesh, g, f, lambda_=lambda_, tol=tol,
-                                inner_tol=inner_tol, max_iter=max_iter,
-                                coarse_tables=tables, coarse_a1=coarse_a1,
-                                anchor_stride=anchor_stride)
-            return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
-                                  res.converged, res.coarse_zeroed)
-        if method == "cg":
-            with profiling.span("solve.setup"):
-                op = make_operator(mesh, g, lambda_)
-                if tables is None:
-                    pre, zeroed = block_jacobi_inverse(mesh, g, lambda_), 0
-                else:
-                    pre = coarse.make_two_level(mesh, g, lambda_, tables,
-                                                a1_mode=coarse_a1)
-                    with profiling.wait("sync.solve.zeroed"):
-                        zeroed = int(pre.zeroed.sum())
-            res = solve_cg(op, f, pre, tol=tol, max_iter=max_iter,
-                           precise_dots=precise_dots)
-            return VelocityResult(res.x, mesh.basis, res.iterations, res.residual,
-                                  res.converged, zeroed)
-        op = make_operator(mesh, g, lambda_)
-        x = solve_cholesky(mesh, op, f, refine_steps=refine_steps)
-        r = op.residual(f, x)
-        rn = torch.sqrt(kfem.pcg_dot(r, r))
-        fn = torch.sqrt(kfem.pcg_dot(f, f))
-        target = tol * torch.clamp_min(fn, torch.finfo(f.dtype).tiny)
-        return VelocityResult(x, mesh.basis, 0, rn, rn <= target)
+    # The solve runs on the mesh renumbered for K1's tiles (geometry.order),
+    # under the same preconditioner: the two-level aggregation is the
+    # mesh's own, relabelled.
+    local = order.local_mesh(mesh)
+    tables = None
+    if method in ("cg", "refined") and use_two_level:
+        tables = coarse.relabelled_tables(
+            local.mesh, coarse.build_tables(mesh, passes=coarse_passes), local.order)
+    kwargs = dict(tables=tables, lambda_=lambda_, method=method, tol=tol,
+                  max_iter=max_iter, precise_dots=precise_dots,
+                  refine_steps=refine_steps, coarse_a1=coarse_a1,
+                  inner_tol=inner_tol, anchor_stride=anchor_stride)
+    if chunk is not None and t_v > chunk and potentials_next is None:
+        return _chunked_velocity_fields(mesh, local, potentials, times, chunk, kwargs)
+    return _solve_window(mesh, local, potentials, times, potentials_next, **kwargs)

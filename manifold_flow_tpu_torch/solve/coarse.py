@@ -31,7 +31,8 @@ import torch
 
 from manifold_flow_tpu_torch.fem import assembly
 from manifold_flow_tpu_torch.fem.operator import block_jacobi_inverse
-from manifold_flow_tpu_torch.geometry.mesh import TriMesh
+from manifold_flow_tpu_torch.geometry.mesh import TriMesh, mesh_cached
+from manifold_flow_tpu_torch.geometry.order import MeshOrder
 from manifold_flow_tpu_torch.kernels import coarse as kcoarse
 from manifold_flow_tpu_torch.kernels import fem as kfem
 
@@ -202,6 +203,22 @@ def tables_from_aggregation(mesh: TriMesh, agg: np.ndarray,
     return CoarseTables(agg=dev(agg), seeds=dev(seeds), members=dev(members),
                         n_coarse=nc, asm_ptr=dev(ptr), asm_src=dev(src),
                         asm_dst=dev(dst))
+
+
+def relabelled_tables(mesh: TriMesh, tables: CoarseTables,
+                      order: MeshOrder) -> CoarseTables:
+    """`tables` of a mesh carried over to `mesh`, the same mesh renumbered
+    by `order` (geometry.order): the same aggregates under the same ids,
+    each with the same seed, its members under their new ids. Cached per
+    mesh and tables (`mesh_cached`). Aggregating the renumbered graph
+    instead would give other aggregates (`aggregate_vertices` sweeps in id
+    order), and so another preconditioner."""
+    def build():
+        agg = tables.agg.cpu().numpy()[order.vertex_order]
+        return tables_from_aggregation(mesh, agg,
+                                       order.vertex_rank[tables.seeds.cpu().numpy()])
+    return mesh_cached((mesh.triangles, tables.agg, tables.seeds), ("coarse_tables",),
+                       build)
 
 
 _TABLE_CACHE: dict = {}

@@ -19,6 +19,10 @@ Tolerances (measured on this mesh in parentheses):
     solve, by the bounds of the JAX package's own chunk test: 1e-8 for
     'cg' (7e-12) and 1e-5 for 'refined' (4e-9), since each window's f32
     inner solves take another path;
+  * compute_velocity_fields on a 16 x 25 patch (two of K1's tiles, so
+    the port solves on a copy renumbered by geometry.order), Jacobi and
+    two-level, against JAX on the mesh as it is: the bounds above
+    (iterations equal; 1.5e-15 'cg', 2.3e-13 'refined');
   * 'cholesky' (its factor is f64 on an f64 mesh, as JAX's is): 1e-10 of
     max|v| against JAX (1e-15), RMSE below 1e-7 against spsolve (3e-16),
     and 1e-8 against 'cg' at tol 1e-12 (7e-12).
@@ -33,12 +37,15 @@ import torch
 
 from manifold_flow_tpu.fem.operator import block_jacobi_inverse as jax_jacobi
 from manifold_flow_tpu.fem.operator import make_operator as jax_make_operator
+from manifold_flow_tpu.geometry import synthetic as jax_synthetic
 from manifold_flow_tpu.solve import refine as jax_refine
 from manifold_flow_tpu.solve.api import build_rhs as jax_build_rhs
 from manifold_flow_tpu.solve.api import compute_velocity_fields as jax_cvf
 from manifold_flow_tpu.solve.cg import solve_cg as jax_solve_cg
 from manifold_flow_tpu_torch import compute_velocity_fields, mesh_from_jax_arrays
+from manifold_flow_tpu_torch.fem import assembly
 from manifold_flow_tpu_torch.fem.operator import block_jacobi_inverse, make_operator
+from manifold_flow_tpu_torch.geometry import order
 from manifold_flow_tpu_torch.solve import api as solve_api
 from manifold_flow_tpu_torch.solve import refine
 from manifold_flow_tpu_torch.solve.api import build_rhs
@@ -115,6 +122,35 @@ def test_velocity_fields_match_jax_and_oracle(port_mesh, wave, oracle,  # noqa: 
     rmse = np.sqrt(np.mean((res.v_k.numpy() - oracle) ** 2)) / np.abs(oracle).max()
     assert rmse < ORACLE_RMSE
     assert torch.equal(res.e, port_mesh.basis)
+
+
+@pytest.fixture(scope="module")
+def two_tile_meshes():
+    """A bumped 16 x 25 patch in both packages: more than one K1 tile, cut
+    across its ids' rows (the long side is y, ids run along it fastest)."""
+    jm = jax_synthetic.plane_patch(
+        nx=16, ny=25, lx=6.0, ly=12.0,
+        height=lambda x, y: 0.8 * np.exp(-((x - 3.0) ** 2 + (y - 5.0) ** 2) / 6.0))
+    return jm, mesh_from_jax_arrays(jax_arrays(jm), device="cpu")
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "two_level"])
+@pytest.mark.parametrize("method", sorted(CASES))
+def test_renumbered_solve_matches_jax(two_tile_meshes, method, precond):
+    jm, pm = two_tile_meshes
+    assert pm.n_vertices > assembly.TILE_VERTICES
+    assert not np.array_equal(order.local_mesh(pm).order.vertex_order,
+                              np.arange(pm.n_vertices))
+    pot, times = movie(np.asarray(jm.points))
+    tol, vs_jax = CASES[method]
+    want = jax_cvf(jm, jnp.asarray(pot), jnp.asarray(times), method=method, tol=tol,
+                   precond=precond)
+    got = compute_velocity_fields(pm, pot, times, method=method, tol=tol,
+                                  precond=precond)
+    assert bool(got.converged.all()) and bool(np.all(np.asarray(want.converged)))
+    assert abs(got.iterations - int(want.iterations)) <= ITER_SLACK
+    assert rel_err(got.v_k.numpy(), np.asarray(want.v_k)) <= vs_jax
+    assert got.e is pm.basis
 
 
 def test_auto_is_cg_on_cpu(port_mesh, wave, jax_results):  # noqa: F811

@@ -339,3 +339,27 @@ def test_interpolate_spans_lie_on_the_profiler_timeline(problem, tmp_path):
     assert all(_within(e, step) for e in ranges.values())
     hilbert, fit, ev = ranges["s2.hilbert"], ranges["s2.fit"], ranges["s2.eval"]
     assert hilbert["ts"] + hilbert["dur"] <= fit["ts"] and fit["ts"] + fit["dur"] <= ev["ts"]
+
+
+def test_velocity_stage_counts_the_cells_k1s_tiles_list():
+    """Each operator build counts the cells K1's tiles list
+    (`solve.tile_cells`) and the mesh's (`solve.cells`). On S1's surface of
+    the benchmark's 8 x 8 grid the solve's renumbered mesh lists under 1.3x
+    the cells (2.3x in the surface's own order)."""
+    from pathlib import Path
+
+    from flowbench import inputs
+    from manifold_flow_tpu_torch.geometry.mesh import build_mesh
+
+    config = json.loads((Path(__file__).resolve().parent.parent / "flowbench" / "configs"
+                         / "recon3k.json").read_text())
+    points, tris, _ = inputs.surface_and_electrodes(config)
+    mesh = build_mesh(points, tris, device="cpu")
+    p = mesh.points.numpy()
+    t = np.arange(3) / 512.0
+    pot = torch.tensor(np.sin(0.3 * p[None, :, 0] - 40.0 * t[:, None]))
+    timings: dict = {}
+    stages.velocity_stage(mesh, pot, torch.tensor(t), _config("cg"), timings=timings)
+    counts = timings["trace"]["counts"]
+    assert counts["solve.cells"] == mesh.n_triangles
+    assert counts["solve.tile_cells"] / counts["solve.cells"] < 1.3
