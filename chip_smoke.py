@@ -1,243 +1,80 @@
-"""Smoke run of the PyTorch/CUDA port (manifold_flow_tpu_torch) on one GPU.
+"""The card's correctness check of the PyTorch/CUDA port
+(manifold_flow_tpu_torch), with each kernel's time against its bound.
 
-Run from the repository root, on a machine with an NVIDIA H100 and the CUDA
+Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the exit code is non-zero:
-  1. device: requires CUDA; prints the card, its power limit, torch and CUDA.
-  2. build: compiles the CUDA kernels from csrc/ with nvcc.
-  3. kernels: each kernel of the solve against its plain torch version on the
-     bench problem's shapes, with the tolerance stated; kernel and plain
-     times (CUDA events around 20 back-to-back calls, median of 5 rounds),
-     and the device time per call of the kernel alone and of the library
-     call (torch.profiler over 20 calls), with bound / device. K1's library
-     call is torch.sparse.mm on the block-diagonal CSR matrix of every
-     frame's assembled a1_k + lambda a2. K8 at these shapes too (a row
-     with no launches: the default path takes Jacobi below 6000 vertices).
-  4. slice: the bench problem (3136 vertices, 97 velocity frames, lambda
-     0.01) through compute_velocity_fields(method='refined', tol=1e-6);
-     every frame must converge, every kernel of the path must have launched,
-     and the RMSE against scipy spsolve over the first 6 frames, normalised
-     by max|v_spsolve|, must be below 1e-5. Frames/s is the best of 3 timed
-     runs after a warm-up.
-  5. analysis kernels: K5-K7 (recombination, detection, compaction and
-     snap) against their plain versions on the refined solve's velocity
-     field, in float64 and float32: masks, ids, valid flags, counts and
-     centers equal, floats to 1e-12 (f64) / 1e-5 (f32) of their largest
-     entry; kernel and plain times as in phase 3, and the device time of
-     K7's first launch (its compaction; the second is the snap), and K6's
-     correctly rounded quotients with their separately rounded f64 floor
-     beside its bound. Then
-     K12-K15 on the same
-     field: K12 (classification, both quirk modes) on K6/K7's candidates and
-     K13 (next hops) and K15 (25-ring winding profiles of the detections'
-     distinct centers) in float64 and float32, K14 (walk lengths at 256
-     steps, the packing of the walks of 20 vertices or more) on the float64
-     graph: codes, hops, lengths, packed ids, ring counts and types equal;
-     K13's plain version, which reads the per-mesh hop tables as the kernel
-     does, also equal to a reference on the raw mesh tables
-     (mesh_next_hop). Then K16 (wave speeds, phase and amplitude, on the 98-frame movie and
-     its wrapped phase) and K17 (the fit of bench.py:216-217's 64
-     electrodes' 98 frames, real (R = 98) and phase (cos and sin, R = 196),
-     beside torch.linalg.solve; the evaluation at every vertex, real and
-     phase) in float64 and float32. K16's speeds: inf and NaN at the same
-     places, elsewhere (where |grad| > 1e-8 max|grad|) the relative error
-     times |grad| / max|grad| within the tolerance; K17's fit: its backward
-     error max|A W - B| / max(|A| |W|) within 1e-13 / 1e-5, the interpolant
-     of its weights at every vertex within the evaluation's tolerance of the
-     plain weights', relative to max sum |phi| |w|, and an equal info word
-     (cond(A), max|dW| / max|W| and the pivot rows that differ from
-     lu_factor's printed); K17's evaluation relative to max sum |phi| |w|,
-     its phases as |z| e^(i angle) against the plain interpolant z.
-  6. flow: the S3 flow stage through the port's command line
-     (`pipeline.cli.main(["flow", ...])`, default config: method 'auto',
-     which is 'refined' on CUDA for a float64 movie, tol 1e-8, max_iter
-     2000) on the bench surface written as PLY and its 98-frame movie as
-     .npy, with ConvergenceWarning raised as an error and every launch count
-     set to 0 just before; every frame must converge, each of K1-K7 must
-     have launched, and the four artifacts must reload equal to the same
-     stages run in memory. Prints the singularities per frame, the distance
-     of each true source to its nearest detection in grid cells, and the
-     flow wall time split into solve, detect + compact and artifact writes.
-  6b. trial: one trial's analysis path through the command line on the
-     same problem: `flow --classify`, then `streamline` and `winding` on the
-     artifacts it wrote (default config), every launch count set to 0 just
-     before: every frame converged, each of K1-K7 and K12-K15 launched, the
-     artifacts reload equal to the same stages run in memory, and walks,
-     class codes and ring counts equal the plain versions' on the same CUDA
-     tensors, and the next hops to mesh_next_hop as well; then the stages in
-     memory with reference_quirks=True, held to the plain versions and
-     mesh_next_hop too. Prints the streamlines per frame, the share of
-     walks of 20 vertices or more, the longest walk, the label counts, the
-     frames with winding lines and the wall split of the three calls.
-  6c. fields: the field stages through the command line on the same surface,
-     every launch count set to 0 just before: `interpolate` of the 64
-     electrodes (electrodes.tsv) and their 1229-sample two-source movie at
-     512 Hz (the default window keeps 98 frames), with and without
-     --phases; `wavespeed --method phase` on the interpolated phases and
-     `--method amplitude` on the interpolated movie; `decompose --mode
-     concat` and `--mode complex` on phase 6's V_k.csv; `demo` at its
-     defaults. K16 and K17 must have launched (each variant counted in the
-     call that launches it; K17's fit once in each `interpolate` call),
-     the artifacts reload equal to
-     the same stages run in memory, sigma equal numpy's LAPACK SVD on the
-     host to 1e-10 of the largest and the rank-K reconstruction to 1e-8 of
-     its largest entry, and the demo converge and match. Prints each call's
-     wall split (load, compute, write).
-  6d. batch: a results tree in the reference layout, in a temporary
-     directory: sub-01 holds the bench surface (phase 6b's PLY) with two
-     trials of its 98-frame movie (the first with phase 6c's interpolated
-     phases movie) and a third holding phase 6c's evoked movie of 64
-     electrodes as an evoked CSV beside electrodes.tsv and channels.tsv;
-     sub-02 holds the surface the `reconstruct` CLI makes from those 64
-     electrodes, with one trial of the two-source movie on it (and its
-     Hilbert phases). pipeline.batch.run_batch(stages=('interpolate',) +
-     ALL_STAGES) runs in this process, every launch count set to 0 just
-     before: no trial error, every stage done (but the second trial's
-     wavespeed: it has no phases movie), K1-K7 and K13-K17 launched. The
-     first trial's artifacts (e, V_k, speed, singularities, streamlines,
-     data_01.npz, phase wave speeds) reload equal to phase 6b/6c's CLI
-     artifacts for the same inputs, bitwise or within 1e-12 of the largest
-     value (the script says which); its amplitude wave speeds equal the
-     stage in memory, its winding lines the stage in memory on the detection
-     stage's centers (the CLI snaps the saved points again on the host: the
-     rows that differ are counted); the third trial's interpolated movies
-     and wave speeds equal phase 6c's. A second run_batch skips every stage
-     and launches nothing. Prints each trial's per-stage split and the
-     drain beside the sum of the same stages' CLI walls from phases 6, 6b
-     and 6c. Then one warm run_trial of sub-02 under torch.profiler: its
-     launches and device us a launch (the '@recon' rows' launches and
-     in-trial times), and no host-to-device copy the size of a velocity
-     field ((T, 2N) or (T, N, 3)).
-  6e. reconstructed: on sub-02's surface, K1 (float32 matvec, float64
-     residual, beside torch.sparse.mm) and K13 (float64, also held to
-     mesh_next_hop) against their plain versions, as phases 3 and 5 do
-     ('@recon' rows); prints the vertices in more than 6 cells. Then the
-     `batch` CLI in a fresh process on the 6d tree with --overwrite and
-     every stage: exit 0, no error in its report; prints its wall, which
-     holds the process's first cuFFT / cuSOLVER use.
-  7. s3: S3 end-to-end frames/s as bench.py:235-255 defines it (refined
-     solve at tol 1e-6, then recombination, speed map and detection, in
-     float64, ending in torch.cuda.synchronize(); best of 3 after a
-     warm-up), beside the solve alone, timed in turns.
-  8. cg: the same problem with method='cg' in float64 at tol=1e-8.
-  8b. anchor: the refined bench solve with anchor_stride 2 and 4 beside 1
-     (the temporal warm start): every frame converged, RMSE under the gate;
-     inner iterations (the anchors' included) and frames/s through
-     utils.profiling.frames_per_second. profiling: utils.profiling.trace
-     around one refined solve writes a Chrome trace whose host ranges name
-     fem_matvec.
-  9. kernels: K8-K11 (the two-level preconditioner) against their plain
-     versions at the 12.5k-vertex shapes (bench.py:465-474's surface, 12544
-     vertices, 98 frames of the two-source movie), float32 and float64,
-     tolerances as in phase 3 (K8 reorders each entry's sum); times as in
-     phase 3, K8 beside the device time of zeroing its (97, 392, 392)
-     output (torch.zeros, which its wrapper runs), K9 beside torch.sparse.mm of P^T (a (2Nc, 2N) CSR matrix) on r
-     in column layout and K11, for the record and not ranked, beside
-     torch.sparse.addmm of P and torch.linalg.vecdot; two calls of K9 and of
-     K11 bitwise equal; K10 also with the L2 cleared before each call, on a random
-     (97, 394, 394) input (a row length of 2 mod 4) and on one matrix shared
-     by every frame (coarse_a1='mean'), and K3's pcg_dot and direction, K1 (float32
-     matvec, float64 residual, beside torch.sparse.mm) and K3's update at
-     these shapes, with K4 (float64, its bound the movie, the mesh tables,
-     g and f; not the local RHS its first design stored; and float32, which
-     no path launches, as at the bench shapes) and K2 (float32) there. Then K5-K7 and K12-K15 at the same shapes on the 12.5k refined
-     solve's field (float64), and K16-K17 as in phase 5 at 12.5k.
- 10. twolevel: the 12.5k problem through compute_velocity_fields(method=
-     'refined', tol=1e-6, max_iter=4000, precond='auto'): every frame
-     converged, each of K8-K11 launched, RMSE against spsolve over 2 frames
-     below 1e-5; prints inner iterations, the frames whose coarse inverse
-     was zeroed, the cold call (aggregation included) and the warm best of
-     3. Then the crossover: refined with two-level and with Jacobi at 12.5k
-     and on the bench surface, and float64 cg with two-level at 12.5k.
- 10b. precise: K3's pcg_dot and pcg_update (bench and 12.5k shapes) and K11
-     (12.5k) in their float32 instances with float64 sums (<float,double>)
-     against their precise plain versions, timed as in phase 3 (pcg_dot
-     beside torch.linalg.vecdot on the operands cast to float64); then
-     float32 cg solves (tol 1e-5) of the bench problem (Jacobi) and of the
-     12.5k one (two-level) with precise_dots=True, each beside the same
-     solve without it, every launch count set to 0 just before each: every
-     frame converged, each precise instance launched and no float instance
-     of the three in the precise solves; iterations and RMSE against
-     spsolve printed, with the precise instances' device us a launch in a
-     profiled precise solve. Then the default refined bench solve again:
-     its launches must be REFINED_LAUNCHES (with one more of each
-     REFINED_ITERATION kernel a frozen iteration), no precise instance.
- 11. flow12k: the flow CLI with the default config on the 12.5k surface as
-     PLY and its movie as .npy, checked as in phase 6, with K1-K11 launched.
- 11b. trial12k: phase 6b at 12.5k vertices x 98 frames.
- 11c. fields12k: phase 6c at 12.5k vertices, on phase 11's V_k.csv,
-     without `demo` (it builds its own patch, whatever the mesh).
- 11d. batch12k: one trial of phase 11b's movie and 11c's phases movie on
-     the 12.5k surface through run_batch(ALL_STAGES), checked as in 6d,
-     with K8-K11 launched too (no interpolate stage, so no K17); its split
-     beside phases 11, 11b and 11c's CLI walls.
- 11e. viz: whether matplotlib imports on this host. If it does: `visualize`
-     of frame 48 of phase 6's V_k.csv (K5 launched once) and `demo --gif` at
-     its defaults (a GIF of its 11 velocity frames); if not, `visualize`
-     must raise an ImportError naming matplotlib.
- 11f. dist: the multi-device layer (parallel) on this one card. A world of
-     one over NCCL runs halo_compute_velocity_fields (float64, tol 1e-8) and
-     halo_refined_velocity_fields (tol 1e-6) with a mesh axis of 1 on the
-     12.5k problem. Then 2 and 4 spawned processes share cuda:0 over gloo
-     (a FileStore in a temporary directory; their collectives staged
-     through pinned host buffers): the refined solve (tol 1e-6, two-level)
-     at (frames, mesh) = (2, 1), (1, 2), (1, 4), (2, 2), the float64 cg at
-     tol 1e-8 at (1, 4), the analysis ops at (4, 1) against the single-GPU
-     ops, and run_batch(distributed=True) over 2 ranks on a copy of phase
-     6d's tree. Every frame converges, the RMSE against spsolve (2 frames)
-     stays under 1e-5, the cg iterations within 2 of the single GPU's,
-     every rank holds the same result and launches K1-K4 and K8-K11 (the
-     counts all-gathered), the analysis outputs equal the single-GPU ones
-     (floats within 1e-12 of the largest) and the batch's artifacts phase
-     6d's. Prints max|dv| against the single-GPU solve beside tol x max|v|,
-     the iterations beside the single GPU's, the bytes staged and each
-     layout's wall. A rank's exception fails the phase. No scaling: the
-     ranks share one GPU.
- 12. long: a 392-frame two-source movie on the bench surface, refined at tol
-     1e-6 with frame_chunk='auto' (4 windows of 104) and None; both converge
-     and meet the RMSE gate against spsolve on 8 frames across the windows'
-     seams; max |dv| below 1e-5 * max|v|; prints the frames/s of each.
- 13. cholesky: method='cholesky' on the bench problem: RMSE against
-     spsolve, its largest difference from cg at tol 1e-8, its wall time.
- 14. profile: device time per kernel and the device's busy share over one
-     S3 chain: the refined solve, recombination, detection and compaction
-     (torch.profiler); then over one warm analysis chain on the bench
-     problem (detection with classification, streamlines, winding lines, in
-     memory); then over one warm field chain on the bench surface
-     (interpolation with and without phases, both wave speeds, both SVDs,
-     in memory; no LU library kernel may run in it); then over one warm
-     12.5k refined two-level solve. From the
-     S3 chain and the 12.5k solve, each kernel's device µs a launch as the
-     solve runs it (solve_device_us: its device kernels' time over its
-     launches in that run), for the rows at those shapes; the 12.5k solve's
-     device time, and K8-K11's in-solve µs beside their back-to-back ones.
-Every kernel check prints its time beside its bound (bytes over 3.35 TB/s or
-operations over 67 / 34 TFLOP/s in float32 / float64, whichever is larger)
-and, where one PyTorch call computes the same function, that call's time;
-each also as device time per call (device_us, library_device_us), which
-the wrapper times cannot show below ~0.05 ms, where they read the host.
-device_us counts the profiler's device events: a window counts when they
-are a multiple of the calls and equal the window before's, and windows are
-retaken (each retake printed) until two agree. A row whose device time
-reads below its bound (L2 reuse back to back, or lost events) is retaken
-with the L2 cleared before each call, and fails the phase if it stays
-below.
-Then a [redesign] line ranking the kernels for the next redesign: first
-any slower than its library call on the device, then by the default path's
-launches (the flow CLIs, the trials and the field stages, at the row's own
-size first) x (solve_device_us, or device_us where no profiled solve ran
-the kernel, - bound), with the instances that only the float64 cg, the
-Cholesky or the crossover runs launch listed as off the default path, then
-the same loss summed over each kernel's default-path instances (field
-variants and both sizes) by its entry point's name, with its launches'
-bound time over their device time (its share of the bound); one
-JSON line for the kernels (launches from the default path, else from those
-runs; solve_device_us beside device_us), the card's name and power limit,
-a [kernels] line naming the rows that no phase launches (K4's float32
-instance among them; they stay out of the JSON line), and a last JSON line
+Any failed check raises and the exit code is non-zero. End-to-end and
+in-solve times are the benchmark's (flowbench/run.py --trace 1), not this
+script's. Problems: the bench patch (3136 vertices, 98 frames of a
+two-source movie, lambda 0.01) and the 12.5k patch (12544 vertices, 98
+frames). RMSE is against scipy's spsolve over the first frames, over
+max|v|, gated below 1e-5. Phases, in order:
+
+- [device] needs CUDA; prints the card, its power limit, torch and CUDA.
+- [build] nvcc builds csrc/*.cu for sm_90a; prints the library.
+- [kernels] each kernel against its plain version on the same inputs, at
+  the bench shapes (K5-K7 and K12-K17 after [slice], on its field), and in
+  later phases at 12.5k ('@12.5k'), on the reconstructed surface ('@recon')
+  and in the float64-summing instances ('<float,double>'): float outputs within 1e-5 (f32) / 1e-12 (f64) of their scale, discrete outputs
+  equal; K16's inf and NaN in place; K17's fit by its backward error (1e-5 /
+  1e-13), its interpolant and its info word; K13's plain version also equal
+  to mesh_next_hop on the raw mesh tables; K3's update, K9 and K11 equal
+  over two calls. Each row prints its error, the wrapper's and the plain
+  version's ms (CUDA events, 20 calls, median of 5), device_us (the
+  kernel's own profiler events over 20 calls; windows retaken until two
+  agree, else "not measured") and its bound (flowbench.peaks: bytes over
+  the memory rate or operations over the peak rate) with bound/device. A
+  row whose device time reads below its bound is retaken with the L2
+  cleared before each call, and fails if it stays below.
+- [slice] the refined solve (tol 1e-6) of the bench problem: every frame
+  converged, K1-K4 launched, RMSE over 6 frames, 84 +- 2 inner iterations.
+- [flow] the flow CLI on the bench surface: every frame converged, K1-K7
+  launched, its four artifacts equal to the stages run in memory; prints
+  the singularities a frame and each true source's nearest detection.
+- [trial] `flow --classify`, `streamline`, `winding` through the CLI: as
+  [flow], K12-K15 launched too; walks, class codes, next hops and ring
+  counts equal to the plain versions' in both quirk modes.
+- [fields] `interpolate` (+ --phases) of 64 electrodes, `wavespeed` (phase,
+  amplitude), `decompose` (concat, complex), `demo`: K16 and K17 launched in
+  the calls that run each variant, `rbf_fit` once a call, artifacts equal to
+  the stages in memory, no LU library kernel in them, the SVD against
+  numpy's (sigma 1e-10, rank-K reconstruction 1e-8), the demo matched.
+  [fields12k] prints the LU kernels it finds: cuSOLVER's SVD of a
+  (97, 25088) movie runs one of its own.
+- [batch] run_batch over a two-subject tree of those inputs (and the
+  `reconstruct` CLI's surface): no error, K1-K7 and K13-K17 launched,
+  artifacts equal to the CLIs' (bitwise or within 1e-12; it says which), a
+  resume that skips every stage and launches nothing, a profiled trial
+  with no host-to-device copy of a velocity field, then [reconstructed]'s
+  rows and the `batch` CLI in a fresh process.
+- [cg] float64 cg at tol 1e-8: converged, RMSE, its kernels launched.
+- [anchor] the refined solve at anchor_stride 1, 2 and 4: converged, RMSE.
+- [profiling] utils.profiling.trace of one solve names fem_matvec.
+- [twolevel] the 12.5k refined solve (precond 'auto'): converged, K8-K11
+  launched, RMSE over 2 frames, 60 +- 2 inner iterations; both
+  preconditioners at both sizes converged; float64 cg two-level at 12.5k.
+- [precise] float32 cg with precise_dots at both sizes: converged, only the
+  precise instances launched; then the default refined solve's launches
+  equal REFINED_LAUNCHES (with its frozen iterations and captures).
+- [flow12k], [trial12k], [fields12k] (no demo), [batch12k]: as at 3.1k on
+  the 12.5k patch, K8-K11 launched too.
+- [viz] `visualize` and `demo --gif` render where matplotlib imports, else
+  `visualize` raises an ImportError naming it.
+- [dist] the halo solves in a world of one over NCCL, then 2 and 4
+  processes sharing the card over gloo (refined at four layouts, cg, the
+  analysis ops, run_batch(distributed=True)): converged, RMSE, every rank
+  the same result and its kernels launched, equal to one GPU's.
+- [long] 392 frames in 104-frame windows and whole: converged, RMSE on 8
+  frames across the seams, within 1e-5 max|v| of each other.
+- [cholesky] method='cholesky': RMSE, its difference from cg.
+
+Then every kernel must have launched in some phase, and the script prints
+the kernels' JSON line (each row some phase launches: name, source,
+replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+device_us, bound_over_device), the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 
@@ -258,27 +95,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# The H100's rates and a kernel's bound, from the benchmark's frozen copy.
+from flowbench.peaks import PEAK_OPS_S, bound_of
+
 ROOT = Path(__file__).resolve().parent
 N_SAMPLE = 6          # frames checked against spsolve (as bench.py does)
 RMSE_GATE = 1e-5
 TOL_F32 = 1e-5        # kernel vs plain, relative to the output's max |value|
 TOL_F64 = 1e-12
-# The bound of a kernel: the larger of its bytes over the device memory rate
-# and its operations over the peak rate of their type (H100 SXM, NVIDIA's
-# data sheet: 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
-# the tensor cores). The multiply-adds of a matrix product count at the
-# product rate of their type: 67 TFLOP/s float64 on the tensor cores, and
-# float32's 67 outside them (its tensor-core rate is TF32's, a lower
-# precision). Integer kernels are bound by their bytes.
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float": 67e12, "double": 34e12}
-PEAK_MM_OPS_S = {"float": 67e12, "double": 67e12}
 MAX_STEPS = 256       # AnalysisConfig's defaults (pipeline/config.py)
 MIN_LENGTH = 20
 LEVELS = 25
-# Each CLI call's wall, by phase tag (flow, trial, fields and their 12.5k
-# runs), for the batch phases' comparison.
-CLI_WALLS: dict[str, dict[str, float]] = {}
 
 
 def scratch_dir(prefix: str, workdir: Path | None):
@@ -302,7 +129,7 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     calls, the median over `rounds`, after a warm-up (calls slower than 5 ms:
     about 50 ms of calls a round, 3 rounds). A call whose host side
     (Python, ctypes, allocation) outlasts its kernels is timed at the host's
-    launch rate; the profile phase gives the kernels' own device time."""
+    launch rate; `device_us` gives the kernels' own device time."""
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
@@ -360,8 +187,7 @@ def device_events(prof) -> list:
 def profiled():
     """torch.profiler (CPU and CUDA) over the block, after one traced
     warm-up step that is dropped (a small device operation and a wait): the
-    device tracing loses events while it starts, such as a solve's first
-    kernel, K4 (ROADMAP E2)."""
+    device tracing loses events while it starts."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -471,19 +297,8 @@ def fmt_us(x: float | None) -> str:
     return "not measured" if x is None else f"{x:.2f} us"
 
 
-def bound_of(nbytes: int, ops: float, mm_ops: float, ctype: str = "double") -> tuple:
-    """(bound ms, "bytes" or "operations", bytes, all operations): `nbytes`
-    over the memory rate or `ops` and the product's `mm_ops` over the peak
-    rates of `ctype`, whichever takes longer (bytes alone for integers)."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = (ops / PEAK_OPS_S[ctype] + mm_ops / PEAK_MM_OPS_S[ctype]
-             if ctype in PEAK_OPS_S else 0.0)
-    return (max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes",
-            nbytes, ops + mm_ops)
-
-
 # The package's device kernels (namespace mf) by the wrapper that launches
-# them: a wrapper's time in a profiled run is the sum of its kernels' times.
+# them: `device_us` holds a window's events to the wrappers' launches.
 WRAPPER_OF = {
     "fem_tile_kernel": "fem_matvec", "jacobi_kernel": "jacobi_blocks",
     "frame_factors_rhs_kernel": "frame_factors_rhs",
@@ -540,43 +355,6 @@ def kernel_of(key: str) -> tuple | None:
     if code is None:
         return None
     return name, ctype_of([MANGLED_TYPES[c] for c in code.group(1)])
-
-
-def solve_device_us(events, launches: dict) -> dict:
-    """Device µs per launch of each of the package's kernels in a profiled
-    run: the self device time of the wrapper's device kernels (`kernel_of`)
-    over the wrapper's launches in that run, by LAUNCHES key. Prints the
-    kernels that launched with no device event found."""
-    total: dict[str, float] = {}
-    for e in events:
-        key = launch_key(e.key)
-        if key is not None:
-            total[key] = total.get(key, 0.0) + e.self_device_time_total
-    lost = sorted(k for k, n in launches.items() if n > 0 and k not in total)
-    if lost:
-        print("[profile] launched with no device event found (not measured): "
-              + ", ".join(f"{k} x{launches[k]}" for k in lost) + "; unmatched device "
-              "events: " + "; ".join(f"{e.key[:70]!r} x{e.count}" for e in events
-                                     if kernel_of(e.key) is None and "mf" in e.key),
-              flush=True)
-    return {k: us / launches[k] for k, us in total.items() if launches.get(k, 0) > 0}
-
-
-def assembled_csr(mesh, g, lambda_: float, dtype) -> torch.Tensor:
-    """Every frame's assembled a1_k + lambda a2 (from assembly.a1_blocks and
-    local_dof_indices) as one block-diagonal CSR matrix ((T 2N) x (T 2N)) in
-    `dtype`: K1's function as one torch.sparse.mm."""
-    from manifold_flow_tpu_torch.fem import assembly
-
-    blocks = (assembly.a1_blocks(mesh, g) + lambda_ * assembly.a2_blocks(mesh)).to(dtype)
-    dof = assembly.local_dof_indices(mesh).long()
-    t, n_dof = g.shape[0], mesh.n_dof
-    off = (torch.arange(t, device=g.device) * n_dof)[:, None, None, None]
-    rows = (off + dof[None, :, :, None]).expand(-1, -1, 6, 6).reshape(-1)
-    cols = (off + dof[None, :, None, :]).expand(-1, -1, 6, 6).reshape(-1)
-    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), blocks.reshape(-1),
-                                  (t * n_dof, t * n_dof))
-    return coo.coalesce().to_sparse_csr()
 
 
 def build_problem(device, dtype=np.float64):
@@ -642,8 +420,7 @@ def tensor_bytes(*tensors) -> int:
 
 
 class KernelChecks:
-    """Each kernel against its plain version, timed beside its bound and,
-    where one PyTorch call computes the same function, that call."""
+    """Each kernel against its plain version, timed beside its bound."""
 
     def __init__(self, card: str):
         self.card = card
@@ -651,13 +428,12 @@ class KernelChecks:
 
     def compare(self, key: str, source: str, replaces: str, kernel, plain,
                 tol: float, scales=None, timed=None, inputs=(), ops: float = 0.0,
-                mm_ops: float = 0.0, nbytes: int | None = None, library=None,
+                mm_ops: float = 0.0, nbytes: int | None = None,
                 launches_key=None, measure=None) -> None:
         """Run kernel() and plain() on the same inputs and compare each
         output against its own scale (max |plain|, or `scales`), then time
         both, or the pair of calls `timed` (in-place kernels time without
-        the copies their comparison needs), and `library`, a PyTorch call of
-        the same function, where there is one. kernel and plain return a
+        the copies their comparison needs). kernel and plain return a
         tuple of tensors. The bound counts the distinct `inputs` and the
         kernel's outputs (or `nbytes`, where the work depends on the data),
         `ops` operations and `mm_ops`, a matrix product's operations at the
@@ -685,12 +461,9 @@ class KernelChecks:
         time_kernel, time_plain = timed or (kernel, plain)
         ms = time_ms(time_kernel)
         plain_ms = time_ms(time_plain)
-        library_ms = time_ms(library) if library is not None else None
         # Device time per call: the kernel's own (the wrapper's allocations
-        # and copies left out), and every kernel the library call launches.
+        # and copies left out).
         dev_us = device_us(time_kernel, mine=own_kernel, label=key)
-        lib_dev_us = (device_us(library, label=f"{key} library") if library is not None
-                      else None)
         moved = nbytes if nbytes is not None else tensor_bytes(*inputs, *got)
         # The accumulator's type rates the operations: "float,double" sums
         # in double.
@@ -715,13 +488,11 @@ class KernelChecks:
             flushed = ", L2 cleared before each call"
         bound_over_device = bound_ms * 1e3 / dev_us if dev_us else None
         equal = f", {len(exact)} discrete outputs equal" if exact else ""
-        lib = (f" library {library_ms:.4f} ms (device {fmt_us(lib_dev_us)})"
-               if library_ms is not None else "")
         share = (f"{bound_over_device:.3f}" if bound_over_device is not None
                  else "not measured")
         print(f"[kernels] {key}: max_rel_err {rel:.3e} (tol {tol:.0e}){equal} "
               f"kernel {ms:.4f} ms (device {fmt_us(dev_us)}{flushed}) plain {plain_ms:.4f} "
-              f"ms{lib} bound {bound_ms:.5f} ms ({bound_by}: {moved} B, {ops:.4g} "
+              f"ms bound {bound_ms:.5f} ms ({bound_by}: {moved} B, {ops:.4g} "
               f"ops, {mm_ops:.4g} product ops) bound/device {share} "
               f"{'ok' if ok else 'FAIL'} on {self.card}", flush=True)
         if not ok:
@@ -731,9 +502,7 @@ class KernelChecks:
         self.rows[key] = {"source": source, "replaces": replaces,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms, "device_us": dev_us,
-                          "library_device_us": lib_dev_us,
-                          "bound_over_device": bound_over_device,
+                          "device_us": dev_us, "bound_over_device": bound_over_device,
                           "launches_key": launches_key or key}
 
 
@@ -771,7 +540,7 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
         op = ops[dtype]
         # K1: the inner solve's float32 matvec, the refinement's float64
         # residual f - A x.
-        check_matvec(checks, mesh, op, g64, rand(t, n_dof, dtype=dtype),
+        check_matvec(checks, mesh, op, rand(t, n_dof, dtype=dtype),
                      f64.to(dtype) if dtype == torch.float64 else None, tol)
 
         reg = assembly.corner_regularization(mesh, dtype).contiguous()
@@ -791,8 +560,7 @@ def check_kernels(mesh, pot, times, card: str) -> KernelChecks:
                        "manifold_flow_tpu/solve/cg.py:30",
                        lambda: (kfem.pcg_dot(p, ap),),
                        lambda: (kfem.plain_pcg_dot(p, ap),), tol,
-                       inputs=(p, ap), ops=2 * t * n_dof,
-                       library=lambda: torch.linalg.vecdot(p, ap))
+                       inputs=(p, ap), ops=2 * t * n_dof)
         rz = rand(t, dtype=dtype).abs()
         check_update(checks, p, ap, dinv, rz, rand, tol)
         z = rand(t, n_dof, dtype=dtype)
@@ -870,46 +638,33 @@ def check_rhs(checks: KernelChecks, mesh, pot, times, suffix: str = "") -> None:
                    launches_key="frame_factors_rhs<float>")
 
 
-def check_matvec(checks: KernelChecks, mesh, op, g64, x, f=None, tol=TOL_F32,
+def check_matvec(checks: KernelChecks, mesh, op, x, f=None, tol=TOL_F32,
                  suffix: str = "") -> None:
     """K1 on operator `op` (one problem's shapes): the matvec A x, or the
-    residual f - A x where `f` is given, against its plain version; beside
-    it torch.sparse.mm of the block-diagonal CSR matrix of every frame's
-    assembled a1_k + lambda a2 (from the float64 factors `g64`, built
-    before the timing), which computes A x: K1's library yardstick."""
+    residual f - A x where `f` is given, against its plain version."""
     from manifold_flow_tpu_torch.kernels import fem as kfem
 
     ctype = "float" if x.dtype == torch.float32 else "double"
     t, n_dof = x.shape
     mv = (x, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_, op.gather_base)
-    a_csr = assembled_csr(mesh, g64, op.lambda_, x.dtype)
-    x_col = x.reshape(-1, 1)
-    ax = kfem.plain_fem_matvec(*mv)
-    lib_err = float((torch.sparse.mm(a_csr, x_col).reshape(t, n_dof) - ax).abs().max())
     tiles = op.tiles
     print(f"[kernels] fem_matvec<{ctype}>{suffix}: {tiles.cell_ptr.numel() - 1} tiles "
           f"of {tiles.size} vertices list {tiles.cells.numel()} cells "
           f"({tiles.cells.numel() / mesh.n_triangles:.3f} x {mesh.n_triangles}, at "
-          f"most {tiles.max_cells} a tile); torch.sparse.mm on the assembled "
-          f"CSR matrix ({a_csr.values().numel()} non-zeros) differs from the plain "
-          f"matvec by {lib_err / float(ax.abs().max()):.3e} of its largest entry",
-          flush=True)
+          f"most {tiles.max_cells} a tile)", flush=True)
     key = f"fem_matvec<{ctype}>"
     if f is None:
         checks.compare(key + suffix, FEM_CU, "manifold_flow_tpu/fem/operator.py:69",
                        lambda: (kfem.fem_matvec(*mv, op.tiles),),
                        lambda: (kfem.plain_fem_matvec(*mv),), tol,
-                       inputs=mv, ops=t * 106 * mesh.n_triangles,
-                       library=lambda: torch.sparse.mm(a_csr, x_col), launches_key=key)
+                       inputs=mv, ops=t * 106 * mesh.n_triangles, launches_key=key)
     else:  # scaled by max|f| + max|Ax|
-        scale = float(f.abs().max()) + float(ax.abs().max())
+        scale = float(f.abs().max()) + float(kfem.plain_fem_matvec(*mv).abs().max())
         checks.compare(key + suffix, FEM_CU, "manifold_flow_tpu/fem/df_operator.py:66",
                        lambda: (kfem.fem_matvec(*mv, op.tiles, f=f),),
                        lambda: (kfem.plain_fem_matvec(*mv, f=f),), tol,
                        scales=[scale], inputs=(*mv, f),
-                       ops=t * (106 * mesh.n_triangles + n_dof),
-                       library=lambda: torch.sparse.mm(a_csr, x_col), launches_key=key)
-    del a_csr
+                       ops=t * (106 * mesh.n_triangles + n_dof), launches_key=key)
 
 
 def check_update(checks: KernelChecks, p, ap, dinv, rz, rand, tol=TOL_F32,
@@ -950,7 +705,7 @@ def check_update(checks: KernelChecks, p, ap, dinv, rz, rand, tol=TOL_F32,
 
 def check_analysis_kernels(checks: KernelChecks, mesh, v_k, suffix: str = "",
                            dtypes=(torch.float64, torch.float32)) -> None:
-    """Phase 5: K5-K7 against their plain versions on a real velocity field
+    """K5-K7 against their plain versions on a real velocity field
     (the refined solve's v_k), in `dtypes`; `suffix` tags the rows of a
     second size."""
     from manifold_flow_tpu_torch.kernels import analysis as kan
@@ -1006,38 +761,12 @@ def check_analysis_kernels(checks: KernelChecks, mesh, v_k, suffix: str = "",
                        lambda: kan.plain_compact_detected(*comp), tol,
                        nbytes=moved, ops=8 * t * cap * n_vert,
                        launches_key=f"compact_detected<{ctype}>")
-        # K7 is two launches: the compaction's share of its device time.
-        masks = device_us(lambda: kan.compact_detected(*comp),
-                          mine=lambda k: own_kernel(k) and "masks" in k)
-        print(f"[kernels] compact_detected<{ctype}>{suffix}: the compaction launch "
-              f"{fmt_us(masks)} of its device time; on {checks.card}", flush=True)
-
-
-def restriction_coo(r_blk, members) -> torch.Tensor:
-    """P^T as a coalesced (2Nc, 2N) sparse COO matrix: row 2a + b, column
-    v + N a', value R_v[a', b] for each member v of aggregate a (the pad
-    index N skipped). Its CSR form times K9's function as one
-    torch.sparse.mm; its transpose is P."""
-    n = r_blk.shape[0]
-    nc, k = members.shape
-    agg = torch.arange(nc, device=members.device)[:, None].expand(nc, k)
-    v = members.long()
-    keep = v != n
-    agg, v = agg[keep], v[keep]
-    two = torch.arange(2, device=members.device)
-    rows = (2 * agg[:, None, None] + two[None, None, :]).expand(-1, 2, 2)
-    cols = (v[:, None, None] + n * two[None, :, None]).expand(-1, 2, 2)
-    coo = torch.sparse_coo_tensor(torch.stack([rows.reshape(-1), cols.reshape(-1)]),
-                                  r_blk[v].reshape(-1), (2 * nc, 2 * n))
-    return coo.coalesce()
 
 
 def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
                    suffix: str = "") -> None:
-    """K8 against its plain version on the operator `op` (its dtype), timed
-    beside the device time of zeroing its output (torch.zeros, which the
-    wrapper runs before the launch). A `suffix` row (another size) counts
-    no launches."""
+    """K8 against its plain version on the operator `op` (its dtype). A
+    `suffix` row (another size) counts no launches."""
     from manifold_flow_tpu_torch.kernels import coarse as kco
     from manifold_flow_tpu_torch.solve import coarse
 
@@ -1047,21 +776,15 @@ def check_assemble(checks: KernelChecks, mesh, tables, op, tol: float,
     r_blk = coarse.prolongation_blocks(mesh, tables, dtype)
     asm = (op.g, op.blocks2, r_blk, mesh.triangles, mesh.areas.to(dtype) / 12.0,
            op.lambda_, tables.asm_ptr, tables.asm_src, tables.asm_dst, tables.n_coarse)
-    t, nc2 = op.g.shape[0], 2 * tables.n_coarse
     checks.compare(key, "manifold_flow_tpu_torch/csrc/coarse_kernels.cu",
                    "manifold_flow_tpu/kernels/reduce.py:103",
                    lambda: (kco.coarse_assemble(*asm),),
                    lambda: (kco.plain_coarse_assemble(*asm),), tol,
-                   inputs=asm, ops=16 * t * tables.asm_src.shape[0])
-    zeros_us = device_us(lambda: torch.zeros((t, nc2, nc2), dtype=dtype,
-                                             device=op.g.device))
-    print(f"[kernels] {key}: zeroing its ({t}, {nc2}, {nc2}) output (torch.zeros) "
-          f"takes {fmt_us(zeros_us)} of device time, the kernel "
-          f"{fmt_us(checks.rows[key]['device_us'])}; on {checks.card}", flush=True)
+                   inputs=asm, ops=16 * op.g.shape[0] * tables.asm_src.shape[0])
 
 
 def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
-    """Phase 9: K8-K11 against their plain versions at the 12.5k shapes, in
+    """K8-K11 against their plain versions at the 12.5k shapes, in
     float32 (the refined solve's inner preconditioner) and float64 (cg)."""
     from manifold_flow_tpu_torch.fem import assembly
     from manifold_flow_tpu_torch.fem.operator import make_operator
@@ -1081,7 +804,6 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
           f"members, {tables.asm_dst.shape[0]} non-zero coarse entries, "
           f"{tables.asm_src.shape[0]} triangle-local contributions", flush=True)
     gen = torch.Generator().manual_seed(1)
-    flush = torch.ones(64 << 20, dtype=torch.float32, device=pot.device)  # 256 MiB
     for dtype, ctype, tol in ((torch.float32, "float", TOL_F32),
                               (torch.float64, "double", TOL_F64)):
         op = op64.astype(dtype)
@@ -1099,59 +821,23 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
         r, z = (torch.randn((t, n_dof), generator=gen, dtype=torch.float64)
                 .to(pot.device, dtype) for _ in range(2))
         rc = kco.plain_coarse_restrict(r, pre.r_blk, pre.members)
-        # K9's library yardstick: P^T as a (2Nc, 2N) CSR matrix on r in
-        # column layout, both built before the timing.
-        pt_coo = restriction_coo(pre.r_blk, pre.members)
-        pt_csr, r_col = pt_coo.to_sparse_csr(), r.t().contiguous()
-        lib_err = float((torch.sparse.mm(pt_csr, r_col).t() - rc).abs().max())
-        print(f"[kernels] coarse_restrict<{ctype}>: torch.sparse.mm of P^T "
-              f"({pt_csr.values().numel()} non-zeros) on r in column layout differs "
-              f"from the plain version by {lib_err / float(rc.abs().max()):.3e} of "
-              f"its largest entry", flush=True)
-        if lib_err > tol * float(rc.abs().max()):
-            raise AssertionError(f"coarse_restrict<{ctype}>: torch.sparse.mm of P^T "
-                                 f"does not compute rc")
         checks.compare(f"coarse_restrict<{ctype}>", cu,
                        "manifold_flow_tpu/solve/coarse.py:243",
                        lambda: (kco.coarse_restrict(r, pre.r_blk, pre.members),),
                        lambda: (kco.plain_coarse_restrict(r, pre.r_blk, pre.members),),
-                       tol, inputs=(r, pre.r_blk, pre.members), ops=8 * t * mesh.n_vertices,
-                       library=lambda: torch.sparse.mm(pt_csr, r_col))
+                       tol, inputs=(r, pre.r_blk, pre.members), ops=8 * t * mesh.n_vertices)
         checks.compare(f"coarse_gemv<{ctype}>", cu,
                        "manifold_flow_tpu/solve/coarse.py:267",
                        lambda: (kco.coarse_gemv(pre.ac_inv, rc),),
                        lambda: (kco.plain_coarse_gemv(pre.ac_inv, rc),), tol,
-                       inputs=(pre.ac_inv, rc), mm_ops=2 * pre.ac_inv.numel(),
-                       library=lambda: torch.matmul(pre.ac_inv, rc[..., None]))
-        # In the solve the other kernels of an iteration evict A_c^-1 from
-        # L2 between two launches of K10, and leave their written lines
-        # dirty there; back to back part of A stays. Timed again with the
-        # L2 cleared by a read (its lines stay clean, so nothing is written
-        # back inside the timed kernels), then filled with dirty lines by a
-        # write (each evicted line is written back inside them).
-        bound_us = checks.rows[f"coarse_gemv<{ctype}>"]["bound_ms"] * 1e3
-        mib = flush.numel() * flush.element_size() >> 20
-
-        def not_flush(name: str) -> bool:  # the library call's kernels only
-            return "reduce_kernel" not in name and "FillFunctor" not in name
-        for how, before in ((f"cleared by a {mib} MiB read", flush.sum),
-                            (f"dirtied by a {mib} MiB write", lambda: flush.fill_(1.0))):
-            us = device_us(lambda: kco.coarse_gemv(pre.ac_inv, rc), mine=own_kernel,
-                           before=before)
-            lib_us = device_us(lambda: torch.matmul(pre.ac_inv, rc[..., None]),
-                               mine=not_flush, before=before)
-            print(f"[kernels] coarse_gemv<{ctype}> with the L2 {how} before each "
-                  f"call: device {fmt_us(us)}, bound/device "
-                  f"{bound_us / us if us else float('nan'):.3f}; matmul {fmt_us(lib_us)}",
-                  flush=True)
+                       inputs=(pre.ac_inv, rc), mm_ops=2 * pre.ac_inv.numel())
         # One matrix shared by every frame (coarse_a1='mean'), from L2.
         shared = pre.ac_inv[:1].contiguous()
         checks.compare(f"coarse_gemv<{ctype}>+shared", cu,
                        "manifold_flow_tpu/solve/coarse.py:267",
                        lambda: (kco.coarse_gemv(shared, rc),),
                        lambda: (kco.plain_coarse_gemv(shared, rc),), tol,
-                       inputs=(shared, rc), mm_ops=2 * t * shared.numel(),
-                       library=lambda: torch.matmul(shared, rc[..., None]))
+                       inputs=(shared, rc), mm_ops=2 * t * shared.numel())
         # A row length of 2 mod 4: every other row of the matrix starts
         # 8 bytes past a 16-byte boundary (random entries).
         a394 = torch.randn((t, 394, 394), generator=gen, dtype=torch.float64).to(pot.device, dtype)
@@ -1160,8 +846,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        "manifold_flow_tpu/solve/coarse.py:267",
                        lambda: (kco.coarse_gemv(a394, x394),),
                        lambda: (kco.plain_coarse_gemv(a394, x394),), tol,
-                       inputs=(a394, x394), mm_ops=2 * a394.numel(),
-                       library=lambda: torch.matmul(a394, x394[..., None]))
+                       inputs=(a394, x394), mm_ops=2 * a394.numel())
         del a394, x394
         yc = kco.plain_coarse_gemv(pre.ac_inv, rc)
 
@@ -1189,24 +874,6 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                            kco.coarse_restrict(r, pre.r_blk, pre.members)):
             raise AssertionError(f"coarse_restrict<{ctype}>: two calls on the same "
                                  f"inputs differ")
-        # For the record only (not ranked): no one PyTorch call computes K11;
-        # P as a (2N, 2Nc) CSR matrix in torch.sparse.addmm, then
-        # torch.linalg.vecdot, on column layouts built before the timing.
-        p_csr = pt_coo.t().coalesce().to_sparse_csr()
-        z_col, yc_col = z.t().contiguous(), yc.t().contiguous()
-
-        def two_calls():
-            zn = torch.sparse.addmm(z_col, p_csr, yc_col)
-            return zn, torch.linalg.vecdot(r_col, zn, dim=0)
-        want = prolong(kco.plain_coarse_prolong_dot)
-        zn, rzn = two_calls()
-        rel = max(float((zn.t() - want[0]).abs().max() / want[0].abs().max()),
-                  float((rzn - want[1]).abs().max() / want[1].abs().max()))
-        print(f"[kernels] coarse_prolong_dot<{ctype}>: for the record, "
-              f"torch.sparse.addmm + torch.linalg.vecdot {time_ms(two_calls):.4f} ms "
-              f"(device {fmt_us(device_us(two_calls))}), relative difference "
-              f"{rel:.3e} from the plain version; not ranked", flush=True)
-        del p_csr, pt_csr, pt_coo
 
         # K3's p.Ap at the 12.5k shapes (97 x 25088), on the operator's Ap.
         ap = kfem.plain_fem_matvec(z, op.dof, op.blocks2, op.g, op.w_scale, op.lambda_,
@@ -1216,7 +883,6 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
                        "manifold_flow_tpu/solve/cg.py:30",
                        lambda: (kfem.pcg_dot(z, ap),), lambda: (kfem.plain_pcg_dot(z, ap),),
                        tol, inputs=(z, ap), ops=2 * t * n_dof,
-                       library=lambda: torch.linalg.vecdot(z, ap),
                        launches_key=f"pcg_dot<{ctype}>")
         # K3's direction p = z + (rz_new / rz) p at the 12.5k shapes, in place.
         rz_new, rz_old = (torch.rand(t, generator=gen, dtype=torch.float64).to(
@@ -1238,7 +904,7 @@ def check_coarse_kernels(checks: KernelChecks, mesh, pot, times) -> None:
 
         # K1 (the float32 matvec, the float64 residual) and K3's update at
         # the 12.5k shapes.
-        check_matvec(checks, mesh, op, g64, r,
+        check_matvec(checks, mesh, op, r,
                      f64.to(dtype) if dtype == torch.float64 else None, tol,
                      suffix="@12.5k")
         reg = assembly.corner_regularization(mesh, dtype).contiguous()
@@ -1547,26 +1213,19 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
         (w,), _ = kf.plain_rbf_fit(c, eps, real, "multiquadric")
         (wr, wi), _ = kf.plain_rbf_fit(c, eps, unit, "multiquadric")
         b = kf.rbf_phi(kf.pairwise_dist(x, c), eps, "multiquadric")
-
-        def library(*planes):
-            bl = kf.rbf_phi(torch.cdist(x, c, compute_mode="donot_use_mm_for_euclid_dist"),
-                            eps, "multiquadric")
-            outs = [(bl @ p).T for p in planes]
-            return outs[0] if len(outs) == 1 else torch.atan2(outs[1], outs[0])
         checks.compare(f"rbf_eval<{ctype}>{suffix}", cu,
                        "manifold_flow_tpu/ops/interpolate.py:133",
                        lambda: (kf.rbf_eval(x, c, eps, w, "multiquadric"),),
                        lambda: (kf.plain_rbf_eval(x, c, eps, w, "multiquadric"),), tol,
                        scales=[float((b.abs() @ w.abs()).max())],
                        inputs=(x, c, eps, w), ops=14 * n * e, mm_ops=2 * n * e * t,
-                       library=lambda: library(w), launches_key=f"rbf_eval<{ctype}>+real")
+                       launches_key=f"rbf_eval<{ctype}>+real")
         checks.compare(f"rbf_eval<{ctype}>+phase{suffix}", cu,
                        "manifold_flow_tpu/ops/interpolate.py:71",
                        lambda: (kf.rbf_eval(x, c, eps, wr, "multiquadric", wi),),
                        lambda: (kf.plain_rbf_eval(x, c, eps, wr, "multiquadric", wi),), tol,
                        inputs=(x, c, eps, wr, wi), ops=14 * n * e + 20 * n * t,
-                       mm_ops=4 * n * e * t, library=lambda: library(wr, wi),
-                       measure=phase_measure(b, wr, wi),
+                       mm_ops=4 * n * e * t, measure=phase_measure(b, wr, wi),
                        launches_key=f"rbf_eval<{ctype}>+phase")
 
 
@@ -1620,23 +1279,18 @@ def fit_measure(x, c, eps, planes, ctype: str, label: str, kind: str = "multiqua
 def check_fit(checks: KernelChecks, cu: str, x, c, eps, planes, tag: str,
               suffix: str) -> None:
     """K17 rbf_fit (one plane, or the two of the phases) against
-    plain_rbf_fit, beside torch.linalg.solve of the same system (the
-    library call). Its bound: 2/3 E^3 + 2 E^2 R operations (R = planes T)
+    plain_rbf_fit. Its bound: 2/3 E^3 + 2 E^2 R operations (R = planes T)
     or the bytes of c, the planes and W."""
     from manifold_flow_tpu_torch.kernels import fields as kf
 
     ctype = "double" if c.dtype == torch.float64 else "float"
     e, r = c.shape[0], len(planes) * planes[0].shape[0]
-    rhs = torch.cat([p.T for p in planes], dim=1)
     key = f"rbf_fit<{ctype}>{tag}{suffix}"
     checks.compare(key, cu, "manifold_flow_tpu/ops/interpolate.py:90",
                    lambda: kf.rbf_fit(c, eps, planes, "multiquadric"),
                    lambda: kf.plain_rbf_fit(c, eps, planes, "multiquadric"),
                    TOL_FIT[ctype], ops=2.0 / 3.0 * e ** 3 + 2.0 * e * e * r,
                    nbytes=tensor_bytes(c, *planes) + e * r * c.element_size(),
-                   library=lambda: torch.linalg.solve(kf.rbf_phi(torch.cdist(
-                       c, c, compute_mode="donot_use_mm_for_euclid_dist"), eps,
-                       "multiquadric"), rhs),
                    measure=fit_measure(x, c, eps, planes, ctype, key),
                    launches_key=f"rbf_fit<{ctype}>{tag or '+real'}")
 
@@ -1705,16 +1359,16 @@ def hold_to_plain(mesh, v_world, speed, v_max, cfg) -> dict:
             "longest": int(sl.lengths.max()), "centers": int(uniq.numel())}
 
 
-def run_trial(mesh, pot, card: str, tag: str = "trial", workdir: Path | None = None) -> dict:
+def run_trial(mesh, pot, tag: str = "trial", workdir: Path | None = None) -> dict:
     """One trial's analysis path through the port's command line: `flow
     --classify`, then `streamline` and `winding` on its artifacts (default
     config), every launch count set to 0 just before. Checks that every
     frame converged, each kernel of TRIAL_KERNELS launched, the artifacts
     reload equal to the same stages run in memory, and that walks, classes
     and ring counts equal the plain versions' on the same CUDA tensors, then
-    once more with reference_quirks=True; returns the launch counts. The
-    calls' walls go to CLI_WALLS[tag]; with `workdir` its inputs (surface.ply,
-    movie.npy) and artifacts (out/) stay there for the batch phases."""
+    once more with reference_quirks=True; returns the launch counts. With
+    `workdir` its inputs (surface.ply, movie.npy) and artifacts (out/) stay
+    there for the batch phases."""
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.pipeline import cli, stages
     from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -1722,14 +1376,12 @@ def run_trial(mesh, pot, card: str, tag: str = "trial", workdir: Path | None = N
 
     def call(argv):
         stdout = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
             rc = cli.main(argv)
-        wall = time.perf_counter() - t0
         report = json.loads(stdout.getvalue().strip().splitlines()[-1])
         if rc != 0 or report["device"] != str(mesh.device.type):
             raise AssertionError(f"{argv[0]} CLI: rc {rc}, report {report}")
-        return report, wall
+        return report
 
     with scratch_dir("chip_smoke_trial_", workdir) as tmp:
         tmp = Path(tmp)
@@ -1744,15 +1396,12 @@ def run_trial(mesh, pot, card: str, tag: str = "trial", workdir: Path | None = N
             warnings.simplefilter("error", stages.ConvergenceWarning)
             torch.cuda.synchronize()
             reset_launches()
-            flow, flow_s = call(["flow", *surface, "--potentials", str(tmp / "movie.npy"),
-                                 "--sfreq", "512", "--classify", "--out-dir", str(out)])
-            lines_r, stream_s = call(["streamline", *field])
-            wind_r, wind_s = call(["winding", *field, "--singularities",
-                                   str(out / "singularity_points.pkl")])
+            flow = call(["flow", *surface, "--potentials", str(tmp / "movie.npy"),
+                         "--sfreq", "512", "--classify", "--out-dir", str(out)])
+            call(["streamline", *field])
+            call(["winding", *field, "--singularities", str(out / "singularity_points.pkl")])
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
-        CLI_WALLS[tag] = {"flow --classify": flow_s, "streamline": stream_s,
-                          "winding": wind_s}
         if not flow["converged"]:
             raise AssertionError(f"{tag}: flow did not converge: {flow}")
         idle = [k for k in TRIAL_KERNELS if launches[k] == 0]
@@ -1805,8 +1454,6 @@ def run_trial(mesh, pot, card: str, tag: str = "trial", workdir: Path | None = N
     qwl = stages.winding_stage(fmesh, vel.v_world, qpts, qcfg)
 
     per_frame = np.array([len(v) for v in lines.values()])
-    tf = flow["timings"]
-    ts = lines_r["timings"]
     print(f"[{tag}] {fmesh.n_vertices} vertices x {movie.shape[0]} frames: flow "
           f"--classify, streamline, winding through the CLI; all {t_v} frames "
           f"converged, artifacts reload equal to the in-memory run; launches "
@@ -1824,16 +1471,7 @@ def run_trial(mesh, pot, card: str, tag: str = "trial", workdir: Path | None = N
           f"{quirks['longest']}, {len(qwl)} frames with winding lines, "
           f"{sum(len(x) for x in qlabels)} labelled points; equal to the plain "
           f"versions", flush=True)
-    print(f"[{tag}] wall: flow --classify {flow_s * 1e3:.2f} ms (classify "
-          f"{tf['classify'] * 1e3:.2f} ms of it, K7 + K12 + the rows' copy), "
-          f"streamline {stream_s * 1e3:.2f} ms (load {ts['load'] * 1e3:.2f}, trace "
-          f"{ts['trace'] * 1e3:.2f}, compact {ts['compact'] * 1e3:.2f}, writes "
-          f"{ts['submit'] * 1e3:.2f}), winding {wind_s * 1e3:.2f} ms (load "
-          f"{wind_r['timings']['load'] * 1e3:.2f}, winding "
-          f"{wind_r['timings']['winding'] * 1e3:.2f}); on {card}", flush=True)
     return launches
-
-
 
 
 FIELD_KERNELS = ("wave_speed<double>", "rbf_fit<double>", "rbf_eval<double>")
@@ -1851,32 +1489,8 @@ FIELD_VARIANTS = (
 )
 
 
-def svd_bound(x) -> tuple:
-    """B15's thin SVD of an (m, n) movie, m <= n, by its least work: the
-    Gram matrix A A^H and V = A^H U Sigma^-1, m^2 n multiply-adds each, at
-    the product rate (a complex multiply-add is four real ones), and the
-    m x m eigenproblem, ~9 m^3 operations (x4 complex) outside it; bytes:
-    A read once, U, sigma and V^H written once."""
-    m, n = sorted(x.shape)
-    c = 4 if x.is_complex() else 1
-    esz = x.element_size()
-    nbytes = (m * n + m * m + m * n) * esz + m * esz // (2 if x.is_complex() else 1)
-    return bound_of(nbytes, 9 * c * m ** 3, 2 * 2 * c * m * m * n)
-
-
-def hilbert_bound(x) -> tuple:
-    """The Hilbert transform of a real (N, E) movie along axis 0: an FFT and
-    an inverse FFT of each column, 5 N log2 N operations each; bytes: the
-    real input read once, the complex output written once."""
-    import math
-
-    length, cols = x.shape
-    return bound_of(x.numel() * x.element_size() * 3,
-                    2 * 5 * length * math.log2(length) * cols, 0.0)
-
-
-def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
-               demo: bool = True, workdir: Path | None = None) -> dict:
+def run_fields(mesh, v_k_csv: Path, tag: str = "fields", demo: bool = True,
+               lu_free: bool = True, workdir: Path | None = None) -> dict:
     """The field stages through the port's command line, every launch count
     set to 0 just before: `interpolate` of 64 electrodes' 1229-sample movie
     (electrodes.tsv, data.npy) with and without --phases, `wavespeed
@@ -1884,12 +1498,14 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
     the interpolated movie, `decompose --mode concat` and `--mode complex` on
     the flow CLI's V_k.csv, and, with `demo`, `demo` at its defaults (its
     own 24 x 24 patch, whatever the mesh). Checks that K16 and K17 launched,
-    the artifacts reload equal to the same stages run in memory, the SVD's
-    sigma against numpy's LAPACK SVD on the host (1e-10 of the largest) and
-    its rank-K reconstruction (1e-8 of its largest entry), and the demo's
-    report; returns the launch counts, with each FIELD_VARIANTS entry's.
-    The calls' walls go to CLI_WALLS[tag]; with `workdir` the inputs
-    (surface.ply, electrodes.tsv, data.npy) and artifacts (out/) stay there."""
+    the artifacts reload equal to the same stages run in memory, under
+    torch.profiler, which with `lu_free` must show no LU library kernel
+    (getrf, getrs; those found are printed), the SVD's sigma against
+    numpy's LAPACK SVD on the host (1e-10 of the largest) and its rank-K
+    reconstruction (1e-8 of its largest entry), and the demo's report;
+    returns the launch counts, with each FIELD_VARIANTS entry's. With
+    `workdir` the inputs (surface.ply, electrodes.tsv, data.npy) and
+    artifacts (out/) stay there."""
     from manifold_flow_tpu_torch.geometry import synthetic
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.pipeline import cli, stages
@@ -1909,16 +1525,14 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
     def call(name, argv):
         stdout = io.StringIO()
         before = dict(LAUNCHES)
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
             rc = cli.main(argv)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         per_call[name] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         report = json.loads(stdout.getvalue().strip().splitlines()[-1])
         if rc != 0 or report["device"] != str(mesh.device.type):
             raise AssertionError(f"{argv[0]} CLI: rc {rc}, report {report}")
-        return report, wall
+        return report
 
     with scratch_dir(f"chip_smoke_{tag}_", workdir) as tmp:
         tmp = Path(tmp)
@@ -1957,7 +1571,6 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
                 argvs["demo"] = ["demo", "--out-dir", str(out / "demo")]
             runs = {name: call(name, argv) for name, argv in argvs.items()}
             launches = dict(LAUNCHES)
-        CLI_WALLS[tag] = {name: wall for name, (_, wall) in runs.items()}
         launches.update({key: per_call[name][entry] for key, name, entry in FIELD_VARIANTS})
         idle = [k for k in FIELD_KERNELS + tuple(v[0] for v in FIELD_VARIANTS)
                 if launches[k] == 0]
@@ -1968,19 +1581,26 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
         if set(fits.values()) != {1}:
             raise AssertionError(f"{tag}: rbf_fit<double> must launch once a call: {fits}")
 
-        # The same stages in memory, on the same inputs.
+        # The same stages in memory, on the same inputs, under the profiler:
+        # K17 fits the interpolants, no LU library kernel runs.
         cfg = PipelineConfig()
         fmesh = stages.load_surface(tmp / "surface.ply", device=mesh.device)
         ecoords = mio.load_grid_electrodes(tmp / "electrodes.tsv")
-        amp = stages.interpolate_stage(fmesh, ecoords, data, cfg, sfreq=SFREQ)
-        phase = stages.interpolate_stage(fmesh, ecoords, data, cfg, sfreq=SFREQ, phases=True)
         amp_file, phase_file = mio.load_indexed_csv(amp_csv), mio.load_indexed_csv(phase_csv)
-        ws = {method: stages.wavespeed_stage(fmesh, movie, 1.0 / SFREQ, method=method)
-              for method, movie in (("phase", phase_file), ("amplitude", amp_file))}
         v_k = mio.load_indexed_csv(v_k_csv)
-        modes = {mode: stages.decompose_stage(torch.as_tensor(v_k, device=mesh.device),
-                                              cfg, mode=mode)
-                 for mode in ("concat", "complex")}
+        with profiled() as prof:
+            amp = stages.interpolate_stage(fmesh, ecoords, data, cfg, sfreq=SFREQ)
+            phase = stages.interpolate_stage(fmesh, ecoords, data, cfg, sfreq=SFREQ,
+                                             phases=True)
+            ws = {method: stages.wavespeed_stage(fmesh, movie, 1.0 / SFREQ, method=method)
+                  for method, movie in (("phase", phase_file), ("amplitude", amp_file))}
+            modes = {mode: stages.decompose_stage(torch.as_tensor(v_k, device=mesh.device),
+                                                  cfg, mode=mode)
+                     for mode in ("concat", "complex")}
+            torch.cuda.synchronize()
+        lu = [e.key for e in device_events(prof) if "getrf" in e.key or "getrs" in e.key]
+        if lu and lu_free:
+            raise AssertionError(f"{tag}: the field stages ran LU library kernels: {lu}")
         same = {"interpolation_data.csv": np.array_equal(amp_file, amp.cpu().numpy()),
                 "interpolation_phases_data.csv": np.array_equal(phase_file,
                                                                 phase.cpu().numpy())}
@@ -2012,23 +1632,7 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
             raise AssertionError(f"{tag} {mode} SVD against numpy: sigma {sig:.3e} "
                                  f"(gate 1e-10), rank-{k} reconstruction {rec:.3e} (gate 1e-8)")
         svd_err[mode] = (sig, rec, k)
-    # B15's library calls at this size: the SVDs of decompose, the FFTs of
-    # the Hilbert transform (interpolate --phases).
-    from manifold_flow_tpu_torch.ops.phase import hilbert
-
-    vt = torch.as_tensor(v_k, device=mesh.device)
-    movies = {"concat f64": vt, "complex c128": torch.complex(vt[:, :n], vt[:, n:])}
-    lib = {}
-    for name, x in movies.items():
-        def call(x=x):
-            return torch.linalg.svd(x, full_matrices=False)
-        lib[f"svd {name} {tuple(x.shape)}"] = (time_ms(call, reps=3, rounds=3),
-                                               device_us(call, calls=3), svd_bound(x))
-    dt = torch.as_tensor(data, device=mesh.device)
-    lib[f"hilbert fft+ifft {tuple(data.shape)}"] = (
-        time_ms(lambda: hilbert(dt, axis=0)), device_us(lambda: hilbert(dt, axis=0)),
-        hilbert_bound(dt))
-    shown = runs["demo"][0] if demo else None
+    shown = runs["demo"] if demo else None
     if shown is not None and not (shown["converged"] and shown["matched"] > 0):
         raise AssertionError(f"demo: {shown}")
     finite = {method: float(torch.isfinite(s).float().mean()) for method, s in ws.items()}
@@ -2036,34 +1640,25 @@ def run_fields(mesh, v_k_csv: Path, card: str, tag: str = "fields",
           f"{FIELD_SAMPLES} samples -> {tuple(amp.shape)} interpolated frames: "
           f"interpolate (+ --phases), wavespeed (phase, amplitude), decompose (concat, "
           f"complex) on V_k {tuple(v_k.shape)}{', demo' if demo else ''}; artifacts "
-          f"reload equal to the in-memory run; launches " + ", ".join(
+          f"reload equal to the in-memory run; LU library kernels in them: "
+          f"{lu or 'none'}; launches " + ", ".join(
               f"{k}={launches[k]}" for k in FIELD_KERNELS + tuple(
                   v[0] for v in FIELD_VARIANTS)), flush=True)
     print(f"[{tag}] SVD against numpy LAPACK: " + "; ".join(
         f"{mode} sigma {s:.3e} of the largest (gate 1e-10), rank-{k} "
         f"reconstruction {r:.3e} (gate 1e-8)" for mode, (s, r, k) in svd_err.items())
-        + f"; energy % (concat) {runs['decompose concat'][0]['energy_pct']}; finite "
-        f"speeds {finite}; " + (
-            f"demo: frames {shown['frames']}, matched {shown['matched']}, missed "
-            f"{shown['missed']}, spare {shown['spare']}, err_max {shown['err_max']:.4f}; "
-            if demo else "") +
-        "B15 library ms: " + ", ".join(
-            f"{k} {ms:.4f} (device {fmt_us(dev)}, bound {bound[0]:.5f} ms by "
-            f"{bound[1]}: {bound[2]} B, {bound[3]:.4g} ops)"
-            for k, (ms, dev, bound) in lib.items()), flush=True)
-    print(f"[{tag}] wall (ms; load, compute, write): " + "; ".join(
-        f"{name} {wall * 1e3:.2f} (" + ", ".join(
-            f"{k} {v * 1e3:.2f}" for k, v in report["timings"].items()
-            if isinstance(v, float)) + ")"
-        for name, (report, wall) in runs.items()) + f"; on {card}", flush=True)
+        + f"; energy % (concat) {runs['decompose concat']['energy_pct']}; finite "
+        f"speeds {finite}" + (
+            f"; demo: frames {shown['frames']}, matched {shown['matched']}, missed "
+            f"{shown['missed']}, spare {shown['spare']}, err_max {shown['err_max']:.4f}"
+            if demo else ""), flush=True)
     return launches
 
 
-def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
-             kernels=FLOW_KERNELS, cell: float = 60.0 / 55.0,
-             keep_v_k: Path | None = None) -> dict:
-    """The flow stage through the port's command line (phase 6 on the bench
-    problem, phase 11 on the 12.5k surface); returns the launch counts of
+def run_flow(mesh, pot, truth, tag: str = "flow", kernels=FLOW_KERNELS,
+             cell: float = 60.0 / 55.0, keep_v_k: Path | None = None) -> dict:
+    """The flow stage through the port's command line ([flow] on the bench
+    problem, [flow12k] on the 12.5k surface); returns the launch counts of
     that run. `cell` is the grid spacing the source distances are given in;
     `keep_v_k` receives a copy of the V_k.csv it wrote."""
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -2084,12 +1679,9 @@ def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
             warnings.simplefilter("error", stages.ConvergenceWarning)
             torch.cuda.synchronize()
             reset_launches()
-            t0 = time.perf_counter()
             with contextlib.redirect_stdout(stdout):
                 rc = cli.main(argv)
-            wall = time.perf_counter() - t0
             launches = dict(LAUNCHES)
-        CLI_WALLS[tag] = {"flow": wall}
         report = json.loads(stdout.getvalue().strip().splitlines()[-1])
         if (rc != 0 or not report["converged"]
                 or not report["device"].startswith(mesh.device.type)):
@@ -2134,8 +1726,6 @@ def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
     truth = truth.cpu().numpy()
     near = [[float(np.linalg.norm(p - src, axis=-1).min()) / cell if len(p)
              else float("inf") for p in pts] for src in truth]
-    tv = report["timings"]
-    solve_s = tv["dispatch"] + tv["artifact_starts"] + tv["solve_wait"]
     print(f"[{tag}] cli flow on {fmesh.n_vertices} vertices x {movie.shape[0]} "
           f"frames: all {t_v} frames converged, {report['iterations']} inner "
           f"iterations, V_k {v_k_file.shape}, artifacts reload equal to the "
@@ -2147,14 +1737,6 @@ def run_flow(mesh, pot, truth, card: str, tag: str = "flow",
           "frames): " + "; ".join(
               f"source {i}: {float(np.median(d)):.3f} / {max(d):.3f}"
               for i, d in enumerate(near)), flush=True)
-    print(f"[{tag}] wall {wall * 1e3:.2f} ms (whole CLI call, PLY and movie "
-          f"load included): solve + recombine {solve_s * 1e3:.2f} ms (dispatch "
-          f"{tv['dispatch'] * 1e3:.2f}, copy starts "
-          f"{tv['artifact_starts'] * 1e3:.3f}, wait {tv['solve_wait'] * 1e3:.2f}),"
-          f" detect + compact + singularity_points.pkl "
-          f"{tv['singularity_stage'] * 1e3:.2f} ms, writes of e.csv, V_k.csv "
-          f"and the speed pickle {tv['artifact_submits'] * 1e3:.2f} ms; "
-          f"on {card}", flush=True)
     return launches
 
 
@@ -2171,84 +1753,60 @@ def band(iterations: int, expected: int) -> str:
     return f"inside {expected} +- 2"
 
 
-def best_of(fn, runs: int = 3) -> float:
-    """Best host wall time of fn() in seconds over `runs` calls."""
-    best = float("inf")
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        best = min(best, time.perf_counter() - t0)
-    return best
-
-
-def run_twolevel(mesh12, pot12, times12, mesh, pot, times, card: str) -> dict:
-    """Phase 10: the 12.5k refined solve through compute_velocity_fields
-    with precond='auto' (two-level), then the crossover: both
-    preconditioners at 12.5k and on the bench surface, and a float64 cg
-    two-level solve at 12.5k. Returns the launch counts of that cg solve
-    (the phase that drives the float64 coarse kernels)."""
+def run_twolevel(mesh12, pot12, times12, v_ref12, mesh, pot, times) -> dict:
+    """The 12.5k refined solve through compute_velocity_fields with
+    precond='auto' (two-level), then both preconditioners at 12.5k and on
+    the bench surface (Jacobi at 12.5k and two-level at 3.1k launch
+    instances no other phase does), and a float64 cg two-level solve at
+    12.5k. Returns the launch counts of that cg solve (the phase that
+    drives the float64 coarse kernels)."""
     from manifold_flow_tpu_torch.solve import coarse
     from manifold_flow_tpu_torch.solve.api import TWO_LEVEL_MIN_VERTICES
 
     refined = dict(method="refined", tol=1e-6, max_iter=4000)
     t_v = pot12.shape[0] - 1
-    v_ref = spsolve_reference(mesh12, pot12, times12, 2)
-    # The cold call builds the aggregation tables (host) of a mesh whose
-    # tables are not cached yet.
-    t0 = time.perf_counter()
     res, launches = counted_solve(mesh12, pot12, times12, precond="auto", **refined)
-    cold = time.perf_counter() - t0
-    rmse = check_solution("twolevel 12.5k", res, v_ref, t_v, mesh12.n_dof)
+    rmse = check_solution("twolevel 12.5k", res, v_ref12, t_v, mesh12.n_dof)
     idle = [k for k in COARSE_KERNELS if launches[f"{k}<float>"] == 0]
     if idle:
         raise AssertionError(f"coarse kernels of the 12.5k refined solve never "
                              f"launched: {idle}")
     tables = coarse.build_tables(mesh12)  # the cached tables the solve used
-    warm = best_of(lambda: solve(mesh12, pot12, times12, precond="auto", **refined))
     print(f"[twolevel] {mesh12.n_vertices} vertices x {t_v} frames, refined tol "
           f"1e-6, precond 'auto' (two-level from {TWO_LEVEL_MIN_VERTICES}): "
           f"inner iterations {res.iterations} ({band(res.iterations, 60)}), all "
-          f"frames converged, RMSE vs "
-          f"spsolve (2 frames) {rmse:.3e} (gate {RMSE_GATE:.0e}); coarse space "
-          f"{tables.n_coarse} aggregates; frames with a zeroed coarse inverse "
-          f"{res.coarse_zeroed}; cold call {cold * 1e3:.2f} ms (aggregation included), "
-          f"warm best of 3 {warm * 1e3:.2f} ms, {t_v / warm:.1f} frames/s; "
-          f"launches " + ", ".join(f"{k}<float>={launches[f'{k}<float>']}"
-                                   for k in COARSE_KERNELS) + f"; on {card}",
+          f"frames converged, RMSE vs spsolve (2 frames) {rmse:.3e} (gate "
+          f"{RMSE_GATE:.0e}); coarse space {tables.n_coarse} aggregates; frames with "
+          f"a zeroed coarse inverse {res.coarse_zeroed}; launches " + ", ".join(
+              f"{k}<float>={launches[f'{k}<float>']}" for k in COARSE_KERNELS),
           flush=True)
 
     rows = []
     for name, (m, p, tt) in (("12.5k", (mesh12, pot12, times12)),
                              ("3.1k", (mesh, pot, times))):
         for precond in ("two_level", "jacobi"):
-            kw = dict(precond=precond, **refined)
-            r = solve(m, p, tt, **kw)
+            r = solve(m, p, tt, precond=precond, **refined)
             if not bool(r.converged.all()):
                 raise AssertionError(f"{precond} at {name} did not converge")
-            best = best_of(lambda: solve(m, p, tt, **kw))
-            rows.append(f"{name} {precond}: {r.iterations} inner iterations, "
-                        f"{(p.shape[0] - 1) / best:.1f} frames/s "
-                        f"({best * 1e3:.2f} ms)")
-    print("[twolevel] crossover, refined tol 1e-6, best of 3 after a warm-up: "
-          + "; ".join(rows) + f"; on {card}", flush=True)
+            rows.append(f"{name} {precond}: {r.iterations} inner iterations")
+    print("[twolevel] both preconditioners, refined tol 1e-6, every frame converged: "
+          + "; ".join(rows), flush=True)
 
     res_cg, launches_cg = counted_solve(mesh12, pot12, times12, method="cg",
                                         tol=1e-8, max_iter=4000, precond="two_level")
-    rmse_cg = check_solution("cg two-level 12.5k", res_cg, v_ref, t_v, mesh12.n_dof)
+    rmse_cg = check_solution("cg two-level 12.5k", res_cg, v_ref12, t_v, mesh12.n_dof)
     idle = [k for k in COARSE_KERNELS if launches_cg[f"{k}<double>"] == 0]
     if idle:
         raise AssertionError(f"coarse kernels of the 12.5k cg solve never "
                              f"launched: {idle}")
-    best = best_of(lambda: solve(mesh12, pot12, times12, method="cg", tol=1e-8,
-                                 max_iter=4000, precond="two_level"))
     print(f"[twolevel] float64 cg two-level at 12.5k, tol 1e-8: iterations "
           f"{res_cg.iterations}, all frames converged, RMSE vs spsolve "
-          f"{rmse_cg:.3e}, {t_v / best:.1f} frames/s", flush=True)
+          f"{rmse_cg:.3e}", flush=True)
     return launches_cg
 
 
-def run_long(mesh, card: str) -> None:
-    """Phase 12: a 392-frame two-source movie on the bench surface, solved
+def run_long(mesh) -> None:
+    """A 392-frame two-source movie on the bench surface, solved
     in 104-frame windows (frame_chunk='auto', 4 windows) and whole.
 
     Both are held to the RMSE gate against spsolve on frames from every
@@ -2282,12 +1840,6 @@ def run_long(mesh, card: str) -> None:
                                   res._replace(v_k=res.v_k[list(frames)]), v_ref,
                                   len(frames), mesh.n_dof)
             for chunk, res in out.items()}
-    best = {"auto": float("inf"), None: float("inf")}
-    for _ in range(3):
-        for chunk in best:
-            t0 = time.perf_counter()
-            solve(mesh, pot, times, frame_chunk=chunk, **kw)
-            best[chunk] = min(best[chunk], time.perf_counter() - t0)
     dv = float((out["auto"].v_k - out[None].v_k).abs().max())
     vmax = float(out[None].v_k.abs().max())
     if not dv <= RMSE_GATE * vmax:
@@ -2296,181 +1848,31 @@ def run_long(mesh, card: str) -> None:
     print(f"[long] {mesh.n_vertices} vertices x {t_v} velocity frames, refined "
           f"tol {tol:g}: both converged; chunked ({-(-t_v // FRAME_CHUNK_SIZE)} "
           f"windows of {FRAME_CHUNK_SIZE}) "
-          f"{out['auto'].iterations} inner iterations (largest window), "
-          f"{t_v / best['auto']:.1f} frames/s ({best['auto'] * 1e3:.2f} ms); "
-          f"whole {out[None].iterations} inner iterations, "
-          f"{t_v / best[None]:.1f} frames/s ({best[None] * 1e3:.2f} ms); RMSE "
+          f"{out['auto'].iterations} inner iterations (largest window); "
+          f"whole {out[None].iterations} inner iterations; RMSE "
           f"vs spsolve on {len(frames)} frames across the seams {rmse['auto']:.3e} "
           f"chunked, {rmse[None]:.3e} whole (gate {RMSE_GATE:.0e}); max |dv| "
           f"{dv:.3e} (bound RMSE_GATE * max|v| {RMSE_GATE * vmax:.3e}; tol * "
-          f"max|v| {tol * vmax:.3e}); best of 3, in turns, on {card}", flush=True)
+          f"max|v| {tol * vmax:.3e})", flush=True)
 
 
-def run_cholesky(mesh, pot, times, v_ref, v_cg, card: str) -> dict:
-    """Phase 13: method='cholesky' on the bench problem against spsolve and
-    against the float64 cg solve at tol 1e-8; returns its launch counts."""
+def run_cholesky(mesh, pot, times, v_ref, v_cg) -> dict:
+    """method='cholesky' on the bench problem against spsolve and against
+    the float64 cg solve at tol 1e-8; returns its launch counts."""
     t_v, n_dof = pot.shape[0] - 1, mesh.n_dof
-    t0 = time.perf_counter()
     res, launches = counted_solve(mesh, pot, times, method="cholesky")
-    first = time.perf_counter() - t0
     rmse = check_solution("cholesky", res, v_ref, t_v, n_dof)
     idle = [k for k in ("fem_matvec<double>", "frame_factors_rhs<double>")
             if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels of the cholesky path never launched: {idle}")
-    best = best_of(lambda: solve(mesh, pot, times, method="cholesky"), runs=2)
     diff = float((res.v_k - v_cg).abs().max()) / float(v_cg.abs().max())
     print(f"[cholesky] {mesh.n_vertices} vertices x {t_v} frames (dense "
           f"{n_dof}x{n_dof} in f64, one frame at a time, 2 refinement steps): "
           f"all frames converged to tol 1e-10, RMSE vs spsolve {rmse:.3e} (gate "
           f"{RMSE_GATE:.0e}); max |v - v_cg| / max|v_cg| {diff:.3e} (cg tol "
-          f"1e-8); wall {first * 1e3:.2f} ms first call, {best * 1e3:.2f} ms "
-          f"best of 2, {t_v / best:.1f} frames/s; on {card}", flush=True)
+          f"1e-8)", flush=True)
     return launches
-
-
-def s3_end_to_end(mesh, pot, times, card: str) -> None:
-    """Phase 7: bench.py:235-255's S3 end-to-end frames/s, in float64,
-    beside the solve alone; the two are timed in turns, best of 3 each."""
-    from manifold_flow_tpu_torch.ops import singularity as sing
-    from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
-
-    refined = dict(method="refined", tol=1e-6, max_iter=4000)
-
-    def s3():
-        res = solve(mesh, pot, times, **refined)
-        v_world, speed, v_max = velocity_to_world_and_speed(res.v_k, mesh.basis)
-        sing.detect(mesh, v_world, speed=speed, v_max=v_max)
-        torch.cuda.synchronize()
-
-    def solve_only():
-        solve(mesh, pot, times, **refined)
-
-    s3()
-    best = {"s3": float("inf"), "solve": float("inf")}
-    for _ in range(3):
-        for name, fn in (("s3", s3), ("solve", solve_only)):
-            t0 = time.perf_counter()
-            fn()
-            best[name] = min(best[name], time.perf_counter() - t0)
-    t_v = pot.shape[0] - 1
-    print(f"[s3] S3 end-to-end frames/s {t_v / best['s3']:.1f} (best of 3: "
-          f"{best['s3'] * 1e3:.2f} ms: refined solve tol 1e-6 + recombine + "
-          f"speed + detect, float64); solve alone {t_v / best['solve']:.1f} "
-          f"frames/s ({best['solve'] * 1e3:.2f} ms); on {card}", flush=True)
-
-
-def profile_analysis(mesh, res, card: str) -> None:
-    """Phase [profile]: device time per kernel and the device's busy share
-    over one warm analysis chain on the bench problem, in memory, default
-    config: detection with classification (K6, K7, K12), streamlines (K13,
-    K14 and the polylines on the host) and winding lines (ring tables, K15)
-    on the detection stage's centers."""
-    from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
-    from manifold_flow_tpu_torch.pipeline import stages
-    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
-
-    cfg = PipelineConfig()
-    v_world, speed, v_max = velocity_to_world_and_speed(res.v_k, mesh.basis)
-    walls = {}
-
-    def chain():
-        t0 = time.perf_counter()
-        pts, _, centers = stages.singularity_stage(
-            mesh, v_world, cfg, classify=True, return_centers=True, speed=speed,
-            v_max=v_max)
-        t1 = time.perf_counter()
-        stages.streamline_stage(mesh, v_world, cfg)
-        t2 = time.perf_counter()
-        stages.winding_stage(mesh, v_world, pts, cfg, centers=centers)
-        torch.cuda.synchronize()
-        walls.update(classify=t1 - t0, streamline=t2 - t1,
-                     winding=time.perf_counter() - t2)
-
-    chain()  # warm: tables cached
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        chain()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = device_events(prof)
-    dev_us = sum(e.self_device_time_total for e in events)
-    if dev_us > 0:
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-        mine = [e for e in events if any(k in e.key for k in (
-            "classify_", "next_hop", "trace_walks", "pack_walks", "winding_profile"))]
-        print(f"[profile] analysis chain (detect + classify, streamlines, winding "
-              f"lines; in memory): device busy {dev_us / wall_us:.3f} of "
-              f"{wall_us / 1e3:.2f} ms wall (profiled run; stages "
-              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in walls.items())
-              + "); by kernel: " + "; ".join(
-                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                  for e in top) + "; K12-K15: " + "; ".join(
-                  f"{e.key[:40]} {e.self_device_time_total:.1f} us x{e.count}"
-                  for e in mine) + f"; on {card}", flush=True)
-    else:
-        print("[profile] the profiler recorded no device time: not measured",
-              flush=True)
-
-
-def profile_fields(mesh, pot, v_k, card: str) -> None:
-    """Phase [profile]: device time per kernel and the device's busy share
-    over one warm field chain on the bench surface, in memory, default
-    config: interpolate (K17's fit and evaluation) of the 64 electrodes'
-    1229-sample movie and of its Hilbert phases (FFTs), wave speeds of both
-    (K16), and the concat and complex SVDs of the refined solve's v_k. No
-    LU library kernel (getrf, getrs) may run in it."""
-    from manifold_flow_tpu_torch.geometry import synthetic
-    from manifold_flow_tpu_torch.pipeline import stages
-    from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
-
-    cfg = PipelineConfig()
-    sel = torch.as_tensor(electrode_ids(mesh.n_vertices), device=pot.device)
-    movie = synthetic.two_source_movie(
-        mesh, sources=((15.0, 15.0), (45.0, 45.0)), n_frames=FIELD_SAMPLES,
-        speed=24.0, wavelength=24.0, dt=1.0 / SFREQ, dtype=np.float64)[0][:, sel]
-    coords = mesh.points[sel]
-    walls = {}
-
-    def chain():
-        t0 = time.perf_counter()
-        amp = stages.interpolate_stage(mesh, coords, movie, cfg, sfreq=SFREQ)
-        phase = stages.interpolate_stage(mesh, coords, movie, cfg, sfreq=SFREQ, phases=True)
-        t1 = time.perf_counter()
-        stages.wavespeed_stage(mesh, phase, 1.0 / SFREQ, method="phase")
-        stages.wavespeed_stage(mesh, amp, 1.0 / SFREQ, method="amplitude")
-        t2 = time.perf_counter()
-        for mode in ("concat", "complex"):
-            stages.decompose_stage(v_k, cfg, mode=mode)
-        torch.cuda.synchronize()
-        walls.update(interpolate=t1 - t0, wavespeed=t2 - t1,
-                     decompose=time.perf_counter() - t2)
-
-    chain()  # warm: the FFT plans and the solver libraries loaded
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        chain()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = device_events(prof)
-    dev_us = sum(e.self_device_time_total for e in events)
-    if dev_us > 0:
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-        mine = [e for e in events if any(k in e.key for k in (
-            "wave_speed", "rbf_fit", "rbf_eval"))]
-        lu = [e.key for e in events if "getrf" in e.key or "getrs" in e.key]
-        if lu:
-            raise AssertionError(f"the field chain ran LU library kernels: {lu}")
-        print(f"[profile] field chain (interpolate + --phases, wavespeed phase + "
-              f"amplitude, decompose concat + complex; in memory): device busy "
-              f"{dev_us / wall_us:.3f} of {wall_us / 1e3:.2f} ms wall (profiled run; "
-              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in walls.items())
-              + "); by kernel: " + "; ".join(
-                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                  for e in top) + "; K16-K17: " + "; ".join(
-                  f"{e.key[:40]} {e.self_device_time_total:.1f} us x{e.count}"
-                  for e in mine) + f"; on {card}", flush=True)
-    else:
-        print("[profile] the profiler recorded no device time: not measured",
-              flush=True)
 
 
 def solve(mesh, pot, times, **kwargs):
@@ -2530,8 +1932,7 @@ def check_precise_kernels(checks: KernelChecks, mesh, pot, times, suffix: str = 
     with float64 sums against their precise plain versions, on one
     iteration's worth of float32 state of the problem (p, its A p, the
     Jacobi blocks; r, P A_c^-1 P^T r): the same bytes as the float rows, so
-    the same bounds. The dot's library call is torch.linalg.vecdot on the
-    operands cast to float64, the casts included."""
+    the same bounds."""
     from manifold_flow_tpu_torch.fem import assembly
     from manifold_flow_tpu_torch.fem.operator import make_operator
     from manifold_flow_tpu_torch.kernels import coarse as kco
@@ -2554,9 +1955,7 @@ def check_precise_kernels(checks: KernelChecks, mesh, pot, times, suffix: str = 
     checks.compare(key + suffix, PCG_CU, "manifold_flow_tpu/solve/cg.py:30",
                    lambda: (kfem.pcg_dot(p, ap, precise=True),),
                    lambda: (kfem.plain_pcg_dot(p, ap, precise=True),), TOL_F32,
-                   inputs=(p, ap), ops=2 * t * n_dof,
-                   library=lambda: torch.linalg.vecdot(p.double(), ap.double()).float(),
-                   launches_key=key)
+                   inputs=(p, ap), ops=2 * t * n_dof, launches_key=key)
     if not torch.equal(kfem.pcg_dot(p, ap, precise=True), kfem.pcg_dot(p, ap, precise=True)):
         raise AssertionError(f"{key}{suffix}: two calls on the same inputs differ")
     reg = assembly.corner_regularization(mesh, f32).contiguous()
@@ -2597,20 +1996,18 @@ def rmse_of(v: torch.Tensor, v_ref: np.ndarray) -> float:
                  / max(float(np.abs(v_ref).max()), 1e-30))
 
 
-def run_precise(problems: dict, refined: tuple, card: str) -> tuple[dict, dict]:
+def run_precise(problems: dict, refined: tuple) -> dict:
     """[precise]: float32 cg solves of the bench problem (Jacobi) and of the
     12.5k problem (two-level, precond 'auto') with precise_dots=True, each
     beside the same solve without it, every launch count set to 0 just
-    before each; one more precise solve of each under torch.profiler; then
-    the default refined bench solve `refined` again, whose launches must be
-    REFINED_LAUNCHES with those of its frozen iterations and of a capture
-    (its plan may have been evicted since [slice]). Returns the precise solves' launches and the precise
-    instances' device us a launch in them, by size."""
-    from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    before each; then the default refined bench solve `refined` again, whose
+    launches must be REFINED_LAUNCHES with those of its frozen iterations
+    and of a capture (its plan may have been evicted since [slice]).
+    Returns the precise solves' launches, by size."""
     from manifold_flow_tpu_torch.solve import cg
     from manifold_flow_tpu_torch.utils import profiling
 
-    launches_of, us_of = {}, {}
+    launches_of = {}
     kw = dict(method="cg", tol=1e-5, max_iter=4000)
     for tag, (mesh, pot, times, v_ref) in problems.items():
         res_p, launches_p = counted_solve(mesh, pot, times, precise_dots=True, **kw)
@@ -2629,11 +2026,6 @@ def run_precise(problems: dict, refined: tuple, card: str) -> tuple[dict, dict]:
             if res.v_k.dtype != torch.float32 or not bool(res.converged.all()):
                 raise AssertionError(f"[precise] {tag} {name}: {res.v_k.dtype}, "
                                      f"{int((~res.converged).sum())} frames unconverged")
-        reset_launches()
-        with profiled() as prof:
-            solve(mesh, pot, times, precise_dots=True, **kw)
-        events = device_events(prof)
-        us = {k: v for k, v in solve_device_us(events, dict(LAUNCHES)).items() if "," in k}
         print(f"[precise] {tag} ({mesh.n_vertices} vertices, float32 cg tol 1e-5, "
               f"precond {'two-level' if tag == '12.5k' else 'Jacobi'}): precise_dots "
               f"iterations {res_p.iterations}, RMSE vs spsolve ({v_ref.shape[0]} frames) "
@@ -2641,10 +2033,8 @@ def run_precise(problems: dict, refined: tuple, card: str) -> tuple[dict, dict]:
               f"{rmse_of(res_d.v_k, v_ref):.3e}; max |dv| between them "
               f"{float((res_p.v_k - res_d.v_k).abs().max() / res_d.v_k.abs().max()):.3e} "
               f"of max|v|; precise launches " + ", ".join(
-                  f"{k}={n}" for k, n in sorted(launches_p.items()) if n)
-              + "; device us a launch in the profiled precise solve: " + ", ".join(
-                  f"{k} {v:.2f}" for k, v in sorted(us.items())) + f"; on {card}", flush=True)
-        launches_of[tag], us_of[tag] = launches_p, us
+                  f"{k}={n}" for k, n in sorted(launches_p.items()) if n), flush=True)
+        launches_of[tag] = launches_p
     with profiling.record() as rec:
         res, launches = counted_solve(*refined, method="refined", tol=1e-6, max_iter=4000)
     counts = rec.summary()["counts"]
@@ -2660,59 +2050,47 @@ def run_precise(problems: dict, refined: tuple, card: str) -> tuple[dict, dict]:
           f"iterations, {frozen} frozen, {warm} captures, launches as REFINED_LAUNCHES with "
           f"those and no precise instance: " + ", ".join(
               f"{k}={n}" for k, n in sorted(ran.items())), flush=True)
-    return launches_of, us_of
+    return launches_of
 
 
-def run_anchor(mesh, pot, times, v_ref, card: str) -> None:
+def run_anchor(mesh, pot, times, v_ref) -> None:
     """[anchor]: the refined bench solve with anchor_stride 2 and 4 beside
     stride 1: every frame converged, RMSE under the gate, inner iterations
-    (the anchors' included) and frames/s through utils.profiling."""
-    from manifold_flow_tpu_torch.utils import profiling
-
+    (the anchors' included)."""
     t_v, n_dof = pot.shape[0] - 1, mesh.n_dof
     parts = []
     for stride in (1, 2, 4):
         kw = dict(method="refined", tol=1e-6, max_iter=4000, anchor_stride=stride)
         res, launches = counted_solve(mesh, pot, times, **kw)
         rmse = check_solution(f"anchor_stride={stride}", res, v_ref, t_v, n_dof)
-        fps = profiling.frames_per_second(t_v, lambda: solve(mesh, pot, times, **kw))
         parts.append(f"stride {stride}: inner iterations {res.iterations} (84 at stride "
-                     f"1), RMSE {rmse:.3e}, {fps:.1f} frames/s, K1 <float> launches "
+                     f"1), RMSE {rmse:.3e}, K1 <float> launches "
                      f"{launches['fem_matvec<float>']}, <double> "
                      f"{launches['fem_matvec<double>']}")
     print(f"[anchor] refined tol 1e-6 on the bench problem, every frame converged, "
-          f"RMSE gate {RMSE_GATE:.0e}, frames/s best of 3 after a warm-up "
-          f"(utils.profiling.frames_per_second): " + "; ".join(parts)
-          + f"; on {card}", flush=True)
+          f"RMSE gate {RMSE_GATE:.0e}: " + "; ".join(parts), flush=True)
 
 
-def run_profiling(mesh, pot, times, card: str) -> None:
+def run_profiling(mesh, pot, times) -> None:
     """[profiling]: utils.profiling.trace around one refined bench solve
     writes a Chrome trace naming the K1 wrapper's launches."""
     from manifold_flow_tpu_torch.utils import profiling
 
     solve(mesh, pot, times, method="refined", tol=1e-6, max_iter=4000)  # warm
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
-        t0 = time.perf_counter()
-        with profiling.trace(tmp) as prof:
+        with profiling.trace(tmp):
             solve(mesh, pot, times, method="refined", tol=1e-6, max_iter=4000)
-        wall = time.perf_counter() - t0
         (path,) = Path(tmp).iterdir()
         text = path.read_text()
         ranges = sum(1 for e in json.loads(text)["traceEvents"]
                      if str(e.get("name", "")).startswith("fem_matvec<"))
-        dev = sum(e.self_device_time_total for e in device_events(prof)
-                  if own_kernel(e.key))
         if "fem_matvec" not in text or ranges == 0:
             raise AssertionError(f"[profiling] the trace {path.name} names no fem_matvec")
         print(f"[profiling] utils.profiling.trace around one refined solve: {path.name}, "
-              f"{len(text) >> 10} KiB, {ranges} fem_matvec host ranges, the package's "
-              f"kernels' device time {dev / 1e3:.3f} ms, {wall * 1e3:.2f} ms wall with "
-              f"the trace's export; "
-              f"on {card}", flush=True)
+              f"{len(text) >> 10} KiB, {ranges} fem_matvec host ranges", flush=True)
 
 
-def run_viz(mesh, kept: Path, card: str) -> None:
+def run_viz(mesh, kept: Path) -> None:
     """[viz]: the renderers on the card's host, if matplotlib is installed
     there: `visualize` of a frame of the bench flow CLI's V_k.csv (`kept`)
     on its surface and bases (K5 recombines it on the card) and `demo
@@ -2749,10 +2127,8 @@ def run_viz(mesh, kept: Path, card: str) -> None:
     torch.cuda.synchronize()
     reset_launches()
     stdout = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
         rc = cli.main(argv)
-    wall = time.perf_counter() - t0
     k5 = LAUNCHES["recombine_speed<double>"]
     line = json.loads(stdout.getvalue().strip().splitlines()[-1])
     png = Path(line["png"])
@@ -2761,10 +2137,8 @@ def run_viz(mesh, kept: Path, card: str) -> None:
     if rc != 0 or k5 != 1 or png.stat().st_size == 0:
         raise AssertionError(f"[viz] visualize: rc {rc}, K5 launches {k5}, {png}")
     stdout = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
         rc = cli.main(["demo", "--gif", "--out-dir", str(kept / "demo_gif")])
-    demo_wall = time.perf_counter() - t0
     line = json.loads(stdout.getvalue().strip().splitlines()[-1])
     with Image.open(line["gif"]) as im:
         n_frames, gif_size = im.n_frames, im.size
@@ -2772,22 +2146,13 @@ def run_viz(mesh, kept: Path, card: str) -> None:
         raise AssertionError(f"[viz] demo --gif: rc {rc}, {line}, {n_frames} GIF frames")
     print(f"[viz] matplotlib {matplotlib.__version__} on this host: visualize frame 48 of "
           f"the bench flow CLI's V_k.csv, K5 launched {k5}x, {png.name} {size[0]}x{size[1]} "
-          f"px in {wall * 1e3:.2f} ms; demo --gif (24x24, 12 frames): {n_frames} GIF frames "
-          f"{gif_size[0]}x{gif_size[1]} px, matched {line['matched']}, "
-          f"{demo_wall * 1e3:.2f} ms (gif {line['timings']['gif'] * 1e3:.2f}); on {card}",
-          flush=True)
+          f"px; demo --gif (24x24, 12 frames): {n_frames} GIF frames "
+          f"{gif_size[0]}x{gif_size[1]} px, matched {line['matched']}", flush=True)
 
 
 # -------------------------------------------------------- pipeline.batch ----
 BATCH_KERNELS = FLOW_KERNELS + ("next_hop<double>", "trace_walks<int>", "pack_walks<int>",
                                 "winding_profile<double>", "wave_speed<double>")
-# Each batch stage beside the CLI call (phase tag, call) that does its work:
-# phase 6's flow, 6b's streamline and winding, 6c's decompose and wave speeds.
-CLI_OF_STAGE = {"flow": ("flow", "flow"), "streamline": ("trial", "streamline"),
-                "decompose": ("fields", "decompose concat"),
-                "wavespeed": ("fields", "wavespeed phase"),
-                "winding": ("trial", "winding"),
-                "wavespeed_amplitude": ("fields", "wavespeed amplitude")}
 # Floats of a batch artifact against the CLI's for the same inputs: equal,
 # or within this of the largest |value| (NaN and inf at the same places).
 BATCH_TOL = 1e-12
@@ -2880,7 +2245,8 @@ def make_results_tree(root: Path, subject: str, surface: Path, trials: dict) -> 
 def trial_pairs(tdir: Path, prefix: str, subject_dir: Path, cli_trial: Path,
                 cli_fields: Path, t_v: int) -> list:
     """The (label, kind, batch path, CLI path) pairs of one trial fed the
-    CLI runs' movie (6b's, or 11b's) and 6c's (11c's) phases movie."""
+    CLI runs' movie ([trial]'s or [trial12k]'s) and [fields]' ([fields12k]')
+    phases movie."""
     out = cli_trial / "out"
     pairs = [("e.csv", "csv", subject_dir / f"{subject_dir.name}_e.csv", out / "e.csv"),
              ("V_k.csv", "csv", tdir / f"{prefix}-V_k.csv", out / "V_k.csv"),
@@ -2925,24 +2291,6 @@ def winding_with_centers(surface: Path, movie_csv: Path, device):
     return stages.winding_stage(fmesh, vel.v_world, pts, cfg, centers=centers)
 
 
-def split_line(name: str, timings: dict, stage_set, cli_tags: dict | None) -> str:
-    """A trial's per-stage walls (ms), and beside them, for a trial fed the
-    CLI runs' inputs, the CLI calls that do the same work (`cli_tags`)."""
-    done = [s for s in stage_set if s in timings]
-    line = (f"{name}: " + ", ".join(f"{s} {timings[s] * 1e3:.2f}" for s in done)
-            + f" = {sum(timings[s] for s in done) * 1e3:.2f} ms")
-    if cli_tags is not None:
-        cli = {s: CLI_WALLS[cli_tags[CLI_OF_STAGE[s][0]]][CLI_OF_STAGE[s][1]] for s in done}
-        line += ("; the CLI calls of the same stages at the same shapes " + ", ".join(
-            f"{s} {cli[s] * 1e3:.2f}" for s in done)
-            + f" = {sum(cli.values()) * 1e3:.2f} ms")
-    # A detail dict holds seconds, and a stage's span record under 'trace'.
-    return line + "; detail: " + "; ".join(
-        f"{k} (" + ", ".join(f"{d} {v * 1e3:.2f}" for d, v in timings[k].items()
-                             if isinstance(v, float)) + ")"
-        for k in timings if k.endswith("_detail"))
-
-
 def no_velocity_uploads(trace: Path, t_v: int, n: int) -> tuple[int, int]:
     """From a torch.profiler chrome trace: (host-to-device copies, those the
     size of a velocity field, (T, 2N) or (T, N, 3) in float32 or float64)."""
@@ -2954,12 +2302,12 @@ def no_velocity_uploads(trace: Path, t_v: int, n: int) -> tuple[int, int]:
     return len(h2d), sum(int(e.get("args", {}).get("bytes", -1)) in sizes for e in h2d)
 
 
-def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> dict:
-    """Phases 6d, 6e and the fresh-process `batch` CLI: a two-subject
-    results tree through pipeline.batch.run_batch in this process, checked
-    against phase 6b/6c's CLI artifacts, resumed, one warm trial profiled,
-    then K1 and K13 on the reconstructed surface; returns the reconstructed
-    trial's launches and in-trial device us."""
+def run_batch_phase(checks: KernelChecks, mesh, pot, keep: Path) -> dict:
+    """[batch], [reconstructed] and the fresh-process `batch` CLI: a
+    two-subject results tree through pipeline.batch.run_batch in this
+    process, checked against [trial]'s and [fields]' CLI artifacts, resumed,
+    one warm trial profiled, then K1 and K13 on the reconstructed surface;
+    returns the reconstructed trial's launches."""
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.ops import phase as phase_ops
     from manifold_flow_tpu_torch.pipeline import batch, cli, stages
@@ -2975,7 +2323,7 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
         phases_csv = cli_fields / "out" / "phase" / "interpolation_phases_data.csv"
         make_results_tree(root, "sub-01", cli_trial / "surface.ply",
                           {"T1": (movie, phases_csv), "T2": (movie, None)})
-        # The third trial: phase 6c's evoked movie of 64 electrodes, its
+        # The third trial: [fields]' evoked movie of 64 electrodes, its
         # electrodes.tsv and a channels.tsv selecting all of them.
         sub1 = root / "sub-01"
         names = [r["name"] for r in mio.read_tsv(cli_fields / "electrodes.tsv")]
@@ -2991,11 +2339,9 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
         # electrodes, with one trial of the two-source movie on it.
         sub2 = root / "sub-02"
         stdout = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout):
             rc = cli.main(["reconstruct", "--electrodes", str(cli_fields / "electrodes.tsv"),
                            "--out-dir", str(sub2)])
-        recon_s = time.perf_counter() - t0
         recon = json.loads(stdout.getvalue().strip().splitlines()[-1])
         if rc != 0 or recon["device"] != "cuda":
             raise AssertionError(f"reconstruct CLI: rc {rc}, report {recon}")
@@ -3012,16 +2358,12 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
         cfg = PipelineConfig()
         stage_set = ("interpolate",) + batch.ALL_STAGES
         mesh_cache: dict = {}
-        timings: dict = {}
         with warnings.catch_warnings():
             warnings.simplefilter("error", stages.ConvergenceWarning)
             torch.cuda.synchronize()
             reset_launches()
-            t0 = time.perf_counter()
-            report = batch.run_batch(root, cfg, stages=stage_set, mesh_cache=mesh_cache,
-                                     timings=timings)
+            report = batch.run_batch(root, cfg, stages=stage_set, mesh_cache=mesh_cache)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
             launches = dict(LAUNCHES)
         keys = ["sub-01/run-001/S1-S2", "sub-01/run-001/T1", "sub-01/run-001/T2",
                 "sub-02/run-001/T1"]
@@ -3035,8 +2377,8 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
         if idle:
             raise AssertionError(f"kernels of the batch path never launched: {idle}")
 
-        # The 3.1k trial against phase 6b/6c's CLI artifacts for the same
-        # inputs; the interpolated trial against 6c's.
+        # The 3.1k trial against [trial]'s and [fields]' CLI artifacts for
+        # the same inputs; the interpolated trial against [fields]'.
         tdir = sub1 / "run-001" / "T1"
         pre = "sub-01_run-001-T1"
         pairs = trial_pairs(tdir, pre, sub1, cli_trial, cli_fields, t_v)
@@ -3079,22 +2421,16 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
                                  f"{again['errors']}, launches {relaunched}")
 
         # One warm trial (the reconstructed surface's) under the profiler:
-        # its launches and device us a launch, and no host-to-device copy of
-        # a velocity field between its stages.
+        # its launches, and no host-to-device copy of a velocity field
+        # between its stages.
         (trial2,) = [t for t in batch.discover_trials(root) if t.subject == "sub-02"]
         torch.cuda.synchronize()
         reset_launches()
-        trial_timings: dict = {}
         with profiled() as prof:
-            t0 = time.perf_counter()
             batch.run_trial(trial2, cfg, stages=batch.ALL_STAGES, overwrite=True,
-                            mesh_cache=mesh_cache, timings=trial_timings)
+                            mesh_cache=mesh_cache)
             torch.cuda.synchronize()
-            trial_wall = time.perf_counter() - t0
         recon_launches = dict(LAUNCHES)
-        events = device_events(prof)
-        recon_us = solve_device_us(events, recon_launches)
-        busy = sum(e.self_device_time_total for e in events) / (trial_wall * 1e6)
         trace = Path(tmp) / "trial_trace.json"
         prof.export_chrome_trace(str(trace))
         n_h2d, n_velocity = no_velocity_uploads(trace, t_v, mesh2.n_vertices)
@@ -3102,19 +2438,17 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
             raise AssertionError(f"batch trial: {n_velocity} host-to-device copies the "
                                  "size of a velocity field")
 
-        # 6e: K1 and K13 on the reconstructed surface.
+        # [reconstructed]: K1 and K13 on the reconstructed surface.
         v_k2 = torch.as_tensor(mio.load_indexed_csv(
             sub2 / "run-001" / "T1" / "sub-02_run-001-T1-V_k.csv"),
             device=device).contiguous()
         check_reconstructed(checks, mesh2, pot2, times2, v_k2)
 
         # The batch CLI in a fresh process on the same tree, every stage
-        # again: the process's first cuFFT / cuSOLVER use is in its wall.
+        # again: the process's first cuFFT / cuSOLVER use.
         argv = [sys.executable, "-m", "manifold_flow_tpu_torch.pipeline.cli", "batch",
                 "--root", str(root), "--stages", *stage_set, "--overwrite"]
-        t0 = time.perf_counter()
         proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        fresh_s = time.perf_counter() - t0
         lines = proc.stdout.strip().splitlines()
         fresh = json.loads(lines[-1]) if lines else {}
         if proc.returncode != 0 or fresh.get("errors") != {} or fresh.get("trials") != want_status:
@@ -3122,47 +2456,33 @@ def run_batch_phase(checks: KernelChecks, mesh, pot, card: str, keep: Path) -> d
                                  f"report {fresh}, stderr {proc.stderr[-2000:]}")
         shutil.copytree(root, keep / "batch_tree")  # for [dist]'s distributed sweep
 
-    tags = {"flow": "flow", "trial": "trial", "fields": "fields"}
     print(f"[batch] run_batch(stages=('interpolate',) + ALL_STAGES) over 2 subjects, 4 "
           f"trials ({fmesh.n_vertices} and {mesh2.n_vertices} vertices x 98 frames; "
           f"reconstruct CLI {recon['n_vertices']} vertices, {recon['n_triangles']} "
-          f"triangles in {recon_s * 1e3:.2f} ms): no errors, every stage done but T2's "
+          f"triangles): no errors, every stage done but T2's "
           f"wavespeed (no phases movie: skipped, as in JAX); launches " + ", ".join(
               f"{k}={launches[k]}" for k in BATCH_KERNELS + (
                   "rbf_fit<double>", "rbf_eval<double>")), flush=True)
-    print(f"[batch] artifacts against phase 6b/6c's CLI for the same inputs: {verdict}; "
+    print(f"[batch] artifacts against [trial]'s and [fields]' CLI for the same inputs: "
+          f"{verdict}; "
           f"winding lines equal the in-memory stage with the detection stage's centers "
           f"({snap_diff} rows differ from the CLI's, which snaps the saved points again "
           f"on the host); a second run_batch skipped every stage with 0 launches",
           flush=True)
-    print(f"[batch] wall {wall * 1e3:.2f} ms for the sweep, drain "
-          f"{timings['drain'] * 1e3:.2f} ms at its end; interpolate (S1-S2, both "
-          f"movies) {timings['interpolate']['sub-01/run-001/S1-S2'] * 1e3:.2f} ms beside "
-          f"the CLI's interpolate + --phases "
-          f"{(CLI_WALLS['fields']['interpolate'] + CLI_WALLS['fields']['interpolate --phases']) * 1e3:.2f} ms",
-          flush=True)
-    for key in keys:  # T1 and T2 run on phase 6b/6c's inputs
-        print("[batch] " + split_line(key, timings[key], batch.ALL_STAGES,
-                                      tags if key.startswith("sub-01/run-001/T") else None),
-              flush=True)
     print(f"[batch] warm run_trial of sub-02 (reconstructed, {mesh2.n_vertices} vertices) "
-          f"under the profiler: {trial_wall * 1e3:.2f} ms, device busy {busy:.3f}; "
-          f"{n_h2d} host-to-device copies, {n_velocity} of a velocity field's size "
-          f"({t_v} x {2 * mesh2.n_vertices} or {t_v} x {mesh2.n_vertices} x 3); launches "
-          + ", ".join(f"{k}={v}" for k, v in sorted(recon_launches.items()) if v)
-          + "; device us a launch: " + ", ".join(
-              f"{k} {v:.2f}" for k, v in sorted(recon_us.items(), key=lambda kv: -kv[1])),
-          flush=True)
-    print(f"[batch] the batch CLI in a fresh process (--overwrite, every stage): "
-          f"{fresh_s * 1e3:.2f} ms wall, rc 0, no errors; on {card}", flush=True)
-    return {"launches": recon_launches, "device_us": recon_us}
+          f"under the profiler: {n_h2d} host-to-device copies, {n_velocity} of a velocity "
+          f"field's size ({t_v} x {2 * mesh2.n_vertices} or {t_v} x {mesh2.n_vertices} x "
+          f"3); launches " + ", ".join(
+              f"{k}={v}" for k, v in sorted(recon_launches.items()) if v), flush=True)
+    print("[batch] the batch CLI in a fresh process (--overwrite, every stage): rc 0, "
+          "no errors", flush=True)
+    return recon_launches
 
 
 def check_reconstructed(checks: KernelChecks, mesh, pot, times, v_k) -> None:
-    """6e: K1 (float32 matvec, float64 residual, beside torch.sparse.mm) and
-    K13 (float64) against their plain versions on the reconstructed
-    surface, whose 1-rings are wider than the bench patches' (rows
-    '@recon')."""
+    """[reconstructed]: K1 (float32 matvec, float64 residual) and K13
+    (float64) against their plain versions on the reconstructed surface,
+    whose 1-rings are wider than the bench patches' (rows '@recon')."""
     from manifold_flow_tpu_torch.fem.operator import make_operator
     from manifold_flow_tpu_torch.kernels import analysis as kan
     from manifold_flow_tpu_torch.kernels import streams as kst
@@ -3176,8 +2496,7 @@ def check_reconstructed(checks: KernelChecks, mesh, pot, times, v_k) -> None:
     for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
         x = torch.randn(t, n_dof, generator=gen, dtype=torch.float64).to(pot.device, dtype)
         check_matvec(checks, mesh, op.astype(dtype) if dtype == torch.float32 else op,
-                     g64, x, f64 if dtype == torch.float64 else None, tol,
-                     suffix="@recon")
+                     x, f64 if dtype == torch.float64 else None, tol, suffix="@recon")
     v_world, _, _ = kan.recombine_speed(v_k, mesh.basis)
     nh = (stream.unit_edges(mesh, torch.float64), v_world, mesh.vertex_neighbors,
           *stream.hop_tables(mesh, torch.float64), mesh.basis)
@@ -3197,10 +2516,10 @@ def check_reconstructed(checks: KernelChecks, mesh, pot, times, v_k) -> None:
           f"{int(mesh.boundary_vertex.sum())} on the boundary", flush=True)
 
 
-def run_batch12k(mesh, pot, card: str, keep: Path) -> dict:
-    """Phase 11d: one 12.5k trial through run_batch (ALL_STAGES), its movie
-    and phases those of phase 11b/11c, checked as in 6d (K8-K11 launched
-    too); returns the launch counts."""
+def run_batch12k(pot, keep: Path) -> None:
+    """[batch12k]: one 12.5k trial through run_batch (ALL_STAGES), its movie
+    and phases those of [trial12k] and [fields12k], checked as in [batch]
+    (K8-K11 launched too)."""
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from manifold_flow_tpu_torch.pipeline import batch, stages
     from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
@@ -3215,17 +2534,14 @@ def run_batch12k(mesh, pot, card: str, keep: Path) -> dict:
         phases_csv = cli_fields / "out" / "phase" / "interpolation_phases_data.csv"
         make_results_tree(root, "sub-01", cli_trial / "surface.ply",
                           {"T1": (movie, phases_csv)})
-        timings: dict = {}
         mesh_cache: dict = {}
         with warnings.catch_warnings():
             warnings.simplefilter("error", stages.ConvergenceWarning)
             torch.cuda.synchronize()
             reset_launches()
-            t0 = time.perf_counter()
             report = batch.run_batch(root, PipelineConfig(), stages=batch.ALL_STAGES,
-                                     mesh_cache=mesh_cache, timings=timings)
+                                     mesh_cache=mesh_cache)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
             launches = dict(LAUNCHES)
         key = "sub-01/run-001/T1"
         if report["errors"] or report["trials"] != {key: {s: "done" for s in batch.ALL_STAGES}}:
@@ -3248,15 +2564,11 @@ def run_batch12k(mesh, pot, card: str, keep: Path) -> dict:
         results["winding_lines"] = compare_artifacts(
             [("w", "winding", tdir / f"{pre}-winding_lines.pkl.bz2", expected)])["w"]
         verdict = summarize(results)
-    tags = {"flow": "flow12k", "trial": "trial12k", "fields": "fields12k"}
     print(f"[batch12k] run_batch(ALL_STAGES), one trial on {fmesh.n_vertices} vertices "
           f"x 98 frames: no errors, every stage done; launches " + ", ".join(
               f"{k}={launches[k]}" for k in kernels)
-          + f"; artifacts against phase 11b/11c's CLI: {verdict}", flush=True)
-    print(f"[batch12k] wall {wall * 1e3:.2f} ms, drain {timings['drain'] * 1e3:.2f} ms; "
-          + split_line(key, timings[key], batch.ALL_STAGES, tags) + f"; on {card}",
-          flush=True)
-    return launches
+          + f"; artifacts against [trial12k]'s and [fields12k]' CLI: {verdict}", flush=True)
+
 
 # ------------------------------------------------------------------ [dist] ----
 # The kernels every rank of a distributed 12.5k solve must launch: K1 (both
@@ -3282,9 +2594,9 @@ def _gathered_launches(comm, names) -> list[dict]:
     return [dict(zip(names, row.tolist())) for row in comm.all_gather(counts)]
 
 
-def _timed_layout(comm, fn):
+def _counted_layout(comm, fn):
     """fn() after a barrier, with the launch and staged-byte counts set to 0
-    just before: (result, wall s, staged bytes)."""
+    just before: (result, staged bytes)."""
     from manifold_flow_tpu_torch.kernels import reset_launches
     from manifold_flow_tpu_torch.parallel import comm as pcomm
 
@@ -3292,11 +2604,9 @@ def _timed_layout(comm, fn):
     torch.cuda.synchronize()
     reset_launches()
     pcomm.reset_staged()
-    t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return res, wall, sum(pcomm.STAGED_BYTES.values())
+    return res, sum(pcomm.STAGED_BYTES.values())
 
 
 def _digest(x: torch.Tensor) -> str:
@@ -3313,38 +2623,32 @@ def _dist_rank(rank: int, world: int, batch_root) -> dict:
     import torch.distributed as dist
 
     from manifold_flow_tpu_torch.kernels import library
-    from manifold_flow_tpu_torch.parallel import halo, make_device_mesh
+    from manifold_flow_tpu_torch.parallel import make_device_mesh
     from manifold_flow_tpu_torch.parallel import sharded_compute_velocity_fields
     from manifold_flow_tpu_torch.parallel.comm import AxisComm
-    from manifold_flow_tpu_torch.solve import coarse
 
     library()
     device = torch.device("cuda", 0)
     mesh, pot, times = build_problem_12k(device)[:3]
-    # The mesh's host tables (aggregation, partitions) before the timed
-    # layouts, as a cohort sweep builds them once a surface.
-    coarse.build_tables(mesh)
-    for _, nm in DIST_LAYOUTS[world]:
-        halo.build_partition(mesh, nm)
     comm = AxisComm(dist.group.WORLD, world, rank)
     out: dict = {"layouts": {}}
     results = {}
     for nf, nm in DIST_LAYOUTS[world]:
         dm = make_device_mesh(nf, nm, device=device)
-        res, wall, staged = _timed_layout(comm, lambda: sharded_compute_velocity_fields(
+        res, staged = _counted_layout(comm, lambda: sharded_compute_velocity_fields(
             mesh, pot, times, dm, tol=1e-6, max_iter=4000, method="refined", precond="auto"))
         results[(nf, nm)] = res
         out["layouts"][(nf, nm)] = {
             "iterations": res.iterations, "converged": bool(res.converged.all()),
-            "digest": _digest(res.v_k), "wall": wall, "staged": staged,
+            "digest": _digest(res.v_k), "staged": staged,
             "launches": _gathered_launches(comm, DIST_REFINED_KERNELS),
             "v_k": res.v_k.cpu().numpy() if rank == 0 else None}
     if world == 4:
         dm = make_device_mesh(1, 4, device=device)
-        res, wall, staged = _timed_layout(comm, lambda: sharded_compute_velocity_fields(
+        res, staged = _counted_layout(comm, lambda: sharded_compute_velocity_fields(
             mesh, pot, times, dm, tol=1e-8, max_iter=4000, method="cg", precond="auto"))
         out["cg"] = {"iterations": res.iterations, "converged": bool(res.converged.all()),
-                     "wall": wall, "staged": staged, "digest": _digest(res.v_k),
+                     "staged": staged, "digest": _digest(res.v_k),
                      "launches": _gathered_launches(comm, DIST_CG_KERNELS),
                      "v_k": res.v_k.cpu().numpy() if rank == 0 else None}
         out["analysis"] = _dist_analysis(comm, mesh, pot, results[(1, 4)].v_k)
@@ -3352,9 +2656,8 @@ def _dist_rank(rank: int, world: int, batch_root) -> dict:
         from manifold_flow_tpu_torch.pipeline import batch
         from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 
-        report, wall, staged = _timed_layout(comm, lambda: batch.run_batch(
+        out["batch"], _ = _counted_layout(comm, lambda: batch.run_batch(
             batch_root, PipelineConfig(), stages=batch.ALL_STAGES, distributed=True))
-        out["batch"] = {"report": report, "wall": wall}
     return out
 
 
@@ -3362,7 +2665,7 @@ def _dist_analysis(comm, mesh, pot, v_k) -> dict:
     """sharded_detect_with_counts, sharded_wave_velocity (phase, amplitude)
     and sharded_winding_movie at (4, 1) on the 12.5k refined field, against
     the single-GPU ops on the same inputs: {name: verdict} (discrete parts
-    equal, floats as same_floats), the wall and each rank's launches."""
+    equal, floats as same_floats) and each rank's launches."""
     from manifold_flow_tpu_torch.ops import singularity as sing
     from manifold_flow_tpu_torch.ops import wavespeed as wave_ops
     from manifold_flow_tpu_torch.ops import winding
@@ -3395,7 +2698,7 @@ def _dist_analysis(comm, mesh, pot, v_k) -> dict:
                 sharded_wave_velocity(mesh, pot, 1.0 / SFREQ, dm, method="amplitude"),
                 sharded_winding_movie(mesh, v_world, pts, valid, dm, centers=centers))
 
-    (field, counts, ph, amp, wind), wall, _ = _timed_layout(comm, sharded)
+    (field, counts, ph, amp, wind), _ = _counted_layout(comm, sharded)
     verdict = {
         "masks": all(torch.equal(a, b) for a, b in (
             (field.vertex_mask, field1.vertex_mask),
@@ -3411,8 +2714,7 @@ def _dist_analysis(comm, mesh, pot, v_k) -> dict:
         "winding_numbers": same_floats(wind.winding_numbers.numpy(),
                                        single["winding"].winding_numbers.numpy()),
         "rows": int(valid.sum()), "detections": int(field.counts.sum())}
-    return {"verdict": verdict, "wall": wall,
-            "launches": _gathered_launches(comm, DIST_ANALYSIS_KERNELS)}
+    return {"verdict": verdict, "launches": _gathered_launches(comm, DIST_ANALYSIS_KERNELS)}
 
 
 def tree_pairs(got_root: Path, want_root: Path) -> list:
@@ -3440,7 +2742,7 @@ def tree_pairs(got_root: Path, want_root: Path) -> list:
     return pairs
 
 
-def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> None:
+def run_dist(mesh12, pot12, times12, v_ref12, res12, keep: Path) -> None:
     """[dist]: the multi-device layer (parallel) on one card. First, in this
     process, a world of 1 over NCCL: halo_compute_velocity_fields (float64,
     tol 1e-8) and halo_refined_velocity_fields (tol 1e-6) with a mesh axis
@@ -3454,7 +2756,7 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
     stay under the gate, the cg iterations within 2 of the single GPU's,
     every rank hold the same result and launch K1-K4 and K8-K11, the
     analysis outputs equal the single-GPU ones and the batch artifacts
-    [batch]'s. Scaling is not measured: the ranks share one GPU."""
+    [batch]'s. The ranks share one GPU, so nothing here speaks of scaling."""
     import torch.distributed as dist
 
     from manifold_flow_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -3499,10 +2801,8 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
                 torch.cuda.synchronize()
                 reset_launches()
                 pcomm.reset_staged()
-                t0 = time.perf_counter()
                 res = fn(mesh12, pot12, times12, dm, **kwargs)
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
                 idle = [k for k in kernels if LAUNCHES[k] == 0]
                 if idle or any(pcomm.STAGED_BYTES.values()):
                     raise AssertionError(f"[dist] NCCL {name}: kernels never launched "
@@ -3511,14 +2811,13 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
                                 bool(res.converged.all()), want)
                 lines.append(f"{name}: {res.iterations} iterations (one GPU {iters}), "
                              f"RMSE vs spsolve {rmse:.3e}, max|dv| vs one GPU {dv:.3e} "
-                             f"(tol x max|v| {kwargs['tol'] * scale:.3e}), wall "
-                             f"{wall * 1e3:.2f} ms, 0 bytes staged; launches " + ", ".join(
+                             f"(tol x max|v| {kwargs['tol'] * scale:.3e}), 0 bytes "
+                             f"staged; launches " + ", ".join(
                                  f"{k}={LAUNCHES[k]}" for k in kernels))
         finally:
             dist.destroy_process_group()
     print(f"[dist] world of 1 over NCCL, (frames, mesh) = (1, 1), {mesh12.n_vertices} "
-          f"vertices x {pot12.shape[0] - 1} frames: " + "; ".join(lines) + f"; on {card}",
-          flush=True)
+          f"vertices x {pot12.shape[0] - 1} frames: " + "; ".join(lines), flush=True)
 
     # 2-4. Ranks that share the card over gloo.
     tree = keep / "dist_tree"
@@ -3527,16 +2826,12 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
         if p.is_file() and not (p.suffix in (".ply", ".json", ".tsv")
                                 or "interpolation" in p.name or p.name.endswith("-ave.csv")):
             p.unlink()
-    t0 = time.perf_counter()
     # Ranks share cuda:0 over gloo; a rank's exception, or a rank that
     # outlives DIST_TIMEOUT_S, fails the phase (every rank stopped first).
     two = multihost.spawn(_dist_rank, 2, (str(tree),), timeout=DIST_TIMEOUT_S, threads=2,
                           cuda_device=0)
-    spawn2 = time.perf_counter() - t0
-    t0 = time.perf_counter()
     four = multihost.spawn(_dist_rank, 4, (None,), timeout=DIST_TIMEOUT_S, threads=2,
                            cuda_device=0)
-    spawn4 = time.perf_counter() - t0
     for ranks in (two, four):
         for (nf, nm), lay in ranks[0]["layouts"].items():
             tag = f"({nf}, {nm})"
@@ -3554,10 +2849,9 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
                   f"sharing one GPU over gloo: every frame converged, inner iterations "
                   f"{lay['iterations']} (one GPU {res12.iterations}), RMSE vs spsolve "
                   f"{rmse:.3e} (gate {RMSE_GATE:.0e}), max|dv| vs one GPU {dv:.3e} "
-                  f"(tol x max|v| {1e-6 * scale:.3e}), every rank the same v_k; wall "
-                  f"{lay['wall'] * 1e3:.2f} ms, staged through host "
-                  f"{max(r['layouts'][(nf, nm)]['staged'] for r in ranks)} bytes a rank "
-                  f"(most); launches {per_rank}; on {card}", flush=True)
+                  f"(tol x max|v| {1e-6 * scale:.3e}), every rank the same v_k; staged "
+                  f"through host {max(r['layouts'][(nf, nm)]['staged'] for r in ranks)} "
+                  f"bytes a rank (most); launches {per_rank}", flush=True)
     cg = four[0]["cg"]
     if any(r["cg"]["digest"] != cg["digest"] for r in four):
         raise AssertionError("[dist] cg (1, 4): ranks hold different results")
@@ -3568,10 +2862,10 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
     rmse, dv = gate("cg (1, 4)", cg["v_k"], cg["converged"], v_cg1)
     print(f"[dist] float64 cg tol 1e-8 at (1, 4): {cg['iterations']} iterations (one GPU "
           f"{res_cg1.iterations}, within 2), RMSE vs spsolve {rmse:.3e}, max|dv| vs one "
-          f"GPU {dv:.3e} (tol x max|v| {1e-8 * scale:.3e}); wall {cg['wall'] * 1e3:.2f} ms, "
-          f"staged {max(r['cg']['staged'] for r in four)} bytes a rank; launches on every "
+          f"GPU {dv:.3e} (tol x max|v| {1e-8 * scale:.3e}); staged "
+          f"{max(r['cg']['staged'] for r in four)} bytes a rank; launches on every "
           f"rank: " + "; ".join(", ".join(f"{k}={n}" for k, n in c.items())
-                                for c in cg["launches"][:1]) + f"; on {card}", flush=True)
+                                for c in cg["launches"][:1]), flush=True)
     an = four[0]["analysis"]
     v = an["verdict"]
     floats = [v["phase"], v["amplitude"], v["winding_numbers"], *v["floats"]]
@@ -3584,10 +2878,10 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
           f"bary / points / v_max {v['floats']}; sharded_wave_velocity phase {v['phase']}, "
           f"amplitude {v['amplitude']}; sharded_winding_movie ({v['rows']} slots) counts and "
           f"types equal, winding numbers {v['winding_numbers']} (floats within "
-          f"{BATCH_TOL:.0e} of the largest); wall {an['wall'] * 1e3:.2f} ms; launches "
+          f"{BATCH_TOL:.0e} of the largest); launches "
           + "; ".join(f"rank {i}: " + ", ".join(f"{k}={n}" for k, n in c.items())
                       for i, c in enumerate(an["launches"])), flush=True)
-    reports = [r["batch"]["report"] for r in two]
+    reports = [r["batch"] for r in two]
     if any(rep["errors"] for rep in reports) or [rep["shard"] for rep in reports] != [
             [0, 2], [1, 2]]:
         raise AssertionError(f"[dist] run_batch(distributed=True): {reports}")
@@ -3595,13 +2889,7 @@ def run_dist(mesh12, pot12, times12, v_ref12, res12, card: str, keep: Path) -> N
     verdict = summarize(compare_artifacts(tree_pairs(tree, keep / "batch_tree")))
     print(f"[dist] run_batch(distributed=True, ALL_STAGES) over 2 ranks on a copy of "
           f"[batch]'s tree: rank 0 ran {mine[0]}, rank 1 {mine[1]}, no errors; artifacts "
-          f"against [batch]'s: {verdict}; walls {two[0]['batch']['wall'] * 1e3:.2f} / "
-          f"{two[1]['batch']['wall'] * 1e3:.2f} ms", flush=True)
-    print(f"[dist] spawned processes' walls (start, CUDA context, problem build, every "
-          f"layout): 2 ranks {spawn2:.1f} s, 4 ranks {spawn4:.1f} s; no scaling is "
-          f"measured (the ranks share one GPU); on {card}", flush=True)
-
-
+          f"against [batch]'s: {verdict}", flush=True)
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3609,9 +2897,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from manifold_flow_tpu_torch.kernels import LAUNCHES, library, reset_launches
+    from manifold_flow_tpu_torch.kernels import LAUNCHES, library
+    from manifold_flow_tpu_torch.kernels import analysis as kan
 
-    # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3621,20 +2909,15 @@ def main() -> int:
           f" cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    print(f"[build] {library()._name}", flush=True)
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = library()
-    print(f"[build] {lib._name} in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # 3. kernels against their plain versions
     mesh, pot, times, truth = build_problem(device)
     t_v, n_dof = pot.shape[0] - 1, mesh.n_dof
     print(f"[problem] {mesh.n_vertices} vertices, {mesh.n_triangles} triangles,"
           f" {t_v} velocity frames", flush=True)
     checks = check_kernels(mesh, pot, times, card)
 
-    # 4. the slice: the refined solve through the public API
+    # [slice]: the refined solve through the public API
     v_ref = spsolve_reference(mesh, pot, times, N_SAMPLE)
     refined = dict(method="refined", tol=1e-6, max_iter=4000)
     res, launches = counted_solve(mesh, pot, times, **refined)
@@ -3651,37 +2934,25 @@ def main() -> int:
           f"{rmse:.3e} (gate {RMSE_GATE:.0e}); launches "
           + ", ".join(f"{k}={launches[k]}" for k in sorted(launches) if launches[k]),
           flush=True)
-    best = best_of(lambda: solve(mesh, pot, times, **refined))
-    print(f"[slice] refined frames/s {t_v / best:.1f} (best of 3: {best * 1e3:.2f} ms"
-          f" per solve) on {card}", flush=True)
 
-    # 5. the analysis kernels against their plain versions: K5-K7, then
-    # K12-K15 on the refined solve's field (f64 and f32; K14 on integers)
+    # The analysis kernels on the refined solve's field: K5-K7, then K12-K15
+    # (f64 and f32; K14 on integers); K16-K17 at the field stages' shapes.
     check_analysis_kernels(checks, mesh, res.v_k)
-    from manifold_flow_tpu_torch.kernels import analysis as kan
-
     for dtype in (torch.float64, torch.float32):
         check_trial_kernels(checks, mesh, *kan.recombine_speed(
             res.v_k.to(dtype), mesh.basis.to(dtype)))
-    # K16-K17, the field stages' kernels, at their shapes (f64 and f32)
     check_field_kernels(checks, mesh, pot)
 
-    # 6. the flow stage through the command line, then a trial's analysis
-    # path (flow --classify, streamline, winding), then the field stages
-    # (interpolate, wavespeed, decompose on the flow CLI's V_k.csv, demo)
+    # The stages through the command line, then the same inputs through
+    # pipeline.batch in this process and the batch CLI in a fresh one.
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_v_k_")
     kept = Path(keep.name)
-    flow_launches = run_flow(mesh, pot, truth, card, keep_v_k=kept / "V_k.csv")
-    trial_launches = run_trial(mesh, pot, card, workdir=kept / "trial")
-    fields_launches = run_fields(mesh, kept / "V_k.csv", card, workdir=kept / "fields")
-    # 6d-6e: the same inputs through pipeline.batch in this process, a
-    # reconstructed surface beside them, and the batch CLI in a fresh one
-    recon = run_batch_phase(checks, mesh, pot, card, kept)
+    flow_launches = run_flow(mesh, pot, truth, keep_v_k=kept / "V_k.csv")
+    trial_launches = run_trial(mesh, pot, workdir=kept / "trial")
+    fields_launches = run_fields(mesh, kept / "V_k.csv", workdir=kept / "fields")
+    recon_launches = run_batch_phase(checks, mesh, pot, kept)
 
-    # 7. S3 end to end
-    s3_end_to_end(mesh, pot, times, card)
-
-    # 8. the cg method in float64
+    # [cg]: the cg method in float64
     res_cg, launches_cg = counted_solve(mesh, pot, times, method="cg", tol=1e-8,
                                         max_iter=4000)
     rmse_cg = check_solution("cg", res_cg, v_ref, t_v, n_dof)
@@ -3694,11 +2965,10 @@ def main() -> int:
     print(f"[cg] float64 cg: iterations {res_cg.iterations}, all frames converged,"
           f" RMSE vs spsolve {rmse_cg:.3e}", flush=True)
 
-    # 8b. the refined solve's temporal warm start, and a trace of one solve
-    run_anchor(mesh, pot, times, v_ref, card)
-    run_profiling(mesh, pot, times, card)
+    run_anchor(mesh, pot, times, v_ref)
+    run_profiling(mesh, pot, times)
 
-    # 9. the two-level kernels at the 12.5k shapes
+    # The kernels at the 12.5k shapes
     mesh12, pot12, times12, truth12 = build_problem_12k(device)
     print(f"[problem] {mesh12.n_vertices} vertices, {mesh12.n_triangles} "
           f"triangles, {pot12.shape[0] - 1} velocity frames", flush=True)
@@ -3710,189 +2980,63 @@ def main() -> int:
                         suffix="@12.5k")
     check_field_kernels(checks, mesh12, pot12, suffix="@12.5k")
 
-    # 10. the 12.5k refined solve with two-level, and the crossover
-    twolevel_launches = run_twolevel(*build_problem_12k(device)[:3], mesh, pot,
-                                     times, card)
+    v_ref12 = spsolve_reference(mesh12, pot12, times12, 2)
+    twolevel_launches = run_twolevel(mesh12, pot12, times12, v_ref12, mesh, pot, times)
 
-    # 10b. precise_dots: K3's and K11's float32 instances with float64 sums,
-    # then float32 cg solves through them at both sizes
+    # [precise]: K3's and K11's float32 instances with float64 sums, then
+    # float32 cg solves through them at both sizes
     check_precise_kernels(checks, mesh, pot, times)
     check_precise_kernels(checks, mesh12, pot12, times12, suffix="@12.5k")
-    v_ref12 = spsolve_reference(mesh12, pot12, times12, 2)
-    precise_launches, precise_us = run_precise(
+    precise_launches = run_precise(
         {"3.1k": (*build_problem(device, np.float32)[:3], v_ref),
          "12.5k": (*build_problem_12k(device, np.float32)[:3], v_ref12)},
-        (mesh, pot, times), card)
+        (mesh, pot, times))
 
-    # 11. the flow stage through the command line at 12.5k: the slice's path
-    flow12k_launches = run_flow(mesh12, pot12, truth12, card, tag="flow12k",
+    # The stages through the command line and pipeline.batch at 12.5k
+    flow12k_launches = run_flow(mesh12, pot12, truth12, tag="flow12k",
                                 kernels=FLOW12K_KERNELS, cell=60.0 / 111.0,
                                 keep_v_k=kept / "V_k12.csv")
-    trial12k_launches = run_trial(mesh12, pot12, card, tag="trial12k",
-                                  workdir=kept / "trial12k")
-    fields12k_launches = run_fields(mesh12, kept / "V_k12.csv", card,
-                                    tag="fields12k", demo=False, workdir=kept / "fields12k")
-    # 11d: one 12.5k trial through pipeline.batch
-    run_batch12k(mesh12, pot12, card, kept)
-    # 11e: the renderers on the bench flow CLI's V_k.csv, and demo --gif
-    run_viz(mesh, kept, card)
-    # 11f: the multi-device layer on this card: a world of one over NCCL,
-    # then 2 and 4 ranks sharing it over gloo
-    run_dist(mesh12, pot12, times12, v_ref12, res12, card, kept)
+    trial12k_launches = run_trial(mesh12, pot12, tag="trial12k", workdir=kept / "trial12k")
+    # At 12.5k cuSOLVER's float64 SVD of the (97, 25088) movie runs an LU
+    # kernel of its own (getrf_square_cta, printed); the fit runs none.
+    fields12k_launches = run_fields(mesh12, kept / "V_k12.csv", tag="fields12k",
+                                    demo=False, lu_free=False, workdir=kept / "fields12k")
+    run_batch12k(pot12, kept)
+    run_viz(mesh, kept)
+    run_dist(mesh12, pot12, times12, v_ref12, res12, kept)
     keep.cleanup()
 
-    # 12. a 392-frame movie, in windows and whole
-    run_long(mesh, card)
+    run_long(mesh)
+    cholesky_launches = run_cholesky(mesh, pot, times, v_ref, res_cg.v_k)
 
-    # 13. the direct solver
-    cholesky_launches = run_cholesky(mesh, pot, times, v_ref, res_cg.v_k, card)
-
-    # 14. where the time goes in one S3 chain, and in the 12.5k two-level solve
-    from manifold_flow_tpu_torch.ops import singularity as sing
-    from manifold_flow_tpu_torch.ops.recombine import velocity_to_world_and_speed
-
-    torch.cuda.synchronize()
-    reset_launches()
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        res = solve(mesh, pot, times, **refined)
-        v_world, speed, v_max = velocity_to_world_and_speed(res.v_k, mesh.basis)
-        field, counts = sing.detect_with_counts(mesh, v_world, speed=speed,
-                                                v_max=v_max)
-        sing.compact_detected(mesh, field, sing.capacity_for(*counts.tolist()))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = device_events(prof)
-    # Each kernel's device µs a launch as the S3 chain runs it (the bench
-    # rows) and as the 12.5k solve runs it (the rows at 12.5k shapes).
-    in_solve = {"bench": solve_device_us(events, dict(LAUNCHES))}
-    dev_us = sum(e.self_device_time_total for e in events)
-    if dev_us > 0:
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-        mine = [e for e in events if any(
-            k in e.key for k in ("recombine_speed", "detect_", "compact_detected"))]
-        print(f"[profile] S3 chain (refined solve tol 1e-6, recombine, detect, "
-              f"compact): device busy {dev_us / wall_us:.3f} of "
-              f"{wall_us / 1e3:.2f} ms wall (profiled run); by kernel: " + "; ".join(
-                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                  for e in top) + "; analysis kernels: " + "; ".join(
-                  f"{e.key[:40]} {e.self_device_time_total:.1f} us x{e.count}"
-                  for e in mine), flush=True)
-    else:
-        print("[profile] the profiler recorded no device time: not measured",
-              flush=True)
-    profile_analysis(mesh, res, card)
-    profile_fields(mesh, pot, res.v_k, card)
-    solve(mesh12, pot12, times12, **refined)  # warm: tables cached, kernels built
-    reset_launches()
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        solve(mesh12, pot12, times12, **refined)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = device_events(prof)
-    in_solve["12.5k"] = solve_device_us(events, dict(LAUNCHES))
-    dev_us = sum(e.self_device_time_total for e in events)
-    if dev_us > 0:
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
-        print(f"[profile] 12.5k refined two-level solve (tol 1e-6): device time "
-              f"{dev_us / 1e3:.3f} ms, busy "
-              f"{dev_us / wall_us:.3f} of {wall_us / 1e3:.2f} ms wall (profiled "
-              f"run); by kernel: " + "; ".join(
-                  f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                  for e in top), flush=True)
-    else:
-        print("[profile] the profiler recorded no device time: not measured",
-              flush=True)
-    # K8-K11 as the 12.5k solve runs them, beside their back-to-back times.
-    print("[profile] coarse kernels at 12.5k, device us a launch back to back / in "
-          "the 12.5k solve / bound: " + ", ".join(
-              f"{k} {fmt_us(checks.rows[k]['device_us'])} / "
-              f"{fmt_us(in_solve['12.5k'].get(k))} x{LAUNCHES[k]} / "
-              f"{checks.rows[k]['bound_ms'] * 1e3:.2f} us"
-              for k in (f"{name}<float>" for name in COARSE_KERNELS))
-          + f"; on {card}", flush=True)
-    for label, us in in_solve.items():
-        print(f"[profile] device us a launch in the {label} solve: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in sorted(us.items(), key=lambda kv: -kv[1]))
-            + f"; on {card}", flush=True)
-
-    # Each kernel's launches on the main path, from the phases that run the
-    # default config: the flow CLIs, the trials and the field stages, at the
-    # row's own size first (the 12.5k runs for the rows measured at 12.5k:
-    # those marked so and the coarse kernels'), each field variant counted in
-    # the call that launches it. Instances that only the float64 cg, the
-    # Cholesky or the crossover runs launch are off the default path; every
-    # kernel must have launched in some phase.
+    # Each row's launches: from the phases that run the default config (the
+    # flow CLIs, the trials and the field stages, at the row's own size
+    # first; each field variant counted in the call that launches it), else
+    # from the precise solves (of the row's size first), [twolevel]'s
+    # float64 cg, [cg] or [cholesky]. Every kernel must have launched in
+    # some phase.
     default_3k = (flow_launches, trial_launches, fields_launches)
     default_12k = (flow12k_launches, trial12k_launches, fields12k_launches)
     others = (twolevel_launches, launches_cg, cholesky_launches)
 
-    def at_12k(label: str) -> bool:
-        return label.endswith("@12.5k") or (label.startswith("coarse_")
-                                            and not label.endswith("@3.1k"))
+    def phases_of(label: str) -> tuple:
+        at_12k = label.endswith("@12.5k") or (label.startswith("coarse_")
+                                              and not label.endswith("@3.1k"))
+        sizes = ("12.5k", "3.1k") if at_12k else ("3.1k", "12.5k")
+        if label.endswith("@recon"):  # the reconstructed surface's trial in [batch]
+            first = (recon_launches,)
+        else:
+            first = default_12k + default_3k if at_12k else default_3k + default_12k
+        return first + tuple(precise_launches[size] for size in sizes) + others
 
-    def first_count(phases, key):
-        return next((c[key] for c in phases if c.get(key, 0) > 0), 0)
-
-    def phases_of(label: str):
-        # The reconstructed surface's rows: its trial in the batch phase.
-        if label.endswith("@recon"):
-            return (recon["launches"],)
-        return default_12k + default_3k if at_12k(label) else default_3k + default_12k
-    in_solve["recon"] = recon["device_us"]
-    in_solve["bench"].update(precise_us["3.1k"])
-    in_solve["12.5k"].update(precise_us["12.5k"])
-
-    def others_of(label: str):  # the precise solves of the row's own size first
-        sizes = ("12.5k", "3.1k") if at_12k(label) else ("3.1k", "12.5k")
-        return tuple(precise_launches[size] for size in sizes) + others
-    default = {k: first_count(phases_of(k), row["launches_key"])
-               for k, row in checks.rows.items()}
-    driven = {k: default[k] or first_count(others_of(k), row["launches_key"])
+    driven = {k: next((c[row["launches_key"]] for c in phases_of(k)
+                       if c.get(row["launches_key"], 0) > 0), 0)
               for k, row in checks.rows.items()}
-    for k, row in checks.rows.items():
-        row["solve_device_us"] = in_solve[
-            "recon" if k.endswith("@recon") else "12.5k" if at_12k(k) else "bench"].get(
-                row["launches_key"])
     names = {row["launches_key"].split("<")[0] for k, row in checks.rows.items()
              if driven[k] > 0}
     every = {k.split("<")[0] for k in LAUNCHES}
     if names != every:  # K1-K17: K3, K14 and K17 are several entry points
         raise AssertionError(f"kernels never launched by any phase: {sorted(every - names)}")
-    # The order of the next kernel redesigns: first any kernel slower than
-    # its library call on the device, then by the device time the main path
-    # loses to the bound, launches x (device us - bound us), the device us
-    # as a profiled solve runs the kernel where one does, else back to back.
-    timed = {k: row for k, row in checks.rows.items() if default[k] > 0 and (
-        row["solve_device_us"] or row["device_us"]) is not None}
-    slower = [k for k, row in timed.items() if None not in (
-        row["device_us"], row["library_device_us"])
-        and row["device_us"] > row["library_device_us"]]
-    loss = {k: default[k] * ((row["solve_device_us"] or row["device_us"])
-                             - row["bound_ms"] * 1e3)
-            for k, row in timed.items()}
-    off_path = [k for k in checks.rows if default[k] == 0 and driven[k] > 0]
-    # The same loss summed over each kernel's instances (field variants, both
-    # sizes), by its entry point's name, with the kernel's share of its
-    # bound: its launches' bound time over their device time.
-    per_kernel: dict[str, list[float]] = {}
-    for k, row in timed.items():
-        us = row["solve_device_us"] or row["device_us"]
-        total = per_kernel.setdefault(row["launches_key"].split("<")[0], [0.0, 0.0, 0.0])
-        total[0] += loss[k]
-        total[1] += default[k] * row["bound_ms"] * 1e3
-        total[2] += default[k] * us
-    print("[redesign] slower than the library call on the device: "
-          + (", ".join(slower) or "none") + "; default-path launches x (device_us "
-          "- bound_us), in-solve device us where a profiled solve ran the kernel "
-          "(marked *): " + ", ".join(
-              f"{k}{'*' if timed[k]['solve_device_us'] else ''} {loss[k]:.1f}"
-              for k in sorted(loss, key=lambda k: -loss[k]))
-          + "; off the default path: " + (", ".join(off_path) or "none")
-          + "; by kernel, summed over its instances (share of its bound): " + ", ".join(
-              f"{name} {t[0]:.1f} ({t[1] / t[2]:.3f})"
-              for name, t in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]))
-          + f"; on {card}", flush=True)
     print("[kernels] rows whose device time is not measured (no two whole profiler "
           "windows; device_us and bound_over_device null in the JSON line): "
           + (", ".join(k for k, row in checks.rows.items() if row["device_us"] is None)
@@ -3905,9 +3049,7 @@ def main() -> int:
          "replaces": row["replaces"], "launches": driven[k],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-         "device_us": row["device_us"], "solve_device_us": row["solve_device_us"],
-         "library_device_us": row["library_device_us"],
+         "bound_by": row["bound_by"], "device_us": row["device_us"],
          "bound_over_device": row["bound_over_device"]}
         for k, row in checks.rows.items() if driven[k] > 0]}))
     print(card_line())

@@ -42,7 +42,8 @@ from manifold_flow_tpu_torch.utils import profiling
 
 # precond='auto' picks the two-level preconditioner from this many vertices
 # up: the JAX package's crossover (measured on a TPU), kept for parity;
-# chip_smoke.py measures both preconditioners on either side of it.
+# the benchmark's cells run each side of it (recon3k.trial below it,
+# patch12k.trial and hd256.trial above it).
 TWO_LEVEL_MIN_VERTICES = 6000
 # frame_chunk='auto' solves movies of more than FRAME_CHUNK_AUTO_MIN velocity
 # frames in windows of FRAME_CHUNK_SIZE frames (the JAX package's values).

@@ -159,31 +159,43 @@ def test_wrappers_check_their_inputs():
 
 
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():
-    gen = torch.Generator().manual_seed(0)
-    t, n = 3, 5
-    x, r, p, ap = torch.randn((4, t, 2 * n), generator=gen, dtype=torch.float64)
-    dinv = torch.randn((t, n, 2, 2), generator=gen, dtype=torch.float64)
-    rz = torch.rand(t, generator=gen, dtype=torch.float64)
-    pap = torch.tensor([1.0, 0.0, 2.0], dtype=torch.float64)
-    before = dict(kernels.LAUNCHES)
-    z, rz_new, rr = torch.empty_like(x), torch.empty_like(rz), torch.empty_like(rz)
-    x0, r0 = x.clone(), r.clone()
-    kfem.pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)
-    alpha = torch.tensor([rz[0] / 1.0, 0.0, rz[2] / 2.0], dtype=torch.float64)
-    torch.testing.assert_close(x, x0 + alpha[:, None] * p)
-    torch.testing.assert_close(r, r0 - alpha[:, None] * ap)
-    torch.testing.assert_close(z, kfem.apply_block_diag(dinv, r))
-    torch.testing.assert_close(rz_new, (r * z).sum(-1))
-    torch.testing.assert_close(rr, (r * r).sum(-1))
-    q = p.clone()
-    kfem.pcg_direction(q, z, rz_new, torch.tensor([2.0, 0.0, 1.0], dtype=torch.float64))
-    beta = torch.tensor([rz_new[0] / 2.0, 0.0, rz_new[2]], dtype=torch.float64)
-    torch.testing.assert_close(q, z + beta[:, None] * p)
-    ctl, gated = torch.tensor([0, 0, 5]), torch.empty_like(rz)
-    kfem.pcg_gate(rr, torch.sqrt(rr) / 2, ctl, rz_new, gated)
-    assert ctl.tolist() == [1, 1, 5] and torch.equal(gated, rz_new)
-    assert kernels.LAUNCHES == before
-    assert _lib._LIB is None
+    """In a fresh interpreter, so that no kernel library loaded by another
+    test of the process (the `cuda` cases on a GPU) is there to find."""
+    code = (
+        "import torch\n"
+        "from manifold_flow_tpu_torch import kernels\n"
+        "from manifold_flow_tpu_torch.kernels import _lib\n"
+        "from manifold_flow_tpu_torch.kernels import fem as kfem\n"
+        "gen = torch.Generator().manual_seed(0)\n"
+        "t, n = 3, 5\n"
+        "x, r, p, ap = torch.randn((4, t, 2 * n), generator=gen, dtype=torch.float64)\n"
+        "dinv = torch.randn((t, n, 2, 2), generator=gen, dtype=torch.float64)\n"
+        "rz = torch.rand(t, generator=gen, dtype=torch.float64)\n"
+        "pap = torch.tensor([1.0, 0.0, 2.0], dtype=torch.float64)\n"
+        "before = dict(kernels.LAUNCHES)\n"
+        "z, rz_new, rr = torch.empty_like(x), torch.empty_like(rz), torch.empty_like(rz)\n"
+        "x0, r0 = x.clone(), r.clone()\n"
+        "kfem.pcg_update(x, r, z, p, ap, dinv, rz, pap, rz_new, rr)\n"
+        "alpha = torch.tensor([rz[0] / 1.0, 0.0, rz[2] / 2.0], dtype=torch.float64)\n"
+        "torch.testing.assert_close(x, x0 + alpha[:, None] * p)\n"
+        "torch.testing.assert_close(r, r0 - alpha[:, None] * ap)\n"
+        "torch.testing.assert_close(z, kfem.apply_block_diag(dinv, r))\n"
+        "torch.testing.assert_close(rz_new, (r * z).sum(-1))\n"
+        "torch.testing.assert_close(rr, (r * r).sum(-1))\n"
+        "q = p.clone()\n"
+        "kfem.pcg_direction(q, z, rz_new, torch.tensor([2.0, 0.0, 1.0], dtype=torch.float64))\n"
+        "beta = torch.tensor([rz_new[0] / 2.0, 0.0, rz_new[2]], dtype=torch.float64)\n"
+        "torch.testing.assert_close(q, z + beta[:, None] * p)\n"
+        "ctl, gated = torch.tensor([0, 0, 5]), torch.empty_like(rz)\n"
+        "kfem.pcg_gate(rr, torch.sqrt(rr) / 2, ctl, rz_new, gated)\n"
+        "assert ctl.tolist() == [1, 1, 5] and torch.equal(gated, rz_new)\n"
+        "assert kernels.LAUNCHES == before\n"
+        "assert _lib._LIB is None\n"
+        "print('plain')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "plain"
 
 
 def test_reset_launches_zeroes_every_count():
