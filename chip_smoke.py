@@ -20,7 +20,10 @@ max|v|, gated below 1e-5. Phases, in order:
   later phases at 12.5k ('@12.5k'), on the reconstructed surface ('@recon')
   and in the float64-summing instances ('<float,double>'): float outputs within 1e-5 (f32) / 1e-12 (f64) of their scale, discrete outputs
   equal; K16's inf and NaN in place; K17's fit by its backward error (1e-5 /
-  1e-13), its interpolant and its info word; K13's plain version also equal
+  1e-13), its interpolant and its info word; K18 on the factors of (390,
+  7394) and (390, 25088) movies by its singular values (1e-13) and sweep
+  count (at most one apart), with its grid barriers a launch; K13's plain
+  version also equal
   to mesh_next_hop on the raw mesh tables; K3's update, K9 and K11 equal
   over two calls. Each row prints its error, the wrapper's and the plain
   version's ms (CUDA events, 20 calls, median of 5), device_us (the
@@ -40,10 +43,10 @@ max|v|, gated below 1e-5. Phases, in order:
 - [fields] `interpolate` (+ --phases) of 64 electrodes, `wavespeed` (phase,
   amplitude), `decompose` (concat, complex), `demo`: K16 and K17 launched in
   the calls that run each variant, `rbf_fit` once a call, artifacts equal to
-  the stages in memory, no LU library kernel in them, the SVD against
-  numpy's (sigma 1e-10, rank-K reconstruction 1e-8), the demo matched.
-  [fields12k] prints the LU kernels it finds: cuSOLVER's SVD of a
-  (97, 25088) movie runs one of its own.
+  the stages in memory, no LU library kernel in them, the concat SVD one
+  K18 launch and no other SVD kernel (the complex one none), the SVD
+  against numpy's (sigma 1e-10, rank-K reconstruction 1e-8), the demo
+  matched.
 - [batch] run_batch over a two-subject tree of those inputs (and the
   `reconstruct` CLI's surface): no error, K1-K7 and K13-K17 launched,
   artifacts equal to the CLIs' (bitwise or within 1e-12; it says which), a
@@ -289,7 +292,9 @@ def launch_key(key: str) -> str | None:
     if hit is None or hit[0] not in WRAPPER_OF:
         return None
     # K14's kernels read integers; their template argument is a layout.
-    ctype = "int" if hit[0] in ("trace_walks_kernel", "pack_walks_kernel") else hit[1]
+    # K18's is its rows a lane, and it runs in float64 alone.
+    ctype = ("int" if hit[0] in ("trace_walks_kernel", "pack_walks_kernel")
+             else "double" if hit[0] == "jacobi_svd_kernel" else hit[1])
     return f"{WRAPPER_OF[hit[0]]}<{ctype}>"
 
 
@@ -318,7 +323,7 @@ WRAPPER_OF = {
     "next_hop_kernel": "next_hop", "trace_walks_kernel": "trace_walks",
     "pack_walks_kernel": "pack_walks", "winding_profile_kernel": "winding_profile",
     "wave_speed_kernel": "wave_speed", "rbf_fit_kernel": "rbf_fit",
-    "rbf_eval_kernel": "rbf_eval"}
+    "rbf_eval_kernel": "rbf_eval", "jacobi_svd_kernel": "jacobi_svd"}
 
 
 MANGLED_TYPES = {"f": "float", "d": "double", "i": "int"}
@@ -1229,6 +1234,55 @@ def check_field_kernels(checks: KernelChecks, mesh, pot, suffix: str = "") -> No
                        launches_key=f"rbf_eval<{ctype}>+phase")
 
 
+# The movies K18 factors: the fields cells' shapes, a few waves over noise.
+SVD_SHAPES = ((390, 7394), (390, 25088))
+
+
+def check_svd_kernel(checks: KernelChecks, device) -> None:
+    """K18 against its plain version on the factor G = R^T of the thin QR of
+    a (390, 2N) movie's transpose, at both fields cells' shapes: the
+    singular values within 1e-13 of the largest, the kernel's own
+    G W = U diag(s) within 1e-13, and sweep counts at most one apart (the
+    last sweep's test sits on the tolerance, so the two versions' rounding
+    can take one more sweep; both counts are printed). Its bound: ~9 m^3
+    float64 operations a sweep it ran (flowbench.peaks), and the bytes of G
+    read and U, sigma and W written once. Prints the grid barriers a launch
+    passes: one after the set-up, one a round (2p - 1 a sweep), one before
+    the sort."""
+    from manifold_flow_tpu_torch.kernels import svd as ks
+
+    cu = "manifold_flow_tpu_torch/csrc/svd_kernels.cu"
+    for t, n2 in SVD_SHAPES:
+        rng = np.random.default_rng(n2)
+        k = 6
+        u0 = np.linalg.qr(rng.standard_normal((t, k)))[0]
+        v0 = np.linalg.qr(rng.standard_normal((n2, k)))[0]
+        movie = ((u0 * [40.0, 25.0, 9.0, 6.0, 2.0, 1.0]) @ v0.T
+                 + 0.01 * rng.standard_normal((t, n2)))
+        a, _ = torch.geqrf(torch.from_numpy(movie).to(device).mT)
+        m = min(t, n2)
+        g = torch.triu(a[:m]).contiguous()
+        u, s, w, sweeps = ks.jacobi_svd(g)
+        resid = float((g.T @ w.T - u.T * s).abs().max()) / float(s[0])
+        if not resid <= 1e-13:
+            raise AssertionError(f"jacobi_svd<double> ({t}, {n2}): |G W - U S| "
+                                 f"{resid:.3e} of the largest singular value > 1e-13")
+        n_sweeps, plain_sweeps = int(sweeps), int(ks.plain_jacobi_svd(g)[3])
+        b, p = ks.layout(m)
+        print(f"[kernels] jacobi_svd<double> ({t}, {n2}): m {m}, {2 * p} blocks of {b}, "
+              f"{p} CTAs, {n_sweeps} sweeps (plain version {plain_sweeps}), "
+              f"{2 + n_sweeps * (2 * p - 1)} grid barriers a launch, |G W - U S| "
+              f"{resid:.3e} of sigma_1", flush=True)
+        if abs(n_sweeps - plain_sweeps) > 1:
+            raise AssertionError(f"jacobi_svd<double> ({t}, {n2}): {n_sweeps} sweeps, its "
+                                 f"plain version {plain_sweeps}")
+        checks.compare(f"jacobi_svd<double>@({t},{n2})", cu, "B15: cuSOLVER gesvdj "
+                       "(manifold_flow_tpu_torch/ops/svd.py)",
+                       lambda: ks.jacobi_svd(g)[1:2], lambda: ks.plain_jacobi_svd(g)[1:2],
+                       1e-13, ops=9.0 * m ** 3 * n_sweeps,
+                       nbytes=(3 * m * m + m) * 8 + 4, launches_key="jacobi_svd<double>")
+
+
 # K17 rbf_fit's gate: the relative backward error max|A W - B| / max(|A| |W|)
 # of its weights (LU with partial pivoting is backward stable; the weights
 # themselves differ from the library's by up to cond(A) times the rounding).
@@ -1500,7 +1554,8 @@ def run_fields(mesh, v_k_csv: Path, tag: str = "fields", demo: bool = True,
     own 24 x 24 patch, whatever the mesh). Checks that K16 and K17 launched,
     the artifacts reload equal to the same stages run in memory, under
     torch.profiler, which with `lu_free` must show no LU library kernel
-    (getrf, getrs; those found are printed), the SVD's sigma against
+    (getrf, getrs; those found are printed) and, for the concat movie, K18
+    once and no cuSOLVER Jacobi kernel (gesvdj's), the SVD's sigma against
     numpy's LAPACK SVD on the host (1e-10 of the largest) and its rank-K
     reconstruction (1e-8 of its largest entry), and the demo's report;
     returns the launch counts, with each FIELD_VARIANTS entry's. With
@@ -1601,6 +1656,19 @@ def run_fields(mesh, v_k_csv: Path, tag: str = "fields", demo: bool = True,
         lu = [e.key for e in device_events(prof) if "getrf" in e.key or "getrs" in e.key]
         if lu and lu_free:
             raise AssertionError(f"{tag}: the field stages ran LU library kernels: {lu}")
+        # The real movie's SVD: one K18 launch a call, no library Jacobi SVD;
+        # the complex movie keeps torch.linalg.svd.
+        svd_launches = {name: per_call[name]["jacobi_svd<double>"]
+                        for name in ("decompose concat", "decompose complex")}
+        if svd_launches != {"decompose concat": 1, "decompose complex": 0}:
+            raise AssertionError(f"{tag}: jacobi_svd<double> launches {svd_launches}")
+        with profiled() as prof:
+            stages.decompose_stage(torch.as_tensor(v_k, device=mesh.device), cfg)
+            torch.cuda.synchronize()
+        concat_kernels = sorted({e.key for e in device_events(prof)})
+        svd_kernels = [k for k in concat_kernels if "svd" in k]
+        if [k for k in svd_kernels if "jacobi_svd_kernel" not in k] or not svd_kernels:
+            raise AssertionError(f"{tag}: the concat decompose ran {concat_kernels}")
         same = {"interpolation_data.csv": np.array_equal(amp_file, amp.cpu().numpy()),
                 "interpolation_phases_data.csv": np.array_equal(phase_file,
                                                                 phase.cpu().numpy())}
@@ -1641,7 +1709,8 @@ def run_fields(mesh, v_k_csv: Path, tag: str = "fields", demo: bool = True,
           f"interpolate (+ --phases), wavespeed (phase, amplitude), decompose (concat, "
           f"complex) on V_k {tuple(v_k.shape)}{', demo' if demo else ''}; artifacts "
           f"reload equal to the in-memory run; LU library kernels in them: "
-          f"{lu or 'none'}; launches " + ", ".join(
+          f"{lu or 'none'}; kernels of the concat decompose: {concat_kernels}; "
+          f"launches " + ", ".join(
               f"{k}={launches[k]}" for k in FIELD_KERNELS + tuple(
                   v[0] for v in FIELD_VARIANTS)), flush=True)
     print(f"[{tag}] SVD against numpy LAPACK: " + "; ".join(
@@ -2942,6 +3011,7 @@ def main() -> int:
         check_trial_kernels(checks, mesh, *kan.recombine_speed(
             res.v_k.to(dtype), mesh.basis.to(dtype)))
     check_field_kernels(checks, mesh, pot)
+    check_svd_kernel(checks, device)
 
     # The stages through the command line, then the same inputs through
     # pipeline.batch in this process and the batch CLI in a fresh one.
@@ -2997,8 +3067,9 @@ def main() -> int:
                                 kernels=FLOW12K_KERNELS, cell=60.0 / 111.0,
                                 keep_v_k=kept / "V_k12.csv")
     trial12k_launches = run_trial(mesh12, pot12, tag="trial12k", workdir=kept / "trial12k")
-    # At 12.5k cuSOLVER's float64 SVD of the (97, 25088) movie runs an LU
-    # kernel of its own (getrf_square_cta, printed); the fit runs none.
+    # At 12.5k cuSOLVER's QR of the tall (25088, 97) transpose runs an LU
+    # kernel of its own (getrf_square_cta, printed), rebuilding Householder
+    # vectors; the fit runs none.
     fields12k_launches = run_fields(mesh12, kept / "V_k12.csv", tag="fields12k",
                                     demo=False, lu_free=False, workdir=kept / "fields12k")
     run_batch12k(pot12, kept)

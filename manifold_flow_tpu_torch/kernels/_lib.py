@@ -2,14 +2,14 @@
 
 `library()` builds `csrc/*.cu` (through `kernels.build`) and loads the result
 with ctypes at first use; every C entry point is registered here with its
-argument types, in float32 (`_f32`) and float64 (`_f64`) instances, K3's
-dot and update and K11 also in a float32 instance that sums in float64
-(`_f32acc64`, solve_cg's precise_dots), and so are the entry points that
-size a kernel's workspace (`_workspace`). `LAUNCHES` counts kernel launches
-by "name<ctype>" ("name<float,double>" for the precise instances) across all
-wrapper modules, so one counted run sees every kernel; `_launch` adds one
-where it launches, and a replay of a CUDA graph (solve.cg) the launches the
-graph holds.
+argument types, in float32 (`_f32`) and float64 (`_f64`) instances (K18 in
+float64 alone), K3's dot and update and K11 also in a float32 instance that
+sums in float64 (`_f32acc64`, solve_cg's precise_dots), and so are the
+entry points that size a kernel's workspace (`_workspace`). `LAUNCHES`
+counts kernel launches by "name<ctype>" ("name<float,double>" for the
+precise instances) across all wrapper modules, so one counted run sees
+every kernel; `_launch` adds one where it launches, and a replay of a CUDA
+graph (solve.cg) the launches the graph holds.
 
 The helpers below are what every wrapper does before either path: check
 dtype, shape and contiguity, and decide by the tensors' device (CPU: the
@@ -73,11 +73,16 @@ _PRECISE = ("float,double", "f32acc64")
 # Entry points that size a kernel's workspace in bytes (no launch), one a
 # float type each: mf_<name>_workspace_<suffix>.
 _WORKSPACE_ARGTYPES = {"rbf_fit": [_I] * 3}
+# Float64-only entry points (`_f64`, counted as "name<double>"), with their
+# workspace sizes (svd_kernels.cu, kernels.svd: K18).
+_F64_ARGTYPES = {"jacobi_svd": [_P] * 6 + [_I] * 3 + [_D] + [_P]}
+_F64_WORKSPACE_ARGTYPES = {"jacobi_svd": [_I] * 3}
 
 LAUNCHES: dict[str, int] = {
     **{f"{name}<{ctype}>": 0 for name in _ARGTYPES for ctype, _ in _CTYPES.values()},
     **{f"{name}<{_PRECISE[0]}>": 0 for name in _PRECISE_NAMES},
-    **{f"{name}<{_INT[0]}>": 0 for name in _INT_ARGTYPES}}
+    **{f"{name}<{_INT[0]}>": 0 for name in _INT_ARGTYPES},
+    **{f"{name}<double>": 0 for name in _F64_ARGTYPES}}
 
 _LIB: ctypes.CDLL | None = None
 
@@ -127,11 +132,19 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"mf_{name}_{_INT[1]}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _F64_ARGTYPES.items():
+            fn = getattr(lib, f"mf_{name}_f64")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         for name, argtypes in _WORKSPACE_ARGTYPES.items():
             for _, suffix in _CTYPES.values():
                 fn = getattr(lib, f"mf_{name}_workspace_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int64
+        for name, argtypes in _F64_WORKSPACE_ARGTYPES.items():
+            fn = getattr(lib, f"mf_{name}_workspace_f64")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int64
         lib.mf_error_string.argtypes = [ctypes.c_int]
         lib.mf_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -442,8 +442,10 @@ def decompose_stage(v_k, config: PipelineConfig, mode: str = "concat",
     GPU unless the caller passes device="cpu"). `npz_path` writes the
     reference's data_01.npz (U, Sigma, VT, point_num). `timings`, when
     given, receives seconds: 'compute' (until the modes are on the host)
-    and 'write', and 'trace', the stage's utils.profiling record (the
-    `svd.library` span of the SVD call)."""
+    and 'write', and 'trace', the stage's utils.profiling record: the
+    spans `svd.qr`, `svd.jacobi` and `svd.vectors` and the count
+    `svd.jacobi_sweeps` of a real float64 movie, read after the stage has
+    synchronised, or the span `svd.library` (ops.svd)."""
     with _recorded(timings):
         if mode not in ("complex", "concat"):
             raise ValueError(f"unknown SVD mode {mode!r}")

@@ -8,7 +8,10 @@ semantics, and the port's own spans and counts:
     The registry keeps a count and a total a name, however many spans close.
   * `count(name, n)` adds to a named count (`counts()` reads the registry's);
     `wait(name)` is a span and a count of 1 around a blocking device-to-host
-    read (names `sync.<layer>.<what>`).
+    read (names `sync.<layer>.<what>`). `count_device(name, t)` is a count
+    whose value lies on the device: the active `record()` scope keeps the
+    tensor and reads it in `summary()` (a wait), which a stage takes after
+    it has synchronised; outside a scope nothing is kept or read.
   * `record()`: a scope in which every span and count of the current context
     (not of other threads) is also kept, each span with its parent and its
     start and end on `time.perf_counter_ns`'s clock; `summary()` gives
@@ -118,6 +121,15 @@ def count(name: str, n: int = 1) -> None:
         rec.counts[name] = rec.counts.get(name, 0) + n
 
 
+def count_device(name: str, value: torch.Tensor) -> None:
+    """Add the device integer `value` to the active scope's count `name`
+    when its summary is taken; no read here, and none outside a scope (the
+    registry never sees it)."""
+    rec = _ACTIVE.get()
+    if rec is not None:
+        rec.device_counts.append((name, value))
+
+
 class wait(span):
     """A span around one blocking device-to-host read, counted once."""
 
@@ -130,11 +142,12 @@ class record:
     context; `rec.summary()` sums them by name. Scopes nest: the inner one
     takes the spans until it closes."""
 
-    __slots__ = ("spans", "counts", "_open_slots", "_token")
+    __slots__ = ("spans", "counts", "device_counts", "_open_slots", "_token")
 
     def __init__(self):
         self.spans: list = []      # [name, parent slot or -1, start_ns, end_ns]
         self.counts: dict = {}
+        self.device_counts: list = []  # [(name, device integer tensor)]
         self._open_slots: list = []
 
     def __enter__(self):
@@ -158,7 +171,9 @@ class record:
 
     def summary(self) -> dict:
         """{"spans": {name: {count, total_s, self_s}}, "counts": {name: n}}
-        of the closed spans."""
+        of the closed spans. The device counts are read here, in one wait
+        `sync.profiling.device_counts`, counted in the registry and in the
+        scope active at the call, not in this summary."""
         covered = [0] * len(self.spans)
         for _, parent, t0, t1 in self.spans:
             if parent >= 0 and t1 is not None:
@@ -171,7 +186,12 @@ class record:
             s["count"] += 1
             s["total_s"] += (t1 - t0) * 1e-9
             s["self_s"] += (t1 - t0 - inner) * 1e-9
-        return {"spans": spans, "counts": dict(self.counts)}
+        counts = dict(self.counts)
+        if self.device_counts:
+            with wait("sync.profiling.device_counts"):
+                for name, value in self.device_counts:
+                    counts[name] = counts.get(name, 0) + int(value.sum())
+        return {"spans": spans, "counts": counts}
 
 
 def merge(into: dict | None, summary: dict) -> dict:

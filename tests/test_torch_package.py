@@ -72,7 +72,7 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     assert [s.name for s in srcs] == [
         "analysis_kernels.cu", "coarse_kernels.cu", "fem_kernels.cu",
         "field_kernels.cu", "pcg_kernels.cu", "stream_kernels.cu",
-        "winding_kernels.cu"]
+        "svd_kernels.cu", "winding_kernels.cu"]
     objs = [tmp_path / f"{s.stem}.o" for s in srcs]
     out = tmp_path / "lib.so"
     cmds = [build.compile_command("nvcc", s, o) for s, o in zip(srcs, objs)]
@@ -207,7 +207,7 @@ def test_reset_launches_zeroes_every_count():
         "pcg_update", "pcg_direction", "pcg_gate", "recombine_speed", "detect_singular",
         "compact_detected", "coarse_assemble", "coarse_restrict", "coarse_gemv",
         "coarse_prolong_dot", "classify_candidates", "next_hop", "trace_walks",
-        "pack_walks", "winding_profile", "wave_speed", "rbf_fit", "rbf_eval"}
+        "pack_walks", "winding_profile", "wave_speed", "rbf_fit", "rbf_eval", "jacobi_svd"}
     assert kernels.LAUNCHES is _lib.LAUNCHES
 
 

@@ -183,7 +183,43 @@ def test_stage_timings_carry_the_record(problem, two_windows):
         assert both["spans"][name]["count"] == 1, name
     modes: dict = {}
     stages.decompose_stage(vel.v_k, cfg, timings=modes, device="cpu")
-    assert modes["trace"]["spans"]["svd.library"]["count"] == 1
+    for name in ("svd.qr", "svd.jacobi", "svd.vectors"):
+        assert modes["trace"]["spans"][name]["count"] == 1, name
+
+
+def test_decompose_stage_records_the_route_and_reads_sweeps_only_when_timed(
+        problem, monkeypatch):
+    """A decompose of a float64 movie given `timings` leaves the route's
+    spans and K18's sweep count (read when the record is summed, after the
+    stage's sync, in one counted wait); the untimed call never touches the count and adds no
+    sync.* wait."""
+    from manifold_flow_tpu_torch.ops import svd as svd_ops
+
+    mesh, pot, times = problem
+    cfg = _config("refined")
+    v_k = stages.velocity_stage(mesh, pot, times, cfg).v_k
+    timings: dict = {}
+    profiling.reset()
+    stages.decompose_stage(v_k, cfg, timings=timings, device="cpu")
+    assert profiling.counts()["sync.profiling.device_counts"] == 1
+    trace = timings["trace"]
+    assert {name: s["count"] for name, s in trace["spans"].items()} == {
+        "svd.qr": 1, "svd.jacobi": 1, "svd.vectors": 1}
+    assert set(trace["counts"]) == {"svd.jacobi_sweeps"}
+    assert 2 <= trace["counts"]["svd.jacobi_sweeps"] <= svd_ops.jacobi.MAX_SWEEPS
+
+    class Unread:
+        def __getattr__(self, name):
+            raise AssertionError(f"the untimed call read the sweep count ({name})")
+
+    jacobi_svd = svd_ops.jacobi.jacobi_svd
+    monkeypatch.setattr(svd_ops.jacobi, "jacobi_svd",
+                        lambda g: (*jacobi_svd(g)[:3], Unread()))
+    profiling.reset()
+    stages.decompose_stage(v_k, cfg, device="cpu")
+    assert not [name for name in profiling.counts() if name.startswith("sync.")]
+    assert profiling.report()["svd.jacobi"]["count"] == 1
+    profiling.reset()
 
 
 def test_spans_enter_no_profiler_range_when_nothing_records(problem, monkeypatch):
@@ -200,7 +236,7 @@ def test_spans_enter_no_profiler_range_when_nothing_records(problem, monkeypatch
     stages.decompose_stage(vel.v_k, cfg, device="cpu")
     report, counts = profiling.report(), profiling.counts()
     profiling.reset()
-    assert report["solve.window"]["count"] == 1 and report["svd.library"]["count"] == 1
+    assert report["solve.window"]["count"] == 1 and report["svd.jacobi"]["count"] == 1
     assert counts["sync.solve.cg"] == report["sync.solve.cg"]["count"]
     assert counts["solve.inner_iters"] >= vel.iterations
 
