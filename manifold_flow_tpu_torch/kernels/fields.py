@@ -48,6 +48,8 @@ _MIN_FRAMES = {"amplitude": 3, "phase": 2, "phase_mm_per_ms": 2}
 # ops/interpolate.py:34 _kernel's kinds (the codes of csrc rbf_phi).
 RBF_KINDS = {"multiquadric": 0, "inverse_multiquadric": 1, "gaussian": 2,
              "linear": 3, "thin_plate": 4}
+# The right-hand sides a block of K17's fit takes (csrc kFitCols).
+FIT_COLS = 32
 
 
 def wave_speed(movie: torch.Tensor, triangles: torch.Tensor, grad_w: torch.Tensor,
@@ -163,7 +165,9 @@ def rbf_fit(c: torch.Tensor, eps: torch.Tensor, planes, kind: str,
     each element's updates in dgetf2's order; then a warp substitutes back
     through U for its 4 columns, 32 rows at a time in registers. No host
     sync: the caller reads info. A launch that works in the workspace adds
-    1 to the utils.profiling count `s2.fit_workspace`."""
+    1 to the utils.profiling count `s2.fit_workspace`; every launch adds its
+    block count, ceil(planes T / 32), to `s2.fit_factorizations`, since each
+    block factors A alone."""
     dtype = _rbf_args(c, c, eps, kind)
     planes = tuple(planes)
     if len(planes) not in (1, 2):
@@ -185,6 +189,7 @@ def rbf_fit(c: torch.Tensor, eps: torch.Tensor, planes, kind: str,
     work = _workspace("rbf_fit", dtype, device, e, t, len(planes))
     if work is not None:
         profiling.count("s2.fit_workspace")
+    profiling.count("s2.fit_factorizations", (len(planes) * t + FIT_COLS - 1) // FIT_COLS)
     _launch("rbf_fit", dtype, device, c.data_ptr(), eps.data_ptr(), planes[0].data_ptr(),
             _ptr(planes[1] if len(planes) == 2 else None), w.data_ptr(), info.data_ptr(),
             _ptr(pivots), _ptr(work), e, t, RBF_KINDS[kind], float(smooth))

@@ -144,7 +144,7 @@ def interpolate_stage(mesh: TriMesh, electrode_coords, electrode_data,
     `timings`, when given, receives seconds: 'compute' (until the result is
     on the host) and 'write' (the CSV, or queueing it), and 'trace', the
     stage's utils.profiling record (spans `s2.hilbert`, `s2.fit`, `s2.eval`
-    and the count `s2.fit_workspace`).
+    and the counts `s2.fit_workspace`, `s2.fit_factorizations`).
     """
     def window(movie):
         if sfreq is None:

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from manifold_flow_tpu_torch.geometry import synthetic
+from manifold_flow_tpu_torch.kernels import fields as kfields
+from manifold_flow_tpu_torch.ops import interpolate
 from manifold_flow_tpu_torch.pipeline import stages
 from manifold_flow_tpu_torch.pipeline.config import PipelineConfig
 from manifold_flow_tpu_torch.solve import api, cg
@@ -354,6 +356,23 @@ def test_interpolate_stage_records_its_spans(problem, phases):
     assert set(rec["spans"]) == want
     assert all(rec["spans"][name]["count"] == 1 for name in want)
     assert "s2.fit_workspace" not in rec["counts"]
+
+
+@pytest.mark.parametrize("n_planes", [1, 2])
+def test_rbf_fit_counts_no_factorizations_on_cpu(n_planes):
+    """`s2.fit_factorizations` counts the card's fit blocks only: the plain
+    fit on CPU tensors leaves it at 0, in the scope and in the registry, at
+    any number of electrodes (1024 here, the `hd1024` grid's)."""
+    rng = np.random.default_rng(28)
+    c = torch.from_numpy(rng.uniform(0.0, 62.0, (1024, 3)))
+    eps = interpolate.scipy_default_epsilon(c).reshape(1)
+    planes = [torch.from_numpy(rng.standard_normal((40, 1024))) for _ in range(n_planes)]
+    before = profiling.counts().get("s2.fit_factorizations", 0)
+    with profiling.record() as rec:
+        w, info = kfields.rbf_fit(c, eps, planes, "multiquadric")
+    assert w.shape == (n_planes, 1024, 40) and int(info[0]) == 0
+    assert rec.summary()["counts"].get("s2.fit_factorizations", 0) == 0
+    assert profiling.counts().get("s2.fit_factorizations", 0) == before
 
 
 def test_interpolate_spans_lie_on_the_profiler_timeline(problem, tmp_path):
